@@ -1,0 +1,212 @@
+"""Inference API, the port of `multiposenet_tpu/infer/predictor.py`:
+batched images or one image → joint forward → heatmap decode → person
+detection + NMS → PRN keypoint assignment.
+
+`Predictor.batch_forward` is the counterpart of `_batch_forward_impl`
+(the path `bench.py` times) and `Predictor.predict` of `predict`. On a
+CUDA device the heatmap decode always goes through the hand-written
+kernel (`ops/decode.py`, `csrc/decode_peaks.cu`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from multiposenet_tpu_torch import weights
+from multiposenet_tpu_torch.config import Config
+from multiposenet_tpu_torch.models.posenet import MultiPoseNet, torch_dtype
+from multiposenet_tpu_torch.models.prn import PRN
+from multiposenet_tpu_torch.ops import decode as decode_ops
+from multiposenet_tpu_torch.ops import image as image_ops
+from multiposenet_tpu_torch.ops import prn_ops
+from multiposenet_tpu_torch.ops.anchors import all_anchors
+from multiposenet_tpu_torch.ops.detection import postprocess_detections
+
+
+@dataclasses.dataclass
+class PersonPrediction:
+    """One detected person: box (y0, x0, y1, x1), score, keypoints[17, 3]
+    rows of (x, y, score) in original image coordinates."""
+
+    box: np.ndarray
+    score: float
+    keypoints: np.ndarray
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The caller's device, or CUDA when none is given. Without a GPU the
+    caller must ask for the CPU: there is no silent fallback."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class Predictor:
+    """Holds the model and PRN weights on one device and serves
+    predictions. Weights come from the JAX package's flax variables
+    (nested dicts of numpy arrays, see weights.py) or, when none are
+    given, from a seeded random init."""
+
+    def __init__(
+        self,
+        config: Config | None = None,
+        variables: Any | None = None,
+        prn_variables: Any | None = None,
+        image_size: int | None = None,
+        rng_seed: int = 0,
+        device: str | torch.device | None = None,
+        fold_bn: bool = False,
+        flip_tta: bool = False,
+    ):
+        if fold_bn:
+            raise NotImplementedError("BN folding (fold_bn) is not ported")
+        if flip_tta:
+            raise NotImplementedError("flip test-time augmentation "
+                                      "(flip_tta) is not ported")
+        self.config = config or Config()
+        cfg = self.config
+        if cfg.detector.pose_nms_oks > 0.0:
+            raise NotImplementedError(
+                "pose-level OKS NMS (detector.pose_nms_oks > 0) is not ported")
+        self.device = resolve_device(device)
+        self.image_size = image_size or cfg.train.image_size
+        self.dtype = torch_dtype(cfg.model.compute_dtype)
+
+        self.model = MultiPoseNet(cfg)
+        self.prn = PRN(cfg.prn.crop_height, cfg.prn.crop_width,
+                       cfg.model.num_keypoints, cfg.prn.hidden_units,
+                       dtype=self.dtype)
+        generator = torch.Generator().manual_seed(rng_seed)
+        if variables is None:
+            self.model.init_weights(generator)
+        else:
+            weights.load_posenet(self.model, variables)
+        if prn_variables is None:
+            self.prn.init_weights(generator)
+        else:
+            weights.load_prn(self.prn, prn_variables)
+        self.model.to(self.device).eval()
+        self.prn.to(self.device).eval()
+        self.anchors = torch.as_tensor(
+            all_anchors(self.image_size, cfg.detector).copy(),
+            device=self.device)
+
+    # ------------------------------------------------------------------ #
+
+    def _decode_cm(self, hm_cm: torch.Tensor) -> decode_ops.DecodedPeaks:
+        """Decode the channel-major heatmaps; on a CUDA tensor this is the
+        kernel's launch."""
+        if decode_ops.DECODE_LANES:
+            raise NotImplementedError(
+                "the maps-on-lanes decode (DECODE_LANES) is not ported")
+        return decode_ops.decode_heatmaps_cm(hm_cm, self.config.decode)
+
+    def _prn_assign(self, heatmaps_cm: torch.Tensor, hm_boxes: torch.Tensor,
+                    peaks: decode_ops.DecodedPeaks | None) -> torch.Tensor:
+        """Channel-major heatmaps + person boxes (heatmap coords) → per-person
+        keypoints [B, D, K, 3] (x, y, score) in heatmap coordinates, snapped
+        to the decoded peaks."""
+        cfg = self.config
+        hm_boxes = prn_ops.expand_boxes(hm_boxes, cfg.prn.crop_margin)
+        b, d = hm_boxes.shape[:2]
+        crops = prn_ops.crop_heatmaps_cm(heatmaps_cm, hm_boxes,
+                                         cfg.prn.crop_height,
+                                         cfg.prn.crop_width)
+        crops_km = prn_ops.to_channel_major(crops, cfg.model.num_keypoints)
+        prn_out = self.prn(crops_km, return_logits=True)
+        keypoints = prn_ops.keypoints_from_prn(
+            prn_out, crops_km, hm_boxes.reshape(b * d, 4),
+            cfg.prn.crop_height, cfg.prn.crop_width,
+        ).reshape(b, d, cfg.model.num_keypoints, 3)
+        if peaks is not None and cfg.prn.snap_radius_cells > 0:
+            keypoints = prn_ops.snap_to_peaks(
+                keypoints, hm_boxes, peaks.positions, peaks.scores,
+                peaks.valid, cfg.prn.crop_height, cfg.prn.crop_width,
+                cfg.prn.snap_radius_cells,
+            )
+        return keypoints
+
+    def _pipeline(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Model input (NHWC pixels or s4 cells) → boxes, keypoints and
+        peaks in model-input coordinates."""
+        cfg = self.config
+        out = self.model(x)
+        hm_cm = out["heatmaps_cm"]
+        peaks = self._decode_cm(hm_cm)
+        det = postprocess_detections(out["detector"], self.image_size,
+                                     cfg.detector, anchors=self.anchors)
+        stride = float(cfg.model.output_stride)
+        keypoints = self._prn_assign(hm_cm, det.boxes / stride, peaks)
+        keypoints[..., :2] *= stride
+        return {
+            "boxes": det.boxes,
+            "box_scores": det.scores,
+            "box_valid": det.valid,
+            "keypoints": keypoints,
+            "peak_positions": peaks.positions * stride,
+            "peak_scores": peaks.scores,
+            "peak_valid": peaks.valid,
+        }
+
+    def _model_input(self, images: torch.Tensor) -> torch.Tensor:
+        """uint8 batch → model input: s4-flat [B, S/4, S*12] → 4x4 cells,
+        [B, S, S, 3] → pixels (normalized unless the stem folds it)."""
+        raw = self.config.model.fold_input_norm
+        s = self.image_size
+        if images.ndim == 3 and images.shape[1:] == (s // 4, s * 12):
+            return (image_ops.s4_flat_to_cells(images, self.dtype) if raw
+                    else image_ops.normalize_s4_flat(images, self.dtype))
+        if images.ndim == 4 and images.shape[1:] == (s, s, 3):
+            return (images.float() if raw
+                    else image_ops.normalize(images))
+        raise NotImplementedError(
+            f"batch_forward takes uint8 [B, {s // 4}, {s * 12}] s4-flat "
+            f"batches or [B, {s}, {s}, 3] images; got {tuple(images.shape)}")
+
+    @torch.inference_mode()
+    def batch_forward(self, images: np.ndarray | torch.Tensor
+                      ) -> dict[str, torch.Tensor]:
+        """uint8 batch → per-image detections and keypoints (tensors on the
+        predictor's device, model-input coordinates).
+
+        images: [B, S/4, S*12] staged by ops.image.space_to_depth_flat4
+        (the fast path), or [B, S, S, 3] already letterboxed to S."""
+        images = torch.as_tensor(images).to(self.device, non_blocking=True)
+        return self._pipeline(self._model_input(images))
+
+    @torch.inference_mode()
+    def predict(self, image: np.ndarray) -> list[PersonPrediction]:
+        """uint8 [H, W, 3] RGB → per-person predictions in original image
+        coordinates."""
+        image = np.asarray(image)
+        if image.ndim != 3 or image.shape[-1] != 3:
+            raise ValueError(
+                "predict expects an RGB image of shape [H, W, 3], got "
+                f"{image.shape}")
+        x, scale = image_ops.resize_pad_normalize(
+            torch.as_tensor(image, device=self.device), self.image_size,
+            normalize_out=not self.config.model.fold_input_norm,
+        )
+        out = self._pipeline(x[None])
+        boxes = out["boxes"][0].float().cpu().numpy() / scale
+        scores = out["box_scores"][0].float().cpu().numpy()
+        valid = out["box_valid"][0].cpu().numpy()
+        kps = out["keypoints"][0].float().cpu().numpy()
+        kps[..., :2] /= scale
+        h, w = image.shape[:2]
+        results = []
+        for i in np.flatnonzero(valid):
+            box = np.clip(boxes[i], 0.0, [h - 1, w - 1, h - 1, w - 1])
+            kp = kps[i].copy()
+            kp[:, 0] = np.clip(kp[:, 0], 0.0, w - 1)
+            kp[:, 1] = np.clip(kp[:, 1], 0.0, h - 1)
+            results.append(PersonPrediction(box=box, score=float(scores[i]),
+                                            keypoints=kp))
+        return results

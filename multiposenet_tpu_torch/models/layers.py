@@ -1,0 +1,117 @@
+"""Building blocks shared by the port's models: SAME-padded convolution,
+inference BatchNorm with flax's cast points, nearest 2x upsampling and
+seeded initializers.
+
+Tensors are NCHW inside the models. Parameters live in float32 and are
+cast to the activation dtype at use, as flax does with `dtype=bfloat16`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def same_pad(n: int, k: int, s: int) -> tuple[int, int]:
+    """(before, after) padding of TF/JAX "SAME" for one spatial dim: the
+    extra element goes after, so a stride-2 3x3 conv on an even input
+    pads (0, 1)."""
+    total = max((math.ceil(n / s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_same(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    stride: int = 1,
+    groups: int = 1,
+) -> torch.Tensor:
+    """NCHW conv with SAME padding; weight [O, I/groups, kh, kw] and bias
+    are cast to x's dtype."""
+    kh, kw = weight.shape[2:]
+    top, bottom = same_pad(x.shape[2], kh, stride)
+    left, right = same_pad(x.shape[3], kw, stride)
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    if top == bottom and left == right:
+        return F.conv2d(x, w, b, stride, (top, left), groups=groups)
+    x = F.pad(x, (left, right, top, bottom))
+    return F.conv2d(x, w, b, stride, 0, groups=groups)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsampling of NCHW (one broadcast copy)."""
+    b, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(
+        b, c, 2 * h, 2 * w)
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's lecun_normal: a normal truncated at ±2 std, rescaled so the
+    variance is 1/fan_in."""
+    std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                     generator=generator)
+
+
+class Conv2d(nn.Module):
+    """SAME-padded conv with float32 parameters: weight [O, I/groups, k, k]
+    and an optional bias."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 groups: int = 1, bias: bool = True, bias_init: float = 0.0):
+        super().__init__()
+        self.stride, self.groups, self.bias_init = stride, groups, bias_init
+        self.weight = nn.Parameter(
+            torch.zeros(out_ch, in_ch // groups, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        if self.bias is not None:
+            nn.init.constant_(self.bias, self.bias_init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_same(x, self.weight, self.bias, self.stride,
+                           self.groups)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over NCHW channels, computed as flax does: in
+    float32, `(x - mean) * (rsqrt(var + eps) * scale) + bias`, then cast
+    back to x's dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = x.to(torch.float32, copy=True)
+        y.sub_(self.running_mean[:, None, None]).mul_(mul[:, None, None])
+        return y.add_(self.bias[:, None, None]).to(x.dtype)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return x.clamp(0.0, 6.0)
+
+
+def reset_all(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded initialization of every Conv2d (and other module that
+    defines `seeded_init`) in registration order; BatchNorm keeps flax's
+    init (scale 1, bias 0, mean 0, var 1)."""
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            m.reset_parameters(generator)
+        elif hasattr(m, "seeded_init"):
+            m.seeded_init(generator)

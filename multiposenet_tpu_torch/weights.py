@@ -1,0 +1,91 @@
+"""Weight bridge: the JAX package's flax variables → the port's modules.
+
+Input is the flax `variables` / `prn_variables` as nested dicts of numpy
+arrays (for example `jax.tree.map(np.asarray, variables)`); nothing here
+imports JAX. Conversions:
+  * conv kernels HWIO → OIHW, which maps the depthwise (3, 3, 1, C) to
+    (C, 1, 3, 3) and the pointwise (1, 1, C, O) to (O, C, 1, 1);
+  * the s4 stem kernel [4, 4, C, O] stays as it is (remapped at forward
+    time, models/mobilenet.py);
+  * BatchNorm scale/bias → weight/bias, batch_stats mean/var →
+    running_mean/running_var (eps stays the config's 1e-3);
+  * the keypoint head's bare heatmaps_* and segmentation_* params →
+    one output conv, heatmap channels first;
+  * Dense (in, out) → Linear (out, in) for the PRN.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _conv_kernel(k: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(k.transpose(3, 2, 0, 1))
+
+
+def posenet_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """flax MultiPoseNet variables → a state_dict for models.posenet."""
+    params = _flatten(variables["params"])
+    stats = _flatten(variables.get("batch_stats", {}))
+    sd: dict[str, np.ndarray] = {}
+    kp = "keypoint_head."
+    for name, v in params.items():
+        if name.startswith(kp + "heatmaps_") or name.startswith(
+                kp + "segmentation_"):
+            continue
+        stem, leaf = name.rsplit(".", 1)
+        if leaf == "kernel":
+            if stem == "backbone.stem.conv":
+                sd[name] = v
+            else:
+                sd[f"{stem}.weight"] = _conv_kernel(v)
+        elif leaf == "scale":
+            sd[f"{stem}.weight"] = v
+        else:
+            sd[name] = v
+    for name, v in stats.items():
+        stem, leaf = name.rsplit(".", 1)
+        sd[f"{stem}.running_{leaf}"] = v
+    hm_k, hm_b = params[kp + "heatmaps_kernel"], params[kp + "heatmaps_bias"]
+    if kp + "segmentation_kernel" in params:
+        hm_k = np.concatenate([hm_k, params[kp + "segmentation_kernel"]], -1)
+        hm_b = np.concatenate([hm_b, params[kp + "segmentation_bias"]])
+    sd[kp + "output.weight"] = _conv_kernel(hm_k)
+    sd[kp + "output.bias"] = hm_b
+    return {k: torch.as_tensor(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def prn_state_dict(prn_variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """flax PRN variables → a state_dict for models.prn."""
+    sd = {}
+    for name, v in _flatten(prn_variables["params"]).items():
+        stem, leaf = name.rsplit(".", 1)
+        if leaf == "kernel":
+            sd[f"{stem}.weight"] = np.ascontiguousarray(v.T)
+        else:
+            sd[name] = v
+    return {k: torch.as_tensor(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def load_posenet(model: nn.Module, variables: Mapping[str, Any]) -> None:
+    """Load flax variables into a models.posenet.MultiPoseNet (strict)."""
+    model.load_state_dict(posenet_state_dict(variables), strict=True)
+
+
+def load_prn(model: nn.Module, prn_variables: Mapping[str, Any]) -> None:
+    """Load flax variables into a models.prn.PRN (strict)."""
+    model.load_state_dict(prn_state_dict(prn_variables), strict=True)

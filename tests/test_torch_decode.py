@@ -1,0 +1,111 @@
+"""The port's heatmap decode (`multiposenet_tpu_torch.ops.decode`) against
+the JAX package's jnp reference and its Pallas kernel in interpret mode.
+
+Contract, as between the JAX package's own two decoders
+(`decode_pallas._decode_kernel` docstring): `valid` is equal everywhere,
+scores are equal everywhere, positions are equal on valid slots. Scores
+get 1e-5 absolute + 1e-5 relative: the blur sums seven taps per axis in
+another order than XLA's depthwise conv and banded matmul do, a few f32
+ulps on values of order 1. Positions are whole pixels plus a ±¼ shift
+from a sign, so they are compared exactly.
+
+On the CPU the port runs its plain PyTorch version; on a card the same
+entry point launches `csrc/decode_peaks.cu`, which test_torch_cuda.py
+holds against the plain version there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multiposenet_tpu.config import DecodeConfig as JaxDecodeConfig
+from multiposenet_tpu.ops import decode as jax_decode
+from multiposenet_tpu.ops.decode_pallas import decode_heatmaps_pallas
+from multiposenet_tpu_torch import kernels
+from multiposenet_tpu_torch.config import DecodeConfig
+from multiposenet_tpu_torch.ops import decode
+
+from decode_maps import CONFIGS, MAKERS, planted_maps
+
+SCORE_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _configs(kind):
+    return JaxDecodeConfig(**CONFIGS[kind]), DecodeConfig(**CONFIGS[kind])
+
+
+def _assert_contract(got, want):
+    valid = np.asarray(want.valid)
+    np.testing.assert_array_equal(got.valid.numpy(), valid)
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
+                               **SCORE_TOL)
+    np.testing.assert_array_equal(got.positions.numpy()[valid],
+                                  np.asarray(want.positions)[valid])
+
+
+@pytest.mark.parametrize("kind", sorted(MAKERS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jnp_reference(kind, dtype):
+    rng = np.random.RandomState(11)
+    hm = MAKERS[kind](rng, (2, 40, 56, 5))
+    jcfg, tcfg = _configs(kind)
+    if dtype == "bfloat16":
+        x_t = torch.as_tensor(hm).to(torch.bfloat16)
+        x_j = jnp.asarray(hm, jnp.bfloat16)
+    else:
+        x_t, x_j = torch.as_tensor(hm), jnp.asarray(hm)
+    want = jax_decode.decode_heatmaps(x_j, jcfg)
+    got = decode.decode_heatmaps(x_t, tcfg)
+    assert np.asarray(want.valid).any() and not np.asarray(want.valid).all()
+    _assert_contract(got, want)
+
+
+@pytest.mark.parametrize("kind", ["random", "planted", "plateau"])
+def test_plain_matches_pallas_interpret(kind):
+    """Same inputs through the TPU kernel, run as
+    tests/test_decode_pallas.py runs it (interpret=True)."""
+    rng = np.random.RandomState(5)
+    hm = MAKERS[kind](rng, (1, 32, 128, 3))
+    jcfg, tcfg = _configs(kind)
+    want = decode_heatmaps_pallas(jnp.asarray(hm), jcfg, interpret=True)
+    got = decode.decode_heatmaps(torch.as_tensor(hm), tcfg)
+    _assert_contract(got, want)
+
+
+def test_channel_major_entry_matches_nhwc():
+    rng = np.random.RandomState(2)
+    hm = planted_maps(rng, (2, 32, 32, 4))
+    cfg = DecodeConfig()
+    a = decode.decode_heatmaps(torch.as_tensor(hm), cfg)
+    b = decode.decode_heatmaps_cm(
+        torch.as_tensor(hm).permute(0, 3, 1, 2).contiguous(), cfg)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_fewer_peaks_than_slots_fill_with_invalid():
+    """A 3x3 map with a bump in the middle has one peak (every cell sees
+    the centre): slot 0 holds it, the other slots are -inf (invalid, score
+    0), as the TPU kernel emits them."""
+    hm = np.zeros((1, 3, 3, 1), np.float32)
+    hm[0, 1, 1, 0] = 4.0
+    got = decode.decode_heatmaps(torch.as_tensor(hm), DecodeConfig())
+    raw_scores, _, _ = decode.decode_maps(
+        torch.as_tensor(hm).permute(0, 3, 1, 2).contiguous(), DecodeConfig())
+    assert got.valid[0, 0].tolist() == [True] + [False] * 7
+    assert torch.isneginf(raw_scores[0, 1:]).all()
+    assert (got.scores[0, 0, 1:] == 0).all()
+    assert got.positions[0, 0, 0].tolist() == [1.0, 1.0]
+
+
+def test_rejects_unsupported_window():
+    with pytest.raises(ValueError, match="3x3"):
+        decode.decode_heatmaps(torch.zeros(1, 8, 8, 1),
+                               DecodeConfig(nms_window=5))
+
+
+def test_cpu_tensor_takes_plain_version_without_launch():
+    kernels.reset_launches()
+    decode.decode_heatmaps_cm(torch.rand(1, 2, 16, 16), DecodeConfig())
+    assert kernels.LAUNCHES == {}

@@ -1,0 +1,61 @@
+"""The port's image preprocessing against the JAX package's, on the same
+uint8 inputs: the s4-flat host staging and its device-side readers, and
+the letterbox resize of `predict`.
+
+f32 elementwise arithmetic on both sides, but XLA may contract the
+bilinear weights' multiply-adds into fused multiply-adds where PyTorch
+rounds each product: raw 0-255 pixels get 1e-3 absolute (observed 4.3e-4,
+a few ulps of values near 255), normalized values 1e-4 (the same error
+after the 1/(255 std) scaling).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multiposenet_tpu.ops import image as jax_image
+from multiposenet_tpu_torch.ops import image
+
+TOL = dict(atol=1e-4, rtol=1e-6)
+RAW_TOL = dict(atol=1e-3, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_s4_flat_readers_match(dtype):
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (2, 32, 48, 3)).astype(np.uint8)
+    flat = image.space_to_depth_flat4(imgs)
+    np.testing.assert_array_equal(flat, jax_image.space_to_depth_flat4(imgs))
+    t = torch.as_tensor(flat)
+    for port_fn, jax_fn in ((image.s4_flat_to_cells,
+                             jax_image.s4_flat_to_cells),
+                            (image.normalize_s4_flat,
+                             jax_image.normalize_s4_flat)):
+        got = port_fn(t, getattr(torch, dtype)).float().numpy()
+        want = np.asarray(jax_fn(jnp.asarray(flat), jnp.dtype(dtype)),
+                          np.float32)
+        # bf16 output: both round the same f32 value once.
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_normalize_matches():
+    px = np.random.RandomState(1).randint(0, 256, (4, 5, 3)).astype(np.uint8)
+    np.testing.assert_allclose(
+        image.normalize(torch.as_tensor(px)).numpy(),
+        np.asarray(jax_image.normalize(jnp.asarray(px))), **TOL)
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (96, 150), (150, 96),
+                                   (7, 9), (1333, 97)])
+@pytest.mark.parametrize("normalize_out", [True, False])
+def test_resize_pad_normalize_matches(shape, normalize_out):
+    img = np.random.RandomState(2).randint(0, 256, (*shape, 3)).astype(
+        np.uint8)
+    want, want_scale = jax_image.resize_pad_normalize(
+        jnp.asarray(img), 128, normalize_out=normalize_out)
+    got, scale = image.resize_pad_normalize(torch.as_tensor(img), 128,
+                                            normalize_out=normalize_out)
+    assert scale == float(want_scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **(TOL if normalize_out else RAW_TOL))
