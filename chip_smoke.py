@@ -1,9 +1,14 @@
 """Smoke test of the PyTorch port (`multiposenet_tpu_torch`) on one NVIDIA
-GPU: builds the hand-written CUDA kernels from `csrc/`, holds each against
-its plain PyTorch version, holds the float32 model forward on the card
-against the same weights on the CPU, then drives the Config.fast()
-inference pipeline at full width (512² input, 128² heatmaps, batch 128)
-through `Predictor.batch_forward` and serves three `predict` requests.
+GPU: builds the hand-written CUDA kernels from `csrc/` (B1 decode_peaks,
+B2 decode_lanes, B3 kp_tail), holds each against its plain PyTorch version
+at the shapes its path gives it (B2 also against B1, bit for bit), holds
+the float32 forwards of Config.fast() and of the served Config.crowd()
+model (BN folded, fused tail) on the card against the same weights on the
+CPU, then drives two paths at full width (512² input, 128² heatmaps,
+batch 128) through `Predictor.batch_forward`: Config.fast() (B1), and
+Config.crowd() with BN folded, the fused tail and the maps-on-lanes
+decode (B3 and B2). It serves `predict` requests on the first and
+`predict`, `predict_keypoints` and `predict_given_boxes` on the second.
 
     python3 chip_smoke.py
 
@@ -18,6 +23,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -29,10 +35,12 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 outside
-# the tensor cores, the rate of the decode kernel's scalar arithmetic.
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
+# tensor cores (the rate of the decode kernels' scalar arithmetic) and the
+# dense bf16 tensor-core rate (the tail's products are bf16 operations).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 BATCH, IMAGE = 128, 512
 
 
@@ -97,7 +105,8 @@ def test_maps(n: int, h: int, w: int, device) -> torch.Tensor:
     return torch.cat([noise, bumps, plateaus]).to(torch.bfloat16)
 
 
-def compare_raw(got, want, threshold: float) -> tuple[float, int]:
+def compare_raw(got, want, threshold: float,
+                what: str = "decode kernel") -> tuple[float, int]:
     """Kernel vs plain (scores, ys, xs), bit for bit on every slot: both
     rank the same f32 values in the same (value desc, flat asc) order, the
     -inf fillers of maps with fewer than P peaks included. Returns (max
@@ -106,7 +115,7 @@ def compare_raw(got, want, threshold: float) -> tuple[float, int]:
     w_scores, w_ys, w_xs = want
     if not (torch.equal(scores, w_scores) and torch.equal(ys, w_ys)
             and torch.equal(xs, w_xs)):
-        raise AssertionError("decode kernel disagrees with its plain version")
+        raise AssertionError(f"{what} disagrees with its reference")
     finite = torch.isfinite(w_scores)
     err = max(float((scores[finite] - w_scores[finite]).abs().max()),
               float((ys - w_ys).abs().max()), float((xs - w_xs).abs().max()))
@@ -149,36 +158,181 @@ def phase_decode_kernel(decode, kernels, cfg, device) -> dict:
     return row
 
 
-def phase_parity_f32(Config, MultiPoseNet, image_ops, device) -> None:
-    """Config.fast() in float32 at full width: the card's forward against
-    the CPU forward of the same module. TF32 is switched off for this
-    phase (cuDNN would otherwise run f32 convs in TF32) and restored."""
-    cfg = Config.fast()
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                compute_dtype="float32"))
-    model = MultiPoseNet(cfg)
-    model.init_weights(torch.Generator().manual_seed(0))
-    model.eval()
-    model_gpu = copy.deepcopy(model).to(device)
-    imgs = planted_scenes(np.random.RandomState(1), 2, IMAGE, IMAGE)
-    cells = image_ops.s4_flat_to_cells(
-        torch.as_tensor(image_ops.space_to_depth_flat4(imgs)))
+@contextlib.contextmanager
+def no_tf32():
+    """Full float32 convs and matmuls (cuDNN would run f32 in TF32)."""
     flags = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        with torch.inference_mode():
-            ref = model(cells)
-            out = model_gpu(cells.to(device))
-            torch.cuda.synchronize()
+        yield
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@contextlib.contextmanager
+def decode_lanes_on(decode):
+    """ops.decode.DECODE_LANES on for a phase, restored after."""
+    old = decode.DECODE_LANES
+    decode.DECODE_LANES = True
+    try:
+        yield
+    finally:
+        decode.DECODE_LANES = old
+
+
+def phase_tail_kernel(kp_tail, layers, device) -> dict:
+    """B3 at the crowd path's shapes in bf16 against its plain version
+    (TF32 off for the plain version's f32 conv), with cuDNN's bf16 conv
+    of the already-summed input as the library yardstick and the eager
+    upsample-add-conv tail of the plain head for information."""
+    import torch.nn.functional as F
+
+    b, c, h, w, k = BATCH, 64, IMAGE // 4, IMAGE // 4, 17
+    g = torch.Generator(device=device).manual_seed(1)
+    bf16 = torch.bfloat16
+    l2 = torch.randn(b, c, h, w, generator=g, device=device).to(bf16)
+    z8 = torch.randn(b, c, h // 2, w // 2, generator=g, device=device).to(bf16)
+    weight = torch.randn(k, c, 3, 3, generator=g, device=device) / (9 * c) ** .5
+    bias = torch.randn(k, generator=g, device=device)
+    with no_tf32():
+        got = kp_tail.kp_tail_cm(l2, z8, weight, bias)
+        want = kp_tail.kp_tail_plain(l2, z8, weight, bias)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        # The bf16 products are exact in f32 on both sides; only the order
+        # of the f32 sum differs before the one rounding to bf16.
+        tol = 2.0 ** -7 * float(want.float().abs().max())
+        if not torch.isfinite(got.float()).all() or err > tol:
+            raise AssertionError(f"tail kernel differs by {err} (tol {tol})")
+        kernel_ms = cuda_ms(lambda: kp_tail.kp_tail_cm(l2, z8, weight, bias),
+                            reps=10, rounds=5)
+        plain_ms = cuda_ms(lambda: kp_tail.kp_tail_plain(l2, z8, weight, bias),
+                           reps=3, rounds=3)
+    x = l2 + layers.upsample2x(z8)
+    wb, bb = weight.to(bf16), bias.to(bf16)
+    library_ms = cuda_ms(lambda: F.conv2d(x, wb, bb, padding=1), reps=10,
+                         rounds=5)
+    eager_ms = cuda_ms(lambda: F.conv2d(l2 + layers.upsample2x(z8), wb, bb,
+                                        padding=1), reps=10, rounds=5)
+    bytes_moved = (l2.numel() + z8.numel() + b * k * h * w) * 2 \
+        + weight.numel() * 2 + k * 4
+    ops = 2 * b * h * w * 9 * c * k
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    row = {
+        "name": kp_tail.KERNEL, "route": "cuda",
+        "source": "multiposenet_tpu_torch/csrc/kp_tail.cu",
+        "replaces": "multiposenet_tpu/ops/kp_tail_pallas.py:67",
+        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms, "held_against_plain": True,
+    }
+    emit({"phase": "tail_kernel", "l2": [b, c, h, w], "z8": [b, c, h // 2,
+          w // 2], "out": [b, k, h, w], "dtype": "bfloat16",
+          "tolerance": "2**-7 x max|plain| (1 bf16 ulp at the output's "
+                       "scale)", "tol": tol, "max_abs_err": err,
+          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "library_ms": library_ms,
+          "library": "F.conv2d(l2 + up2(z8) precomputed, bf16, cuDNN)",
+          "eager_tail_ms": eager_ms, "bound_ms": row["bound_ms"],
+          "bound_by": row["bound_by"], "bytes": bytes_moved, "ops": ops})
+    return row
+
+
+def phase_decode_lanes_kernel(decode, cfg, device) -> dict:
+    """B2 on the 2176 test maps of 128² in both layouts it is built for:
+    channel-major (as B3 writes the crowd path's heatmaps) and
+    channels-last; bit for bit against its plain version and against B1."""
+    n, h, w = BATCH * 17, 128, 128
+    maps = test_maps(n, h, w, device)
+    cm = maps.view(BATCH, 17, h, w)
+    layouts = {"channel_major": cm,
+               "channels_last": cm.permute(0, 2, 3, 1).contiguous()
+               .permute(0, 3, 1, 2)}
+    want = decode.decode_maps_plain(maps, cfg)
+    b1 = decode.decode_maps(cm, cfg)
+    ms, err, n_valid = {}, 0.0, 0
+    for name, x in layouts.items():
+        got = decode.decode_maps_lanes(x, cfg)
+        torch.cuda.synchronize()
+        e, n_valid = compare_raw(got, want, cfg.score_threshold,
+                                 f"lanes decode ({name}) vs plain")
+        compare_raw(got, b1, cfg.score_threshold,
+                    f"lanes decode ({name}) vs decode_peaks")
+        err = max(err, e)
+        ms[name] = cuda_ms(lambda: decode.decode_maps_lanes(x, cfg), reps=20,
+                           rounds=5)
+    plain_ms = cuda_ms(lambda: decode.decode_maps_plain(maps, cfg), reps=3,
+                       rounds=3)
+    p = cfg.max_peaks_per_channel
+    n_taps = len(decode.smoothing_taps(cfg))
+    bytes_moved = n * h * w * maps.element_size() + 3 * n * p * 4
+    ops = n * h * w * (4 * n_taps + 9)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    row = {
+        "name": decode.LANES_KERNEL, "route": "cuda",
+        "source": "multiposenet_tpu_torch/csrc/decode_lanes.cu",
+        "replaces": "multiposenet_tpu/ops/decode_pallas.py:366",
+        "max_abs_err": err, "ms": ms["channel_major"],
+        "ms_by_layout": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None, "held_against_plain": True,
+    }
+    emit({"phase": "decode_lanes_kernel", "maps": [n, h, w],
+          "dtype": "bfloat16", "exact_vs_plain": True,
+          "exact_vs_decode_peaks": True, "valid_slots": n_valid,
+          "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
+          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+          "bytes": bytes_moved, "ops": ops})
+    return row
+
+
+def parity_f32_pairs(model, cells, device) -> dict:
+    """(card, CPU) output pairs of one float32 module on the same cells,
+    TF32 off."""
+    model_gpu = copy.deepcopy(model).to(device)
+    with no_tf32(), torch.inference_mode():
+        ref = model(cells)
+        out = model_gpu(cells.to(device))
+        torch.cuda.synchronize()
     pairs = {"heatmaps_cm": (out["heatmaps_cm"], ref["heatmaps_cm"])}
     for level, d in ref["detector"].items():
-        for kind in ("cls", "box"):
+        for kind in d:
             pairs[f"{level}.{kind}"] = (out["detector"][level][kind], d[kind])
+    return pairs
+
+
+def phase_parity_f32(Config, MultiPoseNet, folding, kp_tail, kernels,
+                     image_ops, device) -> None:
+    """Config.fast() and the served Config.crowd() model (BN folded in
+    place, fused tail on, so B3 runs inside it at full width) in float32:
+    the card's forward against the CPU forward of the same module. TF32
+    is switched off for this phase and restored."""
+    imgs = planted_scenes(np.random.RandomState(1), 2, IMAGE, IMAGE)
+    cells = image_ops.s4_flat_to_cells(
+        torch.as_tensor(image_ops.space_to_depth_flat4(imgs)))
+    pairs = {}
+    for name, cfg in (("fast", Config.fast()), ("crowd", Config.crowd())):
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, compute_dtype="float32",
+            kp_tail_pallas=name == "crowd"))
+        model = MultiPoseNet(cfg)
+        model.init_weights(torch.Generator().manual_seed(0))
+        model.eval()
+        if name == "crowd":
+            folding.fold_batch_norm_(model)
+        kernels.reset_launches()
+        for key, pair in parity_f32_pairs(model, cells, device).items():
+            pairs[f"{name}.{key}"] = pair
+        if name == "crowd" and kernels.LAUNCHES.get(kp_tail.KERNEL) != 1:
+            raise AssertionError(f"parity_f32: crowd forward launched "
+                                 f"{kernels.LAUNCHES}")
     # cuDNN and the CPU sum the same f32 products in other orders over
     # about twenty layers: allow 1e-3 of each output's scale, orders of
     # magnitude below what a wrong layout or weight would give.
@@ -193,20 +347,16 @@ def phase_parity_f32(Config, MultiPoseNet, image_ops, device) -> None:
             raise AssertionError(
                 f"parity_f32: {name} differs by {errs[name]} (scale {scale})")
     emit({"phase": "parity_f32", "tf32": False, "batch": 2, "image": IMAGE,
+          "models": ["Config.fast()", "Config.crowd() BN folded, tail on"],
           "tolerance": "1e-3 x max(1, max|cpu|)", "max_abs_err": errs})
 
 
-def phase_pipeline(Config, Predictor, decode, kernels, image_ops,
-                   detection, card: str) -> int:
-    """Config.fast() (bf16) at full width through Predictor.batch_forward
-    on s4-flat uint8 batches. Random-init weights start the class bias at
-    the 0.01 prior, under fast()'s 0.05 score threshold, so the threshold
-    is set to 0.0 here to give NMS and the PRN real detections (and the
-    heatmap bias raised, see below)."""
-    cfg = Config.fast()
-    cfg = cfg.replace(detector=dataclasses.replace(cfg.detector,
-                                                   score_threshold=0.0))
-    pred = Predictor(cfg, image_size=IMAGE)
+def drive_batches(pred, cfg, kernels, image_ops, rng, expect: dict) -> dict:
+    """Drive `pred.batch_forward` on full-size s4-flat uint8 batches on the
+    device, with the launch counts set to 0 just before and read just
+    after; each kernel in `expect` must launch that many times per batch,
+    and no other. Checks the outputs' shapes and that some detections and
+    peaks are valid."""
     k, p, d = cfg.model.num_keypoints, cfg.decode.max_peaks_per_channel, \
         cfg.detector.max_detections
     # Random weights also leave every smoothed heatmap under the decode's
@@ -214,12 +364,12 @@ def phase_pipeline(Config, Predictor, decode, kernels, image_ops,
     # unexercised: the heatmap channels' output bias is set to 0.25.
     with torch.no_grad():
         pred.model.keypoint_head.output.bias[:k].fill_(0.25)
-    rng = np.random.RandomState(2)
     batches = [torch.as_tensor(image_ops.space_to_depth_flat4(
         planted_scenes(rng, BATCH, IMAGE, IMAGE))).to(pred.device)
         for _ in range(2)]
     n_warm, n_timed = 2, 5
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     times = []
     for i in range(n_warm + n_timed):
@@ -229,9 +379,10 @@ def phase_pipeline(Config, Predictor, decode, kernels, image_ops,
         times.append(time.perf_counter() - t0)
     launches = dict(kernels.LAUNCHES)
     calls = n_warm + n_timed
-    if launches.get(decode.KERNEL, 0) != calls:
-        raise AssertionError(
-            f"expected one decode launch per batch ({calls}), got {launches}")
+    want = {name: per * calls for name, per in expect.items()}
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    peak_mem = torch.cuda.max_memory_allocated() / 2 ** 30
 
     shapes = {"boxes": (BATCH, d, 4), "box_scores": (BATCH, d),
               "box_valid": (BATCH, d), "keypoints": (BATCH, d, k, 3),
@@ -243,32 +394,59 @@ def phase_pipeline(Config, Predictor, decode, kernels, image_ops,
             raise AssertionError(f"pipeline: bad {name} {tuple(t.shape)}")
     if not (bool(out["box_valid"].any()) and bool(out["peak_valid"].any())):
         raise AssertionError("pipeline: no valid detection or peak")
+    ms = statistics.mean(times[n_warm:]) * 1e3
+    return {"out": out, "launches": launches, "last": batches[(calls - 1) % 2],
+            "summary": {
+                "batch": BATCH, "image": IMAGE,
+                "staging": "s4-flat uint8 on the device", "ms_per_iter": ms,
+                "img_per_s": BATCH / ms * 1e3,
+                "iter_ms": [t * 1e3 for t in times], "launches": launches,
+                "valid_detections": int(out["box_valid"].sum()),
+                "valid_peaks": int(out["peak_valid"].sum()),
+                "peak_mem_gib": peak_mem}}
 
-    # The pipeline's own heatmaps through the kernel and the plain version.
+
+def pipeline_checks(pred, cfg, batch, decode, detection, plain_name) -> dict:
+    """The decode the pipeline took, on the pipeline's own heatmaps,
+    against the plain version (bit for bit), and the stage times."""
     with torch.inference_mode():
-        x = pred._model_input(batches[(calls - 1) % 2])
+        x = pred._model_input(batch)
         hm_cm = pred.model(x)["heatmaps_cm"]
+        route = (decode.decode_maps_lanes if decode.DECODE_LANES
+                 else decode.decode_maps)
         err, n_valid = compare_raw(
-            decode.decode_maps(hm_cm, cfg.decode),
+            route(hm_cm, cfg.decode),
             decode.decode_maps_plain(hm_cm.reshape(-1, *hm_cm.shape[2:]),
                                      cfg.decode),
-            cfg.decode.score_threshold)
-        stages = stage_times(pred, cfg, x, hm_cm, decode, detection)
+            cfg.decode.score_threshold, plain_name)
+        stages = stage_times(pred, cfg, x, hm_cm, detection)
+    return {"kernel_vs_plain_on_pipeline_heatmaps": {
+                "kernel": plain_name, "exact": True, "max_abs_err": err,
+                "valid_slots": n_valid},
+            "stage_ms": stages}
 
-    ms = statistics.mean(times[n_warm:]) * 1e3
+
+def phase_pipeline(Config, Predictor, decode, kernels, image_ops,
+                   detection, card: str) -> int:
+    """Config.fast() (bf16) at full width through Predictor.batch_forward
+    on s4-flat uint8 batches. Random-init weights start the class bias at
+    the 0.01 prior, under fast()'s 0.05 score threshold, so the threshold
+    is set to 0.0 here to give NMS and the PRN real detections (and the
+    heatmap bias raised, see drive_batches)."""
+    cfg = Config.fast()
+    cfg = cfg.replace(detector=dataclasses.replace(cfg.detector,
+                                                   score_threshold=0.0))
+    pred = Predictor(cfg, image_size=IMAGE)
+    rng = np.random.RandomState(2)
+    run = drive_batches(pred, cfg, kernels, image_ops, rng,
+                        {decode.KERNEL: 1})
     emit({"phase": "pipeline", "card": card, "config": "Config.fast()",
           "score_threshold_override": 0.0, "heatmap_bias_override": 0.25,
-          "batch": BATCH, "image": IMAGE,
-          "staging": "s4-flat uint8 on the device", "ms_per_iter": ms,
-          "img_per_s": BATCH / ms * 1e3,
-          "iter_ms": [t * 1e3 for t in times], "launches": launches,
-          "valid_detections": int(out["box_valid"].sum()),
-          "valid_peaks": int(out["peak_valid"].sum()),
-          "kernel_vs_plain_on_pipeline_heatmaps": {
-              "exact": True, "max_abs_err": err, "valid_slots": n_valid},
-          "stage_ms": stages,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+          **run["summary"],
+          **pipeline_checks(pred, cfg, run["last"], decode, detection,
+                            decode.KERNEL)})
 
+    k = cfg.model.num_keypoints
     sizes = [(480, 640), (512, 512), (300, 700)]
     images = [planted_scenes(rng, 1, h, w)[0] for h, w in sizes]
     pred.predict(images[0])  # warm-up, outside the counted window
@@ -279,11 +457,7 @@ def phase_pipeline(Config, Predictor, decode, kernels, image_ops,
         t0 = time.perf_counter()
         people = pred.predict(img)
         latencies.append((time.perf_counter() - t0) * 1e3)
-        for person in people:
-            if not (np.isfinite(person.box).all()
-                    and np.isfinite(person.keypoints).all()
-                    and person.keypoints.shape == (k, 3)):
-                raise AssertionError("predict: bad person")
+        check_people(people, k)
         persons.append(len(people))
     predict_launches = kernels.LAUNCHES.get(decode.KERNEL, 0)
     if predict_launches != len(images) or not all(persons):
@@ -292,21 +466,110 @@ def phase_pipeline(Config, Predictor, decode, kernels, image_ops,
     emit({"phase": "predict", "card": card, "sizes": sizes,
           "persons": persons, "latency_ms": latencies,
           "launches": predict_launches})
-    return launches[decode.KERNEL]
+    return run["launches"][decode.KERNEL]
 
 
-def stage_times(pred, cfg, x, hm_cm, decode, detection) -> dict:
+def check_people(people, k: int) -> None:
+    for person in people:
+        if not (np.isfinite(person.box).all()
+                and np.isfinite(person.keypoints).all()
+                and person.keypoints.shape == (k, 3)):
+            raise AssertionError("predict: bad person")
+
+
+def phase_pipeline_crowd(Config, Predictor, decode, kp_tail, kernels,
+                         image_ops, detection, card: str) -> dict:
+    """Config.crowd() served as an exported model is: bf16, BN folded
+    (fold_bn=True), the fused keypoint tail (kp_tail_pallas, B3) and the
+    maps-on-lanes decode (DECODE_LANES, B2, on for this phase only), at
+    full width through Predictor.batch_forward: one B3 and one B2 launch
+    per batch and no B1. With random weights the IoU-aware score is about
+    0.01 x 0.5² = 0.0025, under crowd's 0.05 threshold, which is set to
+    0.0 here; the heatmap bias is raised as on the fast() path. Then a few
+    requests through predict, predict_keypoints and predict_given_boxes,
+    each with its launch counts. Returns the batch path's launches."""
+    cfg = Config.crowd()
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, kp_tail_pallas=True),
+        detector=dataclasses.replace(cfg.detector, score_threshold=0.0))
+    pred = Predictor(cfg, image_size=IMAGE, fold_bn=True)
+    if not pred.config.model.bn_folded:
+        raise AssertionError("crowd: the served model is not folded")
+    rng = np.random.RandomState(3)
+    with decode_lanes_on(decode):
+        run = drive_batches(pred, cfg, kernels, image_ops, rng,
+                            {kp_tail.KERNEL: 1, decode.LANES_KERNEL: 1})
+        emit({"phase": "pipeline_crowd", "card": card,
+              "config": "Config.crowd(kp_tail_pallas=True), fold_bn=True, "
+                        "DECODE_LANES=True",
+              "score_threshold_override": 0.0, "heatmap_bias_override": 0.25,
+              **run["summary"],
+              **pipeline_checks(pred, cfg, run["last"], decode, detection,
+                                decode.LANES_KERNEL)})
+        requests = phase_predict_crowd(pred, cfg, decode, kp_tail, kernels,
+                                       rng)
+    emit({"phase": "predict_crowd", "card": card, **requests})
+    return run["launches"]
+
+
+def phase_predict_crowd(pred, cfg, decode, kp_tail, kernels, rng) -> dict:
+    """Requests on the crowd predictor: predict and predict_given_boxes
+    take B3 and B2, predict_keypoints B3 and B1 (its NHWC decode), once
+    per request. 30 given boxes run as three chunks of crowd's 12 PRN
+    slots."""
+    k = cfg.model.num_keypoints
+    sizes = [(480, 640), (512, 512), (300, 700)]
+    images = [planted_scenes(rng, 1, h, w)[0] for h, w in sizes]
+    boxes = np.array([[40 + 9 * i, 30 + 13 * i, 200 + 9 * i, 120 + 13 * i]
+                      for i in range(30)], np.float32)
+    requests = {
+        "predict": lambda img: check_people(pred.predict(img), k) or 1,
+        "predict_keypoints": lambda img: pred.predict_keypoints(img),
+        "predict_given_boxes": lambda img: pred.predict_given_boxes(img,
+                                                                    boxes),
+    }
+    expect = {"predict": {kp_tail.KERNEL: 1, decode.LANES_KERNEL: 1},
+              "predict_keypoints": {kp_tail.KERNEL: 1, decode.KERNEL: 1},
+              "predict_given_boxes": {kp_tail.KERNEL: 1,
+                                      decode.LANES_KERNEL: 1}}
+    out = {"sizes": sizes, "given_boxes": len(boxes)}
+    for name, fn in requests.items():
+        fn(images[0])  # warm-up, outside the counted window
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        latencies = []
+        for img in images:
+            t0 = time.perf_counter()
+            res = fn(img)
+            latencies.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(kernels.LAUNCHES)
+        want = {n: c * len(images) for n, c in expect[name].items()}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        if name == "predict_keypoints":
+            pos, _, valid = res
+            if pos.shape != (k, cfg.decode.max_peaks_per_channel, 2) or \
+                    not np.isfinite(pos).all():
+                raise AssertionError("predict_keypoints: bad peaks")
+        elif name == "predict_given_boxes":
+            if res.shape != (len(boxes), k, 3) or not np.isfinite(res).all():
+                raise AssertionError("predict_given_boxes: bad keypoints")
+        out[name] = {"latency_ms": latencies, "launches": launches}
+    return out
+
+
+def stage_times(pred, cfg, x, hm_cm, detection) -> dict:
     """CUDA-event times of the pipeline's stages on one batch (each run
-    alone, so the sum omits the overlap of the whole program)."""
+    alone, so the sum omits the overlap of the whole program); the decode
+    is the one the predictor takes."""
     out = pred.model(x)
     det = detection.postprocess_detections(out["detector"], IMAGE,
                                            cfg.detector, anchors=pred.anchors)
-    peaks = decode.decode_heatmaps_cm(hm_cm, cfg.decode)
+    peaks = pred._decode_cm(hm_cm)
     stride = float(cfg.model.output_stride)
     return {
         "model": cuda_ms(lambda: pred.model(x), reps=3, rounds=3),
-        "decode": cuda_ms(lambda: decode.decode_heatmaps_cm(hm_cm, cfg.decode),
-                          reps=10, rounds=3),
+        "decode": cuda_ms(lambda: pred._decode_cm(hm_cm), reps=10, rounds=3),
         "detection": cuda_ms(lambda: detection.postprocess_detections(
             out["detector"], IMAGE, cfg.detector, anchors=pred.anchors),
             reps=3, rounds=3),
@@ -317,14 +580,15 @@ def stage_times(pred, cfg, x, hm_cm, decode, detection) -> dict:
 
 def ptxas_summary(log: str) -> dict:
     """Registers and spills that `nvcc -Xptxas -v` reports for the
-    8-peak instantiations (the main path's P)."""
+    instantiations the main paths take: the decodes' 8 peaks (P) and the
+    tail's 17 outputs padded to 20 (KP)."""
     out, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif entry and ("registers" in line or "spill" in line):
             out.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
-    return {k: v for k, v in out.items() if "Li8E" in k}
+    return {k: v for k, v in out.items() if "Li8E" in k or "Li20E" in k}
 
 
 def main() -> int:
@@ -336,9 +600,11 @@ def main() -> int:
     try:
         from multiposenet_tpu_torch import kernels
         from multiposenet_tpu_torch.config import Config
+        from multiposenet_tpu_torch.infer import folding
         from multiposenet_tpu_torch.infer.predictor import Predictor
+        from multiposenet_tpu_torch.models import layers
         from multiposenet_tpu_torch.models.posenet import MultiPoseNet
-        from multiposenet_tpu_torch.ops import decode, detection
+        from multiposenet_tpu_torch.ops import decode, detection, kp_tail
         from multiposenet_tpu_torch.ops import image as image_ops
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}",
@@ -365,12 +631,23 @@ def main() -> int:
           "cuda": torch.version.cuda, "kernels_built": sorted(ptxas),
           "build_s": build_s, "ptxas": ptxas})
 
-    row = phase_decode_kernel(decode, kernels, Config.fast().decode, device)
-    phase_parity_f32(Config, MultiPoseNet, image_ops, device)
-    row["launches"] = phase_pipeline(Config, Predictor, decode, kernels,
-                                     image_ops, detection, card)
+    rows = [phase_decode_kernel(decode, kernels, Config.fast().decode, device),
+            phase_decode_lanes_kernel(decode, Config.crowd().decode, device),
+            phase_tail_kernel(kp_tail, layers, device)]
+    phase_parity_f32(Config, MultiPoseNet, folding, kp_tail, kernels,
+                     image_ops, device)
+    # Each path's launches, counted from 0 just before it runs.
+    launches = {decode.KERNEL: phase_pipeline(
+        Config, Predictor, decode, kernels, image_ops, detection, card)}
+    launches.update(phase_pipeline_crowd(
+        Config, Predictor, decode, kp_tail, kernels, image_ops, detection,
+        card))
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} never ran on its path")
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
-    emit({"kernels": [row]})
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

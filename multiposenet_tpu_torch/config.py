@@ -1,8 +1,9 @@
 """Frozen-dataclass configuration, the port's own copy.
 
 Field for field and default for default the same as
-`multiposenet_tpu/config.py` (tests/test_torch_config.py holds the two
-equal), so a config serialised by one package loads in the other. The
+`multiposenet_tpu/config.py`
+(tests/test_torch_package.py::test_config_matches_jax_package holds the
+two equal), so a config serialised by one package loads in the other. The
 comments keep only what a field means; speed figures measured on other
 hardware do not carry over to this port.
 """
@@ -58,7 +59,7 @@ class ModelConfig:
     # Cap on backbone channel widths (0 = uncapped).
     backbone_max_channels: int = 0
     # Inference-only: fused stride-4 tail kernel for the channel-major
-    # heatmap output (not ported yet).
+    # heatmap output (ops/kp_tail.py, csrc/kp_tail.cu).
     kp_tail_pallas: bool = False
     # Per-stage channel caps by output stride (4, 8, 16, 32); 0 = no cap.
     # Applied after backbone_width.

@@ -3,9 +3,16 @@ batched images or one image → joint forward → heatmap decode → person
 detection + NMS → PRN keypoint assignment.
 
 `Predictor.batch_forward` is the counterpart of `_batch_forward_impl`
-(the path `bench.py` times) and `Predictor.predict` of `predict`. On a
-CUDA device the heatmap decode always goes through the hand-written
-kernel (`ops/decode.py`, `csrc/decode_peaks.cu`).
+(the path `bench.py` times), `predict` of `predict`; `predict_heatmaps`,
+`predict_keypoints` and `predict_given_boxes` are the keypoint-only and
+given-box entry points. On a CUDA device every heatmap decode goes
+through a hand-written kernel: the channel-major decode of the pipeline
+through `csrc/decode_peaks.cu` (B1), or `csrc/decode_lanes.cu` (B2) when
+`ops.decode.DECODE_LANES` is set, and the NHWC decode of
+`predict_keypoints` through B1, as the JAX package's `_decode` goes
+through its B1. `fold_bn=True` serves the model with its BatchNorms
+folded into the convs (`infer/folding.py`), as an exported model is
+served.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 
 from multiposenet_tpu_torch import weights
 from multiposenet_tpu_torch.config import Config
+from multiposenet_tpu_torch.infer import folding
 from multiposenet_tpu_torch.models.posenet import MultiPoseNet, torch_dtype
 from multiposenet_tpu_torch.models.prn import PRN
 from multiposenet_tpu_torch.ops import decode as decode_ops
@@ -37,6 +45,15 @@ class PersonPrediction:
     keypoints: np.ndarray
 
 
+def _check_image(image: np.ndarray) -> np.ndarray:
+    image = np.asarray(image)
+    if image.ndim != 3 or image.shape[-1] != 3:
+        raise ValueError(
+            "predict expects an RGB image of shape [H, W, 3], got "
+            f"{image.shape}")
+    return image
+
+
 def resolve_device(device: str | torch.device | None) -> torch.device:
     """The caller's device, or CUDA when none is given. Without a GPU the
     caller must ask for the CPU: there is no silent fallback."""
@@ -51,8 +68,11 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 class Predictor:
     """Holds the model and PRN weights on one device and serves
     predictions. Weights come from the JAX package's flax variables
-    (nested dicts of numpy arrays, see weights.py) or, when none are
-    given, from a seeded random init."""
+    (nested dicts of numpy arrays, see weights.py; folded or not) or, when
+    none are given, from a seeded random init. With fold_bn the
+    BatchNorms are folded into the convs, before the load for a flax tree
+    and in place after the init otherwise, and the config says
+    bn_folded."""
 
     def __init__(
         self,
@@ -65,29 +85,36 @@ class Predictor:
         fold_bn: bool = False,
         flip_tta: bool = False,
     ):
-        if fold_bn:
-            raise NotImplementedError("BN folding (fold_bn) is not ported")
         if flip_tta:
             raise NotImplementedError("flip test-time augmentation "
                                       "(flip_tta) is not ported")
-        self.config = config or Config()
-        cfg = self.config
+        cfg = config or Config()
         if cfg.detector.pose_nms_oks > 0.0:
             raise NotImplementedError(
                 "pose-level OKS NMS (detector.pose_nms_oks > 0) is not ported")
         self.device = resolve_device(device)
         self.image_size = image_size or cfg.train.image_size
         self.dtype = torch_dtype(cfg.model.compute_dtype)
-
-        self.model = MultiPoseNet(cfg)
+        fold = fold_bn and not cfg.model.bn_folded
+        folded_cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                           bn_folded=True))
+        generator = torch.Generator().manual_seed(rng_seed)
+        if variables is None:
+            self.model = MultiPoseNet(cfg)
+            self.model.init_weights(generator)
+            if fold:
+                folding.fold_batch_norm_(self.model)
+                self.model.config = folded_cfg
+        else:
+            if fold:
+                variables = folding.fold_batch_norm(variables,
+                                                    cfg.model.bn_epsilon)
+            self.model = MultiPoseNet(folded_cfg if fold else cfg)
+            weights.load_posenet(self.model, variables)
+        self.config = cfg = folded_cfg if fold else cfg
         self.prn = PRN(cfg.prn.crop_height, cfg.prn.crop_width,
                        cfg.model.num_keypoints, cfg.prn.hidden_units,
                        dtype=self.dtype)
-        generator = torch.Generator().manual_seed(rng_seed)
-        if variables is None:
-            self.model.init_weights(generator)
-        else:
-            weights.load_posenet(self.model, variables)
         if prn_variables is None:
             self.prn.init_weights(generator)
         else:
@@ -101,12 +128,18 @@ class Predictor:
     # ------------------------------------------------------------------ #
 
     def _decode_cm(self, hm_cm: torch.Tensor) -> decode_ops.DecodedPeaks:
-        """Decode the channel-major heatmaps; on a CUDA tensor this is the
-        kernel's launch."""
+        """Decode the channel-major heatmaps; on a CUDA tensor this is one
+        launch of B1, or of B2 when DECODE_LANES is set."""
         if decode_ops.DECODE_LANES:
-            raise NotImplementedError(
-                "the maps-on-lanes decode (DECODE_LANES) is not ported")
+            return decode_ops.decode_heatmaps_lanes(hm_cm, self.config.decode)
         return decode_ops.decode_heatmaps_cm(hm_cm, self.config.decode)
+
+    def _decode(self, heatmaps: torch.Tensor) -> decode_ops.DecodedPeaks:
+        """Decode NHWC heatmaps [B, H, W, K] with B1 through their
+        channel-major copy in the compute dtype (lossless: the model
+        computed them in it), as decode_heatmaps_pallas does."""
+        return decode_ops.decode_heatmaps(heatmaps.to(self.dtype),
+                                          self.config.decode)
 
     def _prn_assign(self, heatmaps_cm: torch.Tensor, hm_boxes: torch.Tensor,
                     peaks: decode_ops.DecodedPeaks | None) -> torch.Tensor:
@@ -181,20 +214,78 @@ class Predictor:
         images = torch.as_tensor(images).to(self.device, non_blocking=True)
         return self._pipeline(self._model_input(images))
 
-    @torch.inference_mode()
-    def predict(self, image: np.ndarray) -> list[PersonPrediction]:
-        """uint8 [H, W, 3] RGB → per-person predictions in original image
-        coordinates."""
-        image = np.asarray(image)
-        if image.ndim != 3 or image.shape[-1] != 3:
-            raise ValueError(
-                "predict expects an RGB image of shape [H, W, 3], got "
-                f"{image.shape}")
+    def _letterbox(self, image: np.ndarray) -> tuple[torch.Tensor, float]:
+        """uint8 [H, W, 3] → model input [1, S, S, 3] on the device and the
+        letterbox scale."""
         x, scale = image_ops.resize_pad_normalize(
             torch.as_tensor(image, device=self.device), self.image_size,
             normalize_out=not self.config.model.fold_input_norm,
         )
-        out = self._pipeline(x[None])
+        return x[None], scale
+
+    @torch.inference_mode()
+    def predict_heatmaps(self, image: np.ndarray) -> np.ndarray:
+        """uint8 [H, W, 3] → [S/4, S/4, K] f32 heatmaps (model-input
+        coordinates of the letterboxed image)."""
+        x, _ = self._letterbox(_check_image(image))
+        return self.model(x)["heatmaps"][0].cpu().numpy()
+
+    @torch.inference_mode()
+    def predict_keypoints(
+        self, image: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """uint8 [H, W, 3] → per-channel candidate peaks in original image
+        coordinates: (positions [K, P, 2] as (y, x), scores [K, P],
+        valid [K, P]). Peaks in the letterbox padding, beyond the image's
+        extent, are invalid."""
+        image = _check_image(image)
+        x, scale = self._letterbox(image)
+        peaks = self._decode(self.model(x)["heatmaps"])
+        stride = float(self.config.model.output_stride)
+        positions = (peaks.positions[0] * stride).cpu().numpy() / scale
+        h, w = image.shape[:2]
+        inside = (positions[..., 0] <= h - 1) & (positions[..., 1] <= w - 1)
+        valid = peaks.valid[0].cpu().numpy() & inside
+        return positions, peaks.scores[0].cpu().numpy(), valid
+
+    @torch.inference_mode()
+    def predict_given_boxes(self, image: np.ndarray,
+                            boxes: np.ndarray) -> np.ndarray:
+        """Per-person keypoints for caller-supplied person boxes ([P, 4]
+        (y0, x0, y1, x1) in original image pixels) in place of the
+        detector's: keypoints [P, K, 3] rows (x, y, score) in original
+        image coordinates. The forward and the decode run once; the PRN
+        runs on chunks of `prn.max_persons` boxes (the JAX package's static
+        slot count, zero-padded), so no box is dropped."""
+        image = _check_image(image)
+        boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+        x, scale = self._letterbox(image)
+        hm_cm = self.model(x)["heatmaps_cm"]
+        peaks = self._decode_cm(hm_cm)
+        stride = float(self.config.model.output_stride)
+        slots = self.config.prn.max_persons
+        pieces = []
+        for s in range(0, max(len(boxes), 1), slots):
+            chunk = boxes[s:s + slots]
+            padded = torch.zeros((1, slots, 4), device=self.device)
+            padded[0, :len(chunk)] = torch.as_tensor(chunk)
+            kps = self._prn_assign(hm_cm, padded * scale / stride, peaks)
+            kps[..., :2] *= stride
+            pieces.append(kps[0, :len(chunk)])
+        kps = torch.cat(pieces).float().cpu().numpy()
+        kps[..., :2] /= scale
+        h, w = image.shape[:2]
+        kps[..., 0] = np.clip(kps[..., 0], 0.0, w - 1)
+        kps[..., 1] = np.clip(kps[..., 1], 0.0, h - 1)
+        return kps
+
+    @torch.inference_mode()
+    def predict(self, image: np.ndarray) -> list[PersonPrediction]:
+        """uint8 [H, W, 3] RGB → per-person predictions in original image
+        coordinates."""
+        image = _check_image(image)
+        x, scale = self._letterbox(image)
+        out = self._pipeline(x)
         boxes = out["boxes"][0].float().cpu().numpy() / scale
         scores = out["box_scores"][0].float().cpu().numpy()
         valid = out["box_valid"][0].cpu().numpy()

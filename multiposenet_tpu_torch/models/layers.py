@@ -81,6 +81,14 @@ class Conv2d(nn.Module):
         return conv2d_same(x, self.weight, self.bias, self.stride,
                            self.groups)
 
+    @torch.no_grad()
+    def fold_affine_(self, s: torch.Tensor, shift: torch.Tensor) -> None:
+        """Fold a following per-output-channel y*s + shift into the weight
+        and a new bias (the conv must have none)."""
+        assert self.bias is None, "fold into a conv without a bias"
+        self.weight.mul_(s.view(-1, 1, 1, 1))
+        self.bias = nn.Parameter(shift.clone())
+
 
 class BatchNorm(nn.Module):
     """Inference BatchNorm over NCHW channels, computed as flax does: in
@@ -100,6 +108,13 @@ class BatchNorm(nn.Module):
         y = x.to(torch.float32, copy=True)
         y.sub_(self.running_mean[:, None, None]).mul_(mul[:, None, None])
         return y.add_(self.bias[:, None, None]).to(x.dtype)
+
+    def scale_shift(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(s, beta - mean*s) with s = gamma / sqrt(var + eps), in float32:
+        this BN as the affine y*s + shift that folds into the conv before
+        it (infer/folding.py)."""
+        s = self.weight / torch.sqrt(self.running_var + self.eps)
+        return s, self.bias - self.running_mean * s
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,13 @@
 """MobileNet-v1-style depthwise-separable backbone, the port of
 `multiposenet_tpu/models/mobilenet.py` for the stride-4 matmul stem
-(`stem_stride=4`, as Config.fast() sets it).
+(`stem_stride=4`, as Config.fast() sets it), with BN or in its
+`bn_folded` inference flavour (conv with a bias, no BN).
 
 Inputs are NHWC (raw pixels [B, H, W, 3] or 4x4 space-to-depth cells
 [B, H/4, W/4, 48]); features come out NCHW. Module and parameter names
 follow the flax tree (`stem`, `block_<i>`, `depthwise`/`pointwise`,
-`conv`/`bn`) so `weights.py` maps one onto the other by name.
+`conv`/`bn`) so `weights.py` maps one onto the other by name; a folded
+block has `conv.bias` and no `bn`, as the folded flax tree has.
 """
 
 from __future__ import annotations
@@ -49,15 +51,30 @@ def stem_kernel_to_s4(kernel: torch.Tensor) -> torch.Tensor:
 class S4StemConv(nn.Module):
     """4x4/s4 stem as one matmul over the composed 4x4 cells. The raw
     kernel [4, 4, C, O] is kept and remapped at forward time; with
-    fold_norm the (x/255 - mean)/std affine is composed into it in f32."""
+    fold_norm the (x/255 - mean)/std affine is composed into it in f32.
+    With a bias (the bn_folded flavour) the fold-norm bias and then this
+    bias are added, each rounded to the compute dtype, as the JAX package
+    does: one merged bias would round differently in bf16."""
 
-    def __init__(self, in_ch: int, features: int, fold_norm: bool):
+    def __init__(self, in_ch: int, features: int, fold_norm: bool,
+                 bias: bool = False):
         super().__init__()
         self.fold_norm = fold_norm
         self.kernel = nn.Parameter(torch.zeros(4, 4, in_ch, features))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
     def seeded_init(self, generator: torch.Generator) -> None:
         lecun_normal_(self.kernel, self.kernel[..., 0].numel(), generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    @torch.no_grad()
+    def fold_affine_(self, s: torch.Tensor, shift: torch.Tensor) -> None:
+        """Fold a following per-output-channel y*s + shift into the kernel
+        and a new bias."""
+        assert self.bias is None, "fold into a stem without a bias"
+        self.kernel.mul_(s)
+        self.bias = nn.Parameter(shift.clone())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: raw [B, H, W, C<=4] or s4 cells [B, H/4, W/4, 16C], already
@@ -85,31 +102,44 @@ class S4StemConv(nn.Module):
         y = torch.matmul(x, k.to(x.dtype))
         if norm_bias is not None:
             y = y + norm_bias.to(y.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
         return y.permute(0, 3, 1, 2).contiguous()
 
 
 class ConvBN(nn.Module):
-    """conv → BatchNorm → ReLU6 (the MobileNet building block)."""
+    """conv → BatchNorm → ReLU6 (the MobileNet building block); in the
+    bn_folded flavour (`bn is None`) the conv carries the folded bias."""
 
-    def __init__(self, conv: nn.Module, channels: int, eps: float):
+    def __init__(self, conv: nn.Module, channels: int, eps: float,
+                 folded: bool = False):
         super().__init__()
         self.conv = conv
-        self.bn = BatchNorm(channels, eps)
+        self.bn = None if folded else BatchNorm(channels, eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return relu6(self.bn(self.conv(x)))
+        y = self.conv(x)
+        return relu6(y if self.bn is None else self.bn(y))
+
+    def fold_bn_(self) -> None:
+        """Fold the BN into the conv in place (infer/folding.py)."""
+        if self.bn is not None:
+            self.conv.fold_affine_(*self.bn.scale_shift())
+            self.bn = None
 
 
 class DepthwiseSeparable(nn.Module):
-    """conv-dw 3x3 + conv-pw 1x1, each with BN + ReLU6."""
+    """conv-dw 3x3 + conv-pw 1x1, each with BN (or its folded bias) +
+    ReLU6."""
 
-    def __init__(self, in_ch: int, features: int, stride: int, eps: float):
+    def __init__(self, in_ch: int, features: int, stride: int, eps: float,
+                 folded: bool = False):
         super().__init__()
         self.depthwise = ConvBN(
-            Conv2d(in_ch, in_ch, 3, stride, groups=in_ch, bias=False),
-            in_ch, eps)
+            Conv2d(in_ch, in_ch, 3, stride, groups=in_ch, bias=folded),
+            in_ch, eps, folded)
         self.pointwise = ConvBN(
-            Conv2d(in_ch, features, 1, bias=False), features, eps)
+            Conv2d(in_ch, features, 1, bias=folded), features, eps, folded)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise(self.depthwise(x))
@@ -136,7 +166,7 @@ class MobileNetV1(nn.Module):
     def __init__(self, width: float = 1.0, min_channels: int = 8,
                  max_channels: int = 0,
                  stage_caps: tuple[int, int, int, int] = (0, 0, 0, 0),
-                 bn_epsilon: float = 1e-3,
+                 bn_epsilon: float = 1e-3, bn_folded: bool = False,
                  fold_input_norm: bool = False, in_channels: int = 3,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -153,8 +183,9 @@ class MobileNetV1(nn.Module):
             return min(out, cap) if cap else out
 
         stem_ch = ch(32, stem_stride)
-        self.stem = ConvBN(S4StemConv(in_channels, stem_ch, fold_input_norm),
-                           stem_ch, bn_epsilon)
+        self.stem = ConvBN(
+            S4StemConv(in_channels, stem_ch, fold_input_norm, bn_folded),
+            stem_ch, bn_epsilon, bn_folded)
         in_ch, stride = stem_ch, stem_stride
         self.block_names = []
         # Channels of the C2..C5 taps, for the FPN's laterals.
@@ -165,7 +196,8 @@ class MobileNetV1(nn.Module):
             stride *= s
             out_ch = ch(c, stride)
             self.add_module(f"block_{i}",
-                            DepthwiseSeparable(in_ch, out_ch, s, bn_epsilon))
+                            DepthwiseSeparable(in_ch, out_ch, s, bn_epsilon,
+                                               bn_folded))
             self.block_names.append(f"block_{i}")
             if i in _TAP_AFTER:
                 self.out_channels[_TAP_AFTER[i]] = out_ch

@@ -18,11 +18,10 @@ from multiposenet_tpu_torch.models.mobilenet import MobileNetV1
 
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for the options the port does not have:
-    it runs the Config.fast() architecture."""
+    it runs the Config.fast() / Config.crowd() architecture (with or
+    without folded BN, the fused keypoint tail and the IoU head)."""
     m = cfg.model
     unported = {
-        "BN folding (bn_folded)": m.bn_folded,
-        "the fused keypoint-tail kernel (kp_tail_pallas)": m.kp_tail_pallas,
         "keypoint towers on the smoothed pyramid (kp_smooth_pyramid)":
             m.kp_smooth_pyramid,
         "the stride-4 keypoint head (kp_p2_late=False)": not m.kp_p2_late,
@@ -30,8 +29,6 @@ def check_supported(cfg: Config) -> None:
         "a keypoint head wider or narrower than the FPN "
         "(head_channels != fpn_channels)": m.head_channels != m.fpn_channels,
         "the stride-2 stem (stem_stride=2)": m.stem_stride != 4,
-        "the IoU-aware scoring head (detector.iou_head)":
-            cfg.detector.iou_head,
     }
     for what, asked in unported.items():
         if asked:
@@ -47,7 +44,9 @@ class MultiPoseNet(nn.Module):
 
     Outputs, in the JAX package's layouts: `heatmaps` [B, H, W, K] f32,
     `heatmaps_cm` [B, K, H, W] in the compute dtype, `segmentation`
-    [B, H, W, 1] f32 and `detector` {P3..P7: {cls, box}} NHWC."""
+    [B, H, W, 1] f32 (not with the fused keypoint tail in eval mode: it
+    emits the heatmaps only) and `detector` {P3..P7: {cls, box[, iou]}}
+    NHWC."""
 
     def __init__(self, config: Config):
         super().__init__()
@@ -58,18 +57,20 @@ class MultiPoseNet(nn.Module):
         self.backbone = MobileNetV1(
             width=m.backbone_width, min_channels=m.min_backbone_channels,
             max_channels=m.backbone_max_channels,
-            stage_caps=m.backbone_stage_caps, bn_epsilon=m.bn_epsilon, fold_input_norm=m.fold_input_norm,
+            stage_caps=m.backbone_stage_caps, bn_epsilon=m.bn_epsilon,
+            bn_folded=m.bn_folded, fold_input_norm=m.fold_input_norm,
             dtype=self.dtype,
         )
         self.fpn = FPN(self.backbone.out_channels, m.fpn_channels)
         self.keypoint_head = KeypointHead(
             m.head_channels, num_keypoints=m.num_keypoints,
             num_convs=m.kp_head_convs, with_segmentation=m.with_segmentation,
+            tail_kernel=m.kp_tail_pallas,
         )
         self.detector_head = DetectorHead(
             m.fpn_channels, d.min_level, d.max_level,
             d.num_scales * len(d.aspect_ratios), d.head_channels,
-            d.num_convs,
+            d.num_convs, with_iou=d.iou_head,
         )
 
     def init_weights(self, generator: torch.Generator) -> None:

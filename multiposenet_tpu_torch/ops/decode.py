@@ -12,9 +12,15 @@ Counterpart of `multiposenet_tpu/ops/decode.py` (the jnp reference) and
   * `valid = score > score_threshold`, and invalid scores are zeroed.
 
 `decode_maps` is the one entry point to the work: on a CUDA tensor it
-launches the hand-written kernel `csrc/decode_peaks.cu`, on a CPU tensor
-it runs the plain PyTorch version `decode_maps_plain`, which repeats the
-kernel's arithmetic in the same order so the two agree bit for bit.
+launches the hand-written kernel `csrc/decode_peaks.cu` (B1), on a CPU
+tensor it runs the plain PyTorch version `decode_maps_plain`, which
+repeats the kernel's arithmetic in the same order so the two agree bit for
+bit. `decode_maps_lanes` computes the same function with the maps-on-lanes
+kernel `csrc/decode_lanes.cu` (B2), which reads [B, K, H, W] through any
+strides and is laid out for channels-last maps; it has the same plain
+version and agrees with B1 bit for bit. `DECODE_LANES` selects it at the
+predictor's channel-major decode, as `decode_pallas.DECODE_LANES` does in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -30,13 +36,20 @@ from multiposenet_tpu_torch import kernels
 from multiposenet_tpu_torch.config import DecodeConfig
 
 KERNEL = "decode_peaks"
-MAX_PEAKS = 16          # csrc/decode_peaks.cu MAX_PEAKS
-MAX_TAPS = 15           # csrc/decode_peaks.cu MAX_TAPS
-# The kernel keeps two f32 copies of a map in shared memory; Hopper gives
-# a block at most 232448 bytes, less the kernel's small static arrays.
-MAX_MAP_ELEMENTS = (232448 - 1024) // 8
+LANES_KERNEL = "decode_lanes"
+MAX_PEAKS = 16          # csrc/decode_{peaks,lanes}.cu MAX_PEAKS
+MAX_TAPS = 15           # csrc/decode_{peaks,lanes}.cu MAX_TAPS
+# Hopper gives a block at most 232448 bytes of shared memory, less the
+# kernels' small static arrays. decode_peaks keeps two f32 copies of a
+# map; decode_lanes keeps ntaps + 4 f32 rows of W + 1 for each of its 8
+# maps, and flat indices under 2**28.
+SMEM_BYTES = 232448 - 1024
+MAX_MAP_ELEMENTS = SMEM_BYTES // 8
+LANES_MAPS_PER_BLOCK = 8
+LANES_MAX_ELEMENTS = 2 ** 28 - 1
 
-# The JAX package's maps-on-lanes decode variant; not ported.
+# Decode the predictor's channel-major heatmaps with the maps-on-lanes
+# kernel (the JAX package's decode_pallas.DECODE_LANES).
 DECODE_LANES = False
 
 
@@ -123,14 +136,28 @@ def decode_maps_plain(
     return scores, y.float() + dy, x.float() + dx
 
 
+def _check_kernel_args(hm: torch.Tensor, config: DecodeConfig) -> np.ndarray:
+    """What both decode kernels refuse; returns the blur's taps."""
+    h, w = hm.shape[2:]
+    p = config.max_peaks_per_channel
+    if hm.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decode kernel takes f32 or bf16, got {hm.dtype}")
+    if not 1 <= p <= min(MAX_PEAKS, h * w):
+        raise ValueError(f"decode kernel takes 1..{MAX_PEAKS} peaks per "
+                         f"map (and at most H*W); got {p}")
+    taps = smoothing_taps(config)
+    if len(taps) > MAX_TAPS:
+        raise ValueError(f"decode kernel takes at most {MAX_TAPS} taps")
+    return taps
+
+
 def _decode_maps_cuda(
     hm_cm: torch.Tensor, config: DecodeConfig
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/decode_peaks.cu on hm_cm [B, K, H, W]."""
     b, k, h, w = hm_cm.shape
     p = config.max_peaks_per_channel
-    if hm_cm.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"decode kernel takes f32 or bf16, got {hm_cm.dtype}")
+    taps = _check_kernel_args(hm_cm, config)
     # Strides of size-1 dims are arbitrary and never used.
     if any(n > 1 and stride != want for n, stride, want in zip(
             (k, h, w), hm_cm.stride()[1:], (h * w, w, 1))):
@@ -138,15 +165,9 @@ def _decode_maps_cuda(
             "decode kernel needs each [K, H, W] block contiguous; got "
             f"strides {hm_cm.stride()}"
         )
-    if not 1 <= p <= min(MAX_PEAKS, h * w):
-        raise ValueError(f"decode kernel takes 1..{MAX_PEAKS} peaks per "
-                         f"map (and at most H*W); got {p}")
     if h * w > MAX_MAP_ELEMENTS:
         raise ValueError(f"map {h}x{w} does not fit the kernel's shared "
                          "memory")
-    taps = smoothing_taps(config)
-    if len(taps) > MAX_TAPS:
-        raise ValueError(f"decode kernel takes at most {MAX_TAPS} taps")
     lib = kernels.load(KERNEL)
     fn = lib.decode_peaks
     fn.restype = ctypes.c_int
@@ -187,20 +208,85 @@ def decode_maps(
     return decode_maps_plain(hm_cm.reshape(b * k, h, w), config)
 
 
-def decode_heatmaps_cm(
-    hm_cm: torch.Tensor, config: DecodeConfig = DecodeConfig()
-) -> DecodedPeaks:
-    """Decode channel-major heatmaps [B, K, H, W] → DecodedPeaks, with the
-    threshold applied as decode_pallas.decode_heatmaps_pallas_t does."""
-    b, k = hm_cm.shape[:2]
-    scores, ys, xs = (t.reshape(b, k, -1)
-                      for t in decode_maps(hm_cm, config))
+def _decode_maps_lanes_cuda(
+    hm: torch.Tensor, config: DecodeConfig
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch csrc/decode_lanes.cu on hm [B, K, H, W], any strides."""
+    b, k, h, w = hm.shape
+    p = config.max_peaks_per_channel
+    taps = _check_kernel_args(hm, config)
+    if h * w > LANES_MAX_ELEMENTS:
+        raise ValueError(f"map {h}x{w} has flat indices over 2**28")
+    if (len(taps) + 4) * LANES_MAPS_PER_BLOCK * (w + 1) * 4 > SMEM_BYTES:
+        raise ValueError(f"map width {w} does not fit the lanes kernel's "
+                         "shared memory")
+    # Rows are read along the maps where the map stride is the smaller.
+    lanes_load = int(k > 1 and hm.stride(1) < hm.stride(3))
+    fn = kernels.load(LANES_KERNEL).decode_lanes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    out = torch.empty((3, b * k, p), dtype=torch.float32, device=hm.device)
+    taps_c = (ctypes.c_float * len(taps))(*taps.tolist())
+    with torch.cuda.device(hm.device):
+        stream = torch.cuda.current_stream(hm.device).cuda_stream
+        err = fn(
+            hm.data_ptr(), 1 if hm.dtype == torch.bfloat16 else 0,
+            *hm.stride(), b, k, h, w, taps_c, len(taps),
+            float(config.subpixel_shift), p, lanes_load,
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"decode_lanes launch failed: CUDA error {err}")
+    kernels.count_launch(LANES_KERNEL)
+    return out[0], out[1], out[2]
+
+
+def decode_maps_lanes(
+    hm: torch.Tensor, config: DecodeConfig = DecodeConfig()
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Heatmaps [B, K, H, W] in any layout (channels-last is the kernel's
+    fast one) → raw (scores, ys, xs), each [B*K, P] f32, equal to
+    `decode_maps`. On a CUDA tensor this launches the maps-on-lanes kernel
+    (or raises); on a CPU tensor it runs the plain version."""
+    _check_config(config)
+    if hm.is_cuda:
+        return _decode_maps_lanes_cuda(hm, config)
+    b, k, h, w = hm.shape
+    return decode_maps_plain(hm.reshape(b * k, h, w), config)
+
+
+def _peaks(raw: tuple[torch.Tensor, torch.Tensor, torch.Tensor], b: int,
+           k: int, config: DecodeConfig) -> DecodedPeaks:
+    """Raw [B*K, P] kernel outputs → DecodedPeaks, with the threshold
+    applied as decode_pallas.decode_heatmaps_pallas_t does."""
+    scores, ys, xs = (t.reshape(b, k, -1) for t in raw)
     valid = scores > config.score_threshold
     return DecodedPeaks(
         positions=torch.stack([ys, xs], dim=-1),
         scores=torch.where(valid, scores, torch.zeros_like(scores)),
         valid=valid,
     )
+
+
+def decode_heatmaps_cm(
+    hm_cm: torch.Tensor, config: DecodeConfig = DecodeConfig()
+) -> DecodedPeaks:
+    """Decode channel-major heatmaps [B, K, H, W] → DecodedPeaks (B1)."""
+    return _peaks(decode_maps(hm_cm, config), *hm_cm.shape[:2], config)
+
+
+def decode_heatmaps_lanes(
+    hm: torch.Tensor, config: DecodeConfig = DecodeConfig()
+) -> DecodedPeaks:
+    """Decode heatmaps [B, K, H, W] in any layout with the maps-on-lanes
+    kernel (B2) → DecodedPeaks, equal to `decode_heatmaps_cm`."""
+    return _peaks(decode_maps_lanes(hm, config), *hm.shape[:2], config)
 
 
 def decode_heatmaps(

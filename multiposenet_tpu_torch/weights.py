@@ -8,7 +8,11 @@ imports JAX. Conversions:
   * the s4 stem kernel [4, 4, C, O] stays as it is (remapped at forward
     time, models/mobilenet.py);
   * BatchNorm scale/bias → weight/bias, batch_stats mean/var →
-    running_mean/running_var (eps stays the config's 1e-3);
+    running_mean/running_var (eps stays the config's 1e-3); a BN-folded
+    tree (infer/folding.py) has no `bn` and no batch_stats, and each
+    folded `conv` carries a `bias`, which maps like any conv bias (the s4
+    stem's included) onto the bn_folded model;
+  * the IoU head's `iou_out` conv maps like the detector's other convs;
   * the keypoint head's bare heatmaps_* and segmentation_* params →
     one output conv, heatmap channels first;
   * Dense (in, out) → Linear (out, in) for the PRN.

@@ -1,7 +1,9 @@
-"""Tests of the port that need an NVIDIA GPU: the hand-written decode
-kernel (`csrc/decode_peaks.cu`) against its plain PyTorch version on the
-same card, and the inference pipeline on the card against the same
-weights on the CPU. Without a GPU every test here skips.
+"""Tests of the port that need an NVIDIA GPU: the hand-written kernels
+(`csrc/decode_peaks.cu` B1, `csrc/decode_lanes.cu` B2, `csrc/kp_tail.cu`
+B3) against their plain PyTorch versions on the same card, B2 against B1,
+and the inference pipelines (Config.fast()-like and Config.crowd()-like)
+on the card against the same weights on the CPU. Without a GPU every test
+here skips.
 
 This file imports neither JAX nor the JAX package, so on a machine that
 has no JAX it runs without the repository's conftest:
@@ -9,6 +11,7 @@ has no JAX it runs without the repository's conftest:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -18,7 +21,7 @@ import torch
 from multiposenet_tpu_torch import kernels
 from multiposenet_tpu_torch.config import Config, DecodeConfig
 from multiposenet_tpu_torch.infer.predictor import Predictor
-from multiposenet_tpu_torch.ops import decode
+from multiposenet_tpu_torch.ops import decode, kp_tail
 from multiposenet_tpu_torch.ops.image import space_to_depth_flat4
 
 from decode_maps import CONFIGS, MAKERS, planted_maps
@@ -142,3 +145,215 @@ def test_batch_forward_on_card_matches_cpu(cuda_device):
     assert both.sum() >= 0.9 * want["peak_valid"].sum()
     near = (got["peak_positions"] - want["peak_positions"]).abs() <= 1.0
     assert near.all(-1)[both].float().mean() >= 0.9
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full float32 convs and matmuls (cuDNN would run f32 in TF32)."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+# --- B3: the fused keypoint tail ------------------------------------------
+
+
+def _tail_inputs(shape, dtype, device, seed=0):
+    b, c, h, w, k = shape
+    g = torch.Generator().manual_seed(seed)
+    l2 = torch.randn(b, c, h, w, generator=g)
+    z8 = torch.randn(b, c, h // 2, w // 2, generator=g)
+    weight = torch.randn(k, c, 3, 3, generator=g) / (9 * c) ** 0.5
+    bias = torch.randn(k, generator=g)
+    return (l2.to(device, dtype), z8.to(device, dtype), weight.to(device),
+            bias.to(device))
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 64, 128, 128, 17),   # the crowd path's per-image shapes
+    (1, 8, 48, 70, 5),       # ragged row and column tiles
+    (3, 20, 18, 34, 32),     # channels not a multiple of the stage, K max
+    (1, 3, 2, 2, 1),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tail_kernel_matches_plain(cuda_device, shape, dtype):
+    """f32: the kernel and cuDNN sum 9C products in other orders, 1e-5.
+    bf16: the products are exact in f32 on both sides and only the sum's
+    order differs before the one rounding: 1 bf16 ulp at the output's
+    scale."""
+    l2, z8, weight, bias = _tail_inputs(shape, dtype, cuda_device)
+    kernels.reset_launches()
+    got = kp_tail.kp_tail_cm(l2, z8, weight, bias)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {kp_tail.KERNEL: 1}
+    with no_tf32():
+        want = kp_tail.kp_tail_plain(l2, z8, weight, bias)
+    assert got.dtype == dtype and got.shape == want.shape
+    got, want = got.float().cpu(), want.float().cpu()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert (got - want).abs().max() <= 2.0 ** -7 * want.abs().max()
+
+
+@pytest.mark.parametrize("case", ["dtype", "layout", "channels"])
+def test_tail_wrapper_refuses_on_card(cuda_device, case):
+    l2, z8, weight, bias = _tail_inputs((1, 8, 16, 16, 17), torch.float32,
+                                        cuda_device)
+    if case == "dtype":
+        l2, z8, err = l2.half(), z8.half(), TypeError
+    elif case == "layout":
+        l2, err = l2.contiguous(memory_format=torch.channels_last), ValueError
+    else:
+        weight, bias = torch.zeros(33, 8, 3, 3, device=cuda_device), \
+            torch.zeros(33, device=cuda_device)
+        err = ValueError
+    with pytest.raises(err):
+        kp_tail.kp_tail_cm(l2, z8, weight, bias)
+
+
+# --- B2: the maps-on-lanes decode -----------------------------------------
+
+
+def _layout(hm: np.ndarray, layout: str, device, dtype) -> torch.Tensor:
+    """[B, H, W, K] maps → a [B, K, H, W] view in the asked layout."""
+    nhwc = torch.as_tensor(hm).to(device, dtype)
+    if layout == "channel_major":
+        return nhwc.permute(0, 3, 1, 2).contiguous()
+    if layout == "channels_last":
+        return nhwc.permute(0, 3, 1, 2)
+    # The first 17 of the keypoint head's 18 output channels.
+    pad = torch.cat([nhwc, nhwc[..., :1]], -1)
+    return pad.permute(0, 3, 1, 2).contiguous()[:, :nhwc.shape[-1]]
+
+
+def _assert_lanes_equal_plain_and_b1(x, cfg):
+    """Bit for bit on every slot, -inf fillers and their positions
+    included: against the plain version and against B1."""
+    b, k, h, w = x.shape
+    kernels.reset_launches()
+    got = decode.decode_maps_lanes(x, cfg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {decode.LANES_KERNEL: 1}
+    b1 = decode.decode_maps(x.contiguous(), cfg)
+    plain = decode.decode_maps_plain(x.reshape(b * k, h, w), cfg)
+    for a, p, q in zip(got, b1, plain):
+        assert torch.equal(a, p)
+        assert torch.equal(a, q)
+
+
+@pytest.mark.parametrize("layout", ["channel_major", "channels_last",
+                                    "head_slice"])
+@pytest.mark.parametrize("kind", sorted(MAKERS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lanes_kernel_matches_plain_and_b1(cuda_device, dtype, kind, layout):
+    hm = MAKERS[kind](np.random.RandomState(7), (4, 128, 128, 17))
+    _assert_lanes_equal_plain_and_b1(_layout(hm, layout, cuda_device, dtype),
+                                     DecodeConfig(**CONFIGS[kind]))
+
+
+@pytest.mark.parametrize("shape,peaks,sigma", [
+    ((2, 3, 37, 53), 1, 1.0),
+    ((1, 5, 9, 130), 16, 1.0),
+    ((3, 2, 64, 32), 8, 0.0),
+    ((1, 1, 3, 3), 8, 1.0),
+    ((2, 9, 20, 7), 8, 1.0),     # narrower than a warp
+    ((1, 3, 6, 400), 4, 2.0),    # wide maps, 13 taps
+])
+@pytest.mark.parametrize("layout", ["channel_major", "channels_last"])
+def test_lanes_kernel_odd_shapes(cuda_device, shape, peaks, sigma, layout):
+    b, k, h, w = shape
+    hm = planted_maps(np.random.RandomState(9), (b, h, w, k))
+    cfg = DecodeConfig(max_peaks_per_channel=peaks, smooth_sigma=sigma,
+                       smooth_kernel_size=13 if sigma == 2.0 else 7)
+    _assert_lanes_equal_plain_and_b1(
+        _layout(hm, layout, cuda_device, torch.float32), cfg)
+
+
+# --- the crowd path on the card -------------------------------------------
+
+
+def _tiny_crowd(compute_dtype="float32"):
+    cfg = Config.crowd()
+    return cfg.replace(
+        model=dataclasses.replace(
+            cfg.model, backbone_width=0.25, fpn_channels=32,
+            head_channels=32, backbone_stage_caps=(16, 32, 0, 0),
+            backbone_max_channels=64, compute_dtype=compute_dtype,
+            kp_tail_pallas=True),
+        detector=dataclasses.replace(cfg.detector, score_threshold=0.0,
+                                     head_channels=32))
+
+
+@contextlib.contextmanager
+def _lanes():
+    old = decode.DECODE_LANES
+    decode.DECODE_LANES = True
+    try:
+        yield
+    finally:
+        decode.DECODE_LANES = old
+
+
+def test_crowd_batch_forward_on_card_matches_cpu(cuda_device):
+    """Config.crowd()-like in float32 with BN folded, the tail and the
+    lanes decode, TF32 off: one B3 and one B2 launch per batch and no B1;
+    the card and the CPU give the same detections and peaks on the same
+    weights. Heatmaps differ in the last f32 bits, and soft-NMS with
+    voting can reorder near-equal candidates, so boxes are matched as
+    sets (to 0.5 px) and peaks where both are valid (to 1 px)."""
+    cfg = _tiny_crowd()
+    with no_tf32(), _lanes():
+        gpu = Predictor(cfg, image_size=256, device=cuda_device, fold_bn=True)
+        cpu = Predictor(cfg, image_size=256, device="cpu", fold_bn=True)
+        rng = np.random.RandomState(6)
+        flat = space_to_depth_flat4(
+            rng.randint(0, 256, (4, 256, 256, 3)).astype(np.uint8))
+        kernels.reset_launches()
+        got = gpu.batch_forward(flat)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == {kp_tail.KERNEL: 1,
+                                    decode.LANES_KERNEL: 1}
+        want = cpu.batch_forward(flat)
+    got = {k: v.cpu() for k, v in got.items()}
+    assert torch.equal(got["box_valid"], want["box_valid"])
+    torch.testing.assert_close(got["box_scores"], want["box_scores"],
+                               atol=1e-4, rtol=1e-3)
+    near = (got["boxes"][:, :, None] - want["boxes"][:, None]).abs().amax(
+        -1).amin(-1) <= 0.5
+    assert near[want["box_valid"]].float().mean() >= 0.9
+    both = got["peak_valid"] & want["peak_valid"]
+    assert both.sum() >= 0.9 * want["peak_valid"].sum()
+    close = (got["peak_positions"] - want["peak_positions"]).abs() <= 1.0
+    assert close.all(-1)[both].float().mean() >= 0.9
+
+
+def test_crowd_entry_points_on_card(cuda_device):
+    """predict and predict_given_boxes take B3 and B2, predict_keypoints
+    B3 and B1, once per request; their outputs are finite and shaped."""
+    cfg = _tiny_crowd("bfloat16")
+    pred = Predictor(cfg, image_size=256, device=cuda_device, fold_bn=True)
+    img = np.random.RandomState(1).randint(0, 256, (200, 300, 3)).astype(
+        np.uint8)
+    with _lanes():
+        kernels.reset_launches()
+        people = pred.predict(img)
+        assert kernels.LAUNCHES == {kp_tail.KERNEL: 1,
+                                    decode.LANES_KERNEL: 1}
+        kernels.reset_launches()
+        pos, scores, valid = pred.predict_keypoints(img)
+        assert kernels.LAUNCHES == {kp_tail.KERNEL: 1, decode.KERNEL: 1}
+        kernels.reset_launches()
+        boxes = np.array([[10, 10, 150, 90]] * 30, np.float32)
+        kps = pred.predict_given_boxes(img, boxes)
+        assert kernels.LAUNCHES == {kp_tail.KERNEL: 1,
+                                    decode.LANES_KERNEL: 1}
+    assert all(np.isfinite(p.keypoints).all() for p in people)
+    assert pos.shape == (17, 8, 2) and np.isfinite(pos).all()
+    assert kps.shape == (30, 17, 3) and np.isfinite(kps).all()

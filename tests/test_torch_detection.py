@@ -149,8 +149,3 @@ def test_postprocess_detections_matches_jax(score_threshold, image_size):
     np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes),
                                **BOX_TOL)
 
-
-def test_postprocess_rejects_iou_head():
-    cfg = torch_config_of(JaxConfig.crowd())
-    with pytest.raises(NotImplementedError, match="iou_head"):
-        detection.postprocess_detections({}, 128, cfg.detector)

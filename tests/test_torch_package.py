@@ -80,7 +80,9 @@ def test_no_source_file_names_jax():
 
 
 def test_kernel_sources_and_build_dir():
-    assert (kernels.CSRC / f"{decode.KERNEL}.cu").is_file()
+    assert decode.KERNEL in kernels.KERNEL_NAMES
+    for name in kernels.KERNEL_NAMES:
+        assert (kernels.CSRC / f"{name}.cu").is_file(), name
     ignored = (REPO / ".gitignore").read_text().splitlines()
     rel = kernels.BUILD_DIR.relative_to(REPO).as_posix()
     assert f"{rel}/" in ignored

@@ -202,15 +202,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("section,field,value", [
     ("predictor", "flip_tta", True),
-    ("predictor", "fold_bn", True),
-    ("model", "bn_folded", True),
-    ("model", "kp_tail_pallas", True),
     ("model", "kp_smooth_pyramid", True),
     ("model", "kp_p2_late", False),
     ("model", "kp_fuse_conv", True),
     ("model", "stem_stride", 2),
     ("model", "head_channels", 64),
-    ("detector", "iou_head", True),
     ("detector", "pose_nms_oks", 0.5),
 ])
 def test_unported_options_raise(section, field, value):
@@ -224,12 +220,3 @@ def test_unported_options_raise(section, field, value):
     with pytest.raises(NotImplementedError):
         Predictor(cfg, image_size=SIZE, device="cpu", **kwargs)
 
-
-def test_decode_lanes_raises(monkeypatch):
-    from multiposenet_tpu_torch.ops import decode
-
-    monkeypatch.setattr(decode, "DECODE_LANES", True)
-    port = Predictor(torch_config_of(tiny_config()), image_size=SIZE,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="DECODE_LANES"):
-        port.batch_forward(np.zeros((1, SIZE, SIZE, 3), np.uint8))

@@ -10,6 +10,7 @@ misnamed parameter cannot hide behind an init of zeros and ones.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -19,9 +20,19 @@ import numpy as np
 import torch
 
 from multiposenet_tpu import config as jax_config
+from multiposenet_tpu.infer.predictor import Predictor as JaxPredictor
 from multiposenet_tpu.models.posenet import MultiPoseNet as JaxMultiPoseNet
 from multiposenet_tpu.models.prn import PRN as JaxPRN
+from multiposenet_tpu.ops import decode_pallas, kp_tail_pallas
 from multiposenet_tpu_torch import config as torch_config
+from multiposenet_tpu_torch import weights
+from multiposenet_tpu_torch.infer.predictor import Predictor as PortPredictor
+from multiposenet_tpu_torch.models.posenet import MultiPoseNet
+from multiposenet_tpu_torch.ops import decode
+
+# Input size of the predictor parity tests: 32² heatmaps, a multiple of
+# the JAX tail kernel's 16-row tile, so the JAX side really takes it.
+SIZE = 128
 
 
 def tiny_config(compute_dtype: str = "bfloat16", package=jax_config):
@@ -43,9 +54,50 @@ def tiny_config(compute_dtype: str = "bfloat16", package=jax_config):
     )
 
 
+def tiny_crowd_config(compute_dtype: str = "float32", package=jax_config,
+                      tail: bool = True):
+    """Config.crowd() at the widths of `tiny_config`, keeping crowd's IoU
+    head, soft-NMS with box voting and PRN crop margin; the fused
+    keypoint tail (kp_tail_pallas) on unless `tail` is False."""
+    cfg = package.Config.crowd()
+    tiny = tiny_config(compute_dtype, package)
+    return cfg.replace(
+        model=dataclasses.replace(tiny.model, kp_tail_pallas=tail),
+        detector=dataclasses.replace(
+            cfg.detector, score_threshold=0.0, pre_nms_top_k=100,
+            head_channels=32),
+        prn=dataclasses.replace(
+            cfg.prn, crop_height=14, crop_width=10, hidden_units=64,
+            max_persons=8),
+    )
+
+
 def torch_config_of(cfg):
     """The port's Config with the same fields as a JAX package Config."""
     return torch_config.Config.from_dict(cfg.to_dict())
+
+
+def port_model(cfg, variables):
+    """The port's MultiPoseNet for a JAX package Config, in eval mode,
+    with the flax variables loaded."""
+    model = MultiPoseNet(torch_config_of(cfg))
+    weights.load_posenet(model, jax.tree.map(np.asarray, variables))
+    return model.eval()
+
+
+# Model outputs, port against JAX package (test_torch_models.py explains).
+MODEL_TOL = {
+    "float32": dict(atol=3e-5, rtol=1e-5, mean=1e-6),
+    "bfloat16": dict(atol=0.04, rtol=0.02, mean=4e-3),
+}
+
+
+def assert_model_close(got, want, tol, what):
+    got, want = to_numpy(got), np.asarray(want, np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    np.testing.assert_allclose(got, want, atol=tol["atol"], rtol=tol["rtol"],
+                               err_msg=what)
+    assert np.mean(np.abs(got - want)) < tol["mean"], what
 
 
 def _fill(path: tuple[str, ...], shape: tuple[int, ...],
@@ -126,3 +178,44 @@ def to_numpy(t) -> np.ndarray:
 
 def max_abs_err(got, want) -> float:
     return float(np.max(np.abs(to_numpy(got) - to_numpy(want))))
+
+
+@contextlib.contextmanager
+def jax_kernels_interpreted():
+    """The JAX package's tail kernel and lanes decode switched on (they
+    run in interpret mode on the CPU) while its programs are traced."""
+    old = kp_tail_pallas.FORCE_INTERPRET, decode_pallas.DECODE_LANES
+    kp_tail_pallas.FORCE_INTERPRET = decode_pallas.DECODE_LANES = True
+    try:
+        yield
+    finally:
+        kp_tail_pallas.FORCE_INTERPRET, decode_pallas.DECODE_LANES = old
+
+
+@contextlib.contextmanager
+def port_lanes():
+    """The port's maps-on-lanes decode switched on."""
+    old = decode.DECODE_LANES
+    decode.DECODE_LANES = True
+    try:
+        yield
+    finally:
+        decode.DECODE_LANES = old
+
+
+def crowd_predictors(dtype, pallas):
+    """The JAX and the port predictors of the crowd path at 128², on one
+    unfolded tree that both fold (fold_bn=True); the JAX one with its
+    Pallas decode in interpret mode when `pallas`."""
+    cfg = tiny_crowd_config(dtype)
+    variables = posenet_variables(cfg)
+    prn_vars = prn_variables(cfg)
+    jax_pred = JaxPredictor(config=cfg, variables=variables,
+                            prn_variables=prn_vars, image_size=SIZE,
+                            use_pallas_decode=pallas,
+                            pallas_interpret=pallas, fold_bn=True)
+    port = PortPredictor(torch_config_of(cfg),
+                         variables=jax.tree.map(np.asarray, variables),
+                         prn_variables=jax.tree.map(np.asarray, prn_vars),
+                         image_size=SIZE, device="cpu", fold_bn=True)
+    return jax_pred, port
