@@ -184,10 +184,11 @@ def decode_lanes_on(decode):
 
 
 def phase_tail_kernel(kp_tail, layers, device) -> dict:
-    """B3 at the crowd path's shapes in bf16 against its plain version
-    (TF32 off for the plain version's f32 conv), with cuDNN's bf16 conv
-    of the already-summed input as the library yardstick and the eager
-    upsample-add-conv tail of the plain head for information."""
+    """B3 at the crowd path's shapes in bf16 (the tensor-core kernel)
+    against its plain version (TF32 off for the plain version's f32 conv),
+    with cuDNN's bf16 conv of the already-summed input as the library
+    yardstick; the eager upsample-add-conv tail of the plain head and the
+    f32 (CUDA-core) kernel at the same shapes are timed for information."""
     import torch.nn.functional as F
 
     b, c, h, w, k = BATCH, 64, IMAGE // 4, IMAGE // 4, 17
@@ -211,6 +212,12 @@ def phase_tail_kernel(kp_tail, layers, device) -> dict:
                             reps=10, rounds=5)
         plain_ms = cuda_ms(lambda: kp_tail.kp_tail_plain(l2, z8, weight, bias),
                            reps=3, rounds=3)
+        # The f32 instantiation (CUDA cores) at the same shapes, for
+        # information: the f32 crowd forward of parity_f32 runs it.
+        l2f, z8f = l2.float(), z8.float()
+        f32_ms = cuda_ms(lambda: kp_tail.kp_tail_cm(l2f, z8f, weight, bias),
+                         reps=3, rounds=3)
+        del l2f, z8f
     x = l2 + layers.upsample2x(z8)
     wb, bb = weight.to(bf16), bias.to(bf16)
     library_ms = cuda_ms(lambda: F.conv2d(x, wb, bb, padding=1), reps=10,
@@ -224,6 +231,7 @@ def phase_tail_kernel(kp_tail, layers, device) -> dict:
     ops_ms = ops / BF16_OPS_PER_S * 1e3
     row = {
         "name": kp_tail.KERNEL, "route": "cuda",
+        "design": "mma.sync bf16, CUDA-core f32",
         "source": "multiposenet_tpu_torch/csrc/kp_tail.cu",
         "replaces": "multiposenet_tpu/ops/kp_tail_pallas.py:67",
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
@@ -238,7 +246,8 @@ def phase_tail_kernel(kp_tail, layers, device) -> dict:
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "library_ms": library_ms,
           "library": "F.conv2d(l2 + up2(z8) precomputed, bf16, cuDNN)",
-          "eager_tail_ms": eager_ms, "bound_ms": row["bound_ms"],
+          "eager_tail_ms": eager_ms, "f32_kernel_ms": f32_ms,
+          "design": row["design"], "bound_ms": row["bound_ms"],
           "bound_by": row["bound_by"], "bytes": bytes_moved, "ops": ops})
     return row
 
@@ -579,16 +588,19 @@ def stage_times(pred, cfg, x, hm_cm, detection) -> dict:
 
 
 def ptxas_summary(log: str) -> dict:
-    """Registers and spills that `nvcc -Xptxas -v` reports for the
-    instantiations the main paths take: the decodes' 8 peaks (P) and the
-    tail's 17 outputs padded to 20 (KP)."""
+    """Registers, spills and shared memory that `nvcc -Xptxas -v` reports
+    for the instantiations the main paths take: the decodes' 8 peaks (P),
+    the f32 tail's 17 outputs padded to 20 (KP) and the bf16 tail's three
+    n8 tiles (kp_tail_mma, NT = 3)."""
     out, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif entry and ("registers" in line or "spill" in line):
             out.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
-    return {k: v for k, v in out.items() if "Li8E" in k or "Li20E" in k}
+    return {k: v for k, v in out.items()
+            if "Li8E" in k or "Li20E" in k
+            or ("kp_tail_mma" in k and "Li3E" in k)}
 
 
 def main() -> int:

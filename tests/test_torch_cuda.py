@@ -180,6 +180,11 @@ def _tail_inputs(shape, dtype, device, seed=0):
     (1, 8, 48, 70, 5),       # ragged row and column tiles
     (3, 20, 18, 34, 32),     # channels not a multiple of the stage, K max
     (1, 3, 2, 2, 1),
+    # Edges of the bf16 tensor-core tiling (16-channel chunks, 4 x 128
+    # pixel tiles, n8 output tiles):
+    (2, 16, 32, 130, 8),     # one full chunk, ragged column tile, 1 n-tile
+    (1, 72, 22, 36, 24),     # ragged chunk, narrow ragged width, 3 n-tiles
+    (1, 72, 16, 130, 25),    # ragged chunk and columns, 4 n-tiles
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tail_kernel_matches_plain(cuda_device, shape, dtype):

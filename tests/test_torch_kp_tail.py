@@ -159,3 +159,56 @@ def test_tail_taken_only_in_eval_mode_and_on_tiled_heights():
     np.testing.assert_allclose(to_numpy(tail["heatmaps_cm"]),
                                to_numpy(conv["heatmaps_cm"]), atol=3e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("k", [1, 17, 32])
+@pytest.mark.parametrize("c", [3, 64])
+def test_weight_packing_matches_plain(k, c):
+    """The packed [9C, N] matrix, N = K rounded up to a multiple of 8,
+    as an im2col matmul in float32 equals kp_tail_plain (the same
+    products summed in another order: 1e-5), its padding columns read
+    zero, and the kernel's B-fragment order holds each element where the
+    mma.sync m16n8k16 layout reads it."""
+    rng = np.random.RandomState(k + c)
+    b, h, w = 1, 8, 6
+    l2 = torch.as_tensor(rng.randn(b, c, h, w).astype(np.float32))
+    z8 = torch.as_tensor(rng.randn(b, c, h // 2, w // 2).astype(np.float32))
+    weight = torch.as_tensor(
+        (rng.randn(k, c, 3, 3) / np.sqrt(9 * c)).astype(np.float32))
+    bias = torch.as_tensor(rng.randn(k).astype(np.float32))
+    wmat = kp_tail.tail_weight_matrix(weight, torch.float32)
+    n = -(-k // 8) * 8
+    assert tuple(wmat.shape) == (9 * c, n)
+    assert torch.count_nonzero(wmat[:, k:]) == 0
+    x = l2 + torch.nn.functional.interpolate(z8, scale_factor=2)
+    cols = torch.nn.functional.unfold(x, 3, padding=1)      # [B, C*9, HW]
+    cols = cols.view(b, c, 9, h * w).permute(0, 3, 2, 1).reshape(
+        b, h * w, 9 * c)                                     # rows (tap, c)
+    got = (cols @ wmat)[..., :k] + bias
+    got = got.permute(0, 2, 1).reshape(b, k, h, w)
+    want = kp_tail.kp_tail_plain(l2, z8, weight, bias)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+    frags = kp_tail.tail_weight_fragments(wmat, c)
+    chunks = -(-c // 16)
+    assert tuple(frags.shape) == (chunks, 9, n // 8, 32, 4)
+    for ch in range(chunks):
+        for tap in range(9):
+            for nt in range(n // 8):
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for e in range(4):
+                        kk = 16 * ch + 2 * t + (e % 2) + 8 * (e // 2)
+                        want_e = (wmat[tap * c + kk, 8 * nt + g]
+                                  if kk < c else 0.0)
+                        assert frags[ch, tap, nt, lane, e] == want_e
+
+
+def test_phase_tool_refuses_without_a_card(monkeypatch, capsys):
+    """tools/kp_tail_phases.py measures on a card only: without one it
+    exits non-zero and prints no result."""
+    from multiposenet_tpu_torch.tools import kp_tail_phases
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kp_tail_phases.main() == 2
+    assert capsys.readouterr().out == ""
