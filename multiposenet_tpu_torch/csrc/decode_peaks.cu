@@ -32,6 +32,24 @@
 #define THREADS 512
 #define MAX_PEAKS 16
 
+#ifdef DECODE_PEAKS_PROFILE
+// Phase counters of thread 0, summed over blocks (built only with
+// -DDECODE_PEAKS_PROFILE, by multiposenet_tpu_torch/tools/decode_phases.py):
+// clock64 cycles in the load, the vertical blur, the horizontal blur, the
+// peak mask with the per-thread top-P, the block merge, and the sub-pixel
+// step with the store; then the number of blocks.
+constexpr int kPhases = 6;
+__device__ unsigned long long phase_cycles[kPhases + 1];
+#define DP_MARK(i)                       \
+  if (threadIdx.x == 0) {                \
+    const long long now = clock64();     \
+    prof[i] += now - t_mark;             \
+    t_mark = now;                        \
+  }
+#else
+#define DP_MARK(i)
+#endif
+
 struct Taps {
   float w[MAX_TAPS];
   int n;
@@ -91,9 +109,13 @@ decode_peaks_kernel(const T* __restrict__ maps, long long batch_stride,
   const int b = n / maps_per_batch;
   const int k = n - b * maps_per_batch;
   const T* src = maps + b * batch_stride + static_cast<long long>(k) * HW;
+#ifdef DECODE_PEAKS_PROFILE
+  long long prof[kPhases] = {}, t_mark = clock64();
+#endif
 
   for (int i = threadIdx.x; i < HW; i += THREADS) a[i] = load_f32(src + i);
   __syncthreads();
+  DP_MARK(0)
 
   const int half = taps.n / 2;
   for (int i = threadIdx.x; i < HW; i += THREADS) {
@@ -109,6 +131,7 @@ decode_peaks_kernel(const T* __restrict__ maps, long long batch_stride,
     t[i] = acc;
   }
   __syncthreads();
+  DP_MARK(1)
   for (int i = threadIdx.x; i < HW; i += THREADS) {
     const int y = i / W;
     const int x = i - y * W;
@@ -122,6 +145,7 @@ decode_peaks_kernel(const T* __restrict__ maps, long long batch_stride,
     a[i] = acc;
   }
   __syncthreads();
+  DP_MARK(2)
 
   // Peak mask and this thread's sorted top-P (keys descending). A thread
   // visits its elements in increasing flat order.
@@ -156,6 +180,8 @@ decode_peaks_kernel(const T* __restrict__ maps, long long batch_stride,
     }
   }
 
+  DP_MARK(3)
+
   // Block merge: P rounds of a max over every thread's list head; the
   // thread holding the winner pops it (keys are unique per flat index).
   const int lane = threadIdx.x & 31;
@@ -177,6 +203,7 @@ decode_peaks_kernel(const T* __restrict__ maps, long long batch_stride,
     }
   }
 
+  DP_MARK(4)
   if (threadIdx.x < P) {
     const unsigned long long key = winners[threadIdx.x];
     const int flat = key_flat(key);
@@ -191,6 +218,15 @@ decode_peaks_kernel(const T* __restrict__ maps, long long batch_stride,
     ys[o] = __fadd_rn(static_cast<float>(y), dy);
     xs[o] = __fadd_rn(static_cast<float>(x), dx);
   }
+  DP_MARK(5)
+#ifdef DECODE_PEAKS_PROFILE
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kPhases; ++i) {
+      atomicAdd(&phase_cycles[i], static_cast<unsigned long long>(prof[i]));
+    }
+    atomicAdd(&phase_cycles[kPhases], 1ull);
+  }
+#endif
 }
 
 template <typename T, int P>
@@ -258,5 +294,19 @@ int decode_peaks(const void* maps, int dtype, long long batch_stride,
 }
 
 int decode_peaks_max_peaks() { return MAX_PEAKS; }
+
+#ifdef DECODE_PEAKS_PROFILE
+// Reads (and with reset != 0 then zeroes) the phase counters: kPhases + 1
+// values.
+int decode_peaks_phase_cycles(unsigned long long* host, int reset) {
+  cudaError_t e =
+      cudaMemcpyFromSymbol(host, phase_cycles, sizeof(phase_cycles));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[kPhases + 1] = {};
+    e = cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
+  }
+  return static_cast<int>(e);
+}
+#endif
 
 }  // extern "C"

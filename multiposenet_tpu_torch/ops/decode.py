@@ -151,10 +151,13 @@ def _check_kernel_args(hm: torch.Tensor, config: DecodeConfig) -> np.ndarray:
     return taps
 
 
-def _decode_maps_cuda(
-    hm_cm: torch.Tensor, config: DecodeConfig
+def launch_cuda(
+    hm_cm: torch.Tensor, config: DecodeConfig, lib: ctypes.CDLL | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch csrc/decode_peaks.cu on hm_cm [B, K, H, W]."""
+    """Check hm_cm [B, K, H, W] and launch the C entry point `decode_peaks`
+    of `lib`, a build of csrc/decode_peaks.cu (the package's own, built
+    after the checks pass, when None); raises on a launch error. Counts no
+    launch."""
     b, k, h, w = hm_cm.shape
     p = config.max_peaks_per_channel
     taps = _check_kernel_args(hm_cm, config)
@@ -168,8 +171,7 @@ def _decode_maps_cuda(
     if h * w > MAX_MAP_ELEMENTS:
         raise ValueError(f"map {h}x{w} does not fit the kernel's shared "
                          "memory")
-    lib = kernels.load(KERNEL)
-    fn = lib.decode_peaks
+    fn = (lib or kernels.load(KERNEL)).decode_peaks
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -191,8 +193,16 @@ def _decode_maps_cuda(
         )
     if err != 0:
         raise RuntimeError(f"decode_peaks launch failed: CUDA error {err}")
-    kernels.count_launch(KERNEL)
     return out[0], out[1], out[2]
+
+
+def _decode_maps_cuda(
+    hm_cm: torch.Tensor, config: DecodeConfig
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch csrc/decode_peaks.cu on hm_cm [B, K, H, W] and count it."""
+    out = launch_cuda(hm_cm, config)
+    kernels.count_launch(KERNEL)
+    return out
 
 
 def decode_maps(
