@@ -35,11 +35,14 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
-# tensor cores (the rate of the decode kernels' scalar arithmetic) and the
-# dense bf16 tensor-core rate (the tail's products are bf16 operations).
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the dense bf16
+# tensor-core rate (the tail's products are bf16 operations). The data
+# sheet's 67 TFLOP/s of float32 counts an FMA as two operations; the
+# decode kernels may not fuse (each tap is a separate multiply and add),
+# so their operations issue at most one per lane and clock: 132 SMs x 128
+# lanes x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+F32_NO_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 BF16_OPS_PER_S = 989e12
 BATCH, IMAGE = 128, 512
 
@@ -122,7 +125,26 @@ def compare_raw(got, want, threshold: float,
     return err, int((w_scores > threshold).sum())
 
 
+def decode_bound(n: int, h: int, w: int, p: int, n_taps: int,
+                 elem_bytes: int) -> dict:
+    """The least time of a decode kernel (B1 or B2) on n maps of h x w:
+    each map read once and P (score, y, x) f32 written per map, over the
+    HBM rate; per element a multiply and an add per tap in each blur pass,
+    eight maxima and one comparison for the 3x3 peak test, over the rate
+    of unfused float32 operations."""
+    bytes_moved = n * h * w * elem_bytes + 3 * n * p * 4
+    ops = n * h * w * (4 * n_taps + 9)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_NO_FMA_OPS_PER_S * 1e3
+    return {"bytes": bytes_moved, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def phase_decode_kernel(decode, kernels, cfg, device) -> dict:
+    """B1 on the 2176 test maps of 128² (a fast() batch) against its plain
+    version, bit for bit, and timed; then at one `predict` request's 17
+    maps, exact and timed too."""
     n, h, w = BATCH * 17, 128, 128
     maps = test_maps(n, h, w, device)
     x = maps.view(BATCH, 17, h, w)
@@ -133,28 +155,29 @@ def phase_decode_kernel(decode, kernels, cfg, device) -> dict:
     kernel_ms = cuda_ms(lambda: decode.decode_maps(x, cfg), reps=20, rounds=5)
     plain_ms = cuda_ms(lambda: decode.decode_maps_plain(maps, cfg), reps=3,
                        rounds=3)
+    one = x[:1].contiguous()
+    compare_raw(decode.decode_maps(one, cfg),
+                decode.decode_maps_plain(maps[:17], cfg), cfg.score_threshold)
+    batch1_ms = cuda_ms(lambda: decode.decode_maps(one, cfg), reps=50,
+                        rounds=5)
     p = cfg.max_peaks_per_channel
-    n_taps = len(decode.smoothing_taps(cfg))
-    bytes_moved = n * h * w * maps.element_size() + 3 * n * p * 4
-    # Per element: a multiply and an add per tap in each blur pass, eight
-    # maxima and one comparison for the 3x3 peak test.
-    ops = n * h * w * (4 * n_taps + 9)
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound = decode_bound(n, h, w, p, len(decode.smoothing_taps(cfg)),
+                         maps.element_size())
     row = {
         "name": decode.KERNEL, "route": "cuda",
+        "design": "warp per map (8 row bands when few), cp.async row ring, "
+                  "two rows a step, warp-wide insertion floor",
         "source": "multiposenet_tpu_torch/csrc/decode_peaks.cu",
         "replaces": "multiposenet_tpu/ops/decode_pallas.py:70",
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None, "held_against_plain": True,
     }
     emit({"phase": "decode_kernel", "maps": [n, h, w], "dtype": "bfloat16",
           "exact": True, "valid_slots": n_valid, "max_abs_err": err,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-          "bytes": bytes_moved, "ops": ops})
+          "batch1_maps": [1, 17, h, w], "batch1_exact": True,
+          "batch1_kernel_ms": batch1_ms, "design": row["design"], **bound})
     return row
 
 
@@ -277,28 +300,22 @@ def phase_decode_lanes_kernel(decode, cfg, device) -> dict:
                            rounds=5)
     plain_ms = cuda_ms(lambda: decode.decode_maps_plain(maps, cfg), reps=3,
                        rounds=3)
-    p = cfg.max_peaks_per_channel
-    n_taps = len(decode.smoothing_taps(cfg))
-    bytes_moved = n * h * w * maps.element_size() + 3 * n * p * 4
-    ops = n * h * w * (4 * n_taps + 9)
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound = decode_bound(n, h, w, cfg.max_peaks_per_channel,
+                         len(decode.smoothing_taps(cfg)), maps.element_size())
     row = {
         "name": decode.LANES_KERNEL, "route": "cuda",
         "source": "multiposenet_tpu_torch/csrc/decode_lanes.cu",
         "replaces": "multiposenet_tpu/ops/decode_pallas.py:366",
         "max_abs_err": err, "ms": ms["channel_major"],
         "ms_by_layout": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None, "held_against_plain": True,
     }
     emit({"phase": "decode_lanes_kernel", "maps": [n, h, w],
           "dtype": "bfloat16", "exact_vs_plain": True,
           "exact_vs_decode_peaks": True, "valid_slots": n_valid,
           "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
-          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-          "bytes": bytes_moved, "ops": ops})
+          **bound})
     return row
 
 
@@ -588,10 +605,11 @@ def stage_times(pred, cfg, x, hm_cm, detection) -> dict:
 
 
 def ptxas_summary(log: str) -> dict:
-    """Registers, spills and shared memory that `nvcc -Xptxas -v` reports
-    for the instantiations the main paths take: the decodes' 8 peaks (P),
-    the f32 tail's 17 outputs padded to 20 (KP) and the bf16 tail's three
-    n8 tiles (kp_tail_mma, NT = 3)."""
+    """Registers, stack frame, spills and shared memory that `nvcc -Xptxas
+    -v` reports for the instantiations the main paths take: every
+    instantiation of B1 (decode_peaks_kernel, whatever its template
+    arguments), B2's 8 peaks (P), the f32 tail's 17 outputs padded to 20
+    (KP) and the bf16 tail's three n8 tiles (kp_tail_mma, NT = 3)."""
     out, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -599,7 +617,7 @@ def ptxas_summary(log: str) -> dict:
         elif entry and ("registers" in line or "spill" in line):
             out.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     return {k: v for k, v in out.items()
-            if "Li8E" in k or "Li20E" in k
+            if "decode_peaks_kernel" in k or "Li8E" in k or "Li20E" in k
             or ("kp_tail_mma" in k and "Li3E" in k)}
 
 

@@ -1,4 +1,5 @@
-// Heatmap peak decode for NVIDIA Hopper (sm_90a), one thread block per map.
+// Heatmap peak decode for NVIDIA Hopper (sm_90a): each warp streams the
+// rows of one map, or of one band of rows of a map, top to bottom.
 //
 // Replaces the TPU kernel multiposenet_tpu/ops/decode_pallas.py
 // `_decode_kernel` (banded-matmul blur + two-phase masked-argmax top-P).
@@ -6,22 +7,52 @@
 // horizontal), 3x3 max filter with -inf borders keeping plateau ties,
 // top-P by (value desc, flat index asc) over the peak-masked map, where
 // non-peaks rank as -inf, and a +-shift sub-pixel offset from the
-// border-clipped neighbours of each winner.
+// border-clipped neighbours of each winner. Each blur pass is summed tap
+// by tap from 0.0 in the plain version's order with __fmul_rn/__fadd_rn,
+// so nvcc cannot fuse them into FMAs, and the result agrees bit for bit
+// with the plain PyTorch version (ops/decode.py decode_maps_plain). A tap
+// that falls outside the map adds a zero product, which leaves the sum
+// unchanged, as the plain version's zero padding does.
 //
-// Bound on the card: the kernel must read each map once (N*H*W*2 bytes
-// in bf16, 71.3 MB for 2176 128x128 maps, ~21 us at 3.35 TB/s) and writes
-// only N*P*3 floats; its arithmetic (a multiply and an add per tap in
-// each blur pass, 9 max/compare per element: 37 f32 operations) would
-// take ~20 us at the 67 TFLOP/s outside the tensor cores, so bytes bound
-// it, barely.
-// This first design is simple and exact rather than fast: the map and its
-// blurred copy stay in shared memory as f32 (2*H*W*4 bytes, 128 KiB at
-// 128x128, so one block per SM), taps are accumulated in the plain
-// version's order with __fmul_rn/__fadd_rn so nvcc cannot fuse them into
-// FMAs, and the result agrees bit for bit with the plain PyTorch version
-// (ops/decode.py decode_maps_plain). Each thread keeps a sorted top-P of
-// the elements it visits; the block merges the lists in P rounds of a
-// warp-shuffle max over 64-bit keys.
+// Bound on the card: the kernel must read each map once (2176 bf16 maps
+// of 128x128 are 71.3 MB, 21 us at 3.35 TB/s) and do 37 f32 operations
+// per element (a multiply and an add per tap in each pass, eight maxima
+// and a comparison), none of which may be an FMA: at 132 SMs x 128 lanes
+// x 1.98 GHz that is 39 us, so operations bound it.
+//
+// Design. The first design held a map and its blur whole in 128 KiB of
+// shared memory (one 512-thread block per SM) and spent 86% of its cycles
+// in the two blur passes (run-time divisions, per-tap bounds checks, taps
+// in local memory); it took 125x its byte bound.
+// - A warp owns a map, or a band of its rows when there are too few maps
+//   to fill the card (a `predict` request's 17 maps take 8 bands each),
+//   and a lane owns C neighbouring columns. Raw rows stream through a
+//   ring of kRing rows in shared memory. On the path's instantiation
+//   (128x128, 7 taps, P = 8) rows arrive by 16-byte cp.async, Q steps
+//   ahead of their use, so a warp's loads overlap its own compute and
+//   that of the other warps on the SM; a warp needs under 6 KiB of shared
+//   memory, and the fast() batch puts about 16 warps on every SM at once.
+// - Each step blurs two rows, which share their ring reads and give each
+//   lane twice the independent sums: the blur is a chain of dependent
+//   adds in a fixed order, so the warps are bound by latency, not issue.
+//   The vertical pass reads the ring and the horizontal one zero-padded
+//   rows in shared memory, both with vector loads; the taps are kernel
+//   parameters at indices known at compile time (no local memory).
+// - The peak test keeps the latest blurred rows in registers and takes
+//   its column neighbours by shuffles. Each lane keeps a sorted top-P of
+//   64-bit keys (value, ~flat index, and the sub-pixel signs in the low 4
+//   bits, taken while the neighbours are at hand). A warp-wide floor (a
+//   lower bound of the warp's P-th key so far, refreshed after steps 0, 1,
+//   3, 7, 15 and every kRefresh after) keeps most elements out of the
+//   insertion. The warp merges its lanes' lists in P rounds of a shuffle
+//   max, and the warps of a banded map merge once more in warp 0.
+// - No division or modulo in the loops: rows and columns are walked in
+//   2-D, ring slots are masks, and the path's sizes are template
+//   parameters. Other sizes (W up to 512, any odd tap count up to 15, any
+//   P) run the same kernel with the sizes given at run time and plain row
+//   loads.
+// Built with -DDECODE_PEAKS_PROFILE it counts clock64 cycles per phase
+// (multiposenet_tpu_torch/tools/decode_phases.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,15 +60,31 @@
 #include <stdint.h>
 
 #define MAX_TAPS 15
-#define THREADS 512
 #define MAX_PEAKS 16
+#define FLAT_MASK 0x0fffffffu  // flat indices below 2^28
+
+namespace {
+
+constexpr int kCenter = MAX_TAPS / 2;  // taps are stored centred here
+constexpr int kRing = 16;     // raw rows per warp: >= 2 * half + 1 + PF
+constexpr int kPad = 8;       // zero floats each side of the blurred row
+constexpr int kMaxBands = 8;  // warps per block (bands of one map)
+constexpr int kGenericCols = 16;  // columns per lane off the path: W <= 512
+constexpr int kSmemBytes = 232448 - 1024;  // per block, less static arrays
+constexpr int kRefresh = 16;  // steps between refreshes of the warp's P-th key
+
+struct Params {
+  float taps[MAX_TAPS];  // tap j of n at taps[kCenter - n / 2 + j], else 0
+  int ntaps;
+  float shift;
+};
 
 #ifdef DECODE_PEAKS_PROFILE
 // Phase counters of thread 0, summed over blocks (built only with
 // -DDECODE_PEAKS_PROFILE, by multiposenet_tpu_torch/tools/decode_phases.py):
-// clock64 cycles in the load, the vertical blur, the horizontal blur, the
-// peak mask with the per-thread top-P, the block merge, and the sub-pixel
-// step with the store; then the number of blocks.
+// clock64 cycles in the row loads (issue and wait), the vertical blur, the
+// horizontal blur, the peak mask with the per-lane top-P, the merge, and
+// the sub-pixel step with the store; then the number of blocks.
 constexpr int kPhases = 6;
 __device__ unsigned long long phase_cycles[kPhases + 1];
 #define DP_MARK(i)                       \
@@ -50,17 +97,12 @@ __device__ unsigned long long phase_cycles[kPhases + 1];
 #define DP_MARK(i)
 #endif
 
-struct Taps {
-  float w[MAX_TAPS];
-  int n;
-};
-
-// Order-preserving key: larger key = higher value, then smaller flat index.
-__device__ __forceinline__ unsigned long long make_key(float v, int flat) {
-  unsigned int b = __float_as_uint(v);
-  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return (static_cast<unsigned long long>(b) << 32) |
-         static_cast<unsigned long long>(~static_cast<unsigned int>(flat));
+// Order-preserving key: larger key = higher value, then smaller flat
+// index; the 4 low bits carry the sub-pixel code and never decide, since
+// flat indices are unique within a map.
+__device__ __forceinline__ unsigned int value_bits(float v) {
+  const unsigned int b = __float_as_uint(v);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
 __device__ __forceinline__ float key_value(unsigned long long k) {
@@ -69,152 +111,424 @@ __device__ __forceinline__ float key_value(unsigned long long k) {
   return __uint_as_float(b);
 }
 
-__device__ __forceinline__ int key_flat(unsigned long long k) {
-  return static_cast<int>(~static_cast<unsigned int>(k & 0xffffffffull));
-}
-
 __device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    unsigned long long other = __shfl_xor_sync(0xffffffffu, v, o);
+    const unsigned long long other = __shfl_xor_sync(0xffffffffu, v, o);
     v = other > v ? other : v;
   }
   return v;
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ int sign_of(float d) {
+  return d > 0.f ? 1 : (d < 0.f ? -1 : 0);
 }
 
-__device__ __forceinline__ float sign_shift(float d, float shift) {
-  const float s = d > 0.f ? 1.f : (d < 0.f ? -1.f : 0.f);
-  return __fmul_rn(s, shift);
-}
-
-template <typename T, int P>
-__global__ void __launch_bounds__(THREADS)
-decode_peaks_kernel(const T* __restrict__ maps, long long batch_stride,
-                    int maps_per_batch, int H, int W, Taps taps, float shift,
-                    float* __restrict__ scores, float* __restrict__ ys,
-                    float* __restrict__ xs) {
-  extern __shared__ float smem[];
-  const int HW = H * W;
-  float* a = smem;       // the map, then its blurred copy
-  float* t = smem + HW;  // after the vertical pass
-  __shared__ unsigned long long warp_best[THREADS / 32];
-  __shared__ unsigned long long winners[P];
-
-  const int n = blockIdx.x;
-  const int b = n / maps_per_batch;
-  const int k = n - b * maps_per_batch;
-  const T* src = maps + b * batch_stride + static_cast<long long>(k) * HW;
-#ifdef DECODE_PEAKS_PROFILE
-  long long prof[kPhases] = {}, t_mark = clock64();
-#endif
-
-  for (int i = threadIdx.x; i < HW; i += THREADS) a[i] = load_f32(src + i);
-  __syncthreads();
-  DP_MARK(0)
-
-  const int half = taps.n / 2;
-  for (int i = threadIdx.x; i < HW; i += THREADS) {
-    const int y = i / W;
-    const int x = i - y * W;
-    float acc = 0.f;
-    for (int j = 0; j < taps.n; ++j) {
-      const int yy = y + j - half;
-      if (yy >= 0 && yy < H) {
-        acc = __fadd_rn(acc, __fmul_rn(a[yy * W + x], taps.w[j]));
-      }
-    }
-    t[i] = acc;
-  }
-  __syncthreads();
-  DP_MARK(1)
-  for (int i = threadIdx.x; i < HW; i += THREADS) {
-    const int y = i / W;
-    const int x = i - y * W;
-    float acc = 0.f;
-    for (int j = 0; j < taps.n; ++j) {
-      const int xx = x + j - half;
-      if (xx >= 0 && xx < W) {
-        acc = __fadd_rn(acc, __fmul_rn(t[y * W + xx], taps.w[j]));
-      }
-    }
-    a[i] = acc;
-  }
-  __syncthreads();
-  DP_MARK(2)
-
-  // Peak mask and this thread's sorted top-P (keys descending). A thread
-  // visits its elements in increasing flat order.
-  unsigned long long best[P];
-#pragma unroll
-  for (int j = 0; j < P; ++j) best[j] = 0ull;
-  for (int i = threadIdx.x; i < HW; i += THREADS) {
-    const int y = i / W;
-    const int x = i - y * W;
-    const float v = a[i];
-    float m = v;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int yy = y + dy;
-      if (yy < 0 || yy >= H) continue;
-      for (int dx = -1; dx <= 1; ++dx) {
-        const int xx = x + dx;
-        if (xx < 0 || xx >= W) continue;
-        m = fmaxf(m, a[yy * W + xx]);
-      }
-    }
-    const unsigned long long key = make_key(v >= m ? v : -INFINITY, i);
-    if (key > best[P - 1]) {
-      best[P - 1] = key;
-#pragma unroll
-      for (int j = P - 1; j > 0; --j) {
-        if (best[j] > best[j - 1]) {
-          const unsigned long long s = best[j];
-          best[j] = best[j - 1];
-          best[j - 1] = s;
-        }
-      }
-    }
-  }
-
-  DP_MARK(3)
-
-  // Block merge: P rounds of a max over every thread's list head; the
-  // thread holding the winner pops it (keys are unique per flat index).
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+// P rounds of a max over the lanes' sorted lists; the lane holding the
+// winner pops it. Lane r < P returns the r-th key.
+template <int P>
+__device__ __forceinline__ unsigned long long warp_merge(
+    unsigned long long (&best)[P], int lane) {
+  unsigned long long mine = 0ull;
+#pragma unroll 1
   for (int r = 0; r < P; ++r) {
-    unsigned long long c = warp_max(best[0]);
-    if (lane == 0) warp_best[warp] = c;
-    __syncthreads();
-    if (warp == 0) {
-      c = lane < THREADS / 32 ? warp_best[lane] : 0ull;
-      c = warp_max(c);
-      if (lane == 0) winners[r] = c;
-    }
-    __syncthreads();
-    if (best[0] == winners[r]) {
+    const unsigned long long c = warp_max(best[0]);
+    if (best[0] == c) {
 #pragma unroll
       for (int j = 0; j < P - 1; ++j) best[j] = best[j + 1];
       best[P - 1] = 0ull;
     }
+    if (lane == r) mine = c;
+  }
+  return mine;
+}
+
+// A lower bound of the P-th largest key over the lanes' sorted lists
+// (which stay as they are): the P-th largest of their value halves, with
+// the index half 0. No element below it can reach the warp's top-P.
+template <int P>
+__device__ __forceinline__ unsigned long long warp_kth(
+    const unsigned long long (&best)[P], int lane) {
+  unsigned int t[P];  // the value halves of the keys
+#pragma unroll
+  for (int j = 0; j < P; ++j) t[j] = static_cast<unsigned int>(best[j] >> 32);
+  unsigned int c = 0u;
+#pragma unroll 1
+  for (int r = 0; r < P; ++r) {
+    c = t[0];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      c = max(c, __shfl_xor_sync(0xffffffffu, c, o));
+    }
+    // One lane pops the winner, the lowest of those that hold it.
+    if (lane == __ffs(__ballot_sync(0xffffffffu, t[0] == c)) - 1) {
+#pragma unroll
+      for (int j = 0; j < P - 1; ++j) t[j] = t[j + 1];
+      t[P - 1] = 0u;
+    }
+  }
+  return static_cast<unsigned long long>(c) << 32;
+}
+
+// N values at p (aligned to 4 elements) as floats.
+template <int N>
+__device__ __forceinline__ void load_cols(const float* p, float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p + i);
+    v[i] = q.x;
+    v[i + 1] = q.y;
+    v[i + 2] = q.z;
+    v[i + 3] = q.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
+                                          float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p + i);
+    v[i] = __uint_as_float(q.x << 16);
+    v[i + 1] = __uint_as_float(q.x & 0xffff0000u);
+    v[i + 2] = __uint_as_float(q.y << 16);
+    v[i + 3] = __uint_as_float(q.y & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned int s =
+      static_cast<unsigned int>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared memory of one warp: the raw ring, then two vertically blurred
+// rows.
+template <typename T, int C>
+__host__ __device__ constexpr int warp_smem_bytes() {
+  return kRing * 32 * C * static_cast<int>(sizeof(T)) +
+         2 * (32 * C + 2 * kPad) * static_cast<int>(sizeof(float));
+}
+
+// T: map dtype. P: length of each lane's list (>= the p asked for).
+// C: columns per lane. NT: taps (0: at run time, up to MAX_TAPS).
+// WT, HT: map size (0: at run time). The path's instantiation fixes all
+// of them and loads rows by cp.async; the other loads rows with plain
+// loads.
+template <typename T, int P, int C, int NT, int WT, int HT>
+__global__ void __launch_bounds__(32 * kMaxBands)
+decode_peaks_kernel(const T* __restrict__ maps, long long batch_stride,
+                    int maps_per_batch, int h_rt, int w_rt, int p,
+                    Params prm, float* __restrict__ scores,
+                    float* __restrict__ ys, float* __restrict__ xs) {
+  constexpr bool kAsync = WT > 0;
+  constexpr int RP = 32 * C;                  // ring row pitch, elements
+  constexpr int KT = NT > 0 ? NT : MAX_TAPS;  // taps walked
+  constexpr int KH = KT / 2;
+  // Steps staged ahead: the ring holds rows y - half .. y + 1 + half of
+  // this step and two rows for each of the Q steps after it, and what a
+  // step stages must not overwrite a row of the step before it.
+  constexpr int Q = kAsync ? (kRing - 2 * KH - 2) / 2 : 0;
+  // Floats read each side of a lane's columns in the horizontal pass.
+  constexpr int HV = ((KH + 3) / 4) * 4;
+  static_assert(2 * KH + 2 + 2 * Q <= kRing && 2 * KH + 1 + 2 * Q < kRing,
+                "ring too small");
+  static_assert(!kAsync || Q >= 1, "no prefetch");
+  static_assert(HV <= kPad && C % 4 == 0, "row layout");
+  const int H = HT > 0 ? HT : h_rt;
+  const int W = WT > 0 ? WT : w_rt;
+  const int half = NT > 0 ? NT / 2 : prm.ntaps / 2;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned long long band_best[kMaxBands][P];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bands = blockDim.x >> 5;
+  T* ring = reinterpret_cast<T*>(smem + warp * warp_smem_bytes<T, C>());
+  float* trow = reinterpret_cast<float*>(ring + kRing * RP);
+
+  const int n = blockIdx.x;
+  const int b = n / maps_per_batch;
+  const int k = n - b * maps_per_batch;
+  const T* src = maps + b * batch_stride + static_cast<long long>(k) * H * W;
+#ifdef DECODE_PEAKS_PROFILE
+  long long prof[kPhases] = {}, t_mark = clock64();
+#endif
+
+  // This warp's band: it tests rows [r0, r1) and blurs rows r0 - 1 .. r1
+  // (-inf outside the map) two at a time, in `steps` steps from ya. Step
+  // s needs raw rows ya + 2s - half .. ya + 2s + 1 + half (zero outside
+  // the map); it stages the two new rows of step s + Q.
+  const int rows = (H + bands - 1) / bands;
+  const int r0 = min(warp * rows, H);
+  const int r1 = min(r0 + rows, H);
+  const int ya = r0 - 1;
+  const int steps = (r1 - r0 + 3) / 2;
+  const int last_raw = ya + 2 * steps - 1 + half;
+
+  for (int i = lane; i < 2 * (RP + 2 * kPad); i += 32) trow[i] = 0.f;
+
+  auto stage = [&](int r) {  // raw row r into its ring slot
+    if (r > last_raw) return;
+    T* dst = ring + (r & (kRing - 1)) * RP;
+    if (r < 0 || r >= H) {
+      constexpr int kVec = RP * static_cast<int>(sizeof(T)) / 16;
+      for (int i = lane; i < kVec; i += 32) {
+        reinterpret_cast<uint4*>(dst)[i] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else if constexpr (kAsync) {
+      constexpr int kVec = WT * static_cast<int>(sizeof(T)) / 16;
+      const T* row = src + static_cast<long long>(r) * W;
+#pragma unroll
+      for (int i = lane; i < kVec; i += 32) {
+        cp_async16(reinterpret_cast<uint4*>(dst) + i,
+                   reinterpret_cast<const uint4*>(row) + i);
+      }
+    } else {
+      const T* row = src + static_cast<long long>(r) * W;
+      for (int x = lane; x < W; x += 32) dst[x] = row[x];
+    }
+  };
+
+  unsigned long long best[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) best[j] = 0ull;
+  // A lower bound of the warp's P-th key so far (warp_kth): a lane
+  // inserts only what beats both it and the lane's own P-th key, so that
+  // after the first rows few elements take the insertion.
+  unsigned long long floor_key = 0ull;
+  // Blurred rows: sp, sc the two before this step's pair s0, s1.
+  float sp[C], sc[C], s0[C], s1[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) sp[c] = sc[c] = -INFINITY;
+  const int x0 = lane * C;
+
+  // Peak test of rows y - 1 (sc, between sp and s0) and y (s0, between
+  // sc and s1), those of them in the band. All keys first, then the
+  // insertions, which the lanes take one element at a time.
+  auto test_pair = [&](int y) {
+    const bool in_a = y - 1 >= r0 && y - 1 < r1, in_b = y >= r0 && y < r1;
+    float vma[C], vmb[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float t = fmaxf(sc[c], s0[c]);
+      vma[c] = fmaxf(sp[c], t);
+      vmb[c] = fmaxf(t, s1[c]);
+    }
+    float vla = __shfl_up_sync(0xffffffffu, vma[C - 1], 1);
+    float vra = __shfl_down_sync(0xffffffffu, vma[0], 1);
+    float vlb = __shfl_up_sync(0xffffffffu, vmb[C - 1], 1);
+    float vrb = __shfl_down_sync(0xffffffffu, vmb[0], 1);
+    const float cla = __shfl_up_sync(0xffffffffu, sc[C - 1], 1);
+    const float cra = __shfl_down_sync(0xffffffffu, sc[0], 1);
+    const float clb = __shfl_up_sync(0xffffffffu, s0[C - 1], 1);
+    const float crb = __shfl_down_sync(0xffffffffu, s0[0], 1);
+    if (lane == 0) vla = vlb = -INFINITY;
+    if (lane == 31) vra = vrb = -INFINITY;
+    const unsigned long long lim =
+        floor_key > best[P - 1] ? floor_key : best[P - 1];
+    const unsigned int lo_a =
+        (FLAT_MASK - static_cast<unsigned int>((y - 1) * W + x0)) << 4;
+    const unsigned int lo_b = lo_a - (static_cast<unsigned int>(W) << 4);
+    unsigned long long key[2 * C];
+    unsigned int want = 0u;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const bool col = WT > 0 || x0 + c < W;
+      const float ma = fmaxf(fmaxf(c > 0 ? vma[c - 1] : vla, vma[c]),
+                             c + 1 < C ? vma[c + 1] : vra);
+      const float mb = fmaxf(fmaxf(c > 0 ? vmb[c - 1] : vlb, vmb[c]),
+                             c + 1 < C ? vmb[c + 1] : vrb);
+      key[c] = (static_cast<unsigned long long>(
+                    value_bits(sc[c] >= ma ? sc[c] : -INFINITY)) << 32) |
+               (lo_a - (static_cast<unsigned int>(c) << 4));
+      key[C + c] = (static_cast<unsigned long long>(
+                        value_bits(s0[c] >= mb ? s0[c] : -INFINITY)) << 32) |
+                   (lo_b - (static_cast<unsigned int>(c) << 4));
+      if (in_a && col && key[c] > lim) want |= 1u << c;
+      if (in_b && col && key[C + c] > lim) want |= 1u << (C + c);
+    }
+    if (!__any_sync(0xffffffffu, want != 0u)) return;
+#pragma unroll
+    for (int e = 0; e < 2 * C; ++e) {
+      const int c = e % C;
+      const bool row_b = e >= C;
+      if ((want >> e & 1u) && key[e] > best[P - 1]) {
+        // Border-clipped neighbours: a missing one is the element itself.
+        const int r = row_b ? y : y - 1;
+        const int x = x0 + c;
+        const float v = row_b ? s0[c] : sc[c];
+        const float left =
+            x == 0 ? v
+            : c > 0 ? (row_b ? s0[c > 0 ? c - 1 : 0] : sc[c > 0 ? c - 1 : 0])
+                    : (row_b ? clb : cla);
+        const float right =
+            x + 1 == W ? v
+            : c + 1 < C ? (row_b ? s0[c + 1 < C ? c + 1 : c]
+                                 : sc[c + 1 < C ? c + 1 : c])
+                        : (row_b ? crb : cra);
+        const float above = r > 0 ? (row_b ? sc[c] : sp[c]) : v;
+        const float below = r + 1 < H ? (row_b ? s1[c] : s0[c]) : v;
+        const int sy = sign_of(__fsub_rn(below, above));
+        const int sx = sign_of(__fsub_rn(right, left));
+        best[P - 1] =
+            key[e] | static_cast<unsigned int>((sy + 1) * 3 + sx + 1);
+#pragma unroll
+        for (int j = P - 1; j > 0; --j) {
+          if (best[j] > best[j - 1]) {
+            const unsigned long long t = best[j];
+            best[j] = best[j - 1];
+            best[j - 1] = t;
+          }
+        }
+      }
+    }
+  };
+
+  // Horizontal pass of one blurred row held in tr; the zero pads and the
+  // zeroed columns past W stand for the blur's zero padding. Rows outside
+  // the map are -inf for the peak test.
+  auto horizontal = [&](const float* tr, int y, float (&out)[C]) {
+    float v[C + 2 * HV];
+    load_cols<C + 2 * HV>(tr + kPad + x0 - HV, v);
+    const bool inside = y >= 0 && y < H;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float s = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < KT; ++jj) {
+        const int d = jj - KH;
+        if (NT > 0 || (d >= -half && d <= half)) {
+          s = __fadd_rn(s, __fmul_rn(v[HV + c + d], prm.taps[kCenter + d]));
+        }
+      }
+      out[c] = inside && (WT > 0 || x0 + c < W) ? s : -INFINITY;
+    }
+  };
+
+  for (int r = ya - half; r < ya + half; ++r) stage(r);
+  if constexpr (kAsync) {
+    cp_async_commit();
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      stage(ya + 2 * q + half);
+      stage(ya + 2 * q + 1 + half);
+      cp_async_commit();
+    }
+  }
+  for (int st = 0; st < steps; ++st) {
+    const int y = ya + 2 * st;
+    stage(y + 2 * Q + half);
+    stage(y + 2 * Q + 1 + half);
+    if constexpr (kAsync) {
+      cp_async_commit();
+      cp_async_wait<Q>();
+    }
+    __syncwarp();
+    DP_MARK(0)
+
+    // Vertical pass of rows y and y + 1: each of the KT + 1 ring rows is
+    // read once and feeds both sums, each in tap order.
+    {
+      float a0[C], a1[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) a0[c] = a1[c] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj <= KT; ++jj) {
+        const int d0 = jj - KH, d1 = jj - 1 - KH;
+        const bool use0 = jj < KT && (NT > 0 || (d0 >= -half && d0 <= half));
+        const bool use1 = jj > 0 && (NT > 0 || (d1 >= -half && d1 <= half));
+        if (use0 || use1) {
+          float v[C];
+          load_cols<C>(ring + ((y + d0) & (kRing - 1)) * RP + x0, v);
+          if (use0) {
+            const float tap = prm.taps[kCenter + d0];
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              a0[c] = __fadd_rn(a0[c], __fmul_rn(v[c], tap));
+            }
+          }
+          if (use1) {
+            const float tap = prm.taps[kCenter + d1];
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              a1[c] = __fadd_rn(a1[c], __fmul_rn(v[c], tap));
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < C; c += 4) {
+        float4 q0, q1;
+        const bool i0 = WT > 0 || x0 + c < W, i1 = WT > 0 || x0 + c + 1 < W;
+        const bool i2 = WT > 0 || x0 + c + 2 < W;
+        const bool i3 = WT > 0 || x0 + c + 3 < W;
+        q0.x = i0 ? a0[c] : 0.f;
+        q0.y = i1 ? a0[c + 1] : 0.f;
+        q0.z = i2 ? a0[c + 2] : 0.f;
+        q0.w = i3 ? a0[c + 3] : 0.f;
+        q1.x = i0 ? a1[c] : 0.f;
+        q1.y = i1 ? a1[c + 1] : 0.f;
+        q1.z = i2 ? a1[c + 2] : 0.f;
+        q1.w = i3 ? a1[c + 3] : 0.f;
+        *reinterpret_cast<float4*>(trow + kPad + x0 + c) = q0;
+        *reinterpret_cast<float4*>(trow + RP + 3 * kPad + x0 + c) = q1;
+      }
+    }
+    __syncwarp();
+    DP_MARK(1)
+
+    horizontal(trow, y, s0);
+    horizontal(trow + RP + 2 * kPad, y + 1, s1);
+    __syncwarp();  // every lane is done with trow and with the ring rows
+    DP_MARK(2)
+
+    test_pair(y);
+    // Refreshed after steps 0, 1, 3, 7, 15 and every kRefresh after: the
+    // floor rises fastest in the first rows.
+    if ((st & (st + 1)) == 0 || (st & (kRefresh - 1)) == kRefresh - 1) {
+      floor_key = warp_kth(best, lane);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      sp[c] = s0[c];
+      sc[c] = s1[c];
+    }
+    DP_MARK(3)
   }
 
+  unsigned long long mine = warp_merge<P>(best, lane);
+  if (bands > 1) {
+    if (lane < P) band_best[warp][lane] = mine;
+    __syncthreads();
+    if (warp == 0) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        best[j] = lane < bands ? band_best[lane][j] : 0ull;
+      }
+      mine = warp_merge<P>(best, lane);
+    }
+  }
   DP_MARK(4)
-  if (threadIdx.x < P) {
-    const unsigned long long key = winners[threadIdx.x];
-    const int flat = key_flat(key);
+
+  if (warp == 0 && lane < p) {
+    const unsigned int lo = static_cast<unsigned int>(mine & 0xffffffffull);
+    const int flat = static_cast<int>(FLAT_MASK - (lo >> 4));
+    const int code = static_cast<int>(lo & 15u);
     const int y = flat / W;
     const int x = flat - y * W;
-    const int xr = min(x + 1, W - 1), xl = max(x - 1, 0);
-    const int yd = min(y + 1, H - 1), yu = max(y - 1, 0);
-    const float dx = sign_shift(a[y * W + xr] - a[y * W + xl], shift);
-    const float dy = sign_shift(a[yd * W + x] - a[yu * W + x], shift);
-    const long long o = static_cast<long long>(n) * P + threadIdx.x;
-    scores[o] = key_value(key);
+    const float dy = __fmul_rn(static_cast<float>(code / 3 - 1), prm.shift);
+    const float dx = __fmul_rn(static_cast<float>(code % 3 - 1), prm.shift);
+    const long long o = static_cast<long long>(n) * p + lane;
+    scores[o] = key_value(mine);
     ys[o] = __fadd_rn(static_cast<float>(y), dy);
     xs[o] = __fadd_rn(static_cast<float>(x), dx);
   }
@@ -229,71 +543,98 @@ decode_peaks_kernel(const T* __restrict__ maps, long long batch_stride,
 #endif
 }
 
-template <typename T, int P>
-static int launch(const void* maps, long long batch_stride, int batches,
-                  int maps_per_batch, int H, int W, const Taps& taps,
-                  float shift, float* scores, float* ys, float* xs,
-                  cudaStream_t stream) {
-  const size_t smem = 2ull * H * W * sizeof(float);
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                               dev) != cudaSuccess) {
+      count = 132;
+    }
+  }
+  return count;
+}
+
+template <typename T, int P, int C, int NT, int WT, int HT>
+int launch(const T* maps, long long batch_stride, int n_maps,
+           int maps_per_batch, int H, int W, int p, const Params& prm,
+           float* scores, float* ys, float* xs, cudaStream_t stream) {
+  // Bands of rows per map: enough warps for about 16 per SM, at least 8
+  // rows a band, and what shared memory holds.
+  constexpr int per_warp = warp_smem_bytes<T, C>();
+  const int want = sm_count() * 16 / n_maps;
+  const int bands = max(1, min(min(want, kMaxBands),
+                               min(H / 8, kSmemBytes / per_warp)));
+  const int smem = bands * per_warp;
+  auto kernel = decode_peaks_kernel<T, P, C, NT, WT, HT>;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_peaks_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_peaks_kernel<T, P><<<batches * maps_per_batch, THREADS, smem, stream>>>(
-      static_cast<const T*>(maps), batch_stride, maps_per_batch, H, W, taps,
-      shift, scores, ys, xs);
+  kernel<<<n_maps, 32 * bands, smem, stream>>>(
+      maps, batch_stride, maps_per_batch, H, W, p, prm, scores, ys, xs);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-static int dispatch(int p, const void* maps, long long batch_stride,
-                    int batches, int maps_per_batch, int H, int W,
-                    const Taps& taps, float shift, float* scores, float* ys,
-                    float* xs, cudaStream_t stream) {
-  switch (p) {
-#define CASE(P)                                                           \
-  case P:                                                                 \
-    return launch<T, P>(maps, batch_stride, batches, maps_per_batch, H, W, \
-                        taps, shift, scores, ys, xs, stream);
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
-#undef CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+int dispatch(const void* maps_v, long long batch_stride, int batches,
+             int maps_per_batch, int H, int W, int p, const Params& prm,
+             float* scores, float* ys, float* xs, cudaStream_t stream) {
+  const T* maps = static_cast<const T*>(maps_v);
+  const int n_maps = batches * maps_per_batch;
+  // The fast() path: 128x128 maps, 7 taps, 8 peaks, rows 16-byte aligned
+  // for cp.async.
+  const bool aligned =
+      reinterpret_cast<uintptr_t>(maps) % 16 == 0 &&
+      (batches == 1 || (batch_stride * sizeof(T)) % 16 == 0);
+  if (H == 128 && W == 128 && prm.ntaps == 7 && p == 8 && aligned) {
+    return launch<T, 8, 4, 7, 128, 128>(maps, batch_stride, n_maps,
+                                        maps_per_batch, H, W, p, prm, scores,
+                                        ys, xs, stream);
   }
+  return launch<T, MAX_PEAKS, kGenericCols, 0, 0, 0>(
+      maps, batch_stride, n_maps, maps_per_batch, H, W, p, prm, scores, ys,
+      xs, stream);
 }
+
+}  // namespace
 
 extern "C" {
 
 // maps: [batches, maps_per_batch, H, W] with element stride 1 along W,
 // W along H, H*W along maps and `batch_stride` along batches.
-// dtype: 0 = float32, 1 = bfloat16. Outputs scores/ys/xs: [batches *
-// maps_per_batch, p] float32, contiguous. Returns a cudaError_t code.
+// dtype: 0 = float32, 1 = bfloat16. taps: ntaps (odd, at most 15) blur
+// taps. Outputs scores/ys/xs: [batches * maps_per_batch, p] float32,
+// contiguous. W <= 512 and H*W < 2^28. Returns a cudaError_t code.
 int decode_peaks(const void* maps, int dtype, long long batch_stride,
                  int batches, int maps_per_batch, int H, int W,
                  const float* taps, int ntaps, float shift, int p,
                  float* scores, float* ys, float* xs, void* stream) {
-  if (ntaps < 1 || ntaps > MAX_TAPS || p < 1 || p > MAX_PEAKS ||
-      p > H * W || batches < 1 || maps_per_batch < 1) {
+  if (ntaps < 1 || ntaps > MAX_TAPS || (ntaps & 1) == 0 || p < 1 ||
+      p > MAX_PEAKS || batches < 1 || maps_per_batch < 1 || H < 1 ||
+      W < 1 || W > 32 * kGenericCols ||
+      static_cast<long long>(H) * W > FLAT_MASK ||
+      static_cast<long long>(H) * W < p ||
+      static_cast<long long>(batches) * maps_per_batch > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Taps tp;
-  for (int j = 0; j < MAX_TAPS; ++j) tp.w[j] = j < ntaps ? taps[j] : 0.f;
-  tp.n = ntaps;
+  Params prm;
+  for (int j = 0; j < MAX_TAPS; ++j) prm.taps[j] = 0.f;
+  for (int j = 0; j < ntaps; ++j) prm.taps[kCenter - ntaps / 2 + j] = taps[j];
+  prm.ntaps = ntaps;
+  prm.shift = shift;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return dispatch<float>(p, maps, batch_stride, batches, maps_per_batch, H,
-                           W, tp, shift, scores, ys, xs, s);
+    return dispatch<float>(maps, batch_stride, batches, maps_per_batch, H, W,
+                           p, prm, scores, ys, xs, s);
   }
   if (dtype == 1) {
-    return dispatch<__nv_bfloat16>(p, maps, batch_stride, batches,
-                                   maps_per_batch, H, W, tp, shift, scores,
-                                   ys, xs, s);
+    return dispatch<__nv_bfloat16>(maps, batch_stride, batches,
+                                   maps_per_batch, H, W, p, prm, scores, ys,
+                                   xs, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
-int decode_peaks_max_peaks() { return MAX_PEAKS; }
 
 #ifdef DECODE_PEAKS_PROFILE
 // Reads (and with reset != 0 then zeroes) the phase counters: kPhases + 1

@@ -26,6 +26,7 @@ the JAX package.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -39,14 +40,15 @@ KERNEL = "decode_peaks"
 LANES_KERNEL = "decode_lanes"
 MAX_PEAKS = 16          # csrc/decode_{peaks,lanes}.cu MAX_PEAKS
 MAX_TAPS = 15           # csrc/decode_{peaks,lanes}.cu MAX_TAPS
+# Both kernels carry flat indices under 2**28 in their order keys.
+# decode_peaks gives a lane at most 16 columns of a 32-lane warp.
 # Hopper gives a block at most 232448 bytes of shared memory, less the
-# kernels' small static arrays. decode_peaks keeps two f32 copies of a
-# map; decode_lanes keeps ntaps + 4 f32 rows of W + 1 for each of its 8
-# maps, and flat indices under 2**28.
+# kernels' small static arrays; decode_lanes keeps ntaps + 4 f32 rows of
+# W + 1 for each of its 8 maps.
+MAX_MAP_ELEMENTS = 2 ** 28 - 1
+MAX_WIDTH = 512
 SMEM_BYTES = 232448 - 1024
-MAX_MAP_ELEMENTS = SMEM_BYTES // 8
 LANES_MAPS_PER_BLOCK = 8
-LANES_MAX_ELEMENTS = 2 ** 28 - 1
 
 # Decode the predictor's channel-major heatmaps with the maps-on-lanes
 # kernel (the JAX package's decode_pallas.DECODE_LANES).
@@ -136,7 +138,25 @@ def decode_maps_plain(
     return scores, y.float() + dy, x.float() + dx
 
 
-def _check_kernel_args(hm: torch.Tensor, config: DecodeConfig) -> np.ndarray:
+@functools.lru_cache(maxsize=32)
+def _kernel_taps(config: DecodeConfig) -> ctypes.Array:
+    """The blur's taps as the C entry points take them, made once per
+    config: a request's decode should not pay for them again."""
+    taps = smoothing_taps(config)
+    if len(taps) > MAX_TAPS:
+        raise ValueError(f"decode kernel takes at most {MAX_TAPS} taps")
+    return (ctypes.c_float * len(taps))(*taps.tolist())
+
+
+def _bind(fn, argtypes: list) -> None:
+    """Declare a C entry point's signature, once."""
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+
+
+def _check_kernel_args(hm: torch.Tensor,
+                       config: DecodeConfig) -> ctypes.Array:
     """What both decode kernels refuse; returns the blur's taps."""
     h, w = hm.shape[2:]
     p = config.max_peaks_per_channel
@@ -145,10 +165,7 @@ def _check_kernel_args(hm: torch.Tensor, config: DecodeConfig) -> np.ndarray:
     if not 1 <= p <= min(MAX_PEAKS, h * w):
         raise ValueError(f"decode kernel takes 1..{MAX_PEAKS} peaks per "
                          f"map (and at most H*W); got {p}")
-    taps = smoothing_taps(config)
-    if len(taps) > MAX_TAPS:
-        raise ValueError(f"decode kernel takes at most {MAX_TAPS} taps")
-    return taps
+    return _kernel_taps(config)
 
 
 def launch_cuda(
@@ -168,28 +185,27 @@ def launch_cuda(
             "decode kernel needs each [K, H, W] block contiguous; got "
             f"strides {hm_cm.stride()}"
         )
-    if h * w > MAX_MAP_ELEMENTS:
-        raise ValueError(f"map {h}x{w} does not fit the kernel's shared "
-                         "memory")
+    if w > MAX_WIDTH or h * w > MAX_MAP_ELEMENTS:
+        raise ValueError(f"decode kernel takes maps at most {MAX_WIDTH} "
+                         f"wide with flat indices under 2**28; got {h}x{w}")
     fn = (lib or kernels.load(KERNEL)).decode_peaks
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
+    _bind(fn, [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p,
-    ]
+    ])
     out = torch.empty((3, b * k, p), dtype=torch.float32,
                       device=hm_cm.device)
-    taps_c = (ctypes.c_float * len(taps))(*taps.tolist())
+    ptr, plane = out.data_ptr(), b * k * p * 4
     with torch.cuda.device(hm_cm.device):
         stream = torch.cuda.current_stream(hm_cm.device).cuda_stream
         err = fn(
             hm_cm.data_ptr(), 1 if hm_cm.dtype == torch.bfloat16 else 0,
-            hm_cm.stride(0), b, k, h, w, taps_c, len(taps),
-            float(config.subpixel_shift), p,
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream,
+            hm_cm.stride(0), b, k, h, w, taps, len(taps),
+            float(config.subpixel_shift), p, ptr, ptr + plane,
+            ptr + 2 * plane, stream,
         )
     if err != 0:
         raise RuntimeError(f"decode_peaks launch failed: CUDA error {err}")
@@ -225,7 +241,7 @@ def _decode_maps_lanes_cuda(
     b, k, h, w = hm.shape
     p = config.max_peaks_per_channel
     taps = _check_kernel_args(hm, config)
-    if h * w > LANES_MAX_ELEMENTS:
+    if h * w > MAX_MAP_ELEMENTS:
         raise ValueError(f"map {h}x{w} has flat indices over 2**28")
     if (len(taps) + 4) * LANES_MAPS_PER_BLOCK * (w + 1) * 4 > SMEM_BYTES:
         raise ValueError(f"map width {w} does not fit the lanes kernel's "
@@ -233,21 +249,19 @@ def _decode_maps_lanes_cuda(
     # Rows are read along the maps where the map stride is the smaller.
     lanes_load = int(k > 1 and hm.stride(1) < hm.stride(3))
     fn = kernels.load(LANES_KERNEL).decode_lanes
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
+    _bind(fn, [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
+    ])
     out = torch.empty((3, b * k, p), dtype=torch.float32, device=hm.device)
-    taps_c = (ctypes.c_float * len(taps))(*taps.tolist())
     with torch.cuda.device(hm.device):
         stream = torch.cuda.current_stream(hm.device).cuda_stream
         err = fn(
             hm.data_ptr(), 1 if hm.dtype == torch.bfloat16 else 0,
-            *hm.stride(), b, k, h, w, taps_c, len(taps),
+            *hm.stride(), b, k, h, w, taps, len(taps),
             float(config.subpixel_shift), p, lanes_load,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream,
         )

@@ -94,15 +94,108 @@ def test_kernel_reads_channel_slice_of_head_output(cuda_device):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("case", ["dtype", "strides"])
+@pytest.mark.parametrize("case", ["dtype", "strides", "width"])
 def test_kernel_wrapper_refuses_on_card(cuda_device, case):
     x = torch.rand(2, 3, 16, 16, device=cuda_device)
     if case == "dtype":
         x, err = x.half(), TypeError
-    else:
+    elif case == "strides":
         x, err = x.permute(0, 1, 3, 2), ValueError
+    else:
+        x = torch.rand(1, 2, 4, decode.MAX_WIDTH + 1, device=cuda_device)
+        err = ValueError
     with pytest.raises(err):
         decode.decode_maps(x, DecodeConfig())
+
+
+# Edges of the warp-per-map design: widths that are not a multiple of the
+# 4 or 16 columns of a lane or of the 32 lanes, maps lower than the 7 taps,
+# 1 and 16 peaks (the path's 128x128 maps then take the kernel's generic
+# instantiation), fewer peaks than P, plateau ties, one request's 17 maps
+# (split into bands of rows) and a full fast() batch of 2176 maps.
+@pytest.mark.parametrize("shape,peaks,kind", [
+    ((2, 3, 17, 9), 8, "planted"),
+    ((1, 4, 20, 36), 8, "random"),
+    ((2, 3, 37, 53), 8, "planted"),
+    ((1, 5, 9, 130), 8, "random"),
+    ((1, 2, 70, 512), 8, "planted"),
+    ((2, 3, 3, 3), 8, "planted"),
+    ((3, 2, 1, 1), 1, "random"),
+    ((4, 17, 128, 128), 1, "planted"),
+    ((4, 17, 128, 128), 16, "planted"),
+    ((1, 17, 128, 128), 8, "planted"),
+    ((1, 17, 128, 128), 8, "plateau"),
+    ((3, 17, 64, 64), 16, "plateau"),
+    ((2, 3, 6, 40), 16, "ramp"),
+    ((1, 17, 128, 128), 8, "ramp"),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_edges(cuda_device, shape, peaks, kind, dtype):
+    b, k, h, w = shape
+    rng = np.random.RandomState(11)
+    if kind == "ramp":  # values rise with the flat index: one peak
+        hm = np.broadcast_to(np.arange(h * w, dtype=np.float32).reshape(
+            1, h, w, 1), (b, h, w, k)).copy()
+        cfg = DecodeConfig(max_peaks_per_channel=peaks, smooth_sigma=0.0)
+    else:
+        hm = MAKERS[kind](rng, (b, h, w, k))
+        cfg = DecodeConfig(**{**CONFIGS[kind],
+                              "max_peaks_per_channel": peaks})
+    x = torch.as_tensor(hm).permute(0, 3, 1, 2).contiguous().to(
+        cuda_device, dtype)
+    _assert_kernel_equals_plain(x, cfg)
+    if kind == "ramp" and h * w <= 256:  # exact in bf16: P - 1 fillers
+        scores = decode.decode_maps(x, cfg)[0]
+        assert torch.isneginf(scores[:, 1:]).all()
+
+
+@pytest.mark.parametrize("size", [128, 40])
+def test_kernel_reads_channel_slice_at_path_size(cuda_device, size):
+    """The first 17 of 18 channels (batch stride 18*H*W) at the fast()
+    path's 128x128 (its cp.async instantiation) and at another size, bit
+    for bit against the plain version on every slot."""
+    hm = planted_maps(np.random.RandomState(12), (3, size, size, 18))
+    full = torch.as_tensor(hm).permute(0, 3, 1, 2).contiguous().to(
+        cuda_device, torch.bfloat16)
+    x = full[:, :17]
+    assert x.stride(0) == 18 * size * size
+    cfg = DecodeConfig()
+    got = decode.decode_maps(x, cfg)
+    want = decode.decode_maps_plain(x.reshape(-1, size, size), cfg)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_full_fast_batch(cuda_device, dtype):
+    """2176 maps of 128x128, as a fast() batch of 128 gives the kernel,
+    every slot bit for bit (the -inf fillers included)."""
+    hm = planted_maps(np.random.RandomState(13), (8, 128, 128, 17))
+    x = torch.as_tensor(hm).permute(0, 3, 1, 2).contiguous().to(
+        cuda_device, dtype).repeat(16, 1, 1, 1)
+    x = x + torch.linspace(0, 0.5, 128, device=cuda_device,
+                           dtype=dtype)[:, None, None, None]
+    cfg = DecodeConfig()
+    got = decode.decode_maps(x, cfg)
+    want = decode.decode_maps_plain(x.reshape(-1, 128, 128), cfg)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("shape", [(128, 17, 128, 128), (1, 17, 128, 128),
+                                   (2, 3, 36, 52)])
+def test_counted_build_equals_plain_build(cuda_device, shape):
+    """The -DDECODE_PEAKS_PROFILE build (tools/decode_phases.py) gives the
+    plain build's outputs bit for bit: the counters change no result."""
+    from multiposenet_tpu_torch.tools import decode_phases
+
+    b, k, h, w = shape
+    x = decode_phases.phase_maps(b * k, h, w, cuda_device).view(b, k, h, w)
+    cfg = DecodeConfig()
+    counted = decode.launch_cuda(x, cfg, decode_phases.build_profiled())
+    plain = decode.launch_cuda(x, cfg)
+    for a, c in zip(counted, plain):
+        assert torch.equal(a, c)
 
 
 def test_batch_forward_on_card_matches_cpu(cuda_device):

@@ -109,3 +109,42 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     kernels.reset_launches()
     decode.decode_heatmaps_cm(torch.rand(1, 2, 16, 16), DecodeConfig())
     assert kernels.LAUNCHES == {}
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repository root, imported as a module (its
+    main() runs only as a script)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("elem_bytes,bound_ms,bound_by", [
+    # bf16, the fast() batch: 2176 * 128**2 * 37 = 1.319e9 unfused f32
+    # operations over 132 * 128 * 1.98e9 per second = 0.0394 ms, above
+    # the 71.5 MB over 3.35 TB/s = 0.0213 ms of bytes.
+    (2, 0.039431, "operations"),
+    # f32 maps move twice the bytes: 142.8 MB, 0.0426 ms.
+    (4, 0.042631, "bytes"),
+])
+def test_decode_bound_matches_hand_count(elem_bytes, bound_ms, bound_by):
+    bound = _chip_smoke().decode_bound(2176, 128, 128, 8, 7, elem_bytes)
+    assert bound["ops"] == 2176 * 128 * 128 * 37 == 1_319_108_608
+    assert bound["bytes"] == 2176 * 128 * 128 * elem_bytes + 2176 * 8 * 12
+    assert bound["bound_by"] == bound_by
+    assert bound["bound_ms"] == pytest.approx(bound_ms, abs=1e-6)
+
+
+def test_decode_phase_tool_refuses_without_a_card(monkeypatch, capsys):
+    """tools/decode_phases.py measures on a card only: without one it
+    exits non-zero and prints no result."""
+    from multiposenet_tpu_torch.tools import decode_phases
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert decode_phases.main([]) == 2
+    assert capsys.readouterr().out == ""

@@ -88,10 +88,13 @@ def test_kernel_sources_and_build_dir():
     assert f"{rel}/" in ignored
 
 
-@pytest.mark.parametrize("case", ["dtype", "strides", "peaks", "map_size"])
+@pytest.mark.parametrize("case", ["dtype", "strides", "peaks", "map_size",
+                                  "taps", "elements"])
 def test_kernel_wrapper_validates_before_building(case, monkeypatch):
     """The wrapper refuses what the kernel does not take before it builds
-    or launches anything (CPU tensors stand in for CUDA ones here)."""
+    or launches anything (CPU tensors stand in for CUDA ones here): f32 or
+    bf16, contiguous [K, H, W] blocks, 1..16 peaks, maps at most 512 wide,
+    at most 15 taps, flat indices under 2**28."""
     monkeypatch.setattr(kernels, "load", pytest.fail)
     cfg = config.DecodeConfig()
     x = torch.zeros(2, 3, 16, 16)
@@ -101,8 +104,12 @@ def test_kernel_wrapper_validates_before_building(case, monkeypatch):
         x, err = torch.zeros(2, 16, 16, 3).permute(0, 3, 1, 2), ValueError
     elif case == "peaks":
         cfg, err = config.DecodeConfig(max_peaks_per_channel=17), ValueError
-    else:
-        x, err = torch.zeros(1, 1, 256, 256), ValueError
+    elif case == "map_size":
+        x, err = torch.zeros(1, 1, 4, decode.MAX_WIDTH + 1), ValueError
+    elif case == "taps":
+        cfg, err = config.DecodeConfig(smooth_kernel_size=17), ValueError
+    else:  # on the meta device: no memory of 2**29 elements is needed
+        x, err = torch.empty(1, 1, 2 ** 20, 512, device="meta"), ValueError
     with pytest.raises(err):
         decode._decode_maps_cuda(x, cfg)
     assert kernels.LAUNCHES.get(decode.KERNEL, 0) == 0
