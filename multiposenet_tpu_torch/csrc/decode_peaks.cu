@@ -20,10 +20,7 @@
 // and a comparison), none of which may be an FMA: at 132 SMs x 128 lanes
 // x 1.98 GHz that is 39 us, so operations bound it.
 //
-// Design. The first design held a map and its blur whole in 128 KiB of
-// shared memory (one 512-thread block per SM) and spent 86% of its cycles
-// in the two blur passes (run-time divisions, per-tap bounds checks, taps
-// in local memory); it took 125x its byte bound.
+// Design:
 // - A warp owns a map, or a band of its rows when there are too few maps
 //   to fill the card (a `predict` request's 17 maps take 8 bands each),
 //   and a lane owns C neighbouring columns. Raw rows stream through a
