@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch port (`multiposenet_tpu_torch`) on one NVIDIA
 GPU: builds the hand-written CUDA kernels from `csrc/` (B1 decode_peaks,
-B2 decode_lanes, B3 kp_tail), holds each against its plain PyTorch version
-at the shapes its path gives it (B2 also against B1, bit for bit), holds
+B2 decode_lanes, decode_generic, B3 kp_tail), holds each against its
+plain PyTorch version at the shapes its path gives it (B2 also against
+B1, bit for bit), holds
 the float32 forwards of Config.fast() and of the served Config.crowd()
 model (BN folded, fused tail) on the card against the same weights on the
 CPU, then drives two paths at full width (512² input, 128² heatmaps,
@@ -9,6 +10,8 @@ batch 128) through `Predictor.batch_forward`: Config.fast() (B1), and
 Config.crowd() with BN folded, the fused tail and the maps-on-lanes
 decode (B3 and B2). It serves `predict` requests on the first and
 `predict`, `predict_keypoints` and `predict_given_boxes` on the second.
+Last, `predict` requests with a 5x5 peak window go through the generic
+decode kernel, which takes what B1 and B2 do not.
 
     python3 chip_smoke.py
 
@@ -126,14 +129,14 @@ def compare_raw(got, want, threshold: float,
 
 
 def decode_bound(n: int, h: int, w: int, p: int, n_taps: int,
-                 elem_bytes: int) -> dict:
-    """The least time of a decode kernel (B1 or B2) on n maps of h x w:
-    each map read once and P (score, y, x) f32 written per map, over the
-    HBM rate; per element a multiply and an add per tap in each blur pass,
-    eight maxima and one comparison for the 3x3 peak test, over the rate
-    of unfused float32 operations."""
+                 elem_bytes: int, window: int = 3) -> dict:
+    """The least time of a decode kernel (B1, B2 or the generic one) on n
+    maps of h x w: each map read once and P (score, y, x) f32 written per
+    map, over the HBM rate; per element a multiply and an add per tap in
+    each blur pass, window² - 1 maxima and one comparison for the peak
+    test, over the rate of unfused float32 operations."""
     bytes_moved = n * h * w * elem_bytes + 3 * n * p * 4
-    ops = n * h * w * (4 * n_taps + 9)
+    ops = n * h * w * (4 * n_taps + window ** 2)
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_NO_FMA_OPS_PER_S * 1e3
     return {"bytes": bytes_moved, "ops": ops, "bytes_ms": bytes_ms,
@@ -178,6 +181,53 @@ def phase_decode_kernel(decode, kernels, cfg, device) -> dict:
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "batch1_maps": [1, 17, h, w], "batch1_exact": True,
           "batch1_kernel_ms": batch1_ms, "design": row["design"], **bound})
+    return row
+
+
+def phase_decode_generic_kernel(decode, cfg, device) -> dict:
+    """The generic decode kernel on what B1 and B2 do not take: a 5x5 peak
+    window on 1088 test maps of 128² (64 images of 17), and 20 peaks on
+    maps 600 wide (as a 2400-pixel image gives). Bit for bit against the
+    plain version and timed; the bound and the row are those of the first
+    shape."""
+    cases = {"window5": ((64, 17, 128, 128), dataclasses.replace(
+                 cfg, nms_window=5)),
+             "peaks20_width600": ((4, 17, 160, 600), dataclasses.replace(
+                 cfg, max_peaks_per_channel=20))}
+    out, err = {}, 0.0
+    for name, ((b, k, h, w), c) in cases.items():
+        maps = test_maps(b * k, h, w, device)
+        x = maps.view(b, k, h, w)
+        if decode.route(x, c) != decode.GENERIC_KERNEL:
+            raise AssertionError(f"decode_generic: {name} routed elsewhere")
+        e, n_valid = compare_raw(decode.decode_maps(x, c),
+                                 decode.decode_maps_plain(maps, c),
+                                 c.score_threshold, f"decode_generic {name}")
+        err = max(err, e)
+        out[name] = {
+            "maps": [b, k, h, w], "config": dataclasses.asdict(c),
+            "exact": True, "valid_slots": n_valid,
+            "kernel_ms": cuda_ms(lambda: decode.decode_maps(x, c), reps=3,
+                                 rounds=3),
+            "plain_ms": cuda_ms(lambda: decode.decode_maps_plain(maps, c),
+                                reps=1, rounds=3),
+            **decode_bound(b * k, h, w, c.max_peaks_per_channel,
+                           len(decode.smoothing_taps(c)),
+                           maps.element_size(), c.nms_window)}
+    first = out["window5"]
+    row = {
+        "name": decode.GENERIC_KERNEL, "route": "cuda",
+        "design": "block per map, f32 workspace, P rounds of a block max",
+        "source": "multiposenet_tpu_torch/csrc/decode_generic.cu",
+        "replaces": "multiposenet_tpu/ops/decode.py:164 (jnp decode, no "
+                    "Pallas kernel)",
+        "max_abs_err": err, "ms": first["kernel_ms"],
+        "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"], "library_ms": None,
+        "held_against_plain": True,
+    }
+    emit({"phase": "decode_generic_kernel", "dtype": "bfloat16",
+          "max_abs_err": err, "cases": out, "design": row["design"]})
     return row
 
 
@@ -495,6 +545,43 @@ def phase_pipeline(Config, Predictor, decode, kernels, image_ops,
     return run["launches"][decode.KERNEL]
 
 
+def phase_predict_generic(Config, Predictor, decode, kernels,
+                          card: str) -> int:
+    """`predict` requests on Config.fast() with a 5x5 peak window, which
+    only the generic decode kernel takes: one launch of it per request
+    and no other kernel. Returns its launches."""
+    cfg = Config.fast()
+    cfg = cfg.replace(
+        detector=dataclasses.replace(cfg.detector, score_threshold=0.0),
+        decode=dataclasses.replace(cfg.decode, nms_window=5))
+    pred = Predictor(cfg, image_size=IMAGE)
+    k = cfg.model.num_keypoints
+    with torch.no_grad():
+        pred.model.keypoint_head.output.bias[:k].fill_(0.25)
+    rng = np.random.RandomState(4)
+    sizes = [(480, 640), (512, 512), (300, 700)]
+    images = [planted_scenes(rng, 1, h, w)[0] for h, w in sizes]
+    pred.predict(images[0])  # warm-up, outside the counted window
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    latencies, persons = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        people = pred.predict(img)
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        check_people(people, k)
+        persons.append(len(people))
+    launches = dict(kernels.LAUNCHES)
+    if launches != {decode.GENERIC_KERNEL: len(images)} or not all(persons):
+        raise AssertionError(
+            f"predict_generic: launches {launches}, persons {persons}")
+    emit({"phase": "predict_generic", "card": card,
+          "config": "Config.fast(), decode.nms_window=5", "sizes": sizes,
+          "persons": persons, "latency_ms": latencies,
+          "launches": launches})
+    return launches[decode.GENERIC_KERNEL]
+
+
 def check_people(people, k: int) -> None:
     for person in people:
         if not (np.isfinite(person.box).all()
@@ -607,9 +694,9 @@ def stage_times(pred, cfg, x, hm_cm, detection) -> dict:
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame, spills and shared memory that `nvcc -Xptxas
     -v` reports for the instantiations the main paths take: every
-    instantiation of B1 (decode_peaks_kernel, whatever its template
-    arguments), B2's 8 peaks (P), the f32 tail's 17 outputs padded to 20
-    (KP) and the bf16 tail's three n8 tiles (kp_tail_mma, NT = 3)."""
+    instantiation of the decode kernels (B1, B2 and the generic one,
+    whatever their template arguments), the f32 tail's 17 outputs padded
+    to 20 (KP) and the bf16 tail's three n8 tiles (kp_tail_mma, NT = 3)."""
     out, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -617,7 +704,7 @@ def ptxas_summary(log: str) -> dict:
         elif entry and ("registers" in line or "spill" in line):
             out.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     return {k: v for k, v in out.items()
-            if "decode_peaks_kernel" in k or "Li8E" in k or "Li20E" in k
+            if "decode_" in k or "Li20E" in k
             or ("kp_tail_mma" in k and "Li3E" in k)}
 
 
@@ -663,6 +750,7 @@ def main() -> int:
 
     rows = [phase_decode_kernel(decode, kernels, Config.fast().decode, device),
             phase_decode_lanes_kernel(decode, Config.crowd().decode, device),
+            phase_decode_generic_kernel(decode, Config.fast().decode, device),
             phase_tail_kernel(kp_tail, layers, device)]
     phase_parity_f32(Config, MultiPoseNet, folding, kp_tail, kernels,
                      image_ops, device)
@@ -672,6 +760,8 @@ def main() -> int:
     launches.update(phase_pipeline_crowd(
         Config, Predictor, decode, kp_tail, kernels, image_ops, detection,
         card))
+    launches[decode.GENERIC_KERNEL] = phase_predict_generic(
+        Config, Predictor, decode, kernels, card)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if not row["launches"]:

@@ -28,7 +28,8 @@ NVCC_FLAGS = (
 )
 
 # Every kernel source in csrc/, by name.
-KERNEL_NAMES = ("decode_peaks", "decode_lanes", "kp_tail")
+KERNEL_NAMES = ("decode_peaks", "decode_lanes", "decode_generic",
+                "kp_tail")
 # Kernel launches by kernel name since the last reset_launches().
 LAUNCHES: dict[str, int] = {}
 # nvcc's report (registers, shared memory, spills) per built kernel.

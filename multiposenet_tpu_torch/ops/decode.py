@@ -1,26 +1,31 @@
-"""Heatmap decoding: Gaussian smoothing → 3x3 peak NMS → top-P → ¼ px.
+"""Heatmap decoding: Gaussian smoothing → peak NMS → top-P → ¼ px.
 
 Counterpart of `multiposenet_tpu/ops/decode.py` (the jnp reference) and
 `ops/decode_pallas.py` (the TPU kernel). Conventions, as there:
   * the Gaussian blur is a truncated, normalized, zero-padded separable
     filter;
-  * peak NMS keeps plateau ties (value >= its 3x3 max, -inf borders);
+  * peak NMS keeps plateau ties (value >= the max of its `nms_window`
+    square, -inf borders; an even window reaches one cell further right
+    and down than left and up, as XLA's SAME padding does);
   * the top-P per map is ordered by value descending, then flat index
     ascending (`lax.top_k`'s order); fewer than P peaks leave -inf slots;
   * the sub-pixel shift is ±`subpixel_shift` toward the larger of two
     border-clipped neighbours, per axis;
   * `valid = score > score_threshold`, and invalid scores are zeroed.
 
-`decode_maps` is the one entry point to the work: on a CUDA tensor it
-launches the hand-written kernel `csrc/decode_peaks.cu` (B1), on a CPU
-tensor it runs the plain PyTorch version `decode_maps_plain`, which
-repeats the kernel's arithmetic in the same order so the two agree bit for
-bit. `decode_maps_lanes` computes the same function with the maps-on-lanes
-kernel `csrc/decode_lanes.cu` (B2), which reads [B, K, H, W] through any
-strides and is laid out for channels-last maps; it has the same plain
-version and agrees with B1 bit for bit. `DECODE_LANES` selects it at the
-predictor's channel-major decode, as `decode_pallas.DECODE_LANES` does in
-the JAX package.
+`decode_maps` is the one entry point to the work: on a CPU tensor it runs
+the plain PyTorch version `decode_maps_plain`; on a CUDA tensor it
+launches a hand-written kernel, chosen by `route` from the config and the
+shape before anything is built: `csrc/decode_peaks.cu` (B1) where B1
+takes the input, else `csrc/decode_generic.cu`, which takes every config
+the plain version takes. `decode_maps_lanes` computes the same function
+with the maps-on-lanes kernel `csrc/decode_lanes.cu` (B2), which reads
+[B, K, H, W] through any strides (channel-major and channels-last are its
+fast layouts), or with the generic kernel where B2 does not take the
+input. `DECODE_LANES` selects it at the predictor's channel-major decode,
+as `decode_pallas.DECODE_LANES` does in the JAX package. Every kernel
+repeats the plain version's arithmetic in the same order, so all of them
+agree with it bit for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from multiposenet_tpu_torch.config import DecodeConfig
 
 KERNEL = "decode_peaks"
 LANES_KERNEL = "decode_lanes"
+GENERIC_KERNEL = "decode_generic"
 MAX_PEAKS = 16          # csrc/decode_{peaks,lanes}.cu MAX_PEAKS
 MAX_TAPS = 15           # csrc/decode_{peaks,lanes}.cu MAX_TAPS
 # Both kernels carry flat indices under 2**28 in their order keys.
@@ -86,11 +92,18 @@ def smoothing_taps(config: DecodeConfig) -> np.ndarray:
 
 
 def _check_config(config: DecodeConfig) -> None:
-    if config.nms_window != 3:
+    if config.nms_window < 1:
         raise ValueError(
-            "the decode implements the reference 3x3 NMS window; got "
-            f"nms_window={config.nms_window}"
-        )
+            f"nms_window must be at least 1; got {config.nms_window}")
+
+
+def window_max(sm: torch.Tensor, window: int) -> torch.Tensor:
+    """Max of each element's `window` square in f32 maps [N, H, W], -inf
+    outside the map: rows and columns -(window-1)//2 .. window//2 around
+    it (XLA's SAME padding of the JAX package's reduce_window)."""
+    lo, hi = (window - 1) // 2, window // 2
+    padded = F.pad(sm[:, None], (lo, hi, lo, hi), value=-torch.inf)
+    return F.max_pool2d(padded, window, stride=1)[:, 0]
 
 
 def gaussian_smooth(maps: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
@@ -120,8 +133,8 @@ def decode_maps_plain(
     n, h, w = maps.shape
     p = config.max_peaks_per_channel
     sm = gaussian_smooth(maps.float(), smoothing_taps(config))
-    m9 = F.max_pool2d(sm[:, None], 3, stride=1, padding=1)[:, 0]
-    masked = torch.where(sm >= m9, sm, torch.full_like(sm, -torch.inf))
+    peak = sm >= window_max(sm, config.nms_window)
+    masked = torch.where(peak, sm, torch.full_like(sm, -torch.inf))
     vals, idx = torch.sort(masked.reshape(n, h * w), dim=1,
                            descending=True, stable=True)
     scores, idx = vals[:, :p], idx[:, :p]
@@ -143,8 +156,6 @@ def _kernel_taps(config: DecodeConfig) -> ctypes.Array:
     """The blur's taps as the C entry points take them, made once per
     config: a request's decode should not pay for them again."""
     taps = smoothing_taps(config)
-    if len(taps) > MAX_TAPS:
-        raise ValueError(f"decode kernel takes at most {MAX_TAPS} taps")
     return (ctypes.c_float * len(taps))(*taps.tolist())
 
 
@@ -155,17 +166,71 @@ def _bind(fn, argtypes: list) -> None:
         fn.argtypes = argtypes
 
 
-def _check_kernel_args(hm: torch.Tensor,
-                       config: DecodeConfig) -> ctypes.Array:
-    """What both decode kernels refuse; returns the blur's taps."""
-    h, w = hm.shape[2:]
+@functools.lru_cache(maxsize=32)
+def _n_taps(config: DecodeConfig) -> int:
+    return len(smoothing_taps(config))
+
+
+def _refusal(hm: torch.Tensor, config: DecodeConfig,
+             kernel: str) -> Exception | None:
+    """Why `kernel` does not take maps hm [B, K, H, W] with `config`, or
+    None where it does. Decided from the dtype, the shape, the strides and
+    the config alone. The generic kernel takes f32 or bf16 maps of any
+    layout with 1 <= P <= H*W and flat indices under 2**28; B1 and B2 take
+    the 3x3 peak window, at most 16 peaks and 15 taps besides, B1 maps at
+    most 512 wide in contiguous [K, H, W] blocks, B2 maps whose rows fit
+    its shared memory."""
+    b, k, h, w = hm.shape
     p = config.max_peaks_per_channel
     if hm.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"decode kernel takes f32 or bf16, got {hm.dtype}")
+        return TypeError(f"decode kernel takes f32 or bf16, got {hm.dtype}")
+    if h * w > MAX_MAP_ELEMENTS:
+        return ValueError(f"decode kernel takes flat indices under 2**28; "
+                          f"got {h}x{w}")
+    if kernel == GENERIC_KERNEL:
+        if not 1 <= p <= h * w:
+            return ValueError(f"decode kernel takes 1..H*W peaks per map; "
+                              f"got {p} for {h}x{w}")
+        return None
+    if config.nms_window != 3:
+        return ValueError("decode kernel implements the 3x3 peak window; "
+                          f"got nms_window={config.nms_window}")
     if not 1 <= p <= min(MAX_PEAKS, h * w):
-        raise ValueError(f"decode kernel takes 1..{MAX_PEAKS} peaks per "
-                         f"map (and at most H*W); got {p}")
-    return _kernel_taps(config)
+        return ValueError(f"decode kernel takes 1..{MAX_PEAKS} peaks per "
+                          f"map (and at most H*W); got {p}")
+    if _n_taps(config) > MAX_TAPS:
+        return ValueError(f"decode kernel takes at most {MAX_TAPS} taps")
+    if kernel == KERNEL:
+        # Strides of size-1 dims are arbitrary and never used.
+        if any(n > 1 and stride != want for n, stride, want in zip(
+                (k, h, w), hm.stride()[1:], (h * w, w, 1))):
+            return ValueError(
+                "decode kernel needs each [K, H, W] block contiguous; got "
+                f"strides {hm.stride()}")
+        if w > MAX_WIDTH:
+            return ValueError(f"decode kernel takes maps at most "
+                              f"{MAX_WIDTH} wide; got {h}x{w}")
+    elif (_n_taps(config) + 4) * LANES_MAPS_PER_BLOCK * (w + 1) * 4 \
+            > SMEM_BYTES:
+        return ValueError(f"map width {w} does not fit the lanes kernel's "
+                          "shared memory")
+    return None
+
+
+def route(hm: torch.Tensor, config: DecodeConfig,
+          lanes: bool = False) -> str:
+    """The kernel that decodes CUDA maps hm [B, K, H, W] with `config`:
+    B1 (`decode_maps`) or B2 (`decode_maps_lanes`, lanes=True) where it
+    takes them, else the generic kernel. Nothing is built to decide."""
+    kernel = LANES_KERNEL if lanes else KERNEL
+    return GENERIC_KERNEL if _refusal(hm, config, kernel) else kernel
+
+
+def _raise_refusal(hm: torch.Tensor, config: DecodeConfig,
+                   kernel: str) -> None:
+    err = _refusal(hm, config, kernel)
+    if err is not None:
+        raise err
 
 
 def launch_cuda(
@@ -177,17 +242,8 @@ def launch_cuda(
     launch."""
     b, k, h, w = hm_cm.shape
     p = config.max_peaks_per_channel
-    taps = _check_kernel_args(hm_cm, config)
-    # Strides of size-1 dims are arbitrary and never used.
-    if any(n > 1 and stride != want for n, stride, want in zip(
-            (k, h, w), hm_cm.stride()[1:], (h * w, w, 1))):
-        raise ValueError(
-            "decode kernel needs each [K, H, W] block contiguous; got "
-            f"strides {hm_cm.stride()}"
-        )
-    if w > MAX_WIDTH or h * w > MAX_MAP_ELEMENTS:
-        raise ValueError(f"decode kernel takes maps at most {MAX_WIDTH} "
-                         f"wide with flat indices under 2**28; got {h}x{w}")
+    _raise_refusal(hm_cm, config, KERNEL)
+    taps = _kernel_taps(config)
     fn = (lib or kernels.load(KERNEL)).decode_peaks
     _bind(fn, [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -221,31 +277,14 @@ def _decode_maps_cuda(
     return out
 
 
-def decode_maps(
-    hm_cm: torch.Tensor, config: DecodeConfig = DecodeConfig()
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Channel-major heatmaps [B, K, H, W] → raw (scores, ys, xs), each
-    [B*K, P] f32. On a CUDA tensor this launches the kernel (or raises);
-    on a CPU tensor it runs the plain version."""
-    _check_config(config)
-    if hm_cm.is_cuda:
-        return _decode_maps_cuda(hm_cm, config)
-    b, k, h, w = hm_cm.shape
-    return decode_maps_plain(hm_cm.reshape(b * k, h, w), config)
-
-
 def _decode_maps_lanes_cuda(
     hm: torch.Tensor, config: DecodeConfig
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/decode_lanes.cu on hm [B, K, H, W], any strides."""
     b, k, h, w = hm.shape
     p = config.max_peaks_per_channel
-    taps = _check_kernel_args(hm, config)
-    if h * w > MAX_MAP_ELEMENTS:
-        raise ValueError(f"map {h}x{w} has flat indices over 2**28")
-    if (len(taps) + 4) * LANES_MAPS_PER_BLOCK * (w + 1) * 4 > SMEM_BYTES:
-        raise ValueError(f"map width {w} does not fit the lanes kernel's "
-                         "shared memory")
+    _raise_refusal(hm, config, LANES_KERNEL)
+    taps = _kernel_taps(config)
     # Rows are read along the maps where the map stride is the smaller.
     lanes_load = int(k > 1 and hm.stride(1) < hm.stride(3))
     fn = kernels.load(LANES_KERNEL).decode_lanes
@@ -271,16 +310,79 @@ def _decode_maps_lanes_cuda(
     return out[0], out[1], out[2]
 
 
+@functools.lru_cache(maxsize=32)
+def _device_taps(config: DecodeConfig, device: torch.device) -> torch.Tensor:
+    """The blur's taps in device memory, made once per config and card."""
+    return torch.as_tensor(smoothing_taps(config), device=device)
+
+
+def _decode_maps_generic_cuda(
+    hm: torch.Tensor, config: DecodeConfig
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch csrc/decode_generic.cu on hm [B, K, H, W], any strides, and
+    count it. It takes every config the plain version takes, through an
+    f32 workspace of two [B*K, H, W] planes."""
+    b, k, h, w = hm.shape
+    p = config.max_peaks_per_channel
+    _raise_refusal(hm, config, GENERIC_KERNEL)
+    fn = kernels.load(GENERIC_KERNEL).decode_generic
+    _bind(fn, [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ])
+    taps = _device_taps(config, hm.device)
+    work = torch.empty((2, b * k, h, w), dtype=torch.float32,
+                       device=hm.device)
+    out = torch.empty((3, b * k, p), dtype=torch.float32, device=hm.device)
+    with torch.cuda.device(hm.device):
+        stream = torch.cuda.current_stream(hm.device).cuda_stream
+        err = fn(
+            hm.data_ptr(), 1 if hm.dtype == torch.bfloat16 else 0,
+            *hm.stride(), b, k, h, w, taps.data_ptr(), len(taps),
+            config.nms_window, float(config.subpixel_shift), p,
+            work.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"decode_generic launch failed: CUDA error {err}")
+    kernels.count_launch(GENERIC_KERNEL)
+    return out[0], out[1], out[2]
+
+
+# The counting wrapper of each kernel that `route` names.
+_CUDA_DECODES = {KERNEL: _decode_maps_cuda,
+                 LANES_KERNEL: _decode_maps_lanes_cuda,
+                 GENERIC_KERNEL: _decode_maps_generic_cuda}
+
+
+def decode_maps(
+    hm_cm: torch.Tensor, config: DecodeConfig = DecodeConfig()
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Channel-major heatmaps [B, K, H, W] → raw (scores, ys, xs), each
+    [B*K, P] f32. On a CUDA tensor this launches B1 or, where B1 does not
+    take the input, the generic kernel (or raises); on a CPU tensor it
+    runs the plain version."""
+    _check_config(config)
+    if hm_cm.is_cuda:
+        return _CUDA_DECODES[route(hm_cm, config)](hm_cm, config)
+    b, k, h, w = hm_cm.shape
+    return decode_maps_plain(hm_cm.reshape(b * k, h, w), config)
+
+
 def decode_maps_lanes(
     hm: torch.Tensor, config: DecodeConfig = DecodeConfig()
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Heatmaps [B, K, H, W] in any layout (channels-last is the kernel's
     fast one) → raw (scores, ys, xs), each [B*K, P] f32, equal to
     `decode_maps`. On a CUDA tensor this launches the maps-on-lanes kernel
-    (or raises); on a CPU tensor it runs the plain version."""
+    or, where it does not take the input, the generic kernel (or raises);
+    on a CPU tensor it runs the plain version."""
     _check_config(config)
     if hm.is_cuda:
-        return _decode_maps_lanes_cuda(hm, config)
+        return _CUDA_DECODES[route(hm, config, lanes=True)](hm, config)
     b, k, h, w = hm.shape
     return decode_maps_plain(hm.reshape(b * k, h, w), config)
 

@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written kernels
-(`csrc/decode_peaks.cu` B1, `csrc/decode_lanes.cu` B2, `csrc/kp_tail.cu`
-B3) against their plain PyTorch versions on the same card, B2 against B1,
+(`csrc/decode_peaks.cu` B1, `csrc/decode_lanes.cu` B2,
+`csrc/decode_generic.cu`, `csrc/kp_tail.cu` B3) against their plain
+PyTorch versions on the same card, B2 against B1,
 and the inference pipelines (Config.fast()-like and Config.crowd()-like)
 on the card against the same weights on the CPU. Without a GPU every test
 here skips.
@@ -96,16 +97,58 @@ def test_kernel_reads_channel_slice_of_head_output(cuda_device):
 
 @pytest.mark.parametrize("case", ["dtype", "strides", "width"])
 def test_kernel_wrapper_refuses_on_card(cuda_device, case):
+    """B1 refuses f16 maps (as every decode kernel does). Transposed maps
+    and maps wider than 512, which B1 does not take, decode through the
+    generic kernel, equal to the plain version on every slot."""
     x = torch.rand(2, 3, 16, 16, device=cuda_device)
     if case == "dtype":
-        x, err = x.half(), TypeError
-    elif case == "strides":
-        x, err = x.permute(0, 1, 3, 2), ValueError
+        with pytest.raises(TypeError):
+            decode.decode_maps(x.half(), DecodeConfig())
+        return
+    if case == "strides":
+        x = x.permute(0, 1, 3, 2)
     else:
         x = torch.rand(1, 2, 4, decode.MAX_WIDTH + 1, device=cuda_device)
-        err = ValueError
-    with pytest.raises(err):
-        decode.decode_maps(x, DecodeConfig())
+    _assert_generic_equals_plain(x, DecodeConfig())
+
+
+def _assert_generic_equals_plain(x, cfg, lanes=False):
+    """One launch of the generic kernel, bit for bit against the plain
+    version on every slot, -inf fillers and their positions included."""
+    b, k, h, w = x.shape
+    kernels.reset_launches()
+    got = (decode.decode_maps_lanes if lanes else decode.decode_maps)(x, cfg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {decode.GENERIC_KERNEL: 1}
+    want = decode.decode_maps_plain(x.reshape(b * k, h, w), cfg)
+    for a, c in zip(got, want):
+        assert torch.equal(a.cpu(), c.cpu())
+
+
+# What only the generic kernel takes: peak windows other than 3, more than
+# 16 peaks (up to H*W), maps wider than 512, more than 15 taps; on
+# channel-major and channels-last maps, through both entry points.
+@pytest.mark.parametrize("shape,kwargs", [
+    ((2, 3, 40, 56), dict(nms_window=1)),
+    ((2, 3, 40, 56), dict(nms_window=2, max_peaks_per_channel=17)),
+    ((2, 3, 40, 56), dict(nms_window=4, max_peaks_per_channel=64)),
+    ((2, 3, 37, 53), dict(nms_window=5, max_peaks_per_channel=1)),
+    ((4, 17, 128, 128), dict(nms_window=5)),
+    ((1, 2, 9, 513), dict(max_peaks_per_channel=17)),
+    ((1, 2, 20, 700), dict(nms_window=4, max_peaks_per_channel=64)),
+    ((2, 3, 40, 56), dict(smooth_sigma=3.0, smooth_kernel_size=17)),
+    ((2, 2, 3, 3), dict(nms_window=2, max_peaks_per_channel=9)),
+], ids=["w1", "w2p17", "w4p64", "w5p1", "w5path", "width513p17",
+        "width700w4p64", "taps17", "p_eq_hw"])
+@pytest.mark.parametrize("layout", ["channel_major", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generic_kernel_matches_plain(cuda_device, shape, kwargs, layout,
+                                      dtype):
+    b, k, h, w = shape
+    hm = planted_maps(np.random.RandomState(21), (b, h, w, k))
+    x = _layout(hm, layout, cuda_device, dtype)
+    cfg = DecodeConfig(**{**CONFIGS["planted"], **kwargs})
+    _assert_generic_equals_plain(x, cfg, lanes=layout == "channels_last")
 
 
 # Edges of the warp-per-map design: widths that are not a multiple of the

@@ -194,6 +194,44 @@ def test_batch_forward_bf16_agrees_with_jax():
     assert found >= 2 / 3 * val_w.sum() > 0
 
 
+@pytest.mark.parametrize("entry", ["batch_forward", "predict"])
+def test_window5_decode_matches_jax(entry):
+    """A peak window of 5, which the JAX predictor decodes with its jnp
+    decode (its Pallas kernel is off off the TPU): the port's plain decode
+    on the CPU gives the same peaks, detections and keypoints. On a card
+    the same config goes through the generic decode kernel."""
+    cfg = tiny_config("float32")
+    cfg = cfg.replace(decode=dataclasses.replace(cfg.decode, nms_window=5))
+    variables, prn_vars = posenet_variables(cfg), prn_variables(cfg)
+    jax_pred = JaxPredictor(config=cfg, variables=variables,
+                            prn_variables=prn_vars, image_size=SIZE,
+                            use_pallas_decode=False)
+    port = Predictor(torch_config_of(cfg),
+                     variables=jax.tree.map(np.asarray, variables),
+                     prn_variables=jax.tree.map(np.asarray, prn_vars),
+                     image_size=SIZE, device="cpu")
+    if entry == "predict":
+        want, got = jax_pred.predict(_image()), port.predict(_image())
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.box, w.box, **BOX_TOL)
+            np.testing.assert_allclose(g.keypoints, w.keypoints, **KP_TOL)
+        return
+    want = {k: np.asarray(v) for k, v in jax.jit(
+        jax_pred._batch_forward_impl)(jax_pred.variables,
+                                      jax_pred.prn_variables,
+                                      jnp.asarray(_batch())).items()}
+    got = port.batch_forward(_batch())
+    assert want["peak_valid"].any()
+    _assert_peaks(got, want)
+    np.testing.assert_array_equal(to_numpy(got["box_valid"]).astype(bool),
+                                  want["box_valid"])
+    np.testing.assert_allclose(to_numpy(got["boxes"]), want["boxes"],
+                               **BOX_TOL)
+    np.testing.assert_allclose(to_numpy(got["keypoints"]), want["keypoints"],
+                               **KP_TOL)
+
+
 def test_default_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
