@@ -41,6 +41,24 @@
 #define THREADS (MB * 32)
 #define FLAT_MASK 0x0fffffffu  // flat indices below 2^28
 
+#ifdef DECODE_LANES_PROFILE
+// Phase counters of thread 0, summed over blocks (built only with
+// -DDECODE_LANES_PROFILE, by multiposenet_tpu_torch/tools/decode_phases.py
+// --kernel lanes): clock64 cycles in the row loads, the vertical blur, the
+// horizontal blur, the peak test with the per-lane top-P, the merge, and
+// the sub-pixel step with the store; then the number of blocks.
+constexpr int kPhases = 6;
+__device__ unsigned long long phase_cycles[kPhases + 1];
+#define DP_MARK(i)                       \
+  if (threadIdx.x == 0) {                \
+    const long long now = clock64();     \
+    prof[i] += now - t_mark;             \
+    t_mark = now;                        \
+  }
+#else
+#define DP_MARK(i)
+#endif
+
 struct Taps {
   float w[MAX_TAPS];
   int n;
@@ -99,6 +117,9 @@ decode_lanes_kernel(const T* __restrict__ maps, long long sb, long long sk,
   float* sm = tv + MB * WP;         // [3][MB][WP], row y in slot y % 3
   __shared__ long long base[MB];
 
+#ifdef DECODE_LANES_PROFILE
+  long long prof[kPhases] = {}, t_mark = clock64();
+#endif
   const int m0 = blockIdx.x * MB;
   if (threadIdx.x < MB) {
     const int n = m0 + threadIdx.x;
@@ -174,6 +195,7 @@ decode_lanes_kernel(const T* __restrict__ maps, long long sb, long long sk,
     __syncthreads();  // the previous step's reads of the ring slot are done
     if (y + half < H) load_row(y + half);
     __syncthreads();
+    DP_MARK(0)
     float* trow = tv + m * WP;
     for (int x = lane; x < W; x += 32) {
       float acc = 0.f;
@@ -187,6 +209,7 @@ decode_lanes_kernel(const T* __restrict__ maps, long long sb, long long sk,
       trow[x] = acc;
     }
     __syncwarp();
+    DP_MARK(1)
     float* srow = sm + ((y % 3) * MB + m) * WP;
     for (int x = lane; x < W; x += 32) {
       float acc = 0.f;
@@ -199,9 +222,12 @@ decode_lanes_kernel(const T* __restrict__ maps, long long sb, long long sk,
       srow[x] = acc;
     }
     __syncwarp();
+    DP_MARK(2)
     if (y >= 1) test_row(y - 1, best);
+    DP_MARK(3)
   }
   test_row(H - 1, best);
+  DP_MARK(3)
 
   // Warp merge: P rounds of a max over the lanes' list heads; the lane
   // holding the winner pops it (keys are unique within a map).
@@ -215,6 +241,7 @@ decode_lanes_kernel(const T* __restrict__ maps, long long sb, long long sk,
     }
     if (lane == r) mine = c;
   }
+  DP_MARK(4)
   const int n = m0 + m;
   if (lane < P && n < n_maps) {
     const unsigned int lo = static_cast<unsigned int>(mine & 0xffffffffull);
@@ -229,6 +256,15 @@ decode_lanes_kernel(const T* __restrict__ maps, long long sb, long long sk,
     ys[o] = __fadd_rn(static_cast<float>(y), dy);
     xs[o] = __fadd_rn(static_cast<float>(x), dx);
   }
+  DP_MARK(5)
+#ifdef DECODE_LANES_PROFILE
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kPhases; ++i) {
+      atomicAdd(&phase_cycles[i], static_cast<unsigned long long>(prof[i]));
+    }
+    atomicAdd(&phase_cycles[kPhases], 1ull);
+  }
+#endif
 }
 
 template <typename T, int P>
@@ -299,5 +335,19 @@ int decode_lanes(const void* maps, int dtype, long long sb, long long sk,
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef DECODE_LANES_PROFILE
+// Reads (and with reset != 0 then zeroes) the phase counters: kPhases + 1
+// values.
+int decode_lanes_phase_cycles(unsigned long long* host, int reset) {
+  cudaError_t e =
+      cudaMemcpyFromSymbol(host, phase_cycles, sizeof(phase_cycles));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[kPhases + 1] = {};
+    e = cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
+  }
+  return static_cast<int>(e);
+}
+#endif
 
 }  // extern "C"

@@ -277,17 +277,20 @@ def _decode_maps_cuda(
     return out
 
 
-def _decode_maps_lanes_cuda(
-    hm: torch.Tensor, config: DecodeConfig
+def launch_lanes_cuda(
+    hm: torch.Tensor, config: DecodeConfig, lib: ctypes.CDLL | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch csrc/decode_lanes.cu on hm [B, K, H, W], any strides."""
+    """Check hm [B, K, H, W] (any strides) and launch the C entry point
+    `decode_lanes` of `lib`, a build of csrc/decode_lanes.cu (the
+    package's own, built after the checks pass, when None); raises on a
+    launch error. Counts no launch."""
     b, k, h, w = hm.shape
     p = config.max_peaks_per_channel
     _raise_refusal(hm, config, LANES_KERNEL)
     taps = _kernel_taps(config)
     # Rows are read along the maps where the map stride is the smaller.
     lanes_load = int(k > 1 and hm.stride(1) < hm.stride(3))
-    fn = kernels.load(LANES_KERNEL).decode_lanes
+    fn = (lib or kernels.load(LANES_KERNEL)).decode_lanes
     _bind(fn, [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -306,8 +309,16 @@ def _decode_maps_lanes_cuda(
         )
     if err != 0:
         raise RuntimeError(f"decode_lanes launch failed: CUDA error {err}")
-    kernels.count_launch(LANES_KERNEL)
     return out[0], out[1], out[2]
+
+
+def _decode_maps_lanes_cuda(
+    hm: torch.Tensor, config: DecodeConfig
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch csrc/decode_lanes.cu on hm [B, K, H, W] and count it."""
+    out = launch_lanes_cuda(hm, config)
+    kernels.count_launch(LANES_KERNEL)
+    return out
 
 
 @functools.lru_cache(maxsize=32)

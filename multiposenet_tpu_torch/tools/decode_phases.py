@@ -1,13 +1,17 @@
-"""Where the heatmap decode kernel (`csrc/decode_peaks.cu`, B1) spends its
-time, from clock64 counters of thread 0 in every block: builds the kernel
-with -DDECODE_PEAKS_PROFILE into `_build/`, runs it at the fast() path's
-shapes (batch 128 of 17 bf16 maps of 128x128, seeded noise, bumps and
-plateaus; `--batch 1` gives a `predict` request's shapes), checks that its
-outputs equal those of the plain build, and prints one JSON line with each
-phase's share of thread 0's cycles and the time of the counted and of the
-plain build. Needs a CUDA device and nvcc.
+"""Where a heatmap decode kernel spends its time, from clock64 counters of
+thread 0 in every block: builds `csrc/decode_peaks.cu` (B1, `--kernel
+peaks`, with -DDECODE_PEAKS_PROFILE) or `csrc/decode_lanes.cu` (B2,
+`--kernel lanes`, with -DDECODE_LANES_PROFILE) into `_build/`, runs it at
+the fast() path's shapes (batch 128 of 17 bf16 maps of 128x128, seeded
+noise, bumps and plateaus; `--batch 1` gives a `predict` request's
+shapes; B2 reads them channel-major or, with `--layout channels_last`,
+channels-last), checks that its outputs equal those of the plain build,
+and prints one JSON line with each phase's share of thread 0's cycles and
+the time of the counted and of the plain build. Needs a CUDA device and
+nvcc.
 
-    python -m multiposenet_tpu_torch.tools.decode_phases [--batch N]
+    python -m multiposenet_tpu_torch.tools.decode_phases \\
+        [--kernel peaks|lanes] [--batch N] [--layout channel_major|channels_last]
 """
 
 from __future__ import annotations
@@ -25,17 +29,23 @@ from multiposenet_tpu_torch.config import Config
 from multiposenet_tpu_torch.ops import decode
 from multiposenet_tpu_torch.tools.kp_tail_phases import cuda_ms
 
-# The kernel's DP_MARK phases, in order (csrc/decode_peaks.cu kPhases).
+# The kernels' DP_MARK phases, in order (kPhases in both sources).
 PHASES = ("load", "vertical_blur", "horizontal_blur", "peak_mask_and_top_p",
           "merge", "subpixel_and_store")
+# --kernel: (source name, profile macro, launcher taking a build).
+KERNELS = {
+    "peaks": (decode.KERNEL, "DECODE_PEAKS_PROFILE", decode.launch_cuda),
+    "lanes": (decode.LANES_KERNEL, "DECODE_LANES_PROFILE",
+              decode.launch_lanes_cuda),
+}
 
 
-def build_profiled() -> ctypes.CDLL:
+def build_profiled(kernel: str = "peaks") -> ctypes.CDLL:
+    name, macro, _ = KERNELS[kernel]
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = kernels.BUILD_DIR / "libdecode_peaks_profile.so"
-    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS,
-                    "-DDECODE_PEAKS_PROFILE", "-o", str(lib),
-                    str(kernels.CSRC / "decode_peaks.cu")],
+    lib = kernels.BUILD_DIR / f"lib{name}_profile.so"
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, f"-D{macro}",
+                    "-o", str(lib), str(kernels.CSRC / f"{name}.cu")],
                    check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(lib))
 
@@ -63,10 +73,17 @@ def phase_maps(n: int, h: int, w: int, device) -> torch.Tensor:
 
 def main(argv: list[str] | None = None) -> int:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    args.add_argument("--kernel", choices=sorted(KERNELS), default="peaks")
     args.add_argument("--batch", type=int, default=128)
-    batch = args.parse_args(argv).batch
+    args.add_argument("--layout", choices=("channel_major", "channels_last"),
+                      default="channel_major")
+    opts = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("decode_phases: no CUDA device", file=sys.stderr)
+        return 2
+    if opts.kernel == "peaks" and opts.layout != "channel_major":
+        print("decode_phases: B1 reads channel-major maps only",
+              file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -76,17 +93,20 @@ def main(argv: list[str] | None = None) -> int:
     ).stdout.strip().splitlines()[0]
     k, h, w = 17, 128, 128
     cfg = Config.fast().decode
-    x = phase_maps(batch * k, h, w, device).view(batch, k, h, w)
+    x = phase_maps(opts.batch * k, h, w, device).view(opts.batch, k, h, w)
+    if opts.layout == "channels_last":
+        x = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
 
-    lib = build_profiled()
-    read = lib.decode_peaks_phase_cycles
+    name, _, launch = KERNELS[opts.kernel]
+    lib = build_profiled(opts.kernel)
+    read = getattr(lib, f"{name}_phase_cycles")
     read.restype = ctypes.c_int
     read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     counts = (ctypes.c_ulonglong * (len(PHASES) + 1))()
-    plain = kernels.load(decode.KERNEL)
+    plain = kernels.load(name)
 
     def run(which):
-        return decode.launch_cuda(x, cfg, which)
+        return launch(x, cfg, which)
 
     torch.cuda.synchronize()
     if read(counts, 1) != 0:
@@ -102,9 +122,9 @@ def main(argv: list[str] | None = None) -> int:
     total = sum(cycles)
     print(smi, flush=True)
     print(json.dumps({
-        "tool": "decode_phases", "card": smi,
-        "maps": [batch, k, h, w], "dtype": "bfloat16",
-        "blocks": int(counts[len(PHASES)]),
+        "tool": "decode_phases", "kernel": name, "card": smi,
+        "maps": [opts.batch, k, h, w], "layout": opts.layout,
+        "dtype": "bfloat16", "blocks": int(counts[len(PHASES)]),
         "thread0_cycles": dict(zip(PHASES, cycles)),
         "thread0_share": {p: n / total for p, n in zip(PHASES, cycles)},
         "counted_ms": cuda_ms(lambda: run(lib)),

@@ -417,6 +417,26 @@ def test_lanes_kernel_odd_shapes(cuda_device, shape, peaks, sigma, layout):
         _layout(hm, layout, cuda_device, torch.float32), cfg)
 
 
+@pytest.mark.parametrize("shape", [(128, 17, 128, 128), (1, 17, 128, 128),
+                                   (2, 3, 36, 52)])
+@pytest.mark.parametrize("layout", ["channel_major", "channels_last"])
+def test_counted_lanes_build_equals_plain_build(cuda_device, shape, layout):
+    """The -DDECODE_LANES_PROFILE build (tools/decode_phases.py --kernel
+    lanes) gives the plain build's outputs bit for bit."""
+    from multiposenet_tpu_torch.tools import decode_phases
+
+    b, k, h, w = shape
+    x = decode_phases.phase_maps(b * k, h, w, cuda_device).view(b, k, h, w)
+    if layout == "channels_last":
+        x = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    cfg = DecodeConfig()
+    counted = decode.launch_lanes_cuda(
+        x, cfg, decode_phases.build_profiled("lanes"))
+    plain = decode.launch_lanes_cuda(x, cfg)
+    for a, c in zip(counted, plain):
+        assert torch.equal(a, c)
+
+
 # --- the crowd path on the card -------------------------------------------
 
 

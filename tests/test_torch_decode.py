@@ -268,3 +268,13 @@ def test_decode_phase_tool_refuses_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert decode_phases.main([]) == 2
     assert capsys.readouterr().out == ""
+
+
+def test_decode_phase_tool_refuses_lanes_without_a_card(monkeypatch, capsys):
+    """The same for B2's counters (`--kernel lanes`)."""
+    from multiposenet_tpu_torch.tools import decode_phases
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert decode_phases.main(["--kernel", "lanes", "--layout",
+                               "channels_last"]) == 2
+    assert capsys.readouterr().out == ""
