@@ -328,17 +328,23 @@ def phase_tail_kernel(kp_tail, layers, device) -> dict:
 def phase_decode_lanes_kernel(decode, cfg, device) -> dict:
     """B2 on the 2176 test maps of 128² in both layouts it is built for:
     channel-major (as B3 writes the crowd path's heatmaps) and
-    channels-last; bit for bit against its plain version and against B1."""
+    channels-last; bit for bit against its plain version and against B1,
+    and timed; then at one `predict` request's 17 maps in both layouts,
+    exact and timed too."""
     n, h, w = BATCH * 17, 128, 128
     maps = test_maps(n, h, w, device)
     cm = maps.view(BATCH, 17, h, w)
-    layouts = {"channel_major": cm,
-               "channels_last": cm.permute(0, 2, 3, 1).contiguous()
-               .permute(0, 3, 1, 2)}
+
+    def layouts(x):
+        return {"channel_major": x,
+                "channels_last": x.permute(0, 2, 3, 1).contiguous()
+                .permute(0, 3, 1, 2)}
+
     want = decode.decode_maps_plain(maps, cfg)
     b1 = decode.decode_maps(cm, cfg)
-    ms, err, n_valid = {}, 0.0, 0
-    for name, x in layouts.items():
+    want1 = decode.decode_maps_plain(maps[:17], cfg)
+    ms, batch1_ms, err, n_valid = {}, {}, 0.0, 0
+    for name, x in layouts(cm).items():
         got = decode.decode_maps_lanes(x, cfg)
         torch.cuda.synchronize()
         e, n_valid = compare_raw(got, want, cfg.score_threshold,
@@ -348,24 +354,35 @@ def phase_decode_lanes_kernel(decode, cfg, device) -> dict:
         err = max(err, e)
         ms[name] = cuda_ms(lambda: decode.decode_maps_lanes(x, cfg), reps=20,
                            rounds=5)
+    for name, x in layouts(cm[:1].contiguous()).items():
+        compare_raw(decode.decode_maps_lanes(x, cfg), want1,
+                    cfg.score_threshold,
+                    f"lanes decode ({name}, one request) vs plain")
+        batch1_ms[name] = cuda_ms(lambda: decode.decode_maps_lanes(x, cfg),
+                                  reps=50, rounds=5)
     plain_ms = cuda_ms(lambda: decode.decode_maps_plain(maps, cfg), reps=3,
                        rounds=3)
     bound = decode_bound(n, h, w, cfg.max_peaks_per_channel,
                          len(decode.smoothing_taps(cfg)), maps.element_size())
     row = {
         "name": decode.LANES_KERNEL, "route": "cuda",
+        "design": "B1's warp-per-map rows (cp.async ring, two rows a step, "
+                  "insertion floor); channels-last: a block per image "
+                  "sharing a cp.async ring of row spans",
         "source": "multiposenet_tpu_torch/csrc/decode_lanes.cu",
         "replaces": "multiposenet_tpu/ops/decode_pallas.py:366",
         "max_abs_err": err, "ms": ms["channel_major"],
-        "ms_by_layout": ms, "plain_ms": plain_ms,
-        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-        "library_ms": None, "held_against_plain": True,
+        "ms_by_layout": ms, "batch1_ms_by_layout": batch1_ms,
+        "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "library_ms": None,
+        "held_against_plain": True,
     }
     emit({"phase": "decode_lanes_kernel", "maps": [n, h, w],
           "dtype": "bfloat16", "exact_vs_plain": True,
           "exact_vs_decode_peaks": True, "valid_slots": n_valid,
-          "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
-          **bound})
+          "max_abs_err": err, "kernel_ms": ms, "batch1_maps": [1, 17, h, w],
+          "batch1_exact": True, "batch1_kernel_ms": batch1_ms,
+          "plain_ms": plain_ms, "design": row["design"], **bound})
     return row
 
 

@@ -26,49 +26,11 @@
 // keys being unique within a map. Thread 0 writes each winner with its
 // sub-pixel step read from the blurred map.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#define FLAT_MASK 0x0fffffffu  // flat indices below 2^28
+#include "decode_rows.cuh"  // keys, warp_max, to_f32, sign_of
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// Order-preserving key: larger key = higher value, then smaller flat
-// index.
-__device__ __forceinline__ unsigned long long make_key(float v, int flat) {
-  unsigned int b = __float_as_uint(v);
-  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return (static_cast<unsigned long long>(b) << 32) |
-         (FLAT_MASK - static_cast<unsigned int>(flat));
-}
-
-__device__ __forceinline__ float key_value(unsigned long long k) {
-  unsigned int b = static_cast<unsigned int>(k >> 32);
-  b = (b & 0x80000000u) ? (b & 0x7fffffffu) : ~b;
-  return __uint_as_float(b);
-}
-
-__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long other = __shfl_xor_sync(0xffffffffu, v, o);
-    v = other > v ? other : v;
-  }
-  return v;
-}
-
-__device__ __forceinline__ float sign_of(float d) {
-  return d > 0.f ? 1.f : (d < 0.f ? -1.f : 0.f);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -94,7 +56,7 @@ decode_generic_kernel(const T* __restrict__ maps, long long sb, long long sk,
     float acc = 0.f;
     for (int j = 0; j < ntaps; ++j) {
       const int yy = y + j - half;
-      const float v = yy >= 0 && yy < H ? load_f32(src + yy * sh + x * sw)
+      const float v = yy >= 0 && yy < H ? to_f32(src[yy * sh + x * sw])
                                         : 0.f;
       acc = __fadd_rn(acc, __fmul_rn(v, taps[j]));
     }
@@ -133,7 +95,9 @@ decode_generic_kernel(const T* __restrict__ maps, long long sb, long long sk,
   for (int r = 0; r < p; ++r) {
     unsigned long long best = 0ull;
     for (int e = threadIdx.x; e < hw; e += kThreads) {
-      const unsigned long long key = make_key(plane0[e], e);
+      const unsigned long long key =
+          (static_cast<unsigned long long>(value_bits(plane0[e])) << 32) |
+          (FLAT_MASK - static_cast<unsigned int>(e));
       if (key < prev && key > best) best = key;
     }
     best = warp_max(best);
@@ -155,8 +119,10 @@ decode_generic_kernel(const T* __restrict__ maps, long long sb, long long sk,
       const float down = y + 1 < H ? row[x + W] : row[x];
       const float left = x > 0 ? row[x - 1] : row[x];
       const float right = x + 1 < W ? row[x + 1] : row[x];
-      const float dy = __fmul_rn(sign_of(__fsub_rn(down, up)), shift);
-      const float dx = __fmul_rn(sign_of(__fsub_rn(right, left)), shift);
+      const float dy = __fmul_rn(
+          static_cast<float>(sign_of(__fsub_rn(down, up))), shift);
+      const float dx = __fmul_rn(
+          static_cast<float>(sign_of(__fsub_rn(right, left))), shift);
       const long long o = static_cast<long long>(n) * p + r;
       scores[o] = key_value(prev);
       ys[o] = __fadd_rn(static_cast<float>(y), dy);

@@ -1,314 +1,181 @@
-// Heatmap peak decode with maps on the fast axis, for NVIDIA Hopper
-// (sm_90a): a block of MB maps streams their rows top to bottom.
+// Heatmap peak decode of [B, K, H, W] maps in any layout, for NVIDIA
+// Hopper (sm_90a): a warp per map, or per band of a map's rows.
 //
 // Replaces the TPU kernel multiposenet_tpu/ops/decode_pallas.py
 // `_decode_kernel_lanes`, which decodes [H, W, K*B] maps with the map
 // index on the vector lanes. It computes what csrc/decode_peaks.cu (B1)
-// computes, bit for bit: per map, the zero-padded separable blur
-// (vertical taps, then horizontal, each summed from zero with separate
-// multiply and add), the 3x3 plateau-keeping peak test with -inf borders,
-// the top-P by (value desc, flat index asc) over the peak-masked map and
-// the +-shift sub-pixel step toward the larger border-clipped neighbour.
-// The maps are read through their four strides, with no copy: the map
-// (b, k) at row y, column x is maps[b*sb + k*sk + y*sh + x*sw].
+// computes, bit for bit, with the same device code (csrc/decode_rows.cuh:
+// the function, its bound, the two-row blur, the peak test and the top-P
+// with its warp-wide floor). The maps are read through their four
+// strides, with no copy: the map (b, k) at row y, column x is
+// maps[b*sb + k*sk + y*sh + x*sw].
 //
-// Bound on the card: the kernel must read each map once (2176 bf16 maps
-// of 128x128 are 71.3 MB, ~21 us at 3.35 TB/s) and its 37 f32 operations
-// per element take ~20 us at 67 TFLOP/s, so bytes bound it, barely.
-// Design: one warp per map and MB maps per block. A ring of `ntaps` raw
-// rows, one row of the vertical pass and a ring of three smoothed rows
-// live in shared memory (11 f32 rows of W+1 per map at 7 taps, ~45 KB for
-// 8 maps of width 128), so a map is never held whole: each step loads one
-// raw row, blurs one row and tests the row above it, and each lane keeps
-// its own top-P of the elements it tested by insertion. Rows are loaded
-// so that neighbouring threads read neighbouring addresses in either
-// layout: along the maps when the map stride is the smaller one
-// (channels-last: a warp reads neighbouring maps of one pixel in one
-// transaction), along the row otherwise (channel-major, as the fused
-// keypoint tail writes it). The sub-pixel signs are taken while a row's
-// neighbours are in shared memory and ride in the low bits of the 64-bit
-// order key, below the flat index; a warp merges its lanes' lists in P
-// rounds of a shuffle max.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#define MAX_TAPS 15
-#define MAX_PEAKS 16
-#define MB 8                 // maps per block, one warp each
-#define THREADS (MB * 32)
-#define FLAT_MASK 0x0fffffffu  // flat indices below 2^28
+// Bound on the card: operations, as for B1 (0.0394 ms for 2176 bf16 maps
+// of 128x128: 37 unfused f32 operations an element over 132 SMs x 128
+// lanes x 1.98 GHz; reading the maps once takes 0.0213 ms at 3.35 TB/s).
+// Design: what differs from B1 is how raw rows reach shared memory.
+// - Rows contiguous and 16-byte aligned (channel-major, as the fused
+//   keypoint tail writes the crowd maps, and the head's 17-of-18 channel
+//   slice): B1's kernel, `decode_rows_kernel`, a block per map whose
+//   warps take bands of its rows, each warp staging its own rows by
+//   16-byte cp.async a few steps ahead.
+// - Channels-last (sk == 1, sw == K): one row of all K maps of an image
+//   is one contiguous span of W*K elements (4352 bytes in bf16 at
+//   128x17). `decode_span_kernel` gives a block the K maps of one image,
+//   a warp each; the block's threads stage each span by 16-byte cp.async
+//   into a ring of kRing spans that its warps share, three steps ahead
+//   (one less than B1's four: a shared ring is ordered by one barrier a
+//   step, so a step may not overwrite the rows of the two steps before
+//   it), and each warp reads its map at stride K. In bf16 lane l's four
+//   columns start 4*17*2 = 136 bytes after lane l-1's, 34 banks, so lanes
+//   l and l+16 meet in one bank: a 2-way conflict on every ring read
+//   (8-way in f32, which no path takes). It needs B >= half the SMs, so
+//   that every SM has an image; fewer images (one request) go by plain
+//   loads.
+// - Any other strides, or channels-last at few images: decode_rows_kernel
+//   with plain strided row loads, still exact.
+// Built with -DDECODE_LANES_PROFILE it counts clock64 cycles per phase
+// (multiposenet_tpu_torch/tools/decode_phases.py --kernel lanes).
 
 #ifdef DECODE_LANES_PROFILE
-// Phase counters of thread 0, summed over blocks (built only with
-// -DDECODE_LANES_PROFILE, by multiposenet_tpu_torch/tools/decode_phases.py
-// --kernel lanes): clock64 cycles in the row loads, the vertical blur, the
-// horizontal blur, the peak test with the per-lane top-P, the merge, and
-// the sub-pixel step with the store; then the number of blocks.
-constexpr int kPhases = 6;
-__device__ unsigned long long phase_cycles[kPhases + 1];
-#define DP_MARK(i)                       \
-  if (threadIdx.x == 0) {                \
-    const long long now = clock64();     \
-    prof[i] += now - t_mark;             \
-    t_mark = now;                        \
-  }
-#else
-#define DP_MARK(i)
+#define DECODE_ROWS_PROFILE
 #endif
+#include "decode_rows.cuh"
 
-struct Taps {
-  float w[MAX_TAPS];
-  int n;
+namespace {
+
+constexpr int kSpanMaxMaps = 20;  // warps of a span block: K <= 20
+
+// A ring of kRing channels-last spans (row y of all K maps of one image,
+// SP elements a span) that the block's warps share; warp k reads map k.
+template <typename T>
+struct SpanRows {
+  static constexpr bool kCpAsync = true;
+  static constexpr int kSlack = 1;  // one barrier a step orders the ring
+  T* ring;
+  const T* src;  // the image's element (0, 0) of map 0
+  long long sh;
+  int SP, H, K, k;
+
+  __device__ __forceinline__ void stage(int r) {  // span r into its slot
+    uint4* dst = reinterpret_cast<uint4*>(ring + (r & (kRing - 1)) * SP);
+    const int vecs = SP * static_cast<int>(sizeof(T)) / 16;
+    if (r < 0 || r >= H) {
+      for (int i = threadIdx.x; i < vecs; i += blockDim.x) {
+        dst[i] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {
+      const uint4* row = reinterpret_cast<const uint4*>(src + r * sh);
+      for (int i = threadIdx.x; i < vecs; i += blockDim.x) {
+        cp_async16(dst + i, row + i);
+      }
+    }
+  }
+  __device__ __forceinline__ void sync() { __syncthreads(); }
+  template <int N>
+  __device__ __forceinline__ void cols(int r, int x0, float (&v)[N]) const {
+    const T* row = ring + (r & (kRing - 1)) * SP + k + x0 * K;
+#pragma unroll
+    for (int c = 0; c < N; ++c) v[c] = to_f32(row[c * K]);
+  }
 };
 
-// Order-preserving key: larger key = higher value, then smaller flat
-// index; the 4 low bits carry the sub-pixel code and never decide, since
-// flat indices are unique within a map.
-__device__ __forceinline__ unsigned long long make_key(float v, int flat,
-                                                       int code) {
-  unsigned int b = __float_as_uint(v);
-  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  const unsigned int lo =
-      ((FLAT_MASK - static_cast<unsigned int>(flat)) << 4) |
-      static_cast<unsigned int>(code);
-  return (static_cast<unsigned long long>(b) << 32) | lo;
+// Bytes of shared memory of a span block: the ring of spans, then two
+// blurred rows per warp.
+template <typename T, int C>
+int span_smem_bytes(int SP, int K) {
+  return kRing * SP * static_cast<int>(sizeof(T)) +
+         K * trow_floats<C>() * static_cast<int>(sizeof(float));
 }
 
-__device__ __forceinline__ float key_value(unsigned long long k) {
-  unsigned int b = static_cast<unsigned int>(k >> 32);
-  b = (b & 0x80000000u) ? (b & 0x7fffffffu) : ~b;
-  return __uint_as_float(b);
-}
-
-__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    unsigned long long other = __shfl_xor_sync(0xffffffffu, v, o);
-    v = other > v ? other : v;
-  }
-  return v;
-}
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ int sign_of(float d) {
-  return d > 0.f ? 1 : (d < 0.f ? -1 : 0);
-}
-
-template <typename T, int P>
-__global__ void __launch_bounds__(THREADS)
-decode_lanes_kernel(const T* __restrict__ maps, long long sb, long long sk,
-                    long long sh, long long sw, int n_maps, int K, int H,
-                    int W, Taps taps, float shift, int lanes_load,
-                    float* __restrict__ scores, float* __restrict__ ys,
-                    float* __restrict__ xs) {
-  extern __shared__ float smem[];
-  const int WP = W + 1;  // odd pitch: no bank conflicts down a column
-  const int R = taps.n;
-  const int half = R / 2;
-  float* raw = smem;                // [R][MB][WP], row y in slot y % R
-  float* tv = raw + R * MB * WP;    // [MB][WP], vertical pass of one row
-  float* sm = tv + MB * WP;         // [3][MB][WP], row y in slot y % 3
-  __shared__ long long base[MB];
-
-#ifdef DECODE_LANES_PROFILE
-  long long prof[kPhases] = {}, t_mark = clock64();
-#endif
-  const int m0 = blockIdx.x * MB;
-  if (threadIdx.x < MB) {
-    const int n = m0 + threadIdx.x;
-    base[threadIdx.x] =
-        n < n_maps ? static_cast<long long>(n / K) * sb +
-                         static_cast<long long>(n % K) * sk
-                   : -1;
-  }
-  __syncthreads();
-
-  const int m = threadIdx.x >> 5;  // this warp's map in the block
+// One block per image b of channels-last maps, warp k on map b * K + k.
+template <typename T, int P, int C, int NT, int WT, int HT>
+__global__ void __launch_bounds__(32 * kSpanMaxMaps)
+decode_span_kernel(const T* __restrict__ maps, long long sb, long long sh,
+                   int K, int h_rt, int w_rt, int p, Params prm,
+                   float* __restrict__ scores, float* __restrict__ ys,
+                   float* __restrict__ xs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = HT > 0 ? HT : h_rt;
+  const int W = WT > 0 ? WT : w_rt;
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-
-  auto load_row = [&](int y) {
-    float* dst = raw + (y % R) * MB * WP;
-    for (int e = threadIdx.x; e < MB * W; e += THREADS) {
-      int mm, x;
-      if (lanes_load) {
-        mm = e % MB;
-        x = e / MB;
-      } else {
-        mm = e / W;
-        x = e - mm * W;
-      }
-      const long long o = base[mm];
-      dst[mm * WP + x] = o >= 0 ? load_f32(maps + o + y * sh + x * sw) : 0.f;
-    }
-  };
-
-  auto test_row = [&](int r, unsigned long long* best) {
-    const float* c = sm + ((r % 3) * MB + m) * WP;
-    const float* up = r > 0 ? sm + (((r - 1) % 3) * MB + m) * WP : nullptr;
-    const float* dn = r + 1 < H ? sm + (((r + 1) % 3) * MB + m) * WP : nullptr;
-    for (int x = lane; x < W; x += 32) {
-      const float v = c[x];
-      float mx = v;
-      const int xl = max(x - 1, 0), xr = min(x + 1, W - 1);
-      const float* rows[3] = {up, c, dn};
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float* row = rows[j];
-        if (row == nullptr) continue;
-        if (x > 0) mx = fmaxf(mx, row[x - 1]);
-        mx = fmaxf(mx, row[x]);
-        if (x + 1 < W) mx = fmaxf(mx, row[x + 1]);
-      }
-      const float* below = dn ? dn : c;  // border-clipped neighbours
-      const float* above = up ? up : c;
-      const int sy = sign_of(below[x] - above[x]);
-      const int sx = sign_of(c[xr] - c[xl]);
-      const unsigned long long key =
-          make_key(v >= mx ? v : -INFINITY, r * W + x, (sy + 1) * 3 + sx + 1);
-      if (key > best[P - 1]) {
-        best[P - 1] = key;
-#pragma unroll
-        for (int j = P - 1; j > 0; --j) {
-          if (best[j] > best[j - 1]) {
-            const unsigned long long s = best[j];
-            best[j] = best[j - 1];
-            best[j - 1] = s;
-          }
-        }
-      }
-    }
-  };
-
-  unsigned long long best[P];
-#pragma unroll
-  for (int j = 0; j < P; ++j) best[j] = 0ull;
-
-  for (int y = 0; y < half && y < H; ++y) load_row(y);
-  for (int y = 0; y < H; ++y) {
-    __syncthreads();  // the previous step's reads of the ring slot are done
-    if (y + half < H) load_row(y + half);
-    __syncthreads();
-    DP_MARK(0)
-    float* trow = tv + m * WP;
-    for (int x = lane; x < W; x += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < R; ++j) {
-        const int yy = y + j - half;
-        if (yy >= 0 && yy < H) {
-          acc = __fadd_rn(acc, __fmul_rn(raw[((yy % R) * MB + m) * WP + x],
-                                         taps.w[j]));
-        }
-      }
-      trow[x] = acc;
-    }
-    __syncwarp();
-    DP_MARK(1)
-    float* srow = sm + ((y % 3) * MB + m) * WP;
-    for (int x = lane; x < W; x += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < R; ++j) {
-        const int xx = x + j - half;
-        if (xx >= 0 && xx < W) {
-          acc = __fadd_rn(acc, __fmul_rn(trow[xx], taps.w[j]));
-        }
-      }
-      srow[x] = acc;
-    }
-    __syncwarp();
-    DP_MARK(2)
-    if (y >= 1) test_row(y - 1, best);
-    DP_MARK(3)
-  }
-  test_row(H - 1, best);
-  DP_MARK(3)
-
-  // Warp merge: P rounds of a max over the lanes' list heads; the lane
-  // holding the winner pops it (keys are unique within a map).
-  unsigned long long mine = 0ull;
-  for (int r = 0; r < P; ++r) {
-    const unsigned long long c = warp_max(best[0]);
-    if (best[0] == c) {
-#pragma unroll
-      for (int j = 0; j < P - 1; ++j) best[j] = best[j + 1];
-      best[P - 1] = 0ull;
-    }
-    if (lane == r) mine = c;
-  }
-  DP_MARK(4)
-  const int n = m0 + m;
-  if (lane < P && n < n_maps) {
-    const unsigned int lo = static_cast<unsigned int>(mine & 0xffffffffull);
-    const int flat = static_cast<int>(FLAT_MASK - (lo >> 4));
-    const int code = static_cast<int>(lo & 15u);
-    const int y = flat / W;
-    const int x = flat - y * W;
-    const float dy = __fmul_rn(static_cast<float>(code / 3 - 1), shift);
-    const float dx = __fmul_rn(static_cast<float>(code % 3 - 1), shift);
-    const long long o = static_cast<long long>(n) * P + lane;
-    scores[o] = key_value(mine);
-    ys[o] = __fadd_rn(static_cast<float>(y), dy);
-    xs[o] = __fadd_rn(static_cast<float>(x), dx);
-  }
-  DP_MARK(5)
-#ifdef DECODE_LANES_PROFILE
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kPhases; ++i) {
-      atomicAdd(&phase_cycles[i], static_cast<unsigned long long>(prof[i]));
-    }
-    atomicAdd(&phase_cycles[kPhases], 1ull);
-  }
-#endif
+  const int SP = W * K;
+  T* ring = reinterpret_cast<T*>(smem);
+  float* trow = reinterpret_cast<float*>(ring + kRing * SP) +
+                warp * trow_floats<C>();
+  const int b = blockIdx.x;
+  PhaseClock clk;
+  SpanRows<T> rows{ring, maps + b * sb, sh, SP, H, K, warp};
+  const unsigned long long mine = decode_band<T, P, C, NT, WT, HT>(
+      rows, trow, H, W, 0, H, prm, lane, clk);
+  clk.tick(4);
+  store_peaks(mine, lane, p, W, prm.shift,
+              static_cast<long long>(b) * K + warp, scores, ys, xs);
+  clk.tick(5);
+  clk.flush();
 }
 
-template <typename T, int P>
-static int launch(const void* maps, long long sb, long long sk, long long sh,
-                  long long sw, int n_maps, int K, int H, int W,
-                  const Taps& taps, float shift, int lanes_load, float* scores,
-                  float* ys, float* xs, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(taps.n + 4) * MB * (W + 1) * sizeof(float);
+template <typename T, int P, int C, int NT, int WT, int HT>
+int launch_span(const T* maps, long long sb, long long sh, int B, int K,
+                int H, int W, int p, const Params& prm, float* scores,
+                float* ys, float* xs, cudaStream_t stream) {
+  const int smem = span_smem_bytes<T, C>(W * K, K);
+  auto kernel = decode_span_kernel<T, P, C, NT, WT, HT>;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_lanes_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_lanes_kernel<T, P><<<(n_maps + MB - 1) / MB, THREADS, smem, stream>>>(
-      static_cast<const T*>(maps), sb, sk, sh, sw, n_maps, K, H, W, taps,
-      shift, lanes_load, scores, ys, xs);
+  kernel<<<B, 32 * K, smem, stream>>>(maps, sb, sh, K, H, W, p, prm, scores,
+                                      ys, xs);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-static int dispatch(int p, const void* maps, long long sb, long long sk,
-                    long long sh, long long sw, int n_maps, int K, int H,
-                    int W, const Taps& taps, float shift, int lanes_load,
-                    float* scores, float* ys, float* xs,
-                    cudaStream_t stream) {
-  switch (p) {
-#define CASE(P)                                                            \
-  case P:                                                                  \
-    return launch<T, P>(maps, sb, sk, sh, sw, n_maps, K, H, W, taps, shift, \
-                        lanes_load, scores, ys, xs, stream);
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
-#undef CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+int dispatch(int p, const void* maps_v, long long sb, long long sk,
+             long long sh, long long sw, int B, int K, int H, int W,
+             const Params& prm, int lanes_load, float* scores, float* ys,
+             float* xs, cudaStream_t stream) {
+  const T* maps = static_cast<const T*>(maps_v);
+  const int n_maps = B * K;
+  const long long es = static_cast<long long>(sizeof(T));
+  // Strides of size-1 dims are never used.
+  auto aligned = [&](int n, long long stride) {
+    return n == 1 || (stride * es) % 16 == 0;
+  };
+  const bool base = reinterpret_cast<uintptr_t>(maps) % 16 == 0;
+  // The crowd path: 128x128 maps, 7 taps, 8 peaks.
+  if (H == 128 && W == 128 && prm.ntaps == 7 && p == 8) {
+    if (lanes_load && sk == 1 && sw == K && K <= kSpanMaxMaps && base &&
+        aligned(B, sb) && aligned(H, sh) && (W * K * es) % 16 == 0 &&
+        2 * B >= sm_count() &&
+        span_smem_bytes<T, 4>(W * K, K) <= kSmemBytes) {
+      return launch_span<T, 8, 4, 7, 128, 128>(maps, sb, sh, B, K, H, W, p,
+                                               prm, scores, ys, xs, stream);
+    }
+    if (sw == 1 && base && aligned(B, sb) && aligned(K, sk) &&
+        aligned(H, sh)) {
+      return launch_rows<T, 8, 4, 7, 128, 128, true>(
+          maps, sb, sk, sh, sw, n_maps, K, H, W, p, prm, scores, ys, xs,
+          stream);
+    }
+    return launch_rows<T, 8, 4, 7, 128, 128, false>(
+        maps, sb, sk, sh, sw, n_maps, K, H, W, p, prm, scores, ys, xs,
+        stream);
   }
+  return launch_rows<T, MAX_PEAKS, kGenericCols, 0, 0, 0, false>(
+      maps, sb, sk, sh, sw, n_maps, K, H, W, p, prm, scores, ys, xs, stream);
 }
+
+}  // namespace
 
 extern "C" {
 
 // maps: [B, K, H, W] read through the element strides sb, sk, sh, sw;
-// dtype: 0 = float32, 1 = bfloat16; lanes_load: 1 to load rows along the
-// maps (channels-last), 0 along the row. Outputs scores/ys/xs: [B*K, p]
-// float32, contiguous, map n = b*K + k. Returns a cudaError_t code.
+// dtype: 0 = float32, 1 = bfloat16; lanes_load: 1 where the map stride is
+// the smaller (channels-last), which lets whole spans be staged. taps:
+// ntaps (odd, at most 15) blur taps. Outputs scores/ys/xs: [B*K, p]
+// float32, contiguous, map n = b*K + k. W <= 512 and H*W < 2^28. Returns
+// a cudaError_t code.
 int decode_lanes(const void* maps, int dtype, long long sb, long long sk,
                  long long sh, long long sw, int B, int K, int H, int W,
                  const float* taps, int ntaps, float shift, int p,
@@ -316,22 +183,20 @@ int decode_lanes(const void* maps, int dtype, long long sb, long long sk,
                  void* stream) {
   if (ntaps < 1 || ntaps > MAX_TAPS || (ntaps & 1) == 0 || p < 1 ||
       p > MAX_PEAKS || B < 1 || K < 1 || H < 1 || W < 1 ||
-      static_cast<long long>(H) * W > FLAT_MASK ||
-      static_cast<long long>(H) * W < p) {
+      W > 32 * kGenericCols || static_cast<long long>(H) * W > FLAT_MASK ||
+      static_cast<long long>(H) * W < p ||
+      static_cast<long long>(B) * K > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Taps tp;
-  for (int j = 0; j < MAX_TAPS; ++j) tp.w[j] = j < ntaps ? taps[j] : 0.f;
-  tp.n = ntaps;
+  const Params prm = make_params(taps, ntaps, shift);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_maps = B * K;
   if (dtype == 0) {
-    return dispatch<float>(p, maps, sb, sk, sh, sw, n_maps, K, H, W, tp,
-                           shift, lanes_load, scores, ys, xs, s);
+    return dispatch<float>(p, maps, sb, sk, sh, sw, B, K, H, W, prm,
+                           lanes_load, scores, ys, xs, s);
   }
   if (dtype == 1) {
-    return dispatch<__nv_bfloat16>(p, maps, sb, sk, sh, sw, n_maps, K, H, W,
-                                   tp, shift, lanes_load, scores, ys, xs, s);
+    return dispatch<__nv_bfloat16>(p, maps, sb, sk, sh, sw, B, K, H, W, prm,
+                                   lanes_load, scores, ys, xs, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -340,13 +205,7 @@ int decode_lanes(const void* maps, int dtype, long long sb, long long sk,
 // Reads (and with reset != 0 then zeroes) the phase counters: kPhases + 1
 // values.
 int decode_lanes_phase_cycles(unsigned long long* host, int reset) {
-  cudaError_t e =
-      cudaMemcpyFromSymbol(host, phase_cycles, sizeof(phase_cycles));
-  if (e == cudaSuccess && reset) {
-    const unsigned long long zero[kPhases + 1] = {};
-    e = cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
-  }
-  return static_cast<int>(e);
+  return read_phase_cycles(host, reset);
 }
 #endif
 

@@ -10,7 +10,10 @@ through a hand-written kernel: the channel-major decode of the pipeline
 through `csrc/decode_peaks.cu` (B1), or `csrc/decode_lanes.cu` (B2) when
 `ops.decode.DECODE_LANES` is set, and the NHWC decode of
 `predict_keypoints` through B1, as the JAX package's `_decode` goes
-through its B1. `fold_bn=True` serves the model with its BatchNorms
+through its B1; a decode config that B1 and B2 do not take (a peak
+window other than 3, more than 16 peaks or 15 taps, maps wider than 512)
+goes through `csrc/decode_generic.cu`, as the JAX package decodes it
+with its jnp decode. `fold_bn=True` serves the model with its BatchNorms
 folded into the convs (`infer/folding.py`), as an exported model is
 served.
 """
@@ -129,7 +132,8 @@ class Predictor:
 
     def _decode_cm(self, hm_cm: torch.Tensor) -> decode_ops.DecodedPeaks:
         """Decode the channel-major heatmaps; on a CUDA tensor this is one
-        launch of B1, or of B2 when DECODE_LANES is set."""
+        launch of B1, or of B2 when DECODE_LANES is set (of the generic
+        kernel where the config is one they do not take)."""
         if decode_ops.DECODE_LANES:
             return decode_ops.decode_heatmaps_lanes(hm_cm, self.config.decode)
         return decode_ops.decode_heatmaps_cm(hm_cm, self.config.decode)

@@ -44,17 +44,12 @@ from multiposenet_tpu_torch.config import DecodeConfig
 KERNEL = "decode_peaks"
 LANES_KERNEL = "decode_lanes"
 GENERIC_KERNEL = "decode_generic"
-MAX_PEAKS = 16          # csrc/decode_{peaks,lanes}.cu MAX_PEAKS
-MAX_TAPS = 15           # csrc/decode_{peaks,lanes}.cu MAX_TAPS
-# Both kernels carry flat indices under 2**28 in their order keys.
-# decode_peaks gives a lane at most 16 columns of a 32-lane warp.
-# Hopper gives a block at most 232448 bytes of shared memory, less the
-# kernels' small static arrays; decode_lanes keeps ntaps + 4 f32 rows of
-# W + 1 for each of its 8 maps.
+MAX_PEAKS = 16          # csrc/decode_rows.cuh MAX_PEAKS (B1 and B2)
+MAX_TAPS = 15           # csrc/decode_rows.cuh MAX_TAPS
+# Every decode kernel carries flat indices under 2**28 in its order keys.
+# B1 and B2 give a lane at most 16 columns of a 32-lane warp.
 MAX_MAP_ELEMENTS = 2 ** 28 - 1
 MAX_WIDTH = 512
-SMEM_BYTES = 232448 - 1024
-LANES_MAPS_PER_BLOCK = 8
 
 # Decode the predictor's channel-major heatmaps with the maps-on-lanes
 # kernel (the JAX package's decode_pallas.DECODE_LANES).
@@ -177,9 +172,8 @@ def _refusal(hm: torch.Tensor, config: DecodeConfig,
     None where it does. Decided from the dtype, the shape, the strides and
     the config alone. The generic kernel takes f32 or bf16 maps of any
     layout with 1 <= P <= H*W and flat indices under 2**28; B1 and B2 take
-    the 3x3 peak window, at most 16 peaks and 15 taps besides, B1 maps at
-    most 512 wide in contiguous [K, H, W] blocks, B2 maps whose rows fit
-    its shared memory."""
+    the 3x3 peak window, at most 16 peaks and 15 taps and maps at most 512
+    wide besides, B1 in contiguous [K, H, W] blocks only."""
     b, k, h, w = hm.shape
     p = config.max_peaks_per_channel
     if hm.dtype not in (torch.float32, torch.bfloat16):
@@ -207,13 +201,9 @@ def _refusal(hm: torch.Tensor, config: DecodeConfig,
             return ValueError(
                 "decode kernel needs each [K, H, W] block contiguous; got "
                 f"strides {hm.stride()}")
-        if w > MAX_WIDTH:
-            return ValueError(f"decode kernel takes maps at most "
-                              f"{MAX_WIDTH} wide; got {h}x{w}")
-    elif (_n_taps(config) + 4) * LANES_MAPS_PER_BLOCK * (w + 1) * 4 \
-            > SMEM_BYTES:
-        return ValueError(f"map width {w} does not fit the lanes kernel's "
-                          "shared memory")
+    if w > MAX_WIDTH:
+        return ValueError(f"decode kernel takes maps at most {MAX_WIDTH} "
+                          f"wide; got {h}x{w}")
     return None
 
 

@@ -11,7 +11,8 @@ the time of the counted and of the plain build. Needs a CUDA device and
 nvcc.
 
     python -m multiposenet_tpu_torch.tools.decode_phases \\
-        [--kernel peaks|lanes] [--batch N] [--layout channel_major|channels_last]
+        [--kernel peaks|lanes] [--batch N] \\
+        [--layout channel_major|channels_last]
 """
 
 from __future__ import annotations
@@ -44,9 +45,13 @@ def build_profiled(kernel: str = "peaks") -> ctypes.CDLL:
     name, macro, _ = KERNELS[kernel]
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = kernels.BUILD_DIR / f"lib{name}_profile.so"
-    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, f"-D{macro}",
-                    "-o", str(lib), str(kernels.CSRC / f"{name}.cu")],
-                   check=True, capture_output=True, text=True)
+    proc = subprocess.run(
+        [kernels.nvcc_path(), *kernels.NVCC_FLAGS, f"-D{macro}", "-o",
+         str(lib), str(kernels.CSRC / f"{name}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu -D{macro} (exit "
+                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
     return ctypes.CDLL(str(lib))
 
 

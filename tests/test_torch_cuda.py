@@ -417,6 +417,21 @@ def test_lanes_kernel_odd_shapes(cuda_device, shape, peaks, sigma, layout):
         _layout(hm, layout, cuda_device, torch.float32), cfg)
 
 
+@pytest.mark.parametrize("layout", ["channel_major", "channels_last",
+                                    "head_slice"])
+@pytest.mark.parametrize("batch", [1, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lanes_kernel_crowd_shapes(cuda_device, dtype, batch, layout):
+    """The crowd path's shapes: a batch of 128 images of 17 maps of
+    128x128 (channels-last then takes the span kernel, a block per image)
+    and one request (channels-last then takes plain strided loads), every
+    slot bit for bit against the plain version and B1."""
+    hm = planted_maps(np.random.RandomState(14), (8, 128, 128, 17))
+    hm = np.concatenate([hm + 0.5 * i / 16 for i in range(16)])[:batch]
+    _assert_lanes_equal_plain_and_b1(_layout(hm, layout, cuda_device, dtype),
+                                     DecodeConfig())
+
+
 @pytest.mark.parametrize("shape", [(128, 17, 128, 128), (1, 17, 128, 128),
                                    (2, 3, 36, 52)])
 @pytest.mark.parametrize("layout", ["channel_major", "channels_last"])
