@@ -90,11 +90,14 @@ __device__ unsigned long long phase_cycles[kPhases + 1];
 struct PhaseClock {
   long long t[kPhases];
   long long mark;
-  // clock64() in the body, not in an initializer list: the host pass of
-  // nvcc compiles initializer lists of device constructors too.
-  __device__ __forceinline__ PhaseClock() {
+  // clock64() in the body, under __CUDA_ARCH__, not in an initializer
+  // list: the host pass of nvcc compiles initializer lists of device
+  // constructors too, where clock64 is not declared.
+  __device__ __forceinline__ PhaseClock() : mark(0) {
     for (int i = 0; i < kPhases; ++i) t[i] = 0;
+#ifdef __CUDA_ARCH__
     mark = clock64();
+#endif
   }
   __device__ __forceinline__ void tick(int i) {
     if (threadIdx.x == 0) {
