@@ -1,17 +1,20 @@
 """Smoke test of the PyTorch port (`multiposenet_tpu_torch`) on one NVIDIA
 GPU: builds the hand-written CUDA kernels from `csrc/` (B1 decode_peaks,
 B2 decode_lanes, decode_generic, B3 kp_tail), holds each against its
-plain PyTorch version at the shapes its path gives it (B2 also against
-B1, bit for bit), holds
-the float32 forwards of Config.fast() and of the served Config.crowd()
-model (BN folded, fused tail) on the card against the same weights on the
-CPU, then drives two paths at full width (512² input, 128² heatmaps,
-batch 128) through `Predictor.batch_forward`: Config.fast() (B1), and
-Config.crowd() with BN folded, the fused tail and the maps-on-lanes
-decode (B3 and B2). It serves `predict` requests on the first and
-`predict`, `predict_keypoints` and `predict_given_boxes` on the second.
-Last, `predict` requests with a 5x5 peak window go through the generic
-decode kernel, which takes what B1 and B2 do not.
+plain PyTorch version at the shapes its paths give it (B2 also against
+B1, bit for bit; B1 on bf16 and on float32 maps), holds the float32
+forwards of Config.fast(), of the served Config.crowd() model (BN
+folded, fused tail) and of Config() on the card against the same weights
+on the CPU, then drives three paths at full width (512² input, 128²
+heatmaps) through `Predictor.batch_forward`: Config.fast() (B1, batch
+128), Config.crowd() with BN folded, the fused tail and the
+maps-on-lanes decode (B3 and B2, batch 128), and Config() in float32 on
+s2d-flat batches of 64 (B1). It serves `predict` requests on the first,
+`predict`, `predict_keypoints` and `predict_given_boxes` on the second,
+`predict` with a 5x5 peak window through the generic decode kernel, and
+`predict` on Config() with flip test-time augmentation and pose NMS (B1);
+the Config() predictor is exported and loaded back onto the card, bit
+for bit.
 
     python3 chip_smoke.py
 
@@ -33,7 +36,9 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,6 +53,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_NO_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 BF16_OPS_PER_S = 989e12
 BATCH, IMAGE = 128, 512
+# Config()'s batch: BASELINE.json config 5 runs the default model at 64.
+DEFAULT_BATCH = 64
 
 
 def emit(obj: dict) -> None:
@@ -87,10 +94,11 @@ def planted_scenes(rng: np.random.RandomState, n: int, h: int,
     return np.clip(imgs, 0, 255).astype(np.uint8)
 
 
-def test_maps(n: int, h: int, w: int, device) -> torch.Tensor:
-    """bf16 [n, h, w] maps: a third uniform noise, a third Gaussian bumps
-    on low noise, a third plateaus of 256 levels in 2x2 blocks (exact ties
-    that only the (value desc, flat asc) order resolves)."""
+def test_maps(n: int, h: int, w: int, device,
+              dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """[n, h, w] maps in `dtype`: a third uniform noise, a third Gaussian
+    bumps on low noise, a third plateaus of 256 levels in 2x2 blocks
+    (exact ties that only the (value desc, flat asc) order resolves)."""
     g = torch.Generator(device=device).manual_seed(0)
     third = n // 3
     noise = torch.rand(third, h, w, generator=g, device=device)
@@ -108,7 +116,7 @@ def test_maps(n: int, h: int, w: int, device) -> torch.Tensor:
     levels = torch.randint(0, 256, (rest, h // 2, w // 2), generator=g,
                            device=device).float() / 256
     plateaus = levels.repeat_interleave(2, 1).repeat_interleave(2, 2)
-    return torch.cat([noise, bumps, plateaus]).to(torch.bfloat16)
+    return torch.cat([noise, bumps, plateaus]).to(dtype)
 
 
 def compare_raw(got, want, threshold: float,
@@ -147,7 +155,9 @@ def decode_bound(n: int, h: int, w: int, p: int, n_taps: int,
 def phase_decode_kernel(decode, kernels, cfg, device) -> dict:
     """B1 on the 2176 test maps of 128² (a fast() batch) against its plain
     version, bit for bit, and timed; then at one `predict` request's 17
-    maps, exact and timed too."""
+    maps, exact and timed too; then on float32 maps at [64, 17, 128, 128],
+    the shape and dtype of a Config() batch (pipeline_default), exact and
+    timed against its own bound."""
     n, h, w = BATCH * 17, 128, 128
     maps = test_maps(n, h, w, device)
     x = maps.view(BATCH, 17, h, w)
@@ -166,6 +176,7 @@ def phase_decode_kernel(decode, kernels, cfg, device) -> dict:
     p = cfg.max_peaks_per_channel
     bound = decode_bound(n, h, w, p, len(decode.smoothing_taps(cfg)),
                          maps.element_size())
+    f32 = phase_decode_f32(decode, cfg, device)
     row = {
         "name": decode.KERNEL, "route": "cuda",
         "design": "warp per map (8 row bands when few), cp.async row ring, "
@@ -175,13 +186,39 @@ def phase_decode_kernel(decode, kernels, cfg, device) -> dict:
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None, "held_against_plain": True,
+        "float32": {k: f32[k] for k in ("maps", "ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
     }
     emit({"phase": "decode_kernel", "maps": [n, h, w], "dtype": "bfloat16",
           "exact": True, "valid_slots": n_valid, "max_abs_err": err,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "batch1_maps": [1, 17, h, w], "batch1_exact": True,
-          "batch1_kernel_ms": batch1_ms, "design": row["design"], **bound})
+          "batch1_kernel_ms": batch1_ms, "design": row["design"], **bound,
+          "float32": f32})
     return row
+
+
+def phase_decode_f32(decode, cfg, device) -> dict:
+    """B1 on float32 test maps at [64, 17, 128, 128] (what a Config() batch
+    of 64 at 512² gives it), bit for bit against its plain version, timed,
+    with its bound."""
+    b, k, h, w = DEFAULT_BATCH, 17, IMAGE // 4, IMAGE // 4
+    maps = test_maps(b * k, h, w, device, torch.float32)
+    x = maps.view(b, k, h, w)
+    if decode.route(x, cfg) != decode.KERNEL:
+        raise AssertionError("decode_kernel: f32 maps routed elsewhere")
+    err, n_valid = compare_raw(decode.decode_maps(x, cfg),
+                               decode.decode_maps_plain(maps, cfg),
+                               cfg.score_threshold, "decode kernel (f32)")
+    bound = decode_bound(b * k, h, w, cfg.max_peaks_per_channel,
+                         len(decode.smoothing_taps(cfg)),
+                         maps.element_size())
+    return {"maps": [b, k, h, w], "dtype": "float32", "exact": True,
+            "valid_slots": n_valid, "max_abs_err": err,
+            "ms": cuda_ms(lambda: decode.decode_maps(x, cfg), reps=20,
+                          rounds=5),
+            "plain_ms": cuda_ms(lambda: decode.decode_maps_plain(maps, cfg),
+                                reps=3, rounds=3), **bound}
 
 
 def phase_decode_generic_kernel(decode, cfg, device) -> dict:
@@ -403,15 +440,20 @@ def parity_f32_pairs(model, cells, device) -> dict:
 
 def phase_parity_f32(Config, MultiPoseNet, folding, kp_tail, kernels,
                      image_ops, device) -> None:
-    """Config.fast() and the served Config.crowd() model (BN folded in
-    place, fused tail on, so B3 runs inside it at full width) in float32:
-    the card's forward against the CPU forward of the same module. TF32
-    is switched off for this phase and restored."""
+    """Config.fast(), the served Config.crowd() model (BN folded in place,
+    fused tail on, so B3 runs inside it at full width) and Config() (the
+    stride-2 stem on 2x2 cells, smoothed P2..P5 towers, fuse conv) in
+    float32: the card's forward against the CPU forward of the same
+    module. TF32 is switched off for this phase and restored."""
     imgs = planted_scenes(np.random.RandomState(1), 2, IMAGE, IMAGE)
-    cells = image_ops.s4_flat_to_cells(
+    s4_cells = image_ops.s4_flat_to_cells(
         torch.as_tensor(image_ops.space_to_depth_flat4(imgs)))
+    s2d_cells = image_ops.normalize_s2d_flat(
+        torch.as_tensor(image_ops.space_to_depth_flat(imgs)))
     pairs = {}
-    for name, cfg in (("fast", Config.fast()), ("crowd", Config.crowd())):
+    for name, cfg, cells in (("fast", Config.fast(), s4_cells),
+                             ("crowd", Config.crowd(), s4_cells),
+                             ("default", Config(), s2d_cells)):
         cfg = cfg.replace(model=dataclasses.replace(
             cfg.model, compute_dtype="float32",
             kp_tail_pallas=name == "crowd"))
@@ -440,26 +482,33 @@ def phase_parity_f32(Config, MultiPoseNet, folding, kp_tail, kernels,
             raise AssertionError(
                 f"parity_f32: {name} differs by {errs[name]} (scale {scale})")
     emit({"phase": "parity_f32", "tf32": False, "batch": 2, "image": IMAGE,
-          "models": ["Config.fast()", "Config.crowd() BN folded, tail on"],
+          "models": ["Config.fast()", "Config.crowd() BN folded, tail on",
+                     "Config() on normalized 2x2 cells"],
           "tolerance": "1e-3 x max(1, max|cpu|)", "max_abs_err": errs})
 
 
-def drive_batches(pred, cfg, kernels, image_ops, rng, expect: dict) -> dict:
-    """Drive `pred.batch_forward` on full-size s4-flat uint8 batches on the
+def staged_batches(rng, n: int, stage, device) -> list[torch.Tensor]:
+    """Two batches of n planted 512² scenes, staged on the host by `stage`
+    (an ops.image space-to-depth function) and moved to the device."""
+    return [torch.as_tensor(stage(planted_scenes(rng, n, IMAGE, IMAGE)))
+            .to(device) for _ in range(2)]
+
+
+def drive_batches(pred, cfg, kernels, batches, expect: dict,
+                  staging: str) -> dict:
+    """Drive `pred.batch_forward` on full-size uint8 batches on the
     device, with the launch counts set to 0 just before and read just
     after; each kernel in `expect` must launch that many times per batch,
     and no other. Checks the outputs' shapes and that some detections and
     peaks are valid."""
     k, p, d = cfg.model.num_keypoints, cfg.decode.max_peaks_per_channel, \
         cfg.detector.max_detections
+    n = batches[0].shape[0]
     # Random weights also leave every smoothed heatmap under the decode's
     # 0.2 threshold, so no peak would be valid and the PRN snap would go
     # unexercised: the heatmap channels' output bias is set to 0.25.
     with torch.no_grad():
         pred.model.keypoint_head.output.bias[:k].fill_(0.25)
-    batches = [torch.as_tensor(image_ops.space_to_depth_flat4(
-        planted_scenes(rng, BATCH, IMAGE, IMAGE))).to(pred.device)
-        for _ in range(2)]
     n_warm, n_timed = 2, 5
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -477,10 +526,10 @@ def drive_batches(pred, cfg, kernels, image_ops, rng, expect: dict) -> dict:
         raise AssertionError(f"expected launches {want}, got {launches}")
     peak_mem = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    shapes = {"boxes": (BATCH, d, 4), "box_scores": (BATCH, d),
-              "box_valid": (BATCH, d), "keypoints": (BATCH, d, k, 3),
-              "peak_positions": (BATCH, k, p, 2), "peak_scores": (BATCH, k, p),
-              "peak_valid": (BATCH, k, p)}
+    shapes = {"boxes": (n, d, 4), "box_scores": (n, d),
+              "box_valid": (n, d), "keypoints": (n, d, k, 3),
+              "peak_positions": (n, k, p, 2), "peak_scores": (n, k, p),
+              "peak_valid": (n, k, p)}
     for name, shape in shapes.items():
         t = out[name]
         if tuple(t.shape) != shape or not torch.isfinite(t.float()).all():
@@ -490,9 +539,9 @@ def drive_batches(pred, cfg, kernels, image_ops, rng, expect: dict) -> dict:
     ms = statistics.mean(times[n_warm:]) * 1e3
     return {"out": out, "launches": launches, "last": batches[(calls - 1) % 2],
             "summary": {
-                "batch": BATCH, "image": IMAGE,
-                "staging": "s4-flat uint8 on the device", "ms_per_iter": ms,
-                "img_per_s": BATCH / ms * 1e3,
+                "batch": n, "image": IMAGE,
+                "staging": f"{staging} uint8 on the device", "ms_per_iter": ms,
+                "img_per_s": n / ms * 1e3,
                 "iter_ms": [t * 1e3 for t in times], "launches": launches,
                 "valid_detections": int(out["box_valid"].sum()),
                 "valid_peaks": int(out["peak_valid"].sum()),
@@ -531,8 +580,11 @@ def phase_pipeline(Config, Predictor, decode, kernels, image_ops,
                                                    score_threshold=0.0))
     pred = Predictor(cfg, image_size=IMAGE)
     rng = np.random.RandomState(2)
-    run = drive_batches(pred, cfg, kernels, image_ops, rng,
-                        {decode.KERNEL: 1})
+    run = drive_batches(
+        pred, cfg, kernels,
+        staged_batches(rng, BATCH, image_ops.space_to_depth_flat4,
+                       pred.device),
+        {decode.KERNEL: 1}, "s4-flat")
     emit({"phase": "pipeline", "card": card, "config": "Config.fast()",
           "score_threshold_override": 0.0, "heatmap_bias_override": 0.25,
           **run["summary"],
@@ -599,6 +651,110 @@ def phase_predict_generic(Config, Predictor, decode, kernels,
     return launches[decode.GENERIC_KERNEL]
 
 
+def phase_pipeline_default(Config, Predictor, decode, kernels, image_ops,
+                           detection, card: str):
+    """Config() (the paper's architecture: MobileNet-v1 at width 1.0 with
+    the stride-2 stem over 2x2 cells, the 128-wide FPN, 2-conv keypoint
+    towers on the smoothed P2..P5, the fuse conv and the stride-4 output
+    conv, 4-conv detector towers, a 512-candidate pre-NMS pool, a 56x36
+    PRN with 1024 hidden units) at full width in float32 through
+    Predictor.batch_forward, on s2d-flat uint8 batches of 64 at 512²: one
+    B1 launch per batch (its maps are float32) and no other kernel. The
+    score threshold and heatmap bias are overridden as on the fast()
+    path. TF32 is left as PyTorch sets it and recorded. Returns the
+    predictor, its last batch and its B1 launches."""
+    cfg = Config()
+    cfg = cfg.replace(detector=dataclasses.replace(cfg.detector,
+                                                   score_threshold=0.0))
+    pred = Predictor(cfg, image_size=IMAGE)
+    tf32 = {"torch.backends.cudnn.allow_tf32":
+            torch.backends.cudnn.allow_tf32,
+            "torch.backends.cuda.matmul.allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32}
+    rng = np.random.RandomState(5)
+    run = drive_batches(
+        pred, cfg, kernels,
+        staged_batches(rng, DEFAULT_BATCH, image_ops.space_to_depth_flat,
+                       pred.device),
+        {decode.KERNEL: 1}, "s2d-flat")
+    emit({"phase": "pipeline_default", "card": card, "config": "Config()",
+          "compute_dtype": cfg.model.compute_dtype, "tf32": tf32,
+          "score_threshold_override": 0.0, "heatmap_bias_override": 0.25,
+          **run["summary"],
+          **pipeline_checks(pred, cfg, run["last"], decode, detection,
+                            decode.KERNEL)})
+    return pred, run["last"], run["launches"][decode.KERNEL]
+
+
+def phase_predict_default(Config, Predictor, decode, kernels,
+                          card: str) -> int:
+    """`predict` requests on Config() with flip test-time augmentation and
+    pose-level OKS NMS at 0.5: two forwards a request, the averaged maps
+    decoded once by B1 (a contiguous channel-major copy), no other
+    kernel, and people found. Returns B1's launches."""
+    cfg = Config()
+    cfg = cfg.replace(detector=dataclasses.replace(
+        cfg.detector, score_threshold=0.0, pose_nms_oks=0.5))
+    pred = Predictor(cfg, image_size=IMAGE, flip_tta=True)
+    k = cfg.model.num_keypoints
+    with torch.no_grad():
+        pred.model.keypoint_head.output.bias[:k].fill_(0.25)
+    rng = np.random.RandomState(6)
+    sizes = [(480, 640), (512, 512), (300, 700)]
+    images = [planted_scenes(rng, 1, h, w)[0] for h, w in sizes]
+    pred.predict(images[0])  # warm-up, outside the counted window
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    latencies, persons = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        people = pred.predict(img)
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        check_people(people, k)
+        persons.append(len(people))
+    launches = dict(kernels.LAUNCHES)
+    if launches != {decode.KERNEL: len(images)} or not all(persons):
+        raise AssertionError(
+            f"predict_default: launches {launches}, persons {persons}")
+    emit({"phase": "predict_default", "card": card,
+          "config": "Config(), flip_tta=True, detector.pose_nms_oks=0.5",
+          "score_threshold_override": 0.0, "heatmap_bias_override": 0.25,
+          "sizes": sizes, "persons": persons, "max_detections":
+          cfg.detector.max_detections, "latency_ms": latencies,
+          "launches": launches})
+    return launches[decode.KERNEL]
+
+
+def phase_export(pred, batch, export, kernels, card: str) -> None:
+    """`save_model` of the pipeline_default predictor, then
+    `load_predictor` of the directory onto the card: its batch_forward
+    equals the original's bit for bit."""
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="export_",
+                                     dir=kernels.BUILD_DIR) as directory:
+        t0 = time.perf_counter()
+        export.save_model(directory, pred.config, pred.variables,
+                          pred.prn_variables)
+        save_s = time.perf_counter() - t0
+        files = {p.name: p.stat().st_size
+                 for p in sorted(Path(directory).iterdir())}
+        t0 = time.perf_counter()
+        loaded = export.load_predictor(directory, image_size=pred.image_size)
+        load_s = time.perf_counter() - t0
+    if loaded.device != pred.device:
+        raise AssertionError(f"export: loaded onto {loaded.device}")
+    want = pred.batch_forward(batch)
+    got = loaded.batch_forward(batch)
+    torch.cuda.synchronize()
+    for key, value in want.items():
+        if not torch.equal(got[key], value):
+            raise AssertionError(f"export: {key} differs after the reload")
+    emit({"phase": "export", "card": card, "config": "Config()",
+          "device": str(loaded.device), "files_bytes": files,
+          "save_s": save_s, "load_s": load_s, "batch": batch.shape[0],
+          "outputs_equal": sorted(want)})
+
+
 def check_people(people, k: int) -> None:
     for person in people:
         if not (np.isfinite(person.box).all()
@@ -627,8 +783,11 @@ def phase_pipeline_crowd(Config, Predictor, decode, kp_tail, kernels,
         raise AssertionError("crowd: the served model is not folded")
     rng = np.random.RandomState(3)
     with decode_lanes_on(decode):
-        run = drive_batches(pred, cfg, kernels, image_ops, rng,
-                            {kp_tail.KERNEL: 1, decode.LANES_KERNEL: 1})
+        run = drive_batches(
+            pred, cfg, kernels,
+            staged_batches(rng, BATCH, image_ops.space_to_depth_flat4,
+                           pred.device),
+            {kp_tail.KERNEL: 1, decode.LANES_KERNEL: 1}, "s4-flat")
         emit({"phase": "pipeline_crowd", "card": card,
               "config": "Config.crowd(kp_tail_pallas=True), fold_bn=True, "
                         "DECODE_LANES=True",
@@ -734,7 +893,7 @@ def main() -> int:
     try:
         from multiposenet_tpu_torch import kernels
         from multiposenet_tpu_torch.config import Config
-        from multiposenet_tpu_torch.infer import folding
+        from multiposenet_tpu_torch.infer import export, folding
         from multiposenet_tpu_torch.infer.predictor import Predictor
         from multiposenet_tpu_torch.models import layers
         from multiposenet_tpu_torch.models.posenet import MultiPoseNet
@@ -772,13 +931,21 @@ def main() -> int:
     phase_parity_f32(Config, MultiPoseNet, folding, kp_tail, kernels,
                      image_ops, device)
     # Each path's launches, counted from 0 just before it runs.
-    launches = {decode.KERNEL: phase_pipeline(
+    b1_paths = {"pipeline": phase_pipeline(
         Config, Predictor, decode, kernels, image_ops, detection, card)}
-    launches.update(phase_pipeline_crowd(
+    launches = phase_pipeline_crowd(
         Config, Predictor, decode, kp_tail, kernels, image_ops, detection,
-        card))
+        card)
     launches[decode.GENERIC_KERNEL] = phase_predict_generic(
         Config, Predictor, decode, kernels, card)
+    pred, batch, b1_paths["pipeline_default"] = phase_pipeline_default(
+        Config, Predictor, decode, kernels, image_ops, detection, card)
+    phase_export(pred, batch, export, kernels, card)
+    del pred, batch
+    b1_paths["predict_default"] = phase_predict_default(
+        Config, Predictor, decode, kernels, card)
+    launches[decode.KERNEL] = sum(b1_paths.values())
+    rows[0]["launches_by_path"] = b1_paths
     for row in rows:
         row["launches"] = launches[row["name"]]
         if not row["launches"]:

@@ -3,11 +3,16 @@ batched images or one image → joint forward → heatmap decode → person
 detection + NMS → PRN keypoint assignment.
 
 `Predictor.batch_forward` is the counterpart of `_batch_forward_impl`
-(the path `bench.py` times), `predict` of `predict`; `predict_heatmaps`,
-`predict_keypoints` and `predict_given_boxes` are the keypoint-only and
-given-box entry points. On a CUDA device every heatmap decode goes
-through a hand-written kernel: the channel-major decode of the pipeline
-through `csrc/decode_peaks.cu` (B1), or `csrc/decode_lanes.cu` (B2) when
+(the path `bench.py` times; every uint8 batch layout it takes),
+`predict` of `predict`; `predict_heatmaps`, `predict_keypoints` and
+`predict_given_boxes` are the keypoint-only and given-box entry points,
+and `make_batch_runner` hands out `batch_forward` on the one card.
+`flip_tta` averages the heatmaps with those of the horizontally flipped
+input, and `detector.pose_nms_oks > 0` drops duplicate poses after the
+PRN (`ops/pose_nms.py`), as in the JAX package. On a CUDA device every
+heatmap decode goes through a hand-written kernel: the channel-major
+decode of the pipeline through `csrc/decode_peaks.cu` (B1), or
+`csrc/decode_lanes.cu` (B2) when
 `ops.decode.DECODE_LANES` is set, and the NHWC decode of
 `predict_keypoints` through B1, as the JAX package's `_decode` goes
 through its B1; a decode config that B1 and B2 do not take (a peak
@@ -15,7 +20,8 @@ window other than 3, more than 16 peaks or 15 taps, maps wider than 512)
 goes through `csrc/decode_generic.cu`, as the JAX package decodes it
 with its jnp decode. `fold_bn=True` serves the model with its BatchNorms
 folded into the convs (`infer/folding.py`), as an exported model is
-served.
+served; `infer/export.py` saves and loads the weights in the JAX
+package's export format (`variables`, `prn_variables`).
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ from multiposenet_tpu_torch.ops import image as image_ops
 from multiposenet_tpu_torch.ops import prn_ops
 from multiposenet_tpu_torch.ops.anchors import all_anchors
 from multiposenet_tpu_torch.ops.detection import postprocess_detections
+from multiposenet_tpu_torch.ops.pose_nms import pose_nms
+from multiposenet_tpu_torch.utils.constants import FLIP_PERMUTATION
 
 
 @dataclasses.dataclass
@@ -55,6 +63,18 @@ def _check_image(image: np.ndarray) -> np.ndarray:
             "predict expects an RGB image of shape [H, W, 3], got "
             f"{image.shape}")
     return image
+
+
+def _flip_channels() -> dict[int, list[int]]:
+    """The channel permutation that mirrors a cell's columns, by the cell
+    layout's channel count: 2x2 cells (py, px, c) swap px; 4x4 cells
+    (py1, px1, py0, px0, c) swap both column phases."""
+    s2d = [(py * 2 + (1 - px)) * 3 + c
+           for py in (0, 1) for px in (0, 1) for c in range(3)]
+    s4 = [((py1 * 2 + (1 - px1)) * 4 + py0 * 2 + (1 - px0)) * 3 + c
+          for py1 in (0, 1) for px1 in (0, 1)
+          for py0 in (0, 1) for px0 in (0, 1) for c in range(3)]
+    return {12: s2d, 48: s4}
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -88,13 +108,8 @@ class Predictor:
         fold_bn: bool = False,
         flip_tta: bool = False,
     ):
-        if flip_tta:
-            raise NotImplementedError("flip test-time augmentation "
-                                      "(flip_tta) is not ported")
         cfg = config or Config()
-        if cfg.detector.pose_nms_oks > 0.0:
-            raise NotImplementedError(
-                "pose-level OKS NMS (detector.pose_nms_oks > 0) is not ported")
+        self.flip_tta = flip_tta
         self.device = resolve_device(device)
         self.image_size = image_size or cfg.train.image_size
         self.dtype = torch_dtype(cfg.model.compute_dtype)
@@ -127,6 +142,49 @@ class Predictor:
         self.anchors = torch.as_tensor(
             all_anchors(self.image_size, cfg.detector).copy(),
             device=self.device)
+        self._flip = {c: torch.as_tensor(perm, device=self.device)
+                      for c, perm in _flip_channels().items()}
+        self._flip_keypoints = torch.as_tensor(np.array(FLIP_PERMUTATION),
+                                               device=self.device)
+
+    @property
+    def variables(self) -> dict[str, Any]:
+        """The model's weights as the JAX package's flax variables (numpy),
+        folded when the predictor serves the model folded."""
+        return weights.posenet_variables(self.model)
+
+    @property
+    def prn_variables(self) -> dict[str, Any]:
+        """The PRN's weights as the JAX package's flax variables."""
+        return weights.prn_variables(self.prn)
+
+    def _forward(self, x: torch.Tensor) -> dict[str, Any]:
+        """Model forward; with flip_tta the NHWC float32 heatmaps are
+        averaged with those of the horizontally flipped input, flipped
+        back and with the left/right keypoint channels swapped. The input
+        flips in its own layout: for cells, the cell columns reverse and
+        the column phases inside each cell swap. The head's channel-major
+        maps are then stale and dropped (`_heatmaps_cm` remakes them)."""
+        out = self.model(x)
+        if not self.flip_tta:
+            return out
+        out.pop("heatmaps_cm", None)
+        xf = torch.flip(x, [2])
+        if x.shape[-1] in self._flip:
+            xf = xf[..., self._flip[x.shape[-1]]]
+        hm_f = torch.flip(self.model(xf)["heatmaps"], [2])
+        hm_f = hm_f[..., self._flip_keypoints]
+        out["heatmaps"] = 0.5 * (out["heatmaps"] + hm_f)
+        return out
+
+    def _heatmaps_cm(self, out: dict[str, Any]) -> torch.Tensor:
+        """Channel-major heatmaps [B, K, H, W] in the compute dtype: the
+        head's own output, or (flip TTA) a contiguous copy of the averaged
+        NHWC maps, which B1 takes (a strided view would go to the generic
+        decode kernel)."""
+        if "heatmaps_cm" in out:
+            return out["heatmaps_cm"]
+        return out["heatmaps"].to(self.dtype).permute(0, 3, 1, 2).contiguous()
 
     # ------------------------------------------------------------------ #
 
@@ -140,8 +198,9 @@ class Predictor:
 
     def _decode(self, heatmaps: torch.Tensor) -> decode_ops.DecodedPeaks:
         """Decode NHWC heatmaps [B, H, W, K] with B1 through their
-        channel-major copy in the compute dtype (lossless: the model
-        computed them in it), as decode_heatmaps_pallas does."""
+        channel-major copy in the compute dtype (lossless unless flip TTA
+        averaged them: the model computed them in it), as
+        decode_heatmaps_pallas does."""
         return decode_ops.decode_heatmaps(heatmaps.to(self.dtype),
                                           self.config.decode)
 
@@ -171,21 +230,26 @@ class Predictor:
         return keypoints
 
     def _pipeline(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Model input (NHWC pixels or s4 cells) → boxes, keypoints and
-        peaks in model-input coordinates."""
+        """Model input (NHWC pixels or cells) → boxes, keypoints and peaks
+        in model-input coordinates; duplicate poses dropped from
+        box_valid when pose_nms_oks > 0."""
         cfg = self.config
-        out = self.model(x)
-        hm_cm = out["heatmaps_cm"]
+        out = self._forward(x)
+        hm_cm = self._heatmaps_cm(out)
         peaks = self._decode_cm(hm_cm)
         det = postprocess_detections(out["detector"], self.image_size,
                                      cfg.detector, anchors=self.anchors)
         stride = float(cfg.model.output_stride)
         keypoints = self._prn_assign(hm_cm, det.boxes / stride, peaks)
         keypoints[..., :2] *= stride
+        box_valid = det.valid
+        if cfg.detector.pose_nms_oks > 0.0:
+            box_valid = pose_nms(keypoints, det.boxes, box_valid,
+                                 cfg.detector.pose_nms_oks)
         return {
             "boxes": det.boxes,
             "box_scores": det.scores,
-            "box_valid": det.valid,
+            "box_valid": box_valid,
             "keypoints": keypoints,
             "peak_positions": peaks.positions * stride,
             "peak_scores": peaks.scores,
@@ -193,19 +257,33 @@ class Predictor:
         }
 
     def _model_input(self, images: torch.Tensor) -> torch.Tensor:
-        """uint8 batch → model input: s4-flat [B, S/4, S*12] → 4x4 cells,
-        [B, S, S, 3] → pixels (normalized unless the stem folds it)."""
+        """uint8 batch → model input, by its layout (the JAX package's
+        `_batch_forward_impl` dispatch):
+          * [B, S/4, S*12] s4-flat → 4x4 cells;
+          * [B, S*12, S/4] transposed s4-flat → 4x4 cells;
+          * [B, S/2, S*6] s2d-flat → 2x2 cells;
+          * [B, S, S, 3] → pixels;
+          * [B, Hs, Ws, 3] → pixels resized to S (two constant-matrix
+            products).
+        Normalized unless the stem folds the normalize."""
         raw = self.config.model.fold_input_norm
-        s = self.image_size
-        if images.ndim == 3 and images.shape[1:] == (s // 4, s * 12):
+        if images.ndim == 3 and images.shape[2] == images.shape[1] * 48:
             return (image_ops.s4_flat_to_cells(images, self.dtype) if raw
                     else image_ops.normalize_s4_flat(images, self.dtype))
-        if images.ndim == 4 and images.shape[1:] == (s, s, 3):
-            return (images.float() if raw
-                    else image_ops.normalize(images))
-        raise NotImplementedError(
-            f"batch_forward takes uint8 [B, {s // 4}, {s * 12}] s4-flat "
-            f"batches or [B, {s}, {s}, 3] images; got {tuple(images.shape)}")
+        if images.ndim == 3 and images.shape[1] == images.shape[2] * 48:
+            flat = images.transpose(1, 2)
+            return (image_ops.s4_flat_to_cells(flat, self.dtype) if raw
+                    else image_ops.normalize_s4_flat(flat, self.dtype))
+        if images.ndim == 3:
+            return (image_ops.s2d_flat_to_cells(images, self.dtype) if raw
+                    else image_ops.normalize_s2d_flat(images, self.dtype))
+        if images.ndim != 4:
+            raise ValueError("batch_forward takes [B, H, W, 3] images or a "
+                             f"flat staging; got {tuple(images.shape)}")
+        if images.shape[1:3] == (self.image_size, self.image_size):
+            return images.float() if raw else image_ops.normalize(images)
+        return image_ops.resize_normalize_batch(images, self.image_size,
+                                                normalize_out=not raw)
 
     @torch.inference_mode()
     def batch_forward(self, images: np.ndarray | torch.Tensor
@@ -214,9 +292,22 @@ class Predictor:
         predictor's device, model-input coordinates).
 
         images: [B, S/4, S*12] staged by ops.image.space_to_depth_flat4
-        (the fast path), or [B, S, S, 3] already letterboxed to S."""
+        (the stride-4 stem's fast path), its transpose [B, S*12, S/4]
+        (space_to_depth_flat4_t), [B, S/2, S*6] staged by
+        space_to_depth_flat (the stride-2 stem's), [B, S, S, 3] already
+        letterboxed to S, or [B, Hs, Ws, 3] at any fixed staging size,
+        resized to S on the device."""
         images = torch.as_tensor(images).to(self.device, non_blocking=True)
         return self._pipeline(self._model_input(images))
+
+    def make_batch_runner(self, mesh: Any = None):
+        """fn(uint8 batch) → output dict, the JAX package's sharded runner
+        on the one card the port serves on: `batch_forward` itself. A
+        device mesh is refused."""
+        if mesh is not None:
+            raise ValueError("make_batch_runner serves one card; pass no "
+                             "mesh")
+        return self.batch_forward
 
     def _letterbox(self, image: np.ndarray) -> tuple[torch.Tensor, float]:
         """uint8 [H, W, 3] → model input [1, S, S, 3] on the device and the
@@ -232,7 +323,7 @@ class Predictor:
         """uint8 [H, W, 3] → [S/4, S/4, K] f32 heatmaps (model-input
         coordinates of the letterboxed image)."""
         x, _ = self._letterbox(_check_image(image))
-        return self.model(x)["heatmaps"][0].cpu().numpy()
+        return self._forward(x)["heatmaps"][0].cpu().numpy()
 
     @torch.inference_mode()
     def predict_keypoints(
@@ -244,7 +335,7 @@ class Predictor:
         extent, are invalid."""
         image = _check_image(image)
         x, scale = self._letterbox(image)
-        peaks = self._decode(self.model(x)["heatmaps"])
+        peaks = self._decode(self._forward(x)["heatmaps"])
         stride = float(self.config.model.output_stride)
         positions = (peaks.positions[0] * stride).cpu().numpy() / scale
         h, w = image.shape[:2]
@@ -264,7 +355,7 @@ class Predictor:
         image = _check_image(image)
         boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
         x, scale = self._letterbox(image)
-        hm_cm = self.model(x)["heatmaps_cm"]
+        hm_cm = self._heatmaps_cm(self._forward(x))
         peaks = self._decode_cm(hm_cm)
         stride = float(self.config.model.output_stride)
         slots = self.config.prn.max_persons

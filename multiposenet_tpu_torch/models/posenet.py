@@ -16,31 +16,14 @@ from multiposenet_tpu_torch.models.layers import reset_all
 from multiposenet_tpu_torch.models.mobilenet import MobileNetV1
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for the options the port does not have:
-    it runs the Config.fast() / Config.crowd() architecture (with or
-    without folded BN, the fused keypoint tail and the IoU head)."""
-    m = cfg.model
-    unported = {
-        "keypoint towers on the smoothed pyramid (kp_smooth_pyramid)":
-            m.kp_smooth_pyramid,
-        "the stride-4 keypoint head (kp_p2_late=False)": not m.kp_p2_late,
-        "the keypoint head's fuse conv (kp_fuse_conv)": m.kp_fuse_conv,
-        "a keypoint head wider or narrower than the FPN "
-        "(head_channels != fpn_channels)": m.head_channels != m.fpn_channels,
-        "the stride-2 stem (stem_stride=2)": m.stem_stride != 4,
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported")
-
-
 def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
 class MultiPoseNet(nn.Module):
-    """NHWC images (raw pixels or 4x4 cells) → heatmaps + detector outputs.
+    """NHWC images (raw pixels, 2x2 or 4x4 space-to-depth cells) →
+    heatmaps + detector outputs, for every ModelConfig the JAX package
+    builds.
 
     Outputs, in the JAX package's layouts: `heatmaps` [B, H, W, K] f32,
     `heatmaps_cm` [B, K, H, W] in the compute dtype, `segmentation`
@@ -50,22 +33,28 @@ class MultiPoseNet(nn.Module):
 
     def __init__(self, config: Config):
         super().__init__()
-        check_supported(config)
         self.config = config
         m, d = config.model, config.detector
         self.dtype = torch_dtype(m.compute_dtype)
         self.backbone = MobileNetV1(
             width=m.backbone_width, min_channels=m.min_backbone_channels,
             max_channels=m.backbone_max_channels,
-            stage_caps=m.backbone_stage_caps, bn_epsilon=m.bn_epsilon,
-            bn_folded=m.bn_folded, fold_input_norm=m.fold_input_norm,
+            stage_caps=m.backbone_stage_caps, stem_stride=m.stem_stride,
+            bn_epsilon=m.bn_epsilon, bn_folded=m.bn_folded,
+            s2d_stem=m.s2d_stem, fold_input_norm=m.fold_input_norm,
             dtype=self.dtype,
         )
-        self.fpn = FPN(self.backbone.out_channels, m.fpn_channels)
+        # The head reads the raw T2 where it has towers at stride 4 or
+        # cannot merge its p2_late upsample-adds through L2.
+        merged = m.kp_p2_late and m.head_channels == m.fpn_channels
+        self.fpn = FPN(self.backbone.out_channels, m.fpn_channels,
+                       smooth_p2=m.kp_smooth_pyramid,
+                       emit_t2=not (m.kp_smooth_pyramid or merged))
         self.keypoint_head = KeypointHead(
-            m.head_channels, num_keypoints=m.num_keypoints,
-            num_convs=m.kp_head_convs, with_segmentation=m.with_segmentation,
-            tail_kernel=m.kp_tail_pallas,
+            m.head_channels, in_channels=m.fpn_channels,
+            num_keypoints=m.num_keypoints, num_convs=m.kp_head_convs,
+            with_segmentation=m.with_segmentation, p2_late=m.kp_p2_late,
+            fuse_conv=m.kp_fuse_conv, tail_kernel=m.kp_tail_pallas,
         )
         self.detector_head = DetectorHead(
             m.fpn_channels, d.min_level, d.max_level,
@@ -81,8 +70,16 @@ class MultiPoseNet(nn.Module):
     def forward(self, images: torch.Tensor) -> dict[str, Any]:
         feats = self.backbone(images)
         pyramid = self.fpn(feats)
-        kp_pyramid = {f"P{i}": pyramid[f"T{i}"] for i in (3, 4, 5)}
-        kp_pyramid["L2"] = pyramid["L2"]
+        if self.config.model.kp_smooth_pyramid:
+            # The smoothed P2..P5, without L2: the merged stride-4
+            # upsample-add (P2 == L2 + up(P3)) holds only for the raw maps.
+            kp_pyramid = {f"P{i}": pyramid[f"P{i}"] for i in (2, 3, 4, 5)}
+        else:
+            # The raw top-down maps (the towers' first conv subsumes the
+            # smoothing conv), with L2 for the merged p2_late entry.
+            kp_pyramid = {f"P{i}": pyramid[f"T{i}"] for i in (2, 3, 4, 5)
+                          if f"T{i}" in pyramid}
+            kp_pyramid["L2"] = pyramid["L2"]
         out: dict[str, Any] = self.keypoint_head(kp_pyramid)
         out["detector"] = self.detector_head(pyramid)
         out["heatmaps"] = out["heatmaps_cm"].permute(0, 2, 3, 1).float()

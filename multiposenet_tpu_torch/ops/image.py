@@ -1,9 +1,14 @@
 """Image preprocessing, the port of `multiposenet_tpu/ops/image.py`.
 
-Host staging (`space_to_depth_flat4`, numpy) turns uint8 [B, H, W, 3]
-batches into 4x4 space-to-depth cells laid flat, [B, H/4, (W/4)*48]; on
-the device the cells are a free reshape (`s4_flat_to_cells`) or a
-normalize pass (`normalize_s4_flat`). `resize_pad_normalize` letterboxes
+Host staging (numpy) turns uint8 [B, H, W, 3] batches into space-to-depth
+cells laid flat: 2x2 cells [B, H/2, (W/2)*12] for the stride-2 stem
+(`space_to_depth_flat`), 4x4 cells [B, H/4, (W/4)*48] for the stride-4
+one (`space_to_depth_flat4`, or its transpose `space_to_depth_flat4_t`).
+On the device the cells are a free reshape (`s2d_flat_to_cells`,
+`s4_flat_to_cells`) or a normalize pass (`normalize_s2d_flat`,
+`normalize_s4_flat`). Batches of any other fixed staging size are
+resized to the model's size by two constant-matrix products
+(`resize_normalize_batch`). `resize_pad_normalize` letterboxes
 one image for `Predictor.predict`: an aspect-preserving bilinear resize to
 a (target, target) grid with the region beyond the image's extent zeroed.
 """
@@ -23,6 +28,15 @@ def normalize(images: torch.Tensor) -> torch.Tensor:
     return (images.float() / 255.0 - mean) / std
 
 
+def space_to_depth_flat(images: np.ndarray) -> np.ndarray:
+    """Host staging: uint8 [B, H, W, 3] → [B, H/2, (W/2)*12], 2x2 cells in
+    the channel order (py, px, c) of the stride-2 stem's cells."""
+    b, h, w, c = images.shape
+    x = images.reshape(b, h // 2, 2, w // 2, 2, c)
+    x = np.ascontiguousarray(x.transpose(0, 1, 3, 2, 4, 5))
+    return x.reshape(b, h // 2, (w // 2) * 4 * c)
+
+
 def space_to_depth_flat4(images: np.ndarray) -> np.ndarray:
     """Host staging: uint8 [B, H, W, 3] → [B, H/4, (W/4)*48], 4x4 cells in
     the composed channel order (py1, px1, py0, px0, c) with full-res
@@ -31,6 +45,41 @@ def space_to_depth_flat4(images: np.ndarray) -> np.ndarray:
     x = images.reshape(b, h // 4, 2, 2, w // 4, 2, 2, c)
     x = np.ascontiguousarray(x.transpose(0, 1, 4, 2, 5, 3, 6, 7))
     return x.reshape(b, h // 4, (w // 4) * 16 * c)
+
+
+def space_to_depth_flat4_t(images: np.ndarray) -> np.ndarray:
+    """Host staging: uint8 [B, H, W, 3] → [B, (W/4)*48, H/4], the s4-flat
+    layout with its two minor dims swapped (`batch_forward` tells it by
+    its shape: shape[1] == shape[2] * 48)."""
+    return np.ascontiguousarray(
+        space_to_depth_flat4(images).transpose(0, 2, 1))
+
+
+def _flat_mean_std(width: int, device: torch.device
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """ImageNet mean and std repeated along a flat row of `width`
+    interleaved RGB values."""
+    return (torch.as_tensor(np.tile(IMAGENET_MEAN, width // 3),
+                            device=device),
+            torch.as_tensor(np.tile(IMAGENET_STD, width // 3),
+                            device=device))
+
+
+def s2d_flat_to_cells(flat: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """s2d-flat uint8 [B, Hh, Wh*12] → raw-pixel cells [B, Hh, Wh, 12] in
+    `dtype` (for fold_input_norm models)."""
+    b, hh, wf = flat.shape
+    return flat.reshape(b, hh, wf // 12, 12).to(dtype)
+
+
+def normalize_s2d_flat(flat: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """s2d-flat uint8 [B, Hh, Wh*12] → normalized cells [B, Hh, Wh, 12]."""
+    b, hh, wf = flat.shape
+    mean, std = _flat_mean_std(wf, flat.device)
+    x = (flat.float() / 255.0 - mean) / std
+    return x.to(dtype).reshape(b, hh, wf // 12, 12)
 
 
 def s4_flat_to_cells(flat: torch.Tensor,
@@ -45,9 +94,7 @@ def normalize_s4_flat(flat: torch.Tensor,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """s4-flat uint8 [B, Hq, Wq*48] → normalized cells [B, Hq, Wq, 48]."""
     b, hq, wf = flat.shape
-    mean = torch.as_tensor(np.tile(IMAGENET_MEAN, wf // 3),
-                           device=flat.device)
-    std = torch.as_tensor(np.tile(IMAGENET_STD, wf // 3), device=flat.device)
+    mean, std = _flat_mean_std(wf, flat.device)
     x = (flat.float() / 255.0 - mean) / std
     return x.to(dtype).reshape(b, hq, wf // 48, 48)
 
@@ -96,3 +143,44 @@ def resize_pad_normalize(
     sampled = torch.where(mask[..., None], sampled,
                           torch.zeros((), device=image.device))
     return (normalize(sampled) if normalize_out else sampled), float(scale)
+
+
+def _resize_matrix(out_size: int, in_size: int) -> np.ndarray:
+    """[out, in] bilinear interpolation matrix, half-pixel convention,
+    border-clamped (the JAX package's, computed in float64 and stored in
+    float32)."""
+    i = np.arange(out_size, dtype=np.float64)
+    coords = (i + 0.5) * (in_size / out_size) - 0.5
+    lo = np.floor(coords)
+    frac = coords - lo
+    lo0 = np.clip(lo, 0, in_size - 1).astype(np.int64)
+    lo1 = np.clip(lo + 1, 0, in_size - 1).astype(np.int64)
+    m = np.zeros((out_size, in_size), np.float32)
+    m[np.arange(out_size), lo0] += (1.0 - frac).astype(np.float32)
+    m[np.arange(out_size), lo1] += frac.astype(np.float32)
+    return m
+
+
+def resize_normalize_batch(
+    images: torch.Tensor, target_size: int,
+    dtype: torch.dtype = torch.float32, normalize_out: bool = True,
+) -> torch.Tensor:
+    """uint8 [B, Hs, Ws, 3] staging batch → [B, target, target, 3] in
+    `dtype`: bilinear resize as two constant-matrix products (rows, then
+    columns), then the ImageNet normalize unless normalize_out is False.
+    The host letterboxes to the staging size; the scale per image is the
+    caller's."""
+    b, hs, ws, c = images.shape
+    ry = torch.as_tensor(_resize_matrix(target_size, hs),
+                         device=images.device).to(dtype)
+    rx = torch.as_tensor(_resize_matrix(target_size, ws),
+                         device=images.device).to(dtype)
+    x = images.to(dtype)
+    # rows[b, i, w, c] = sum_h ry[i, h] x[b, h, w, c]
+    x = torch.einsum("ih,bhwc->biwc", ry, x)
+    x = torch.einsum("jw,biwc->bijc", rx, x)
+    if not normalize_out:
+        return x
+    mean = torch.as_tensor(IMAGENET_MEAN * 255.0, device=x.device).to(dtype)
+    std = torch.as_tensor(IMAGENET_STD * 255.0, device=x.device).to(dtype)
+    return (x - mean) / std

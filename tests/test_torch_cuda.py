@@ -2,9 +2,11 @@
 (`csrc/decode_peaks.cu` B1, `csrc/decode_lanes.cu` B2,
 `csrc/decode_generic.cu`, `csrc/kp_tail.cu` B3) against their plain
 PyTorch versions on the same card, B2 against B1,
-and the inference pipelines (Config.fast()-like and Config.crowd()-like)
-on the card against the same weights on the CPU. Without a GPU every test
-here skips.
+the inference pipelines (Config.fast()-like and Config.crowd()-like)
+on the card against the same weights on the CPU, and the default
+architecture (Config()): its forward against the CPU, flip TTA decoding
+through B1, an exported model loaded onto the card, and B1 on Config()'s
+float32 maps. Without a GPU every test here skips.
 
 This file imports neither JAX nor the JAX package, so on a machine that
 has no JAX it runs without the repository's conftest:
@@ -533,3 +535,104 @@ def test_crowd_entry_points_on_card(cuda_device):
     assert all(np.isfinite(p.keypoints).all() for p in people)
     assert pos.shape == (17, 8, 2) and np.isfinite(pos).all()
     assert kps.shape == (30, 17, 3) and np.isfinite(kps).all()
+
+
+# --- the default architecture (Config()) on the card ------------------------
+
+
+def _tiny_default(**detector):
+    cfg = Config()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, backbone_width=0.25,
+                                  fpn_channels=32, head_channels=32),
+        detector=dataclasses.replace(cfg.detector, score_threshold=0.0,
+                                     head_channels=32, **detector))
+
+
+def test_default_forward_on_card_matches_cpu(cuda_device):
+    """Config() at full width in float32 with TF32 off, on normalized 2x2
+    cells of two 256² images: the card's forward against the CPU's on the
+    same module, to 1e-3 of each output's scale (chip_smoke.py's
+    parity_f32 bound)."""
+    from multiposenet_tpu_torch.models.posenet import MultiPoseNet
+    from multiposenet_tpu_torch.ops import image
+
+    model = MultiPoseNet(Config())
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.eval()
+    imgs = np.random.RandomState(8).randint(0, 256, (2, 256, 256, 3)).astype(
+        np.uint8)
+    cells = image.normalize_s2d_flat(
+        torch.as_tensor(image.space_to_depth_flat(imgs)))
+    with no_tf32(), torch.inference_mode():
+        want = model(cells)
+        got = model.to(cuda_device)(cells.to(cuda_device))
+        torch.cuda.synchronize()
+    pairs = [(got["heatmaps_cm"], want["heatmaps_cm"]),
+             (got["segmentation"], want["segmentation"])]
+    pairs += [(got["detector"][lv][kind], want["detector"][lv][kind])
+              for lv in want["detector"] for kind in ("cls", "box")]
+    for g, w in pairs:
+        g = g.float().cpu()
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-3 * scale
+
+
+def test_flip_tta_decodes_through_b1(cuda_device):
+    """Flip TTA on Config(): the averaged maps reach the decode as a
+    contiguous channel-major copy, so batch_forward, predict and
+    predict_keypoints each launch B1 once and the generic kernel never;
+    pose NMS runs after the PRN on the card."""
+    from multiposenet_tpu_torch.ops.image import space_to_depth_flat
+
+    pred = Predictor(_tiny_default(pose_nms_oks=0.5), image_size=256,
+                     device=cuda_device, flip_tta=True)
+    imgs = np.random.RandomState(9).randint(0, 256, (2, 256, 256, 3)).astype(
+        np.uint8)
+    kernels.reset_launches()
+    out = pred.batch_forward(space_to_depth_flat(imgs))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {decode.KERNEL: 1}
+    assert out["keypoints"].is_cuda and out["box_valid"].any()
+    for entry in ("predict", "predict_keypoints"):
+        kernels.reset_launches()
+        getattr(pred, entry)(imgs[0, :200])
+        assert kernels.LAUNCHES == {decode.KERNEL: 1}, entry
+
+
+def test_load_predictor_onto_card(cuda_device, tmp_path):
+    """An exported Config() model loads onto the card (the default device)
+    and serves the outputs of the predictor it was saved from, bit for
+    bit."""
+    from multiposenet_tpu_torch.infer import export
+    from multiposenet_tpu_torch.ops.image import space_to_depth_flat
+
+    cfg = _tiny_default()
+    pred = Predictor(cfg, image_size=256, device=cuda_device)
+    export.save_model(tmp_path, pred.config, pred.variables,
+                      pred.prn_variables)
+    loaded = export.load_predictor(tmp_path, image_size=256)
+    assert loaded.device.type == "cuda"
+    flat = space_to_depth_flat(np.random.RandomState(10).randint(
+        0, 256, (2, 256, 256, 3)).astype(np.uint8))
+    want, got = pred.batch_forward(flat), loaded.batch_forward(flat)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+def test_kernel_f32_default_batch(cuda_device):
+    """B1 on float32 maps at [64, 17, 128, 128], what a Config() batch of
+    64 at 512² gives it, every slot bit for bit (the -inf fillers
+    included)."""
+    hm = planted_maps(np.random.RandomState(14), (8, 128, 128, 17))
+    x = torch.as_tensor(hm).permute(0, 3, 1, 2).contiguous().to(
+        cuda_device).repeat(8, 1, 1, 1)
+    x = x + torch.linspace(0, 0.5, 64, device=cuda_device)[:, None, None,
+                                                           None]
+    cfg = DecodeConfig()
+    assert decode.route(x, cfg) == decode.KERNEL
+    got = decode.decode_maps(x, cfg)
+    want = decode.decode_maps_plain(x.reshape(-1, 128, 128), cfg)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)

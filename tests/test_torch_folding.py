@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from multiposenet_tpu.infer.folding import fold_batch_norm as jax_fold
+from multiposenet_tpu.ops.image import normalize as jax_normalize
 from multiposenet_tpu_torch.infer import folding
 
 from torch_port_helpers import (
@@ -28,6 +29,7 @@ from torch_port_helpers import (
     port_model,
     posenet_variables,
     tiny_crowd_config,
+    tiny_default_config,
 )
 
 
@@ -130,3 +132,59 @@ def test_folded_tree_loads_strictly_at_full_width():
     assert model.detector_head.iou_out.weight.shape == (9, 64, 3, 3)
     n_flax = sum(np.size(v) for v in jax.tree.leaves(folded))
     assert sum(t.numel() for t in model.state_dict().values()) == n_flax
+
+
+@pytest.mark.parametrize("fold_input_norm", [False, True])
+def test_default_fold_matches_jax_fold(fold_input_norm):
+    """Config() at test widths: every BatchNorm site (the 3x3/s2 stem, with
+    the input normalize folded into it or not, and each block) folds in
+    the numpy fold as in the JAX package's, and the in-place fold of the
+    loaded modules gives the state_dict of the folded tree."""
+    cfg = tiny_default_config(fold_input_norm=fold_input_norm)
+    variables = posenet_variables(cfg)
+    want = jax_fold(variables, epsilon=cfg.model.bn_epsilon)
+    got = folding.fold_batch_norm(_numpy_tree(variables),
+                                  epsilon=cfg.model.bn_epsilon)
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    flat_g = jax.tree_util.tree_flatten_with_path(got)[0]
+    assert [p for p, _ in flat_g] == [p for p, _ in flat_w]
+    for (path, g), (_, w) in zip(flat_g, flat_w):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), atol=1e-6,
+                                   rtol=1e-6,
+                                   err_msg=jax.tree_util.keystr(path))
+    model = folding.fold_batch_norm_(port_model(cfg, variables))
+    assert not any(".bn." in name for name in model.state_dict())
+    assert model.backbone.stem.conv.kernel.shape == (3, 3, 3, 8)
+    want_sd = port_model(_folded_cfg(cfg), got).state_dict()
+    got_sd = model.state_dict()
+    assert list(got_sd) == list(want_sd)
+    for name, t in want_sd.items():
+        torch.testing.assert_close(got_sd[name], t, atol=1e-6, rtol=1e-6,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("fold_input_norm,size", [(False, 128), (True, 128),
+                                                  (True, 127)])
+def test_default_folded_model_matches_jax_folded_model(fold_input_norm,
+                                                       size):
+    """The bn_folded flavour of Config(): the s2 stem's kernel and bias
+    folded (on 2x2 cells, and at an odd size on the plain 3x3/s2 conv
+    with the explicit normalize), against the JAX package's folded model
+    on the same folded tree, float32."""
+    cfg = tiny_default_config(fold_input_norm=fold_input_norm)
+    folded = jax_fold(posenet_variables(cfg), epsilon=cfg.model.bn_epsilon)
+    cfg_f = _folded_cfg(cfg)
+    x = np.random.RandomState(23).randint(0, 256, (2, size, size, 3)).astype(
+        np.float32)
+    if not fold_input_norm:
+        x = np.array(jax_normalize(jnp.asarray(x)))
+    out_j = jax_apply(cfg_f)(folded, jnp.asarray(x))
+    with torch.no_grad():
+        out_t = port_model(cfg_f, folded)(torch.as_tensor(x))
+    tol = MODEL_TOL["float32"]
+    for key in ("heatmaps", "heatmaps_cm", "segmentation"):
+        assert_model_close(out_t[key], out_j[key], tol, key)
+    for level, pair in out_j["detector"].items():
+        for kind in ("cls", "box"):
+            assert_model_close(out_t["detector"][level][kind], pair[kind],
+                               tol, f"{level}.{kind}")

@@ -59,3 +59,54 @@ def test_resize_pad_normalize_matches(shape, normalize_out):
     assert scale == float(want_scale)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                **(TOL if normalize_out else RAW_TOL))
+
+
+def test_host_staging_matches():
+    """The three host stagings, byte for byte."""
+    imgs = np.random.RandomState(3).randint(0, 256, (2, 32, 48, 3)).astype(
+        np.uint8)
+    for name in ("space_to_depth_flat", "space_to_depth_flat4",
+                 "space_to_depth_flat4_t"):
+        got = getattr(image, name)(imgs)
+        want = getattr(jax_image, name)(imgs)
+        assert got.dtype == want.dtype == np.uint8
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_s2d_flat_readers_match(dtype):
+    imgs = np.random.RandomState(4).randint(0, 256, (2, 32, 48, 3)).astype(
+        np.uint8)
+    flat = image.space_to_depth_flat(imgs)
+    t = torch.as_tensor(flat)
+    for port_fn, jax_fn in ((image.s2d_flat_to_cells,
+                             jax_image.s2d_flat_to_cells),
+                            (image.normalize_s2d_flat,
+                             jax_image.normalize_s2d_flat)):
+        got = port_fn(t, getattr(torch, dtype)).float().numpy()
+        want = np.asarray(jax_fn(jnp.asarray(flat), jnp.dtype(dtype)),
+                          np.float32)
+        assert got.shape == want.shape == (2, 16, 24, 12)
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("size", [(300, 200), (64, 64), (37, 211)])
+def test_resize_matrix_matches(size):
+    np.testing.assert_array_equal(image._resize_matrix(*size),
+                                  jax_image._resize_matrix(*size))
+
+
+@pytest.mark.parametrize("staging", [(96, 160), (200, 200), (50, 41)])
+@pytest.mark.parametrize("normalize_out", [True, False])
+def test_resize_normalize_batch_matches(staging, normalize_out):
+    """Two constant-matrix products on both sides; each output is a
+    two-tap blend of two-tap blends, summed in another order than XLA's
+    dot: 1e-5 relative to the value (raw pixels up to 255) plus 1e-5."""
+    imgs = np.random.RandomState(5).randint(0, 256, (2, *staging, 3)).astype(
+        np.uint8)
+    want = np.asarray(jax_image.resize_normalize_batch(
+        jnp.asarray(imgs), 64, normalize_out=normalize_out))
+    got = image.resize_normalize_batch(torch.as_tensor(imgs), 64,
+                                       normalize_out=normalize_out)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)

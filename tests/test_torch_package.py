@@ -47,13 +47,16 @@ def _port_modules():
 
 
 def test_every_module_imports_without_jax():
-    """In a fresh interpreter where `jax`, `flax` and `multiposenet_tpu`
-    cannot be imported, every module of the port imports."""
+    """In a fresh interpreter where `jax`, `flax`, `msgpack` and
+    `multiposenet_tpu` cannot be imported, every module of the port
+    imports."""
     modules = _port_modules()
-    assert "multiposenet_tpu_torch.infer.predictor" in modules
+    for name in ("infer.predictor", "infer.export", "infer.msgpack_io",
+                 "ops.pose_nms"):
+        assert f"multiposenet_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
-        "for blocked in ('jax', 'flax', 'multiposenet_tpu'):\n"
+        "for blocked in ('jax', 'flax', 'msgpack', 'multiposenet_tpu'):\n"
         "    sys.modules[blocked] = None\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
@@ -66,7 +69,7 @@ def test_every_module_imports_without_jax():
 
 
 def test_no_source_file_names_jax():
-    forbidden = ("jax", "flax", "multiposenet_tpu")
+    forbidden = ("jax", "flax", "msgpack", "multiposenet_tpu")
     for path in PACKAGE_DIR.rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -72,6 +72,26 @@ def tiny_crowd_config(compute_dtype: str = "float32", package=jax_config,
     )
 
 
+def tiny_default_config(compute_dtype: str = "float32", package=jax_config,
+                        **model):
+    """Config() at test widths: the stride-2 s2d stem, towers over the
+    smoothed P2..P5, the fuse conv and the stride-4 output conv, 4-conv
+    detector towers; `model` overrides ModelConfig fields."""
+    cfg = package.Config()
+    fields = dict(backbone_width=0.25, fpn_channels=32, head_channels=32,
+                  compute_dtype=compute_dtype)
+    fields.update(model)
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, **fields),
+        detector=dataclasses.replace(
+            cfg.detector, score_threshold=0.0, pre_nms_top_k=100,
+            max_detections=8, head_channels=32),
+        prn=dataclasses.replace(
+            cfg.prn, crop_height=14, crop_width=10, hidden_units=64,
+            max_persons=8),
+    )
+
+
 def torch_config_of(cfg):
     """The port's Config with the same fields as a JAX package Config."""
     return torch_config.Config.from_dict(cfg.to_dict())
