@@ -118,14 +118,14 @@ def test_s4_stem_off_the_matmul_path_matches_jax(fold, staging, size):
     _check(cfg, staging, size)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("kp_smooth_pyramid", True),
-    ("kp_p2_late", False),
-    ("kp_fuse_conv", True),
-    ("stem_stride", 2),
-    ("head_channels", 48),
+@pytest.mark.parametrize("field,value,dtype", [
+    ("kp_smooth_pyramid", True, "float32"),
+    ("kp_p2_late", False, "float32"),
+    ("kp_fuse_conv", True, "float32"),
+    ("stem_stride", 2, "float32"),
+    ("head_channels", 48, "float32"),
+    ("head_channels", 48, "bfloat16"),
 ])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_each_default_option_in_fast_matches_jax(field, value, dtype):
     """Each of the options that set Config() apart from fast(), alone in
     the tiny fast() architecture: the head then keeps its p2_late entry

@@ -139,29 +139,26 @@ def _image():
 
 @pytest.mark.parametrize("arch,layout", [
     ("default", "s2d_flat"),
-    ("default", "pixels"),
     ("default", "staging"),
-    ("fast", "s4_flat"),
     ("fast", "s4_flat_t"),
-    ("fast", "s2d_flat"),
-    ("fast", "staging"),
 ])
 def test_batch_layouts_match_jax(arch, layout):
+    """The layouts the earlier slices did not take (s4-flat and
+    letterboxed pixels are held in test_torch_predictor.py)."""
     _check_batch(_config(arch), layout)
 
 
 @pytest.mark.parametrize("arch,layout", [
     ("default", "s2d_flat"),   # 2x2 cells: mirrored column phases
-    ("default", "pixels"),
     ("fast", "s4_flat"),       # 4x4 cells: both column phases mirrored
 ])
 def test_flip_tta_batch_forward_matches_jax(arch, layout):
     _check_batch(_config(arch), layout, flip=True)
 
 
-@pytest.mark.parametrize("arch", ["default", "fast"])
-def test_flip_tta_predict_matches_jax(arch):
-    jax_pred, port = _predictors(_config(arch), True)
+def test_flip_tta_predict_matches_jax():
+    """Flip TTA on letterboxed pixels, through `predict`."""
+    jax_pred, port = _predictors(_config("default"), True)
     _assert_people(port.predict(_image()), jax_pred.predict(_image()))
 
 
