@@ -35,6 +35,7 @@ from multiposenet_tpu_torch.ops.detection import postprocess_detections
 from multiposenet_tpu_torch.ops.image import space_to_depth_flat4
 
 from torch_port_helpers import (
+    one_torch_thread,  # noqa: F401 (autouse)
     MODEL_TOL,
     SIZE,
     assert_model_close,

@@ -27,6 +27,7 @@ from multiposenet_tpu_torch.config import DecodeConfig
 from multiposenet_tpu_torch.ops import decode
 
 from decode_maps import CONFIGS, MAKERS, planted_maps
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 SCORE_TOL = dict(atol=1e-5, rtol=1e-5)
 

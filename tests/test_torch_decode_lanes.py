@@ -28,6 +28,7 @@ from multiposenet_tpu_torch.infer.predictor import Predictor
 from multiposenet_tpu_torch.ops import decode
 
 from decode_maps import CONFIGS, MAKERS, planted_maps
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import tiny_crowd_config, torch_config_of
 
 SCORE_TOL = dict(atol=1e-5, rtol=1e-5)

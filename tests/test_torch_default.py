@@ -30,6 +30,7 @@ from multiposenet_tpu_torch.models.mobilenet import stem_kernel_to_s2d
 from multiposenet_tpu_torch.ops import decode, image
 
 from torch_port_helpers import (
+    one_torch_thread,  # noqa: F401 (autouse)
     MODEL_TOL,
     assert_model_close,
     jax_apply,

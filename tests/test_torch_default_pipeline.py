@@ -29,6 +29,7 @@ from multiposenet_tpu_torch import kernels
 from multiposenet_tpu_torch.ops import decode, image
 
 from torch_port_helpers import (
+    one_torch_thread,  # noqa: F401 (autouse)
     JaxPredictor,
     PortPredictor,
     planted_images,

@@ -21,6 +21,7 @@ from multiposenet_tpu.ops import detection as jax_detection
 from multiposenet_tpu.ops import nms as jax_nms
 from multiposenet_tpu_torch.ops import anchors, boxes, detection, nms
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import tiny_config, torch_config_of
 
 BOX_TOL = dict(atol=1e-4, rtol=1e-6)

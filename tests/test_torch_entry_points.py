@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from torch_port_helpers import (
+    one_torch_thread,  # noqa: F401 (autouse)
     crowd_predictors,
     jax_kernels_interpreted,
     planted_images,

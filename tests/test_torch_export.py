@@ -25,6 +25,7 @@ from multiposenet_tpu_torch.infer import export, msgpack_io
 from multiposenet_tpu_torch.infer.predictor import Predictor
 
 from torch_port_helpers import (
+    one_torch_thread,  # noqa: F401 (autouse)
     planted_images,
     posenet_variables,
     prn_variables,

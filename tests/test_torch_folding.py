@@ -23,6 +23,7 @@ from multiposenet_tpu.ops.image import normalize as jax_normalize
 from multiposenet_tpu_torch.infer import folding
 
 from torch_port_helpers import (
+    one_torch_thread,  # noqa: F401 (autouse)
     MODEL_TOL,
     assert_model_close,
     jax_apply,

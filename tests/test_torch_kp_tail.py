@@ -28,6 +28,7 @@ from multiposenet_tpu_torch.models.posenet import MultiPoseNet
 from multiposenet_tpu_torch.ops import kp_tail
 
 from torch_port_helpers import (
+    one_torch_thread,  # noqa: F401 (autouse)
     max_abs_err,
     posenet_variables,
     tiny_crowd_config,

@@ -38,6 +38,7 @@ from multiposenet_tpu_torch.ops.image import (
 )
 
 from torch_port_helpers import (
+    one_torch_thread,  # noqa: F401 (autouse)
     jax_apply,
     posenet_variables,
     tiny_config,

@@ -30,6 +30,7 @@ from multiposenet_tpu_torch.infer.predictor import Predictor
 from multiposenet_tpu_torch.ops.image import space_to_depth_flat4
 
 from torch_port_helpers import (
+    one_torch_thread,  # noqa: F401 (autouse)
     planted_images,
     posenet_variables,
     prn_variables,

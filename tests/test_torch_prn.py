@@ -22,6 +22,7 @@ from multiposenet_tpu_torch import weights
 from multiposenet_tpu_torch.models.prn import PRN
 from multiposenet_tpu_torch.ops import prn_ops
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import prn_variables, tiny_config, to_numpy
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)

@@ -17,6 +17,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from multiposenet_tpu import config as jax_config
@@ -29,6 +30,19 @@ from multiposenet_tpu_torch import weights
 from multiposenet_tpu_torch.infer.predictor import Predictor as PortPredictor
 from multiposenet_tpu_torch.models.posenet import MultiPoseNet
 from multiposenet_tpu_torch.ops import decode
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch ops of a test module on one CPU thread. The suite runs in
+    several worker processes on a few cores, and torch's default of one
+    OpenMP thread per core in every worker oversubscribes them (the whole
+    run took about twice as long); these tensors are too small to gain
+    from more. Test modules take it by importing it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 # Input size of the predictor parity tests: 32² heatmaps, a multiple of
 # the JAX tail kernel's 16-row tile, so the JAX side really takes it.
