@@ -17,11 +17,14 @@ under 4e-3.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from multiposenet_tpu.config import Config as JaxConfig
+from multiposenet_tpu.infer.folding import fold_batch_norm as jax_fold
 from multiposenet_tpu.models.mobilenet import (
     stem_kernel_to_s2d as jax_stem_kernel_to_s2d,
 )
@@ -142,6 +145,30 @@ def test_default_head_wider_than_fpn_matches_jax():
     """Config() with a 48-wide head over the 32-wide FPN: the towers' first
     convs take the FPN's width."""
     _check(tiny_default_config("float32", head_channels=48), "pixels", 128)
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_full_width_default_weights_load(folded):
+    """Config() at full width, its flax tree and its BN-folded tree: every
+    parameter of the JAX package's tree has a slot of the same size in the
+    port (strict load), and the widths are the paper's (32 at the
+    stride-2 stem, 64 in block_0 above stride 4, 1024 at C5)."""
+    cfg = JaxConfig()
+    variables = posenet_variables(cfg)
+    if folded:
+        variables = jax_fold(variables, epsilon=cfg.model.bn_epsilon)
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    bn_folded=True))
+    model = port_model(cfg, variables)
+    b = model.backbone
+    assert b.stem.conv.kernel.shape == (3, 3, 3, 32)
+    assert (b.stem.bn is None) == folded
+    assert b.block_0.pointwise.conv.weight.shape[0] == 64
+    assert b.block_12.pointwise.conv.weight.shape[0] == 1024
+    assert model.fpn.smooth_P2.weight.shape == (128, 128, 3, 3)
+    assert model.keypoint_head.fuse.weight.shape == (128, 128, 3, 3)
+    n_flax = sum(np.size(v) for v in jax.tree.leaves(variables))
+    assert sum(t.numel() for t in model.state_dict().values()) == n_flax
 
 
 def test_stem_kernel_s2d_remap_matches_jax():

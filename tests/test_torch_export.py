@@ -65,18 +65,26 @@ def _assert_same_outputs(a: Predictor, b: Predictor):
         assert torch.equal(out_a[key], out_b[key]), key
 
 
-def test_jax_export_serves_through_port_load_predictor(tmp_path):
+@pytest.mark.parametrize("fold_bn", [False, True])
+def test_jax_export_serves_through_port_load_predictor(tmp_path, fold_bn):
+    """One call from the JAX package's export directory to a serving port
+    predictor, folding the BatchNorms on the way when asked: the outputs
+    of a predictor built from the same variables, bit for bit."""
     cfg = _config()
     variables, prn_vars = posenet_variables(cfg), prn_variables(cfg)
     jax_export.save_model(tmp_path, cfg, variables, prn_vars)
-    loaded = export.load_predictor(tmp_path, image_size=SIZE, device="cpu")
-    assert loaded.config == torch_config_of(cfg)
+    loaded = export.load_predictor(tmp_path, image_size=SIZE, device="cpu",
+                                   fold_bn=fold_bn)
+    assert loaded.config.model.bn_folded == fold_bn
     built = Predictor(torch_config_of(cfg), variables=_numpy(variables),
                       prn_variables=_numpy(prn_vars), image_size=SIZE,
-                      device="cpu")
+                      device="cpu", fold_bn=fold_bn)
+    assert loaded.config == built.config
     _assert_same_outputs(loaded, built)
-    _assert_trees_equal(loaded.variables, _numpy(variables))
     _assert_trees_equal(loaded.prn_variables, _numpy(prn_vars))
+    if not fold_bn:
+        assert loaded.config == torch_config_of(cfg)
+        _assert_trees_equal(loaded.variables, _numpy(variables))
 
 
 @pytest.mark.parametrize("fold_bn", [False, True])
