@@ -1,11 +1,13 @@
 """Smoke test of the PyTorch port (`multiposenet_tpu_torch`) on one NVIDIA
 GPU: builds the hand-written CUDA kernels from `csrc/` (B1 decode_peaks,
-B2 decode_lanes, decode_generic, B3 kp_tail), holds each against its
-plain PyTorch version at the shapes its paths give it (B2 also against
-B1, bit for bit; B1 on bf16 and on float32 maps), holds the float32
-forwards of Config.fast(), of the served Config.crowd() model (BN
-folded, fused tail) and of Config() on the card against the same weights
-on the CPU, then drives three paths at full width (512² input, 128²
+B2 decode_lanes, decode_generic, B3 kp_tail, B4 column_topk), holds each
+against its plain PyTorch version at the shapes its paths give it (B2
+also against B1, bit for bit; B1 on bf16 and on float32 maps; B4 at the
+decode micro-benchmark's 2176 maps, on column 0 and on every column, in
+phase `column_topk_kernel`), holds the float32 forwards of
+Config.fast(), of the served Config.crowd() model (BN folded, fused
+tail) and of Config() on the card against the same weights on the CPU,
+then drives three paths at full width (512² input, 128²
 heatmaps) through `Predictor.batch_forward`: Config.fast() (B1, batch
 128), Config.crowd() with BN folded, the fused tail and the
 maps-on-lanes decode (B3 and B2, batch 128), and Config() in float32 on
@@ -14,7 +16,8 @@ s2d-flat batches of 64 (B1). It serves `predict` requests on the first,
 `predict` with a 5x5 peak window through the generic decode kernel, and
 `predict` on Config() with flip test-time augmentation and pose NMS (B1);
 the Config() predictor is exported and loaded back onto the card, bit
-for bit.
+for bit. Last, phase `dbench2` drives the decode micro-benchmark's path,
+`multiposenet_tpu_torch.tools.dbench2.run` (B4 and B1 on 2176 maps).
 
     python3 chip_smoke.py
 
@@ -145,6 +148,21 @@ def decode_bound(n: int, h: int, w: int, p: int, n_taps: int,
     test, over the rate of unfused float32 operations."""
     bytes_moved = n * h * w * elem_bytes + 3 * n * p * 4
     ops = n * h * w * (4 * n_taps + window ** 2)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_NO_FMA_OPS_PER_S * 1e3
+    return {"bytes": bytes_moved, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def column_topk_bound(n: int, h: int, w: int) -> dict:
+    """The least time of B4 (the per-column top-8 of the 3x3 peak mask) on
+    n bf16 maps of h x w: each map read once and column 0's 8 (score f32,
+    packed row int32) written per map, over the HBM rate; per element 8
+    maxima and one comparison, over the rate of unfused float32
+    operations."""
+    bytes_moved = n * h * w * 2 + 2 * n * 8 * 4
+    ops = 9 * n * h * w
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_NO_FMA_OPS_PER_S * 1e3
     return {"bytes": bytes_moved, "ops": ops, "bytes_ms": bytes_ms,
@@ -421,6 +439,84 @@ def phase_decode_lanes_kernel(decode, cfg, device) -> dict:
           "batch1_exact": True, "batch1_kernel_ms": batch1_ms,
           "plain_ms": plain_ms, "design": row["design"], **bound})
     return row
+
+
+def compare_columns(column_topk, x, what: str) -> float:
+    """B4 on maps x [N, H, W] against its plain version, bit for bit:
+    column 0's lists (the kernel's outputs) and every column's, through
+    `columns_out`. Returns the largest error over finite scores (0)."""
+    n, h, w = x.shape
+    cols = (torch.empty(n, 8, w, dtype=torch.float32, device=x.device),
+            torch.empty(n, 8, w, dtype=torch.int32, device=x.device))
+    scores, rows = column_topk.column_topk(x, columns_out=cols)
+    want = column_topk.column_topk_plain(x, columns=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(scores, want[0][:, :, 0])
+            and torch.equal(rows, want[1][:, :, 0])):
+        raise AssertionError(f"column_topk ({what}): column 0 disagrees "
+                             "with the plain version")
+    if not all(torch.equal(a, b) for a, b in zip(cols, want)):
+        raise AssertionError(f"column_topk ({what}): columns_out disagrees "
+                             "with the plain version")
+    finite = torch.isfinite(want[0])
+    return float((cols[0][finite] - want[0][finite]).abs().max())
+
+
+def phase_column_topk_kernel(column_topk, dbench2, device) -> dict:
+    """B4 at [2176, 128, 128] bf16 (the decode micro-benchmark's shape),
+    on dbench2's maps (seeded noise) and on the test maps (noise, bumps,
+    plateaus), bit for bit against its plain version on column 0 and on
+    every column; timed beside the plain version, with its bound."""
+    n, h, w = dbench2.N_MAPS, dbench2.H, dbench2.W
+    inputs = {"dbench2": dbench2.make_maps(n, device),
+              "test_maps": test_maps(n, h, w, device)}
+    err = max(compare_columns(column_topk, x, name)
+              for name, x in inputs.items())
+    x = inputs["dbench2"]
+    kernel_ms = cuda_ms(lambda: column_topk.column_topk(x), reps=20,
+                        rounds=5)
+    plain_ms = cuda_ms(lambda: column_topk.column_topk_plain(x), reps=3,
+                       rounds=3)
+    bound = column_topk_bound(n, h, w)
+    row = {
+        "name": column_topk.KERNEL, "route": "cuda",
+        "design": "block per map, thread per column, map staged by "
+                  "cp.async, sorted top-8 in registers",
+        "source": "multiposenet_tpu_torch/csrc/column_topk.cu",
+        "replaces": "benchmarks/ab/dbench2.py:37",
+        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "library_ms": None, "held_against_plain": True,
+    }
+    emit({"phase": "column_topk_kernel", "maps": [n, h, w],
+          "dtype": "bfloat16", "inputs": sorted(inputs),
+          "exact_column0": True, "exact_every_column": True,
+          "max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "design": row["design"], **bound})
+    return row
+
+
+def phase_dbench2(dbench2, column_topk, decode, kernels) -> int:
+    """The decode micro-benchmark's path, `tools/dbench2.run` on the card:
+    B4 and B1 each launched 61 times (one warm-up and 3 rounds of 20) and
+    no other kernel, B4's last outputs bit for bit against its plain
+    version. Returns B4's launches."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    summary, (scores, rows) = dbench2.run()
+    launches = dict(kernels.LAUNCHES)
+    calls = dbench2.WARMUP + dbench2.ROUNDS * dbench2.REPS
+    want = {column_topk.KERNEL: calls, decode.KERNEL: calls}
+    if launches != want:
+        raise AssertionError(f"dbench2: launches {launches}, want {want}")
+    plain = column_topk.column_topk_plain(
+        dbench2.make_maps(dbench2.N_MAPS, scores.device))
+    if not (torch.equal(scores, plain[0]) and torch.equal(rows, plain[1])):
+        raise AssertionError("dbench2: B4's outputs disagree with the "
+                             "plain version")
+    emit({"phase": "dbench2", "launches": launches, "exact": True,
+          **summary})
+    return launches[column_topk.KERNEL]
 
 
 def parity_f32_pairs(model, cells, device) -> dict:
@@ -872,7 +968,8 @@ def ptxas_summary(log: str) -> dict:
     -v` reports for the instantiations the main paths take: every
     instantiation of the decode kernels (B1, B2 and the generic one,
     whatever their template arguments), the f32 tail's 17 outputs padded
-    to 20 (KP) and the bf16 tail's three n8 tiles (kp_tail_mma, NT = 3)."""
+    to 20 (KP), the bf16 tail's three n8 tiles (kp_tail_mma, NT = 3) and
+    B4 (column_topk)."""
     out, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -880,7 +977,7 @@ def ptxas_summary(log: str) -> dict:
         elif entry and ("registers" in line or "spill" in line):
             out.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     return {k: v for k, v in out.items()
-            if "decode_" in k or "Li20E" in k
+            if "decode_" in k or "column_topk" in k or "Li20E" in k
             or ("kp_tail_mma" in k and "Li3E" in k)}
 
 
@@ -897,8 +994,10 @@ def main() -> int:
         from multiposenet_tpu_torch.infer.predictor import Predictor
         from multiposenet_tpu_torch.models import layers
         from multiposenet_tpu_torch.models.posenet import MultiPoseNet
-        from multiposenet_tpu_torch.ops import decode, detection, kp_tail
+        from multiposenet_tpu_torch.ops import (column_topk, decode,
+                                                detection, kp_tail)
         from multiposenet_tpu_torch.ops import image as image_ops
+        from multiposenet_tpu_torch.tools import dbench2
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
@@ -927,7 +1026,8 @@ def main() -> int:
     rows = [phase_decode_kernel(decode, kernels, Config.fast().decode, device),
             phase_decode_lanes_kernel(decode, Config.crowd().decode, device),
             phase_decode_generic_kernel(decode, Config.fast().decode, device),
-            phase_tail_kernel(kp_tail, layers, device)]
+            phase_tail_kernel(kp_tail, layers, device),
+            phase_column_topk_kernel(column_topk, dbench2, device)]
     phase_parity_f32(Config, MultiPoseNet, folding, kp_tail, kernels,
                      image_ops, device)
     # Each path's launches, counted from 0 just before it runs.
@@ -944,6 +1044,8 @@ def main() -> int:
     del pred, batch
     b1_paths["predict_default"] = phase_predict_default(
         Config, Predictor, decode, kernels, card)
+    launches[column_topk.KERNEL] = phase_dbench2(dbench2, column_topk,
+                                                 decode, kernels)
     launches[decode.KERNEL] = sum(b1_paths.values())
     rows[0]["launches_by_path"] = b1_paths
     for row in rows:

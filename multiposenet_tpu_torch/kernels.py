@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 
 # Every kernel source in csrc/, by name.
 KERNEL_NAMES = ("decode_peaks", "decode_lanes", "decode_generic",
-                "kp_tail")
+                "kp_tail", "column_topk")
 # Kernel launches by kernel name since the last reset_launches().
 LAUNCHES: dict[str, int] = {}
 # nvcc's report (registers, shared memory, spills) per built kernel.

@@ -6,7 +6,9 @@ the inference pipelines (Config.fast()-like and Config.crowd()-like)
 on the card against the same weights on the CPU, and the default
 architecture (Config()): its forward against the CPU, flip TTA decoding
 through B1, an exported model loaded onto the card, and B1 on Config()'s
-float32 maps. Without a GPU every test here skips.
+float32 maps; B4 (`csrc/column_topk.cu`, the decode micro-benchmark's
+per-column top-8 of the 3x3 peak mask) against its plain version on
+column 0 and on every column. Without a GPU every test here skips.
 
 This file imports neither JAX nor the JAX package, so on a machine that
 has no JAX it runs without the repository's conftest:
@@ -24,7 +26,7 @@ import torch
 from multiposenet_tpu_torch import kernels
 from multiposenet_tpu_torch.config import Config, DecodeConfig
 from multiposenet_tpu_torch.infer.predictor import Predictor
-from multiposenet_tpu_torch.ops import decode, kp_tail
+from multiposenet_tpu_torch.ops import column_topk, decode, kp_tail
 from multiposenet_tpu_torch.ops.image import space_to_depth_flat4
 
 from decode_maps import CONFIGS, MAKERS, planted_maps
@@ -636,3 +638,87 @@ def test_kernel_f32_default_batch(cuda_device):
     want = decode.decode_maps_plain(x.reshape(-1, 128, 128), cfg)
     for a, c in zip(got, want):
         assert torch.equal(a, c)
+
+
+def _column_maps(kind: str, shape, seed: int) -> torch.Tensor:
+    """bf16 [N, H, W] maps of one of decode_maps' kinds (noise, bumps,
+    2x2 plateaus), made a row and a column larger and cropped, so that odd
+    sizes keep their plateaus."""
+    n, h, w = shape
+    maps = MAKERS[kind](np.random.RandomState(seed), (n, h + 1, w + 1, 1))
+    return torch.as_tensor(maps[:, :h, :w, 0]).to(torch.bfloat16)
+
+
+def _assert_column_topk_equals_plain(x):
+    """One launch of B4, bit for bit against the plain version: column 0's
+    lists (its outputs) and every column's (through columns_out), the
+    (-inf, 5) slots of exhausted columns included."""
+    n, h, w = x.shape
+    cols = (torch.empty(n, 8, w, device=x.device),
+            torch.empty(n, 8, w, dtype=torch.int32, device=x.device))
+    kernels.reset_launches()
+    scores, rows = column_topk.column_topk(x, columns_out=cols)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {column_topk.KERNEL: 1}
+    want_s, want_p = column_topk.column_topk_plain(x, columns=True)
+    assert torch.equal(scores, want_s[:, :, 0])
+    assert torch.equal(rows, want_p[:, :, 0])
+    assert torch.equal(cols[0], want_s)
+    assert torch.equal(cols[1], want_p)
+
+
+@pytest.mark.parametrize("shape", [
+    (2176, 128, 128),   # the decode micro-benchmark's maps
+    (1, 128, 128),
+    (4, 1, 128),
+    (4, 128, 1),
+    (4, 127, 128),
+    (4, 128, 130),      # plain loads (W % 8 != 0) in two chunks of rows
+    (3, 128, 256),      # cp.async in two chunks of rows
+    (2, 20, 1024),      # the widest, two chunks
+], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", sorted(MAKERS))
+def test_column_topk_matches_plain(cuda_device, shape, kind):
+    _assert_column_topk_equals_plain(
+        _column_maps(kind, shape, sum(shape)).to(cuda_device))
+
+
+@pytest.mark.parametrize("case", ["constant", "nan", "unaligned"])
+def test_column_topk_special_inputs(cuda_device, case):
+    """A constant map (every element a peak, ties to the lower row), NaNs
+    (NaN windows are no peaks, as in the plain version's max_pool2d), and
+    maps that start 2 bytes past a 16-byte boundary (plain loads)."""
+    if case == "constant":
+        x = torch.full((4, 128, 128), 0.5, dtype=torch.bfloat16,
+                       device=cuda_device)
+    elif case == "nan":
+        x = _column_maps("random", (8, 64, 64), 3).to(cuda_device)
+        x[torch.rand(x.shape, device=cuda_device) < 0.01] = float("nan")
+    else:
+        flat = _column_maps("planted", (4, 128, 128), 4).reshape(-1)
+        buf = torch.empty(flat.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda_device)
+        buf[1:] = flat
+        x = buf[1:].view(4, 128, 128)
+        assert x.data_ptr() % 16 == 2 and x.is_contiguous()
+    _assert_column_topk_equals_plain(x)
+
+
+@pytest.mark.parametrize("case", ["dtype", "width", "device"])
+def test_column_topk_refuses_on_card(cuda_device, case):
+    """f32 maps, maps wider than 1024 and columns_out on the CPU are
+    refused before any launch."""
+    x = torch.zeros(2, 16, 16, dtype=torch.bfloat16, device=cuda_device)
+    cols, err = None, ValueError
+    if case == "dtype":
+        x, err = x.float(), TypeError
+    elif case == "width":
+        x = torch.zeros(1, 2, column_topk.MAX_WIDTH + 1, dtype=torch.bfloat16,
+                        device=cuda_device)
+    else:
+        cols = (torch.empty(2, 8, 16), torch.empty(2, 8, 16,
+                                                   dtype=torch.int32))
+    kernels.reset_launches()
+    with pytest.raises(err):
+        column_topk.column_topk(x, columns_out=cols)
+    assert kernels.LAUNCHES == {}

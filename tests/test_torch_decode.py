@@ -27,6 +27,7 @@ from multiposenet_tpu_torch.config import DecodeConfig
 from multiposenet_tpu_torch.ops import decode
 
 from decode_maps import CONFIGS, MAKERS, planted_maps
+from torch_port_helpers import chip_smoke_module
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 SCORE_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -221,19 +222,6 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     assert kernels.LAUNCHES == {}
 
 
-def _chip_smoke():
-    """chip_smoke.py at the repository root, imported as a module (its
-    main() runs only as a script)."""
-    import importlib.util
-    from pathlib import Path
-
-    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 @pytest.mark.parametrize("elem_bytes,bound_ms,bound_by", [
     # bf16, the fast() batch: 2176 * 128**2 * 37 = 1.319e9 unfused f32
     # operations over 132 * 128 * 1.98e9 per second = 0.0394 ms, above
@@ -243,7 +231,7 @@ def _chip_smoke():
     (4, 0.042631, "bytes"),
 ])
 def test_decode_bound_matches_hand_count(elem_bytes, bound_ms, bound_by):
-    bound = _chip_smoke().decode_bound(2176, 128, 128, 8, 7, elem_bytes)
+    bound = chip_smoke_module().decode_bound(2176, 128, 128, 8, 7, elem_bytes)
     assert bound["ops"] == 2176 * 128 * 128 * 37 == 1_319_108_608
     assert bound["bytes"] == 2176 * 128 * 128 * elem_bytes + 2176 * 8 * 12
     assert bound["bound_by"] == bound_by
@@ -253,7 +241,7 @@ def test_decode_bound_matches_hand_count(elem_bytes, bound_ms, bound_by):
 def test_decode_bound_counts_the_window():
     """The peak test takes window² operations an element (window² - 1
     maxima and a comparison): 9 at window 3, 25 at window 5."""
-    smoke = _chip_smoke()
+    smoke = chip_smoke_module()
     b3 = smoke.decode_bound(1088, 128, 128, 8, 7, 2)
     b5 = smoke.decode_bound(1088, 128, 128, 8, 7, 2, window=5)
     assert b3["ops"] == 1088 * 128 * 128 * 37

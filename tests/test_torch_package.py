@@ -15,7 +15,7 @@ import multiposenet_tpu_torch
 from multiposenet_tpu import config as jax_config
 from multiposenet_tpu.utils import constants as jax_constants
 from multiposenet_tpu_torch import config, kernels
-from multiposenet_tpu_torch.ops import decode
+from multiposenet_tpu_torch.ops import column_topk, decode
 from multiposenet_tpu_torch.utils import constants
 
 PACKAGE_DIR = Path(multiposenet_tpu_torch.__file__).resolve().parent
@@ -52,7 +52,7 @@ def test_every_module_imports_without_jax():
     imports."""
     modules = _port_modules()
     for name in ("infer.predictor", "infer.export", "infer.msgpack_io",
-                 "ops.pose_nms"):
+                 "ops.pose_nms", "ops.column_topk", "tools.dbench2"):
         assert f"multiposenet_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -69,8 +69,10 @@ def test_every_module_imports_without_jax():
 
 
 def test_no_source_file_names_jax():
-    forbidden = ("jax", "flax", "msgpack", "multiposenet_tpu")
-    for path in PACKAGE_DIR.rglob("*.py"):
+    """No module of the port, nor chip_smoke.py, imports JAX, flax,
+    msgpack, the JAX package or the JAX package's benchmarks."""
+    forbidden = ("jax", "flax", "msgpack", "multiposenet_tpu", "benchmarks")
+    for path in [*PACKAGE_DIR.rglob("*.py"), REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -84,6 +86,7 @@ def test_no_source_file_names_jax():
 
 def test_kernel_sources_and_build_dir():
     assert decode.KERNEL in kernels.KERNEL_NAMES
+    assert column_topk.KERNEL in kernels.KERNEL_NAMES
     for name in kernels.KERNEL_NAMES:
         assert (kernels.CSRC / f"{name}.cu").is_file(), name
     ignored = (REPO / ".gitignore").read_text().splitlines()

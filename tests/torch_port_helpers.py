@@ -13,6 +13,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -202,6 +204,16 @@ def planted_images(rng: np.random.RandomState, n: int, h: int,
             imgs[i] += 215.0 * np.exp(
                 -((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig ** 2))[..., None]
     return np.clip(imgs, 0, 255).astype(np.uint8)
+
+
+def chip_smoke_module():
+    """chip_smoke.py at the repository root, imported as a module (its
+    main() runs only as a script)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def to_numpy(t) -> np.ndarray:
