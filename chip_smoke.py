@@ -16,8 +16,14 @@ s2d-flat batches of 64 (B1). It serves `predict` requests on the first,
 `predict` with a 5x5 peak window through the generic decode kernel, and
 `predict` on Config() with flip test-time augmentation and pose NMS (B1);
 the Config() predictor is exported and loaded back onto the card, bit
-for bit. Last, phase `dbench2` drives the decode micro-benchmark's path,
+for bit. Phase `dbench2` drives the decode micro-benchmark's path,
 `multiposenet_tpu_torch.tools.dbench2.run` (B4 and B1 on 2176 maps).
+Last, the command line in this process on an exported full-width
+Config.fast() model: `eval` over 256 synthetic images, batched (host
+resize, batches of 128, two B1 launches) and through `predict` (32
+images, 32 launches), with images per second and the batched loop's
+split (phases `eval_batched`, `eval_predict`), then `predict --output`
+on a 480x640 PNG, read back (phase `cli_predict`, one launch).
 
     python3 chip_smoke.py
 
@@ -32,9 +38,11 @@ JAX.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import statistics
 import subprocess
@@ -963,6 +971,189 @@ def stage_times(pred, cfg, x, hm_cm, detection) -> dict:
     }
 
 
+@contextlib.contextmanager
+def eval_timers(cli, runner, Predictor):
+    """Host-clock times of the eval command's parts, each ended by a
+    synchronize: the runner's loop (`loop_s`, without making the
+    records: `records_s`), each `batch_forward` of the batched loop and
+    each `predict` of the other, and the OKS accumulation (the
+    evaluator's `add_image` and `summarize`). Patched in for the block
+    and restored after."""
+    t = {"records_s": 0.0, "loop_s": 0.0, "forward_s": [], "predict_s": [],
+         "oks_s": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if isinstance(t[key], list):
+                t[key].append(dt)
+            else:
+                t[key] += dt
+            return out
+        return wrapper
+
+    make_runner = Predictor.make_batch_runner
+
+    def make_batch_runner(self, mesh=None):
+        return timed(make_runner(self, mesh), "forward_s")
+
+    class TimedEvaluator(runner.KeypointEvaluator):
+        add_image = timed(runner.KeypointEvaluator.add_image, "oks_s")
+        summarize = timed(runner.KeypointEvaluator.summarize, "oks_s")
+
+    patches = [(cli, "_load_records", timed(cli._load_records, "records_s")),
+               (runner, "evaluate_batched",
+                timed(runner.evaluate_batched, "loop_s")),
+               (runner, "evaluate_predictor",
+                timed(runner.evaluate_predictor, "loop_s")),
+               (runner, "KeypointEvaluator", TimedEvaluator),
+               (Predictor, "make_batch_runner", make_batch_runner),
+               (Predictor, "predict", timed(Predictor.predict, "predict_s"))]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, value in patches:
+        setattr(obj, name, value)
+    try:
+        yield t
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def cli_stdout(cli, argv: list[str]) -> str:
+    """`cli.main(argv)` in this process; its standard output."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return out.getvalue()
+
+
+EVAL_IMAGES, EVAL_BATCH, EVAL_PREDICT_IMAGES = 256, 128, 32
+STAT_KEYS = ["AP", "AP50", "AP75", "AR", "AR50", "APM", "ARM", "APL", "ARL"]
+
+
+def phase_eval(Config, Predictor, export, cli, runner, decode, kernels,
+               directory: Path, card: str) -> dict:
+    """`python -m multiposenet_tpu_torch eval` in this process on a
+    full-width Config.fast() model exported to `directory` (random
+    weights; score threshold 0.0 and heatmap bias 0.25, as on the
+    pipeline path), over 256 synthetic 256² images: the batched loop
+    (host resize into batches of 128 at 512², `batch_forward`: exactly
+    one B1 launch a batch, 2) and the predict loop on 32 images (one B1
+    launch a request, 32), no other kernel. Prints the stats, images per
+    second on the host clock (records excluded) and, for the batched
+    loop, the split into host resize and batch assembly, batch_forward
+    and OKS accumulation. Returns B1's launches by loop."""
+    cfg = Config.fast()
+    cfg = cfg.replace(detector=dataclasses.replace(cfg.detector,
+                                                   score_threshold=0.0))
+    pred = Predictor(cfg, image_size=IMAGE)
+    with torch.no_grad():
+        pred.model.keypoint_head.output.bias[:cfg.model.num_keypoints] \
+            .fill_(0.25)
+    export.save_model(directory, pred.config, pred.variables,
+                      pred.prn_variables)
+    del pred
+    base = ["eval", "--model-dir", str(directory), "--synthetic",
+            str(EVAL_IMAGES)]
+    loops = {"eval_batched": (base + ["--batched", "--batch-size",
+                                      str(EVAL_BATCH)],
+                              EVAL_IMAGES, -(-EVAL_IMAGES // EVAL_BATCH)),
+             "eval_predict": (base + ["--max-images",
+                                      str(EVAL_PREDICT_IMAGES)],
+                              EVAL_PREDICT_IMAGES, EVAL_PREDICT_IMAGES)}
+    launches = {}
+    for name, (argv, n_images, n_b1) in loops.items():
+        torch.cuda.synchronize()
+        with eval_timers(cli, runner, Predictor) as t:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            text = cli_stdout(cli, argv)
+            total_s = time.perf_counter() - t0
+            counted = dict(kernels.LAUNCHES)
+        stats = json.loads(text)
+        if list(stats) != STAT_KEYS or not all(
+                np.isfinite(v) and -1.0 <= v <= 1.0 for v in stats.values()):
+            raise AssertionError(f"{name}: bad stats {stats}")
+        if counted != {decode.KERNEL: n_b1}:
+            raise AssertionError(f"{name}: launches {counted}, want "
+                                 f"{{{decode.KERNEL!r}: {n_b1}}}")
+        launches[name] = n_b1
+        row = {"phase": name, "card": card, "argv": argv,
+               "config": "Config.fast(), exported; score_threshold 0.0, "
+                         "heatmap bias 0.25",
+               "images": n_images, "stats": stats, "launches": counted,
+               "img_per_s": n_images / t["loop_s"], "loop_s": t["loop_s"],
+               "records_s": t["records_s"], "command_s": total_s,
+               "oks_s": t["oks_s"]}
+        if name == "eval_batched":
+            forward = sum(t["forward_s"])
+            row.update({"batch": EVAL_BATCH, "forward_s": t["forward_s"],
+                        "host_resize_and_assembly_s":
+                            t["loop_s"] - forward - t["oks_s"],
+                        "split": "host resize and batch assembly = loop - "
+                                 "batch_forward - OKS"})
+        else:
+            row.update({"predict_ms": [x * 1e3 for x in t["predict_s"]]})
+        emit(row)
+    return launches
+
+
+def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
+                      directory: Path, card: str) -> int:
+    """`python -m multiposenet_tpu_torch predict --output` in this process
+    on the model `phase_eval` exported: a synthetic 480x640 scene written
+    with `image_io.write_png`, one B1 launch and no other kernel, people
+    printed, and the drawing read back: its shape, the drawing of the
+    printed people bit for bit, and a pixel other than the input's at
+    every drawn keypoint centre. Returns B1's launches."""
+    scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
+    image_path, out_path = directory / "scene.png", directory / "drawn.png"
+    image_io.write_png(image_path, scene["image"])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    text = cli_stdout(cli, ["predict", "--model-dir", str(directory),
+                            "--image", str(image_path), "--output",
+                            str(out_path)])
+    command_s = time.perf_counter() - t0
+    counted = dict(kernels.LAUNCHES)
+    if counted != {decode.KERNEL: 1}:
+        raise AssertionError(f"cli_predict: launches {counted}")
+    people = [argparse.Namespace(box=np.asarray(p["box"]), score=p["score"],
+                                 keypoints=np.asarray(p["keypoints"]))
+              for p in json.loads(text)]
+    if not people or not all(
+            p.box.shape == (4,) and p.keypoints.shape == (17, 3)
+            and np.isfinite(p.box).all() and np.isfinite(p.keypoints).all()
+            for p in people):
+        raise AssertionError("cli_predict: bad people")
+    image = image_io.read_image(image_path)
+    drawn = image_io.read_image(out_path)
+    if not np.array_equal(image, scene["image"]) or \
+            drawn.shape != (480, 640, 3):
+        raise AssertionError(f"cli_predict: image read back as "
+                             f"{drawn.shape}")
+    if not np.array_equal(drawn, visualize.draw_predictions(image, people)):
+        raise AssertionError("cli_predict: the PNG is not the drawing of "
+                             "the printed people")
+    centres = {(int(round(x)), int(round(y)))
+               for p in people for x, y, s in p.keypoints if s > 0.05}
+    same = [c for c in centres if (drawn[c[1], c[0]] == image[c[1], c[0]])
+            .all()]
+    if not centres or same:
+        raise AssertionError(f"cli_predict: {len(same)} of {len(centres)} "
+                             "keypoint centres left as the input")
+    emit({"phase": "cli_predict", "card": card, "image": [480, 640],
+          "persons": len(people), "keypoint_centres_drawn": len(centres),
+          "changed_pixels": int((drawn != image).any(-1).sum()),
+          "command_s": command_s, "launches": counted})
+    return counted[decode.KERNEL]
+
+
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame, spills and shared memory that `nvcc -Xptxas
     -v` reports for the instantiations the main paths take: every
@@ -988,8 +1179,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from multiposenet_tpu_torch import kernels
+        from multiposenet_tpu_torch import cli, kernels
         from multiposenet_tpu_torch.config import Config
+        from multiposenet_tpu_torch.data import synthetic
+        from multiposenet_tpu_torch.eval import runner
         from multiposenet_tpu_torch.infer import export, folding
         from multiposenet_tpu_torch.infer.predictor import Predictor
         from multiposenet_tpu_torch.models import layers
@@ -998,6 +1191,7 @@ def main() -> int:
                                                 detection, kp_tail)
         from multiposenet_tpu_torch.ops import image as image_ops
         from multiposenet_tpu_torch.tools import dbench2
+        from multiposenet_tpu_torch.utils import image_io, visualize
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
@@ -1046,6 +1240,14 @@ def main() -> int:
         Config, Predictor, decode, kernels, card)
     launches[column_topk.KERNEL] = phase_dbench2(dbench2, column_topk,
                                                  decode, kernels)
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="cli_",
+                                     dir=kernels.BUILD_DIR) as directory:
+        b1_paths.update(phase_eval(Config, Predictor, export, cli, runner,
+                                   decode, kernels, Path(directory), card))
+        b1_paths["cli_predict"] = phase_cli_predict(
+            cli, image_io, visualize, synthetic, decode, kernels,
+            Path(directory), card)
     launches[decode.KERNEL] = sum(b1_paths.values())
     rows[0]["launches_by_path"] = b1_paths
     for row in rows:

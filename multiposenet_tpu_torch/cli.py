@@ -1,0 +1,137 @@
+"""Command-line entry points of the port, the counterparts of
+`multiposenet_tpu/cli.py`'s `eval` and `predict`, with the same flags,
+defaults and output, plus `--device` (by default the card; without one
+the command raises unless `--device cpu` is given). Training
+(`prepare`, `train`, `train-prn`) is not ported yet.
+
+Usage:
+    python -m multiposenet_tpu_torch eval --model-dir out/ \\
+        [--coco-json ... --image-dir ...] [--synthetic N] [--batched]
+    python -m multiposenet_tpu_torch predict --model-dir out/ \\
+        --image in.png --output out.png
+
+Images are read and written through `utils/image_io.py` (PNG and .npy,
+no cv2).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+
+def _load_config(args) -> "Config":
+    from multiposenet_tpu_torch.config import Config
+
+    if args.config:
+        return Config.from_json(Path(args.config).read_text())
+    preset = getattr(args, "preset", None) or "default"
+    if preset == "fast":
+        return Config.fast()
+    if preset == "crowd":
+        return Config.crowd()
+    return Config()
+
+
+def _load_records(args):
+    if args.coco_json:
+        from multiposenet_tpu_torch.data.coco import load_coco_keypoints
+
+        return load_coco_keypoints(args.coco_json)
+    from multiposenet_tpu_torch.data.synthetic import make_dataset
+
+    n = args.synthetic or 64
+    return make_dataset(n, img_h=256, img_w=256, seed=0)
+
+
+def _load_predictor(args):
+    """The exported model under --model-dir, else a seeded random init of
+    the --config/--preset model, on --device."""
+    from multiposenet_tpu_torch.infer.export import load_predictor
+    from multiposenet_tpu_torch.infer.predictor import Predictor
+
+    if args.model_dir and (Path(args.model_dir) / "config.json").exists():
+        return load_predictor(args.model_dir, device=args.device)
+    return Predictor(config=_load_config(args), device=args.device)
+
+
+def cmd_eval(args) -> None:
+    from multiposenet_tpu_torch.eval import runner
+
+    predictor = _load_predictor(args)
+    records = _load_records(args)
+    if args.batched:
+        stats = runner.evaluate_batched(
+            predictor, records, batch_size=args.batch_size,
+            image_dir=args.image_dir,
+        )
+    else:
+        stats = runner.evaluate_predictor(
+            predictor, records, image_dir=args.image_dir,
+            max_images=args.max_images,
+        )
+    print(json.dumps(stats, indent=2))
+
+
+def cmd_predict(args) -> None:
+    from multiposenet_tpu_torch.utils.image_io import read_image, write_png
+    from multiposenet_tpu_torch.utils.visualize import draw_predictions
+
+    predictor = _load_predictor(args)
+    try:
+        rgb = read_image(args.image)
+    except (OSError, ValueError) as exc:
+        sys.exit(f"cannot read image: {args.image} ({exc})")
+    people = predictor.predict(rgb)
+    print(json.dumps([
+        {"box": p.box.tolist(), "score": p.score,
+         "keypoints": p.keypoints.tolist()}
+        for p in people
+    ]))
+    if args.output:
+        write_png(args.output, draw_predictions(rgb, people))
+        print(f"wrote {args.output}", file=sys.stderr)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(prog="multiposenet_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    def common(p):
+        p.add_argument("--config", help="config JSON path")
+        p.add_argument("--preset", choices=("default", "fast", "crowd"),
+                       help="named operating point when no --config is "
+                            "given: 'fast' = the batched-throughput "
+                            "point, 'crowd' = fast + the crowded-scene "
+                            "knobs (README)")
+        p.add_argument("--coco-json", help="COCO person_keypoints json")
+        p.add_argument("--image-dir", help="image directory for COCO "
+                                           "(PNG or .npy files)")
+        p.add_argument("--synthetic", type=int,
+                       help="use N synthetic images instead of COCO")
+        p.add_argument("--model-dir", help="export/load directory")
+        p.add_argument("--device",
+                       help="torch device (default: the CUDA card; "
+                            "raises without one unless 'cpu' is given)")
+
+    p = sub.add_parser("eval", help="COCO keypoint OKS evaluation")
+    common(p)
+    p.add_argument("--batched", action="store_true")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--max-images", type=int)
+    p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("predict", help="predict one image")
+    common(p)
+    p.add_argument("--image", required=True, help="PNG or .npy image")
+    p.add_argument("--output", help="write visualization PNG here")
+    p.set_defaults(fn=cmd_predict)
+
+    args = parser.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,7 +8,9 @@ architecture (Config()): its forward against the CPU, flip TTA decoding
 through B1, an exported model loaded onto the card, and B1 on Config()'s
 float32 maps; B4 (`csrc/column_topk.cu`, the decode micro-benchmark's
 per-column top-8 of the 3x3 peak mask) against its plain version on
-column 0 and on every column. Without a GPU every test here skips.
+column 0 and on every column; the command line on the card: `eval
+--batched` against the CPU's stats and `predict` without `--device`.
+Without a GPU every test here skips.
 
 This file imports neither JAX nor the JAX package, so on a machine that
 has no JAX it runs without the repository's conftest:
@@ -18,18 +20,24 @@ has no JAX it runs without the repository's conftest:
 
 import contextlib
 import dataclasses
+import io
+import json
 
 import numpy as np
 import pytest
 import torch
 
-from multiposenet_tpu_torch import kernels
+from multiposenet_tpu_torch import cli, kernels
 from multiposenet_tpu_torch.config import Config, DecodeConfig
+from multiposenet_tpu_torch.data.synthetic import make_dataset
+from multiposenet_tpu_torch.infer import export
 from multiposenet_tpu_torch.infer.predictor import Predictor
 from multiposenet_tpu_torch.ops import column_topk, decode, kp_tail
 from multiposenet_tpu_torch.ops.image import space_to_depth_flat4
+from multiposenet_tpu_torch.utils.image_io import read_image, write_png
 
 from decode_maps import CONFIGS, MAKERS, planted_maps
+from eval_fixtures import planted_annotations, write_coco
 
 pytestmark = pytest.mark.cuda
 
@@ -722,3 +730,81 @@ def test_column_topk_refuses_on_card(cuda_device, case):
     with pytest.raises(err):
         column_topk.column_topk(x, columns_out=cols)
     assert kernels.LAUNCHES == {}
+
+
+# --- eval and the command line on the card ----------------------------------
+
+
+@pytest.fixture
+def cli_workdir(cuda_device, tmp_path):
+    """A tiny float32 fast()-like model exported from a CPU predictor
+    (score threshold 0, heatmap bias raised so peaks are found), six PNG
+    scenes and a COCO JSON of ground truth planted around the CPU
+    predictor's detections on them (tests/eval_fixtures.py)."""
+    cfg = Config.fast()
+    cfg = cfg.replace(
+        model=dataclasses.replace(
+            cfg.model, backbone_width=0.25, fpn_channels=32,
+            head_channels=32, backbone_stage_caps=(16, 32, 0, 0),
+            backbone_max_channels=64, compute_dtype="float32"),
+        detector=dataclasses.replace(cfg.detector, score_threshold=0.0,
+                                     max_detections=8, head_channels=32),
+        train=dataclasses.replace(cfg.train, image_size=128))
+    pred = Predictor(cfg, device="cpu")
+    with torch.no_grad():
+        pred.model.keypoint_head.output.bias[:17].fill_(0.25)
+    model_dir = tmp_path / "model"
+    export.save_model(model_dir, pred.config, pred.variables,
+                      pred.prn_variables)
+    records = make_dataset(6, img_h=100, img_w=140, seed=11)
+    rng = np.random.RandomState(12)
+    anns = []
+    for rec in records:
+        people = pred.predict(rec["image"])
+        anns.append(planted_annotations(
+            np.stack([p.box for p in people]),
+            np.stack([p.keypoints for p in people]), rng, 100, 140))
+    coco_json, image_dir = write_coco(tmp_path / "coco",
+                                      [r["image"] for r in records], anns,
+                                      write_png)
+    return {"model": str(model_dir), "coco": coco_json,
+            "images": image_dir, "image": f"{image_dir}/000000.png"}
+
+
+def _cli_stdout(argv) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return out.getvalue()
+
+
+def test_cli_eval_batched_on_card_matches_cpu(cli_workdir):
+    """`eval --batched` on the card (the default device; TF32 off) gives
+    the CPU's stats within 0.01 (tests/test_torch_eval.py explains the
+    bound), with one B1 launch a batch and no other kernel."""
+    argv = ["eval", "--model-dir", cli_workdir["model"], "--coco-json",
+            cli_workdir["coco"], "--image-dir", cli_workdir["images"],
+            "--batched", "--batch-size", "4"]
+    want = json.loads(_cli_stdout(argv + ["--device", "cpu"]))
+    with no_tf32():
+        kernels.reset_launches()
+        got = json.loads(_cli_stdout(argv))
+        assert kernels.LAUNCHES == {decode.KERNEL: 2}
+    assert 0.0 < want["AP"] < 1.0
+    assert list(got) == list(want)
+    for key in want:
+        assert abs(got[key] - want[key]) <= 0.01, (key, got, want)
+
+
+def test_cli_predict_defaults_to_card(cli_workdir, tmp_path):
+    """`predict` without --device runs on the card: one B1 launch, people
+    printed, the drawing written."""
+    out_png = tmp_path / "out.png"
+    kernels.reset_launches()
+    people = json.loads(_cli_stdout(
+        ["predict", "--model-dir", cli_workdir["model"], "--image",
+         cli_workdir["image"], "--output", str(out_png)]))
+    assert kernels.LAUNCHES == {decode.KERNEL: 1}
+    assert people and all(len(p["keypoints"]) == 17 for p in people)
+    drawn, image = read_image(out_png), read_image(cli_workdir["image"])
+    assert drawn.shape == image.shape and (drawn != image).any()

@@ -47,16 +47,20 @@ def _port_modules():
 
 
 def test_every_module_imports_without_jax():
-    """In a fresh interpreter where `jax`, `flax`, `msgpack` and
-    `multiposenet_tpu` cannot be imported, every module of the port
-    imports."""
+    """In a fresh interpreter where `jax`, `flax`, `msgpack`,
+    `multiposenet_tpu`, `cv2` and `tensorflow` cannot be imported, every
+    module of the port imports."""
     modules = _port_modules()
     for name in ("infer.predictor", "infer.export", "infer.msgpack_io",
-                 "ops.pose_nms", "ops.column_topk", "tools.dbench2"):
+                 "ops.pose_nms", "ops.column_topk", "tools.dbench2",
+                 "eval.oks", "eval.runner", "data.synthetic", "data.coco",
+                 "data.loader", "utils.image_io", "utils.visualize", "cli",
+                 "__main__"):
         assert f"multiposenet_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
-        "for blocked in ('jax', 'flax', 'msgpack', 'multiposenet_tpu'):\n"
+        "for blocked in ('jax', 'flax', 'msgpack', 'multiposenet_tpu',\n"
+        "                'cv2', 'tensorflow'):\n"
         "    sys.modules[blocked] = None\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
@@ -82,6 +86,38 @@ def test_no_source_file_names_jax():
                 continue
             for n in names:
                 assert n.split(".")[0] not in forbidden, (path, n)
+
+
+def _imports(tree) -> list[tuple[str, ast.AST]]:
+    """(top-level module name, node) of every import in a module."""
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [(a.name.split(".")[0], node) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            out.append(((node.module or "").split(".")[0], node))
+    return out
+
+
+def test_no_module_imports_cv2_and_tensorflow_only_when_called():
+    """No module of the port, nor chip_smoke.py, imports cv2; tensorflow
+    is imported only inside `infer.export.import_tf_checkpoint`, when it
+    is called."""
+    tf_functions = []
+    for path in [*PACKAGE_DIR.rglob("*.py"), REPO / "chip_smoke.py"]:
+        tree = ast.parse(path.read_text())
+        for name, node in _imports(tree):
+            assert name != "cv2", path
+        for func in ast.walk(tree):
+            if isinstance(func, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    and any(n == "tensorflow" for n, _ in _imports(func)):
+                tf_functions.append((path.name, func.name))
+        top = [n for n, node in _imports(tree)
+               if n == "tensorflow" and not any(
+                   isinstance(f, ast.FunctionDef) and node in ast.walk(f)
+                   for f in ast.walk(tree))]
+        assert not top, path
+    assert tf_functions == [("export.py", "import_tf_checkpoint")]
 
 
 def test_kernel_sources_and_build_dir():
