@@ -470,11 +470,28 @@ def compare_columns(column_topk, x, what: str) -> float:
     return float((cols[0][finite] - want[0][finite]).abs().max())
 
 
-def phase_column_topk_kernel(column_topk, dbench2, device) -> dict:
+def column_topk_c_plan(column_topk, kernels, shape, device) -> dict:
+    """The launch plan B4's C entry point takes for `shape` on this card,
+    held against ops/column_topk.py launch_plan."""
+    import ctypes
+    out = (ctypes.c_int * len(column_topk.PLAN_FIELDS))()
+    if kernels.load(column_topk.KERNEL).column_topk_plan(*shape, 0, out):
+        raise RuntimeError("column_topk_plan refused its shape")
+    plan = dict(zip(column_topk.PLAN_FIELDS, out))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if plan != column_topk.launch_plan(*shape, sms):
+        raise AssertionError(f"column_topk: the C plan {plan} is not "
+                             "launch_plan's")
+    return plan
+
+
+def phase_column_topk_kernel(column_topk, dbench2, kernels, device,
+                             ptxas: dict) -> dict:
     """B4 at [2176, 128, 128] bf16 (the decode micro-benchmark's shape),
     on dbench2's maps (seeded noise) and on the test maps (noise, bumps,
     plateaus), bit for bit against its plain version on column 0 and on
-    every column; timed beside the plain version, with its bound."""
+    every column; timed beside the plain version, with its bound, launch
+    plan, registers and shared memory."""
     n, h, w = dbench2.N_MAPS, dbench2.H, dbench2.W
     inputs = {"dbench2": dbench2.make_maps(n, device),
               "test_maps": test_maps(n, h, w, device)}
@@ -486,10 +503,13 @@ def phase_column_topk_kernel(column_topk, dbench2, device) -> dict:
     plain_ms = cuda_ms(lambda: column_topk.column_topk_plain(x), reps=3,
                        rounds=3)
     bound = column_topk_bound(n, h, w)
+    plan = column_topk_c_plan(column_topk, kernels, (n, h, w), device)
     row = {
         "name": column_topk.KERNEL, "route": "cuda",
-        "design": "block per map, thread per column, map staged by "
-                  "cp.async, sorted top-8 in registers",
+        "design": "persistent blocks, 64-row tiles in a ring of two by "
+                  "bulk copy, warps find 16-row strips' peaks in bf16x2 "
+                  "as bit masks, a thread per column inserts only the "
+                  "peaks into a keyed top-8",
         "source": "multiposenet_tpu_torch/csrc/column_topk.cu",
         "replaces": "benchmarks/ab/dbench2.py:37",
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
@@ -500,7 +520,9 @@ def phase_column_topk_kernel(column_topk, dbench2, device) -> dict:
           "dtype": "bfloat16", "inputs": sorted(inputs),
           "exact_column0": True, "exact_every_column": True,
           "max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "design": row["design"], **bound})
+          "share_of_bound": bound["bound_ms"] / kernel_ms,
+          "design": row["design"], "launch_plan": plan,
+          "ptxas": ptxas.get(column_topk.KERNEL), **bound})
     return row
 
 
@@ -1221,7 +1243,8 @@ def main() -> int:
             phase_decode_lanes_kernel(decode, Config.crowd().decode, device),
             phase_decode_generic_kernel(decode, Config.fast().decode, device),
             phase_tail_kernel(kp_tail, layers, device),
-            phase_column_topk_kernel(column_topk, dbench2, device)]
+            phase_column_topk_kernel(column_topk, dbench2, kernels,
+                                     device, ptxas)]
     phase_parity_f32(Config, MultiPoseNet, folding, kp_tail, kernels,
                      image_ops, device)
     # Each path's launches, counted from 0 just before it runs.

@@ -30,6 +30,51 @@ KERNEL = "column_topk"
 TOP = 8                 # peaks per column
 MAX_WIDTH = 1024        # csrc/column_topk.cu: a thread per column
 MAX_ROWS = 2 ** 27      # packed rows row * 16 + 5 fit int32
+# csrc/column_topk.cu's launch plan: its constants (the names after `k`
+# there) and the order of the fields `column_topk_plan` returns (struct
+# Plan).
+PLAN_FIELDS = ("fast", "threads", "chunk_rows", "chunks", "pitch",
+               "smem_bytes", "blocks_per_sm", "grid")
+STRIP = 16              # rows per peak mask
+STAGES = 2              # tiles staged at once
+CHUNK_BYTES = 32768     # off the fast path: a tile's rows
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK = 1024   # reserved by the runtime
+FAST_SIZE = 128         # the fast path's H and W
+FAST_CHUNK = 64
+FAST_THREADS = 128
+FAST_REGS = 80
+GENERIC_REGS = 64
+H100_SMS = 132
+
+
+def launch_plan(n: int, h: int, w: int, sms: int = H100_SMS) -> dict:
+    """The launch plan csrc/column_topk.cu (`make_plan`) takes for n maps
+    of h x w on a card of `sms` SMs: 128x128 maps take the fast
+    instantiation (tiles of 64 rows, 128 threads, at most 80 registers);
+    other sizes a thread per column (at least 128, at most 64 registers)
+    and tiles of about 32 KB of rows, a multiple of 16. Each tile is staged
+    with a halo row above and below, in a ring of STAGES (the next tile
+    loads while this one is walked), beside a 16-bit peak mask per strip
+    of 16 rows and column. The grid is persistent: as many blocks as fit
+    on the SMs by registers, threads and shared memory, at most n."""
+    fast = h == FAST_SIZE and w == FAST_SIZE
+    pitch = -(-w // 8) * 8
+    threads = FAST_THREADS if fast else max(128, -(-w // 32) * 32)
+    if fast:
+        chunk_rows = FAST_CHUNK
+    else:
+        fit = CHUNK_BYTES // (2 * pitch) // STRIP * STRIP
+        chunk_rows = max(STRIP, min(fit, -(-h // STRIP) * STRIP))
+    smem = (STAGES * (chunk_rows + 2) * pitch * 2
+            + chunk_rows // STRIP * pitch * 2)
+    regs = FAST_REGS if fast else GENERIC_REGS
+    blocks_per_sm = min(65536 // (threads * regs), 2048 // threads,
+                        SMEM_PER_SM // (smem + SMEM_PER_BLOCK), 32)
+    return {"fast": int(fast), "threads": threads, "chunk_rows": chunk_rows,
+            "chunks": -(-h // chunk_rows), "pitch": pitch,
+            "smem_bytes": smem, "blocks_per_sm": blocks_per_sm,
+            "grid": min(n, sms * blocks_per_sm)}
 
 
 def column_topk_plain(
@@ -85,27 +130,29 @@ def _check(x: torch.Tensor, columns_out) -> None:
             f"{[(tuple(t.shape), t.dtype) for t in columns_out]}")
 
 
-def launch_cuda(
-    x: torch.Tensor,
-    columns_out: tuple[torch.Tensor, torch.Tensor] | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Check x [N, H, W] (and columns_out), then build csrc/column_topk.cu
-    on first use, launch its C entry point `column_topk` and count the
-    launch; raises on a refusal or a launch error."""
+def _check_cuda(x: torch.Tensor, columns_out) -> None:
+    """_check, and all tensors on x's CUDA device."""
     _check(x, columns_out)
     tensors = (x, *(columns_out or ()))
     if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError("column_topk kernel takes tensors on one CUDA "
                          "device")
+
+
+def _launch(x: torch.Tensor, lib: ctypes.CDLL, columns_out
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the C entry point `column_topk` of `lib` on checked tensors;
+    raises on a refusal or a launch error."""
     n, h, w = x.shape
-    fn = kernels.load(KERNEL).column_topk
+    fn = lib.column_topk
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    scores = torch.empty((n, TOP), dtype=torch.float32, device=x.device)
-    rows = torch.empty((n, TOP), dtype=torch.int32, device=x.device)
+    # One allocation: the scores are the first plane's bits as float32.
+    out = torch.empty((2, n, TOP), dtype=torch.int32, device=x.device)
+    scores, rows = out[0].view(torch.float32), out[1]
     cols = [t.data_ptr() for t in columns_out] if columns_out else [None] * 2
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -113,8 +160,31 @@ def launch_cuda(
                   *cols, stream)
     if code != 0:
         raise RuntimeError(f"column_topk launch failed: CUDA error {code}")
-    kernels.count_launch(KERNEL)
     return scores, rows
+
+
+def launch_build(
+    x: torch.Tensor, lib: ctypes.CDLL,
+    columns_out: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Check x [N, H, W] (and columns_out), then launch a build `lib` of
+    csrc/column_topk.cu (a profiled one, say) without counting the launch;
+    raises on a refusal or a launch error."""
+    _check_cuda(x, columns_out)
+    return _launch(x, lib, columns_out)
+
+
+def launch_cuda(
+    x: torch.Tensor,
+    columns_out: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Check x [N, H, W] (and columns_out), then build csrc/column_topk.cu
+    on first use, launch its C entry point `column_topk` and count the
+    launch; raises on a refusal or a launch error."""
+    _check_cuda(x, columns_out)
+    out = _launch(x, kernels.load(KERNEL), columns_out)
+    kernels.count_launch(KERNEL)
+    return out
 
 
 def column_topk(

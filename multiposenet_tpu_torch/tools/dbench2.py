@@ -7,7 +7,8 @@ heatmap decode of Config.fast() (`ops/decode.py decode_maps`,
 `csrc/decode_peaks.cu`), as the two scripts time them: one warm-up call,
 then 3 rounds of 20 calls, each round timed by the host clock around a
 synchronize. Prints one JSON line with each round's mean time per call,
-the card's name and power limit, and B4's bound.
+on the card also on its clock (CUDA events around the same calls), the
+card's name and power limit, and B4's bound.
 
     python -m multiposenet_tpu_torch.tools.dbench2 [--device cpu] [--maps N]
 
@@ -67,20 +68,32 @@ def card_name() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def host_rounds_ms(fn, sync) -> tuple[list[float], object]:
+def host_rounds_ms(fn, sync, events: bool = False
+                   ) -> tuple[list[float], list[float] | None, object]:
     """WARMUP calls, then ROUNDS rounds of REPS calls: each round's mean ms
-    per call on the host clock around `sync`, and the last call's result."""
+    per call on the host clock around `sync`, with `events` also on the
+    card's clock (CUDA events recorded around the same calls, so no extra
+    launch; they count the card's idle time between calls too, where the
+    host issues slower than the kernel runs), and the last call's result."""
     for _ in range(WARMUP):
         out = fn()
     sync()
-    rounds = []
+    rounds, event_rounds = [], [] if events else None
     for _ in range(ROUNDS):
+        if events:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
         t0 = time.perf_counter()
         for _ in range(REPS):
             out = fn()
+        if events:
+            end.record()
         sync()
         rounds.append((time.perf_counter() - t0) / REPS * 1e3)
-    return rounds, out
+        if events:
+            event_rounds.append(start.elapsed_time(end) / REPS)
+    return rounds, event_rounds, out
 
 
 def run(device=None, maps: int = N_MAPS
@@ -99,8 +112,10 @@ def run(device=None, maps: int = N_MAPS
     x = make_maps(maps, device)
     cfg = Config.fast().decode
     hm = x.view(1, maps, H, W)
-    b4_rounds, out = host_rounds_ms(lambda: column_topk.column_topk(x), sync)
-    b1_rounds, _ = host_rounds_ms(lambda: decode.decode_maps(hm, cfg), sync)
+    b4_rounds, b4_events, out = host_rounds_ms(
+        lambda: column_topk.column_topk(x), sync, on_card)
+    b1_rounds, b1_events, _ = host_rounds_ms(
+        lambda: decode.decode_maps(hm, cfg), sync, on_card)
     ran = "kernel" if on_card else "plain PyTorch version on the CPU"
     summary = {
         "tool": "dbench2", "device": str(device),
@@ -109,10 +124,11 @@ def run(device=None, maps: int = N_MAPS
         "timing": f"host clock around synchronize; {WARMUP} warm-up call, "
                   f"{ROUNDS} rounds of {REPS} calls, ms per call",
         "column_topk": {"ran": ran, "rounds_ms": b4_rounds,
-                        "ms": min(b4_rounds),
+                        "ms": min(b4_rounds), "event_rounds_ms": b4_events,
                         **column_topk_bound(maps, H, W)},
         "decode_peaks": {"ran": ran, "config": "Config.fast().decode",
-                         "rounds_ms": b1_rounds, "ms": min(b1_rounds)},
+                         "rounds_ms": b1_rounds, "ms": min(b1_rounds),
+                         "event_rounds_ms": b1_events},
     }
     return summary, out
 

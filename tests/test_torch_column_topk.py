@@ -254,3 +254,97 @@ def test_dbench2_run_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dbench2.run()
+
+
+# The card tests' shapes (tests/test_torch_cuda.py), where launch_plan's
+# tiles are checked.
+CARD_SHAPES = ((2176, 128, 128), (1, 128, 128), (793, 128, 128),
+               (4, 1, 128), (4, 128, 1), (4, 127, 128), (4, 128, 130),
+               (3, 128, 256), (2, 20, 1024), (3, 31, 128), (3, 33, 128),
+               (3, 65, 96), (2, 4097, 128), (2, 7, 200), (5, 9, 1),
+               (1, 1, 1), (1, 300, 1024))
+
+
+def _plan_tiles(n: int, h: int, w: int):
+    """The kernel's tiles under launch_plan, in the order each block walks
+    them (csrc/column_topk.cu: block b takes maps b, b + grid, ..., each
+    in tiles of chunk_rows rows): (block, map, first row, rows, halo row
+    above, halo row below), the halos -1 or h outside the map."""
+    plan = column_topk.launch_plan(n, h, w)
+    ch, grid = plan["chunk_rows"], plan["grid"]
+    for block in range(grid):
+        for m in range(block, n, grid):
+            for r0 in range(0, h, ch):
+                rows = min(ch, h - r0)
+                yield block, m, r0, rows, r0 - 1, r0 + rows
+
+
+@pytest.mark.parametrize("shape", CARD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_launch_plan_covers_every_row_once(shape):
+    """Every row of every map lies in exactly one tile, walked by one
+    block in row order, with the halo rows just above and below it; the
+    plan fits the card (threads, shared memory, one block an SM at
+    least) and never has more blocks than maps."""
+    n, h, w = shape
+    plan = column_topk.launch_plan(n, h, w)
+    assert plan["fast"] == (h == w == 128)
+    assert plan["threads"] % 32 == 0 and w <= plan["threads"] <= 1024
+    assert plan["pitch"] % 8 == 0 and w <= plan["pitch"] < w + 8
+    assert plan["chunk_rows"] % column_topk.STRIP == 0
+    assert plan["smem_bytes"] + 1024 <= 232448
+    assert plan["blocks_per_sm"] >= 1 and 1 <= plan["grid"] <= n
+    seen = {}
+    block_of = {}
+    for block, m, r0, rows, above, below in _plan_tiles(n, h, w):
+        assert 1 <= rows <= plan["chunk_rows"]
+        assert (above, below) == (r0 - 1, r0 + rows)
+        assert block_of.setdefault(m, block) == block
+        assert seen.get(m, 0) == r0  # the map's tiles in row order
+        seen[m] = r0 + rows
+    assert seen == {m: h for m in range(n)}
+    assert len(set(block_of.values())) == plan["grid"]
+
+
+def test_launch_plan_at_the_micro_benchmark_shape():
+    """2176 maps of 128²: tiles of 64 rows (two a map), 128 threads, 34 KB
+    of shared memory, 6 blocks on each of 132 SMs: 792 blocks, each
+    taking 2 or 3 maps."""
+    assert column_topk.launch_plan(2176, 128, 128) == {
+        "fast": 1, "threads": 128, "chunk_rows": 64, "chunks": 2,
+        "pitch": 128, "smem_bytes": 34816, "blocks_per_sm": 6, "grid": 792}
+
+
+def test_phases_tool_refuses_without_cuda(monkeypatch, capsys):
+    from multiposenet_tpu_torch.tools import column_topk_phases
+    monkeypatch.setattr(kernels, "nvcc_path", pytest.fail)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert column_topk_phases.main([]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_phases_tool_matches_the_marks_in_the_source():
+    """The tool's PHASES are the source's `enum Phase`, in order, and the
+    kernel marks every one of them."""
+    import re
+    from multiposenet_tpu_torch.tools import column_topk_phases
+    text = (kernels.CSRC / "column_topk.cu").read_text()
+    enum = re.search(r"enum Phase \{([^}]*)\}", text).group(1)
+    names = [s.strip() for s in enum.split(",")]
+    assert names[-1] == "kPhases"
+    assert tuple(names[:-1]) == column_topk_phases.PHASES
+    marked = set(re.findall(r"CT_MARK\((\w+)\);", text))
+    assert marked == set(column_topk_phases.PHASES)
+
+
+def test_launch_plan_constants_match_the_source():
+    """launch_plan's constants are those of csrc/column_topk.cu, read as
+    text (`constexpr int kName = value;`, kFastSize as FAST_SIZE)."""
+    import re
+    text = (kernels.CSRC / "column_topk.cu").read_text()
+    consts = dict(re.findall(r"constexpr int k(\w+) = (\d+);", text))
+    for name in ("STRIP", "STAGES", "CHUNK_BYTES", "SMEM_PER_SM",
+                 "SMEM_PER_BLOCK", "FAST_SIZE", "FAST_CHUNK", "FAST_THREADS",
+                 "FAST_REGS", "GENERIC_REGS"):
+        camel = "".join(p.capitalize() for p in name.lower().split("_"))
+        assert int(consts[camel]) == getattr(column_topk, name), name

@@ -712,6 +712,70 @@ def test_column_topk_special_inputs(cuda_device, case):
     _assert_column_topk_equals_plain(x)
 
 
+@pytest.mark.parametrize("shape", [
+    (3, 31, 128),       # H not a multiple of the 16-row strip
+    (3, 33, 128),
+    (3, 65, 96),
+    (2, 4097, 128),     # a tall map: 33 tiles of 128 rows
+    (2, 7, 200),        # H smaller than one strip, two warps of columns
+    (1, 128, 128),      # N = 1 on the fast path
+    (793, 128, 128),    # one map more than the persistent grid of 792
+    (1, 300, 1024),     # N = 1, the widest, 19 tiles of 16 rows
+], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", sorted(MAKERS))
+def test_column_topk_bands_match_plain(cuda_device, shape, kind):
+    """The redesign's tiles and 16-row strips at their edges: heights off
+    the strip, a map shorter than a strip, many tiles, one map, and a map
+    count one past the grid."""
+    _assert_column_topk_equals_plain(
+        _column_maps(kind, shape, sum(shape) + 1).to(cuda_device))
+
+
+def _strip_edge_maps(case: str, device) -> torch.Tensor:
+    """[6, 128, 128] bf16 maps (the fast path: tiles of 64 rows, strips of
+    16) built around the strips' and tiles' edges."""
+    rng = np.random.RandomState(5)
+    x = 0.5 * rng.rand(6, 128, 128).astype(np.float32)
+    if case == "plateau_across_strips":
+        # Equal values over rows 14..17 and 61..66 (across a strip edge
+        # and the tile edge at 64): every row a peak, ties to the lower.
+        x[:, 14:18, 10:20] = 0.875
+        x[:, 61:67, 40:52] = 0.9375
+        x[:, 60:68, 100] = 0.9375  # one column: 8 equal peaks over 2 tiles
+    elif case == "best_in_last_strip":
+        # Every column's 8 best peaks lie in rows 112..127: even rows
+        # there hold one value a row across all columns, above the rest.
+        x[:, 112:128] = 0.0
+        for r in range(112, 128, 2):
+            x[:, r] = 0.75 + r / 1024
+    else:  # nan_on_halo: NaNs on rows other strips and tiles read as halo
+        for r in (15, 16, 63, 64, 127):
+            x[:, r, rng.randint(0, 128, 12)] = np.nan
+    return torch.from_numpy(x).to(torch.bfloat16).to(device)
+
+
+@pytest.mark.parametrize("case", ["plateau_across_strips",
+                                  "best_in_last_strip", "nan_on_halo"])
+def test_column_topk_strip_edges(cuda_device, case):
+    _assert_column_topk_equals_plain(_strip_edge_maps(case, cuda_device))
+
+
+def test_column_topk_plan_matches_launch_plan(cuda_device):
+    """The plan the C entry point launches equals ops/column_topk.py
+    launch_plan's (which the CPU tests check), at the card tests' shapes
+    and this card's SM count."""
+    import ctypes
+    lib = kernels.load(column_topk.KERNEL)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    out = (ctypes.c_int * len(column_topk.PLAN_FIELDS))()
+    for shape in [(2176, 128, 128), (1, 128, 128), (793, 128, 128),
+                  (4, 1, 128), (4, 128, 1), (4, 128, 130), (2, 20, 1024),
+                  (2, 4097, 128), (2, 7, 200), (1, 300, 1024)]:
+        assert lib.column_topk_plan(*shape, 0, out) == 0
+        assert (dict(zip(column_topk.PLAN_FIELDS, out))
+                == column_topk.launch_plan(*shape, sms)), shape
+
+
 @pytest.mark.parametrize("case", ["dtype", "width", "device"])
 def test_column_topk_refuses_on_card(cuda_device, case):
     """f32 maps, maps wider than 1024 and columns_out on the CPU are
