@@ -147,6 +147,66 @@ def compare_raw(got, want, threshold: float,
     return err, int((w_scores > threshold).sum())
 
 
+def nan_maps(n: int, h: int, w: int, device, frac: float = 0.003,
+             dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The test maps with a seeded `frac` of their elements set to NaN, as
+    a diverged model's heatmaps hold them."""
+    maps = test_maps(n, h, w, device, torch.float32)
+    g = torch.Generator(device=device).manual_seed(1)
+    maps[torch.rand(maps.shape, generator=g, device=device) < frac] = \
+        float("nan")
+    return maps.to(dtype)
+
+
+def compare_nan(got, want, what: str) -> int:
+    """Kernel vs plain (scores, ys, xs) on maps that hold NaNs, bit for bit
+    where a NaN must be NaN in both (equal_nan; a NaN's bits may differ).
+    Returns the number of NaN positions."""
+    for a, b in zip(got, want):
+        if not (torch.equal(a.isnan(), b.isnan())
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))):
+            raise AssertionError(f"{what} disagrees with its reference on "
+                                 "NaN maps")
+    return int(want[1].isnan().sum() + want[2].isnan().sum())
+
+
+def graph_ms(fn, reps: int, rounds: int) -> float:
+    """The device time of one call of fn: `reps` calls captured in a CUDA
+    graph, replayed `rounds` times between CUDA events (median per call),
+    so the host's work per call does not set the time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int) -> float:
+    """The host's time per call of fn, on the host clock, calls back to
+    back (the device may still run when the loop ends)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def decode_bound(n: int, h: int, w: int, p: int, n_taps: int,
                  elem_bytes: int, window: int = 3) -> dict:
     """The least time of a decode kernel (B1, B2 or the generic one) on n
@@ -203,6 +263,12 @@ def phase_decode_kernel(decode, kernels, cfg, device) -> dict:
     bound = decode_bound(n, h, w, p, len(decode.smoothing_taps(cfg)),
                          maps.element_size())
     f32 = phase_decode_f32(decode, cfg, device)
+    nan = nan_maps(2 * 17, h, w, device)
+    if decode.route(nan.view(2, 17, h, w), cfg) != decode.KERNEL:
+        raise AssertionError("decode_kernel: NaN maps routed elsewhere")
+    nan_positions = compare_nan(decode.decode_maps(nan.view(2, 17, h, w), cfg),
+                                decode.decode_maps_plain(nan, cfg),
+                                "decode kernel (NaN maps)")
     row = {
         "name": decode.KERNEL, "route": "cuda",
         "design": "warp per map (8 row bands when few), cp.async row ring, "
@@ -220,7 +286,8 @@ def phase_decode_kernel(decode, kernels, cfg, device) -> dict:
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "batch1_maps": [1, 17, h, w], "batch1_exact": True,
           "batch1_kernel_ms": batch1_ms, "design": row["design"], **bound,
-          "float32": f32})
+          "float32": f32, "nan_maps": [2, 17, h, w], "nan_exact": True,
+          "nan_positions": nan_positions})
     return row
 
 
@@ -247,16 +314,56 @@ def phase_decode_f32(decode, cfg, device) -> dict:
                                 reps=3, rounds=3), **bound}
 
 
-def phase_decode_generic_kernel(decode, cfg, device) -> dict:
+GENERIC_DESIGN = ("tiles of a map across a cluster of up to 8 blocks, "
+                  "blur and separable max.NaN window max in shared memory, "
+                  "marked peaks into per-thread top-P key lists merged per "
+                  "warp, block and cluster (DSMEM); rounds of 32 above P = "
+                  "32; a block per map through a workspace for taps or "
+                  "windows too wide for shared memory")
+
+
+def generic_c_plan(decode, kernels, n_maps: int, h: int, w: int, cfg,
+                   device) -> dict:
+    """The launch plan the generic kernel's C entry point takes on this
+    card, held against ops/decode.py generic_launch_plan."""
+    import ctypes
+    fn = kernels.load(decode.GENERIC_KERNEL).decode_generic_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    out = (ctypes.c_int * len(decode.GENERIC_PLAN_FIELDS))()
+    args = (n_maps, h, w, len(decode.smoothing_taps(cfg)), cfg.nms_window,
+            cfg.max_peaks_per_channel)
+    if fn(*args, 0, out):
+        raise RuntimeError(f"decode_generic_plan refused {args}")
+    plan = dict(zip(decode.GENERIC_PLAN_FIELDS, out))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if plan != decode.generic_launch_plan(*args, sms):
+        raise AssertionError(f"decode_generic: the C plan {plan} is not "
+                             "generic_launch_plan's")
+    return plan
+
+
+def phase_decode_generic_kernel(decode, kernels, cfg, device,
+                                ptxas: dict) -> dict:
     """The generic decode kernel on what B1 and B2 do not take: a 5x5 peak
-    window on 1088 test maps of 128² (64 images of 17), and 20 peaks on
-    maps 600 wide (as a 2400-pixel image gives). Bit for bit against the
-    plain version and timed; the bound and the row are those of the first
-    shape."""
+    window on 1088 test maps of 128² (64 images of 17) and on one
+    `predict` request's 17 maps, and 20 peaks on maps 600 wide (as a
+    2400-pixel image gives). Bit for bit against the plain version and
+    timed (CUDA events around back-to-back calls); the request also by a
+    CUDA graph of the calls (the kernel without the host's work) and on
+    the host clock per call (the wrapper's work). Then NaN maps at windows
+    1 and 5, equal with NaN where the plain version has NaN. Each case
+    with the C launch plan, held to generic_launch_plan. The bound and the
+    row are those of the first shape; decode_bound counts window² an
+    element for a direct window max, which the kernel takes separably
+    (2 x window)."""
     cases = {"window5": ((64, 17, 128, 128), dataclasses.replace(
                  cfg, nms_window=5)),
              "peaks20_width600": ((4, 17, 160, 600), dataclasses.replace(
-                 cfg, max_peaks_per_channel=20))}
+                 cfg, max_peaks_per_channel=20)),
+             "request_window5": ((1, 17, 128, 128), dataclasses.replace(
+                 cfg, nms_window=5))}
     out, err = {}, 0.0
     for name, ((b, k, h, w), c) in cases.items():
         maps = test_maps(b * k, h, w, device)
@@ -267,20 +374,37 @@ def phase_decode_generic_kernel(decode, cfg, device) -> dict:
                                  decode.decode_maps_plain(maps, c),
                                  c.score_threshold, f"decode_generic {name}")
         err = max(err, e)
+        request = b == 1
         out[name] = {
             "maps": [b, k, h, w], "config": dataclasses.asdict(c),
             "exact": True, "valid_slots": n_valid,
-            "kernel_ms": cuda_ms(lambda: decode.decode_maps(x, c), reps=3,
-                                 rounds=3),
+            "launch_plan": generic_c_plan(decode, kernels, b * k, h, w, c,
+                                          device),
+            "kernel_ms": cuda_ms(lambda: decode.decode_maps(x, c),
+                                 reps=50 if request else 3,
+                                 rounds=5 if request else 3),
             "plain_ms": cuda_ms(lambda: decode.decode_maps_plain(maps, c),
                                 reps=1, rounds=3),
             **decode_bound(b * k, h, w, c.max_peaks_per_channel,
                            len(decode.smoothing_taps(c)),
                            maps.element_size(), c.nms_window)}
+        if request:
+            out[name]["graph_kernel_ms"] = graph_ms(
+                lambda: decode.launch_generic_cuda(x, c), reps=50, rounds=5)
+            out[name]["host_ms_per_call"] = host_ms(
+                lambda: decode.decode_maps(x, c), reps=200)
+    nan = {}
+    for window in (1, 5):
+        c = dataclasses.replace(cfg, nms_window=window)
+        maps = nan_maps(2 * 17, 128, 128, device)
+        nan[f"window{window}"] = compare_nan(
+            decode.decode_maps(maps.view(2, 17, 128, 128), c),
+            decode.decode_maps_plain(maps, c),
+            f"decode_generic (NaN maps, window {window})")
     first = out["window5"]
     row = {
         "name": decode.GENERIC_KERNEL, "route": "cuda",
-        "design": "block per map, f32 workspace, P rounds of a block max",
+        "design": GENERIC_DESIGN,
         "source": "multiposenet_tpu_torch/csrc/decode_generic.cu",
         "replaces": "multiposenet_tpu/ops/decode.py:164 (jnp decode, no "
                     "Pallas kernel)",
@@ -288,9 +412,14 @@ def phase_decode_generic_kernel(decode, cfg, device) -> dict:
         "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
         "bound_by": first["bound_by"], "library_ms": None,
         "held_against_plain": True,
+        "request_ms": out["request_window5"]["graph_kernel_ms"],
     }
     emit({"phase": "decode_generic_kernel", "dtype": "bfloat16",
-          "max_abs_err": err, "cases": out, "design": row["design"]})
+          "max_abs_err": err, "cases": out, "nan_maps": [2, 17, 128, 128],
+          "nan_exact": True, "nan_positions": nan, "design": GENERIC_DESIGN,
+          "window_max": "separable (rows, then columns); decode_bound "
+                        "counts window² a direct window max takes",
+          "ptxas": ptxas.get(decode.GENERIC_KERNEL)})
     return row
 
 
@@ -425,6 +554,14 @@ def phase_decode_lanes_kernel(decode, cfg, device) -> dict:
                                   reps=50, rounds=5)
     plain_ms = cuda_ms(lambda: decode.decode_maps_plain(maps, cfg), reps=3,
                        rounds=3)
+    nan = nan_maps(2 * 17, h, w, device)
+    nan_want = decode.decode_maps_plain(nan, cfg)
+    for name, x in layouts(nan.view(2, 17, h, w)).items():
+        if decode.route(x, cfg, lanes=True) != decode.LANES_KERNEL:
+            raise AssertionError(f"decode_lanes: NaN maps ({name}) routed "
+                                 "elsewhere")
+        compare_nan(decode.decode_maps_lanes(x, cfg), nan_want,
+                    f"lanes decode ({name}, NaN maps)")
     bound = decode_bound(n, h, w, cfg.max_peaks_per_channel,
                          len(decode.smoothing_taps(cfg)), maps.element_size())
     row = {
@@ -445,7 +582,9 @@ def phase_decode_lanes_kernel(decode, cfg, device) -> dict:
           "exact_vs_decode_peaks": True, "valid_slots": n_valid,
           "max_abs_err": err, "kernel_ms": ms, "batch1_maps": [1, 17, h, w],
           "batch1_exact": True, "batch1_kernel_ms": batch1_ms,
-          "plain_ms": plain_ms, "design": row["design"], **bound})
+          "plain_ms": plain_ms, "design": row["design"],
+          "nan_maps": [2, 17, h, w], "nan_exact_by_layout": sorted(
+              layouts(cm)), **bound})
     return row
 
 
@@ -1241,7 +1380,8 @@ def main() -> int:
 
     rows = [phase_decode_kernel(decode, kernels, Config.fast().decode, device),
             phase_decode_lanes_kernel(decode, Config.crowd().decode, device),
-            phase_decode_generic_kernel(decode, Config.fast().decode, device),
+            phase_decode_generic_kernel(decode, kernels, Config.fast().decode,
+                                        device, ptxas),
             phase_tail_kernel(kp_tail, layers, device),
             phase_column_topk_kernel(column_topk, dbench2, kernels,
                                      device, ptxas)]

@@ -12,7 +12,9 @@
 // so nvcc cannot fuse them into FMAs, and the result agrees bit for bit
 // with the plain PyTorch version (ops/decode.py decode_maps_plain). A tap
 // that falls outside the map adds a zero product, which leaves the sum
-// unchanged, as the plain version's zero padding does.
+// unchanged, as the plain version's zero padding does. NaN propagates as
+// in the JAX package: the window max is max.NaN (a window holding a NaN
+// has no peak), and a NaN difference of neighbours gives a NaN step.
 //
 // Bound on the card: the kernel must read each map once (2176 bf16 maps
 // of 128x128 are 71.3 MB, 21 us at 3.35 TB/s) and do 37 f32 operations
@@ -157,8 +159,25 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
   return v;
 }
 
-__device__ __forceinline__ int sign_of(float d) {
-  return d > 0.f ? 1 : (d < 0.f ? -1 : 0);
+// The sub-pixel step's sign of d as a 2-bit code: 0, 1, 2 for -1, 0, +1
+// and 3 for NaN, which jnp.sign keeps (ops/decode.py decode_maps_plain
+// too). A key's low 4 bits hold sign_code(dy) * 4 + sign_code(dx).
+__device__ __forceinline__ unsigned int sign_code(float d) {
+  return d > 0.f ? 2u : (d < 0.f ? 0u : (d == 0.f ? 1u : 3u));
+}
+
+// The step of one axis from its 2-bit code: -shift, 0, +shift or NaN.
+__device__ __forceinline__ float step_of(unsigned int code, float shift) {
+  return code == 3u ? __int_as_float(0x7fffffff)
+                    : __fmul_rn(static_cast<float>(static_cast<int>(code) - 1),
+                                shift);
+}
+
+// max that propagates NaN, as max_pool2d and lax.max do (fmaxf drops it).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 // P rounds of a max over the lanes' sorted lists; the lane holding the
@@ -364,9 +383,9 @@ __device__ __forceinline__ unsigned long long decode_band(
     float vma[C], vmb[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const float t = fmaxf(sc[c], s0[c]);
-      vma[c] = fmaxf(sp[c], t);
-      vmb[c] = fmaxf(t, s1[c]);
+      const float t = max_nan(sc[c], s0[c]);
+      vma[c] = max_nan(sp[c], t);
+      vmb[c] = max_nan(t, s1[c]);
     }
     float vla = __shfl_up_sync(0xffffffffu, vma[C - 1], 1);
     float vra = __shfl_down_sync(0xffffffffu, vma[0], 1);
@@ -388,10 +407,10 @@ __device__ __forceinline__ unsigned long long decode_band(
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const bool col = WT > 0 || x0 + c < W;
-      const float ma = fmaxf(fmaxf(c > 0 ? vma[c - 1] : vla, vma[c]),
-                             c + 1 < C ? vma[c + 1] : vra);
-      const float mb = fmaxf(fmaxf(c > 0 ? vmb[c - 1] : vlb, vmb[c]),
-                             c + 1 < C ? vmb[c + 1] : vrb);
+      const float ma = max_nan(max_nan(c > 0 ? vma[c - 1] : vla, vma[c]),
+                               c + 1 < C ? vma[c + 1] : vra);
+      const float mb = max_nan(max_nan(c > 0 ? vmb[c - 1] : vlb, vmb[c]),
+                               c + 1 < C ? vmb[c + 1] : vrb);
       key[c] = (static_cast<unsigned long long>(
                     value_bits(sc[c] >= ma ? sc[c] : -INFINITY)) << 32) |
                (lo_a - (static_cast<unsigned int>(c) << 4));
@@ -422,10 +441,10 @@ __device__ __forceinline__ unsigned long long decode_band(
                         : (row_b ? crb : cra);
         const float above = r > 0 ? (row_b ? sc[c] : sp[c]) : v;
         const float below = r + 1 < H ? (row_b ? s1[c] : s0[c]) : v;
-        const int sy = sign_of(__fsub_rn(below, above));
-        const int sx = sign_of(__fsub_rn(right, left));
+        const unsigned int sy = sign_code(__fsub_rn(below, above));
+        const unsigned int sx = sign_code(__fsub_rn(right, left));
         best[P - 1] =
-            key[e] | static_cast<unsigned int>((sy + 1) * 3 + sx + 1);
+            key[e] | (sy << 2 | sx);
 #pragma unroll
         for (int j = P - 1; j > 0; --j) {
           if (best[j] > best[j - 1]) {
@@ -562,11 +581,10 @@ __device__ __forceinline__ void store_peaks(unsigned long long mine,
   if (lane < p) {
     const unsigned int lo = static_cast<unsigned int>(mine & 0xffffffffull);
     const int flat = static_cast<int>(FLAT_MASK - (lo >> 4));
-    const int code = static_cast<int>(lo & 15u);
     const int y = flat / W;
     const int x = flat - y * W;
-    const float dy = __fmul_rn(static_cast<float>(code / 3 - 1), shift);
-    const float dx = __fmul_rn(static_cast<float>(code % 3 - 1), shift);
+    const float dy = step_of(lo >> 2 & 3u, shift);
+    const float dx = step_of(lo & 3u, shift);
     const long long o = n * p + lane;
     scores[o] = key_value(mine);
     ys[o] = __fadd_rn(static_cast<float>(y), dy);

@@ -11,15 +11,19 @@ Counterpart of `multiposenet_tpu/ops/decode.py` (the jnp reference) and
     ascending (`lax.top_k`'s order); fewer than P peaks leave -inf slots;
   * the sub-pixel shift is ±`subpixel_shift` toward the larger of two
     border-clipped neighbours, per axis;
-  * `valid = score > score_threshold`, and invalid scores are zeroed.
+  * `valid = score > score_threshold`, and invalid scores are zeroed;
+  * NaN propagates as in the JAX package: a window that holds a NaN has a
+    NaN max, so its centre is no peak, and a NaN neighbour makes the
+    sub-pixel step NaN.
 
 `decode_maps` is the one entry point to the work: on a CPU tensor it runs
 the plain PyTorch version `decode_maps_plain`; on a CUDA tensor it
 launches a hand-written kernel, chosen by `route` from the config and the
 shape before anything is built: `csrc/decode_peaks.cu` (B1) where B1
 takes the input, else `csrc/decode_generic.cu`, which takes every config
-the plain version takes. `decode_maps_lanes` computes the same function
-with the maps-on-lanes kernel `csrc/decode_lanes.cu` (B2), which reads
+the plain version takes (its launch plan is `generic_launch_plan`).
+`decode_maps_lanes` computes the same function with the maps-on-lanes
+kernel `csrc/decode_lanes.cu` (B2), which reads
 [B, K, H, W] through any strides (channel-major and channels-last are its
 fast layouts), or with the generic kernel where B2 does not take the
 input. `DECODE_LANES` selects it at the predictor's channel-major decode,
@@ -50,6 +54,22 @@ MAX_TAPS = 15           # csrc/decode_rows.cuh MAX_TAPS
 # B1 and B2 give a lane at most 16 columns of a 32-lane warp.
 MAX_MAP_ELEMENTS = 2 ** 28 - 1
 MAX_WIDTH = 512
+# csrc/decode_generic.cu's launch plan: its constants (the names after `k`
+# there) and the order of the fields `decode_generic_plan` returns (struct
+# Plan).
+GENERIC_PLAN_FIELDS = ("path", "tile_rows", "tile_cols", "row_tiles",
+                       "col_tiles", "cluster", "grid", "cap", "rounds",
+                       "smem_bytes")
+MAX_CLUSTER = 8
+CTAS_PER_SM = 16
+TILE_COLS = 128
+TILE_ELEMS = 4096
+TILE_ELEMS_LONG = 8192
+MAX_DYN_SMEM = 228352
+MAX_CLUSTERS = 2 ** 26
+LIST_SHORT = 8
+LIST_LONG = 32
+H100_SMS = 132
 
 # Decode the predictor's channel-major heatmaps with the maps-on-lanes
 # kernel (the JAX package's decode_pallas.DECODE_LANES).
@@ -140,10 +160,73 @@ def decode_maps_plain(
         return torch.gather(flat, 1, yy.clamp(0, h - 1) * w
                             + xx.clamp(0, w - 1))
 
+    def sign(d):  # jnp.sign's: NaN stays NaN (torch.sign gives 0)
+        return torch.where(d.isnan(), d, torch.sign(d))
+
     shift = float(config.subpixel_shift)
-    dy = torch.sign(at(y + 1, x) - at(y - 1, x)) * shift
-    dx = torch.sign(at(y, x + 1) - at(y, x - 1)) * shift
+    dy = sign(at(y + 1, x) - at(y - 1, x)) * shift
+    dx = sign(at(y, x + 1) - at(y, x - 1)) * shift
     return scores, y.float() + dy, x.float() + dx
+
+
+def _tile_smem(th: int, tw: int, n_taps: int, window: int) -> int:
+    """Dynamic shared memory of a th x tw tile of the generic kernel: the
+    taps, the raw region with its halos (then the blurred one) and the
+    vertical pass (then the row max), f32, and a byte of mask an
+    element."""
+    half = n_taps // 2
+    bl, bh = max((window - 1) // 2, 1), max(window // 2, 1)
+    sh, sw = th + bl + bh, tw + bl + bh
+    rh, rw = sh + 2 * half, sw + 2 * half
+    return 4 * (-(-n_taps // 4) * 4 + rh * rw + sh * rw) + th * tw
+
+
+@functools.lru_cache(maxsize=256)
+def generic_launch_plan(n_maps: int, h: int, w: int, n_taps: int,
+                        window: int, p: int, sms: int = H100_SMS) -> dict:
+    """The launch plan csrc/decode_generic.cu (`make_plan`) takes for
+    n_maps maps of h x w with n_taps taps, the peak window and p peaks on
+    a card of `sms` SMs. A map is cut into tiles of at most 128 columns
+    (evenly) and of rows, at most 4096 elements a tile (8192 for p > 8,
+    whose lists of 32 keys hold a block to 2 an SM), into as many tiles
+    as the cluster that shares the map wants: about 16 blocks an SM over
+    all maps, at most 8 a map. Tiles too big for shared memory with their
+    halos are halved, rows first; where even one element does not fit
+    (taps or windows of a few hundred), path 1 decodes a map a block
+    through a workspace. Lists hold 8 keys for p <= 8, else 32, taken in
+    ceil(p / 32) rounds. The grid is clusters of `cluster` blocks, at most
+    one cluster a map."""
+    want = min(max(-(-(sms * CTAS_PER_SM) // n_maps), 1), MAX_CLUSTER)
+    tile_elems = TILE_ELEMS if p <= LIST_SHORT else TILE_ELEMS_LONG
+    col_tiles = -(-w // TILE_COLS)
+    tw = -(-w // col_tiles)
+    max_rows = max(1, tile_elems // tw)
+    row_tiles = max(-(-h // max_rows), min(h, -(-want // col_tiles)))
+    th = -(-h // row_tiles)
+    while (_tile_smem(th, tw, n_taps, window) > MAX_DYN_SMEM
+           and (th > 1 or tw > 1)):
+        if th > 1:
+            th = (th + 1) // 2
+        else:
+            tw = (tw + 1) // 2
+    if _tile_smem(th, tw, n_taps, window) > MAX_DYN_SMEM:
+        return {"path": 1, "tile_rows": h, "tile_cols": w, "row_tiles": 1,
+                "col_tiles": 1, "cluster": 1, "grid": n_maps, "cap": 0,
+                "rounds": p, "smem_bytes": 0}
+    row_tiles, col_tiles = -(-h // th), -(-w // tw)
+    cluster = min(row_tiles * col_tiles, want)
+    cap = LIST_SHORT if p <= LIST_SHORT else LIST_LONG
+    return {"path": 0, "tile_rows": th, "tile_cols": tw,
+            "row_tiles": row_tiles, "col_tiles": col_tiles,
+            "cluster": cluster,
+            "grid": min(n_maps, MAX_CLUSTERS) * cluster, "cap": cap,
+            "rounds": -(-p // cap),
+            "smem_bytes": _tile_smem(th, tw, n_taps, window)}
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=32)
@@ -317,16 +400,22 @@ def _device_taps(config: DecodeConfig, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(smoothing_taps(config), device=device)
 
 
-def _decode_maps_generic_cuda(
-    hm: torch.Tensor, config: DecodeConfig
+def launch_generic_cuda(
+    hm: torch.Tensor, config: DecodeConfig, lib: ctypes.CDLL | None = None,
+    workspace: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch csrc/decode_generic.cu on hm [B, K, H, W], any strides, and
-    count it. It takes every config the plain version takes, through an
-    f32 workspace of two [B*K, H, W] planes."""
+    """Check hm [B, K, H, W] (any strides) and launch the C entry point
+    `decode_generic` of `lib`, a build of csrc/decode_generic.cu (the
+    package's own, built after the checks pass, when None); raises on a
+    launch error. Counts no launch. It takes every config the plain
+    version takes; only plans of path 1 (taps or windows too wide for
+    shared memory) get a workspace of two f32 [B*K, H, W] planes, or
+    every launch with workspace=True (a build of the design before the
+    tiles, which always needed it, for tools/decode_phases.py)."""
     b, k, h, w = hm.shape
     p = config.max_peaks_per_channel
     _raise_refusal(hm, config, GENERIC_KERNEL)
-    fn = kernels.load(GENERIC_KERNEL).decode_generic
+    fn = (lib or kernels.load(GENERIC_KERNEL)).decode_generic
     _bind(fn, [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -335,8 +424,11 @@ def _decode_maps_generic_cuda(
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ])
     taps = _device_taps(config, hm.device)
-    work = torch.empty((2, b * k, h, w), dtype=torch.float32,
-                       device=hm.device)
+    plan = generic_launch_plan(b * k, h, w, len(taps), config.nms_window, p,
+                               _sm_count(hm.device))
+    work = (torch.empty((2, b * k, h, w), dtype=torch.float32,
+                        device=hm.device)
+            if workspace or plan["path"] == 1 else None)
     out = torch.empty((3, b * k, p), dtype=torch.float32, device=hm.device)
     with torch.cuda.device(hm.device):
         stream = torch.cuda.current_stream(hm.device).cuda_stream
@@ -344,13 +436,21 @@ def _decode_maps_generic_cuda(
             hm.data_ptr(), 1 if hm.dtype == torch.bfloat16 else 0,
             *hm.stride(), b, k, h, w, taps.data_ptr(), len(taps),
             config.nms_window, float(config.subpixel_shift), p,
-            work.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr(), stream,
+            None if work is None else work.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"decode_generic launch failed: CUDA error {err}")
-    kernels.count_launch(GENERIC_KERNEL)
     return out[0], out[1], out[2]
+
+
+def _decode_maps_generic_cuda(
+    hm: torch.Tensor, config: DecodeConfig
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch csrc/decode_generic.cu on hm [B, K, H, W] and count it."""
+    out = launch_generic_cuda(hm, config)
+    kernels.count_launch(GENERIC_KERNEL)
+    return out
 
 
 # The counting wrapper of each kernel that `route` names.

@@ -36,7 +36,8 @@ from multiposenet_tpu_torch.ops import column_topk, decode, kp_tail
 from multiposenet_tpu_torch.ops.image import space_to_depth_flat4
 from multiposenet_tpu_torch.utils.image_io import read_image, write_png
 
-from decode_maps import CONFIGS, MAKERS, planted_maps
+from decode_maps import (CONFIGS, GENERIC_CARD_PLANS, MAKERS, planted_maps,
+                         straddle_maps, with_nans)
 from eval_fixtures import planted_annotations, write_coco
 
 pytestmark = pytest.mark.cuda
@@ -161,6 +162,176 @@ def test_generic_kernel_matches_plain(cuda_device, shape, kwargs, layout,
     x = _layout(hm, layout, cuda_device, dtype)
     cfg = DecodeConfig(**{**CONFIGS["planted"], **kwargs})
     _assert_generic_equals_plain(x, cfg, lanes=layout == "channels_last")
+
+
+def _assert_equal_nan(got, want):
+    """Bit for bit, where a NaN must be NaN in both (its bits may differ)."""
+    for a, c in zip(got, want):
+        a, c = a.cpu(), c.cpu()
+        assert torch.equal(a.isnan(), c.isnan())
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(c))
+
+
+def _nan_input(layout, device, dtype, shape=(2, 17, 128, 128)):
+    b, k, h, w = shape
+    rng = np.random.RandomState(23)
+    hm = with_nans(rng, planted_maps(rng, (b, h, w, k)), 0.003)
+    return _layout(hm, layout, device, dtype)
+
+
+# NaNs in the maps: a window that holds one has no peak (max.NaN), a NaN
+# neighbour makes the step NaN; every kernel as the plain version does.
+@pytest.mark.parametrize("kernel,layout,kwargs", [
+    ("decode_peaks", "channel_major", {}),
+    ("decode_lanes", "channel_major", {}),
+    ("decode_lanes", "channels_last", {}),
+    ("decode_generic", "channel_major", dict(nms_window=1)),
+    ("decode_generic", "channel_major", dict(nms_window=5)),
+    ("decode_generic", "channels_last", dict(nms_window=2,
+                                             max_peaks_per_channel=40)),
+], ids=["b1", "b2_cm", "b2_cl", "generic_w1", "generic_w5",
+        "generic_w2p40_cl"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_on_nan_maps(cuda_device, kernel, layout, kwargs, dtype):
+    x = _nan_input(layout, cuda_device, dtype)
+    cfg = DecodeConfig(**{**CONFIGS["planted"], **kwargs})
+    lanes = kernel == decode.LANES_KERNEL or layout == "channels_last"
+    assert decode.route(x, cfg, lanes=lanes) == kernel
+    kernels.reset_launches()
+    got = (decode.decode_maps_lanes if lanes else decode.decode_maps)(x, cfg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {kernel: 1}
+    b, k, h, w = x.shape
+    want = decode.decode_maps_plain(x.reshape(b * k, h, w), cfg)
+    assert torch.isnan(x).any()
+    _assert_equal_nan(got, want)
+    if kwargs.get("nms_window", 3) <= 2:  # peaks next to a NaN
+        valid = want[0] > cfg.score_threshold
+        assert want[1][valid].isnan().any() or want[2][valid].isnan().any()
+
+
+def _last_tile_maps(rng, shape):
+    """Low noise with the 20 best peaks, 3 apart, all in the last 15 rows
+    and columns of each map: the last tile of the plan holds them."""
+    b, h, w, k = shape
+    hm = 0.2 * rng.rand(*shape).astype(np.float32)
+    for i in range(20):
+        y, x = h - 15 + (i % 5) * 3, w - 14 + (i // 5) * 3
+        hm[:, y, x] = 0.9 - 0.01 * i
+    return hm
+
+
+def _generic_case_maps(kind, shape, cfg):
+    b, k, h, w = shape
+    rng = np.random.RandomState(sum(shape))
+    if kind == "straddle":  # plateaus across this launch's tile edges
+        plan = decode.generic_launch_plan(
+            b * k, h, w, len(decode.smoothing_taps(cfg)), cfg.nms_window,
+            cfg.max_peaks_per_channel)
+        rows = list(range(plan["tile_rows"], h, plan["tile_rows"]))
+        cols = list(range(plan["tile_cols"], w, plan["tile_cols"]))
+        return straddle_maps(rng, (b, h, w, k), rows, cols)
+    if kind == "last_tile":
+        return _last_tile_maps(rng, (b, h, w, k))
+    if kind == "ramp":  # one peak: the rest of the slots are fillers
+        return np.broadcast_to(np.arange(h * w, dtype=np.float32).reshape(
+            1, h, w, 1) / (h * w), (b, h, w, k)).copy()
+    return MAKERS[kind](rng, (b, h, w, k))
+
+
+# The tile design's edges: ties across tile edges, the best peaks in the
+# last tile, heights below and off the tiles' rows, W = 1 and W = 4097 (33
+# column tiles for 8 blocks), taps too wide for shared memory (the
+# workspace path), window 7, one map and 133 maps, P = 1, P at and just
+# above the lists' 8 and 32, P = H * W, fewer peaks than P, channels-last
+# and transposed strides.
+GENERIC_DESIGN_CASES = {
+    "straddle": ((1, 3, 40, 300), "straddle", dict(smooth_sigma=0.0,
+                                                    nms_window=5)),
+    "straddle_p32": ((1, 3, 64, 260), "straddle", dict(
+        smooth_sigma=0.0, nms_window=5, max_peaks_per_channel=32)),
+    "straddle_batch": ((64, 17, 128, 128), "straddle", dict(
+        smooth_sigma=0.0, nms_window=5)),
+    "last_tile": ((1, 17, 128, 128), "last_tile", dict(
+        nms_window=5, max_peaks_per_channel=20, score_threshold=0.5)),
+    "h7_batch": ((64, 17, 7, 128), "planted", dict(nms_window=5)),
+    "h37": ((1, 17, 37, 128), "planted", dict(nms_window=5)),
+    "w1": ((1, 3, 64, 1), "planted", dict(nms_window=5)),
+    "w4097": ((1, 3, 13, 4097), "planted", dict(nms_window=5)),
+    "taps401": ((2, 3, 20, 40), "planted", dict(smooth_sigma=60.0,
+                                                 smooth_kernel_size=401)),
+    "window7": ((2, 3, 40, 56), "planted", dict(nms_window=7)),
+    "n1": ((1, 1, 37, 53), "planted", dict(nms_window=5)),
+    "n133": ((7, 19, 37, 53), "planted", dict(nms_window=5)),
+    "p1": ((2, 3, 40, 56), "planted", dict(nms_window=5,
+                                            max_peaks_per_channel=1)),
+    "p8": ((2, 3, 40, 56), "plateau", dict(smooth_sigma=0.0, nms_window=5)),
+    "p9": ((2, 3, 40, 56), "plateau", dict(smooth_sigma=0.0, nms_window=5,
+                                            max_peaks_per_channel=9)),
+    "p32": ((2, 3, 40, 56), "planted", dict(nms_window=5,
+                                             max_peaks_per_channel=32)),
+    "p33": ((2, 3, 40, 56), "planted", dict(nms_window=5,
+                                             max_peaks_per_channel=33)),
+    "p_eq_hw": ((1, 6, 8, 8), "plateau", dict(
+        smooth_sigma=0.0, nms_window=5, max_peaks_per_channel=64)),
+    "ramp_p40": ((1, 3, 24, 40), "ramp", dict(
+        smooth_sigma=0.0, nms_window=5, max_peaks_per_channel=40)),
+}
+
+
+@pytest.mark.parametrize("layout", ["channel_major", "channels_last",
+                                    "transposed"])
+@pytest.mark.parametrize("case", sorted(GENERIC_DESIGN_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generic_tiles_match_plain(cuda_device, case, layout, dtype):
+    shape, kind, kwargs = GENERIC_DESIGN_CASES[case]
+    b, k, h, w = shape
+    cfg = DecodeConfig(**{**CONFIGS["planted"], **kwargs})
+    hm = _generic_case_maps(kind, shape, cfg)
+    if layout == "transposed":  # [B, K, W, H] strides: a map transposed
+        x = torch.as_tensor(hm).permute(0, 3, 2, 1).to(cuda_device, dtype)
+        x = x.contiguous().permute(0, 1, 3, 2)
+        assert x.stride(3) == h
+    else:
+        x = _layout(hm, layout, cuda_device, dtype)
+    _assert_generic_equals_plain(x, cfg, lanes=layout == "channels_last")
+
+
+def test_generic_plan_matches_launch_plan(cuda_device):
+    """The plan the C entry point launches equals ops/decode.py
+    generic_launch_plan's (which the CPU tests check), at the card tests'
+    launches and this card's SM count."""
+    import ctypes
+    lib = kernels.load(decode.GENERIC_KERNEL)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    out = (ctypes.c_int * len(decode.GENERIC_PLAN_FIELDS))()
+    fn = lib.decode_generic_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    for shape in GENERIC_CARD_PLANS:
+        assert fn(*shape, 0, out) == 0
+        assert (dict(zip(decode.GENERIC_PLAN_FIELDS, out))
+                == decode.generic_launch_plan(*shape, sms)), shape
+
+
+@pytest.mark.parametrize("shape,window", [((64, 17, 128, 128), 5),
+                                          ((1, 17, 128, 128), 5),
+                                          ((2, 3, 36, 300), 2)])
+def test_counted_generic_build_equals_plain_build(cuda_device, shape,
+                                                  window):
+    """The -DDECODE_GENERIC_PROFILE build (tools/decode_phases.py --kernel
+    generic) gives the plain build's outputs bit for bit."""
+    from multiposenet_tpu_torch.tools import decode_phases
+
+    b, k, h, w = shape
+    x = decode_phases.phase_maps(b * k, h, w, cuda_device).view(b, k, h, w)
+    cfg = DecodeConfig(nms_window=window)
+    counted = decode.launch_generic_cuda(
+        x, cfg, decode_phases.build_profiled("generic"))
+    plain = decode.launch_generic_cuda(x, cfg)
+    for a, c in zip(counted, plain):
+        assert torch.equal(a, c)
 
 
 # Edges of the warp-per-map design: widths that are not a multiple of the
