@@ -23,7 +23,13 @@ Config.fast() model: `eval` over 256 synthetic images, batched (host
 resize, batches of 128, two B1 launches) and through `predict` (32
 images, 32 launches), with images per second and the batched loop's
 split (phases `eval_batched`, `eval_predict`), then `predict --output`
-on a 480x640 PNG, read back (phase `cli_predict`, one launch).
+on a 480x640 PNG, read back (phase `cli_predict`, one launch). Before
+them, phase `image_codec` builds the host C library (`csrc/image_codec.c`)
+and holds its JPEG decode and letterbox resize, and the plain NumPy
+versions, to cv2's digests of the committed fixtures
+(tests/fixtures/images); after them, phase `eval_jpeg` runs `eval
+--batched` on those JPEGs (two launches), `predict` on the 480x640 JPEG
+(one launch) and checks that `--output x.jpg` exits.
 
     python3 chip_smoke.py
 
@@ -42,6 +48,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import io
 import json
 import statistics
@@ -1315,6 +1322,178 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     return counted[decode.KERNEL]
 
 
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "images"
+TIMING_FIXTURE = "photo_480x640_q95_420.jpg"
+PLAIN_FIXTURE = "scene_00_420_q75.jpg"
+
+
+def sha256(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def letterbox_size(h: int, w: int, s: int = 512) -> tuple[int, int]:
+    """The eval runner's resize target (w, h) at model size s (the
+    digests hold 512, the full-width models' size)."""
+    scale = s / max(h, w)
+    return int(round(w * scale)), int(round(h * scale))
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median host time of `reps` calls of a host-only fn, after one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
+    """The host C library `csrc/image_codec.c`: its build (cc, timed),
+    then every committed fixture (tests/fixtures/images, written by cv2
+    on another machine) decoded by the C library and by the plain NumPy
+    version: equal to each other and to cv2's digest (shape and sha256 of
+    its RGB decode, Exif orientation applied), and the eval letterbox to
+    512 by the C library and the plain version, equal to cv2's digest.
+    Times on the host clock: the C decode of the 480x640 4:2:0 q95
+    fixture (ms and MB/s of file), the plain decode of it and of one
+    192x256 scene, and the C and plain letterbox resize of it."""
+    t0 = time.perf_counter()
+    image_codec.library()
+    build_s = time.perf_counter() - t0
+    digests = json.loads((FIXTURES / "digests.json").read_text())
+    checked = {}
+    for name, want in sorted(digests.items()):
+        data = (FIXTURES / name).read_bytes()
+        got = image_io.decode_image(data, name)
+        if [list(got.shape), sha256(got)] != [want["shape"],
+                                               want["rgb_sha256"]]:
+            raise AssertionError(f"image_codec: {name} decodes to "
+                                 f"{got.shape}, not cv2's digest")
+        if name.endswith(".jpg"):
+            plain = image_io.apply_orientation(
+                jpeg.decode_pixels(data),
+                image_io.exif_orientation(jpeg.exif_block(data)))
+            if not np.array_equal(plain, got):
+                raise AssertionError(f"image_codec: {name}: the C library "
+                                     "and the plain decoder differ")
+        size = letterbox_size(*got.shape[:2])
+        for how, fn in (("c", image_io.resize_linear),
+                        ("plain", image_io.resize_linear_plain)):
+            if sha256(fn(got, size)) != want["letterbox_sha256"]:
+                raise AssertionError(f"image_codec: {name}: {how} letterbox "
+                                     "is not cv2's")
+        checked[name] = list(got.shape)
+    data = (FIXTURES / TIMING_FIXTURE).read_bytes()
+    rgb = image_io.decode_image(data)
+    size = letterbox_size(*rgb.shape[:2])
+    c_ms = median_ms(lambda: image_codec.decode_jpeg(data), 50)
+    small = (FIXTURES / PLAIN_FIXTURE).read_bytes()
+    t0 = time.perf_counter()
+    jpeg.decode_pixels(data)
+    plain_big_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jpeg.decode_pixels(small)
+    plain_small_s = time.perf_counter() - t0
+    emit({"phase": "image_codec", "card": card, "build_s": build_s,
+          "fixtures": checked,
+          "equal": "C = plain = cv2 digest, decode and letterbox, every "
+                   "fixture",
+          "timing_fixture": TIMING_FIXTURE, "timing_bytes": len(data),
+          "c_decode_ms": c_ms,
+          "c_decode_mb_per_s": len(data) / 1e6 / (c_ms / 1e3),
+          "plain_decode_s": {TIMING_FIXTURE: plain_big_s,
+                             PLAIN_FIXTURE: plain_small_s},
+          "letterbox": [size[1], size[0]],
+          "resize_c_ms": median_ms(
+              lambda: image_io.resize_linear(rgb, size), 50),
+          "resize_plain_ms": median_ms(
+              lambda: image_io.resize_linear_plain(rgb, size), 5),
+          "clock": "host perf_counter, median"})
+
+
+def phase_eval_jpeg(cli, image_io, visualize, decode, kernels,
+                    directory: Path, card: str) -> dict:
+    """The command line on the committed JPEG fixtures with the model
+    `phase_eval` exported: `eval --coco-json annotations.json --image-dir
+    tests/fixtures/images --batched --batch-size 8` (10 scenes: exactly
+    2 B1 launches and no other kernel; finite stats in [-1, 1]), `predict
+    --image` the 480x640 JPEG `--output drawn.png` (1 B1 launch, people
+    printed, the PNG read back equals the drawing of the printed people
+    on the decoded JPEG) and `--output drawn.jpg`, which exits naming the
+    suffix before the model runs. Returns B1's launches by command."""
+    n_images = len(json.loads(
+        (FIXTURES / "annotations.json").read_text())["images"])
+    argv = ["eval", "--model-dir", str(directory), "--coco-json",
+            str(FIXTURES / "annotations.json"), "--image-dir",
+            str(FIXTURES), "--batched", "--batch-size", "8"]
+    n_b1 = -(-n_images // 8)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    text = cli_stdout(cli, argv)
+    eval_s = time.perf_counter() - t0
+    counted = dict(kernels.LAUNCHES)
+    stats = json.loads(text)
+    if list(stats) != STAT_KEYS or not all(
+            np.isfinite(v) and -1.0 <= v <= 1.0 for v in stats.values()):
+        raise AssertionError(f"eval_jpeg: bad stats {stats}")
+    if counted != {decode.KERNEL: n_b1}:
+        raise AssertionError(f"eval_jpeg: launches {counted}, want "
+                             f"{{{decode.KERNEL!r}: {n_b1}}}")
+    launches = {"eval_jpeg_batched": n_b1}
+
+    image_path = FIXTURES / TIMING_FIXTURE
+    out_path = directory / "drawn_jpeg.png"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    text = cli_stdout(cli, ["predict", "--model-dir", str(directory),
+                            "--image", str(image_path), "--output",
+                            str(out_path)])
+    predict_s = time.perf_counter() - t0
+    predict_counted = dict(kernels.LAUNCHES)
+    if predict_counted != {decode.KERNEL: 1}:
+        raise AssertionError(f"eval_jpeg: predict launches "
+                             f"{predict_counted}")
+    people = [argparse.Namespace(box=np.asarray(p["box"]), score=p["score"],
+                                 keypoints=np.asarray(p["keypoints"]))
+              for p in json.loads(text)]
+    if not people or not all(np.isfinite(p.box).all()
+                             and np.isfinite(p.keypoints).all()
+                             for p in people):
+        raise AssertionError("eval_jpeg: predict printed no people")
+    image = image_io.read_image(image_path)
+    if not np.array_equal(image_io.read_image(out_path),
+                          visualize.draw_predictions(image, people)):
+        raise AssertionError("eval_jpeg: the PNG is not the drawing of the "
+                             "printed people")
+    launches["cli_predict_jpeg"] = 1
+
+    kernels.reset_launches()
+    jpg_out = directory / "drawn.jpg"
+    try:
+        cli_stdout(cli, ["predict", "--model-dir", str(directory), "--image",
+                         str(image_path), "--output", str(jpg_out)])
+    except SystemExit as exc:
+        message = str(exc.code)
+    else:
+        raise AssertionError("eval_jpeg: --output drawn.jpg did not exit")
+    if ".jpg" not in message or "PNG" not in message or kernels.LAUNCHES \
+            or jpg_out.exists():
+        raise AssertionError(f"eval_jpeg: --output drawn.jpg: {message!r}, "
+                             f"launches {kernels.LAUNCHES}")
+    emit({"phase": "eval_jpeg", "card": card, "argv": argv,
+          "images": n_images, "stats": stats, "launches": counted,
+          "eval_command_s": eval_s,
+          "img_per_s_command": n_images / eval_s,
+          "predict_image": TIMING_FIXTURE, "persons": len(people),
+          "predict_command_s": predict_s, "predict_launches":
+              predict_counted, "output_jpg_exit": message})
+    return launches
+
+
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame, spills and shared memory that `nvcc -Xptxas
     -v` reports for the instantiations the main paths take: every
@@ -1352,7 +1531,8 @@ def main() -> int:
                                                 detection, kp_tail)
         from multiposenet_tpu_torch.ops import image as image_ops
         from multiposenet_tpu_torch.tools import dbench2
-        from multiposenet_tpu_torch.utils import image_io, visualize
+        from multiposenet_tpu_torch.utils import (image_codec, image_io, jpeg,
+                                                  visualize)
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
@@ -1403,6 +1583,7 @@ def main() -> int:
         Config, Predictor, decode, kernels, card)
     launches[column_topk.KERNEL] = phase_dbench2(dbench2, column_topk,
                                                  decode, kernels)
+    phase_image_codec(image_io, image_codec, jpeg, card)
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="cli_",
                                      dir=kernels.BUILD_DIR) as directory:
@@ -1411,6 +1592,8 @@ def main() -> int:
         b1_paths["cli_predict"] = phase_cli_predict(
             cli, image_io, visualize, synthetic, decode, kernels,
             Path(directory), card)
+        b1_paths.update(phase_eval_jpeg(cli, image_io, visualize, decode,
+                                        kernels, Path(directory), card))
     launches[decode.KERNEL] = sum(b1_paths.values())
     rows[0]["launches_by_path"] = b1_paths
     for row in rows:

@@ -10,8 +10,9 @@ Usage:
     python -m multiposenet_tpu_torch predict --model-dir out/ \\
         --image in.png --output out.png
 
-Images are read and written through `utils/image_io.py` (PNG and .npy,
-no cv2).
+Images are read through `utils/image_io.py` (baseline JPEG, PNG and .npy,
+as cv2 reads them, without cv2); `predict --output` writes PNG only and
+exits before the model runs on any other suffix.
 """
 
 from __future__ import annotations
@@ -79,6 +80,10 @@ def cmd_predict(args) -> None:
     from multiposenet_tpu_torch.utils.image_io import read_image, write_png
     from multiposenet_tpu_torch.utils.visualize import draw_predictions
 
+    if args.output and Path(args.output).suffix.lower() != ".png":
+        suffix = Path(args.output).suffix or "none"
+        sys.exit(f"--output {args.output}: suffix {suffix} is not written "
+                 "here; only PNG (.png) is written")
     predictor = _load_predictor(args)
     try:
         rgb = read_image(args.image)
@@ -108,7 +113,7 @@ def main(argv=None) -> None:
                             "knobs (README)")
         p.add_argument("--coco-json", help="COCO person_keypoints json")
         p.add_argument("--image-dir", help="image directory for COCO "
-                                           "(PNG or .npy files)")
+                                           "(JPEG, PNG or .npy files)")
         p.add_argument("--synthetic", type=int,
                        help="use N synthetic images instead of COCO")
         p.add_argument("--model-dir", help="export/load directory")
@@ -125,8 +130,9 @@ def main(argv=None) -> None:
 
     p = sub.add_parser("predict", help="predict one image")
     common(p)
-    p.add_argument("--image", required=True, help="PNG or .npy image")
-    p.add_argument("--output", help="write visualization PNG here")
+    p.add_argument("--image", required=True,
+                   help="JPEG, PNG or .npy image")
+    p.add_argument("--output", help="write visualization PNG here (.png)")
     p.set_defaults(fn=cmd_predict)
 
     args = parser.parse_args(argv)

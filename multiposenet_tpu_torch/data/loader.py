@@ -15,7 +15,7 @@ from multiposenet_tpu_torch.utils.image_io import read_image
 
 def load_image(record: dict, image_dir: str | None) -> np.ndarray:
     """Record → uint8 RGB array. Synthetic records embed the image; COCO
-    records reference a file under image_dir (PNG or .npy here)."""
+    records reference a file under image_dir (JPEG, PNG or .npy here)."""
     if "image" in record:
         return record["image"]
     if image_dir is None:

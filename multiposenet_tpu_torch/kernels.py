@@ -1,4 +1,5 @@
-"""Build, load and count the hand-written CUDA kernels in `csrc/`.
+"""Build, load and count the hand-written CUDA kernels in `csrc/`, and
+build the host C libraries there.
 
 Each `csrc/<name>.cu` exposes a plain C entry point. On first use it is
 compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under
@@ -8,6 +9,10 @@ a module is imported, so the package imports on machines without a CUDA
 toolkit. A wrapper adds one to `LAUNCHES[name]` each time it launches
 its kernel, and nowhere else, so a run can show which kernels it went
 through.
+
+A host library, `csrc/<name>.c` (plain C99, no CUDA), is built the same
+way by the system's C compiler (`cc`) on first use of `load_host`; it
+is not a GPU kernel and has no launch count.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+CC_FLAGS = ("-O2", "-std=c99", "-shared", "-fPIC")
 
 # Every kernel source in csrc/, by name.
 KERNEL_NAMES = ("decode_peaks", "decode_lanes", "decode_generic",
@@ -105,6 +112,41 @@ def load_all(names: list[str]) -> dict[str, ctypes.CDLL]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built on first use."""
     return load_all([name])[name]
+
+
+def build_host(name: str, source: Path | None = None) -> Path:
+    """Compile `source` (default csrc/<name>.c) with `cc` into
+    _build/lib<name>.so, written under a temporary name and renamed into
+    place; raises RuntimeError with the compiler's log if it fails."""
+    cc = shutil.which("cc")
+    if cc is None:
+        raise RuntimeError("no C compiler: `cc` is not on PATH")
+    source = source or CSRC / f"{name}.c"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([cc, *CC_FLAGS, "-o", tmp, str(source)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"cc failed on {source} (exit "
+                               f"{proc.returncode}):\n{proc.stdout}")
+        out = BUILD_DIR / f"lib{name}.so"
+        os.replace(tmp, out)
+        return out
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library for csrc/<name>.c, built on first use in
+    this process."""
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(build_host(name)))
+        return _libs[name]
 
 
 def count_launch(name: str) -> None:

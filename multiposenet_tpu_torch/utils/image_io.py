@@ -2,17 +2,32 @@
 line (the JAX package reads and writes images through cv2, which the
 card's machine does not have).
 
-`read_image` decodes PNG (non-interlaced, 8 bits a sample: gray,
-gray+alpha, RGB, RGBA) with zlib and struct, and reads `.npy` arrays; it
-returns uint8 RGB [H, W, 3] as `cv2.imread(path, cv2.IMREAD_COLOR)`
-reversed to RGB does: gray is repeated into three channels and alpha is
-dropped. Any other format raises a ValueError that names it. `write_png`
-writes uint8 RGB as an 8-bit PNG. `resize_linear` is cv2's INTER_LINEAR:
-bilinear with half-pixel centres, no antialias, edge pixels repeated.
+`read_image` (a file) and `decode_image` (its bytes) return uint8 RGB
+[H, W, 3] pixel for pixel as `cv2.imread(path, cv2.IMREAD_COLOR)` and
+`cv2.imdecode` reversed to RGB do on OpenCV 5.0 (libjpeg-turbo 3.1,
+libpng 1.6):
+- baseline JPEG through the host C library `csrc/image_codec.c` (its
+  plain version is `utils/jpeg.py`, whose docstring lists what is
+  refused: progressive, arithmetic-coded, lossless, 12-bit, CMYK, RGB
+  JPEGs and truncated streams);
+- PNG with zlib and NumPy: every colour type and bit depth, Adam7
+  interlace, palette (tRNS dropped; an index past the palette is black),
+  gray at 1, 2 and 4 bits expanded to 8 as libpng does, 16-bit samples
+  cut to their high byte (libpng's png_set_strip_16), alpha dropped;
+- `.npy` arrays, uint8 [H, W, 3] or gray [H, W].
+Gray is repeated into three channels. The Exif orientation (tag 0x0112
+of IFD0, in a JPEG APP1 `Exif` block or a PNG `eXIf` chunk) is applied
+as cv2 applies it. Any other format raises a ValueError that names it.
+
+`write_png` writes uint8 RGB as an 8-bit PNG. `resize_linear` is cv2's
+INTER_LINEAR: on uint8 bit for bit (its fixed-point arithmetic, through
+the C library; `resize_linear_plain` is the NumPy version), on float32
+bilinear with half-pixel centres.
 """
 
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 from pathlib import Path
@@ -21,45 +36,65 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multiposenet_tpu_torch.utils import image_codec, jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NPY_MAGIC = b"\x93NUMPY"
+JPEG_MAGIC = b"\xff\xd8\xff"
 # Magic bytes of formats the reader refuses, to name them in the error.
 _OTHER_FORMATS = {
-    b"\xff\xd8\xff": "JPEG",
     b"GIF8": "GIF",
     b"BM": "BMP",
     b"RIFF": "WebP/RIFF",
     b"II*\x00": "TIFF",
     b"MM\x00*": "TIFF",
 }
-# PNG colour type → channels (only 8-bit samples are read).
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# PNG colour type → (samples a pixel, allowed bit depths).
+_PNG_KINDS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
+              3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
 _PNG_COLOUR_NAMES = {0: "gray", 2: "RGB", 3: "palette", 4: "gray+alpha",
                      6: "RGBA"}
+# Adam7 passes: (first row, first column, row step, column step).
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 def read_image(path: str | Path) -> np.ndarray:
-    """File → uint8 RGB [H, W, 3]: a PNG or a `.npy` array ([H, W, 3] or
-    gray [H, W], uint8). Raises FileNotFoundError for a missing file and
-    ValueError for any other format."""
-    data = Path(path).read_bytes()
+    """File → uint8 RGB [H, W, 3] (see the module docstring). Raises
+    FileNotFoundError for a missing file and ValueError for a format or
+    mode that is not read."""
+    return decode_image(Path(path).read_bytes(), path)
+
+
+def decode_image(data: bytes, name: str | Path = "<bytes>") -> np.ndarray:
+    """Encoded bytes (JPEG, PNG or .npy) → uint8 RGB [H, W, 3], Exif
+    orientation applied; `name` is used in error messages."""
+    if data.startswith(JPEG_MAGIC):
+        try:
+            rgb = image_codec.decode_jpeg(data)
+        except ValueError as exc:
+            raise ValueError(f"{name}: {exc}") from None
+        return apply_orientation(rgb, exif_orientation(jpeg.exif_block(data)))
     if data.startswith(PNG_SIGNATURE):
-        return _gray_to_rgb(_decode_png(data, path))
+        pixels, exif = _decode_png(data, name)
+        return apply_orientation(_gray_to_rgb(pixels),
+                                 exif_orientation(exif))
     if data.startswith(NPY_MAGIC):
-        return _npy_image(path)
-    for magic, name in _OTHER_FORMATS.items():
+        return _npy_image(data, name)
+    for magic, kind in _OTHER_FORMATS.items():
         if data.startswith(magic):
-            raise ValueError(f"{path}: {name} images are not read here "
-                             "(PNG and .npy only)")
-    raise ValueError(f"{path}: not a PNG or .npy file (suffix "
-                     f"{Path(path).suffix or 'none'}); PNG and .npy only")
+            raise ValueError(f"{name}: {kind} images are not read here "
+                             "(JPEG, PNG and .npy only)")
+    suffix = Path(str(name)).suffix or "none"
+    raise ValueError(f"{name}: not a JPEG, PNG or .npy file (suffix "
+                     f"{suffix}); JPEG, PNG and .npy only")
 
 
-def _npy_image(path) -> np.ndarray:
-    arr = np.load(path, allow_pickle=False)
+def _npy_image(data: bytes, name) -> np.ndarray:
+    arr = np.load(io.BytesIO(data), allow_pickle=False)
     if arr.dtype != np.uint8 or not (
             arr.ndim == 2 or (arr.ndim == 3 and arr.shape[-1] == 3)):
-        raise ValueError(f"{path}: a .npy image must be uint8 [H, W, 3] or "
+        raise ValueError(f"{name}: a .npy image must be uint8 [H, W, 3] or "
                          f"[H, W]; got {arr.dtype} {arr.shape}")
     return _gray_to_rgb(arr)
 
@@ -70,7 +105,65 @@ def _gray_to_rgb(arr: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(arr)
 
 
-def _chunks(data: bytes, path):
+# --- Exif orientation -----------------------------------------------------
+
+# Tags OpenCV's Exif reader parses as strings; one whose data lies outside
+# the block ends the parse there.
+_EXIF_STRING_TAGS = (0x010E, 0x010F, 0x0110, 0x0131, 0x0132, 0x013B, 0x8298)
+
+
+def exif_orientation(tiff: bytes | None) -> int:
+    """The orientation (1-8) in Exif TIFF bytes, as OpenCV's Exif reader
+    finds it: IFD0's entries in file order, tag 0x0112 read as a 16-bit
+    value at its value field whatever its type and count. A missing or
+    malformed block, a value outside 1-8, or an entry that cannot be
+    read before the tag (past the block, or a string tag whose data lies
+    outside it) gives 1."""
+    if not tiff or len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return 1
+    e = "<" if tiff[:2] == b"II" else ">"
+    magic, ifd = struct.unpack(e + "HI", tiff[2:8])
+    if magic != 42 or ifd + 2 > len(tiff):
+        return 1
+    (count,) = struct.unpack(e + "H", tiff[ifd:ifd + 2])
+    for i in range(count):
+        at = ifd + 2 + 12 * i
+        if at + 12 > len(tiff):
+            return 1
+        tag, _, n, value = struct.unpack(e + "HHII", tiff[at:at + 12])
+        if tag == 0x0112:
+            (o,) = struct.unpack(e + "H", tiff[at + 8:at + 10])
+            return o if 1 <= o <= 8 else 1
+        if tag in _EXIF_STRING_TAGS:
+            start = value if n > 4 else 4
+            if start > len(tiff) or start + n > len(tiff):
+                return 1
+    return 1
+
+
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """Pixels stored under Exif `orientation` → as displayed: OpenCV's
+    ExifTransform (2 flips columns, 3 rotates 180°, 4 flips rows, 5
+    transposes, 6 rotates 90° clockwise, 7 transposes and rotates 180°,
+    8 rotates 90° counter-clockwise)."""
+    if orientation in (5, 6, 7, 8):
+        img = img.transpose(1, 0, 2)
+        orientation -= 4
+        if orientation == 1:
+            return np.ascontiguousarray(img)
+    if orientation == 2:
+        img = img[:, ::-1]
+    elif orientation == 3:
+        img = img[::-1, ::-1]
+    elif orientation == 4:
+        img = img[::-1]
+    return np.ascontiguousarray(img)
+
+
+# --- PNG --------------------------------------------------------------------
+
+
+def _chunks(data: bytes, name):
     """(type, payload) of each PNG chunk, CRC checked."""
     pos = len(PNG_SIGNATURE)
     while pos + 12 <= len(data):
@@ -78,51 +171,105 @@ def _chunks(data: bytes, path):
         payload = data[pos + 8:pos + 8 + length]
         crc_at = pos + 8 + length
         if len(payload) != length or crc_at + 4 > len(data):
-            raise ValueError(f"{path}: truncated PNG chunk {kind!r}")
+            raise ValueError(f"{name}: truncated PNG chunk {kind!r}")
         (crc,) = struct.unpack(">I", data[crc_at:crc_at + 4])
         if zlib.crc32(kind + payload) != crc:
-            raise ValueError(f"{path}: bad CRC in PNG chunk {kind!r}")
+            raise ValueError(f"{name}: bad CRC in PNG chunk {kind!r}")
         yield kind, payload
         if kind == b"IEND":
             return
         pos = crc_at + 4
-    raise ValueError(f"{path}: PNG without IEND")
+    raise ValueError(f"{name}: PNG without IEND")
 
 
-def _decode_png(data: bytes, path) -> np.ndarray:
-    """PNG bytes → uint8 [H, W] (gray) or [H, W, 3] (colour; alpha
-    dropped)."""
-    header, idat = None, []
-    for kind, payload in _chunks(data, path):
+def _decode_png(data: bytes, name) -> tuple[np.ndarray, bytes | None]:
+    """PNG bytes → (uint8 [H, W] gray or [H, W, 3] colour, the Exif TIFF
+    bytes of its eXIf chunk or None)."""
+    header, palette, exif, idat = None, None, None, []
+    for kind, payload in _chunks(data, name):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"PLTE":
+            if len(payload) % 3:
+                raise ValueError(f"{name}: PLTE of {len(payload)} bytes")
+            palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(payload)
+        elif kind == b"eXIf" and exif is None and payload[:4] in (
+                b"II*\x00", b"MM\x00*"):  # libpng drops any other
+            exif = payload
     if header is None:
-        raise ValueError(f"{path}: PNG without IHDR")
+        raise ValueError(f"{name}: PNG without IHDR")
     width, height, depth, colour, _, _, interlace = header
-    if colour not in _PNG_CHANNELS or depth != 8 or interlace:
+    if colour not in _PNG_KINDS or depth not in _PNG_KINDS[colour][1] \
+            or interlace > 1:
         raise ValueError(
-            f"{path}: PNG with {depth}-bit "
+            f"{name}: PNG with {depth}-bit "
             f"{_PNG_COLOUR_NAMES.get(colour, f'colour type {colour}')} "
-            f"samples{', interlaced' if interlace else ''} is not read "
-            "here (8-bit gray, gray+alpha, RGB or RGBA, not interlaced)")
-    channels = _PNG_CHANNELS[colour]
-    stride = width * channels
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) != height * (stride + 1):
-        raise ValueError(f"{path}: PNG image data of {len(raw)} bytes, "
-                         f"want {height * (stride + 1)}")
-    rows = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
-    pixels = _unfilter(rows[:, 0], rows[:, 1:], channels, path)
-    pixels = pixels.reshape(height, width, channels)
+            f"samples{', interlace method ' + str(interlace) if interlace > 1 else ''}"
+            " is not a valid PNG")
+    if colour == 3 and palette is None:
+        raise ValueError(f"{name}: palette PNG without PLTE")
+    channels = _PNG_KINDS[colour][0]
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as exc:
+        raise ValueError(f"{name}: corrupt PNG image data ({exc})") from None
+    samples = np.zeros((height, width, channels), np.int64)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    pos = 0
+    for y0, x0, dy, dx in passes:
+        h = len(range(y0, height, dy))
+        w = len(range(x0, width, dx))
+        if h == 0 or w == 0:
+            continue
+        stride = -(-w * channels * depth // 8)
+        size = h * (stride + 1)
+        if pos + size > len(raw):
+            raise ValueError(f"{name}: PNG image data of {len(raw)} bytes "
+                             "is too short")
+        rows = np.frombuffer(raw, np.uint8, size, pos).reshape(h, stride + 1)
+        pos += size
+        bpp = max(1, channels * depth // 8)
+        pixels = _unfilter(rows[:, 0], rows[:, 1:], bpp, name)
+        samples[y0::dy, x0::dx] = _unpack(pixels, w, channels, depth)
+    if pos != len(raw):
+        raise ValueError(f"{name}: PNG image data of {len(raw)} bytes, "
+                         f"want {pos}")
+    if depth == 16:
+        samples >>= 8
+    elif depth < 8 and colour == 0:
+        samples *= 255 // ((1 << depth) - 1)
+    if colour == 3:
+        full = np.zeros((256, 3), np.uint8)  # libpng's padding: black
+        n = min(len(palette), 256)
+        full[:n] = palette[:n]
+        return full[samples[:, :, 0]], exif
+    out = samples.astype(np.uint8)
     if channels <= 2:
-        return pixels[:, :, 0].copy()
-    return pixels[:, :, :3].copy()
+        return out[:, :, 0].copy(), exif
+    return out[:, :, :3].copy(), exif
+
+
+def _unpack(rows: np.ndarray, width: int, channels: int,
+            depth: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] → samples [h, width, channels] int64."""
+    h = rows.shape[0]
+    if depth == 8:
+        flat = rows[:, :width * channels].astype(np.int64)
+    elif depth == 16:
+        flat = rows[:, :2 * width * channels].reshape(h, -1, 2) \
+            .astype(np.int64)
+        flat = (flat[:, :, 0] << 8) | flat[:, :, 1]
+    else:
+        bits = np.unpackbits(rows, axis=1)[:, :width * channels * depth]
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        flat = bits.reshape(h, -1, depth).astype(np.int64) @ weights
+    return flat.reshape(h, width, channels)
 
 
 def _unfilter(filters: np.ndarray, rows: np.ndarray, bpp: int,
-              path) -> np.ndarray:
+              name) -> np.ndarray:
     """Undo PNG's per-row filters (None, Sub, Up, Average, Paeth) in
     modulo-256 arithmetic; None, Sub and Up vectorised, Average and Paeth
     (which depend on the pixel just decoded) a byte at a time."""
@@ -141,7 +288,7 @@ def _unfilter(filters: np.ndarray, rows: np.ndarray, bpp: int,
         elif f in (3, 4):
             out[y] = _unfilter_row(f, cur.tolist(), prev.tolist(), bpp)
         else:
-            raise ValueError(f"{path}: PNG row filter {f} is not defined")
+            raise ValueError(f"{name}: PNG row filter {f} is not defined")
         prev = out[y]
     return out
 
@@ -184,23 +331,75 @@ def write_png(path: str | Path, rgb: np.ndarray) -> None:
         + chunk(b"IEND", b""))
 
 
-def resize_linear(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """cv2.resize(image, (w, h), interpolation=cv2.INTER_LINEAR) for uint8
-    or float32 [H, W] / [H, W, C] arrays: bilinear with half-pixel
-    centres, no antialias, edge pixels repeated; uint8 is rounded to the
-    nearest level (cv2's fixed-point weights can land one level away)."""
-    w, h = size
-    arr = np.asarray(image)
+# --- resizing -----------------------------------------------------------------
+
+
+def _check_resize(arr: np.ndarray, size) -> None:
     if arr.dtype not in (np.uint8, np.float32) or arr.ndim not in (2, 3):
         raise ValueError("resize_linear takes uint8 or float32 [H, W] or "
                          f"[H, W, C]; got {arr.dtype} {arr.shape}")
-    if w < 1 or h < 1:
+    if size[0] < 1 or size[1] < 1:
         raise ValueError(f"resize_linear: bad size {size}")
-    x = torch.from_numpy(np.ascontiguousarray(arr)).float()
+
+
+def resize_linear(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """cv2.resize(image, (w, h), interpolation=cv2.INTER_LINEAR) for uint8
+    or float32 [H, W] / [H, W, C] arrays. uint8 goes through the C
+    library, bit for bit with cv2; float32 is bilinear with half-pixel
+    centres, no antialias, edge pixels repeated (within float rounding
+    of cv2)."""
+    arr = np.asarray(image)
+    _check_resize(arr, size)
+    if arr.dtype == np.uint8:
+        return image_codec.resize_linear_u8(arr, size)
+    w, h = size
+    x = torch.from_numpy(np.ascontiguousarray(arr))
     x = x[None, None] if arr.ndim == 2 else x.permute(2, 0, 1)[None]
     y = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
                       antialias=False)[0]
     y = y[0] if arr.ndim == 2 else y.permute(1, 2, 0)
-    if arr.dtype == np.uint8:
-        y = y.round().clamp(0, 255).to(torch.uint8)
     return np.ascontiguousarray(y.numpy())
+
+
+def _linear_axis(src: int, dst: int, clamp: bool):
+    """Source indices and 11-bit weights along one axis, as cv2 computes
+    them: float32 coordinates (d + 0.5) * scale - 0.5 with scale =
+    1 / (dst / src) in double, weights rint((1 - f) * 2048) and
+    rint(f * 2048). With `clamp` (cv2 does it along x only) a coordinate
+    beyond an edge takes the edge sample at full weight."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    if clamp:
+        low, high = s < 0, s >= src - 1
+        s[low], f[low] = 0, 0
+        s[high], f[high] = src - 1, 0
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int64)
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1
+
+
+def resize_linear_plain(image: np.ndarray,
+                        size: tuple[int, int]) -> np.ndarray:
+    """The plain NumPy version of `resize_linear` on uint8, the
+    specification of `csrc/image_codec.c resize_linear_u8`: an exact
+    integer horizontal pass S = a0 * p0 + a1 * p1, then cv2's vectorised
+    vertical pass (((S0 >> 4) * b0) >> 16) + (((S1 >> 4) * b1) >> 16),
+    (+ 2) >> 2, saturated. Rows are not clamped: above the first source
+    row and below the last both rows are the edge row, with the weights
+    as computed (cv2 computes them so, and its two truncating products
+    can then land one level below the edge row itself)."""
+    arr = np.asarray(image)
+    _check_resize(arr, size)
+    if arr.dtype != np.uint8:
+        raise ValueError("resize_linear_plain takes uint8")
+    w, h = size
+    src = arr.reshape(arr.shape[0], arr.shape[1], -1).astype(np.int64)
+    x0, x1, a0, a1 = _linear_axis(src.shape[1], w, clamp=True)
+    y0, y1, b0, b1 = _linear_axis(src.shape[0], h, clamp=False)
+    rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
+    v = (((rows[y0] >> 4) * b0[:, None, None]) >> 16) \
+        + (((rows[y1] >> 4) * b1[:, None, None]) >> 16)
+    out = np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
+    return out.reshape((h, w) + arr.shape[2:])

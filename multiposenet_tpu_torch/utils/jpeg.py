@@ -1,0 +1,617 @@
+"""Baseline JPEG decoding in plain NumPy, bit for bit as libjpeg-turbo
+decodes under `cv2.imdecode(buf, cv2.IMREAD_COLOR)` with its SIMD code on
+x86 (the output reversed from BGR to RGB). It is the specification of
+`csrc/image_codec.c decode_jpeg`, the fast path, and the plain version
+the tests and the smoke script hold that path to.
+
+What is decoded: sequential Huffman-coded frames (SOF0, SOF1) of 8-bit
+samples, one component (gray) or three (YCbCr), in one or several scans,
+with DHT, DQT (8- and 16-bit tables), DRI and RST0-7 (the DC predictors
+reset at each interval), byte stuffing and fill bytes. APP0, APP14, COM
+and the other APPn are skipped; APP1 may hold Exif, read by
+`exif_orientation` and applied by `utils/image_io.py`.
+
+The stages follow libjpeg-turbo's sources:
+- `jdhuff.c`: Huffman decoding, the DC predictor kept as a 16-bit JCOEF;
+- `jidctint.c` `jpeg_idct_islow` (CONST_BITS 13, PASS1_BITS 2), in the
+  arithmetic of its SIMD versions (`jidctint-avx2.asm`), which OpenCV
+  5.0's bundled libjpeg-turbo 3.1 runs on x86: dequantised coefficients and the sums in0+in4, in0-in4,
+  in7+in3 and in5+in1 wrap to 16 bits, the first pass saturates to 16
+  bits, an all-zero AC column skips it as `dq0 << 2` in 16 bits, and the
+  output saturates to [0, 255]. Far out of range the C version's
+  `range_limit` table wraps instead; on streams an encoder writes the two
+  agree;
+- `jdsample.c`: fancy upsampling (h2v1, h2v2 with context rows, h1v2),
+  taken for h2v1 and h2v2 only where the component's downsampled width
+  is greater than 2; box upsampling otherwise and for any other integral
+  factor (4:1:1); edges replicate the outermost samples;
+- `jdcolor.c`: fixed-point YCbCr -> RGB (SCALEBITS 16), gray repeated
+  into three channels.
+
+Everything else raises a ValueError that names it: progressive (SOF2),
+lossless or hierarchical (SOF3, SOF5-7), arithmetic coding (SOF9-15),
+12-bit samples, 2 or 4 components (CMYK/YCCK), RGB JPEGs (Adobe
+transform 0, or component ids 'R', 'G', 'B'), and truncated or corrupt
+streams, where libjpeg-turbo would fill the rest with gray and warn.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+# jpeg_natural_order: zigzag index -> row-major index in the 8x8 block.
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+], np.int64)
+ZIGZAG_LIST = ZIGZAG.tolist()
+
+_SOF_NAMES = {
+    0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)",
+    0xC5: "differential sequential (SOF5)",
+    0xC6: "differential progressive (SOF6)",
+    0xC7: "differential lossless (SOF7)",
+    0xC9: "arithmetic-coded sequential (SOF9)",
+    0xCA: "arithmetic-coded progressive (SOF10)",
+    0xCB: "arithmetic-coded lossless (SOF11)",
+    0xCD: "arithmetic-coded differential sequential (SOF13)",
+    0xCE: "arithmetic-coded differential progressive (SOF14)",
+    0xCF: "arithmetic-coded differential lossless (SOF15)",
+}
+
+
+class Component:
+    """One frame component: id, sampling factors, quantisation table, its
+    downsampled size, and its coefficients [blocks_h, blocks_w, 64]
+    (row-major in each block), filled by the scans."""
+
+    __slots__ = ("cid", "h", "v", "tq", "width", "height", "blocks_w",
+                 "blocks_h", "coefs")
+
+    def __init__(self, cid, h, v, tq):
+        self.cid, self.h, self.v, self.tq = cid, h, v, tq
+
+
+class Frame:
+    """A parsed baseline JPEG: its size, components with their
+    coefficients (filled by the scans), quantisation tables and the
+    markers libjpeg-turbo infers the colour space from."""
+
+    def __init__(self):
+        self.width = self.height = 0
+        self.components: list[Component] = []
+        self.qtables: dict[int, np.ndarray] = {}
+        self.jfif = False
+        self.adobe_transform: int | None = None
+
+
+def _fail(msg: str):
+    raise ValueError(f"JPEG: {msg}")
+
+
+def _next_marker(data: bytes, pos: int) -> tuple[int, int]:
+    """(marker, offset after it) of the marker at `pos`, fill bytes
+    skipped."""
+    n = len(data)
+    if pos >= n or data[pos] != 0xFF:
+        _fail(f"expected a marker at byte {pos}")
+    while pos < n and data[pos] == 0xFF:
+        pos += 1
+    if pos >= n:
+        _fail("truncated stream (no EOI)")
+    return data[pos], pos + 1
+
+
+def _segment(data: bytes, pos: int) -> tuple[int, int]:
+    """(payload start, payload end) of the marker segment whose length
+    field is at `pos`."""
+    if pos + 2 > len(data):
+        _fail("truncated marker segment")
+    (length,) = struct.unpack(">H", data[pos:pos + 2])
+    if length < 2 or pos + length > len(data):
+        _fail("truncated marker segment")
+    return pos + 2, pos + length
+
+
+def _parse_sof(frame: Frame, p: bytes):
+    if frame.components:
+        _fail("more than one frame")
+    if len(p) < 6:
+        _fail("truncated SOF")
+    precision, height, width, nc = struct.unpack(">BHHB", p[:6])
+    if precision != 8:
+        _fail(f"{precision}-bit samples are not read (8-bit only)")
+    if nc not in (1, 3):
+        kind = "CMYK/YCCK" if nc == 4 else f"{nc}-component"
+        _fail(f"{kind} images are not read (gray or YCbCr only)")
+    if height == 0 or width == 0:
+        _fail(f"bad size {width}x{height} (DNL is not read)")
+    if len(p) < 6 + 3 * nc:
+        _fail("truncated SOF")
+    frame.width, frame.height = width, height
+    for i in range(nc):
+        cid, hv, tq = p[6 + 3 * i:9 + 3 * i]
+        h, v = hv >> 4, hv & 15
+        if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
+            _fail(f"bad sampling factors or table in component {cid}")
+        frame.components.append(Component(cid, h, v, tq))
+    hmax = max(c.h for c in frame.components)
+    vmax = max(c.v for c in frame.components)
+    mcus_x = -(-width // (8 * hmax))
+    mcus_y = -(-height // (8 * vmax))
+    for c in frame.components:
+        if hmax % c.h or vmax % c.v:
+            _fail("fractional sampling factors are not read")
+        c.width = -(-width * c.h // hmax)
+        c.height = -(-height * c.v // vmax)
+        c.blocks_w, c.blocks_h = mcus_x * c.h, mcus_y * c.v
+        c.coefs = np.zeros((c.blocks_h, c.blocks_w, 64), np.int64)
+
+
+def _parse_dqt(frame: Frame, p: bytes):
+    pos = 0
+    while pos < len(p):
+        pq, tq = p[pos] >> 4, p[pos] & 15
+        size = 128 if pq else 64
+        if pq > 1 or tq > 3 or pos + 1 + size > len(p):
+            _fail("bad DQT")
+        dtype = ">u2" if pq else "u1"
+        zz = np.frombuffer(p[pos + 1:pos + 1 + size], dtype).astype(np.int64)
+        table = np.zeros(64, np.int64)
+        table[ZIGZAG] = zz
+        frame.qtables[tq] = table
+        pos += 1 + size
+
+
+def _parse_dht(tables: dict, p: bytes):
+    pos = 0
+    while pos < len(p):
+        if pos + 17 > len(p):
+            _fail("bad DHT")
+        tc, th = p[pos] >> 4, p[pos] & 15
+        counts = list(p[pos + 1:pos + 17])
+        total = sum(counts)
+        if tc > 1 or th > 3 or total > 256 or pos + 17 + total > len(p):
+            _fail("bad DHT")
+        values = list(p[pos + 17:pos + 17 + total])
+        tables[(tc, th)] = _lookup_table(counts, values)
+        pos += 17 + total
+
+
+def _lookup_table(counts: list, values: list) -> list:
+    """A 16-bit lookahead table of a canonical Huffman code:
+    entry[next 16 bits] = (code length, symbol), or (0, 0) where no code
+    of 16 bits or fewer starts that way (jdhuff.c's jpeg_make_d_derived_tbl
+    builds the same codes)."""
+    table = [(0, 0)] * 65536
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            if code >= (1 << length):
+                _fail("bad Huffman table")
+            span = 1 << (16 - length)
+            start = code << (16 - length)
+            table[start:start + span] = [(length, values[k])] * span
+            code += 1
+            k += 1
+        code <<= 1
+    return table
+
+
+def parse(data: bytes) -> tuple[Frame, list]:
+    """Frame header, tables and every scan's coefficients: returns the
+    frame and its scans, each (its components with their Huffman tables,
+    the restart interval in force)."""
+    if not data.startswith(b"\xff\xd8"):
+        _fail("no SOI marker")
+    frame = Frame()
+    tables: dict = {}
+    restart = 0
+    scans = []
+    pos = 2
+    while True:
+        marker, pos = _next_marker(data, pos)
+        if marker == 0xD9:
+            break
+        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+            _fail("restart marker outside a scan")
+        start, pos = _segment(data, pos)
+        p = data[start:pos]
+        if marker in (0xC0, 0xC1):
+            _parse_sof(frame, p)
+        elif marker in _SOF_NAMES:
+            _fail(f"{_SOF_NAMES[marker]} JPEGs are not read (baseline "
+                  "sequential Huffman only)")
+        elif marker == 0xCC:
+            _fail("arithmetic coding (DAC) is not read")
+        elif marker == 0xC4:
+            _parse_dht(tables, p)
+        elif marker == 0xDB:
+            _parse_dqt(frame, p)
+        elif marker == 0xDD:
+            if len(p) != 2:
+                _fail("bad DRI")
+            (restart,) = struct.unpack(">H", p)
+        elif marker == 0xE0 and p[:5] == b"JFIF\x00":
+            frame.jfif = True
+        elif marker == 0xEE and len(p) >= 12 and p[:5] == b"Adobe":
+            frame.adobe_transform = p[11]
+        elif marker == 0xDC:
+            _fail("DNL is not read")
+        elif marker == 0xDA:
+            if not frame.components:
+                _fail("SOS before SOF")
+            scan = _parse_sos(frame, tables, p, restart)
+            scans.append(scan)
+            pos = _decode_scan(frame, scan, data, pos)
+    if not scans:
+        _fail("no image data")
+    _check_colour_space(frame)
+    return frame, scans
+
+
+def _parse_sos(frame: Frame, tables: dict, p: bytes, restart: int):
+    ns = p[0] if p else 0
+    if not 1 <= ns <= 4 or len(p) != 4 + 2 * ns:
+        _fail("bad SOS")
+    comps = []
+    by_id = {c.cid: c for c in frame.components}
+    for i in range(ns):
+        cid, t = p[1 + 2 * i], p[2 + 2 * i]
+        if cid not in by_id:
+            _fail(f"SOS names unknown component {cid}")
+        c = by_id[cid]
+        dc, ac = (0, t >> 4), (1, t & 15)
+        if dc not in tables or ac not in tables:
+            _fail("SOS uses an undefined Huffman table")
+        if c.tq not in frame.qtables:
+            _fail("component uses an undefined quantisation table")
+        comps.append((c, tables[dc], tables[ac]))
+    # Ss, Se, Ah and Al are ignored, as libjpeg-turbo ignores them (with a
+    # warning) in a sequential scan.
+    if ns > 1 and sum(c.h * c.v for c, _, _ in comps) > 10:
+        _fail("too many blocks in an MCU")
+    return comps, restart
+
+
+def _entropy_segments(data: bytes, pos: int):
+    """The entropy-coded data from `pos`: a list of byte strings, one per
+    restart interval, with stuffed zero bytes removed, and the offset of
+    the marker that ends the scan. Restart markers must come in order."""
+    segments, cur = [], bytearray()
+    expect = 0
+    n = len(data)
+    while True:
+        nxt = data.find(b"\xff", pos)
+        if nxt < 0:
+            _fail("truncated stream (no marker after the scan)")
+        cur += data[pos:nxt]
+        q = nxt + 1
+        while q < n and data[q] == 0xFF:
+            q += 1
+        if q >= n:
+            _fail("truncated stream")
+        m = data[q]
+        if m == 0x00:
+            cur.append(0xFF)
+            pos = q + 1
+        elif 0xD0 <= m <= 0xD7:
+            if m != 0xD0 + expect:
+                _fail(f"restart marker RST{m - 0xD0} out of order")
+            expect = (expect + 1) & 7
+            segments.append(bytes(cur))
+            cur = bytearray()
+            pos = q + 1
+        else:
+            segments.append(bytes(cur))
+            return segments, nxt
+
+
+# Zero bytes after an interval's data: one block reads at most 64 codes
+# of 16 bits and 64 values of 15 bits past the end before the check.
+_PAD = 264
+
+
+class _Bits:
+    """An MSB-first bit reader over one restart interval: `words[i]` holds
+    the 40 bits from byte i on, so any 16 bits from bit p are one shift
+    and mask away. Bits past the end read as zeros; `check` refuses a
+    position past the end."""
+
+    def __init__(self, seg: bytes):
+        padded = np.frombuffer(seg + b"\x00" * (_PAD + 4), np.uint8) \
+            .astype(np.uint64)
+        n = len(seg) + _PAD
+        words = np.zeros(n, np.uint64)
+        for k in range(5):
+            words |= padded[k:k + n] << np.uint64(32 - 8 * k)
+        self.words = words.tolist()
+        self.nbits = len(seg) * 8
+        self.pos = 0
+
+    def peek16(self) -> int:
+        p = self.pos
+        return (self.words[p >> 3] >> (24 - (p & 7))) & 0xFFFF
+
+    def get(self, n: int) -> int:
+        if n == 0:
+            return 0
+        p = self.pos
+        v = (self.words[p >> 3] >> (40 - (p & 7) - n)) & ((1 << n) - 1)
+        self.pos = p + n
+        return v
+
+    def check(self):
+        if self.pos > self.nbits:
+            _fail("truncated or corrupt entropy-coded data")
+
+
+def _extend(v: int, s: int) -> int:
+    return v - (1 << s) + 1 if s and v < (1 << (s - 1)) else v
+
+
+def _decode_symbol(bits: _Bits, table: list) -> int:
+    length, symbol = table[bits.peek16()]
+    if length == 0:
+        _fail("corrupt Huffman code")
+    bits.pos += length
+    return symbol
+
+
+def _decode_block(bits: _Bits, dc_table, ac_table, pred: int, out):
+    s = _decode_symbol(bits, dc_table)
+    if s > 15:
+        _fail("corrupt DC code")
+    dc = pred + _extend(bits.get(s), s)
+    dc = ((dc + 32768) & 0xFFFF) - 32768  # JCOEF is 16-bit
+    out[0] = dc
+    k = 1
+    while k < 64:
+        rs = _decode_symbol(bits, ac_table)
+        r, s = rs >> 4, rs & 15
+        if s == 0:
+            if r != 15:
+                break
+            k += 16
+            continue
+        k += r
+        if k > 63:
+            _fail("corrupt AC run")
+        out[ZIGZAG_LIST[k]] = _extend(bits.get(s), s)
+        k += 1
+    return dc
+
+
+
+def _decode_scan(frame: Frame, scan, data: bytes, pos: int) -> int:
+    """Huffman-decode one scan into the components' coefficients; returns
+    the offset of the marker after it. A scan of one component codes its
+    blocks one by one, over its own width and height; an interleaved scan
+    codes MCUs of h x v blocks of each component in turn."""
+    comps, restart = scan
+    segments, end = _entropy_segments(data, pos)
+    if len(comps) == 1:
+        c = comps[0][0]
+        units_x, units_y = -(-c.width // 8), -(-c.height // 8)
+        shapes = [(1, 1)]
+    else:
+        hmax = max(c.h for c in frame.components)
+        vmax = max(c.v for c in frame.components)
+        units_x = -(-frame.width // (8 * hmax))
+        units_y = -(-frame.height // (8 * vmax))
+        shapes = [(c.v, c.h) for c, _, _ in comps]
+    total = units_x * units_y
+    per_interval = restart or total
+    if len(segments) != -(-total // per_interval):
+        _fail(f"{len(segments)} restart intervals, want "
+              f"{-(-total // per_interval)}")
+    block = [0] * 64
+    for s_i, seg in enumerate(segments):
+        bits = _Bits(seg)
+        preds = [0] * len(comps)
+        for u in range(s_i * per_interval,
+                       min(total, (s_i + 1) * per_interval)):
+            uy, ux = divmod(u, units_x)
+            for i, ((c, dct, act), (v, h)) in enumerate(zip(comps, shapes)):
+                for by in range(v):
+                    for bx in range(h):
+                        block[:] = [0] * 64
+                        preds[i] = _decode_block(bits, dct, act, preds[i],
+                                                 block)
+                        bits.check()
+                        c.coefs[uy * v + by, ux * h + bx] = block
+    return end
+
+
+def _check_colour_space(frame: Frame):
+    """jdapimin.c default_decompress_parms: a 3-component JPEG is RGB
+    (refused) under an Adobe marker with transform 0, or, with neither a
+    JFIF nor an Adobe marker, component ids 'R', 'G', 'B'."""
+    if len(frame.components) != 3:
+        return
+    ids = tuple(c.cid for c in frame.components)
+    if frame.jfif:
+        return
+    if frame.adobe_transform is not None:
+        if frame.adobe_transform == 0:
+            _fail("RGB JPEGs (Adobe transform 0) are not read")
+        return
+    if ids == (82, 71, 66):
+        _fail("RGB JPEGs (component ids R, G, B) are not read")
+
+
+# --- the inverse DCT -----------------------------------------------------
+
+FIX_0_298631336, FIX_0_390180644, FIX_0_541196100 = 2446, 3196, 4433
+FIX_0_765366865, FIX_0_899976223, FIX_1_175875602 = 6270, 7373, 9633
+FIX_1_501321110, FIX_1_847759065, FIX_1_961570560 = 12299, 15137, 16069
+FIX_2_053119869, FIX_2_562915447, FIX_3_072711026 = 16819, 20995, 25172
+
+
+def _i16(x: np.ndarray) -> np.ndarray:
+    """Wrap to a signed 16-bit value, as a SIMD lane does."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _idct_1d(c):
+    """One pass of jpeg_idct_islow over axis 0 of `c` ([8, ...] int64),
+    before the descale: the eight outputs in order. The 16-bit sums are
+    those of the SIMD version."""
+    z2, z3 = c[2], c[6]
+    z1 = (z2 + z3) * FIX_0_541196100
+    tmp2 = z1 - z3 * FIX_1_847759065
+    tmp3 = z1 + z2 * FIX_0_765366865
+    tmp0 = _i16(c[0] + c[4]) << 13
+    tmp1 = _i16(c[0] - c[4]) << 13
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+
+    t0, t1, t2, t3 = c[7], c[5], c[3], c[1]
+    z1 = t0 + t3
+    z2 = t1 + t2
+    z3 = _i16(t0 + t2)
+    z4 = _i16(t1 + t3)
+    z5 = (z3 + z4) * FIX_1_175875602
+    t0 = t0 * FIX_0_298631336
+    t1 = t1 * FIX_2_053119869
+    t2 = t2 * FIX_3_072711026
+    t3 = t3 * FIX_1_501321110
+    z1 = z1 * -FIX_0_899976223
+    z2 = z2 * -FIX_2_562915447
+    z3 = z3 * -FIX_1_961570560 + z5
+    z4 = z4 * -FIX_0_390180644 + z5
+    t0 += z1 + z3
+    t1 += z2 + z4
+    t2 += z2 + z3
+    t3 += z1 + z4
+    return [tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+            tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3]
+
+
+def idct_islow(coefs: np.ndarray, qtable: np.ndarray) -> np.ndarray:
+    """[..., 64] coefficients in row-major order and a row-major table →
+    [..., 8, 8] uint8 samples."""
+    shape = coefs.shape[:-1]
+    blocks = coefs.reshape(-1, 8, 8)
+    dq = _i16(blocks * qtable.reshape(8, 8))
+    # Pass 1 on columns: axis 1 is the vertical frequency.
+    cols = np.moveaxis(dq, 1, 0)  # [8 (u), N, 8 (column)]
+    out = np.stack(_idct_1d(cols))  # [8 (y), N, 8 (column)]
+    ws = np.clip((out + (1 << 10)) >> 11, -32768, 32767)
+    # All AC rows zero: the SIMD code skips the pass for the whole block.
+    ac_zero = ~blocks[:, 1:, :].any(axis=(1, 2))  # [N]
+    ws = np.where(ac_zero[None, :, None], _i16(cols[0] << 2)[None], ws)
+    # Pass 2 on rows: axis 2 of [y, N, x].
+    rows = np.moveaxis(ws, 2, 0)  # [8 (v), 8 (y), N]
+    out = np.stack(_idct_1d(rows))  # [8 (x), 8 (y), N]
+    pix = np.clip((out + (1 << 17)) >> 18, -128, 127) + 128
+    return pix.transpose(2, 1, 0).reshape(*shape, 8, 8).astype(np.uint8)
+
+
+# --- upsampling and colour -----------------------------------------------
+
+
+def _plane(c: Component, qtable: np.ndarray) -> np.ndarray:
+    """A component's samples, [blocks_h*8, blocks_w*8] int64."""
+    pix = idct_islow(c.coefs, qtable)  # [bh, bw, 8, 8]
+    return pix.transpose(0, 2, 1, 3).reshape(c.blocks_h * 8,
+                                              c.blocks_w * 8).astype(np.int64)
+
+
+def _fancy_h2(x: np.ndarray, width: int, bias_left: int, bias_right: int,
+              shift: int) -> np.ndarray:
+    """Horizontal 2x fancy upsampling of x [..., width] (the component's
+    real width): out[2c] = (3 x[c] + x[c-1] + bias_left) >> shift and
+    out[2c+1] = (3 x[c] + x[c+1] + bias_right) >> shift, edges
+    replicated. h2v1 passes samples; h2v2 passes its column sums."""
+    left = np.concatenate([x[..., :1], x[..., :-1]], axis=-1)
+    right = np.concatenate([x[..., 1:], x[..., -1:]], axis=-1)
+    out = np.empty((*x.shape[:-1], 2 * width), np.int64)
+    out[..., 0::2] = (3 * x + left + bias_left) >> shift
+    out[..., 1::2] = (3 * x + right + bias_right) >> shift
+    return out
+
+
+def _upsample(p: np.ndarray, c: Component, hmax: int, vmax: int,
+              out_h: int, out_w: int) -> np.ndarray:
+    """A component plane upsampled to the frame's full size, as
+    jdsample.c's routine for its factors does."""
+    fh, fv = hmax // c.h, vmax // c.v
+    real = p[:c.height, :c.width]
+    if (fh, fv) == (1, 1):
+        return p[:out_h, :out_w]
+    if (fh, fv) == (2, 1) and c.width > 2:
+        up = _fancy_h2(real, c.width, 1, 2, 2)
+        return up[:out_h, :out_w]
+    if (fh, fv) == (1, 2):
+        above = np.concatenate([real[:1], real[:-1]], axis=0)
+        below = np.concatenate([real[1:], real[-1:]], axis=0)
+        up = np.empty((2 * c.height, c.width), np.int64)
+        up[0::2] = (3 * real + above + 1) >> 2
+        up[1::2] = (3 * real + below + 2) >> 2
+        return up[:out_h, :out_w]
+    if (fh, fv) == (2, 2) and c.width > 2:
+        above = np.concatenate([real[:1], real[:-1]], axis=0)
+        below = np.concatenate([real[1:], real[-1:]], axis=0)
+        sums = np.empty((2 * c.height, c.width), np.int64)
+        sums[0::2] = 3 * real + above
+        sums[1::2] = 3 * real + below
+        up = _fancy_h2(sums, c.width, 8, 7, 4)
+        return up[:out_h, :out_w]
+    # Box upsampling (h2v1_upsample, h2v2_upsample, int_upsample).
+    up = np.repeat(np.repeat(p, fv, axis=0), fh, axis=1)
+    return up[:out_h, :out_w]
+
+
+SCALEBITS = 16
+ONE_HALF = 1 << (SCALEBITS - 1)
+
+
+def _fix(x: float) -> int:
+    return int(x * (1 << SCALEBITS) + 0.5)
+
+
+def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """jdcolor.c ycc_rgb_convert on int arrays of samples → uint8
+    [..., 3] RGB."""
+    cb = cb - 128
+    cr = cr - 128
+    r = y + ((_fix(1.40200) * cr + ONE_HALF) >> SCALEBITS)
+    g = y + ((-_fix(0.34414) * cb + ONE_HALF - _fix(0.71414) * cr)
+             >> SCALEBITS)
+    b = y + ((_fix(1.77200) * cb + ONE_HALF) >> SCALEBITS)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def decode_pixels(data: bytes) -> np.ndarray:
+    """JPEG bytes → uint8 RGB [H, W, 3], before any Exif orientation."""
+    frame, _ = parse(bytes(data))
+    hmax = max(c.h for c in frame.components)
+    vmax = max(c.v for c in frame.components)
+    h, w = frame.height, frame.width
+    planes = [_upsample(_plane(c, frame.qtables[c.tq]), c, hmax, vmax, h, w)
+              for c in frame.components]
+    if len(planes) == 1:
+        gray = planes[0].astype(np.uint8)
+        return np.repeat(gray[:, :, None], 3, axis=2)
+    return ycc_to_rgb(*planes)
+
+
+def exif_block(data: bytes) -> bytes | None:
+    """The TIFF bytes of the first APP1 Exif segment before the first SOS,
+    or None (also for a header too broken to walk)."""
+    pos = 2
+    try:
+        while True:
+            marker, pos = _next_marker(data, pos)
+            if marker in (0xDA, 0xD9) or 0xD0 <= marker <= 0xD7:
+                return None
+            start, pos = _segment(data, pos)
+            if marker == 0xE1 and data[start:start + 6] == b"Exif\x00\x00":
+                return bytes(data[start + 6:pos])
+    except ValueError:
+        return None

@@ -67,17 +67,18 @@ def planted_annotations(boxes, keypoints, rng, height: int,
     return anns
 
 
-def write_coco(directory, images, annotations, write_png):
-    """PNG images (through `write_png`) and a COCO person-keypoints JSON
-    of `annotations` (one list per image). Returns (json path, image
-    directory)."""
+def write_coco(directory, images, annotations, write_png,
+               suffix: str = ".png"):
+    """Images (through `write_png`, or any writer of `suffix` files) and
+    a COCO person-keypoints JSON of `annotations` (one list per image).
+    Returns (json path, image directory)."""
     directory = Path(directory)
     image_dir = directory / "images"
     image_dir.mkdir(parents=True, exist_ok=True)
     data = {"images": [], "annotations": [],
             "categories": [{"id": 1, "name": "person"}]}
     for i, (image, anns) in enumerate(zip(images, annotations)):
-        name = f"{i:06d}.png"
+        name = f"{i:06d}{suffix}"
         write_png(image_dir / name, image)
         data["images"].append({"id": i, "file_name": name,
                                "height": image.shape[0],

@@ -3,16 +3,17 @@ against the JAX package's on one JAX export of a tiny float32 fast()
 config (score threshold 0), and the port's TF checkpoint import against
 the JAX package's.
 
-`eval` runs on a COCO JSON and PNG images that the test writes, with
-ground truth planted around the port's own detections (seeded jitter),
-so that AP lies strictly between 0 and 1; the stats agree within 0.01
-(test_torch_eval.py explains the bound). The batched loop resizes on the
-host, the JAX package with cv2 and the port with `resize_linear`, which
-differ by at most one grey level; the model's detections on such inputs
-stay within that bound too. `predict` prints the same people: boxes to
-2e-3 px, scores to 1e-5, keypoints to 1e-3 px (test_torch_predictor.py);
-its `--output` PNG is drawn without cv2 and agrees with cv2's drawing on
-at least 90% of the pixels either one changed.
+`eval` runs on a COCO JSON and images that the test writes, as PNG and
+as JPEG (cv2-written), with ground truth planted around the port's own
+detections (seeded jitter), so that AP lies strictly between 0 and 1;
+the stats agree within 0.01 (test_torch_eval.py explains the bound). The
+port reads both formats and resizes on the host bit for bit as cv2 does
+(test_torch_jpeg.py, test_torch_data.py), so the two batched loops see
+the same pixels. `predict` prints the same people on a PNG and on a
+JPEG: boxes to 2e-3 px, scores to 1e-5, keypoints to 1e-3 px
+(test_torch_predictor.py); its `--output` PNG is drawn without cv2 and
+agrees with cv2's drawing on at least 90% of the pixels either one
+changed, and any other `--output` suffix exits before the model runs.
 """
 
 import argparse
@@ -77,15 +78,28 @@ def workdir(tmp_path_factory):
             np.stack([p.keypoints for p in people]), rng, 100, 140))
     coco_json, image_dir = write_coco(root / "coco", images, anns,
                                       image_io.write_png)
+    jpeg_json, jpeg_dir = write_coco(root / "coco_jpeg", images, anns,
+                                     _write_jpeg, suffix=".jpg")
     return {"root": root, "model": str(model_dir), "coco": coco_json,
-            "images": image_dir, "image": f"{image_dir}/000000.png"}
+            "images": image_dir, "image": f"{image_dir}/000000.png",
+            "coco_jpeg": jpeg_json, "images_jpeg": jpeg_dir,
+            "image_jpeg": f"{jpeg_dir}/000000.jpg"}
 
 
+def _write_jpeg(path, rgb):
+    """A 4:2:0 q90 JPEG, as cv2 writes it."""
+    assert cv2.imwrite(str(path), np.ascontiguousarray(rgb[:, :, ::-1]),
+                       [cv2.IMWRITE_JPEG_QUALITY, 90])
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpeg"])
 @pytest.mark.parametrize("batched", [False, True],
                          ids=["predict_loop", "batched"])
-def test_eval_matches_jax_cli(workdir, batched):
+def test_eval_matches_jax_cli(workdir, batched, fmt):
+    suffix = "" if fmt == "png" else "_jpeg"
     argv = ["eval", "--model-dir", workdir["model"], "--coco-json",
-            workdir["coco"], "--image-dir", workdir["images"]]
+            workdir["coco" + suffix], "--image-dir",
+            workdir["images" + suffix]]
     if batched:
         argv += ["--batched", "--batch-size", "8"]  # 6 images: one padded
     want_text = _run(jax_cli.main, argv)
@@ -191,12 +205,38 @@ def test_device_defaults_to_the_card(workdir, monkeypatch):
             cli.main(argv + ["--model-dir", workdir["model"]])
 
 
-def test_predict_refuses_a_format_it_does_not_read(workdir, tmp_path):
-    path = tmp_path / "in.jpg"
-    cv2.imwrite(str(path), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(SystemExit, match="JPEG"):
+def test_predict_on_a_jpeg_matches_jax_cli(workdir):
+    """`predict --image x.jpg` prints the JAX CLI's people."""
+    argv = ["predict", "--model-dir", workdir["model"], "--image",
+            workdir["image_jpeg"]]
+    want = json.loads(_run(jax_cli.main, argv))
+    got = json.loads(_run(cli.main, argv + ["--device", "cpu"]))
+    assert len(want) > 0 and len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["box"], w["box"], atol=2e-3, rtol=1e-5)
+        assert abs(g["score"] - w["score"]) <= 1e-5
+        np.testing.assert_allclose(g["keypoints"], w["keypoints"],
+                                   atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("output", ["drawn.jpg", "drawn.JPEG", "drawn"])
+def test_predict_output_other_than_png_exits(workdir, tmp_path, monkeypatch,
+                                             output):
+    """The reference writes by suffix through cv2.imwrite; the port
+    writes PNG only, so it exits naming the suffix before the model is
+    loaded, and writes nothing."""
+    from multiposenet_tpu_torch.infer import export as port_export
+
+    def no_model(*args, **kwargs):
+        raise AssertionError("the model was loaded")
+
+    monkeypatch.setattr(port_export, "load_predictor", no_model)
+    suffix = output.rpartition(".")[2] if "." in output else "none"
+    with pytest.raises(SystemExit, match=f"suffix .?{suffix}.*only PNG"):
         cli.main(["predict", "--model-dir", workdir["model"], "--image",
-                  str(path), "--device", "cpu"])
+                  workdir["image_jpeg"], "--output", str(tmp_path / output),
+                  "--device", "cpu"])
+    assert not (tmp_path / output).exists()
 
 
 def test_train_commands_are_not_registered():
@@ -350,3 +390,48 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 1}
     assert restored == (runner.KeypointEvaluator, runner.evaluate_batched,
                         predictor.Predictor.predict, cli._load_records)
+
+
+def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
+    """chip_smoke.py's `image_codec` and `eval_jpeg` phases on the CPU,
+    after `phase_eval` exported its model at a small size: the fixtures
+    decode and resize to cv2's digests through the C library and the
+    plain versions, and the JPEG eval and predict count their B1 launches
+    (2 and 1) as the card's wrapper would."""
+    from multiposenet_tpu_torch import kernels
+    from multiposenet_tpu_torch.config import Config
+    from multiposenet_tpu_torch.eval import runner
+    from multiposenet_tpu_torch.infer import predictor
+    from multiposenet_tpu_torch.ops import decode
+    from multiposenet_tpu_torch.utils import image_codec, jpeg
+
+    from torch_port_helpers import chip_smoke_module
+
+    smoke = chip_smoke_module()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(predictor, "resolve_device",
+                        lambda device: torch.device(device or "cpu"))
+    plain = decode.decode_maps
+
+    def counted(hm, config=decode.DecodeConfig()):
+        kernels.count_launch(decode.route(hm, config))
+        return plain(hm, config)
+
+    monkeypatch.setattr(decode, "decode_maps", counted)
+    monkeypatch.setattr(smoke, "IMAGE", 64)
+    monkeypatch.setattr(smoke, "EVAL_IMAGES", 2)
+    monkeypatch.setattr(smoke, "EVAL_BATCH", 2)
+    monkeypatch.setattr(smoke, "EVAL_PREDICT_IMAGES", 1)
+    lines = []
+    monkeypatch.setattr(smoke, "emit", lines.append)
+    smoke.phase_image_codec(image_io, image_codec, jpeg, "cpu")
+    smoke.phase_eval(Config, predictor.Predictor, export, cli, runner,
+                     decode, kernels, tmp_path, "cpu")
+    paths = smoke.phase_eval_jpeg(cli, image_io, visualize, decode, kernels,
+                                  tmp_path, "cpu")
+    assert paths == {"eval_jpeg_batched": 2, "cli_predict_jpeg": 1}
+    codec, jpeg_row = lines[0], lines[-1]
+    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 26
+    assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
+    assert jpeg_row["phase"] == "eval_jpeg" and jpeg_row["images"] == 10
+    assert ".jpg" in jpeg_row["output_jpg_exit"]

@@ -9,7 +9,8 @@ through B1, an exported model loaded onto the card, and B1 on Config()'s
 float32 maps; B4 (`csrc/column_topk.cu`, the decode micro-benchmark's
 per-column top-8 of the 3x3 peak mask) against its plain version on
 column 0 and on every column; the command line on the card: `eval
---batched` against the CPU's stats and `predict` without `--device`.
+--batched` against the CPU's stats, on PNG scenes and on the committed
+JPEG fixtures (tests/fixtures/images), and `predict` without `--device`.
 Without a GPU every test here skips.
 
 This file imports neither JAX nor the JAX package, so on a machine that
@@ -22,6 +23,7 @@ import contextlib
 import dataclasses
 import io
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1043,3 +1045,25 @@ def test_cli_predict_defaults_to_card(cli_workdir, tmp_path):
     assert people and all(len(p["keypoints"]) == 17 for p in people)
     drawn, image = read_image(out_png), read_image(cli_workdir["image"])
     assert drawn.shape == image.shape and (drawn != image).any()
+
+
+FIXTURES = Path(__file__).resolve().parent / "fixtures" / "images"
+
+
+def test_cli_eval_batched_on_jpeg_fixtures_matches_cpu(cli_workdir):
+    """`eval --batched` on the committed JPEG scenes (every sampling cv2
+    writes; read through the host C library) on the card, TF32 off: the
+    CPU's stats within 0.01, with exactly one B1 launch a batch of 8 (10
+    images: 2) and no other kernel."""
+    argv = ["eval", "--model-dir", cli_workdir["model"], "--coco-json",
+            str(FIXTURES / "annotations.json"), "--image-dir",
+            str(FIXTURES), "--batched", "--batch-size", "8"]
+    want = json.loads(_cli_stdout(argv + ["--device", "cpu"]))
+    with no_tf32():
+        kernels.reset_launches()
+        got = json.loads(_cli_stdout(argv))
+        assert kernels.LAUNCHES == {decode.KERNEL: 2}
+    assert list(got) == list(want)
+    for key in want:
+        assert np.isfinite(got[key])
+        assert abs(got[key] - want[key]) <= 0.01, (key, got, want)

@@ -18,9 +18,12 @@ package's `eval/oks.py` and `eval/runner.py`.
   thresholds among the ~50 ground truths here moves a stat by at most
   1/(10 x 10) of its range: the stats are held to 0.01, and the
   detections themselves to those tolerances.
+- The batched loop's assembled uint8 batches on the committed JPEG
+  fixtures: the JAX runner's (cv2 read and resize) bit for bit.
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -292,3 +295,54 @@ def test_evaluate_predictor_on_real_predictors_matches_jax(exported,
     assert set(got) == STAT_KEYS
     for key in STAT_KEYS:
         assert abs(got[key] - want[key]) <= 0.01, key
+
+
+# --- the batched loop's pixels ---------------------------------------------
+
+FIXTURES = Path(__file__).resolve().parent / "fixtures" / "images"
+
+
+class CapturingPredictor:
+    """Keeps every uint8 batch the batched loop assembles and answers
+    with no detections."""
+
+    def __init__(self, size: int, port: bool):
+        self.image_size, self.port = size, port
+        self.batches = []
+
+    def make_batch_runner(self, mesh=None):
+        return self._run
+
+    def _run(self, images):
+        self.batches.append(np.array(images))
+        b = len(images)
+        out = {"box_scores": np.zeros((b, 2), np.float32),
+               "box_valid": np.zeros((b, 2), bool),
+               "keypoints": np.zeros((b, 2, 17, 3), np.float32)}
+        if self.port:
+            return {k: torch.as_tensor(v) for k, v in out.items()}
+        return out
+
+
+@pytest.mark.parametrize("size", [64, 300, 512])
+def test_batched_loop_assembles_the_jax_runners_pixels(size):
+    """The committed JPEG scenes (every sampling cv2 writes, gray, q 50 to
+    95) through both runners' batched loops: the port reads them with
+    `read_image` and resizes with `resize_linear`, the JAX package with
+    cv2.imread and cv2.resize; the uint8 batches are equal bit for bit,
+    down- and upscaled (512: the heights upscaled 192 → 384)."""
+    from multiposenet_tpu_torch.data.coco import load_coco_keypoints
+
+    records = load_coco_keypoints(FIXTURES / "annotations.json")
+    assert len(records) == 10
+    got = CapturingPredictor(size, port=True)
+    want = CapturingPredictor(size, port=False)
+    runner.evaluate_batched(got, records, batch_size=4,
+                            image_dir=str(FIXTURES))
+    jax_runner.evaluate_batched(want, records, batch_size=4,
+                                image_dir=str(FIXTURES))
+    assert len(got.batches) == len(want.batches) == 3
+    for g, w in zip(got.batches, want.batches):
+        assert g.dtype == np.uint8 and g.shape == (4, size, size, 3)
+        np.testing.assert_array_equal(g, w)
+    assert got.batches[0].any()

@@ -54,8 +54,8 @@ def test_every_module_imports_without_jax():
     for name in ("infer.predictor", "infer.export", "infer.msgpack_io",
                  "ops.pose_nms", "ops.column_topk", "tools.dbench2",
                  "eval.oks", "eval.runner", "data.synthetic", "data.coco",
-                 "data.loader", "utils.image_io", "utils.visualize", "cli",
-                 "__main__"):
+                 "data.loader", "utils.image_io", "utils.image_codec",
+                 "utils.jpeg", "utils.visualize", "cli", "__main__"):
         assert f"multiposenet_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
