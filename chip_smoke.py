@@ -29,7 +29,14 @@ and holds its JPEG decode and letterbox resize, and the plain NumPy
 versions, to cv2's digests of the committed fixtures
 (tests/fixtures/images); after them, phase `eval_jpeg` runs `eval
 --batched` on those JPEGs (two launches), `predict` on the 480x640 JPEG
-(one launch) and checks that `--output x.jpg` exits.
+(one launch) and checks that `--output x.jpg` exits. Then training, which
+reaches no TPU kernel (the fused tail is off in training and the decodes
+are inference only): phase `train_parity` holds 3 steps of the tiny
+config in float32 on the card against the CPU and fits one batch in 20
+steps; `train_default` times Config() at 512², batch 32, fed by the
+port's `batch_iterator` with augmentation, and `train_fast` Config.fast()
+in bfloat16 at batch 64; `train_cli` runs `train` in this process, resumes
+it, and serves the exported model with one `predict` (one B1 launch).
 
     python3 chip_smoke.py
 
@@ -1366,12 +1373,20 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
     checked = {}
     for name, want in sorted(digests.items()):
         data = (FIXTURES / name).read_bytes()
-        got = image_io.decode_image(data, name)
+        got = image_io.read_image(FIXTURES / name)
         if [list(got.shape), sha256(got)] != [want["shape"],
                                                want["rgb_sha256"]]:
             raise AssertionError(f"image_codec: {name} decodes to "
                                  f"{got.shape}, not cv2's digest")
-        if name.endswith(".jpg"):
+        if name.startswith("c3_truncated"):
+            try:
+                image_io.decode_image(data, name)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"image_codec: {name}: bytes cut "
+                                     "short decode (imdecode refuses)")
+        if name.endswith(".jpg") and not name.startswith("c3_"):
             plain = image_io.apply_orientation(
                 jpeg.decode_pixels(data),
                 image_io.exif_orientation(jpeg.exif_block(data)))
@@ -1398,8 +1413,9 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
     plain_small_s = time.perf_counter() - t0
     emit({"phase": "image_codec", "card": card, "build_s": build_s,
           "fixtures": checked,
-          "equal": "C = plain = cv2 digest, decode and letterbox, every "
-                   "fixture",
+          "equal": "C = cv2 digest (imread), decode and letterbox, every "
+                   "fixture; plain = C on the baseline ones; c3_truncated "
+                   "bytes refused as imdecode refuses them",
           "timing_fixture": TIMING_FIXTURE, "timing_bytes": len(data),
           "c_decode_ms": c_ms,
           "c_decode_mb_per_s": len(data) / 1e6 / (c_ms / 1e3),
@@ -1494,6 +1510,239 @@ def phase_eval_jpeg(cli, image_io, visualize, decode, kernels,
     return launches
 
 
+# --- training ----------------------------------------------------------------
+
+TRAIN_IMAGE, TRAIN_BATCH, FAST_BATCH = 512, 32, 64
+TINY_IMAGE, TINY_BATCH = 128, 8
+# The JAX package's loop logs its step's metrics plus these two.
+TRAIN_METRIC_KEYS = sorted(["heatmap_loss", "segmentation_loss", "cls_loss",
+                            "box_loss", "detector_loss", "total_loss",
+                            "grad_norm", "step", "images_per_sec"])
+
+
+def tiny_train_config(Config, **train):
+    """`__graft_entry__._tiny_config`'s shapes (the JAX package's train
+    smoke): Config.fast()'s architecture family at test widths, float32."""
+    cfg = Config()
+    return cfg.replace(
+        model=dataclasses.replace(
+            cfg.model, backbone_width=0.25, fpn_channels=32,
+            head_channels=32, kp_head_convs=1, kp_smooth_pyramid=False,
+            kp_p2_late=True, stem_stride=4),
+        detector=dataclasses.replace(cfg.detector, pre_nms_top_k=100,
+                                     max_detections=8, score_threshold=0.0),
+        prn=dataclasses.replace(cfg.prn, crop_height=14, crop_width=10,
+                                hidden_units=64, max_persons=8),
+        decode=dataclasses.replace(cfg.decode, max_peaks_per_channel=4),
+        train=dataclasses.replace(
+            cfg.train, image_size=TINY_IMAGE, batch_size=TINY_BATCH,
+            num_steps=10, warmup_steps=2, **train))
+
+
+def seeded_model(MultiPoseNet, cfg, seed: int = 0):
+    model = MultiPoseNet(cfg)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    return model
+
+
+def rel_err(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def phase_train_parity(Config, MultiPoseNet, synthetic, loader, steps_lib,
+                       device, card: str) -> dict:
+    """The tiny config in float32, TF32 off: 3 steps on the card and 3 on
+    the CPU from the same seeded weights and batches. Steps 1 and 2 run
+    on the same parameters (lr is 0 at the first update): losses to 1e-4
+    relative and batch statistics to 1e-5, grad_norm to 1e-2 (float32
+    gradients of this tiny model flip ReLU gates on its 1x1 and 2x2 maps:
+    on the card and on the CPU alike they part from the float64 gradient
+    by up to 1e-3 in the global norm and 2.5% on single leaves). Step 3
+    follows the first real update, where Adam moves elements of
+    near-zero gradient by about ±lr on the sign of their rounding: 1e-2
+    there for the losses, and its batch statistics are reported, not
+    held. Then 20 steps with warmup 2 on one batch on the card:
+    total_loss falls by at least half."""
+    cfg = tiny_train_config(Config)
+    records = synthetic.make_dataset(3 * TINY_BATCH, img_h=192, img_w=160,
+                                     seed=5)
+    rng = np.random.RandomState(11)
+    batches = [loader.make_batch(records[i * TINY_BATCH:(i + 1) * TINY_BATCH],
+                                 TINY_IMAGE, cfg.prn.max_persons, rng)
+               for i in range(3)]
+    model = seeded_model(MultiPoseNet, cfg)
+    runs = {}
+    with no_tf32():
+        for where in (device, torch.device("cpu")):
+            state = steps_lib.create_train_state(
+                cfg, model=copy.deepcopy(model), device=where)
+            step = steps_lib.make_train_step(cfg)
+            metrics, stats = [], []
+            for b in batches:
+                state, m = step(state, steps_lib.batch_to(b, where))
+                metrics.append({k: float(v) for k, v in m.items()})
+                stats.append({k: v.detach().cpu().clone()
+                              for k, v in state.batch_stats.items()})
+            runs[where.type] = (metrics, stats)
+    (card_m, card_s), (cpu_m, cpu_s) = runs[device.type], runs["cpu"]
+    errs = []
+    for i in range(3):
+        loss_err = max(rel_err(card_m[i][k], cpu_m[i][k]) for k in cpu_m[i]
+                       if k != "grad_norm")
+        norm_err = rel_err(card_m[i]["grad_norm"], cpu_m[i]["grad_norm"])
+        stat_err = max(float((card_s[i][k] - v).abs().max())
+                       for k, v in cpu_s[i].items())
+        errs.append({"step": i + 1, "max_rel_err_losses": loss_err,
+                     "rel_err_grad_norm": norm_err,
+                     "max_abs_err_batch_stats": stat_err})
+        ok = (loss_err <= (1e-4 if i < 2 else 1e-2) and norm_err <= 1e-2
+              and (stat_err <= 1e-5 or i == 2))
+        if not ok:
+            raise AssertionError(f"train_parity: step {i + 1}: {errs[-1]}")
+    fit_cfg = cfg.replace(train=dataclasses.replace(cfg.train, num_steps=20))
+    state = steps_lib.create_train_state(
+        fit_cfg, model=copy.deepcopy(model), device=device)
+    step = steps_lib.make_train_step(fit_cfg)
+    one = steps_lib.batch_to(batches[0], device)
+    curve = []
+    for _ in range(20):
+        state, m = step(state, one)
+        curve.append(float(m["total_loss"]))
+    if not (np.isfinite(curve).all() and curve[-1] <= 0.5 * curve[0]):
+        raise AssertionError(f"train_parity: 20 steps on one batch: {curve}")
+    emit({"phase": "train_parity", "card": card, "config": "tiny f32",
+          "image": TINY_IMAGE, "batch": TINY_BATCH, "tf32": False,
+          "card_vs_cpu": errs, "card_metrics": card_m,
+          "fit_one_batch_total_loss": curve})
+    return {"steps": 3}
+
+
+def loader_img_per_s(loader, records, cfg, batches: int) -> float:
+    """The loader's own rate: `batches` batches from a fresh iterator
+    with augmentation, host clock, nothing else running."""
+    it = loader.batch_iterator(records, cfg.train.batch_size,
+                               cfg.train.image_size, cfg.prn.max_persons,
+                               seed=1, train=True)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    return batches * cfg.train.batch_size / (time.perf_counter() - t0)
+
+
+def timed_train(cfg, MultiPoseNet, synthetic, loader, steps_lib, device,
+                warm: int, timed: int) -> dict:
+    """`warm` + `timed` steps of `cfg` fed by `batch_iterator` over the
+    synthetic scenes `train --synthetic` reads (64 at 256²), augmented.
+    Step times on CUDA events around each call (host to device copy of
+    the batch included); peak device memory over the steps."""
+    records = synthetic.make_dataset(64, img_h=256, img_w=256, seed=0)
+    batches = loader.batch_iterator(records, cfg.train.batch_size,
+                                    cfg.train.image_size,
+                                    cfg.prn.max_persons, train=True)
+    state = steps_lib.create_train_state(
+        cfg, model=seeded_model(MultiPoseNet, cfg), device=device)
+    step = steps_lib.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(warm + timed):
+        b = next(batches)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, steps_lib.batch_to(b, device))
+        end.record()
+        end.synchronize()
+        losses.append({k: float(v) for k, v in m.items()})
+        if i >= warm:
+            times.append(start.elapsed_time(end))
+    if not all(np.isfinite(list(m.values())).all() for m in losses):
+        raise AssertionError(f"training: losses not finite: {losses}")
+    step_ms = statistics.median(times)
+    return {"step_ms": step_ms, "step_ms_each": times,
+            "train_img_per_s": cfg.train.batch_size * 1e3 / step_ms,
+            "loader_img_per_s": loader_img_per_s(loader, records, cfg, 3),
+            "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "last_metrics": losses[-1]}
+
+
+def phase_train_default(Config, MultiPoseNet, synthetic, loader, steps_lib,
+                        device, card: str) -> None:
+    """Config() (the command line's default: float32, full width and
+    depth) at 512², batch 32: 2 warm-up and 5 timed steps."""
+    flags = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, image_size=TRAIN_IMAGE, batch_size=TRAIN_BATCH))
+    out = timed_train(cfg, MultiPoseNet, synthetic, loader, steps_lib,
+                      device, 2, 5)
+    emit({"phase": "train_default", "card": card, "config": "Config() f32",
+          "image": TRAIN_IMAGE, "batch": TRAIN_BATCH, "tf32_flags": flags,
+          "clock": "CUDA events per step; loader on the host clock", **out})
+
+
+def phase_train_fast(Config, MultiPoseNet, synthetic, loader, steps_lib,
+                     device, card: str) -> None:
+    """Config.fast() (bfloat16) at 512², batch 64: 3 steps, the last 2
+    timed."""
+    cfg = Config.fast()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, image_size=TRAIN_IMAGE, batch_size=FAST_BATCH))
+    out = timed_train(cfg, MultiPoseNet, synthetic, loader, steps_lib,
+                      device, 1, 2)
+    emit({"phase": "train_fast", "card": card, "config": "Config.fast() bf16",
+          "image": TRAIN_IMAGE, "batch": FAST_BATCH, **out})
+
+
+def phase_train_cli(Config, cli, export, train_ckpt, decode, kernels,
+                    device, directory: Path, card: str) -> int:
+    """`train --synthetic 16 --steps 3 --config <tiny> --model-dir <dir>`
+    in this process on the card: metrics.jsonl has the JAX loop's keys
+    at steps 1..3; `--steps 5` again resumes from the checkpoint at step
+    3 (logs steps 4 and 5 only); the exported EMA model loads into the
+    port's Predictor on the card and one `predict` launches B1 exactly
+    once. Returns that launch."""
+    ckpt = directory / "train_ckpt"
+    cfg = tiny_train_config(Config, checkpoint_dir=str(ckpt),
+                            log_interval_steps=1, save_interval_steps=100)
+    cfg_path = directory / "train_cfg.json"
+    cfg_path.write_text(cfg.to_json())
+    model_dir = directory / "trained"
+    argv = ["train", "--synthetic", "16", "--config", str(cfg_path),
+            "--model-dir", str(model_dir)]
+    t0 = time.perf_counter()
+    first = cli_stdout(cli, argv + ["--steps", "3"])
+    first_s = time.perf_counter() - t0
+    second = cli_stdout(cli, argv + ["--steps", "5"])
+    logged = [json.loads(line) for text in (first, second)
+              for line in text.splitlines() if line.startswith("{")]
+    lines = [json.loads(line) for line in
+             (ckpt / "metrics.jsonl").read_text().splitlines()]
+    if [m["step"] for m in lines] != [1, 2, 3, 4, 5] or lines != logged \
+            or any(sorted(m) != TRAIN_METRIC_KEYS for m in lines):
+        raise AssertionError(f"train_cli: metrics {lines}")
+    if train_ckpt.CheckpointManager(ckpt).latest_step() != 5:
+        raise AssertionError("train_cli: no checkpoint at step 5")
+    pred = export.load_predictor(model_dir)
+    if pred.device.type != device.type:
+        raise AssertionError("train_cli: the predictor is not on the card")
+    image = planted_scenes(np.random.RandomState(3), 1, 200, 240)[0]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    people = pred.predict(image)
+    torch.cuda.synchronize()
+    if dict(kernels.LAUNCHES) != {decode.KERNEL: 1}:
+        raise AssertionError(f"train_cli: predict launches "
+                             f"{kernels.LAUNCHES}")
+    emit({"phase": "train_cli", "card": card, "argv": argv,
+          "steps_logged": [m["step"] for m in lines],
+          "first_command_s": first_s, "persons": len(people),
+          "predict_launches": {decode.KERNEL: 1}})
+    return 1
+
+
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame, spills and shared memory that `nvcc -Xptxas
     -v` reports for the instantiations the main paths take: every
@@ -1521,7 +1770,7 @@ def main() -> int:
     try:
         from multiposenet_tpu_torch import cli, kernels
         from multiposenet_tpu_torch.config import Config
-        from multiposenet_tpu_torch.data import synthetic
+        from multiposenet_tpu_torch.data import loader, synthetic
         from multiposenet_tpu_torch.eval import runner
         from multiposenet_tpu_torch.infer import export, folding
         from multiposenet_tpu_torch.infer.predictor import Predictor
@@ -1531,6 +1780,8 @@ def main() -> int:
                                                 detection, kp_tail)
         from multiposenet_tpu_torch.ops import image as image_ops
         from multiposenet_tpu_torch.tools import dbench2
+        from multiposenet_tpu_torch.train import checkpoints as train_ckpt
+        from multiposenet_tpu_torch.train import steps as steps_lib
         from multiposenet_tpu_torch.utils import (image_codec, image_io, jpeg,
                                                   visualize)
     except ImportError as exc:
@@ -1594,6 +1845,15 @@ def main() -> int:
             Path(directory), card)
         b1_paths.update(phase_eval_jpeg(cli, image_io, visualize, decode,
                                         kernels, Path(directory), card))
+        phase_train_parity(Config, MultiPoseNet, synthetic, loader,
+                           steps_lib, device, card)
+        phase_train_default(Config, MultiPoseNet, synthetic, loader,
+                            steps_lib, device, card)
+        phase_train_fast(Config, MultiPoseNet, synthetic, loader, steps_lib,
+                         device, card)
+        b1_paths["train_cli_predict"] = phase_train_cli(
+            Config, cli, export, train_ckpt, decode, kernels, device,
+            Path(directory), card)
     launches[decode.KERNEL] = sum(b1_paths.values())
     rows[0]["launches_by_path"] = b1_paths
     for row in rows:

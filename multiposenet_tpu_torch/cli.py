@@ -1,10 +1,13 @@
 """Command-line entry points of the port, the counterparts of
-`multiposenet_tpu/cli.py`'s `eval` and `predict`, with the same flags,
-defaults and output, plus `--device` (by default the card; without one
-the command raises unless `--device cpu` is given). Training
-(`prepare`, `train`, `train-prn`) is not ported yet.
+`multiposenet_tpu/cli.py`'s `train`, `eval` and `predict`, with the same
+flags, defaults and output, plus `--device` (by default the card; without
+one the command raises unless `--device cpu` is given). `prepare` and
+`train-prn` are not ported yet.
 
 Usage:
+    python -m multiposenet_tpu_torch train --config cfg.json \
+        --coco-json ann.json --image-dir images/ [--synthetic N] \
+        [--steps N] [--model-dir out/]
     python -m multiposenet_tpu_torch eval --model-dir out/ \\
         [--coco-json ... --image-dir ...] [--synthetic N] [--batched]
     python -m multiposenet_tpu_torch predict --model-dir out/ \\
@@ -56,6 +59,36 @@ def _load_predictor(args):
     if args.model_dir and (Path(args.model_dir) / "config.json").exists():
         return load_predictor(args.model_dir, device=args.device)
     return Predictor(config=_load_config(args), device=args.device)
+
+
+def cmd_train(args) -> None:
+    """Train on one device (checkpoints and metrics.jsonl under the
+    config's train.checkpoint_dir); with --model-dir export the EMA
+    weights and the batch statistics in the JAX package's format."""
+    from multiposenet_tpu_torch.data.loader import batch_iterator
+    from multiposenet_tpu_torch.train.loop import train
+
+    config = _load_config(args)
+    if args.steps:
+        import dataclasses
+
+        config = config.replace(
+            train=dataclasses.replace(config.train, num_steps=args.steps))
+    records = _load_records(args)
+    batches = batch_iterator(
+        records, config.train.batch_size, config.train.image_size,
+        config.prn.max_persons, image_dir=args.image_dir, train=True)
+    state = train(config, batches, log_fn=lambda m: print(json.dumps(m)),
+                  device=args.device)
+    if args.model_dir:
+        from multiposenet_tpu_torch.infer.export import save_model
+        from multiposenet_tpu_torch.train.steps import ema_weights
+        from multiposenet_tpu_torch.weights import posenet_variables
+
+        with ema_weights(state) as model:
+            variables = posenet_variables(model)
+        save_model(args.model_dir, config, variables)
+        print(f"exported EMA model to {args.model_dir}")
 
 
 def cmd_eval(args) -> None:
@@ -120,6 +153,11 @@ def main(argv=None) -> None:
         p.add_argument("--device",
                        help="torch device (default: the CUDA card; "
                             "raises without one unless 'cpu' is given)")
+
+    p = sub.add_parser("train", help="train the pose network")
+    common(p)
+    p.add_argument("--steps", type=int)
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("eval", help="COCO keypoint OKS evaluation")
     common(p)

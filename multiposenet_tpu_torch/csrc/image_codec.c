@@ -1,14 +1,32 @@
-/* Host image codec of the port: baseline JPEG decoding and cv2's uint8
+/* Host image codec of the port: JPEG decoding and cv2's uint8
  * INTER_LINEAR resize, in plain C99 with no library.
  *
- * decode_jpeg is `utils/jpeg.py` (the plain version and the specification)
- * in C: libjpeg-turbo's Huffman decoding, its ISLOW IDCT in the arithmetic
- * of its SIMD code (16-bit dequantisation and sums, the first pass
- * saturated to 16 bits, the whole-block zero-AC shortcut), fancy
- * upsampling where libjpeg-turbo takes it and box upsampling elsewhere,
- * and its fixed-point YCbCr -> RGB. It writes RGB; the Exif orientation is
- * applied by the caller. Every mode the plain version refuses is refused
- * here, with the same words.
+ * decode_jpeg decodes as libjpeg-turbo 3 does under OpenCV 5's reader:
+ * baseline and extended sequential (SOF0, SOF1) and progressive (SOF2)
+ * Huffman-coded frames of 8-bit samples, 1, 3 or 4 components. Scans
+ * fill a coefficient buffer for the whole image (jdhuff.c and jdphuff.c:
+ * DC first and refine scans, AC first and refine scans with EOB runs,
+ * restart intervals in every scan); then every block goes through
+ * libjpeg-turbo's ISLOW IDCT in the arithmetic of its SIMD code (16-bit
+ * dequantisation and sums, the first pass saturated to 16 bits, the
+ * whole-block zero-AC shortcut), fancy upsampling where libjpeg-turbo
+ * takes it and box upsampling elsewhere, and the colour conversion of
+ * jdcolor.c: fixed-point YCbCr -> RGB, none for RGB JPEGs (Adobe
+ * transform 0, or component ids 'R', 'G', 'B'), YCCK -> CMYK, and for 4
+ * components OpenCV's CMYK -> BGR (c' = k - ((255 - c) * k >> 8)). It
+ * writes RGB; the Exif orientation is applied by the caller.
+ *
+ * A stream whose data ends early is refused, as cv2.imdecode refuses it,
+ * unless the caller passes `eof_fill` (cv2.imread of a file: libjpeg's
+ * file source appends an EOI): then the block in which the data ran out
+ * is decoded with zero bits, and every later block of the scan keeps
+ * zero coefficients (mid-gray), as jdhuff.c's `insufficient_data` does.
+ * A progressive image whose coefficients 1..9 do not all reach their
+ * last bit (Al = 0) would take libjpeg's inter-block smoothing
+ * (jdcoefct.c decompress_smooth_data); that is refused by name, as are
+ * lossless, hierarchical and arithmetic-coded frames, 12-bit samples and
+ * corrupt streams. `utils/jpeg.py` is the plain version of the baseline
+ * part and refuses the rest by name.
  *
  * resize_linear_u8 is cv2.resize(..., INTER_LINEAR) on uint8: 11-bit
  * fixed-point weights from float32 source coordinates, an exact integer
@@ -59,6 +77,10 @@ typedef struct {
     int cid, h, v, tq;
     int width, height;     /* downsampled size */
     int blocks_w, blocks_h;
+    int16_t *coef;         /* blocks_h * blocks_w blocks, row-major */
+    int32_t q[64];         /* the table latched at its first scan */
+    int latched;
+    int coef_bits[64];     /* progressive: Al of each coefficient, -1 */
     uint8_t *plane;        /* blocks_h * 8 rows of blocks_w * 8 samples */
 } Comp;
 
@@ -66,8 +88,8 @@ typedef struct {
     Fail f;
     const uint8_t *data;
     long n;
-    int width, height, ncomp, hmax, vmax;
-    Comp comp[3];
+    int width, height, ncomp, hmax, vmax, progressive;
+    Comp comp[4];
     int32_t qt[4][64]; /* row-major */
     int qt_defined[4];
     Huff huff[2][4];
@@ -80,6 +102,10 @@ typedef struct {
     long real_bits;      /* bits taken from the stream */
     long used_bits;      /* bits the decoder consumed */
     int marker_hit;
+    int eof_fill;        /* the data may end early: fill as libjpeg */
+    int at_eof;          /* the data ended (not a marker) */
+    int insufficient;    /* ran out of data: later blocks stay zero */
+    int eobrun;
     uint8_t *scratch;    /* upsampled rows, column sums, colour tables */
 } Jpeg;
 
@@ -96,7 +122,11 @@ static int u16be(const uint8_t *p) { return (p[0] << 8) | p[1]; }
 static int next_marker(Jpeg *j)
 {
     char msg[64];
-    if (j->pos >= j->n || j->data[j->pos] != 0xFF) {
+    if (j->pos >= j->n) {
+        if (j->eof_fill) return 0xD9;
+        fail(&j->f, "truncated stream (no EOI)");
+    }
+    if (j->data[j->pos] != 0xFF) {
         snprintf(msg, sizeof msg, "expected a marker at byte %ld", j->pos);
         fail(&j->f, msg);
     }
@@ -118,7 +148,7 @@ static void segment(Jpeg *j, long *start, long *end)
     j->pos = *end;
 }
 
-static void parse_sof(Jpeg *j, const uint8_t *p, long len)
+static void parse_sof(Jpeg *j, const uint8_t *p, long len, int progressive)
 {
     char msg[96];
     int i, precision, nc, mcus_x, mcus_y;
@@ -133,13 +163,9 @@ static void parse_sof(Jpeg *j, const uint8_t *p, long len)
                  "%d-bit samples are not read (8-bit only)", precision);
         fail(&j->f, msg);
     }
-    if (nc != 1 && nc != 3) {
-        if (nc == 4)
-            snprintf(msg, sizeof msg, "CMYK/YCCK images are not read "
-                     "(gray or YCbCr only)");
-        else
-            snprintf(msg, sizeof msg, "%d-component images are not read "
-                     "(gray or YCbCr only)", nc);
+    if (nc != 1 && nc != 3 && nc != 4) {
+        snprintf(msg, sizeof msg, "%d-component images are not read "
+                 "(gray, YCbCr, RGB, CMYK or YCCK only)", nc);
         fail(&j->f, msg);
     }
     if (j->height == 0 || j->width == 0) {
@@ -167,6 +193,7 @@ static void parse_sof(Jpeg *j, const uint8_t *p, long len)
         if (c->v > j->vmax) j->vmax = c->v;
     }
     j->ncomp = nc;
+    j->progressive = progressive;
     mcus_x = (j->width + 8 * j->hmax - 1) / (8 * j->hmax);
     mcus_y = (j->height + 8 * j->vmax - 1) / (8 * j->vmax);
     for (i = 0; i < nc; i++) {
@@ -180,8 +207,9 @@ static void parse_sof(Jpeg *j, const uint8_t *p, long len)
         c->blocks_h = mcus_y * c->v;
         size = (size_t)c->blocks_w * 8 * (size_t)c->blocks_h * 8;
         c->plane = (uint8_t *)malloc(size);
-        if (!c->plane) fail(&j->f, "out of memory");
-        memset(c->plane, 128, size); /* the IDCT of an empty block */
+        c->coef = (int16_t *)calloc(size, sizeof(int16_t));
+        if (!c->plane || !c->coef) fail(&j->f, "out of memory");
+        memset(c->coef_bits, 0xFF, sizeof c->coef_bits); /* all -1 */
     }
 }
 
@@ -244,12 +272,16 @@ static void parse_dht(Jpeg *j, const uint8_t *p, long len)
 /* Entropy-coded data.                                                 */
 
 /* Tops the accumulator up to more than 56 bits; past a marker (or the end
- * of the data) it feeds zero bits, which decode_block refuses if used. */
+ * of the data, which sets at_eof) it feeds zero bits: an MCU that used
+ * them is refused, or with eof_fill at the end of the data marks the
+ * rest of the scan as insufficient (end_mcu). */
 static void fill(Jpeg *j)
 {
     while (j->nacc <= 56) {
         int b = 0;
-        if (!j->marker_hit && j->pos < j->n) {
+        if (!j->marker_hit && j->pos >= j->n) {
+            j->marker_hit = j->at_eof = 1;
+        } else if (!j->marker_hit) {
             b = j->data[j->pos];
             if (b == 0xFF) {
                 long q = j->pos + 1;
@@ -259,6 +291,7 @@ static void fill(Jpeg *j)
                     j->real_bits += 8;
                 } else {
                     j->marker_hit = 1; /* leave pos on the marker */
+                    if (q >= j->n) j->at_eof = 1;
                     b = 0;
                 }
             } else {
@@ -300,7 +333,7 @@ static int extend(int v, int s)
 }
 
 /* One block's coefficients (row-major, 16-bit); returns the DC value.
- * Fails if it used bits past the end of the data. */
+ * The caller checks, per MCU, whether it used bits past the data. */
 static int decode_block(Jpeg *j, const Huff *dc, const Huff *ac, int pred,
                         int16_t *out)
 {
@@ -350,9 +383,117 @@ static int decode_block(Jpeg *j, const Huff *dc, const Huff *ac, int pred,
     }
     SAVE_BITS();
     j->used_bits += used;
-    if (j->used_bits > j->real_bits)
-        fail(&j->f, "truncated or corrupt entropy-coded data");
     return v;
+}
+
+/* Progressive scans (jdphuff.c), one bit request at a time. */
+static int get_bits(Jpeg *j, int n)
+{
+    int v;
+    if (!n) return 0;
+    if (j->nacc < n) fill(j);
+    v = (int)(j->acc >> (64 - n));
+    j->acc <<= n;
+    j->nacc -= n;
+    j->used_bits += n;
+    return v;
+}
+
+static int huff_symbol(Jpeg *j, const Huff *t)
+{
+    int look, l, s;
+    if (j->nacc < 16) fill(j);
+    look = t->lookup[j->acc >> (64 - 9)];
+    if (look) {
+        l = look >> 8;
+        s = look & 0xFF;
+    } else {
+        s = slow_symbol(j, t, j->acc, &l);
+    }
+    j->acc <<= l;
+    j->nacc -= l;
+    j->used_bits += l;
+    return s;
+}
+
+/* jpeg_natural_order with its 16 extra entries of 63, which a progressive
+ * run past the band writes into. */
+static int natural(int k) { return k > 63 ? 63 : zigzag[k]; }
+
+static void dc_first(Jpeg *j, const Huff *dc, int *pred, int al,
+                     int16_t *blk)
+{
+    int s = huff_symbol(j, dc);
+    if (s > 16) fail(&j->f, "corrupt DC code");
+    if (s) s = extend(get_bits(j, s), s);
+    *pred += s;
+    blk[0] = (int16_t)(uint16_t)((unsigned)*pred << al);
+}
+
+static void dc_refine(Jpeg *j, int al, int16_t *blk)
+{
+    if (get_bits(j, 1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+}
+
+static void ac_first(Jpeg *j, const Huff *ac, int ss, int se, int al,
+                     int16_t *blk)
+{
+    int k;
+    if (j->eobrun > 0) {
+        j->eobrun--;
+        return;
+    }
+    for (k = ss; k <= se; k++) {
+        int rs = huff_symbol(j, ac), r = rs >> 4, s = rs & 15;
+        if (s) {
+            k += r;
+            s = extend(get_bits(j, s), s);
+            blk[natural(k)] = (int16_t)(uint16_t)((unsigned)s << al);
+        } else if (r == 15) {
+            k += 15;
+        } else {
+            j->eobrun = (1 << r) + get_bits(j, r) - 1;
+            break;
+        }
+    }
+}
+
+/* A correction bit for an already nonzero coefficient. */
+static void refine_coef(Jpeg *j, int16_t *c, int p1)
+{
+    if (get_bits(j, 1) && (*c & p1) == 0)
+        *c = (int16_t)(*c >= 0 ? *c + p1 : *c - p1);
+}
+
+static void ac_refine(Jpeg *j, const Huff *ac, int ss, int se, int al,
+                      int16_t *blk)
+{
+    int p1 = 1 << al, k = ss;
+    if (j->eobrun == 0) {
+        for (; k <= se; k++) {
+            int rs = huff_symbol(j, ac), r = rs >> 4, s = rs & 15;
+            if (s) {
+                s = get_bits(j, 1) ? p1 : -p1;
+            } else if (r != 15) {
+                j->eobrun = (1 << r) + get_bits(j, r);
+                break;
+            }
+            do {
+                int16_t *c = blk + zigzag[k];
+                if (*c) refine_coef(j, c, p1);
+                else if (--r < 0) break;
+                k++;
+            } while (k <= se);
+            if (s) blk[natural(k)] = (int16_t)s;
+        }
+    }
+    if (j->eobrun > 0) {
+        for (; k <= se; k++) {
+            int16_t *c = blk + zigzag[k];
+            if (*c) refine_coef(j, c, p1);
+        }
+        j->eobrun--;
+    }
 }
 
 /* ------------------------------------------------------------------ */
@@ -479,8 +620,12 @@ static void idct_islow(const int16_t *coef, const int32_t *q, uint8_t *dst,
 /* ------------------------------------------------------------------ */
 /* Scans.                                                              */
 
+/* The EOI that libjpeg's file source appends where the data ends. */
+#define EOF_MARKER 0x1D9
+
 /* From j->pos, skip entropy-coded bytes to the next marker and return
- * it (j->pos then follows it). */
+ * it (j->pos then follows it). Where the data ends first: EOF_MARKER
+ * with eof_fill, else a refusal. */
 static int marker_after_data(Jpeg *j)
 {
     for (;;) {
@@ -488,8 +633,13 @@ static int marker_after_data(Jpeg *j)
         while (j->pos < j->n && j->data[j->pos] != 0xFF) j->pos++;
         q = j->pos + 1;
         while (q < j->n && j->data[q] == 0xFF) q++;
-        if (q >= j->n) fail(&j->f, "truncated stream (no marker after "
-                                   "the scan)");
+        if (q >= j->n) {
+            if (j->eof_fill) {
+                j->pos = j->n;
+                return EOF_MARKER;
+            }
+            fail(&j->f, "truncated stream (no marker after the scan)");
+        }
         if (j->data[q] != 0x00) {
             j->pos = q + 1;
             return j->data[q];
@@ -498,18 +648,53 @@ static int marker_after_data(Jpeg *j)
     }
 }
 
+/* jdphuff.c's checks of a progressive scan's Ss, Se, Ah and Al, and the
+ * update of each coefficient's Al (coef_bits). A scan whose Ah does not
+ * follow the last one (libjpeg warns and decodes) is refused. */
+static void progression(Jpeg *j, Comp **comps, int ns, int ss, int se,
+                        int ah, int al)
+{
+    int i, k, bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13 || bad)
+        fail(&j->f, "bad progressive scan parameters");
+    for (i = 0; i < ns; i++) {
+        Comp *c = comps[i];
+        if (ss != 0 && c->coef_bits[0] < 0)
+            fail(&j->f, "progressive AC scan before the DC scan");
+        for (k = ss; k <= se; k++) {
+            if (ah != (c->coef_bits[k] < 0 ? 0 : c->coef_bits[k]))
+                fail(&j->f, "progressive scans out of order");
+            c->coef_bits[k] = al;
+        }
+    }
+}
+
+/* After an MCU: bits used past the data are a refusal, or with eof_fill
+ * at the end of the data the start of jdhuff.c's insufficient_data. */
+static void end_mcu(Jpeg *j)
+{
+    if (j->used_bits <= j->real_bits) return;
+    if (!(j->eof_fill && j->at_eof))
+        fail(&j->f, "truncated or corrupt entropy-coded data");
+    j->insufficient = 1;
+}
+
 static void decode_scan(Jpeg *j, const uint8_t *p, long len)
 {
     Comp *comps[4];
     const Huff *dc[4], *ac[4];
     int ns, i, units_x, units_y, per_interval, interval = 0, expect = 0;
+    int ss, se, ah, al;
     long total, u;
-    int16_t block[64];
     char msg[96];
     ns = len > 0 ? p[0] : 0;
     if (ns < 1 || ns > 4 || len != 4 + 2 * ns) fail(&j->f, "bad SOS");
+    ss = p[1 + 2 * ns];
+    se = p[2 + 2 * ns];
+    ah = p[3 + 2 * ns] >> 4;
+    al = p[3 + 2 * ns] & 15;
     for (i = 0; i < ns; i++) {
-        int cid = p[1 + 2 * i], t = p[2 + 2 * i], c;
+        int cid = p[1 + 2 * i], t = p[2 + 2 * i], c, need_dc, need_ac;
         comps[i] = NULL;
         for (c = 0; c < j->ncomp; c++) {
             if (j->comp[c].cid == cid) comps[i] = &j->comp[c];
@@ -518,14 +703,24 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
             snprintf(msg, sizeof msg, "SOS names unknown component %d", cid);
             fail(&j->f, msg);
         }
-        if ((t >> 4) > 3 || (t & 15) > 3 || !j->huff[0][t >> 4].defined
-            || !j->huff[1][t & 15].defined)
+        /* Progressive scans use one kind of table, first DC scans only. */
+        need_dc = !j->progressive || (ss == 0 && ah == 0);
+        need_ac = !j->progressive || ss != 0;
+        if ((t >> 4) > 3 || (t & 15) > 3
+            || (need_dc && !j->huff[0][t >> 4].defined)
+            || (need_ac && !j->huff[1][t & 15].defined))
             fail(&j->f, "SOS uses an undefined Huffman table");
         dc[i] = &j->huff[0][t >> 4];
         ac[i] = &j->huff[1][t & 15];
-        if (!j->qt_defined[comps[i]->tq])
-            fail(&j->f, "component uses an undefined quantisation table");
+        if (!comps[i]->latched) {
+            if (!j->qt_defined[comps[i]->tq])
+                fail(&j->f, "component uses an undefined quantisation "
+                            "table");
+            memcpy(comps[i]->q, j->qt[comps[i]->tq], sizeof comps[i]->q);
+            comps[i]->latched = 1;
+        }
     }
+    if (j->progressive) progression(j, comps, ns, ss, se, ah, al);
     if (ns == 1) {
         units_x = (comps[0]->width + 7) / 8;
         units_y = (comps[0]->height + 7) / 8;
@@ -538,53 +733,72 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
     }
     total = (long)units_x * units_y;
     per_interval = j->restart ? j->restart : (int)total;
+    j->insufficient = 0;
     for (interval = 0, u = 0; u < total; interval++) {
         int preds[4] = {0, 0, 0, 0};
         long end = u + per_interval < total ? u + per_interval : total;
-        int m;
-        if (interval > 0) {
+        int m, eof = j->at_eof;
+        if (interval > 0 && !eof) {
             m = marker_after_data(j);
-            if (m < 0xD0 || m > 0xD7) {
+            if (m == EOF_MARKER) {
+                eof = 1;
+            } else if (m < 0xD0 || m > 0xD7) {
                 snprintf(msg, sizeof msg, "%d restart intervals, want %ld",
                          interval, (total + per_interval - 1) / per_interval);
                 fail(&j->f, msg);
-            }
-            if (m != 0xD0 + expect) {
+            } else if (m != 0xD0 + expect) {
                 snprintf(msg, sizeof msg,
                          "restart marker RST%d out of order", m - 0xD0);
                 fail(&j->f, msg);
             }
             expect = (expect + 1) & 7;
         }
+        /* Past the end of the data (eof_fill) every interval reads zero
+         * bits; the flag of the last one stays set, as in process_restart
+         * with the appended EOI unread. */
         j->acc = 0;
         j->nacc = 0;
-        j->marker_hit = 0;
+        j->marker_hit = j->at_eof = eof;
         j->real_bits = j->used_bits = 0;
+        j->eobrun = 0;
         for (; u < end; u++) {
             int uy = (int)(u / units_x), ux = (int)(u % units_x);
+            if (j->insufficient) continue;
             for (i = 0; i < ns; i++) {
                 Comp *c = comps[i];
                 int v = ns == 1 ? 1 : c->v, h = ns == 1 ? 1 : c->h, by, bx;
-                int stride = c->blocks_w * 8;
                 for (by = 0; by < v; by++) {
                     for (bx = 0; bx < h; bx++) {
                         int row = uy * v + by, col = ux * h + bx;
-                        preds[i] = decode_block(j, dc[i], ac[i], preds[i],
-                                                block);
-                        idct_islow(block, j->qt[c->tq],
-                                   c->plane + (size_t)row * 8 * stride
-                                       + (size_t)col * 8,
-                                   stride);
+                        int16_t *blk = c->coef
+                            + ((size_t)row * c->blocks_w + col) * 64;
+                        if (!j->progressive)
+                            preds[i] = decode_block(j, dc[i], ac[i],
+                                                    preds[i], blk);
+                        else if (ss == 0 && ah == 0)
+                            dc_first(j, dc[i], &preds[i], al, blk);
+                        else if (ss == 0)
+                            dc_refine(j, al, blk);
+                        else if (ah == 0)
+                            ac_first(j, ac[i], ss, se, al, blk);
+                        else
+                            ac_refine(j, ac[i], ss, se, al, blk);
                     }
                 }
             }
+            end_mcu(j);
         }
     }
     /* The marker after the scan must not be another restart marker. */
     {
         int m;
         long save;
+        if (j->at_eof) {
+            j->pos = j->n;
+            return;
+        }
         m = marker_after_data(j);
+        if (m == EOF_MARKER) return;
         if (m >= 0xD0 && m <= 0xD7) {
             snprintf(msg, sizeof msg, "%d restart intervals, want %ld",
                      interval + 1,
@@ -596,6 +810,37 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
         while (save > 0 && j->data[save - 1] == 0xFF) save--;
         j->pos = save;
     }
+}
+
+/* Every block of every component through the IDCT, after the scans. */
+static void inverse_dct(Jpeg *j)
+{
+    int i, by, bx;
+    for (i = 0; i < j->ncomp; i++) {
+        Comp *c = &j->comp[i];
+        int stride = c->blocks_w * 8;
+        for (by = 0; by < c->blocks_h; by++) {
+            for (bx = 0; bx < c->blocks_w; bx++) {
+                idct_islow(c->coef + ((size_t)by * c->blocks_w + bx) * 64,
+                           c->q, c->plane + (size_t)by * 8 * stride
+                                     + (size_t)bx * 8, stride);
+            }
+        }
+    }
+}
+
+/* libjpeg's smoothing_ok: a progressive image takes inter-block
+ * smoothing where every component's DC has been seen and some
+ * component's coefficient 1..9 has not reached Al = 0. */
+static int takes_smoothing(const Jpeg *j)
+{
+    int i, k, useful = 0;
+    if (!j->progressive) return 0;
+    for (i = 0; i < j->ncomp; i++) {
+        if (j->comp[i].coef_bits[0] < 0) return 0;
+        for (k = 1; k < 10; k++) useful |= j->comp[i].coef_bits[k] != 0;
+    }
+    return useful;
 }
 
 /* ------------------------------------------------------------------ */
@@ -679,19 +924,49 @@ static void build_ycc(Ycc *t)
     }
 }
 
-static void colour_row(const Ycc *t, int ncomp, const uint8_t *const *in,
-                       uint8_t *rgb, int W)
+/* OpenCV's CMYK -> BGR of libjpeg's CMYK output, written as RGB. */
+static void cmyk_to_rgb(int c, int m, int y, int k, uint8_t *rgb)
+{
+    rgb[0] = (uint8_t)(k - ((255 - c) * k >> 8));
+    rgb[1] = (uint8_t)(k - ((255 - m) * k >> 8));
+    rgb[2] = (uint8_t)(k - ((255 - y) * k >> 8));
+}
+
+/* `space` as colour_space returns. */
+static void colour_row(const Ycc *t, int ncomp, int space,
+                       const uint8_t *const *in, uint8_t *rgb, int W)
 {
     int x;
     if (ncomp == 1) {
         for (x = 0; x < W; x++) rgb[3 * x] = rgb[3 * x + 1] = rgb[3 * x + 2] = in[0][x];
         return;
     }
+    if (space == 1) {
+        for (x = 0; x < W; x++) {
+            rgb[3 * x] = in[0][x];
+            rgb[3 * x + 1] = in[1][x];
+            rgb[3 * x + 2] = in[2][x];
+        }
+        return;
+    }
+    if (space == 2) {
+        for (x = 0; x < W; x++)
+            cmyk_to_rgb(in[0][x], in[1][x], in[2][x], in[3][x], rgb + 3 * x);
+        return;
+    }
     for (x = 0; x < W; x++) {
         int y = in[0][x], cb = in[1][x], cr = in[2][x];
-        rgb[3 * x] = clamp8(y + t->cr_r[cr]);
-        rgb[3 * x + 1] = clamp8(y + ((t->cb_g[cb] + t->cr_g[cr]) >> SCALEBITS));
-        rgb[3 * x + 2] = clamp8(y + t->cb_b[cb]);
+        int r = clamp8(y + t->cr_r[cr]);
+        int g = clamp8(y + ((t->cb_g[cb] + t->cr_g[cr]) >> SCALEBITS));
+        int b = clamp8(y + t->cb_b[cb]);
+        if (space == 3) {
+            /* jdcolor.c ycck_cmyk_convert: C, M, Y = 255 - R, G, B. */
+            cmyk_to_rgb(255 - r, 255 - g, 255 - b, in[3][x], rgb + 3 * x);
+        } else {
+            rgb[3 * x] = (uint8_t)r;
+            rgb[3 * x + 1] = (uint8_t)g;
+            rgb[3 * x + 2] = (uint8_t)b;
+        }
     }
 }
 
@@ -716,11 +991,11 @@ static void walk(Jpeg *j, int decode)
         segment(j, &start, &end);
         p = j->data + start;
         switch (m) {
-        case 0xC0: case 0xC1:
-            parse_sof(j, p, end - start);
+        case 0xC0: case 0xC1: case 0xC2:
+            parse_sof(j, p, end - start, m == 0xC2);
             if (!decode) return;
             break;
-        case 0xC2: case 0xC3: case 0xC5: case 0xC6: case 0xC7:
+        case 0xC3: case 0xC5: case 0xC6: case 0xC7:
         case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF: {
             static const char *names[16] = {
                 0, 0, "progressive (SOF2)", "lossless (SOF3)", 0,
@@ -733,8 +1008,8 @@ static void walk(Jpeg *j, int decode)
                 "arithmetic-coded differential sequential (SOF13)",
                 "arithmetic-coded differential progressive (SOF14)",
                 "arithmetic-coded differential lossless (SOF15)"};
-            snprintf(msg, sizeof msg, "%s JPEGs are not read (baseline "
-                     "sequential Huffman only)", names[m - 0xC0]);
+            snprintf(msg, sizeof msg, "%s JPEGs are not read (sequential "
+                     "and progressive Huffman only)", names[m - 0xC0]);
             fail(&j->f, msg);
             break;
         }
@@ -774,21 +1049,33 @@ static void walk(Jpeg *j, int decode)
     }
     if (!j->ncomp) fail(&j->f, "no image data");
     if (!j->scans) fail(&j->f, "no image data");
-    if (j->ncomp == 3 && !j->jfif) {
-        if (j->adobe) {
-            if (j->adobe_transform == 0)
-                fail(&j->f, "RGB JPEGs (Adobe transform 0) are not read");
-        } else if (j->comp[0].cid == 82 && j->comp[1].cid == 71
-                   && j->comp[2].cid == 66) {
-            fail(&j->f, "RGB JPEGs (component ids R, G, B) are not read");
-        }
+    if (takes_smoothing(j))
+        fail(&j->f, "progressive JPEG whose scans stop before the last bit "
+                    "of coefficients 1-9 (libjpeg's inter-block smoothing) "
+                    "is not read");
+}
+
+/* jdapimin.c's guess of the colour space: 0 YCbCr or gray, 1 RGB, 2 CMYK,
+ * 3 YCCK. */
+static int colour_space(const Jpeg *j)
+{
+    if (j->ncomp == 3) {
+        if (j->jfif) return 0;
+        if (j->adobe) return j->adobe_transform == 0;
+        return j->comp[0].cid == 82 && j->comp[1].cid == 71
+               && j->comp[2].cid == 66;
     }
+    if (j->ncomp == 4) return j->adobe && j->adobe_transform != 0 ? 3 : 2;
+    return 0;
 }
 
 static void release(Jpeg *j)
 {
     int i;
-    for (i = 0; i < 3; i++) free(j->comp[i].plane);
+    for (i = 0; i < 4; i++) {
+        free(j->comp[i].plane);
+        free(j->comp[i].coef);
+    }
     free(j->scratch);
 }
 
@@ -817,9 +1104,10 @@ int jpeg_size(const uint8_t *data, long n, int *height, int *width,
 }
 
 /* Decodes the JPEG in data[0:n] into rgb[height][width][3], which the
- * caller sized with jpeg_size; 0, or 1 with a message. */
+ * caller sized with jpeg_size; 0, or 1 with a message. With eof_fill a
+ * stream whose data ends early is filled as cv2.imread fills it. */
 int decode_jpeg(const uint8_t *data, long n, uint8_t *rgb, int height,
-                int width, char *err, int err_len)
+                int width, int eof_fill, char *err, int err_len)
 {
     Jpeg *j = (Jpeg *)calloc(1, sizeof(Jpeg));
     volatile int rc = 0;
@@ -829,12 +1117,15 @@ int decode_jpeg(const uint8_t *data, long n, uint8_t *rgb, int height,
     j->n = n;
     j->f.err = err;
     j->f.err_len = err_len;
+    j->eof_fill = eof_fill;
     if (setjmp(j->f.jump) == 0) {
         size_t sums_at;
-        uint8_t *rows[3];
+        uint8_t *rows[4];
         Ycc *ycc;
-        int y;
+        int y, space;
         walk(j, 1);
+        space = colour_space(j);
+        inverse_dct(j);
         if (j->height != height || j->width != width)
             fail(&j->f, "output buffer of the wrong size");
         /* Row by row: each component's upsampled row, then colour. */
@@ -851,7 +1142,7 @@ int decode_jpeg(const uint8_t *data, long n, uint8_t *rgb, int height,
                 upsample_row(j, &j->comp[i], y, rows[i],
                              (int *)(void *)(j->scratch + sums_at));
             }
-            colour_row(ycc, j->ncomp, (const uint8_t *const *)rows,
+            colour_row(ycc, j->ncomp, space, (const uint8_t *const *)rows,
                        rgb + (size_t)y * j->width * 3, j->width);
         }
     } else {

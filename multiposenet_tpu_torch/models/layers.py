@@ -1,6 +1,6 @@
 """Building blocks shared by the port's models: SAME-padded convolution,
-inference BatchNorm with flax's cast points, nearest 2x upsampling and
-seeded initializers.
+BatchNorm with flax's cast points (inference, and training on batch
+statistics), nearest 2x upsampling and seeded initializers.
 
 Tensors are NCHW inside the models. Parameters live in float32 and are
 cast to the activation dtype at use, as flax does with `dtype=bfloat16`.
@@ -91,23 +91,49 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over NCHW channels, computed as flax does: in
-    float32, `(x - mean) * (rsqrt(var + eps) * scale) + bias`, then cast
-    back to x's dtype."""
+    """BatchNorm over NCHW channels, computed as flax's nn.BatchNorm does:
+    in float32, `(x - mean) * (rsqrt(var + eps) * scale) + bias`, then cast
+    back to x's dtype.
 
-    def __init__(self, channels: int, eps: float = 1e-3):
+    In eval mode mean and var are the running statistics. In training mode
+    (`module.train()`) they are the batch's, as flax 0.12's _compute_stats
+    with use_fast_variance: over N, H and W in float32 (float64 for
+    float64 input), var = max(0,
+    E[x²] - E[x]²), the biased variance, with gradients through both; the
+    running statistics then move to `momentum * running + (1 - momentum)
+    * batch` (flax's momentum, 0.997 in ModelConfig.bn_momentum), the
+    variance kept biased. torch's BatchNorm2d would keep the unbiased
+    one."""
+
+    def __init__(self, channels: int, eps: float = 1e-3,
+                 momentum: float = 0.997):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._forward_train(x)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = x.to(torch.float32, copy=True)
         y.sub_(self.running_mean[:, None, None]).mul_(mul[:, None, None])
         return y.add_(self.bias[:, None, None]).to(x.dtype)
+
+    def _forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+        var = torch.maximum(var, var.new_tensor(0.0))  # jnp.maximum's grad
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean.detach() * (1.0 - m))
+            self.running_var.mul_(m).add_(var.detach() * (1.0 - m))
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = (xf - mean[:, None, None]) * mul[:, None, None]
+        return (y + self.bias.to(xf.dtype)[:, None, None]).to(x.dtype)
 
     def scale_shift(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(s, beta - mean*s) with s = gamma / sqrt(var + eps), in float32:

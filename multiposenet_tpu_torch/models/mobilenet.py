@@ -188,10 +188,10 @@ class ConvBN(nn.Module):
     bn_folded flavour (`bn is None`) the conv carries the folded bias."""
 
     def __init__(self, conv: nn.Module, channels: int, eps: float,
-                 folded: bool = False):
+                 folded: bool = False, momentum: float = 0.997):
         super().__init__()
         self.conv = conv
-        self.bn = None if folded else BatchNorm(channels, eps)
+        self.bn = None if folded else BatchNorm(channels, eps, momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv(x)
@@ -209,13 +209,14 @@ class DepthwiseSeparable(nn.Module):
     ReLU6."""
 
     def __init__(self, in_ch: int, features: int, stride: int, eps: float,
-                 folded: bool = False):
+                 folded: bool = False, momentum: float = 0.997):
         super().__init__()
         self.depthwise = ConvBN(
             Conv2d(in_ch, in_ch, 3, stride, groups=in_ch, bias=folded),
-            in_ch, eps, folded)
+            in_ch, eps, folded, momentum)
         self.pointwise = ConvBN(
-            Conv2d(in_ch, features, 1, bias=folded), features, eps, folded)
+            Conv2d(in_ch, features, 1, bias=folded), features, eps, folded,
+            momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise(self.depthwise(x))
@@ -243,7 +244,7 @@ class MobileNetV1(nn.Module):
                  max_channels: int = 0,
                  stage_caps: tuple[int, int, int, int] = (0, 0, 0, 0),
                  stem_stride: int = 2, bn_epsilon: float = 1e-3,
-                 bn_folded: bool = False, s2d_stem: bool = True,
+                 bn_momentum: float = 0.997, bn_folded: bool = False, s2d_stem: bool = True,
                  fold_input_norm: bool = False, in_channels: int = 3,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -266,7 +267,7 @@ class MobileNetV1(nn.Module):
         self.stem = ConvBN(
             StemConv(in_channels, stem_ch, stem_stride, fold_input_norm,
                      bn_folded, s2d_stem),
-            stem_ch, bn_epsilon, bn_folded)
+            stem_ch, bn_epsilon, bn_folded, bn_momentum)
         in_ch, stride = stem_ch, stem_stride
         self.block_names = []
         # Channels of the C2..C5 taps, for the FPN's laterals.
@@ -278,7 +279,7 @@ class MobileNetV1(nn.Module):
             out_ch = ch(c, stride)
             self.add_module(f"block_{i}",
                             DepthwiseSeparable(in_ch, out_ch, s, bn_epsilon,
-                                               bn_folded))
+                                               bn_folded, bn_momentum))
             self.block_names.append(f"block_{i}")
             if i in _TAP_AFTER:
                 self.out_channels[_TAP_AFTER[i]] = out_ch

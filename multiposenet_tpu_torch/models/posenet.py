@@ -17,13 +17,20 @@ from multiposenet_tpu_torch.models.mobilenet import MobileNetV1
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float64": torch.float64}[name]
 
 
 class MultiPoseNet(nn.Module):
     """NHWC images (raw pixels, 2x2 or 4x4 space-to-depth cells) →
     heatmaps + detector outputs, for every ModelConfig the JAX package
     builds.
+
+    In training mode (`model.train()`) BatchNorm normalizes with the
+    batch's statistics and updates its running ones, as flax's
+    `apply(..., train=True, mutable=["batch_stats"])`; the fused keypoint
+    tail is off. Parameters stay float32 and are cast to the compute dtype
+    at use (flax's param_dtype float32 with dtype bfloat16).
 
     Outputs, in the JAX package's layouts: `heatmaps` [B, H, W, K] f32,
     `heatmaps_cm` [B, K, H, W] in the compute dtype, `segmentation`
@@ -40,7 +47,8 @@ class MultiPoseNet(nn.Module):
             width=m.backbone_width, min_channels=m.min_backbone_channels,
             max_channels=m.backbone_max_channels,
             stage_caps=m.backbone_stage_caps, stem_stride=m.stem_stride,
-            bn_epsilon=m.bn_epsilon, bn_folded=m.bn_folded,
+            bn_epsilon=m.bn_epsilon, bn_momentum=m.bn_momentum,
+            bn_folded=m.bn_folded,
             s2d_stem=m.s2d_stem, fold_input_norm=m.fold_input_norm,
             dtype=self.dtype,
         )

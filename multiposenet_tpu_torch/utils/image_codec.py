@@ -1,5 +1,5 @@
-"""ctypes binding of the host C library `csrc/image_codec.c`: baseline
-JPEG decoding (`utils/jpeg.py` is its plain version) and cv2's uint8
+"""ctypes binding of the host C library `csrc/image_codec.c`: JPEG
+decoding (`utils/jpeg.py` is the plain version of its baseline part) and cv2's uint8
 INTER_LINEAR resize (`utils/image_io.resize_linear_plain` is its plain
 version). The library is built by `kernels.load_host` on first use; a
 build that fails raises, and nothing falls back to the plain versions.
@@ -27,7 +27,7 @@ def library() -> ctypes.CDLL:
                               ctypes.c_char_p, ctypes.c_int]
     lib.jpeg_size.restype = ctypes.c_int
     lib.decode_jpeg.argtypes = [ctypes.c_char_p, ctypes.c_long, _u8p,
-                                ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_char_p, ctypes.c_int]
     lib.decode_jpeg.restype = ctypes.c_int
     lib.resize_linear_u8.argtypes = [_u8p, ctypes.c_int, ctypes.c_int,
@@ -44,9 +44,12 @@ def _check(rc: int, err: ctypes.Array) -> None:
         raise MemoryError("image_codec: out of memory")
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
+def decode_jpeg(data: bytes, eof_fill: bool = False) -> np.ndarray:
     """JPEG bytes → uint8 RGB [H, W, 3], before any Exif orientation;
-    raises ValueError naming what it does not read."""
+    raises ValueError naming what it does not read. A stream whose data
+    ends early is refused, as `cv2.imdecode` refuses it, unless
+    `eof_fill` (`cv2.imread` of a file): then the rest is filled as
+    libjpeg-turbo fills it."""
     lib = library()
     data = bytes(data)
     err = ctypes.create_string_buffer(_ERR_LEN)
@@ -55,7 +58,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                          err, _ERR_LEN), err)
     out = np.empty((h.value, w.value, 3), np.uint8)
     _check(lib.decode_jpeg(data, len(data), out.ctypes.data_as(_u8p),
-                           h.value, w.value, err, _ERR_LEN), err)
+                           h.value, w.value, int(eof_fill), err, _ERR_LEN),
+           err)
     return out
 
 

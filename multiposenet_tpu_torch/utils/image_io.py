@@ -6,10 +6,15 @@ card's machine does not have).
 [H, W, 3] pixel for pixel as `cv2.imread(path, cv2.IMREAD_COLOR)` and
 `cv2.imdecode` reversed to RGB do on OpenCV 5.0 (libjpeg-turbo 3.1,
 libpng 1.6):
-- baseline JPEG through the host C library `csrc/image_codec.c` (its
-  plain version is `utils/jpeg.py`, whose docstring lists what is
-  refused: progressive, arithmetic-coded, lossless, 12-bit, CMYK, RGB
-  JPEGs and truncated streams);
+- JPEG through the host C library `csrc/image_codec.c`: sequential and
+  progressive Huffman-coded, gray, YCbCr, RGB (Adobe transform 0 or
+  component ids R, G, B), CMYK and YCCK (through OpenCV's CMYK -> BGR).
+  A file whose data ends early is filled as `cv2.imread` fills it (the
+  rest of the scan mid-gray); bytes that end early are refused, as
+  `cv2.imdecode` refuses them. Arithmetic-coded, lossless and 12-bit
+  JPEGs, and progressive ones that would take libjpeg's inter-block
+  smoothing, are refused by name. Its plain version for baseline
+  streams is `utils/jpeg.py`;
 - PNG with zlib and NumPy: every colour type and bit depth, Adam7
   interlace, palette (tRNS dropped; an index past the palette is black),
   gray at 1, 2 and 4 bits expanded to 8 as libpng does, 16-bit samples
@@ -63,15 +68,17 @@ def read_image(path: str | Path) -> np.ndarray:
     """File → uint8 RGB [H, W, 3] (see the module docstring). Raises
     FileNotFoundError for a missing file and ValueError for a format or
     mode that is not read."""
-    return decode_image(Path(path).read_bytes(), path)
+    return decode_image(Path(path).read_bytes(), path, eof_fill=True)
 
 
-def decode_image(data: bytes, name: str | Path = "<bytes>") -> np.ndarray:
+def decode_image(data: bytes, name: str | Path = "<bytes>",
+                 eof_fill: bool = False) -> np.ndarray:
     """Encoded bytes (JPEG, PNG or .npy) → uint8 RGB [H, W, 3], Exif
-    orientation applied; `name` is used in error messages."""
+    orientation applied; `name` is used in error messages. `eof_fill`
+    reads a JPEG whose data ends early as `cv2.imread` reads the file."""
     if data.startswith(JPEG_MAGIC):
         try:
-            rgb = image_codec.decode_jpeg(data)
+            rgb = image_codec.decode_jpeg(data, eof_fill)
         except ValueError as exc:
             raise ValueError(f"{name}: {exc}") from None
         return apply_orientation(rgb, exif_orientation(jpeg.exif_block(data)))

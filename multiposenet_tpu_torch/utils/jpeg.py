@@ -28,7 +28,9 @@ The stages follow libjpeg-turbo's sources:
 - `jdcolor.c`: fixed-point YCbCr -> RGB (SCALEBITS 16), gray repeated
   into three channels.
 
-Everything else raises a ValueError that names it: progressive (SOF2),
+It is the plain version of the baseline part of `csrc/image_codec.c`,
+which also reads progressive, RGB, CMYK/YCCK and truncated files.
+Everything else raises a ValueError that names it here: progressive (SOF2),
 lossless or hierarchical (SOF3, SOF5-7), arithmetic coding (SOF9-15),
 12-bit samples, 2 or 4 components (CMYK/YCCK), RGB JPEGs (Adobe
 transform 0, or component ids 'R', 'G', 'B'), and truncated or corrupt

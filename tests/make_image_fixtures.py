@@ -15,6 +15,12 @@ installed cv2's decode.
   4:4:0, 4:1:1 and gray, q 50, 75, 95 and 100, optimised Huffman tables,
   restart intervals, odd sizes (97x133, 37x53, 3x3) and Exif orientations
   3 and 6 spliced into APP1 (little- and big-endian).
+- `c3_*.jpg`: the modes past baseline that cv2 reads and the plain
+  decoder refuses: progressive (with restart intervals, and gray), Adobe
+  RGB (PIL's keep_rgb), CMYK (PIL) and YCCK (the CMYK stream with its
+  Adobe transform set to 2), and files cut inside their scan data, one
+  baseline and one progressive cut in its last scan (which `cv2.imread`
+  fills and reads).
 - `png_palette4.png`, `png_rgb16.png`, `png_interlaced.png`: PNG kinds
   the port decodes without cv2 (palette, 16-bit, Adam7).
 - `digests.json`: for each file, the shape and sha256 of cv2's RGB decode
@@ -87,6 +93,30 @@ def with_exif(jpeg: bytes, tiff: bytes) -> bytes:
     payload = b"Exif\x00\x00" + tiff
     return (jpeg[:2] + b"\xff\xe1" + struct.pack(">H", len(payload) + 2)
             + payload + jpeg[2:])
+
+
+def pil_jpeg(rgb: np.ndarray, mode: str, **options) -> bytes:
+    """`rgb` converted to `mode` and written by PIL (libjpeg), q 90."""
+    import io
+
+    from PIL import Image
+
+    out = io.BytesIO()
+    Image.fromarray(rgb).convert(mode).save(out, "JPEG", quality=90,
+                                            **options)
+    return out.getvalue()
+
+
+def with_adobe_transform(jpeg: bytes, transform: int) -> bytes:
+    """`jpeg` with the transform byte of its APP14 Adobe block replaced."""
+    at = jpeg.index(b"Adobe") + 11
+    return jpeg[:at] + bytes([transform]) + jpeg[at + 1:]
+
+
+def cut_scan_data(jpeg: bytes, fraction: float) -> bytes:
+    """`jpeg` cut `fraction` of the way from its first SOS to its end."""
+    sos = jpeg.index(b"\xff\xda")
+    return jpeg[:sos + int((len(jpeg) - sos) * fraction)]
 
 
 def png_chunk(kind: bytes, payload: bytes) -> bytes:
@@ -215,6 +245,23 @@ def main() -> None:
     base = encode_jpeg(tex[:40, :64], 95, "420")
     files["kind_orient3_le_40x64.jpg"] = with_exif(base, exif_tiff(3, False))
     files["kind_orient6_be_40x64.jpg"] = with_exif(base, exif_tiff(6, True))
+
+    # Past baseline (ROADMAP C3).
+    small = np.ascontiguousarray(tex[:48, :64])
+    progressive = (cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
+    files["c3_progressive_48x64_420_q95_rst2.jpg"] = encode_jpeg(
+        small, 95, "420", progressive + (cv2.IMWRITE_JPEG_RST_INTERVAL, 2))
+    files["c3_progressive_48x64_gray_q50.jpg"] = encode_jpeg(
+        small[..., 1], 50, None, progressive)
+    files["c3_adobe_rgb_48x64.jpg"] = pil_jpeg(small, "RGB", keep_rgb=True,
+                                               subsampling=0)
+    cmyk = pil_jpeg(small, "CMYK")
+    files["c3_cmyk_48x64.jpg"] = cmyk
+    files["c3_ycck_48x64.jpg"] = with_adobe_transform(cmyk, 2)
+    files["c3_truncated_48x64_420.jpg"] = cut_scan_data(
+        encode_jpeg(small, 95, "420"), 0.6)
+    files["c3_truncated_progressive_48x64_444.jpg"] = cut_scan_data(
+        encode_jpeg(small, 95, "444", progressive), 0.97)
 
     # PNG kinds.
     palette = rng.randint(0, 256, (16, 3)).astype(np.uint8)

@@ -1,0 +1,193 @@
+"""The port's training augmentation and batch loader
+(`multiposenet_tpu_torch/data/augment.py`, `data/loader.py`) against the
+JAX package's and cv2: RGB -> HSV and HSV -> RGB equal cv2.cvtColor on
+every uint8 input (HSV -> RGB both in OpenCV's vector code, which takes a
+row's first multiple of 32 pixels, and in its scalar code, which takes
+the rest), and every augmentation, `make_batch` and the first batches of
+`batch_iterator` equal the JAX package's bit for bit from the same seeds.
+Records with segmentation masks are refused by name."""
+
+import cv2
+import numpy as np
+import pytest
+
+from multiposenet_tpu.data import augment as ja
+from multiposenet_tpu.data import loader as jloader
+from multiposenet_tpu.data.synthetic import make_dataset
+from multiposenet_tpu_torch.data import augment as ta
+from multiposenet_tpu_torch.data import loader as tloader
+
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
+
+
+@pytest.fixture(scope="module")
+def records():
+    return make_dataset(8, img_h=96, img_w=80, seed=0)
+
+
+def _all_rgb() -> np.ndarray:
+    v = np.arange(1 << 24, dtype=np.uint32)
+    return np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], -1).astype(
+        np.uint8)
+
+
+def test_rgb_to_hsv_equals_cv2_on_every_input():
+    rgb = _all_rgb().reshape(4096, 4096, 3)
+    np.testing.assert_array_equal(ta.rgb_to_hsv(rgb),
+                                  cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV))
+
+
+def test_rgb_to_hsv_equals_cv2_one_pixel_a_row():
+    rgb = _all_rgb()[::7].reshape(-1, 1, 3)
+    np.testing.assert_array_equal(ta.rgb_to_hsv(rgb),
+                                  cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV))
+
+
+def _all_hsv() -> np.ndarray:
+    h, s, v = np.meshgrid(np.arange(180), np.arange(256), np.arange(256),
+                          indexing="ij")
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+@pytest.mark.parametrize("width", [256, 1], ids=["vector", "scalar"])
+def test_hsv_to_rgb_equals_cv2_on_every_input(width):
+    hsv = _all_hsv().reshape(-1, width, 3)
+    np.testing.assert_array_equal(ta.hsv_to_rgb(hsv),
+                                  cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB))
+
+
+def test_hsv_to_rgb_rows_split_at_multiples_of_32():
+    rng = np.random.RandomState(0)
+    for w in [*range(1, 70), 95, 96, 97, 255, 640]:
+        hsv = np.stack([rng.randint(0, 180, (3, w)),
+                        rng.randint(0, 256, (3, w)),
+                        rng.randint(0, 256, (3, w))], -1).astype(np.uint8)
+        np.testing.assert_array_equal(
+            ta.hsv_to_rgb(hsv), cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB),
+            err_msg=str(w))
+
+
+def _assert_same(got, want):
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("index", range(4))
+def test_hflip(records, index):
+    r = records[index]
+    _assert_same(ta.hflip(r["image"], r["keypoints"], r["boxes"]),
+                 ja.hflip(r["image"], r["keypoints"], r["boxes"]))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_random_crop(records, seed):
+    r = records[seed]
+    _assert_same(
+        ta.random_crop(np.random.RandomState(seed), r["image"],
+                       r["keypoints"], r["boxes"]),
+        ja.random_crop(np.random.RandomState(seed), r["image"],
+                       r["keypoints"], r["boxes"]))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_color_jitter(records, seed):
+    image = records[seed]["image"][seed:, 2 * seed:]
+    got = ta.color_jitter(np.random.RandomState(seed), image)
+    want = ja.color_jitter(np.random.RandomState(seed), image)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("target", [64, 100, 128])
+@pytest.mark.parametrize("mode", ["max_side", "min_side"])
+def test_resize_to(records, mode, target):
+    r = records[1]
+    _assert_same(
+        ta.resize_to(r["image"], r["keypoints"], r["boxes"], target,
+                     mode=mode),
+        ja.resize_to(r["image"], r["keypoints"], r["boxes"], target,
+                     mode=mode))
+
+
+def test_resize_to_refuses_an_unknown_mode(records):
+    r = records[0]
+    with pytest.raises(ValueError, match="unknown resize mode"):
+        ta.resize_to(r["image"], r["keypoints"], r["boxes"], 64, mode="x")
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_augment_record(records, seed):
+    r = records[seed]
+    _assert_same(
+        ta.augment_record(np.random.RandomState(seed), r["image"],
+                          r["keypoints"], r["boxes"], 64),
+        ja.augment_record(np.random.RandomState(seed), r["image"],
+                          r["keypoints"], r["boxes"], 64))
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_make_batch(records, train):
+    got = tloader.make_batch(records[:4], 64, 8, np.random.RandomState(1),
+                             train=train)
+    want = jloader.make_batch(records[:4], 64, 8, np.random.RandomState(1),
+                              train=train)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_batch_iterator_first_batches(records, train):
+    kw = dict(batch_size=3, image_size=64, max_persons=8, seed=5,
+              train=train)
+    got = tloader.batch_iterator(records, **kw)
+    want = jloader.batch_iterator(records, **kw)
+    for _ in range(3):
+        g, w = next(got), next(want)
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+def test_batch_iterator_eval_pass_ends_with_a_padded_batch(records):
+    batches = list(tloader.batch_iterator(records[:5], 2, 64, 8,
+                                          train=False))
+    assert len(batches) == 3
+    np.testing.assert_array_equal(batches[2]["images"][0],
+                                  batches[2]["images"][1])
+
+
+def test_loader_reads_image_files(tmp_path, records):
+    from multiposenet_tpu_torch.utils.image_io import write_png
+
+    rec = dict(records[0])
+    write_png(tmp_path / "a.png", rec.pop("image"))
+    rec["file_name"] = "a.png"
+    got = tloader.make_batch([rec], 64, 8, image_dir=str(tmp_path),
+                             train=False)
+    want = tloader.make_batch([records[0]], 64, 8, train=False)
+    np.testing.assert_array_equal(got["images"], want["images"])
+
+
+@pytest.mark.parametrize("key", ["exclude_mask", "person_mask"])
+def test_masks_are_refused_before_any_work(records, key):
+    rec = dict(records[0])
+    rec[key] = np.zeros(rec["image"].shape[:2], bool)
+    rec["image"] = None  # no work may start: reading it would fail first
+    for call in (lambda: tloader.make_batch([rec], 64, 8),
+                 lambda: tloader.batch_iterator([rec], 1, 64, 8)):
+        with pytest.raises(ValueError, match="INTER_AREA") as err:
+            call()
+        msg = str(err.value)
+        assert "float32 INTER_LINEAR" in msg and "read_shards" in msg
+    mask = np.zeros((96, 80, 2), np.float32)
+    r = records[0]
+    for fn in (lambda: ta.hflip(r["image"], r["keypoints"], r["boxes"],
+                                mask),
+               lambda: ta.resize_to(r["image"], r["keypoints"], r["boxes"],
+                                    64, mask)):
+        with pytest.raises(ValueError, match="is ported"):
+            fn()

@@ -1067,3 +1067,147 @@ def test_cli_eval_batched_on_jpeg_fixtures_matches_cpu(cli_workdir):
     for key in want:
         assert np.isfinite(got[key])
         assert abs(got[key] - want[key]) <= 0.01, (key, got, want)
+
+
+# --- training on the card ------------------------------------------------------
+
+
+def _tiny_train_config(dtype="float32", **train):
+    """`__graft_entry__._tiny_config`'s shapes at 128², batch 8."""
+    cfg = Config()
+    return cfg.replace(
+        model=dataclasses.replace(
+            cfg.model, backbone_width=0.25, fpn_channels=32,
+            head_channels=32, kp_head_convs=1, kp_smooth_pyramid=False,
+            kp_p2_late=True, stem_stride=4, compute_dtype=dtype),
+        detector=dataclasses.replace(cfg.detector, pre_nms_top_k=100,
+                                     max_detections=8, score_threshold=0.0),
+        prn=dataclasses.replace(cfg.prn, crop_height=14, crop_width=10,
+                                hidden_units=64, max_persons=8),
+        decode=dataclasses.replace(cfg.decode, max_peaks_per_channel=4),
+        train=dataclasses.replace(cfg.train, image_size=128, batch_size=8,
+                                  num_steps=10, warmup_steps=2, **train))
+
+
+def _train_batches(n):
+    from multiposenet_tpu_torch.data.loader import make_batch
+
+    records = make_dataset(8 * n, img_h=160, img_w=192, seed=2)
+    rng = np.random.RandomState(0)
+    return [make_batch(records[8 * i:8 * i + 8], 128, 8, rng)
+            for i in range(n)]
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """Two steps of the tiny float32 config (the same parameters: lr is 0
+    at the first update), TF32 off: losses to 1e-4 relative, batch
+    statistics to 1e-5, the gradient norm to 1e-2 (chip_smoke.py's
+    `phase_train_parity` says why)."""
+    import copy
+
+    from multiposenet_tpu_torch.models.posenet import MultiPoseNet
+    from multiposenet_tpu_torch.train import steps
+
+    cfg = _tiny_train_config()
+    model = MultiPoseNet(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    batches = _train_batches(2)
+    runs = []
+    with _no_tf32():
+        for device in (cuda_device, torch.device("cpu")):
+            state = steps.create_train_state(cfg, model=copy.deepcopy(model),
+                                             device=device)
+            step = steps.make_train_step(cfg)
+            out = []
+            for b in batches:
+                state, m = step(state, steps.batch_to(b, device))
+                out.append(({k: float(v) for k, v in m.items()},
+                            {k: v.cpu().clone() for k, v in
+                             state.batch_stats.items()}))
+            runs.append(out)
+    for (gm, gs), (wm, ws) in zip(*runs):
+        for k, v in wm.items():
+            tol = 1e-2 if k == "grad_norm" else 1e-4
+            assert abs(gm[k] - v) <= tol * abs(v), k
+        for k, v in ws.items():
+            assert float((gs[k] - v).abs().max()) <= 1e-5, k
+
+
+def test_train_step_bf16_on_card_is_finite(cuda_device):
+    from multiposenet_tpu_torch.train import steps
+
+    cfg = _tiny_train_config("bfloat16")
+    state = steps.create_train_state(cfg, 0, device=cuda_device)
+    step = steps.make_train_step(cfg)
+    for b in _train_batches(2):
+        state, m = step(state, steps.batch_to(b, cuda_device))
+        assert all(np.isfinite(float(v)) for v in m.values())
+    assert state.step == 2
+
+
+def test_checkpoint_resume_on_card(cuda_device, tmp_path):
+    from multiposenet_tpu_torch.train import loop
+    from multiposenet_tpu_torch.train.checkpoints import CheckpointManager
+
+    cfg = _tiny_train_config(checkpoint_dir=str(tmp_path / "ckpt"),
+                             save_interval_steps=100)
+    batches = _train_batches(3)
+    first = loop.train(cfg, iter(batches[:2]), 2)
+    assert first.params["backbone.stem.conv.kernel"].is_cuda
+    saved = {k: v.cpu() for k, v in first.ema_params.items()}
+    resumed = loop.train(cfg, iter(batches[2:]), 2)   # nothing left to do
+    assert resumed.step == 2
+    for k, v in resumed.ema_params.items():
+        assert torch.equal(v.cpu(), saved[k]), k
+    third = loop.train(cfg, iter(batches[2:]), 3)
+    assert third.step == 3
+    assert CheckpointManager(tmp_path / "ckpt").all_steps() == [1, 2, 3]
+
+
+def test_cli_train_then_predict_launches_b1_once(cuda_device, tmp_path):
+    cfg = _tiny_train_config(checkpoint_dir=str(tmp_path / "ckpt"),
+                             log_interval_steps=1)
+    (tmp_path / "cfg.json").write_text(cfg.to_json())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["train", "--synthetic", "16", "--steps", "2", "--config",
+                  str(tmp_path / "cfg.json"), "--model-dir",
+                  str(tmp_path / "model")])
+    assert [json.loads(line)["step"] for line in out.getvalue().splitlines()
+            if line.startswith("{")] == [1, 2]
+    pred = export.load_predictor(tmp_path / "model")
+    assert pred.device.type == "cuda"
+    image = make_dataset(1, img_h=200, img_w=240, seed=9)[0]["image"]
+    kernels.reset_launches()
+    pred.predict(image)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {decode.KERNEL: 1}
+
+
+def test_c_decoder_reads_past_baseline_fixtures_as_cv2():
+    """The progressive, Adobe RGB, CMYK, YCCK and truncated fixtures
+    decode to cv2's committed digests (this machine may have no cv2)."""
+    import hashlib
+
+    fixtures = Path(__file__).resolve().parent / "fixtures" / "images"
+    digests = json.loads((fixtures / "digests.json").read_text())
+    names = [n for n in digests if n.startswith("c3_")]
+    assert len(names) == 7
+    for name in names:
+        rgb = read_image(fixtures / name)
+        assert list(rgb.shape) == digests[name]["shape"], name
+        assert hashlib.sha256(rgb.tobytes()).hexdigest() \
+            == digests[name]["rgb_sha256"], name

@@ -8,7 +8,11 @@ streams whose quantisation tables were scaled up until the IDCT leaves
 its range, where libjpeg-turbo's SIMD arithmetic (which OpenCV 5.0 runs
 on x86) and its C version part ways. `read_image` applies the Exif
 orientation as cv2 does, from a JPEG APP1 block or a PNG eXIf chunk, in
-both byte orders, and takes a malformed block as orientation 1. Each mode not read
+both byte orders, and takes a malformed block as orientation 1. Past
+baseline the C library alone reads progressive JPEGs (every sampling,
+restart intervals), Adobe RGB, CMYK and YCCK, bit for bit with cv2, and
+a file cut inside its scan data as `cv2.imread` fills it, while bytes
+cut so are refused as `cv2.imdecode` refuses them. Each mode not read
 raises a ValueError that names it. The committed fixtures
 (tests/fixtures/images) still equal the installed cv2, and the host
 library is built into `_build/` and raises with the compiler's log when
@@ -314,6 +318,114 @@ def test_exif_block_choice_matches_cv2(small):
     np.testing.assert_array_equal(image_io.decode_image(png), want)
 
 
+# --- past baseline: the C library against cv2 (ROADMAP C3) ---------------
+
+
+def _imread(tmp_path, data: bytes):
+    path = tmp_path / "x.jpg"
+    path.write_bytes(data)
+    bgr = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    return None if bgr is None else bgr[:, :, ::-1]
+
+
+@pytest.mark.parametrize("quality", [50, 95, 100])
+@pytest.mark.parametrize("sampling", list(SAMPLING) + ["gray"])
+def test_c_decoder_matches_cv2_on_progressive(sampling, quality):
+    """cv2-written progressive JPEGs (DC and AC first and refine scans,
+    EOB runs), without and with restart intervals of 1 and 3 MCUs."""
+    for h, w in SIZES:
+        for rst in (0, 1, 3):
+            extra = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+            if rst:
+                extra += [cv2.IMWRITE_JPEG_RST_INTERVAL, rst]
+            data = _encode(_content(h, w, "edges", seed=h + rst), quality,
+                           sampling, *extra)
+            np.testing.assert_array_equal(image_codec.decode_jpeg(data),
+                                          _cv2(data), err_msg=str((h, w, rst)))
+
+
+def _pil_jpeg(rgb: np.ndarray, mode: str, **options) -> bytes:
+    import io
+
+    from PIL import Image
+
+    out = io.BytesIO()
+    Image.fromarray(rgb).convert(mode).save(out, "JPEG", quality=90,
+                                            **options)
+    return out.getvalue()
+
+
+def _adobe_transform(data: bytes, transform: int) -> bytes:
+    at = data.index(b"Adobe") + 11
+    return data[:at] + bytes([transform]) + data[at + 1:]
+
+
+@pytest.mark.parametrize("case", [
+    "rgb_444", "rgb_progressive", "cmyk_444", "cmyk_420", "cmyk_progressive",
+    "ycck", "cmyk_transform1"])
+def test_c_decoder_matches_cv2_on_adobe_colour(case):
+    """RGB (PIL's keep_rgb: Adobe transform 0), CMYK (PIL), YCCK and an
+    unknown transform (1, which libjpeg takes as YCCK), through OpenCV's
+    CMYK -> BGR."""
+    img = _content(37, 53, "edges", seed=3)
+    if case.startswith("rgb"):
+        data = _pil_jpeg(img, "RGB", keep_rgb=True, subsampling=0,
+                         progressive=case.endswith("progressive"))
+    else:
+        data = _pil_jpeg(img, "CMYK", subsampling=2 if case == "cmyk_420"
+                         else 0, progressive=case.endswith("progressive"))
+        if case == "ycck":
+            data = _adobe_transform(data, 2)
+        elif case == "cmyk_transform1":
+            data = _adobe_transform(data, 1)
+    np.testing.assert_array_equal(image_codec.decode_jpeg(data), _cv2(data))
+
+
+@pytest.mark.parametrize("rst", [0, 1])
+@pytest.mark.parametrize("sampling", ["420", "444", "gray"])
+@pytest.mark.parametrize("progressive", [False, True],
+                         ids=["baseline", "progressive"])
+def test_truncated_files_match_cv2_imread(tmp_path, progressive, sampling,
+                                          rst):
+    """Files cut at several offsets of their scan data (and a file cut
+    just before its EOI): `read_image` returns `cv2.imread`'s pixels, the
+    rows decoded and the rest of the scan mid-gray; the same bytes are
+    refused by `decode_image`, as `cv2.imdecode` refuses them. A
+    progressive file cut before its last scan would take libjpeg's
+    inter-block smoothing and is refused by that name; cut inside its
+    last scan it is read."""
+    extra = [cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)]
+    if rst:
+        extra += [cv2.IMWRITE_JPEG_RST_INTERVAL, rst]
+    data = _encode(_content(37, 53, "noise", seed=2), 95, sampling, *extra)
+    sos = data.index(b"\xff\xda")
+    read = 0
+    for frac in (0.1, 0.3, 0.5, 0.7, 0.9, 0.97, 0.999, None):
+        cut = len(data) - 2 if frac is None else int(
+            sos + (len(data) - sos) * frac)
+        part = data[:cut]
+        want = _imread(tmp_path, part)
+        assert cv2.imdecode(np.frombuffer(part, np.uint8),
+                            cv2.IMREAD_COLOR) is None
+        with pytest.raises(ValueError, match="truncated"):
+            image_io.decode_image(part)
+        path = tmp_path / "cut.jpg"
+        path.write_bytes(part)
+        if want is None:  # a progressive file cut inside a table
+            with pytest.raises(ValueError):
+                image_io.read_image(path)
+            continue
+        try:
+            got = image_io.read_image(path)
+        except ValueError as exc:
+            assert progressive, (frac, exc)
+            assert "smoothing" in str(exc) or "marker segment" in str(exc)
+            continue
+        np.testing.assert_array_equal(got, want, err_msg=str(frac))
+        read += 1
+    assert read >= (8 if not progressive else 2)
+
+
 # --- refusals ------------------------------------------------------------
 
 
@@ -342,8 +454,7 @@ def _refused(case: str) -> tuple[bytes, str]:
         base[sof + 4] = 12
         return bytes(base), "12-bit"
     if case == "cmyk":
-        base[sof + 9] = 4
-        return bytes(base), "CMYK"
+        return _pil_jpeg(img, "CMYK"), "CMYK"
     if case == "adobe_rgb":
         adobe = b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0])
         app0 = bytes(base).index(b"\xff\xe0")
@@ -375,30 +486,47 @@ def _refused(case: str) -> tuple[bytes, str]:
     "progressive", "sof3", "sof5", "sof9", "sof10", "12bit", "cmyk",
     "adobe_rgb", "rgb_ids", "truncated", "no_eoi"])
 def test_refusals_name_the_mode(tmp_path, case):
+    """The plain decoder refuses every mode past baseline by name; the C
+    library and `read_image` still refuse arithmetic-coded, lossless,
+    differential and 12-bit JPEGs, and the C library, like
+    `cv2.imdecode`, bytes that end early."""
     data, match = _refused(case)
     with pytest.raises(ValueError, match=match):
         jpeg.decode_pixels(data)
+    if case in ("progressive", "cmyk", "adobe_rgb", "rgb_ids"):
+        return  # read by the C library: test_cv2_reads_what_is_refused
     with pytest.raises(ValueError, match=match):
         image_codec.decode_jpeg(data)
+    if case in ("truncated", "no_eoi"):
+        return  # read_image fills these as cv2.imread does
     path = tmp_path / "x.jpg"
     path.write_bytes(data)
     with pytest.raises(ValueError, match=match):
         image_io.read_image(path)
 
 
-def test_cv2_reads_what_is_refused(tmp_path):
-    """The refusals that differ from cv2 (ROADMAP C3): cv2 decodes a
-    progressive and an RGB JPEG, and `imread` returns a truncated one
-    partly filled (`imdecode` returns None for it)."""
-    for case in ("progressive", "adobe_rgb", "rgb_ids"):
-        data, _ = _refused(case)
-        assert _cv2(data).shape == (16, 24, 3), case
-    data, _ = _refused("truncated")
-    assert cv2.imdecode(np.frombuffer(data, np.uint8),
-                        cv2.IMREAD_COLOR) is None
-    (tmp_path / "t.jpg").write_bytes(data)
-    assert cv2.imread(str(tmp_path / "t.jpg"),
-                      cv2.IMREAD_COLOR).shape == (16, 24, 3)
+@pytest.mark.parametrize("case", [
+    "progressive", "cmyk", "adobe_rgb", "rgb_ids", "truncated", "no_eoi"])
+def test_cv2_reads_what_is_refused(tmp_path, case):
+    """What the plain decoder refuses and cv2 reads (ROADMAP C3), the C
+    library reads as cv2 does: a progressive, a CMYK and two RGB JPEGs as
+    `imdecode` does, and `read_image` a file cut in its scan data or
+    before its EOI as `imread` does (`imdecode` refuses those bytes)."""
+    data, _ = _refused(case)
+    if case in ("truncated", "no_eoi"):
+        assert cv2.imdecode(np.frombuffer(data, np.uint8),
+                            cv2.IMREAD_COLOR) is None
+        want = _imread(tmp_path, data)
+        assert want.shape == (16, 24, 3)
+        np.testing.assert_array_equal(image_codec.decode_jpeg(data, True),
+                                      want)
+        np.testing.assert_array_equal(
+            image_io.read_image(tmp_path / "x.jpg"), want)
+        return
+    want = _cv2(data)
+    assert want.shape == (16, 24, 3)
+    np.testing.assert_array_equal(image_codec.decode_jpeg(data), want)
+    np.testing.assert_array_equal(image_io.decode_image(data), want)
 
 
 def test_other_formats_name_themselves(tmp_path):
@@ -440,7 +568,8 @@ def test_committed_digests_equal_cv2_and_the_port():
         assert _sha(got) == want["rgb_sha256"], name
         assert _sha(image_io.resize_linear(got, size)) \
             == want["letterbox_sha256"], name
-        if name.endswith(".jpg") and rgb.shape[0] * rgb.shape[1] <= 40_000:
+        if (name.endswith(".jpg") and not name.startswith("c3_")
+                and rgb.shape[0] * rgb.shape[1] <= 40_000):
             data = path.read_bytes()
             plain = image_io.apply_orientation(
                 jpeg.decode_pixels(data),
@@ -478,7 +607,9 @@ def test_corrupt_streams_agree_between_the_decoders():
     """Seeded random byte changes and cuts in cv2-written JPEGs (headers,
     tables and entropy-coded data alike): for each, the C library and the
     plain version either both raise a ValueError or both return the same
-    pixels; neither crashes or raises anything else."""
+    pixels, or, where a change made a stream past baseline that only the
+    C library reads (a frame byte turned progressive, say), the C library
+    returns cv2's pixels; neither crashes or raises anything else."""
     rng = np.random.RandomState(0)
     bases = [_encode(_content(24, 40, "edges", 1), 80, sampling, *extra)
              for sampling, extra in (
@@ -498,10 +629,15 @@ def test_corrupt_streams_agree_between_the_decoders():
             except ValueError:
                 results.append(None)
         plain, c = results
+        if plain is None and c is not None:
+            np.testing.assert_array_equal(c, _cv2(bytes(data)),
+                                          err_msg=str(trial))
+            outcomes["c_only"] = outcomes.get("c_only", 0) + 1
+            continue
         assert (plain is None) == (c is None), trial
         if c is None:
             outcomes["refused"] += 1
         else:
             np.testing.assert_array_equal(c, plain, err_msg=str(trial))
             outcomes["decoded"] += 1
-    assert min(outcomes.values()) > 50, outcomes
+    assert min(outcomes["decoded"], outcomes["refused"]) > 50, outcomes

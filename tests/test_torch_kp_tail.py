@@ -25,6 +25,7 @@ import torch
 from multiposenet_tpu.ops import kp_tail_pallas
 from multiposenet_tpu_torch import kernels, weights
 from multiposenet_tpu_torch.models.posenet import MultiPoseNet
+from multiposenet_tpu_torch.models.layers import BatchNorm
 from multiposenet_tpu_torch.ops import kp_tail
 
 from torch_port_helpers import (
@@ -141,7 +142,9 @@ def test_tail_taken_only_in_eval_mode_and_on_tiled_heights():
     """Training mode, and heatmap heights the TPU kernel's 16-row tile
     does not divide (a 96² input gives 24² maps), keep the 18-channel
     conv, as the JAX package does; there the two heads agree to f32
-    rounding."""
+    rounding. In training mode BatchNorm normalizes with the batch's
+    statistics; its layers are held in eval mode here so that only the
+    keypoint head's choice differs."""
     cfg = tiny_crowd_config("float32")
     variables = posenet_variables(cfg)
     model = _port_model(cfg, variables)
@@ -151,6 +154,9 @@ def test_tail_taken_only_in_eval_mode_and_on_tiled_heights():
     with torch.no_grad():
         tail = model(x)
         model.train()
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.eval()
         conv = model(x)
         model.eval()
         odd = model(torch.as_tensor(rng.randint(0, 256, (1, 96, 96, 3))

@@ -47,20 +47,22 @@ def _port_modules():
 
 
 def test_every_module_imports_without_jax():
-    """In a fresh interpreter where `jax`, `flax`, `msgpack`,
-    `multiposenet_tpu`, `cv2` and `tensorflow` cannot be imported, every
-    module of the port imports."""
+    """In a fresh interpreter where `jax`, `flax`, `optax`, `orbax`,
+    `msgpack`, `multiposenet_tpu`, `cv2` and `tensorflow` cannot be
+    imported, every module of the port imports."""
     modules = _port_modules()
     for name in ("infer.predictor", "infer.export", "infer.msgpack_io",
                  "ops.pose_nms", "ops.column_topk", "tools.dbench2",
                  "eval.oks", "eval.runner", "data.synthetic", "data.coco",
                  "data.loader", "utils.image_io", "utils.image_codec",
-                 "utils.jpeg", "utils.visualize", "cli", "__main__"):
+                 "utils.jpeg", "utils.visualize", "cli", "__main__",
+                 "data.targets", "data.augment", "train.losses",
+                 "train.steps", "train.checkpoints", "train.loop"):
         assert f"multiposenet_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
-        "for blocked in ('jax', 'flax', 'msgpack', 'multiposenet_tpu',\n"
-        "                'cv2', 'tensorflow'):\n"
+        "for blocked in ('jax', 'flax', 'optax', 'orbax', 'msgpack',\n"
+        "                'multiposenet_tpu', 'cv2', 'tensorflow'):\n"
         "    sys.modules[blocked] = None\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
@@ -73,9 +75,10 @@ def test_every_module_imports_without_jax():
 
 
 def test_no_source_file_names_jax():
-    """No module of the port, nor chip_smoke.py, imports JAX, flax,
-    msgpack, the JAX package or the JAX package's benchmarks."""
-    forbidden = ("jax", "flax", "msgpack", "multiposenet_tpu", "benchmarks")
+    """No module of the port, nor chip_smoke.py, imports JAX, flax, optax,
+    orbax, msgpack, the JAX package or the JAX package's benchmarks."""
+    forbidden = ("jax", "flax", "optax", "orbax", "msgpack",
+                 "multiposenet_tpu", "benchmarks")
     for path in [*PACKAGE_DIR.rglob("*.py"), REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
