@@ -37,6 +37,16 @@ steps; `train_default` times Config() at 512², batch 32, fed by the
 port's `batch_iterator` with augmentation, and `train_fast` Config.fast()
 in bfloat16 at batch 64; `train_cli` runs `train` in this process, resumes
 it, and serves the exported model with one `predict` (one B1 launch).
+Then the segmentation masks and the PRN trainer: `prepare_masks` runs
+`prepare --coco-json` on the segmentation fixture, reads the shards back
+and trains 3 steps of Config() at 512², batch 32, on masked batches
+through `train.loop.train` (the tiny config's masked steps held card
+against CPU in lockstep); `train_prn` runs `train-prn` at the default
+PRN into `train_cli`'s export and serves it with one `predict` (one B1
+launch), times the PRN step at full width and holds the tiny PRN card
+against CPU; `profile_train` traces 2 steps of `train_default` with
+`utils/profiling.trace` and prints the 10 device kernels with the most
+time and the device's idle share.
 
     python3 chip_smoke.py
 
@@ -1549,11 +1559,12 @@ def rel_err(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-12)
 
 
-def phase_train_parity(Config, MultiPoseNet, synthetic, loader, steps_lib,
-                       device, card: str) -> dict:
-    """The tiny config in float32, TF32 off: 3 steps on the card and 3 on
-    the CPU from the same seeded weights and batches. Steps 1 and 2 run
-    on the same parameters (lr is 0 at the first update): losses to 1e-4
+def card_cpu_steps(cfg, model, batches, steps_lib, device,
+                   lockstep: bool = False) -> dict:
+    """3 steps of `cfg` in float32 with TF32 off, on the card and on the
+    CPU from the same weights and batches: each step's metrics and batch
+    statistics, and their errors card against CPU. Steps 1 and 2 run on
+    the same parameters (lr is 0 at the first update): losses to 1e-4
     relative and batch statistics to 1e-5, grad_norm to 1e-2 (float32
     gradients of this tiny model flip ReLU gates on its 1x1 and 2x2 maps:
     on the card and on the CPU alike they part from the float64 gradient
@@ -1561,32 +1572,27 @@ def phase_train_parity(Config, MultiPoseNet, synthetic, loader, steps_lib,
     follows the first real update, where Adam moves elements of
     near-zero gradient by about ±lr on the sign of their rounding: 1e-2
     there for the losses, and its batch statistics are reported, not
-    held. Then 20 steps with warmup 2 on one batch on the card:
-    total_loss falls by at least half."""
-    cfg = tiny_train_config(Config)
-    records = synthetic.make_dataset(3 * TINY_BATCH, img_h=192, img_w=160,
-                                     seed=5)
-    rng = np.random.RandomState(11)
-    batches = [loader.make_batch(records[i * TINY_BATCH:(i + 1) * TINY_BATCH],
-                                 TINY_IMAGE, cfg.prn.max_persons, rng)
-               for i in range(3)]
-    model = seeded_model(MultiPoseNet, cfg)
-    runs = {}
+    held. With `lockstep`, the card's state is set to the CPU's after
+    every step, so each step starts from the same state on both, and
+    every step is held as steps 1 and 2 are."""
+    wheres = (device, torch.device("cpu"))
+    runs = ([], []), ([], [])  # (metrics, batch statistics): card, CPU
     with no_tf32():
-        for where in (device, torch.device("cpu")):
-            state = steps_lib.create_train_state(
-                cfg, model=copy.deepcopy(model), device=where)
-            step = steps_lib.make_train_step(cfg)
-            metrics, stats = [], []
-            for b in batches:
+        states = [steps_lib.create_train_state(
+            cfg, model=copy.deepcopy(model), device=where)
+            for where in wheres]
+        step = steps_lib.make_train_step(cfg)
+        for b in batches:
+            for state, where, (metrics, stats) in zip(states, wheres, runs):
                 state, m = step(state, steps_lib.batch_to(b, where))
                 metrics.append({k: float(v) for k, v in m.items()})
                 stats.append({k: v.detach().cpu().clone()
                               for k, v in state.batch_stats.items()})
-            runs[where.type] = (metrics, stats)
-    (card_m, card_s), (cpu_m, cpu_s) = runs[device.type], runs["cpu"]
+            if lockstep:
+                states[0].load_state_dict(states[1].state_dict())
+    (card_m, card_s), (cpu_m, cpu_s) = runs
     errs = []
-    for i in range(3):
+    for i in range(len(batches)):
         loss_err = max(rel_err(card_m[i][k], cpu_m[i][k]) for k in cpu_m[i]
                        if k != "grad_norm")
         norm_err = rel_err(card_m[i]["grad_norm"], cpu_m[i]["grad_norm"])
@@ -1595,10 +1601,31 @@ def phase_train_parity(Config, MultiPoseNet, synthetic, loader, steps_lib,
         errs.append({"step": i + 1, "max_rel_err_losses": loss_err,
                      "rel_err_grad_norm": norm_err,
                      "max_abs_err_batch_stats": stat_err})
-        ok = (loss_err <= (1e-4 if i < 2 else 1e-2) and norm_err <= 1e-2
-              and (stat_err <= 1e-5 or i == 2))
+        tight = i < 2 or lockstep
+        ok = (loss_err <= (1e-4 if tight else 1e-2) and norm_err <= 1e-2
+              and (stat_err <= 1e-5 or not tight))
         if not ok:
-            raise AssertionError(f"train_parity: step {i + 1}: {errs[-1]}")
+            raise AssertionError(f"card against CPU: step {i + 1}: "
+                                 f"{errs[-1]}")
+    return {"card_vs_cpu": errs, "lockstep": lockstep,
+            "card_metrics": card_m}
+
+
+def phase_train_parity(Config, MultiPoseNet, synthetic, loader, steps_lib,
+                       device, card: str) -> dict:
+    """The tiny config in float32, TF32 off: 3 steps on the card and 3 on
+    the CPU from the same seeded weights and batches (`card_cpu_steps`).
+    Then 20 steps with warmup 2 on one batch on the card: total_loss
+    falls by at least half."""
+    cfg = tiny_train_config(Config)
+    records = synthetic.make_dataset(3 * TINY_BATCH, img_h=192, img_w=160,
+                                     seed=5)
+    rng = np.random.RandomState(11)
+    batches = [loader.make_batch(records[i * TINY_BATCH:(i + 1) * TINY_BATCH],
+                                 TINY_IMAGE, cfg.prn.max_persons, rng)
+               for i in range(3)]
+    model = seeded_model(MultiPoseNet, cfg)
+    parity = card_cpu_steps(cfg, model, batches, steps_lib, device)
     fit_cfg = cfg.replace(train=dataclasses.replace(cfg.train, num_steps=20))
     state = steps_lib.create_train_state(
         fit_cfg, model=copy.deepcopy(model), device=device)
@@ -1612,17 +1639,18 @@ def phase_train_parity(Config, MultiPoseNet, synthetic, loader, steps_lib,
         raise AssertionError(f"train_parity: 20 steps on one batch: {curve}")
     emit({"phase": "train_parity", "card": card, "config": "tiny f32",
           "image": TINY_IMAGE, "batch": TINY_BATCH, "tf32": False,
-          "card_vs_cpu": errs, "card_metrics": card_m,
-          "fit_one_batch_total_loss": curve})
+          **parity, "fit_one_batch_total_loss": curve})
     return {"steps": 3}
 
 
 def loader_img_per_s(loader, records, cfg, batches: int) -> float:
     """The loader's own rate: `batches` batches from a fresh iterator
-    with augmentation, host clock, nothing else running."""
+    with augmentation (and the coverage maps of records with masks), host
+    clock, nothing else running."""
     it = loader.batch_iterator(records, cfg.train.batch_size,
                                cfg.train.image_size, cfg.prn.max_persons,
-                               seed=1, train=True)
+                               seed=1, train=True,
+                               mask_stride=cfg.model.output_stride)
     next(it)
     t0 = time.perf_counter()
     for _ in range(batches):
@@ -1697,16 +1725,19 @@ def phase_train_fast(Config, MultiPoseNet, synthetic, loader, steps_lib,
 
 
 def phase_train_cli(Config, cli, export, train_ckpt, decode, kernels,
-                    device, directory: Path, card: str) -> int:
+                    device, directory: Path, card: str, prn=None) -> int:
     """`train --synthetic 16 --steps 3 --config <tiny> --model-dir <dir>`
     in this process on the card: metrics.jsonl has the JAX loop's keys
     at steps 1..3; `--steps 5` again resumes from the checkpoint at step
     3 (logs steps 4 and 5 only); the exported EMA model loads into the
     port's Predictor on the card and one `predict` launches B1 exactly
-    once. Returns that launch."""
+    once. Returns that launch. The tiny config keeps `prn` (the default
+    PRNConfig unless given), so that `train_prn` can train that PRN into
+    the same directory."""
     ckpt = directory / "train_ckpt"
     cfg = tiny_train_config(Config, checkpoint_dir=str(ckpt),
                             log_interval_steps=1, save_interval_steps=100)
+    cfg = cfg.replace(prn=prn or Config().prn)
     cfg_path = directory / "train_cfg.json"
     cfg_path.write_text(cfg.to_json())
     model_dir = directory / "trained"
@@ -1741,6 +1772,272 @@ def phase_train_cli(Config, cli, export, train_ckpt, decode, kernels,
           "first_command_s": first_s, "persons": len(people),
           "predict_launches": {decode.KERNEL: 1}})
     return 1
+
+
+SEGMENTATION_FIXTURE = FIXTURES / "annotations_segs.json"
+# The segmentation fixture's 10 scenes, repeated to fill batches of 32.
+MASK_RECORD_REPEATS = 4
+PRN_STEPS, PRN_TIMED = 50, 10
+
+
+def masked_records(prepare, directory: Path) -> list[dict]:
+    """The shards `prepare --coco-json <segmentation fixture>` wrote under
+    `directory`, read back, MASK_RECORD_REPEATS times over."""
+    records = list(prepare.read_shards(directory))
+    if sum(r["person_mask"] is not None for r in records) != len(records):
+        raise AssertionError("prepare_masks: records without masks")
+    return records * MASK_RECORD_REPEATS
+
+
+def phase_prepare_masks(Config, MultiPoseNet, cli, prepare, loader,
+                        train_loop, steps_lib, device, directory: Path,
+                        card: str) -> None:
+    """`prepare --coco-json <segmentation fixture> --image-dir
+    tests/fixtures/images` in this process writes the shards; read_shards
+    → batch_iterator(mask_stride=4) → train.loop.train takes 3 steps of
+    Config() f32 at 512², batch 32, every image with masks (the soft-mask
+    targets). Step ms from the loop's images_per_sec (host clock, logged
+    every step; the loop fetches the metrics, which waits for the card),
+    the loader's img/s with masks, peak device memory. Then the tiny
+    config on masked batches, card against CPU in lockstep
+    (`card_cpu_steps`: every step from the same state, every step held
+    as train_parity holds its first two)."""
+    shards = directory / "shards"
+    t0 = time.perf_counter()
+    out = json.loads(cli_stdout(cli, [
+        "prepare", "--coco-json", str(SEGMENTATION_FIXTURE), "--image-dir",
+        str(FIXTURES), "--output-dir", str(shards)]).strip())
+    prepare_s = time.perf_counter() - t0
+    records = masked_records(prepare, shards)
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, image_size=TRAIN_IMAGE, batch_size=TRAIN_BATCH,
+        checkpoint_dir=str(directory / "masks_ckpt"), log_interval_steps=1))
+    batches = loader.batch_iterator(
+        records, cfg.train.batch_size, cfg.train.image_size,
+        cfg.prn.max_persons, train=True,
+        mask_stride=cfg.model.output_stride)
+    first = next(batches)
+    hm = TRAIN_IMAGE // cfg.model.output_stride
+    if not first["has_mask"].all() or first["exclude_cov"].shape != (
+            TRAIN_BATCH, hm, hm):
+        raise AssertionError("prepare_masks: the batch has no coverage maps")
+
+    def with_first():
+        yield first
+        yield from batches
+
+    logged = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_loop.train(cfg, with_first(), num_steps=3, log_fn=logged.append,
+                     checkpoint=False, device=device)
+    if [m["step"] for m in logged] != [1, 2, 3] or not all(
+            np.isfinite(m["total_loss"]) for m in logged):
+        raise AssertionError(f"prepare_masks: metrics {logged}")
+    step_ms = [TRAIN_BATCH * 1e3 / m["images_per_sec"] for m in logged]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tiny = tiny_train_config(Config)
+    rng = np.random.RandomState(11)
+    tiny_batches = [loader.make_batch(
+        records[i * TINY_BATCH:(i + 1) * TINY_BATCH], TINY_IMAGE,
+        tiny.prn.max_persons, rng, mask_stride=tiny.model.output_stride)
+        for i in range(3)]
+    parity = card_cpu_steps(tiny, seeded_model(MultiPoseNet, tiny),
+                            tiny_batches, steps_lib, device, lockstep=True)
+    emit({"phase": "prepare_masks", "card": card,
+          "shards": [Path(p).name for p in out["shards"]],
+          "prepare_s": prepare_s, "records": len(records),
+          "config": "Config() f32", "image": TRAIN_IMAGE,
+          "batch": TRAIN_BATCH,
+          "clock": "host, the loop's images_per_sec per step",
+          "step_ms_each": step_ms, "step_ms": statistics.median(step_ms[1:]),
+          "train_img_per_s": TRAIN_BATCH * 1e3
+          / statistics.median(step_ms[1:]),
+          "loader_img_per_s_masks": loader_img_per_s(loader, records, cfg, 3),
+          "peak_device_mem_gb": peak, "last_metrics": logged[-1],
+          "tiny_masked": {"config": "tiny f32", "tf32": False, **parity}})
+
+
+def prn_step_ms(Config, prn_train, loader, synthetic, device,
+                cfg=None) -> dict:
+    """The PRN step of `cfg` (Config() unless given: 56x36 crops, 1024
+    hidden units, 32 persons, 512², batch 64) on one batch, CUDA events
+    around each call: 3 warm-up, PRN_TIMED timed."""
+    cfg = cfg or Config()
+    t = cfg.train
+    records = synthetic.make_dataset(t.batch_size, img_h=256, img_w=256,
+                                     seed=3)
+    b = loader.make_batch(records, t.image_size, cfg.prn.max_persons,
+                          train=False)
+    batch = {k: torch.as_tensor(b[k]).to(device)
+             for k in prn_train.BATCH_KEYS}
+    state = prn_train.create_prn_state(cfg, device)
+    step = prn_train.make_prn_train_step(cfg)
+    times = []
+    for i in range(3 + PRN_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        end.synchronize()
+        if i >= 3:
+            times.append(start.elapsed_time(end))
+    return {"prn_step_ms": statistics.median(times),
+            "prn_step_ms_each": times, "batch": t.batch_size,
+            "image": t.image_size,
+            "crop": [cfg.prn.crop_height, cfg.prn.crop_width],
+            "hidden_units": cfg.prn.hidden_units,
+            "persons": cfg.prn.max_persons,
+            "prn_loss_last": float(m["prn_loss"])}
+
+
+def prn_card_cpu(Config, prn_train, loader, synthetic, device) -> list:
+    """3 PRN steps of a tiny config (14x10 crops, 64 hidden units, 8
+    persons, 128², batch 8) in float32 with TF32 off, on the card and on
+    the CPU from the same seeded init and batches, in lockstep (the
+    card's state set to the CPU's after every step): each step's loss,
+    card against CPU, to 1e-4 relative; the accuracy (an argmax count)
+    is reported."""
+    cfg = tiny_train_config(Config)
+    records = synthetic.make_dataset(3 * TINY_BATCH, img_h=192, img_w=160,
+                                     seed=7)
+    batches = [loader.make_batch(records[i * TINY_BATCH:(i + 1) * TINY_BATCH],
+                                 TINY_IMAGE, cfg.prn.max_persons,
+                                 train=False) for i in range(3)]
+    wheres = (device, torch.device("cpu"))
+    rows = []
+    with no_tf32():
+        states = [prn_train.create_prn_state(cfg, w) for w in wheres]
+        step = prn_train.make_prn_train_step(cfg)
+        for i, b in enumerate(batches):
+            got = []
+            for state, where in zip(states, wheres):
+                _, m = step(state, {k: torch.as_tensor(b[k]).to(where)
+                                    for k in prn_train.BATCH_KEYS})
+                got.append({k: float(v) for k, v in m.items()})
+            states[0].load_state_dict(states[1].state_dict())
+            err = rel_err(got[0]["prn_loss"], got[1]["prn_loss"])
+            rows.append({"step": i + 1, "card": got[0], "cpu": got[1],
+                         "rel_err_loss": err})
+            if err > 1e-4:
+                raise AssertionError(f"train_prn: card against CPU {rows}")
+    return rows
+
+
+def phase_train_prn(Config, cli, export, prn_train, loader, synthetic,
+                    decode, kernels, device, directory: Path, card: str,
+                    prn_config=None) -> int:
+    """`train-prn --synthetic 64 --steps PRN_STEPS --model-dir <train_cli's
+    export> --device cuda` in this process (Config(), or `prn_config`
+    through --config): prn.msgpack written there, its loss logged at step
+    50; `predict` with that directory launches B1 once (the exported
+    model with the trained PRN). Then the PRN step's time at full width
+    and the tiny config's losses card against CPU. Returns the launch."""
+    model_dir = directory / "trained"
+    argv = ["train-prn", "--synthetic", "64", "--steps", str(PRN_STEPS),
+            "--model-dir", str(model_dir), "--device", device.type]
+    if prn_config is not None:
+        path = directory / "prn_cfg.json"
+        path.write_text(prn_config.to_json())
+        argv += ["--config", str(path)]
+    t0 = time.perf_counter()
+    text = cli_stdout(cli, argv)
+    command_s = time.perf_counter() - t0
+    logged = [json.loads(line) for line in text.splitlines()
+              if line.startswith("{")]
+    if [m["step"] for m in logged] != [50] or sorted(logged[0]) != [
+            "prn_accuracy", "prn_loss", "step"]:
+        raise AssertionError(f"train_prn: logged {logged}")
+    pred = export.load_predictor(model_dir)
+    trained = export.load_model(model_dir)[2]
+    got = pred.prn_variables["params"]["out_cm"]["kernel"]
+    if not np.array_equal(got, trained["params"]["out_cm"]["kernel"]):
+        raise AssertionError("train_prn: the predictor's PRN is not the "
+                             "trained one")
+    image = planted_scenes(np.random.RandomState(4), 1, 200, 240)[0]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    people = pred.predict(image)
+    torch.cuda.synchronize()
+    if dict(kernels.LAUNCHES) != {decode.KERNEL: 1}:
+        raise AssertionError(f"train_prn: predict launches "
+                             f"{kernels.LAUNCHES}")
+    emit({"phase": "train_prn", "card": card, "argv": argv,
+          "command_s": command_s, "logged": logged,
+          "persons": len(people), "predict_launches": {decode.KERNEL: 1},
+          **prn_step_ms(Config, prn_train, loader, synthetic, device,
+                        prn_config),
+          "clock": "CUDA events per step",
+          "tiny_card_vs_cpu": prn_card_cpu(Config, prn_train, loader,
+                                           synthetic, device)})
+    return 1
+
+
+def trace_summary(prof, window_ms: float) -> dict:
+    """The traced window's device kernels: the 10 with the most time
+    (summed over launches) and the device's idle share, 1 - the union of
+    the kernels' intervals over the window on the host clock."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"device_trace": False, "idle_share": "not measured",
+                "top_device_ops": []}
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += e.time_range.elapsed_us()
+        entry[1] += 1
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    total = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"device_trace": True, "window_ms": window_ms,
+            "device_busy_ms": busy / 1e3,
+            "idle_share": max(0.0, 1.0 - busy / 1e3 / window_ms),
+            "kernel_ms_total": total / 1e3, "kernel_launches": len(kernels),
+            "top_device_ops": [
+                {"name": name[:120], "ms": us / 1e3, "calls": n,
+                 "share": us / total} for name, (us, n) in top]}
+
+
+def phase_profile_train(Config, MultiPoseNet, synthetic, loader, steps_lib,
+                        profiling, device, directory: Path,
+                        card: str) -> None:
+    """`utils.profiling.trace` around 2 steps of `train_default`'s
+    Config() f32 at 512², batch 32, after 2 warm-up steps, the batches
+    already on the card: the 10 device operations with the most time and
+    the device's idle share in the traced window."""
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, image_size=TRAIN_IMAGE, batch_size=TRAIN_BATCH))
+    records = synthetic.make_dataset(64, img_h=256, img_w=256, seed=0)
+    it = loader.batch_iterator(records, TRAIN_BATCH, TRAIN_IMAGE,
+                               cfg.prn.max_persons, train=True)
+    batches = [steps_lib.batch_to(next(it), device) for _ in range(4)]
+    state = steps_lib.create_train_state(
+        cfg, model=seeded_model(MultiPoseNet, cfg), device=device)
+    step = steps_lib.make_train_step(cfg)
+    for b in batches[:2]:
+        state, m = step(state, b)
+    torch.cuda.synchronize()
+    with profiling.trace(directory / "profile_train") as prof:
+        t0 = time.perf_counter()
+        for b in batches[2:]:
+            state, m = step(state, b)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    trace_bytes = (directory / "profile_train" / "trace.json").stat().st_size
+    emit({"phase": "profile_train", "card": card, "config": "Config() f32",
+          "image": TRAIN_IMAGE, "batch": TRAIN_BATCH, "steps": 2,
+          "trace_json_bytes": trace_bytes,
+          "clock": "profiler kernel intervals; window on the host clock",
+          **trace_summary(prof, window_ms)})
 
 
 def ptxas_summary(log: str) -> dict:
@@ -1780,10 +2077,13 @@ def main() -> int:
                                                 detection, kp_tail)
         from multiposenet_tpu_torch.ops import image as image_ops
         from multiposenet_tpu_torch.tools import dbench2
+        from multiposenet_tpu_torch.data import prepare
         from multiposenet_tpu_torch.train import checkpoints as train_ckpt
+        from multiposenet_tpu_torch.train import loop as train_loop
+        from multiposenet_tpu_torch.train import prn_train
         from multiposenet_tpu_torch.train import steps as steps_lib
         from multiposenet_tpu_torch.utils import (image_codec, image_io, jpeg,
-                                                  visualize)
+                                                  profiling, visualize)
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
@@ -1854,6 +2154,15 @@ def main() -> int:
         b1_paths["train_cli_predict"] = phase_train_cli(
             Config, cli, export, train_ckpt, decode, kernels, device,
             Path(directory), card)
+        phase_prepare_masks(Config, MultiPoseNet, cli, prepare, loader,
+                            train_loop, steps_lib, device, Path(directory),
+                            card)
+        b1_paths["train_prn_predict"] = phase_train_prn(
+            Config, cli, export, prn_train, loader, synthetic, decode,
+            kernels, device, Path(directory), card)
+        phase_profile_train(Config, MultiPoseNet, synthetic, loader,
+                            steps_lib, profiling, device, Path(directory),
+                            card)
     launches[decode.KERNEL] = sum(b1_paths.values())
     rows[0]["launches_by_path"] = b1_paths
     for row in rows:

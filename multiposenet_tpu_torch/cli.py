@@ -1,13 +1,17 @@
 """Command-line entry points of the port, the counterparts of
-`multiposenet_tpu/cli.py`'s `train`, `eval` and `predict`, with the same
-flags, defaults and output, plus `--device` (by default the card; without
-one the command raises unless `--device cpu` is given). `prepare` and
-`train-prn` are not ported yet.
+`multiposenet_tpu/cli.py`'s `prepare`, `train`, `train-prn`, `eval` and
+`predict`, with the same flags, defaults and output, plus `--device` (by
+default the card; without one the command raises unless `--device cpu`
+is given; `prepare` runs on the host only).
 
 Usage:
+    python -m multiposenet_tpu_torch prepare --coco-json ann.json \
+        --image-dir images/ --output-dir shards/
     python -m multiposenet_tpu_torch train --config cfg.json \
         --coco-json ann.json --image-dir images/ [--synthetic N] \
         [--steps N] [--model-dir out/]
+    python -m multiposenet_tpu_torch train-prn --synthetic 512 \
+        --steps 1000 [--model-dir out/]
     python -m multiposenet_tpu_torch eval --model-dir out/ \\
         [--coco-json ... --image-dir ...] [--synthetic N] [--batched]
     python -m multiposenet_tpu_torch predict --model-dir out/ \\
@@ -61,11 +65,40 @@ def _load_predictor(args):
     return Predictor(config=_load_config(args), device=args.device)
 
 
+def cmd_prepare(args) -> None:
+    """COCO JSON + images (or --synthetic N scenes) → npz shards with the
+    segmentation union masks (data/prepare.py); prints the shard paths."""
+    from multiposenet_tpu_torch.data.prepare import (
+        prepare_coco, write_shards,
+    )
+
+    if args.coco_json:
+        paths = prepare_coco(args.coco_json, args.image_dir, args.output_dir,
+                             shard_size=args.shard_size,
+                             max_persons=args.max_persons)
+    else:
+        from multiposenet_tpu_torch.data.synthetic import make_dataset
+
+        paths = write_shards(make_dataset(args.synthetic or 64, seed=0),
+                             args.output_dir, shard_size=args.shard_size,
+                             max_persons=args.max_persons)
+    print(json.dumps({"shards": [str(p) for p in paths]}))
+
+
+def _train_batches(args, config):
+    from multiposenet_tpu_torch.data.loader import batch_iterator
+
+    return batch_iterator(
+        _load_records(args), config.train.batch_size,
+        config.train.image_size, config.prn.max_persons,
+        image_dir=args.image_dir, train=True,
+        mask_stride=config.model.output_stride)
+
+
 def cmd_train(args) -> None:
     """Train on one device (checkpoints and metrics.jsonl under the
     config's train.checkpoint_dir); with --model-dir export the EMA
     weights and the batch statistics in the JAX package's format."""
-    from multiposenet_tpu_torch.data.loader import batch_iterator
     from multiposenet_tpu_torch.train.loop import train
 
     config = _load_config(args)
@@ -74,12 +107,8 @@ def cmd_train(args) -> None:
 
         config = config.replace(
             train=dataclasses.replace(config.train, num_steps=args.steps))
-    records = _load_records(args)
-    batches = batch_iterator(
-        records, config.train.batch_size, config.train.image_size,
-        config.prn.max_persons, image_dir=args.image_dir, train=True)
-    state = train(config, batches, log_fn=lambda m: print(json.dumps(m)),
-                  device=args.device)
+    state = train(config, _train_batches(args, config),
+                  log_fn=lambda m: print(json.dumps(m)), device=args.device)
     if args.model_dir:
         from multiposenet_tpu_torch.infer.export import save_model
         from multiposenet_tpu_torch.train.steps import ema_weights
@@ -89,6 +118,24 @@ def cmd_train(args) -> None:
             variables = posenet_variables(model)
         save_model(args.model_dir, config, variables)
         print(f"exported EMA model to {args.model_dir}")
+
+
+def cmd_train_prn(args) -> None:
+    """Train the PRN alone (--steps, default 1000); with --model-dir write
+    its weights there as prn.msgpack, the JAX package's format."""
+    from multiposenet_tpu_torch.train.prn_train import train_prn
+
+    config = _load_config(args)
+    state = train_prn(config, _train_batches(args, config),
+                      num_steps=args.steps or 1000,
+                      log_fn=lambda m: print(json.dumps(m)),
+                      device=args.device)
+    if args.model_dir:
+        from multiposenet_tpu_torch.infer.export import save_prn
+        from multiposenet_tpu_torch.weights import prn_variables
+
+        save_prn(args.model_dir, prn_variables(state.model))
+        print(f"exported PRN to {args.model_dir}")
 
 
 def cmd_eval(args) -> None:
@@ -154,10 +201,23 @@ def main(argv=None) -> None:
                        help="torch device (default: the CUDA card; "
                             "raises without one unless 'cpu' is given)")
 
+    p = sub.add_parser(
+        "prepare", help="COCO JSON + images → packed npz shards")
+    common(p)
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--shard-size", type=int, default=1024)
+    p.add_argument("--max-persons", type=int, default=32)
+    p.set_defaults(fn=cmd_prepare)
+
     p = sub.add_parser("train", help="train the pose network")
     common(p)
     p.add_argument("--steps", type=int)
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("train-prn", help="train the PRN separately")
+    common(p)
+    p.add_argument("--steps", type=int)
+    p.set_defaults(fn=cmd_train_prn)
 
     p = sub.add_parser("eval", help="COCO keypoint OKS evaluation")
     common(p)

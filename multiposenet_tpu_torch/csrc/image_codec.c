@@ -1,5 +1,6 @@
-/* Host image codec of the port: JPEG decoding and cv2's uint8
- * INTER_LINEAR resize, in plain C99 with no library.
+/* Host image codec of the port: JPEG decoding, cv2's INTER_LINEAR
+ * resize on uint8 and on two-channel float32, its INTER_AREA on float32,
+ * and cv2.fillPoly, in plain C99 with no library.
  *
  * decode_jpeg decodes as libjpeg-turbo 3 does under OpenCV 5's reader:
  * baseline and extended sequential (SOF0, SOF1) and progressive (SOF2)
@@ -34,6 +35,14 @@
  * (((S0 >> 4) * b0) >> 16) + (((S1 >> 4) * b1) >> 16), rounded by
  * (+ 2) >> 2. Rows are never clamped: above the first source row and
  * below the last the weights stay as computed and both rows are the edge.
+ *
+ * resize_linear_f32 and resize_area_f32 are cv2's float32 paths for the
+ * segmentation coverage maps (OpenCV's own code; for INTER_LINEAR cv2
+ * 5.0 takes it on two channels and hands one, three and four to IPP), and
+ * fill_polygons is cv2.fillPoly with 8-connected lines and shift 0; each
+ * is described where it is defined. Their plain versions are
+ * utils/image_io.py resize_linear_plain, resize_area_plain and
+ * data/masks.py fill_polygons_plain.
  *
  * Built by `kernels.py load_host` with `cc -O2 -std=c99 -shared -fPIC`;
  * called through ctypes.
@@ -1171,11 +1180,12 @@ static int round_even(float v)
     return i;
 }
 
-/* Source index pair and 11-bit weights of each destination index along
- * one axis. `clamp` sets the weights of indices beyond the edges to the
- * edge sample (cv2 does so along x only). */
-static void axis(int src, int dst, int clamp, int *s0, int *s1, int *w0,
-                 int *w1)
+/* Source index pair and float32 weights (1 - f, f) of each destination
+ * index along one axis, as cv2 computes them for INTER_LINEAR. `clamp`
+ * sets the weights of indices beyond the edges to the edge sample (cv2
+ * does so along x only). */
+static void axis_f32(int src, int dst, int clamp, int *s0, int *s1,
+                     float *w0, float *w1)
 {
     double scale = 1.0 / ((double)dst / src);
     int d;
@@ -1185,11 +1195,27 @@ static void axis(int src, int dst, int clamp, int *s0, int *s1, int *w0,
         f -= (float)s;
         if (clamp && s < 0) { s = 0; f = 0.f; }
         if (clamp && s >= src - 1) { s = src - 1; f = 0.f; }
-        w0[d] = round_even((1.f - f) * 2048.f);
-        w1[d] = round_even(f * 2048.f);
+        w0[d] = 1.f - f;
+        w1[d] = f;
         s0[d] = clampi(s, 0, src - 1);
         s1[d] = clampi(s + 1, 0, src - 1);
     }
+}
+
+/* The same with cv2's 11-bit weights for uint8. */
+static int axis(int src, int dst, int clamp, int *s0, int *s1, int *w0,
+                int *w1)
+{
+    float *f = (float *)malloc(sizeof(float) * (size_t)dst * 2);
+    int d;
+    if (!f) return 1;
+    axis_f32(src, dst, clamp, s0, s1, f, f + dst);
+    for (d = 0; d < dst; d++) {
+        w0[d] = round_even(f[d] * 2048.f);
+        w1[d] = round_even(f[dst + d] * 2048.f);
+    }
+    free(f);
+    return 0;
 }
 
 /* One source row's horizontal pass: r[x*cn + k] = a0 * s[x0] + a1 * s[x1]
@@ -1254,8 +1280,14 @@ int resize_linear_u8(const uint8_t *src, int sh, int sw, int cn,
     }
     xs1 = xs0 + dw; xw0 = xs1 + dw; xw1 = xw0 + dw;
     ys1 = ys0 + dh; yw0 = ys1 + dh; yw1 = yw0 + dh;
-    axis(sw, dw, 1, xs0, xs1, xw0, xw1);
-    axis(sh, dh, 0, ys0, ys1, yw0, yw1);
+    if (axis(sw, dw, 1, xs0, xs1, xw0, xw1)
+        || axis(sh, dh, 0, ys0, ys1, yw0, yw1)) {
+        free(xs0);
+        free(ys0);
+        free(rows);
+        free(needed);
+        return 1;
+    }
     for (x = 0; x < dw; x++) {
         xs0[x] *= cn;
         xs1[x] *= cn;
@@ -1279,4 +1311,452 @@ int resize_linear_u8(const uint8_t *src, int sh, int sw, int cn,
     free(rows);
     free(needed);
     return 0;
+}
+
+/* ------------------------------------------------------------------ */
+/* cv2's INTER_LINEAR and INTER_AREA on float32 with 2 channels.       */
+
+/* cv2's generic INTER_AREA for an integer ratio (resizeAreaFast_
+ * without its vector code, which it skips for 2 channels): each output
+ * the float sum of its sx * sy block in row order, four samples at a
+ * time ((a + b) + c) + d added to the running sum, times the float
+ * 1 / (sx * sy). */
+static void area_fast_f32(const float *src, int sw, int cn, float *dst,
+                          int dh, int dw, int sx, int sy)
+{
+    int area = sx * sy, y, x, c, k;
+    float scale = 1.f / (float)area;
+    for (y = 0; y < dh; y++) {
+        for (x = 0; x < dw; x++) {
+            for (c = 0; c < cn; c++) {
+                const float *s = src + ((size_t)y * sy * sw + (size_t)x * sx) * cn + c;
+                float sum = 0.f, v[4];
+                for (k = 0; k + 4 <= area; k += 4) {
+                    int j;
+                    for (j = 0; j < 4; j++)
+                        v[j] = s[((size_t)((k + j) / sx) * sw + (k + j) % sx) * cn];
+                    sum += ((v[0] + v[1]) + v[2]) + v[3];
+                }
+                for (; k < area; k++)
+                    sum += s[((size_t)(k / sx) * sw + k % sx) * cn];
+                dst[((size_t)y * dw + x) * cn + c] = sum * scale;
+            }
+        }
+    }
+}
+
+typedef struct { int di, si; float alpha; } Decimate;
+
+static int floor_d(double v)
+{
+    int i = (int)v;
+    return (v < (double)i) ? i - 1 : i;
+}
+
+static int ceil_d(double v)
+{
+    int i = (int)v;
+    return (v > (double)i) ? i + 1 : i;
+}
+
+/* computeResizeAreaTab: the source samples and weights of each output
+ * along one axis, for a ratio `scale` = src / dst that is no integer. */
+static int area_tab(int ssize, int dsize, double scale, Decimate *tab)
+{
+    int k = 0, dx, sx;
+    for (dx = 0; dx < dsize; dx++) {
+        double fsx1 = dx * scale, fsx2 = fsx1 + scale;
+        double cell = scale < ssize - fsx1 ? scale : ssize - fsx1;
+        int sx1 = ceil_d(fsx1), sx2 = floor_d(fsx2);
+        sx2 = sx2 < ssize - 1 ? sx2 : ssize - 1;
+        sx1 = sx1 < sx2 ? sx1 : sx2;
+        if (sx1 - fsx1 > 1e-3) {
+            tab[k].di = dx; tab[k].si = sx1 - 1;
+            tab[k++].alpha = (float)((sx1 - fsx1) / cell);
+        }
+        for (sx = sx1; sx < sx2; sx++) {
+            tab[k].di = dx; tab[k].si = sx;
+            tab[k++].alpha = (float)(1.0 / cell);
+        }
+        if (fsx2 - sx2 > 1e-3) {
+            double t = fsx2 - sx2 < 1. ? fsx2 - sx2 : 1.;
+            tab[k].di = dx; tab[k].si = sx2;
+            tab[k++].alpha = (float)((t < cell ? t : cell) / cell);
+        }
+    }
+    return k;
+}
+
+/* cv2's resizeArea_: each source row weighted along x into buf
+ * (buf[dx] += s * alpha in table order), rows summed into an output row
+ * (sum = beta * buf for a row's first source row, then sum += beta *
+ * buf). 0, or 1 if out of memory. */
+static int area_general_f32(const float *src, int sh, int sw, int cn,
+                            float *dst, int dh, int dw)
+{
+    Decimate *xt = (Decimate *)malloc(sizeof(Decimate) * (size_t)sw * 2);
+    Decimate *yt = (Decimate *)malloc(sizeof(Decimate) * (size_t)sh * 2);
+    float *buf = (float *)malloc(sizeof(float) * (size_t)dw * cn * 2);
+    float *sum;
+    int nx, ny, j, k, c, prev, n = dw * cn;
+    if (!xt || !yt || !buf) {
+        free(xt);
+        free(yt);
+        free(buf);
+        return 1;
+    }
+    sum = buf + n;
+    nx = area_tab(sw, dw, 1.0 / ((double)dw / sw), xt);
+    ny = area_tab(sh, dh, 1.0 / ((double)dh / sh), yt);
+    for (k = 0; k < n; k++) sum[k] = 0.f;
+    prev = yt[0].di;
+    for (j = 0; j < ny; j++) {
+        float beta = yt[j].alpha;
+        const float *s = src + (size_t)yt[j].si * sw * cn;
+        for (k = 0; k < n; k++) buf[k] = 0.f;
+        for (k = 0; k < nx; k++) {
+            float a = xt[k].alpha;
+            for (c = 0; c < cn; c++)
+                buf[xt[k].di * cn + c] += s[xt[k].si * cn + c] * a;
+        }
+        if (yt[j].di != prev) {
+            float *d = dst + (size_t)prev * n;
+            for (k = 0; k < n; k++) {
+                d[k] = sum[k];
+                sum[k] = beta * buf[k];
+            }
+            prev = yt[j].di;
+        } else {
+            for (k = 0; k < n; k++) sum[k] += beta * buf[k];
+        }
+    }
+    for (k = 0; k < n; k++) dst[(size_t)prev * n + k] = sum[k];
+    free(xt);
+    free(yt);
+    free(buf);
+    return 0;
+}
+
+/* The integer ratio of src to dst if cv2 takes it as one (|r - round(r)|
+ * below DBL_EPSILON), else 0. */
+static int integer_ratio(int src, int dst)
+{
+    double r = 1.0 / ((double)dst / src);
+    int i = (int)(r + 0.5);
+    double d = r - i;
+    return (d < 0 ? -d : d) < 2.220446049250313e-16 ? i : 0;
+}
+
+/* cv2.resize(src, (dw, dh), INTER_AREA) on float32 [sh][sw][cn] with
+ * dh <= sh and dw <= sw; 0, or 1 if out of memory. */
+int resize_area_f32(const float *src, int sh, int sw, int cn, float *dst,
+                    int dh, int dw)
+{
+    int ix = integer_ratio(sw, dw), iy = integer_ratio(sh, dh);
+    if (ix && iy) {
+        area_fast_f32(src, sw, cn, dst, dh, dw, ix, iy);
+        return 0;
+    }
+    return area_general_f32(src, sh, sw, cn, dst, dh, dw);
+}
+
+/* cv2.resize(src, (dw, dh), INTER_LINEAR) on float32 [sh][sw][cn] with
+ * cn = 2 (cv2 hands 1, 3 and 4 channels to IPP): along x, a0 * s[x0] +
+ * a1 * s[x0 + 1] up to the first output whose source index reaches the
+ * last column and s[x0] from there on; along y, b0 * r0 + b1 * r1 with
+ * rows never clamped; each product and sum rounded to float. Halving
+ * both sides is cv2's INTER_AREA, as cv2 does. 0, or 1 if out of
+ * memory. */
+int resize_linear_f32(const float *src, int sh, int sw, int cn, float *dst,
+                      int dh, int dw)
+{
+    int *xs0, *xs1, *ys0, *ys1, x, y, c, xmax = dw, n = dw * cn;
+    float *xw0, *xw1, *yw0, *yw1, *rows;
+    unsigned char *needed;
+    double scale_x = 1.0 / ((double)dw / sw);
+    if (sh == 2 * dh && sw == 2 * dw)
+        return resize_area_f32(src, sh, sw, cn, dst, dh, dw);
+    xs0 = (int *)malloc(sizeof(int) * (size_t)(dw + dh) * 2);
+    xw0 = (float *)malloc(sizeof(float) * (size_t)(dw + dh) * 2);
+    rows = (float *)malloc(sizeof(float) * (size_t)sh * n);
+    needed = (unsigned char *)calloc((size_t)sh, 1);
+    if (!xs0 || !xw0 || !rows || !needed) {
+        free(xs0);
+        free(xw0);
+        free(rows);
+        free(needed);
+        return 1;
+    }
+    xs1 = xs0 + dw; ys0 = xs1 + dw; ys1 = ys0 + dh;
+    xw1 = xw0 + dw; yw0 = xw1 + dw; yw1 = yw0 + dh;
+    axis_f32(sw, dw, 1, xs0, xs1, xw0, xw1);
+    axis_f32(sh, dh, 0, ys0, ys1, yw0, yw1);
+    /* cv2's xmax: from the first output whose source index (raised to 0)
+     * plus one reaches the last column, one tap. */
+    for (x = 0; x < dw; x++) {
+        int s = floor_f((float)((x + 0.5) * scale_x - 0.5));
+        if ((s < 0 ? 0 : s) + 1 >= sw) { xmax = x; break; }
+    }
+    for (y = 0; y < dh; y++) needed[ys0[y]] = needed[ys1[y]] = 1;
+    for (y = 0; y < sh; y++) {
+        const float *s = src + (size_t)y * sw * cn;
+        float *r = rows + (size_t)y * n;
+        if (!needed[y]) continue;
+        for (x = 0; x < xmax; x++) {
+            for (c = 0; c < cn; c++) {
+                float p = s[xs0[x] * cn + c] * xw0[x];
+                float q = s[xs1[x] * cn + c] * xw1[x];
+                r[x * cn + c] = p + q;
+            }
+        }
+        for (; x < dw; x++)
+            for (c = 0; c < cn; c++) r[x * cn + c] = s[xs0[x] * cn + c];
+    }
+    for (y = 0; y < dh; y++) {
+        const float *r0 = rows + (size_t)ys0[y] * n;
+        const float *r1 = rows + (size_t)ys1[y] * n;
+        float b0 = yw0[y], b1 = yw1[y], *d = dst + (size_t)y * n;
+        for (x = 0; x < n; x++) {
+            float p = r0[x] * b0, q = r1[x] * b1;
+            d[x] = p + q;
+        }
+    }
+    free(xs0);
+    free(xw0);
+    free(rows);
+    free(needed);
+    return 0;
+}
+
+/* ------------------------------------------------------------------ */
+/* cv2.fillPoly with 8-connected lines and shift 0.                    */
+
+#define XY_SHIFT 16
+#define XY_ONE (1LL << XY_SHIFT)
+
+typedef struct { int64_t x, dx; int y0, y1; } Edge;
+
+/* OpenCV's clipLine on a w x h image; moves the end points, also when
+ * it then fails (returns 0). */
+static int clip_line(int w, int h, int64_t *x1, int64_t *y1, int64_t *x2,
+                     int64_t *y2)
+{
+    int64_t right = w - 1, bottom = h - 1, a;
+    int c1, c2;
+    if (w <= 0 || h <= 0) return 0;
+    c1 = (*x1 < 0) + (*x1 > right) * 2 + (*y1 < 0) * 4 + (*y1 > bottom) * 8;
+    c2 = (*x2 < 0) + (*x2 > right) * 2 + (*y2 < 0) * 4 + (*y2 > bottom) * 8;
+    if ((c1 & c2) == 0 && (c1 | c2) != 0) {
+        if (c1 & 12) {
+            a = c1 < 8 ? 0 : bottom;
+            *x1 += (int64_t)((double)(a - *y1) * (*x2 - *x1) / (*y2 - *y1));
+            *y1 = a;
+            c1 = (*x1 < 0) + (*x1 > right) * 2;
+        }
+        if (c2 & 12) {
+            a = c2 < 8 ? 0 : bottom;
+            *x2 += (int64_t)((double)(a - *y2) * (*x2 - *x1) / (*y2 - *y1));
+            *y2 = a;
+            c2 = (*x2 < 0) + (*x2 > right) * 2;
+        }
+        if ((c1 & c2) == 0 && (c1 | c2) != 0) {
+            if (c1) {
+                a = c1 == 1 ? 0 : right;
+                *y1 += (int64_t)((double)(a - *x1) * (*y2 - *y1) / (*x2 - *x1));
+                *x1 = a;
+                c1 = 0;
+            }
+            if (c2) {
+                a = c2 == 1 ? 0 : right;
+                *y2 += (int64_t)((double)(a - *x2) * (*y2 - *y1) / (*x2 - *x1));
+                *x2 = a;
+                c2 = 0;
+            }
+        }
+    }
+    return (c1 | c2) == 0;
+}
+
+static int inside(int w, int h, int64_t x, int64_t y)
+{
+    return x >= 0 && x < w && y >= 0 && y < h;
+}
+
+/* OpenCV's Line through an 8-connected LineIterator, left to right. */
+static void draw_line(uint8_t *img, int h, int w, int64_t ax, int64_t ay,
+                      int64_t bx, int64_t by, uint8_t value)
+{
+    int64_t dx, dy, major, minor, err, k, px, py;
+    int sy = 1, vert;
+    if (!inside(w, h, ax, ay) || !inside(w, h, bx, by))
+        if (!clip_line(w, h, &ax, &ay, &bx, &by)) return;
+    dx = bx - ax;
+    dy = by - ay;
+    if (dx < 0) {
+        dx = -dx; dy = -dy;
+        px = ax; ax = bx; bx = px;
+        py = ay; ay = by; by = py;
+    }
+    if (dy < 0) { dy = -dy; sy = -1; }
+    vert = dy > dx;
+    major = vert ? dy : dx;
+    minor = vert ? dx : dy;
+    err = major - 2 * minor;
+    px = ax;
+    py = ay;
+    for (k = 0; k <= major; k++) {
+        img[py * w + px] = value;
+        if (vert) py += sy; else px++;
+        if (err < 0) {
+            if (vert) px++; else py += sy;
+            err += 2 * major - 2 * minor;
+        } else {
+            err -= 2 * minor;
+        }
+    }
+}
+
+static int edge_before(const Edge *a, const Edge *b)
+{
+    if (a->y0 != b->y0) return a->y0 < b->y0;
+    if (a->x != b->x) return a->x < b->x;
+    return a->dx < b->dx;
+}
+
+/* FillEdgeCollection: the active list walked in x order, spans between
+ * the 1st and 2nd, 3rd and 4th, ... crossing, each span the pixels
+ * whose x lies in [ceil(xa), floor(xb)]. */
+static int fill_edges(uint8_t *img, int h, int w, Edge *edges, int total,
+                      uint8_t value)
+{
+    Edge **active, *t;
+    int64_t x_min = INT64_MAX, x_max = INT64_MIN;
+    int y_min = INT32_MAX, y_max = INT32_MIN, i, j, n = 0, y, e = 0;
+    if (total < 2) return 0;
+    for (i = 0; i < total; i++) {
+        int64_t x1 = edges[i].x + (edges[i].y1 - edges[i].y0) * edges[i].dx;
+        if (edges[i].y0 < y_min) y_min = edges[i].y0;
+        if (edges[i].y1 > y_max) y_max = edges[i].y1;
+        if (edges[i].x < x_min) x_min = edges[i].x;
+        if (edges[i].x > x_max) x_max = edges[i].x;
+        if (x1 < x_min) x_min = x1;
+        if (x1 > x_max) x_max = x1;
+    }
+    if (y_max < 0 || y_min >= h || x_max < 0 || x_min >= ((int64_t)w << XY_SHIFT))
+        return 0;
+    /* Insertion sort by (y0, x, dx): polygons have few edges. */
+    for (i = 1; i < total; i++) {
+        Edge v = edges[i];
+        for (j = i; j > 0 && edge_before(&v, &edges[j - 1]); j--)
+            edges[j] = edges[j - 1];
+        edges[j] = v;
+    }
+    active = (Edge **)malloc(sizeof(Edge *) * (size_t)total);
+    if (!active) return 1;
+    if (y_max > h) y_max = h;
+    for (y = edges[0].y0; y < y_max; y++) {
+        int pos = 0, draw = 0;
+        Edge *prev = NULL, *keep;
+        while (pos < n || (e < total && edges[e].y0 == y)) {
+            Edge *last = pos < n ? active[pos] : NULL;
+            if (last && last->y1 == y) {
+                memmove(active + pos, active + pos + 1,
+                        sizeof(Edge *) * (size_t)(n - pos - 1));
+                n--;
+                continue;
+            }
+            keep = prev;
+            if (last && (e >= total || edges[e].y0 > y || last->x < edges[e].x)) {
+                prev = last;
+                pos++;
+            } else if (e < total) {
+                memmove(active + pos + 1, active + pos,
+                        sizeof(Edge *) * (size_t)(n - pos));
+                active[pos] = &edges[e++];
+                prev = active[pos];
+                pos++;
+                n++;
+            } else {
+                break;
+            }
+            if (draw) {
+                if (y >= 0) {
+                    int64_t xa = keep->x > prev->x ? prev->x : keep->x;
+                    int64_t xb = keep->x > prev->x ? keep->x : prev->x;
+                    xa = (xa + XY_ONE - 1) >> XY_SHIFT;
+                    xb >>= XY_SHIFT;
+                    if (xa < w && xb >= 0) {
+                        if (xa < 0) xa = 0;
+                        if (xb >= w) xb = w - 1;
+                        if (xb >= xa)
+                            memset(img + (size_t)y * w + xa, value,
+                                   (size_t)(xb - xa + 1));
+                    }
+                }
+                keep->x += keep->dx;
+                prev->x += prev->dx;
+            }
+            draw ^= 1;
+        }
+        /* Back in x order, stably (OpenCV's bubble sort). */
+        for (i = 1; i < n; i++) {
+            t = active[i];
+            for (j = i; j > 0 && active[j - 1]->x > t->x; j--)
+                active[j] = active[j - 1];
+            active[j] = t;
+        }
+    }
+    free(active);
+    return 0;
+}
+
+/* cv2.fillPoly(img, parts, value) on uint8 [h][w]: `pts` holds the
+ * (x, y) points of every part in turn, counts[p] points in part p. Each
+ * edge's line is drawn, then the edges of all parts fill together. An
+ * edge with an end off the image takes x and slope from its clipped
+ * segment (and its rows, where the clipped ends lie on different rows),
+ * x carried back to the unclipped first row. 0, or 1 if out of memory. */
+int fill_polygons(uint8_t *img, int h, int w, const int32_t *pts,
+                  const int32_t *counts, int parts, uint8_t value)
+{
+    int total = 0, p, i, rc;
+    const int32_t *v = pts;
+    Edge *edges;
+    for (p = 0; p < parts; p++) total += counts[p];
+    edges = (Edge *)malloc(sizeof(Edge) * (size_t)(total + 1));
+    if (!edges) return 1;
+    total = 0;
+    for (p = 0; p < parts; p++) {
+        int n = counts[p];
+        int64_t x0, y0;
+        if (n <= 0) continue;
+        x0 = v[2 * (n - 1)];
+        y0 = v[2 * (n - 1) + 1];
+        for (i = 0; i < n; i++) {
+            int64_t x1 = v[2 * i], y1 = v[2 * i + 1];
+            int64_t cx0 = x0, cx1 = x1, cy0 = y0, cy1 = y1;
+            draw_line(img, h, w, x0, y0, x1, y1, value);
+            if (!inside(w, h, x0, y0) || !inside(w, h, x1, y1)) {
+                clip_line(w, h, &cx0, &cy0, &cx1, &cy1);
+                if (cy0 == cy1) { cy0 = y0; cy1 = y1; }
+            }
+            if (y0 != y1) {
+                Edge *ed = &edges[total++];
+                ed->dx = (cx1 - cx0) * XY_ONE / (cy1 - cy0);
+                if (y0 < y1) {
+                    ed->y0 = (int)y0; ed->y1 = (int)y1;
+                    ed->x = cx0 * XY_ONE + (y0 - cy0) * ed->dx;
+                } else {
+                    ed->y0 = (int)y1; ed->y1 = (int)y0;
+                    ed->x = cx1 * XY_ONE + (y1 - cy1) * ed->dx;
+                }
+            }
+            x0 = x1;
+            y0 = y1;
+        }
+        v += 2 * n;
+    }
+    rc = fill_edges(img, h, w, edges, total, value);
+    free(edges);
+    return rc;
 }

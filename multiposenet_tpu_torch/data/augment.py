@@ -7,12 +7,11 @@ the JAX package's order so one seed gives the same images bit for bit.
 The two cv2 calls of the colour jitter are written out as OpenCV computes
 them on uint8: `rgb_to_hsv` (COLOR_RGB2HSV, fixed point with hsv_shift
 12, hue range 180) and `hsv_to_rgb` (COLOR_HSV2RGB, through float32 and
-a truncating conversion). The uint8 resize is `utils/image_io.
-resize_linear`, bit for bit with cv2's INTER_LINEAR.
-
-Segmentation-derived masks (the `masks` argument of the JAX package's
-functions, read by `prepare.read_shards`) need cv2's float32 INTER_LINEAR
-and INTER_AREA, which are not ported yet: passing masks raises.
+a truncating conversion). The resizes are `utils/image_io.
+resize_linear`, bit for bit with cv2's INTER_LINEAR on the uint8 image
+and on the float32 [H, W, 2] stack of segmentation masks (`masks`, from
+`data/loader.make_batch`), which goes through the same draws as the
+image.
 """
 
 from __future__ import annotations
@@ -21,12 +20,6 @@ import numpy as np
 
 from multiposenet_tpu_torch.utils.constants import FLIP_PERMUTATION
 from multiposenet_tpu_torch.utils.image_io import resize_linear
-
-MASKS_NOT_PORTED = (
-    "segmentation masks (exclude_mask/person_mask) are not read here yet: "
-    "their resize needs cv2's float32 INTER_LINEAR and INTER_AREA, and "
-    "they come from prepare.read_shards; neither is ported (the mask "
-    "slice)")
 
 _HSV_SHIFT = 12
 
@@ -104,11 +97,12 @@ def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
 
 def hflip(image: np.ndarray, keypoints: np.ndarray, boxes: np.ndarray,
           masks: np.ndarray | None = None):
-    """Horizontal flip with the COCO L/R keypoint index swap."""
-    if masks is not None:
-        raise ValueError(MASKS_NOT_PORTED)
+    """Horizontal flip with the COCO L/R keypoint swap; `masks` [H, W, M]
+    flips with the image."""
     w = image.shape[1]
     image = image[:, ::-1]
+    if masks is not None:
+        masks = np.ascontiguousarray(masks[:, ::-1])
     keypoints = keypoints.copy()
     keypoints[..., 0] = np.where(
         keypoints[..., 2] > 0, (w - 1) - keypoints[..., 0], keypoints[..., 0])
@@ -117,7 +111,7 @@ def hflip(image: np.ndarray, keypoints: np.ndarray, boxes: np.ndarray,
     x0 = boxes[:, 1].copy()
     boxes[:, 1] = (w - 1) - boxes[:, 3]
     boxes[:, 3] = (w - 1) - x0
-    return np.ascontiguousarray(image), keypoints, boxes, None
+    return np.ascontiguousarray(image), keypoints, boxes, masks
 
 
 def random_crop(rng: np.random.RandomState, image: np.ndarray,
@@ -125,15 +119,15 @@ def random_crop(rng: np.random.RandomState, image: np.ndarray,
                 masks: np.ndarray | None = None,
                 min_fraction: float = 0.6):
     """Random crop keeping annotations consistent; keypoints falling
-    outside the crop get v=0."""
-    if masks is not None:
-        raise ValueError(MASKS_NOT_PORTED)
+    outside the crop get v=0; `masks` is cropped with the image."""
     h, w = image.shape[:2]
     ch = int(h * rng.uniform(min_fraction, 1.0))
     cw = int(w * rng.uniform(min_fraction, 1.0))
     y0 = rng.randint(0, h - ch + 1)
     x0 = rng.randint(0, w - cw + 1)
     image = image[y0:y0 + ch, x0:x0 + cw]
+    if masks is not None:
+        masks = np.ascontiguousarray(masks[y0:y0 + ch, x0:x0 + cw])
     keypoints = keypoints.copy()
     keypoints[..., 0] -= x0
     keypoints[..., 1] -= y0
@@ -145,7 +139,7 @@ def random_crop(rng: np.random.RandomState, image: np.ndarray,
     boxes[:, 2] = np.clip(boxes[:, 2] - y0, 0, ch - 1)
     boxes[:, 1] = np.clip(boxes[:, 1] - x0, 0, cw - 1)
     boxes[:, 3] = np.clip(boxes[:, 3] - x0, 0, cw - 1)
-    return np.ascontiguousarray(image), keypoints, boxes, None
+    return np.ascontiguousarray(image), keypoints, boxes, masks
 
 
 def color_jitter(rng: np.random.RandomState, image: np.ndarray,
@@ -174,9 +168,8 @@ def resize_to(image: np.ndarray, keypoints: np.ndarray, boxes: np.ndarray,
     """Resize + bottom/right zero pad/crop to (target, target).
     "max_side": one scale target / max(h, w), the whole image visible;
     "min_side": target / min(h, w), the long axis cropped at `target`
-    (keypoints beyond it get v=0)."""
-    if masks is not None:
-        raise ValueError(MASKS_NOT_PORTED)
+    (keypoints beyond it get v=0). `masks` [H, W, M] float32 resizes
+    alike (cv2's float INTER_LINEAR) into zeros [target, target, M]."""
     h, w = image.shape[:2]
     if mode == "min_side":
         scale = target / min(h, w)
@@ -196,20 +189,27 @@ def resize_to(image: np.ndarray, keypoints: np.ndarray, boxes: np.ndarray,
         outside = ((keypoints[..., 0] > target - 1)
                    | (keypoints[..., 1] > target - 1))
         keypoints[..., 2] = np.where(outside, 0.0, keypoints[..., 2])
-    return out, keypoints, boxes, None
+    if masks is not None:
+        mr = resize_linear(masks.astype(np.float32), (nw, nh))
+        if mr.ndim == 2:
+            mr = mr[..., None]
+        mout = np.zeros((target, target, mr.shape[-1]), np.float32)
+        mout[:min(nh, target), :min(nw, target)] = mr[:target, :target]
+        masks = mout
+    return out, keypoints, boxes, masks
 
 
 def augment_record(rng: np.random.RandomState, image: np.ndarray,
                    keypoints: np.ndarray, boxes: np.ndarray, target: int,
                    masks: np.ndarray | None = None, flip_prob: float = 0.5,
                    crop_prob: float = 0.7):
-    """The training augmentation chain → a (target, target) image."""
-    if masks is not None:
-        raise ValueError(MASKS_NOT_PORTED)
+    """The training augmentation chain → a (target, target) image; `masks`
+    go through the same crop, flip and resize."""
     if rng.rand() < crop_prob:
-        image, keypoints, boxes, _ = random_crop(rng, image, keypoints,
-                                                 boxes)
+        image, keypoints, boxes, masks = random_crop(rng, image, keypoints,
+                                                     boxes, masks)
     if rng.rand() < flip_prob:
-        image, keypoints, boxes, _ = hflip(image, keypoints, boxes)
+        image, keypoints, boxes, masks = hflip(image, keypoints, boxes,
+                                               masks)
     image = color_jitter(rng, image)
-    return resize_to(image, keypoints, boxes, target)
+    return resize_to(image, keypoints, boxes, target, masks)

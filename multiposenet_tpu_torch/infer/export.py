@@ -51,8 +51,16 @@ def save_model(
     (directory / "model.msgpack").write_bytes(
         msgpack_io.pack(_flax_ordered(variables)))
     if prn_variables is not None:
-        (directory / "prn.msgpack").write_bytes(
-            msgpack_io.pack(_flax_ordered(prn_variables)))
+        save_prn(directory, prn_variables)
+
+
+def save_prn(directory: str | Path, prn_variables: Any) -> None:
+    """Write the PRN's flax variables as `prn.msgpack` under `directory`
+    (what the JAX package's `train-prn` writes there)."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "prn.msgpack").write_bytes(
+        msgpack_io.pack(_flax_ordered(prn_variables)))
 
 
 def load_model(directory: str | Path):

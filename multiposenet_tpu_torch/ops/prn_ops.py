@@ -58,6 +58,27 @@ def crop_heatmaps_cm(heatmaps_cm: torch.Tensor, boxes: torch.Tensor,
     return torch.einsum("bpiy,bpkyj->bpjik", ry, cols)
 
 
+def batched_crop_heatmaps(heatmaps: torch.Tensor, boxes: torch.Tensor,
+                          crop_height: int, crop_width: int) -> torch.Tensor:
+    """Channels-last heatmaps [B, H, W, K] and boxes [B, P, 4] in heatmap
+    coords → crops [B, P, cw, ch, K], the y-contraction first as the JAX
+    package's `crop_heatmaps` does (PRN training's synthesized maps)."""
+    h, w = heatmaps.shape[1:3]
+    y0, x0, y1, x1 = boxes.unbind(-1)
+    ry = interp_matrix(y0, (y1 - y0).clamp(min=1e-3), crop_height, h)
+    rx = interp_matrix(x0, (x1 - x0).clamp(min=1e-3), crop_width, w)
+    ry, rx = ry.to(heatmaps.dtype), rx.to(heatmaps.dtype)
+    rows = torch.einsum("bpiy,byxk->bpixk", ry, heatmaps)
+    return torch.einsum("bpjx,bpixk->bpjik", rx, rows)
+
+
+def crop_heatmaps(heatmap: torch.Tensor, boxes: torch.Tensor,
+                  crop_height: int, crop_width: int) -> torch.Tensor:
+    """One image: heatmap [H, W, K], boxes [P, 4] → [P, cw, ch, K]."""
+    return batched_crop_heatmaps(heatmap[None], boxes[None], crop_height,
+                                 crop_width)[0]
+
+
 def to_channel_major(crops: torch.Tensor, num_keypoints: int) -> torch.Tensor:
     """[..., cw, ch, K] crops → [N, K, cw*ch] (flat = j*ch + i)."""
     hw = crops.shape[-3] * crops.shape[-2]

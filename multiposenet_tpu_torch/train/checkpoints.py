@@ -4,11 +4,12 @@ or when it falls on `save_interval_steps`, never at or before the latest
 saved step (unless forced past it), and the newest `max_to_keep` are
 kept.
 
-A checkpoint is one `torch.save` file of the whole TrainState (step,
-parameters, EMA, batch statistics, Adam moments), written to a temporary
-name and renamed into place. Orbax's format cannot be read without JAX,
-so the two packages exchange models through the export
-(`infer/export.py`), not through checkpoints.
+A checkpoint is one `torch.save` file of a whole state's `state_dict()`
+(TrainState: step, parameters, EMA, batch statistics, Adam moments;
+PRNTrainState of `train/prn_train.py`: step, parameters, Adam moments),
+written to a temporary name and renamed into place. Orbax's format
+cannot be read without JAX, so the two packages exchange models through
+the export (`infer/export.py`), not through checkpoints.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
 class CheckpointManager:
-    """Saves and restores TrainStates under `directory` as
+    """Saves and restores training states (anything with `step`,
+    `state_dict()` and `load_state_dict()`) under `directory` as
     `ckpt_<step>.pt`."""
 
     def __init__(self, directory: str | Path,

@@ -189,7 +189,8 @@ def create_train_state(config: Config, seed: int = 0,
 def _device_targets(batch: dict[str, torch.Tensor], config: Config,
                     anchors: torch.Tensor):
     """Padded annotations → heatmap, mask, segmentation and anchor
-    targets, on the batch's device."""
+    targets, on the batch's device; the loss mask and segmentation target
+    come from the coverage maps of images with segmentation masks."""
     m = config.model
     hm = config.train.image_size // m.output_stride
     stride = m.output_stride
@@ -204,6 +205,15 @@ def _device_targets(batch: dict[str, torch.Tensor], config: Config,
         hm, hm, stride)
     seg = targets_lib.segmentation_target(batch["boxes"], person, hm, hm,
                                           stride)
+    if "exclude_cov" in batch:
+        # Segmentation coverage from the loader (persons without a
+        # segmentation already gave their box on the host): where an image
+        # has masks, the heatmap loss is weighted by 1 - the crowd and
+        # unlabeled coverage and the seg target is the person coverage;
+        # elsewhere the box unions above stay.
+        flag = batch["has_mask"][:, None, None, None]
+        mask = torch.where(flag, 1.0 - batch["exclude_cov"][..., None], mask)
+        seg = torch.where(flag, batch["person_cov"][..., None], seg)
     d = config.detector
     cls_t, box_t, _ = targets_lib.batched_label_anchors(
         anchors, batch["boxes"], person, d.match_high, d.match_low)

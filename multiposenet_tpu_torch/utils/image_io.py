@@ -24,10 +24,16 @@ Gray is repeated into three channels. The Exif orientation (tag 0x0112
 of IFD0, in a JPEG APP1 `Exif` block or a PNG `eXIf` chunk) is applied
 as cv2 applies it. Any other format raises a ValueError that names it.
 
-`write_png` writes uint8 RGB as an 8-bit PNG. `resize_linear` is cv2's
-INTER_LINEAR: on uint8 bit for bit (its fixed-point arithmetic, through
-the C library; `resize_linear_plain` is the NumPy version), on float32
-bilinear with half-pixel centres.
+`encode_png` and `write_png` write uint8 gray or RGB as an 8-bit PNG;
+`decode_gray_png` reads a gray PNG as `cv2.imdecode(buf,
+cv2.IMREAD_GRAYSCALE)` does. `resize_linear` is cv2's INTER_LINEAR and
+`resize_area` its INTER_AREA, bit for bit through the C library where
+noted (`resize_linear_plain` and `resize_area_plain` are the NumPy
+versions): INTER_LINEAR on uint8 (fixed-point arithmetic) and on
+two-channel float32 (the segmentation coverage maps), INTER_AREA on
+float32. cv2 5.0 hands one-, three- and four-channel float32
+INTER_LINEAR to IPP, whose arithmetic is not reproduced here: those go
+through torch's bilinear, within float rounding of cv2.
 """
 
 from __future__ import annotations
@@ -316,26 +322,53 @@ def _unfilter_row(f: int, cur: list, prev: list, bpp: int) -> list:
     return row
 
 
-def write_png(path: str | Path, rgb: np.ndarray) -> None:
-    """uint8 RGB [H, W, 3] → an 8-bit RGB PNG (rows unfiltered)."""
-    rgb = np.asarray(rgb)
-    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[-1] != 3:
-        raise ValueError("write_png takes uint8 RGB [H, W, 3]; got "
-                         f"{rgb.dtype} {rgb.shape}")
-    height, width = rgb.shape[:2]
-    rows = np.zeros((height, width * 3 + 1), np.uint8)
-    rows[:, 1:] = rgb.reshape(height, width * 3)
+def encode_png(pixels: np.ndarray) -> bytes:
+    """uint8 gray [H, W] or RGB [H, W, 3] → 8-bit PNG bytes (rows
+    unfiltered). PNG is lossless: `decode_image` / `decode_gray_png` (and
+    cv2) read the same pixels back, though the bytes differ from cv2's."""
+    pixels = np.asarray(pixels)
+    if pixels.dtype != np.uint8 or not (
+            pixels.ndim == 2 or (pixels.ndim == 3 and pixels.shape[-1] == 3)):
+        raise ValueError("encode_png takes uint8 gray [H, W] or RGB "
+                         f"[H, W, 3]; got {pixels.dtype} {pixels.shape}")
+    height, width = pixels.shape[:2]
+    channels = 1 if pixels.ndim == 2 else 3
+    rows = np.zeros((height, width * channels + 1), np.uint8)
+    rows[:, 1:] = pixels.reshape(height, width * channels)
 
     def chunk(kind: bytes, payload: bytes) -> bytes:
         return (struct.pack(">I", len(payload)) + kind + payload
                 + struct.pack(">I", zlib.crc32(kind + payload)))
 
-    Path(path).write_bytes(
-        PNG_SIGNATURE
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0,
-                                     0))
-        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-        + chunk(b"IEND", b""))
+    colour = 0 if channels == 1 else 2
+    return (PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8,
+                                         colour, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path: str | Path, rgb: np.ndarray) -> None:
+    """uint8 RGB [H, W, 3] → an 8-bit RGB PNG file (rows unfiltered)."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[-1] != 3:
+        raise ValueError("write_png takes uint8 RGB [H, W, 3]; got "
+                         f"{rgb.dtype} {rgb.shape}")
+    Path(path).write_bytes(encode_png(rgb))
+
+
+def decode_gray_png(data: bytes, name: str | Path = "<bytes>") -> np.ndarray:
+    """Gray PNG bytes (any bit depth, alpha dropped) → uint8 [H, W], as
+    `cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)` reads them; Exif orientation
+    applied. Colour PNGs are refused: cv2 would convert them to gray
+    with libpng's weights, which are not reproduced here."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError(f"{name}: not a PNG")
+    pixels, exif = _decode_png(data, name)
+    if pixels.ndim != 2:
+        raise ValueError(f"{name}: a colour PNG is not read as gray here")
+    return apply_orientation(pixels[:, :, None],
+                             exif_orientation(exif))[:, :, 0]
 
 
 # --- resizing -----------------------------------------------------------------
@@ -349,16 +382,24 @@ def _check_resize(arr: np.ndarray, size) -> None:
         raise ValueError(f"resize_linear: bad size {size}")
 
 
+def _two_channel_f32(arr: np.ndarray) -> bool:
+    return arr.dtype == np.float32 and arr.ndim == 3 and arr.shape[2] == 2
+
+
 def resize_linear(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """cv2.resize(image, (w, h), interpolation=cv2.INTER_LINEAR) for uint8
-    or float32 [H, W] / [H, W, C] arrays. uint8 goes through the C
-    library, bit for bit with cv2; float32 is bilinear with half-pixel
-    centres, no antialias, edge pixels repeated (within float rounding
-    of cv2)."""
+    or float32 [H, W] / [H, W, C] arrays. uint8 and two-channel float32
+    go through the C library, bit for bit with cv2; other float32 is
+    torch's bilinear with half-pixel centres, no antialias, edge pixels
+    repeated (within float rounding of cv2's IPP path)."""
     arr = np.asarray(image)
     _check_resize(arr, size)
+    if arr.shape[:2] == (size[1], size[0]):
+        return arr.copy()  # cv2 copies an image of the same size
     if arr.dtype == np.uint8:
         return image_codec.resize_linear_u8(arr, size)
+    if _two_channel_f32(arr):
+        return image_codec.resize_linear_f32(arr, size)
     w, h = size
     x = torch.from_numpy(np.ascontiguousarray(arr))
     x = x[None, None] if arr.ndim == 2 else x.permute(2, 0, 1)[None]
@@ -368,39 +409,64 @@ def resize_linear(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     return np.ascontiguousarray(y.numpy())
 
 
-def _linear_axis(src: int, dst: int, clamp: bool):
-    """Source indices and 11-bit weights along one axis, as cv2 computes
-    them: float32 coordinates (d + 0.5) * scale - 0.5 with scale =
-    1 / (dst / src) in double, weights rint((1 - f) * 2048) and
-    rint(f * 2048). With `clamp` (cv2 does it along x only) a coordinate
-    beyond an edge takes the edge sample at full weight."""
+def _linear_coords(src: int, dst: int, clamp: bool):
+    """Source indices s, s + 1 (clipped to the axis), the float32 fraction
+    f and cv2's `xmax` along one axis, as cv2 computes them: float32
+    coordinates (d + 0.5) * scale - 0.5 with scale = 1 / (dst / src) in
+    double. With `clamp` (cv2 does it along x only) a coordinate beyond
+    an edge takes the edge sample at full weight. `xmax` is the first
+    output whose index (raised to 0) plus one reaches the last sample:
+    cv2's float path takes one tap from there on."""
     scale = 1.0 / (dst / src)
     f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
     f = (f - s.astype(np.float32)).astype(np.float32)
+    one_tap = np.flatnonzero(np.maximum(s, 0) + 1 >= src)
+    xmax = int(one_tap[0]) if len(one_tap) else dst
     if clamp:
         low, high = s < 0, s >= src - 1
         s[low], f[low] = 0, 0
         s[high], f[high] = src - 1, 0
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), f, xmax
+
+
+def _linear_axis(src: int, dst: int, clamp: bool):
+    """`_linear_coords` with cv2's 11-bit weights rint((1 - f) * 2048)
+    and rint(f * 2048)."""
+    s0, s1, f, _ = _linear_coords(src, dst, clamp)
     w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
     w1 = np.rint(f * np.float32(2048)).astype(np.int64)
-    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1
+    return s0, s1, w0, w1
 
 
 def resize_linear_plain(image: np.ndarray,
                         size: tuple[int, int]) -> np.ndarray:
-    """The plain NumPy version of `resize_linear` on uint8, the
-    specification of `csrc/image_codec.c resize_linear_u8`: an exact
-    integer horizontal pass S = a0 * p0 + a1 * p1, then cv2's vectorised
-    vertical pass (((S0 >> 4) * b0) >> 16) + (((S1 >> 4) * b1) >> 16),
-    (+ 2) >> 2, saturated. Rows are not clamped: above the first source
-    row and below the last both rows are the edge row, with the weights
-    as computed (cv2 computes them so, and its two truncating products
-    can then land one level below the edge row itself)."""
+    """The plain NumPy version of `resize_linear` on uint8 and on
+    two-channel float32, the specification of `csrc/image_codec.c
+    resize_linear_u8` and `resize_linear_f32`.
+
+    uint8: an exact integer horizontal pass S = a0 * p0 + a1 * p1, then
+    cv2's vectorised vertical pass (((S0 >> 4) * b0) >> 16) + (((S1 >>
+    4) * b1) >> 16), (+ 2) >> 2, saturated. Rows are not clamped: above
+    the first source row and below the last both rows are the edge row,
+    with the weights as computed (cv2 computes them so, and its two
+    truncating products can then land one level below the edge row
+    itself).
+
+    float32: the same coordinates with float weights (1 - f, f), each
+    product and sum rounded to float, no fused multiply-add; along x two
+    taps up to the first output whose source index (raised to 0) plus one
+    reaches the last column, one tap from there on. Halving both sides
+    is cv2's INTER_AREA, as cv2 does."""
     arr = np.asarray(image)
     _check_resize(arr, size)
+    if arr.shape[:2] == (size[1], size[0]):
+        return arr.copy()
+    if _two_channel_f32(arr):
+        return _resize_linear_f32_plain(arr, size)
     if arr.dtype != np.uint8:
-        raise ValueError("resize_linear_plain takes uint8")
+        raise ValueError("resize_linear_plain takes uint8 or float32 "
+                         "[H, W, 2]")
     w, h = size
     src = arr.reshape(arr.shape[0], arr.shape[1], -1).astype(np.int64)
     x0, x1, a0, a1 = _linear_axis(src.shape[1], w, clamp=True)
@@ -410,3 +476,126 @@ def resize_linear_plain(image: np.ndarray,
         + (((rows[y1] >> 4) * b1[:, None, None]) >> 16)
     out = np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
     return out.reshape((h, w) + arr.shape[2:])
+
+
+def _resize_linear_f32_plain(arr: np.ndarray, size) -> np.ndarray:
+    w, h = size
+    if arr.shape[0] == 2 * h and arr.shape[1] == 2 * w:
+        return resize_area_plain(arr, size)
+    x0, x1, fx, xmax = _linear_coords(arr.shape[1], w, clamp=True)
+    y0, y1, fy, _ = _linear_coords(arr.shape[0], h, clamp=False)
+    a0, b0 = np.float32(1) - fx, np.float32(1) - fy
+    rows = arr[:, x0] * a0[None, :, None] + arr[:, x1] * fx[None, :, None]
+    rows[:, xmax:] = arr[:, x0[xmax:]]
+    return rows[y0] * b0[:, None, None] + rows[y1] * fy[:, None, None]
+
+
+def _check_area(arr: np.ndarray, size) -> None:
+    w, h = size
+    if arr.dtype != np.float32 or arr.ndim not in (2, 3):
+        raise ValueError("resize_area takes float32 [H, W] or [H, W, C]; "
+                         f"got {arr.dtype} {arr.shape}")
+    if not (1 <= h <= arr.shape[0] and 1 <= w <= arr.shape[1]):
+        raise ValueError(f"resize_area shrinks only: {arr.shape[:2]} to "
+                         f"{(h, w)}")
+    cn = 1 if arr.ndim == 2 else arr.shape[2]
+    if arr.shape[:2] == (2 * h, 2 * w) and cn in (1, 3, 4):
+        raise ValueError("resize_area: cv2 halves 1, 3 and 4 channels in "
+                         "vector code whose sums are grouped otherwise; "
+                         "not reproduced here")
+
+
+def resize_area(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """cv2.resize(image, (w, h), interpolation=cv2.INTER_AREA) on float32
+    [H, W] / [H, W, C] shrinking to (w, h), bit for bit through the C
+    library (see `resize_area_plain`)."""
+    arr = np.asarray(image)
+    _check_area(arr, size)
+    if arr.shape[:2] == (size[1], size[0]):
+        return arr.copy()
+    return image_codec.resize_area_f32(arr, size)
+
+
+def _integer_ratio(src: int, dst: int) -> int:
+    """cv2's test for an integer ratio: 1 / (dst / src) within
+    DBL_EPSILON of its rounding (0 if not)."""
+    r = 1.0 / (dst / src)
+    i = int(r + 0.5)
+    return i if abs(r - i) < np.finfo(np.float64).eps else 0
+
+
+def _area_table(src: int, dst: int):
+    """computeResizeAreaTab for a ratio that is no integer: per output,
+    its source indices and float32 weights, padded into [dst, K] arrays
+    with a validity mask."""
+    scale = 1.0 / (dst / src)
+    rows = []
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, src - f1)
+        s1, s2 = int(np.ceil(f1)), int(np.floor(f2))
+        s2 = min(s2, src - 1)
+        s1 = min(s1, s2)
+        taps = []
+        if s1 - f1 > 1e-3:
+            taps.append((s1 - 1, (s1 - f1) / cell))
+        taps += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            taps.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        rows.append(taps)
+    k = max(len(t) for t in rows)
+    idx = np.zeros((dst, k), np.int64)
+    wt = np.zeros((dst, k), np.float32)
+    valid = np.zeros((dst, k), bool)
+    for d, taps in enumerate(rows):
+        for j, (s, a) in enumerate(taps):
+            idx[d, j], wt[d, j], valid[d, j] = s, np.float32(a), True
+    return idx, wt, valid
+
+
+def resize_area_plain(image: np.ndarray,
+                      size: tuple[int, int]) -> np.ndarray:
+    """The plain NumPy version of `resize_area`, the specification of
+    `csrc/image_codec.c resize_area_f32`. At an integer ratio on both
+    axes (cv2's resizeAreaFast_ without its vector code): each output the
+    float sum of its block in row order, four samples at a time ((a + b)
+    + c) + d added to the running sum, times the float 1 / area.
+    Otherwise (cv2's resizeArea_): each source row weighted along x
+    (buf[d] += s * alpha, taps in order), then rows along y (sum = beta
+    * buf for an output row's first tap, sum += beta * buf after), all
+    in float32."""
+    arr = np.asarray(image)
+    _check_area(arr, size)
+    if arr.shape[:2] == (size[1], size[0]):
+        return arr.copy()
+    w, h = size
+    src = arr.reshape(arr.shape[0], arr.shape[1], -1)
+    ix, iy = _integer_ratio(src.shape[1], w), _integer_ratio(src.shape[0], h)
+    if ix and iy:
+        cn = src.shape[2]
+        blocks = src[:h * iy, :w * ix].reshape(h, iy, w, ix, cn) \
+            .transpose(0, 2, 4, 1, 3).reshape(h, w, cn, ix * iy)
+        area = ix * iy
+        total = np.zeros((h, w, cn), np.float32)
+        k = 0
+        while k + 4 <= area:
+            b = blocks[..., k:k + 4]
+            total += ((b[..., 0] + b[..., 1]) + b[..., 2]) + b[..., 3]
+            k += 4
+        for k in range(k, area):
+            total += blocks[..., k]
+        out = total * np.float32(1.0 / area)
+    else:
+        xi, xw, xv = _area_table(src.shape[1], w)
+        yi, yw, yv = _area_table(src.shape[0], h)
+        rows = np.zeros((src.shape[0], w, src.shape[2]), np.float32)
+        for j in range(xi.shape[1]):
+            rows = np.where(xv[None, :, j, None],
+                            rows + src[:, xi[:, j]] * xw[None, :, j, None],
+                            rows)
+        out = rows[yi[:, 0]] * yw[:, 0, None, None]
+        for j in range(1, yi.shape[1]):
+            out = np.where(yv[:, j, None, None],
+                           out + rows[yi[:, j]] * yw[:, j, None, None], out)
+    return out.reshape((h, w) + arr.shape[2:]).astype(np.float32)

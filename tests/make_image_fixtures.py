@@ -9,7 +9,13 @@ installed cv2's decode.
   over them (the flat scenes alone compress to a few KB and barely
   exercise the IDCT or the upsampling), at several samplings and
   qualities; `annotations.json` is a COCO person-keypoints JSON of their
-  persons, for `eval --coco-json ... --image-dir`.
+  persons, for `eval --coco-json ... --image-dir`;
+  `annotations_segs.json` is the same persons with COCO segmentations
+  (`segmentation_annotations`), for `prepare --coco-json`: multi-part
+  polygons whose parts overlap (with a part off the image and a part
+  under 6 numbers), uncompressed and compressed RLE, crowd regions in
+  both RLE forms, a person with no labelled keypoint and persons with no
+  segmentation (the box fallback).
 - `photo_480x640_q95_420.jpg`: the timing fixture (and `predict`'s input).
 - `kind_*.jpg`: textured and noise content covering 4:4:4, 4:2:2, 4:2:0,
   4:4:0, 4:1:1 and gray, q 50, 75, 95 and 100, optimised Huffman tables,
@@ -181,6 +187,75 @@ def coco_annotations(records, names) -> dict:
     return data
 
 
+def _outline(box, n: int, rng) -> list[float]:
+    """An n-point ellipse-like polygon inside a (y0, x0, y1, x1) box, as
+    flat COCO [x0, y0, x1, y1, ...] rounded to 2 decimals."""
+    y0, x0, y1, x1 = box
+    t = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    r = 0.5 * (0.8 + 0.2 * rng.rand(n))
+    xs = (x0 + x1) / 2 + r * (x1 - x0) * np.cos(t)
+    ys = (y0 + y1) / 2 + r * (y1 - y0) * np.sin(t)
+    return [round(float(v), 2) for v in np.stack([xs, ys], 1).reshape(-1)]
+
+
+def _rle(poly_parts, h: int, w: int, compressed: bool) -> dict:
+    from multiposenet_tpu_torch.data import masks
+
+    mask = np.zeros((h, w), np.uint8)
+    cv2.fillPoly(mask, [np.round(np.asarray(p, np.float64).reshape(-1, 2))
+                        .astype(np.int32) for p in poly_parts], 1)
+    counts = masks.mask_to_rle_counts(mask.astype(bool))
+    return {"size": [h, w], "counts": (masks.encode_rle_string(counts)
+                                       if compressed else counts)}
+
+
+def segmentation_annotations(records, names) -> dict:
+    """`coco_annotations` with a `segmentation` on the persons and crowd
+    regions added: person k of the fixture gets, by k % 5, overlapping
+    multi-part polygons (body, head square and a part off the image, plus
+    a dropped part of 4 numbers), uncompressed RLE, compressed RLE, one
+    polygon, or no segmentation (the box fallback). Image 0 gains a
+    crowd region in uncompressed RLE, image 1 one in compressed RLE, and
+    image 2's first person loses its keypoints (unlabelled)."""
+    data = coco_annotations(records, names)
+    rng = np.random.RandomState(11)
+    for k, ann in enumerate(data["annotations"]):
+        im = data["images"][ann["image_id"]]
+        h, w = im["height"], im["width"]
+        x, y, bw, bh = ann["bbox"]
+        box = (y, x, y + bh, x + bw)
+        body = _outline(box, 14, rng)
+        cx, top = x + bw / 2, y + 0.12 * bh
+        s = 0.18 * bw
+        head = [round(v, 2) for v in (cx - s, top - s, cx + s, top - s,
+                                      cx + s, top + s, cx - s, top + s)]
+        kind = k % 5
+        if kind == 0:
+            off = [round(v, 2) for v in (x - 20, y + bh / 2, x + 0.3 * bw,
+                                         y + 0.4 * bh, x + 0.3 * bw,
+                                         y + 0.7 * bh)]
+            ann["segmentation"] = [body, head, off, [x, y, x + 1, y + 1]]
+        elif kind in (1, 2):
+            ann["segmentation"] = _rle([body, head], h, w, kind == 2)
+        elif kind == 3:
+            ann["segmentation"] = [body]
+    for image_id, compressed in ((0, False), (1, True)):
+        im = data["images"][image_id]
+        h, w = im["height"], im["width"]
+        crowd = [10.0, h - 60.0, 90.0, h - 70.0, 100.0, h - 10.0, 5.0,
+                 h - 5.0]
+        data["annotations"].append({
+            "id": len(data["annotations"]) + 1, "image_id": image_id,
+            "category_id": 1, "iscrowd": 1,
+            "bbox": [5.0, h - 70.0, 95.0, 65.0], "area": 5000.0,
+            "keypoints": [0] * 51, "num_keypoints": 0,
+            "segmentation": _rle([crowd], h, w, compressed)})
+    first = next(a for a in data["annotations"] if a["image_id"] == 2)
+    first["keypoints"] = [0] * 51
+    first["num_keypoints"] = 0
+    return data
+
+
 def sha256(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
@@ -280,6 +355,9 @@ def main() -> None:
     (OUT / "digests.json").write_text(json.dumps(digests, indent=1) + "\n")
     (OUT / "annotations.json").write_text(
         json.dumps(coco_annotations(records, names)) + "\n")
+    (OUT / "annotations_segs.json").write_text(json.dumps(
+        segmentation_annotations(records, names), separators=(",", ":"))
+        + "\n")
     total = sum(p.stat().st_size for p in OUT.iterdir())
     print(f"{len(files)} images, {total} bytes in {OUT}")
 

@@ -4,8 +4,8 @@ JAX package's and cv2: RGB -> HSV and HSV -> RGB equal cv2.cvtColor on
 every uint8 input (HSV -> RGB both in OpenCV's vector code, which takes a
 row's first multiple of 32 pixels, and in its scalar code, which takes
 the rest), and every augmentation, `make_batch` and the first batches of
-`batch_iterator` equal the JAX package's bit for bit from the same seeds.
-Records with segmentation masks are refused by name."""
+`batch_iterator` equal the JAX package's bit for bit from the same seeds,
+with segmentation masks too."""
 
 import cv2
 import numpy as np
@@ -172,22 +172,80 @@ def test_loader_reads_image_files(tmp_path, records):
     np.testing.assert_array_equal(got["images"], want["images"])
 
 
-@pytest.mark.parametrize("key", ["exclude_mask", "person_mask"])
-def test_masks_are_refused_before_any_work(records, key):
-    rec = dict(records[0])
-    rec[key] = np.zeros(rec["image"].shape[:2], bool)
-    rec["image"] = None  # no work may start: reading it would fail first
-    for call in (lambda: tloader.make_batch([rec], 64, 8),
-                 lambda: tloader.batch_iterator([rec], 1, 64, 8)):
-        with pytest.raises(ValueError, match="INTER_AREA") as err:
-            call()
-        msg = str(err.value)
-        assert "float32 INTER_LINEAR" in msg and "read_shards" in msg
-    mask = np.zeros((96, 80, 2), np.float32)
-    r = records[0]
-    for fn in (lambda: ta.hflip(r["image"], r["keypoints"], r["boxes"],
-                                mask),
-               lambda: ta.resize_to(r["image"], r["keypoints"], r["boxes"],
-                                    64, mask)):
-        with pytest.raises(ValueError, match="is ported"):
-            fn()
+def _masked(records, seed=0, drop=None):
+    """Records with seeded segmentation masks (bool [H, W]); `drop` names
+    a key left out (None) on the second record, the third has none."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i, rec in enumerate(records):
+        rec = dict(rec)
+        h, w = rec["image"].shape[:2]
+        if i != 2:
+            rec["exclude_mask"] = rng.rand(h, w) > 0.7
+            rec["person_mask"] = rng.rand(h, w) > 0.4
+            if i == 1 and drop:
+                rec[drop] = None
+        out.append(rec)
+    return out
+
+
+@pytest.mark.parametrize("fn", ["hflip", "random_crop", "resize_max_side",
+                                "resize_min_side", "augment_record"])
+def test_masks_follow_the_image_as_in_jax(records, fn):
+    """Every augmentation moves a [H, W, 2] float32 mask stack as the JAX
+    package's does (cv2's float INTER_LINEAR in the resizes), bit for
+    bit, from the same draws."""
+    r = records[1]
+    rng = np.random.RandomState(3)
+    masks = (rng.rand(96, 80, 2) > 0.5).astype(np.float32)
+    args = (r["image"], r["keypoints"], r["boxes"])
+    calls = {
+        "hflip": lambda m: m.hflip(*args, masks),
+        "random_crop": lambda m: m.random_crop(np.random.RandomState(5),
+                                               *args, masks),
+        "resize_max_side": lambda m: m.resize_to(*args, 72, masks),
+        "resize_min_side": lambda m: m.resize_to(*args, 72, masks,
+                                                 mode="min_side"),
+        "augment_record": lambda m: m.augment_record(
+            np.random.RandomState(7), *args, 64, masks),
+    }
+    got, want = calls[fn](ta), calls[fn](ja)
+    assert got[3] is not None and got[3].dtype == np.float32
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("size,stride,train,drop", [
+    (64, 4, True, None), (64, 4, False, "person_mask"),
+    (130, 4, True, "exclude_mask"), (96, 8, True, None)])
+def test_make_batch_with_masks_equals_jax(records, size, stride, train,
+                                          drop):
+    """The coverage maps (float INTER_LINEAR through the augmentation,
+    then INTER_AREA to the heatmap grid: an integer ratio at 64 and 96, a
+    non-integer one at 130 → 32), `has_mask` (False for the record
+    without masks, whose maps stay zero) and every other key equal the
+    JAX package's `make_batch` bit for bit for one seed, augmentation on
+    and off."""
+    recs = _masked(records[:4], seed=size, drop=drop)
+    got = tloader.make_batch(recs, size, 6, rng=np.random.RandomState(5),
+                             train=train, mask_stride=stride)
+    want = jloader.make_batch(recs, size, 6, rng=np.random.RandomState(5),
+                              train=train, mask_stride=stride)
+    assert sorted(got) == sorted(want)
+    assert got["exclude_cov"].shape == (4, size // stride, size // stride)
+    np.testing.assert_array_equal(got["has_mask"], [True, True, False, True])
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_batch_iterator_with_masks_equals_jax(records):
+    """The first batches of `batch_iterator` with mask_stride 8 on masked
+    records, against the JAX package's."""
+    recs = _masked(records)
+    got = tloader.batch_iterator(recs, 3, 64, 6, seed=2, mask_stride=8)
+    want = jloader.batch_iterator(recs, 3, 64, 6, seed=2, mask_stride=8)
+    for _ in range(3):
+        g, w = next(got), next(want)
+        assert sorted(g) == sorted(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)

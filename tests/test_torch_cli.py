@@ -239,10 +239,23 @@ def test_predict_output_other_than_png_exits(workdir, tmp_path, monkeypatch,
     assert not (tmp_path / output).exists()
 
 
-def test_train_commands_are_not_registered():
-    """`prepare` and `train-prn` are not ported (`train` is: see
-    tests/test_torch_train_loop.py)."""
-    for command in ("prepare", "train-prn"):
+@pytest.mark.parametrize("command,flags", [
+    ("prepare", ["--output-dir", "--shard-size", "--max-persons",
+                 "--coco-json", "--image-dir", "--synthetic", "--device"]),
+    ("train-prn", ["--steps", "--model-dir", "--synthetic", "--config",
+                   "--device"])])
+def test_train_commands_are_registered(command, flags):
+    """`prepare` and `train-prn` take the JAX package's flags (and
+    `--device`); `prepare` without --output-dir exits as the JAX
+    package's does (runs: tests/test_torch_prepare.py and
+    tests/test_torch_prn_train.py)."""
+    out = io.StringIO()
+    with pytest.raises(SystemExit) as exit_, contextlib.redirect_stdout(out):
+        cli.main([command, "--help"])
+    assert exit_.value.code == 0
+    for flag in flags:
+        assert flag in out.getvalue()
+    if command == "prepare":
         with pytest.raises(SystemExit), contextlib.redirect_stderr(
                 io.StringIO()):
             cli.main([command])

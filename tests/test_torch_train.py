@@ -529,3 +529,46 @@ def test_eval_step_on_ema_params_matches_jax(run):
     assert state.model.training
     for k, v in state.params.items():
         assert torch.equal(v, params_before[k]), k
+
+
+# --- segmentation masks ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_masks", [(True, True, False, True),
+                                        (False, False, False, True)])
+def test_soft_mask_device_targets_match_jax(with_masks):
+    """A batch whose records carry segmentation masks (the loader's
+    coverage maps): where `has_mask`, the loss mask is 1 - exclude_cov and
+    the segmentation target person_cov; elsewhere the box unions stay.
+    Heatmaps, mask, segmentation and anchor targets equal the JAX
+    package's `_device_targets` to 1e-6."""
+    cfg = _config("huber")
+    records = make_dataset(BATCH, img_h=96, img_w=80, seed=5)
+    rng = np.random.RandomState(9)
+    for rec, on in zip(records, with_masks):
+        if on:
+            rec["exclude_mask"] = rng.rand(96, 80) > 0.8
+            rec["person_mask"] = rng.rand(96, 80) > 0.3
+    batch = make_batch(records, SIZE, cfg.prn.max_persons,
+                       np.random.RandomState(2),
+                       mask_stride=cfg.model.output_stride)
+    np.testing.assert_array_equal(batch["has_mask"], with_masks)
+    want = jsteps._device_targets({k: jnp.asarray(v)
+                                   for k, v in batch.items()}, cfg)
+    tcfg = torch_config_of(cfg)
+    got = tsteps._device_targets(tsteps.batch_to(batch, CPU), tcfg,
+                                 tsteps._anchors(tcfg, CPU))
+    for name, g, w in zip(("heatmaps", "mask", "seg", "cls", "box"), got,
+                          want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6,
+                                   err_msg=name)
+    mask, seg = got[1].numpy(), got[2].numpy()
+    for i, on in enumerate(with_masks):
+        if on:
+            np.testing.assert_array_equal(
+                mask[i, ..., 0], 1.0 - batch["exclude_cov"][i])
+            np.testing.assert_array_equal(seg[i, ..., 0],
+                                          batch["person_cov"][i])
+    # Soft values reach the loss: coverage is fractional somewhere.
+    cov = batch["exclude_cov"][np.asarray(with_masks)]
+    assert ((cov > 0) & (cov < 1)).any()

@@ -281,21 +281,17 @@ class _Event:
         return (end.t - self.t) * 1e3
 
 
-def test_chip_smoke_train_phases_rehearse_on_cpu(monkeypatch, tmp_path):
-    """chip_smoke.py's `train_parity`, `train_default`, `train_fast` and
-    `train_cli` on the CPU at small sizes (Config() and Config.fast()
-    swapped for the tiny config in float32, 64² batches of 2 to 4): CUDA events on
-    the host clock, the predictor's default device the CPU, each decode
-    counting the kernel `route` picks. The checks hold: the 20 steps on one
-    batch halve the loss, the command logs the JAX loop's keys and
-    resumes, and the exported model's `predict` launches B1 once."""
+def _rehearsal(monkeypatch):
+    """chip_smoke.py as a module with the card faked for the CPU: CUDA
+    events on the host clock, synchronize and the memory counters no-ops,
+    the predictor's default device the CPU, each decode counting the
+    kernel `route` picks, the training shapes shrunk (64² batches of 2
+    to 4) and `emit` collecting the phases' lines. Returns (module,
+    lines, TinyConfig)."""
     from multiposenet_tpu_torch import kernels
     from multiposenet_tpu_torch.config import Config
-    from multiposenet_tpu_torch.data import loader, synthetic
     from multiposenet_tpu_torch.infer import predictor
-    from multiposenet_tpu_torch.models.posenet import MultiPoseNet
     from multiposenet_tpu_torch.ops import decode
-    from multiposenet_tpu_torch.train import checkpoints
 
     from torch_port_helpers import chip_smoke_module
 
@@ -333,6 +329,24 @@ def test_chip_smoke_train_phases_rehearse_on_cpu(monkeypatch, tmp_path):
         def fast():
             return smoke.tiny_train_config(Config)
 
+    return smoke, lines, TinyConfig
+
+
+def test_chip_smoke_train_phases_rehearse_on_cpu(monkeypatch, tmp_path):
+    """chip_smoke.py's `train_parity`, `train_default`, `train_fast` and
+    `train_cli` on the CPU at small sizes (Config() and Config.fast()
+    swapped for the tiny config in float32, 64² batches of 2 to 4). The
+    checks hold: the 20 steps on one batch halve the loss, the command
+    logs the JAX loop's keys and resumes, and the exported model's
+    `predict` launches B1 once."""
+    from multiposenet_tpu_torch import kernels
+    from multiposenet_tpu_torch.config import Config
+    from multiposenet_tpu_torch.data import loader, synthetic
+    from multiposenet_tpu_torch.models.posenet import MultiPoseNet
+    from multiposenet_tpu_torch.ops import decode
+    from multiposenet_tpu_torch.train import checkpoints
+
+    smoke, lines, TinyConfig = _rehearsal(monkeypatch)
     cpu = torch.device("cpu")
     args = (MultiPoseNet, synthetic, loader, steps, cpu, "cpu")
     smoke.phase_train_parity(Config, *args)
@@ -348,3 +362,54 @@ def test_chip_smoke_train_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     for row in lines[1:3]:
         assert row["step_ms"] > 0 and row["loader_img_per_s"] > 0
     assert lines[3]["steps_logged"] == [1, 2, 3, 4, 5]
+    config = json.loads((tmp_path / "trained" / "config.json").read_text())
+    assert config["prn"] == dataclasses.asdict(Config().prn)
+
+
+def test_chip_smoke_mask_prn_profile_phases_rehearse_on_cpu(monkeypatch,
+                                                           tmp_path):
+    """chip_smoke.py's `prepare_masks`, `train_prn` and `profile_train` on
+    the CPU at small sizes: the segmentation fixture's shards train 3
+    steps with masks on every image and the tiny masked config holds
+    card (here the CPU) against the CPU; `train-prn` (a tiny PRN, trained
+    into `train_cli`'s export) logs step 50 and the exported model with
+    that PRN launches B1 once; the profiler traces 2 steps (no device
+    here, so no idle share)."""
+    from multiposenet_tpu_torch import kernels
+    from multiposenet_tpu_torch.config import Config
+    from multiposenet_tpu_torch.data import loader, prepare, synthetic
+    from multiposenet_tpu_torch.models.posenet import MultiPoseNet
+    from multiposenet_tpu_torch.ops import decode
+    from multiposenet_tpu_torch.train import checkpoints, prn_train
+    from multiposenet_tpu_torch.utils import profiling
+
+    smoke, lines, TinyConfig = _rehearsal(monkeypatch)
+    monkeypatch.setattr(smoke, "MASK_RECORD_REPEATS", 1)
+    monkeypatch.setattr(smoke, "PRN_TIMED", 2)
+    cpu = torch.device("cpu")
+    smoke.phase_prepare_masks(TinyConfig, MultiPoseNet, cli, prepare, loader,
+                              loop, steps, cpu, tmp_path, "cpu")
+    tiny = smoke.tiny_train_config(Config)
+    assert smoke.phase_train_cli(Config, cli, port_export, checkpoints,
+                                 decode, kernels, cpu, tmp_path, "cpu",
+                                 prn=tiny.prn) == 1
+    assert smoke.phase_train_prn(Config, cli, port_export, prn_train, loader,
+                                 synthetic, decode, kernels, cpu, tmp_path,
+                                 "cpu", prn_config=tiny) == 1
+    smoke.phase_profile_train(TinyConfig, MultiPoseNet, synthetic, loader,
+                              steps, profiling, cpu, tmp_path, "cpu")
+    masks_row, _, prn_row, profile_row = lines
+    assert masks_row["phase"] == "prepare_masks"
+    assert masks_row["shards"] == ["shard-00000.npz"]
+    assert masks_row["records"] == 10 and masks_row["step_ms"] > 0
+    assert masks_row["loader_img_per_s_masks"] > 0
+    assert len(masks_row["tiny_masked"]["card_vs_cpu"]) == 3
+    assert prn_row["phase"] == "train_prn"
+    assert prn_row["logged"][0]["step"] == 50
+    assert prn_row["prn_step_ms"] > 0 and prn_row["crop"] == [14, 10]
+    assert [r["step"] for r in prn_row["tiny_card_vs_cpu"]] == [1, 2, 3]
+    assert (tmp_path / "trained" / "prn.msgpack").exists()
+    assert profile_row["phase"] == "profile_train"
+    assert profile_row["device_trace"] is False
+    assert profile_row["idle_share"] == "not measured"
+    assert profile_row["trace_json_bytes"] > 0
