@@ -1169,10 +1169,10 @@ def eval_timers(cli, runner, Predictor):
 
     def timed(fn, key):
         def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
+            sync_all()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
+            sync_all()
             dt = time.perf_counter() - t0
             if isinstance(t[key], list):
                 t[key].append(dt)
@@ -1226,8 +1226,8 @@ def phase_eval(Config, Predictor, export, cli, runner, decode, kernels,
     full-width Config.fast() model exported to `directory` (random
     weights; score threshold 0.0 and heatmap bias 0.25, as on the
     pipeline path), over 256 synthetic 256² images: the batched loop
-    (host resize into batches of 128 at 512², `batch_forward`: exactly
-    one B1 launch a batch, 2) and the predict loop on 32 images (one B1
+    (host resize into batches of 128 at 512², `make_batch_runner` over
+    every visible card: one B1 launch a batch and card, 2 on one card) and the predict loop on 32 images (one B1
     launch a request, 32), no other kernel. Prints the stats, images per
     second on the host clock (records excluded) and, for the batched
     loop, the split into host resize and batch assembly, batch_forward
@@ -1246,7 +1246,8 @@ def phase_eval(Config, Predictor, export, cli, runner, decode, kernels,
             str(EVAL_IMAGES)]
     loops = {"eval_batched": (base + ["--batched", "--batch-size",
                                       str(EVAL_BATCH)],
-                              EVAL_IMAGES, -(-EVAL_IMAGES // EVAL_BATCH)),
+                              EVAL_IMAGES, -(-EVAL_IMAGES // EVAL_BATCH)
+                              * torch.cuda.device_count()),
              "eval_predict": (base + ["--max-images",
                                       str(EVAL_PREDICT_IMAGES)],
                               EVAL_PREDICT_IMAGES, EVAL_PREDICT_IMAGES)}
@@ -1373,9 +1374,11 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
     version: equal to each other and to cv2's digest (shape and sha256 of
     its RGB decode, Exif orientation applied), and the eval letterbox to
     512 by the C library and the plain version, equal to cv2's digest.
-    Times on the host clock: the C decode of the 480x640 4:2:0 q95
-    fixture (ms and MB/s of file), the plain decode of it and of one
-    192x256 scene, and the C and plain letterbox resize of it."""
+    The JPEG writer on the 480x640 photo's pixels: C and plain equal to
+    each other and to cv2.imencode's digest. Times on the host clock: the
+    C decode of the 480x640 4:2:0 q95 fixture (ms and MB/s of file), the
+    plain decode of it and of one 192x256 scene, the C encode of it (ms)
+    and the plain one (s), and the C and plain letterbox resize of it."""
     t0 = time.perf_counter()
     image_codec.library()
     build_s = time.perf_counter() - t0
@@ -1418,19 +1421,39 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
     t0 = time.perf_counter()
     jpeg.decode_pixels(data)
     plain_big_s = time.perf_counter() - t0
+    # The JPEG writer: the photo's pixels encoded as cv2.imencode(".jpg")
+    # encodes them (its sha256, recorded by tests/make_image_fixtures.py),
+    # by the C library and by the plain NumPy encoder.
+    encoded = image_io.encode_jpeg(rgb)
+    want_encode = digests[TIMING_FIXTURE]["imencode_sha256"]
+    if hashlib.sha256(encoded).hexdigest() != want_encode:
+        raise AssertionError("image_codec: the JPEG encode of the photo is "
+                             "not cv2.imencode's")
+    t0 = time.perf_counter()
+    plain_encoded = jpeg.encode_pixels(rgb)
+    plain_encode_s = time.perf_counter() - t0
+    if plain_encoded != encoded:
+        raise AssertionError("image_codec: the plain JPEG encoder and the C "
+                             "library differ")
+    encode_ms = median_ms(lambda: image_io.encode_jpeg(rgb), 20)
     t0 = time.perf_counter()
     jpeg.decode_pixels(small)
     plain_small_s = time.perf_counter() - t0
     emit({"phase": "image_codec", "card": card, "build_s": build_s,
           "fixtures": checked,
           "equal": "C = cv2 digest (imread), decode and letterbox, every "
-                   "fixture; plain = C on the baseline ones; c3_truncated "
-                   "bytes refused as imdecode refuses them",
+                   "fixture (arithmetic, lossless and smoothed ones too); "
+                   "plain = C on the baseline ones; c3_truncated bytes "
+                   "refused as imdecode refuses them",
           "timing_fixture": TIMING_FIXTURE, "timing_bytes": len(data),
           "c_decode_ms": c_ms,
           "c_decode_mb_per_s": len(data) / 1e6 / (c_ms / 1e3),
           "plain_decode_s": {TIMING_FIXTURE: plain_big_s,
                              PLAIN_FIXTURE: plain_small_s},
+          "encode": {"bytes": len(encoded), "sha256": want_encode,
+                     "equal": "C = plain = cv2.imencode's digest",
+                     "c_encode_ms": encode_ms,
+                     "plain_encode_s": plain_encode_s},
           "letterbox": [size[1], size[0]],
           "resize_c_ms": median_ms(
               lambda: image_io.resize_linear(rgb, size), 50),
@@ -1439,7 +1462,7 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
           "clock": "host perf_counter, median"})
 
 
-def phase_eval_jpeg(cli, image_io, visualize, decode, kernels,
+def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
                     directory: Path, card: str) -> dict:
     """The command line on the committed JPEG fixtures with the model
     `phase_eval` exported: `eval --coco-json annotations.json --image-dir
@@ -1447,14 +1470,17 @@ def phase_eval_jpeg(cli, image_io, visualize, decode, kernels,
     2 B1 launches and no other kernel; finite stats in [-1, 1]), `predict
     --image` the 480x640 JPEG `--output drawn.png` (1 B1 launch, people
     printed, the PNG read back equals the drawing of the printed people
-    on the decoded JPEG) and `--output drawn.jpg`, which exits naming the
-    suffix before the model runs. Returns B1's launches by command."""
+    on the decoded JPEG), `--output drawn.jpg` (1 B1 launch, the file
+    equals the plain encoder's JPEG of that drawing) and `--output
+    drawn.bmp`, which exits naming the suffix before the model runs. The
+    batched eval runs over every visible card: its B1 launches are the
+    batches times the cards. Returns B1's launches by command."""
     n_images = len(json.loads(
         (FIXTURES / "annotations.json").read_text())["images"])
     argv = ["eval", "--model-dir", str(directory), "--coco-json",
             str(FIXTURES / "annotations.json"), "--image-dir",
             str(FIXTURES), "--batched", "--batch-size", "8"]
-    n_b1 = -(-n_images // 8)
+    n_b1 = -(-n_images // 8) * torch.cuda.device_count()
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1497,18 +1523,36 @@ def phase_eval_jpeg(cli, image_io, visualize, decode, kernels,
                              "printed people")
     launches["cli_predict_jpeg"] = 1
 
-    kernels.reset_launches()
     jpg_out = directory / "drawn.jpg"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    text = cli_stdout(cli, ["predict", "--model-dir", str(directory),
+                            "--image", str(image_path), "--output",
+                            str(jpg_out)])
+    if kernels.LAUNCHES != {decode.KERNEL: 1}:
+        raise AssertionError(f"eval_jpeg: predict --output drawn.jpg "
+                             f"launches {kernels.LAUNCHES}")
+    jpg_people = [argparse.Namespace(box=np.asarray(p["box"]),
+                                     score=p["score"],
+                                     keypoints=np.asarray(p["keypoints"]))
+                  for p in json.loads(text)]
+    if jpg_out.read_bytes() != jpeg.encode_pixels(
+            visualize.draw_predictions(image, jpg_people)):
+        raise AssertionError("eval_jpeg: drawn.jpg is not the JPEG of the "
+                             "drawing of the printed people")
+    launches["cli_predict_jpeg_output"] = 1
+    kernels.reset_launches()
+    bmp_out = directory / "drawn.bmp"
     try:
         cli_stdout(cli, ["predict", "--model-dir", str(directory), "--image",
-                         str(image_path), "--output", str(jpg_out)])
+                         str(image_path), "--output", str(bmp_out)])
     except SystemExit as exc:
         message = str(exc.code)
     else:
-        raise AssertionError("eval_jpeg: --output drawn.jpg did not exit")
-    if ".jpg" not in message or "PNG" not in message or kernels.LAUNCHES \
-            or jpg_out.exists():
-        raise AssertionError(f"eval_jpeg: --output drawn.jpg: {message!r}, "
+        raise AssertionError("eval_jpeg: --output drawn.bmp did not exit")
+    if ".bmp" not in message or "JPEG" not in message or kernels.LAUNCHES \
+            or bmp_out.exists():
+        raise AssertionError(f"eval_jpeg: --output drawn.bmp: {message!r}, "
                              f"launches {kernels.LAUNCHES}")
     emit({"phase": "eval_jpeg", "card": card, "argv": argv,
           "images": n_images, "stats": stats, "launches": counted,
@@ -1516,7 +1560,8 @@ def phase_eval_jpeg(cli, image_io, visualize, decode, kernels,
           "img_per_s_command": n_images / eval_s,
           "predict_image": TIMING_FIXTURE, "persons": len(people),
           "predict_command_s": predict_s, "predict_launches":
-              predict_counted, "output_jpg_exit": message})
+              predict_counted, "output_jpg_bytes": jpg_out.stat().st_size,
+          "output_bmp_exit": message})
     return launches
 
 
@@ -2040,6 +2085,281 @@ def phase_profile_train(Config, MultiPoseNet, synthetic, loader, steps_lib,
           **trace_summary(prof, window_ms)})
 
 
+# --- several cards ------------------------------------------------------------
+
+
+def sync_all() -> None:
+    """Wait for every visible card."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def agreement(got: dict, want: dict) -> dict:
+    """Outputs of one pipeline computed in other batch splits: the share
+    of peak and detection slots whose validity agrees, of valid peaks on
+    the same pixel, of valid boxes within 1 px and of valid scores within
+    0.02 (the bf16 agreement bounds of ROADMAP's rounding contracts)."""
+    pv, bv = want["peak_valid"], want["box_valid"]
+    both = pv & got["peak_valid"]
+    boxes = bv & got["box_valid"]
+    return {
+        "peak_valid_agree": float((pv == got["peak_valid"]).float().mean()),
+        "box_valid_agree": float((bv == got["box_valid"]).float().mean()),
+        "peaks_same_pixel": float((got["peak_positions"][both]
+                                   == want["peak_positions"][both])
+                                  .all(-1).float().mean()),
+        "boxes_within_1px": float(((got["boxes"][boxes] - want["boxes"][
+            boxes]).abs().amax(-1) <= 1.0).float().mean()),
+        "scores_within_0.02": float(((got["box_scores"][boxes].float()
+                                      - want["box_scores"][boxes].float())
+                                     .abs() <= 0.02).float().mean())}
+
+
+def phase_batch_runner_mesh(Config, Predictor, decode, kp_tail, kernels,
+                            image_ops, mesh_lib, card: str) -> dict:
+    """`Predictor.make_batch_runner()` over every visible card
+    (parallel/mesh.py): Config.fast() (B1) and the served crowd model (BN
+    folded, B3 and B2), batches of BATCH s4-flat uint8 scenes on the host,
+    each card's chunk through the same pipeline on its replica. Launches
+    per card, counted from 0 just before 3 batches: one of each kernel a
+    batch and card. The outputs against `batch_forward` of the whole batch
+    on card 0: identical on a one-card mesh (the runner is batch_forward),
+    else the bf16 agreement bounds (valid slots, peaks, boxes, scores).
+    img/s on the host clock around the batches, every card synchronized.
+    Returns the path's launches by kernel, summed over the cards."""
+    mesh = mesh_lib.make_mesh()
+    cards = len(mesh)
+    rng = np.random.RandomState(4)
+    batch = image_ops.space_to_depth_flat4(
+        planted_scenes(rng, BATCH, IMAGE, IMAGE))
+    fast = Config.fast()
+    fast = fast.replace(detector=dataclasses.replace(fast.detector,
+                                                     score_threshold=0.0))
+    crowd = Config.crowd()
+    crowd = crowd.replace(
+        model=dataclasses.replace(crowd.model, kp_tail_pallas=True),
+        detector=dataclasses.replace(crowd.detector, score_threshold=0.0))
+    totals, rows = {}, {}
+    for name, cfg, fold, expect in (
+            ("fast", fast, False, {decode.KERNEL: 1}),
+            ("crowd", crowd, True, {kp_tail.KERNEL: 1,
+                                    decode.LANES_KERNEL: 1})):
+        pred = Predictor(cfg, image_size=IMAGE, fold_bn=fold)
+        with torch.no_grad():
+            pred.model.keypoint_head.output.bias[
+                :cfg.model.num_keypoints].fill_(0.25)
+        lanes = decode_lanes_on(decode) if name == "crowd" \
+            else contextlib.nullcontext()
+        with lanes:
+            want = pred.batch_forward(batch)
+            run = pred.make_batch_runner(mesh)
+            run(batch)
+            sync_all()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                got = run(batch)
+            sync_all()
+            seconds = time.perf_counter() - t0
+            per_card = dict(kernels.LAUNCHES_BY_DEVICE)
+        want_launches = {(k, d.index): 3 * n for k, n in expect.items()
+                         for d in mesh}
+        if per_card != want_launches:
+            raise AssertionError(f"batch_runner_mesh {name}: launches "
+                                 f"{per_card}, want {want_launches}")
+        for k, n in expect.items():
+            totals[k] = totals.get(k, 0) + 3 * n * cards
+        if cards == 1:
+            if run != pred.batch_forward or not all(
+                    torch.equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"batch_runner_mesh {name}: one card "
+                                     "is not batch_forward")
+            agree = "identical (the runner is batch_forward)"
+        else:
+            agree = agreement(got, want)
+            if not (agree["peak_valid_agree"] >= 0.99
+                    and agree["box_valid_agree"] >= 0.99
+                    and agree["peaks_same_pixel"] >= 2 / 3
+                    and agree["boxes_within_1px"] >= 0.5
+                    and agree["scores_within_0.02"] >= 0.99):
+                raise AssertionError(f"batch_runner_mesh {name}: {agree}")
+        rows[name] = {"img_per_s": 3 * BATCH / seconds,
+                      "ms_per_batch": seconds / 3 * 1e3,
+                      "launches_per_card": {f"{k}@{c}": n for (k, c), n
+                                            in sorted(per_card.items(),
+                                                      key=str)},
+                      "vs_batch_forward": agree}
+        del pred, run, got, want
+    emit({"phase": "batch_runner_mesh", "card": card, "cards": cards,
+          "batch": BATCH, "image": IMAGE, "staging": "s4-flat uint8 on the "
+          "host, each card's chunk copied to it", **rows,
+          "clock": "host perf_counter around 3 batches, every card "
+                   "synchronized"})
+    return totals
+
+
+DDP_STEPS = 3
+DDP_TOL = 1e-5  # losses (relative) and weights (of scale, scale_err)
+
+
+def allreduce_worker(rank: int, mesh, port: int, backend: str, numel: int,
+                     reps: int):
+    """One rank of the all-reduce timing: `reps` sums of a float32
+    gradient bucket of `numel` elements after 3 warm-ups; ms each on the
+    host clock, the card synchronized."""
+    from multiposenet_tpu_torch.parallel import mesh as mesh_lib
+
+    on_card = mesh[rank].type == "cuda"
+    if on_card:
+        torch.cuda.set_device(mesh[rank])
+    mesh_lib.init_process_group(rank, len(mesh), port, backend)
+    try:
+        bucket = torch.ones(numel, device=mesh[rank])
+        for _ in range(3):
+            mesh_lib.all_reduce_sum_(bucket)
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            mesh_lib.all_reduce_sum_(bucket)
+        if on_card:
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+    finally:
+        mesh_lib.destroy_process_group()
+
+
+def allreduce_ms(mesh_lib, mesh, numel: int, reps: int = 20) -> float:
+    """Rank 0 of allreduce_worker here, the other ranks spawned."""
+    import multiprocessing
+
+    port = mesh_lib.free_port()
+    backend = mesh_lib.backend_for(mesh)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=allreduce_worker,
+                         args=(r, mesh, port, backend, numel, reps))
+             for r in range(1, len(mesh))]
+    for p in procs:
+        p.start()
+    try:
+        ms = allreduce_worker(0, mesh, port, backend, numel, reps)
+    finally:
+        for p in procs:
+            p.join(timeout=120)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError("train_ddp: an all-reduce rank failed")
+    return ms
+
+
+def scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the tensor's scale, max(1, max |want|): an
+    absolute error for parameters below 1 (a bias that starts at 0 moves
+    by about the lr in its first updates, and Adam moves an element of
+    near-zero gradient by about ±lr on the sign of its rounding), a
+    relative one above (BatchNorm's running variances)."""
+    scale = max(float(want.abs().max()), 1.0)
+    return float((got.double() - want.double()).abs().max()) / scale
+
+
+def phase_train_ddp(Config, synthetic, loader, train_loop, mesh_lib,
+                    device, card: str) -> None:
+    """Data-parallel training through `train.loop.train` (parallel/mesh.py):
+    DDP_STEPS steps of Config() in float32 (TF32 off) at 512², global
+    batch 32, on the largest count up to 4 of the visible cards that
+    divides the batch with NCCL, or with one card on two ranks sharing it
+    over gloo (gloo reduces CUDA tensors through the host), against the
+    one-rank run on the same global batches (augmented once, every rank
+    its rows): the losses of steps 1 and 2 within DDP_TOL = 1e-5
+    relative (10x at step 3, after the first real update), parameters
+    and BatchNorm statistics after the last within 1e-5 of each tensor's
+    scale (scale_err). This process is rank
+    0; the others are spawned. A group that does not form fails the run.
+    Prints the world size, the backend, step ms on the loop's host clock
+    (both runs), the all-reduce ms of the gradient bucket, and the
+    loader's img/s per rank (its rows decoded and augmented, the others'
+    draws replayed)."""
+    cards = torch.cuda.device_count()
+    mesh = (mesh_lib.make_mesh_for_batch(TRAIN_BATCH,
+                                         mesh_lib.make_mesh()[:4])
+            if cards >= 2 else [device, device])
+    world, backend = len(mesh), mesh_lib.backend_for(mesh)
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, image_size=TRAIN_IMAGE, batch_size=TRAIN_BATCH,
+        log_interval_steps=1))
+    records = synthetic.make_dataset(TRAIN_BATCH * DDP_STEPS, img_h=256,
+                                     img_w=256, seed=5)
+    rng = np.random.RandomState(6)
+    batches = [loader.make_batch(records[TRAIN_BATCH * i:
+                                         TRAIN_BATCH * (i + 1)],
+                                 TRAIN_IMAGE, cfg.prn.max_persons, rng)
+               for i in range(DDP_STEPS)]
+    source = train_loop.GlobalBatches(batches)
+    logs = {"one": [], "ddp": []}
+    with no_tf32():
+        one = train_loop.train(cfg, source, DDP_STEPS, checkpoint=False,
+                               log_fn=logs["one"].append, mesh=[device])
+        ddp = train_loop.train(cfg, source, DDP_STEPS, checkpoint=False,
+                               log_fn=logs["ddp"].append, mesh=mesh)
+    if [m["step"] for m in logs["ddp"]] != list(range(1, DDP_STEPS + 1)):
+        raise AssertionError(f"train_ddp: logged {logs['ddp']}")
+    loss_errs = [{k: rel_err(d[k], o[k]) for k in o if k.endswith("loss")}
+                 for d, o in zip(logs["ddp"], logs["one"])]
+    want, got = one.state_dict(), ddp.state_dict()
+    param_err = max(scale_err(got["params"][k], v)
+                    for k, v in want["params"].items())
+    stats_err = max(scale_err(got["batch_stats"][k], v)
+                    for k, v in want["batch_stats"].items())
+    # Steps 1 and 2 run on the same parameters (lr 0 at the first
+    # update); step 3 follows the first real update, where Adam moves an
+    # element of near-zero gradient by about ±lr on the sign of its
+    # rounding: 10x there.
+    bounds = [DDP_TOL] * 2 + [10 * DDP_TOL] * (DDP_STEPS - 2)
+    ok = (all(max(e.values()) <= b for e, b in zip(loss_errs, bounds))
+          and max(param_err, stats_err) <= DDP_TOL)
+    numel = sum(v.numel() for v in want["params"].values())
+    bucket_ms = allreduce_ms(mesh_lib, mesh, numel)
+    loader_rates = []
+    for r in range(world):
+        it = loader.batch_iterator(records, TRAIN_BATCH, TRAIN_IMAGE,
+                                   cfg.prn.max_persons, seed=1, rank=r,
+                                   world_size=world)
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            next(it)
+        loader_rates.append(3 * TRAIN_BATCH / world
+                            / (time.perf_counter() - t0))
+
+    def step_ms(log):
+        return [TRAIN_BATCH / m["images_per_sec"] * 1e3 for m in log]
+
+    emit({"phase": "train_ddp", "card": card, "cards": cards,
+          "world_size": world, "backend": backend,
+          "mesh": [str(d) for d in mesh], "config": "Config() f32, TF32 off",
+          "image": TRAIN_IMAGE, "global_batch": TRAIN_BATCH,
+          "steps": DDP_STEPS,
+          "max_rel_err": {"losses": max(max(e.values())
+                                        for e in loss_errs),
+                          "params_of_scale": param_err,
+                          "batch_stats_of_scale": stats_err},
+          "loss_rel_err_by_step": loss_errs, "held_ok": ok,
+          "step_ms": step_ms(logs["ddp"]), "one_rank_step_ms":
+              step_ms(logs["one"]),
+          "allreduce_ms": bucket_ms, "allreduce_numel": numel,
+          "allreduce_what": "sum of a float32 bucket of every parameter, "
+                            "host clock after synchronize, mean of 20",
+          "loader_img_per_s_per_rank": loader_rates,
+          "clock": "step ms from the loop's images_per_sec (host clock, "
+                   "each step's metrics read back)"})
+    if not ok:
+        raise AssertionError(f"train_ddp: losses {loss_errs}, parameters "
+                             f"{param_err}, statistics {stats_err}")
+
+
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame, spills and shared memory that `nvcc -Xptxas
     -v` reports for the instantiations the main paths take: every
@@ -2076,6 +2396,7 @@ def main() -> int:
         from multiposenet_tpu_torch.ops import (column_topk, decode,
                                                 detection, kp_tail)
         from multiposenet_tpu_torch.ops import image as image_ops
+        from multiposenet_tpu_torch.parallel import mesh as mesh_lib
         from multiposenet_tpu_torch.tools import dbench2
         from multiposenet_tpu_torch.data import prepare
         from multiposenet_tpu_torch.train import checkpoints as train_ckpt
@@ -2134,6 +2455,12 @@ def main() -> int:
         Config, Predictor, decode, kernels, card)
     launches[column_topk.KERNEL] = phase_dbench2(dbench2, column_topk,
                                                  decode, kernels)
+    mesh_launches = phase_batch_runner_mesh(Config, Predictor, decode,
+                                            kp_tail, kernels, image_ops,
+                                            mesh_lib, card)
+    b1_paths["batch_runner_mesh"] = mesh_launches.pop(decode.KERNEL)
+    for name, n in mesh_launches.items():
+        launches[name] += n
     phase_image_codec(image_io, image_codec, jpeg, card)
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="cli_",
@@ -2143,8 +2470,9 @@ def main() -> int:
         b1_paths["cli_predict"] = phase_cli_predict(
             cli, image_io, visualize, synthetic, decode, kernels,
             Path(directory), card)
-        b1_paths.update(phase_eval_jpeg(cli, image_io, visualize, decode,
-                                        kernels, Path(directory), card))
+        b1_paths.update(phase_eval_jpeg(cli, image_io, visualize, jpeg,
+                                        decode, kernels, Path(directory),
+                                        card))
         phase_train_parity(Config, MultiPoseNet, synthetic, loader,
                            steps_lib, device, card)
         phase_train_default(Config, MultiPoseNet, synthetic, loader,
@@ -2160,6 +2488,8 @@ def main() -> int:
         b1_paths["train_prn_predict"] = phase_train_prn(
             Config, cli, export, prn_train, loader, synthetic, decode,
             kernels, device, Path(directory), card)
+        phase_train_ddp(Config, synthetic, loader, train_loop, mesh_lib,
+                        device, card)
         phase_profile_train(Config, MultiPoseNet, synthetic, loader,
                             steps_lib, profiling, device, Path(directory),
                             card)

@@ -17,9 +17,10 @@ Usage:
     python -m multiposenet_tpu_torch predict --model-dir out/ \\
         --image in.png --output out.png
 
-Images are read through `utils/image_io.py` (baseline JPEG, PNG and .npy,
-as cv2 reads them, without cv2); `predict --output` writes PNG only and
-exits before the model runs on any other suffix.
+Images are read through `utils/image_io.py` (JPEG, PNG and .npy, as cv2
+reads them, without cv2); `predict --output` writes PNG (.png) and JPEG
+(.jpg, .jpeg, .jpe, the bytes cv2.imwrite writes) and exits before the
+model runs on any other suffix.
 """
 
 from __future__ import annotations
@@ -86,19 +87,30 @@ def cmd_prepare(args) -> None:
 
 
 def _train_batches(args, config):
+    """The training batches as `batches(rank=, world_size=)`, each rank's
+    shards of the global batches (one rank: the whole batches)."""
+    import functools
+
     from multiposenet_tpu_torch.data.loader import batch_iterator
 
-    return batch_iterator(
-        _load_records(args), config.train.batch_size,
+    return functools.partial(
+        batch_iterator, _load_records(args), config.train.batch_size,
         config.train.image_size, config.prn.max_persons,
         image_dir=args.image_dir, train=True,
         mask_stride=config.model.output_stride)
 
 
+def _print_json(metrics: dict) -> None:
+    print(json.dumps(metrics))
+
+
 def cmd_train(args) -> None:
-    """Train on one device (checkpoints and metrics.jsonl under the
-    config's train.checkpoint_dir); with --model-dir export the EMA
-    weights and the batch statistics in the JAX package's format."""
+    """Train data-parallel on every visible card that divides the batch,
+    as the JAX CLI trains on every device (CUDA_VISIBLE_DEVICES narrows
+    them; --device cpu trains on one CPU process); checkpoints and
+    metrics.jsonl under the config's train.checkpoint_dir; with
+    --model-dir export the EMA weights and the batch statistics in the
+    JAX package's format."""
     from multiposenet_tpu_torch.train.loop import train
 
     config = _load_config(args)
@@ -107,8 +119,8 @@ def cmd_train(args) -> None:
 
         config = config.replace(
             train=dataclasses.replace(config.train, num_steps=args.steps))
-    state = train(config, _train_batches(args, config),
-                  log_fn=lambda m: print(json.dumps(m)), device=args.device)
+    state = train(config, _train_batches(args, config), log_fn=_print_json,
+                  device=args.device)
     if args.model_dir:
         from multiposenet_tpu_torch.infer.export import save_model
         from multiposenet_tpu_torch.train.steps import ema_weights
@@ -126,10 +138,9 @@ def cmd_train_prn(args) -> None:
     from multiposenet_tpu_torch.train.prn_train import train_prn
 
     config = _load_config(args)
-    state = train_prn(config, _train_batches(args, config),
+    state = train_prn(config, _train_batches(args, config)(),
                       num_steps=args.steps or 1000,
-                      log_fn=lambda m: print(json.dumps(m)),
-                      device=args.device)
+                      log_fn=_print_json, device=args.device)
     if args.model_dir:
         from multiposenet_tpu_torch.infer.export import save_prn
         from multiposenet_tpu_torch.weights import prn_variables
@@ -157,13 +168,18 @@ def cmd_eval(args) -> None:
 
 
 def cmd_predict(args) -> None:
-    from multiposenet_tpu_torch.utils.image_io import read_image, write_png
+    from multiposenet_tpu_torch.utils.image_io import (
+        read_image, write_jpeg, write_png)
     from multiposenet_tpu_torch.utils.visualize import draw_predictions
 
-    if args.output and Path(args.output).suffix.lower() != ".png":
-        suffix = Path(args.output).suffix or "none"
-        sys.exit(f"--output {args.output}: suffix {suffix} is not written "
-                 "here; only PNG (.png) is written")
+    writers = {".png": write_png, ".jpg": write_jpeg, ".jpeg": write_jpeg,
+               ".jpe": write_jpeg}
+    suffix = Path(args.output).suffix.lower() if args.output else None
+    if args.output and suffix not in writers:
+        shown = Path(args.output).suffix or "none"
+        sys.exit(f"--output {args.output}: suffix {shown} is not "
+                 "written here; only PNG (.png) and JPEG (.jpg, .jpeg, "
+                 ".jpe) are written")
     predictor = _load_predictor(args)
     try:
         rgb = read_image(args.image)
@@ -176,7 +192,7 @@ def cmd_predict(args) -> None:
         for p in people
     ]))
     if args.output:
-        write_png(args.output, draw_predictions(rgb, people))
+        writers[suffix](args.output, draw_predictions(rgb, people))
         print(f"wrote {args.output}", file=sys.stderr)
 
 
@@ -230,7 +246,8 @@ def main(argv=None) -> None:
     common(p)
     p.add_argument("--image", required=True,
                    help="JPEG, PNG or .npy image")
-    p.add_argument("--output", help="write visualization PNG here (.png)")
+    p.add_argument("--output", help="write the visualization here (.png, "
+                   ".jpg, .jpeg or .jpe)")
     p.set_defaults(fn=cmd_predict)
 
     args = parser.parse_args(argv)

@@ -138,6 +138,9 @@ int dispatch(int p, const void* maps_v, long long sb, long long sk,
   const T* maps = static_cast<const T*>(maps_v);
   const int n_maps = B * K;
   const long long es = static_cast<long long>(sizeof(T));
+  int sms = 0;
+  const int e = sm_count(&sms);
+  if (e != 0) return e;
   // Strides of size-1 dims are never used.
   auto aligned = [&](int n, long long stride) {
     return n == 1 || (stride * es) % 16 == 0;
@@ -147,7 +150,7 @@ int dispatch(int p, const void* maps_v, long long sb, long long sk,
   if (H == 128 && W == 128 && prm.ntaps == 7 && p == 8) {
     if (lanes_load && sk == 1 && sw == K && K <= kSpanMaxMaps && base &&
         aligned(B, sb) && aligned(H, sh) && (W * K * es) % 16 == 0 &&
-        2 * B >= sm_count() &&
+        2 * B >= sms &&
         span_smem_bytes<T, 4>(W * K, K) <= kSmemBytes) {
       return launch_span<T, 8, 4, 7, 128, 128>(maps, sb, sh, B, K, H, W, p,
                                                prm, scores, ys, xs, stream);

@@ -647,17 +647,21 @@ decode_rows_kernel(const T* __restrict__ maps, long long sb, long long sk,
   clk.flush();
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                               dev) != cudaSuccess) {
-      count = 132;
-    }
+// The current device's SM count into *sms, asked once per device; a
+// failed query returns its cudaError_t (0 on success).
+int sm_count(int* sms) {
+  static int cache[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (cache[dev] == 0) {
+    e = cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return count;
+  *sms = cache[dev];
+  return 0;
 }
 
 // decode_rows_kernel on n_maps maps of K per batch. Bands of rows per
@@ -669,7 +673,10 @@ int launch_rows(const T* maps, long long sb, long long sk, long long sh,
                 const Params& prm, float* scores, float* ys, float* xs,
                 cudaStream_t stream) {
   constexpr int per_warp = warp_smem_bytes<T, C>();
-  const int want = sm_count() * 16 / n_maps;
+  int sms = 0;
+  const int e = sm_count(&sms);
+  if (e != 0) return e;
+  const int want = sms * 16 / n_maps;
   const int bands = max(1, min(min(want, kMaxBands),
                                min(H / 8, kSmemBytes / per_warp)));
   const int smem = bands * per_warp;

@@ -1,33 +1,50 @@
-/* Host image codec of the port: JPEG decoding, cv2's INTER_LINEAR
+/* Host image codec of the port: JPEG decoding and encoding, cv2's INTER_LINEAR
  * resize on uint8 and on two-channel float32, its INTER_AREA on float32,
  * and cv2.fillPoly, in plain C99 with no library.
  *
  * decode_jpeg decodes as libjpeg-turbo 3 does under OpenCV 5's reader:
- * baseline and extended sequential (SOF0, SOF1) and progressive (SOF2)
- * Huffman-coded frames of 8-bit samples, 1, 3 or 4 components. Scans
- * fill a coefficient buffer for the whole image (jdhuff.c and jdphuff.c:
- * DC first and refine scans, AC first and refine scans with EOB runs,
- * restart intervals in every scan); then every block goes through
- * libjpeg-turbo's ISLOW IDCT in the arithmetic of its SIMD code (16-bit
- * dequantisation and sums, the first pass saturated to 16 bits, the
- * whole-block zero-AC shortcut), fancy upsampling where libjpeg-turbo
- * takes it and box upsampling elsewhere, and the colour conversion of
- * jdcolor.c: fixed-point YCbCr -> RGB, none for RGB JPEGs (Adobe
- * transform 0, or component ids 'R', 'G', 'B'), YCCK -> CMYK, and for 4
- * components OpenCV's CMYK -> BGR (c' = k - ((255 - c) * k >> 8)). It
- * writes RGB; the Exif orientation is applied by the caller.
+ * sequential (SOF0, SOF1) and progressive (SOF2) Huffman-coded frames,
+ * their arithmetic-coded counterparts (SOF9, SOF10: jdarith.c's Q-coder
+ * with DAC conditioning), all of 8-bit samples and 1, 3 or 4 components,
+ * and lossless frames (SOF3, jdlossls.c: predictors 1-7, a point
+ * transform, 2 to 8 bits) in RGB or CMYK. Scans fill a coefficient
+ * buffer for the whole image (jdhuff.c and jdphuff.c: DC first and
+ * refine scans, AC first and refine scans with EOB runs, restart
+ * intervals in every scan); then every block goes through libjpeg-turbo's
+ * ISLOW IDCT in the arithmetic of its SIMD code (16-bit dequantisation
+ * and sums, the first pass saturated to 16 bits, the whole-block zero-AC
+ * shortcut), fancy upsampling where libjpeg-turbo takes it and box
+ * upsampling elsewhere (lossless frames always), and the colour
+ * conversion of jdcolor.c: fixed-point YCbCr -> RGB, none for RGB JPEGs
+ * (Adobe transform 0, or component ids 'R', 'G', 'B'), YCCK -> CMYK, and
+ * for 4 components OpenCV's CMYK -> BGR (c' = k - ((255 - c) * k >> 8)).
+ * A progressive image whose coefficients 1..9 do not all reach their
+ * last bit goes through libjpeg-turbo 3's inter-block smoothing
+ * (jdcoefct.c decompress_smooth_data). It writes RGB; the Exif
+ * orientation is applied by the caller.
  *
  * A stream whose data ends early is refused, as cv2.imdecode refuses it,
  * unless the caller passes `eof_fill` (cv2.imread of a file: libjpeg's
- * file source appends an EOI): then the block in which the data ran out
- * is decoded with zero bits, and every later block of the scan keeps
- * zero coefficients (mid-gray), as jdhuff.c's `insufficient_data` does.
- * A progressive image whose coefficients 1..9 do not all reach their
- * last bit (Al = 0) would take libjpeg's inter-block smoothing
- * (jdcoefct.c decompress_smooth_data); that is refused by name, as are
- * lossless, hierarchical and arithmetic-coded frames, 12-bit samples and
- * corrupt streams. `utils/jpeg.py` is the plain version of the baseline
- * part and refuses the rest by name.
+ * file source appends an EOI at every read past the end): then the block
+ * in which the data ran out is decoded with zero bits, and every later
+ * block of the scan keeps zero coefficients (mid-gray), as jdhuff.c's
+ * `insufficient_data` does; lossless rows finish on zero bits and later
+ * rows restart from zero differences (jdlhuff.c); arithmetic decoding
+ * goes on over zero bytes until a bad code ends the interval (jdarith.c);
+ * a marker segment cut short is completed with FF D9 bytes; smoothing
+ * takes the coefficient bits from before a cut scan below its last
+ * decoded iMCU row. What cv2 5.0 returns no image for is refused by
+ * name: 12- and 16-bit samples, lossless frames that need a colour
+ * conversion (gray, YCbCr, YCCK), arithmetic-coded lossless and
+ * hierarchical frames, and corrupt streams. `utils/jpeg.py` is the plain
+ * version of the baseline part and refuses the rest by name.
+ *
+ * encode_jpeg writes what cv2.imencode(".jpg") writes at its defaults,
+ * bit for bit: jccolor.c's RGB -> YCbCr, h2v2_downsample with its
+ * alternating 1, 2 bias, jcprepct.c's and jcsample.c's edge replication
+ * and jccoefct.c's dummy blocks, jfdctint.c's ISLOW DCT, jcdctmgr.c's
+ * reciprocal quantiser, the standard Huffman tables with 0xFF stuffing
+ * and 1-bit padding. Its plain version is utils/jpeg.py encode_pixels.
  *
  * resize_linear_u8 is cv2.resize(..., INTER_LINEAR) on uint8: 11-bit
  * fixed-point weights from float32 source coordinates, an exact integer
@@ -90,6 +107,7 @@ typedef struct {
     int32_t q[64];         /* the table latched at its first scan */
     int latched;
     int coef_bits[64];     /* progressive: Al of each coefficient, -1 */
+    int prev_bits[10];     /* coef_bits[0..9] before the latest scan */
     uint8_t *plane;        /* blocks_h * 8 rows of blocks_w * 8 samples */
 } Comp;
 
@@ -98,6 +116,11 @@ typedef struct {
     const uint8_t *data;
     long n;
     int width, height, ncomp, hmax, vmax, progressive;
+    int arith;           /* arithmetic-coded (SOF9, SOF10) */
+    int lossless;        /* SOF3: samples, not blocks */
+    int precision;
+    int unit;            /* a component plane's block side: 8, or 1 */
+    const char *kind;    /* the frame's name, for messages */
     Comp comp[4];
     int32_t qt[4][64]; /* row-major */
     int qt_defined[4];
@@ -115,7 +138,17 @@ typedef struct {
     int at_eof;          /* the data ended (not a marker) */
     int insufficient;    /* ran out of data: later blocks stay zero */
     int eobrun;
+    int cut;             /* a scan's data ended early (eof_fill) */
+    int last_good;       /* the last iMCU row a cut scan decoded */
+    int arith_err;       /* jdarith.c's ct == -1: the interval is dropped */
+    /* arithmetic decoder (jdarith.c) */
+    int64_t ac, aa;      /* the C and A registers */
+    int ct;              /* bits left in C's byte buffer; -16 at a start */
+    uint8_t dc_l[16], dc_u[16], ac_k[16]; /* DAC conditioning */
+    uint8_t dc_stats[16][64], ac_stats[16][256], fixed_bin;
+    int dc_context[4];
     uint8_t *scratch;    /* upsampled rows, column sums, colour tables */
+    uint8_t *filled;     /* a segment cut by the end of the data, filled */
 } Jpeg;
 
 static const int zigzag[64] = {
@@ -140,24 +173,52 @@ static int next_marker(Jpeg *j)
         fail(&j->f, msg);
     }
     while (j->pos < j->n && j->data[j->pos] == 0xFF) j->pos++;
-    if (j->pos >= j->n) fail(&j->f, "truncated stream (no EOI)");
+    if (j->pos >= j->n) {
+        if (j->eof_fill) return 0xD9;
+        fail(&j->f, "truncated stream (no EOI)");
+    }
     return j->data[j->pos++];
 }
 
-/* Payload bounds of the segment whose length field is at j->pos. */
-static void segment(Jpeg *j, long *start, long *end)
+/* The payload of the segment whose length field is at j->pos, and its
+ * length; j->pos moves past it. With eof_fill a segment cut by the end of
+ * the data is completed as libjpeg's file source completes it, with the
+ * bytes FF D9 over and over (the EOI it appends at each read past the
+ * end); the walk then meets that EOI. */
+static const uint8_t *segment(Jpeg *j, long *len)
 {
-    int length;
-    if (j->pos + 2 > j->n) fail(&j->f, "truncated marker segment");
+    long length, k, start = j->pos + 2;
+    if (j->pos + 2 > j->n || j->pos + u16be(j->data + j->pos) > j->n) {
+        uint8_t head[2];
+        if (!j->eof_fill) fail(&j->f, "truncated marker segment");
+        for (k = 0; k < 2; k++) {
+            long at = j->pos + k;
+            head[k] = at < j->n ? j->data[at] : (at - j->n) % 2 ? 0xD9 : 0xFF;
+        }
+        length = u16be(head);
+        if (length < 2) fail(&j->f, "truncated marker segment");
+        free(j->filled);
+        j->filled = (uint8_t *)malloc((size_t)length);
+        if (!j->filled) fail(&j->f, "out of memory");
+        for (k = 0; k < length - 2; k++) {
+            long at = start + k;
+            j->filled[k] = at < j->n ? j->data[at]
+                           : (at - j->n) % 2 ? 0xD9 : 0xFF;
+        }
+        j->pos = j->n;
+        *len = length - 2;
+        return j->filled;
+    }
     length = u16be(j->data + j->pos);
-    if (length < 2 || j->pos + length > j->n)
-        fail(&j->f, "truncated marker segment");
-    *start = j->pos + 2;
-    *end = j->pos + length;
-    j->pos = *end;
+    if (length < 2) fail(&j->f, "truncated marker segment");
+    j->pos += length;
+    *len = length - 2;
+    return j->data + start;
 }
 
-static void parse_sof(Jpeg *j, const uint8_t *p, long len, int progressive)
+/* A frame header. `kind` is the SOF's low nibble: 0, 1 sequential, 2
+ * progressive, 3 lossless, 9, 10 their arithmetic-coded counterparts. */
+static void parse_sof(Jpeg *j, const uint8_t *p, long len, int kind)
 {
     char msg[96];
     int i, precision, nc, mcus_x, mcus_y;
@@ -167,11 +228,25 @@ static void parse_sof(Jpeg *j, const uint8_t *p, long len, int progressive)
     j->height = u16be(p + 1);
     j->width = u16be(p + 3);
     nc = p[5];
-    if (precision != 8) {
-        snprintf(msg, sizeof msg,
-                 "%d-bit samples are not read (8-bit only)", precision);
+    static const char *kinds[11] = {
+        "baseline (SOF0)", "extended sequential (SOF1)", "progressive (SOF2)",
+        "lossless (SOF3)", 0, 0, 0, 0, 0,
+        "arithmetic-coded sequential (SOF9)",
+        "arithmetic-coded progressive (SOF10)"};
+    j->kind = kinds[kind];
+    j->lossless = kind == 3;
+    j->arith = kind >= 8;
+    j->unit = j->lossless ? 1 : 8;
+    /* libjpeg-turbo reads 12- and 16-bit samples through other calls
+     * than the 8-bit ones OpenCV 5 makes: cv2 returns no image for them.
+     * Lossless frames of 2 to 8 bits go through the 8-bit calls. */
+    if (j->lossless ? precision < 2 || precision > 8 : precision != 8) {
+        snprintf(msg, sizeof msg, "%d-bit %s samples are not read (%s)",
+                 precision, j->lossless ? "lossless" : "DCT",
+                 j->lossless ? "2 to 8 bits only" : "8-bit only");
         fail(&j->f, msg);
     }
+    j->precision = precision;
     if (nc != 1 && nc != 3 && nc != 4) {
         snprintf(msg, sizeof msg, "%d-component images are not read "
                  "(gray, YCbCr, RGB, CMYK or YCCK only)", nc);
@@ -202,9 +277,9 @@ static void parse_sof(Jpeg *j, const uint8_t *p, long len, int progressive)
         if (c->v > j->vmax) j->vmax = c->v;
     }
     j->ncomp = nc;
-    j->progressive = progressive;
-    mcus_x = (j->width + 8 * j->hmax - 1) / (8 * j->hmax);
-    mcus_y = (j->height + 8 * j->vmax - 1) / (8 * j->vmax);
+    j->progressive = kind == 2 || kind == 10;
+    mcus_x = (j->width + j->unit * j->hmax - 1) / (j->unit * j->hmax);
+    mcus_y = (j->height + j->unit * j->vmax - 1) / (j->unit * j->vmax);
     for (i = 0; i < nc; i++) {
         Comp *c = &j->comp[i];
         size_t size;
@@ -214,7 +289,7 @@ static void parse_sof(Jpeg *j, const uint8_t *p, long len, int progressive)
         c->height = (int)(((long)j->height * c->v + j->vmax - 1) / j->vmax);
         c->blocks_w = mcus_x * c->h;
         c->blocks_h = mcus_y * c->v;
-        size = (size_t)c->blocks_w * 8 * (size_t)c->blocks_h * 8;
+        size = (size_t)c->blocks_w * j->unit * (size_t)c->blocks_h * j->unit;
         c->plane = (uint8_t *)malloc(size);
         c->coef = (int16_t *)calloc(size, sizeof(int16_t));
         if (!c->plane || !c->coef) fail(&j->f, "out of memory");
@@ -506,6 +581,311 @@ static void ac_refine(Jpeg *j, const Huff *ac, int ss, int se, int al,
 }
 
 /* ------------------------------------------------------------------ */
+/* Arithmetic decoding (jdarith.c, the Q-coder of T.81 Annex D).        */
+
+/* jaricom.c's jpeg_aritab: Qe << 16 | next MPS index << 8 | switch << 7 |
+ * next LPS index; entry 113 is the fixed probability of sign bits and
+ * refinements. Exported for the test that holds it to libjpeg-turbo's. */
+#define QE(qe, lps, mps, sw) ((int32_t)(qe) << 16 | (mps) << 8 | (sw) << 7 | (lps))
+const int32_t jpeg_arith_table[114] = {
+    QE(0x5a1d, 1, 1, 1), QE(0x2586, 14, 2, 0), QE(0x1114, 16, 3, 0),
+    QE(0x080b, 18, 4, 0), QE(0x03d8, 20, 5, 0), QE(0x01da, 23, 6, 0),
+    QE(0x00e5, 25, 7, 0), QE(0x006f, 28, 8, 0), QE(0x0036, 30, 9, 0),
+    QE(0x001a, 33, 10, 0), QE(0x000d, 35, 11, 0), QE(0x0006, 9, 12, 0),
+    QE(0x0003, 10, 13, 0), QE(0x0001, 12, 13, 0), QE(0x5a7f, 15, 15, 1),
+    QE(0x3f25, 36, 16, 0), QE(0x2cf2, 38, 17, 0), QE(0x207c, 39, 18, 0),
+    QE(0x17b9, 40, 19, 0), QE(0x1182, 42, 20, 0), QE(0x0cef, 43, 21, 0),
+    QE(0x09a1, 45, 22, 0), QE(0x072f, 46, 23, 0), QE(0x055c, 48, 24, 0),
+    QE(0x0406, 49, 25, 0), QE(0x0303, 51, 26, 0), QE(0x0240, 52, 27, 0),
+    QE(0x01b1, 54, 28, 0), QE(0x0144, 56, 29, 0), QE(0x00f5, 57, 30, 0),
+    QE(0x00b7, 59, 31, 0), QE(0x008a, 60, 32, 0), QE(0x0068, 62, 33, 0),
+    QE(0x004e, 63, 34, 0), QE(0x003b, 32, 35, 0), QE(0x002c, 33, 9, 0),
+    QE(0x5ae1, 37, 37, 1), QE(0x484c, 64, 38, 0), QE(0x3a0d, 65, 39, 0),
+    QE(0x2ef1, 67, 40, 0), QE(0x261f, 68, 41, 0), QE(0x1f33, 69, 42, 0),
+    QE(0x19a8, 70, 43, 0), QE(0x1518, 72, 44, 0), QE(0x1177, 73, 45, 0),
+    QE(0x0e74, 74, 46, 0), QE(0x0bfb, 75, 47, 0), QE(0x09f8, 77, 48, 0),
+    QE(0x0861, 78, 49, 0), QE(0x0706, 79, 50, 0), QE(0x05cd, 48, 51, 0),
+    QE(0x04de, 50, 52, 0), QE(0x040f, 50, 53, 0), QE(0x0363, 51, 54, 0),
+    QE(0x02d4, 52, 55, 0), QE(0x025c, 53, 56, 0), QE(0x01f8, 54, 57, 0),
+    QE(0x01a4, 55, 58, 0), QE(0x0160, 56, 59, 0), QE(0x0125, 57, 60, 0),
+    QE(0x00f6, 58, 61, 0), QE(0x00cb, 59, 62, 0), QE(0x00ab, 61, 63, 0),
+    QE(0x008f, 61, 32, 0), QE(0x5b12, 65, 65, 1), QE(0x4d04, 80, 66, 0),
+    QE(0x412c, 81, 67, 0), QE(0x37d8, 82, 68, 0), QE(0x2fe8, 83, 69, 0),
+    QE(0x293c, 84, 70, 0), QE(0x2379, 86, 71, 0), QE(0x1edf, 87, 72, 0),
+    QE(0x1aa9, 87, 73, 0), QE(0x174e, 72, 74, 0), QE(0x1424, 72, 75, 0),
+    QE(0x119c, 74, 76, 0), QE(0x0f6b, 74, 77, 0), QE(0x0d51, 75, 78, 0),
+    QE(0x0bb6, 77, 79, 0), QE(0x0a40, 77, 48, 0), QE(0x5832, 80, 81, 1),
+    QE(0x4d1c, 88, 82, 0), QE(0x438e, 89, 83, 0), QE(0x3bdd, 90, 84, 0),
+    QE(0x34ee, 91, 85, 0), QE(0x2eae, 92, 86, 0), QE(0x299a, 93, 87, 0),
+    QE(0x2516, 86, 71, 0), QE(0x5570, 88, 89, 1), QE(0x4ca9, 95, 90, 0),
+    QE(0x44d9, 96, 91, 0), QE(0x3e22, 97, 92, 0), QE(0x3824, 99, 93, 0),
+    QE(0x32b4, 99, 94, 0), QE(0x2e17, 93, 86, 0), QE(0x56a8, 95, 96, 1),
+    QE(0x4f46, 101, 97, 0), QE(0x47e5, 102, 98, 0), QE(0x41cf, 103, 99, 0),
+    QE(0x3c3d, 104, 100, 0), QE(0x375e, 99, 93, 0), QE(0x5231, 105, 102, 0),
+    QE(0x4c0f, 106, 103, 0), QE(0x4639, 107, 104, 0),
+    QE(0x415e, 103, 99, 0), QE(0x5627, 105, 106, 1),
+    QE(0x50e7, 108, 107, 0), QE(0x4b85, 109, 103, 0),
+    QE(0x5597, 110, 109, 0), QE(0x504f, 111, 107, 0),
+    QE(0x5a10, 110, 111, 1), QE(0x5522, 112, 109, 0),
+    QE(0x59eb, 112, 111, 1), QE(0x5a1d, 113, 113, 0)};
+
+/* The next byte of the scan, 0 past a marker; a marker leaves j->pos on
+ * an 0xFF before it. Where the data ends: zeros with eof_fill (the EOI
+ * libjpeg's file source appends), else a refusal. */
+static int arith_byte(Jpeg *j)
+{
+    long q;
+    int d;
+    if (j->marker_hit) return 0;
+    if (j->pos >= j->n) {
+        if (!j->eof_fill)
+            fail(&j->f, "truncated stream (arithmetic-coded data ends "
+                        "early)");
+        j->marker_hit = j->at_eof = 1;
+        return 0;
+    }
+    d = j->data[j->pos++];
+    if (d != 0xFF) return d;
+    q = j->pos;
+    while (q < j->n && j->data[q] == 0xFF) q++;
+    if (q >= j->n) {
+        if (!j->eof_fill)
+            fail(&j->f, "truncated stream (arithmetic-coded data ends "
+                        "early)");
+        j->pos = j->n;
+        j->marker_hit = j->at_eof = 1;
+        return 0;
+    }
+    if (j->data[q] == 0) {
+        j->pos = q + 1;
+        return 0xFF;
+    }
+    j->pos = q - 1;
+    j->marker_hit = 1;
+    return 0;
+}
+
+/* jdarith.c arith_decode: one binary decision with statistics bin *st. */
+static int arith_decode(Jpeg *j, uint8_t *st)
+{
+    int sv, nl, nm;
+    int64_t qe, temp;
+    while (j->aa < 0x8000) {
+        if (--j->ct < 0) {
+            j->ac = (j->ac << 8) | arith_byte(j);
+            if ((j->ct += 8) < 0) {
+                if (++j->ct == 0) j->aa = 0x8000;
+            }
+        }
+        j->aa <<= 1;
+    }
+    sv = *st;
+    qe = jpeg_arith_table[sv & 0x7F];
+    nl = (int)(qe & 0xFF);
+    qe >>= 8;
+    nm = (int)(qe & 0xFF);
+    qe >>= 8;
+    temp = j->aa - qe;
+    j->aa = temp;
+    temp <<= j->ct;
+    if (j->ac >= temp) {
+        j->ac -= temp;
+        if (j->aa < qe) {
+            j->aa = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        } else {
+            j->aa = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        }
+    } else if (j->aa < 0x8000) {
+        if (j->aa < qe) {
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        } else {
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        }
+    }
+    return sv >> 7;
+}
+
+/* jdarith.c's answer to a bad code (JWRN_ARITH_BAD_CODE): it sets ct to
+ * -1 and decodes nothing more until the next restart. Reading a file
+ * (eof_fill, cv2.imread) that is what happens; bytes are refused. */
+static void arith_bad(Jpeg *j, const char *what)
+{
+    char msg[96];
+    if (!j->eof_fill) {
+        snprintf(msg, sizeof msg, "corrupt arithmetic-coded data (%s)", what);
+        fail(&j->f, msg);
+    }
+    j->arith_err = 1;
+}
+
+/* A DC difference (Figures F.19-F.24), updating the component's
+ * conditioning context; dc_tbl is the DC statistics area. */
+static int arith_dc_diff(Jpeg *j, int tbl, int *context)
+{
+    uint8_t *st = j->dc_stats[tbl] + *context;
+    int sign, m, v;
+    if (arith_decode(j, st) == 0) {
+        *context = 0;
+        return 0;
+    }
+    sign = arith_decode(j, st + 1);
+    st += 2 + sign;
+    if ((m = arith_decode(j, st)) != 0) {
+        st = j->dc_stats[tbl] + 20;
+        while (arith_decode(j, st)) {
+            if ((m <<= 1) == 0x8000) {
+                arith_bad(j, "DC magnitude");
+                return 0;
+            }
+            st++;
+        }
+    }
+    if (m < (int)((1L << j->dc_l[tbl]) >> 1))
+        *context = 0;
+    else if (m > (int)((1L << j->dc_u[tbl]) >> 1))
+        *context = 12 + sign * 4;
+    else
+        *context = 4 + sign * 4;
+    v = m;
+    st += 14;
+    while (m >>= 1)
+        if (arith_decode(j, st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+}
+
+/* An AC value once its position is known: sign and magnitude. `st` is
+ * the position's statistics (3 bins a position), k its index. */
+static int arith_ac_value(Jpeg *j, int tbl, uint8_t *st, int k)
+{
+    int sign = arith_decode(j, &j->fixed_bin), m, v;
+    st += 2;
+    if ((m = arith_decode(j, st)) != 0) {
+        if (arith_decode(j, st)) {
+            m <<= 1;
+            st = j->ac_stats[tbl] + (k <= j->ac_k[tbl] ? 189 : 217);
+            while (arith_decode(j, st)) {
+                if ((m <<= 1) == 0x8000) {
+                    arith_bad(j, "AC magnitude");
+                    return 0;
+                }
+                st++;
+            }
+        }
+    }
+    v = m;
+    st += 14;
+    while (m >>= 1)
+        if (arith_decode(j, st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+}
+
+/* decode_mcu's AC part (sequential), or decode_mcu_AC_first: positions
+ * ss..se, values shifted up by al. */
+static void arith_ac_first(Jpeg *j, int tbl, int ss, int se, int al,
+                           int16_t *blk)
+{
+    int k, v;
+    for (k = ss; k <= se; k++) {
+        uint8_t *st = j->ac_stats[tbl] + 3 * (k - 1);
+        if (arith_decode(j, st)) break; /* EOB */
+        while (arith_decode(j, st + 1) == 0) {
+            st += 3;
+            if (++k > se) {
+                arith_bad(j, "spectral overflow");
+                return;
+            }
+        }
+        v = arith_ac_value(j, tbl, st, k);
+        if (j->arith_err) return;
+        blk[zigzag[k]] = (int16_t)(uint16_t)((unsigned)v << al);
+    }
+}
+
+/* decode_mcu_AC_refine. */
+static void arith_ac_refine(Jpeg *j, int tbl, int ss, int se, int al,
+                            int16_t *blk)
+{
+    int p1 = 1 << al, m1 = -1 * (1 << al), k, kex;
+    for (kex = se; kex > 0; kex--)
+        if (blk[zigzag[kex]]) break;
+    for (k = ss; k <= se; k++) {
+        uint8_t *st = j->ac_stats[tbl] + 3 * (k - 1);
+        if (k > kex && arith_decode(j, st)) break; /* EOB */
+        for (;;) {
+            int16_t *c = blk + zigzag[k];
+            if (*c) {
+                if (arith_decode(j, st + 2))
+                    *c = (int16_t)(*c + (*c < 0 ? m1 : p1));
+                break;
+            }
+            if (arith_decode(j, st + 1)) {
+                *c = (int16_t)(arith_decode(j, &j->fixed_bin) ? m1 : p1);
+                break;
+            }
+            st += 3;
+            if (++k > se) {
+                arith_bad(j, "spectral overflow");
+                return;
+            }
+        }
+    }
+}
+
+/* The start of a scan or of a restart interval (start_pass,
+ * process_restart): statistics cleared, the registers reset. */
+static void arith_reset(Jpeg *j, Comp **comps, const int *td, const int *ta,
+                        int ns, int ss, int ah, int *last_dc)
+{
+    int i;
+    for (i = 0; i < ns; i++) {
+        if (!j->progressive || (ss == 0 && ah == 0)) {
+            memset(j->dc_stats[td[i]], 0, sizeof j->dc_stats[0]);
+            last_dc[i] = 0;
+            j->dc_context[i] = 0;
+        }
+        if (!j->progressive || ss != 0)
+            memset(j->ac_stats[ta[i]], 0, sizeof j->ac_stats[0]);
+    }
+    (void)comps;
+    j->ac = 0;
+    j->aa = 0;
+    j->ct = -16;
+    j->arith_err = 0;
+}
+
+/* One block of an arithmetic-coded scan. */
+static void arith_block(Jpeg *j, int td, int ta, int *last_dc, int *context,
+                        int ss, int se, int ah, int al, int16_t *blk)
+{
+    int d;
+    if (j->arith_err) return;
+    if (!j->progressive) {
+        d = arith_dc_diff(j, td, context);
+        if (j->arith_err) return;
+        *last_dc = (*last_dc + d) & 0xFFFF;
+        blk[0] = (int16_t)(uint16_t)*last_dc;
+        arith_ac_first(j, ta, 1, 63, 0, blk);
+    } else if (ss == 0 && ah == 0) {
+        d = arith_dc_diff(j, td, context);
+        if (j->arith_err) return;
+        *last_dc = (*last_dc + d) & 0xFFFF;
+        blk[0] = (int16_t)(uint16_t)((unsigned)*last_dc << al);
+    } else if (ss == 0) {
+        if (arith_decode(j, &j->fixed_bin)) blk[0] = (int16_t)(blk[0] | (1 << al));
+    } else if (ah == 0) {
+        arith_ac_first(j, ta, ss, se, al, blk);
+    } else {
+        arith_ac_refine(j, ta, ss, se, al, blk);
+    }
+}
+
+/* ------------------------------------------------------------------ */
 /* The inverse DCT (jidctint.c, as its SIMD code computes it).         */
 
 #define FIX_0_298631336 2446
@@ -664,12 +1044,19 @@ static void progression(Jpeg *j, Comp **comps, int ns, int ss, int se,
                         int ah, int al)
 {
     int i, k, bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
-    if ((ah != 0 && al != ah - 1) || al > 13 || bad)
-        fail(&j->f, "bad progressive scan parameters");
+    char msg[96];
+    if ((ah != 0 && al != ah - 1) || al > 13 || bad) {
+        snprintf(msg, sizeof msg, "bad scan parameters in a %s frame",
+                 j->kind);
+        fail(&j->f, msg);
+    }
     for (i = 0; i < ns; i++) {
         Comp *c = comps[i];
         if (ss != 0 && c->coef_bits[0] < 0)
             fail(&j->f, "progressive AC scan before the DC scan");
+        /* jdphuff.c start_pass's copy, for smoothing a cut scan's rows. */
+        for (k = ss < 1 ? ss : 1; k <= 9; k++)
+            c->prev_bits[k] = j->scans ? c->coef_bits[k] : 0;
         for (k = ss; k <= se; k++) {
             if (ah != (c->coef_bits[k] < 0 ? 0 : c->coef_bits[k]))
                 fail(&j->f, "progressive scans out of order");
@@ -688,13 +1075,74 @@ static void end_mcu(Jpeg *j)
     j->insufficient = 1;
 }
 
+/* jdlossls.c: a lossless component's samples from its differences, row
+ * by row: the first row of the image and of each restart interval from
+ * its left neighbour (the first sample from 1 << (P - Pt - 1)), every
+ * other row's first sample from the one above and the rest by predictor
+ * `psv`, all modulo 2^16; then shifted up by the point transform `pt`
+ * and cut to 8 bits. `first_rows` is the rows between restarts (0: no
+ * restarts); from row `gray_from` on (-1: none) the data had run out and
+ * every row restarts from zero differences. */
+static void undifference(Jpeg *j, Comp *c, int psv, int pt, long first_rows,
+                         long gray_from)
+{
+    int x, y, w = c->width, stride = c->blocks_w;
+    int *prev = (int *)malloc(sizeof(int) * (size_t)w * 2), *cur;
+    if (!prev) fail(&j->f, "out of memory");
+    cur = prev + w;
+    for (y = 0; y < c->height; y++) {
+        const int16_t *d = c->coef + (size_t)y * stride;
+        uint8_t *o = c->plane + (size_t)y * stride;
+        int *t;
+        if (y == 0 || (first_rows && y % first_rows == 0)
+            || (gray_from >= 0 && y >= gray_from)) {
+            int ra = (int)((uint16_t)d[0] + (1 << (j->precision - pt - 1)))
+                     & 0xFFFF;
+            cur[0] = ra;
+            for (x = 1; x < w; x++) cur[x] = ra = ((uint16_t)d[x] + ra) & 0xFFFF;
+        } else {
+            int ra, rb = prev[0], rc, pred;
+            cur[0] = ra = ((uint16_t)d[0] + rb) & 0xFFFF;
+            for (x = 1; x < w; x++) {
+                rc = rb;
+                rb = prev[x];
+                switch (psv) {
+                case 1: pred = ra; break;
+                case 2: pred = rb; break;
+                case 3: pred = rc; break;
+                case 4: pred = ra + rb - rc; break;
+                case 5: pred = ra + ((rb - rc) >> 1); break;
+                case 6: pred = rb + ((ra - rc) >> 1); break;
+                default: pred = (ra + rb) >> 1; break;
+                }
+                cur[x] = ra = ((uint16_t)d[x] + pred) & 0xFFFF;
+            }
+        }
+        for (x = 0; x < w; x++) o[x] = (uint8_t)(cur[x] << pt);
+        t = prev;
+        prev = cur;
+        cur = t;
+    }
+    free(prev < cur ? prev : cur);
+}
+
+/* jdlhuff.c: one sample's difference. */
+static int lossless_diff(Jpeg *j, const Huff *dc)
+{
+    int s = huff_symbol(j, dc);
+    if (s > 16) fail(&j->f, "corrupt lossless difference code");
+    if (s == 16) return 32768;
+    return s ? extend(get_bits(j, s), s) : 0;
+}
+
 static void decode_scan(Jpeg *j, const uint8_t *p, long len)
 {
     Comp *comps[4];
     const Huff *dc[4], *ac[4];
+    int td[4], ta[4];
     int ns, i, units_x, units_y, per_interval, interval = 0, expect = 0;
     int ss, se, ah, al;
-    long total, u;
+    long total, u, gray_row;
     char msg[96];
     ns = len > 0 ? p[0] : 0;
     if (ns < 1 || ns > 4 || len != 4 + 2 * ns) fail(&j->f, "bad SOS");
@@ -712,16 +1160,19 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
             snprintf(msg, sizeof msg, "SOS names unknown component %d", cid);
             fail(&j->f, msg);
         }
-        /* Progressive scans use one kind of table, first DC scans only. */
+        /* Progressive scans use one kind of table, first DC scans only;
+         * lossless scans DC tables only; arithmetic coding none. */
         need_dc = !j->progressive || (ss == 0 && ah == 0);
-        need_ac = !j->progressive || ss != 0;
-        if ((t >> 4) > 3 || (t & 15) > 3
-            || (need_dc && !j->huff[0][t >> 4].defined)
-            || (need_ac && !j->huff[1][t & 15].defined))
+        need_ac = !j->lossless && (!j->progressive || ss != 0);
+        td[i] = t >> 4;
+        ta[i] = t & 15;
+        if ((!j->arith && (td[i] > 3 || ta[i] > 3))
+            || (!j->arith && need_dc && !j->huff[0][td[i]].defined)
+            || (!j->arith && need_ac && !j->huff[1][ta[i]].defined))
             fail(&j->f, "SOS uses an undefined Huffman table");
-        dc[i] = &j->huff[0][t >> 4];
-        ac[i] = &j->huff[1][t & 15];
-        if (!comps[i]->latched) {
+        dc[i] = &j->huff[0][td[i]];
+        ac[i] = &j->huff[1][ta[i]];
+        if (!comps[i]->latched && !j->lossless) {
             if (!j->qt_defined[comps[i]->tq])
                 fail(&j->f, "component uses an undefined quantisation "
                             "table");
@@ -729,20 +1180,30 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
             comps[i]->latched = 1;
         }
     }
+    if (j->lossless && (ss < 1 || ss > 7 || se != 0 || ah != 0
+                        || al >= j->precision)) {
+        snprintf(msg, sizeof msg, "bad scan parameters in a %s frame",
+                 j->kind);
+        fail(&j->f, msg);
+    }
     if (j->progressive) progression(j, comps, ns, ss, se, ah, al);
     if (ns == 1) {
-        units_x = (comps[0]->width + 7) / 8;
-        units_y = (comps[0]->height + 7) / 8;
+        units_x = (comps[0]->width + j->unit - 1) / j->unit;
+        units_y = (comps[0]->height + j->unit - 1) / j->unit;
     } else {
         int blocks = 0;
         for (i = 0; i < ns; i++) blocks += comps[i]->h * comps[i]->v;
         if (blocks > 10) fail(&j->f, "too many blocks in an MCU");
-        units_x = (j->width + 8 * j->hmax - 1) / (8 * j->hmax);
-        units_y = (j->height + 8 * j->vmax - 1) / (8 * j->vmax);
+        units_x = (j->width + j->unit * j->hmax - 1) / (j->unit * j->hmax);
+        units_y = (j->height + j->unit * j->vmax - 1) / (j->unit * j->vmax);
     }
     total = (long)units_x * units_y;
     per_interval = j->restart ? j->restart : (int)total;
+    if (j->lossless && j->restart && j->restart % units_x)
+        fail(&j->f, "lossless restart interval not a multiple of the MCUs "
+                    "in a row");
     j->insufficient = 0;
+    gray_row = -1;
     for (interval = 0, u = 0; u < total; interval++) {
         int preds[4] = {0, 0, 0, 0};
         long end = u + per_interval < total ? u + per_interval : total;
@@ -770,18 +1231,34 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
         j->marker_hit = j->at_eof = eof;
         j->real_bits = j->used_bits = 0;
         j->eobrun = 0;
+        if (j->arith) arith_reset(j, comps, td, ta, ns, ss, ah, preds);
         for (; u < end; u++) {
             int uy = (int)(u / units_x), ux = (int)(u % units_x);
-            if (j->insufficient) continue;
+            /* jdlhuff.c finishes the MCU row in which the data ran out on
+             * zero bits; later rows are zero differences from a reset
+             * predictor. The DCT decoders skip every later MCU. */
+            if (j->insufficient && (!j->lossless || ux == 0)) {
+                if (gray_row < 0) gray_row = uy;
+                continue;
+            }
+            if (j->insufficient && gray_row >= 0) continue;
+            j->last_good = ns == 1 ? uy / comps[0]->v : uy;
             for (i = 0; i < ns; i++) {
                 Comp *c = comps[i];
                 int v = ns == 1 ? 1 : c->v, h = ns == 1 ? 1 : c->h, by, bx;
                 for (by = 0; by < v; by++) {
                     for (bx = 0; bx < h; bx++) {
                         int row = uy * v + by, col = ux * h + bx;
-                        int16_t *blk = c->coef
-                            + ((size_t)row * c->blocks_w + col) * 64;
-                        if (!j->progressive)
+                        size_t at = (size_t)row * c->blocks_w + col;
+                        int16_t *blk = j->lossless ? NULL : c->coef + at * 64;
+                        if (j->lossless)
+                            c->coef[at] = (int16_t)(uint16_t)
+                                lossless_diff(j, dc[i]);
+                        else if (j->arith)
+                            arith_block(j, td[i], ta[i], &preds[i],
+                                        &j->dc_context[i], ss, se, ah, al,
+                                        blk);
+                        else if (!j->progressive)
                             preds[i] = decode_block(j, dc[i], ac[i],
                                                     preds[i], blk);
                         else if (ss == 0 && ah == 0)
@@ -795,7 +1272,17 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
                     }
                 }
             }
-            end_mcu(j);
+            if (!j->arith) end_mcu(j);
+            else if (j->at_eof) j->cut = 1;
+        }
+    }
+    if (j->insufficient) j->cut = 1;
+    if (j->lossless) {
+        long rows = j->restart ? (long)(j->restart / units_x) : 0;
+        for (i = 0; i < ns; i++) {
+            long v = ns == 1 ? 1 : comps[i]->v;
+            undifference(j, comps[i], ss, al, rows * v,
+                         gray_row < 0 ? -1 : gray_row * v);
         }
     }
     /* The marker after the scan must not be another restart marker. */
@@ -821,13 +1308,194 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
     }
 }
 
-/* Every block of every component through the IDCT, after the scans. */
+static int clampi(int v, int lo, int hi) { return v < lo ? lo : v > hi ? hi : v; }
+
+/* libjpeg's smoothing_ok: a progressive image takes inter-block
+ * smoothing where every component's DC has been seen, its quantisers of
+ * coefficients 0-9 are nonzero, and some component's coefficient 1..9
+ * has not reached Al = 0. */
+static int takes_smoothing(const Jpeg *j)
+{
+    static const int pos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    int i, k, useful = 0;
+    if (!j->progressive) return 0;
+    for (i = 0; i < j->ncomp; i++) {
+        if (j->comp[i].coef_bits[0] < 0) return 0;
+        for (k = 0; k < 10; k++)
+            if (j->comp[i].q[pos[k]] == 0) return 0;
+        for (k = 1; k < 10; k++) useful |= j->comp[i].coef_bits[k] != 0;
+    }
+    return useful;
+}
+
+/* jdcoefct.c decompress_smooth_data's estimate of one coefficient: the
+ * rounded quotient of num by Q << 8, limited below 1 << Al when Al > 0. */
+static int smooth_pred(int64_t num, int64_t q, int al)
+{
+    int64_t pred;
+    if (num >= 0) {
+        pred = ((q << 7) + num) / (q << 8);
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        return (int)pred;
+    }
+    pred = ((q << 7) - num) / (q << 8);
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    return (int)-pred;
+}
+
+/* libjpeg-turbo 3's decompress_smooth_data for component c: every block
+ * of the component's image rows, its zero coefficients 1..9 that are not
+ * yet exact estimated from the DC values of a 5x5 neighbourhood (the DC
+ * too where no AC has been seen), then the IDCT. Neighbour columns are
+ * clamped to the component's blocks, and neighbour rows as libjpeg-turbo
+ * clamps them: against this iMCU row's block rows times the iMCU rows,
+ * which can reach the dummy rows of the last iMCU row. */
+static void smooth_component(Jpeg *j, Comp *c)
+{
+    int prev[10], k;
+    const int *bits;
+    const int32_t *q = c->q;
+    int64_t Q00 = q[0], Q01 = q[1], Q10 = q[8], Q20 = q[16], Q11 = q[9];
+    int64_t Q02 = q[2], Q03 = q[3], Q12 = q[10], Q21 = q[17], Q30 = q[24];
+    int change_dc, v = c->v, stride = c->blocks_w * 8;
+    int hib = (c->height + 7) / 8, wib = (c->width + 7) / 8;
+    int imcus = (j->height + 8 * j->vmax - 1) / (8 * j->vmax);
+    int last = imcus - 1, im, br, last_col = wib - 1;
+    /* iMCU rows past the last one a cut scan decoded take the
+     * coefficient bits from before that scan (-1 after a single scan). */
+    for (k = 1; k < 10; k++) prev[k] = j->scans > 1 ? c->prev_bits[k] : -1;
+    for (im = 0; im < imcus; im++) {
+        int rows = im < last ? v : (hib % v ? hib % v : v);
+        bits = j->cut && im > j->last_good ? prev : c->coef_bits;
+        change_dc = 1;
+        for (k = 1; k < 10; k++) change_dc &= bits[k] == -1;
+        /* As libjpeg-turbo counts them: this iMCU row's block rows times
+         * the iMCU rows. */
+        int image_rows = rows * imcus;
+        for (br = 0; br < rows; br++) {
+            int r = im * v + br, rr[5], col, i;
+            int dc[5][5];
+            const int16_t *row[5];
+            rr[2] = r;
+            rr[1] = r > 0 ? r - 1 : r;
+            rr[0] = r > 1 ? r - 2 : rr[1];
+            rr[3] = r < image_rows - 1 ? r + 1 : r;
+            rr[4] = r < image_rows - 2 ? r + 2 : rr[3];
+            for (i = 0; i < 5; i++)
+                row[i] = c->coef + (size_t)rr[i] * c->blocks_w * 64;
+            for (col = 0; col <= last_col; col++) {
+                int16_t w[64];
+                int64_t num;
+                int al, x;
+                memcpy(w, row[2] + (size_t)col * 64, sizeof w);
+                for (x = 0; x < 5; x++) {
+                    int cx = clampi(col + x - 2, 0, last_col);
+                    for (i = 0; i < 5; i++)
+                        dc[i][x] = row[i][(size_t)cx * 64];
+                }
+#define DC(n) ((int64_t)dc[((n) - 1) / 5][((n) - 1) % 5])
+                if ((al = bits[1]) != 0 && w[1] == 0) {
+                    num = Q00 * (change_dc ?
+                        (-DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6)
+                         + 13 * DC(7) - 13 * DC(9) + 3 * DC(10) - 3 * DC(11)
+                         + 38 * DC(12) - 38 * DC(14) + 3 * DC(15)
+                         - 3 * DC(16) + 13 * DC(17) - 13 * DC(19)
+                         + 3 * DC(20) - DC(21) - DC(22) + DC(24) + DC(25)) :
+                        (-7 * DC(11) + 50 * DC(12) - 50 * DC(14)
+                         + 7 * DC(15)));
+                    w[1] = (int16_t)smooth_pred(num, Q01, al);
+                }
+                if ((al = bits[2]) != 0 && w[8] == 0) {
+                    num = Q00 * (change_dc ?
+                        (-DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) - DC(5)
+                         - DC(6) + 13 * DC(7) + 38 * DC(8) + 13 * DC(9)
+                         - DC(10) + DC(16) - 13 * DC(17) - 38 * DC(18)
+                         - 13 * DC(19) + DC(20) + DC(21) + 3 * DC(22)
+                         + 3 * DC(23) + 3 * DC(24) + DC(25)) :
+                        (-7 * DC(3) + 50 * DC(8) - 50 * DC(18)
+                         + 7 * DC(23)));
+                    w[8] = (int16_t)smooth_pred(num, Q10, al);
+                }
+                if ((al = bits[3]) != 0 && w[16] == 0) {
+                    num = Q00 * (change_dc ?
+                        (DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9)
+                         - 5 * DC(12) - 14 * DC(13) - 5 * DC(14)
+                         + 2 * DC(17) + 7 * DC(18) + 2 * DC(19) + DC(23)) :
+                        (-DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18)
+                         - DC(23)));
+                    w[16] = (int16_t)smooth_pred(num, Q20, al);
+                }
+                if ((al = bits[4]) != 0 && w[9] == 0) {
+                    num = Q00 * (change_dc ?
+                        (-DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) - 9 * DC(17)
+                         + 9 * DC(19) + DC(21) - DC(25)) :
+                        (DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19)
+                         - DC(2) - DC(20) + DC(22) - DC(24) + DC(4) - DC(6)
+                         + 10 * DC(7) - 10 * DC(9)));
+                    w[9] = (int16_t)smooth_pred(num, Q11, al);
+                }
+                if ((al = bits[5]) != 0 && w[2] == 0) {
+                    num = Q00 * (change_dc ?
+                        (2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11)
+                         + 7 * DC(12) - 14 * DC(13) + 7 * DC(14) + DC(15)
+                         + 2 * DC(17) - 5 * DC(18) + 2 * DC(19)) :
+                        (-DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14)
+                         - DC(15)));
+                    w[2] = (int16_t)smooth_pred(num, Q02, al);
+                }
+                if (change_dc) {
+                    if ((al = bits[6]) != 0 && w[3] == 0) {
+                        num = Q00 * (DC(7) - DC(9) + 2 * DC(12) - 2 * DC(14)
+                                     + DC(17) - DC(19));
+                        w[3] = (int16_t)smooth_pred(num, Q03, al);
+                    }
+                    if ((al = bits[7]) != 0 && w[10] == 0) {
+                        num = Q00 * (DC(7) - 3 * DC(8) + DC(9) - DC(17)
+                                     + 3 * DC(18) - DC(19));
+                        w[10] = (int16_t)smooth_pred(num, Q12, al);
+                    }
+                    if ((al = bits[8]) != 0 && w[17] == 0) {
+                        num = Q00 * (DC(7) - DC(9) - 3 * DC(12) + 3 * DC(14)
+                                     + DC(17) - DC(19));
+                        w[17] = (int16_t)smooth_pred(num, Q21, al);
+                    }
+                    if ((al = bits[9]) != 0 && w[24] == 0) {
+                        num = Q00 * (DC(7) + 2 * DC(8) + DC(9) - DC(17)
+                                     - 2 * DC(18) - DC(19));
+                        w[24] = (int16_t)smooth_pred(num, Q30, al);
+                    }
+                    num = Q00 * (-2 * DC(1) - 6 * DC(2) - 8 * DC(3)
+                                 - 6 * DC(4) - 2 * DC(5) - 6 * DC(6)
+                                 + 6 * DC(7) + 42 * DC(8) + 6 * DC(9)
+                                 - 6 * DC(10) - 8 * DC(11) + 42 * DC(12)
+                                 + 152 * DC(13) + 42 * DC(14) - 8 * DC(15)
+                                 - 6 * DC(16) + 6 * DC(17) + 42 * DC(18)
+                                 + 6 * DC(19) - 6 * DC(20) - 2 * DC(21)
+                                 - 6 * DC(22) - 8 * DC(23) - 6 * DC(24)
+                                 - 2 * DC(25));
+                    w[0] = (int16_t)smooth_pred(num, Q00, 0);
+                }
+#undef DC
+                idct_islow(w, q, c->plane + (size_t)r * 8 * stride
+                                      + (size_t)col * 8, stride);
+            }
+        }
+    }
+}
+
+/* Every block of every component through the IDCT, after the scans;
+ * progressive images that take it through block smoothing. */
 static void inverse_dct(Jpeg *j)
 {
-    int i, by, bx;
+    int i, by, bx, smooth = takes_smoothing(j);
+    if (j->lossless) return;
     for (i = 0; i < j->ncomp; i++) {
         Comp *c = &j->comp[i];
         int stride = c->blocks_w * 8;
+        if (smooth) {
+            smooth_component(j, c);
+            continue;
+        }
         for (by = 0; by < c->blocks_h; by++) {
             for (bx = 0; bx < c->blocks_w; bx++) {
                 idct_islow(c->coef + ((size_t)by * c->blocks_w + bx) * 64,
@@ -838,24 +1506,8 @@ static void inverse_dct(Jpeg *j)
     }
 }
 
-/* libjpeg's smoothing_ok: a progressive image takes inter-block
- * smoothing where every component's DC has been seen and some
- * component's coefficient 1..9 has not reached Al = 0. */
-static int takes_smoothing(const Jpeg *j)
-{
-    int i, k, useful = 0;
-    if (!j->progressive) return 0;
-    for (i = 0; i < j->ncomp; i++) {
-        if (j->comp[i].coef_bits[0] < 0) return 0;
-        for (k = 1; k < 10; k++) useful |= j->comp[i].coef_bits[k] != 0;
-    }
-    return useful;
-}
-
 /* ------------------------------------------------------------------ */
 /* Upsampling and colour (jdsample.c, jdcolor.c).                      */
-
-static int clampi(int v, int lo, int hi) { return v < lo ? lo : v > hi ? hi : v; }
 
 /* 2x horizontal fancy upsampling of in[0:cw] into o[0:W]:
  * o[2c] = (3 in[c] + in[c-1] + bl) >> shift and
@@ -879,9 +1531,12 @@ static void upsample_row(const Jpeg *j, const Comp *c, int y, uint8_t *o,
                          int *sums)
 {
     int fh = j->hmax / c->h, fv = j->vmax / c->v;
-    int stride = c->blocks_w * 8, W = j->width, x;
+    int stride = c->blocks_w * j->unit, W = j->width, x;
     const uint8_t *p = c->plane;
-    if (fv == 2 && (fh == 1 || (fh == 2 && c->width > 2))) {
+    /* Lossless frames have 1x1 "blocks": jdsample.c takes no fancy
+     * upsampling there. */
+    int fancy = !j->lossless;
+    if (fancy && fv == 2 && (fh == 1 || (fh == 2 && c->width > 2))) {
         /* h1v2 and h2v2 fancy: the nearer row 3:1 with the other. */
         int cy = y >> 1;
         int ny = clampi((y & 1) ? cy + 1 : cy - 1, 0, c->height - 1);
@@ -899,7 +1554,7 @@ static void upsample_row(const Jpeg *j, const Comp *c, int y, uint8_t *o,
         const uint8_t *r = p + (size_t)(y / fv) * stride;
         if (fh == 1) {
             memcpy(o, r, (size_t)W);
-        } else if (fh == 2 && fv == 1 && c->width > 2) {
+        } else if (fancy && fh == 2 && fv == 1 && c->width > 2) {
             for (x = 0; x < c->width; x++) sums[x] = r[x];
             fancy_h2(sums, c->width, o, W, 1, 2, 2);
         } else {
@@ -990,56 +1645,72 @@ static void walk(Jpeg *j, int decode)
     if (j->n < 2 || j->data[0] != 0xFF || j->data[1] != 0xD8)
         fail(&j->f, "no SOI marker");
     j->pos = 2;
+    memset(j->dc_l, 0, sizeof j->dc_l);
+    memset(j->dc_u, 1, sizeof j->dc_u);
+    memset(j->ac_k, 5, sizeof j->ac_k);
+    j->fixed_bin = 113;
     for (;;) {
         int m = next_marker(j);
-        long start, end;
+        long len;
         const uint8_t *p;
         if (m == 0xD9) break;
         if ((m >= 0xD0 && m <= 0xD7) || m == 0x01)
             fail(&j->f, "restart marker outside a scan");
-        segment(j, &start, &end);
-        p = j->data + start;
+        p = segment(j, &len);
         switch (m) {
-        case 0xC0: case 0xC1: case 0xC2:
-            parse_sof(j, p, end - start, m == 0xC2);
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
+            parse_sof(j, p, len, m - 0xC0);
             if (!decode) return;
             break;
-        case 0xC3: case 0xC5: case 0xC6: case 0xC7:
-        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF: {
+        case 0xC5: case 0xC6: case 0xC7: case 0xCB: case 0xCD: case 0xCE:
+        case 0xCF: {
+            /* libjpeg-turbo reads none of these: cv2 returns no image. */
             static const char *names[16] = {
-                0, 0, "progressive (SOF2)", "lossless (SOF3)", 0,
-                "differential sequential (SOF5)",
+                0, 0, 0, 0, 0, "differential sequential (SOF5)",
                 "differential progressive (SOF6)",
-                "differential lossless (SOF7)", 0,
-                "arithmetic-coded sequential (SOF9)",
-                "arithmetic-coded progressive (SOF10)",
+                "differential lossless (SOF7)", 0, 0, 0,
                 "arithmetic-coded lossless (SOF11)", 0,
                 "arithmetic-coded differential sequential (SOF13)",
                 "arithmetic-coded differential progressive (SOF14)",
                 "arithmetic-coded differential lossless (SOF15)"};
-            snprintf(msg, sizeof msg, "%s JPEGs are not read (sequential "
-                     "and progressive Huffman only)", names[m - 0xC0]);
+            snprintf(msg, sizeof msg, "%s JPEGs are not read (as "
+                     "libjpeg-turbo reads none)", names[m - 0xC0]);
             fail(&j->f, msg);
             break;
         }
-        case 0xCC:
-            fail(&j->f, "arithmetic coding (DAC) is not read");
+        case 0xCC: {
+            /* DAC: conditioning of arithmetic coding (jdmarker.c). */
+            long k;
+            for (k = 0; k + 1 < len; k += 2) {
+                int index = p[k], val = p[k + 1];
+                if (index >= 32) fail(&j->f, "bad DAC table index");
+                if (index >= 16) {
+                    j->ac_k[index - 16] = (uint8_t)val;
+                } else {
+                    j->dc_l[index] = (uint8_t)(val & 15);
+                    j->dc_u[index] = (uint8_t)(val >> 4);
+                    if (j->dc_l[index] > j->dc_u[index])
+                        fail(&j->f, "bad DAC value");
+                }
+            }
+            if ((len) % 2) fail(&j->f, "bad DAC length");
             break;
+        }
         case 0xC4:
-            parse_dht(j, p, end - start);
+            parse_dht(j, p, len);
             break;
         case 0xDB:
-            parse_dqt(j, p, end - start);
+            parse_dqt(j, p, len);
             break;
         case 0xDD:
-            if (end - start != 2) fail(&j->f, "bad DRI");
+            if (len != 2) fail(&j->f, "bad DRI");
             j->restart = u16be(p);
             break;
         case 0xE0:
-            if (end - start >= 5 && !memcmp(p, "JFIF\0", 5)) j->jfif = 1;
+            if (len >= 5 && !memcmp(p, "JFIF\0", 5)) j->jfif = 1;
             break;
         case 0xEE:
-            if (end - start >= 12 && !memcmp(p, "Adobe", 5)) {
+            if (len >= 12 && !memcmp(p, "Adobe", 5)) {
                 j->adobe = 1;
                 j->adobe_transform = p[11];
             }
@@ -1049,7 +1720,7 @@ static void walk(Jpeg *j, int decode)
             break;
         case 0xDA:
             if (!j->ncomp) fail(&j->f, "SOS before SOF");
-            decode_scan(j, p, end - start);
+            decode_scan(j, p, len);
             j->scans++;
             break;
         default:
@@ -1058,10 +1729,6 @@ static void walk(Jpeg *j, int decode)
     }
     if (!j->ncomp) fail(&j->f, "no image data");
     if (!j->scans) fail(&j->f, "no image data");
-    if (takes_smoothing(j))
-        fail(&j->f, "progressive JPEG whose scans stop before the last bit "
-                    "of coefficients 1-9 (libjpeg's inter-block smoothing) "
-                    "is not read");
 }
 
 /* jdapimin.c's guess of the colour space: 0 YCbCr or gray, 1 RGB, 2 CMYK,
@@ -1086,6 +1753,7 @@ static void release(Jpeg *j)
         free(j->comp[i].coef);
     }
     free(j->scratch);
+    free(j->filled);
 }
 
 /* Height and width of the JPEG in data[0:n]; 0, or 1 with a message. */
@@ -1134,6 +1802,14 @@ int decode_jpeg(const uint8_t *data, long n, uint8_t *rgb, int height,
         int y, space;
         walk(j, 1);
         space = colour_space(j);
+        /* libjpeg-turbo converts no colours in lossless mode: cv2's
+         * IMREAD_COLOR gets RGB and CMYK frames only. */
+        if (j->lossless && space != 1 && space != 2)
+            fail(&j->f, j->ncomp == 1
+                 ? "gray lossless JPEGs are not read (libjpeg-turbo "
+                   "converts no colours in lossless mode)"
+                 : "lossless JPEGs in YCbCr or YCCK are not read "
+                   "(libjpeg-turbo converts no colours in lossless mode)");
         inverse_dct(j);
         if (j->height != height || j->width != width)
             fail(&j->f, "output buffer of the wrong size");
@@ -1160,6 +1836,406 @@ int decode_jpeg(const uint8_t *data, long n, uint8_t *rgb, int height,
     release(j);
     free(j);
     return rc;
+}
+
+/* ------------------------------------------------------------------ */
+/* JPEG encoding as cv2.imencode(".jpg") writes it (libjpeg-turbo 3 at
+ * OpenCV 5's defaults): baseline, 4:2:0, the standard Huffman tables,
+ * no restart markers, JFIF 1.01 with a 1:1 density of unit 0.           */
+
+/* The Huffman tables of jstdhuff.c: 16 code counts, then the values. */
+static const uint8_t dc_luma[28] = {
+    0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7,
+    8, 9, 10, 11
+};
+static const uint8_t ac_luma[178] = {
+    0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125, 1, 2, 3, 0, 4, 17, 5,
+    18, 33, 49, 65, 6, 19, 81, 97, 7, 34, 113, 20, 50, 129, 145, 161, 8, 35,
+    66, 177, 193, 21, 82, 209, 240, 36, 51, 98, 114, 130, 9, 10, 22, 23, 24,
+    25, 26, 37, 38, 39, 40, 41, 42, 52, 53, 54, 55, 56, 57, 58, 67, 68, 69,
+    70, 71, 72, 73, 74, 83, 84, 85, 86, 87, 88, 89, 90, 99, 100, 101, 102,
+    103, 104, 105, 106, 115, 116, 117, 118, 119, 120, 121, 122, 131, 132,
+    133, 134, 135, 136, 137, 138, 146, 147, 148, 149, 150, 151, 152, 153,
+    154, 162, 163, 164, 165, 166, 167, 168, 169, 170, 178, 179, 180, 181,
+    182, 183, 184, 185, 186, 194, 195, 196, 197, 198, 199, 200, 201, 202,
+    210, 211, 212, 213, 214, 215, 216, 217, 218, 225, 226, 227, 228, 229,
+    230, 231, 232, 233, 234, 241, 242, 243, 244, 245, 246, 247, 248, 249,
+    250
+};
+static const uint8_t dc_chroma[28] = {
+    0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7,
+    8, 9, 10, 11
+};
+static const uint8_t ac_chroma[178] = {
+    0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119, 0, 1, 2, 3, 17, 4, 5,
+    33, 49, 6, 18, 65, 81, 7, 97, 113, 19, 34, 50, 129, 8, 20, 66, 145, 161,
+    177, 193, 9, 35, 51, 82, 240, 21, 98, 114, 209, 10, 22, 36, 52, 225, 37,
+    241, 23, 24, 25, 26, 38, 39, 40, 41, 42, 53, 54, 55, 56, 57, 58, 67, 68,
+    69, 70, 71, 72, 73, 74, 83, 84, 85, 86, 87, 88, 89, 90, 99, 100, 101,
+    102, 103, 104, 105, 106, 115, 116, 117, 118, 119, 120, 121, 122, 130,
+    131, 132, 133, 134, 135, 136, 137, 138, 146, 147, 148, 149, 150, 151,
+    152, 153, 154, 162, 163, 164, 165, 166, 167, 168, 169, 170, 178, 179,
+    180, 181, 182, 183, 184, 185, 186, 194, 195, 196, 197, 198, 199, 200,
+    201, 202, 210, 211, 212, 213, 214, 215, 216, 217, 218, 226, 227, 228,
+    229, 230, 231, 232, 233, 234, 242, 243, 244, 245, 246, 247, 248, 249,
+    250
+};
+
+/* Table K.1 and K.2 (jcparam.c std_luminance_quant_tbl and
+ * std_chrominance_quant_tbl), row-major. */
+static const uint8_t std_quant[2][64] = {
+    {16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+     14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+     18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99},
+    {17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99}};
+
+typedef struct {
+    uint16_t code[256];
+    uint8_t size[256];
+} Code;
+
+typedef struct {
+    uint8_t *out;
+    long cap, n;
+    uint64_t acc; /* pending bits, right-aligned */
+    int nacc;
+    int full;     /* the output ran past cap */
+} Writer;
+
+static void put_byte(Writer *w, int b)
+{
+    if (w->n < w->cap) w->out[w->n] = (uint8_t)b;
+    else w->full = 1;
+    w->n++;
+}
+
+static void put_bytes(Writer *w, const uint8_t *p, long len)
+{
+    long i;
+    for (i = 0; i < len; i++) put_byte(w, p[i]);
+}
+
+/* Bits MSB first, with a 0x00 stuffed after every 0xFF (jchuff.c). */
+static void put_bits(Writer *w, uint32_t bits, int n)
+{
+    w->acc = (w->acc << n) | (bits & ((1u << n) - 1));
+    w->nacc += n;
+    while (w->nacc >= 8) {
+        int b = (int)(w->acc >> (w->nacc - 8)) & 0xFF;
+        put_byte(w, b);
+        if (b == 0xFF) put_byte(w, 0);
+        w->nacc -= 8;
+    }
+}
+
+/* jchuff.c jpeg_make_c_derived_tbl: canonical codes from the counts. */
+static void make_code(const uint8_t *spec, Code *c)
+{
+    int l, i, k = 0, code = 0;
+    memset(c, 0, sizeof *c);
+    for (l = 1; l <= 16; l++) {
+        for (i = 0; i < spec[l - 1]; i++, k++) {
+            c->code[spec[16 + k]] = (uint16_t)code++;
+            c->size[spec[16 + k]] = (uint8_t)l;
+        }
+        code <<= 1;
+    }
+}
+
+/* jcparam.c jpeg_quality_scaling and jpeg_add_quant_table with
+ * force_baseline. */
+static void quant_table(int which, int quality, int32_t *q)
+{
+    int i, scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+    for (i = 0; i < 64; i++) {
+        long v = ((long)std_quant[which][i] * scale + 50) / 100;
+        q[i] = (int32_t)(v < 1 ? 1 : v > 255 ? 255 : v);
+    }
+}
+
+/* jcdctmgr.c compute_reciprocal for the divisor q << 3 of the ISLOW
+ * DCT, and its quantize(): |x| + c times the reciprocal, shifted. Both
+ * libjpeg-turbo's C and SIMD quantisers compute exactly this. */
+typedef struct { uint32_t recip, corr; int shift; } Divisor;
+
+static Divisor divisor(int d)
+{
+    Divisor r;
+    int b = 0;
+    uint32_t fq, fr;
+    while ((1 << (b + 1)) <= d) b++;   /* flss(d) - 1 */
+    r.shift = 16 + b;
+    fq = (uint32_t)((1ULL << r.shift) / (uint32_t)d);
+    fr = (uint32_t)((1ULL << r.shift) % (uint32_t)d);
+    r.corr = (uint32_t)d / 2;
+    if (fr == 0) {
+        fq >>= 1;
+        r.shift--;
+    } else if (fr <= (uint32_t)d / 2) {
+        r.corr++;
+    } else {
+        fq++;
+    }
+    r.recip = fq & 0xFFFF;
+    return r;
+}
+
+static int quantize(int x, Divisor d)
+{
+    uint32_t a = (uint32_t)(x < 0 ? -x : x);
+    int v = (int)((a + d.corr) * d.recip >> d.shift);
+    return x < 0 ? -v : v;
+}
+
+/* jfdctint.c jpeg_fdct_islow: rows scaled up by PASS1_BITS = 2, then
+ * columns, leaving the result scaled up by 8. */
+static void fdct_1d(int32_t *d, int stride, int pass)
+{
+    int64_t t0, t1, t2, t3, t4, t5, t6, t7, t10, t11, t12, t13;
+    int64_t z1, z2, z3, z4, z5;
+    int sh = pass == 0 ? 13 - 2 : 13 + 2;
+    t0 = d[0] + d[7 * stride];
+    t7 = d[0] - d[7 * stride];
+    t1 = d[stride] + d[6 * stride];
+    t6 = d[stride] - d[6 * stride];
+    t2 = d[2 * stride] + d[5 * stride];
+    t5 = d[2 * stride] - d[5 * stride];
+    t3 = d[3 * stride] + d[4 * stride];
+    t4 = d[3 * stride] - d[4 * stride];
+    t10 = t0 + t3;
+    t13 = t0 - t3;
+    t11 = t1 + t2;
+    t12 = t1 - t2;
+    if (pass == 0) {
+        d[0] = (int32_t)((t10 + t11) * 4);
+        d[4 * stride] = (int32_t)((t10 - t11) * 4);
+    } else {
+        d[0] = (int32_t)((t10 + t11 + 2) >> 2);
+        d[4 * stride] = (int32_t)((t10 - t11 + 2) >> 2);
+    }
+    z1 = (t12 + t13) * FIX_0_541196100;
+    d[2 * stride] = (int32_t)((z1 + t13 * FIX_0_765366865
+                               + (1LL << (sh - 1))) >> sh);
+    d[6 * stride] = (int32_t)((z1 - t12 * FIX_1_847759065
+                               + (1LL << (sh - 1))) >> sh);
+    z1 = t4 + t7;
+    z2 = t5 + t6;
+    z3 = t4 + t6;
+    z4 = t5 + t7;
+    z5 = (z3 + z4) * FIX_1_175875602;
+    t4 *= FIX_0_298631336;
+    t5 *= FIX_2_053119869;
+    t6 *= FIX_3_072711026;
+    t7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 = z3 * -FIX_1_961570560 + z5;
+    z4 = z4 * -FIX_0_390180644 + z5;
+    d[7 * stride] = (int32_t)((t4 + z1 + z3 + (1LL << (sh - 1))) >> sh);
+    d[5 * stride] = (int32_t)((t5 + z2 + z4 + (1LL << (sh - 1))) >> sh);
+    d[3 * stride] = (int32_t)((t6 + z2 + z3 + (1LL << (sh - 1))) >> sh);
+    d[stride] = (int32_t)((t7 + z1 + z4 + (1LL << (sh - 1))) >> sh);
+}
+
+/* One block of a plane (samples minus 128) through the DCT and the
+ * quantiser, into out[64] row-major. */
+static void forward_block(const uint8_t *p, long stride, const Divisor *dv,
+                          int *out)
+{
+    int32_t d[64];
+    int x, y;
+    for (y = 0; y < 8; y++)
+        for (x = 0; x < 8; x++) d[y * 8 + x] = p[y * stride + x] - 128;
+    for (y = 0; y < 8; y++) fdct_1d(d + y * 8, 1, 0);
+    for (x = 0; x < 8; x++) fdct_1d(d + x, 8, 1);
+    for (x = 0; x < 64; x++) out[x] = quantize(d[x], dv[x]);
+}
+
+/* jchuff.c encode_one_block. */
+static void encode_block(Writer *w, const int *blk, int *last_dc,
+                         const Code *dc, const Code *ac)
+{
+    int t = blk[0] - *last_dc, t2 = t, nbits = 0, k, r = 0;
+    *last_dc = blk[0];
+    if (t < 0) { t = -t; t2--; }
+    while (t) { nbits++; t >>= 1; }
+    put_bits(w, dc->code[nbits], dc->size[nbits]);
+    if (nbits) put_bits(w, (uint32_t)t2, nbits);
+    for (k = 1; k < 64; k++) {
+        t = blk[zigzag[k]];
+        if (!t) { r++; continue; }
+        while (r > 15) {
+            put_bits(w, ac->code[0xF0], ac->size[0xF0]);
+            r -= 16;
+        }
+        t2 = t;
+        if (t < 0) { t = -t; t2--; }
+        nbits = 0;
+        while (t) { nbits++; t >>= 1; }
+        put_bits(w, ac->code[(r << 4) + nbits], ac->size[(r << 4) + nbits]);
+        put_bits(w, (uint32_t)t2, nbits);
+        r = 0;
+    }
+    if (r > 0) put_bits(w, ac->code[0], ac->size[0]);
+}
+
+static void put_marker(Writer *w, int m, const uint8_t *p, int len)
+{
+    put_byte(w, 0xFF);
+    put_byte(w, m);
+    put_byte(w, (len + 2) >> 8);
+    put_byte(w, (len + 2) & 0xFF);
+    put_bytes(w, p, len);
+}
+
+/* jccolor.c rgb_ycc_convert of one pixel (its table arithmetic). */
+static void rgb_to_ycc(const uint8_t *px, uint8_t *y, uint8_t *cb,
+                       uint8_t *cr)
+{
+    int32_t r = px[0], g = px[1], b = px[2];
+    *y = (uint8_t)((FIX(0.29900) * r + FIX(0.58700) * g + FIX(0.11400) * b
+                    + ONE_HALF) >> SCALEBITS);
+    *cb = (uint8_t)((-FIX(0.16874) * r - FIX(0.33126) * g
+                     + FIX(0.50000) * b + (128 << SCALEBITS) + ONE_HALF - 1)
+                    >> SCALEBITS);
+    *cr = (uint8_t)((FIX(0.50000) * r - FIX(0.41869) * g
+                     - FIX(0.08131) * b + (128 << SCALEBITS) + ONE_HALF - 1)
+                    >> SCALEBITS);
+}
+
+/* Encodes rgb[height][width][3] at `quality` (1..100) into out[0:cap];
+ * *size gets the stream's length. 0, 1 if cap was too small (*size is
+ * then what it needs), 2 out of memory, 3 a bad argument. */
+int encode_jpeg(const uint8_t *rgb, int height, int width, int quality,
+                uint8_t *out, long cap, long *size)
+{
+    static const uint8_t jfif[14] = {'J', 'F', 'I', 'F', 0, 1, 1, 0,
+                                     0, 1, 0, 1, 0, 0};
+    const uint8_t *specs[4] = {dc_luma, ac_luma, dc_chroma, ac_chroma};
+    Writer w;
+    Code codes[4];
+    Divisor dv[2][64];
+    int32_t q[2][64];
+    uint8_t seg[200], *yp, *cp[2], *full[2];
+    int mx = (width + 15) / 16, my = (height + 15) / 16;
+    int ywb = (width + 7) / 8, yhb = (height + 7) / 8;
+    long ys = (long)mx * 16, cs = (long)mx * 8, fs = (long)mx * 16;
+    int i, k, x, y, c, last_dc[3] = {0, 0, 0};
+    if (height < 1 || width < 1 || height > 65500 || width > 65500
+        || quality < 1 || quality > 100)
+        return 3;
+    /* Planes: Y at full size, Cb and Cr at full size padded to a whole
+     * row pair and to the chroma blocks' width (2 * cs), then downsampled
+     * to cs x my * 8; edges replicated as jcprepct.c and jcsample.c do. */
+    yp = (uint8_t *)malloc((size_t)ys * my * 16);
+    full[0] = (uint8_t *)malloc((size_t)fs * 2);
+    full[1] = (uint8_t *)malloc((size_t)fs * 2);
+    cp[0] = (uint8_t *)malloc((size_t)cs * my * 8);
+    cp[1] = (uint8_t *)malloc((size_t)cs * my * 8);
+    if (!yp || !full[0] || !full[1] || !cp[0] || !cp[1]) {
+        free(yp); free(full[0]); free(full[1]); free(cp[0]); free(cp[1]);
+        return 2;
+    }
+    for (y = 0; y < (height + 1) / 2; y++) {
+        int r, bias;
+        for (r = 0; r < 2; r++) {
+            int sy = 2 * y + r < height ? 2 * y + r : height - 1;
+            uint8_t *yr = yp + (2 * y + r) * ys;
+            for (x = 0; x < width; x++) {
+                rgb_to_ycc(rgb + ((size_t)sy * width + x) * 3, yr + x,
+                           full[0] + r * fs + x, full[1] + r * fs + x);
+            }
+            for (; x < ys; x++) yr[x] = yr[width - 1];
+            for (c = 0; c < 2; c++)
+                for (x = width; x < 2 * cs; x++)
+                    full[c][r * fs + x] = full[c][r * fs + width - 1];
+        }
+        for (c = 0; c < 2; c++) {
+            const uint8_t *a = full[c], *b = full[c] + fs;
+            uint8_t *o = cp[c] + (size_t)y * cs;
+            for (x = 0, bias = 1; x < cs; x++, bias ^= 3)
+                o[x] = (uint8_t)((a[2 * x] + a[2 * x + 1] + b[2 * x]
+                                  + b[2 * x + 1] + bias) >> 2);
+        }
+    }
+    for (y = 2 * ((height + 1) / 2); y < my * 16; y++)
+        memcpy(yp + y * ys, yp + (long)(height - 1) * ys, (size_t)ys);
+    for (c = 0; c < 2; c++)
+        for (y = (height + 1) / 2; y < my * 8; y++)
+            memcpy(cp[c] + y * cs, cp[c] + (long)((height + 1) / 2 - 1) * cs,
+                   (size_t)cs);
+
+    memset(&w, 0, sizeof w);
+    w.out = out;
+    w.cap = cap;
+    for (i = 0; i < 4; i++) make_code(specs[i], &codes[i]);
+    for (i = 0; i < 2; i++) {
+        quant_table(i, quality, q[i]);
+        for (k = 0; k < 64; k++) dv[i][k] = divisor(q[i][k] << 3);
+    }
+    put_byte(&w, 0xFF);
+    put_byte(&w, 0xD8);
+    put_marker(&w, 0xE0, jfif, 14);
+    for (i = 0; i < 2; i++) {
+        seg[0] = (uint8_t)i;
+        for (k = 0; k < 64; k++) seg[1 + k] = (uint8_t)q[i][zigzag[k]];
+        put_marker(&w, 0xDB, seg, 65);
+    }
+    {
+        const uint8_t sof[15] = {8, (uint8_t)(height >> 8),
+                                 (uint8_t)height, (uint8_t)(width >> 8),
+                                 (uint8_t)width, 3, 1, 0x22, 0, 2, 0x11, 1,
+                                 3, 0x11, 1};
+        put_marker(&w, 0xC0, sof, 15);
+    }
+    for (i = 0; i < 4; i++) {
+        int n = 0;
+        for (k = 0; k < 16; k++) n += specs[i][k];
+        seg[0] = (uint8_t)((i & 1) << 4 | i >> 1);
+        memcpy(seg + 1, specs[i], (size_t)(16 + n));
+        put_marker(&w, 0xC4, seg, 17 + n);
+    }
+    {
+        const uint8_t sos[12] = {3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0};
+        put_marker(&w, 0xDA, sos, 10);
+    }
+    for (y = 0; y < my; y++) {
+        for (x = 0; x < mx; x++) {
+            int blk[6][64], b = 0, by, bx;
+            /* Y: blocks past the image's blocks are jccoefct.c's dummy
+             * blocks, zero but for the DC of the block before them. */
+            for (by = 0; by < 2; by++) {
+                for (bx = 0; bx < 2; bx++, b++) {
+                    int row = 2 * y + by, col = 2 * x + bx;
+                    if (row < yhb && col < ywb) {
+                        forward_block(yp + (long)row * 8 * ys + col * 8, ys,
+                                      dv[0], blk[b]);
+                    } else {
+                        memset(blk[b], 0, sizeof blk[b]);
+                        blk[b][0] = blk[row < yhb ? b - 1 : 2 * by - 1][0];
+                    }
+                }
+            }
+            for (c = 0; c < 2; c++)
+                forward_block(cp[c] + (long)y * 8 * cs + x * 8, cs, dv[1],
+                              blk[4 + c]);
+            for (b = 0; b < 4; b++)
+                encode_block(&w, blk[b], &last_dc[0], &codes[0], &codes[1]);
+            encode_block(&w, blk[4], &last_dc[1], &codes[2], &codes[3]);
+            encode_block(&w, blk[5], &last_dc[2], &codes[2], &codes[3]);
+        }
+    }
+    /* Pad the last byte with ones (jchuff.c flush_bits). */
+    if (w.nacc) put_bits(&w, 0x7F, 8 - w.nacc);
+    put_byte(&w, 0xFF);
+    put_byte(&w, 0xD9);
+    free(yp); free(full[0]); free(full[1]); free(cp[0]); free(cp[1]);
+    *size = w.n;
+    return w.full ? 1 : 0;
 }
 
 /* ------------------------------------------------------------------ */

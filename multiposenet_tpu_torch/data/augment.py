@@ -114,17 +114,30 @@ def hflip(image: np.ndarray, keypoints: np.ndarray, boxes: np.ndarray,
     return np.ascontiguousarray(image), keypoints, boxes, masks
 
 
+def crop_window(rng: np.random.RandomState, h: int, w: int,
+                min_fraction: float = 0.6) -> tuple[int, int, int, int]:
+    """random_crop's draws for an h x w image: (y0, x0, ch, cw)."""
+    ch = int(h * rng.uniform(min_fraction, 1.0))
+    cw = int(w * rng.uniform(min_fraction, 1.0))
+    y0 = rng.randint(0, h - ch + 1)
+    x0 = rng.randint(0, w - cw + 1)
+    return y0, x0, ch, cw
+
+
 def random_crop(rng: np.random.RandomState, image: np.ndarray,
                 keypoints: np.ndarray, boxes: np.ndarray,
                 masks: np.ndarray | None = None,
                 min_fraction: float = 0.6):
     """Random crop keeping annotations consistent; keypoints falling
     outside the crop get v=0; `masks` is cropped with the image."""
-    h, w = image.shape[:2]
-    ch = int(h * rng.uniform(min_fraction, 1.0))
-    cw = int(w * rng.uniform(min_fraction, 1.0))
-    y0 = rng.randint(0, h - ch + 1)
-    x0 = rng.randint(0, w - cw + 1)
+    window = crop_window(rng, *image.shape[:2], min_fraction)
+    return crop(image, keypoints, boxes, masks, window)
+
+
+def crop(image: np.ndarray, keypoints: np.ndarray, boxes: np.ndarray,
+         masks: np.ndarray | None, window: tuple[int, int, int, int]):
+    """The crop (y0, x0, ch, cw) of `crop_window`, applied."""
+    y0, x0, ch, cw = window
     image = image[y0:y0 + ch, x0:x0 + cw]
     if masks is not None:
         masks = np.ascontiguousarray(masks[y0:y0 + ch, x0:x0 + cw])
@@ -142,24 +155,43 @@ def random_crop(rng: np.random.RandomState, image: np.ndarray,
     return np.ascontiguousarray(image), keypoints, boxes, masks
 
 
+def jitter_factors(rng: np.random.RandomState, brightness: float = 0.25,
+                   contrast: float = 0.25, hue: float = 0.05,
+                   saturation: float = 0.25) -> tuple:
+    """color_jitter's draws, in its order: (contrast factor, brightness
+    shift, hue shift, saturation factor), the last two None when neither
+    is jittered."""
+    c = rng.uniform(1 - contrast, 1 + contrast)
+    b = rng.uniform(-brightness, brightness)
+    if not (hue > 0 or saturation > 0):
+        return c, b, None, None
+    return c, b, rng.uniform(-hue, hue), rng.uniform(1 - saturation,
+                                                     1 + saturation)
+
+
+def jitter(image: np.ndarray, factors: tuple) -> np.ndarray:
+    """The jitter of `jitter_factors` on uint8 pixels."""
+    c, b, hue_shift, sat = factors
+    img = image.astype(np.float32)
+    img = img * c
+    img = img + b * 255.0
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    if hue_shift is not None:
+        hsv = rgb_to_hsv(img).astype(np.float32)
+        # OpenCV's uint8 hue range is [0, 180).
+        hsv[..., 0] = (hsv[..., 0] + hue_shift * 180.0) % 180.0
+        hsv[..., 1] = np.clip(hsv[..., 1] * sat, 0, 255)
+        img = hsv_to_rgb(hsv.astype(np.uint8))
+    return img
+
+
 def color_jitter(rng: np.random.RandomState, image: np.ndarray,
                  brightness: float = 0.25, contrast: float = 0.25,
                  hue: float = 0.05, saturation: float = 0.25) -> np.ndarray:
     """Contrast, brightness, hue and saturation jitter on uint8 pixels;
     hue is a fraction of the hue circle, saturation a factor range."""
-    img = image.astype(np.float32)
-    img = img * rng.uniform(1 - contrast, 1 + contrast)
-    img = img + rng.uniform(-brightness, brightness) * 255.0
-    img = np.clip(img, 0, 255).astype(np.uint8)
-    if hue > 0 or saturation > 0:
-        hsv = rgb_to_hsv(img).astype(np.float32)
-        # OpenCV's uint8 hue range is [0, 180).
-        hsv[..., 0] = (hsv[..., 0] + rng.uniform(-hue, hue) * 180.0) % 180.0
-        hsv[..., 1] = np.clip(
-            hsv[..., 1] * rng.uniform(1 - saturation, 1 + saturation),
-            0, 255)
-        img = hsv_to_rgb(hsv.astype(np.uint8))
-    return img
+    return jitter(image, jitter_factors(rng, brightness, contrast, hue,
+                                        saturation))
 
 
 def resize_to(image: np.ndarray, keypoints: np.ndarray, boxes: np.ndarray,
@@ -199,17 +231,30 @@ def resize_to(image: np.ndarray, keypoints: np.ndarray, boxes: np.ndarray,
     return out, keypoints, boxes, masks
 
 
+def draw_augmentation(rng: np.random.RandomState, h: int, w: int,
+                      flip_prob: float = 0.5, crop_prob: float = 0.7):
+    """augment_record's draws for an h x w image, in its order: (the crop
+    window or None, whether to flip, the jitter factors). They depend on
+    the image's size alone, so a data-parallel loader rank replays the
+    draws of the rows it does not load (data/loader.py)."""
+    window = crop_window(rng, h, w) if rng.rand() < crop_prob else None
+    flip = rng.rand() < flip_prob
+    return window, flip, jitter_factors(rng)
+
+
 def augment_record(rng: np.random.RandomState, image: np.ndarray,
                    keypoints: np.ndarray, boxes: np.ndarray, target: int,
                    masks: np.ndarray | None = None, flip_prob: float = 0.5,
                    crop_prob: float = 0.7):
     """The training augmentation chain → a (target, target) image; `masks`
     go through the same crop, flip and resize."""
-    if rng.rand() < crop_prob:
-        image, keypoints, boxes, masks = random_crop(rng, image, keypoints,
-                                                     boxes, masks)
-    if rng.rand() < flip_prob:
+    window, flip, factors = draw_augmentation(rng, *image.shape[:2],
+                                              flip_prob, crop_prob)
+    if window is not None:
+        image, keypoints, boxes, masks = crop(image, keypoints, boxes, masks,
+                                              window)
+    if flip:
         image, keypoints, boxes, masks = hflip(image, keypoints, boxes,
                                                masks)
-    image = color_jitter(rng, image)
+    image = jitter(image, factors)
     return resize_to(image, keypoints, boxes, target, masks)

@@ -22,6 +22,16 @@ and then cv2's INTER_AREA to the heatmap grid, both bit for bit
 Random draws follow the JAX package's order, so one seed gives the same
 batches bit for bit: the record order from RandomState(seed), the
 augmentations from RandomState(seed + 1) on the worker.
+
+Data parallelism (`batch_iterator(..., rank, world_size)`): each rank of
+a process group yields its rows of every global batch, and the ranks'
+shards concatenated are the single-process batch bit for bit. The draws
+come from one sequential stream whose crop draws depend on each image's
+size, so every rank replays the stream: it decodes and augments only its
+own rows and, for the others', draws what `augment_record` would draw
+from the record's size alone (`augment.draw_augmentation`; a file's size
+from its header, `image_io.image_size`). Every rank thus loads 1/world
+of the images, where a rank 0 that loaded and scattered would load all.
 """
 
 from __future__ import annotations
@@ -36,7 +46,8 @@ import numpy as np
 from multiposenet_tpu_torch.data import augment as aug
 from multiposenet_tpu_torch.data.coco import pad_record
 from multiposenet_tpu_torch.utils.constants import NUM_KEYPOINTS
-from multiposenet_tpu_torch.utils.image_io import read_image, resize_area
+from multiposenet_tpu_torch.utils.image_io import (
+    image_size as file_image_size, read_image, resize_area)
 
 
 def load_image(record: dict, image_dir: str | None) -> np.ndarray:
@@ -49,6 +60,16 @@ def load_image(record: dict, image_dir: str | None) -> np.ndarray:
     return read_image(Path(image_dir) / record["file_name"])
 
 
+def record_size(record: dict, image_dir: str | None) -> tuple[int, int]:
+    """(height, width) of the image `load_image` gives for the record,
+    without decoding a JPEG."""
+    if "image" in record:
+        return record["image"].shape[:2]
+    if image_dir is None:
+        raise ValueError("record has no embedded image and image_dir unset")
+    return file_image_size(Path(image_dir) / record["file_name"])
+
+
 def _has_masks(record: dict) -> bool:
     return (record.get("exclude_mask") is not None
             or record.get("person_mask") is not None)
@@ -57,14 +78,17 @@ def _has_masks(record: dict) -> bool:
 def make_batch(records: list[dict], image_size: int, max_persons: int,
                rng: np.random.RandomState | None = None,
                image_dir: str | None = None, train: bool = True,
-               mask_stride: int = 4) -> dict[str, np.ndarray]:
+               mask_stride: int = 4,
+               with_masks: bool | None = None) -> dict[str, np.ndarray]:
     """One fixed-shape batch from records (augmented iff train and a rng
-    is given, else resized). If any record carries masks, the batch gains
+    is given, else resized). If any record carries masks (or
+    `with_masks`, for a shard of a batch that has them), the batch gains
     the coverage maps at 1/mask_stride of the image size (zeros and
     has_mask False for a record without masks)."""
     b = len(records)
     hm = image_size // mask_stride
-    with_masks = any(_has_masks(r) for r in records)
+    if with_masks is None:
+        with_masks = any(_has_masks(r) for r in records)
     images = np.zeros((b, image_size, image_size, 3), np.uint8)
     keypoints = np.zeros((b, max_persons, NUM_KEYPOINTS, 3), np.float32)
     boxes = np.zeros((b, max_persons, 4), np.float32)
@@ -115,14 +139,29 @@ def batch_iterator(records: list[dict], batch_size: int, image_size: int,
                    max_persons: int, seed: int = 0,
                    image_dir: str | None = None, train: bool = True,
                    augment: bool | None = None, prefetch: int = 2,
-                   mask_stride: int = 4) -> Iterator[dict[str, np.ndarray]]:
+                   mask_stride: int = 4, rank: int = 0,
+                   world_size: int = 1) -> Iterator[dict[str, np.ndarray]]:
     """Infinite (train) or single-pass (eval) prefetching batch iterator.
     `augment` defaults to `train`; augment=False with train=True gives an
     infinite shuffled loop without augmentation. An eval pass pads its
     last batch by repeating the last record. `mask_stride` is the model's
-    output stride (the coverage maps' grid)."""
+    output stride (the coverage maps' grid). With `world_size` > 1 it
+    yields rank `rank`'s batch_size / world_size rows of each global
+    batch of `batch_size` (the module docstring)."""
     if augment is None:
         augment = train
+    if batch_size % world_size or not 0 <= rank < world_size:
+        raise ValueError(f"a batch of {batch_size} does not shard over "
+                         f"{world_size} ranks (rank {rank})")
+    lo = rank * (batch_size // world_size)
+    return _batches(records, batch_size, image_size, max_persons, seed,
+                    image_dir, train, augment, prefetch, mask_stride, lo,
+                    lo + batch_size // world_size)
+
+
+def _batches(records, batch_size, image_size, max_persons, seed, image_dir,
+             train, augment, prefetch, mask_stride, lo, hi):
+    """batch_iterator's generator: rows lo:hi of each global batch."""
     rng = np.random.RandomState(seed)
 
     def gen():
@@ -144,12 +183,23 @@ def batch_iterator(records: list[dict], batch_size: int, image_size: int,
 
     def worker():
         wrng = np.random.RandomState(seed + 1)
+
+        def replay(chunk):
+            for rec in chunk:
+                aug.draw_augmentation(wrng, *record_size(rec, image_dir))
+
         try:
             for chunk in gen():
-                q.put(make_batch(chunk, image_size, max_persons,
-                                 rng=wrng if augment else None,
-                                 image_dir=image_dir, train=augment,
-                                 mask_stride=mask_stride))
+                if augment:
+                    replay(chunk[:lo])
+                batch = make_batch(
+                    chunk[lo:hi], image_size, max_persons,
+                    rng=wrng if augment else None, image_dir=image_dir,
+                    train=augment, mask_stride=mask_stride,
+                    with_masks=any(_has_masks(r) for r in chunk))
+                if augment:
+                    replay(chunk[hi:])
+                q.put(batch)
         except Exception as exc:  # re-raised in the consumer
             q.put(exc)
             return

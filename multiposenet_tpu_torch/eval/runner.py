@@ -2,7 +2,8 @@
 `multiposenet_tpu/eval/runner.py`: for each image predict → collect
 results → OKS AP summary, through the single-image path
 (`Predictor.predict`) or the batched one (`Predictor.make_batch_runner`,
-`batch_forward` on the one card) with host-side resize bookkeeping; the
+the batch sharded over every visible card) with host-side resize
+bookkeeping; the
 host resize is `utils/image_io.resize_linear` (cv2's INTER_LINEAR).
 """
 
@@ -73,7 +74,8 @@ def evaluate_batched(
     Images are host-resized to the model size (scale tracked per image)
     into the top-left of a zero batch, the last batch padded with its last
     record; keypoints come back divided by the scale and clipped to the
-    image. `mesh` stays None: the port serves one card.
+    image. The batches run sharded over `mesh` (default every visible
+    card, as the JAX runner's), `batch_size` a multiple of its size.
     """
     run = predictor.make_batch_runner(mesh)
     s = predictor.image_size

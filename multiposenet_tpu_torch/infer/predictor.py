@@ -26,8 +26,9 @@ package's export format (`variables`, `prn_variables`).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +44,7 @@ from multiposenet_tpu_torch.ops import prn_ops
 from multiposenet_tpu_torch.ops.anchors import all_anchors
 from multiposenet_tpu_torch.ops.detection import postprocess_detections
 from multiposenet_tpu_torch.ops.pose_nms import pose_nms
+from multiposenet_tpu_torch.parallel import mesh as mesh_lib
 from multiposenet_tpu_torch.utils.constants import FLIP_PERMUTATION
 
 
@@ -300,14 +302,45 @@ class Predictor:
         images = torch.as_tensor(images).to(self.device, non_blocking=True)
         return self._pipeline(self._model_input(images))
 
-    def make_batch_runner(self, mesh: Any = None):
-        """fn(uint8 batch) → output dict, the JAX package's sharded runner
-        on the one card the port serves on: `batch_forward` itself. A
-        device mesh is refused."""
-        if mesh is not None:
-            raise ValueError("make_batch_runner serves one card; pass no "
-                             "mesh")
-        return self.batch_forward
+    def _replica(self, device: torch.device) -> "Predictor":
+        """This predictor on another device: the model and PRN copied
+        there from the same state (`parallel/mesh.replicate`)."""
+        rep = copy.copy(self)
+        rep.device = device
+        rep.model = mesh_lib.replicate(self.model, [device])[0]
+        rep.prn = mesh_lib.replicate(self.prn, [device])[0]
+        rep.anchors = self.anchors.to(device)
+        rep._flip = {c: t.to(device) for c, t in self._flip.items()}
+        rep._flip_keypoints = self._flip_keypoints.to(device)
+        return rep
+
+    def make_batch_runner(self, mesh: Sequence[torch.device] | None = None):
+        """fn(uint8 batch) → output dict, the JAX package's runner with the
+        batch sharded over `mesh` (default every visible card,
+        `parallel/mesh.make_mesh`, or the CPU for a predictor on the CPU):
+        a replica of the model on each device
+        runs its chunk of the batch (in order) through the same pipeline,
+        so B1, B2 and B3 launch on every card; every device's work is
+        issued before anything waits, and the outputs come back
+        concatenated in batch order on the first device. A batch the mesh
+        does not divide raises. On a one-device mesh of this predictor's
+        device the runner is `batch_forward` itself."""
+        own = mesh_lib.canonical(self.device)
+        mesh = mesh_lib.make_mesh(
+            [own] if mesh is None and own.type == "cpu" else mesh)
+        if mesh == [own]:
+            return self.batch_forward
+        replicas = [self if d == own else self._replica(d) for d in mesh]
+
+        @torch.inference_mode()
+        def run(images: np.ndarray | torch.Tensor) -> dict[str, torch.Tensor]:
+            images = torch.as_tensor(images)
+            outs = [rep._pipeline(rep._model_input(chunk)) for rep, chunk in
+                    zip(replicas, mesh_lib.shard_batch(images, mesh))]
+            return {k: torch.cat([o[k].to(mesh[0], non_blocking=True)
+                                  for o in outs]) for k in outs[0]}
+
+        return run
 
     def _letterbox(self, image: np.ndarray) -> tuple[torch.Tensor, float]:
         """uint8 [H, W, 3] → model input [1, S, S, 3] on the device and the

@@ -37,8 +37,10 @@ CC_FLAGS = ("-O2", "-std=c99", "-shared", "-fPIC")
 # Every kernel source in csrc/, by name.
 KERNEL_NAMES = ("decode_peaks", "decode_lanes", "decode_generic",
                 "kp_tail", "column_topk")
-# Kernel launches by kernel name since the last reset_launches().
+# Kernel launches by kernel name since the last reset_launches(), and by
+# (kernel name, CUDA device index).
 LAUNCHES: dict[str, int] = {}
+LAUNCHES_BY_DEVICE: dict[tuple[str, int], int] = {}
 # nvcc's report (registers, shared memory, spills) per built kernel.
 BUILD_LOGS: dict[str, str] = {}
 
@@ -149,9 +151,14 @@ def load_host(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, device=None) -> None:
+    """One launch of kernel `name` (on `device`, a torch.device)."""
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    if device is not None:
+        key = (name, device.index)
+        LAUNCHES_BY_DEVICE[key] = LAUNCHES_BY_DEVICE.get(key, 0) + 1
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    LAUNCHES_BY_DEVICE.clear()

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multiposenet_tpu_torch.parallel import mesh
+
 
 def same_pad(n: int, k: int, s: int) -> tuple[int, int]:
     """(before, after) padding of TF/JAX "SAME" for one spatial dim: the
@@ -103,7 +105,14 @@ class BatchNorm(nn.Module):
     running statistics then move to `momentum * running + (1 - momentum)
     * batch` (flax's momentum, 0.997 in ModelConfig.bn_momentum), the
     variance kept biased. torch's BatchNorm2d would keep the unbiased
-    one."""
+    one.
+
+    In a data-parallel process group (`parallel/mesh.py`) the statistics
+    are the global batch's, as the JAX step's under a mesh: Σx, Σx² and
+    the count are summed over the ranks, with gradients through the sum,
+    before mean and var are formed, so every rank moves its running
+    statistics alike. torch's SyncBatchNorm would take Welford's variance
+    and keep the unbiased one."""
 
     def __init__(self, channels: int, eps: float = 1e-3,
                  momentum: float = 0.997):
@@ -124,8 +133,16 @@ class BatchNorm(nn.Module):
 
     def _forward_train(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+        if mesh.world_size() > 1:
+            c = xf.shape[1]
+            sums = mesh.all_reduce_sum(torch.cat([
+                xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                xf.new_full((1,), float(xf.numel() // c))]))
+            mean = sums[:c] / sums[2 * c]
+            var = sums[c:2 * c] / sums[2 * c] - mean * mean
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
         var = torch.maximum(var, var.new_tensor(0.0))  # jnp.maximum's grad
         with torch.no_grad():
             m = self.momentum

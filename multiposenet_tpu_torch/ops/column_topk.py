@@ -183,7 +183,7 @@ def launch_cuda(
     launch; raises on a refusal or a launch error."""
     _check_cuda(x, columns_out)
     out = _launch(x, kernels.load(KERNEL), columns_out)
-    kernels.count_launch(KERNEL)
+    kernels.count_launch(KERNEL, x.device)
     return out
 
 

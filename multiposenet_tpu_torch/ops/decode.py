@@ -346,7 +346,7 @@ def _decode_maps_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/decode_peaks.cu on hm_cm [B, K, H, W] and count it."""
     out = launch_cuda(hm_cm, config)
-    kernels.count_launch(KERNEL)
+    kernels.count_launch(KERNEL, hm_cm.device)
     return out
 
 
@@ -390,7 +390,7 @@ def _decode_maps_lanes_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/decode_lanes.cu on hm [B, K, H, W] and count it."""
     out = launch_lanes_cuda(hm, config)
-    kernels.count_launch(LANES_KERNEL)
+    kernels.count_launch(LANES_KERNEL, hm.device)
     return out
 
 
@@ -449,7 +449,7 @@ def _decode_maps_generic_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/decode_generic.cu on hm [B, K, H, W] and count it."""
     out = launch_generic_cuda(hm, config)
-    kernels.count_launch(GENERIC_KERNEL)
+    kernels.count_launch(GENERIC_KERNEL, hm.device)
     return out
 
 

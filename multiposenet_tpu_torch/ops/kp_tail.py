@@ -136,7 +136,7 @@ def _kp_tail_cuda(l2: torch.Tensor, z8: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor) -> torch.Tensor:
     """Launch csrc/kp_tail.cu and count the launch."""
     out = launch_cuda(l2, z8, weight, bias, kernels.load(KERNEL))
-    kernels.count_launch(KERNEL)
+    kernels.count_launch(KERNEL, l2.device)
     return out
 
 

@@ -7,6 +7,12 @@ optax 0.2.6 computes them, so values and gradients follow the JAX
 package's. Where the JAX package takes `jnp.maximum`/`jnp.minimum` this
 takes `torch.maximum`/`torch.minimum` (`_at_least`), which split the
 gradient at a tie as JAX does; `clamp` would pass all of it.
+
+Under data parallelism (`parallel/mesh.py`) every denominator is the
+global batch's: the counts are summed over the ranks, the numerators
+stay local, so the ranks' losses sum to the JAX step's loss on the
+global batch (plain DistributedDataParallel would average per-rank
+losses and divide by the ranks a second time).
 """
 
 from __future__ import annotations
@@ -14,10 +20,20 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from multiposenet_tpu_torch.parallel import mesh
+
 
 def _at_least(x: torch.Tensor, floor: float) -> torch.Tensor:
     """jnp.maximum(x, floor), its gradient halved at a tie."""
     return torch.maximum(x, x.new_tensor(floor))
+
+
+def _global(count: torch.Tensor) -> torch.Tensor:
+    """A count of the local batch → the global batch's (the sum over the
+    data-parallel ranks); itself on one process."""
+    if mesh.world_size() == 1:
+        return count
+    return mesh.all_reduce_sum_(count.detach().clone())
 
 
 def sigmoid_binary_cross_entropy(logits: torch.Tensor,
@@ -41,7 +57,7 @@ def masked_heatmap_mse(pred: torch.Tensor, target: torch.Tensor,
     """Mean squared error over unmasked heatmap cells: pred/target
     [B, H, W, K], mask [B, H, W, 1] with 0 inside crowd regions."""
     se = (pred - target) ** 2 * mask
-    denom = _at_least(mask.sum() * pred.shape[-1], 1.0)
+    denom = _at_least(_global(mask.sum()) * pred.shape[-1], 1.0)
     return se.sum() / denom
 
 
@@ -49,7 +65,7 @@ def segmentation_bce(logits: torch.Tensor, target: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """Sigmoid cross-entropy of the auxiliary person segmentation."""
     ce = sigmoid_binary_cross_entropy(logits, target) * mask
-    return ce.sum() / _at_least(mask.sum(), 1.0)
+    return ce.sum() / _at_least(_global(mask.sum()), 1.0)
 
 
 def focal_loss(logits: torch.Tensor, cls_target: torch.Tensor,
@@ -63,7 +79,7 @@ def focal_loss(logits: torch.Tensor, cls_target: torch.Tensor,
     alpha_t = alpha * y + (1.0 - alpha) * (1.0 - y)
     fl = alpha_t * (1.0 - p_t) ** gamma * ce
     fl = torch.where(cls_target >= 0.0, fl, torch.zeros_like(fl))
-    num_pos = _at_least((cls_target == 1.0).sum().float(), 1.0)
+    num_pos = _at_least(_global((cls_target == 1.0).sum().float()), 1.0)
     return fl.sum() / num_pos
 
 
@@ -100,7 +116,7 @@ def box_giou_loss(pred_boxes: torch.Tensor, target_boxes: torch.Tensor,
     pos = cls_target == 1.0
     g = _elementwise_giou(pred_boxes, target_boxes)
     loss = torch.where(pos, 1.0 - g, torch.zeros_like(g))
-    return loss.sum() / _at_least(pos.sum().float(), 1.0)
+    return loss.sum() / _at_least(_global(pos.sum().float()), 1.0)
 
 
 def iou_pred_loss(iou_logits: torch.Tensor, pred_boxes: torch.Tensor,
@@ -114,7 +130,7 @@ def iou_pred_loss(iou_logits: torch.Tensor, pred_boxes: torch.Tensor,
     pos = cls_target == 1.0
     bce = sigmoid_binary_cross_entropy(iou_logits, iou)
     bce = torch.where(pos, bce, torch.zeros_like(bce))
-    return bce.sum() / _at_least(pos.sum().float(), 1.0)
+    return bce.sum() / _at_least(_global(pos.sum().float()), 1.0)
 
 
 def box_huber_loss(pred_deltas: torch.Tensor, target_deltas: torch.Tensor,
@@ -125,5 +141,5 @@ def box_huber_loss(pred_deltas: torch.Tensor, target_deltas: torch.Tensor,
     pos = (cls_target == 1.0)[..., None]
     err = huber_loss(pred_deltas, target_deltas, delta)
     err = torch.where(pos, err, torch.zeros_like(err))
-    num = _at_least(pos.sum().float() * 4.0, 1.0)
+    num = _at_least(_global(pos.sum().float()) * 4.0, 1.0)
     return err.sum() / num

@@ -19,6 +19,15 @@ order of operations, not through torch.optim, so that its traps hold:
 The state lives on one device and the step updates it in place.
 `metrics` hold 0-d tensors on that device under the JAX package's keys,
 with `grad_norm` of the unclipped gradients; reading them synchronizes.
+
+In a data-parallel process group (`parallel/mesh.py`, one rank per
+device, each with its shard of the global batch) the step is the JAX
+step on the global batch: BatchNorm and the loss denominators take
+global-batch sums (`models/layers.py`, `train/losses.py`), the gradients
+are summed over the ranks in one flat bucket after the backward, and
+clipping, AdamW and the EMA then run alike on every rank. The metrics are
+summed over the ranks too (each rank's loss is its share of the global
+loss), and `grad_norm` is the reduced gradients'.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from multiposenet_tpu_torch.ops.detection import (
     flatten_iou_outputs, flatten_outputs,
 )
 from multiposenet_tpu_torch.ops.image import normalize
+from multiposenet_tpu_torch.parallel import mesh
 from multiposenet_tpu_torch.train import losses as losses_lib
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -288,6 +298,19 @@ def _anchors(config: Config, device) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
+def _reduce(grads, metrics: dict[str, torch.Tensor]):
+    """The gradients summed over the ranks (one flat bucket), and the
+    metrics too (each rank holds its share of the global loss)."""
+    flat = mesh.all_reduce_sum_(torch.cat([g.reshape(-1) for g in grads]))
+    grads = [piece.view_as(g) for piece, g in
+             zip(flat.split([g.numel() for g in grads]), grads)]
+    values = mesh.all_reduce_sum_(
+        torch.stack([v.detach().double() for v in metrics.values()]))
+    metrics = {k: values[i].to(v.dtype)
+               for i, (k, v) in enumerate(metrics.items())}
+    return grads, metrics
+
+
 def make_train_step(config: Config):
     """Returns train_step(state, batch) → (state, metrics): `batch` holds
     tensors on the state's device (`batch_to`); the state is updated in
@@ -306,6 +329,8 @@ def make_train_step(config: Config):
         out = model(model_images(batch["images"], config))
         total, metrics = compute_losses(out, batch, config, anchors[key])
         grads = torch.autograd.grad(total, params)
+        if mesh.world_size() > 1:
+            grads, metrics = _reduce(grads, metrics)
         grad_norm = opt.update(list(params), list(grads),
                                [state.mu[n] for n in names],
                                [state.nu[n] for n in names], state.step)

@@ -1,5 +1,6 @@
 """ctypes binding of the host C library `csrc/image_codec.c`: JPEG
-decoding (`utils/jpeg.py` is the plain version of its baseline part),
+decoding (`utils/jpeg.py` is the plain version of its baseline part) and
+encoding as cv2.imencode does (`utils/jpeg.py encode_pixels`),
 cv2's INTER_LINEAR resize on uint8 and on two-channel float32 and its
 INTER_AREA on float32 (`utils/image_io.resize_linear_plain` and
 `resize_area_plain` are their plain versions), and cv2.fillPoly
@@ -34,6 +35,10 @@ def library() -> ctypes.CDLL:
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_char_p, ctypes.c_int]
     lib.decode_jpeg.restype = ctypes.c_int
+    lib.encode_jpeg.argtypes = [_u8p, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, _u8p, ctypes.c_long,
+                                ctypes.POINTER(ctypes.c_long)]
+    lib.encode_jpeg.restype = ctypes.c_int
     lib.resize_linear_u8.argtypes = [_u8p, ctypes.c_int, ctypes.c_int,
                                      ctypes.c_int, _u8p, ctypes.c_int,
                                      ctypes.c_int]
@@ -56,6 +61,17 @@ def _check(rc: int, err: ctypes.Array) -> None:
         raise MemoryError("image_codec: out of memory")
 
 
+def jpeg_size(data: bytes) -> tuple[int, int]:
+    """(height, width) from a JPEG's frame header, before any Exif
+    orientation; raises ValueError as decode_jpeg does on a bad header."""
+    data = bytes(data)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    _check(library().jpeg_size(data, len(data), ctypes.byref(h),
+                               ctypes.byref(w), err, _ERR_LEN), err)
+    return h.value, w.value
+
+
 def decode_jpeg(data: bytes, eof_fill: bool = False) -> np.ndarray:
     """JPEG bytes → uint8 RGB [H, W, 3], before any Exif orientation;
     raises ValueError naming what it does not read. A stream whose data
@@ -73,6 +89,32 @@ def decode_jpeg(data: bytes, eof_fill: bool = False) -> np.ndarray:
                            h.value, w.value, int(eof_fill), err, _ERR_LEN),
            err)
     return out
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """uint8 RGB [H, W, 3] → the bytes `cv2.imencode(".jpg", bgr,
+    [cv2.IMWRITE_JPEG_QUALITY, quality])` writes (95 is cv2's default)."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[-1] != 3:
+        raise ValueError("encode_jpeg takes uint8 RGB [H, W, 3]; got "
+                         f"{rgb.dtype} {rgb.shape}")
+    src = np.ascontiguousarray(rgb)
+    h, w = src.shape[:2]
+    size = ctypes.c_long()
+    cap = 1024 + ((h + 15) // 16) * ((w + 15) // 16) * 6 * 256
+    while True:
+        out = np.empty(cap, np.uint8)
+        rc = library().encode_jpeg(src.ctypes.data_as(_u8p), h, w, quality,
+                                   out.ctypes.data_as(_u8p), cap,
+                                   ctypes.byref(size))
+        if rc != 1:
+            break
+        cap = size.value
+    if rc == 3:
+        raise ValueError(f"cannot encode {h}x{w} at quality {quality}")
+    if rc:
+        raise MemoryError("image_codec: out of memory")
+    return out[:size.value].tobytes()
 
 
 def resize_linear_u8(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:

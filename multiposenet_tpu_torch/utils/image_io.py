@@ -7,14 +7,15 @@ card's machine does not have).
 `cv2.imdecode` reversed to RGB do on OpenCV 5.0 (libjpeg-turbo 3.1,
 libpng 1.6):
 - JPEG through the host C library `csrc/image_codec.c`: sequential and
-  progressive Huffman-coded, gray, YCbCr, RGB (Adobe transform 0 or
-  component ids R, G, B), CMYK and YCCK (through OpenCV's CMYK -> BGR).
-  A file whose data ends early is filled as `cv2.imread` fills it (the
-  rest of the scan mid-gray); bytes that end early are refused, as
-  `cv2.imdecode` refuses them. Arithmetic-coded, lossless and 12-bit
-  JPEGs, and progressive ones that would take libjpeg's inter-block
-  smoothing, are refused by name. Its plain version for baseline
-  streams is `utils/jpeg.py`;
+  progressive, Huffman- or arithmetic-coded, gray, YCbCr, RGB (Adobe
+  transform 0 or component ids R, G, B), CMYK and YCCK (through OpenCV's
+  CMYK -> BGR); lossless RGB and CMYK; progressive files whose scans stop
+  early through libjpeg's inter-block smoothing. A file whose data ends
+  early is filled as `cv2.imread` fills it; bytes that end early are
+  refused, as `cv2.imdecode` refuses them. What cv2 returns no image for
+  (12- and 16-bit samples, gray, YCbCr and YCCK lossless, arithmetic
+  lossless, hierarchical) is refused by name. Its plain version for
+  baseline streams is `utils/jpeg.py`;
 - PNG with zlib and NumPy: every colour type and bit depth, Adam7
   interlace, palette (tRNS dropped; an index past the palette is black),
   gray at 1, 2 and 4 bits expanded to 8 as libpng does, 16-bit samples
@@ -24,7 +25,10 @@ Gray is repeated into three channels. The Exif orientation (tag 0x0112
 of IFD0, in a JPEG APP1 `Exif` block or a PNG `eXIf` chunk) is applied
 as cv2 applies it. Any other format raises a ValueError that names it.
 
-`encode_png` and `write_png` write uint8 gray or RGB as an 8-bit PNG;
+`encode_jpeg` and `write_jpeg` write uint8 RGB as the JPEG bytes
+`cv2.imencode(".jpg")` writes at its defaults (host C; plain version
+`jpeg.encode_pixels`); `encode_png` and `write_png` write uint8 gray or
+RGB as an 8-bit PNG;
 `decode_gray_png` reads a gray PNG as `cv2.imdecode(buf,
 cv2.IMREAD_GRAYSCALE)` does. `resize_linear` is cv2's INTER_LINEAR and
 `resize_area` its INTER_AREA, bit for bit through the C library where
@@ -75,6 +79,21 @@ def read_image(path: str | Path) -> np.ndarray:
     FileNotFoundError for a missing file and ValueError for a format or
     mode that is not read."""
     return decode_image(Path(path).read_bytes(), path, eof_fill=True)
+
+
+def image_size(path: str | Path) -> tuple[int, int]:
+    """The (height, width) of what `read_image` returns for the file: a
+    JPEG's from its frame header and Exif orientation (5-8 swap the
+    sides), any other format's by decoding it."""
+    data = Path(path).read_bytes()
+    if data.startswith(JPEG_MAGIC):
+        try:
+            h, w = image_codec.jpeg_size(data)
+        except ValueError:
+            return decode_image(data, path, eof_fill=True).shape[:2]
+        turned = exif_orientation(jpeg.exif_block(data)) in (5, 6, 7, 8)
+        return (w, h) if turned else (h, w)
+    return decode_image(data, path, eof_fill=True).shape[:2]
 
 
 def decode_image(data: bytes, name: str | Path = "<bytes>",
@@ -355,6 +374,19 @@ def write_png(path: str | Path, rgb: np.ndarray) -> None:
         raise ValueError("write_png takes uint8 RGB [H, W, 3]; got "
                          f"{rgb.dtype} {rgb.shape}")
     Path(path).write_bytes(encode_png(rgb))
+
+
+def encode_jpeg(rgb: np.ndarray) -> bytes:
+    """uint8 RGB [H, W, 3] → the JPEG bytes `cv2.imencode(".jpg", bgr)`
+    writes at its defaults, bit for bit (host C; `jpeg.encode_pixels` is
+    the plain version)."""
+    return image_codec.encode_jpeg(rgb)
+
+
+def write_jpeg(path: str | Path, rgb: np.ndarray) -> None:
+    """uint8 RGB [H, W, 3] → a JPEG file, as `cv2.imwrite(path, bgr)`
+    writes one with a .jpg suffix."""
+    Path(path).write_bytes(encode_jpeg(rgb))
 
 
 def decode_gray_png(data: bytes, name: str | Path = "<bytes>") -> np.ndarray:

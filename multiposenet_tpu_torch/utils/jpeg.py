@@ -29,8 +29,11 @@ The stages follow libjpeg-turbo's sources:
   into three channels.
 
 It is the plain version of the baseline part of `csrc/image_codec.c`,
-which also reads progressive, RGB, CMYK/YCCK and truncated files.
-Everything else raises a ValueError that names it here: progressive (SOF2),
+which also reads progressive, arithmetic-coded, lossless, RGB,
+CMYK/YCCK, block-smoothed and truncated files. `encode_pixels` (below)
+is the plain version of its encoder: the bytes cv2.imencode(".jpg")
+writes. Everything else raises a ValueError that names it here:
+progressive (SOF2),
 lossless or hierarchical (SOF3, SOF5-7), arithmetic coding (SOF9-15),
 12-bit samples, 2 or 4 components (CMYK/YCCK), RGB JPEGs (Adobe
 transform 0, or component ids 'R', 'G', 'B'), and truncated or corrupt
@@ -617,3 +620,275 @@ def exif_block(data: bytes) -> bytes | None:
                 return bytes(data[start + 6:pos])
     except ValueError:
         return None
+
+
+# --- encoding -------------------------------------------------------------
+# What cv2.imencode(".jpg", bgr) writes at OpenCV 5's defaults
+# (libjpeg-turbo 3): baseline 4:2:0 at quality 95, the standard Huffman
+# tables, no restart markers, JFIF 1.01 with a 1:1 density of unit 0. The
+# plain version of `csrc/image_codec.c encode_jpeg`.
+
+# Tables K.1 and K.2, row-major.
+STD_QUANT = (
+    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+              14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+              18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104,
+              113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98,
+              112, 100, 103, 99], np.int64),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+              24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+             + [99] * 32, np.int64),
+)
+# Tables K.3-K.6 (jstdhuff.c): 16 code counts, then the values.
+_AC_LUMA_VALUES = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a434445464748494a"
+    "535455565758595a636465666768696a737475767778797a838485868788898a92"
+    "939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8"
+    "c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+_AC_CHROMA_VALUES = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f015"
+    "6272d10a162434e125f11718191a262728292a35363738393a434445464748494a"
+    "535455565758595a636465666768696a737475767778797a82838485868788898a"
+    "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7"
+    "c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")
+STD_HUFFMAN = (
+    (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D]),
+     _AC_LUMA_VALUES),
+    (bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77]),
+     _AC_CHROMA_VALUES),
+)
+_JFIF = b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+
+
+def quant_table(which: int, quality: int) -> np.ndarray:
+    """jcparam.c jpeg_quality_scaling and jpeg_add_quant_table with
+    force_baseline: table `which` (0 luma, 1 chroma), row-major."""
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+    return np.clip((STD_QUANT[which] * scale + 50) // 100, 1, 255)
+
+
+def _divisors(q: np.ndarray):
+    """jcdctmgr.c compute_reciprocal for each divisor q << 3 of the ISLOW
+    DCT: (reciprocal, correction, shift)."""
+    recip, corr, shift = [], [], []
+    for d in (q << 3).tolist():
+        b = d.bit_length() - 1
+        r = 16 + b
+        fq, fr = divmod(1 << r, d)
+        c = d // 2
+        if fr == 0:
+            fq >>= 1
+            r -= 1
+        elif fr <= d // 2:
+            c += 1
+        else:
+            fq += 1
+        recip.append(fq)
+        corr.append(c)
+        shift.append(r)
+    return np.array(recip), np.array(corr), np.array(shift)
+
+
+def _quantize(coefs: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """libjpeg-turbo's quantize(): (|x| + correction) * reciprocal >> shift,
+    the sign restored; equal to its SIMD version."""
+    recip, corr, shift = _divisors(q)
+    mag = ((np.abs(coefs) + corr) * recip) >> shift
+    return np.where(coefs < 0, -mag, mag)
+
+
+def _fdct_1d(d, descale: int, first: bool):
+    """One pass of jfdctint.c jpeg_fdct_islow over axis 0 of d ([8, ...]
+    int64): the eight outputs, DC and coefficient 4 shifted up by 2 in the
+    first pass and rounded down by 2 in the second."""
+    t0, t7 = d[0] + d[7], d[0] - d[7]
+    t1, t6 = d[1] + d[6], d[1] - d[6]
+    t2, t5 = d[2] + d[5], d[2] - d[5]
+    t3, t4 = d[3] + d[4], d[3] - d[4]
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+
+    def down(x):
+        return (x + (1 << (descale - 1))) >> descale
+
+    out = [None] * 8
+    if first:
+        out[0], out[4] = (t10 + t11) << 2, (t10 - t11) << 2
+    else:
+        out[0], out[4] = (t10 + t11 + 2) >> 2, (t10 - t11 + 2) >> 2
+    z1 = (t12 + t13) * FIX_0_541196100
+    out[2] = down(z1 + t13 * FIX_0_765366865)
+    out[6] = down(z1 - t12 * FIX_1_847759065)
+    z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+    z5 = (z3 + z4) * FIX_1_175875602
+    t4, t5 = t4 * FIX_0_298631336, t5 * FIX_2_053119869
+    t6, t7 = t6 * FIX_3_072711026, t7 * FIX_1_501321110
+    z1, z2 = z1 * -FIX_0_899976223, z2 * -FIX_2_562915447
+    z3 = z3 * -FIX_1_961570560 + z5
+    z4 = z4 * -FIX_0_390180644 + z5
+    out[7] = down(t4 + z1 + z3)
+    out[5] = down(t5 + z2 + z4)
+    out[3] = down(t6 + z2 + z3)
+    out[1] = down(t7 + z1 + z4)
+    return np.stack(out)
+
+
+def fdct_islow(plane: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """A plane [8*bh, 8*bw] of samples → quantised coefficients
+    [bh, bw, 64], row-major in each block."""
+    bh, bw = plane.shape[0] // 8, plane.shape[1] // 8
+    blocks = plane.reshape(bh, 8, bw, 8).transpose(1, 3, 0, 2) - 128
+    rows = _fdct_1d(np.moveaxis(blocks, 1, 0), 13 - 2, True)  # [u, y, ...]
+    cols = _fdct_1d(np.moveaxis(rows, 1, 0), 13 + 2, False)  # [v, u, ...]
+    coefs = cols.reshape(64, bh, bw).transpose(1, 2, 0)
+    return _quantize(coefs, q)
+
+
+def rgb_to_ycc(rgb: np.ndarray) -> tuple:
+    """jccolor.c rgb_ycc_convert: uint8 RGB [..., 3] → Y, Cb, Cr int64."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    half, centre = ONE_HALF, 128 << SCALEBITS
+    y = (_fix(0.29900) * r + _fix(0.58700) * g + _fix(0.11400) * b
+         + half) >> SCALEBITS
+    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.50000) * b
+          + centre + half - 1) >> SCALEBITS
+    cr = (_fix(0.50000) * r - _fix(0.41869) * g - _fix(0.08131) * b
+          + centre + half - 1) >> SCALEBITS
+    return y, cb, cr
+
+
+def _mcu_blocks(rgb: np.ndarray, quality: int) -> np.ndarray:
+    """The quantised blocks of every MCU in order, [my, mx, 6, 64]: four Y
+    blocks, then Cb and Cr. Edges are replicated as jcprepct.c and
+    jcsample.c do, and Y blocks past the image's are jccoefct.c's dummy
+    blocks (zero, with the DC of the block before them)."""
+    h, w = rgb.shape[:2]
+    mx, my = (w + 15) // 16, (h + 15) // 16
+    y, cb, cr = rgb_to_ycc(rgb)
+    # Rows padded to a whole pair, columns to the chroma blocks' width.
+    rows = np.minimum(np.arange(2 * ((h + 1) // 2)), h - 1)
+    cols = np.minimum(np.arange(16 * mx), w - 1)
+    bias = np.tile([1, 2], 4 * mx)
+    chroma = []
+    for c in (cb, cr):
+        full = c[rows][:, cols]
+        sums = (full[0::2, 0::2] + full[0::2, 1::2] + full[1::2, 0::2]
+                + full[1::2, 1::2] + bias) >> 2
+        chroma.append(sums[np.minimum(np.arange(8 * my), len(sums) - 1)])
+    yplane = y[np.minimum(np.arange(16 * my), h - 1)][:, cols]
+    ycoef = fdct_islow(yplane, quant_table(0, quality))  # [2my, 2mx, 64]
+    yhb, ywb = (h + 7) // 8, (w + 7) // 8
+    blocks = np.zeros((my, mx, 6, 64), np.int64)
+    quad = ycoef.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4)
+    blocks[:, :, :4] = quad.reshape(my, mx, 4, 64)
+    q1 = quant_table(1, quality)
+    blocks[:, :, 4] = fdct_islow(chroma[0], q1)
+    blocks[:, :, 5] = fdct_islow(chroma[1], q1)
+    if ywb % 2:  # the right column of the last MCU column is dummy
+        blocks[:, -1, [1, 3]] = 0
+        blocks[:, -1, 1, 0] = blocks[:, -1, 0, 0]
+        blocks[:, -1, 3, 0] = blocks[:, -1, 2, 0]
+    if yhb % 2:  # the bottom row of the last MCU row is dummy
+        blocks[-1, :, [2, 3]] = 0
+        blocks[-1, :, 2, 0] = blocks[-1, :, 1, 0]
+        blocks[-1, :, 3, 0] = blocks[-1, :, 1, 0]
+    return blocks
+
+
+def _codes(spec) -> tuple[dict, dict]:
+    """Canonical code and length of each symbol (jchuff.c)."""
+    counts, values = spec
+    code, k, codes, sizes = 0, 0, {}, {}
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            codes[values[k]], sizes[values[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return codes, sizes
+
+
+def _entropy_bits(blocks: np.ndarray) -> tuple[list, list]:
+    """jchuff.c encode_one_block over every block of every MCU: the
+    (bits, length) of each code and each magnitude, in stream order."""
+    tables = [_codes(spec) for spec in STD_HUFFMAN]
+    zz = blocks[..., ZIGZAG].reshape(-1, 6, 64)
+    bits, lengths = [], []
+    last = [0, 0, 0]
+    for mcu in zz.tolist():
+        for b, blk in enumerate(mcu):
+            comp = 0 if b < 4 else b - 3
+            (dc_c, dc_s), (ac_c, ac_s) = tables[2 * (comp > 0):
+                                                2 * (comp > 0) + 2]
+            t = blk[0] - last[comp]
+            last[comp] = blk[0]
+            n = abs(t).bit_length()
+            bits += [dc_c[n], t - 1 if t < 0 else t]
+            lengths += [dc_s[n], n]
+            run = 0
+            for k in range(1, 64):
+                t = blk[k]
+                if not t:
+                    run += 1
+                    continue
+                while run > 15:
+                    bits.append(ac_c[0xF0])
+                    lengths.append(ac_s[0xF0])
+                    run -= 16
+                n = abs(t).bit_length()
+                sym = (run << 4) + n
+                bits += [ac_c[sym], t - 1 if t < 0 else t]
+                lengths += [ac_s[sym], n]
+                run = 0
+            if run:
+                bits.append(ac_c[0])
+                lengths.append(ac_s[0])
+    return bits, lengths
+
+
+def _pack(bits: list, lengths: list) -> bytes:
+    """MSB-first bit packing, the last byte padded with ones, a 0x00
+    stuffed after every 0xFF."""
+    lengths = np.array(lengths, np.int64)
+    values = np.array(bits, np.int64) & ((1 << lengths) - 1)
+    total = int(lengths.sum())
+    owner = np.repeat(np.arange(len(lengths)), lengths)
+    ends = np.cumsum(lengths)
+    pos = np.arange(total) - np.repeat(ends - lengths, lengths)
+    stream = (values[owner] >> (lengths[owner] - 1 - pos)) & 1
+    stream = np.concatenate([stream, np.ones(-total % 8, np.int64)])
+    packed = np.packbits(stream.astype(np.uint8))
+    ff = np.flatnonzero(packed == 0xFF)
+    return np.insert(packed, ff + 1, 0).tobytes()
+
+
+def _segment_bytes(marker: int, payload: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) + payload
+
+
+def encode_pixels(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """uint8 RGB [H, W, 3] → the bytes `cv2.imencode(".jpg", bgr,
+    [cv2.IMWRITE_JPEG_QUALITY, quality])` writes (95 is cv2's default)."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[-1] != 3:
+        raise ValueError("encode_pixels takes uint8 RGB [H, W, 3]; got "
+                         f"{rgb.dtype} {rgb.shape}")
+    h, w = rgb.shape[:2]
+    if not (1 <= h <= 65500 and 1 <= w <= 65500 and 1 <= quality <= 100):
+        raise ValueError(f"cannot encode {h}x{w} at quality {quality}")
+    out = [b"\xff\xd8", _segment_bytes(0xE0, _JFIF)]
+    for i in range(2):
+        table = quant_table(i, quality)[ZIGZAG]
+        out.append(_segment_bytes(0xDB, bytes([i]) + bytes(table.tolist())))
+    out.append(_segment_bytes(0xC0, struct.pack(">BHHB", 8, h, w, 3)
+                              + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    for i, (counts, values) in enumerate(STD_HUFFMAN):
+        out.append(_segment_bytes(0xC4, bytes([(i & 1) << 4 | i >> 1])
+                                  + counts + values))
+    out.append(_segment_bytes(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11,
+                                           0, 63, 0])))
+    out.append(_pack(*_entropy_bits(_mcu_blocks(rgb, quality))))
+    out.append(b"\xff\xd9")
+    return b"".join(out)

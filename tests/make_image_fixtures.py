@@ -27,20 +27,32 @@ installed cv2's decode.
   Adobe transform set to 2), and files cut inside their scan data, one
   baseline and one progressive cut in its last scan (which `cv2.imread`
   fills and reads).
+- `c3_arith_*`, `c3_lossless_*`, `c3_smooth_*`: the modes past those
+  that cv2 reads, written by libjpeg-turbo 3.1 itself (`libjpeg_jpeg`):
+  arithmetic coding (sequential 4:2:0; progressive 4:4:4 with restarts
+  and DAC conditioning other than the defaults), lossless RGB (predictors
+  1 and 7, a point transform, 4:2:0) and CMYK, and a progressive file
+  ended after its DC scan and after its first AC scan, which libjpeg
+  reads through its inter-block smoothing.
 - `png_palette4.png`, `png_rgb16.png`, `png_interlaced.png`: PNG kinds
   the port decodes without cv2 (palette, 16-bit, Adam7).
 - `digests.json`: for each file, the shape and sha256 of cv2's RGB decode
   (`cv2.imread(path, IMREAD_COLOR)[..., ::-1]`) and of cv2's INTER_LINEAR
   letterbox of it to 512 (the eval runner's resize: scale 512 / max(h, w),
-  rounded sizes).
+  rounded sizes); for the timing photo also the sha256 of the bytes
+  `cv2.imencode(".jpg")` writes for its pixels.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import hashlib
 import json
 import struct
+import subprocess
 import sys
+import tempfile
 import zlib
 from pathlib import Path
 
@@ -52,6 +64,133 @@ OUT = ROOT / "tests" / "fixtures" / "images"
 LETTERBOX = 512
 SAMPLING = {"444": 0x111111, "422": 0x211111, "420": 0x221111,
             "440": 0x121111, "411": 0x411111}
+
+
+# A writer over the libjpeg-turbo 3 that Pillow bundles, for the modes cv2
+# cannot write: arithmetic coding, lossless (jpeg_enable_lossless), 12-
+# and 16-bit samples. It is compiled against the system's jpeglib.h
+# (libjpeg-turbo 2.1, the same struct layout) and linked to Pillow's
+# library by path.
+_WRITER_SOURCE = r"""
+#include <stdio.h>
+#include <jpeglib.h>
+extern void jpeg_enable_lossless(j_compress_ptr, int, int);
+extern JDIMENSION jpeg12_write_scanlines(j_compress_ptr, short ***,
+                                         JDIMENSION);
+extern JDIMENSION jpeg16_write_scanlines(j_compress_ptr, unsigned short ***,
+                                         JDIMENSION);
+
+/* samples: h * w * nc, uint8 at 8 bits, uint16 above. */
+int write_jpeg(const void *samples, int w, int h, int nc, int precision,
+               int quality, int progressive, int arith, int psv, int pt,
+               int sampling, int restart_rows, int conditioning,
+               unsigned char **out, unsigned long *size)
+{
+    struct jpeg_compress_struct c;
+    struct jpeg_error_mgr e;
+    int y, i;
+    c.err = jpeg_std_error(&e);
+    jpeg_create_compress(&c);
+    *out = NULL;
+    *size = 0;
+    jpeg_mem_dest(&c, out, size);
+    c.image_width = w;
+    c.image_height = h;
+    c.input_components = nc;
+    c.in_color_space = nc == 1 ? JCS_GRAYSCALE : nc == 4 ? JCS_CMYK : JCS_RGB;
+    c.data_precision = precision > 8 ? precision : 8;
+    jpeg_set_defaults(&c);
+    if (psv) jpeg_enable_lossless(&c, psv, pt);
+    c.data_precision = precision;
+    if (!psv) jpeg_set_quality(&c, quality, TRUE);
+    if (nc == 3) {
+        c.comp_info[0].h_samp_factor = sampling >> 4;
+        c.comp_info[0].v_samp_factor = sampling & 15;
+    }
+    if (progressive) jpeg_simple_progression(&c);
+    c.arith_code = arith;
+    c.restart_in_rows = restart_rows;
+    if (conditioning)
+        for (i = 0; i < NUM_ARITH_TBLS; i++) {
+            c.arith_dc_L[i] = 1;
+            c.arith_dc_U[i] = 3;
+            c.arith_ac_K[i] = 2;
+        }
+    jpeg_start_compress(&c, TRUE);
+    for (y = 0; y < h; y++) {
+        if (precision == 8) {
+            JSAMPROW r = (JSAMPROW)samples + (size_t)y * w * nc;
+            jpeg_write_scanlines(&c, &r, 1);
+        } else if (precision <= 12) {
+            short *r = (short *)samples + (size_t)y * w * nc, **a = &r;
+            jpeg12_write_scanlines(&c, &a, 1);
+        } else {
+            unsigned short *r = (unsigned short *)samples
+                                + (size_t)y * w * nc, **a = &r;
+            jpeg16_write_scanlines(&c, &a, 1);
+        }
+    }
+    jpeg_finish_compress(&c);
+    jpeg_destroy_compress(&c);
+    return 0;
+}
+"""
+
+
+@functools.cache
+def _writer() -> ctypes.CDLL:
+    import PIL
+
+    libs = sorted((Path(PIL.__file__).parent.parent / "pillow.libs").glob(
+        "libjpeg-*.so*"))
+    if not libs:
+        raise RuntimeError("Pillow's bundled libjpeg-turbo was not found")
+    build = Path(tempfile.mkdtemp(prefix="jpeg_writer_"))
+    (build / "writer.c").write_text(_WRITER_SOURCE)
+    subprocess.run(["cc", "-O1", "-shared", "-fPIC", "-o",
+                    str(build / "writer.so"), str(build / "writer.c"),
+                    str(libs[0]), f"-Wl,-rpath,{libs[0].parent}"],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(build / "writer.so"))
+    lib.write_jpeg.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 12 + [
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte)),
+        ctypes.POINTER(ctypes.c_ulong)]
+    return lib
+
+
+def libjpeg_jpeg(samples: np.ndarray, precision: int = 8, quality: int = 90,
+                 progressive: bool = False, arith: bool = False,
+                 predictor: int = 0, point_transform: int = 0,
+                 sampling: int = 0x22, restart_rows: int = 0,
+                 conditioning: bool = False) -> bytes:
+    """RGB [H, W, 3], CMYK [H, W, 4] or gray [H, W] samples → a JPEG
+    written by
+    libjpeg-turbo 3.1: `arith` arithmetic-coded, `predictor` 1-7 lossless
+    (with `point_transform`), `precision` 8, 12 or 16 bits, `sampling` the
+    luma factors (h << 4 | v), `conditioning` DAC values other than the
+    defaults. The writer aborts the process on a mode libjpeg-turbo does
+    not write (arithmetic-coded lossless)."""
+    arr = np.ascontiguousarray(
+        samples, np.uint8 if precision == 8 else np.uint16)
+    h, w = arr.shape[:2]
+    nc = 1 if arr.ndim == 2 else arr.shape[2]
+    out = ctypes.POINTER(ctypes.c_ubyte)()
+    size = ctypes.c_ulong()
+    _writer().write_jpeg(arr.ctypes.data, w, h, nc, precision, quality,
+                         int(progressive), int(arith), predictor,
+                         point_transform, sampling, restart_rows,
+                         int(conditioning), ctypes.byref(out),
+                         ctypes.byref(size))
+    return ctypes.string_at(out, size.value)
+
+
+def until_scan(jpeg: bytes, scans: int) -> bytes:
+    """A progressive file ended (EOI) after its first `scans` scans."""
+    starts = [i for i in range(len(jpeg) - 1)
+              if jpeg[i] == 0xFF and jpeg[i + 1] == 0xDA]
+    end = starts[scans] if scans < len(starts) else len(jpeg) - 2
+    # Markers between the cut scan and the next SOS (DHT) stay out.
+    return jpeg[:end] + b"\xff\xd9"
 
 
 def texture(h: int, w: int, seed: int, noise: int = 24) -> np.ndarray:
@@ -338,6 +477,25 @@ def main() -> None:
     files["c3_truncated_progressive_48x64_444.jpg"] = cut_scan_data(
         encode_jpeg(small, 95, "444", progressive), 0.97)
 
+    # The rest of C3: the modes libjpeg-turbo 3.1 reads under cv2 5.0 and
+    # only its own writer makes (see libjpeg_jpeg).
+    tiny = np.ascontiguousarray(tex[:32, :32])
+    files["c3_arith_32x32_420.jpg"] = libjpeg_jpeg(tiny, arith=True)
+    files["c3_arith_progressive_32x32_444_rst.jpg"] = libjpeg_jpeg(
+        tiny, arith=True, progressive=True, sampling=0x11, restart_rows=1,
+        conditioning=True)
+    files["c3_lossless_p1_24x24.jpg"] = libjpeg_jpeg(
+        tiny[:24, :24], predictor=1, sampling=0x11)
+    files["c3_lossless_p7_pt2_24x24_420.jpg"] = libjpeg_jpeg(
+        tiny[:24, :24], predictor=7, point_transform=2)
+    cmyk_samples = np.concatenate([tiny[:16, :16], tiny[:16, :16, :1]], -1)
+    files["c3_lossless_cmyk_p4_16x16.jpg"] = libjpeg_jpeg(
+        cmyk_samples, predictor=4, sampling=0x11)
+    smooth = libjpeg_jpeg(np.ascontiguousarray(tex[:40, :48]), quality=75,
+                          progressive=True)
+    files["c3_smooth_dc_40x48_420.jpg"] = until_scan(smooth, 1)
+    files["c3_smooth_ac1_40x48_420.jpg"] = until_scan(smooth, 2)
+
     # PNG kinds.
     palette = rng.randint(0, 256, (16, 3)).astype(np.uint8)
     idx = rng.randint(0, 16, (29, 41, 1))
@@ -352,6 +510,10 @@ def main() -> None:
     for name, data in files.items():
         (OUT / name).write_bytes(data)
     digests = {name: digest(OUT / name) for name in sorted(files)}
+    # What cv2.imencode(".jpg") writes for the timing photo's pixels.
+    photo = cv2.imread(str(OUT / "photo_480x640_q95_420.jpg"))
+    digests["photo_480x640_q95_420.jpg"]["imencode_sha256"] = hashlib.sha256(
+        cv2.imencode(".jpg", photo)[1].tobytes()).hexdigest()
     (OUT / "digests.json").write_text(json.dumps(digests, indent=1) + "\n")
     (OUT / "annotations.json").write_text(
         json.dumps(coco_annotations(records, names)) + "\n")

@@ -13,7 +13,9 @@ the same pixels. `predict` prints the same people on a PNG and on a
 JPEG: boxes to 2e-3 px, scores to 1e-5, keypoints to 1e-3 px
 (test_torch_predictor.py); its `--output` PNG is drawn without cv2 and
 agrees with cv2's drawing on at least 90% of the pixels either one
-changed, and any other `--output` suffix exits before the model runs.
+changed; its `--output` JPEG holds the bytes cv2.imwrite writes for the
+port's drawing, and the JAX CLI's bytes where both draw the same pixels;
+any other `--output` suffix exits before the model runs.
 """
 
 import argparse
@@ -219,12 +221,12 @@ def test_predict_on_a_jpeg_matches_jax_cli(workdir):
                                    atol=1e-3, rtol=1e-5)
 
 
-@pytest.mark.parametrize("output", ["drawn.jpg", "drawn.JPEG", "drawn"])
+@pytest.mark.parametrize("output", ["drawn.bmp", "drawn.TIFF", "drawn"])
 def test_predict_output_other_than_png_exits(workdir, tmp_path, monkeypatch,
                                              output):
     """The reference writes by suffix through cv2.imwrite; the port
-    writes PNG only, so it exits naming the suffix before the model is
-    loaded, and writes nothing."""
+    writes PNG and JPEG only, so on any other suffix it exits naming the
+    suffix before the model is loaded, and writes nothing."""
     from multiposenet_tpu_torch.infer import export as port_export
 
     def no_model(*args, **kwargs):
@@ -237,6 +239,43 @@ def test_predict_output_other_than_png_exits(workdir, tmp_path, monkeypatch,
                   workdir["image_jpeg"], "--output", str(tmp_path / output),
                   "--device", "cpu"])
     assert not (tmp_path / output).exists()
+
+
+@pytest.mark.parametrize("output", ["drawn.jpg", "drawn.JPEG", "drawn.jpe"])
+def test_predict_output_jpeg_is_what_cv2_writes(workdir, tmp_path, output):
+    """`--output` with a JPEG suffix writes the bytes cv2.imwrite writes
+    for the port's drawing of the printed people."""
+    path = tmp_path / output
+    text = _run(cli.main, ["predict", "--model-dir", workdir["model"],
+                           "--image", workdir["image"], "--output", str(path),
+                           "--device", "cpu"])
+    people = [_person(p) for p in json.loads(text)]
+    assert people
+    drawn = visualize.draw_predictions(
+        image_io.read_image(workdir["image"]), people)
+    ok, want = cv2.imencode(".jpg", np.ascontiguousarray(drawn[:, :, ::-1]))
+    assert ok and path.read_bytes() == want.tobytes()
+
+
+def test_predict_output_jpeg_matches_jax_cli_bytes(workdir, tmp_path,
+                                                   monkeypatch):
+    """Both CLIs write `--output x.jpg` from the same pixels (each drawing
+    replaced by the input image, since the port draws without cv2 and
+    its drawing agrees with cv2's on most pixels only): the files are
+    equal byte for byte."""
+    from multiposenet_tpu.utils import visualize as jax_visualize
+
+    for module in (jax_visualize, visualize):
+        monkeypatch.setattr(module, "draw_predictions",
+                            lambda rgb, people: rgb.copy())
+    files = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        files[name] = tmp_path / f"{name}.jpg"
+        _run(main, ["predict", "--model-dir", workdir["model"], "--image",
+                    workdir["image_jpeg"], "--output", str(files[name])]
+             + extra)
+    assert files["port"].read_bytes() == files["jax"].read_bytes()
 
 
 @pytest.mark.parametrize("command,flags", [
@@ -382,6 +421,7 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
 
     smoke = chip_smoke_module()
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(predictor, "resolve_device",
                         lambda device: torch.device(device or "cpu"))
     plain = decode.decode_maps
@@ -411,8 +451,9 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     """chip_smoke.py's `image_codec` and `eval_jpeg` phases on the CPU,
     after `phase_eval` exported its model at a small size: the fixtures
     decode and resize to cv2's digests through the C library and the
-    plain versions, and the JPEG eval and predict count their B1 launches
-    (2 and 1) as the card's wrapper would."""
+    plain versions, the photo encodes to cv2's digest, and the JPEG eval
+    and the two predicts count their B1 launches (2, 1 and 1) as the
+    card's wrapper would; `--output drawn.bmp` exits."""
     from multiposenet_tpu_torch import kernels
     from multiposenet_tpu_torch.config import Config
     from multiposenet_tpu_torch.eval import runner
@@ -424,6 +465,7 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
 
     smoke = chip_smoke_module()
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(predictor, "resolve_device",
                         lambda device: torch.device(device or "cpu"))
     plain = decode.decode_maps
@@ -442,11 +484,14 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     smoke.phase_image_codec(image_io, image_codec, jpeg, "cpu")
     smoke.phase_eval(Config, predictor.Predictor, export, cli, runner,
                      decode, kernels, tmp_path, "cpu")
-    paths = smoke.phase_eval_jpeg(cli, image_io, visualize, decode, kernels,
-                                  tmp_path, "cpu")
-    assert paths == {"eval_jpeg_batched": 2, "cli_predict_jpeg": 1}
+    paths = smoke.phase_eval_jpeg(cli, image_io, visualize, jpeg, decode,
+                                  kernels, tmp_path, "cpu")
+    assert paths == {"eval_jpeg_batched": 2, "cli_predict_jpeg": 1,
+                     "cli_predict_jpeg_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
-    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 33
+    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 40
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
+    assert codec["encode"]["c_encode_ms"] > 0
     assert jpeg_row["phase"] == "eval_jpeg" and jpeg_row["images"] == 10
-    assert ".jpg" in jpeg_row["output_jpg_exit"]
+    assert ".bmp" in jpeg_row["output_bmp_exit"]
+    assert jpeg_row["output_jpg_bytes"] > 0

@@ -1198,16 +1198,77 @@ def test_cli_train_then_predict_launches_b1_once(cuda_device, tmp_path):
 
 
 def test_c_decoder_reads_past_baseline_fixtures_as_cv2():
-    """The progressive, Adobe RGB, CMYK, YCCK and truncated fixtures
-    decode to cv2's committed digests (this machine may have no cv2)."""
+    """The progressive, Adobe RGB, CMYK, YCCK and truncated fixtures, and
+    the arithmetic-coded, lossless and block-smoothed ones, decode to
+    cv2's committed digests (this machine may have no cv2)."""
     import hashlib
 
     fixtures = Path(__file__).resolve().parent / "fixtures" / "images"
     digests = json.loads((fixtures / "digests.json").read_text())
     names = [n for n in digests if n.startswith("c3_")]
-    assert len(names) == 7
+    assert len(names) == 14
     for name in names:
         rgb = read_image(fixtures / name)
         assert list(rgb.shape) == digests[name]["shape"], name
         assert hashlib.sha256(rgb.tobytes()).hexdigest() \
             == digests[name]["rgb_sha256"], name
+
+
+def test_jpeg_encode_matches_the_cv2_digest():
+    """The JPEG writer on the timing photo's pixels: the host C library and
+    the plain NumPy encoder write the bytes whose sha256 cv2.imencode's
+    had (recorded by tests/make_image_fixtures.py; no cv2 is needed)."""
+    import hashlib
+
+    from multiposenet_tpu_torch.utils import image_io, jpeg
+
+    fixtures = Path(__file__).resolve().parent / "fixtures" / "images"
+    name = "photo_480x640_q95_420.jpg"
+    want = json.loads((fixtures / "digests.json").read_text())[name][
+        "imencode_sha256"]
+    rgb = read_image(fixtures / name)
+    data = image_io.encode_jpeg(rgb)
+    assert hashlib.sha256(data).hexdigest() == want
+    assert jpeg.encode_pixels(rgb) == data
+
+
+def test_decode_kernel_on_a_second_card(cuda_device):
+    """B1 on cuda:1 (the SM count asked of that card, not cached from the
+    first): equal to the plain version, counted on card 1."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card")
+    cfg = DecodeConfig()
+    x = torch.as_tensor(planted_maps(np.random.RandomState(0),
+                                     (2, 128, 128, 17)))
+    x = x.permute(0, 3, 1, 2).contiguous().to(torch.device("cuda", 1))
+    kernels.reset_launches()
+    got = decode.decode_maps(x, cfg)
+    torch.cuda.synchronize(1)
+    assert kernels.LAUNCHES_BY_DEVICE == {(decode.KERNEL, 1): 1}
+    want = decode.decode_maps_plain(x.reshape(-1, 128, 128), cfg)
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+
+
+def test_sharded_runner_launches_on_every_card(cuda_device):
+    """`make_batch_runner()` over every visible card: one B1 launch a card
+    and batch, the outputs those of `batch_forward` (exactly, on one
+    card)."""
+    from multiposenet_tpu_torch.config import ModelConfig
+
+    cfg = Config(model=ModelConfig(backbone_width=0.25, fpn_channels=32,
+                                   head_channels=32))
+    pred = Predictor(cfg, image_size=128)
+    cards = torch.cuda.device_count()
+    images = np.random.RandomState(0).randint(
+        0, 255, (2 * cards, 128, 128, 3), dtype=np.uint8)
+    run = pred.make_batch_runner()
+    kernels.reset_launches()
+    got = run(images)
+    for i in range(cards):
+        torch.cuda.synchronize(i)
+    assert kernels.LAUNCHES_BY_DEVICE == {(decode.KERNEL, i): 1
+                                          for i in range(cards)}
+    if cards == 1:
+        want = pred.batch_forward(images)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k

@@ -278,12 +278,16 @@ def test_default_predict_bf16_agrees_with_jax():
 
 
 def test_make_batch_runner_is_batch_forward():
-    """On one card the runner is `batch_forward`; a mesh is refused."""
+    """On the predictor's one device the runner is `batch_forward`; a
+    mesh that does not divide the batch is refused (the sharded runner:
+    tests/test_torch_mesh.py)."""
     _, port = _predictors(_config("default"))
     run = port.make_batch_runner()
+    assert run == port.batch_forward
     batch = _batch("s2d_flat")
     a, b = run(batch), port.batch_forward(batch)
     for key in a:
         assert torch.equal(a[key], b[key]), key
-    with pytest.raises(ValueError, match="mesh"):
-        port.make_batch_runner(mesh=object())
+    with pytest.raises(ValueError, match="shard"):
+        port.make_batch_runner([torch.device("cpu")] * (len(batch) + 1))(
+            batch)

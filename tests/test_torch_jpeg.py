@@ -10,10 +10,14 @@ on x86) and its C version part ways. `read_image` applies the Exif
 orientation as cv2 does, from a JPEG APP1 block or a PNG eXIf chunk, in
 both byte orders, and takes a malformed block as orientation 1. Past
 baseline the C library alone reads progressive JPEGs (every sampling,
-restart intervals), Adobe RGB, CMYK and YCCK, bit for bit with cv2, and
-a file cut inside its scan data as `cv2.imread` fills it, while bytes
-cut so are refused as `cv2.imdecode` refuses them. Each mode not read
-raises a ValueError that names it. The committed fixtures
+restart intervals), Adobe RGB, CMYK and YCCK, arithmetic-coded frames,
+lossless RGB and CMYK frames and progressive files whose scans stop
+early (libjpeg's block smoothing), bit for bit with cv2 on files that
+libjpeg-turbo 3.1 itself writes (tests/make_image_fixtures.py
+libjpeg_jpeg), and a file cut anywhere as `cv2.imread` fills it, while
+bytes cut so are refused as `cv2.imdecode` refuses them. Each mode cv2
+returns no image for raises a ValueError that names it. Both encoders
+write the bytes `cv2.imencode(".jpg")` writes. The committed fixtures
 (tests/fixtures/images) still equal the installed cv2, and the host
 library is built into `_build/` and raises with the compiler's log when
 the source does not compile. NumPy decodes stay at 64x64 or less; larger
@@ -33,6 +37,8 @@ import pytest
 from multiposenet_tpu_torch import kernels
 from multiposenet_tpu_torch.utils import image_codec, image_io, jpeg
 
+from make_image_fixtures import (
+    libjpeg_jpeg, textured_scene, until_scan, with_adobe_transform)
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures" / "images"
@@ -391,9 +397,9 @@ def test_truncated_files_match_cv2_imread(tmp_path, progressive, sampling,
     just before its EOI): `read_image` returns `cv2.imread`'s pixels, the
     rows decoded and the rest of the scan mid-gray; the same bytes are
     refused by `decode_image`, as `cv2.imdecode` refuses them. A
-    progressive file cut before its last scan would take libjpeg's
-    inter-block smoothing and is refused by that name; cut inside its
-    last scan it is read."""
+    progressive file cut before its last scan is read through libjpeg's
+    inter-block smoothing, as cut inside its last scan it is read
+    without."""
     extra = [cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)]
     if rst:
         extra += [cv2.IMWRITE_JPEG_RST_INTERVAL, rst]
@@ -415,15 +421,63 @@ def test_truncated_files_match_cv2_imread(tmp_path, progressive, sampling,
             with pytest.raises(ValueError):
                 image_io.read_image(path)
             continue
-        try:
-            got = image_io.read_image(path)
-        except ValueError as exc:
-            assert progressive, (frac, exc)
-            assert "smoothing" in str(exc) or "marker segment" in str(exc)
-            continue
-        np.testing.assert_array_equal(got, want, err_msg=str(frac))
+        np.testing.assert_array_equal(image_io.read_image(path), want,
+                                      err_msg=str(frac))
         read += 1
     assert read >= (8 if not progressive else 2)
+
+
+# --- encoding -------------------------------------------------------------
+
+ENCODE_SIZES = [(1, 1), (3, 5), (16, 16), (37, 53), (97, 133), (480, 640)]
+
+
+@pytest.mark.parametrize("encoder", ["c", "plain"])
+@pytest.mark.parametrize("kind", ["noise", "edges"])
+@pytest.mark.parametrize("size", ENCODE_SIZES,
+                         ids=[f"{h}x{w}" for h, w in ENCODE_SIZES])
+def test_encoders_match_cv2_imencode(size, kind, encoder):
+    """`image_io.encode_jpeg` (host C) and `jpeg.encode_pixels` (NumPy)
+    write the bytes `cv2.imencode(".jpg", bgr)` writes at its defaults,
+    byte for byte, down to partial MCUs and dummy blocks."""
+    img = _content(*size, kind, seed=size[0] * 7 + size[1])
+    want = cv2.imencode(".jpg", np.ascontiguousarray(img[:, :, ::-1]))[1]
+    got = (image_io.encode_jpeg(img) if encoder == "c"
+           else jpeg.encode_pixels(img))
+    assert got == want.tobytes()
+
+
+@pytest.mark.parametrize("quality", [1, 10, 50, 75, 100])
+def test_encoders_match_cv2_at_other_qualities(quality):
+    """Other qualities scale the standard tables as cv2's does."""
+    img = _content(37, 53, "edges", seed=quality)
+    want = cv2.imencode(".jpg", np.ascontiguousarray(img[:, :, ::-1]),
+                        [cv2.IMWRITE_JPEG_QUALITY, quality])[1].tobytes()
+    assert image_codec.encode_jpeg(img, quality) == want
+    assert jpeg.encode_pixels(img, quality) == want
+
+
+def test_written_jpeg_reads_back_as_cv2_reads_it(tmp_path):
+    """`write_jpeg` writes what `cv2.imwrite` writes for a .jpg path, and
+    the port decodes it as cv2 decodes it."""
+    img = _content(61, 45, "noise", seed=3)
+    ours, theirs = tmp_path / "ours.jpg", tmp_path / "cv2.jpg"
+    image_io.write_jpeg(ours, img)
+    assert cv2.imwrite(str(theirs), np.ascontiguousarray(img[:, :, ::-1]))
+    assert ours.read_bytes() == theirs.read_bytes()
+    np.testing.assert_array_equal(image_io.read_image(ours),
+                                  _imread(tmp_path, ours.read_bytes()))
+
+
+def test_encoders_refuse_what_they_do_not_write():
+    for bad in (np.zeros((4, 4), np.uint8), np.zeros((4, 4, 4), np.uint8),
+                np.zeros((4, 4, 3), np.float32)):
+        with pytest.raises(ValueError, match="uint8 RGB"):
+            image_io.encode_jpeg(bad)
+        with pytest.raises(ValueError, match="uint8 RGB"):
+            jpeg.encode_pixels(bad)
+    with pytest.raises(ValueError, match="quality"):
+        image_codec.encode_jpeg(np.zeros((4, 4, 3), np.uint8), 0)
 
 
 # --- refusals ------------------------------------------------------------
@@ -486,15 +540,21 @@ def _refused(case: str) -> tuple[bytes, str]:
     "progressive", "sof3", "sof5", "sof9", "sof10", "12bit", "cmyk",
     "adobe_rgb", "rgb_ids", "truncated", "no_eoi"])
 def test_refusals_name_the_mode(tmp_path, case):
-    """The plain decoder refuses every mode past baseline by name; the C
-    library and `read_image` still refuse arithmetic-coded, lossless,
-    differential and 12-bit JPEGs, and the C library, like
-    `cv2.imdecode`, bytes that end early."""
+    """The plain decoder refuses every mode past baseline by name. The C
+    library and `read_image` refuse what cv2 returns no image for, by
+    name: a differential frame, 12-bit samples, and a baseline stream
+    relabelled lossless or arithmetic-coded progressive (its scan
+    parameters are wrong for those frames); and the C library, like
+    `cv2.imdecode`, bytes that end early. A baseline stream relabelled
+    arithmetic-coded sequential is read, as cv2 reads it
+    (test_cv2_reads_what_is_refused)."""
     data, match = _refused(case)
     with pytest.raises(ValueError, match=match):
         jpeg.decode_pixels(data)
-    if case in ("progressive", "cmyk", "adobe_rgb", "rgb_ids"):
+    if case in ("progressive", "sof9", "cmyk", "adobe_rgb", "rgb_ids"):
         return  # read by the C library: test_cv2_reads_what_is_refused
+    assert cv2.imdecode(np.frombuffer(data, np.uint8),
+                        cv2.IMREAD_COLOR) is None
     with pytest.raises(ValueError, match=match):
         image_codec.decode_jpeg(data)
     if case in ("truncated", "no_eoi"):
@@ -506,12 +566,14 @@ def test_refusals_name_the_mode(tmp_path, case):
 
 
 @pytest.mark.parametrize("case", [
-    "progressive", "cmyk", "adobe_rgb", "rgb_ids", "truncated", "no_eoi"])
+    "progressive", "sof9", "cmyk", "adobe_rgb", "rgb_ids", "truncated",
+    "no_eoi"])
 def test_cv2_reads_what_is_refused(tmp_path, case):
     """What the plain decoder refuses and cv2 reads (ROADMAP C3), the C
-    library reads as cv2 does: a progressive, a CMYK and two RGB JPEGs as
-    `imdecode` does, and `read_image` a file cut in its scan data or
-    before its EOI as `imread` does (`imdecode` refuses those bytes)."""
+    library reads as cv2 does: a progressive, a CMYK and two RGB JPEGs,
+    and Huffman-coded data read as arithmetic-coded (SOF9), as `imdecode`
+    does, and `read_image` a file cut in its scan data or before its EOI
+    as `imread` does (`imdecode` refuses those bytes)."""
     data, _ = _refused(case)
     if case in ("truncated", "no_eoi"):
         assert cv2.imdecode(np.frombuffer(data, np.uint8),
@@ -527,6 +589,246 @@ def test_cv2_reads_what_is_refused(tmp_path, case):
     assert want.shape == (16, 24, 3)
     np.testing.assert_array_equal(image_codec.decode_jpeg(data), want)
     np.testing.assert_array_equal(image_io.decode_image(data), want)
+
+
+# --- past the rest of baseline: arithmetic, lossless, smoothing -----------
+# The files are written by libjpeg-turbo 3.1 itself (Pillow's build,
+# tests/make_image_fixtures.py libjpeg_jpeg); cv2 5.0's libjpeg-turbo 3.1
+# is the oracle.
+
+LUMA = {"420": 0x22, "444": 0x11, "422": 0x21, "440": 0x12}
+
+
+def _scene(h: int, w: int, seed: int) -> np.ndarray:
+    return textured_scene(np.full((h, w, 3), 128, np.uint8), seed=seed)
+
+
+def _all_readers_match_cv2(tmp_path, data: bytes) -> None:
+    """decode_jpeg, decode_image and read_image against cv2.imdecode."""
+    want = _cv2(data)
+    np.testing.assert_array_equal(image_codec.decode_jpeg(data), want)
+    np.testing.assert_array_equal(image_io.decode_image(data), want)
+    path = tmp_path / "mode.jpg"
+    path.write_bytes(data)
+    np.testing.assert_array_equal(image_io.read_image(path), want)
+
+
+@pytest.mark.parametrize("options", ["plain", "restarts_conditioning"])
+@pytest.mark.parametrize("progressive", [False, True],
+                         ids=["sequential", "progressive"])
+@pytest.mark.parametrize("sampling", list(LUMA) + ["gray"])
+@pytest.mark.parametrize("size", [(16, 16), (37, 53)],
+                         ids=["16x16", "37x53"])
+def test_arithmetic_coding_matches_cv2(tmp_path, size, sampling,
+                                       progressive, options):
+    """SOF9 and SOF10 (jdarith.c's Q-coder, DC and AC conditioning from
+    DAC, restarts): bit for bit with cv2, and refused by the plain
+    decoder by name."""
+    img = (_content(*size, "noise", seed=size[0]) if size == (16, 16)
+           else _scene(*size, seed=3))
+    if sampling == "gray":
+        img = img[..., 1]
+    extra = ({"restart_rows": 1, "conditioning": True}
+             if options != "plain" else {})
+    data = libjpeg_jpeg(img, arith=True, progressive=progressive,
+                        sampling=LUMA.get(sampling, 0x22), **extra)
+    assert (b"\xff\xca" if progressive else b"\xff\xc9") in data
+    _all_readers_match_cv2(tmp_path, data)
+    with pytest.raises(ValueError, match="arithmetic"):
+        jpeg.decode_pixels(data)
+
+
+def test_arithmetic_table_is_libjpeg_turbos():
+    """The Q-coder's state table (T.81 Table D.2) in the C library equals
+    the `jpeg_aritab` that Pillow's libjpeg-turbo 3.1 exports."""
+    import ctypes
+
+    import PIL
+
+    libs = sorted((Path(PIL.__file__).parent.parent / "pillow.libs").glob(
+        "libjpeg-*.so*"))
+    theirs = (ctypes.c_long * 114).in_dll(ctypes.CDLL(str(libs[0])),
+                                          "jpeg_aritab")
+    ours = (ctypes.c_int32 * 114).in_dll(image_codec.library(),
+                                         "jpeg_arith_table")
+    assert list(ours) == list(theirs)
+
+
+@pytest.mark.parametrize("point_transform", [0, 2])
+@pytest.mark.parametrize("predictor", range(1, 8))
+def test_lossless_matches_cv2(tmp_path, predictor, point_transform):
+    """SOF3 at 8 bits, RGB (what libjpeg-turbo writes from RGB): each
+    predictor, a point transform, 4:2:0 (box upsampling: lossless frames
+    take no fancy upsampling)."""
+    data = libjpeg_jpeg(_scene(37, 53, seed=predictor), predictor=predictor,
+                        point_transform=point_transform)
+    _all_readers_match_cv2(tmp_path, data)
+    with pytest.raises(ValueError, match="lossless"):
+        jpeg.decode_pixels(data)
+
+
+@pytest.mark.parametrize("case", ["444_restarts", "422_restarts2",
+                                  "cmyk", "cmyk_420"])
+def test_lossless_restarts_and_cmyk_match_cv2(tmp_path, case):
+    img = _content(29, 41, "noise", seed=7)
+    if case.startswith("cmyk"):
+        img = np.concatenate([img, img[..., :1] ^ 0x55], -1)
+    sampling = {"444_restarts": 0x11, "422_restarts2": 0x21, "cmyk": 0x11,
+                "cmyk_420": 0x22}[case]
+    rows = {"444_restarts": 1, "422_restarts2": 2}.get(case, 0)
+    data = libjpeg_jpeg(img, predictor=6, sampling=sampling,
+                        restart_rows=rows)
+    _all_readers_match_cv2(tmp_path, data)
+
+
+@pytest.mark.parametrize("scans", range(1, 10))
+@pytest.mark.parametrize("sampling", ["420", "444", "arith_420"])
+def test_block_smoothing_matches_cv2(tmp_path, sampling, scans):
+    """A progressive file ended after each of its first scans: libjpeg
+    reads it through its inter-block smoothing (the 5x5 DC neighbourhood,
+    its estimates of coefficients 1-9, the DC itself before any AC scan;
+    rows clamped as libjpeg-turbo's buffer clamps them)."""
+    img = _content(41, 77, "edges", seed=scans)
+    full = libjpeg_jpeg(img, progressive=True, quality=75,
+                        arith=sampling.startswith("arith"),
+                        sampling=LUMA[sampling[-3:]])
+    _all_readers_match_cv2(tmp_path, until_scan(full, scans))
+
+
+@pytest.mark.parametrize("scans", range(1, 6))
+def test_block_smoothing_of_gray_and_narrow_images_matches_cv2(tmp_path,
+                                                               scans):
+    for h, w in ((9, 9), (40, 16), (16, 40), (8, 8)):
+        data = libjpeg_jpeg(_content(h, w, "noise", seed=h + w)[..., 0],
+                            progressive=True)
+        _all_readers_match_cv2(tmp_path, until_scan(data, scans))
+
+
+@pytest.mark.parametrize("mode", ["arithmetic", "arithmetic_progressive",
+                                  "arithmetic_restarts", "lossless",
+                                  "lossless_restarts", "progressive_420",
+                                  "progressive_444_restarts"])
+def test_cut_files_match_cv2_imread_in_every_mode(tmp_path, mode):
+    """Files cut at 23 offsets of their data, headers between scans
+    included: `read_image` returns `cv2.imread`'s pixels where it returns
+    any (arithmetic decoding on zero bytes up to a bad code, lossless rows
+    on zero differences from a reset predictor, smoothing with the
+    previous scan's coefficient bits below the cut) and refuses the file
+    where cv2 returns None; `decode_image` refuses the bytes, as
+    `cv2.imdecode` does."""
+    options = {
+        "arithmetic": {"arith": True},
+        "arithmetic_progressive": {"arith": True, "progressive": True},
+        "arithmetic_restarts": {"arith": True, "restart_rows": 1},
+        "lossless": {"predictor": 1, "sampling": 0x11},
+        "lossless_restarts": {"predictor": 2, "restart_rows": 1},
+        "progressive_420": {"progressive": True},
+        "progressive_444_restarts": {"progressive": True, "sampling": 0x11,
+                                     "restart_rows": 1},
+    }[mode]
+    data = libjpeg_jpeg(_content(37, 53, "noise", seed=11), **options)
+    sos = data.index(b"\xff\xda")
+    read = 0
+    for frac in np.linspace(0.02, 0.999, 23):
+        part = data[:int(sos + (len(data) - sos) * frac)]
+        assert cv2.imdecode(np.frombuffer(part, np.uint8),
+                            cv2.IMREAD_COLOR) is None
+        with pytest.raises(ValueError):
+            image_io.decode_image(part)
+        want = _imread(tmp_path, part)
+        path = tmp_path / "cut.jpg"
+        path.write_bytes(part)
+        if want is None:
+            with pytest.raises(ValueError):
+                image_io.read_image(path)
+            continue
+        np.testing.assert_array_equal(image_io.read_image(path), want,
+                                      err_msg=f"{mode} {frac}")
+        read += 1
+    assert read >= 12
+
+
+def _relabel(data: bytes, marker: int) -> bytes:
+    sof = _sof_offset(data)
+    return data[:sof + 1] + bytes([marker]) + data[sof + 2:]
+
+
+def _not_read(case: str) -> tuple[bytes, str]:
+    """Files of modes cv2 5.0 returns no image for, and the name the port's
+    refusal gives."""
+    img = _scene(24, 32, seed=4)
+    deep = np.random.RandomState(5).randint(0, 4096, (24, 32, 3))
+    if case == "lossless_gray":
+        return libjpeg_jpeg(img[..., 0], predictor=1), "gray lossless"
+    if case == "lossless_ycbcr":
+        return (with_adobe_transform(libjpeg_jpeg(img, predictor=1), 1),
+                "lossless JPEGs in YCbCr")
+    if case == "lossless_ycck":
+        cmyk = np.concatenate([img, img[..., :1]], -1)
+        return (with_adobe_transform(libjpeg_jpeg(cmyk, predictor=1), 2),
+                "lossless JPEGs in YCbCr or YCCK")
+    if case == "lossless_12bit":
+        return libjpeg_jpeg(deep, precision=12, predictor=1), "12-bit lossless"
+    if case == "lossless_16bit":
+        return (libjpeg_jpeg(deep * 16, precision=16, predictor=1),
+                "16-bit lossless")
+    if case == "sequential_12bit":
+        return libjpeg_jpeg(deep, precision=12), "12-bit DCT"
+    if case == "progressive_12bit":
+        return libjpeg_jpeg(deep, precision=12, progressive=True), "12-bit DCT"
+    if case == "arithmetic_12bit":
+        return libjpeg_jpeg(deep, precision=12, arith=True), "12-bit DCT"
+    if case == "sof11":  # libjpeg-turbo writes no arithmetic lossless
+        return (_relabel(libjpeg_jpeg(img, predictor=1), 0xCB),
+                r"arithmetic-coded lossless \(SOF11\)")
+    marker = int(case[3:], 16) + 0xC0 if case.startswith("sof") else None
+    name = {0xC5: "differential sequential", 0xC6: "differential progressive",
+            0xC7: "differential lossless",
+            0xCD: "arithmetic-coded differential sequential",
+            0xCE: "arithmetic-coded differential progressive",
+            0xCF: "arithmetic-coded differential lossless"}[marker]
+    return _relabel(_encode(img, 90, "420"), marker), name
+
+
+@pytest.mark.parametrize("case", [
+    "lossless_gray", "lossless_ycbcr", "lossless_ycck", "lossless_12bit",
+    "lossless_16bit", "sequential_12bit", "progressive_12bit",
+    "arithmetic_12bit", "sof11", "sof5", "sof6", "sof7", "sofd", "sofe",
+    "soff"])
+def test_modes_cv2_does_not_read_are_refused_by_name(tmp_path, case):
+    """Not a fault: cv2 5.0 returns no image for these (`imdecode` and
+    `imread`), and the port refuses them with a ValueError naming the
+    mode: lossless frames that would need a colour conversion (gray,
+    YCbCr, YCCK: libjpeg-turbo converts none in lossless mode), samples
+    wider than 8 bits (OpenCV calls only the 8-bit functions),
+    arithmetic-coded lossless and the hierarchical (differential)
+    frames, which libjpeg-turbo does not read."""
+    data, match = _not_read(case)
+    assert cv2.imdecode(np.frombuffer(data, np.uint8),
+                        cv2.IMREAD_COLOR) is None
+    assert _imread(tmp_path, data) is None
+    with pytest.raises(ValueError, match=match):
+        image_codec.decode_jpeg(data)
+    with pytest.raises(ValueError, match=match):
+        image_io.read_image(tmp_path / "x.jpg")
+    with pytest.raises(ValueError):
+        jpeg.decode_pixels(data)
+
+
+MODE_FIXTURES = sorted(p.name for p in FIXTURES.glob("c3_*.jpg")
+                       if p.name.split("_")[1] in ("arith", "lossless",
+                                                   "smooth"))
+
+
+@pytest.mark.parametrize("name", MODE_FIXTURES)
+def test_mode_fixtures_read_as_cv2_reads_them(tmp_path, name):
+    """The committed fixtures of these modes, which the card's machine
+    holds to their digests: every reader equals cv2, and the plain
+    decoder refuses them."""
+    data = (FIXTURES / name).read_bytes()
+    _all_readers_match_cv2(tmp_path, data)
+    with pytest.raises(ValueError):
+        jpeg.decode_pixels(data)
 
 
 def test_other_formats_name_themselves(tmp_path):
@@ -554,7 +856,7 @@ def test_committed_digests_equal_cv2_and_the_port():
     files = sorted(p.name for p in FIXTURES.iterdir()
                    if p.suffix in (".jpg", ".png"))
     assert sorted(digests) == files
-    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) <= 500_000
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) <= 510_000
     for name, want in digests.items():
         path = FIXTURES / name
         rgb = cv2.imread(str(path), cv2.IMREAD_COLOR)[:, :, ::-1]
@@ -568,6 +870,11 @@ def test_committed_digests_equal_cv2_and_the_port():
         assert _sha(got) == want["rgb_sha256"], name
         assert _sha(image_io.resize_linear(got, size)) \
             == want["letterbox_sha256"], name
+        if "imencode_sha256" in want:
+            bgr = np.ascontiguousarray(rgb[:, :, ::-1])
+            ours = hashlib.sha256(image_io.encode_jpeg(rgb)).hexdigest()
+            theirs = hashlib.sha256(cv2.imencode(".jpg", bgr)[1]).hexdigest()
+            assert ours == theirs == want["imencode_sha256"], name
         if (name.endswith(".jpg") and not name.startswith("c3_")
                 and rgb.shape[0] * rgb.shape[1] <= 40_000):
             data = path.read_bytes()

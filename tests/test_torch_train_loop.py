@@ -4,8 +4,8 @@
 (64² images, batch 4): the checkpoint manager's decisions equal orbax's
 (the JAX package's manager) step for step; four steps straight equal two,
 a restart from the checkpoint and two more, bit for bit; the loop writes
-the JAX loop's metric keys at the JAX loop's steps; more than one device
-is refused; and `train --device cpu --synthetic 8 --steps 2 --model-dir`
+the JAX loop's metric keys at the JAX loop's steps (several devices:
+tests/test_torch_ddp.py); and `train --device cpu --synthetic 8 --steps 2 --model-dir`
 exports a model that the JAX package's `infer/export.py` reads, its
 Predictor's outputs on it within tests/test_torch_predictor.py's
 tolerances of the port's."""
@@ -175,11 +175,6 @@ def test_metric_keys_and_steps_equal_the_jax_loops(tmp_path, batches,
     for m in lines:
         assert sorted(m) == want
         assert all(np.isfinite(v) for v in m.values())
-
-
-def test_more_than_one_device_is_refused(tmp_path, batches):
-    with pytest.raises(NotImplementedError, match="DDP"):
-        _train(_config(tmp_path), batches, 1, num_devices=4)
 
 
 def test_training_needs_the_card_unless_asked_for_the_cpu(tmp_path,
@@ -364,6 +359,36 @@ def test_chip_smoke_train_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert lines[3]["steps_logged"] == [1, 2, 3, 4, 5]
     config = json.loads((tmp_path / "trained" / "config.json").read_text())
     assert config["prn"] == dataclasses.asdict(Config().prn)
+
+
+def test_chip_smoke_train_ddp_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke.py's `train_ddp` on the CPU: the tiny config at 64²,
+    global batch 4, two ranks (this process and one spawned) over gloo as
+    on a one-card machine, against the one-rank run; the all-reduce
+    timing spawns its other rank too."""
+    from multiposenet_tpu_torch.data import loader, synthetic
+    from multiposenet_tpu_torch.parallel import mesh as mesh_lib
+
+    import sys
+
+    smoke, lines, TinyConfig = _rehearsal(monkeypatch)
+    # The spawned all-reduce rank finds its function by module name.
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)
+    monkeypatch.setattr(smoke, "TRAIN_BATCH", 4)
+    # The tiny config reaches its peak lr in 2 steps, where Adam moves an
+    # element of near-zero gradient by about ±lr on the shards' summation
+    # order (tests/test_torch_ddp.py holds float64 to 1e-10); Config()'s
+    # lr is 1e-6 and 2e-6 at the card's steps 2 and 3, held to 1e-5.
+    monkeypatch.setattr(smoke, "DDP_TOL", 1e-2)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    smoke.phase_train_ddp(TinyConfig, synthetic, loader, loop, mesh_lib,
+                          torch.device("cpu"), "cpu")
+    row = lines[-1]
+    assert row["phase"] == "train_ddp" and row["world_size"] == 2
+    assert row["backend"] == "gloo" and row["allreduce_ms"] > 0
+    assert len(row["step_ms"]) == 3 and len(
+        row["loader_img_per_s_per_rank"]) == 2
+    assert row["held_ok"] and row["max_rel_err"]["params_of_scale"] <= 1e-2
 
 
 def test_chip_smoke_mask_prn_profile_phases_rehearse_on_cpu(monkeypatch,
