@@ -773,7 +773,37 @@ def phase_parity_f32(Config, MultiPoseNet, folding, kp_tail, kernels,
     emit({"phase": "parity_f32", "tf32": False, "batch": 2, "image": IMAGE,
           "models": ["Config.fast()", "Config.crowd() BN folded, tail on",
                      "Config() on normalized 2x2 cells"],
-          "tolerance": "1e-3 x max(1, max|cpu|)", "max_abs_err": errs})
+          "tolerance": "1e-3 x max(1, max|cpu|)", "max_abs_err": errs,
+          "normalize_bit_equal": normalize_checks(image_ops, imgs, device)})
+
+
+def normalize_checks(image_ops, imgs: np.ndarray, device) -> dict:
+    """The input normalization on the card against the CPU, bit for bit:
+    every uint8 value of every channel, the s2d-flat and s4-flat cells of
+    uint8 batches, and one letterboxed 480x640 `predict` input (float
+    pixels, the float64 multiply-add path). Both compute what the JAX
+    package's compiled programs compute (tests/test_torch_normalize.py)."""
+    values = torch.arange(256, dtype=torch.uint8)[:, None].repeat(1, 3)
+    photo = planted_scenes(np.random.RandomState(3), 1, 480, 640)[0]
+    cases = {
+        "normalize_all_values": (image_ops.normalize, values),
+        "normalize_s2d_flat": (image_ops.normalize_s2d_flat, torch.as_tensor(
+            image_ops.space_to_depth_flat(imgs))),
+        "normalize_s4_flat": (image_ops.normalize_s4_flat, torch.as_tensor(
+            image_ops.space_to_depth_flat4(imgs))),
+        "letterbox_480x640": (lambda x: image_ops.resize_pad_normalize(
+            x, IMAGE)[0], torch.as_tensor(photo)),
+    }
+    out = {}
+    for name, (fn, x) in cases.items():
+        want, got = fn(x), fn(x.to(device))
+        torch.cuda.synchronize()
+        if got.device.type != device.type or not torch.equal(got.cpu(),
+                                                             want):
+            raise AssertionError(f"parity_f32: {name} on the card is not "
+                                 "the CPU's bit for bit")
+        out[name] = list(want.shape)
+    return out
 
 
 def staged_batches(rng, n: int, stage, device) -> list[torch.Tensor]:
@@ -1295,7 +1325,9 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     with `image_io.write_png`, one B1 launch and no other kernel, people
     printed, and the drawing read back: its shape, the drawing of the
     printed people bit for bit, and a pixel other than the input's at
-    every drawn keypoint centre. Returns B1's launches."""
+    every drawn keypoint centre; then `--output drawn.bmp` and `drawn.tif`
+    (one B1 launch each) read back as that drawing, in the bytes of the
+    plain writers. Returns B1's launches."""
     scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
     image_path, out_path = directory / "scene.png", directory / "drawn.png"
     image_io.write_png(image_path, scene["image"])
@@ -1333,10 +1365,29 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     if not centres or same:
         raise AssertionError(f"cli_predict: {len(same)} of {len(centres)} "
                              "keypoint centres left as the input")
+    # The same drawing in cv2's BMP and TIFF, each from a predict of its
+    # own (one B1 launch each), read back equal to the PNG's.
+    written = {}
+    for suffix in (".bmp", ".tif"):
+        path = directory / f"drawn{suffix}"
+        kernels.reset_launches()
+        cli_stdout(cli, ["predict", "--model-dir", str(directory), "--image",
+                         str(image_path), "--output", str(path)])
+        if kernels.LAUNCHES != {decode.KERNEL: 1}:
+            raise AssertionError(f"cli_predict: --output {suffix} launches "
+                                 f"{kernels.LAUNCHES}")
+        counted[decode.KERNEL] += 1
+        if not np.array_equal(image_io.read_image(path), drawn) or \
+                path.read_bytes() != image_io.encode_image_plain(drawn,
+                                                                 suffix):
+            raise AssertionError(f"cli_predict: drawn{suffix} is not the "
+                                 "drawing in cv2's bytes")
+        written[suffix] = path.stat().st_size
     emit({"phase": "cli_predict", "card": card, "image": [480, 640],
           "persons": len(people), "keypoint_centres_drawn": len(centres),
           "changed_pixels": int((drawn != image).any(-1).sum()),
-          "command_s": command_s, "launches": counted})
+          "command_s": command_s, "launches": counted,
+          "also_written": written})
     return counted[decode.KERNEL]
 
 
@@ -1459,7 +1510,111 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
               lambda: image_io.resize_linear(rgb, size), 50),
           "resize_plain_ms": median_ms(
               lambda: image_io.resize_linear_plain(rgb, size), 5),
+          "formats": image_format_checks(image_io, image_codec, rgb),
           "clock": "host perf_counter, median"})
+
+
+def image_format_checks(image_io, image_codec, rgb: np.ndarray) -> dict:
+    """The simple formats on the host C library, from bytes the port
+    writes itself (the card's machine has no cv2): the C and plain
+    writers of every cv2 suffix give equal bytes, read back (C and plain)
+    as the pixels; the C and plain readers give equal pixels on crafted
+    BMP RLE4/RLE8, TIFF LZW (planar, predictor, 16-bit, palette, old
+    style) and PackBits, and GIF (interlace, transparency) files, and the
+    C and plain coders equal outputs on random streams. Times on the host
+    clock (median): the C decode and encode of the 480x640 photo in BMP,
+    PPM and TIFF-LZW, and the C decode of a 256-colour GIF of it (LZW
+    compressed as an encoder writes it)."""
+    from multiposenet_tpu_torch.tools import image_samples as samples
+    from multiposenet_tpu_torch.utils import gif, tiff
+
+    written = {}
+    for suffix in (".bmp", ".ppm", ".pam", ".pfm", ".sr", ".tif"):
+        data = image_io.encode_image(rgb, suffix)
+        if data != image_io.encode_image_plain(rgb, suffix):
+            raise AssertionError(f"image_codec: the C and plain {suffix} "
+                                 "writers differ")
+        for read in (image_io.decode_image, image_io.decode_image_plain):
+            if not np.array_equal(read(data), rgb):
+                raise AssertionError(f"image_codec: {suffix} does not read "
+                                     "back as the pixels")
+        written[suffix] = len(data)
+    rng = np.random.default_rng(0)
+    small = rgb[:37, :45]
+    r16 = rng.integers(0, 65536, (9, 11, 3)).astype(np.uint16)
+    pal = rng.integers(0, 256, (256, 4), dtype=np.uint8)
+    idx = rng.integers(0, 16, (17, 6))
+    crafted = {
+        "bmp_rle8": samples.bmp_bytes(6, 3, 8, 1, bytes(
+            [2, 5, 0, 2, 2, 1, 1, 9, 0, 0, 0, 3, 1, 2, 3, 0, 0, 1]), pal),
+        "bmp_rle4": samples.bmp_bytes(5, 2, 4, 2, bytes(
+            [5, 0x12, 0, 0, 0, 3, 0x34, 0x50, 0, 0, 0, 1]), pal[:16]),
+        "tiff_lzw_planar_predictor": samples.tiff_bytes(
+            small, 2, compression=5, predictor=2, planar=2,
+            rows_per_strip=8),
+        "tiff_lzw_16bit_predictor": samples.tiff_bytes(
+            r16, 2, bps=16, compression=5, predictor=2),
+        "tiff_lzw_palette_16bit_map": samples.tiff_bytes(
+            small[..., 0], 3, compression=5,
+            colormap=rng.integers(0, 65536, (3, 256))),
+        "tiff_packbits_tiles": samples.tiff_bytes(
+            small, 2, compression=32773, tile=(16, 32)),
+        "gif_compressed_table_full": samples.gif_bytes(
+            (45, 37), [dict(idx=small[..., 0] >> 4, lzw=samples.gif_lzw(
+                (small[..., 0] >> 4).reshape(-1), 4))], pal[:16, :3]),
+        "gif_interlaced_transparent": samples.gif_bytes(
+            (8, 19), [dict(idx=idx, interlace=True, transp=3, left=1,
+                           top=2)], pal[:16, :3], bg=5),
+    }
+    for name, data in crafted.items():
+        if not np.array_equal(image_io.decode_image(data),
+                              image_io.decode_image_plain(data)):
+            raise AssertionError(f"image_codec: C and plain differ on "
+                                 f"{name}")
+    for _ in range(100):
+        data = rng.integers(0, 256, int(rng.integers(1, 300)),
+                            dtype=np.uint8).tobytes()
+        want = int(rng.integers(1, 1500))
+        pairs = ((image_codec.tiff_lzw, tiff.lzw_decode_plain, ()),
+                 (image_codec.packbits, tiff.packbits_plain, ()),
+                 (image_codec.gif_lzw, gif.lzw_decode_plain, (4,)))
+        for c_fn, plain_fn, extra in pairs:
+            got = []
+            for fn in (c_fn, plain_fn):
+                try:
+                    got.append(fn(data, *extra, want))
+                except ValueError:
+                    got.append(None)
+            if got[0] != got[1]:
+                raise AssertionError(f"image_codec: {c_fn.__name__} and its "
+                                     "plain version differ")
+    q = ((rgb[..., 0] >> 5) << 5) | ((rgb[..., 1] >> 5) << 2) | (
+        rgb[..., 2] >> 6)
+    levels = np.arange(256)
+    gif_pal = np.stack([(levels >> 5) * 36, ((levels >> 2) & 7) * 36,
+                        (levels & 3) * 85], -1).astype(np.uint8)
+    gif_data = samples.gif_bytes(
+        (rgb.shape[1], rgb.shape[0]),
+        [dict(idx=q, lzw=samples.gif_lzw(q.reshape(-1), 8))], gif_pal)
+    if not np.array_equal(image_io.decode_image(gif_data), gif_pal[q]):
+        raise AssertionError("image_codec: the GIF of the photo does not "
+                             "read back")
+    times = {}
+    for suffix, key in ((".bmp", "bmp"), (".ppm", "ppm"),
+                        (".tif", "tiff_lzw")):
+        data = image_io.encode_image(rgb, suffix)
+        times[key] = {
+            "c_decode_ms": median_ms(lambda: image_io.decode_image(data), 20),
+            "c_encode_ms": median_ms(
+                lambda: image_io.encode_image(rgb, suffix), 20),
+            "bytes": len(data)}
+    times["gif"] = {"c_decode_ms": median_ms(
+        lambda: image_io.decode_image(gif_data), 20),
+        "bytes": len(gif_data)}
+    return {"written_bytes": written, "crafted": sorted(crafted),
+            "equal": "writers C = plain, read back = pixels; crafted files "
+                     "C = plain; coders C = plain on 100 random streams",
+            "times_480x640": times}
 
 
 def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
@@ -1472,7 +1627,7 @@ def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
     printed, the PNG read back equals the drawing of the printed people
     on the decoded JPEG), `--output drawn.jpg` (1 B1 launch, the file
     equals the plain encoder's JPEG of that drawing) and `--output
-    drawn.bmp`, which exits naming the suffix before the model runs. The
+    drawn.gif`, which exits naming the suffix before the model runs. The
     batched eval runs over every visible card: its B1 launches are the
     batches times the cards. Returns B1's launches by command."""
     n_images = len(json.loads(
@@ -1542,17 +1697,17 @@ def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
                              "drawing of the printed people")
     launches["cli_predict_jpeg_output"] = 1
     kernels.reset_launches()
-    bmp_out = directory / "drawn.bmp"
+    gif_out = directory / "drawn.gif"
     try:
         cli_stdout(cli, ["predict", "--model-dir", str(directory), "--image",
-                         str(image_path), "--output", str(bmp_out)])
+                         str(image_path), "--output", str(gif_out)])
     except SystemExit as exc:
         message = str(exc.code)
     else:
-        raise AssertionError("eval_jpeg: --output drawn.bmp did not exit")
-    if ".bmp" not in message or "JPEG" not in message or kernels.LAUNCHES \
-            or bmp_out.exists():
-        raise AssertionError(f"eval_jpeg: --output drawn.bmp: {message!r}, "
+        raise AssertionError("eval_jpeg: --output drawn.gif did not exit")
+    if ".gif" not in message or "JPEG" not in message or kernels.LAUNCHES \
+            or gif_out.exists():
+        raise AssertionError(f"eval_jpeg: --output drawn.gif: {message!r}, "
                              f"launches {kernels.LAUNCHES}")
     emit({"phase": "eval_jpeg", "card": card, "argv": argv,
           "images": n_images, "stats": stats, "launches": counted,
@@ -1561,7 +1716,7 @@ def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
           "predict_image": TIMING_FIXTURE, "persons": len(people),
           "predict_command_s": predict_s, "predict_launches":
               predict_counted, "output_jpg_bytes": jpg_out.stat().st_size,
-          "output_bmp_exit": message})
+          "output_gif_exit": message})
     return launches
 
 

@@ -169,17 +169,17 @@ def cmd_eval(args) -> None:
 
 def cmd_predict(args) -> None:
     from multiposenet_tpu_torch.utils.image_io import (
-        read_image, write_jpeg, write_png)
+        UNWRITTEN_SUFFIXES, WRITTEN_SUFFIXES, read_image, write_image)
     from multiposenet_tpu_torch.utils.visualize import draw_predictions
 
-    writers = {".png": write_png, ".jpg": write_jpeg, ".jpeg": write_jpeg,
-               ".jpe": write_jpeg}
     suffix = Path(args.output).suffix.lower() if args.output else None
-    if args.output and suffix not in writers:
+    known = (".png", ".jpg", ".jpeg", ".jpe", *WRITTEN_SUFFIXES,
+             *UNWRITTEN_SUFFIXES)
+    if args.output and suffix not in known:
         shown = Path(args.output).suffix or "none"
-        sys.exit(f"--output {args.output}: suffix {shown} is not "
-                 "written here; only PNG (.png) and JPEG (.jpg, .jpeg, "
-                 ".jpe) are written")
+        sys.exit(f"--output {args.output}: suffix {shown} is not written "
+                 "here; PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster and "
+                 "TIFF are")
     predictor = _load_predictor(args)
     try:
         rgb = read_image(args.image)
@@ -192,7 +192,9 @@ def cmd_predict(args) -> None:
         for p in people
     ]))
     if args.output:
-        writers[suffix](args.output, draw_predictions(rgb, people))
+        # As the reference's cv2.imwrite: .pgm and .pbm write no file for
+        # 3-channel pixels, and "wrote" is printed all the same.
+        write_image(args.output, draw_predictions(rgb, people))
         print(f"wrote {args.output}", file=sys.stderr)
 
 
@@ -209,7 +211,8 @@ def main(argv=None) -> None:
                             "knobs (README)")
         p.add_argument("--coco-json", help="COCO person_keypoints json")
         p.add_argument("--image-dir", help="image directory for COCO "
-                                           "(JPEG, PNG or .npy files)")
+                                           "(JPEG, PNG, BMP, PxM, Sun "
+                                           "raster, TIFF, GIF or .npy)")
         p.add_argument("--synthetic", type=int,
                        help="use N synthetic images instead of COCO")
         p.add_argument("--model-dir", help="export/load directory")

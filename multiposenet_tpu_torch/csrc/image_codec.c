@@ -1,6 +1,8 @@
 /* Host image codec of the port: JPEG decoding and encoding, cv2's INTER_LINEAR
  * resize on uint8 and on two-channel float32, its INTER_AREA on float32,
- * and cv2.fillPoly, in plain C99 with no library.
+ * cv2.fillPoly, the byte coders of the simple formats (TIFF LZW and
+ * PackBits, GIF LZW, BMP RLE4/RLE8) and cv2.imencode's writers for .bmp,
+ * .ppm/.pam/.pfm, .sr and .tif, in plain C99 with no library.
  *
  * decode_jpeg decodes as libjpeg-turbo 3 does under OpenCV 5's reader:
  * sequential (SOF0, SOF1) and progressive (SOF2) Huffman-coded frames,
@@ -60,6 +62,12 @@
  * is described where it is defined. Their plain versions are
  * utils/image_io.py resize_linear_plain, resize_area_plain and
  * data/masks.py fill_polygons_plain.
+ *
+ * tiff_lzw, packbits, gif_lzw and bmp_rle run one strip, tile, frame or
+ * bitmap's codes for the parsers in utils/tiff.py, gif.py and bmp.py,
+ * which hold their plain versions; encode_bmp, encode_pxm, encode_sunras
+ * and encode_tiff write whole files (plain versions utils/bmp.py,
+ * pxm.py, sunras.py and tiff.py encode).
  *
  * Built by `kernels.py load_host` with `cc -O2 -std=c99 -shared -fPIC`;
  * called through ctypes.
@@ -2835,4 +2843,615 @@ int fill_polygons(uint8_t *img, int h, int w, const int32_t *pts,
     rc = fill_edges(img, h, w, edges, total, value);
     free(edges);
     return rc;
+}
+
+/* ------------------------------------------------------------------ */
+/* The byte coders of the simple formats (utils/tiff.py, gif.py, bmp.py */
+/* hold their plain versions and the parsing around them).             */
+
+/* libtiff's LZWDecode of one strip or tile into out[0..want): codes MSB
+ * first from 9 bits, the width growing one code early (at 511, 1023,
+ * 2047); a stream starting with 00 and an odd byte is old-style LZW
+ * (LZWDecodeCompat: codes LSB first, the width growing at 512, 1024,
+ * 2048). A stream without its EOI code ends where its bits do. Returns the
+ * bytes produced, or -1 for a corrupt table. */
+long tiff_lzw(const uint8_t *src, long n, uint8_t *out, long want)
+{
+    static uint16_t prefix[4096];
+    static uint8_t suffix[4096], first[4096];
+    static uint16_t length[4096];
+    int old = n >= 2 && src[0] == 0 && (src[1] & 1);
+    int nbits = 9, free_ent = 258, prev = -1;
+    long pos = 0, produced = 0, consumed = 0, total = n * 8;
+    uint64_t acc = 0;
+    int have = 0;
+    for (int i = 0; i < 256; i++) {
+        prefix[i] = 0;
+        suffix[i] = first[i] = (uint8_t)i;
+        length[i] = 1;
+    }
+    while (produced < want) {
+        int code;
+        if (total - consumed < nbits)
+            break;
+        while (have < nbits) {
+            if (old)
+                acc |= (uint64_t)src[pos++] << have;
+            else
+                acc = (acc << 8) | src[pos++];
+            have += 8;
+        }
+        if (old) {
+            code = (int)(acc & ((1u << nbits) - 1));
+            acc >>= nbits;
+        } else {
+            code = (int)((acc >> (have - nbits)) & ((1u << nbits) - 1));
+            acc &= ((uint64_t)1 << (have - nbits)) - 1;
+        }
+        have -= nbits;
+        consumed += nbits;
+        if (code == 257)
+            break;
+        if (code == 256) {
+            free_ent = 258;
+            nbits = 9;
+            prev = -1;
+            continue;
+        }
+        int entry = code;
+        if (prev < 0) {
+            if (code > 256)
+                return -1;
+        } else {
+            if (code > free_ent)
+                return -1;
+            if (free_ent >= 4096)
+                return -1;
+            int base = code == free_ent ? prev : code;
+            prefix[free_ent] = (uint16_t)prev;
+            suffix[free_ent] = first[base];
+            first[free_ent] = first[prev];
+            length[free_ent] = (uint16_t)(length[prev] + 1);
+            free_ent++;
+        }
+        /* write the entry's bytes backwards, clipped to want */
+        long len = length[entry];
+        for (long i = len - 1, c = entry; i >= 0; i--) {
+            if (produced + i < want)
+                out[produced + i] = suffix[c];
+            c = prefix[c];
+        }
+        produced = produced + len < want ? produced + len : want;
+        prev = code;
+        if (free_ent > (1 << nbits) - (old ? 1 : 2) && nbits < 12)
+            nbits++;
+    }
+    return produced;
+}
+
+/* libtiff's PackBitsDecode into out[0..want); returns the bytes
+ * produced. */
+long packbits(const uint8_t *src, long n, uint8_t *out, long want)
+{
+    long i = 0, o = 0;
+    while (i < n && o < want) {
+        int c = src[i++];
+        if (c >= 128)
+            c -= 256;
+        if (c < 0) {
+            if (c == -128)
+                continue;
+            long run = -c + 1;
+            if (run > want - o)
+                run = want - o;
+            if (i >= n)
+                break;
+            memset(out + o, src[i++], (size_t)run);
+            o += run;
+        } else {
+            long run = c + 1;
+            if (run > want - o)
+                run = want - o;
+            if (n - i < run)
+                break;
+            memcpy(out + o, src + i, (size_t)run);
+            o += run;
+            i += run;
+        }
+    }
+    return o;
+}
+
+/* GIF's LZW into out[0..count): codes LSB first from min_size + 1 bits,
+ * the width growing when the table reaches 1 << width, up to 12 bits, the
+ * table frozen at 4096 entries until a clear code. Returns the indices
+ * produced, or -1 for a code past the table. */
+long gif_lzw(const uint8_t *src, long n, int min_size, uint8_t *out,
+             long count)
+{
+    static uint16_t prefix[4096], length[4096];
+    static uint8_t suffix[4096], first[4096];
+    int clear = 1 << min_size, eoi = clear + 1;
+    int width = min_size + 1, size = eoi + 1, prev = -1;
+    long pos = 0, produced = 0;
+    uint32_t acc = 0;
+    int bits = 0;
+    if (min_size < 1 || min_size > 11)
+        return -1;
+    for (int i = 0; i < clear; i++) {
+        prefix[i] = 0;
+        suffix[i] = first[i] = (uint8_t)i;
+        length[i] = 1;
+    }
+    while (produced < count) {
+        while (bits < width && pos < n) {
+            acc |= (uint32_t)src[pos++] << bits;
+            bits += 8;
+        }
+        if (bits < width)
+            break;
+        int code = (int)(acc & ((1u << width) - 1));
+        acc >>= width;
+        bits -= width;
+        if (code == clear) {
+            size = eoi + 1;
+            width = min_size + 1;
+            prev = -1;
+            continue;
+        }
+        if (code == eoi)
+            break;
+        if (prev < 0) {
+            if (code >= size)
+                return -1;
+        } else {
+            if (code > size)
+                return -1;
+            if (size < 4096) {
+                int base = code == size ? prev : code;
+                prefix[size] = (uint16_t)prev;
+                suffix[size] = first[base];
+                first[size] = first[prev];
+                length[size] = (uint16_t)(length[prev] + 1);
+                size++;
+            } else if (code == size) {
+                return -1;
+            }
+        }
+        long len = length[code];
+        for (long i = len - 1, c = code; i >= 0; i--) {
+            if (produced + i < count)
+                out[produced + i] = suffix[c];
+            c = prefix[c];
+        }
+        produced = produced + len < count ? produced + len : count;
+        prev = code;
+        if (size == (1 << width) && width < 12)
+            width++;
+    }
+    return produced;
+}
+
+/* An RLE4 or RLE8 BMP stream from data[offset] into rgb [height, width, 3]
+ * rows in file order, as OpenCV 5.0's BmpDecoder::readData runs it:
+ * encoded runs (RLE4: two alternating palette colours), absolute runs
+ * (word aligned), and the escapes end of line, end of bitmap and delta,
+ * whose skipped pixels take palette entry 0 (cv2's FillUniColor, wrapping
+ * from row to row). In RLE8 the end of bitmap fills every row left and a
+ * delta skips dx + dy rows; in RLE4 both stay in the row (dx, or the
+ * row's rest). Returns 0, or 1 with a message when cv2 gives no image
+ * (a run past the row's end, data that ends early). */
+int bmp_rle(const uint8_t *data, long n, long offset, int bits,
+            const uint8_t *palette, int height, int width, uint8_t *rgb,
+            char *err, int err_len)
+{
+    long total = (long)height * width, pos = 0, line_end = width;
+    long at = offset;
+    int y = 0, line_end_flag = 0;
+#define RLE_FAIL(msg)                                                     \
+    do {                                                                  \
+        snprintf(err, (size_t)err_len, "BMP RLE%d: %s", bits, msg);       \
+        return 1;                                                         \
+    } while (0)
+#define RLE_BYTE(v)                                                       \
+    do {                                                                  \
+        if (at >= n)                                                      \
+            RLE_FAIL("data ends early");                                  \
+        (v) = data[at++];                                                 \
+    } while (0)
+    memset(rgb, 0, (size_t)total * 3);
+    if (offset < 0)
+        RLE_FAIL("data ends early");
+    for (;;) {
+        int len, code;
+        RLE_BYTE(len);
+        RLE_BYTE(code);
+        if (len) {
+            if (pos + len > line_end)
+                RLE_FAIL("run past the end of a row");
+            if (bits == 4) {
+                const uint8_t *c[2] = {palette + 3 * (code >> 4),
+                                       palette + 3 * (code & 15)};
+                for (int t = 0; t < len; t++)
+                    memcpy(rgb + 3 * (pos + t), c[t & 1], 3);
+                pos += len;
+                continue;
+            }
+        } else if (code > 2) {
+            if (pos + code > line_end)
+                RLE_FAIL("run past the end of a row");
+            long words = bits == 4 ? ((((code + 1) >> 1) + 1) & ~1)
+                                   : ((code + 1) & ~1);
+            if (at + words > n)
+                RLE_FAIL("data ends early");
+            for (int t = 0; t < code; t++) {
+                int idx = bits == 4
+                    ? (t & 1 ? data[at + t / 2] & 15 : data[at + t / 2] >> 4)
+                    : data[at + t];
+                memcpy(rgb + 3 * (pos + t), palette + 3 * idx, 3);
+            }
+            at += words;
+            pos += code;
+            line_end_flag = 0;
+            continue;
+        }
+        /* An encoded RLE8 run, or an escape: fill `count` pixels of one
+         * colour from pos, wrapping to the next row at its end. */
+        long count;
+        const uint8_t *colour;
+        if (len) {
+            count = len;
+            colour = palette + 3 * code;
+        } else {
+            long x_shift = line_end - pos, y_shift = height - y;
+            if (bits == 8 && !(code || !line_end_flag || x_shift < width)) {
+                line_end_flag = 0;
+                continue;
+            }
+            if (code == 2) {
+                int dx, dy;
+                RLE_BYTE(dx);
+                RLE_BYTE(dy);
+                x_shift = dx;
+                y_shift = dy;
+            }
+            count = x_shift + (code && bits == 8 ? y_shift * width : 0);
+            colour = palette;
+            if (bits == 8 && y >= height)
+                break;
+        }
+        int prev_y = y;
+        for (;;) {
+            long end = pos + count < line_end ? pos + count : line_end;
+            count -= end - pos;
+            for (; pos < end; pos++)
+                memcpy(rgb + 3 * pos, colour, 3);
+            if (pos >= line_end) {
+                line_end += width;
+                pos = line_end - width;
+                if (++y >= height)
+                    break;
+            }
+            if (count <= 0)
+                break;
+        }
+        line_end_flag = len ? y - prev_y : 0;
+        if (y >= height)
+            break;
+    }
+    return 0;
+#undef RLE_BYTE
+#undef RLE_FAIL
+}
+
+/* ------------------------------------------------------------------ */
+/* The writers of cv2.imencode for a 3-channel image: .bmp, .ppm/.pam/ */
+/* .pfm, .sr and .tif (plain versions in utils/bmp.py, pxm.py,         */
+/* sunras.py, tiff.py). Each returns 0, or 1 with *size the bytes      */
+/* needed when cap is too small.                                       */
+
+static void put_le(uint8_t *p, uint32_t v, int n)
+{
+    for (int i = 0; i < n; i++)
+        p[i] = (uint8_t)(v >> (8 * i));
+}
+
+static void put_be(uint8_t *p, uint32_t v, int n)
+{
+    for (int i = 0; i < n; i++)
+        p[i] = (uint8_t)(v >> (8 * (n - 1 - i)));
+}
+
+int encode_bmp(const uint8_t *rgb, int height, int width, uint8_t *out,
+               long cap, long *size)
+{
+    long pitch = ((long)width * 3 + 3) & ~3L;
+    *size = 54 + pitch * height;
+    if (*size > cap)
+        return 1;
+    memset(out, 0, (size_t)*size);
+    out[0] = 'B';
+    out[1] = 'M';
+    put_le(out + 2, (uint32_t)*size, 4);
+    put_le(out + 10, 54, 4);
+    put_le(out + 14, 40, 4);
+    put_le(out + 18, (uint32_t)width, 4);
+    put_le(out + 22, (uint32_t)height, 4);
+    put_le(out + 26, 1, 2);
+    put_le(out + 28, 24, 2);
+    for (int y = 0; y < height; y++) {
+        const uint8_t *s = rgb + (long)(height - 1 - y) * width * 3;
+        uint8_t *d = out + 54 + y * pitch;
+        for (int x = 0; x < width; x++) {
+            d[3 * x] = s[3 * x + 2];
+            d[3 * x + 1] = s[3 * x + 1];
+            d[3 * x + 2] = s[3 * x];
+        }
+    }
+    return 0;
+}
+
+/* kind 0: P6 (.ppm, .pnm); 1: P7 without TUPLTYPE, B, G, R samples (.pam);
+ * 2: PF with scale -1, little-endian R, G, B floats, rows bottom-up. */
+int encode_pxm(int kind, const uint8_t *rgb, int height, int width,
+               uint8_t *out, long cap, long *size)
+{
+    char head[128];
+    int hl;
+    long px = (long)height * width;
+    if (kind == 0)
+        hl = snprintf(head, sizeof head, "P6\n%d %d\n255\n", width, height);
+    else if (kind == 1)
+        hl = snprintf(head, sizeof head,
+                      "P7\nWIDTH %d\nHEIGHT %d\nDEPTH 3\nMAXVAL 255\nENDHDR\n",
+                      width, height);
+    else
+        hl = snprintf(head, sizeof head, "PF\n%d %d\n-1\n", width, height);
+    *size = hl + px * 3 * (kind == 2 ? 4 : 1);
+    if (*size > cap)
+        return 1;
+    memcpy(out, head, (size_t)hl);
+    uint8_t *d = out + hl;
+    if (kind == 0) {
+        memcpy(d, rgb, (size_t)px * 3);
+    } else if (kind == 1) {
+        for (long i = 0; i < px; i++) {
+            d[3 * i] = rgb[3 * i + 2];
+            d[3 * i + 1] = rgb[3 * i + 1];
+            d[3 * i + 2] = rgb[3 * i];
+        }
+    } else {
+        for (int y = 0; y < height; y++) {
+            const uint8_t *s = rgb + (long)(height - 1 - y) * width * 3;
+            for (long i = 0; i < (long)width * 3; i++) {
+                float f = (float)s[i];
+                uint32_t u;
+                memcpy(&u, &f, 4);
+                put_le(d, u, 4);
+                d += 4;
+            }
+        }
+    }
+    return 0;
+}
+
+/* Sun raster: depth 24, RT_STANDARD, no colormap, B, G, R rows padded to
+ * an even length with the byte after the row (the next row's first; 0
+ * after the last row). */
+int encode_sunras(const uint8_t *rgb, int height, int width, uint8_t *out,
+                  long cap, long *size)
+{
+    long row = (long)width * 3, pitch = (row + 1) & ~1L;
+    *size = 32 + pitch * height;
+    if (*size > cap)
+        return 1;
+    const uint32_t head[8] = {0x59A66A95u, (uint32_t)width, (uint32_t)height,
+                              24, (uint32_t)(pitch * height), 1, 0, 0};
+    for (int i = 0; i < 8; i++)
+        put_be(out + 4 * i, head[i], 4);
+    for (int y = 0; y < height; y++) {
+        const uint8_t *s = rgb + y * row;
+        uint8_t *d = out + 32 + y * pitch;
+        for (int x = 0; x < width; x++) {
+            d[3 * x] = s[3 * x + 2];
+            d[3 * x + 1] = s[3 * x + 1];
+            d[3 * x + 2] = s[3 * x];
+        }
+        if (pitch > row)
+            d[row] = y + 1 < height ? s[row + 2] : 0;
+    }
+    return 0;
+}
+
+/* libtiff's LZWEncode and LZWPostEncode of one strip (see
+ * utils/tiff.py lzw_encode_plain); out must hold the worst case. */
+typedef struct {
+    uint8_t *out;
+    long len;
+    uint64_t data;
+    int bits, nbits;
+    long outcount;
+} LzwOut;
+
+static void lzw_put(LzwOut *o, int code)
+{
+    o->data = ((o->data << o->nbits) | (uint64_t)code) & 0xFFFFFFFFu;
+    o->bits += o->nbits;
+    while (o->bits >= 8) {
+        o->out[o->len++] = (uint8_t)(o->data >> (o->bits - 8));
+        o->bits -= 8;
+    }
+    o->outcount += o->nbits;
+}
+
+static long lzw_encode_strip(const uint8_t *src, long n, uint8_t *out,
+                             uint16_t *table, uint32_t *stamp, uint32_t *gen)
+{
+    LzwOut o = {out, 0, 0, 0, 9, 0};
+    int maxcode = 511, free_ent = 258, ent = -1;
+    long incount = 0, checkpoint = 10000, ratio = 0;
+    (*gen)++;
+    if (n > 0) {
+        lzw_put(&o, 256);
+        ent = src[0];
+        incount = 1;
+    }
+    for (long i = 1; i < n; i++) {
+        int c = src[i];
+        long key = ((long)ent << 8) | c;
+        incount++;
+        if (stamp[key] == *gen) {
+            ent = table[key];
+            continue;
+        }
+        lzw_put(&o, ent);
+        stamp[key] = *gen;
+        table[key] = (uint16_t)free_ent++;
+        ent = c;
+        int reset = 0;
+        if (free_ent == 4094) {
+            reset = 1;
+        } else if (free_ent > maxcode) {
+            o.nbits++;
+            maxcode = (1 << o.nbits) - 1;
+        } else if (incount >= checkpoint) {
+            checkpoint = incount + 10000;
+            long rat = (incount << 8) / o.outcount;
+            if (rat <= ratio)
+                reset = 1;
+            else
+                ratio = rat;
+        }
+        if (reset) {
+            (*gen)++;
+            ratio = incount = 0;
+            o.outcount = 0;
+            free_ent = 258;
+            lzw_put(&o, 256);
+            o.nbits = 9;
+            maxcode = 511;
+        }
+    }
+    if (ent >= 0) {
+        lzw_put(&o, ent);
+        free_ent++;
+        if (free_ent == 4094) {
+            o.outcount = 0;
+            lzw_put(&o, 256);
+            o.nbits = 9;
+        } else if (free_ent > maxcode) {
+            o.nbits++;
+        }
+    }
+    lzw_put(&o, 257);
+    if (o.bits)
+        out[o.len++] = (uint8_t)(o.data << (8 - o.bits));
+    return o.len;
+}
+
+/* cv2.imencode(".tif") of a 3-channel image: LZW with the horizontal
+ * predictor, RowsPerStrip max(1, min(H, 8192 / (3 W))), the strips from
+ * byte 8, IFD0 at an even offset, then BitsPerSample, StripByteCounts
+ * (SHORT when several strips and an uncompressed strip under 6553
+ * bytes), StripOffsets and SampleFormat. Returns 0, 1 (cap too small,
+ * *size a bound), 2 (out of memory). */
+int encode_tiff(const uint8_t *rgb, int height, int width, uint8_t *out,
+                long cap, long *size)
+{
+    long row = (long)width * 3;
+    int rps = (int)(8192 / row);
+    if (rps > height)
+        rps = height;
+    if (rps < 1)
+        rps = 1;
+    int nstrips = (height + rps - 1) / rps;
+    long strip_raw = row * rps;
+    /* A strip's codes take at most 12 bits a byte, plus clears. */
+    long bound = 8 + (long)nstrips * (strip_raw * 2 + 16) + 1 + 2 + 12 * 12
+        + 4 + 6 + 8L * nstrips + 6;
+    if (bound > cap) {
+        *size = bound;
+        return 1;
+    }
+    uint8_t *diff = malloc((size_t)strip_raw);
+    uint16_t *table = malloc(sizeof(uint16_t) * 4096 * 256);
+    uint32_t *stamp = calloc(4096 * 256, sizeof(uint32_t));
+    long *counts = malloc(sizeof(long) * (size_t)nstrips);
+    long *offsets = malloc(sizeof(long) * (size_t)nstrips);
+    uint32_t gen = 0;
+    if (!diff || !table || !stamp || !counts || !offsets) {
+        free(diff);
+        free(table);
+        free(stamp);
+        free(counts);
+        free(offsets);
+        return 2;
+    }
+    long at = 8;
+    memcpy(out, "II*\0", 4);
+    for (int s = 0; s < nstrips; s++) {
+        int rows = height - s * rps < rps ? height - s * rps : rps;
+        const uint8_t *src = rgb + (long)s * rps * row;
+        for (int y = 0; y < rows; y++) {
+            const uint8_t *r = src + y * row;
+            uint8_t *d = diff + y * row;
+            for (long i = 0; i < row; i++)
+                d[i] = (uint8_t)(i < 3 ? r[i] : r[i] - r[i - 3]);
+        }
+        offsets[s] = at;
+        counts[s] = lzw_encode_strip(diff, rows * row, out + at, table,
+                                     stamp, &gen);
+        at += counts[s];
+    }
+    if (at & 1)
+        out[at++] = 0;
+    long ifd = at;
+    put_le(out + 4, (uint32_t)ifd, 4);
+    int short_counts = nstrips > 1 && strip_raw < 0xFFFF / 10;
+    long tail = ifd + 2 + 12 * 12 + 4, t = tail;
+    long bits_at = t;
+    for (int i = 0; i < 3; i++, t += 2)
+        put_le(out + t, 8, 2);
+    long counts_at = t, offsets_at = 0;
+    if (nstrips > 1) {
+        for (int s = 0; s < nstrips; s++, t += short_counts ? 2 : 4)
+            put_le(out + t, (uint32_t)counts[s], short_counts ? 2 : 4);
+        offsets_at = t;
+        for (int s = 0; s < nstrips; s++, t += 4)
+            put_le(out + t, (uint32_t)offsets[s], 4);
+    }
+    long formats_at = t;
+    for (int i = 0; i < 3; i++, t += 2)
+        put_le(out + t, 1, 2);
+    const uint32_t entries[12][4] = {
+        {256, 3, 1, (uint32_t)width},
+        {257, 3, 1, (uint32_t)height},
+        {258, 3, 3, (uint32_t)bits_at},
+        {259, 3, 1, 5},
+        {262, 3, 1, 2},
+        {273, 4, (uint32_t)nstrips,
+         (uint32_t)(nstrips > 1 ? offsets_at : offsets[0])},
+        {277, 3, 1, 3},
+        {278, 3, 1, (uint32_t)rps},
+        {279, short_counts ? 3u : 4u, (uint32_t)nstrips,
+         (uint32_t)(nstrips > 1 ? counts_at : counts[0])},
+        {284, 3, 1, 1},
+        {317, 3, 1, 2},
+        {339, 3, 3, (uint32_t)formats_at}};
+    put_le(out + ifd, 12, 2);
+    for (int i = 0; i < 12; i++) {
+        uint8_t *e = out + ifd + 2 + 12 * i;
+        put_le(e, entries[i][0], 2);
+        put_le(e + 2, entries[i][1], 2);
+        put_le(e + 4, entries[i][2], 4);
+        put_le(e + 8, entries[i][3], 4);
+    }
+    put_le(out + ifd + 2 + 12 * 12, 0, 4);
+    *size = t;
+    free(diff);
+    free(table);
+    free(stamp);
+    free(counts);
+    free(offsets);
+    return 0;
 }

@@ -3,9 +3,14 @@ decoding (`utils/jpeg.py` is the plain version of its baseline part) and
 encoding as cv2.imencode does (`utils/jpeg.py encode_pixels`),
 cv2's INTER_LINEAR resize on uint8 and on two-channel float32 and its
 INTER_AREA on float32 (`utils/image_io.resize_linear_plain` and
-`resize_area_plain` are their plain versions), and cv2.fillPoly
-(`data/masks.fill_polygons_plain`). The library is built by `kernels.load_host` on first use; a
-build that fails raises, and nothing falls back to the plain versions.
+`resize_area_plain` are their plain versions), cv2.fillPoly
+(`data/masks.fill_polygons_plain`), the byte coders of the simple formats
+(TIFF LZW and PackBits: `utils/tiff.py`; GIF LZW: `utils/gif.py`; BMP
+RLE4 and RLE8: `utils/bmp.py`) and cv2.imencode's writers for .bmp,
+.ppm/.pam/.pfm, .sr and .tif (plain versions `bmp.encode`, `pxm.encode`,
+`sunras.encode`, `tiff.encode`). The library is built by
+`kernels.load_host` on first use; a build that fails raises, and nothing
+falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -51,6 +56,24 @@ def library() -> ctypes.CDLL:
     lib.fill_polygons.argtypes = [_u8p, ctypes.c_int, ctypes.c_int, _i32p,
                                   _i32p, ctypes.c_int, ctypes.c_uint8]
     lib.fill_polygons.restype = ctypes.c_int
+    for name in ("tiff_lzw", "packbits"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_long, _u8p, ctypes.c_long]
+        fn.restype = ctypes.c_long
+    lib.gif_lzw.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+                            _u8p, ctypes.c_long]
+    lib.gif_lzw.restype = ctypes.c_long
+    lib.bmp_rle.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                            ctypes.c_int, _u8p, ctypes.c_int, ctypes.c_int,
+                            _u8p, ctypes.c_char_p, ctypes.c_int]
+    lib.bmp_rle.restype = ctypes.c_int
+    sized = [_u8p, ctypes.c_int, ctypes.c_int, _u8p, ctypes.c_long,
+             ctypes.POINTER(ctypes.c_long)]
+    for name in ("encode_bmp", "encode_sunras", "encode_tiff"):
+        getattr(lib, name).argtypes = sized
+        getattr(lib, name).restype = ctypes.c_int
+    lib.encode_pxm.argtypes = [ctypes.c_int] + sized
+    lib.encode_pxm.restype = ctypes.c_int
     return lib
 
 
@@ -171,3 +194,76 @@ def fill_polygons(img: np.ndarray, polygons: list, value: int = 1) -> None:
                                counts.ctypes.data_as(_i32p), len(parts),
                                int(value)):
         raise MemoryError("image_codec: out of memory")
+
+
+def _stream(fn: str, data: bytes, want: int, *extra) -> bytes:
+    data = bytes(data)
+    out = np.empty(max(want, 1), np.uint8)
+    n = getattr(library(), fn)(data, len(data), *extra,
+                               out.ctypes.data_as(_u8p), want)
+    if n < 0:
+        raise ValueError(f"corrupt {fn.replace('_', ' ')} data")
+    return out[:n].tobytes()
+
+
+def tiff_lzw(data: bytes, want: int) -> bytes:
+    """libtiff's LZW decode of one strip or tile, up to `want` bytes
+    (`tiff.lzw_decode_plain`)."""
+    return _stream("tiff_lzw", data, want)
+
+
+def packbits(data: bytes, want: int) -> bytes:
+    """libtiff's PackBits decode, up to `want` bytes
+    (`tiff.packbits_plain`)."""
+    return _stream("packbits", data, want)
+
+
+def gif_lzw(data: bytes, min_size: int, count: int) -> bytes:
+    """GIF LZW → up to `count` palette indices (`gif.lzw_decode_plain`)."""
+    return _stream("gif_lzw", data, count, min_size)
+
+
+def bmp_rle(data: bytes, offset: int, bits: int, palette: np.ndarray,
+            height: int, width: int, name="<bytes>") -> np.ndarray:
+    """A BMP RLE4 or RLE8 stream → RGB rows [height, width, 3] in file
+    order, as cv2 runs it (`bmp.rle_plain`)."""
+    data = bytes(data)
+    pal = np.ascontiguousarray(palette, np.uint8)
+    out = np.empty((height, width, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if library().bmp_rle(data, len(data), offset, bits,
+                         pal.ctypes.data_as(_u8p), height, width,
+                         out.ctypes.data_as(_u8p), err, _ERR_LEN):
+        raise ValueError(f"{name}: {err.value.decode(errors='replace')}")
+    return out
+
+
+_PXM_KINDS = {"ppm": 0, "pam": 1, "pfm": 2}
+
+
+def encode_image(rgb: np.ndarray, kind: str) -> bytes:
+    """uint8 RGB [H, W, 3] → what `cv2.imencode` writes for `kind`: one of
+    "bmp", "ppm", "pam", "pfm", "sunras", "tiff"."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[-1] != 3:
+        raise ValueError(f"encode_image takes uint8 RGB [H, W, 3]; got "
+                         f"{rgb.dtype} {rgb.shape}")
+    src = np.ascontiguousarray(rgb)
+    h, w = src.shape[:2]
+    lib = library()
+    if kind in _PXM_KINDS:
+        fn = functools.partial(lib.encode_pxm, _PXM_KINDS[kind])
+    else:
+        fn = getattr(lib, "encode_" + kind)
+    size = ctypes.c_long()
+    cap = 1024 + h * w * 13
+    while True:
+        out = np.empty(cap, np.uint8)
+        rc = fn(src.ctypes.data_as(_u8p), h, w, out.ctypes.data_as(_u8p),
+                cap, ctypes.byref(size))
+        if rc != 1:
+            break
+        cap = size.value
+    if rc:
+        raise MemoryError("image_codec: out of memory")
+    return out[:size.value].tobytes()

@@ -20,15 +20,27 @@ libpng 1.6):
   interlace, palette (tRNS dropped; an index past the palette is black),
   gray at 1, 2 and 4 bits expanded to 8 as libpng does, 16-bit samples
   cut to their high byte (libpng's png_set_strip_16), alpha dropped;
-- `.npy` arrays, uint8 [H, W, 3] or gray [H, W].
+- `.npy` arrays, uint8 [H, W, 3] or gray [H, W];
+- by signature, as cv2 picks its decoder: BMP/DIB (`utils/bmp.py`),
+  PBM/PGM/PPM/PAM/PFM (`utils/pxm.py`), Sun raster (`utils/sunras.py`),
+  TIFF (`utils/tiff.py`) and GIF's first frame (`utils/gif.py`), their
+  byte coders (BMP RLE, TIFF LZW and PackBits, GIF LZW) in the host C
+  library; `decode_image_plain` runs the same readers on the coders'
+  plain versions. Each module names the variants it reads and what cv2
+  5.0 returns no image for.
 Gray is repeated into three channels. The Exif orientation (tag 0x0112
-of IFD0, in a JPEG APP1 `Exif` block or a PNG `eXIf` chunk) is applied
-as cv2 applies it. Any other format raises a ValueError that names it.
+of IFD0, in a JPEG APP1 `Exif` block, a PNG `eXIf` chunk or a TIFF's own
+IFD0) is applied as cv2 applies it. WebP, Radiance HDR, AVIF, JPEG 2000
+and OpenEXR files, and TIFFs with JPEG or CCITT compression, are refused
+by a ValueError that names the format; any other bytes by one that names
+the suffix.
 
 `encode_jpeg` and `write_jpeg` write uint8 RGB as the JPEG bytes
 `cv2.imencode(".jpg")` writes at its defaults (host C; plain version
 `jpeg.encode_pixels`); `encode_png` and `write_png` write uint8 gray or
-RGB as an 8-bit PNG;
+RGB as an 8-bit PNG; `encode_image` writes the bytes `cv2.imencode`
+writes for .bmp/.dib, .ppm/.pnm, .pam, .pfm, .sr/.ras and .tif/.tiff
+(host C; `encode_image_plain` runs the modules' plain writers);
 `decode_gray_png` reads a gray PNG as `cv2.imdecode(buf,
 cv2.IMREAD_GRAYSCALE)` does. `resize_linear` is cv2's INTER_LINEAR and
 `resize_area` its INTER_AREA, bit for bit through the C library where
@@ -51,19 +63,29 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multiposenet_tpu_torch.utils import image_codec, jpeg
+from multiposenet_tpu_torch.utils import (bmp, gif, image_codec, jpeg, pxm,
+                                          sunras, tiff)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NPY_MAGIC = b"\x93NUMPY"
 JPEG_MAGIC = b"\xff\xd8\xff"
 # Magic bytes of formats the reader refuses, to name them in the error.
 _OTHER_FORMATS = {
-    b"GIF8": "GIF",
-    b"BM": "BMP",
     b"RIFF": "WebP/RIFF",
-    b"II*\x00": "TIFF",
-    b"MM\x00*": "TIFF",
+    b"#?RADIANCE": "Radiance HDR",
+    b"#?RGBE": "Radiance HDR",
+    b"\x00\x00\x00\x0cjP  \r\n\x87\n": "JPEG 2000",
+    b"\xff\x4f\xff\x51": "JPEG 2000 codestream",
+    b"\x76\x2f\x31\x01": "OpenEXR",
 }
+# Suffix → the writer's kind for `encode_image`, as cv2.imwrite picks it.
+WRITTEN_SUFFIXES = {".bmp": "bmp", ".dib": "bmp", ".ppm": "ppm",
+                    ".pnm": "ppm", ".pam": "pam", ".pfm": "pfm",
+                    ".sr": "sunras", ".ras": "sunras", ".tif": "tiff",
+                    ".tiff": "tiff"}
+# Suffixes for which cv2.imwrite of 3-channel pixels returns False and
+# writes no file.
+UNWRITTEN_SUFFIXES = (".pgm", ".pbm")
 # PNG colour type → (samples a pixel, allowed bit depths).
 _PNG_KINDS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
               3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
@@ -113,13 +135,53 @@ def decode_image(data: bytes, name: str | Path = "<bytes>",
                                  exif_orientation(exif))
     if data.startswith(NPY_MAGIC):
         return _npy_image(data, name)
-    for magic, kind in _OTHER_FORMATS.items():
+    return _decode_simple(data, name, plain=False)
+
+
+def decode_image_plain(data: bytes, name: str | Path = "<bytes>"
+                       ) -> np.ndarray:
+    """`decode_image` of a BMP, Netpbm, Sun raster, TIFF or GIF file with
+    the byte coders' plain Python versions instead of the C library."""
+    return _decode_simple(data, name, plain=True)
+
+
+_READERS = {"bmp": bmp, "pxm": pxm, "sunras": sunras, "tiff": tiff,
+            "gif": gif}
+
+
+def simple_format(data: bytes) -> str | None:
+    """The module that reads `data` by its signature, as cv2's decoders
+    check theirs: "bmp", "pxm", "sunras", "tiff", "gif", or None."""
+    if data[:2] == b"BM":
+        return "bmp"
+    if data[:1] == b"P" and data[1:2] and data[1:2] in b"1234567Ff" \
+            and data[2:3] and data[2:3] in b" \t\n\v\f\r":
+        return "pxm"
+    if data[:4] == sunras.MAGIC:
+        return "sunras"
+    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
+        return "tiff"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "gif"
+    return None
+
+
+def _decode_simple(data: bytes, name, plain: bool) -> np.ndarray:
+    kind = simple_format(data)
+    if kind is not None:
+        reader = _READERS[kind]
+        if kind in ("pxm", "sunras"):
+            return reader.decode(data, name)
+        return reader.decode(data, name, plain=plain)
+    for magic, fmt in _OTHER_FORMATS.items():
         if data.startswith(magic):
-            raise ValueError(f"{name}: {kind} images are not read here "
-                             "(JPEG, PNG and .npy only)")
+            raise ValueError(f"{name}: {fmt} images are not read here")
+    if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
+        raise ValueError(f"{name}: AVIF images are not read here")
     suffix = Path(str(name)).suffix or "none"
-    raise ValueError(f"{name}: not a JPEG, PNG or .npy file (suffix "
-                     f"{suffix}); JPEG, PNG and .npy only")
+    raise ValueError(f"{name}: not an image file this reader knows (suffix "
+                     f"{suffix}): JPEG, PNG, .npy, BMP, PBM/PGM/PPM/PAM/PFM, "
+                     "Sun raster, TIFF and GIF only")
 
 
 def _npy_image(data: bytes, name) -> np.ndarray:
@@ -387,6 +449,43 @@ def write_jpeg(path: str | Path, rgb: np.ndarray) -> None:
     """uint8 RGB [H, W, 3] → a JPEG file, as `cv2.imwrite(path, bgr)`
     writes one with a .jpg suffix."""
     Path(path).write_bytes(encode_jpeg(rgb))
+
+
+def encode_image(rgb: np.ndarray, suffix: str) -> bytes:
+    """uint8 RGB [H, W, 3] → the bytes `cv2.imencode(suffix, bgr)` writes
+    for a suffix of `WRITTEN_SUFFIXES` (host C), but for the pad byte after
+    a Sun raster's last row (see `utils/sunras.py`)."""
+    return image_codec.encode_image(rgb, WRITTEN_SUFFIXES[suffix.lower()])
+
+
+def encode_image_plain(rgb: np.ndarray, suffix: str) -> bytes:
+    """The plain NumPy version of `encode_image`."""
+    kind = WRITTEN_SUFFIXES[suffix.lower()]
+    rgb = np.ascontiguousarray(rgb)
+    if kind in ("ppm", "pam", "pfm"):
+        return pxm.encode(rgb, kind)
+    return {"bmp": bmp, "sunras": sunras, "tiff": tiff}[kind].encode(rgb)
+
+
+def write_image(path: str | Path, rgb: np.ndarray) -> bool:
+    """uint8 RGB [H, W, 3] → a file, as `cv2.imwrite(path, bgr)` writes it
+    for .png (an 8-bit PNG; cv2's bytes differ, its pixels do not), the
+    JPEG suffixes and `WRITTEN_SUFFIXES`; for .pgm and .pbm it writes
+    nothing and returns False, as cv2.imwrite does for 3-channel pixels.
+    Any other suffix raises a ValueError naming it."""
+    suffix = Path(path).suffix.lower()
+    if suffix in UNWRITTEN_SUFFIXES:
+        return False
+    if suffix == ".png":
+        write_png(path, rgb)
+    elif suffix in (".jpg", ".jpeg", ".jpe"):
+        write_jpeg(path, rgb)
+    elif suffix in WRITTEN_SUFFIXES:
+        Path(path).write_bytes(encode_image(rgb, suffix))
+    else:
+        raise ValueError(f"{path}: suffix {suffix or 'none'} is not written "
+                         "here")
+    return True
 
 
 def decode_gray_png(data: bytes, name: str | Path = "<bytes>") -> np.ndarray:

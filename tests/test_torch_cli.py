@@ -15,7 +15,9 @@ JPEG: boxes to 2e-3 px, scores to 1e-5, keypoints to 1e-3 px
 agrees with cv2's drawing on at least 90% of the pixels either one
 changed; its `--output` JPEG holds the bytes cv2.imwrite writes for the
 port's drawing, and the JAX CLI's bytes where both draw the same pixels;
-any other `--output` suffix exits before the model runs.
+`--output` in the simple formats is held to the JAX CLI's bytes in
+test_torch_image_formats.py; any other suffix exits before the model
+runs.
 """
 
 import argparse
@@ -221,12 +223,14 @@ def test_predict_on_a_jpeg_matches_jax_cli(workdir):
                                    atol=1e-3, rtol=1e-5)
 
 
-@pytest.mark.parametrize("output", ["drawn.bmp", "drawn.TIFF", "drawn"])
+@pytest.mark.parametrize("output", ["drawn.gif", "drawn.WEBP", "drawn"])
 def test_predict_output_other_than_png_exits(workdir, tmp_path, monkeypatch,
                                              output):
     """The reference writes by suffix through cv2.imwrite; the port
-    writes PNG and JPEG only, so on any other suffix it exits naming the
-    suffix before the model is loaded, and writes nothing."""
+    writes PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster and TIFF (and, as
+    cv2, no file for .pgm and .pbm), so on any other suffix (GIF and WebP
+    writing are C9b) it exits naming the suffix before the model is
+    loaded, and writes nothing."""
     from multiposenet_tpu_torch.infer import export as port_export
 
     def no_model(*args, **kwargs):
@@ -234,7 +238,7 @@ def test_predict_output_other_than_png_exits(workdir, tmp_path, monkeypatch,
 
     monkeypatch.setattr(port_export, "load_predictor", no_model)
     suffix = output.rpartition(".")[2] if "." in output else "none"
-    with pytest.raises(SystemExit, match=f"suffix .?{suffix}.*only PNG"):
+    with pytest.raises(SystemExit, match=f"suffix .?{suffix}.*PNG, JPEG"):
         cli.main(["predict", "--model-dir", workdir["model"], "--image",
                   workdir["image_jpeg"], "--output", str(tmp_path / output),
                   "--device", "cpu"])
@@ -442,7 +446,7 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     paths["cli_predict"] = smoke.phase_cli_predict(
         cli, image_io, visualize, synthetic, decode, kernels, tmp_path,
         "cpu")
-    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 1}
+    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 3}
     assert restored == (runner.KeypointEvaluator, runner.evaluate_batched,
                         predictor.Predictor.predict, cli._load_records)
 
@@ -453,7 +457,7 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     decode and resize to cv2's digests through the C library and the
     plain versions, the photo encodes to cv2's digest, and the JPEG eval
     and the two predicts count their B1 launches (2, 1 and 1) as the
-    card's wrapper would; `--output drawn.bmp` exits."""
+    card's wrapper would; `--output drawn.gif` exits."""
     from multiposenet_tpu_torch import kernels
     from multiposenet_tpu_torch.config import Config
     from multiposenet_tpu_torch.eval import runner
@@ -493,5 +497,5 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
     assert codec["encode"]["c_encode_ms"] > 0
     assert jpeg_row["phase"] == "eval_jpeg" and jpeg_row["images"] == 10
-    assert ".bmp" in jpeg_row["output_bmp_exit"]
+    assert ".gif" in jpeg_row["output_gif_exit"]
     assert jpeg_row["output_jpg_bytes"] > 0

@@ -1232,6 +1232,32 @@ def test_jpeg_encode_matches_the_cv2_digest():
     assert jpeg.encode_pixels(rgb) == data
 
 
+def test_normalization_on_card_equals_cpu(cuda_device):
+    """The input normalization computes the JAX package's compiled
+    arithmetic (uint8 through the table, floats through a float64
+    multiply-add, the letterbox's fused blends) and gives the card the
+    CPU's bits: every uint8 value of every channel, s2d- and s4-flat
+    batches, and a letterboxed 480x640 image."""
+    from multiposenet_tpu_torch.ops import image
+
+    imgs = np.random.RandomState(9).randint(0, 256, (2, 64, 96, 3)).astype(
+        np.uint8)
+    photo = torch.as_tensor(np.random.RandomState(10).randint(
+        0, 256, (480, 640, 3)).astype(np.uint8))
+    cases = [
+        (image.normalize, torch.arange(256, dtype=torch.uint8)[:, None]
+         .repeat(1, 3)),
+        (image.normalize_s2d_flat,
+         torch.as_tensor(image.space_to_depth_flat(imgs))),
+        (image.normalize_s4_flat,
+         torch.as_tensor(image.space_to_depth_flat4(imgs))),
+        (lambda x: image.resize_pad_normalize(x, 512)[0], photo),
+        (lambda x: image.resize_pad_normalize(x, 512, False)[0], photo)]
+    for fn, x in cases:
+        got = fn(x.to(cuda_device))
+        assert got.is_cuda and torch.equal(got.cpu(), fn(x))
+
+
 def test_decode_kernel_on_a_second_card(cuda_device):
     """B1 on cuda:1 (the SM count asked of that card, not cached from the
     first): equal to the plain version, counted on card 1."""

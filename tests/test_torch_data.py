@@ -223,7 +223,7 @@ def test_read_image_refuses(tmp_path, case):
     err, match = ValueError, None
     if case == "unknown":
         path.write_bytes(b"hello world")
-        match = "PNG and .npy"
+        match = "TIFF and GIF only"
     elif case == "bad_crc":
         data = bytearray(_png(rows, 2, [0]))
         data[-20] ^= 0xFF  # inside the IDAT payload

@@ -202,11 +202,6 @@ def test_batchnorm_takes_the_global_batch_statistics(ranks, one_rank):
     assert float((per_shard - one_rank["bn_out"]).abs().max()) > 0.5
 
 
-def _lr_sum(cfg, steps: int) -> float:
-    schedule = tsteps.make_learning_rate(cfg)
-    return sum(schedule(c) for c in range(steps))
-
-
 def _jax_run(setup, step, shard):
     """Two JAX steps from the initial state: metrics and final weights."""
     state, metrics = setup["jstate"], []
@@ -234,46 +229,30 @@ def jax_sharded(setup):
         return _jax_run(setup, step, lambda b: jax_mesh.shard_batch(b, mesh))
 
 
-def _weights_beyond(sd, want, lr_sum) -> tuple[int, int]:
-    """Every parameter and EMA element within tests/test_torch_train.py's
-    bound after two steps, 2x the summed lr + 1e-5 (how far Adam's first
-    update can move an element on the rounding of a small gradient); the
-    count of elements beyond 1e-5 and the total."""
-    bound = 2 * lr_sum + 1e-5
-    beyond = total = 0
+def _assert_weights_within(sd, want, tol: float) -> None:
+    """Every parameter and EMA element within `tol` of the JAX step's."""
     for k, v in sd["params"].items():
         for mine, theirs in ((v, want["params"][k]),
                              (sd["ema_params"][k], want["ema"][k])):
             diff = (mine.double() - theirs.double()).abs()
-            assert float(diff.max()) <= bound, k
-            beyond += int((diff > 1e-5).sum())
-            total += diff.numel()
-    return beyond, total
+            assert float(diff.max()) <= tol, (k, float(diff.max()))
 
 
 def test_ranks_equal_the_jax_step_sharded_over_eight_devices(
-        ranks, jax_sharded, record_property):
-    """Losses and batch statistics of both steps at
-    tests/test_torch_train.py's 1e-5, and every parameter and EMA element
-    within its two-step bound. On these batches the JAX step compiled by
-    jit (sharded or not) reports a gradient norm 0.3% from the one its own
-    function gives run eagerly (jax.disable_jit), which the port's equals
-    (its losses and anchor labels agree with the eager run; ROADMAP,
-    reference faults): so the norm is held to 5e-3, and the elements that
-    Adam's first update moves apart on that gradient are counted (about
-    1% of them here) rather than held to test_torch_train.py's 1e-5."""
+        ranks, jax_sharded):
+    """Losses, gradient norm and batch statistics of both steps, and every
+    parameter and EMA element, at tests/test_torch_train.py's 1e-5. The
+    port normalizes as the JAX step compiled by jit does (one rounding
+    for the multiply-add), so the ranks see the JAX step's input bits."""
     got, want = ranks["results"][0], jax_sharded
     for jm, tm in zip(want["metrics"], got["metrics"]):
         for k in jm:
-            np.testing.assert_allclose(tm[k], jm[k],
-                                       rtol=5e-3 if k == "grad_norm" else 1e-5,
-                                       atol=1e-9, err_msg=k)
+            np.testing.assert_allclose(tm[k], jm[k], rtol=1e-5, atol=1e-9,
+                                       err_msg=k)
     for k, v in got["state"]["batch_stats"].items():
         np.testing.assert_allclose(v.numpy(), want["params"][k].numpy(),
                                    atol=1e-5, rtol=1e-5, err_msg=k)
-    beyond, total = _weights_beyond(
-        got["state"], want, _lr_sum(_port_config(ranks["ckpt"]), STEPS))
-    record_property("elements_beyond_1e-5", f"{beyond} of {total}")
+    _assert_weights_within(got["state"], want, 1e-5)
 
 
 def test_resume_on_four_ranks_after_two(setup, one_rank, tmp_path):

@@ -1,13 +1,14 @@
-"""The port's image preprocessing against the JAX package's, on the same
-uint8 inputs: the s4-flat host staging and its device-side readers, and
-the letterbox resize of `predict`.
+"""The port's image preprocessing against the JAX package's compiled
+functions (`jax.jit`, as its programs run them), on the same uint8
+inputs: the s4-flat host staging and its device-side readers, and the
+letterbox resize of `predict`.
 
-f32 elementwise arithmetic on both sides, but XLA may contract the
-bilinear weights' multiply-adds into fused multiply-adds where PyTorch
-rounds each product: raw 0-255 pixels get 1e-3 absolute (observed 4.3e-4,
-a few ulps of values near 255), normalized values 1e-4 (the same error
-after the 1/(255 std) scaling).
+Everything here is bit for bit: the port computes the normalization and
+the letterbox's bilinear blends with the fused multiply-adds XLA compiles
+them into (tests/test_torch_normalize.py).
 """
+
+import jax
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,8 +18,6 @@ import torch
 from multiposenet_tpu.ops import image as jax_image
 from multiposenet_tpu_torch.ops import image
 
-TOL = dict(atol=1e-4, rtol=1e-6)
-RAW_TOL = dict(atol=1e-3, rtol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -33,17 +32,17 @@ def test_s4_flat_readers_match(dtype):
                             (image.normalize_s4_flat,
                              jax_image.normalize_s4_flat)):
         got = port_fn(t, getattr(torch, dtype)).float().numpy()
-        want = np.asarray(jax_fn(jnp.asarray(flat), jnp.dtype(dtype)),
-                          np.float32)
+        want = np.asarray(jax.jit(jax_fn, static_argnums=1)(
+            jnp.asarray(flat), jnp.dtype(dtype)), np.float32)
         # bf16 output: both round the same f32 value once.
-        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_array_equal(got, want)
 
 
 def test_normalize_matches():
     px = np.random.RandomState(1).randint(0, 256, (4, 5, 3)).astype(np.uint8)
-    np.testing.assert_allclose(
+    np.testing.assert_array_equal(
         image.normalize(torch.as_tensor(px)).numpy(),
-        np.asarray(jax_image.normalize(jnp.asarray(px))), **TOL)
+        np.asarray(jax.jit(jax_image.normalize)(jnp.asarray(px))))
 
 
 @pytest.mark.parametrize("shape", [(128, 128), (96, 150), (150, 96),
@@ -57,8 +56,7 @@ def test_resize_pad_normalize_matches(shape, normalize_out):
     got, scale = image.resize_pad_normalize(torch.as_tensor(img), 128,
                                             normalize_out=normalize_out)
     assert scale == float(want_scale)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                               **(TOL if normalize_out else RAW_TOL))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_host_staging_matches():
@@ -84,10 +82,10 @@ def test_s2d_flat_readers_match(dtype):
                             (image.normalize_s2d_flat,
                              jax_image.normalize_s2d_flat)):
         got = port_fn(t, getattr(torch, dtype)).float().numpy()
-        want = np.asarray(jax_fn(jnp.asarray(flat), jnp.dtype(dtype)),
-                          np.float32)
+        want = np.asarray(jax.jit(jax_fn, static_argnums=1)(
+            jnp.asarray(flat), jnp.dtype(dtype)), np.float32)
         assert got.shape == want.shape == (2, 16, 24, 12)
-        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("size", [(300, 200), (64, 64), (37, 211)])
@@ -99,14 +97,16 @@ def test_resize_matrix_matches(size):
 @pytest.mark.parametrize("staging", [(96, 160), (200, 200), (50, 41)])
 @pytest.mark.parametrize("normalize_out", [True, False])
 def test_resize_normalize_batch_matches(staging, normalize_out):
-    """Two constant-matrix products on both sides; each output is a
-    two-tap blend of two-tap blends, summed in another order than XLA's
-    dot: 1e-5 relative to the value (raw pixels up to 255) plus 1e-5."""
+    """Two constant-matrix products on both sides, each output a two-tap
+    blend of two-tap blends, then `(x - mean) * f32(1/std)` as jit
+    compiles the normalize: bit for bit against the compiled function."""
     imgs = np.random.RandomState(5).randint(0, 256, (2, *staging, 3)).astype(
         np.uint8)
-    want = np.asarray(jax_image.resize_normalize_batch(
-        jnp.asarray(imgs), 64, normalize_out=normalize_out))
+    want = np.asarray(jax.jit(
+        jax_image.resize_normalize_batch, static_argnums=1,
+        static_argnames="normalize_out")(jnp.asarray(imgs), 64,
+                                         normalize_out=normalize_out))
     got = image.resize_normalize_batch(torch.as_tensor(imgs), 64,
                                        normalize_out=normalize_out)
     assert got.dtype == torch.float32 and got.shape == want.shape
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(got.numpy(), want)

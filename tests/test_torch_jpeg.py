@@ -831,12 +831,29 @@ def test_mode_fixtures_read_as_cv2_reads_them(tmp_path, name):
         jpeg.decode_pixels(data)
 
 
+def _jpeg_in_tiff() -> bytes:
+    """A TIFF whose one strip is JPEG-compressed (compression 7)."""
+    entries = [(256, 3, 1, 4), (257, 3, 1, 4), (258, 3, 1, 8),
+               (259, 3, 1, 7), (262, 3, 1, 1), (273, 4, 1, 8),
+               (277, 3, 1, 1), (278, 3, 1, 4), (279, 4, 1, 2)]
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHII", *e) for e in entries) + b"\x00" * 4
+    return b"II*\x00" + struct.pack("<I", 10) + b"\xff\xd8" + ifd
+
+
 def test_other_formats_name_themselves(tmp_path):
-    for magic, kind in ((b"GIF89a", "GIF"), (b"BM\x00\x00", "BMP"),
-                        (b"RIFF\x00\x00\x00\x00WEBP", "WebP"),
-                        (b"II*\x00\x08\x00", "TIFF")):
+    """What is still refused (C9b): WebP, Radiance HDR, AVIF, JPEG 2000,
+    OpenEXR and JPEG-in-TIFF, each by its name."""
+    for data, kind in (
+            (b"RIFF\x00\x00\x00\x00WEBPVP8L" + b"\x00" * 32, "WebP"),
+            (b"#?RADIANCE\n" + b"\x00" * 32, "Radiance HDR"),
+            (b"\x00\x00\x00\x1cftypavif" + b"\x00" * 32, "AVIF"),
+            (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + b"\x00" * 32,
+             "JPEG 2000"),
+            (b"\x76\x2f\x31\x01" + b"\x00" * 32, "OpenEXR"),
+            (_jpeg_in_tiff(), "TIFF with JPEG compression")):
         with pytest.raises(ValueError, match=kind):
-            image_io.decode_image(magic + b"\x00" * 32)
+            image_io.decode_image(data)
 
 
 # --- fixtures and the build ------------------------------------------------
