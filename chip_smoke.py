@@ -23,11 +23,14 @@ Config.fast() model: `eval` over 256 synthetic images, batched (host
 resize, batches of 128, two B1 launches) and through `predict` (32
 images, 32 launches), with images per second and the batched loop's
 split (phases `eval_batched`, `eval_predict`), then `predict --output`
-on a 480x640 PNG, read back (phase `cli_predict`, one launch). Before
-them, phase `image_codec` builds the host C library (`csrc/image_codec.c`)
-and holds its JPEG decode and letterbox resize, and the plain NumPy
-versions, to cv2's digests of the committed fixtures
-(tests/fixtures/images); after them, phase `eval_jpeg` runs `eval
+on a 480x640 PNG, read back (phase `cli_predict`, one launch), and
+`--image scene.webp --output drawn.webp` (one launch). Before them,
+phase `image_codec` builds the host C libraries (`csrc/image_codec.c`,
+`csrc/webp.c`) and holds their JPEG and WebP decodes and letterbox
+resize, and the plain versions, to cv2's digests of the committed
+fixtures (tests/fixtures/images), and the lossless WebP writer, C and
+plain, to a round trip within 1.5 times cv2's size on each fixture;
+after them, phase `eval_jpeg` runs `eval
 --batched` on those JPEGs (two launches), `predict` on the 480x640 JPEG
 (one launch) and checks that `--output x.jpg` exits. Then training, which
 reaches no TPU kernel (the fused tail is off in training and the decodes
@@ -1327,7 +1330,9 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     printed people bit for bit, and a pixel other than the input's at
     every drawn keypoint centre; then `--output drawn.bmp` and `drawn.tif`
     (one B1 launch each) read back as that drawing, in the bytes of the
-    plain writers. Returns B1's launches."""
+    plain writers, and `--image` the scene as a lossless WebP `--output
+    drawn.webp` (one B1 launch), a RIFF…WEBPVP8L file read back as that
+    drawing. Returns B1's launches."""
     scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
     image_path, out_path = directory / "scene.png", directory / "drawn.png"
     image_io.write_png(image_path, scene["image"])
@@ -1383,6 +1388,23 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
             raise AssertionError(f"cli_predict: drawn{suffix} is not the "
                                  "drawing in cv2's bytes")
         written[suffix] = path.stat().st_size
+    # The scene in as WebP (lossless: the same pixels) and the drawing out
+    # as WebP, one B1 launch.
+    webp_in, path = directory / "scene.webp", directory / "drawn.webp"
+    webp_in.write_bytes(image_io.encode_image(scene["image"], ".webp"))
+    kernels.reset_launches()
+    cli_stdout(cli, ["predict", "--model-dir", str(directory), "--image",
+                     str(webp_in), "--output", str(path)])
+    if kernels.LAUNCHES != {decode.KERNEL: 1}:
+        raise AssertionError(f"cli_predict: --image scene.webp --output "
+                             f"drawn.webp launches {kernels.LAUNCHES}")
+    counted[decode.KERNEL] += 1
+    data = path.read_bytes()
+    if data[:4] != b"RIFF" or data[8:16] != b"WEBPVP8L" or \
+            not np.array_equal(image_io.read_image(path), drawn):
+        raise AssertionError("cli_predict: drawn.webp is not a lossless "
+                             "WebP of the drawing")
+    written[".webp"] = len(data)
     emit({"phase": "cli_predict", "card": card, "image": [480, 640],
           "persons": len(people), "keypoint_centres_drawn": len(centres),
           "changed_pixels": int((drawn != image).any(-1).sum()),
@@ -1394,6 +1416,9 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "images"
 TIMING_FIXTURE = "photo_480x640_q95_420.jpg"
 PLAIN_FIXTURE = "scene_00_420_q75.jpg"
+WEBP_TIMING = ("webp_photo_480x640_q90.webp",
+               "webp_scene_480x640_lossless.webp")
+PLAIN_WEBP_PIXELS = 40_000  # the plain WebP coders run up to this size
 
 
 def sha256(a: np.ndarray) -> str:
@@ -1426,13 +1451,18 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
     its RGB decode, Exif orientation applied), and the eval letterbox to
     512 by the C library and the plain version, equal to cv2's digest.
     The JPEG writer on the 480x640 photo's pixels: C and plain equal to
-    each other and to cv2.imencode's digest. Times on the host clock: the
+    each other and to cv2.imencode's digest. The WebP fixtures go through
+    `csrc/webp.c` and, up to 40,000 pixels, the plain decoders too; the
+    WebP writer is held in `webp_checks`. Times on the host clock: the
     C decode of the 480x640 4:2:0 q95 fixture (ms and MB/s of file), the
     plain decode of it and of one 192x256 scene, the C encode of it (ms)
     and the plain one (s), and the C and plain letterbox resize of it."""
     t0 = time.perf_counter()
     image_codec.library()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    image_io.webp.library()
+    webp_build_s = time.perf_counter() - t0
     digests = json.loads((FIXTURES / "digests.json").read_text())
     checked = {}
     for name, want in sorted(digests.items()):
@@ -1457,6 +1487,12 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
             if not np.array_equal(plain, got):
                 raise AssertionError(f"image_codec: {name}: the C library "
                                      "and the plain decoder differ")
+        if name.endswith(".webp") and \
+                got.shape[0] * got.shape[1] <= PLAIN_WEBP_PIXELS:
+            if not np.array_equal(image_io.decode_image_plain(data, name),
+                                  got):
+                raise AssertionError(f"image_codec: {name}: the C library "
+                                     "and the plain WebP decoders differ")
         size = letterbox_size(*got.shape[:2])
         for how, fn in (("c", image_io.resize_linear),
                         ("plain", image_io.resize_linear_plain)):
@@ -1491,11 +1527,12 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
     jpeg.decode_pixels(small)
     plain_small_s = time.perf_counter() - t0
     emit({"phase": "image_codec", "card": card, "build_s": build_s,
-          "fixtures": checked,
+          "webp_build_s": webp_build_s, "fixtures": checked,
           "equal": "C = cv2 digest (imread), decode and letterbox, every "
-                   "fixture (arithmetic, lossless and smoothed ones too); "
-                   "plain = C on the baseline ones; c3_truncated bytes "
-                   "refused as imdecode refuses them",
+                   "fixture (arithmetic, lossless and smoothed ones, and "
+                   "WebP, too); plain = C on the baseline JPEGs and the "
+                   "WebPs up to 40,000 pixels; c3_truncated bytes refused "
+                   "as imdecode refuses them",
           "timing_fixture": TIMING_FIXTURE, "timing_bytes": len(data),
           "c_decode_ms": c_ms,
           "c_decode_mb_per_s": len(data) / 1e6 / (c_ms / 1e3),
@@ -1511,12 +1548,61 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
           "resize_plain_ms": median_ms(
               lambda: image_io.resize_linear_plain(rgb, size), 5),
           "formats": image_format_checks(image_io, image_codec, rgb),
+          "webp": webp_checks(image_io, digests, rgb),
           "clock": "host perf_counter, median"})
 
 
+def webp_checks(image_io, digests: dict, photo: np.ndarray) -> dict:
+    """The lossless WebP writer (`csrc/webp.c`) on every committed
+    fixture's pixels: a RIFF…WEBPVP8L file that the port reads back
+    exactly, C bytes = plain bytes up to 40,000 pixels, and at most 1.5
+    times the size of cv2.imencode(".webp") of those pixels (recorded in
+    the digests by tests/make_image_fixtures.py). Times on the host clock
+    (median): the C decode of the 480x640 lossy (q 90) and lossless
+    fixtures, the C encode of the photo's pixels with its bytes against
+    cv2's, and the C decode of that file."""
+    ratios = {}
+    for name, want in sorted(digests.items()):
+        rgb = image_io.read_image(FIXTURES / name)
+        data = image_io.encode_image(rgb, ".webp")
+        if data[:4] != b"RIFF" or data[8:16] != b"WEBPVP8L" or \
+                not np.array_equal(image_io.decode_image(data), rgb):
+            raise AssertionError(f"image_codec: the WebP of {name} does not "
+                                 "read back as its pixels")
+        if rgb.shape[0] * rgb.shape[1] <= PLAIN_WEBP_PIXELS and \
+                data != image_io.encode_image_plain(rgb, ".webp"):
+            raise AssertionError(f"image_codec: the C and plain WebP writers "
+                                 f"differ on {name}")
+        ratios[name] = len(data) / want["imencode_webp_bytes"]
+        if ratios[name] > 1.5:
+            raise AssertionError(f"image_codec: the WebP of {name} is "
+                                 f"{ratios[name]:.3f} times cv2's size")
+    times = {}
+    for name in WEBP_TIMING:
+        data = (FIXTURES / name).read_bytes()
+        times[name] = {"bytes": len(data), "c_decode_ms": median_ms(
+            lambda: image_io.decode_image(data), 20)}
+    encoded = image_io.encode_image(photo, ".webp")
+    cv2_bytes = digests[TIMING_FIXTURE]["imencode_webp_bytes"]
+    times["photo_lossless_written"] = {
+        "c_encode_ms": median_ms(
+            lambda: image_io.encode_image(photo, ".webp"), 10),
+        "bytes": len(encoded), "cv2_bytes": cv2_bytes,
+        "ratio": len(encoded) / cv2_bytes,
+        "c_decode_ms": median_ms(lambda: image_io.decode_image(encoded), 20)}
+    worst = max(ratios, key=ratios.get)
+    return {"fixtures_written": len(ratios),
+            "ratio_max": [worst, ratios[worst]],
+            "ratio_min": min(ratios.values()),
+            "equal": "written file read back = pixels, every fixture; C = "
+                     "plain bytes up to 40,000 pixels; size <= 1.5 x "
+                     "cv2.imencode('.webp')",
+            "times_480x640": times}
+
+
 def image_format_checks(image_io, image_codec, rgb: np.ndarray) -> dict:
-    """The simple formats on the host C library, from bytes the port
-    writes itself (the card's machine has no cv2): the C and plain
+    """The simple formats and WebP on the host C libraries, from bytes the
+    port writes itself (the card's machine has no cv2): the C and plain
     writers of every cv2 suffix give equal bytes, read back (C and plain)
     as the pixels; the C and plain readers give equal pixels on crafted
     BMP RLE4/RLE8, TIFF LZW (planar, predictor, 16-bit, palette, old
@@ -1529,7 +1615,7 @@ def image_format_checks(image_io, image_codec, rgb: np.ndarray) -> dict:
     from multiposenet_tpu_torch.utils import gif, tiff
 
     written = {}
-    for suffix in (".bmp", ".ppm", ".pam", ".pfm", ".sr", ".tif"):
+    for suffix in (".bmp", ".ppm", ".pam", ".pfm", ".sr", ".tif", ".webp"):
         data = image_io.encode_image(rgb, suffix)
         if data != image_io.encode_image_plain(rgb, suffix):
             raise AssertionError(f"image_codec: the C and plain {suffix} "

@@ -178,8 +178,8 @@ def cmd_predict(args) -> None:
     if args.output and suffix not in known:
         shown = Path(args.output).suffix or "none"
         sys.exit(f"--output {args.output}: suffix {shown} is not written "
-                 "here; PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster and "
-                 "TIFF are")
+                 "here; PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF "
+                 "and WebP are")
     predictor = _load_predictor(args)
     try:
         rgb = read_image(args.image)

@@ -52,7 +52,8 @@ from multiposenet_tpu_torch.utils.image_io import (
 
 def load_image(record: dict, image_dir: str | None) -> np.ndarray:
     """Record → uint8 RGB array. Synthetic records embed the image; COCO
-    records reference a file under image_dir (JPEG, PNG or .npy here)."""
+    records reference a file under image_dir (any format `read_image`
+    reads)."""
     if "image" in record:
         return record["image"]
     if image_dir is None:

@@ -27,20 +27,27 @@ libpng 1.6):
   byte coders (BMP RLE, TIFF LZW and PackBits, GIF LZW) in the host C
   library; `decode_image_plain` runs the same readers on the coders'
   plain versions. Each module names the variants it reads and what cv2
-  5.0 returns no image for.
+  5.0 returns no image for;
+- WebP (`utils/webp.py`): lossless VP8L, lossy VP8 (with or without an
+  `ALPH` plane, which is decoded and dropped), the `VP8X` extended form
+  and an animation's first frame on its canvas, as libwebp 1.6 decodes
+  them for cv2, through the host C library `csrc/webp.c`;
+  `decode_image_plain` runs the plain decoders `utils/vp8l.py` and
+  `utils/vp8.py`. A RIFF file of another form is refused by name.
 Gray is repeated into three channels. The Exif orientation (tag 0x0112
-of IFD0, in a JPEG APP1 `Exif` block, a PNG `eXIf` chunk or a TIFF's own
-IFD0) is applied as cv2 applies it. WebP, Radiance HDR, AVIF, JPEG 2000
-and OpenEXR files, and TIFFs with JPEG or CCITT compression, are refused
-by a ValueError that names the format; any other bytes by one that names
-the suffix.
+of IFD0, in a JPEG APP1 `Exif` block, a PNG `eXIf` chunk, a TIFF's own
+IFD0 or a WebP `EXIF` chunk) is applied as cv2 applies it. Radiance HDR,
+AVIF, JPEG 2000 and OpenEXR files, and TIFFs with JPEG or CCITT
+compression, are refused by a ValueError that names the format; any
+other bytes by one that names the suffix.
 
 `encode_jpeg` and `write_jpeg` write uint8 RGB as the JPEG bytes
 `cv2.imencode(".jpg")` writes at its defaults (host C; plain version
 `jpeg.encode_pixels`); `encode_png` and `write_png` write uint8 gray or
 RGB as an 8-bit PNG; `encode_image` writes the bytes `cv2.imencode`
-writes for .bmp/.dib, .ppm/.pnm, .pam, .pfm, .sr/.ras and .tif/.tiff
-(host C; `encode_image_plain` runs the modules' plain writers);
+writes for .bmp/.dib, .ppm/.pnm, .pam, .pfm, .sr/.ras and .tif/.tiff, and
+for .webp a lossless file of cv2's pixels (host C; `encode_image_plain`
+runs the modules' plain writers);
 `decode_gray_png` reads a gray PNG as `cv2.imdecode(buf,
 cv2.IMREAD_GRAYSCALE)` does. `resize_linear` is cv2's INTER_LINEAR and
 `resize_area` its INTER_AREA, bit for bit through the C library where
@@ -64,14 +71,13 @@ import torch
 import torch.nn.functional as F
 
 from multiposenet_tpu_torch.utils import (bmp, gif, image_codec, jpeg, pxm,
-                                          sunras, tiff)
+                                          sunras, tiff, webp)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NPY_MAGIC = b"\x93NUMPY"
 JPEG_MAGIC = b"\xff\xd8\xff"
 # Magic bytes of formats the reader refuses, to name them in the error.
 _OTHER_FORMATS = {
-    b"RIFF": "WebP/RIFF",
     b"#?RADIANCE": "Radiance HDR",
     b"#?RGBE": "Radiance HDR",
     b"\x00\x00\x00\x0cjP  \r\n\x87\n": "JPEG 2000",
@@ -82,7 +88,7 @@ _OTHER_FORMATS = {
 WRITTEN_SUFFIXES = {".bmp": "bmp", ".dib": "bmp", ".ppm": "ppm",
                     ".pnm": "ppm", ".pam": "pam", ".pfm": "pfm",
                     ".sr": "sunras", ".ras": "sunras", ".tif": "tiff",
-                    ".tiff": "tiff"}
+                    ".tiff": "tiff", ".webp": "webp"}
 # Suffixes for which cv2.imwrite of 3-channel pixels returns False and
 # writes no file.
 UNWRITTEN_SUFFIXES = (".pgm", ".pbm")
@@ -120,9 +126,10 @@ def image_size(path: str | Path) -> tuple[int, int]:
 
 def decode_image(data: bytes, name: str | Path = "<bytes>",
                  eof_fill: bool = False) -> np.ndarray:
-    """Encoded bytes (JPEG, PNG or .npy) → uint8 RGB [H, W, 3], Exif
-    orientation applied; `name` is used in error messages. `eof_fill`
-    reads a JPEG whose data ends early as `cv2.imread` reads the file."""
+    """Encoded bytes (a format of the module docstring) → uint8 RGB
+    [H, W, 3], Exif orientation applied; `name` is used in error messages.
+    `eof_fill` reads a JPEG whose data ends early as `cv2.imread` reads
+    the file."""
     if data.startswith(JPEG_MAGIC):
         try:
             rgb = image_codec.decode_jpeg(data, eof_fill)
@@ -140,9 +147,17 @@ def decode_image(data: bytes, name: str | Path = "<bytes>",
 
 def decode_image_plain(data: bytes, name: str | Path = "<bytes>"
                        ) -> np.ndarray:
-    """`decode_image` of a BMP, Netpbm, Sun raster, TIFF or GIF file with
-    the byte coders' plain Python versions instead of the C library."""
+    """`decode_image` of a BMP, Netpbm, Sun raster, TIFF, GIF or WebP file
+    with the coders' plain Python versions instead of the C library."""
     return _decode_simple(data, name, plain=True)
+
+
+def _decode_webp(data: bytes, name, plain: bool) -> np.ndarray:
+    try:
+        rgb, exif = webp.decode(data, plain=plain)
+    except ValueError as exc:
+        raise ValueError(f"{name}: {exc}") from None
+    return apply_orientation(rgb, exif_orientation(exif))
 
 
 _READERS = {"bmp": bmp, "pxm": pxm, "sunras": sunras, "tiff": tiff,
@@ -167,12 +182,17 @@ def simple_format(data: bytes) -> str | None:
 
 
 def _decode_simple(data: bytes, name, plain: bool) -> np.ndarray:
+    if (data[:4] == b"RIFF" and data[8:12] == b"WEBP") or webp.is_webp(data):
+        return _decode_webp(data, name, plain)
     kind = simple_format(data)
     if kind is not None:
         reader = _READERS[kind]
         if kind in ("pxm", "sunras"):
             return reader.decode(data, name)
         return reader.decode(data, name, plain=plain)
+    if data[:4] == b"RIFF":
+        raise ValueError(f"{name}: RIFF {bytes(data[8:12])!r} files are not "
+                         "read here (of RIFF, WebP only)")
     for magic, fmt in _OTHER_FORMATS.items():
         if data.startswith(magic):
             raise ValueError(f"{name}: {fmt} images are not read here")
@@ -180,8 +200,8 @@ def _decode_simple(data: bytes, name, plain: bool) -> np.ndarray:
         raise ValueError(f"{name}: AVIF images are not read here")
     suffix = Path(str(name)).suffix or "none"
     raise ValueError(f"{name}: not an image file this reader knows (suffix "
-                     f"{suffix}): JPEG, PNG, .npy, BMP, PBM/PGM/PPM/PAM/PFM, "
-                     "Sun raster, TIFF and GIF only")
+                     f"{suffix}): JPEG, PNG, .npy, WebP, BMP, "
+                     "PBM/PGM/PPM/PAM/PFM, Sun raster, TIFF and GIF only")
 
 
 def _npy_image(data: bytes, name) -> np.ndarray:
@@ -454,13 +474,19 @@ def write_jpeg(path: str | Path, rgb: np.ndarray) -> None:
 def encode_image(rgb: np.ndarray, suffix: str) -> bytes:
     """uint8 RGB [H, W, 3] → the bytes `cv2.imencode(suffix, bgr)` writes
     for a suffix of `WRITTEN_SUFFIXES` (host C), but for the pad byte after
-    a Sun raster's last row (see `utils/sunras.py`)."""
-    return image_codec.encode_image(rgb, WRITTEN_SUFFIXES[suffix.lower()])
+    a Sun raster's last row (see `utils/sunras.py`); for .webp a lossless
+    file that cv2 reads back to the same pixels (`utils/webp.py`)."""
+    kind = WRITTEN_SUFFIXES[suffix.lower()]
+    if kind == "webp":
+        return webp.encode(rgb)
+    return image_codec.encode_image(rgb, kind)
 
 
 def encode_image_plain(rgb: np.ndarray, suffix: str) -> bytes:
     """The plain NumPy version of `encode_image`."""
     kind = WRITTEN_SUFFIXES[suffix.lower()]
+    if kind == "webp":
+        return webp.encode(rgb, plain=True)
     rgb = np.ascontiguousarray(rgb)
     if kind in ("ppm", "pam", "pfm"):
         return pxm.encode(rgb, kind)
@@ -469,10 +495,11 @@ def encode_image_plain(rgb: np.ndarray, suffix: str) -> bytes:
 
 def write_image(path: str | Path, rgb: np.ndarray) -> bool:
     """uint8 RGB [H, W, 3] → a file, as `cv2.imwrite(path, bgr)` writes it
-    for .png (an 8-bit PNG; cv2's bytes differ, its pixels do not), the
-    JPEG suffixes and `WRITTEN_SUFFIXES`; for .pgm and .pbm it writes
-    nothing and returns False, as cv2.imwrite does for 3-channel pixels.
-    Any other suffix raises a ValueError naming it."""
+    for .png (an 8-bit PNG) and .webp (lossless; for both cv2's bytes
+    differ, its pixels do not), the JPEG suffixes and `WRITTEN_SUFFIXES`;
+    for .pgm and .pbm it writes nothing and returns False, as cv2.imwrite
+    does for 3-channel pixels, and so for a .webp wider or taller than
+    16383 pixels. Any other suffix raises a ValueError naming it."""
     suffix = Path(path).suffix.lower()
     if suffix in UNWRITTEN_SUFFIXES:
         return False
@@ -480,6 +507,8 @@ def write_image(path: str | Path, rgb: np.ndarray) -> bool:
         write_png(path, rgb)
     elif suffix in (".jpg", ".jpeg", ".jpe"):
         write_jpeg(path, rgb)
+    elif suffix == ".webp" and max(np.shape(rgb)[:2]) > webp.MAX_SIDE:
+        return False  # cv2.imwrite's encoder fails: no file, False
     elif suffix in WRITTEN_SUFFIXES:
         Path(path).write_bytes(encode_image(rgb, suffix))
     else:

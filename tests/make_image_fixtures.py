@@ -36,11 +36,25 @@ installed cv2's decode.
   reads through its inter-block smoothing.
 - `png_palette4.png`, `png_rgb16.png`, `png_interlaced.png`: PNG kinds
   the port decodes without cv2 (palette, 16-bit, Adam7).
+- `webp_*.webp`: WebP as cv2 reads it, written by cv2 (lossy at q 1, 50,
+  90 and 100; lossless at its default) and by libwebp 1.6 itself
+  (`libwebp_webp`, for the encoder options cv2 does not expose: the
+  simple loop filter, 4 token partitions, one segment, sharpness 7; an
+  ALPH plane; lossless at method 0 and 6, with the colour cache and meta
+  prefix codes, and palettes of 2, 3 and 12 colours, which bundle
+  pixels). libwebp 1.6 writes one token partition whatever it is asked;
+  `repartition` re-codes two of its frames into 4 and 8. Containers are
+  spliced here (`webp_file`): a VP8X file with
+  an EXIF chunk of orientation 6 and an animation whose first frame lies
+  off the canvas's corner; odd sizes (1x1, 3x5, 17x33); and the 480x640
+  timing fixtures, the photo lossy at q 90 and a textured scene
+  lossless.
 - `digests.json`: for each file, the shape and sha256 of cv2's RGB decode
   (`cv2.imread(path, IMREAD_COLOR)[..., ::-1]`) and of cv2's INTER_LINEAR
   letterbox of it to 512 (the eval runner's resize: scale 512 / max(h, w),
-  rounded sizes); for the timing photo also the sha256 of the bytes
-  `cv2.imencode(".jpg")` writes for its pixels.
+  rounded sizes), and the size of the lossless file
+  `cv2.imencode(".webp")` writes for its pixels; for the timing photo
+  also the sha256 of the bytes `cv2.imencode(".jpg")` writes for them.
 """
 
 from __future__ import annotations
@@ -182,6 +196,264 @@ def libjpeg_jpeg(samples: np.ndarray, precision: int = 8, quality: int = 90,
                          int(conditioning), ctypes.byref(out),
                          ctypes.byref(size))
     return ctypes.string_at(out, size.value)
+
+
+# A writer over the libwebp 1.6 that Pillow bundles, for the encoder
+# options cv2 does not expose. It is compiled against the system's
+# webp/encode.h (ABI 0x020f, the same major version) and linked to
+# Pillow's library by path; libsharpyuv is loaded first, globally.
+_WEBP_WRITER_SOURCE = r"""
+#include <webp/encode.h>
+
+/* o: quality, method, lossless, filter_type, filter_sharpness,
+   filter_strength, segments, exact */
+int write_webp(const unsigned char *pixels, int w, int h, int nc,
+               const float *o, unsigned char **out, size_t *size)
+{
+    WebPConfig c;
+    WebPPicture p;
+    WebPMemoryWriter wr;
+    int ok;
+    if (!WebPConfigInitInternal(&c, WEBP_PRESET_DEFAULT, o[0],
+                                WEBP_ENCODER_ABI_VERSION)) return -1;
+    c.method = (int)o[1];
+    c.lossless = (int)o[2];
+    c.filter_type = (int)o[3];
+    c.filter_sharpness = (int)o[4];
+    c.filter_strength = (int)o[5];
+    c.segments = (int)o[6];
+    c.exact = (int)o[7];
+    if (!WebPValidateConfig(&c)) return -2;
+    if (!WebPPictureInitInternal(&p, WEBP_ENCODER_ABI_VERSION)) return -3;
+    p.width = w;
+    p.height = h;
+    p.use_argb = c.lossless;
+    ok = nc == 4 ? WebPPictureImportRGBA(&p, pixels, w * 4)
+                 : WebPPictureImportRGB(&p, pixels, w * 3);
+    if (!ok) return -4;
+    WebPMemoryWriterInit(&wr);
+    p.writer = WebPMemoryWrite;
+    p.custom_ptr = &wr;
+    ok = WebPEncode(&c, &p);
+    WebPPictureFree(&p);
+    if (!ok) return -5;
+    *out = wr.mem;
+    *size = wr.size;
+    return 0;
+}
+"""
+
+
+@functools.cache
+def _webp_writer() -> ctypes.CDLL:
+    import PIL
+
+    libs = Path(PIL.__file__).parent.parent / "pillow.libs"
+    sharp = sorted(libs.glob("libsharpyuv-*.so*"))
+    webp = sorted(libs.glob("libwebp-*.so*"))
+    if not sharp or not webp:
+        raise RuntimeError("Pillow's bundled libwebp was not found")
+    ctypes.CDLL(str(sharp[0]), mode=ctypes.RTLD_GLOBAL)
+    build = Path(tempfile.mkdtemp(prefix="webp_writer_"))
+    (build / "writer.c").write_text(_WEBP_WRITER_SOURCE)
+    subprocess.run(["cc", "-O1", "-shared", "-fPIC", "-o",
+                    str(build / "writer.so"), str(build / "writer.c"),
+                    str(webp[0]), str(sharp[0]), f"-Wl,-rpath,{libs}"],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(build / "writer.so"))
+    lib.write_webp.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte)),
+        ctypes.POINTER(ctypes.c_size_t)]
+    return lib
+
+
+def libwebp_webp(pixels: np.ndarray, quality: float = 75, method: int = 4,
+                 lossless: bool = False, filter_type: int = 1,
+                 sharpness: int = 0, strength: int = 60,
+                 segments: int = 4, exact: bool = False) -> bytes:
+    """RGB [H, W, 3] or RGBA [H, W, 4] → a WebP file written by libwebp
+    1.6 with these WebPConfig fields."""
+    arr = np.ascontiguousarray(pixels, np.uint8)
+    h, w, nc = arr.shape
+    opts = np.array([quality, method, int(lossless), filter_type, sharpness,
+                     strength, segments, int(exact)], np.float32)
+    out = ctypes.POINTER(ctypes.c_ubyte)()
+    size = ctypes.c_size_t()
+    rc = _webp_writer().write_webp(arr.ctypes.data, w, h, nc,
+                                   opts.ctypes.data, ctypes.byref(out),
+                                   ctypes.byref(size))
+    if rc:
+        raise RuntimeError(f"libwebp refused the options (rc {rc})")
+    return ctypes.string_at(out, size.value)
+
+
+def encode_webp(rgb: np.ndarray, quality: int | None = None) -> bytes:
+    """cv2's WebP: lossless without a quality, else lossy at it."""
+    params = [] if quality is None else [cv2.IMWRITE_WEBP_QUALITY, quality]
+    ok, buf = cv2.imencode(".webp", np.ascontiguousarray(rgb[..., ::-1]),
+                           params)
+    assert ok
+    return buf.tobytes()
+
+
+def webp_chunks(data: bytes) -> list[tuple[bytes, bytes]]:
+    """The (tag, payload) chunks of a RIFF/WEBP file."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        n = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        out.append((data[pos:pos + 4], data[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def webp_chunk(tag: bytes, payload: bytes) -> bytes:
+    return tag + struct.pack("<I", len(payload)) + payload \
+        + b"\0" * (len(payload) & 1)
+
+
+def webp_file(chunks) -> bytes:
+    body = b"WEBP" + b"".join(webp_chunk(t, p) for t, p in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def vp8x_chunk(flags: int, width: int, height: int) -> tuple[bytes, bytes]:
+    return b"VP8X", bytes([flags, 0, 0, 0]) + (width - 1).to_bytes(
+        3, "little") + (height - 1).to_bytes(3, "little")
+
+
+def anmf_chunk(x: int, y: int, frame: bytes) -> tuple[bytes, bytes]:
+    """An animation frame at even offset (x, y) holding the image chunks
+    of the WebP file `frame`, 100 ms, no blending."""
+    chunks = webp_chunks(frame)
+    tag, img = chunks[-1]
+    if tag == b"VP8L":
+        bits = int.from_bytes(img[1:5], "little")
+        w, h = (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+    else:
+        w = int.from_bytes(img[6:8], "little") & 0x3FFF
+        h = int.from_bytes(img[8:10], "little") & 0x3FFF
+    head = b"".join(v.to_bytes(3, "little") for v in (
+        x // 2, y // 2, w - 1, h - 1, 100)) + b"\x02"
+    return b"ANMF", head + b"".join(webp_chunk(t, p) for t, p in chunks
+                                    if t in (b"ALPH", b"VP8 ", b"VP8L"))
+
+
+class _BoolWriter:
+    """RFC 6386's boolean encoder (section 7.3)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range, self.bottom, self.count = 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, prob: int, bit: int) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.count -= 1
+            if not self.count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.count = 8
+
+    def finish(self) -> bytes:
+        c, v = self.count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) << (8 * (c >> 3))
+        for _ in range(4):
+            self.out.append((v >> 24) & 255)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def repartition(vp8_frame: bytes, log2_parts: int) -> bytes:
+    """A one-partition VP8 key frame re-coded with 2**log2_parts token
+    partitions (macroblock row r in partition r mod the count): every
+    boolean decision is recorded while the port's decoder reads the frame
+    and written again by `_BoolWriter`. libwebp 1.6 writes one partition
+    whatever its `partitions` option says; cv2's digest of the result
+    checks the re-coding."""
+    from multiposenet_tpu_torch.utils import vp8
+
+    logs, row_ends, count_at = [], [], []
+
+    class Recording(vp8._BoolReader):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.log = []
+            logs.append(self.log)
+
+        def bit(self, prob):
+            b = super().bit(prob)
+            self.log.append((prob, b))
+            return b
+
+        def signed(self, v):
+            r = super().signed(v)
+            self.log.append((128, int(r < 0)))
+            return r
+
+        def value_bits(self, n):
+            if self is logs_owner[0] and n == 2:
+                count_at.append(len(self.log))
+            return super().value_bits(n)
+
+    logs_owner = []
+    real_reader, real_reconstruct = vp8._BoolReader, vp8._reconstruct
+
+    def reconstruct(h, mb, mb_x, mb_y, planes):
+        if mb_x == (h.width + 15) // 16 - 1:
+            row_ends.append(len(logs[1]))
+        return real_reconstruct(h, mb, mb_x, mb_y, planes)
+
+    def reader(*args):
+        r = Recording(*args)
+        if not logs_owner:
+            logs_owner.append(r)
+        return r
+
+    vp8._BoolReader, vp8._reconstruct = reader, reconstruct
+    try:
+        vp8.decode_frame(vp8_frame)
+    finally:
+        vp8._BoolReader, vp8._reconstruct = real_reader, real_reconstruct
+    assert len(logs) == 2, "the frame must have one token partition"
+    part0, tokens = logs
+    at = count_at[1]  # the first 2-bit value is colour space and clamping
+    part0 = part0[:at] + [(128, (log2_parts >> 1) & 1),
+                          (128, log2_parts & 1)] + part0[at + 2:]
+    w0 = _BoolWriter()
+    for prob, b in part0:
+        w0.put(prob, b)
+    first = w0.finish()
+    n = 1 << log2_parts
+    writers = [_BoolWriter() for _ in range(n)]
+    start = 0
+    for r, end in enumerate(row_ends):
+        for prob, b in tokens[start:end]:
+            writers[r % n].put(prob, b)
+        start = end
+    parts = [w.finish() for w in writers]
+    tag = int.from_bytes(vp8_frame[:3], "little") & 0x1F
+    tag |= len(first) << 5
+    return (tag.to_bytes(3, "little") + vp8_frame[3:10] + first
+            + b"".join(len(p).to_bytes(3, "little") for p in parts[:-1])
+            + b"".join(parts))
 
 
 def until_scan(jpeg: bytes, scans: int) -> bytes:
@@ -411,6 +683,67 @@ def digest(path: Path) -> dict:
             "letterbox_sha256": sha256(box)}
 
 
+def webp_fixtures(tex: np.ndarray, big: np.ndarray) -> dict[str, bytes]:
+    """The WebP fixtures (see the module docstring), from the 97x133
+    texture and the 480x640 scene."""
+    from multiposenet_tpu_torch.data.synthetic import make_dataset
+
+    files = {}
+    for q in (1, 50, 90, 100):
+        files[f"webp_lossy_q{q}_97x133.webp"] = encode_webp(tex, q)
+    for name, log2_parts, options in (
+            ("simple_p4_s1_sharp7", 2, dict(
+                quality=60, filter_type=0, sharpness=7, strength=70,
+                segments=1)),
+            ("normal_p8_sharp3", 3, dict(quality=30, sharpness=3,
+                                         strength=90))):
+        frame = webp_chunks(libwebp_webp(tex, **options))[-1][1]
+        files[f"webp_lossy_{name}_97x133.webp"] = webp_file(
+            [(b"VP8 ", repartition(frame, log2_parts))])
+    rng = np.random.RandomState(17)
+    alpha = rng.randint(0, 256, (48, 64, 1)).astype(np.uint8)
+    files["webp_lossy_alpha_48x64.webp"] = libwebp_webp(
+        np.concatenate([tex[:48, :64], alpha], -1), quality=70)
+    files["webp_lossless_cv2_97x133.webp"] = encode_webp(tex)
+    scene = make_dataset(1, img_h=97, img_w=133, seed=3)[0]["image"]
+    files["webp_lossless_m0_97x133.webp"] = libwebp_webp(
+        tex, quality=100, method=0, lossless=True)
+    files["webp_lossless_m6_cache_meta_97x133.webp"] = libwebp_webp(
+        scene, quality=100, method=6, lossless=True)
+    for n, (h, w) in ((2, (45, 50)), (3, (33, 47)), (12, (61, 83))):
+        palette = rng.randint(0, 256, (n, 3)).astype(np.uint8)
+        idx = (np.add.outer(np.arange(h) // 3, np.arange(w) // 4)
+               + rng.randint(0, 2, (h, w))) % n
+        files[f"webp_lossless_palette{n}_{h}x{w}.webp"] = libwebp_webp(
+            palette[idx], quality=100, lossless=True)
+    for h, w in ((1, 1), (3, 5), (17, 33)):
+        files[f"webp_lossy_{h}x{w}.webp"] = encode_webp(tex[:h, :w], 75)
+        files[f"webp_lossless_{h}x{w}.webp"] = encode_webp(tex[:h, :w])
+    # Exif orientation 6 in a VP8X file, after the image.
+    lossy = encode_webp(tex[:37, :53], 80)
+    files["webp_exif6_37x53.webp"] = webp_file(
+        [vp8x_chunk(0x08, 53, 37)] + webp_chunks(lossy)
+        + [(b"EXIF", exif_tiff(6, False))])
+    # An animation: the first frame at (4, 6) on a 40x56 canvas, then one
+    # that covers it.
+    first = encode_webp(tex[:20, :30])
+    second = encode_webp(tex[40:70, 50:106], 60)
+    files["webp_anim_offset_30x56.webp"] = webp_file(
+        [vp8x_chunk(0x02, 56, 30),
+         (b"ANIM", struct.pack("<IH", 0xFF204080, 0)),
+         anmf_chunk(4, 6, first), anmf_chunk(0, 0, second)])
+    # The timing fixtures.
+    photo = textured_scene(big, seed=5, noise=6)
+    files["webp_photo_480x640_q90.webp"] = encode_webp(photo, 90)
+    yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
+    waves = np.stack([30 * np.sin(xx / (4 + c) + yy / (8 + 2 * c))
+                      + 20 * (((yy // (4 + c)) + (xx // (5 + c))) % 2 - 0.5)
+                      for c in range(3)], -1)
+    files["webp_scene_480x640_lossless.webp"] = encode_webp(
+        np.clip(big * 0.8 + 25 + waves, 0, 255).astype(np.uint8))
+    return files
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     from multiposenet_tpu_torch.data.synthetic import make_dataset
@@ -507,13 +840,19 @@ def main() -> None:
     files["png_interlaced.png"] = encode_png(
         tex[:27, :35].astype(np.int64), 2, 8, interlace=True)
 
+    files.update(webp_fixtures(tex, big))
+
     for name, data in files.items():
         (OUT / name).write_bytes(data)
     digests = {name: digest(OUT / name) for name in sorted(files)}
-    # What cv2.imencode(".jpg") writes for the timing photo's pixels.
+    # What cv2.imencode(".jpg") writes for the timing photo's pixels, and
+    # for every file the size of cv2's lossless .webp of its pixels.
     photo = cv2.imread(str(OUT / "photo_480x640_q95_420.jpg"))
     digests["photo_480x640_q95_420.jpg"]["imencode_sha256"] = hashlib.sha256(
         cv2.imencode(".jpg", photo)[1].tobytes()).hexdigest()
+    for name in digests:
+        digests[name]["imencode_webp_bytes"] = len(cv2.imencode(
+            ".webp", cv2.imread(str(OUT / name)))[1])
     (OUT / "digests.json").write_text(json.dumps(digests, indent=1) + "\n")
     (OUT / "annotations.json").write_text(
         json.dumps(coco_annotations(records, names)) + "\n")

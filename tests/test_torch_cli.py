@@ -223,14 +223,14 @@ def test_predict_on_a_jpeg_matches_jax_cli(workdir):
                                    atol=1e-3, rtol=1e-5)
 
 
-@pytest.mark.parametrize("output", ["drawn.gif", "drawn.WEBP", "drawn"])
+@pytest.mark.parametrize("output", ["drawn.gif", "drawn.hdr", "drawn"])
 def test_predict_output_other_than_png_exits(workdir, tmp_path, monkeypatch,
                                              output):
     """The reference writes by suffix through cv2.imwrite; the port
-    writes PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster and TIFF (and, as
-    cv2, no file for .pgm and .pbm), so on any other suffix (GIF and WebP
-    writing are C9b) it exits naming the suffix before the model is
-    loaded, and writes nothing."""
+    writes PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF and WebP
+    (and, as cv2, no file for .pgm and .pbm), so on any other suffix (GIF
+    and Radiance HDR writing are C9b) it exits naming the suffix before
+    the model is loaded, and writes nothing."""
     from multiposenet_tpu_torch.infer import export as port_export
 
     def no_model(*args, **kwargs):
@@ -280,6 +280,38 @@ def test_predict_output_jpeg_matches_jax_cli_bytes(workdir, tmp_path,
                     workdir["image_jpeg"], "--output", str(files[name])]
              + extra)
     assert files["port"].read_bytes() == files["jax"].read_bytes()
+
+
+def test_predict_webp_in_and_out_matches_jax_cli_pixels(workdir, tmp_path,
+                                                        monkeypatch):
+    """Both CLIs read a lossless .webp scene and write `--output x.webp`
+    from the same pixels (each drawing replaced by the input image, as
+    the JPEG test does): cv2 reads both files to equal pixels, the
+    scene's own; the port's is a lossless RIFF…WEBPVP8L file (its bytes
+    are not libwebp's)."""
+    from multiposenet_tpu.utils import visualize as jax_visualize
+
+    for module in (jax_visualize, visualize):
+        monkeypatch.setattr(module, "draw_predictions",
+                            lambda rgb, people: rgb.copy())
+    scene = image_io.read_image(workdir["image"])
+    image = tmp_path / "scene.webp"
+    ok, buf = cv2.imencode(".webp", np.ascontiguousarray(scene[:, :, ::-1]))
+    image.write_bytes(buf.tobytes())
+    files, printed = {}, {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        files[name] = tmp_path / f"{name}.webp"
+        printed[name] = json.loads(_run(
+            main, ["predict", "--model-dir", workdir["model"], "--image",
+                   str(image), "--output", str(files[name])] + extra))
+    assert ok and len(printed["port"]) == len(printed["jax"]) > 0
+    data = files["port"].read_bytes()
+    assert data[:4] == b"RIFF" and data[8:16] == b"WEBPVP8L"
+    for name in ("jax", "port"):
+        np.testing.assert_array_equal(
+            cv2.imread(str(files[name]), cv2.IMREAD_COLOR)[:, :, ::-1],
+            scene)
 
 
 @pytest.mark.parametrize("command,flags", [
@@ -446,7 +478,7 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     paths["cli_predict"] = smoke.phase_cli_predict(
         cli, image_io, visualize, synthetic, decode, kernels, tmp_path,
         "cpu")
-    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 3}
+    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 4}
     assert restored == (runner.KeypointEvaluator, runner.evaluate_batched,
                         predictor.Predictor.predict, cli._load_records)
 
@@ -493,7 +525,9 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert paths == {"eval_jpeg_batched": 2, "cli_predict_jpeg": 1,
                      "cli_predict_jpeg_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
-    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 40
+    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 63
+    assert codec["webp"]["fixtures_written"] == 63
+    assert codec["webp"]["ratio_max"][1] <= 1.5
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
     assert codec["encode"]["c_encode_ms"] > 0
     assert jpeg_row["phase"] == "eval_jpeg" and jpeg_row["images"] == 10

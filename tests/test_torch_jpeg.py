@@ -842,10 +842,11 @@ def _jpeg_in_tiff() -> bytes:
 
 
 def test_other_formats_name_themselves(tmp_path):
-    """What is still refused (C9b): WebP, Radiance HDR, AVIF, JPEG 2000,
-    OpenEXR and JPEG-in-TIFF, each by its name."""
+    """What is still refused (C9b): Radiance HDR, AVIF, JPEG 2000,
+    OpenEXR, JPEG-in-TIFF and RIFF files other than WebP, each by its
+    name (WebP itself is read: tests/test_torch_webp.py)."""
     for data, kind in (
-            (b"RIFF\x00\x00\x00\x00WEBPVP8L" + b"\x00" * 32, "WebP"),
+            (b"RIFF\x24\x00\x00\x00AVI LIST" + b"\x00" * 32, "RIFF b'AVI '"),
             (b"#?RADIANCE\n" + b"\x00" * 32, "Radiance HDR"),
             (b"\x00\x00\x00\x1cftypavif" + b"\x00" * 32, "AVIF"),
             (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + b"\x00" * 32,
@@ -871,9 +872,11 @@ def _letterbox_size(h: int, w: int, s: int = 512) -> tuple[int, int]:
 def test_committed_digests_equal_cv2_and_the_port():
     digests = json.loads((FIXTURES / "digests.json").read_text())
     files = sorted(p.name for p in FIXTURES.iterdir()
-                   if p.suffix in (".jpg", ".png"))
+                   if p.suffix in (".jpg", ".png", ".webp"))
     assert sorted(digests) == files
-    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) <= 510_000
+    # 510,000 bytes, and 300,000 more for the WebP fixtures (their own
+    # budget is held in tests/test_torch_webp.py).
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) <= 810_000
     for name, want in digests.items():
         path = FIXTURES / name
         rgb = cv2.imread(str(path), cv2.IMREAD_COLOR)[:, :, ::-1]

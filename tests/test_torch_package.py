@@ -59,7 +59,8 @@ def test_every_module_imports_without_jax():
                  "data.targets", "data.augment", "train.losses",
                  "train.steps", "train.checkpoints", "train.loop",
                  "data.masks", "data.prepare", "train.prn_train",
-                 "utils.profiling", "parallel.mesh"):
+                 "utils.profiling", "parallel.mesh", "utils.webp",
+                 "utils.vp8", "utils.vp8l"):
         assert f"multiposenet_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
