@@ -23,13 +23,15 @@ Config.fast() model: `eval` over 256 synthetic images, batched (host
 resize, batches of 128, two B1 launches) and through `predict` (32
 images, 32 launches), with images per second and the batched loop's
 split (phases `eval_batched`, `eval_predict`), then `predict --output`
-on a 480x640 PNG, read back (phase `cli_predict`, one launch), and
-`--image scene.webp --output drawn.webp` (one launch). Before them,
-phase `image_codec` builds the host C libraries (`csrc/image_codec.c`,
-`csrc/webp.c`) and holds their JPEG and WebP decodes and letterbox
-resize, and the plain versions, to cv2's digests of the committed
-fixtures (tests/fixtures/images), and the lossless WebP writer, C and
-plain, to a round trip within 1.5 times cv2's size on each fixture;
+on a 480x640 PNG, read back (phase `cli_predict`, one launch),
+`--image scene.webp --output drawn.webp` and `--image scene_jpeg.tif
+--output drawn.hdr` (one launch each). Before them, phase `image_codec`
+builds the host C libraries (`csrc/image_codec.c`, `csrc/webp.c`) and
+holds their JPEG, WebP, TIFF (JPEG, CCITT, CMYK, YCbCr, CIELab) and
+Radiance HDR decodes and letterbox resize, and the plain versions, to
+cv2's digests of the committed fixtures (tests/fixtures/images), the
+HDR writer, C and plain, to cv2's bytes, and the lossless WebP writer,
+C and plain, to a round trip within 1.5 times cv2's size on each fixture;
 after them, phase `eval_jpeg` runs `eval
 --batched` on those JPEGs (two launches), `predict` on the 480x640 JPEG
 (one launch) and checks that `--output x.jpg` exits. Then training, which
@@ -1332,7 +1334,9 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     (one B1 launch each) read back as that drawing, in the bytes of the
     plain writers, and `--image` the scene as a lossless WebP `--output
     drawn.webp` (one B1 launch), a RIFF…WEBPVP8L file read back as that
-    drawing. Returns B1's launches."""
+    drawing; then `--image` the scene as a JPEG-compressed TIFF `--output
+    drawn.hdr` (one B1 launch), the drawing of the people printed for it
+    in the plain HDR writer's bytes. Returns B1's launches."""
     scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
     image_path, out_path = directory / "scene.png", directory / "drawn.png"
     image_io.write_png(image_path, scene["image"])
@@ -1405,6 +1409,37 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
         raise AssertionError("cli_predict: drawn.webp is not a lossless "
                              "WebP of the drawing")
     written[".webp"] = len(data)
+    # The scene as a JPEG-compressed TIFF (the port's cv2 JPEG bytes as a
+    # YCbCr 4:2:0 strip) in, the drawing of the people printed for it out
+    # as Radiance HDR in the plain writer's bytes, one B1 launch.
+    from multiposenet_tpu_torch.tools import image_samples as samples
+
+    stream = image_io.encode_jpeg(scene["image"])
+    tif_in, path = directory / "scene_jpeg.tif", directory / "drawn.hdr"
+    tif_in.write_bytes(samples.tiff_bytes(
+        scene["image"], 6, compression=7, chunks=[stream],
+        tags=((530, 3, [2, 2]),)))
+    tif_rgb = image_io.read_image(tif_in)
+    if not np.array_equal(tif_rgb, image_io.decode_image(stream)):
+        raise AssertionError("cli_predict: the JPEG TIFF does not read as "
+                             "its JPEG stream")
+    kernels.reset_launches()
+    hdr_people = [argparse.Namespace(
+        box=np.asarray(p["box"]), score=p["score"],
+        keypoints=np.asarray(p["keypoints"])) for p in json.loads(
+            cli_stdout(cli, ["predict", "--model-dir", str(directory),
+                             "--image", str(tif_in), "--output",
+                             str(path)]))]
+    if kernels.LAUNCHES != {decode.KERNEL: 1}:
+        raise AssertionError(f"cli_predict: --image scene_jpeg.tif --output "
+                             f"drawn.hdr launches {kernels.LAUNCHES}")
+    counted[decode.KERNEL] += 1
+    data = path.read_bytes()
+    if not hdr_people or data != image_io.encode_image_plain(
+            visualize.draw_predictions(tif_rgb, hdr_people), ".hdr"):
+        raise AssertionError("cli_predict: drawn.hdr is not the drawing of "
+                             "the printed people in cv2's bytes")
+    written[".hdr"] = len(data)
     emit({"phase": "cli_predict", "card": card, "image": [480, 640],
           "persons": len(people), "keypoint_centres_drawn": len(centres),
           "changed_pixels": int((drawn != image).any(-1).sum()),
@@ -1549,6 +1584,7 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
               lambda: image_io.resize_linear_plain(rgb, size), 5),
           "formats": image_format_checks(image_io, image_codec, rgb),
           "webp": webp_checks(image_io, digests, rgb),
+          "tiff_hdr": tiff_hdr_checks(image_io, digests, data, rgb),
           "clock": "host perf_counter, median"})
 
 
@@ -1598,6 +1634,76 @@ def webp_checks(image_io, digests: dict, photo: np.ndarray) -> dict:
                      "plain bytes up to 40,000 pixels; size <= 1.5 x "
                      "cv2.imencode('.webp')",
             "times_480x640": times}
+
+
+G4_PAGE = "tiff_g4_page_2292x1728.tif"
+
+
+def tiff_hdr_checks(image_io, digests: dict, photo_jpeg: bytes,
+                    photo: np.ndarray) -> dict:
+    """The TIFF codecs (JPEG, CCITT, CMYK, YCbCr, CIELab) and Radiance
+    HDR on the host C library and their plain versions: every committed
+    `tiff_*` and `hdr_*` fixture decoded by the plain readers equal to the
+    C readers (which the main loop holds to cv2's digests), and written
+    as .hdr by the C and plain writers in the bytes of cv2.imencode
+    (their sha256 in the digests); the 480x640 TIFFs `timing_tiffs`
+    builds from the photo (its JPEG as a YCbCr 4:2:0 strip, CMYK, 2x2
+    YCbCr) and the photo written as .hdr and read back, C = plain = cv2's
+    digest. Times on the host clock (median): the C decode of each of
+    those, of the 1728x2292 group 4 page and the C encode of the .hdr;
+    the plain ones once."""
+    from multiposenet_tpu_torch.tools import image_samples as samples
+
+    checked = []
+    for name, want in sorted(digests.items()):
+        if not name.startswith(("tiff_", "hdr_")):
+            continue
+        data = (FIXTURES / name).read_bytes()
+        got = image_io.decode_image(data, name)
+        if sha256(got) != want["rgb_sha256"] or not np.array_equal(
+                image_io.decode_image_plain(data, name), got):
+            raise AssertionError(f"image_codec: {name}: C, plain and cv2's "
+                                 "digest differ")
+        for encode in (image_io.encode_image, image_io.encode_image_plain):
+            if hashlib.sha256(encode(got, ".hdr")).hexdigest() \
+                    != want["imencode_hdr_sha256"]:
+                raise AssertionError(f"image_codec: the .hdr of {name} is "
+                                     "not cv2.imencode's")
+        checked.append(name)
+    want = digests[TIMING_FIXTURE]
+    files = samples.timing_tiffs(photo_jpeg, photo)
+    t0 = time.perf_counter()
+    files["hdr"] = image_io.encode_image_plain(photo, ".hdr")
+    plain_encode_s = time.perf_counter() - t0
+    if hashlib.sha256(files["hdr"]).hexdigest() \
+            != want["imencode_hdr_sha256"] or files["hdr"] \
+            != image_io.encode_image(photo, ".hdr"):
+        raise AssertionError("image_codec: the .hdr of the photo is not "
+                             "cv2.imencode's, C and plain")
+    files["g4_page"] = (FIXTURES / G4_PAGE).read_bytes()
+    times = {}
+    for kind, data in files.items():
+        got = image_io.decode_image(data)
+        digest = (digests[G4_PAGE]["rgb_sha256"] if kind == "g4_page"
+                  else want["timing_sha256"][kind])
+        t0 = time.perf_counter()
+        plain = image_io.decode_image_plain(data)
+        plain_s = time.perf_counter() - t0
+        if sha256(got) != digest or not np.array_equal(plain, got):
+            raise AssertionError(f"image_codec: the {kind} file: C, plain "
+                                 "and cv2's digest differ")
+        times[kind] = {"shape": list(got.shape), "bytes": len(data),
+                       "c_decode_ms": median_ms(
+                           lambda: image_io.decode_image(data), 10),
+                       "plain_decode_s": plain_s}
+    times["hdr"]["c_encode_ms"] = median_ms(
+        lambda: image_io.encode_image(photo, ".hdr"), 10)
+    times["hdr"]["plain_encode_s"] = plain_encode_s
+    return {"fixtures": len(checked),
+            "equal": "every tiff_/hdr_ fixture C = plain = cv2's digest and "
+                     "its .hdr C = plain = cv2.imencode's bytes; the timed "
+                     "files C = plain = cv2's digest",
+            "times": times}
 
 
 def image_format_checks(image_io, image_codec, rgb: np.ndarray) -> dict:

@@ -17,10 +17,12 @@ Usage:
     python -m multiposenet_tpu_torch predict --model-dir out/ \\
         --image in.png --output out.png
 
-Images are read through `utils/image_io.py` (JPEG, PNG and .npy, as cv2
-reads them, without cv2); `predict --output` writes PNG (.png) and JPEG
-(.jpg, .jpeg, .jpe, the bytes cv2.imwrite writes) and exits before the
-model runs on any other suffix.
+Images are read through `utils/image_io.py` (JPEG, PNG, WebP, BMP,
+Netpbm, Sun raster, TIFF, GIF, Radiance HDR and .npy, as cv2 reads them,
+without cv2); `predict --output` writes what `image_io.write_image` writes
+(PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF, WebP and Radiance
+HDR, the bytes cv2.imwrite writes but for PNG and WebP) and exits before
+the model runs on any other suffix.
 """
 
 from __future__ import annotations
@@ -178,8 +180,8 @@ def cmd_predict(args) -> None:
     if args.output and suffix not in known:
         shown = Path(args.output).suffix or "none"
         sys.exit(f"--output {args.output}: suffix {shown} is not written "
-                 "here; PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF "
-                 "and WebP are")
+                 "here; PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF, "
+                 "WebP and Radiance HDR are")
     predictor = _load_predictor(args)
     try:
         rgb = read_image(args.image)

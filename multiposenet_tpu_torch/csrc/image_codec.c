@@ -1,8 +1,9 @@
 /* Host image codec of the port: JPEG decoding and encoding, cv2's INTER_LINEAR
  * resize on uint8 and on two-channel float32, its INTER_AREA on float32,
- * cv2.fillPoly, the byte coders of the simple formats (TIFF LZW and
- * PackBits, GIF LZW, BMP RLE4/RLE8) and cv2.imencode's writers for .bmp,
- * .ppm/.pam/.pfm, .sr and .tif, in plain C99 with no library.
+ * cv2.fillPoly, the byte coders of the simple formats (TIFF LZW,
+ * PackBits, JPEG strips and CCITT fax, GIF LZW, BMP RLE4/RLE8, Radiance
+ * HDR pixels) and cv2.imencode's writers for .bmp, .ppm/.pam/.pfm, .sr,
+ * .tif and .hdr, in plain C99 with no library.
  *
  * decode_jpeg decodes as libjpeg-turbo 3 does under OpenCV 5's reader:
  * sequential (SOF0, SOF1) and progressive (SOF2) Huffman-coded frames,
@@ -65,9 +66,13 @@
  *
  * tiff_lzw, packbits, gif_lzw and bmp_rle run one strip, tile, frame or
  * bitmap's codes for the parsers in utils/tiff.py, gif.py and bmp.py,
- * which hold their plain versions; encode_bmp, encode_pxm, encode_sunras
- * and encode_tiff write whole files (plain versions utils/bmp.py,
- * pxm.py, sunras.py and tiff.py encode).
+ * which hold their plain versions; decode_jpeg_tiff decodes a TIFF's JPEG
+ * strip in the colour space the TIFF names (plain version jpeg.py
+ * decode_planes), fax_decode a CCITT strip as libtiff's tif_fax3.c does
+ * (plain version utils/ccitt.py) and hdr_pixels a Radiance HDR file's
+ * pixels as OpenCV's rgbe.cpp reads them (utils/hdr.py); encode_bmp,
+ * encode_pxm, encode_sunras, encode_tiff and encode_hdr write whole files
+ * (plain versions utils/bmp.py, pxm.py, sunras.py, tiff.py and hdr.py).
  *
  * Built by `kernels.py load_host` with `cc -O2 -std=c99 -shared -fPIC`;
  * called through ctypes.
@@ -1788,6 +1793,55 @@ int jpeg_size(const uint8_t *data, long n, int *height, int *width,
     return rc;
 }
 
+/* Decodes the walked frame into out[height][width][channels]: `space` as
+ * colour_space returns (RGB, channels 3), or 4 for the components as they
+ * are, interleaved (channels = the frame's components). */
+static void decode_frame(Jpeg *j, uint8_t *out, int height, int width,
+                         int channels, int space)
+{
+    size_t sums_at;
+    uint8_t *rows[4];
+    Ycc *ycc;
+    int y, i;
+    /* libjpeg-turbo converts no colours in lossless mode: cv2's
+     * IMREAD_COLOR gets RGB and CMYK frames only. */
+    if (j->lossless && space != 1 && space != 2 && space != 4)
+        fail(&j->f, j->ncomp == 1
+             ? "gray lossless JPEGs are not read (libjpeg-turbo "
+               "converts no colours in lossless mode)"
+             : "lossless JPEGs in YCbCr or YCCK are not read "
+               "(libjpeg-turbo converts no colours in lossless mode)");
+    inverse_dct(j);
+    if (j->height != height || j->width != width)
+        fail(&j->f, "output buffer of the wrong size");
+    if (space == 4 ? channels != j->ncomp : channels != 3 || j->ncomp == 2)
+        fail(&j->f, "output buffer of the wrong depth");
+    /* Row by row: each component's upsampled row, then colour. */
+    sums_at = ((size_t)j->width * j->ncomp + 15) & ~(size_t)15;
+    j->scratch = (uint8_t *)malloc(sums_at + sizeof(int) * (size_t)j->width
+                                   + sizeof(Ycc));
+    if (!j->scratch) fail(&j->f, "out of memory");
+    ycc = (Ycc *)(void *)(j->scratch + sums_at
+                          + sizeof(int) * (size_t)j->width);
+    build_ycc(ycc);
+    for (i = 0; i < j->ncomp; i++) rows[i] = j->scratch + (size_t)j->width * i;
+    for (y = 0; y < j->height; y++) {
+        uint8_t *o = out + (size_t)y * j->width * channels;
+        for (i = 0; i < j->ncomp; i++) {
+            upsample_row(j, &j->comp[i], y, rows[i],
+                         (int *)(void *)(j->scratch + sums_at));
+        }
+        if (space == 4) {
+            int x, k;
+            for (x = 0; x < j->width; x++)
+                for (k = 0; k < channels; k++) o[x * channels + k] = rows[k][x];
+        } else {
+            colour_row(ycc, j->ncomp, space, (const uint8_t *const *)rows, o,
+                       j->width);
+        }
+    }
+}
+
 /* Decodes the JPEG in data[0:n] into rgb[height][width][3], which the
  * caller sized with jpeg_size; 0, or 1 with a message. With eof_fill a
  * stream whose data ends early is filled as cv2.imread fills it. */
@@ -1796,7 +1850,6 @@ int decode_jpeg(const uint8_t *data, long n, uint8_t *rgb, int height,
 {
     Jpeg *j = (Jpeg *)calloc(1, sizeof(Jpeg));
     volatile int rc = 0;
-    int i;
     if (!j) return 2;
     j->data = data;
     j->n = n;
@@ -1804,40 +1857,43 @@ int decode_jpeg(const uint8_t *data, long n, uint8_t *rgb, int height,
     j->f.err_len = err_len;
     j->eof_fill = eof_fill;
     if (setjmp(j->f.jump) == 0) {
-        size_t sums_at;
-        uint8_t *rows[4];
-        Ycc *ycc;
-        int y, space;
         walk(j, 1);
-        space = colour_space(j);
-        /* libjpeg-turbo converts no colours in lossless mode: cv2's
-         * IMREAD_COLOR gets RGB and CMYK frames only. */
-        if (j->lossless && space != 1 && space != 2)
-            fail(&j->f, j->ncomp == 1
-                 ? "gray lossless JPEGs are not read (libjpeg-turbo "
-                   "converts no colours in lossless mode)"
-                 : "lossless JPEGs in YCbCr or YCCK are not read "
-                   "(libjpeg-turbo converts no colours in lossless mode)");
-        inverse_dct(j);
-        if (j->height != height || j->width != width)
-            fail(&j->f, "output buffer of the wrong size");
-        /* Row by row: each component's upsampled row, then colour. */
-        sums_at = ((size_t)j->width * j->ncomp + 15) & ~(size_t)15;
-        j->scratch = (uint8_t *)malloc(sums_at + sizeof(int) * (size_t)j->width
-                                       + sizeof(Ycc));
-        if (!j->scratch) fail(&j->f, "out of memory");
-        ycc = (Ycc *)(void *)(j->scratch + sums_at
-                              + sizeof(int) * (size_t)j->width);
-        build_ycc(ycc);
-        for (i = 0; i < j->ncomp; i++) rows[i] = j->scratch + (size_t)j->width * i;
-        for (y = 0; y < j->height; y++) {
-            for (i = 0; i < j->ncomp; i++) {
-                upsample_row(j, &j->comp[i], y, rows[i],
-                             (int *)(void *)(j->scratch + sums_at));
-            }
-            colour_row(ycc, j->ncomp, space, (const uint8_t *const *)rows,
-                       rgb + (size_t)y * j->width * 3, j->width);
-        }
+        decode_frame(j, rgb, height, width, 3, colour_space(j));
+    } else {
+        rc = 1;
+    }
+    release(j);
+    free(j);
+    return rc;
+}
+
+/* A JPEG stream of a TIFF strip or tile (its JPEGTables in front, as
+ * libtiff hands both to libjpeg) as libtiff's JPEG codec decodes it: the
+ * colour space comes from the TIFF, not from the stream's markers. With
+ * `ycc_to_rgb` the three components go through jdcolor.c's YCbCr -> RGB
+ * (JPEGCOLORMODE_RGB, which libtiff's RGBA reader sets for photometric
+ * YCbCr); otherwise every component comes out as it is (JCS_UNKNOWN),
+ * into out[height][width][channels] with channels the frame's
+ * components. Data that ends early is filled as libjpeg fills it under
+ * libtiff's source manager (a fake EOI at each read past the end).
+ * 0, or 1 with a message. */
+int decode_jpeg_tiff(const uint8_t *data, long n, uint8_t *out, int height,
+                     int width, int channels, int ycc_to_rgb, char *err,
+                     int err_len)
+{
+    Jpeg *j = (Jpeg *)calloc(1, sizeof(Jpeg));
+    volatile int rc = 0;
+    if (!j) return 2;
+    j->data = data;
+    j->n = n;
+    j->f.err = err;
+    j->f.err_len = err_len;
+    j->eof_fill = 1;
+    if (setjmp(j->f.jump) == 0) {
+        walk(j, 1);
+        if (ycc_to_rgb && j->ncomp != 3)
+            fail(&j->f, "YCbCr data that is not of 3 components");
+        decode_frame(j, out, height, width, channels, ycc_to_rgb ? 0 : 4);
     } else {
         rc = 1;
     }
@@ -3453,5 +3509,687 @@ int encode_tiff(const uint8_t *rgb, int height, int width, uint8_t *out,
     free(stamp);
     free(counts);
     free(offsets);
+    return 0;
+}
+
+/* ------------------------------------------------------------------ */
+/* CCITT fax decoding of TIFF strips (compressions 2, 3 and 4) as     */
+/* libtiff 4.7's tif_fax3.c runs it; utils/ccitt.py is the plain       */
+/* version and says what is reproduced.                                */
+
+enum { S_NULL, S_PASS, S_HORIZ, S_V0, S_VR, S_VL, S_EXT, S_TERMW, S_TERMB,
+       S_MAKEUPW, S_MAKEUPB, S_MAKEUP, S_EOL };
+enum { FAX_OK, FAX_EOF, FAX_FAIL, FAX_NOEOL };
+
+typedef struct { uint8_t state, width; uint16_t param; } FaxEnt;
+
+typedef struct {
+    FaxEnt main[128], white[4096], black[8192];
+} FaxTables;
+
+/* T.4's code words, first bit first, in the order mkg3states.c fills. */
+static const char *const fax_white_term[64] = {
+    "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111",
+    "10011", "10100", "00111", "01000", "001000", "000011", "110100",
+    "110101", "101010", "101011", "0100111", "0001100", "0001000", "0010111",
+    "0000011", "0000100", "0101000", "0101011", "0010011", "0100100",
+    "0011000", "00000010", "00000011", "00011010", "00011011", "00010010",
+    "00010011", "00010100", "00010101", "00010110", "00010111", "00101000",
+    "00101001", "00101010", "00101011", "00101100", "00101101", "00000100",
+    "00000101", "00001010", "00001011", "01010010", "01010011", "01010100",
+    "01010101", "00100100", "00100101", "01011000", "01011001", "01011010",
+    "01011011", "01001010", "01001011", "00110010", "00110011", "00110100"};
+static const char *const fax_white_makeup[27] = {
+    "11011", "10010", "010111", "0110111", "00110110", "00110111",
+    "01100100", "01100101", "01101000", "01100111", "011001100", "011001101",
+    "011010010", "011010011", "011010100", "011010101", "011010110",
+    "011010111", "011011000", "011011001", "011011010", "011011011",
+    "010011000", "010011001", "010011010", "011000", "010011011"};
+static const char *const fax_black_term[64] = {
+    "0000110111", "010", "11", "10", "011", "0011", "0010", "00011", "000101",
+    "000100", "0000100", "0000101", "0000111", "00000100", "00000111",
+    "000011000", "0000010111", "0000011000", "0000001000", "00001100111",
+    "00001101000", "00001101100", "00000110111", "00000101000", "00000010111",
+    "00000011000", "000011001010", "000011001011", "000011001100",
+    "000011001101", "000001101000", "000001101001", "000001101010",
+    "000001101011", "000011010010", "000011010011", "000011010100",
+    "000011010101", "000011010110", "000011010111", "000001101100",
+    "000001101101", "000011011010", "000011011011", "000001010100",
+    "000001010101", "000001010110", "000001010111", "000001100100",
+    "000001100101", "000001010010", "000001010011", "000000100100",
+    "000000110111", "000000111000", "000000100111", "000000101000",
+    "000001011000", "000001011001", "000000101011", "000000101100",
+    "000001011010", "000001100110", "000001100111"};
+static const char *const fax_black_makeup[27] = {
+    "0000001111", "000011001000", "000011001001", "000001011011",
+    "000000110011", "000000110100", "000000110101", "0000001101100",
+    "0000001101101", "0000001001010", "0000001001011", "0000001001100",
+    "0000001001101", "0000001110010", "0000001110011", "0000001110100",
+    "0000001110101", "0000001110110", "0000001110111", "0000001010010",
+    "0000001010011", "0000001010100", "0000001010101", "0000001011010",
+    "0000001011011", "0000001100100", "0000001100101"};
+static const char *const fax_ext_makeup[13] = {
+    "00000001000", "00000001100", "00000001101", "000000010010",
+    "000000010011", "000000010100", "000000010101", "000000010110",
+    "000000010111", "000000011100", "000000011101", "000000011110",
+    "000000011111"};
+
+/* mkg3states.c FillTable: every index whose low bits are the code read
+ * first bit first. */
+static void fax_fill_table(FaxEnt *t, int bits, int state, const char *code,
+                           int param)
+{
+    int len = (int)strlen(code), rev = 0, k, i;
+    for (k = 0; k < len; k++) rev |= (code[k] == '1') << k;
+    for (i = rev; i < (1 << bits); i += 1 << len) {
+        t[i].state = (uint8_t)state;
+        t[i].width = (uint8_t)len;
+        t[i].param = (uint16_t)param;
+    }
+}
+
+static void fax_build(FaxTables *t)
+{
+    static const struct { int state; const char *code; int param; } modes[] = {
+        {S_PASS, "0001", 0}, {S_HORIZ, "001", 0}, {S_V0, "1", 0},
+        {S_VR, "011", 1}, {S_VR, "000011", 2}, {S_VR, "0000011", 3},
+        {S_VL, "010", 1}, {S_VL, "000010", 2}, {S_VL, "0000010", 3},
+        {S_EXT, "0000001", 0}, {S_EOL, "0000000", 0}};
+    int i, c;
+    memset(t, 0, sizeof *t);
+    for (i = 0; i < (int)(sizeof modes / sizeof modes[0]); i++)
+        fax_fill_table(t->main, 7, modes[i].state, modes[i].code,
+                       modes[i].param);
+    for (c = 0; c < 2; c++) {
+        FaxEnt *tab = c ? t->black : t->white;
+        int bits = c ? 13 : 12;
+        const char *const *term = c ? fax_black_term : fax_white_term;
+        const char *const *makeup = c ? fax_black_makeup : fax_white_makeup;
+        for (i = 0; i < 27; i++)
+            fax_fill_table(tab, bits, c ? S_MAKEUPB : S_MAKEUPW, makeup[i],
+                           64 * (i + 1));
+        for (i = 0; i < 13; i++)
+            fax_fill_table(tab, bits, S_MAKEUP, fax_ext_makeup[i],
+                           1792 + 64 * i);
+        for (i = 0; i < 64; i++)
+            fax_fill_table(tab, bits, c ? S_TERMB : S_TERMW, term[i], i);
+        fax_fill_table(tab, bits, S_EOL, "00000000000", 0);
+    }
+}
+
+typedef struct {
+    const FaxTables *t;
+    const uint8_t *data;
+    long n, cp;
+    uint32_t acc;
+    int avail, eolcnt, msb_first;
+    int lastx;
+    long nruns;
+    uint32_t *runs;        /* 2 * nruns, kept by the caller between strips */
+    long cur, ref, pa, thisrun, pb;
+    int a0, run_length, b1;
+} Fax;
+
+static uint8_t fax_byte(const Fax *f, uint8_t b)
+{
+    if (!f->msb_first) return b;
+    b = (uint8_t)((b & 0xF0) >> 4 | (b & 0x0F) << 4);
+    b = (uint8_t)((b & 0xCC) >> 2 | (b & 0x33) << 2);
+    return (uint8_t)((b & 0xAA) >> 1 | (b & 0x55) << 1);
+}
+
+/* NeedBits8 (wide = 0) and NeedBits16 (wide = 1). */
+static int fax_need(Fax *f, int n, int wide)
+{
+    if (f->avail >= n) return FAX_OK;
+    if (f->cp >= f->n) {
+        if (f->avail == 0) return FAX_EOF;
+        f->avail = n;
+        return FAX_OK;
+    }
+    f->acc |= (uint32_t)fax_byte(f, f->data[f->cp++]) << f->avail;
+    f->avail += 8;
+    if (wide && f->avail < n) {
+        if (f->cp >= f->n) {
+            f->avail = n;
+        } else {
+            f->acc |= (uint32_t)fax_byte(f, f->data[f->cp++]) << f->avail;
+            f->avail += 8;
+        }
+    }
+    return FAX_OK;
+}
+
+#define FAX_GET(f, k) ((f)->acc & ((1u << (k)) - 1))
+#define FAX_TRY(x) do { int r_ = (x); if (r_) return r_; } while (0)
+
+static void fax_clr(Fax *f, int k)
+{
+    f->avail -= k;
+    f->acc >>= k;
+}
+
+static int fax_lookup(Fax *f, int bits, const FaxEnt *t, int wide, FaxEnt *e)
+{
+    FAX_TRY(fax_need(f, bits, wide));
+    *e = t[FAX_GET(f, bits)];
+    fax_clr(f, e->width);
+    return FAX_OK;
+}
+
+static int fax_set(Fax *f, int x)
+{
+    if (f->pa >= f->thisrun + f->nruns) return FAX_FAIL;
+    f->runs[f->pa++] = (uint32_t)f->run_length + (uint32_t)x;
+    f->a0 = (int)((uint32_t)f->a0 + (uint32_t)x);
+    f->run_length = 0;
+    return FAX_OK;
+}
+
+/* CLEANUP_RUNS. */
+static int fax_cleanup(Fax *f)
+{
+    int lastx = f->lastx;
+    if (f->run_length) FAX_TRY(fax_set(f, 0));
+    if (f->a0 != lastx) {
+        while (f->a0 > lastx && f->pa > f->thisrun)
+            f->a0 = (int)((uint32_t)f->a0 - f->runs[--f->pa]);
+        if (f->a0 < lastx) {
+            if (f->a0 < 0) f->a0 = 0;
+            if ((f->pa - f->thisrun) & 1) FAX_TRY(fax_set(f, 0));
+            FAX_TRY(fax_set(f, lastx - f->a0));
+        } else if (f->a0 > lastx) {
+            FAX_TRY(fax_set(f, lastx));
+            FAX_TRY(fax_set(f, 0));
+        }
+    }
+    return FAX_OK;
+}
+
+/* _TIFFFax3fillruns into a row of 0/1 bytes, clamping the runs in place. */
+static void fax_fill(Fax *f, uint8_t *row)
+{
+    long end = f->pa, i, k;
+    uint32_t x = 0, lastx = (uint32_t)f->lastx;
+    if ((end - f->thisrun) & 1 && end < 2 * f->nruns) f->runs[end++] = 0;
+    for (i = f->thisrun; i < end; i += 2) {
+        for (k = i; k < i + 2 && k < end; k++) {
+            uint32_t run = f->runs[k];
+            if (x + run > lastx || run > lastx) run = f->runs[k] = lastx - x;
+            if (run) {
+                memset(row + x, (int)(k - i), run);
+                x += run;
+            }
+        }
+    }
+}
+
+/* The loops of EXPAND1D for one colour: make-up codes then a terminating
+ * one; *done at an EOL or a bad code. */
+static int fax_colour(Fax *f, int black, int *done)
+{
+    const FaxEnt *t = black ? f->t->black : f->t->white;
+    int term = black ? S_TERMB : S_TERMW;
+    int makeup = black ? S_MAKEUPB : S_MAKEUPW;
+    for (;;) {
+        FaxEnt e;
+        FAX_TRY(fax_lookup(f, black ? 13 : 12, t, 1, &e));
+        if (e.state == S_EOL) {
+            f->eolcnt = 1;
+            *done = 1;
+            return FAX_OK;
+        }
+        if (e.state == term) return fax_set(f, e.param);
+        if (e.state == makeup || e.state == S_MAKEUP) {
+            f->a0 += e.param;
+            f->run_length += e.param;
+            continue;
+        }
+        *done = 1;
+        return FAX_OK;
+    }
+}
+
+static int fax_expand_1d(Fax *f)
+{
+    int r, done = 0;
+    for (;;) {
+        if ((r = fax_colour(f, 0, &done)) || done || f->a0 >= f->lastx) break;
+        if ((r = fax_colour(f, 1, &done)) || done || f->a0 >= f->lastx) break;
+        if (f->runs[f->pa - 1] == 0 && f->runs[f->pa - 2] == 0) f->pa -= 2;
+    }
+    if (r == FAX_FAIL) return r;
+    FAX_TRY(fax_cleanup(f));
+    return r;
+}
+
+static int fax_check_b1(Fax *f)
+{
+    if (f->pa != f->thisrun) {
+        while (f->b1 <= f->a0 && f->b1 < f->lastx) {
+            if (f->pb + 1 >= f->ref + f->nruns) return FAX_FAIL;
+            f->b1 = (int)((uint32_t)f->b1 + f->runs[f->pb] + f->runs[f->pb + 1]);
+            f->pb += 2;
+        }
+    }
+    return FAX_OK;
+}
+
+/* A run of one colour in horizontal mode; *bad where EXPAND2D goes to
+ * badBlack2d or badWhite2d. */
+static int fax_horizontal(Fax *f, int black, int *bad)
+{
+    const FaxEnt *t = black ? f->t->black : f->t->white;
+    int term = black ? S_TERMB : S_TERMW;
+    int makeup = black ? S_MAKEUPB : S_MAKEUPW;
+    for (;;) {
+        FaxEnt e;
+        FAX_TRY(fax_lookup(f, black ? 13 : 12, t, 1, &e));
+        if (e.state == term) return fax_set(f, e.param);
+        if (e.state == makeup || e.state == S_MAKEUP) {
+            f->a0 += e.param;
+            f->run_length += e.param;
+            continue;
+        }
+        *bad = 1;
+        return FAX_OK;
+    }
+}
+
+static int fax_expand_2d_body(Fax *f)
+{
+    int lastx = f->lastx;
+    while (f->a0 < lastx) {
+        FaxEnt e;
+        if (f->pa >= f->thisrun + f->nruns) return FAX_FAIL;
+        FAX_TRY(fax_lookup(f, 7, f->t->main, 0, &e));
+        switch (e.state) {
+        case S_PASS:
+            FAX_TRY(fax_check_b1(f));
+            if (f->pb + 1 >= f->ref + f->nruns) return FAX_FAIL;
+            f->b1 = (int)((uint32_t)f->b1 + f->runs[f->pb++]);
+            f->run_length = (int)((uint32_t)f->run_length + (uint32_t)f->b1
+                                  - (uint32_t)f->a0);
+            f->a0 = f->b1;
+            f->b1 = (int)((uint32_t)f->b1 + f->runs[f->pb++]);
+            break;
+        case S_HORIZ: {
+            int bad = 0, black = (int)((f->pa - f->thisrun) & 1);
+            FAX_TRY(fax_horizontal(f, black, &bad));
+            if (bad) return FAX_OK;
+            FAX_TRY(fax_horizontal(f, !black, &bad));
+            if (bad) return FAX_OK;
+            FAX_TRY(fax_check_b1(f));
+            break;
+        }
+        case S_V0:
+        case S_VR:
+            FAX_TRY(fax_check_b1(f));
+            FAX_TRY(fax_set(f, f->b1 - f->a0 + e.param));
+            if (f->pb >= f->ref + f->nruns) return FAX_FAIL;
+            f->b1 = (int)((uint32_t)f->b1 + f->runs[f->pb++]);
+            break;
+        case S_VL:
+            FAX_TRY(fax_check_b1(f));
+            if (f->b1 < f->a0 + e.param) return FAX_OK;
+            FAX_TRY(fax_set(f, f->b1 - f->a0 - e.param));
+            f->b1 = (int)((uint32_t)f->b1 - f->runs[--f->pb]);
+            break;
+        case S_EXT:
+            if (f->pa < 2 * f->nruns)
+                f->runs[f->pa++] = (uint32_t)(lastx - f->a0);
+            return FAX_OK;
+        case S_EOL:
+            if (f->pa < 2 * f->nruns)
+                f->runs[f->pa++] = (uint32_t)(lastx - f->a0);
+            FAX_TRY(fax_need(f, 4, 0));
+            fax_clr(f, 4);
+            f->eolcnt = 1;
+            return FAX_OK;
+        default:
+            return FAX_OK;
+        }
+    }
+    if (f->run_length) {
+        if (f->run_length + f->a0 < lastx) {
+            FAX_TRY(fax_need(f, 1, 0));
+            if (!FAX_GET(f, 1)) return FAX_OK;
+            fax_clr(f, 1);
+        }
+        FAX_TRY(fax_set(f, 0));
+    }
+    return FAX_OK;
+}
+
+static int fax_expand_2d(Fax *f)
+{
+    int r = fax_expand_2d_body(f);
+    if (r == FAX_FAIL) return r;
+    FAX_TRY(fax_cleanup(f));
+    return r;
+}
+
+/* SYNC_EOL; FAX_NOEOL where it runs out of data. */
+static int fax_sync_eol(Fax *f)
+{
+    if (f->eolcnt == 0) {
+        for (;;) {
+            if (fax_need(f, 11, 1)) return FAX_NOEOL;
+            if (FAX_GET(f, 11) == 0) break;
+            fax_clr(f, 1);
+        }
+    }
+    for (;;) {
+        if (fax_need(f, 8, 0)) return FAX_NOEOL;
+        if (FAX_GET(f, 8)) break;
+        fax_clr(f, 8);
+    }
+    while (FAX_GET(f, 1) == 0) fax_clr(f, 1);
+    fax_clr(f, 1);
+    f->eolcnt = 0;
+    return FAX_OK;
+}
+
+/* One row of a T.4 or RLE strip; FAX_EOF and FAX_FAIL fail the strip. */
+static int fax_row_t4(Fax *f, int compression, int two_d, int *noeol)
+{
+    int r;
+    if (compression == 2) return fax_expand_1d(f);
+    if (!*noeol) {
+        r = fax_sync_eol(f);
+        if (r == FAX_NOEOL) {
+            *noeol = 1;
+            f->cp = 0;
+            f->acc = 0;
+            f->avail = f->eolcnt = 0;
+        }
+    }
+    if (two_d) {
+        int is_1d;
+        if (fax_need(f, 1, 0)) {
+            FAX_TRY(fax_cleanup(f));
+            return FAX_EOF;
+        }
+        is_1d = (int)FAX_GET(f, 1);
+        fax_clr(f, 1);
+        f->pb = f->ref;
+        f->b1 = (int)f->runs[f->pb++];
+        return is_1d ? fax_expand_1d(f) : fax_expand_2d(f);
+    }
+    return fax_expand_1d(f);
+}
+
+/* One strip or tile of CCITT data into out[rows][width] (0 white, 1
+ * black). `runs` holds 2 * fax_runs(width, two_d) words and `*noeol` the
+ * codec's no-EOL mode, both kept by the caller from one strip of an image
+ * to the next. Returns 1, or 0 where libtiff's decoder returns -1 (the rows
+ * decoded until then written, the rest left as they were), or 2 if out of
+ * memory. */
+long fax_runs(int width, int two_d)
+{
+    long words = ((long)width + 1 + 31) / 32 * 32;
+    return two_d ? 2 * words : words;
+}
+
+int fax_decode(const uint8_t *data, long n, int width, int rows,
+               int compression, int t4options, int fill_order,
+               uint32_t *runs, int *noeol, uint8_t *out)
+{
+    FaxTables *t = (FaxTables *)malloc(sizeof(FaxTables));
+    int two_d = compression == 4 || (compression == 3 && (t4options & 1));
+    int line, rc = 1;
+    Fax f;
+    if (!t) return 2;
+    fax_build(t);
+    memset(&f, 0, sizeof f);
+    f.t = t;
+    f.data = data;
+    f.n = n;
+    f.msb_first = fill_order != 2;
+    f.lastx = width;
+    f.nruns = fax_runs(width, two_d);
+    f.runs = runs;
+    f.cur = 0;
+    f.ref = f.nruns;
+    if (two_d) {
+        runs[f.ref] = (uint32_t)width;
+        runs[f.ref + 1] = 0;
+    }
+    for (line = 0; line < rows; line++) {
+        uint8_t *row = out + (size_t)line * width;
+        int r;
+        f.a0 = f.run_length = 0;
+        f.pa = f.thisrun = f.cur;
+        if (compression == 4) {
+            int ended;
+            f.pb = f.ref;
+            f.b1 = (int)runs[f.pb++];
+            r = fax_expand_2d(&f);
+            if (r == FAX_FAIL) { rc = 0; break; }
+            ended = r == FAX_EOF || f.eolcnt;
+            if (ended) {
+                (void)fax_need(&f, 13, 1);
+                fax_clr(&f, 13);
+                fax_fill(&f, row);
+                rc = line > 0;
+                break;
+            }
+            fax_fill(&f, row);
+            if (fax_set(&f, 0)) { rc = 0; break; }
+            f.cur = f.ref;
+            f.ref = f.thisrun;
+            continue;
+        }
+        r = fax_row_t4(&f, compression, two_d, noeol);
+        if (r == FAX_FAIL) { rc = 0; break; }
+        fax_fill(&f, row);
+        if (r == FAX_EOF) { rc = 0; break; }
+        if (compression == 2) {
+            fax_clr(&f, f.avail & 7);
+        } else if (two_d) {
+            if (f.pa < f.thisrun + f.nruns && fax_set(&f, 0)) { rc = 0; break; }
+            f.cur = f.ref;
+            f.ref = f.thisrun;
+        }
+    }
+    free(t);
+    return rc;
+}
+
+/* ------------------------------------------------------------------ */
+/* Radiance HDR pixels as OpenCV's rgbe.cpp reads and writes them;     */
+/* utils/hdr.py parses the header and holds the plain versions.        */
+
+/* rgbe2float and cv2's scaling by 255 to uint8: m * 255 * 2^(e - 136) is
+ * exact in float32; rounded to even and saturated, in integers here. A
+ * value of 2^31 or more converts to INT_MIN under cv2's cvRound, then
+ * saturates to 0. */
+static void rgbe_to_rgb8(const uint8_t *rgbe, uint8_t *rgb)
+{
+    int c, s = 136 - rgbe[3];
+    for (c = 0; c < 3; c++) {
+        uint32_t x = 255u * rgbe[c], q, rem, half;
+        if (!rgbe[3] || s >= 17) {
+            rgb[c] = 0; /* below one half */
+        } else if (s <= 0) {
+            rgb[c] = x && -s < 31 && ((uint64_t)x << -s) < (1u << 31) ? 255 : 0;
+        } else {
+            q = x >> s;
+            rem = x & ((1u << s) - 1);
+            half = 1u << (s - 1);
+            q += rem > half || (rem == half && (q & 1));
+            rgb[c] = (uint8_t)(q > 255 ? 255 : q);
+        }
+    }
+}
+
+/* RGBE_ReadPixels_RLE of body[0:n] into rgb[height][width][3]; 0, or 1
+ * where cv2 returns no image (data that ends early, a bad run). */
+int hdr_pixels(const uint8_t *body, long n, int height, int width,
+               uint8_t *rgb)
+{
+    long pos = 0, total = (long)height * width, px;
+    uint8_t *line;
+    int y;
+    if (width < 8 || width > 0x7FFF) {
+        if (n < 4 * total) return 1;
+        for (px = 0; px < total; px++)
+            rgbe_to_rgb8(body + 4 * px, rgb + 3 * px);
+        return 0;
+    }
+    line = (uint8_t *)malloc((size_t)4 * width);
+    if (!line) return 2;
+    for (y = 0; y < height; y++) {
+        const uint8_t *h = body + pos;
+        int c, x;
+        if (pos + 4 > n) goto bad;
+        pos += 4;
+        if (h[0] != 2 || h[1] != 2 || (h[2] & 0x80)) {
+            /* Not run-length coded: this pixel and the rest flat. */
+            long first = (long)y * width;
+            if (pos + 4 * (total - first - 1) > n) goto bad;
+            rgbe_to_rgb8(h, rgb + 3 * first);
+            for (px = first + 1; px < total; px++, pos += 4)
+                rgbe_to_rgb8(body + pos, rgb + 3 * px);
+            free(line);
+            return 0;
+        }
+        if (((int)h[2] << 8 | h[3]) != width) goto bad;
+        for (c = 0; c < 4; c++) {
+            int at = c * width, end = (c + 1) * width;
+            while (at < end) {
+                int count, value;
+                if (pos + 2 > n) goto bad;
+                count = body[pos];
+                value = body[pos + 1];
+                pos += 2;
+                if (count > 128) {
+                    count -= 128;
+                    if (count > end - at) goto bad;
+                    memset(line + at, value, (size_t)count);
+                } else {
+                    if (count == 0 || count > end - at) goto bad;
+                    line[at] = (uint8_t)value;
+                    if (count > 1) {
+                        if (pos + count - 1 > n) goto bad;
+                        memcpy(line + at + 1, body + pos, (size_t)count - 1);
+                        pos += count - 1;
+                    }
+                }
+                at += count;
+            }
+        }
+        for (x = 0; x < width; x++) {
+            uint8_t p[4];
+            for (c = 0; c < 4; c++) p[c] = line[c * width + x];
+            rgbe_to_rgb8(p, rgb + 3 * ((size_t)y * width + x));
+        }
+    }
+    free(line);
+    return 0;
+bad:
+    free(line);
+    return 1;
+}
+
+/* cv2's uint8 -> float32 (times the float 1/255) and float2rgbe. The
+ * largest channel v lies in [1/255, 1], so frexp's exponent e is that of
+ * its float bits and frexp(v) * 256.0 / v is exactly 2^(8 - e). */
+static void rgb8_to_rgbe(const uint8_t *rgb, uint8_t *rgbe)
+{
+    const float k = 1.0f / 255.0f;
+    float r = rgb[0] * k, g = rgb[1] * k, b = rgb[2] * k, v = r, scale;
+    uint32_t bits;
+    int e;
+    if (g > v) v = g;
+    if (b > v) v = b;
+    if (v < 1e-32) {
+        rgbe[0] = rgbe[1] = rgbe[2] = rgbe[3] = 0;
+        return;
+    }
+    memcpy(&bits, &v, sizeof bits);
+    e = (int)((bits >> 23) & 0xFF) - 126;
+    scale = (float)(1u << (8 - e));
+    rgbe[0] = (uint8_t)(r * scale);
+    rgbe[1] = (uint8_t)(g * scale);
+    rgbe[2] = (uint8_t)(b * scale);
+    rgbe[3] = (uint8_t)(e + 128);
+}
+
+/* RGBE_WriteBytes_RLE of data[0:count] at out + *at. */
+static void rgbe_rle(const uint8_t *data, int count, uint8_t *out, long *at)
+{
+    int cur = 0;
+    while (cur < count) {
+        int beg = cur, run = 0, old_run = 0;
+        while (run < 4 && beg < count) {
+            beg += run;
+            old_run = run;
+            run = 1;
+            while (beg + run < count && run < 127
+                   && data[beg] == data[beg + run])
+                run++;
+        }
+        if (old_run > 1 && old_run == beg - cur) {
+            out[(*at)++] = (uint8_t)(128 + old_run);
+            out[(*at)++] = data[cur];
+            cur = beg;
+        }
+        while (cur < beg) {
+            int k = beg - cur > 128 ? 128 : beg - cur;
+            out[(*at)++] = (uint8_t)k;
+            memcpy(out + *at, data + cur, (size_t)k);
+            *at += k;
+            cur += k;
+        }
+        if (run >= 4) {
+            out[(*at)++] = (uint8_t)(128 + run);
+            out[(*at)++] = data[beg];
+            cur += run;
+        }
+    }
+}
+
+/* What cv2.imencode(".hdr") writes for rgb[height][width][3], into
+ * out[0:cap]; *size its length. 0, 1 if cap is too small (*size then the
+ * bytes needed at most), 2 if out of memory. */
+int encode_hdr(const uint8_t *rgb, int height, int width, uint8_t *out,
+               long cap, long *size)
+{
+    char head[96];
+    int len = snprintf(head, sizeof head,
+                       "#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y %d +X %d\n",
+                       height, width);
+    long need = len + (long)height * (4 + 4 * (width + (width + 127) / 128 + 2))
+                + 4L * height * width, at = len, px;
+    uint8_t *line;
+    int y, x, c;
+    if (cap < need) {
+        *size = need;
+        return 1;
+    }
+    memcpy(out, head, (size_t)len);
+    if (width < 8 || width > 0x7FFF) {
+        for (px = 0; px < (long)height * width; px++, at += 4)
+            rgb8_to_rgbe(rgb + 3 * px, out + at);
+        *size = at;
+        return 0;
+    }
+    line = (uint8_t *)malloc((size_t)4 * width);
+    if (!line) return 2;
+    for (y = 0; y < height; y++) {
+        out[at++] = 2;
+        out[at++] = 2;
+        out[at++] = (uint8_t)(width >> 8);
+        out[at++] = (uint8_t)(width & 0xFF);
+        for (x = 0; x < width; x++) {
+            uint8_t p[4];
+            rgb8_to_rgbe(rgb + 3 * ((size_t)y * width + x), p);
+            for (c = 0; c < 4; c++) line[c * width + x] = p[c];
+        }
+        for (c = 0; c < 4; c++) rgbe_rle(line + c * width, width, out, &at);
+    }
+    free(line);
+    *size = at;
     return 0;
 }

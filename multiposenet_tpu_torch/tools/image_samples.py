@@ -51,8 +51,13 @@ def tiff_bytes(img: np.ndarray, photometric: int, bps: int = 8,
                rows_per_strip: int | None = None,
                tile: tuple[int, int] | None = None, colormap=None,
                extra=None, orientation: int | None = None,
-               big_endian: bool = False) -> bytes:
-    """A TIFF of `img` ([h, w] or [h, w, samples] integer sample values)."""
+               big_endian: bool = False, chunks: list[bytes] | None = None,
+               tags: tuple = ()) -> bytes:
+    """A TIFF of `img` ([h, w] or [h, w, samples] integer sample values).
+    `chunks` replaces the coded strips or tiles (in file order) by the
+    bytes given, e.g. JPEG or CCITT streams; `tags` adds (tag, type,
+    values) entries: type 3 or 4 integers, 5 (RATIONAL) (numerator,
+    denominator) pairs, 7 (UNDEFINED) bytes."""
     e = ">" if big_endian else "<"
     img = np.asarray(img)
     if img.ndim == 2:
@@ -80,8 +85,8 @@ def tiff_bytes(img: np.ndarray, photometric: int, bps: int = 8,
 
     planes = [img] if planar == 1 else [img[..., k:k + 1]
                                         for k in range(spp)]
-    chunks = []
-    for p in planes:
+    given, chunks = chunks, []
+    for p in planes if given is None else ():
         if tile is None:
             rps = rows_per_strip or h
             chunks += [encode(p[y:y + rps]) for y in range(0, h, rps)]
@@ -93,6 +98,8 @@ def tiff_bytes(img: np.ndarray, photometric: int, bps: int = 8,
                 part = p[ty:ty + th, tx:tx + tw]
                 blk[:part.shape[0], :part.shape[1]] = part
                 chunks.append(encode(blk))
+    if given is not None:
+        chunks = list(given)
     out = bytearray((b"MM\x00*" if big_endian else b"II*\x00") + b"\0" * 4)
     offsets = []
     for c in chunks:
@@ -117,22 +124,70 @@ def tiff_bytes(img: np.ndarray, photometric: int, bps: int = 8,
         entries.append((320, 3, list(np.asarray(colormap).reshape(-1))))
     if extra is not None:
         entries.append((338, 3, list(extra)))
-    entries.sort()
+    entries = sorted([x for x in entries if x[0] not in {t[0] for t in tags}]
+                     + list(tags))
     ifd = len(out)
     out[4:8] = struct.pack(e + "I", ifd)
     tail_at = ifd + 2 + 12 * len(entries) + 4
     tail, table = bytearray(), bytearray(struct.pack(e + "H", len(entries)))
     for tag, typ, vals in entries:
-        fmt = {3: "H", 4: "I"}[typ]
-        data = struct.pack(e + fmt * len(vals), *[int(v) for v in vals])
+        if typ == 7:
+            data, count = bytes(vals), len(vals)
+        else:
+            flat = [int(v) for v in np.asarray(vals).reshape(-1)]
+            data = struct.pack(e + {3: "H", 4: "I", 5: "I"}[typ] * len(flat),
+                               *flat)
+            count = len(flat) // (2 if typ == 5 else 1)
         if len(data) <= 4:
-            table += struct.pack(e + "HHI", tag, typ, len(vals)) + \
+            table += struct.pack(e + "HHI", tag, typ, count) + \
                 data.ljust(4, b"\0")
         else:
-            table += struct.pack(e + "HHII", tag, typ, len(vals),
+            table += struct.pack(e + "HHII", tag, typ, count,
                                  tail_at + len(tail))
             tail += data + b"\0" * (len(data) & 1)
     return bytes(out + table + b"\0" * 4 + tail)
+
+
+def ycbcr_units(ycc: np.ndarray, hs: int, vs: int) -> np.ndarray:
+    """Full-size Y, Cb, Cr samples [h, w, 3] → TIFF YCbCr data units
+    [ceil(h / vs), ceil(w / hs), hs * vs + 2]: the unit's luma row by row
+    (edges repeated), then the Cb and Cr of its top-left sample."""
+    h, w = ycc.shape[:2]
+    uh, uw = -(-h // vs), -(-w // hs)
+    full = np.pad(ycc, ((0, uh * vs - h), (0, uw * hs - w), (0, 0)),
+                  mode="edge")
+    y = full[..., 0].reshape(uh, vs, uw, hs).transpose(0, 2, 1, 3) \
+        .reshape(uh, uw, vs * hs)
+    return np.concatenate([y, full[::vs, ::hs, 1:]], -1).astype(np.uint8)
+
+
+def timing_tiffs(photo_jpeg: bytes, rgb: np.ndarray) -> dict[str, bytes]:
+    """The TIFFs timed at a photo's size: "jpeg_ycc420", the JPEG photo
+    (a JFIF 4:2:0 stream) as the one strip of a YCbCr JPEG TIFF;
+    "cmyk", its pixels as CMYK with the gray component taken out (k =
+    min(255 - r, 255 - g, 255 - b)), uncompressed in strips of 16 rows;
+    "ycbcr22", its pixels as 2x2-subsampled YCbCr units (JPEG's integer
+    RGB -> YCbCr), uncompressed in strips of 16 rows."""
+    rgb = np.asarray(rgb, np.int64)
+    h, w = rgb.shape[:2]
+    out = {"jpeg_ycc420": tiff_bytes(rgb, 6, compression=7,
+                                     chunks=[photo_jpeg],
+                                     tags=((530, 3, [2, 2]),))}
+    cmy = 255 - rgb
+    k = cmy.min(-1, keepdims=True)
+    out["cmyk"] = tiff_bytes(np.concatenate([cmy - k, k], -1), 5,
+                             rows_per_strip=16)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    ycc = np.stack([(19595 * r + 38470 * g + 7471 * b + 32768) >> 16,
+                    ((-11059 * r - 21709 * g + 32768 * b + 32767) >> 16)
+                    + 128,
+                    ((32768 * r - 27439 * g - 5329 * b + 32767) >> 16)
+                    + 128], -1).clip(0, 255)
+    chunks = [ycbcr_units(ycc[y:y + 16], 2, 2).tobytes()
+              for y in range(0, h, 16)]
+    out["ycbcr22"] = tiff_bytes(ycc, 6, rows_per_strip=16, chunks=chunks,
+                                tags=((530, 3, [2, 2]),))
+    return out
 
 
 def gif_lzw_literal(indices, min_size: int) -> bytes:

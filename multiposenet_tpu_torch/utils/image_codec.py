@@ -5,10 +5,12 @@ cv2's INTER_LINEAR resize on uint8 and on two-channel float32 and its
 INTER_AREA on float32 (`utils/image_io.resize_linear_plain` and
 `resize_area_plain` are their plain versions), cv2.fillPoly
 (`data/masks.fill_polygons_plain`), the byte coders of the simple formats
-(TIFF LZW and PackBits: `utils/tiff.py`; GIF LZW: `utils/gif.py`; BMP
-RLE4 and RLE8: `utils/bmp.py`) and cv2.imencode's writers for .bmp,
-.ppm/.pam/.pfm, .sr and .tif (plain versions `bmp.encode`, `pxm.encode`,
-`sunras.encode`, `tiff.encode`). The library is built by
+(TIFF LZW and PackBits: `utils/tiff.py`; TIFF's JPEG strips:
+`jpeg.decode_planes`; CCITT fax: `utils/ccitt.py`; GIF LZW:
+`utils/gif.py`; BMP RLE4 and RLE8: `utils/bmp.py`; Radiance HDR pixels:
+`utils/hdr.py`) and cv2.imencode's writers for .bmp, .ppm/.pam/.pfm, .sr,
+.tif and .hdr/.pic (plain versions `bmp.encode`, `pxm.encode`,
+`sunras.encode`, `tiff.encode`, `hdr.encode_plain`). The library is built by
 `kernels.load_host` on first use; a build that fails raises, and nothing
 falls back to the plain versions.
 """
@@ -69,11 +71,26 @@ def library() -> ctypes.CDLL:
     lib.bmp_rle.restype = ctypes.c_int
     sized = [_u8p, ctypes.c_int, ctypes.c_int, _u8p, ctypes.c_long,
              ctypes.POINTER(ctypes.c_long)]
-    for name in ("encode_bmp", "encode_sunras", "encode_tiff"):
+    for name in ("encode_bmp", "encode_sunras", "encode_tiff", "encode_hdr"):
         getattr(lib, name).argtypes = sized
         getattr(lib, name).restype = ctypes.c_int
     lib.encode_pxm.argtypes = [ctypes.c_int] + sized
     lib.encode_pxm.restype = ctypes.c_int
+    lib.decode_jpeg_tiff.argtypes = [ctypes.c_char_p, ctypes.c_long, _u8p,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_char_p,
+                                     ctypes.c_int]
+    lib.decode_jpeg_tiff.restype = ctypes.c_int
+    lib.fax_runs.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fax_runs.restype = ctypes.c_long
+    lib.fax_decode.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.POINTER(ctypes.c_uint32),
+                               ctypes.POINTER(ctypes.c_int), _u8p]
+    lib.fax_decode.restype = ctypes.c_int
+    lib.hdr_pixels.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+                               ctypes.c_int, _u8p]
+    lib.hdr_pixels.restype = ctypes.c_int
     return lib
 
 
@@ -138,6 +155,67 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
     if rc:
         raise MemoryError("image_codec: out of memory")
     return out[:size.value].tobytes()
+
+
+def decode_jpeg_tiff(data: bytes, channels: int,
+                     ycc_to_rgb: bool) -> np.ndarray:
+    """A TIFF strip's or tile's JPEG stream (JPEGTables in front) as
+    libtiff's JPEG codec decodes it → uint8 [H, W, channels]: RGB from
+    YCbCr with `ycc_to_rgb` (channels 3), else every component as it is
+    (channels the stream's components; `jpeg.decode_planes` is the plain
+    version of the baseline part)."""
+    lib = library()
+    data = bytes(data)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    _check(lib.jpeg_size(data, len(data), ctypes.byref(h), ctypes.byref(w),
+                         err, _ERR_LEN), err)
+    out = np.empty((h.value, w.value, channels), np.uint8)
+    _check(lib.decode_jpeg_tiff(data, len(data), out.ctypes.data_as(_u8p),
+                                h.value, w.value, channels, int(ycc_to_rgb),
+                                err, _ERR_LEN), err)
+    return out
+
+
+def fax_decode(data: bytes, width: int, rows: int, compression: int,
+               t4options: int, fill_order: int,
+               codec: dict) -> tuple[np.ndarray, bool]:
+    """libtiff's CCITT decoding of one strip or tile (`ccitt.decode`, the
+    plain version, says what and how): → (rows [rows, width] of 0/1, 1
+    black; False where libtiff's decoder fails). `codec` carries libtiff's
+    state from one strip of an image to the next."""
+    lib = library()
+    data = bytes(data)
+    two_d = int(compression == 4 or (compression == 3 and t4options & 1))
+    n = 2 * lib.fax_runs(width, two_d)
+    state = codec.get("c")
+    if state is None or len(state[0]) != n:
+        state = codec["c"] = (np.zeros(n, np.uint32), ctypes.c_int(0))
+    runs, noeol = state
+    out = np.zeros((rows, width), np.uint8)
+    rc = lib.fax_decode(data, len(data), width, rows, compression, t4options,
+                        fill_order,
+                        runs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                        ctypes.byref(noeol), out.ctypes.data_as(_u8p))
+    if rc == 2:
+        raise MemoryError("image_codec: out of memory")
+    return out, rc == 1
+
+
+def hdr_pixels(body: bytes, height: int, width: int) -> np.ndarray:
+    """OpenCV's RGBE_ReadPixels_RLE of a Radiance HDR file's pixels (the
+    bytes after its header) → uint8 RGB [height, width, 3] as cv2 scales
+    them (`hdr.decode_pixels_plain`)."""
+    body = bytes(body)
+    out = np.empty((height, width, 3), np.uint8)
+    rc = library().hdr_pixels(body, len(body), height, width,
+                              out.ctypes.data_as(_u8p))
+    if rc == 2:
+        raise MemoryError("image_codec: out of memory")
+    if rc:
+        raise ValueError("Radiance HDR pixels end early or hold a bad run "
+                         "(cv2 returns no image)")
+    return out
 
 
 def resize_linear_u8(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
@@ -243,7 +321,7 @@ _PXM_KINDS = {"ppm": 0, "pam": 1, "pfm": 2}
 
 def encode_image(rgb: np.ndarray, kind: str) -> bytes:
     """uint8 RGB [H, W, 3] → what `cv2.imencode` writes for `kind`: one of
-    "bmp", "ppm", "pam", "pfm", "sunras", "tiff"."""
+    "bmp", "ppm", "pam", "pfm", "sunras", "tiff", "hdr"."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[-1] != 3:
         raise ValueError(f"encode_image takes uint8 RGB [H, W, 3]; got "
@@ -256,7 +334,7 @@ def encode_image(rgb: np.ndarray, kind: str) -> bytes:
     else:
         fn = getattr(lib, "encode_" + kind)
     size = ctypes.c_long()
-    cap = 1024 + h * w * 13
+    cap = 1024 + h * w * 13 + h * 16
     while True:
         out = np.empty(cap, np.uint8)
         rc = fn(src.ctypes.data_as(_u8p), h, w, out.ctypes.data_as(_u8p),

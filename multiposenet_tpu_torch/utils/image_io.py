@@ -22,12 +22,15 @@ libpng 1.6):
   cut to their high byte (libpng's png_set_strip_16), alpha dropped;
 - `.npy` arrays, uint8 [H, W, 3] or gray [H, W];
 - by signature, as cv2 picks its decoder: BMP/DIB (`utils/bmp.py`),
-  PBM/PGM/PPM/PAM/PFM (`utils/pxm.py`), Sun raster (`utils/sunras.py`),
-  TIFF (`utils/tiff.py`) and GIF's first frame (`utils/gif.py`), their
-  byte coders (BMP RLE, TIFF LZW and PackBits, GIF LZW) in the host C
-  library; `decode_image_plain` runs the same readers on the coders'
-  plain versions. Each module names the variants it reads and what cv2
-  5.0 returns no image for;
+  Radiance HDR (`utils/hdr.py`), PBM/PGM/PPM/PAM/PFM (`utils/pxm.py`),
+  Sun raster (`utils/sunras.py`), TIFF (`utils/tiff.py`: LZW, PackBits,
+  deflate, JPEG and CCITT compression; gray, RGB, palette, CMYK, YCbCr and
+  CIELab) and GIF's first frame (`utils/gif.py`), their coders (BMP RLE,
+  TIFF LZW, PackBits, JPEG and CCITT, GIF LZW, HDR run-length pixels) in
+  the host C library; `decode_image_plain` runs the same readers on the
+  coders' plain versions (`utils/ccitt.py`, `jpeg.decode_planes` for
+  baseline streams, `hdr.decode_pixels_plain`, ...). Each module names the
+  variants it reads and what cv2 5.0 returns no image for;
 - WebP (`utils/webp.py`): lossless VP8L, lossy VP8 (with or without an
   `ALPH` plane, which is decoded and dropped), the `VP8X` extended form
   and an animation's first frame on its canvas, as libwebp 1.6 decodes
@@ -36,18 +39,18 @@ libpng 1.6):
   `utils/vp8.py`. A RIFF file of another form is refused by name.
 Gray is repeated into three channels. The Exif orientation (tag 0x0112
 of IFD0, in a JPEG APP1 `Exif` block, a PNG `eXIf` chunk, a TIFF's own
-IFD0 or a WebP `EXIF` chunk) is applied as cv2 applies it. Radiance HDR,
-AVIF, JPEG 2000 and OpenEXR files, and TIFFs with JPEG or CCITT
-compression, are refused by a ValueError that names the format; any
-other bytes by one that names the suffix.
+IFD0 or a WebP `EXIF` chunk) is applied as cv2 applies it. AVIF and
+JPEG 2000 files (not yet read) and OpenEXR ones (cv2 is built without
+it) are refused by a ValueError that names the format; any other bytes by
+one that names the suffix.
 
 `encode_jpeg` and `write_jpeg` write uint8 RGB as the JPEG bytes
 `cv2.imencode(".jpg")` writes at its defaults (host C; plain version
 `jpeg.encode_pixels`); `encode_png` and `write_png` write uint8 gray or
 RGB as an 8-bit PNG; `encode_image` writes the bytes `cv2.imencode`
-writes for .bmp/.dib, .ppm/.pnm, .pam, .pfm, .sr/.ras and .tif/.tiff, and
-for .webp a lossless file of cv2's pixels (host C; `encode_image_plain`
-runs the modules' plain writers);
+writes for .bmp/.dib, .ppm/.pnm, .pam, .pfm, .sr/.ras, .tif/.tiff and
+.hdr/.pic, and for .webp a lossless file of cv2's pixels (host C;
+`encode_image_plain` runs the modules' plain writers);
 `decode_gray_png` reads a gray PNG as `cv2.imdecode(buf,
 cv2.IMREAD_GRAYSCALE)` does. `resize_linear` is cv2's INTER_LINEAR and
 `resize_area` its INTER_AREA, bit for bit through the C library where
@@ -70,16 +73,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multiposenet_tpu_torch.utils import (bmp, gif, image_codec, jpeg, pxm,
-                                          sunras, tiff, webp)
+from multiposenet_tpu_torch.utils import (bmp, gif, hdr, image_codec, jpeg,
+                                          pxm, sunras, tiff, webp)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NPY_MAGIC = b"\x93NUMPY"
 JPEG_MAGIC = b"\xff\xd8\xff"
 # Magic bytes of formats the reader refuses, to name them in the error.
 _OTHER_FORMATS = {
-    b"#?RADIANCE": "Radiance HDR",
-    b"#?RGBE": "Radiance HDR",
     b"\x00\x00\x00\x0cjP  \r\n\x87\n": "JPEG 2000",
     b"\xff\x4f\xff\x51": "JPEG 2000 codestream",
     b"\x76\x2f\x31\x01": "OpenEXR",
@@ -88,7 +89,8 @@ _OTHER_FORMATS = {
 WRITTEN_SUFFIXES = {".bmp": "bmp", ".dib": "bmp", ".ppm": "ppm",
                     ".pnm": "ppm", ".pam": "pam", ".pfm": "pfm",
                     ".sr": "sunras", ".ras": "sunras", ".tif": "tiff",
-                    ".tiff": "tiff", ".webp": "webp"}
+                    ".tiff": "tiff", ".webp": "webp", ".hdr": "hdr",
+                    ".pic": "hdr"}
 # Suffixes for which cv2.imwrite of 3-channel pixels returns False and
 # writes no file.
 UNWRITTEN_SUFFIXES = (".pgm", ".pbm")
@@ -147,8 +149,9 @@ def decode_image(data: bytes, name: str | Path = "<bytes>",
 
 def decode_image_plain(data: bytes, name: str | Path = "<bytes>"
                        ) -> np.ndarray:
-    """`decode_image` of a BMP, Netpbm, Sun raster, TIFF, GIF or WebP file
-    with the coders' plain Python versions instead of the C library."""
+    """`decode_image` of a BMP, Netpbm, Sun raster, TIFF, GIF, WebP or
+    Radiance HDR file with the coders' plain Python versions instead of
+    the C library."""
     return _decode_simple(data, name, plain=True)
 
 
@@ -161,14 +164,16 @@ def _decode_webp(data: bytes, name, plain: bool) -> np.ndarray:
 
 
 _READERS = {"bmp": bmp, "pxm": pxm, "sunras": sunras, "tiff": tiff,
-            "gif": gif}
+            "gif": gif, "hdr": hdr}
 
 
 def simple_format(data: bytes) -> str | None:
     """The module that reads `data` by its signature, as cv2's decoders
-    check theirs: "bmp", "pxm", "sunras", "tiff", "gif", or None."""
+    check theirs: "bmp", "hdr", "pxm", "sunras", "tiff", "gif", or None."""
     if data[:2] == b"BM":
         return "bmp"
+    if hdr.is_hdr(data):
+        return "hdr"
     if data[:1] == b"P" and data[1:2] and data[1:2] in b"1234567Ff" \
             and data[2:3] and data[2:3] in b" \t\n\v\f\r":
         return "pxm"
@@ -201,7 +206,8 @@ def _decode_simple(data: bytes, name, plain: bool) -> np.ndarray:
     suffix = Path(str(name)).suffix or "none"
     raise ValueError(f"{name}: not an image file this reader knows (suffix "
                      f"{suffix}): JPEG, PNG, .npy, WebP, BMP, "
-                     "PBM/PGM/PPM/PAM/PFM, Sun raster, TIFF and GIF only")
+                     "PBM/PGM/PPM/PAM/PFM, Sun raster, Radiance HDR, TIFF "
+                     "and GIF only")
 
 
 def _npy_image(data: bytes, name) -> np.ndarray:
@@ -473,9 +479,10 @@ def write_jpeg(path: str | Path, rgb: np.ndarray) -> None:
 
 def encode_image(rgb: np.ndarray, suffix: str) -> bytes:
     """uint8 RGB [H, W, 3] → the bytes `cv2.imencode(suffix, bgr)` writes
-    for a suffix of `WRITTEN_SUFFIXES` (host C), but for the pad byte after
-    a Sun raster's last row (see `utils/sunras.py`); for .webp a lossless
-    file that cv2 reads back to the same pixels (`utils/webp.py`)."""
+    for a suffix of `WRITTEN_SUFFIXES` (host C; .hdr and .pic through
+    `utils/hdr.py`'s coders), but for the pad byte after a Sun raster's
+    last row (see `utils/sunras.py`); for .webp a lossless file that cv2
+    reads back to the same pixels (`utils/webp.py`)."""
     kind = WRITTEN_SUFFIXES[suffix.lower()]
     if kind == "webp":
         return webp.encode(rgb)
@@ -490,6 +497,8 @@ def encode_image_plain(rgb: np.ndarray, suffix: str) -> bytes:
     rgb = np.ascontiguousarray(rgb)
     if kind in ("ppm", "pam", "pfm"):
         return pxm.encode(rgb, kind)
+    if kind == "hdr":
+        return hdr.encode_plain(rgb)
     return {"bmp": bmp, "sunras": sunras, "tiff": tiff}[kind].encode(rgb)
 
 

@@ -122,7 +122,7 @@ def _segment(data: bytes, pos: int) -> tuple[int, int]:
     return pos + 2, pos + length
 
 
-def _parse_sof(frame: Frame, p: bytes):
+def _parse_sof(frame: Frame, p: bytes, raw: bool = False):
     if frame.components:
         _fail("more than one frame")
     if len(p) < 6:
@@ -130,7 +130,7 @@ def _parse_sof(frame: Frame, p: bytes):
     precision, height, width, nc = struct.unpack(">BHHB", p[:6])
     if precision != 8:
         _fail(f"{precision}-bit samples are not read (8-bit only)")
-    if nc not in (1, 3):
+    if nc not in ((1, 3, 4) if raw else (1, 3)):
         kind = "CMYK/YCCK" if nc == 4 else f"{nc}-component"
         _fail(f"{kind} images are not read (gray or YCbCr only)")
     if height == 0 or width == 0:
@@ -207,10 +207,11 @@ def _lookup_table(counts: list, values: list) -> list:
     return table
 
 
-def parse(data: bytes) -> tuple[Frame, list]:
+def parse(data: bytes, raw: bool = False) -> tuple[Frame, list]:
     """Frame header, tables and every scan's coefficients: returns the
     frame and its scans, each (its components with their Huffman tables,
-    the restart interval in force)."""
+    the restart interval in force). `raw` takes 4 components too and
+    skips the colour-space check, for `decode_planes`."""
     if not data.startswith(b"\xff\xd8"):
         _fail("no SOI marker")
     frame = Frame()
@@ -227,7 +228,7 @@ def parse(data: bytes) -> tuple[Frame, list]:
         start, pos = _segment(data, pos)
         p = data[start:pos]
         if marker in (0xC0, 0xC1):
-            _parse_sof(frame, p)
+            _parse_sof(frame, p, raw)
         elif marker in _SOF_NAMES:
             _fail(f"{_SOF_NAMES[marker]} JPEGs are not read (baseline "
                   "sequential Huffman only)")
@@ -255,7 +256,8 @@ def parse(data: bytes) -> tuple[Frame, list]:
             pos = _decode_scan(frame, scan, data, pos)
     if not scans:
         _fail("no image data")
-    _check_colour_space(frame)
+    if not raw:
+        _check_colour_space(frame)
     return frame, scans
 
 
@@ -604,6 +606,21 @@ def decode_pixels(data: bytes) -> np.ndarray:
         gray = planes[0].astype(np.uint8)
         return np.repeat(gray[:, :, None], 3, axis=2)
     return ycc_to_rgb(*planes)
+
+
+def decode_planes(data: bytes) -> np.ndarray:
+    """A baseline JPEG's components, upsampled and not converted, as
+    libjpeg-turbo outputs them for an unknown colour space → uint8
+    [H, W, components]: how libtiff reads a TIFF's JPEG strips and tiles
+    (the plain version of `csrc/image_codec.c decode_jpeg_tiff`;
+    `ycc_to_rgb` converts YCbCr ones)."""
+    frame, _ = parse(bytes(data), raw=True)
+    hmax = max(c.h for c in frame.components)
+    vmax = max(c.v for c in frame.components)
+    h, w = frame.height, frame.width
+    return np.stack([_upsample(_plane(c, frame.qtables[c.tq]), c, hmax,
+                               vmax, h, w) for c in frame.components],
+                    -1).astype(np.uint8)
 
 
 def exif_block(data: bytes) -> bytes | None:

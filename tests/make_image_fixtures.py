@@ -49,12 +49,30 @@ installed cv2's decode.
   off the canvas's corner; odd sizes (1x1, 3x5, 17x33); and the 480x640
   timing fixtures, the photo lossy at q 90 and a textured scene
   lossless.
+- `tiff_*.tif`, `hdr_*.hdr`, `hdr_*.pic`: TIFF and Radiance HDR as cv2
+  reads them (`tiff_hdr_fixtures`). JPEG-compressed TIFFs: YCbCr 4:2:0
+  strips sharing JPEGTables (abbreviated streams), 4:2:2 tiles, a last
+  strip whose stream keeps the full strip height, and Pillow's and cv2's
+  own RGB, gray, CMYK and YCbCr files; CCITT RLE, group 3 (1-D and 2-D)
+  and group 4 in both fill orders, several strips, MinIsWhite and
+  MinIsBlack, and a 1728x2292 group 4 page (A4 at 200 dpi, the fax
+  width: the timing fixture); CMYK (planar LZW, Pillow's), YCbCr of 2x2,
+  4x2 and 4x4 units (tiles the image covers only partly) and Pillow's,
+  CIELab of 8 bits (Pillow's) and of 16 bits with a D65 WhitePoint; HDR
+  written by cv2 (run-length and, under 8 wide, flat), a `#?RGBE` file
+  with EXPOSURE and comment lines, and one whose later scanlines are
+  flat.
 - `digests.json`: for each file, the shape and sha256 of cv2's RGB decode
   (`cv2.imread(path, IMREAD_COLOR)[..., ::-1]`) and of cv2's INTER_LINEAR
   letterbox of it to 512 (the eval runner's resize: scale 512 / max(h, w),
   rounded sizes), and the size of the lossless file
   `cv2.imencode(".webp")` writes for its pixels; for the timing photo
-  also the sha256 of the bytes `cv2.imencode(".jpg")` writes for them.
+  also the sha256 of the bytes `cv2.imencode(".jpg")` writes for them;
+  for the TIFF and HDR files and the photo the sha256 of the bytes
+  `cv2.imencode(".hdr")` writes for their pixels, and for the photo the
+  sha256 of cv2's decode of that file and of the 480x640 TIFFs
+  `multiposenet_tpu_torch/tools/image_samples.py timing_tiffs` builds
+  from it.
 """
 
 from __future__ import annotations
@@ -62,6 +80,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import io
 import json
 import struct
 import subprocess
@@ -519,8 +538,8 @@ def pil_jpeg(rgb: np.ndarray, mode: str, **options) -> bytes:
     from PIL import Image
 
     out = io.BytesIO()
-    Image.fromarray(rgb).convert(mode).save(out, "JPEG", quality=90,
-                                            **options)
+    Image.fromarray(rgb).convert(mode).save(out, "JPEG",
+                                            **{"quality": 90, **options})
     return out.getvalue()
 
 
@@ -744,6 +763,160 @@ def webp_fixtures(tex: np.ndarray, big: np.ndarray) -> dict[str, bytes]:
     return files
 
 
+def jpeg_abbreviate(stream: bytes) -> tuple[bytes, bytes]:
+    """A JPEG split as libtiff writes JPEG strips: (the tables-only
+    stream SOI DQT DHT EOI, the stream without its DQT and DHT)."""
+    tables, rest, pos = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8"), 2
+    while stream[pos + 1] != 0xDA:
+        marker = stream[pos + 1]
+        length = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        segment = stream[pos:pos + 2 + length]
+        (tables if marker in (0xDB, 0xC4) else rest).extend(segment)
+        pos += 2 + length
+    return bytes(tables + b"\xff\xd9"), bytes(rest + stream[pos:])
+
+
+def pil_tiff(img, mode: str, **options) -> bytes:
+    from PIL import Image
+
+    b = io.BytesIO()
+    Image.fromarray(img).convert(mode).save(b, "TIFF", **options)
+    return b.getvalue()
+
+
+def fax_page() -> np.ndarray:
+    """A 2292x1728 page of text-like lines: rows of word-sized black
+    blocks on white, with a frame and a rule."""
+    rng = np.random.RandomState(29)
+    page = np.zeros((2292, 1728), bool)
+    page[80:84, 120:1608] = page[2200:2204, 120:1608] = True
+    page[80:2204, 120:124] = page[80:2204, 1604:1608] = True
+    for top in range(160, 2120, 72):
+        x = 180
+        while x < 1500:
+            w = int(rng.randint(40, 200))
+            page[top:top + 14, x:min(x + w, 1540)] = True
+            x += w + int(rng.randint(14, 30))
+    page[1100:1110, 300:1400] = True
+    return page
+
+
+def tiff_hdr_fixtures(tex: np.ndarray) -> dict[str, bytes]:
+    """The TIFF and Radiance HDR fixtures (see the module docstring)."""
+    sys.path.insert(0, str(ROOT))
+    from multiposenet_tpu_torch.tools import image_samples as samples
+    from multiposenet_tpu_torch.utils import tiff
+
+    files = {}
+    t = samples.tiff_bytes
+    small = np.ascontiguousarray(tex[:37, :53])
+    # JPEG-compressed: 4:2:0 strips of 16 rows sharing JPEGTables.
+    strips = [pil_jpeg(small[y:y + 16], "RGB", quality=85, subsampling=2)
+              for y in range(0, 37, 16)]
+    tables = jpeg_abbreviate(strips[0])[0]
+    files["tiff_jpeg_ycc420_tables_37x53.tif"] = t(
+        small, 6, compression=7, rows_per_strip=16,
+        chunks=[jpeg_abbreviate(s)[1] for s in strips],
+        tags=((530, 3, [2, 2]), (347, 7, tables)))
+    tiles = []
+    for ty in range(0, 37, 16):
+        for tx in range(0, 53, 32):
+            blk = np.zeros((16, 32, 3), np.uint8)
+            part = small[ty:ty + 16, tx:tx + 32]
+            blk[:part.shape[0], :part.shape[1]] = part
+            tiles.append(pil_jpeg(blk, "RGB", quality=75, subsampling=1))
+    files["tiff_jpeg_ycc422_tiles_37x53.tif"] = t(
+        small, 6, compression=7, tile=(16, 32), chunks=tiles,
+        tags=((530, 3, [2, 1]),))
+    odd = np.ascontiguousarray(tex[40:61, 60:79])
+    full = np.concatenate([odd, odd[::-1][:11]])
+    files["tiff_jpeg_ycc420_last_strip_full_21x19.tif"] = t(
+        odd, 6, compression=7, rows_per_strip=16,
+        chunks=[pil_jpeg(full[y:y + 16], "RGB", quality=90, subsampling=2)
+                for y in (0, 16)], tags=((530, 3, [2, 2]),))
+    piece = np.ascontiguousarray(tex[50:66, 70:94])
+    for mode in ("RGB", "L", "CMYK", "YCbCr"):
+        files[f"tiff_jpeg_pil_{mode.lower()}_16x24.tif"] = pil_tiff(
+            piece, mode, compression="jpeg")
+    files["tiff_jpeg_cv2_rgb_16x24.tif"] = cv2.imencode(
+        ".tif", piece[..., ::-1], [cv2.IMWRITE_TIFF_COMPRESSION, 7])[1] \
+        .tobytes()
+    files["tiff_jpeg_cv2_gray_16x24.tif"] = cv2.imencode(
+        ".tif", piece[..., 1], [cv2.IMWRITE_TIFF_COMPRESSION, 7])[1] \
+        .tobytes()
+    # CCITT, on thresholded texture with blocks.
+    bits = (tex[:45, :71, 0] > 128)
+    bits[10:20, 5:40] = True
+    for fill in (1, 2):
+        for name, comp, info in (("rle", "tiff_ccitt", {}),
+                                 ("g3_1d", "group3", {}),
+                                 ("g3_2d", "group3", {292: 1}),
+                                 ("g4", "group4", {})):
+            info = {**info, 278: 16, 266: fill,
+                    262: 0 if fill == 1 else 1}
+            files[f"tiff_{name}_fill{fill}_45x71.tif"] = pil_tiff(
+                bits, "1", compression=comp, tiffinfo=info)
+    files["tiff_g4_page_2292x1728.tif"] = pil_tiff(
+        fax_page(), "1", compression="group4", tiffinfo={262: 0})
+    # CMYK, YCbCr and CIELab.
+    cmyk = np.concatenate([255 - piece, (255 - piece).min(-1,
+                                                          keepdims=True)],
+                          -1)
+    files["tiff_cmyk_lzw_planar_16x24.tif"] = t(cmyk, 5, compression=5,
+                                                planar=2, rows_per_strip=8)
+    files["tiff_cmyk_pil_16x24.tif"] = pil_tiff(piece, "CMYK")
+    rng = np.random.RandomState(31)
+    ycc = np.ascontiguousarray(tex[20:43, 30:67])
+    for (hs, vs), (h, w), tile in (((2, 2), (23, 37), None),
+                                   ((4, 2), (17, 30), None),
+                                   ((4, 4), (21, 40), (16, 32))):
+        img = ycc[:h, :w]
+        if tile is None:
+            chunks = [tiff.lzw_encode_plain(samples.ycbcr_units(
+                img[y:y + 8], hs, vs).tobytes()) for y in range(0, h, 8)]
+            kw = dict(rows_per_strip=8)
+        else:
+            chunks = []
+            for ty in range(0, h, tile[0]):
+                for tx in range(0, w, tile[1]):
+                    blk = np.zeros(tile + (3,), np.uint8)
+                    part = img[ty:ty + tile[0], tx:tx + tile[1]]
+                    blk[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(tiff.lzw_encode_plain(
+                        samples.ycbcr_units(blk, hs, vs).tobytes()))
+            kw = dict(tile=tile)
+        files[f"tiff_ycbcr{hs}{vs}_lzw_{h}x{w}.tif"] = t(
+            img, 6, compression=5, chunks=chunks,
+            tags=((530, 3, [hs, vs]), (532, 5, [16, 1, 235, 1, 128, 1, 240,
+                                                1, 128, 1, 240, 1])), **kw)
+    files["tiff_ycbcr_pil_16x24.tif"] = pil_tiff(piece, "YCbCr")
+    files["tiff_cielab_pil_16x24.tif"] = pil_tiff(piece, "LAB")
+    lab16 = rng.randint(0, 65536, (17, 23, 3)).astype(np.uint16)
+    lab16[..., 0] = np.linspace(0, 65535, 23).astype(np.uint16)
+    files["tiff_cielab16_d65_17x23.tif"] = t(
+        lab16, 8, bps=16, compression=8,
+        tags=((318, 5, [3127, 10000, 3290, 10000]),))
+    # Radiance HDR.
+    files["hdr_rle_17x23.hdr"] = cv2.imencode(
+        ".hdr", np.ascontiguousarray(tex[:17, :23, ::-1]))[1].tobytes()
+    files["hdr_flat_5x7.pic"] = cv2.imencode(
+        ".pic", np.ascontiguousarray(tex[30:35, 40:47, ::-1]))[1].tobytes()
+    body = cv2.imencode(".hdr", np.ascontiguousarray(
+        tex[60:69, 90:102, ::-1]))[1].tobytes().split(b"+X 12\n", 1)[1]
+    files["hdr_rgbe_exposure_9x12.hdr"] = (
+        b"#?RGBE\n# written for the tests\nEXPOSURE=2.5\n"
+        b"FORMAT=32-bit_rle_rgbe\nGAMMA=2.2\n\n-Y 9 +X 12\n" + body)
+    head, rle = cv2.imencode(".hdr", np.ascontiguousarray(
+        tex[70:76, 10:20, ::-1]))[1].tobytes().split(b"+X 10\n", 1)
+    first = rle[:4 + rle[4:].index(b"\x02\x02\x00\x0a")]
+    pixels = rng.randint(0, 256, (5 * 10, 4)).astype(np.uint8)
+    pixels[:, 0] |= 0x80
+    pixels[:, 3] = rng.randint(120, 136, 50)
+    files["hdr_then_flat_6x10.hdr"] = (head + b"+X 10\n" + first
+                                       + pixels.tobytes())
+    return files
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     from multiposenet_tpu_torch.data.synthetic import make_dataset
@@ -841,6 +1014,7 @@ def main() -> None:
         tex[:27, :35].astype(np.int64), 2, 8, interlace=True)
 
     files.update(webp_fixtures(tex, big))
+    files.update(tiff_hdr_fixtures(tex))
 
     for name, data in files.items():
         (OUT / name).write_bytes(data)
@@ -853,6 +1027,21 @@ def main() -> None:
     for name in digests:
         digests[name]["imencode_webp_bytes"] = len(cv2.imencode(
             ".webp", cv2.imread(str(OUT / name)))[1])
+        if name.startswith(("tiff_", "hdr_", "photo_")):
+            digests[name]["imencode_hdr_sha256"] = hashlib.sha256(
+                cv2.imencode(".hdr", cv2.imread(str(OUT / name)))[1]
+                .tobytes()).hexdigest()
+    # What cv2 reads from the 480x640 files the smoke script times.
+    from multiposenet_tpu_torch.tools.image_samples import timing_tiffs
+
+    photo_rgb = np.ascontiguousarray(photo[..., ::-1])
+    timed = timing_tiffs((OUT / "photo_480x640_q95_420.jpg").read_bytes(),
+                         photo_rgb)
+    timed["hdr"] = cv2.imencode(".hdr", photo)[1].tobytes()
+    digests["photo_480x640_q95_420.jpg"]["timing_sha256"] = {
+        kind: sha256(cv2.imdecode(np.frombuffer(data, np.uint8),
+                                  cv2.IMREAD_COLOR)[..., ::-1])
+        for kind, data in sorted(timed.items())}
     (OUT / "digests.json").write_text(json.dumps(digests, indent=1) + "\n")
     (OUT / "annotations.json").write_text(
         json.dumps(coco_annotations(records, names)) + "\n")

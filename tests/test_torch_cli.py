@@ -223,14 +223,14 @@ def test_predict_on_a_jpeg_matches_jax_cli(workdir):
                                    atol=1e-3, rtol=1e-5)
 
 
-@pytest.mark.parametrize("output", ["drawn.gif", "drawn.hdr", "drawn"])
+@pytest.mark.parametrize("output", ["drawn.gif", "drawn.jp2", "drawn"])
 def test_predict_output_other_than_png_exits(workdir, tmp_path, monkeypatch,
                                              output):
     """The reference writes by suffix through cv2.imwrite; the port
-    writes PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF and WebP
-    (and, as cv2, no file for .pgm and .pbm), so on any other suffix (GIF
-    and Radiance HDR writing are C9b) it exits naming the suffix before
-    the model is loaded, and writes nothing."""
+    writes PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF, WebP and
+    Radiance HDR (and, as cv2, no file for .pgm and .pbm), so on any
+    other suffix (GIF and JPEG 2000 writing are C9b) it exits naming the
+    suffix before the model is loaded, and writes nothing."""
     from multiposenet_tpu_torch.infer import export as port_export
 
     def no_model(*args, **kwargs):
@@ -312,6 +312,48 @@ def test_predict_webp_in_and_out_matches_jax_cli_pixels(workdir, tmp_path,
         np.testing.assert_array_equal(
             cv2.imread(str(files[name]), cv2.IMREAD_COLOR)[:, :, ::-1],
             scene)
+
+
+def test_predict_jpeg_tiff_in_hdr_out_matches_jax_cli(workdir, tmp_path,
+                                                     monkeypatch):
+    """Both CLIs read a JPEG-compressed TIFF (cv2's JPEG of the scene as a
+    YCbCr 4:2:0 strip) and print the same people; with each drawing
+    replaced by the input image (as the JPEG test does), `--output x.hdr`
+    is the same file byte for byte, cv2.imwrite's."""
+    from multiposenet_tpu.utils import visualize as jax_visualize
+    from multiposenet_tpu_torch.tools import image_samples
+
+    scene = image_io.read_image(workdir["image"])
+    ok, stream = cv2.imencode(".jpg", np.ascontiguousarray(scene[:, :, ::-1]))
+    image = tmp_path / "scene.tif"
+    image.write_bytes(image_samples.tiff_bytes(
+        scene, 6, compression=7, chunks=[stream.tobytes()],
+        tags=((530, 3, [2, 2]),)))
+    printed = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        printed[name] = json.loads(_run(
+            main, ["predict", "--model-dir", workdir["model"], "--image",
+                   str(image)] + extra))
+    assert ok and len(printed["port"]) == len(printed["jax"]) > 0
+    for g, w in zip(printed["port"], printed["jax"]):
+        np.testing.assert_allclose(g["box"], w["box"], atol=2e-3, rtol=1e-5)
+        assert abs(g["score"] - w["score"]) <= 1e-5
+        np.testing.assert_allclose(g["keypoints"], w["keypoints"],
+                                   atol=1e-3, rtol=1e-5)
+    for module in (jax_visualize, visualize):
+        monkeypatch.setattr(module, "draw_predictions",
+                            lambda rgb, people: rgb.copy())
+    files = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        files[name] = tmp_path / f"{name}.hdr"
+        _run(main, ["predict", "--model-dir", workdir["model"], "--image",
+                    str(image), "--output", str(files[name])] + extra)
+    assert files["port"].read_bytes() == files["jax"].read_bytes()
+    np.testing.assert_array_equal(
+        image_io.read_image(files["port"]),
+        cv2.imread(str(files["jax"]), cv2.IMREAD_COLOR)[:, :, ::-1])
 
 
 @pytest.mark.parametrize("command,flags", [
@@ -478,7 +520,7 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     paths["cli_predict"] = smoke.phase_cli_predict(
         cli, image_io, visualize, synthetic, decode, kernels, tmp_path,
         "cpu")
-    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 4}
+    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 5}
     assert restored == (runner.KeypointEvaluator, runner.evaluate_batched,
                         predictor.Predictor.predict, cli._load_records)
 
@@ -525,8 +567,9 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert paths == {"eval_jpeg_batched": 2, "cli_predict_jpeg": 1,
                      "cli_predict_jpeg_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
-    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 63
-    assert codec["webp"]["fixtures_written"] == 63
+    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 93
+    assert codec["webp"]["fixtures_written"] == 93
+    assert codec["tiff_hdr"]["fixtures"] == 30
     assert codec["webp"]["ratio_max"][1] <= 1.5
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
     assert codec["encode"]["c_encode_ms"] > 0

@@ -454,16 +454,19 @@ def test_tiff_variants_read_as_cv2(name, tmp_path):
 
 
 def test_tiff_refusals_name_what_is_not_read():
-    """JPEG and CCITT compressions (C9b), 2-bit samples and uncompressed
-    tiles (cv2 returns no image), each named."""
-    b = io.BytesIO()
-    Image.fromarray(RGB).save(b, "TIFF", compression="jpeg")
-    with pytest.raises(ValueError, match="JPEG compression"):
-        image_io.decode_image(b.getvalue())
-    b = io.BytesIO()
-    Image.fromarray(RGB).convert("1").save(b, "TIFF", compression="group4")
-    with pytest.raises(ValueError, match="CCITT group 4"):
-        image_io.decode_image(b.getvalue())
+    """Old-style JPEG (6) and LZMA compression, 2-bit samples and
+    uncompressed tiles (cv2 returns no image), each named."""
+    old_jpeg = samples.tiff_bytes(
+        RGB, 6, compression=6, chunks=[b"\xff\xd8\xff\xd9"],
+        tags=((513, 4, [8]), (514, 4, [4])))
+    assert _cv2(old_jpeg) is None
+    with pytest.raises(ValueError, match="old JPEG compression"):
+        image_io.decode_image(old_jpeg)
+    lzma = samples.tiff_bytes(RGB, 2, compression=34925,
+                              chunks=[b"\xfd7zXZ\x00" + b"\x00" * 64])
+    assert _cv2(lzma) is None
+    with pytest.raises(ValueError, match="LZMA compression"):
+        image_io.decode_image(lzma)
     two_bit = samples.tiff_bytes(RNG.integers(0, 4, (5, 7)), 1, bps=2)
     assert _cv2(two_bit) is None
     with pytest.raises(ValueError, match=r"\[2\]-bit samples"):

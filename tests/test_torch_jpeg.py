@@ -831,28 +831,20 @@ def test_mode_fixtures_read_as_cv2_reads_them(tmp_path, name):
         jpeg.decode_pixels(data)
 
 
-def _jpeg_in_tiff() -> bytes:
-    """A TIFF whose one strip is JPEG-compressed (compression 7)."""
-    entries = [(256, 3, 1, 4), (257, 3, 1, 4), (258, 3, 1, 8),
-               (259, 3, 1, 7), (262, 3, 1, 1), (273, 4, 1, 8),
-               (277, 3, 1, 1), (278, 3, 1, 4), (279, 4, 1, 2)]
-    ifd = struct.pack("<H", len(entries)) + b"".join(
-        struct.pack("<HHII", *e) for e in entries) + b"\x00" * 4
-    return b"II*\x00" + struct.pack("<I", 10) + b"\xff\xd8" + ifd
-
-
 def test_other_formats_name_themselves(tmp_path):
-    """What is still refused (C9b): Radiance HDR, AVIF, JPEG 2000,
-    OpenEXR, JPEG-in-TIFF and RIFF files other than WebP, each by its
-    name (WebP itself is read: tests/test_torch_webp.py)."""
+    """What is still refused: AVIF and JPEG 2000 (C9b; the AVIF brand and
+    its image-sequence brand, the JP2 box and a bare codestream), OpenEXR
+    (cv2 is built without it) and RIFF files other than WebP, each by its
+    name (WebP, Radiance HDR and JPEG-in-TIFF are read:
+    tests/test_torch_webp.py, test_torch_hdr.py, test_torch_tiff_codecs.py)."""
     for data, kind in (
             (b"RIFF\x24\x00\x00\x00AVI LIST" + b"\x00" * 32, "RIFF b'AVI '"),
-            (b"#?RADIANCE\n" + b"\x00" * 32, "Radiance HDR"),
+            (b"\x00\x00\x00\x1cftypavis" + b"\x00" * 32, "AVIF"),
             (b"\x00\x00\x00\x1cftypavif" + b"\x00" * 32, "AVIF"),
             (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + b"\x00" * 32,
              "JPEG 2000"),
             (b"\x76\x2f\x31\x01" + b"\x00" * 32, "OpenEXR"),
-            (_jpeg_in_tiff(), "TIFF with JPEG compression")):
+            (b"\xff\x4f\xff\x51" + b"\x00" * 32, "JPEG 2000 codestream")):
         with pytest.raises(ValueError, match=kind):
             image_io.decode_image(data)
 
@@ -872,7 +864,8 @@ def _letterbox_size(h: int, w: int, s: int = 512) -> tuple[int, int]:
 def test_committed_digests_equal_cv2_and_the_port():
     digests = json.loads((FIXTURES / "digests.json").read_text())
     files = sorted(p.name for p in FIXTURES.iterdir()
-                   if p.suffix in (".jpg", ".png", ".webp"))
+                   if p.suffix in (".jpg", ".png", ".webp", ".tif", ".hdr",
+                                   ".pic"))
     assert sorted(digests) == files
     # 510,000 bytes, and 300,000 more for the WebP fixtures (their own
     # budget is held in tests/test_torch_webp.py).
