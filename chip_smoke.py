@@ -1336,7 +1336,10 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     drawn.webp` (one B1 launch), a RIFF…WEBPVP8L file read back as that
     drawing; then `--image` the scene as a JPEG-compressed TIFF `--output
     drawn.hdr` (one B1 launch), the drawing of the people printed for it
-    in the plain HDR writer's bytes. Returns B1's launches."""
+    in the plain HDR writer's bytes; then `--image damaged.jpg`, the
+    480x640 photo fixture with two bytes of its scan changed (its recipe
+    in the digests), one B1 launch, people printed, the image read as
+    cv2 reads it (the recipe's digest). Returns B1's launches."""
     scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
     image_path, out_path = directory / "scene.png", directory / "drawn.png"
     image_io.write_png(image_path, scene["image"])
@@ -1440,11 +1443,33 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
         raise AssertionError("cli_predict: drawn.hdr is not the drawing of "
                              "the printed people in cv2's bytes")
     written[".hdr"] = len(data)
+    # A JPEG whose scan holds damaged bytes, read as cv2 reads it (the
+    # reference's predict reads it too), one B1 launch.
+    recipe = json.loads((FIXTURES / "digests.json").read_text())[
+        TIMING_FIXTURE]["corrupt"][0]
+    damaged = directory / "damaged.jpg"
+    damaged.write_bytes(samples.corrupted(
+        (FIXTURES / TIMING_FIXTURE).read_bytes(), recipe["at"]))
+    if sha256(image_io.read_image(damaged)) != recipe["rgb_sha256"]:
+        raise AssertionError("cli_predict: damaged.jpg does not read as cv2 "
+                             "reads it")
+    kernels.reset_launches()
+    damaged_people = json.loads(cli_stdout(
+        cli, ["predict", "--model-dir", str(directory), "--image",
+              str(damaged)]))
+    if kernels.LAUNCHES != {decode.KERNEL: 1}:
+        raise AssertionError(f"cli_predict: --image damaged.jpg launches "
+                             f"{kernels.LAUNCHES}")
+    counted[decode.KERNEL] += 1
+    if not all(np.isfinite(p["box"]).all() and
+               np.isfinite(p["keypoints"]).all() for p in damaged_people):
+        raise AssertionError("cli_predict: bad people on damaged.jpg")
     emit({"phase": "cli_predict", "card": card, "image": [480, 640],
           "persons": len(people), "keypoint_centres_drawn": len(centres),
           "changed_pixels": int((drawn != image).any(-1).sum()),
           "command_s": command_s, "launches": counted,
-          "also_written": written})
+          "also_written": written,
+          "damaged_jpeg_persons": len(damaged_people)})
     return counted[decode.KERNEL]
 
 
@@ -1585,7 +1610,67 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
           "formats": image_format_checks(image_io, image_codec, rgb),
           "webp": webp_checks(image_io, digests, rgb),
           "tiff_hdr": tiff_hdr_checks(image_io, digests, data, rgb),
+          "corrupt": corrupt_checks(image_io, image_codec, digests, data,
+                                    rgb),
           "clock": "host perf_counter, median"})
+
+
+def corrupt_checks(image_io, image_codec, digests: dict, photo: bytes,
+                   photo_rgb: np.ndarray) -> dict:
+    """Phase image_codec.corrupt: every `corrupt` recipe of the digests
+    (byte changes in the scan data of a JPEG of each mode, in the LZW,
+    deflate and JPEG strips of TIFFs, and, under the photo's entry as
+    `gif_corrupt`, in the LZW data of the photo's quantised GIF), applied
+    to its file and read by `decode_image` (cv2.imdecode), `read_image`
+    (cv2.imread of a file) and the plain decoders where they read the
+    mode (all but the c3_ JPEGs): each equal to the sha256 of cv2's
+    decode recorded by tests/make_image_fixtures.py, or each raising a
+    ValueError where cv2 returned no image. Times on the host clock
+    (median): the C decode of the 480x640 photo, clean and with its
+    recipe's two changed scan bytes."""
+    from multiposenet_tpu_torch import kernels
+    from multiposenet_tpu_torch.tools import image_samples as samples
+
+    files = {name: (FIXTURES / name).read_bytes() for name in digests}
+    gif = samples.quantised_gif(photo_rgb)
+    cases = [(name, files[name], r) for name in sorted(digests)
+             for r in digests[name].get("corrupt", [])]
+    cases += [("photo GIF", gif, r)
+              for r in digests[TIMING_FIXTURE]["gif_corrupt"]]
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    counts = {"read": 0, "refused": 0, "plain": 0}
+    with tempfile.TemporaryDirectory(prefix="corrupt_",
+                                     dir=kernels.BUILD_DIR) as directory:
+        path = Path(directory) / "damaged"
+        for name, data, recipe in cases:
+            damaged = samples.corrupted(data, recipe["at"])
+            path.write_bytes(damaged)
+            readers = [image_io.decode_image,
+                       lambda d: image_io.read_image(path)]
+            if not name.startswith("c3_"):
+                readers.append(image_io.decode_image_plain)
+                counts["plain"] += 1
+            for read in readers:
+                try:
+                    got = sha256(read(damaged))
+                except ValueError:
+                    got = None
+                if got != recipe["rgb_sha256"]:
+                    raise AssertionError(
+                        f"image_codec.corrupt: {name} changed at "
+                        f"{recipe['at']} reads to {got}, not cv2's "
+                        f"{recipe['rgb_sha256']}")
+            counts["read" if recipe["rgb_sha256"] else "refused"] += 1
+    damaged = samples.corrupted(photo,
+                                digests[TIMING_FIXTURE]["corrupt"][0]["at"])
+    return {"recipes": len(cases), **counts,
+            "equal": "decode_image = read_image = plain (where it reads "
+                     "the mode) = cv2's digest, or all refuse where cv2 "
+                     "returns no image",
+            "photo_c_decode_ms": median_ms(
+                lambda: image_codec.decode_jpeg(photo), 50),
+            "photo_corrupt_c_decode_ms": median_ms(
+                lambda: image_codec.decode_jpeg(damaged), 50)}
 
 
 def webp_checks(image_io, digests: dict, photo: np.ndarray) -> dict:
@@ -1785,9 +1870,7 @@ def image_format_checks(image_io, image_codec, rgb: np.ndarray) -> dict:
     levels = np.arange(256)
     gif_pal = np.stack([(levels >> 5) * 36, ((levels >> 2) & 7) * 36,
                         (levels & 3) * 85], -1).astype(np.uint8)
-    gif_data = samples.gif_bytes(
-        (rgb.shape[1], rgb.shape[0]),
-        [dict(idx=q, lzw=samples.gif_lzw(q.reshape(-1), 8))], gif_pal)
+    gif_data = samples.quantised_gif(rgb)
     if not np.array_equal(image_io.decode_image(gif_data), gif_pal[q]):
         raise AssertionError("image_codec: the GIF of the photo does not "
                              "read back")

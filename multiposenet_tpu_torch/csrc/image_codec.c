@@ -36,11 +36,20 @@
  * goes on over zero bytes until a bad code ends the interval (jdarith.c);
  * a marker segment cut short is completed with FF D9 bytes; smoothing
  * takes the coefficient bits from before a cut scan below its last
- * decoded iMCU row. What cv2 5.0 returns no image for is refused by
+ * decoded iMCU row. Entropy-coded data that is corrupt decodes on as
+ * libjpeg-turbo 3.1 decodes it after its warnings, under both sources:
+ * a bad Huffman code gives symbol 0 (slow_symbol), a run past the block
+ * writes coefficient 63, data that runs into a marker is finished as
+ * at the end of the data (end_mcu), a wrong restart marker is answered
+ * as jpeg_resync_to_restart answers it (read_restart_marker), an
+ * arithmetic interval stops at a bad code (arith_err), a progression out
+ * of order is decoded as its scans say; the header walk skips what is
+ * not a marker (walk). What cv2 5.0 returns no image for is refused by
  * name: 12- and 16-bit samples, lossless frames that need a colour
  * conversion (gray, YCbCr, YCCK), arithmetic-coded lossless and
- * hierarchical frames, and corrupt streams. `utils/jpeg.py` is the plain
- * version of the baseline part and refuses the rest by name.
+ * hierarchical frames, unknown markers and bad tables or scan headers.
+ * `utils/jpeg.py` is the plain version of the baseline part and refuses
+ * the rest by name.
  *
  * encode_jpeg writes what cv2.imencode(".jpg") writes at its defaults,
  * bit for bit: jccolor.c's RGB -> YCbCr, h2v2_downsample with its
@@ -109,7 +118,9 @@ typedef struct {
     int32_t maxcode[18];  /* largest code of each length, -1 if none */
     int32_t valoffset[18];
     uint8_t values[256];
+    int count;            /* symbols */
     int defined;
+    int overflow;         /* more codes of a length than fit: bad table */
 } Huff;
 
 typedef struct {
@@ -146,14 +157,18 @@ typedef struct {
     int nacc;            /* valid bits in acc */
     long real_bits;      /* bits taken from the stream */
     long used_bits;      /* bits the decoder consumed */
-    int marker_hit;
+    int unread;          /* a marker the decoder ran into (libjpeg's
+                          * unread_marker), 0 if none; pos is past it */
     int eof_fill;        /* the data may end early: fill as libjpeg */
     int at_eof;          /* the data ended (not a marker) */
     int insufficient;    /* ran out of data: later blocks stay zero */
+    int std_tables;      /* the standard Huffman tables were installed */
     int eobrun;
     int cut;             /* a scan's data ended early (eof_fill) */
     int last_good;       /* the last iMCU row a cut scan decoded */
-    int arith_err;       /* jdarith.c's ct == -1: the interval is dropped */
+    int arith_err;       /* jdarith.c's ct == -1 after a bad code (a
+                          * magnitude or a run past the block): nothing
+                          * more is decoded until the next restart */
     /* arithmetic decoder (jdarith.c) */
     int64_t ac, aa;      /* the C and A registers */
     int ct;              /* bits left in C's byte buffer; -16 at a start */
@@ -162,6 +177,7 @@ typedef struct {
     int dc_context[4];
     uint8_t *scratch;    /* upsampled rows, column sums, colour tables */
     uint8_t *filled;     /* a segment cut by the end of the data, filled */
+    uint8_t *reset;      /* lossless: the MCU rows that restart prediction */
 } Jpeg;
 
 static const int zigzag[64] = {
@@ -173,34 +189,50 @@ static const int zigzag[64] = {
 
 static int u16be(const uint8_t *p) { return (p[0] << 8) | p[1]; }
 
-/* The marker at j->pos (fill bytes skipped); j->pos moves past it. */
+/* jdmarker.c next_marker: the next marker from j->pos on, skipping
+ * whatever is not one (other bytes, FF 00 pairs; libjpeg warns), fill
+ * bytes included; j->pos moves past it. Where the data ends first: the
+ * EOI libjpeg's file source appends (eof_fill, cv2.imread), else a
+ * refusal (cv2.imdecode's source suspends). */
 static int next_marker(Jpeg *j)
 {
-    char msg[64];
-    if (j->pos >= j->n) {
-        if (j->eof_fill) return 0xD9;
-        fail(&j->f, "truncated stream (no EOI)");
+    for (;;) {
+        int c;
+        while (j->pos < j->n && j->data[j->pos] != 0xFF) j->pos++;
+        while (j->pos < j->n && j->data[j->pos] == 0xFF) j->pos++;
+        if (j->pos >= j->n) break;
+        c = j->data[j->pos++];
+        if (c) return c;
     }
-    if (j->data[j->pos] != 0xFF) {
-        snprintf(msg, sizeof msg, "expected a marker at byte %ld", j->pos);
-        fail(&j->f, msg);
-    }
-    while (j->pos < j->n && j->data[j->pos] == 0xFF) j->pos++;
-    if (j->pos >= j->n) {
-        if (j->eof_fill) return 0xD9;
-        fail(&j->f, "truncated stream (no EOI)");
-    }
-    return j->data[j->pos++];
+    if (!j->eof_fill) fail(&j->f, "truncated stream (no EOI)");
+    j->at_eof = 1;
+    return 0xD9;
+}
+
+/* The marker to act on next: the one the entropy decoder ran into, or
+ * the next in the stream. */
+static int take_marker(Jpeg *j)
+{
+    int m = j->unread;
+    j->unread = 0;
+    return m ? m : next_marker(j);
 }
 
 /* The payload of the segment whose length field is at j->pos, and its
  * length; j->pos moves past it. With eof_fill a segment cut by the end of
  * the data is completed as libjpeg's file source completes it, with the
  * bytes FF D9 over and over (the EOI it appends at each read past the
- * end); the walk then meets that EOI. */
-static const uint8_t *segment(Jpeg *j, long *len)
+ * end); the walk then meets that EOI. A length field below 2 is refused,
+ * or with `lenient` (the markers libjpeg skips or only peeks into: APPn,
+ * COM, DNL) read as an empty payload after the field. */
+static const uint8_t *segment(Jpeg *j, long *len, int lenient)
 {
     long length, k, start = j->pos + 2;
+    if (lenient && j->pos + 2 <= j->n && u16be(j->data + j->pos) < 2) {
+        j->pos += 2;
+        *len = 0;
+        return j->data + j->pos;
+    }
     if (j->pos + 2 > j->n || j->pos + u16be(j->data + j->pos) > j->n) {
         uint8_t head[2];
         if (!j->eof_fill) fail(&j->f, "truncated marker segment");
@@ -209,7 +241,10 @@ static const uint8_t *segment(Jpeg *j, long *len)
             head[k] = at < j->n ? j->data[at] : (at - j->n) % 2 ? 0xD9 : 0xFF;
         }
         length = u16be(head);
-        if (length < 2) fail(&j->f, "truncated marker segment");
+        if (length < 2) {
+            if (!lenient) fail(&j->f, "truncated marker segment");
+            length = 2;
+        }
         free(j->filled);
         j->filled = (uint8_t *)malloc((size_t)length);
         if (!j->filled) fail(&j->f, "out of memory");
@@ -272,7 +307,7 @@ static void parse_sof(Jpeg *j, const uint8_t *p, long len, int kind)
     }
     if (j->height > 65500 || j->width > 65500)
         fail(&j->f, "image larger than 65500 pixels a side");
-    if (len < 6 + 3 * nc) fail(&j->f, "truncated SOF");
+    if (len != 6 + 3 * nc) fail(&j->f, "bad SOF length");
     j->hmax = j->vmax = 1;
     for (i = 0; i < nc; i++) {
         Comp *c = &j->comp[i];
@@ -280,9 +315,9 @@ static void parse_sof(Jpeg *j, const uint8_t *p, long len, int kind)
         c->h = p[7 + 3 * i] >> 4;
         c->v = p[7 + 3 * i] & 15;
         c->tq = p[8 + 3 * i];
-        if (c->h < 1 || c->h > 4 || c->v < 1 || c->v > 4 || c->tq > 3) {
+        if (c->h < 1 || c->h > 4 || c->v < 1 || c->v > 4) {
             snprintf(msg, sizeof msg,
-                     "bad sampling factors or table in component %d",
+                     "bad sampling factors in component %d",
                      c->cid);
             fail(&j->f, msg);
         }
@@ -310,13 +345,15 @@ static void parse_sof(Jpeg *j, const uint8_t *p, long len, int kind)
     }
 }
 
+/* jdmarker.c get_dqt: any nonzero precision nibble means 16-bit values;
+ * a table cut short by the segment is refused. */
 static void parse_dqt(Jpeg *j, const uint8_t *p, long len)
 {
     long pos = 0;
     int k;
     while (pos < len) {
         int pq = p[pos] >> 4, tq = p[pos] & 15, size = pq ? 128 : 64;
-        if (pq > 1 || tq > 3 || pos + 1 + size > len) fail(&j->f, "bad DQT");
+        if (tq > 3 || pos + 1 + size > len) fail(&j->f, "bad DQT");
         for (k = 0; k < 64; k++) {
             j->qt[tq][zigzag[k]] = pq ? u16be(p + pos + 1 + 2 * k)
                                       : p[pos + 1 + k];
@@ -326,75 +363,99 @@ static void parse_dqt(Jpeg *j, const uint8_t *p, long len)
     }
 }
 
+/* One table from its 16 code counts and its values. Codes that
+ * overflow a length leave the table marked, refused where a scan uses it
+ * (jpeg_make_d_derived_tbl builds tables then). */
+static void build_huff(Huff *t, const uint8_t *counts, const uint8_t *values)
+{
+    int total = 0, l, i, k = 0;
+    int32_t code = 0;
+    memset(t, 0, sizeof *t);
+    for (l = 1; l <= 16; l++) total += counts[l - 1];
+    memcpy(t->values, values, (size_t)total);
+    t->count = total;
+    for (l = 1; l <= 16; l++) {
+        int count = counts[l - 1];
+        t->valoffset[l] = k - code;
+        for (i = 0; i < count; i++) {
+            if (code >= (1 << l)) {
+                t->overflow = 1;
+                return;
+            }
+            if (l <= 9) {
+                int span = 1 << (9 - l), s, start = code << (9 - l);
+                for (s = 0; s < span; s++)
+                    t->lookup[start + s] =
+                        (uint16_t)((l << 8) | t->values[k]);
+            }
+            code++;
+            k++;
+        }
+        t->maxcode[l] = count ? code - 1 : -1;
+        code <<= 1;
+    }
+    t->maxcode[17] = 0x7FFFFFFF;
+}
+
 static void parse_dht(Jpeg *j, const uint8_t *p, long len)
 {
     long pos = 0;
-    while (pos < len) {
-        int tc, th, total = 0, l, i, k = 0;
-        int32_t code = 0;
-        Huff *t;
-        if (pos + 17 > len) fail(&j->f, "bad DHT");
+    while (len - pos > 16) {
+        int tc, th, total = 0, l;
         tc = p[pos] >> 4;
         th = p[pos] & 15;
         for (l = 1; l <= 16; l++) total += p[pos + l];
-        if (tc > 1 || th > 3 || total > 256 || pos + 17 + total > len)
+        if (total > 256 || pos + 17 + total > len)
             fail(&j->f, "bad DHT");
-        t = &j->huff[tc][th];
-        memset(t, 0, sizeof *t);
-        memcpy(t->values, p + pos + 17, (size_t)total);
-        for (l = 1; l <= 16; l++) {
-            int count = p[pos + l];
-            t->valoffset[l] = k - code;
-            for (i = 0; i < count; i++) {
-                if (code >= (1 << l)) fail(&j->f, "bad Huffman table");
-                if (l <= 9) {
-                    int span = 1 << (9 - l), s, start = code << (9 - l);
-                    for (s = 0; s < span; s++)
-                        t->lookup[start + s] =
-                            (uint16_t)((l << 8) | t->values[k]);
-                }
-                code++;
-                k++;
-            }
-            t->maxcode[l] = count ? code - 1 : -1;
-            code <<= 1;
-        }
-        t->maxcode[17] = 0x7FFFFFFF;
-        t->defined = 1;
+        if (tc > 1 || th > 3) fail(&j->f, "bad DHT table index");
+        build_huff(&j->huff[tc][th], p + pos + 1, p + pos + 17);
+        j->huff[tc][th].defined = 1;
         pos += 17 + total;
     }
+    if (pos != len) fail(&j->f, "bad DHT length");
 }
 
 /* ------------------------------------------------------------------ */
 /* Entropy-coded data.                                                 */
 
-/* Tops the accumulator up to more than 56 bits; past a marker (or the end
- * of the data, which sets at_eof) it feeds zero bits: an MCU that used
- * them is refused, or with eof_fill at the end of the data marks the
- * rest of the scan as insufficient (end_mcu). */
+/* The end of the data where the entropy decoder wants more: with
+ * eof_fill the EOI libjpeg's file source appends is the marker it runs
+ * into (at_eof); cv2.imdecode's source suspends, which refuses the
+ * stream. */
+static void data_ends(Jpeg *j)
+{
+    if (!j->eof_fill)
+        fail(&j->f, "truncated stream (entropy-coded data ends early)");
+    j->pos = j->n;
+    j->unread = 0xD9;
+    j->at_eof = 1;
+}
+
+/* Tops the accumulator up to more than 56 bits, as jdhuff.c's
+ * jpeg_fill_bit_buffer: FF 00 is an FF data byte; at a marker (recorded
+ * in j->unread) or the end of the data it feeds zero bits, and an MCU
+ * that used them leaves the rest of its interval zero (end_mcu). */
 static void fill(Jpeg *j)
 {
     while (j->nacc <= 56) {
         int b = 0;
-        if (!j->marker_hit && j->pos >= j->n) {
-            j->marker_hit = j->at_eof = 1;
-        } else if (!j->marker_hit) {
-            b = j->data[j->pos];
+        if (!j->unread && j->pos >= j->n) {
+            data_ends(j);
+        } else if (!j->unread) {
+            b = j->data[j->pos++];
             if (b == 0xFF) {
-                long q = j->pos + 1;
-                while (q < j->n && j->data[q] == 0xFF) q++;
-                if (q < j->n && j->data[q] == 0x00) {
-                    j->pos = q + 1;
-                    j->real_bits += 8;
+                while (j->pos < j->n && j->data[j->pos] == 0xFF) j->pos++;
+                if (j->pos >= j->n) {
+                    data_ends(j);
+                    b = 0;
+                } else if (j->data[j->pos] == 0x00) {
+                    j->pos++;
                 } else {
-                    j->marker_hit = 1; /* leave pos on the marker */
-                    if (q >= j->n) j->at_eof = 1;
+                    j->unread = j->data[j->pos++];
                     b = 0;
                 }
-            } else {
-                j->pos++;
-                j->real_bits += 8;
             }
+            if (!j->unread) j->real_bits += 8;
         }
         j->acc |= (uint64_t)b << (56 - j->nacc);
         j->nacc += 8;
@@ -409,20 +470,26 @@ static void fill(Jpeg *j)
     do { if (nacc < (n)) { SAVE_BITS(); fill(j); LOAD_BITS(); } } while (0)
 #define DROP_BITS(n) (acc <<= (n), nacc -= (n), used += (n))
 
-/* Codes longer than 9 bits: jdhuff.c's maxcode walk. */
-static int slow_symbol(Jpeg *j, const Huff *t, uint64_t acc, int *length)
+/* Codes longer than 9 bits: jdhuff.c's maxcode walk. Where no code of
+ * 16 bits or fewer matches, jpeg_huff_decode warns, takes 17 bits and
+ * returns symbol 0 (JWRN_HUFF_BAD_CODE). */
+static int slow_symbol(const Huff *t, uint64_t acc, int *length)
 {
     int l;
     for (l = 10; l <= 16; l++) {
         int32_t code = (int32_t)(acc >> (64 - l));
         if (t->maxcode[l] >= 0 && code <= t->maxcode[l]) {
             *length = l;
-            return t->values[t->valoffset[l] + code];
+            return t->values[(t->valoffset[l] + code) & 0xFF];
         }
     }
-    fail(&j->f, "corrupt Huffman code");
+    *length = 17;
     return 0;
 }
+
+/* jpeg_natural_order with its 16 extra entries of 63, which a run past
+ * the block or band writes into. */
+static int natural(int k) { return k > 63 ? 63 : zigzag[k]; }
 
 static int extend(int v, int s)
 {
@@ -445,10 +512,9 @@ static int decode_block(Jpeg *j, const Huff *dc, const Huff *ac, int pred,
         l = look >> 8;
         s = look & 0xFF;
     } else {
-        s = slow_symbol(j, dc, acc, &l);
+        s = slow_symbol(dc, acc, &l);
     }
     DROP_BITS(l);
-    if (s > 15) fail(&j->f, "corrupt DC code");
     v = s ? (int)(acc >> (64 - s)) : 0;
     DROP_BITS(s);
     v = pred + extend(v, s);
@@ -462,7 +528,7 @@ static int decode_block(Jpeg *j, const Huff *dc, const Huff *ac, int pred,
             l = look >> 8;
             rs = look & 0xFF;
         } else {
-            rs = slow_symbol(j, ac, acc, &l);
+            rs = slow_symbol(ac, acc, &l);
         }
         DROP_BITS(l);
         r = rs >> 4;
@@ -472,9 +538,10 @@ static int decode_block(Jpeg *j, const Huff *dc, const Huff *ac, int pred,
             k += 16;
             continue;
         }
+        /* A run past the block lands on the extra entries of
+         * jpeg_natural_order, which are all 63. */
         k += r;
-        if (k > 63) fail(&j->f, "corrupt AC run");
-        out[zigzag[k]] = (int16_t)extend((int)(acc >> (64 - s)), s);
+        out[natural(k)] = (int16_t)extend((int)(acc >> (64 - s)), s);
         DROP_BITS(s);
         k++;
     }
@@ -499,13 +566,13 @@ static int get_bits(Jpeg *j, int n)
 static int huff_symbol(Jpeg *j, const Huff *t)
 {
     int look, l, s;
-    if (j->nacc < 16) fill(j);
+    if (j->nacc < 17) fill(j);
     look = t->lookup[j->acc >> (64 - 9)];
     if (look) {
         l = look >> 8;
         s = look & 0xFF;
     } else {
-        s = slow_symbol(j, t, j->acc, &l);
+        s = slow_symbol(t, j->acc, &l);
     }
     j->acc <<= l;
     j->nacc -= l;
@@ -513,15 +580,10 @@ static int huff_symbol(Jpeg *j, const Huff *t)
     return s;
 }
 
-/* jpeg_natural_order with its 16 extra entries of 63, which a progressive
- * run past the band writes into. */
-static int natural(int k) { return k > 63 ? 63 : zigzag[k]; }
-
 static void dc_first(Jpeg *j, const Huff *dc, int *pred, int al,
                      int16_t *blk)
 {
     int s = huff_symbol(j, dc);
-    if (s > 16) fail(&j->f, "corrupt DC code");
     if (s) s = extend(get_bits(j, s), s);
     *pred += s;
     blk[0] = (int16_t)(uint16_t)((unsigned)*pred << al);
@@ -642,39 +704,30 @@ const int32_t jpeg_arith_table[114] = {
     QE(0x5a10, 110, 111, 1), QE(0x5522, 112, 109, 0),
     QE(0x59eb, 112, 111, 1), QE(0x5a1d, 113, 113, 0)};
 
-/* The next byte of the scan, 0 past a marker; a marker leaves j->pos on
- * an 0xFF before it. Where the data ends: zeros with eof_fill (the EOI
- * libjpeg's file source appends), else a refusal. */
+/* The next byte of the scan (jdarith.c get_byte), 0 from a marker on,
+ * which j->unread records. Where the data ends: zeros with eof_fill (the
+ * EOI libjpeg's file source appends), else a refusal (jdarith.c cannot
+ * suspend). */
 static int arith_byte(Jpeg *j)
 {
-    long q;
     int d;
-    if (j->marker_hit) return 0;
+    if (j->unread) return 0;
     if (j->pos >= j->n) {
-        if (!j->eof_fill)
-            fail(&j->f, "truncated stream (arithmetic-coded data ends "
-                        "early)");
-        j->marker_hit = j->at_eof = 1;
+        data_ends(j);
         return 0;
     }
     d = j->data[j->pos++];
     if (d != 0xFF) return d;
-    q = j->pos;
-    while (q < j->n && j->data[q] == 0xFF) q++;
-    if (q >= j->n) {
-        if (!j->eof_fill)
-            fail(&j->f, "truncated stream (arithmetic-coded data ends "
-                        "early)");
-        j->pos = j->n;
-        j->marker_hit = j->at_eof = 1;
+    while (j->pos < j->n && j->data[j->pos] == 0xFF) j->pos++;
+    if (j->pos >= j->n) {
+        data_ends(j);
         return 0;
     }
-    if (j->data[q] == 0) {
-        j->pos = q + 1;
+    if (j->data[j->pos] == 0) {
+        j->pos++;
         return 0xFF;
     }
-    j->pos = q - 1;
-    j->marker_hit = 1;
+    j->unread = j->data[j->pos++];
     return 0;
 }
 
@@ -722,19 +775,6 @@ static int arith_decode(Jpeg *j, uint8_t *st)
     return sv >> 7;
 }
 
-/* jdarith.c's answer to a bad code (JWRN_ARITH_BAD_CODE): it sets ct to
- * -1 and decodes nothing more until the next restart. Reading a file
- * (eof_fill, cv2.imread) that is what happens; bytes are refused. */
-static void arith_bad(Jpeg *j, const char *what)
-{
-    char msg[96];
-    if (!j->eof_fill) {
-        snprintf(msg, sizeof msg, "corrupt arithmetic-coded data (%s)", what);
-        fail(&j->f, msg);
-    }
-    j->arith_err = 1;
-}
-
 /* A DC difference (Figures F.19-F.24), updating the component's
  * conditioning context; dc_tbl is the DC statistics area. */
 static int arith_dc_diff(Jpeg *j, int tbl, int *context)
@@ -751,7 +791,7 @@ static int arith_dc_diff(Jpeg *j, int tbl, int *context)
         st = j->dc_stats[tbl] + 20;
         while (arith_decode(j, st)) {
             if ((m <<= 1) == 0x8000) {
-                arith_bad(j, "DC magnitude");
+                j->arith_err = 1;
                 return 0;
             }
             st++;
@@ -783,7 +823,7 @@ static int arith_ac_value(Jpeg *j, int tbl, uint8_t *st, int k)
             st = j->ac_stats[tbl] + (k <= j->ac_k[tbl] ? 189 : 217);
             while (arith_decode(j, st)) {
                 if ((m <<= 1) == 0x8000) {
-                    arith_bad(j, "AC magnitude");
+                    j->arith_err = 1;
                     return 0;
                 }
                 st++;
@@ -810,7 +850,7 @@ static void arith_ac_first(Jpeg *j, int tbl, int ss, int se, int al,
         while (arith_decode(j, st + 1) == 0) {
             st += 3;
             if (++k > se) {
-                arith_bad(j, "spectral overflow");
+                j->arith_err = 1;
                 return;
             }
         }
@@ -843,7 +883,7 @@ static void arith_ac_refine(Jpeg *j, int tbl, int ss, int se, int al,
             }
             st += 3;
             if (++k > se) {
-                arith_bad(j, "spectral overflow");
+                j->arith_err = 1;
                 return;
             }
         }
@@ -1022,37 +1062,37 @@ static void idct_islow(const int16_t *coef, const int32_t *q, uint8_t *dst,
 /* ------------------------------------------------------------------ */
 /* Scans.                                                              */
 
-/* The EOI that libjpeg's file source appends where the data ends. */
-#define EOF_MARKER 0x1D9
-
-/* From j->pos, skip entropy-coded bytes to the next marker and return
- * it (j->pos then follows it). Where the data ends first: EOF_MARKER
- * with eof_fill, else a refusal. */
-static int marker_after_data(Jpeg *j)
+/* jdmarker.c read_restart_marker with jpeg_resync_to_restart, at the
+ * start of every restart interval but the first: the marker the decoder
+ * ran into, or the next one. RSTn as expected is taken; otherwise (libjpeg
+ * warns) one that is no marker of a frame (below SOF0) or a restart
+ * marker one or two behind is skipped for the next, one that is a
+ * restart marker one or two ahead or any other frame marker is left
+ * where it is (the interval reads no data), and any other restart marker
+ * is taken as if it were the one expected. */
+static void read_restart_marker(Jpeg *j, int want)
 {
+    int m = take_marker(j);
     for (;;) {
-        long q;
-        while (j->pos < j->n && j->data[j->pos] != 0xFF) j->pos++;
-        q = j->pos + 1;
-        while (q < j->n && j->data[q] == 0xFF) q++;
-        if (q >= j->n) {
-            if (j->eof_fill) {
-                j->pos = j->n;
-                return EOF_MARKER;
-            }
-            fail(&j->f, "truncated stream (no marker after the scan)");
+        int ahead = m == 0xD0 + ((want + 1) & 7) || m == 0xD0 + ((want + 2) & 7);
+        int behind = m == 0xD0 + ((want - 1) & 7) || m == 0xD0 + ((want - 2) & 7);
+        if (m == 0xD0 + want) return;
+        if (m < 0xC0 || (m >= 0xD0 && m <= 0xD7 && behind)) {
+            m = next_marker(j);
+            continue;
         }
-        if (j->data[q] != 0x00) {
-            j->pos = q + 1;
-            return j->data[q];
+        if (m < 0xD0 || m > 0xD7 || ahead) {
+            j->unread = m;
+            return;
         }
-        j->pos = q + 1;
+        return;
     }
 }
 
 /* jdphuff.c's checks of a progressive scan's Ss, Se, Ah and Al, and the
  * update of each coefficient's Al (coef_bits). A scan whose Ah does not
- * follow the last one (libjpeg warns and decodes) is refused. */
+ * follow the last one, or an AC scan before the DC one, is decoded as it
+ * says (libjpeg warns); bad parameters are refused. */
 static void progression(Jpeg *j, Comp **comps, int ns, int ss, int se,
                         int ah, int al)
 {
@@ -1065,39 +1105,30 @@ static void progression(Jpeg *j, Comp **comps, int ns, int ss, int se,
     }
     for (i = 0; i < ns; i++) {
         Comp *c = comps[i];
-        if (ss != 0 && c->coef_bits[0] < 0)
-            fail(&j->f, "progressive AC scan before the DC scan");
         /* jdphuff.c start_pass's copy, for smoothing a cut scan's rows. */
         for (k = ss < 1 ? ss : 1; k <= 9; k++)
             c->prev_bits[k] = j->scans ? c->coef_bits[k] : 0;
-        for (k = ss; k <= se; k++) {
-            if (ah != (c->coef_bits[k] < 0 ? 0 : c->coef_bits[k]))
-                fail(&j->f, "progressive scans out of order");
-            c->coef_bits[k] = al;
-        }
+        for (k = ss; k <= se; k++) c->coef_bits[k] = al;
     }
 }
 
-/* After an MCU: bits used past the data are a refusal, or with eof_fill
- * at the end of the data the start of jdhuff.c's insufficient_data. */
+/* After an MCU: bits used past a marker (or the end of the data) start
+ * jdhuff.c's insufficient_data: the MCU keeps what it decoded from the
+ * zero bits, and the rest of the interval stays zero. */
 static void end_mcu(Jpeg *j)
 {
-    if (j->used_bits <= j->real_bits) return;
-    if (!(j->eof_fill && j->at_eof))
-        fail(&j->f, "truncated or corrupt entropy-coded data");
-    j->insufficient = 1;
+    if (j->used_bits > j->real_bits) j->insufficient = 1;
 }
 
 /* jdlossls.c: a lossless component's samples from its differences, row
- * by row: the first row of the image and of each restart interval from
- * its left neighbour (the first sample from 1 << (P - Pt - 1)), every
- * other row's first sample from the one above and the rest by predictor
- * `psv`, all modulo 2^16; then shifted up by the point transform `pt`
- * and cut to 8 bits. `first_rows` is the rows between restarts (0: no
- * restarts); from row `gray_from` on (-1: none) the data had run out and
- * every row restarts from zero differences. */
-static void undifference(Jpeg *j, Comp *c, int psv, int pt, long first_rows,
-                         long gray_from)
+ * by row: the first row of the image and of each MCU row marked in
+ * `reset` (`v` rows each: a restart, or data that had run out, decoded
+ * as zero differences) from its left neighbour (the first sample from
+ * 1 << (P - Pt - 1)), every other row's first sample from the one above
+ * and the rest by predictor `psv`, all modulo 2^16; then shifted up by
+ * the point transform `pt` and cut to 8 bits. */
+static void undifference(Jpeg *j, Comp *c, int psv, int pt,
+                         const uint8_t *reset, int v)
 {
     int x, y, w = c->width, stride = c->blocks_w;
     int *prev = (int *)malloc(sizeof(int) * (size_t)w * 2), *cur;
@@ -1107,8 +1138,7 @@ static void undifference(Jpeg *j, Comp *c, int psv, int pt, long first_rows,
         const int16_t *d = c->coef + (size_t)y * stride;
         uint8_t *o = c->plane + (size_t)y * stride;
         int *t;
-        if (y == 0 || (first_rows && y % first_rows == 0)
-            || (gray_from >= 0 && y >= gray_from)) {
+        if (y == 0 || (y % v == 0 && reset[y / v])) {
             int ra = (int)((uint16_t)d[0] + (1 << (j->precision - pt - 1)))
                      & 0xFFFF;
             cur[0] = ra;
@@ -1143,19 +1173,59 @@ static void undifference(Jpeg *j, Comp *c, int psv, int pt, long first_rows,
 static int lossless_diff(Jpeg *j, const Huff *dc)
 {
     int s = huff_symbol(j, dc);
-    if (s > 16) fail(&j->f, "corrupt lossless difference code");
     if (s == 16) return 32768;
     return s ? extend(get_bits(j, s), s) : 0;
 }
 
+/* jdhuff.c's std_huff_tables: where the first scan of a sequential
+ * Huffman-coded frame starts, tables 0 and 1 that no DHT defined take the
+ * standard ones (Motion JPEG); progressive and lossless frames get none. */
+static const uint8_t dc_luma[28], ac_luma[178], dc_chroma[28], ac_chroma[178];
+
+static void standard_tables(Jpeg *j)
+{
+    static const uint8_t *const spec[2][2] = {{dc_luma, dc_chroma},
+                                             {ac_luma, ac_chroma}};
+    int tc, th;
+    for (tc = 0; tc < 2; tc++) {
+        for (th = 0; th < 2; th++) {
+            Huff *t = &j->huff[tc][th];
+            if (t->defined) continue;
+            build_huff(t, spec[tc][th], spec[tc][th] + 16);
+            t->defined = 1;
+        }
+    }
+}
+
+/* jpeg_make_d_derived_tbl's checks of a table a scan uses. */
+static const Huff *scan_table(Jpeg *j, int tc, int th)
+{
+    const Huff *t;
+    int k;
+    if (th > 3 || !j->huff[tc][th].defined)
+        fail(&j->f, "SOS uses an undefined Huffman table");
+    t = &j->huff[tc][th];
+    if (t->overflow) fail(&j->f, "bad Huffman table");
+    if (tc == 0) {
+        for (k = 0; k < t->count; k++)
+            if (t->values[k] > (j->lossless ? 16 : 15))
+                fail(&j->f, "bad Huffman table (DC symbol out of range)");
+    }
+    return t;
+}
+
+/* One scan, as libjpeg-turbo decodes it: restart intervals resynchronised
+ * by read_restart_marker, data that runs into a marker finished on zero
+ * bits (end_mcu), arithmetic intervals dropped after a bad code. */
 static void decode_scan(Jpeg *j, const uint8_t *p, long len)
 {
     Comp *comps[4];
     const Huff *dc[4], *ac[4];
-    int td[4], ta[4];
-    int ns, i, units_x, units_y, per_interval, interval = 0, expect = 0;
+    int td[4], ta[4], preds[4] = {0, 0, 0, 0};
+    int ns, i, units_x, units_y, togo, want = 0, skip_row = 0;
     int ss, se, ah, al;
-    long total, u, gray_row;
+    long total, u;
+    uint8_t *reset = NULL;
     char msg[96];
     ns = len > 0 ? p[0] : 0;
     if (ns < 1 || ns > 4 || len != 4 + 2 * ns) fail(&j->f, "bad SOS");
@@ -1163,12 +1233,18 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
     se = p[2 + 2 * ns];
     ah = p[3 + 2 * ns] >> 4;
     al = p[3 + 2 * ns] & 15;
+    if (!j->scans && !j->arith && !j->progressive && !j->lossless)
+        standard_tables(j);
     for (i = 0; i < ns; i++) {
-        int cid = p[1 + 2 * i], t = p[2 + 2 * i], c, need_dc, need_ac;
+        int cid = p[1 + 2 * i], t = p[2 + 2 * i], c, k, need_dc, need_ac;
+        /* jdmarker.c get_sos matches the id against the frame's components
+         * from the i-th on, and refuses one named twice. */
         comps[i] = NULL;
-        for (c = 0; c < j->ncomp; c++) {
+        for (c = i; c < j->ncomp && !comps[i]; c++) {
             if (j->comp[c].cid == cid) comps[i] = &j->comp[c];
         }
+        for (k = 0; k < i && comps[i]; k++)
+            if (comps[k] == comps[i]) comps[i] = NULL;
         if (!comps[i]) {
             snprintf(msg, sizeof msg, "SOS names unknown component %d", cid);
             fail(&j->f, msg);
@@ -1179,14 +1255,12 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
         need_ac = !j->lossless && (!j->progressive || ss != 0);
         td[i] = t >> 4;
         ta[i] = t & 15;
-        if ((!j->arith && (td[i] > 3 || ta[i] > 3))
-            || (!j->arith && need_dc && !j->huff[0][td[i]].defined)
-            || (!j->arith && need_ac && !j->huff[1][ta[i]].defined))
-            fail(&j->f, "SOS uses an undefined Huffman table");
-        dc[i] = &j->huff[0][td[i]];
-        ac[i] = &j->huff[1][ta[i]];
+        dc[i] = &j->huff[0][td[i] & 3];
+        ac[i] = &j->huff[1][ta[i] & 3];
+        if (!j->arith && need_dc) dc[i] = scan_table(j, 0, td[i]);
+        if (!j->arith && need_ac) ac[i] = scan_table(j, 1, ta[i]);
         if (!comps[i]->latched && !j->lossless) {
-            if (!j->qt_defined[comps[i]->tq])
+            if (comps[i]->tq > 3 || !j->qt_defined[comps[i]->tq])
                 fail(&j->f, "component uses an undefined quantisation "
                             "table");
             memcpy(comps[i]->q, j->qt[comps[i]->tq], sizeof comps[i]->q);
@@ -1211,113 +1285,94 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
         units_y = (j->height + j->unit * j->vmax - 1) / (j->unit * j->vmax);
     }
     total = (long)units_x * units_y;
-    per_interval = j->restart ? j->restart : (int)total;
     if (j->lossless && j->restart && j->restart % units_x)
         fail(&j->f, "lossless restart interval not a multiple of the MCUs "
                     "in a row");
+    if (j->lossless) {
+        free(j->reset);
+        reset = j->reset = (uint8_t *)calloc((size_t)units_y, 1);
+        if (!reset) fail(&j->f, "out of memory");
+    }
     j->insufficient = 0;
-    gray_row = -1;
-    for (interval = 0, u = 0; u < total; interval++) {
-        int preds[4] = {0, 0, 0, 0};
-        long end = u + per_interval < total ? u + per_interval : total;
-        int m, eof = j->at_eof;
-        if (interval > 0 && !eof) {
-            m = marker_after_data(j);
-            if (m == EOF_MARKER) {
-                eof = 1;
-            } else if (m < 0xD0 || m > 0xD7) {
-                snprintf(msg, sizeof msg, "%d restart intervals, want %ld",
-                         interval, (total + per_interval - 1) / per_interval);
-                fail(&j->f, msg);
-            } else if (m != 0xD0 + expect) {
-                snprintf(msg, sizeof msg,
-                         "restart marker RST%d out of order", m - 0xD0);
-                fail(&j->f, msg);
+    j->acc = 0;
+    j->nacc = 0;
+    j->real_bits = j->used_bits = 0;
+    j->eobrun = 0;
+    if (j->arith) arith_reset(j, comps, td, ta, ns, ss, ah, preds);
+    togo = j->restart;
+    for (u = 0; u < total; u++) {
+        int uy = (int)(u / units_x), ux = (int)(u % units_x);
+        if (j->restart) {
+            if (togo == 0) {
+                /* process_restart: the bits left are dropped, the
+                 * predictors and EOB run reset; the data counts as there
+                 * again unless the interval starts at a marker. */
+                j->acc = 0;
+                j->nacc = 0;
+                j->real_bits = j->used_bits = 0;
+                read_restart_marker(j, want);
+                want = (want + 1) & 7;
+                for (i = 0; i < 4; i++) preds[i] = 0;
+                j->eobrun = 0;
+                if (j->arith)
+                    arith_reset(j, comps, td, ta, ns, ss, ah, preds);
+                else if (!j->unread)
+                    j->insufficient = 0;
+                if (j->lossless) reset[uy] = 1;
+                togo = j->restart;
             }
-            expect = (expect + 1) & 7;
+            togo--;
         }
-        /* Past the end of the data (eof_fill) every interval reads zero
-         * bits; the flag of the last one stays set, as in process_restart
-         * with the appended EOI unread. */
-        j->acc = 0;
-        j->nacc = 0;
-        j->marker_hit = j->at_eof = eof;
-        j->real_bits = j->used_bits = 0;
-        j->eobrun = 0;
-        if (j->arith) arith_reset(j, comps, td, ta, ns, ss, ah, preds);
-        for (; u < end; u++) {
-            int uy = (int)(u / units_x), ux = (int)(u % units_x);
-            /* jdlhuff.c finishes the MCU row in which the data ran out on
-             * zero bits; later rows are zero differences from a reset
-             * predictor. The DCT decoders skip every later MCU. */
-            if (j->insufficient && (!j->lossless || ux == 0)) {
-                if (gray_row < 0) gray_row = uy;
+        /* jdlhuff.c finishes the MCU row in which the data ran out on zero
+         * bits; a later row is zero differences from a reset predictor.
+         * The DCT decoders leave every later MCU of the interval zero. */
+        if (j->lossless) {
+            if (ux == 0) skip_row = j->insufficient;
+            if (skip_row) {
+                reset[uy] = 1;
                 continue;
             }
-            if (j->insufficient && gray_row >= 0) continue;
-            j->last_good = ns == 1 ? uy / comps[0]->v : uy;
-            for (i = 0; i < ns; i++) {
-                Comp *c = comps[i];
-                int v = ns == 1 ? 1 : c->v, h = ns == 1 ? 1 : c->h, by, bx;
-                for (by = 0; by < v; by++) {
-                    for (bx = 0; bx < h; bx++) {
-                        int row = uy * v + by, col = ux * h + bx;
-                        size_t at = (size_t)row * c->blocks_w + col;
-                        int16_t *blk = j->lossless ? NULL : c->coef + at * 64;
-                        if (j->lossless)
-                            c->coef[at] = (int16_t)(uint16_t)
-                                lossless_diff(j, dc[i]);
-                        else if (j->arith)
-                            arith_block(j, td[i], ta[i], &preds[i],
-                                        &j->dc_context[i], ss, se, ah, al,
-                                        blk);
-                        else if (!j->progressive)
-                            preds[i] = decode_block(j, dc[i], ac[i],
-                                                    preds[i], blk);
-                        else if (ss == 0 && ah == 0)
-                            dc_first(j, dc[i], &preds[i], al, blk);
-                        else if (ss == 0)
-                            dc_refine(j, al, blk);
-                        else if (ah == 0)
-                            ac_first(j, ac[i], ss, se, al, blk);
-                        else
-                            ac_refine(j, ac[i], ss, se, al, blk);
-                    }
+        } else if (j->insufficient) {
+            continue;
+        }
+        j->last_good = ns == 1 ? uy / comps[0]->v : uy;
+        for (i = 0; i < ns; i++) {
+            Comp *c = comps[i];
+            int v = ns == 1 ? 1 : c->v, h = ns == 1 ? 1 : c->h, by, bx;
+            for (by = 0; by < v; by++) {
+                for (bx = 0; bx < h; bx++) {
+                    int row = uy * v + by, col = ux * h + bx;
+                    size_t at = (size_t)row * c->blocks_w + col;
+                    int16_t *blk = j->lossless ? NULL : c->coef + at * 64;
+                    if (j->lossless)
+                        c->coef[at] = (int16_t)(uint16_t)
+                            lossless_diff(j, dc[i]);
+                    else if (j->arith)
+                        arith_block(j, td[i], ta[i], &preds[i],
+                                    &j->dc_context[i], ss, se, ah, al,
+                                    blk);
+                    else if (!j->progressive)
+                        preds[i] = decode_block(j, dc[i], ac[i],
+                                                preds[i], blk);
+                    else if (ss == 0 && ah == 0)
+                        dc_first(j, dc[i], &preds[i], al, blk);
+                    else if (ss == 0)
+                        dc_refine(j, al, blk);
+                    else if (ah == 0)
+                        ac_first(j, ac[i], ss, se, al, blk);
+                    else
+                        ac_refine(j, ac[i], ss, se, al, blk);
                 }
             }
-            if (!j->arith) end_mcu(j);
-            else if (j->at_eof) j->cut = 1;
         }
+        if (!j->arith) end_mcu(j);
+        else if (j->at_eof) j->cut = 1;
     }
     if (j->insufficient) j->cut = 1;
     if (j->lossless) {
-        long rows = j->restart ? (long)(j->restart / units_x) : 0;
-        for (i = 0; i < ns; i++) {
-            long v = ns == 1 ? 1 : comps[i]->v;
-            undifference(j, comps[i], ss, al, rows * v,
-                         gray_row < 0 ? -1 : gray_row * v);
-        }
-    }
-    /* The marker after the scan must not be another restart marker. */
-    {
-        int m;
-        long save;
-        if (j->at_eof) {
-            j->pos = j->n;
-            return;
-        }
-        m = marker_after_data(j);
-        if (m == EOF_MARKER) return;
-        if (m >= 0xD0 && m <= 0xD7) {
-            snprintf(msg, sizeof msg, "%d restart intervals, want %ld",
-                     interval + 1,
-                     (total + per_interval - 1) / per_interval);
-            fail(&j->f, msg);
-        }
-        /* Step back onto the marker for the header parser. */
-        save = j->pos - 1;
-        while (save > 0 && j->data[save - 1] == 0xFF) save--;
-        j->pos = save;
+        for (i = 0; i < ns; i++)
+            undifference(j, comps[i], ss, al, reset,
+                         ns == 1 ? 1 : comps[i]->v);
     }
 }
 
@@ -1650,8 +1705,13 @@ static void colour_row(const Ycc *t, int ncomp, int space,
 /* ------------------------------------------------------------------ */
 /* The header walk and the entry points.                               */
 
-/* Parses the stream; with `decode` set it also decodes every scan. Stops
- * after the SOF when only the size is wanted. */
+/* Parses the stream as jdmarker.c read_markers does; with `decode` set
+ * it also decodes every scan. Stops after the SOF when only the size is
+ * wanted. Restart and TEM markers between segments are ignored, and so
+ * is anything that is not a marker; markers libjpeg does not know are
+ * refused. An image of one scan that holds every component ends with
+ * that scan: OpenCV's reader has its pixels before jpeg_finish_decompress
+ * reads on, and ignores what that call finds. */
 static void walk(Jpeg *j, int decode)
 {
     char msg[96];
@@ -1663,25 +1723,29 @@ static void walk(Jpeg *j, int decode)
     memset(j->ac_k, 5, sizeof j->ac_k);
     j->fixed_bin = 113;
     for (;;) {
-        int m = next_marker(j);
+        int m = take_marker(j);
         long len;
         const uint8_t *p;
         if (m == 0xD9) break;
-        if ((m >= 0xD0 && m <= 0xD7) || m == 0x01)
-            fail(&j->f, "restart marker outside a scan");
-        p = segment(j, &len);
+        if (m == 0xD8) fail(&j->f, "a second SOI marker");
+        if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+        if (m < 0xC0 || m == 0xDE || m == 0xDF || (m >= 0xF0 && m <= 0xFD)) {
+            snprintf(msg, sizeof msg, "unknown marker 0x%02X", m);
+            fail(&j->f, msg);
+        }
+        p = segment(j, &len, m >= 0xE0 || m == 0xDC);
         switch (m) {
         case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
             parse_sof(j, p, len, m - 0xC0);
             if (!decode) return;
             break;
-        case 0xC5: case 0xC6: case 0xC7: case 0xCB: case 0xCD: case 0xCE:
-        case 0xCF: {
+        case 0xC5: case 0xC6: case 0xC7: case 0xC8: case 0xCB: case 0xCD:
+        case 0xCE: case 0xCF: {
             /* libjpeg-turbo reads none of these: cv2 returns no image. */
             static const char *names[16] = {
                 0, 0, 0, 0, 0, "differential sequential (SOF5)",
                 "differential progressive (SOF6)",
-                "differential lossless (SOF7)", 0, 0, 0,
+                "differential lossless (SOF7)", "JPG-extension (0xC8)", 0, 0,
                 "arithmetic-coded lossless (SOF11)", 0,
                 "arithmetic-coded differential sequential (SOF13)",
                 "arithmetic-coded differential progressive (SOF14)",
@@ -1720,21 +1784,20 @@ static void walk(Jpeg *j, int decode)
             j->restart = u16be(p);
             break;
         case 0xE0:
-            if (len >= 5 && !memcmp(p, "JFIF\0", 5)) j->jfif = 1;
+            /* What the first SOS finds decides the colour space. */
+            if (!j->scans && len >= 14 && !memcmp(p, "JFIF\0", 5))
+                j->jfif = 1;
             break;
         case 0xEE:
-            if (len >= 12 && !memcmp(p, "Adobe", 5)) {
+            if (!j->scans && len >= 12 && !memcmp(p, "Adobe", 5)) {
                 j->adobe = 1;
                 j->adobe_transform = p[11];
             }
             break;
-        case 0xDC:
-            fail(&j->f, "DNL is not read");
-            break;
         case 0xDA:
             if (!j->ncomp) fail(&j->f, "SOS before SOF");
             decode_scan(j, p, len);
-            j->scans++;
+            if (!j->scans++ && !j->progressive && p[0] == j->ncomp) return;
             break;
         default:
             break;
@@ -1767,6 +1830,7 @@ static void release(Jpeg *j)
     }
     free(j->scratch);
     free(j->filled);
+    free(j->reset);
 }
 
 /* Height and width of the JPEG in data[0:n]; 0, or 1 with a message. */
@@ -2909,15 +2973,18 @@ int fill_polygons(uint8_t *img, int h, int w, const int32_t *pts,
  * first from 9 bits, the width growing one code early (at 511, 1023,
  * 2047); a stream starting with 00 and an odd byte is old-style LZW
  * (LZWDecodeCompat: codes LSB first, the width growing at 512, 1024,
- * 2048). A stream without its EOI code ends where its bits do. Returns the
- * bytes produced, or -1 for a corrupt table. */
+ * 2048). A stream without its EOI code ends where its bits do. A code
+ * before the first clear code, or past the table, or after the table is
+ * full, is an error at which libtiff stops (and zero-fills the rest).
+ * Returns the bytes produced: fewer than `want` where the codes ended or
+ * failed first. */
 long tiff_lzw(const uint8_t *src, long n, uint8_t *out, long want)
 {
     static uint16_t prefix[4096];
     static uint8_t suffix[4096], first[4096];
     static uint16_t length[4096];
     int old = n >= 2 && src[0] == 0 && (src[1] & 1);
-    int nbits = 9, free_ent = 258, prev = -1;
+    int nbits = 9, free_ent = 258, prev = -1, cleared = 0;
     long pos = 0, produced = 0, consumed = 0, total = n * 8;
     uint64_t acc = 0;
     int have = 0;
@@ -2952,17 +3019,18 @@ long tiff_lzw(const uint8_t *src, long n, uint8_t *out, long want)
             free_ent = 258;
             nbits = 9;
             prev = -1;
+            cleared = 1;
             continue;
         }
         int entry = code;
+        if (!cleared)
+            break;
         if (prev < 0) {
             if (code > 256)
-                return -1;
+                break;
         } else {
-            if (code > free_ent)
-                return -1;
-            if (free_ent >= 4096)
-                return -1;
+            if (code > free_ent || free_ent >= 4096)
+                break;
             int base = code == free_ent ? prev : code;
             prefix[free_ent] = (uint16_t)prev;
             suffix[free_ent] = first[base];
@@ -3018,74 +3086,88 @@ long packbits(const uint8_t *src, long n, uint8_t *out, long want)
     return o;
 }
 
-/* GIF's LZW into out[0..count): codes LSB first from min_size + 1 bits,
- * the width growing when the table reaches 1 << width, up to 12 bits, the
- * table frozen at 4096 entries until a clear code. Returns the indices
- * produced, or -1 for a code past the table. */
+/* GIF's LZW into out[0..count) as OpenCV 5's GifDecoder::lzwDecode runs
+ * it: codes LSB first from min_size + 1 bits, the width growing when the
+ * table reaches 1 << width, up to 12 bits, the table frozen at 4096
+ * entries; the end-of-information code starts a new table as a clear code
+ * does, and decoding goes on to the end of the data (or to that code in
+ * the data's last byte, where it stops). A frame is read
+ * only if the codes give exactly `count` indices: a pixel code that comes
+ * once the frame is full is taken (and the decoding stops) only where it
+ * is in the last byte of the data. Returns count, or GIF_PAST_TABLE (a
+ * code past the table), GIF_STRING_PAST_FRAME (a string longer than the
+ * pixels left: cv2's "Too long LZW length"), GIF_DATA_PAST_FRAME or
+ * GIF_SHORT (the data ends before the last pixel). */
+#define GIF_PAST_TABLE -1
+#define GIF_STRING_PAST_FRAME -2
+#define GIF_DATA_PAST_FRAME -3
+#define GIF_SHORT -4
 long gif_lzw(const uint8_t *src, long n, int min_size, uint8_t *out,
              long count)
 {
-    static uint16_t prefix[4096], length[4096];
-    static uint8_t suffix[4096], first[4096];
+    static uint16_t prefix[4097], length[4097];
+    static uint8_t suffix[4097], first[4097];
     int clear = 1 << min_size, eoi = clear + 1;
-    int width = min_size + 1, size = eoi + 1, prev = -1;
+    int width = min_size + 1, size = eoi, prev = -1;
     long pos = 0, produced = 0;
     uint32_t acc = 0;
     int bits = 0;
-    if (min_size < 1 || min_size > 11)
-        return -1;
+    if (min_size < 2 || min_size > 11)
+        return GIF_PAST_TABLE;
     for (int i = 0; i < clear; i++) {
         prefix[i] = 0;
         suffix[i] = first[i] = (uint8_t)i;
         length[i] = 1;
     }
-    while (produced < count) {
+    for (;;) {
         while (bits < width && pos < n) {
             acc |= (uint32_t)src[pos++] << bits;
             bits += 8;
         }
         if (bits < width)
-            break;
+            return produced == count ? count : GIF_SHORT;
         int code = (int)(acc & ((1u << width) - 1));
         acc >>= width;
         bits -= width;
-        if (code == clear) {
-            size = eoi + 1;
+        if (code == clear || code == eoi) {
+            size = eoi;
             width = min_size + 1;
             prev = -1;
+            /* At the end-of-information code with the data all read, cv2
+             * reads the terminator and stops, leaving the bits after it. */
+            if (code == eoi && pos == n)
+                return produced == count ? count : GIF_SHORT;
             continue;
         }
-        if (code == eoi)
-            break;
-        if (prev < 0) {
-            if (code >= size)
-                return -1;
-        } else {
-            if (code > size)
-                return -1;
-            if (size < 4096) {
+        if (produced >= count)
+            return produced == count && pos == n ? count
+                                                 : GIF_DATA_PAST_FRAME;
+        if (size < 4096) {
+            if (code >= clear && code > size)
+                return GIF_PAST_TABLE;
+            if (prev >= 0) {
+                /* the entry the last code began, ended by this one's first
+                 * index */
                 int base = code == size ? prev : code;
                 prefix[size] = (uint16_t)prev;
                 suffix[size] = first[base];
                 first[size] = first[prev];
                 length[size] = (uint16_t)(length[prev] + 1);
-                size++;
-            } else if (code == size) {
-                return -1;
             }
+            size = prev >= 0 ? size + 1 : eoi + 1;
         }
         long len = length[code];
+        if (produced + len > count)
+            return GIF_STRING_PAST_FRAME;
         for (long i = len - 1, c = code; i >= 0; i--) {
-            if (produced + i < count)
-                out[produced + i] = suffix[c];
+            out[produced + i] = suffix[c];
             c = prefix[c];
         }
-        produced = produced + len < count ? produced + len : count;
+        produced += len;
         prev = code;
         if (size == (1 << width) && width < 12)
             width++;
     }
-    return produced;
 }
 
 /* An RLE4 or RLE8 BMP stream from data[offset] into rgb [height, width, 3]

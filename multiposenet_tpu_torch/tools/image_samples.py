@@ -12,6 +12,9 @@ such as `gif_lzw`'s compressed codes); `bmp_bytes` a BMP
 of a given header, depth, compression and pixel data (RLE streams are
 passed as bytes); `packbits_encode` a PackBits stream. The LZW strips
 come from `utils/tiff.py lzw_encode_plain`, libtiff's encoder.
+`quantised_gif` is the 3-3-2 palette GIF of an RGB image, and
+`corrupted` applies a recorded corruption (the `corrupt` recipes of
+tests/fixtures/images/digests.json).
 """
 
 from __future__ import annotations
@@ -328,3 +331,25 @@ def bmp_bytes(width: int, height: int, bpp: int, compression: int,
 def padded_rows(rows, pitch: int) -> bytes:
     """Byte rows, each padded with zeros to `pitch`."""
     return b"".join(bytes(r).ljust(pitch, b"\0") for r in rows)
+
+
+def corrupted(data: bytes, at: str) -> bytes:
+    """`data` with the byte changes of a recipe, "offset:byte offset:byte
+    ..." (decimal)."""
+    out = bytearray(data)
+    for change in at.split():
+        offset, value = change.split(":")
+        out[int(offset)] = int(value)
+    return bytes(out)
+
+
+def quantised_gif(rgb: np.ndarray) -> bytes:
+    """A GIF of `rgb` [h, w, 3] in a 3-3-2 palette (red and green to 3
+    bits, blue to 2), coded with `gif_lzw`'s compressed codes."""
+    q = ((rgb[..., 0] >> 5) << 5) | ((rgb[..., 1] >> 5) << 2) | (
+        rgb[..., 2] >> 6)
+    levels = np.arange(256)
+    pal = np.stack([(levels >> 5) * 36, ((levels >> 2) & 7) * 36,
+                    (levels & 3) * 85], -1).astype(np.uint8)
+    return gif_bytes((rgb.shape[1], rgb.shape[0]),
+                     [dict(idx=q, lzw=gif_lzw(q.reshape(-1), 8))], pal)

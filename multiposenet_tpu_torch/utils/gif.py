@@ -11,9 +11,17 @@ the global palette, image data that ends before the frame's last pixel,
 or a file without its trailer; each raises a ValueError here.
 
 The LZW codes (variable width, least significant bit first, from the
-stream's minimum code size plus one to 12 bits) are decoded by the host
-C library (`image_codec.gif_lzw`); `lzw_decode_plain` is the plain
-version. Writing GIF (cv2 quantises colours with a palette of its own)
+stream's minimum code size plus one to 12 bits) are decoded as OpenCV's
+`GifDecoder::lzwDecode` decodes them, by the host C library
+(`image_codec.gif_lzw`); `lzw_decode_plain` is the plain version. There
+the end-of-information code starts a new table, as a clear code does,
+and decoding goes on to the end of the data (or to that code in the
+data's last byte, where cv2 stops); the frame is read only if
+the codes give exactly its pixels. cv2 returns no image, and a
+ValueError here names it, for a code past the table, a string longer
+than the pixels left, a pixel code after the last pixel (unless it lies
+in the data's last byte, where cv2 stops), and data that ends before
+the last pixel. Writing GIF (cv2 quantises colours with a palette of its own)
 is not done here.
 """
 
@@ -110,13 +118,14 @@ def decode(data: bytes, name="<bytes>", plain: bool = False) -> np.ndarray:
         raise ValueError(f"{name}: GIF frame without a palette")
     if not 2 <= min_size <= 11:
         raise ValueError(f"{name}: GIF LZW minimum code size {min_size}")
-    if plain:
-        idx = lzw_decode_plain(lzw, min_size, w * h)
-    else:
-        idx = image_codec.gif_lzw(lzw, min_size, w * h)
-    if len(idx) < w * h:
-        raise ValueError(f"{name}: GIF image data of {len(idx)} pixels, "
-                         f"want {w * h}")
+    try:
+        if plain:
+            idx = lzw_decode_plain(lzw, min_size, w * h)
+        else:
+            idx = image_codec.gif_lzw(lzw, min_size, w * h)
+    except ValueError as exc:
+        raise ValueError(f"{name}: GIF {exc} (cv2 returns no image)") \
+            from None
     idx = np.frombuffer(idx, np.uint8, w * h).reshape(h, w)
     if lflags & 0x40:
         order = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
@@ -134,48 +143,58 @@ def decode(data: bytes, name="<bytes>", plain: bool = False) -> np.ndarray:
 
 
 def lzw_decode_plain(data: bytes, min_size: int, count: int) -> bytes:
-    """GIF LZW → up to `count` palette indices (fewer if the codes end
-    first). Codes LSB first; the width grows when the next entry would
-    not fit, up to 12 bits, where the table stops growing until a clear
-    code."""
+    """GIF LZW → exactly `count` palette indices, as OpenCV's
+    GifDecoder::lzwDecode decodes them (see the module docstring), or a
+    ValueError naming one of `image_codec.GIF_LZW_ERRORS`. Codes LSB first; the width grows
+    when the table reaches 1 << width, up to 12 bits; the table stops
+    growing at 4096 entries until a clear or end-of-information code."""
     clear, eoi = 1 << min_size, (1 << min_size) + 1
     width = min_size + 1
-    table: list[bytes] = [bytes([i]) for i in range(clear)] + [b"", b""]
+    # Literal codes past 255 (minimum code sizes of 9 to 11) come out as
+    # their low byte, as cv2 stores them.
+    table: list[bytes] = [bytes([i & 0xFF]) for i in range(clear)] + [
+        b"", b""]
     out = bytearray()
     acc = bits = pos = 0
     prev = None
-    while len(out) < count:
+    while True:
         while bits < width and pos < len(data):
             acc |= data[pos] << bits
             pos += 1
             bits += 8
         if bits < width:
-            break
+            if len(out) == count:
+                return bytes(out)
+            raise ValueError(image_codec.GIF_LZW_ERRORS[3])
         code = acc & ((1 << width) - 1)
         acc >>= width
         bits -= width
-        if code == clear:
+        if code in (clear, eoi):
             del table[eoi + 1:]
             width, prev = min_size + 1, None
+            # At the end-of-information code with the data all read, cv2
+            # reads the terminator and stops, leaving the bits after it.
+            if code == eoi and pos == len(data):
+                if len(out) == count:
+                    return bytes(out)
+                raise ValueError(image_codec.GIF_LZW_ERRORS[3])
             continue
-        if code == eoi:
-            break
-        if prev is None:
-            if code >= len(table):
-                raise ValueError("GIF LZW code before any entry")
-            entry = table[code]
-        elif code < len(table):
-            entry = table[code]
-            if len(table) < 4096:
-                table.append(table[prev] + entry[:1])
-        elif code == len(table):
-            entry = table[prev] + table[prev][:1]
-            if len(table) < 4096:
-                table.append(entry)
-        else:
-            raise ValueError("GIF LZW code past its table")
+        if len(out) >= count:
+            if len(out) == count and pos == len(data):
+                return bytes(out)
+            raise ValueError(image_codec.GIF_LZW_ERRORS[2])
+        if len(table) < 4096:
+            # cv2's table size: one short of the next entry after a reset
+            if code >= clear and code > (len(table) if prev is not None
+                                         else eoi):
+                raise ValueError(image_codec.GIF_LZW_ERRORS[0])
+            if prev is not None:
+                base = table[prev] if code == len(table) else table[code]
+                table.append(table[prev] + base[:1])
+        entry = table[code]
+        if len(out) + len(entry) > count:
+            raise ValueError(image_codec.GIF_LZW_ERRORS[1])
         out += entry
         prev = code
         if len(table) == 1 << width and width < 12:
             width += 1
-    return bytes(out[:count])

@@ -274,19 +274,17 @@ def fill_polygons(img: np.ndarray, polygons: list, value: int = 1) -> None:
         raise MemoryError("image_codec: out of memory")
 
 
-def _stream(fn: str, data: bytes, want: int, *extra) -> bytes:
+def _stream(fn: str, data: bytes, want: int) -> bytes:
     data = bytes(data)
     out = np.empty(max(want, 1), np.uint8)
-    n = getattr(library(), fn)(data, len(data), *extra,
-                               out.ctypes.data_as(_u8p), want)
-    if n < 0:
-        raise ValueError(f"corrupt {fn.replace('_', ' ')} data")
+    n = getattr(library(), fn)(data, len(data), out.ctypes.data_as(_u8p),
+                               want)
     return out[:n].tobytes()
 
 
 def tiff_lzw(data: bytes, want: int) -> bytes:
-    """libtiff's LZW decode of one strip or tile, up to `want` bytes
-    (`tiff.lzw_decode_plain`)."""
+    """libtiff's LZW decode of one strip or tile, up to `want` bytes, or
+    fewer where the codes fail or end first (`tiff.lzw_decode_plain`)."""
     return _stream("tiff_lzw", data, want)
 
 
@@ -296,9 +294,25 @@ def packbits(data: bytes, want: int) -> bytes:
     return _stream("packbits", data, want)
 
 
+# What GIF LZW decoding refuses, as cv2's decoder gives up: the C
+# library's return values -1..-4 (`gif.lzw_decode_plain` raises the same).
+GIF_LZW_ERRORS = ("LZW code past its table",
+                  "LZW string past the frame's last pixel",
+                  "LZW data past the frame's last pixel",
+                  "LZW data that ends before the frame's last pixel")
+
+
 def gif_lzw(data: bytes, min_size: int, count: int) -> bytes:
-    """GIF LZW → up to `count` palette indices (`gif.lzw_decode_plain`)."""
-    return _stream("gif_lzw", data, count, min_size)
+    """GIF LZW → exactly `count` palette indices as OpenCV's decoder
+    gives them, or a ValueError naming what it refuses
+    (`gif.lzw_decode_plain`)."""
+    data = bytes(data)
+    out = np.empty(max(count, 1), np.uint8)
+    n = library().gif_lzw(data, len(data), min_size,
+                          out.ctypes.data_as(_u8p), count)
+    if n < 0:
+        raise ValueError(GIF_LZW_ERRORS[-n - 1])
+    return out[:n].tobytes()
 
 
 def bmp_rle(data: bytes, offset: int, bits: int, palette: np.ndarray,

@@ -149,9 +149,16 @@ def decode_image(data: bytes, name: str | Path = "<bytes>",
 
 def decode_image_plain(data: bytes, name: str | Path = "<bytes>"
                        ) -> np.ndarray:
-    """`decode_image` of a BMP, Netpbm, Sun raster, TIFF, GIF, WebP or
-    Radiance HDR file with the coders' plain Python versions instead of
-    the C library."""
+    """`decode_image` of a baseline JPEG, BMP, Netpbm, Sun raster, TIFF,
+    GIF, WebP or Radiance HDR file with the coders' plain Python versions
+    instead of the C library (`utils/jpeg.py` refuses the JPEG modes past
+    baseline by name)."""
+    if data.startswith(JPEG_MAGIC):
+        try:
+            rgb = jpeg.decode_pixels(data)
+        except ValueError as exc:
+            raise ValueError(f"{name}: {exc}") from None
+        return apply_orientation(rgb, exif_orientation(jpeg.exif_block(data)))
     return _decode_simple(data, name, plain=True)
 
 

@@ -100,7 +100,7 @@ def _fail(msg: str):
 
 def _next_marker(data: bytes, pos: int) -> tuple[int, int]:
     """(marker, offset after it) of the marker at `pos`, fill bytes
-    skipped."""
+    skipped (for `exif_block`'s walk of the header)."""
     n = len(data)
     if pos >= n or data[pos] != 0xFF:
         _fail(f"expected a marker at byte {pos}")
@@ -122,6 +122,109 @@ def _segment(data: bytes, pos: int) -> tuple[int, int]:
     return pos + 2, pos + length
 
 
+class _Source:
+    """The stream as libjpeg's data source and marker reader see it: a
+    position, the marker the entropy decoder ran into (`unread`), and the
+    end of the data, past which `eof_fill` (cv2.imread's file source, and
+    libtiff's) supplies the bytes FF D9 over and over and cv2.imdecode's
+    source refuses."""
+
+    def __init__(self, data: bytes, eof_fill: bool):
+        self.data, self.n, self.eof_fill = data, len(data), eof_fill
+        self.pos = 2
+        self.unread = 0
+
+    def next_marker(self) -> int:
+        """jdmarker.c next_marker: the next marker, skipping whatever is
+        not one (other bytes, FF 00 pairs; libjpeg warns)."""
+        data, n = self.data, self.n
+        while True:
+            pos = data.find(b"\xff", self.pos)
+            if pos < 0:
+                break
+            while pos < n and data[pos] == 0xFF:
+                pos += 1
+            if pos >= n:
+                break
+            self.pos = pos + 1
+            if data[pos]:
+                return data[pos]
+        if not self.eof_fill:
+            _fail("truncated stream (no EOI)")
+        self.pos = n
+        return 0xD9
+
+    def take_marker(self) -> int:
+        """The marker to act on next: the one the entropy decoder ran
+        into, or the next in the stream."""
+        m, self.unread = self.unread, 0
+        return m or self.next_marker()
+
+    def segment(self, lenient: bool) -> bytes:
+        """The payload of the segment whose length field is next. A
+        length below 2 is refused, or with `lenient` (APPn, COM, DNL,
+        which libjpeg skips or only peeks into) an empty payload after
+        the field. With eof_fill a segment cut by the end of the data is
+        completed with FF D9 bytes."""
+        data, n, pos = self.data, self.n, self.pos
+        head = data[pos:pos + 2]
+        if lenient and len(head) == 2 and (head[0] << 8 | head[1]) < 2:
+            self.pos = pos + 2
+            return b""
+        if pos + 2 > n or pos + (head[0] << 8 | head[1]) > n:
+            if not self.eof_fill:
+                _fail("truncated marker segment")
+
+            def at(k):
+                return data[k] if k < n else 0xD9 if (k - n) % 2 else 0xFF
+
+            length = at(pos) << 8 | at(pos + 1)
+            if length < 2:
+                if not lenient:
+                    _fail("truncated marker segment")
+                length = 2
+            self.pos = n
+            return bytes(at(pos + 2 + k) for k in range(length - 2))
+        length = head[0] << 8 | head[1]
+        if length < 2:
+            _fail("truncated marker segment")
+        self.pos = pos + length
+        return data[pos + 2:pos + length]
+
+    def entropy_bytes(self) -> tuple[bytes, bool]:
+        """The data of a restart interval, FF 00 unstuffed, up to the
+        marker that ends it (recorded as unread: the decoder reads zero
+        bits from there on), and whether the data ended first without
+        eof_fill (then decoding near its end is refused). Nothing where
+        a marker is already unread."""
+        if self.unread:
+            return b"", False
+        data, n, pos = self.data, self.n, self.pos
+        out = bytearray()
+        while True:
+            nxt = data.find(b"\xff", pos)
+            if nxt < 0:
+                out += data[pos:]
+                break
+            out += data[pos:nxt]
+            q = nxt + 1
+            while q < n and data[q] == 0xFF:
+                q += 1
+            if q >= n:
+                break
+            if data[q] == 0:
+                out.append(0xFF)
+                pos = q + 1
+                continue
+            self.unread, self.pos = data[q], q + 1
+            return bytes(out), False
+        self.pos = n
+        if self.eof_fill:
+            self.unread = 0xD9
+            return bytes(out), False
+        return bytes(out), True
+
+
 def _parse_sof(frame: Frame, p: bytes, raw: bool = False):
     if frame.components:
         _fail("more than one frame")
@@ -135,14 +238,14 @@ def _parse_sof(frame: Frame, p: bytes, raw: bool = False):
         _fail(f"{kind} images are not read (gray or YCbCr only)")
     if height == 0 or width == 0:
         _fail(f"bad size {width}x{height} (DNL is not read)")
-    if len(p) < 6 + 3 * nc:
-        _fail("truncated SOF")
+    if len(p) != 6 + 3 * nc:
+        _fail("bad SOF length")
     frame.width, frame.height = width, height
     for i in range(nc):
         cid, hv, tq = p[6 + 3 * i:9 + 3 * i]
         h, v = hv >> 4, hv & 15
-        if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
-            _fail(f"bad sampling factors or table in component {cid}")
+        if not (1 <= h <= 4 and 1 <= v <= 4):
+            _fail(f"bad sampling factors in component {cid}")
         frame.components.append(Component(cid, h, v, tq))
     hmax = max(c.h for c in frame.components)
     vmax = max(c.v for c in frame.components)
@@ -158,11 +261,13 @@ def _parse_sof(frame: Frame, p: bytes, raw: bool = False):
 
 
 def _parse_dqt(frame: Frame, p: bytes):
+    """jdmarker.c get_dqt: any nonzero precision nibble means 16-bit
+    values; a table cut short by the segment is refused."""
     pos = 0
     while pos < len(p):
         pq, tq = p[pos] >> 4, p[pos] & 15
         size = 128 if pq else 64
-        if pq > 1 or tq > 3 or pos + 1 + size > len(p):
+        if tq > 3 or pos + 1 + size > len(p):
             _fail("bad DQT")
         dtype = ">u2" if pq else "u1"
         zz = np.frombuffer(p[pos + 1:pos + 1 + size], dtype).astype(np.int64)
@@ -173,18 +278,26 @@ def _parse_dqt(frame: Frame, p: bytes):
 
 
 def _parse_dht(tables: dict, p: bytes):
+    """Tables by (class, index): (lookup table, values), or the message a
+    scan that uses a bad one is refused with (libjpeg builds tables
+    there)."""
     pos = 0
-    while pos < len(p):
-        if pos + 17 > len(p):
-            _fail("bad DHT")
+    while len(p) - pos > 16:
         tc, th = p[pos] >> 4, p[pos] & 15
         counts = list(p[pos + 1:pos + 17])
         total = sum(counts)
-        if tc > 1 or th > 3 or total > 256 or pos + 17 + total > len(p):
+        if total > 256 or pos + 17 + total > len(p):
             _fail("bad DHT")
+        if tc > 1 or th > 3:
+            _fail("bad DHT table index")
         values = list(p[pos + 17:pos + 17 + total])
-        tables[(tc, th)] = _lookup_table(counts, values)
+        try:
+            tables[(tc, th)] = (_lookup_table(counts, values), values)
+        except ValueError as exc:
+            tables[(tc, th)] = str(exc)
         pos += 17 + total
+    if pos != len(p):
+        _fail("bad DHT length")
 
 
 def _lookup_table(counts: list, values: list) -> list:
@@ -207,26 +320,48 @@ def _lookup_table(counts: list, values: list) -> list:
     return table
 
 
-def parse(data: bytes, raw: bool = False) -> tuple[Frame, list]:
-    """Frame header, tables and every scan's coefficients: returns the
-    frame and its scans, each (its components with their Huffman tables,
-    the restart interval in force). `raw` takes 4 components too and
-    skips the colour-space check, for `decode_planes`."""
+def _standard_tables(tables: dict):
+    """jdhuff.c std_huff_tables: where the first scan of a sequential
+    frame starts, tables 0 and 1 that no DHT defined take the standard
+    ones (Motion JPEG)."""
+    for (tc, th), (counts, values) in zip(
+            ((0, 0), (1, 0), (0, 1), (1, 1)), STD_HUFFMAN):
+        if (tc, th) not in tables:
+            tables[(tc, th)] = (_lookup_table(list(counts), list(values)),
+                                list(values))
+
+
+def parse(data: bytes, raw: bool = False, eof_fill: bool = False
+          ) -> tuple[Frame, list]:
+    """Frame header, tables and every scan's coefficients, walked as
+    jdmarker.c read_markers walks them: returns the frame and its scans,
+    each (its components with their Huffman tables, the restart interval
+    in force). Restart and TEM markers between segments are ignored, and
+    so is anything that is not a marker; markers libjpeg does not know
+    are refused. An image of one scan holding every component ends with
+    that scan (OpenCV's reader has its pixels before
+    jpeg_finish_decompress reads on, and ignores what that finds). `raw`
+    takes 4 components too and skips the colour-space check, for
+    `decode_planes`; `eof_fill` reads data that ends early as libjpeg's
+    file source fills it."""
     if not data.startswith(b"\xff\xd8"):
         _fail("no SOI marker")
     frame = Frame()
     tables: dict = {}
     restart = 0
     scans = []
-    pos = 2
+    src = _Source(data, eof_fill)
     while True:
-        marker, pos = _next_marker(data, pos)
+        marker = src.take_marker()
         if marker == 0xD9:
             break
+        if marker == 0xD8:
+            _fail("a second SOI marker")
         if 0xD0 <= marker <= 0xD7 or marker == 0x01:
-            _fail("restart marker outside a scan")
-        start, pos = _segment(data, pos)
-        p = data[start:pos]
+            continue
+        if marker < 0xC0 or marker in (0xDE, 0xDF) or 0xF0 <= marker <= 0xFD:
+            _fail(f"unknown marker 0x{marker:02X}")
+        p = src.segment(marker >= 0xE0 or marker == 0xDC)
         if marker in (0xC0, 0xC1):
             _parse_sof(frame, p, raw)
         elif marker in _SOF_NAMES:
@@ -242,18 +377,22 @@ def parse(data: bytes, raw: bool = False) -> tuple[Frame, list]:
             if len(p) != 2:
                 _fail("bad DRI")
             (restart,) = struct.unpack(">H", p)
-        elif marker == 0xE0 and p[:5] == b"JFIF\x00":
+        elif marker == 0xE0 and not scans and len(p) >= 14 \
+                and p[:5] == b"JFIF\x00":
             frame.jfif = True
-        elif marker == 0xEE and len(p) >= 12 and p[:5] == b"Adobe":
+        elif marker == 0xEE and not scans and len(p) >= 12 \
+                and p[:5] == b"Adobe":
             frame.adobe_transform = p[11]
-        elif marker == 0xDC:
-            _fail("DNL is not read")
         elif marker == 0xDA:
             if not frame.components:
                 _fail("SOS before SOF")
+            if not scans:
+                _standard_tables(tables)
             scan = _parse_sos(frame, tables, p, restart)
             scans.append(scan)
-            pos = _decode_scan(frame, scan, data, pos)
+            _decode_scan(frame, scan, src)
+            if len(scans) == 1 and len(scan[0]) == len(frame.components):
+                break
     if not scans:
         _fail("no image data")
     if not raw:
@@ -261,23 +400,35 @@ def parse(data: bytes, raw: bool = False) -> tuple[Frame, list]:
     return frame, scans
 
 
+def _scan_table(tables: dict, tc: int, th: int):
+    """jpeg_make_d_derived_tbl's checks of a table a scan uses."""
+    if th > 3 or (tc, th) not in tables:
+        _fail("SOS uses an undefined Huffman table")
+    table = tables[(tc, th)]
+    if isinstance(table, str):
+        _fail(table[len("JPEG: "):])
+    if tc == 0 and max(table[1], default=0) > 15:
+        _fail("bad Huffman table (DC symbol out of range)")
+    return table[0]
+
+
 def _parse_sos(frame: Frame, tables: dict, p: bytes, restart: int):
     ns = p[0] if p else 0
     if not 1 <= ns <= 4 or len(p) != 4 + 2 * ns:
         _fail("bad SOS")
     comps = []
-    by_id = {c.cid: c for c in frame.components}
     for i in range(ns):
         cid, t = p[1 + 2 * i], p[2 + 2 * i]
-        if cid not in by_id:
+        # jdmarker.c get_sos matches the id against the frame's components
+        # from the i-th on, and refuses one named twice.
+        c = next((c for c in frame.components[i:] if c.cid == cid), None)
+        if c is None or any(c is d for d, _, _ in comps):
             _fail(f"SOS names unknown component {cid}")
-        c = by_id[cid]
-        dc, ac = (0, t >> 4), (1, t & 15)
-        if dc not in tables or ac not in tables:
-            _fail("SOS uses an undefined Huffman table")
+        dct, act = _scan_table(tables, 0, t >> 4), _scan_table(tables, 1,
+                                                                 t & 15)
         if c.tq not in frame.qtables:
             _fail("component uses an undefined quantisation table")
-        comps.append((c, tables[dc], tables[ac]))
+        comps.append((c, dct, act))
     # Ss, Se, Ah and Al are ignored, as libjpeg-turbo ignores them (with a
     # warning) in a sequential scan.
     if ns > 1 and sum(c.h * c.v for c, _, _ in comps) > 10:
@@ -285,51 +436,42 @@ def _parse_sos(frame: Frame, tables: dict, p: bytes, restart: int):
     return comps, restart
 
 
-def _entropy_segments(data: bytes, pos: int):
-    """The entropy-coded data from `pos`: a list of byte strings, one per
-    restart interval, with stuffed zero bytes removed, and the offset of
-    the marker that ends the scan. Restart markers must come in order."""
-    segments, cur = [], bytearray()
-    expect = 0
-    n = len(data)
+def _read_restart_marker(src: _Source, want: int):
+    """jdmarker.c read_restart_marker with jpeg_resync_to_restart: RSTn
+    as expected is taken; otherwise (libjpeg warns) a marker that is no
+    marker of a frame (below SOF0) or a restart marker one or two behind
+    is skipped for the next, a restart marker one or two ahead or any
+    other frame marker is left unread (the interval reads no data), and
+    any other restart marker is taken as if it were the one expected."""
+    m = src.take_marker()
     while True:
-        nxt = data.find(b"\xff", pos)
-        if nxt < 0:
-            _fail("truncated stream (no marker after the scan)")
-        cur += data[pos:nxt]
-        q = nxt + 1
-        while q < n and data[q] == 0xFF:
-            q += 1
-        if q >= n:
-            _fail("truncated stream")
-        m = data[q]
-        if m == 0x00:
-            cur.append(0xFF)
-            pos = q + 1
-        elif 0xD0 <= m <= 0xD7:
-            if m != 0xD0 + expect:
-                _fail(f"restart marker RST{m - 0xD0} out of order")
-            expect = (expect + 1) & 7
-            segments.append(bytes(cur))
-            cur = bytearray()
-            pos = q + 1
-        else:
-            segments.append(bytes(cur))
-            return segments, nxt
+        ahead = m in (0xD0 + ((want + 1) & 7), 0xD0 + ((want + 2) & 7))
+        behind = m in (0xD0 + ((want - 1) & 7), 0xD0 + ((want - 2) & 7))
+        if m == 0xD0 + want:
+            return
+        if m < 0xC0 or (0xD0 <= m <= 0xD7 and behind):
+            m = src.next_marker()
+            continue
+        if not 0xD0 <= m <= 0xD7 or ahead:
+            src.unread = m
+        return
 
 
-# Zero bytes after an interval's data: one block reads at most 64 codes
-# of 16 bits and 64 values of 15 bits past the end before the check.
-_PAD = 264
+# Zero bytes after an interval's data: an MCU of up to 10 blocks that ran
+# into a marker reads at most 64 codes of 17 bits and 64 values of 15
+# bits a block past the end before the check.
+_PAD = 2600
 
 
 class _Bits:
     """An MSB-first bit reader over one restart interval: `words[i]` holds
     the 40 bits from byte i on, so any 16 bits from bit p are one shift
-    and mask away. Bits past the end read as zeros; `check` refuses a
-    position past the end."""
+    and mask away. Bits past the end read as zeros. Where the data ended
+    without a marker (`open`), `need` refuses the stream where the C
+    library's reader, which tops itself up to more than 56 bits whenever
+    it holds fewer than 32, would have to read past the end."""
 
-    def __init__(self, seg: bytes):
+    def __init__(self, seg: bytes, open_end: bool = False):
         padded = np.frombuffer(seg + b"\x00" * (_PAD + 4), np.uint8) \
             .astype(np.uint64)
         n = len(seg) + _PAD
@@ -339,6 +481,8 @@ class _Bits:
         self.words = words.tolist()
         self.nbits = len(seg) * 8
         self.pos = 0
+        self.open = open_end
+        self.loaded = 0
 
     def peek16(self) -> int:
         p = self.pos
@@ -352,9 +496,17 @@ class _Bits:
         self.pos = p + n
         return v
 
-    def check(self):
-        if self.pos > self.nbits:
-            _fail("truncated or corrupt entropy-coded data")
+    def need(self):
+        if self.loaded - self.pos >= 32:
+            return
+        while self.loaded - self.pos <= 56:
+            if self.loaded >= self.nbits:
+                _fail("truncated stream (entropy-coded data ends early)")
+            self.loaded += 8
+
+    def insufficient(self) -> bool:
+        """jdhuff.c insufficient_data: bits were used past the data."""
+        return self.pos > self.nbits
 
 
 def _extend(v: int, s: int) -> int:
@@ -362,22 +514,25 @@ def _extend(v: int, s: int) -> int:
 
 
 def _decode_symbol(bits: _Bits, table: list) -> int:
+    """A Huffman symbol; where no code of 16 bits or fewer matches,
+    jpeg_huff_decode warns, takes 17 bits and returns symbol 0."""
     length, symbol = table[bits.peek16()]
-    if length == 0:
-        _fail("corrupt Huffman code")
-    bits.pos += length
+    bits.pos += length or 17
     return symbol
 
 
 def _decode_block(bits: _Bits, dc_table, ac_table, pred: int, out):
+    need = bits.need if bits.open else None
+    if need:
+        need()
     s = _decode_symbol(bits, dc_table)
-    if s > 15:
-        _fail("corrupt DC code")
     dc = pred + _extend(bits.get(s), s)
     dc = ((dc + 32768) & 0xFFFF) - 32768  # JCOEF is 16-bit
     out[0] = dc
     k = 1
     while k < 64:
+        if need:
+            need()
         rs = _decode_symbol(bits, ac_table)
         r, s = rs >> 4, rs & 15
         if s == 0:
@@ -385,22 +540,23 @@ def _decode_block(bits: _Bits, dc_table, ac_table, pred: int, out):
                 break
             k += 16
             continue
+        # A run past the block lands on the extra entries of
+        # jpeg_natural_order, which are all 63.
         k += r
-        if k > 63:
-            _fail("corrupt AC run")
-        out[ZIGZAG_LIST[k]] = _extend(bits.get(s), s)
+        out[ZIGZAG_LIST[k] if k < 64 else 63] = _extend(bits.get(s), s)
         k += 1
     return dc
 
 
-
-def _decode_scan(frame: Frame, scan, data: bytes, pos: int) -> int:
-    """Huffman-decode one scan into the components' coefficients; returns
-    the offset of the marker after it. A scan of one component codes its
-    blocks one by one, over its own width and height; an interleaved scan
-    codes MCUs of h x v blocks of each component in turn."""
+def _decode_scan(frame: Frame, scan, src: _Source):
+    """Huffman-decode one scan into the components' coefficients, as
+    jdhuff.c decode_mcu does: restart intervals resynchronised by
+    `_read_restart_marker`, an MCU that runs into a marker finished on
+    zero bits and the rest of its interval left zero. A scan of one
+    component codes its blocks one by one, over its own width and height;
+    an interleaved scan codes MCUs of h x v blocks of each component in
+    turn."""
     comps, restart = scan
-    segments, end = _entropy_segments(data, pos)
     if len(comps) == 1:
         c = comps[0][0]
         units_x, units_y = -(-c.width // 8), -(-c.height // 8)
@@ -412,26 +568,32 @@ def _decode_scan(frame: Frame, scan, data: bytes, pos: int) -> int:
         units_y = -(-frame.height // (8 * vmax))
         shapes = [(c.v, c.h) for c, _, _ in comps]
     total = units_x * units_y
-    per_interval = restart or total
-    if len(segments) != -(-total // per_interval):
-        _fail(f"{len(segments)} restart intervals, want "
-              f"{-(-total // per_interval)}")
     block = [0] * 64
-    for s_i, seg in enumerate(segments):
-        bits = _Bits(seg)
-        preds = [0] * len(comps)
-        for u in range(s_i * per_interval,
-                       min(total, (s_i + 1) * per_interval)):
-            uy, ux = divmod(u, units_x)
-            for i, ((c, dct, act), (v, h)) in enumerate(zip(comps, shapes)):
-                for by in range(v):
-                    for bx in range(h):
-                        block[:] = [0] * 64
-                        preds[i] = _decode_block(bits, dct, act, preds[i],
-                                                 block)
-                        bits.check()
-                        c.coefs[uy * v + by, ux * h + bx] = block
-    return end
+    bits = _Bits(*src.entropy_bytes())
+    preds = [0] * len(comps)
+    insufficient = False
+    togo, want = restart, 0
+    for u in range(total):
+        if restart:
+            if togo == 0:
+                _read_restart_marker(src, want)
+                want = (want + 1) & 7
+                preds = [0] * len(comps)
+                if not src.unread:
+                    insufficient = False
+                bits = _Bits(*src.entropy_bytes())
+                togo = restart
+            togo -= 1
+        if insufficient:
+            continue
+        uy, ux = divmod(u, units_x)
+        for i, ((c, dct, act), (v, h)) in enumerate(zip(comps, shapes)):
+            for by in range(v):
+                for bx in range(h):
+                    block[:] = [0] * 64
+                    preds[i] = _decode_block(bits, dct, act, preds[i], block)
+                    c.coefs[uy * v + by, ux * h + bx] = block
+        insufficient = bits.insufficient()
 
 
 def _check_colour_space(frame: Frame):
@@ -595,7 +757,8 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 def decode_pixels(data: bytes) -> np.ndarray:
-    """JPEG bytes → uint8 RGB [H, W, 3], before any Exif orientation."""
+    """JPEG bytes → uint8 RGB [H, W, 3], before any Exif orientation;
+    data that ends early is refused, as cv2.imdecode refuses it."""
     frame, _ = parse(bytes(data))
     hmax = max(c.h for c in frame.components)
     vmax = max(c.v for c in frame.components)
@@ -611,10 +774,11 @@ def decode_pixels(data: bytes) -> np.ndarray:
 def decode_planes(data: bytes) -> np.ndarray:
     """A baseline JPEG's components, upsampled and not converted, as
     libjpeg-turbo outputs them for an unknown colour space → uint8
-    [H, W, components]: how libtiff reads a TIFF's JPEG strips and tiles
+    [H, W, components], data that ends early filled as libtiff's source
+    manager fills it: how libtiff reads a TIFF's JPEG strips and tiles
     (the plain version of `csrc/image_codec.c decode_jpeg_tiff`;
     `ycc_to_rgb` converts YCbCr ones)."""
-    frame, _ = parse(bytes(data), raw=True)
+    frame, _ = parse(bytes(data), raw=True, eof_fill=True)
     hmax = max(c.h for c in frame.components)
     vmax = max(c.v for c in frame.components)
     h, w = frame.height, frame.width

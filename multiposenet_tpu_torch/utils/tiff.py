@@ -59,8 +59,11 @@ streams) and `ccitt.decode` are their plain versions; the colour
 conversions are NumPy on both paths. LZW codes are read MSB first with
 libtiff's early change of code width; a strip that starts with the bytes
 00 and an odd byte is libtiff's old-style LZW (codes LSB first, the width
-changing one code later). A strip that ends before its rows are filled
-gives no image, as in libtiff; a single strip whose byte count is 0 (or a
+changing one code later). Where LZW, PackBits or deflate data fails or
+ends before a chunk's rows are filled, libtiff's RGBA reader keeps what
+the codec wrote and zeros after it, without the predictor or the byte
+swap of big-endian 16-bit samples (a strip left uncompressed and cut
+short gives no image); a single strip whose byte count is 0 (or a
 file without StripByteCounts) takes libtiff's estimate, the rest of the
 file less the directory.
 
@@ -89,6 +92,7 @@ import zlib
 import numpy as np
 
 from multiposenet_tpu_torch.utils import ccitt, image_codec, jpeg
+from multiposenet_tpu_torch.utils.inflate import inflate_partial
 
 # IFD entry types read (the numeric ones a reader needs): struct codes.
 # RATIONAL pairs become float32 as libtiff's float fields take them;
@@ -396,7 +400,7 @@ def _chunk(lay: _Layout, data: bytes, k: int, rows: int, x0: int, per: int,
         full = units_w * units_h * unit
         # libtiff reads units_h * vs rows of (units_w * unit) // vs bytes.
         want = units_h * vs * (units_w * unit // vs)
-        raw = np.frombuffer(_inflate(raw, lay.comp, want, name, plain)
+        raw = np.frombuffer(_inflate(raw, lay.comp, want, name, plain)[0]
                             [:want].ljust(full, b"\0"), np.uint8)
         npix = min(cw, lay.width - x0)
         if (hs, vs) == (4, 4) and npix < cw:
@@ -409,9 +413,17 @@ def _chunk(lay: _Layout, data: bytes, k: int, rows: int, x0: int, per: int,
             raw, units_w = raw[np.minimum(at, full - 1)].reshape(-1), used
         return _ycbcr_units(raw, units_h, units_w, hs, vs)[:rows, :cw]
     row_bytes = (cw * per * lay.bps + 7) // 8
-    raw = _inflate(raw, lay.comp, rows * row_bytes, name, plain)
+    want = rows * row_bytes
+    raw, ok = _inflate(raw, lay.comp, want, name, plain)
+    failed = not ok
+    if failed:
+        # libtiff's decode failed: the buffer is zero past what the codec
+        # wrote, and neither the predictor nor the byte swap of a
+        # big-endian file (postdecode) runs on it.
+        raw = raw.ljust(want, b"\0")
+        dtype = np.dtype("<u2" if lay.bps == 16 else "u1")
     block = _samples(raw, rows, row_bytes, cw, per, lay.bps, dtype)
-    if lay.predictor == 2 and lay.comp in _PREDICTED:
+    if lay.predictor == 2 and lay.comp in _PREDICTED and not failed:
         block = _unpredict(block)
     return block.astype(np.int32)
 
@@ -516,25 +528,31 @@ def _gray16_tile_rows(block: np.ndarray, valid: int) -> np.ndarray:
     return out
 
 
-def _inflate(raw: bytes, comp: int, want: int, name, plain: bool) -> bytes:
+def _inflate(raw: bytes, comp: int, want: int, name, plain: bool
+             ) -> tuple[bytes, bool]:
+    """A chunk's first `want` bytes decoded, and whether libtiff's codec
+    succeeded. Where LZW, PackBits or deflate data fails or ends first,
+    the codec's output up to there, which libtiff keeps (its buffer is
+    zero past it). zlib also fails a strip it has filled where what it
+    reads before it would write again is wrong (the check value at the
+    stream's end, say). An uncompressed chunk too short is refused."""
     if comp == 1:
         out = raw[:want]
-    elif comp in (8, 32946):
+        if len(out) < want:
+            raise ValueError(f"{name}: TIFF none data of {len(out)} bytes, "
+                             f"want {want} (cv2 returns no image)")
+        return out, True
+    if comp in (8, 32946):
         try:
             out = zlib.decompressobj().decompress(raw, want)
-        except zlib.error as exc:
-            raise ValueError(f"{name}: corrupt TIFF deflate data ({exc})") \
-                from None
+        except zlib.error:
+            return inflate_partial(raw, want), False
     elif plain:
         out = (lzw_decode_plain if comp == 5 else packbits_plain)(raw, want)
     else:
         out = (image_codec.tiff_lzw if comp == 5
                else image_codec.packbits)(raw, want)
-    if len(out) < want:
-        raise ValueError(f"{name}: TIFF {COMPRESSIONS[comp]} data of "
-                         f"{len(out)} bytes, want {want} (cv2 returns no "
-                         "image)")
-    return out
+    return out, len(out) == want
 
 
 def _to_rgb(samples: np.ndarray, bps: int, photometric: int,
@@ -707,12 +725,15 @@ def cielab_to_rgb(samples: np.ndarray, bps: int, tags: dict) -> np.ndarray:
 
 def lzw_decode_plain(raw: bytes, want: int) -> bytes:
     """libtiff's LZWDecode (or LZWDecodeCompat for old-style streams) of
-    one strip or tile, up to `want` bytes; an error in the codes raises."""
+    one strip or tile, up to `want` bytes. A code before the first clear
+    code, past the table, or after the table is full is an error at which
+    libtiff stops: what came before it is returned."""
     old = len(raw) >= 2 and raw[0] == 0 and raw[1] & 1
     out = bytearray()
     table: list[bytes] = [bytes([i]) for i in range(256)] + [b"", b""]
     nbits, pos, bitbuf, nbuf = 9, 0, 0, 0
     prev = None
+    cleared = False
     total_bits = len(raw) * 8
     consumed = 0
     while len(out) < want:
@@ -738,11 +759,13 @@ def lzw_decode_plain(raw: bytes, want: int) -> bytes:
             break
         if code == 256:
             del table[258:]
-            nbits, prev = 9, None
+            nbits, prev, cleared = 9, None, True
             continue
+        if not cleared or len(table) >= 4096 and prev is not None:
+            break
         if prev is None:
             if code > 256:
-                raise ValueError("LZW code before any entry")
+                break
             entry = table[code]
         elif code < len(table):
             entry = table[code]
@@ -751,13 +774,11 @@ def lzw_decode_plain(raw: bytes, want: int) -> bytes:
             entry = table[prev] + table[prev][:1]
             table.append(entry)
         else:
-            raise ValueError("corrupted LZW table")
+            break
         out += entry
         prev = code
         if len(table) > (1 << nbits) - (1 if old else 2) and nbits < 12:
             nbits += 1
-        if len(table) > 4096:
-            raise ValueError("LZW table overflow")
     return bytes(out[:want])
 
 

@@ -72,7 +72,13 @@ installed cv2's decode.
   `cv2.imencode(".hdr")` writes for their pixels, and for the photo the
   sha256 of cv2's decode of that file and of the 480x640 TIFFs
   `multiposenet_tpu_torch/tools/image_samples.py timing_tiffs` builds
-  from it.
+  from it. Some files (and a GIF of the photo's pixels,
+  `image_samples.quantised_gif`, under the photo's entry as `gif_corrupt`)
+  carry `corrupt` recipes (`corruption_recipes`): byte changes in their
+  coded data, each with the sha256 of cv2's decode of the changed bytes
+  (`cv2.imdecode`, which `cv2.imread` of them equals) or null where cv2
+  returns no image. `python tests/make_image_fixtures.py corrupt` writes
+  only those into the committed digests.
 """
 
 from __future__ import annotations
@@ -1042,6 +1048,7 @@ def main() -> None:
         kind: sha256(cv2.imdecode(np.frombuffer(data, np.uint8),
                                   cv2.IMREAD_COLOR)[..., ::-1])
         for kind, data in sorted(timed.items())}
+    corruption_recipes(digests)
     (OUT / "digests.json").write_text(json.dumps(digests, indent=1) + "\n")
     (OUT / "annotations.json").write_text(
         json.dumps(coco_annotations(records, names)) + "\n")
@@ -1052,5 +1059,129 @@ def main() -> None:
     print(f"{len(files)} images, {total} bytes in {OUT}")
 
 
+# The modes of the JPEG recipes (the corpus of
+# tests/test_torch_image_corrupt.py), the TIFF files and the photo.
+CORRUPT_JPEG = (
+    "kind_noise_37x53_420_q95.jpg", "kind_tex_97x133_420_q95_rst3.jpg",
+    "c3_progressive_48x64_420_q95_rst2.jpg",
+    "c3_progressive_48x64_gray_q50.jpg", "c3_lossless_p1_24x24.jpg",
+    "scene_02_444_q50.jpg", "c3_arith_progressive_32x32_444_rst.jpg",
+    "c3_arith_32x32_420.jpg")
+CORRUPT_TIFF = (
+    "tiff_cmyk_lzw_planar_16x24.tif", "tiff_ycbcr22_lzw_23x37.tif",
+    "tiff_cielab16_d65_17x23.tif", "tiff_jpeg_pil_ycbcr_16x24.tif",
+    "tiff_jpeg_ycc420_tables_37x53.tif")
+
+
+def cv2_sha(data: bytes) -> str | None:
+    """sha256 of cv2.imdecode's RGB decode of `data`, or None where it
+    returns no image; cv2.imread of the bytes in a file must agree."""
+    rgb = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    path = OUT.parent / "_corrupt_probe"
+    path.write_bytes(data)
+    try:
+        again = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    finally:
+        path.unlink()
+    assert (rgb is None) == (again is None) and (
+        rgb is None or np.array_equal(rgb, again))
+    return None if rgb is None else sha256(rgb[..., ::-1])
+
+
+def pick_recipes(data: bytes, spans: list[tuple[int, int]], seed: int,
+                 nbytes: int, reads: int, refusals: int) -> list[dict]:
+    """Seeded changes of `nbytes` bytes each (0xFF written as 0xFE) inside
+    `spans` of `data`: the first `reads` that cv2 decodes to other pixels
+    than the file's, and the first `refusals` it returns no image for."""
+    rs = np.random.RandomState(seed)
+    clean = cv2_sha(data)
+    out, got = [], {True: 0, False: 0}
+    for _ in range(2000):
+        if got[True] >= reads and got[False] >= refusals:
+            break
+        changes = []
+        for _ in range(nbytes):
+            a, b = spans[rs.randint(len(spans))]
+            value = rs.randint(0, 256)
+            changes.append((rs.randint(a, b), 0xFE if value == 0xFF
+                            else value))
+        at = " ".join(f"{o}:{v}" for o, v in changes)
+        want = cv2_sha(image_samples.corrupted(data, at))
+        if want == clean:
+            continue
+        key = want is not None
+        if got[key] < (reads if key else refusals):
+            got[key] += 1
+            out.append({"at": at, "rgb_sha256": want})
+    return out
+
+
+def scan_spans(data: bytes) -> list[tuple[int, int]]:
+    """Every JPEG stream's entropy-coded data in `data` (a JPEG, or a
+    TIFF's JPEG strips): from after each SOS to the next EOI."""
+    spans, i = [], 0
+    while (i := data.find(b"\xff\xda", i)) >= 0:
+        start = i + 2 + struct.unpack(">H", data[i + 2:i + 4])[0]
+        end = data.find(b"\xff\xd9", start)
+        spans.append((start, end if end > 0 else len(data) - 2))
+        i = start
+    return spans
+
+
+def corruption_recipes(digests: dict) -> None:
+    """The `corrupt` recipes of the digests (see the module docstring):
+    two bytes of the scan data of each mode's JPEG (two reads and a
+    refusal), the restart markers of the interval files moved, one byte
+    of the TIFF strips (LZW, deflate and JPEG ones), one byte of the
+    photo GIF's LZW data, and two bytes of the photo's scan (read by
+    cv2: the smoke script times its decode and predicts on it)."""
+    global image_samples
+    sys.path.insert(0, str(ROOT))
+    from multiposenet_tpu_torch.tools import image_samples
+    from multiposenet_tpu_torch.utils import tiff
+
+    for name in CORRUPT_JPEG:
+        data = (OUT / name).read_bytes()
+        start = scan_spans(data)[0][0]
+        recipes = pick_recipes(data, [(start, len(data) - 2)], 0, 2, 2, 1)
+        if "rst" in name:
+            at = [i for i in range(start, len(data) - 1) if data[i] == 0xFF
+                  and 0xD0 <= data[i + 1] <= 0xD7][1]
+            for value in ((data[at + 1] - 0xD0 + 2) % 8 + 0xD0, 0x37):
+                recipe = f"{at + 1}:{value}"
+                recipes.append({"at": recipe, "rgb_sha256": cv2_sha(
+                    image_samples.corrupted(data, recipe))})
+        digests[name]["corrupt"] = recipes
+    for name in CORRUPT_TIFF:
+        data = (OUT / name).read_bytes()
+        e, tags = tiff._tags(data, name)
+        offsets = tags.get(273) or tags[324]
+        counts = tags.get(279) or tags[325]
+        spans = (scan_spans(data) if tags[259][0] == 7 else
+                 [(o, o + c) for o, c in zip(offsets, counts)])
+        digests[name]["corrupt"] = pick_recipes(data, spans, 0, 1, 2, 0)
+    photo = OUT / "photo_480x640_q95_420.jpg"
+    data = photo.read_bytes()
+    gif = image_samples.quantised_gif(
+        np.ascontiguousarray(cv2.imread(str(photo))[..., ::-1]))
+    lzw_start = gif.index(b"\x2c", 13 + 3 * 256) + 11  # after the palette
+    entry = digests["photo_480x640_q95_420.jpg"]
+    entry["gif_corrupt"] = pick_recipes(gif, [(lzw_start, len(gif) - 2)], 0,
+                                        1, 1, 2)
+    entry["corrupt"] = pick_recipes(data, [(scan_spans(data)[0][0],
+                                            len(data) - 2)], 0, 2, 1, 0)
+
+
+def write_corruption_recipes() -> None:
+    """Only the recipes, into the committed digests."""
+    path = OUT / "digests.json"
+    digests = json.loads(path.read_text())
+    corruption_recipes(digests)
+    path.write_text(json.dumps(digests, indent=1) + "\n")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["corrupt"]:
+        write_corruption_recipes()
+    else:
+        main()

@@ -172,6 +172,46 @@ def test_loader_reads_image_files(tmp_path, records):
     np.testing.assert_array_equal(got["images"], want["images"])
 
 
+def _damaged_jpeg(rgb: np.ndarray, seed: int = 0) -> bytes:
+    """cv2's JPEG of `rgb` with two bytes of its scan changed (seeded),
+    the first such change cv2.imdecode still reads to other pixels."""
+    data = cv2.imencode(".jpg", np.ascontiguousarray(rgb[:, :, ::-1]))[1]
+    data = data.tobytes()
+    sos = data.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")
+    clean = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    rs = np.random.RandomState(seed)
+    while True:
+        out = bytearray(data)
+        for _ in range(2):
+            out[rs.randint(start, len(out) - 2)] = rs.randint(0, 255)
+        got = cv2.imdecode(np.frombuffer(bytes(out), np.uint8),
+                           cv2.IMREAD_COLOR)
+        if got is not None and not np.array_equal(got, clean):
+            return bytes(out)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_make_batch_of_a_damaged_jpeg_matches_jax(tmp_path, records, train):
+    """A record whose file is a JPEG with damaged scan bytes: the port's
+    batch equals the JAX package's (which reads it with cv2.imread) with
+    the same image_dir and seed."""
+    recs = []
+    for i, rec in enumerate(records[:2]):
+        rec = dict(rec)
+        (tmp_path / f"{i}.jpg").write_bytes(_damaged_jpeg(rec.pop("image"),
+                                                          i))
+        rec["file_name"] = f"{i}.jpg"
+        recs.append(rec)
+    got = tloader.make_batch(recs, 64, 8, np.random.RandomState(3),
+                             image_dir=str(tmp_path), train=train)
+    want = jloader.make_batch(recs, 64, 8, np.random.RandomState(3),
+                              image_dir=str(tmp_path), train=train)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def _masked(records, seed=0, drop=None):
     """Records with seeded segmentation masks (bool [H, W]); `drop` names
     a key left out (None) on the second record, the third has none."""

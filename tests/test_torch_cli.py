@@ -25,7 +25,9 @@ import contextlib
 import dataclasses
 import io
 import json
+import struct
 import sys
+from pathlib import Path
 
 import cv2
 import jax
@@ -221,6 +223,59 @@ def test_predict_on_a_jpeg_matches_jax_cli(workdir):
         assert abs(g["score"] - w["score"]) <= 1e-5
         np.testing.assert_allclose(g["keypoints"], w["keypoints"],
                                    atol=1e-3, rtol=1e-5)
+
+
+def test_predict_on_a_damaged_jpeg_matches_jax_cli(workdir, tmp_path):
+    """`predict --image` of the scene's JPEG with two bytes of its scan
+    changed (cv2 reads it, libjpeg-turbo warning and going on) prints the
+    JAX CLI's people."""
+    data = Path(workdir["image_jpeg"]).read_bytes()
+    sos = data.index(b"\xff\xda")
+    start = sos + 2 + struct.unpack(">H", data[sos + 2:sos + 4])[0]
+    clean = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    rs = np.random.RandomState(4)
+    while True:
+        damaged = bytearray(data)
+        for _ in range(2):
+            damaged[rs.randint(start, len(data) - 2)] = rs.randint(0, 255)
+        got = cv2.imdecode(np.frombuffer(bytes(damaged), np.uint8),
+                           cv2.IMREAD_COLOR)
+        if got is not None and (got != clean).mean() > 0.05:
+            break
+    image = tmp_path / "damaged.jpg"
+    image.write_bytes(bytes(damaged))
+    argv = ["predict", "--model-dir", workdir["model"], "--image", str(image)]
+    want = json.loads(_run(jax_cli.main, argv))
+    got = json.loads(_run(cli.main, argv + ["--device", "cpu"]))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["box"], w["box"], atol=2e-3, rtol=1e-5)
+        assert abs(g["score"] - w["score"]) <= 1e-5
+        np.testing.assert_allclose(g["keypoints"], w["keypoints"],
+                                   atol=1e-3, rtol=1e-5)
+
+
+def test_predict_on_a_gif_cv2_refuses_exits_in_both_clis(workdir, tmp_path):
+    """A GIF whose LZW data holds a string past the frame's last pixel:
+    cv2 returns no image, and both CLIs exit naming the file."""
+    from multiposenet_tpu_torch.tools import image_samples
+
+    scene = image_io.read_image(workdir["image"])
+    data = bytearray(image_samples.quantised_gif(scene))
+    rs = np.random.RandomState(0)
+    start = data.index(b"\x2c", 13 + 3 * 256) + 11
+    while True:
+        damaged = bytearray(data)
+        damaged[rs.randint(start, len(data) - 2)] = rs.randint(0, 256)
+        if cv2.imdecode(np.frombuffer(bytes(damaged), np.uint8),
+                        cv2.IMREAD_COLOR) is None:
+            break
+    image = tmp_path / "damaged.gif"
+    image.write_bytes(bytes(damaged))
+    for main, extra in ((jax_cli.main, []), (cli.main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit, match="cannot read image"):
+            _run(main, ["predict", "--model-dir", workdir["model"], "--image",
+                        str(image)] + extra)
 
 
 @pytest.mark.parametrize("output", ["drawn.gif", "drawn.jp2", "drawn"])
@@ -520,7 +575,7 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     paths["cli_predict"] = smoke.phase_cli_predict(
         cli, image_io, visualize, synthetic, decode, kernels, tmp_path,
         "cpu")
-    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 5}
+    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 6}
     assert restored == (runner.KeypointEvaluator, runner.evaluate_batched,
                         predictor.Predictor.predict, cli._load_records)
 
@@ -529,7 +584,8 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     """chip_smoke.py's `image_codec` and `eval_jpeg` phases on the CPU,
     after `phase_eval` exported its model at a small size: the fixtures
     decode and resize to cv2's digests through the C library and the
-    plain versions, the photo encodes to cv2's digest, and the JPEG eval
+    plain versions, their corruption recipes read as cv2 read them (the
+    `corrupt` part), the photo encodes to cv2's digest, and the JPEG eval
     and the two predicts count their B1 launches (2, 1 and 1) as the
     card's wrapper would; `--output drawn.gif` exits."""
     from multiposenet_tpu_torch import kernels
@@ -570,6 +626,10 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 93
     assert codec["webp"]["fixtures_written"] == 93
     assert codec["tiff_hdr"]["fixtures"] == 30
+    corrupt = codec["corrupt"]
+    assert corrupt["recipes"] == 39 and corrupt["read"] > 0 \
+        and corrupt["refused"] > 0 and corrupt["plain"] > 0
+    assert corrupt["photo_corrupt_c_decode_ms"] > 0
     assert codec["webp"]["ratio_max"][1] <= 1.5
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
     assert codec["encode"]["c_encode_ms"] > 0

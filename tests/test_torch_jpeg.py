@@ -929,7 +929,9 @@ def test_corrupt_streams_agree_between_the_decoders():
     plain version either both raise a ValueError or both return the same
     pixels, or, where a change made a stream past baseline that only the
     C library reads (a frame byte turned progressive, say), the C library
-    returns cv2's pixels; neither crashes or raises anything else."""
+    returns cv2's pixels; neither crashes or raises anything else. Every
+    stream the C library decodes, it decodes to cv2.imdecode's pixels, and
+    where cv2 returns no image it raises."""
     rng = np.random.RandomState(0)
     bases = [_encode(_content(24, 40, "edges", 1), 80, sampling, *extra)
              for sampling, extra in (
@@ -949,9 +951,13 @@ def test_corrupt_streams_agree_between_the_decoders():
             except ValueError:
                 results.append(None)
         plain, c = results
+        want = cv2.imdecode(np.frombuffer(bytes(data), np.uint8),
+                            cv2.IMREAD_COLOR)
+        want = None if want is None else want[:, :, ::-1]
+        assert (c is None) == (want is None), trial
+        if c is not None:
+            np.testing.assert_array_equal(c, want, err_msg=str(trial))
         if plain is None and c is not None:
-            np.testing.assert_array_equal(c, _cv2(bytes(data)),
-                                          err_msg=str(trial))
             outcomes["c_only"] = outcomes.get("c_only", 0) + 1
             continue
         assert (plain is None) == (c is None), trial
