@@ -30,11 +30,13 @@ builds the host C libraries (`csrc/image_codec.c`, `csrc/webp.c`) and
 holds their JPEG, WebP, TIFF (JPEG, CCITT, CMYK, YCbCr, CIELab) and
 Radiance HDR decodes and letterbox resize, and the plain versions, to
 cv2's digests of the committed fixtures (tests/fixtures/images), the
-HDR writer, C and plain, to cv2's bytes, and the lossless WebP writer,
-C and plain, to a round trip within 1.5 times cv2's size on each fixture;
-after them, phase `eval_jpeg` runs `eval
---batched` on those JPEGs (two launches), `predict` on the 480x640 JPEG
-(one launch) and checks that `--output x.jpg` exits. Then training, which
+HDR and GIF writers, C and plain, to cv2's bytes, and the lossless WebP
+writer, C and plain, to a round trip within 1.5 times cv2's size on each
+fixture; after them, phase `eval_jpeg` runs `eval --batched` on those
+JPEGs (two launches), `predict` on the 480x640 JPEG with `--output` a
+PNG, `drawn.jpg` and `drawn.gif` (one launch each; each file the plain
+writer's bytes of the drawing) and checks that `--output drawn.jp2`
+exits before the model runs. Then training, which
 reaches no TPU kernel (the fused tail is off in training and the decodes
 are inference only): phase `train_parity` holds 3 steps of the tiny
 config in float32 on the card against the CPU and fits one batch in 20
@@ -1610,6 +1612,7 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
           "formats": image_format_checks(image_io, image_codec, rgb),
           "webp": webp_checks(image_io, digests, rgb),
           "tiff_hdr": tiff_hdr_checks(image_io, digests, data, rgb),
+          "gif": gif_checks(image_io, digests, rgb),
           "corrupt": corrupt_checks(image_io, image_codec, digests, data,
                                     rgb),
           "clock": "host perf_counter, median"})
@@ -1791,6 +1794,38 @@ def tiff_hdr_checks(image_io, digests: dict, photo_jpeg: bytes,
             "times": times}
 
 
+def gif_checks(image_io, digests: dict, photo: np.ndarray) -> dict:
+    """The GIF writer (`utils/gif.py`: cv2's 3-3-2 palette, Floyd-Steinberg
+    dithering, LZW and framing) on the host C library and its plain
+    version: every committed fixture's pixels, and the 480x640 photo's,
+    written as .gif by both in the bytes of cv2.imencode (their sha256 in
+    the digests). Times on the host clock: the C encode of the photo
+    (median) and the plain one (once)."""
+    for name, want in sorted(digests.items()):
+        got = image_io.read_image(FIXTURES / name)
+        for encode in (image_io.encode_image, image_io.encode_image_plain):
+            if hashlib.sha256(encode(got, ".gif")).hexdigest() \
+                    != want["imencode_gif_sha256"]:
+                raise AssertionError(f"image_codec: the .gif of {name} is "
+                                     "not cv2.imencode's")
+    want = digests[TIMING_FIXTURE]["imencode_gif_sha256"]
+    t0 = time.perf_counter()
+    plain = image_io.encode_image_plain(photo, ".gif")
+    plain_encode_s = time.perf_counter() - t0
+    if hashlib.sha256(plain).hexdigest() != want \
+            or image_io.encode_image(photo, ".gif") != plain:
+        raise AssertionError("image_codec: the .gif of the photo is not "
+                             "cv2.imencode's, C and plain")
+    return {"fixtures": len(digests),
+            "equal": "every fixture's and the photo's .gif C = plain = "
+                     "cv2.imencode's bytes",
+            "times": {"gif": {
+                "shape": list(photo.shape), "bytes": len(plain),
+                "c_encode_ms": median_ms(
+                    lambda: image_io.encode_image(photo, ".gif"), 10),
+                "plain_encode_s": plain_encode_s}}}
+
+
 def image_format_checks(image_io, image_codec, rgb: np.ndarray) -> dict:
     """The simple formats and WebP on the host C libraries, from bytes the
     port writes itself (the card's machine has no cv2): the C and plain
@@ -1901,10 +1936,12 @@ def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
     --image` the 480x640 JPEG `--output drawn.png` (1 B1 launch, people
     printed, the PNG read back equals the drawing of the printed people
     on the decoded JPEG), `--output drawn.jpg` (1 B1 launch, the file
-    equals the plain encoder's JPEG of that drawing) and `--output
-    drawn.gif`, which exits naming the suffix before the model runs. The
-    batched eval runs over every visible card: its B1 launches are the
-    batches times the cards. Returns B1's launches by command."""
+    equals the plain encoder's JPEG of that drawing), `--output
+    drawn.gif` (1 B1 launch, the file equals the plain GIF encoder's bytes
+    of that drawing and reads back as its dithered palette colours) and
+    `--output drawn.jp2`, which exits naming the suffix before the model
+    runs. The batched eval runs over every visible card: its B1 launches
+    are the batches times the cards. Returns B1's launches by command."""
     n_images = len(json.loads(
         (FIXTURES / "annotations.json").read_text())["images"])
     argv = ["eval", "--model-dir", str(directory), "--coco-json",
@@ -1971,18 +2008,41 @@ def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
         raise AssertionError("eval_jpeg: drawn.jpg is not the JPEG of the "
                              "drawing of the printed people")
     launches["cli_predict_jpeg_output"] = 1
-    kernels.reset_launches()
+
     gif_out = directory / "drawn.gif"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    text = cli_stdout(cli, ["predict", "--model-dir", str(directory),
+                            "--image", str(image_path), "--output",
+                            str(gif_out)])
+    if kernels.LAUNCHES != {decode.KERNEL: 1}:
+        raise AssertionError(f"eval_jpeg: predict --output drawn.gif "
+                             f"launches {kernels.LAUNCHES}")
+    gif_drawing = visualize.draw_predictions(image, [
+        argparse.Namespace(box=np.asarray(p["box"]), score=p["score"],
+                           keypoints=np.asarray(p["keypoints"]))
+        for p in json.loads(text)])
+    gif_bytes = gif_out.read_bytes()
+    if gif_bytes != image_io.encode_image_plain(gif_drawing, ".gif"):
+        raise AssertionError("eval_jpeg: drawn.gif is not the GIF of the "
+                             "drawing of the printed people")
+    if not np.array_equal(image_io.read_image(gif_out), image_io.gif.PALETTE[
+            image_io.gif.dither_plain(gif_drawing)]):
+        raise AssertionError("eval_jpeg: drawn.gif does not read back as "
+                             "the dithered drawing")
+    launches["cli_predict_gif_output"] = 1
+    kernels.reset_launches()
+    jp2_out = directory / "drawn.jp2"
     try:
         cli_stdout(cli, ["predict", "--model-dir", str(directory), "--image",
-                         str(image_path), "--output", str(gif_out)])
+                         str(image_path), "--output", str(jp2_out)])
     except SystemExit as exc:
         message = str(exc.code)
     else:
-        raise AssertionError("eval_jpeg: --output drawn.gif did not exit")
-    if ".gif" not in message or "JPEG" not in message or kernels.LAUNCHES \
-            or gif_out.exists():
-        raise AssertionError(f"eval_jpeg: --output drawn.gif: {message!r}, "
+        raise AssertionError("eval_jpeg: --output drawn.jp2 did not exit")
+    if ".jp2" not in message or "GIF" not in message or kernels.LAUNCHES \
+            or jp2_out.exists():
+        raise AssertionError(f"eval_jpeg: --output drawn.jp2: {message!r}, "
                              f"launches {kernels.LAUNCHES}")
     emit({"phase": "eval_jpeg", "card": card, "argv": argv,
           "images": n_images, "stats": stats, "launches": counted,
@@ -1991,7 +2051,7 @@ def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
           "predict_image": TIMING_FIXTURE, "persons": len(people),
           "predict_command_s": predict_s, "predict_launches":
               predict_counted, "output_jpg_bytes": jpg_out.stat().st_size,
-          "output_gif_exit": message})
+          "output_gif_bytes": len(gif_bytes), "output_jp2_exit": message})
     return launches
 
 

@@ -20,9 +20,9 @@ Usage:
 Images are read through `utils/image_io.py` (JPEG, PNG, WebP, BMP,
 Netpbm, Sun raster, TIFF, GIF, Radiance HDR and .npy, as cv2 reads them,
 without cv2); `predict --output` writes what `image_io.write_image` writes
-(PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF, WebP and Radiance
-HDR, the bytes cv2.imwrite writes but for PNG and WebP) and exits before
-the model runs on any other suffix.
+(PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF, WebP, Radiance HDR
+and GIF, the bytes cv2.imwrite writes but for PNG and WebP) and exits
+before the model runs on any other suffix.
 """
 
 from __future__ import annotations
@@ -181,7 +181,7 @@ def cmd_predict(args) -> None:
         shown = Path(args.output).suffix or "none"
         sys.exit(f"--output {args.output}: suffix {shown} is not written "
                  "here; PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF, "
-                 "WebP and Radiance HDR are")
+                 "WebP, Radiance HDR and GIF are")
     predictor = _load_predictor(args)
     try:
         rgb = read_image(args.image)
@@ -250,9 +250,12 @@ def main(argv=None) -> None:
     p = sub.add_parser("predict", help="predict one image")
     common(p)
     p.add_argument("--image", required=True,
-                   help="JPEG, PNG or .npy image")
-    p.add_argument("--output", help="write the visualization here (.png, "
-                   ".jpg, .jpeg or .jpe)")
+                   help="JPEG, PNG, WebP, BMP, Netpbm, Sun raster, TIFF, "
+                   "GIF, Radiance HDR or .npy image")
+    p.add_argument("--output", help="write the visualization here, as "
+                   "cv2.imwrite writes it (.png, .jpg, .bmp, .ppm, .pam, "
+                   ".pfm, .sr, .tif, .webp, .hdr, .gif and their other "
+                   "suffixes)")
     p.set_defaults(fn=cmd_predict)
 
     args = parser.parse_args(argv)

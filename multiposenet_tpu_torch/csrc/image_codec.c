@@ -3,7 +3,7 @@
  * cv2.fillPoly, the byte coders of the simple formats (TIFF LZW,
  * PackBits, JPEG strips and CCITT fax, GIF LZW, BMP RLE4/RLE8, Radiance
  * HDR pixels) and cv2.imencode's writers for .bmp, .ppm/.pam/.pfm, .sr,
- * .tif and .hdr, in plain C99 with no library.
+ * .tif, .hdr and .gif, in plain C99 with no library.
  *
  * decode_jpeg decodes as libjpeg-turbo 3 does under OpenCV 5's reader:
  * sequential (SOF0, SOF1) and progressive (SOF2) Huffman-coded frames,
@@ -80,8 +80,11 @@
  * decode_planes), fax_decode a CCITT strip as libtiff's tif_fax3.c does
  * (plain version utils/ccitt.py) and hdr_pixels a Radiance HDR file's
  * pixels as OpenCV's rgbe.cpp reads them (utils/hdr.py); encode_bmp,
- * encode_pxm, encode_sunras, encode_tiff and encode_hdr write whole files
- * (plain versions utils/bmp.py, pxm.py, sunras.py, tiff.py and hdr.py).
+ * encode_pxm, encode_sunras, encode_tiff, encode_hdr and encode_gif write
+ * whole files (plain versions utils/bmp.py, pxm.py, sunras.py, tiff.py,
+ * hdr.py and gif.py; encode_gif dithers onto cv2's 3-3-2 palette and
+ * codes GIF's LZW, whose codes go least significant bit first without
+ * TIFF's early change, so it shares nothing with lzw_encode_strip).
  *
  * Built by `kernels.py load_host` with `cc -O2 -std=c99 -shared -fPIC`;
  * called through ctypes.
@@ -4272,6 +4275,199 @@ int encode_hdr(const uint8_t *rgb, int height, int width, uint8_t *out,
         for (c = 0; c < 4; c++) rgbe_rle(line + c * width, width, out, &at);
     }
     free(line);
+    *size = at;
+    return 0;
+}
+
+/* ------------------------------------------------------------------ */
+/* GIF writing, as cv2.imencode(".gif") writes at its defaults.        */
+
+/* The bytes of a GIF of width x height pixels besides its LZW data:
+ * header and 3-3-2 palette (781), NETSCAPE2.0 (19), graphic control
+ * (8), image descriptor (10), minimum code size (1), block terminator
+ * and trailer (2). */
+#define GIF_FIXED 821L
+
+/* The largest file encode_gif can write for n pixels: a 12-bit code a
+ * pixel at most, a clear every 3838 codes, the first clear and the end
+ * code, and a length byte for each 255 bytes of them. */
+static long gif_bound(long n)
+{
+    long data = (12 * (n + n / 3838 + 2) + 7) / 8;
+    return GIF_FIXED + data + (data + 254) / 255;
+}
+
+/* The LZW data in sub-blocks of up to 255 bytes: codes least significant
+ * bit first, each block's length byte written when it fills or ends. */
+typedef struct {
+    uint8_t *out;
+    long at, block;
+    uint32_t acc;
+    int bits;
+} GifBits;
+
+static void gif_byte(GifBits *g, uint8_t b)
+{
+    if (g->at - g->block == 256) {
+        g->out[g->block] = 255;
+        g->block = g->at++;
+    }
+    g->out[g->at++] = b;
+}
+
+static void gif_put(GifBits *g, int code, int width)
+{
+    g->acc |= (uint32_t)code << g->bits;
+    g->bits += width;
+    while (g->bits >= 8) {
+        gif_byte(g, (uint8_t)g->acc);
+        g->acc >>= 8;
+        g->bits -= 8;
+    }
+}
+
+/* Floyd-Steinberg onto the 3-3-2 palette, as cv2 dithers: each channel
+ * on its own, rows from the top, each left to right. A pixel's value v
+ * is its byte plus the error it has gathered, both in float32; its level
+ * is (int)(clamp(v, 0, 255) / step + 0.5) (steps 36, 36, 85: halves
+ * round up, and the clamp keeps the level within the palette), and
+ * v - level * step, from the unclamped v, goes 7/16 to the right and
+ * 3/16, 5/16 and 1/16 to the row below, added into float32 error rows
+ * that start at 0. Returns 2 if out of memory. */
+static int gif_dither(const uint8_t *rgb, int height, int width,
+                      uint8_t *idx)
+{
+    static const float steps[3] = {36.0f, 36.0f, 85.0f};
+    static const int shifts[3] = {5, 2, 0};
+    size_t row = (size_t)(width + 2) * 3;
+    float *err = calloc(2 * row, sizeof(float));
+    if (!err) return 2;
+    for (int y = 0; y < height; y++) {
+        /* err + 3 and below + 3 hold column 0; one column of slack
+         * on each side takes the error that falls off the image. */
+        float *cur = err + (y & 1) * row + 3, *below = err
+            + ((y + 1) & 1) * row + 3;
+        memset(below - 3, 0, row * sizeof(float));
+        for (int x = 0; x < width; x++) {
+            const uint8_t *px = rgb + 3 * ((size_t)y * width + x);
+            int code = 0;
+            for (int c = 0; c < 3; c++) {
+                float v = (float)px[c] + cur[3 * x + c];
+                float cl = v < 0.0f ? 0.0f : v > 255.0f ? 255.0f : v;
+                int q = (int)(cl / steps[c] + 0.5f);
+                float e = v - (float)q * steps[c];
+                code |= q << shifts[c];
+                if (x + 1 < width)
+                    cur[3 * (x + 1) + c] += e * 7.0f / 16.0f;
+                if (y + 1 < height) {
+                    if (x > 0)
+                        below[3 * (x - 1) + c] += e * 3.0f / 16.0f;
+                    below[3 * x + c] += e * 5.0f / 16.0f;
+                    if (x + 1 < width)
+                        below[3 * (x + 1) + c] += e * 1.0f / 16.0f;
+                }
+            }
+            idx[(size_t)y * width + x] = (uint8_t)code;
+        }
+    }
+    free(err);
+    return 0;
+}
+
+/* What cv2.imencode(".gif") writes for rgb[height][width][3] (sides 1 to
+ * 65535) at its defaults, into out[0:cap]; *size its length. GIF89a with
+ * a global 3-3-2 palette (entry i: R (i >> 5) * 36, G ((i >> 2) & 7) *
+ * 36, B (i & 3) * 85; flags 0xF7), NETSCAPE2.0 looping forever, a
+ * graphic control extension of disposal 3 and delay 100 without
+ * transparency, one frame at (0, 0) of the dithered indices (gif_dither)
+ * coded by LZW with minimum code size 8. The codes start with a clear;
+ * a code's width grows once the decoder's table (one entry behind the
+ * encoder's, which adds an entry with every code it sends) reaches
+ * 1 << width entries, up to 12 bits; when the encoder's next free code
+ * reaches 4096 it sends a clear at 12 bits and starts again from 9. The
+ * end-of-information code follows the last string's code at the width
+ * the decoder then reads. 0, 1 if cap is too small (*size then the
+ * bytes needed at most), 2 if out of memory. */
+int encode_gif(const uint8_t *rgb, int height, int width, uint8_t *out,
+               long cap, long *size)
+{
+    static const uint8_t extensions[] = {
+        0x21, 0xFF, 0x0B, 'N', 'E', 'T', 'S', 'C', 'A', 'P', 'E', '2', '.',
+        '0', 0x03, 0x01, 0x00, 0x00, 0x00,
+        0x21, 0xF9, 0x04, 0x0C, 0x64, 0x00, 0x00, 0x00};
+    long n = (long)height * width, at = 0, need = gif_bound(n);
+    if (cap < need) {
+        *size = need;
+        return 1;
+    }
+    uint8_t *idx = malloc((size_t)n);
+    uint16_t *next = malloc(sizeof(uint16_t) * 4096 * 256);
+    uint32_t *stamp = calloc(4096 * 256, sizeof(uint32_t));
+    if (!idx || !next || !stamp || gif_dither(rgb, height, width, idx)) {
+        free(idx);
+        free(next);
+        free(stamp);
+        return 2;
+    }
+    memcpy(out, "GIF89a", 6);
+    at = 6;
+    out[at++] = (uint8_t)width;
+    out[at++] = (uint8_t)(width >> 8);
+    out[at++] = (uint8_t)height;
+    out[at++] = (uint8_t)(height >> 8);
+    out[at++] = 0xF7;
+    out[at++] = 0;
+    out[at++] = 0;
+    for (int i = 0; i < 256; i++) {
+        out[at++] = (uint8_t)((i >> 5) * 36);
+        out[at++] = (uint8_t)(((i >> 2) & 7) * 36);
+        out[at++] = (uint8_t)((i & 3) * 85);
+    }
+    memcpy(out + at, extensions, sizeof extensions);
+    at += sizeof extensions;
+    uint8_t descriptor[11] = {0x2C, 0, 0, 0, 0, (uint8_t)width,
+                              (uint8_t)(width >> 8), (uint8_t)height,
+                              (uint8_t)(height >> 8), 0x07, 8};
+    memcpy(out + at, descriptor, sizeof descriptor);
+    at += sizeof descriptor;
+
+    /* (prefix code, byte) -> code, live where stamp equals gen. */
+    GifBits g = {out, at + 1, at, 0, 0};
+    uint32_t gen = 1;
+    int width_bits = 9, free_code = 258, ent = idx[0];
+    gif_put(&g, 256, width_bits);
+    for (long i = 1; i < n; i++) {
+        long key = ((long)ent << 8) | idx[i];
+        if (stamp[key] == gen) {
+            ent = next[key];
+            continue;
+        }
+        gif_put(&g, ent, width_bits);
+        stamp[key] = gen;
+        next[key] = (uint16_t)free_code++;
+        if (free_code > 1 << width_bits && width_bits < 12)
+            width_bits++;
+        if (free_code == 4096) {
+            gif_put(&g, 256, width_bits);
+            gen++;
+            free_code = 258;
+            width_bits = 9;
+        }
+        ent = idx[i];
+    }
+    gif_put(&g, ent, width_bits);
+    if (free_code + 1 > 1 << width_bits && width_bits < 12)
+        width_bits++;
+    gif_put(&g, 257, width_bits);
+    if (g.bits)
+        gif_byte(&g, (uint8_t)g.acc);
+    out[g.block] = (uint8_t)(g.at - g.block - 1); /* 1 to 255 */
+    at = g.at;
+    out[at++] = 0;
+    out[at++] = 0x3B;
+    free(idx);
+    free(next);
+    free(stamp);
     *size = at;
     return 0;
 }

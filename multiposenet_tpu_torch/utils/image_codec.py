@@ -9,10 +9,10 @@ INTER_AREA on float32 (`utils/image_io.resize_linear_plain` and
 `jpeg.decode_planes`; CCITT fax: `utils/ccitt.py`; GIF LZW:
 `utils/gif.py`; BMP RLE4 and RLE8: `utils/bmp.py`; Radiance HDR pixels:
 `utils/hdr.py`) and cv2.imencode's writers for .bmp, .ppm/.pam/.pfm, .sr,
-.tif and .hdr/.pic (plain versions `bmp.encode`, `pxm.encode`,
-`sunras.encode`, `tiff.encode`, `hdr.encode_plain`). The library is built by
-`kernels.load_host` on first use; a build that fails raises, and nothing
-falls back to the plain versions.
+.tif, .hdr/.pic and .gif (plain versions `bmp.encode`, `pxm.encode`,
+`sunras.encode`, `tiff.encode`, `hdr.encode_plain`, `gif.encode_plain`).
+The library is built by `kernels.load_host` on first use; a build that
+fails raises, and nothing falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -71,7 +71,8 @@ def library() -> ctypes.CDLL:
     lib.bmp_rle.restype = ctypes.c_int
     sized = [_u8p, ctypes.c_int, ctypes.c_int, _u8p, ctypes.c_long,
              ctypes.POINTER(ctypes.c_long)]
-    for name in ("encode_bmp", "encode_sunras", "encode_tiff", "encode_hdr"):
+    for name in ("encode_bmp", "encode_sunras", "encode_tiff", "encode_hdr",
+                 "encode_gif"):
         getattr(lib, name).argtypes = sized
         getattr(lib, name).restype = ctypes.c_int
     lib.encode_pxm.argtypes = [ctypes.c_int] + sized
@@ -335,7 +336,8 @@ _PXM_KINDS = {"ppm": 0, "pam": 1, "pfm": 2}
 
 def encode_image(rgb: np.ndarray, kind: str) -> bytes:
     """uint8 RGB [H, W, 3] → what `cv2.imencode` writes for `kind`: one of
-    "bmp", "ppm", "pam", "pfm", "sunras", "tiff", "hdr"."""
+    "bmp", "ppm", "pam", "pfm", "sunras", "tiff", "hdr", "gif" (sides of
+    at most 65535 pixels for "gif", as `utils/gif.py encode` checks)."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[-1] != 3:
         raise ValueError(f"encode_image takes uint8 RGB [H, W, 3]; got "
@@ -348,7 +350,9 @@ def encode_image(rgb: np.ndarray, kind: str) -> bytes:
     else:
         fn = getattr(lib, "encode_" + kind)
     size = ctypes.c_long()
-    cap = 1024 + h * w * 13 + h * 16
+    # A GIF's size is the C's own bound (12 bits a pixel at most, less
+    # than a tenth of this), which a first call with no room returns.
+    cap = 0 if kind == "gif" else 1024 + h * w * 13 + h * 16
     while True:
         out = np.empty(cap, np.uint8)
         rc = fn(src.ctypes.data_as(_u8p), h, w, out.ctypes.data_as(_u8p),

@@ -48,9 +48,10 @@ one that names the suffix.
 `cv2.imencode(".jpg")` writes at its defaults (host C; plain version
 `jpeg.encode_pixels`); `encode_png` and `write_png` write uint8 gray or
 RGB as an 8-bit PNG; `encode_image` writes the bytes `cv2.imencode`
-writes for .bmp/.dib, .ppm/.pnm, .pam, .pfm, .sr/.ras, .tif/.tiff and
-.hdr/.pic, and for .webp a lossless file of cv2's pixels (host C;
-`encode_image_plain` runs the modules' plain writers);
+writes for .bmp/.dib, .ppm/.pnm, .pam, .pfm, .sr/.ras, .tif/.tiff,
+.hdr/.pic and .gif (`utils/gif.py`: cv2's fixed 3-3-2 palette with its
+Floyd-Steinberg dithering), and for .webp a lossless file of cv2's
+pixels (host C; `encode_image_plain` runs the modules' plain writers);
 `decode_gray_png` reads a gray PNG as `cv2.imdecode(buf,
 cv2.IMREAD_GRAYSCALE)` does. `resize_linear` is cv2's INTER_LINEAR and
 `resize_area` its INTER_AREA, bit for bit through the C library where
@@ -90,10 +91,12 @@ WRITTEN_SUFFIXES = {".bmp": "bmp", ".dib": "bmp", ".ppm": "ppm",
                     ".pnm": "ppm", ".pam": "pam", ".pfm": "pfm",
                     ".sr": "sunras", ".ras": "sunras", ".tif": "tiff",
                     ".tiff": "tiff", ".webp": "webp", ".hdr": "hdr",
-                    ".pic": "hdr"}
+                    ".pic": "hdr", ".gif": "gif"}
 # Suffixes for which cv2.imwrite of 3-channel pixels returns False and
 # writes no file.
 UNWRITTEN_SUFFIXES = (".pgm", ".pbm")
+# Written suffixes whose side cv2 limits (past it: no file, False).
+_MAX_SIDES = {".webp": webp.MAX_SIDE, ".gif": gif.MAX_SIDE}
 # PNG colour type → (samples a pixel, allowed bit depths).
 _PNG_KINDS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
               3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
@@ -487,12 +490,15 @@ def write_jpeg(path: str | Path, rgb: np.ndarray) -> None:
 def encode_image(rgb: np.ndarray, suffix: str) -> bytes:
     """uint8 RGB [H, W, 3] → the bytes `cv2.imencode(suffix, bgr)` writes
     for a suffix of `WRITTEN_SUFFIXES` (host C; .hdr and .pic through
-    `utils/hdr.py`'s coders), but for the pad byte after a Sun raster's
-    last row (see `utils/sunras.py`); for .webp a lossless file that cv2
-    reads back to the same pixels (`utils/webp.py`)."""
+    `utils/hdr.py`'s coders, .gif through `utils/gif.py`'s), but for the
+    pad byte after a Sun raster's last row (see `utils/sunras.py`); for
+    .webp a lossless file that cv2 reads back to the same pixels
+    (`utils/webp.py`)."""
     kind = WRITTEN_SUFFIXES[suffix.lower()]
     if kind == "webp":
         return webp.encode(rgb)
+    if kind == "gif":
+        return gif.encode(rgb)
     return image_codec.encode_image(rgb, kind)
 
 
@@ -506,6 +512,8 @@ def encode_image_plain(rgb: np.ndarray, suffix: str) -> bytes:
         return pxm.encode(rgb, kind)
     if kind == "hdr":
         return hdr.encode_plain(rgb)
+    if kind == "gif":
+        return gif.encode_plain(rgb)
     return {"bmp": bmp, "sunras": sunras, "tiff": tiff}[kind].encode(rgb)
 
 
@@ -515,7 +523,8 @@ def write_image(path: str | Path, rgb: np.ndarray) -> bool:
     differ, its pixels do not), the JPEG suffixes and `WRITTEN_SUFFIXES`;
     for .pgm and .pbm it writes nothing and returns False, as cv2.imwrite
     does for 3-channel pixels, and so for a .webp wider or taller than
-    16383 pixels. Any other suffix raises a ValueError naming it."""
+    16383 pixels and a .gif wider or taller than 65535. Any other suffix
+    raises a ValueError naming it."""
     suffix = Path(path).suffix.lower()
     if suffix in UNWRITTEN_SUFFIXES:
         return False
@@ -523,7 +532,7 @@ def write_image(path: str | Path, rgb: np.ndarray) -> bool:
         write_png(path, rgb)
     elif suffix in (".jpg", ".jpeg", ".jpe"):
         write_jpeg(path, rgb)
-    elif suffix == ".webp" and max(np.shape(rgb)[:2]) > webp.MAX_SIDE:
+    elif max(np.shape(rgb)[:2]) > _MAX_SIDES.get(suffix, np.inf):
         return False  # cv2.imwrite's encoder fails: no file, False
     elif suffix in WRITTEN_SUFFIXES:
         Path(path).write_bytes(encode_image(rgb, suffix))

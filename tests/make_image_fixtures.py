@@ -65,8 +65,9 @@ installed cv2's decode.
 - `digests.json`: for each file, the shape and sha256 of cv2's RGB decode
   (`cv2.imread(path, IMREAD_COLOR)[..., ::-1]`) and of cv2's INTER_LINEAR
   letterbox of it to 512 (the eval runner's resize: scale 512 / max(h, w),
-  rounded sizes), and the size of the lossless file
-  `cv2.imencode(".webp")` writes for its pixels; for the timing photo
+  rounded sizes), the size of the lossless file `cv2.imencode(".webp")`
+  writes for its pixels and the sha256 of the bytes `cv2.imencode(".gif")`
+  writes for them (its 3-3-2 palette, dithered); for the timing photo
   also the sha256 of the bytes `cv2.imencode(".jpg")` writes for them;
   for the TIFF and HDR files and the photo the sha256 of the bytes
   `cv2.imencode(".hdr")` writes for their pixels, and for the photo the
@@ -1026,13 +1027,16 @@ def main() -> None:
         (OUT / name).write_bytes(data)
     digests = {name: digest(OUT / name) for name in sorted(files)}
     # What cv2.imencode(".jpg") writes for the timing photo's pixels, and
-    # for every file the size of cv2's lossless .webp of its pixels.
+    # for every file the size of cv2's lossless .webp of its pixels and
+    # the sha256 of its .gif.
     photo = cv2.imread(str(OUT / "photo_480x640_q95_420.jpg"))
     digests["photo_480x640_q95_420.jpg"]["imencode_sha256"] = hashlib.sha256(
         cv2.imencode(".jpg", photo)[1].tobytes()).hexdigest()
     for name in digests:
         digests[name]["imencode_webp_bytes"] = len(cv2.imencode(
             ".webp", cv2.imread(str(OUT / name)))[1])
+        digests[name]["imencode_gif_sha256"] = hashlib.sha256(cv2.imencode(
+            ".gif", cv2.imread(str(OUT / name)))[1].tobytes()).hexdigest()
         if name.startswith(("tiff_", "hdr_", "photo_")):
             digests[name]["imencode_hdr_sha256"] = hashlib.sha256(
                 cv2.imencode(".hdr", cv2.imread(str(OUT / name)))[1]
@@ -1049,7 +1053,7 @@ def main() -> None:
                                   cv2.IMREAD_COLOR)[..., ::-1])
         for kind, data in sorted(timed.items())}
     corruption_recipes(digests)
-    (OUT / "digests.json").write_text(json.dumps(digests, indent=1) + "\n")
+    write_digests(digests)
     (OUT / "annotations.json").write_text(
         json.dumps(coco_annotations(records, names)) + "\n")
     (OUT / "annotations_segs.json").write_text(json.dumps(
@@ -1172,12 +1176,19 @@ def corruption_recipes(digests: dict) -> None:
                                             len(data) - 2)], 0, 2, 1, 0)
 
 
+def write_digests(digests: dict) -> None:
+    """digests.json, a line for each file (compact: the fixture directory
+    has a budget, held in tests/test_torch_jpeg.py)."""
+    lines = [f"{json.dumps(name)}:{json.dumps(entry, separators=(',', ':'))}"
+             for name, entry in sorted(digests.items())]
+    (OUT / "digests.json").write_text("{\n" + ",\n".join(lines) + "\n}\n")
+
+
 def write_corruption_recipes() -> None:
     """Only the recipes, into the committed digests."""
-    path = OUT / "digests.json"
-    digests = json.loads(path.read_text())
+    digests = json.loads((OUT / "digests.json").read_text())
     corruption_recipes(digests)
-    path.write_text(json.dumps(digests, indent=1) + "\n")
+    write_digests(digests)
 
 
 if __name__ == "__main__":

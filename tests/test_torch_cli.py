@@ -278,14 +278,15 @@ def test_predict_on_a_gif_cv2_refuses_exits_in_both_clis(workdir, tmp_path):
                         str(image)] + extra)
 
 
-@pytest.mark.parametrize("output", ["drawn.gif", "drawn.jp2", "drawn"])
+@pytest.mark.parametrize("output", ["drawn.jp2", "drawn"])
 def test_predict_output_other_than_png_exits(workdir, tmp_path, monkeypatch,
                                              output):
     """The reference writes by suffix through cv2.imwrite; the port
-    writes PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF, WebP and
-    Radiance HDR (and, as cv2, no file for .pgm and .pbm), so on any
-    other suffix (GIF and JPEG 2000 writing are C9b) it exits naming the
-    suffix before the model is loaded, and writes nothing."""
+    writes PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF, WebP,
+    Radiance HDR and GIF (and, as cv2, no file for .pgm and .pbm), so on
+    any other suffix (only JPEG 2000 and AVIF writing remain C9b) it
+    exits naming the suffix before the model is loaded, and writes
+    nothing."""
     from multiposenet_tpu_torch.infer import export as port_export
 
     def no_model(*args, **kwargs):
@@ -335,6 +336,40 @@ def test_predict_output_jpeg_matches_jax_cli_bytes(workdir, tmp_path,
                     workdir["image_jpeg"], "--output", str(files[name])]
              + extra)
     assert files["port"].read_bytes() == files["jax"].read_bytes()
+
+
+def test_predict_output_gif_matches_jax_cli_bytes(workdir, tmp_path,
+                                                  monkeypatch):
+    """`--output drawn.gif`: the port writes the bytes cv2.imwrite writes
+    for its drawing of the printed people, and, with each drawing replaced
+    by the input image (as the JPEG test does), the same file as the JAX
+    CLI, byte for byte, which both readers read back alike."""
+    from multiposenet_tpu.utils import visualize as jax_visualize
+
+    path = tmp_path / "drawn.gif"
+    text = _run(cli.main, ["predict", "--model-dir", workdir["model"],
+                           "--image", workdir["image_jpeg"], "--output",
+                           str(path), "--device", "cpu"])
+    people = [_person(p) for p in json.loads(text)]
+    assert people
+    drawn = visualize.draw_predictions(
+        image_io.read_image(workdir["image_jpeg"]), people)
+    ok, want = cv2.imencode(".gif", np.ascontiguousarray(drawn[:, :, ::-1]))
+    assert ok and path.read_bytes() == want.tobytes()
+    for module in (jax_visualize, visualize):
+        monkeypatch.setattr(module, "draw_predictions",
+                            lambda rgb, people: rgb.copy())
+    files = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        files[name] = tmp_path / f"{name}.gif"
+        _run(main, ["predict", "--model-dir", workdir["model"], "--image",
+                    workdir["image_jpeg"], "--output", str(files[name])]
+             + extra)
+    assert files["port"].read_bytes() == files["jax"].read_bytes()
+    np.testing.assert_array_equal(
+        image_io.read_image(files["port"]),
+        cv2.imread(str(files["jax"]), cv2.IMREAD_COLOR)[:, :, ::-1])
 
 
 def test_predict_webp_in_and_out_matches_jax_cli_pixels(workdir, tmp_path,
@@ -585,9 +620,10 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     after `phase_eval` exported its model at a small size: the fixtures
     decode and resize to cv2's digests through the C library and the
     plain versions, their corruption recipes read as cv2 read them (the
-    `corrupt` part), the photo encodes to cv2's digest, and the JPEG eval
-    and the two predicts count their B1 launches (2, 1 and 1) as the
-    card's wrapper would; `--output drawn.gif` exits."""
+    `corrupt` part), the photo encodes to cv2's digest (JPEG, and GIF with
+    every fixture), and the JPEG eval and the three predicts count their
+    B1 launches (2, 1, 1 and 1) as the card's wrapper would, the third
+    writing `drawn.gif`; `--output drawn.jp2` exits."""
     from multiposenet_tpu_torch import kernels
     from multiposenet_tpu_torch.config import Config
     from multiposenet_tpu_torch.eval import runner
@@ -621,11 +657,14 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     paths = smoke.phase_eval_jpeg(cli, image_io, visualize, jpeg, decode,
                                   kernels, tmp_path, "cpu")
     assert paths == {"eval_jpeg_batched": 2, "cli_predict_jpeg": 1,
-                     "cli_predict_jpeg_output": 1}
+                     "cli_predict_jpeg_output": 1,
+                     "cli_predict_gif_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
     assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 93
     assert codec["webp"]["fixtures_written"] == 93
     assert codec["tiff_hdr"]["fixtures"] == 30
+    assert codec["gif"]["fixtures"] == 93
+    assert codec["gif"]["times"]["gif"]["c_encode_ms"] > 0
     corrupt = codec["corrupt"]
     assert corrupt["recipes"] == 39 and corrupt["read"] > 0 \
         and corrupt["refused"] > 0 and corrupt["plain"] > 0
@@ -634,5 +673,6 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
     assert codec["encode"]["c_encode_ms"] > 0
     assert jpeg_row["phase"] == "eval_jpeg" and jpeg_row["images"] == 10
-    assert ".gif" in jpeg_row["output_gif_exit"]
+    assert ".jp2" in jpeg_row["output_jp2_exit"]
+    assert jpeg_row["output_gif_bytes"] > 0
     assert jpeg_row["output_jpg_bytes"] > 0
