@@ -24,15 +24,19 @@ resize, batches of 128, two B1 launches) and through `predict` (32
 images, 32 launches), with images per second and the batched loop's
 split (phases `eval_batched`, `eval_predict`), then `predict --output`
 on a 480x640 PNG, read back (phase `cli_predict`, one launch),
-`--image scene.webp --output drawn.webp` and `--image scene_jpeg.tif
---output drawn.hdr` (one launch each). Before them, phase `image_codec`
+`--image scene.webp --output drawn.webp`, `--image scene_jpeg.tif
+--output drawn.hdr`, a damaged JPEG and the photo with stray bytes before
+an Exif APP1 of orientation 6 (read turned; one launch each). Before
+them, phase `image_codec`
 builds the host C libraries (`csrc/image_codec.c`, `csrc/webp.c`) and
 holds their JPEG, WebP, TIFF (JPEG, CCITT, CMYK, YCbCr, CIELab) and
 Radiance HDR decodes and letterbox resize, and the plain versions, to
 cv2's digests of the committed fixtures (tests/fixtures/images), the
-HDR and GIF writers, C and plain, to cv2's bytes, and the lossless WebP
+HDR and GIF writers, C and plain, to cv2's bytes, the lossless WebP
 writer, C and plain, to a round trip within 1.5 times cv2's size on each
-fixture; after them, phase `eval_jpeg` runs `eval --batched` on those
+fixture, and recorded corruptions (changed scan bytes, stray bytes before
+each JPEG header segment, every sampling factor of the block-smoothed
+files) to cv2's digests of them; after them, phase `eval_jpeg` runs `eval --batched` on those
 JPEGs (two launches), `predict` on the 480x640 JPEG with `--output` a
 PNG, `drawn.jpg` and `drawn.gif` (one launch each; each file the plain
 writer's bytes of the drawing) and checks that `--output drawn.jp2`
@@ -1341,7 +1345,10 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     in the plain HDR writer's bytes; then `--image damaged.jpg`, the
     480x640 photo fixture with two bytes of its scan changed (its recipe
     in the digests), one B1 launch, people printed, the image read as
-    cv2 reads it (the recipe's digest). Returns B1's launches."""
+    cv2 reads it (the recipe's digest); then `--image turned.jpg`, the
+    photo with stray bytes and an Exif APP1 of orientation 6 put before
+    its DQT (`exif_stray` in the digests), read turned to 640x480 as cv2
+    reads it, one B1 launch, people printed. Returns B1's launches."""
     scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
     image_path, out_path = directory / "scene.png", directory / "drawn.png"
     image_io.write_png(image_path, scene["image"])
@@ -1466,12 +1473,40 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     if not all(np.isfinite(p["box"]).all() and
                np.isfinite(p["keypoints"]).all() for p in damaged_people):
         raise AssertionError("cli_predict: bad people on damaged.jpg")
+    # The photo with stray bytes and an Exif APP1 of orientation 6 before
+    # its DQT (its recipe in the digests): read turned to 640x480 as cv2
+    # reads it, image_size says so, one B1 launch, people printed.
+    recipe = json.loads((FIXTURES / "digests.json").read_text())[
+        TIMING_FIXTURE]["exif_stray"]
+    turned = directory / "turned.jpg"
+    turned.write_bytes(samples.corrupted(
+        (FIXTURES / TIMING_FIXTURE).read_bytes(), recipe["at"]))
+    turned_rgb = image_io.read_image(turned)
+    if turned_rgb.shape != (640, 480, 3) or \
+            sha256(turned_rgb) != recipe["rgb_sha256"] or \
+            image_io.image_size(turned) != (640, 480):
+        raise AssertionError("cli_predict: turned.jpg does not read turned "
+                             "as cv2 reads it")
+    kernels.reset_launches()
+    turned_people = json.loads(cli_stdout(
+        cli, ["predict", "--model-dir", str(directory), "--image",
+              str(turned)]))
+    if kernels.LAUNCHES != {decode.KERNEL: 1}:
+        raise AssertionError(f"cli_predict: --image turned.jpg launches "
+                             f"{kernels.LAUNCHES}")
+    counted[decode.KERNEL] += 1
+    if not turned_people or not all(
+            np.isfinite(p["box"]).all() and np.isfinite(p["keypoints"]).all()
+            for p in turned_people):
+        raise AssertionError("cli_predict: bad people on turned.jpg")
     emit({"phase": "cli_predict", "card": card, "image": [480, 640],
           "persons": len(people), "keypoint_centres_drawn": len(centres),
           "changed_pixels": int((drawn != image).any(-1).sum()),
           "command_s": command_s, "launches": counted,
           "also_written": written,
-          "damaged_jpeg_persons": len(damaged_people)})
+          "damaged_jpeg_persons": len(damaged_people),
+          "turned_jpeg": {"size": list(turned_rgb.shape[:2]),
+                          "persons": len(turned_people)}})
     return counted[decode.KERNEL]
 
 
@@ -1628,9 +1663,11 @@ def corrupt_checks(image_io, image_codec, digests: dict, photo: bytes,
     (cv2.imread of a file) and the plain decoders where they read the
     mode (all but the c3_ JPEGs): each equal to the sha256 of cv2's
     decode recorded by tests/make_image_fixtures.py, or each raising a
-    ValueError where cv2 returned no image. Times on the host clock
-    (median): the C decode of the 480x640 photo, clean and with its
-    recipe's two changed scan bytes."""
+    ValueError where cv2 returned no image; the stray-byte and sampling
+    recipe sets (`recipe_set_checks`) and the photo's `exif_stray`
+    recipe (`exif_stray_check`). Times on the host clock (median): the C
+    decode of the 480x640 photo, clean and with its recipe's two changed
+    scan bytes."""
     from multiposenet_tpu_torch import kernels
     from multiposenet_tpu_torch.tools import image_samples as samples
 
@@ -1664,9 +1701,12 @@ def corrupt_checks(image_io, image_codec, digests: dict, photo: bytes,
                         f"{recipe['at']} reads to {got}, not cv2's "
                         f"{recipe['rgb_sha256']}")
             counts["read" if recipe["rgb_sha256"] else "refused"] += 1
+        sets = recipe_set_checks(image_io, samples, digests, files, path)
+        turned = exif_stray_check(image_io, samples, digests, photo, path)
     damaged = samples.corrupted(photo,
                                 digests[TIMING_FIXTURE]["corrupt"][0]["at"])
-    return {"recipes": len(cases), **counts,
+    return {"recipes": len(cases), **counts, "sets": sets,
+            "exif_stray": turned,
             "equal": "decode_image = read_image = plain (where it reads "
                      "the mode) = cv2's digest, or all refuse where cv2 "
                      "returns no image",
@@ -1674,6 +1714,79 @@ def corrupt_checks(image_io, image_codec, digests: dict, photo: bytes,
                 lambda: image_codec.decode_jpeg(photo), 50),
             "photo_corrupt_c_decode_ms": median_ms(
                 lambda: image_codec.decode_jpeg(damaged), 50)}
+
+
+def recipe_set_checks(image_io, samples, digests: dict, files: dict,
+                      path: Path) -> dict:
+    """The recipe sets of the digests, each replayed whole: bytes that are
+    no marker segment before each header segment of the two Exif fixtures
+    (`stray_sha256`), and every sampling factor of each component of the
+    block-smoothed progressive fixtures (`sampling_sha256`). Each case is
+    read by `decode_image`, `read_image` (written to `path`) and, on the
+    baseline files, `decode_image_plain`, all to one outcome, which
+    `image_size` of the file agrees with; the set's outcomes hash to the
+    digest of cv2's decodes. Returns each set's cases, reads and host
+    seconds."""
+    out = {}
+    for key, recipes in (("stray_sha256", samples.stray_recipes),
+                         ("sampling_sha256", samples.sampling_recipes)):
+        for name in sorted(n for n in digests if key in digests[n]):
+            t0 = time.perf_counter()
+            outcomes = []
+            for recipe in recipes(files[name]):
+                data = samples.corrupted(files[name], recipe)
+                path.write_bytes(data)
+                readers = [image_io.decode_image,
+                           lambda d: image_io.read_image(path)]
+                if not name.startswith("c3_"):
+                    readers.append(image_io.decode_image_plain)
+                got = set()
+                for read in readers:
+                    try:
+                        got.add(samples.outcome(read(data)))
+                    except ValueError:
+                        got.add("none")
+                try:
+                    size = "x".join(map(str, image_io.image_size(path)))
+                except ValueError:
+                    size = "none"
+                if len(got) != 1 or not next(iter(got)).startswith(
+                        size if size == "none" else size + "x"):
+                    raise AssertionError(
+                        f"image_codec.corrupt: {name} {recipe}: readers "
+                        f"{sorted(got)}, image_size {size}")
+                outcomes.append(got.pop())
+            if samples.outcomes_sha256(outcomes) != digests[name][key]:
+                raise AssertionError(f"image_codec.corrupt: {name}'s "
+                                     f"{key} set is not cv2's")
+            out[name] = {"cases": len(outcomes),
+                         "read": sum(o != "none" for o in outcomes),
+                         "host_s": time.perf_counter() - t0}
+    return out
+
+
+def exif_stray_check(image_io, samples, digests: dict, photo: bytes,
+                     path: Path) -> dict:
+    """The photo's `exif_stray` recipe (stray bytes and an Exif APP1 of
+    orientation 6 before its DQT): C, `read_image` and plain equal to
+    cv2's digest, 640x480, and `image_size` of the file says so; the C
+    decode's host time (median)."""
+    recipe = digests[TIMING_FIXTURE]["exif_stray"]
+    data = samples.corrupted(photo, recipe["at"])
+    path.write_bytes(data)
+    for read in (image_io.decode_image, lambda d: image_io.read_image(path),
+                 image_io.decode_image_plain):
+        rgb = read(data)
+        if rgb.shape != (640, 480, 3) or sha256(rgb) != recipe["rgb_sha256"]:
+            raise AssertionError("image_codec.corrupt: the photo's "
+                                 "exif_stray recipe is not read turned as "
+                                 "cv2 reads it")
+    if image_io.image_size(path) != (640, 480):
+        raise AssertionError("image_codec.corrupt: image_size of the "
+                             "photo's exif_stray recipe")
+    return {"shape": [640, 480, 3],
+            "c_decode_ms": median_ms(lambda: image_io.decode_image(data),
+                                     20)}
 
 
 def webp_checks(image_io, digests: dict, photo: np.ndarray) -> dict:

@@ -138,6 +138,12 @@ typedef struct {
     uint8_t *plane;        /* blocks_h * 8 rows of blocks_w * 8 samples */
 } Comp;
 
+/* The codes of one MCU that lj_mcu replays: at most 10 blocks (the
+ * header check) of at most 128 each in a sequential scan (a DC length and
+ * its bits, and 63 AC lengths and their bits); a progressive AC scan has
+ * one block of fewer than 64 * 4. LJ_EVENT fails rather than pass it. */
+#define LJ_EVENTS 1400
+
 typedef struct {
     Fail f;
     const uint8_t *data;
@@ -164,6 +170,14 @@ typedef struct {
                           * unread_marker), 0 if none; pos is past it */
     int eof_fill;        /* the data may end early: fill as libjpeg */
     int at_eof;          /* the data ended (not a marker) */
+    int ran_out;         /* ... without eof_fill, in a tracked interval */
+    /* libjpeg-turbo's own bit buffer over an interval whose data ends
+     * without a marker, without eof_fill (see lj_mcu) */
+    int track;           /* follow it in this interval */
+    long lj_pos;         /* its next byte */
+    int lj_bits;         /* its bits_left */
+    int nev;             /* this MCU's codes: lengths, extra bits < 0 */
+    int16_t ev[LJ_EVENTS];
     int insufficient;    /* ran out of data: later blocks stay zero */
     int std_tables;      /* the standard Huffman tables were installed */
     int eobrun;
@@ -217,6 +231,8 @@ static int next_marker(Jpeg *j)
 static int take_marker(Jpeg *j)
 {
     int m = j->unread;
+    if (j->ran_out)
+        fail(&j->f, "truncated stream (entropy-coded data ends early)");
     j->unread = 0;
     return m ? m : next_marker(j);
 }
@@ -225,9 +241,10 @@ static int take_marker(Jpeg *j)
  * length; j->pos moves past it. With eof_fill a segment cut by the end of
  * the data is completed as libjpeg's file source completes it, with the
  * bytes FF D9 over and over (the EOI it appends at each read past the
- * end); the walk then meets that EOI. A length field below 2 is refused,
- * or with `lenient` (the markers libjpeg skips or only peeks into: APPn,
- * COM, DNL) read as an empty payload after the field. */
+ * end), and j->pos stays in that fill: where it ends on an FF, the byte
+ * after the segment is the D9 (`fill_byte`). A length field below 2 is
+ * refused, or with `lenient` (the markers libjpeg skips or only peeks
+ * into: APPn, COM, DNL) read as an empty payload after the field. */
 static const uint8_t *segment(Jpeg *j, long *len, int lenient)
 {
     long length, k, start = j->pos + 2;
@@ -256,7 +273,7 @@ static const uint8_t *segment(Jpeg *j, long *len, int lenient)
             j->filled[k] = at < j->n ? j->data[at]
                            : (at - j->n) % 2 ? 0xD9 : 0xFF;
         }
-        j->pos = j->n;
+        j->pos = start + length - 2 > j->n ? start + length - 2 : j->n;
         *len = length - 2;
         return j->filled;
     }
@@ -427,11 +444,30 @@ static void parse_dht(Jpeg *j, const uint8_t *p, long len)
  * stream. */
 static void data_ends(Jpeg *j)
 {
-    if (!j->eof_fill)
-        fail(&j->f, "truncated stream (entropy-coded data ends early)");
+    if (!j->eof_fill) {
+        /* Where libjpeg-turbo's own reader decides (lj_mcu), zero bits
+         * until it does. */
+        if (!j->track)
+            fail(&j->f, "truncated stream (entropy-coded data ends early)");
+        j->ran_out = 1;
+    }
     j->pos = j->n;
     j->unread = 0xD9;
     j->at_eof = 1;
+}
+
+/* Past the end of the data (j->pos >= j->n) with eof_fill: the data byte
+ * the entropy decoder reads there, or -1 for the EOI it runs into. A scan
+ * whose SOS segment the data cut inside its FF D9 fill starts on the D9
+ * of that fill, which is no marker: one data byte, then FF D9. */
+static int fill_byte(Jpeg *j)
+{
+    if ((j->pos - j->n) % 2) {
+        j->pos++;
+        return 0xD9;
+    }
+    data_ends(j);
+    return -1;
 }
 
 /* Tops the accumulator up to more than 56 bits, as jdhuff.c's
@@ -443,7 +479,9 @@ static void fill(Jpeg *j)
     while (j->nacc <= 56) {
         int b = 0;
         if (!j->unread && j->pos >= j->n) {
-            data_ends(j);
+            b = fill_byte(j);
+            if (b < 0) b = 0;
+            else j->real_bits += 8;
         } else if (!j->unread) {
             b = j->data[j->pos++];
             if (b == 0xFF) {
@@ -464,6 +502,124 @@ static void fill(Jpeg *j)
         j->nacc += 8;
     }
 }
+
+/* cv2.imdecode's source suspends where libjpeg-turbo asks for a byte past
+ * the end of the data, which refuses the stream; where it asks follows
+ * its own bit buffer (jdhuff.c), not the port's. It is followed over an
+ * interval whose data runs to the end without a marker (lj_start): each
+ * MCU's codes are recorded as the port decodes them (LJ_EVENT) and
+ * replayed (lj_mcu). jpeg_fill_bit_buffer tops the buffer up to 57 bits
+ * where a request finds fewer bits than it needs: 8 for a code's lookup,
+ * 9 and then 1 at a time for a longer code, an extra-bits count. */
+static void lj_fill(Jpeg *j)
+{
+    while (j->lj_bits < 57) {
+        int c;
+        if (j->lj_pos >= j->n)
+            fail(&j->f, "truncated stream (entropy-coded data ends early)");
+        c = j->data[j->lj_pos++];
+        /* FF (FF)* 00 is an FF data byte: there is no marker ahead. */
+        while (c == 0xFF) {
+            if (j->lj_pos >= j->n)
+                fail(&j->f, "truncated stream (entropy-coded data ends "
+                            "early)");
+            c = j->data[j->lj_pos++];
+        }
+        j->lj_bits += 8;
+    }
+}
+
+/* decode_mcu_fast's GET_BYTE: 0 where it meets a marker (an FF not
+ * followed by 00), which has the MCU decoded again the slow way. */
+static int lj_fast_bytes(Jpeg *j)
+{
+    int k;
+    for (k = 0; k < 6; k++) {
+        if (j->lj_pos + 1 >= j->n) return 0;
+        if (j->data[j->lj_pos] == 0xFF) {
+            if (j->data[j->lj_pos + 1] != 0) return 0;
+            j->lj_pos++;
+        }
+        j->lj_pos++;
+        j->lj_bits += 8;
+    }
+    return 1;
+}
+
+/* One MCU's codes through libjpeg-turbo's reader: decode_mcu_fast where
+ * no restart interval is set and 512 bytes a block are left (6 bytes
+ * read where 16 bits or fewer are left), or where that meets a marker,
+ * and otherwise, decode_mcu_slow (and jdlhuff.c, which has no fast
+ * path). A request past the end of the data refuses the stream. */
+static void lj_mcu(Jpeg *j, int blocks)
+{
+    long pos = j->lj_pos;
+    int bits = j->lj_bits, k, e;
+    if (!j->lossless && !j->restart && j->n - pos >= 512L * blocks) {
+        for (k = 0; k < j->nev; k++) {
+            if (j->lj_bits <= 16 && !lj_fast_bytes(j)) break;
+            e = j->ev[k];
+            j->lj_bits -= e > 0 ? e : -e;
+        }
+        if (k == j->nev) {
+            j->nev = 0;
+            return;
+        }
+        j->lj_pos = pos;
+        j->lj_bits = bits;
+    }
+    for (k = 0; k < j->nev; k++) {
+        e = j->ev[k];
+        if (e < 0) {
+            if (j->lj_bits < -e) lj_fill(j);
+            j->lj_bits += e;
+            continue;
+        }
+        if (j->lj_bits < 8) lj_fill(j);
+        if (e <= 8) {
+            j->lj_bits -= e;
+            continue;
+        }
+        if (j->lj_bits < 9) lj_fill(j);
+        j->lj_bits -= 9;
+        for (e -= 9; e > 0; e--) {
+            if (j->lj_bits < 1) lj_fill(j);
+            j->lj_bits--;
+        }
+    }
+    j->nev = 0;
+}
+
+/* At an interval's start: follow libjpeg-turbo's reader where the data
+ * may end early for it (no eof_fill, a Huffman-coded sequential or
+ * lossless scan) and runs to its end without a marker. */
+static void lj_start(Jpeg *j)
+{
+    long p = j->pos;
+    j->track = 0;
+    j->nev = 0;
+    j->lj_pos = j->pos;
+    j->lj_bits = 0;
+    if (j->eof_fill || j->arith || j->progressive || j->unread) return;
+    for (;;) {
+        const uint8_t *ff = (const uint8_t *)memchr(j->data + p, 0xFF,
+                                                    (size_t)(j->n - p));
+        if (!ff) break;
+        p = ff - j->data + 1;
+        while (p < j->n && j->data[p] == 0xFF) p++;
+        if (p >= j->n) break;
+        if (j->data[p++]) return;
+    }
+    j->track = 1;
+}
+
+#define LJ_EVENT(e) \
+    do { \
+        if (j->track) { \
+            if (j->nev == LJ_EVENTS) fail(&j->f, "too many codes in an MCU"); \
+            j->ev[j->nev++] = (int16_t)(e); \
+        } \
+    } while (0)
 
 /* The decoder's bit state lives in locals of decode_block: `acc` holds
  * `nacc` bits, MSB first. */
@@ -518,8 +674,10 @@ static int decode_block(Jpeg *j, const Huff *dc, const Huff *ac, int pred,
         s = slow_symbol(dc, acc, &l);
     }
     DROP_BITS(l);
+    LJ_EVENT(l);
     v = s ? (int)(acc >> (64 - s)) : 0;
     DROP_BITS(s);
+    if (s) LJ_EVENT(-s);
     v = pred + extend(v, s);
     v = (int16_t)(uint16_t)(v & 0xFFFF); /* JCOEF is 16-bit */
     out[0] = (int16_t)v;
@@ -534,6 +692,7 @@ static int decode_block(Jpeg *j, const Huff *dc, const Huff *ac, int pred,
             rs = slow_symbol(ac, acc, &l);
         }
         DROP_BITS(l);
+        LJ_EVENT(l);
         r = rs >> 4;
         s = rs & 15;
         if (s == 0) {
@@ -546,6 +705,7 @@ static int decode_block(Jpeg *j, const Huff *dc, const Huff *ac, int pred,
         k += r;
         out[natural(k)] = (int16_t)extend((int)(acc >> (64 - s)), s);
         DROP_BITS(s);
+        LJ_EVENT(-s);
         k++;
     }
     SAVE_BITS();
@@ -559,6 +719,7 @@ static int get_bits(Jpeg *j, int n)
     int v;
     if (!n) return 0;
     if (j->nacc < n) fill(j);
+    LJ_EVENT(-n);
     v = (int)(j->acc >> (64 - n));
     j->acc <<= n;
     j->nacc -= n;
@@ -577,6 +738,7 @@ static int huff_symbol(Jpeg *j, const Huff *t)
     } else {
         s = slow_symbol(t, j->acc, &l);
     }
+    LJ_EVENT(l);
     j->acc <<= l;
     j->nacc -= l;
     j->used_bits += l;
@@ -715,10 +877,7 @@ static int arith_byte(Jpeg *j)
 {
     int d;
     if (j->unread) return 0;
-    if (j->pos >= j->n) {
-        data_ends(j);
-        return 0;
-    }
+    if (j->pos >= j->n) return (d = fill_byte(j)) < 0 ? 0 : d;
     d = j->data[j->pos++];
     if (d != 0xFF) return d;
     while (j->pos < j->n && j->data[j->pos] == 0xFF) j->pos++;
@@ -1219,13 +1378,14 @@ static const Huff *scan_table(Jpeg *j, int tc, int th)
 
 /* One scan, as libjpeg-turbo decodes it: restart intervals resynchronised
  * by read_restart_marker, data that runs into a marker finished on zero
- * bits (end_mcu), arithmetic intervals dropped after a bad code. */
-static void decode_scan(Jpeg *j, const uint8_t *p, long len)
+ * bits (end_mcu), arithmetic intervals dropped after a bad code. Without
+ * `decode`, only the checks of its header and tables. */
+static void decode_scan(Jpeg *j, const uint8_t *p, long len, int decode)
 {
     Comp *comps[4];
     const Huff *dc[4], *ac[4];
     int td[4], ta[4], preds[4] = {0, 0, 0, 0};
-    int ns, i, units_x, units_y, togo, want = 0, skip_row = 0;
+    int ns, i, units_x, units_y, togo, want = 0, skip_row = 0, blocks;
     int ss, se, ah, al;
     long total, u;
     uint8_t *reset = NULL;
@@ -1291,6 +1451,7 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
     if (j->lossless && j->restart && j->restart % units_x)
         fail(&j->f, "lossless restart interval not a multiple of the MCUs "
                     "in a row");
+    if (!decode) return;
     if (j->lossless) {
         free(j->reset);
         reset = j->reset = (uint8_t *)calloc((size_t)units_y, 1);
@@ -1302,6 +1463,10 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
     j->real_bits = j->used_bits = 0;
     j->eobrun = 0;
     if (j->arith) arith_reset(j, comps, td, ta, ns, ss, ah, preds);
+    lj_start(j);
+    blocks = 0;
+    for (i = 0; i < ns; i++)
+        blocks += ns == 1 ? 1 : comps[i]->h * comps[i]->v;
     togo = j->restart;
     for (u = 0; u < total; u++) {
         int uy = (int)(u / units_x), ux = (int)(u % units_x);
@@ -1322,6 +1487,7 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
                 else if (!j->unread)
                     j->insufficient = 0;
                 if (j->lossless) reset[uy] = 1;
+                lj_start(j);
                 togo = j->restart;
             }
             togo--;
@@ -1368,6 +1534,7 @@ static void decode_scan(Jpeg *j, const uint8_t *p, long len)
                 }
             }
         }
+        if (j->track) lj_mcu(j, blocks);
         if (!j->arith) end_mcu(j);
         else if (j->at_eof) j->cut = 1;
     }
@@ -1418,9 +1585,14 @@ static int smooth_pred(int64_t num, int64_t q, int al)
  * of the component's image rows, its zero coefficients 1..9 that are not
  * yet exact estimated from the DC values of a 5x5 neighbourhood (the DC
  * too where no AC has been seen), then the IDCT. Neighbour columns are
- * clamped to the component's blocks, and neighbour rows as libjpeg-turbo
- * clamps them: against this iMCU row's block rows times the iMCU rows,
- * which can reach the dummy rows of the last iMCU row. */
+ * clamped to the component's blocks. Neighbour rows are clamped as
+ * libjpeg-turbo clamps them: it numbers a block row as the iMCU row
+ * times this iMCU row's block rows, plus the row in it, and holds that
+ * number against this iMCU row's block rows times the iMCU rows. Both
+ * count the last iMCU row's real block rows where that row is partial
+ * (a vertical factor of 3 or 4, or 2 with an odd height in blocks): the
+ * neighbours taken there are not the true row's. Elsewhere the clamp can
+ * reach the dummy rows of the last iMCU row. */
 static void smooth_component(Jpeg *j, Comp *c)
 {
     int prev[10], k;
@@ -1441,17 +1613,17 @@ static void smooth_component(Jpeg *j, Comp *c)
         change_dc = 1;
         for (k = 1; k < 10; k++) change_dc &= bits[k] == -1;
         /* As libjpeg-turbo counts them: this iMCU row's block rows times
-         * the iMCU rows. */
+         * the iMCU rows, and the block row `at` among them. */
         int image_rows = rows * imcus;
         for (br = 0; br < rows; br++) {
-            int r = im * v + br, rr[5], col, i;
+            int r = im * v + br, at = im * rows + br, rr[5], col, i;
             int dc[5][5];
             const int16_t *row[5];
             rr[2] = r;
-            rr[1] = r > 0 ? r - 1 : r;
-            rr[0] = r > 1 ? r - 2 : rr[1];
-            rr[3] = r < image_rows - 1 ? r + 1 : r;
-            rr[4] = r < image_rows - 2 ? r + 2 : rr[3];
+            rr[1] = at > 0 ? r - 1 : r;
+            rr[0] = at > 1 ? r - 2 : rr[1];
+            rr[3] = at < image_rows - 1 ? r + 1 : r;
+            rr[4] = at < image_rows - 2 ? r + 2 : rr[3];
             for (i = 0; i < 5; i++)
                 row[i] = c->coef + (size_t)rr[i] * c->blocks_w * 64;
             for (col = 0; col <= last_col; col++) {
@@ -1709,8 +1881,10 @@ static void colour_row(const Ycc *t, int ncomp, int space,
 /* The header walk and the entry points.                               */
 
 /* Parses the stream as jdmarker.c read_markers does; with `decode` set
- * it also decodes every scan. Stops after the SOF when only the size is
- * wanted. Restart and TEM markers between segments are ignored, and so
+ * it also decodes every scan. Without it, stops at the first SOS, after
+ * the checks of its scan that jpeg_start_decompress makes: the size
+ * comes with every check that refuses the image before its data.
+ * Restart and TEM markers between segments are ignored, and so
  * is anything that is not a marker; markers libjpeg does not know are
  * refused. An image of one scan that holds every component ends with
  * that scan: OpenCV's reader has its pixels before jpeg_finish_decompress
@@ -1740,7 +1914,6 @@ static void walk(Jpeg *j, int decode)
         switch (m) {
         case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
             parse_sof(j, p, len, m - 0xC0);
-            if (!decode) return;
             break;
         case 0xC5: case 0xC6: case 0xC7: case 0xC8: case 0xCB: case 0xCD:
         case 0xCE: case 0xCF: {
@@ -1799,7 +1972,8 @@ static void walk(Jpeg *j, int decode)
             break;
         case 0xDA:
             if (!j->ncomp) fail(&j->f, "SOS before SOF");
-            decode_scan(j, p, len);
+            decode_scan(j, p, len, decode);
+            if (!decode) return;
             if (!j->scans++ && !j->progressive && p[0] == j->ncomp) return;
             break;
         default:
@@ -1836,15 +2010,18 @@ static void release(Jpeg *j)
     free(j->reset);
 }
 
-/* Height and width of the JPEG in data[0:n]; 0, or 1 with a message. */
-int jpeg_size(const uint8_t *data, long n, int *height, int *width,
-              char *err, int err_len)
+/* Height and width of the JPEG in data[0:n], its header walked up to the
+ * first SOS (with eof_fill, a header the data cuts filled as decode_jpeg
+ * fills it); 0, or 1 with a message. */
+int jpeg_size(const uint8_t *data, long n, int eof_fill, int *height,
+              int *width, char *err, int err_len)
 {
     Jpeg *j = (Jpeg *)calloc(1, sizeof(Jpeg));
     volatile int rc = 0;
     if (!j) return 2;
     j->data = data;
     j->n = n;
+    j->eof_fill = eof_fill;
     j->f.err = err;
     j->f.err_len = err_len;
     if (setjmp(j->f.jump) == 0) {

@@ -14,11 +14,16 @@ passed as bytes); `packbits_encode` a PackBits stream. The LZW strips
 come from `utils/tiff.py lzw_encode_plain`, libtiff's encoder.
 `quantised_gif` is the 3-3-2 palette GIF of an RGB image, and
 `corrupted` applies a recorded corruption (the `corrupt` recipes of
-tests/fixtures/images/digests.json).
+tests/fixtures/images/digests.json). `stray_recipes` puts bytes that are
+no marker segment before each segment of a JPEG's header, and
+`sampling_recipes` sets each component's sampling factors to every
+value; `outcomes_sha256` is the digest the fixtures record for the
+decodes of such a set.
 """
 
 from __future__ import annotations
 
+import hashlib
 import struct
 import zlib
 
@@ -334,13 +339,74 @@ def padded_rows(rows, pitch: int) -> bytes:
 
 
 def corrupted(data: bytes, at: str) -> bytes:
-    """`data` with the byte changes of a recipe, "offset:byte offset:byte
-    ..." (decimal)."""
-    out = bytearray(data)
+    """`data` with the changes of a recipe, "offset:byte offset+hex ..."
+    (decimal offsets into `data`): "offset:byte" sets the byte there,
+    "offset+hex" puts the bytes `hex` before it. The byte changes come
+    first, then the insertions from the last offset back, so that every
+    offset is one of `data`."""
+    out, inserts = bytearray(data), []
     for change in at.split():
-        offset, value = change.split(":")
-        out[int(offset)] = int(value)
+        if "+" in change:
+            offset, hexbytes = change.split("+")
+            inserts.append((int(offset), bytes.fromhex(hexbytes)))
+        else:
+            offset, value = change.split(":")
+            out[int(offset)] = int(value)
+    for offset, extra in sorted(inserts, key=lambda x: -x[0]):
+        out[offset:offset] = extra
     return bytes(out)
+
+
+# What `stray_recipes` puts before a JPEG header segment (hex): stray
+# bytes, FF 00 pairs, the parameterless markers TEM, RST0 and RST7 (one
+# after a fill byte), and a marker libjpeg refuses (JPG0, with a length).
+STRAY_JPEG_BYTES = ("00", "ab", "001122", "ff00", "12ff0034", "ff01",
+                    "ffd0", "ffd7", "ffff01", "fff00004ab")
+
+
+def jpeg_header_offsets(data: bytes) -> list[int]:
+    """The offset of every marker segment of a JPEG's header, from the
+    one after SOI to the first SOS (segments back to back, as encoders
+    write them)."""
+    offsets, pos = [], 2
+    while True:
+        if data[pos] != 0xFF:
+            raise ValueError(f"no marker at byte {pos}")
+        offsets.append(pos)
+        if data[pos + 1] == 0xDA:
+            return offsets
+        pos += 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+
+
+def stray_recipes(data: bytes) -> list[str]:
+    """"offset+hex" recipes: each of STRAY_JPEG_BYTES before each header
+    segment of the JPEG `data`, segment by segment."""
+    return [f"{at}+{extra}" for at in jpeg_header_offsets(data)
+            for extra in STRAY_JPEG_BYTES]
+
+
+def sampling_recipes(data: bytes) -> list[str]:
+    """"offset:byte" recipes: the sampling byte of each component of the
+    JPEG's frame header set to every h << 4 | v, h and v in 1..4."""
+    sof = next(at for at in jpeg_header_offsets(data)
+               if data[at + 1] in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA))
+    return [f"{sof + 11 + 3 * i}:{h << 4 | v}"
+            for i in range(data[sof + 9]) for h in range(1, 5)
+            for v in range(1, 5)]
+
+
+def outcome(rgb: np.ndarray | None) -> str:
+    """A decode as one line: "HxWxC sha256" of the pixels, or "none"."""
+    if rgb is None:
+        return "none"
+    rgb = np.ascontiguousarray(rgb)
+    return ("x".join(map(str, rgb.shape)) + " "
+            + hashlib.sha256(rgb.tobytes()).hexdigest())
+
+
+def outcomes_sha256(outcomes: list[str]) -> str:
+    """The sha256 of a recipe set's `outcome` lines, in order."""
+    return hashlib.sha256("\n".join(outcomes).encode()).hexdigest()
 
 
 def quantised_gif(rgb: np.ndarray) -> bytes:

@@ -35,8 +35,8 @@ def library() -> ctypes.CDLL:
     """The built library with its argument and result types declared."""
     lib = kernels.load_host("image_codec")
     intp = ctypes.POINTER(ctypes.c_int)
-    lib.jpeg_size.argtypes = [ctypes.c_char_p, ctypes.c_long, intp, intp,
-                              ctypes.c_char_p, ctypes.c_int]
+    lib.jpeg_size.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+                              intp, intp, ctypes.c_char_p, ctypes.c_int]
     lib.jpeg_size.restype = ctypes.c_int
     lib.decode_jpeg.argtypes = [ctypes.c_char_p, ctypes.c_long, _u8p,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -103,13 +103,16 @@ def _check(rc: int, err: ctypes.Array) -> None:
 
 
 def jpeg_size(data: bytes) -> tuple[int, int]:
-    """(height, width) from a JPEG's frame header, before any Exif
-    orientation; raises ValueError as decode_jpeg does on a bad header."""
+    """(height, width) from a JPEG file's frame header, before any Exif
+    orientation; the header is walked up to the first SOS (a header the
+    data cuts is filled as `decode_jpeg` with `eof_fill` fills it), and
+    a bad one raises ValueError as decode_jpeg does."""
     data = bytes(data)
     err = ctypes.create_string_buffer(_ERR_LEN)
     h, w = ctypes.c_int(), ctypes.c_int()
-    _check(library().jpeg_size(data, len(data), ctypes.byref(h),
-                               ctypes.byref(w), err, _ERR_LEN), err)
+    _check(library().jpeg_size(data, len(data), 1,
+                               ctypes.byref(h), ctypes.byref(w), err,
+                               _ERR_LEN), err)
     return h.value, w.value
 
 
@@ -123,8 +126,8 @@ def decode_jpeg(data: bytes, eof_fill: bool = False) -> np.ndarray:
     data = bytes(data)
     err = ctypes.create_string_buffer(_ERR_LEN)
     h, w = ctypes.c_int(), ctypes.c_int()
-    _check(lib.jpeg_size(data, len(data), ctypes.byref(h), ctypes.byref(w),
-                         err, _ERR_LEN), err)
+    _check(lib.jpeg_size(data, len(data), int(eof_fill), ctypes.byref(h),
+                         ctypes.byref(w), err, _ERR_LEN), err)
     out = np.empty((h.value, w.value, 3), np.uint8)
     _check(lib.decode_jpeg(data, len(data), out.ctypes.data_as(_u8p),
                            h.value, w.value, int(eof_fill), err, _ERR_LEN),
@@ -169,8 +172,8 @@ def decode_jpeg_tiff(data: bytes, channels: int,
     data = bytes(data)
     err = ctypes.create_string_buffer(_ERR_LEN)
     h, w = ctypes.c_int(), ctypes.c_int()
-    _check(lib.jpeg_size(data, len(data), ctypes.byref(h), ctypes.byref(w),
-                         err, _ERR_LEN), err)
+    _check(lib.jpeg_size(data, len(data), 1, ctypes.byref(h),
+                         ctypes.byref(w), err, _ERR_LEN), err)
     out = np.empty((h.value, w.value, channels), np.uint8)
     _check(lib.decode_jpeg_tiff(data, len(data), out.ctypes.data_as(_u8p),
                                 h.value, w.value, channels, int(ycc_to_rgb),

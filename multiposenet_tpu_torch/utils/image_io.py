@@ -12,10 +12,12 @@ libpng 1.6):
   CMYK -> BGR); lossless RGB and CMYK; progressive files whose scans stop
   early through libjpeg's inter-block smoothing. A file whose data ends
   early is filled as `cv2.imread` fills it; bytes that end early are
-  refused, as `cv2.imdecode` refuses them. What cv2 returns no image for
-  (12- and 16-bit samples, gray, YCbCr and YCCK lossless, arithmetic
-  lossless, hierarchical) is refused by name. Its plain version for
-  baseline streams is `utils/jpeg.py`;
+  refused where `cv2.imdecode` refuses them, which is where libjpeg-turbo
+  asks for a byte past their end (a stream without its EOI may read). The
+  Exif block is found as libjpeg walks the header. What cv2 returns no
+  image for (12- and 16-bit samples, gray, YCbCr and YCCK lossless,
+  arithmetic lossless, hierarchical) is refused by name. Its plain
+  version for baseline streams is `utils/jpeg.py`;
 - PNG with zlib and NumPy: every colour type and bit depth, Adam7
   interlace, palette (tRNS dropped; an index past the palette is black),
   gray at 1, 2 and 4 bits expanded to 8 as libpng does, 16-bit samples
@@ -116,8 +118,9 @@ def read_image(path: str | Path) -> np.ndarray:
 
 def image_size(path: str | Path) -> tuple[int, int]:
     """The (height, width) of what `read_image` returns for the file: a
-    JPEG's from its frame header and Exif orientation (5-8 swap the
-    sides), any other format's by decoding it."""
+    JPEG's from its header, walked up to the first SOS, and its Exif
+    orientation (5-8 swap the sides), any other format's by decoding
+    it."""
     data = Path(path).read_bytes()
     if data.startswith(JPEG_MAGIC):
         try:
@@ -150,15 +153,15 @@ def decode_image(data: bytes, name: str | Path = "<bytes>",
     return _decode_simple(data, name, plain=False)
 
 
-def decode_image_plain(data: bytes, name: str | Path = "<bytes>"
-                       ) -> np.ndarray:
+def decode_image_plain(data: bytes, name: str | Path = "<bytes>",
+                       eof_fill: bool = False) -> np.ndarray:
     """`decode_image` of a baseline JPEG, BMP, Netpbm, Sun raster, TIFF,
     GIF, WebP or Radiance HDR file with the coders' plain Python versions
     instead of the C library (`utils/jpeg.py` refuses the JPEG modes past
-    baseline by name)."""
+    baseline by name); `eof_fill` as for `decode_image`."""
     if data.startswith(JPEG_MAGIC):
         try:
-            rgb = jpeg.decode_pixels(data)
+            rgb = jpeg.decode_pixels(data, eof_fill)
         except ValueError as exc:
             raise ValueError(f"{name}: {exc}") from None
         return apply_orientation(rgb, exif_orientation(jpeg.exif_block(data)))

@@ -36,8 +36,10 @@ writes. Everything else raises a ValueError that names it here:
 progressive (SOF2),
 lossless or hierarchical (SOF3, SOF5-7), arithmetic coding (SOF9-15),
 12-bit samples, 2 or 4 components (CMYK/YCCK), RGB JPEGs (Adobe
-transform 0, or component ids 'R', 'G', 'B'), and truncated or corrupt
-streams, where libjpeg-turbo would fill the rest with gray and warn.
+transform 0, or component ids 'R', 'G', 'B'), and streams whose data
+ends early where libjpeg-turbo would ask for a byte past the end
+(`cv2.imdecode` refuses them; with `eof_fill` they are filled as
+`cv2.imread` fills a file).
 """
 
 from __future__ import annotations
@@ -98,40 +100,17 @@ def _fail(msg: str):
     raise ValueError(f"JPEG: {msg}")
 
 
-def _next_marker(data: bytes, pos: int) -> tuple[int, int]:
-    """(marker, offset after it) of the marker at `pos`, fill bytes
-    skipped (for `exif_block`'s walk of the header)."""
-    n = len(data)
-    if pos >= n or data[pos] != 0xFF:
-        _fail(f"expected a marker at byte {pos}")
-    while pos < n and data[pos] == 0xFF:
-        pos += 1
-    if pos >= n:
-        _fail("truncated stream (no EOI)")
-    return data[pos], pos + 1
-
-
-def _segment(data: bytes, pos: int) -> tuple[int, int]:
-    """(payload start, payload end) of the marker segment whose length
-    field is at `pos`."""
-    if pos + 2 > len(data):
-        _fail("truncated marker segment")
-    (length,) = struct.unpack(">H", data[pos:pos + 2])
-    if length < 2 or pos + length > len(data):
-        _fail("truncated marker segment")
-    return pos + 2, pos + length
-
-
 class _Source:
     """The stream as libjpeg's data source and marker reader see it: a
     position, the marker the entropy decoder ran into (`unread`), and the
     end of the data, past which `eof_fill` (cv2.imread's file source, and
     libtiff's) supplies the bytes FF D9 over and over and cv2.imdecode's
-    source refuses."""
+    source refuses. A segment the data cuts leaves the position in that
+    fill."""
 
     def __init__(self, data: bytes, eof_fill: bool):
         self.data, self.n, self.eof_fill = data, len(data), eof_fill
-        self.pos = 2
+        self.pos = self.interval_start = 2
         self.unread = 0
 
     def next_marker(self) -> int:
@@ -165,7 +144,7 @@ class _Source:
         length below 2 is refused, or with `lenient` (APPn, COM, DNL,
         which libjpeg skips or only peeks into) an empty payload after
         the field. With eof_fill a segment cut by the end of the data is
-        completed with FF D9 bytes."""
+        completed with FF D9 bytes, and the position stays in them."""
         data, n, pos = self.data, self.n, self.pos
         head = data[pos:pos + 2]
         if lenient and len(head) == 2 and (head[0] << 8 | head[1]) < 2:
@@ -183,7 +162,7 @@ class _Source:
                 if not lenient:
                     _fail("truncated marker segment")
                 length = 2
-            self.pos = n
+            self.pos = max(pos + length, n)
             return bytes(at(pos + 2 + k) for k in range(length - 2))
         length = head[0] << 8 | head[1]
         if length < 2:
@@ -195,11 +174,18 @@ class _Source:
         """The data of a restart interval, FF 00 unstuffed, up to the
         marker that ends it (recorded as unread: the decoder reads zero
         bits from there on), and whether the data ended first without
-        eof_fill (then decoding near its end is refused). Nothing where
-        a marker is already unread."""
+        eof_fill (then `_LibjpegReader` decides where decoding near its
+        end is refused; `interval_start` is where the data began).
+        Nothing where a marker is already unread. A scan whose SOS segment
+        the data cut starts inside the fill: on its D9, which is no marker
+        but a data byte, where the segment ended on an FF."""
         if self.unread:
             return b"", False
         data, n, pos = self.data, self.n, self.pos
+        self.interval_start = pos
+        if pos > n:
+            self.pos, self.unread = n, 0xD9
+            return (b"\xd9" if (pos - n) % 2 else b""), False
         out = bytearray()
         while True:
             nxt = data.find(b"\xff", pos)
@@ -466,12 +452,9 @@ _PAD = 2600
 class _Bits:
     """An MSB-first bit reader over one restart interval: `words[i]` holds
     the 40 bits from byte i on, so any 16 bits from bit p are one shift
-    and mask away. Bits past the end read as zeros. Where the data ended
-    without a marker (`open`), `need` refuses the stream where the C
-    library's reader, which tops itself up to more than 56 bits whenever
-    it holds fewer than 32, would have to read past the end."""
+    and mask away. Bits past the end read as zeros."""
 
-    def __init__(self, seg: bytes, open_end: bool = False):
+    def __init__(self, seg: bytes):
         padded = np.frombuffer(seg + b"\x00" * (_PAD + 4), np.uint8) \
             .astype(np.uint64)
         n = len(seg) + _PAD
@@ -481,8 +464,6 @@ class _Bits:
         self.words = words.tolist()
         self.nbits = len(seg) * 8
         self.pos = 0
-        self.open = open_end
-        self.loaded = 0
 
     def peek16(self) -> int:
         p = self.pos
@@ -496,17 +477,84 @@ class _Bits:
         self.pos = p + n
         return v
 
-    def need(self):
-        if self.loaded - self.pos >= 32:
-            return
-        while self.loaded - self.pos <= 56:
-            if self.loaded >= self.nbits:
-                _fail("truncated stream (entropy-coded data ends early)")
-            self.loaded += 8
-
     def insufficient(self) -> bool:
         """jdhuff.c insufficient_data: bits were used past the data."""
         return self.pos > self.nbits
+
+
+class _LibjpegReader:
+    """libjpeg-turbo's own bit buffer (jdhuff.c) over an interval whose
+    data runs from `pos` to the end of `data` without a marker: where it
+    asks for a byte past the end, cv2.imdecode's source suspends, which
+    refuses the stream (the plain version of `csrc/image_codec.c`
+    lj_mcu). `mcu` replays one MCU's codes: their lengths, extra bits
+    negated. jpeg_fill_bit_buffer tops up to 57 bits where a request
+    finds fewer bits than it needs: 8 for a code's lookup, 9 and then 1
+    at a time for a longer code, an extra-bits count; decode_mcu_fast,
+    which takes an MCU where no restart interval is set (`fast`) and 512
+    bytes a block are left, reads 6 bytes where 16 bits or fewer are
+    left, and an MCU in which that meets a marker is decoded again the
+    slow way."""
+
+    def __init__(self, data: bytes, pos: int, fast: bool):
+        self.data, self.n, self.pos, self.bits = data, len(data), pos, 0
+        self.fast = fast
+
+    def _fill(self):
+        data, n = self.data, self.n
+        while self.bits < 57:
+            if self.pos >= n:
+                _fail("truncated stream (entropy-coded data ends early)")
+            c = data[self.pos]
+            self.pos += 1
+            while c == 0xFF:  # FF (FF)* 00: no marker lies ahead
+                if self.pos >= n:
+                    _fail("truncated stream (entropy-coded data ends early)")
+                c = data[self.pos]
+                self.pos += 1
+            self.bits += 8
+
+    def _fast_bytes(self) -> bool:
+        data, n = self.data, self.n
+        for _ in range(6):
+            if self.pos + 1 >= n:
+                return False
+            if data[self.pos] == 0xFF:
+                if data[self.pos + 1]:
+                    return False
+                self.pos += 1
+            self.pos += 1
+            self.bits += 8
+        return True
+
+    def mcu(self, events: list, blocks: int):
+        if self.fast and self.n - self.pos >= 512 * blocks:
+            pos, bits = self.pos, self.bits
+            for e in events:
+                if self.bits <= 16 and not self._fast_bytes():
+                    break
+                self.bits -= abs(e)
+            else:
+                return
+            self.pos, self.bits = pos, bits
+        for e in events:
+            if e < 0:
+                if self.bits < -e:
+                    self._fill()
+                self.bits += e
+                continue
+            if self.bits < 8:
+                self._fill()
+            if e <= 8:
+                self.bits -= e
+                continue
+            if self.bits < 9:
+                self._fill()
+            self.bits -= 9
+            for _ in range(e - 9):
+                if self.bits < 1:
+                    self._fill()
+                self.bits -= 1
 
 
 def _extend(v: int, s: int) -> int:
@@ -521,20 +569,29 @@ def _decode_symbol(bits: _Bits, table: list) -> int:
     return symbol
 
 
-def _decode_block(bits: _Bits, dc_table, ac_table, pred: int, out):
-    need = bits.need if bits.open else None
-    if need:
-        need()
+def _decode_block(bits: _Bits, dc_table, ac_table, pred: int, out,
+                  events: list | None = None):
+    """One block's coefficients into `out`; returns the DC value. With
+    `events`, the length of each code and the count of extra bits
+    (negated) go there, for `_LibjpegReader`."""
+    p = bits.pos
     s = _decode_symbol(bits, dc_table)
+    if events is not None:
+        events.append(bits.pos - p)
+        if s:
+            events.append(-s)
     dc = pred + _extend(bits.get(s), s)
     dc = ((dc + 32768) & 0xFFFF) - 32768  # JCOEF is 16-bit
     out[0] = dc
     k = 1
     while k < 64:
-        if need:
-            need()
+        p = bits.pos
         rs = _decode_symbol(bits, ac_table)
         r, s = rs >> 4, rs & 15
+        if events is not None:
+            events.append(bits.pos - p)
+            if s:
+                events.append(-s)
         if s == 0:
             if r != 15:
                 break
@@ -568,8 +625,19 @@ def _decode_scan(frame: Frame, scan, src: _Source):
         units_y = -(-frame.height // (8 * vmax))
         shapes = [(c.v, c.h) for c, _, _ in comps]
     total = units_x * units_y
+    blocks = sum(v * h for v, h in shapes)
     block = [0] * 64
-    bits = _Bits(*src.entropy_bytes())
+
+    def interval():
+        """The next interval's bits, and libjpeg-turbo's reader where its
+        data runs to the end without a marker (and eof_fill is off)."""
+        seg, open_end = src.entropy_bytes()
+        return _Bits(seg), (_LibjpegReader(src.data, src.interval_start,
+                                           restart == 0)
+                            if open_end else None)
+
+    bits, reader = interval()
+    events = [] if reader else None
     preds = [0] * len(comps)
     insufficient = False
     togo, want = restart, 0
@@ -581,7 +649,8 @@ def _decode_scan(frame: Frame, scan, src: _Source):
                 preds = [0] * len(comps)
                 if not src.unread:
                     insufficient = False
-                bits = _Bits(*src.entropy_bytes())
+                bits, reader = interval()
+                events = [] if reader else None
                 togo = restart
             togo -= 1
         if insufficient:
@@ -591,8 +660,12 @@ def _decode_scan(frame: Frame, scan, src: _Source):
             for by in range(v):
                 for bx in range(h):
                     block[:] = [0] * 64
-                    preds[i] = _decode_block(bits, dct, act, preds[i], block)
+                    preds[i] = _decode_block(bits, dct, act, preds[i], block,
+                                             events)
                     c.coefs[uy * v + by, ux * h + bx] = block
+        if reader:
+            reader.mcu(events, blocks)
+            events.clear()
         insufficient = bits.insufficient()
 
 
@@ -756,10 +829,11 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-def decode_pixels(data: bytes) -> np.ndarray:
+def decode_pixels(data: bytes, eof_fill: bool = False) -> np.ndarray:
     """JPEG bytes → uint8 RGB [H, W, 3], before any Exif orientation;
-    data that ends early is refused, as cv2.imdecode refuses it."""
-    frame, _ = parse(bytes(data))
+    data that ends early is refused, as cv2.imdecode refuses it, or with
+    `eof_fill` filled as cv2.imread fills a file."""
+    frame, _ = parse(bytes(data), eof_fill=eof_fill)
     hmax = max(c.h for c in frame.components)
     vmax = max(c.v for c in frame.components)
     h, w = frame.height, frame.width
@@ -789,16 +863,23 @@ def decode_planes(data: bytes) -> np.ndarray:
 
 def exif_block(data: bytes) -> bytes | None:
     """The TIFF bytes of the first APP1 Exif segment before the first SOS,
-    or None (also for a header too broken to walk)."""
-    pos = 2
+    or None (also for a header too broken to walk). OpenCV takes the Exif
+    from the APP1 segments libjpeg saved while jdmarker.c read_markers
+    walked the header, so the walk is `parse`'s: bytes that are no marker
+    and FF 00 pairs are skipped, fill bytes too, TEM and RST0-7 carry no
+    length, and an APPn length below 2 is an empty payload."""
+    src = _Source(data, eof_fill=False)
     try:
         while True:
-            marker, pos = _next_marker(data, pos)
-            if marker in (0xDA, 0xD9) or 0xD0 <= marker <= 0xD7:
+            marker = src.next_marker()
+            if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+                continue
+            if marker in (0xD8, 0xD9, 0xDA) or marker < 0xC0 \
+                    or marker in (0xDE, 0xDF) or 0xF0 <= marker <= 0xFD:
                 return None
-            start, pos = _segment(data, pos)
-            if marker == 0xE1 and data[start:start + 6] == b"Exif\x00\x00":
-                return bytes(data[start + 6:pos])
+            p = src.segment(marker >= 0xE0 or marker == 0xDC)
+            if marker == 0xE1 and p[:6] == b"Exif\x00\x00":
+                return bytes(p[6:])
     except ValueError:
         return None
 

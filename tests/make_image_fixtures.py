@@ -78,8 +78,15 @@ installed cv2's decode.
   carry `corrupt` recipes (`corruption_recipes`): byte changes in their
   coded data, each with the sha256 of cv2's decode of the changed bytes
   (`cv2.imdecode`, which `cv2.imread` of them equals) or null where cv2
-  returns no image. `python tests/make_image_fixtures.py corrupt` writes
-  only those into the committed digests.
+  returns no image. The two `kind_orient*` files carry `stray_sha256`,
+  the `c3_smooth_*` files `sampling_sha256`: the digest
+  (`image_samples.outcomes_sha256`) of cv2's decodes of every
+  `image_samples.stray_recipes` (bytes that are no marker segment before
+  each header segment) or `sampling_recipes` (each component's sampling
+  factors set to every value) of the file. The photo's `exif_stray` is
+  the recipe that puts stray bytes and an Exif APP1 of orientation 6
+  before its DQT, with cv2's digest. `python tests/make_image_fixtures.py
+  corrupt` writes only those into the committed digests.
 """
 
 from __future__ import annotations
@@ -1075,11 +1082,27 @@ CORRUPT_TIFF = (
     "tiff_cmyk_lzw_planar_16x24.tif", "tiff_ycbcr22_lzw_23x37.tif",
     "tiff_cielab16_d65_17x23.tif", "tiff_jpeg_pil_ycbcr_16x24.tif",
     "tiff_jpeg_ycc420_tables_37x53.tif")
+# The files of the stray-byte and the sampling-factor recipe sets.
+STRAY_JPEG = ("kind_orient3_le_40x64.jpg", "kind_orient6_be_40x64.jpg")
+SAMPLING_JPEG = ("c3_smooth_ac1_40x48_420.jpg", "c3_smooth_dc_40x48_420.jpg")
 
 
-def cv2_sha(data: bytes) -> str | None:
-    """sha256 of cv2.imdecode's RGB decode of `data`, or None where it
-    returns no image; cv2.imread of the bytes in a file must agree."""
+def imread_rgb(path: Path) -> np.ndarray | None:
+    """cv2.imread's RGB decode of the file, or None (the reference of
+    `multiposenet_tpu_torch/tools/jpeg_cut_search.py`)."""
+    bgr = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    return None if bgr is None else bgr[..., ::-1]
+
+
+def imdecode_rgb(data: bytes) -> np.ndarray | None:
+    """cv2.imdecode's RGB decode of the bytes, or None."""
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    return None if bgr is None else bgr[..., ::-1]
+
+
+def cv2_rgb(data: bytes) -> np.ndarray | None:
+    """cv2.imdecode's RGB decode of `data`, or None where it returns no
+    image; cv2.imread of the bytes in a file must agree."""
     rgb = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
     path = OUT.parent / "_corrupt_probe"
     path.write_bytes(data)
@@ -1089,7 +1112,13 @@ def cv2_sha(data: bytes) -> str | None:
         path.unlink()
     assert (rgb is None) == (again is None) and (
         rgb is None or np.array_equal(rgb, again))
-    return None if rgb is None else sha256(rgb[..., ::-1])
+    return None if rgb is None else rgb[..., ::-1]
+
+
+def cv2_sha(data: bytes) -> str | None:
+    """sha256 of `cv2_rgb(data)`, or None."""
+    rgb = cv2_rgb(data)
+    return None if rgb is None else sha256(rgb)
 
 
 def pick_recipes(data: bytes, spans: list[tuple[int, int]], seed: int,
@@ -1138,7 +1167,9 @@ def corruption_recipes(digests: dict) -> None:
     refusal), the restart markers of the interval files moved, one byte
     of the TIFF strips (LZW, deflate and JPEG ones), one byte of the
     photo GIF's LZW data, and two bytes of the photo's scan (read by
-    cv2: the smoke script times its decode and predicts on it)."""
+    cv2: the smoke script times its decode and predicts on it); the
+    digests of the stray-byte and sampling-factor sets, and the photo's
+    `exif_stray` recipe (the smoke script predicts on it)."""
     global image_samples
     sys.path.insert(0, str(ROOT))
     from multiposenet_tpu_torch.tools import image_samples
@@ -1174,6 +1205,21 @@ def corruption_recipes(digests: dict) -> None:
                                         1, 1, 2)
     entry["corrupt"] = pick_recipes(data, [(scan_spans(data)[0][0],
                                             len(data) - 2)], 0, 2, 1, 0)
+    for names, key, recipes in (
+            (STRAY_JPEG, "stray_sha256", image_samples.stray_recipes),
+            (SAMPLING_JPEG, "sampling_sha256",
+             image_samples.sampling_recipes)):
+        for name in names:
+            data = (OUT / name).read_bytes()
+            digests[name][key] = image_samples.outcomes_sha256([
+                image_samples.outcome(cv2_rgb(image_samples.corrupted(
+                    data, r))) for r in recipes(data)])
+    app1 = b"Exif\x00\x00" + exif_tiff(6, big_endian=True)
+    app1 = b"\xff\xe1" + struct.pack(">H", len(app1) + 2) + app1
+    dqt = photo.read_bytes().index(b"\xff\xdb")
+    at = f"{dqt}+001122{app1.hex()}"
+    entry["exif_stray"] = {"at": at, "rgb_sha256": cv2_sha(
+        image_samples.corrupted(photo.read_bytes(), at))}
 
 
 def write_digests(digests: dict) -> None:
