@@ -1348,7 +1348,10 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     cv2 reads it (the recipe's digest); then `--image turned.jpg`, the
     photo with stray bytes and an Exif APP1 of orientation 6 put before
     its DQT (`exif_stray` in the digests), read turned to 640x480 as cv2
-    reads it, one B1 launch, people printed. Returns B1's launches."""
+    reads it, one B1 launch, people printed; then `--image` the committed
+    reversible gray JPEG 2000 file, read to cv2's digest, one B1 launch,
+    people printed, its size and letterbox to the model's size reported.
+    Returns B1's launches."""
     scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
     image_path, out_path = directory / "scene.png", directory / "drawn.png"
     image_io.write_png(image_path, scene["image"])
@@ -1499,6 +1502,27 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
             np.isfinite(p["box"]).all() and np.isfinite(p["keypoints"]).all()
             for p in turned_people):
         raise AssertionError("cli_predict: bad people on turned.jpg")
+    # The committed reversible gray JPEG 2000 file, read as cv2 reads it
+    # (its digest), letterboxed to the model's size, one B1 launch.
+    jp2 = FIXTURES / JP2_PREDICT
+    want = json.loads((FIXTURES / "digests.json").read_text())[JP2_PREDICT]
+    jp2_rgb = image_io.read_image(jp2)
+    if [list(jp2_rgb.shape), sha256(jp2_rgb)] != [want["shape"],
+                                                  want["rgb_sha256"]]:
+        raise AssertionError(f"cli_predict: {JP2_PREDICT} does not read as "
+                             "cv2 reads it")
+    kernels.reset_launches()
+    jp2_people = json.loads(cli_stdout(
+        cli, ["predict", "--model-dir", str(directory), "--image",
+              str(jp2)]))
+    if kernels.LAUNCHES != {decode.KERNEL: 1}:
+        raise AssertionError(f"cli_predict: --image {JP2_PREDICT} launches "
+                             f"{kernels.LAUNCHES}")
+    counted[decode.KERNEL] += 1
+    if not isinstance(jp2_people, list) or not all(
+            np.isfinite(p["box"]).all() and np.isfinite(p["keypoints"]).all()
+            for p in jp2_people):
+        raise AssertionError(f"cli_predict: bad people on {JP2_PREDICT}")
     emit({"phase": "cli_predict", "card": card, "image": [480, 640],
           "persons": len(people), "keypoint_centres_drawn": len(centres),
           "changed_pixels": int((drawn != image).any(-1).sum()),
@@ -1506,7 +1530,12 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
           "also_written": written,
           "damaged_jpeg_persons": len(damaged_people),
           "turned_jpeg": {"size": list(turned_rgb.shape[:2]),
-                          "persons": len(turned_people)}})
+                          "persons": len(turned_people)},
+          "jpeg2000": {"file": JP2_PREDICT,
+                       "size": list(jp2_rgb.shape[:2]),
+                       "letterbox": list(letterbox_size(
+                           *jp2_rgb.shape[:2], IMAGE))[::-1],
+                       "persons": len(jp2_people)}})
     return counted[decode.KERNEL]
 
 
@@ -1516,6 +1545,7 @@ PLAIN_FIXTURE = "scene_00_420_q75.jpg"
 WEBP_TIMING = ("webp_photo_480x640_q90.webp",
                "webp_scene_480x640_lossless.webp")
 PLAIN_WEBP_PIXELS = 40_000  # the plain WebP coders run up to this size
+JP2_PREDICT = "j2k_rev_gray_37x53.jp2"
 
 
 def sha256(a: np.ndarray) -> str:
@@ -1553,13 +1583,17 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
     WebP writer is held in `webp_checks`. Times on the host clock: the
     C decode of the 480x640 4:2:0 q95 fixture (ms and MB/s of file), the
     plain decode of it and of one 192x256 scene, the C encode of it (ms)
-    and the plain one (s), and the C and plain letterbox resize of it."""
+    and the plain one (s), and the C and plain letterbox resize of it.
+    The JPEG 2000 codestreams are held in `jpeg2000_checks`."""
     t0 = time.perf_counter()
     image_codec.library()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     image_io.webp.library()
     webp_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    image_io.jpeg2000.library()
+    jpeg2000_build_s = time.perf_counter() - t0
     digests = json.loads((FIXTURES / "digests.json").read_text())
     checked = {}
     for name, want in sorted(digests.items()):
@@ -1648,6 +1682,7 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
           "webp": webp_checks(image_io, digests, rgb),
           "tiff_hdr": tiff_hdr_checks(image_io, digests, data, rgb),
           "gif": gif_checks(image_io, digests, rgb),
+          "jpeg2000": jpeg2000_checks(image_io, digests, jpeg2000_build_s),
           "corrupt": corrupt_checks(image_io, image_codec, digests, data,
                                     rgb),
           "clock": "host perf_counter, median"})
@@ -1937,6 +1972,40 @@ def gif_checks(image_io, digests: dict, photo: np.ndarray) -> dict:
                 "c_encode_ms": median_ms(
                     lambda: image_io.encode_image(photo, ".gif"), 10),
                 "plain_encode_s": plain_encode_s}}}
+
+
+def jpeg2000_checks(image_io, digests: dict, build_s: float) -> dict:
+    """JPEG 2000 (`utils/jpeg2000.py` over the host C library
+    `csrc/jpeg2000.c`, built from the sources at the start of the phase
+    in `build_s`, before any fixture is read): each committed
+    codestream (`j2k_*`: a reversible gray JP2, an irreversible RGB
+    codestream of three layers in RPCL order) decoded by the C library
+    and by the plain Python tiers, both equal to cv2's digest; their
+    `corrupt` recipes (packet bytes changed, cuts) are replayed in
+    `corrupt_checks`. Times on the host clock: the C decode (median) and
+    the plain one (once) of each."""
+    times = {}
+    for name in sorted(n for n in digests if n.startswith("j2k_")):
+        data = (FIXTURES / name).read_bytes()
+        got = image_io.decode_image(data, name)
+        t0 = time.perf_counter()
+        plain = image_io.decode_image_plain(data, name)
+        plain_s = time.perf_counter() - t0
+        want = digests[name]
+        if [list(got.shape), sha256(got)] != [want["shape"],
+                                               want["rgb_sha256"]] \
+                or not np.array_equal(plain, got):
+            raise AssertionError(f"image_codec: {name}: C and plain JPEG 2000"
+                                 " decodes are not cv2's digest")
+        times[name] = {"bytes": len(data), "shape": list(got.shape[:2]),
+                       "c_decode_ms": median_ms(
+                           lambda: image_io.decode_image(data, name), 20),
+                       "plain_decode_s": plain_s}
+    if len(times) != 2:
+        raise AssertionError("image_codec: JPEG 2000 fixtures "
+                             f"{sorted(times)}")
+    return {"build_s": build_s, "fixtures": times,
+            "equal": "C = plain = cv2's digest"}
 
 
 def image_format_checks(image_io, image_codec, rgb: np.ndarray) -> dict:

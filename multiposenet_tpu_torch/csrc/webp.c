@@ -32,7 +32,8 @@
  * vp8l_encode writes uint8 RGB as a VP8L stream: a predictor transform
  * (one mode per 16x16 tile, the smallest residual entropy in integer Q16
  * arithmetic) after subtract-green or not, whichever is shorter, or
- * colour indexing for 256 colours or fewer; greedy LZ77 over a hash
+ * colour indexing for 256 colours or fewer unless the predicted stream
+ * is shorter; greedy LZ77 over a hash
  * chain; one group of canonical prefix codes of at most 15 bits. Its
  * bytes are utils/vp8l.py encode's, not libwebp's (see there).
  *
@@ -2284,11 +2285,9 @@ int vp8l_encode(const uint8_t *rgb, int h, int w, uint8_t *out, long cap, long *
         argb[i] = 0xff000000u | ((uint32_t)rgb[3 * i] << 16) | ((uint32_t)rgb[3 * i + 1] << 8) |
                   rgb[3 * i + 2];
     ncol = palette_of(argb, n, palette);
-    if (ncol) {
-        writer_init(&wr, out, (size_t)cap);
-        encode_palette(&c, &wr, argb, w, h, palette, ncol);
-    } else {
-        /* Subtract-green or not: both written, the shorter kept. */
+    {
+        /* Subtract-green or not: both written, the shorter kept; then the
+         * palette's stream where there is one and it is no longer. */
         Writer alt;
         writer_init(&wr, out, (size_t)cap);
         encode_predicted(&c, &wr, argb, w, h, 1);
@@ -2297,6 +2296,16 @@ int vp8l_encode(const uint8_t *rgb, int h, int w, uint8_t *out, long cap, long *
         if (alt.n < wr.n) {
             if (alt.n <= alt.cap) memcpy(out, alt.out, alt.n);
             wr = alt;
+            wr.out = out;
+        }
+        if (ncol) {
+            writer_init(&alt, (uint8_t *)alloc(&c, (size_t)cap), (size_t)cap);
+            encode_palette(&c, &alt, argb, w, h, palette, ncol);
+            if (alt.n <= wr.n) {
+                if (alt.n <= alt.cap) memcpy(out, alt.out, alt.n);
+                wr = alt;
+                wr.out = out;
+            }
         }
     }
     *size = (long)wr.n;

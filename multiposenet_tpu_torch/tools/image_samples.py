@@ -14,7 +14,7 @@ passed as bytes); `packbits_encode` a PackBits stream. The LZW strips
 come from `utils/tiff.py lzw_encode_plain`, libtiff's encoder.
 `quantised_gif` is the 3-3-2 palette GIF of an RGB image, and
 `corrupted` applies a recorded corruption (the `corrupt` recipes of
-tests/fixtures/images/digests.json). `stray_recipes` puts bytes that are
+tests/fixtures/images/digests.json: bytes set or inserted, or a cut). `stray_recipes` puts bytes that are
 no marker segment before each segment of a JPEG's header, and
 `sampling_recipes` sets each component's sampling factors to every
 value; `outcomes_sha256` is the digest the fixtures record for the
@@ -341,12 +341,14 @@ def padded_rows(rows, pitch: int) -> bytes:
 def corrupted(data: bytes, at: str) -> bytes:
     """`data` with the changes of a recipe, "offset:byte offset+hex ..."
     (decimal offsets into `data`): "offset:byte" sets the byte there,
-    "offset+hex" puts the bytes `hex` before it. The byte changes come
-    first, then the insertions from the last offset back, so that every
-    offset is one of `data`."""
-    out, inserts = bytearray(data), []
+    "offset+hex" puts the bytes `hex` before it, "offset/" cuts the data
+    there. The byte changes come first, then the insertions from the last
+    offset back, so that every offset is one of `data`, then the cut."""
+    out, inserts, cut = bytearray(data), [], None
     for change in at.split():
-        if "+" in change:
+        if change.endswith("/"):
+            cut = int(change[:-1])
+        elif "+" in change:
             offset, hexbytes = change.split("+")
             inserts.append((int(offset), bytes.fromhex(hexbytes)))
         else:
@@ -354,7 +356,7 @@ def corrupted(data: bytes, at: str) -> bytes:
             out[int(offset)] = int(value)
     for offset, extra in sorted(inserts, key=lambda x: -x[0]):
         out[offset:offset] = extra
-    return bytes(out)
+    return bytes(out if cut is None else out[:cut])
 
 
 # What `stray_recipes` puts before a JPEG header segment (hex): stray

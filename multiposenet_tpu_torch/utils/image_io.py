@@ -38,13 +38,24 @@ libpng 1.6):
   and an animation's first frame on its canvas, as libwebp 1.6 decodes
   them for cv2, through the host C library `csrc/webp.c`;
   `decode_image_plain` runs the plain decoders `utils/vp8l.py` and
-  `utils/vp8.py`. A RIFF file of another form is refused by name.
+  `utils/vp8.py`. A RIFF file of another form is refused by name;
+- JPEG 2000 (`utils/jpeg2000.py`): JP2 files and bare J2K codestreams,
+  5/3 and 9/7, RCT and ICT, tiles, quality layers, precincts, every
+  progression order and POC, SOP/EPH, ROI shifts, 8 to 16 bits and more
+  (shifted to 8 as cv2 shifts them), gray, RGB and RGBA (alpha dropped),
+  as OpenJPEG 2.5.3 decodes them for cv2, tiers 1 and 2 and the
+  transforms in the host C library `csrc/jpeg2000.c` (plain versions in
+  the module); what cv2 returns no image for (signed samples, an image
+  offset, sub-sampled components, precinct sizes OpenJPEG rejects, cut or
+  damaged codestreams where OpenJPEG fails) is refused, and what no
+  encoder here can make (code-block styles other than 0, PPM/PPT packet
+  headers, palettes, Part 2 multi-component markers) is refused by name.
 Gray is repeated into three channels. The Exif orientation (tag 0x0112
 of IFD0, in a JPEG APP1 `Exif` block, a PNG `eXIf` chunk, a TIFF's own
-IFD0 or a WebP `EXIF` chunk) is applied as cv2 applies it. AVIF and
-JPEG 2000 files (not yet read) and OpenEXR ones (cv2 is built without
-it) are refused by a ValueError that names the format; any other bytes by
-one that names the suffix.
+IFD0 or a WebP `EXIF` chunk) is applied as cv2 applies it. AVIF files
+(not yet read) and OpenEXR ones (cv2 is built without it) are refused by
+a ValueError that names the format; any other bytes by one that names the
+suffix.
 
 `encode_jpeg` and `write_jpeg` write uint8 RGB as the JPEG bytes
 `cv2.imencode(".jpg")` writes at its defaults (host C; plain version
@@ -77,15 +88,13 @@ import torch
 import torch.nn.functional as F
 
 from multiposenet_tpu_torch.utils import (bmp, gif, hdr, image_codec, jpeg,
-                                          pxm, sunras, tiff, webp)
+                                          jpeg2000, pxm, sunras, tiff, webp)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NPY_MAGIC = b"\x93NUMPY"
 JPEG_MAGIC = b"\xff\xd8\xff"
 # Magic bytes of formats the reader refuses, to name them in the error.
 _OTHER_FORMATS = {
-    b"\x00\x00\x00\x0cjP  \r\n\x87\n": "JPEG 2000",
-    b"\xff\x4f\xff\x51": "JPEG 2000 codestream",
     b"\x76\x2f\x31\x01": "OpenEXR",
 }
 # Suffix → the writer's kind for `encode_image`, as cv2.imwrite picks it.
@@ -156,7 +165,8 @@ def decode_image(data: bytes, name: str | Path = "<bytes>",
 def decode_image_plain(data: bytes, name: str | Path = "<bytes>",
                        eof_fill: bool = False) -> np.ndarray:
     """`decode_image` of a baseline JPEG, BMP, Netpbm, Sun raster, TIFF,
-    GIF, WebP or Radiance HDR file with the coders' plain Python versions
+    GIF, WebP, JPEG 2000 or Radiance HDR file with the coders' plain Python
+    versions
     instead of the C library (`utils/jpeg.py` refuses the JPEG modes past
     baseline by name); `eof_fill` as for `decode_image`."""
     if data.startswith(JPEG_MAGIC):
@@ -202,6 +212,11 @@ def simple_format(data: bytes) -> str | None:
 def _decode_simple(data: bytes, name, plain: bool) -> np.ndarray:
     if (data[:4] == b"RIFF" and data[8:12] == b"WEBP") or webp.is_webp(data):
         return _decode_webp(data, name, plain)
+    if data.startswith((jpeg2000.JP2_SIGNATURE, jpeg2000.J2K_SIGNATURE)):
+        try:
+            return jpeg2000.decode(data, plain=plain)
+        except ValueError as exc:
+            raise ValueError(f"{name}: {exc}") from None
     kind = simple_format(data)
     if kind is not None:
         reader = _READERS[kind]
@@ -218,7 +233,7 @@ def _decode_simple(data: bytes, name, plain: bool) -> np.ndarray:
         raise ValueError(f"{name}: AVIF images are not read here")
     suffix = Path(str(name)).suffix or "none"
     raise ValueError(f"{name}: not an image file this reader knows (suffix "
-                     f"{suffix}): JPEG, PNG, .npy, WebP, BMP, "
+                     f"{suffix}): JPEG, PNG, .npy, WebP, JPEG 2000, BMP, "
                      "PBM/PGM/PPM/PAM/PFM, Sun raster, Radiance HDR, TIFF "
                      "and GIF only")
 

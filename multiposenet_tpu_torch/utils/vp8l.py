@@ -22,8 +22,10 @@ headerless stream of an `ALPH` chunk (WebP's alpha plane).
 chosen by the smallest residual entropy, after subtract-green or not
 (both are written and the shorter kept), LZ77 over a hash chain with the
 distance map, and one group of length-limited (15 bits) canonical prefix
-codes; images of at most 256 colours use the colour indexing transform
-instead (bundled for 16 colours or fewer). Its bytes
+codes; images of at most 256 colours are also written with the colour
+indexing transform (bundled for 16 colours or fewer), which is kept
+unless a predicted stream is shorter (smooth ramps of a few dozen
+levels predict better than they index). Its bytes
 are not libwebp's: libwebp's lossless encoder picks its transforms and
 backward references with heuristics (entropy-image clustering with its
 own pseudo-random merges, a cost model) that are no part of what cv2
@@ -935,10 +937,14 @@ def encode(rgb: np.ndarray) -> bytes:
     argb = (0xFF000000 | (px[..., 0] << 16) | (px[..., 1] << 8)
             | px[..., 2]).astype(np.uint32)
     colours = np.unique(argb)
-    if len(colours) <= 256:
-        return _encode_palette(argb, colours)
     # Subtract-green decorrelates most photographs and hurts images whose
-    # channels vary apart: both are written and the shorter kept.
+    # channels vary apart: both are written and the shorter kept, and the
+    # palette's stream where there is one and it is no longer.
     with_green = _encode_predicted(argb, True)
     without = _encode_predicted(argb, False)
-    return without if len(without) < len(with_green) else with_green
+    best = without if len(without) < len(with_green) else with_green
+    if len(colours) <= 256:
+        indexed = _encode_palette(argb, colours)
+        if len(indexed) <= len(best):
+            return indexed
+    return best

@@ -62,6 +62,10 @@ installed cv2's decode.
   written by cv2 (run-length and, under 8 wide, flat), a `#?RGBE` file
   with EXPOSURE and comment lines, and one whose later scanlines are
   flat.
+- `j2k_*.jp2`, `j2k_*.j2k`: JPEG 2000 as cv2 reads it (Pillow's writer,
+  `jpeg2000_fixtures`): a reversible gray JP2 and an irreversible RGB
+  codestream of three quality layers in RPCL order, small enough for the
+  budget (every other JPEG 2000 case is made at test time).
 - `digests.json`: for each file, the shape and sha256 of cv2's RGB decode
   (`cv2.imread(path, IMREAD_COLOR)[..., ::-1]`) and of cv2's INTER_LINEAR
   letterbox of it to 512 (the eval runner's resize: scale 512 / max(h, w),
@@ -78,7 +82,8 @@ installed cv2's decode.
   carry `corrupt` recipes (`corruption_recipes`): byte changes in their
   coded data, each with the sha256 of cv2's decode of the changed bytes
   (`cv2.imdecode`, which `cv2.imread` of them equals) or null where cv2
-  returns no image. The two `kind_orient*` files carry `stray_sha256`,
+  returns no image; the JPEG 2000 files' recipes also cut them
+  (`jpeg2000_recipes`). The two `kind_orient*` files carry `stray_sha256`,
   the `c3_smooth_*` files `sampling_sha256`: the digest
   (`image_samples.outcomes_sha256`) of cv2's decodes of every
   `image_samples.stray_recipes` (bytes that are no marker segment before
@@ -86,7 +91,9 @@ installed cv2's decode.
   factors set to every value) of the file. The photo's `exif_stray` is
   the recipe that puts stray bytes and an Exif APP1 of orientation 6
   before its DQT, with cv2's digest. `python tests/make_image_fixtures.py
-  corrupt` writes only those into the committed digests.
+  corrupt` writes only those into the committed digests, and `python
+  tests/make_image_fixtures.py jpeg2000` only the JPEG 2000 files with
+  their digests and recipes.
 """
 
 from __future__ import annotations
@@ -712,7 +719,6 @@ def digest(path: Path) -> dict:
     box = cv2.resize(np.ascontiguousarray(rgb), (nw, nh),
                      interpolation=cv2.INTER_LINEAR)
     return {"shape": list(rgb.shape), "rgb_sha256": sha256(rgb),
-            "letterbox_shape": list(box.shape),
             "letterbox_sha256": sha256(box)}
 
 
@@ -775,6 +781,63 @@ def webp_fixtures(tex: np.ndarray, big: np.ndarray) -> dict[str, bytes]:
     files["webp_scene_480x640_lossless.webp"] = encode_webp(
         np.clip(big * 0.8 + 25 + waves, 0, 255).astype(np.uint8))
     return files
+
+
+def jpeg2000_fixtures() -> dict[str, bytes]:
+    """The two JPEG 2000 fixtures (Pillow's writer, OpenJPEG 2.5.4): a
+    reversible gray JP2 and an irreversible RGB codestream of three
+    quality layers in RPCL order, both of smooth ramps (small)."""
+    from PIL import Image
+
+    def ramps(h: int, w: int, channels: int) -> np.ndarray:
+        y, x = np.mgrid[0:h, 0:w]
+        planes = [x * 255 // (w - 1), y * 255 // (h - 1),
+                  (x + y) * 255 // (w + h - 2)]
+        return np.stack(planes[:channels], -1).astype(np.uint8).squeeze()
+
+    def pil(pixels: np.ndarray, **options) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(pixels).save(buf, "JPEG2000", **options)
+        return buf.getvalue()
+
+    return {"j2k_rev_gray_37x53.jp2": pil(ramps(37, 53, 1)),
+            "j2k_irr_rpcl_layers3_37x53.j2k": pil(
+                ramps(37, 53, 3), irreversible=True, progression="RPCL",
+                quality_mode="rates", quality_layers=[80, 40, 20],
+                no_jp2=True)}
+
+
+def jpeg2000_recipes(data: bytes) -> list[dict]:
+    """A JPEG 2000 fixture's `corrupt` recipes: two single bytes of its
+    packet data that cv2 reads and one it refuses, and cuts in the middle
+    of the data and before the final EOC (refused)."""
+    sod = data.rindex(b"\xff\x93") + 2
+    recipes = pick_recipes(data, [(sod, len(data) - 2)], 0, 1, 2, 1)
+    for cut in ((sod + len(data)) // 2, len(data) - 2):
+        at = f"{cut}/"
+        recipes.append({"at": at, "rgb_sha256": cv2_sha(
+            image_samples.corrupted(data, at))})
+    return recipes
+
+
+def write_jpeg2000_fixtures() -> None:
+    """Only the JPEG 2000 fixtures and their digests and recipes, into
+    the committed digests."""
+    global image_samples
+    sys.path.insert(0, str(ROOT))
+    from multiposenet_tpu_torch.tools import image_samples
+
+    digests = json.loads((OUT / "digests.json").read_text())
+    for name, data in jpeg2000_fixtures().items():
+        (OUT / name).write_bytes(data)
+        digests[name] = digest(OUT / name)
+        bgr = cv2.imread(str(OUT / name))
+        digests[name]["imencode_webp_bytes"] = len(cv2.imencode(".webp",
+                                                                bgr)[1])
+        digests[name]["imencode_gif_sha256"] = hashlib.sha256(
+            cv2.imencode(".gif", bgr)[1].tobytes()).hexdigest()
+        digests[name]["corrupt"] = jpeg2000_recipes(data)
+    write_digests(digests)
 
 
 def jpeg_abbreviate(stream: bytes) -> tuple[bytes, bytes]:
@@ -1029,6 +1092,7 @@ def main() -> None:
 
     files.update(webp_fixtures(tex, big))
     files.update(tiff_hdr_fixtures(tex))
+    files.update(jpeg2000_fixtures())
 
     for name, data in files.items():
         (OUT / name).write_bytes(data)
@@ -1098,6 +1162,14 @@ def imdecode_rgb(data: bytes) -> np.ndarray | None:
     """cv2.imdecode's RGB decode of the bytes, or None."""
     bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
     return None if bgr is None else bgr[..., ::-1]
+
+
+def imencode(suffix: str, rgb: np.ndarray) -> bytes:
+    """The bytes cv2.imencode writes for uint8 RGB pixels (the reference
+    of `multiposenet_tpu_torch/tools/jpeg2000_cut_search.py` takes cv2's
+    own JPEG 2000 file from here)."""
+    return cv2.imencode(suffix, np.ascontiguousarray(rgb[..., ::-1]))[1] \
+        .tobytes()
 
 
 def cv2_rgb(data: bytes) -> np.ndarray | None:
@@ -1214,6 +1286,8 @@ def corruption_recipes(digests: dict) -> None:
             digests[name][key] = image_samples.outcomes_sha256([
                 image_samples.outcome(cv2_rgb(image_samples.corrupted(
                     data, r))) for r in recipes(data)])
+    for name in jpeg2000_fixtures():
+        digests[name]["corrupt"] = jpeg2000_recipes((OUT / name).read_bytes())
     app1 = b"Exif\x00\x00" + exif_tiff(6, big_endian=True)
     app1 = b"\xff\xe1" + struct.pack(">H", len(app1) + 2) + app1
     dqt = photo.read_bytes().index(b"\xff\xdb")
@@ -1240,5 +1314,7 @@ def write_corruption_recipes() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["corrupt"]:
         write_corruption_recipes()
+    elif sys.argv[1:] == ["jpeg2000"]:
+        write_jpeg2000_fixtures()
     else:
         main()

@@ -212,6 +212,36 @@ def test_make_batch_of_a_damaged_jpeg_matches_jax(tmp_path, records, train):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+@pytest.mark.parametrize("train", [True, False])
+def test_make_batch_of_jpeg2000_records_matches_jax(tmp_path, records,
+                                                     train):
+    """Records whose files are JPEG 2000 (a reversible JP2 and an
+    irreversible bare codestream): the port's batch equals the JAX
+    package's (which reads them with cv2.imread) with the same image_dir
+    and seed."""
+    import io
+
+    from PIL import Image
+
+    recs = []
+    for i, rec in enumerate(records[:2]):
+        rec = dict(rec)
+        name = f"{i}.jp2" if i == 0 else f"{i}.j2k"
+        buf = io.BytesIO()
+        Image.fromarray(rec.pop("image")).save(
+            buf, "JPEG2000", irreversible=i == 1, no_jp2=i == 1)
+        (tmp_path / name).write_bytes(buf.getvalue())
+        rec["file_name"] = name
+        recs.append(rec)
+    got = tloader.make_batch(recs, 64, 8, np.random.RandomState(3),
+                             image_dir=str(tmp_path), train=train)
+    want = jloader.make_batch(recs, 64, 8, np.random.RandomState(3),
+                              image_dir=str(tmp_path), train=train)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def _masked(records, seed=0, drop=None):
     """Records with seeded segmentation masks (bool [H, W]); `drop` names
     a key left out (None) on the second record, the third has none."""

@@ -225,6 +225,35 @@ def test_predict_on_a_jpeg_matches_jax_cli(workdir):
                                    atol=1e-3, rtol=1e-5)
 
 
+@pytest.mark.parametrize("suffix", [".jp2", ".j2k"])
+def test_predict_on_jpeg2000_matches_jax_cli(workdir, tmp_path, suffix):
+    """`predict --image x.jp2` (a JP2 file, reversible) and `x.j2k` (a
+    bare codestream, irreversible, three layers): the port reads them as
+    cv2.imread does (tests/test_torch_jpeg2000.py) and prints the JAX
+    CLI's people."""
+    from PIL import Image
+
+    scene = image_io.read_image(workdir["image"])
+    buf = io.BytesIO()
+    options = ({} if suffix == ".jp2" else dict(
+        irreversible=True, no_jp2=True, quality_mode="rates",
+        quality_layers=[20, 10, 5]))
+    Image.fromarray(scene).save(buf, "JPEG2000", **options)
+    image = tmp_path / f"scene{suffix}"
+    image.write_bytes(buf.getvalue())
+    np.testing.assert_array_equal(
+        image_io.read_image(image), cv2.imread(str(image))[:, :, ::-1])
+    argv = ["predict", "--model-dir", workdir["model"], "--image", str(image)]
+    want = json.loads(_run(jax_cli.main, argv))
+    got = json.loads(_run(cli.main, argv + ["--device", "cpu"]))
+    assert len(want) > 0 and len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["box"], w["box"], atol=2e-3, rtol=1e-5)
+        assert abs(g["score"] - w["score"]) <= 1e-5
+        np.testing.assert_allclose(g["keypoints"], w["keypoints"],
+                                   atol=1e-3, rtol=1e-5)
+
+
 def test_predict_on_a_damaged_jpeg_matches_jax_cli(workdir, tmp_path):
     """`predict --image` of the scene's JPEG with two bytes of its scan
     changed (cv2 reads it, libjpeg-turbo warning and going on) prints the
@@ -610,7 +639,7 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     paths["cli_predict"] = smoke.phase_cli_predict(
         cli, image_io, visualize, synthetic, decode, kernels, tmp_path,
         "cpu")
-    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 7}
+    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 8}
     assert restored == (runner.KeypointEvaluator, runner.evaluate_batched,
                         predictor.Predictor.predict, cli._load_records)
 
@@ -660,13 +689,19 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
                      "cli_predict_jpeg_output": 1,
                      "cli_predict_gif_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
-    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 93
-    assert codec["webp"]["fixtures_written"] == 93
+    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 95
+    assert codec["webp"]["fixtures_written"] == 95
     assert codec["tiff_hdr"]["fixtures"] == 30
-    assert codec["gif"]["fixtures"] == 93
+    assert codec["gif"]["fixtures"] == 95
     assert codec["gif"]["times"]["gif"]["c_encode_ms"] > 0
+    j2k = codec["jpeg2000"]
+    assert sorted(j2k["fixtures"]) == ["j2k_irr_rpcl_layers3_37x53.j2k",
+                                       "j2k_rev_gray_37x53.jp2"]
+    assert j2k["build_s"] > 0 and all(
+        t["c_decode_ms"] > 0 and t["plain_decode_s"] > 0
+        for t in j2k["fixtures"].values())
     corrupt = codec["corrupt"]
-    assert corrupt["recipes"] == 39 and corrupt["read"] > 0 \
+    assert corrupt["recipes"] == 49 and corrupt["read"] > 0 \
         and corrupt["refused"] > 0 and corrupt["plain"] > 0
     assert corrupt["photo_corrupt_c_decode_ms"] > 0
     assert codec["webp"]["ratio_max"][1] <= 1.5

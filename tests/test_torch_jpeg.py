@@ -832,20 +832,25 @@ def test_mode_fixtures_read_as_cv2_reads_them(tmp_path, name):
 
 
 def test_other_formats_name_themselves(tmp_path):
-    """What is still refused: AVIF and JPEG 2000 (C9b; the AVIF brand and
-    its image-sequence brand, the JP2 box and a bare codestream), OpenEXR
-    (cv2 is built without it) and RIFF files other than WebP, each by its
-    name (WebP, Radiance HDR and JPEG-in-TIFF are read:
-    tests/test_torch_webp.py, test_torch_hdr.py, test_torch_tiff_codecs.py)."""
+    """What is still refused: AVIF (C9b; the AVIF brand and its
+    image-sequence brand), OpenEXR (cv2 is built without it) and RIFF
+    files other than WebP, each by its name (WebP, Radiance HDR,
+    JPEG-in-TIFF and JPEG 2000 are read: tests/test_torch_webp.py,
+    test_torch_hdr.py, test_torch_tiff_codecs.py,
+    test_torch_jpeg2000.py). A JP2 box or a bare codestream signature
+    followed by zeros is no image to cv2, and the port refuses it too."""
     for data, kind in (
             (b"RIFF\x24\x00\x00\x00AVI LIST" + b"\x00" * 32, "RIFF b'AVI '"),
             (b"\x00\x00\x00\x1cftypavis" + b"\x00" * 32, "AVIF"),
             (b"\x00\x00\x00\x1cftypavif" + b"\x00" * 32, "AVIF"),
-            (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + b"\x00" * 32,
-             "JPEG 2000"),
-            (b"\x76\x2f\x31\x01" + b"\x00" * 32, "OpenEXR"),
-            (b"\xff\x4f\xff\x51" + b"\x00" * 32, "JPEG 2000 codestream")):
+            (b"\x76\x2f\x31\x01" + b"\x00" * 32, "OpenEXR")):
         with pytest.raises(ValueError, match=kind):
+            image_io.decode_image(data)
+    for data in (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + b"\x00" * 32,
+                 b"\xff\x4f\xff\x51" + b"\x00" * 32):
+        assert cv2.imdecode(np.frombuffer(data, np.uint8),
+                            cv2.IMREAD_COLOR) is None
+        with pytest.raises(ValueError):
             image_io.decode_image(data)
 
 
@@ -865,7 +870,7 @@ def test_committed_digests_equal_cv2_and_the_port():
     digests = json.loads((FIXTURES / "digests.json").read_text())
     files = sorted(p.name for p in FIXTURES.iterdir()
                    if p.suffix in (".jpg", ".png", ".webp", ".tif", ".hdr",
-                                   ".pic"))
+                                   ".pic", ".jp2", ".j2k"))
     assert sorted(digests) == files
     # 510,000 bytes, and 300,000 more for the WebP fixtures (their own
     # budget is held in tests/test_torch_webp.py).
