@@ -32,15 +32,19 @@ builds the host C libraries (`csrc/image_codec.c`, `csrc/webp.c`) and
 holds their JPEG, WebP, TIFF (JPEG, CCITT, CMYK, YCbCr, CIELab) and
 Radiance HDR decodes and letterbox resize, and the plain versions, to
 cv2's digests of the committed fixtures (tests/fixtures/images), the
-HDR and GIF writers, C and plain, to cv2's bytes, the lossless WebP
+HDR and GIF writers, C and plain, to cv2's bytes, the JPEG 2000 writer,
+C on every fixture of both sides at least 32 and the photo, plain on the
+smallest, to cv2's bytes (the JP2 boxes alone for the others), the
+lossless WebP
 writer, C and plain, to a round trip within 1.5 times cv2's size on each
 fixture, and recorded corruptions (changed scan bytes, stray bytes before
 each JPEG header segment, every sampling factor of the block-smoothed
 files) to cv2's digests of them; after them, phase `eval_jpeg` runs `eval --batched` on those
 JPEGs (two launches), `predict` on the 480x640 JPEG with `--output` a
-PNG, `drawn.jpg` and `drawn.gif` (one launch each; each file the plain
-writer's bytes of the drawing) and checks that `--output drawn.jp2`
-exits before the model runs. Then training, which
+PNG, `drawn.jpg`, `drawn.gif` (one launch each; each file the plain
+writer's bytes of the drawing) and `drawn.jp2` (one launch; the plain
+JPEG 2000 writer's bytes of the drawing), and checks that `--output
+drawn.avif` exits before the model runs. Then training, which
 reaches no TPU kernel (the fused tail is off in training and the decodes
 are inference only): phase `train_parity` holds 3 steps of the tiny
 config in float32 on the card against the CPU and fits one batch in 20
@@ -1584,7 +1588,8 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
     C decode of the 480x640 4:2:0 q95 fixture (ms and MB/s of file), the
     plain decode of it and of one 192x256 scene, the C encode of it (ms)
     and the plain one (s), and the C and plain letterbox resize of it.
-    The JPEG 2000 codestreams are held in `jpeg2000_checks`."""
+    The JPEG 2000 codestreams are held in `jpeg2000_checks`, the JPEG
+    2000 writer in `jpeg2000_write_checks`."""
     t0 = time.perf_counter()
     image_codec.library()
     build_s = time.perf_counter() - t0
@@ -1683,6 +1688,7 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
           "tiff_hdr": tiff_hdr_checks(image_io, digests, data, rgb),
           "gif": gif_checks(image_io, digests, rgb),
           "jpeg2000": jpeg2000_checks(image_io, digests, jpeg2000_build_s),
+          "jpeg2000_write": jpeg2000_write_checks(image_io, digests, rgb),
           "corrupt": corrupt_checks(image_io, image_codec, digests, data,
                                     rgb),
           "clock": "host perf_counter, median"})
@@ -2008,6 +2014,71 @@ def jpeg2000_checks(image_io, digests: dict, build_s: float) -> dict:
             "equal": "C = plain = cv2's digest"}
 
 
+# The plain JPEG 2000 writer runs on the fixtures up to this many pixels.
+PLAIN_JP2_PIXELS = 2_100
+
+
+def jpeg2000_write_checks(image_io, digests: dict, photo: np.ndarray) -> dict:
+    """The JPEG 2000 writer (`utils/jpeg2000_write.py`: OpenJPEG 2.5.3 at
+    cv2's defaults, its tiers and rate allocation in the host C library
+    `csrc/jpeg2000_write.c`): every committed fixture's pixels with both
+    sides at least 32, and the 480x640 photo's, written as .jp2 by the C
+    library in the bytes of cv2.imencode (their sha256 in the digests),
+    and by the plain Python writer too on the fixtures up to 2,100
+    pixels; the fixtures with a side under 32, for which cv2.imencode
+    writes nothing, go through `write_image`, which returns False with
+    only the JP2 boxes in the file, as cv2.imwrite leaves it. Times on
+    the host clock: the C encode of the photo (median) and one plain
+    encode of the smallest fixture."""
+    writer = image_io.jpeg2000_write
+    plain_checked, skipped = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, want in sorted(digests.items()):
+            got = image_io.read_image(FIXTURES / name)
+            digest = want["imencode_jp2_sha256"]
+            if min(got.shape[:2]) < writer.MIN_SIDE:
+                path = Path(tmp) / "small.jp2"
+                if digest is not None or image_io.write_image(path, got) \
+                        or path.read_bytes() != writer.jp2_header(
+                            *got.shape[:2]):
+                    raise AssertionError(f"image_codec: {name} is written "
+                                         "as .jp2 (cv2 writes only the "
+                                         "JP2 boxes)")
+                skipped.append(name)
+                continue
+            encoders = [image_io.encode_image]
+            if got.shape[0] * got.shape[1] <= PLAIN_JP2_PIXELS:
+                encoders.append(image_io.encode_image_plain)
+                plain_checked.append(name)
+            for encode in encoders:
+                if hashlib.sha256(encode(got, ".jp2")).hexdigest() != digest:
+                    raise AssertionError(f"image_codec: the .jp2 of {name} "
+                                         "is not cv2.imencode's")
+    want = digests[TIMING_FIXTURE]["imencode_jp2_sha256"]
+    data = image_io.encode_image(photo, ".jp2")
+    if hashlib.sha256(data).hexdigest() != want:
+        raise AssertionError("image_codec: the .jp2 of the photo is not "
+                             "cv2.imencode's")
+    small = min(plain_checked, key=lambda n: digests[n]["shape"][0]
+                * digests[n]["shape"][1])
+    small_rgb = image_io.read_image(FIXTURES / small)
+    t0 = time.perf_counter()
+    image_io.encode_image_plain(small_rgb, ".jp2")
+    plain_encode_s = time.perf_counter() - t0
+    return {"fixtures": len(digests) - len(skipped),
+            "plain_fixtures": plain_checked, "boxes_only": skipped,
+            "equal": "every fixture's with both sides >= 32 and the "
+                     "photo's .jp2 C = cv2.imencode's bytes, plain = C = "
+                     "cv2's on the fixtures up to 2,100 pixels; the "
+                     "others write only the JP2 boxes and return False",
+            "times": {"photo": {
+                "shape": list(photo.shape), "bytes": len(data),
+                "c_encode_ms": median_ms(
+                    lambda: image_io.encode_image(photo, ".jp2"), 5)},
+                small: {"shape": list(small_rgb.shape),
+                        "plain_encode_s": plain_encode_s}}}
+
+
 def image_format_checks(image_io, image_codec, rgb: np.ndarray) -> dict:
     """The simple formats and WebP on the host C libraries, from bytes the
     port writes itself (the card's machine has no cv2): the C and plain
@@ -2120,9 +2191,10 @@ def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
     on the decoded JPEG), `--output drawn.jpg` (1 B1 launch, the file
     equals the plain encoder's JPEG of that drawing), `--output
     drawn.gif` (1 B1 launch, the file equals the plain GIF encoder's bytes
-    of that drawing and reads back as its dithered palette colours) and
-    `--output drawn.jp2`, which exits naming the suffix before the model
-    runs. The batched eval runs over every visible card: its B1 launches
+    of that drawing and reads back as its dithered palette colours),
+    `--output drawn.jp2` (1 B1 launch, the file equals the plain JPEG 2000
+    writer's bytes of that drawing and reads back) and `--output
+    drawn.avif`, which exits naming the suffix before the model runs. The batched eval runs over every visible card: its B1 launches
     are the batches times the cards. Returns B1's launches by command."""
     n_images = len(json.loads(
         (FIXTURES / "annotations.json").read_text())["images"])
@@ -2213,18 +2285,43 @@ def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
         raise AssertionError("eval_jpeg: drawn.gif does not read back as "
                              "the dithered drawing")
     launches["cli_predict_gif_output"] = 1
-    kernels.reset_launches()
+
     jp2_out = directory / "drawn.jp2"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    text = cli_stdout(cli, ["predict", "--model-dir", str(directory),
+                            "--image", str(image_path), "--output",
+                            str(jp2_out)])
+    if kernels.LAUNCHES != {decode.KERNEL: 1}:
+        raise AssertionError(f"eval_jpeg: predict --output drawn.jp2 "
+                             f"launches {kernels.LAUNCHES}")
+    jp2_drawing = visualize.draw_predictions(image, [
+        argparse.Namespace(box=np.asarray(p["box"]), score=p["score"],
+                           keypoints=np.asarray(p["keypoints"]))
+        for p in json.loads(text)])
+    jp2_bytes = jp2_out.read_bytes()
+    t0 = time.perf_counter()
+    jp2_plain = image_io.encode_image_plain(jp2_drawing, ".jp2")
+    jp2_plain_s = time.perf_counter() - t0
+    if jp2_bytes != jp2_plain:
+        raise AssertionError("eval_jpeg: drawn.jp2 is not the plain "
+                             "writer's JPEG 2000 of the drawing of the "
+                             "printed people")
+    if image_io.read_image(jp2_out).shape != jp2_drawing.shape:
+        raise AssertionError("eval_jpeg: drawn.jp2 does not read back")
+    launches["cli_predict_jp2_output"] = 1
+    kernels.reset_launches()
+    avif_out = directory / "drawn.avif"
     try:
         cli_stdout(cli, ["predict", "--model-dir", str(directory), "--image",
-                         str(image_path), "--output", str(jp2_out)])
+                         str(image_path), "--output", str(avif_out)])
     except SystemExit as exc:
         message = str(exc.code)
     else:
-        raise AssertionError("eval_jpeg: --output drawn.jp2 did not exit")
-    if ".jp2" not in message or "GIF" not in message or kernels.LAUNCHES \
-            or jp2_out.exists():
-        raise AssertionError(f"eval_jpeg: --output drawn.jp2: {message!r}, "
+        raise AssertionError("eval_jpeg: --output drawn.avif did not exit")
+    if ".avif" not in message or "JPEG 2000" not in message \
+            or kernels.LAUNCHES or avif_out.exists():
+        raise AssertionError(f"eval_jpeg: --output drawn.avif: {message!r}, "
                              f"launches {kernels.LAUNCHES}")
     emit({"phase": "eval_jpeg", "card": card, "argv": argv,
           "images": n_images, "stats": stats, "launches": counted,
@@ -2233,7 +2330,10 @@ def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
           "predict_image": TIMING_FIXTURE, "persons": len(people),
           "predict_command_s": predict_s, "predict_launches":
               predict_counted, "output_jpg_bytes": jpg_out.stat().st_size,
-          "output_gif_bytes": len(gif_bytes), "output_jp2_exit": message})
+          "output_gif_bytes": len(gif_bytes),
+          "output_jp2_bytes": len(jp2_bytes),
+          "output_jp2_plain_encode_s": jp2_plain_s,
+          "output_avif_exit": message})
     return launches
 
 

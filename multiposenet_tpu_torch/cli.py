@@ -181,7 +181,7 @@ def cmd_predict(args) -> None:
         shown = Path(args.output).suffix or "none"
         sys.exit(f"--output {args.output}: suffix {shown} is not written "
                  "here; PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF, "
-                 "WebP, Radiance HDR and GIF are")
+                 "WebP, Radiance HDR, GIF and JPEG 2000 (.jp2) are")
     predictor = _load_predictor(args)
     try:
         rgb = read_image(args.image)
@@ -195,7 +195,8 @@ def cmd_predict(args) -> None:
     ]))
     if args.output:
         # As the reference's cv2.imwrite: .pgm and .pbm write no file for
-        # 3-channel pixels, and "wrote" is printed all the same.
+        # 3-channel pixels, .jp2 only its JP2 boxes for a side under 32,
+        # and "wrote" is printed all the same.
         write_image(args.output, draw_predictions(rgb, people))
         print(f"wrote {args.output}", file=sys.stderr)
 

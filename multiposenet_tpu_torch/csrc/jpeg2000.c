@@ -36,28 +36,18 @@
 #include <stdlib.h>
 #include <string.h>
 
-#define MAXRLVLS 33
-#define MAXBANDS (3 * MAXRLVLS - 2)
-#define MAX_POCS 32
+#include "jpeg2000.h"
+
 #define PLAN_HEAD 10
 #define PLAN_POC 6
 #define COMP_INTS (9 + 2 * MAXRLVLS + 2 * MAXBANDS)
 
-typedef struct Block { struct Block *next; } Block;
-
-typedef struct {
-    jmp_buf jump;
-    Block *blocks;
-    char *err;
-    int errlen;
-} Ctx;
-
-static void fail(Ctx *c, const char *msg) {
+void j2k_fail(Ctx *c, const char *msg) {
     snprintf(c->err, (size_t)c->errlen, "%s", msg);
     longjmp(c->jump, 1);
 }
 
-static void *alloc(Ctx *c, size_t n) {
+void *j2k_alloc(Ctx *c, size_t n) {
     Block *b = (Block *)calloc(1, sizeof(Block) + (n ? n : 1));
     if (!b) longjmp(c->jump, 2);
     b->next = c->blocks;
@@ -65,53 +55,9 @@ static void *alloc(Ctx *c, size_t n) {
     return (void *)(b + 1);
 }
 
-static int ceildivpow2(int64_t a, int b) { return (int)-((-a) >> b); }
-static int imin(int a, int b) { return a < b ? a : b; }
-static int imax(int a, int b) { return a > b ? a : b; }
-
 /* --- geometry ------------------------------------------------------------ */
 
-typedef struct { int maxpasses, numpasses, len, newlen, numnewpasses; } Seg;
-
-typedef struct {
-    int x0, y0, x1, y1;
-    int numbps, numlenbits, numsegs, numnewpasses;
-    int nsegs;
-    Seg *segs;
-    uint8_t *data;
-    long dlen, dcap;
-} Cblk;
-
-typedef struct {
-    int n;
-    int *parent, *value, *low;
-} TagTree;
-
-typedef struct {
-    int x0, y0, x1, y1, cw, ch;
-    Cblk *cblks;
-    TagTree incl, imsb;
-} Prec;
-
-typedef struct {
-    int bandno, x0, y0, x1, y1, empty, numbps;
-    float stepsize;
-    Prec *precs;
-} Band;
-
-typedef struct {
-    int x0, y0, x1, y1, pdx, pdy, pw, ph, nbands;
-    Band bands[3];
-} Res;
-
-typedef struct {
-    int prec, sgnd, numres, cblkw, cblkh, cblksty, qmfbid, numgbits,
-        roishift;
-    const int32_t *prcw, *prch, *expn, *mant;
-    Res res[MAXRLVLS];
-} Comp;
-
-static void tagtree_init(Ctx *c, TagTree *t, int w, int h) {
+void j2k_tagtree_init(Ctx *c, TagTree *t, int w, int h) {
     int lw[64], lh[64], nl = 0, n = 0, i, x, y, start = 0, k = 0;
     lw[0] = w;
     lh[0] = h;
@@ -123,9 +69,9 @@ static void tagtree_init(Ctx *c, TagTree *t, int w, int h) {
         nl++;
     }
     t->n = n;
-    t->parent = (int *)alloc(c, sizeof(int) * (size_t)n);
-    t->value = (int *)alloc(c, sizeof(int) * (size_t)n);
-    t->low = (int *)alloc(c, sizeof(int) * (size_t)n);
+    t->parent = (int *)j2k_alloc(c, sizeof(int) * (size_t)n);
+    t->value = (int *)j2k_alloc(c, sizeof(int) * (size_t)n);
+    t->low = (int *)j2k_alloc(c, sizeof(int) * (size_t)n);
     for (i = 0; i < nl; i++) {
         int up = start + lw[i] * lh[i];
         for (y = 0; y < lh[i]; y++)
@@ -136,7 +82,7 @@ static void tagtree_init(Ctx *c, TagTree *t, int w, int h) {
     t->parent[k] = -1;
 }
 
-static void tagtree_reset(TagTree *t) {
+void j2k_tagtree_reset(TagTree *t) {
     int i;
     for (i = 0; i < t->n; i++) {
         t->value[i] = 999;
@@ -144,7 +90,7 @@ static void tagtree_reset(TagTree *t) {
     }
 }
 
-static void geometry(Ctx *c, Comp *cp, int tx0, int ty0, int tx1, int ty1) {
+void j2k_geometry(Ctx *c, Comp *cp, int tx0, int ty0, int tx1, int ty1) {
     int resno, n = cp->numres;
     for (resno = 0; resno < n; resno++) {
         Res *r = &cp->res[resno];
@@ -210,7 +156,7 @@ static void geometry(Ctx *c, Comp *cp, int tx0, int ty0, int tx1, int ty1) {
                 band->stepsize = (float)((1.0 + mant / 2048.0) * p);
             }
             if (band->empty) continue;
-            band->precs = (Prec *)alloc(c, sizeof(Prec) * (size_t)np);
+            band->precs = (Prec *)j2k_alloc(c, sizeof(Prec) * (size_t)np);
             for (precno = 0; precno < np; precno++) {
                 Prec *pr = &band->precs[precno];
                 int gx0 = cbgx0 + (precno % r->pw) * (1 << cbgw);
@@ -230,7 +176,7 @@ static void geometry(Ctx *c, Comp *cp, int tx0, int ty0, int tx1, int ty1) {
                     pr->cw = pr->ch = 0;
                     continue;
                 }
-                pr->cblks = (Cblk *)alloc(c, sizeof(Cblk)
+                pr->cblks = (Cblk *)j2k_alloc(c, sizeof(Cblk)
                                           * (size_t)(pr->cw * pr->ch));
                 for (k = 0; k < pr->cw * pr->ch; k++) {
                     Cblk *cb = &pr->cblks[k];
@@ -241,8 +187,8 @@ static void geometry(Ctx *c, Comp *cp, int tx0, int ty0, int tx1, int ty1) {
                     cb->x1 = imin(cx0 + (1 << cbw), pr->x1);
                     cb->y1 = imin(cy0 + (1 << cbh), pr->y1);
                 }
-                tagtree_init(c, &pr->incl, pr->cw, pr->ch);
-                tagtree_init(c, &pr->imsb, pr->cw, pr->ch);
+                j2k_tagtree_init(c, &pr->incl, pr->cw, pr->ch);
+                j2k_tagtree_init(c, &pr->imsb, pr->cw, pr->ch);
             }
         }
     }
@@ -313,7 +259,7 @@ static void init_seg(Ctx *c, Cblk *cb, int index, int cblksty) {
     int most = 109;
     if (index >= cb->nsegs) {
         int n = index + 10;
-        Seg *s = (Seg *)alloc(c, sizeof(Seg) * (size_t)n);
+        Seg *s = (Seg *)j2k_alloc(c, sizeof(Seg) * (size_t)n);
         if (cb->nsegs) memcpy(s, cb->segs, sizeof(Seg) * (size_t)cb->nsegs);
         cb->segs = s;
         cb->nsegs = n;
@@ -331,7 +277,7 @@ static void init_seg(Ctx *c, Cblk *cb, int index, int cblksty) {
 static void append(Ctx *c, Cblk *cb, const uint8_t *p, long n) {
     if (cb->dlen + n > cb->dcap) {
         long cap = (cb->dlen + n) * 2 + 16;
-        uint8_t *d = (uint8_t *)alloc(c, (size_t)cap);
+        uint8_t *d = (uint8_t *)j2k_alloc(c, (size_t)cap);
         if (cb->dlen) memcpy(d, cb->data, (size_t)cb->dlen);
         cb->data = d;
         cb->dcap = cap;
@@ -352,7 +298,7 @@ static long after_eph(Ctx *c, const uint8_t *buf, long pos, long end,
                       int csty) {
     if (!(csty & 4)) return pos;
     if (end - pos < 2 || buf[pos] != 0xFF || buf[pos + 1] != 0x92)
-        fail(c, "packet header without its EPH marker");
+        j2k_fail(c, "packet header without its EPH marker");
     return pos + 2;
 }
 
@@ -372,8 +318,8 @@ static long read_packet(Ctx *c, Comp *comps, int csty, int layno, int resno,
             if (r->bands[b].empty) continue;
             pr = &r->bands[b].precs[precno];
             if (!pr->cw) continue;
-            tagtree_reset(&pr->incl);
-            tagtree_reset(&pr->imsb);
+            j2k_tagtree_reset(&pr->incl);
+            j2k_tagtree_reset(&pr->imsb);
             for (k = 0; k < pr->cw * pr->ch; k++) pr->cblks[k].numsegs = 0;
         }
     }
@@ -435,7 +381,7 @@ static long read_packet(Ctx *c, Comp *comps, int csty, int layno, int resno,
                 int bits;
                 s->numnewpasses = imin(s->maxpasses - s->numpasses, n);
                 bits = cb->numlenbits + floorlog2(s->numnewpasses);
-                if (bits > 32) fail(c, "packet header: invalid bit number");
+                if (bits > 32) j2k_fail(c, "packet header: invalid bit number");
                 s->newlen = (int)bio_read(&bio, bits);
                 n -= s->numnewpasses;
                 if (n <= 0) break;
@@ -471,7 +417,7 @@ static long read_packet(Ctx *c, Comp *comps, int csty, int layno, int resno,
             for (;;) {
                 Seg *s = &cb->segs[segno];
                 if ((uint32_t)s->newlen > (uint32_t)(end - pos))
-                    fail(c, "segment too long for its code-block");
+                    j2k_fail(c, "segment too long for its code-block");
                 append(c, cb, data + pos, s->newlen);
                 pos += (uint32_t)s->newlen;
                 s->len += s->newlen;
@@ -505,7 +451,7 @@ static void emit(Pi *pi, int l, int r, int c, int p) {
     pi->include[index] = 1;
     if (pi->norder == pi->cap) {
         long cap = pi->cap * 2 + 64;
-        int32_t *o = (int32_t *)alloc(pi->c, sizeof(int32_t) * 4
+        int32_t *o = (int32_t *)j2k_alloc(pi->c, sizeof(int32_t) * 4
                                                * (size_t)cap);
         if (pi->norder) memcpy(o, pi->order, sizeof(int32_t) * 4
                                              * (size_t)pi->norder);
@@ -629,22 +575,22 @@ static void poc_order(Pi *pi, int r0, int c0, int l0, int l1, int r1, int c1,
 
 /* --- tier 1 ---------------------------------------------------------------- */
 
-static const uint16_t QE[47] = {
+const uint16_t J2K_QE[47] = {
     0x5601, 0x3401, 0x1801, 0x0AC1, 0x0521, 0x0221, 0x5601, 0x5401, 0x4801,
     0x3801, 0x3001, 0x2401, 0x1C01, 0x1601, 0x5601, 0x5401, 0x5101, 0x4801,
     0x3801, 0x3401, 0x3001, 0x2801, 0x2401, 0x2201, 0x1C01, 0x1801, 0x1601,
     0x1401, 0x1201, 0x1101, 0x0AC1, 0x09C1, 0x08A1, 0x0521, 0x0441, 0x02A1,
     0x0221, 0x0141, 0x0111, 0x0085, 0x0049, 0x0025, 0x0015, 0x0009, 0x0005,
     0x0001, 0x5601};
-static const uint8_t NMPS[47] = {
+const uint8_t J2K_NMPS[47] = {
     1, 2, 3, 4, 5, 38, 7, 8, 9, 10, 11, 12, 13, 29, 15, 16, 17, 18, 19, 20,
     21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38,
     39, 40, 41, 42, 43, 44, 45, 45, 46};
-static const uint8_t NLPS[47] = {
+const uint8_t J2K_NLPS[47] = {
     1, 6, 9, 12, 29, 33, 6, 14, 14, 14, 17, 18, 20, 21, 14, 14, 15, 16, 17,
     18, 19, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34,
     35, 36, 37, 38, 39, 40, 41, 42, 43, 46};
-static const uint8_t SWITCH[47] = {1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0,
+const uint8_t J2K_SWITCH[47] = {1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0,
                                    1};
 
 typedef struct {
@@ -710,16 +656,16 @@ static void mq_init(Mq *m, const uint8_t *buf, long len) {
 
 static int mq_decode(Mq *m, int cx) {
     int s = m->st[cx], d;
-    uint32_t q = QE[s];
+    uint32_t q = J2K_QE[s];
     uint32_t a = m->a - q;
     if ((m->c >> 16) < q) {
         if (a < q) {
             d = m->mps[cx];
-            m->st[cx] = NMPS[s];
+            m->st[cx] = J2K_NMPS[s];
         } else {
             d = 1 - m->mps[cx];
-            if (SWITCH[s]) m->mps[cx] = (uint8_t)d;
-            m->st[cx] = NLPS[s];
+            if (J2K_SWITCH[s]) m->mps[cx] = (uint8_t)d;
+            m->st[cx] = J2K_NLPS[s];
         }
         a = q;
     } else {
@@ -730,11 +676,11 @@ static int mq_decode(Mq *m, int cx) {
         }
         if (a < q) {
             d = 1 - m->mps[cx];
-            if (SWITCH[s]) m->mps[cx] = (uint8_t)d;
-            m->st[cx] = NLPS[s];
+            if (J2K_SWITCH[s]) m->mps[cx] = (uint8_t)d;
+            m->st[cx] = J2K_NLPS[s];
         } else {
             d = m->mps[cx];
-            m->st[cx] = NMPS[s];
+            m->st[cx] = J2K_NMPS[s];
         }
     }
     do {
@@ -747,7 +693,7 @@ static int mq_decode(Mq *m, int cx) {
     return d;
 }
 
-static int zc_context(int orient, int h, int v, int d) {
+int j2k_zc_context(int orient, int h, int v, int d) {
     if (orient == 1) { int t = h; h = v; v = t; }
     if (orient == 3) {
         int hv = h + v;
@@ -822,7 +768,7 @@ static void t1_decode(Ctx *c, T1 *t, Cblk *cb, int bpno, int orient,
         for (h = 0; h < 3; h++)
             for (v = 0; v < 3; v++)
                 for (d = 0; d < 5; d++)
-                    zc[h * 15 + v * 5 + d] = (uint8_t)zc_context(orient, h,
+                    zc[h * 15 + v * 5 + d] = (uint8_t)j2k_zc_context(orient, h,
                                                                  v, d);
     }
     memset(&m, 0, sizeof m);
@@ -830,7 +776,7 @@ static void t1_decode(Ctx *c, T1 *t, Cblk *cb, int bpno, int orient,
     reset_contexts(&m);
     for (segno = 0; segno < cb->numsegs; segno++) {
         Seg *s = &cb->segs[segno];
-        uint8_t *buf = (uint8_t *)alloc(c, (size_t)s->len + 2);
+        uint8_t *buf = (uint8_t *)j2k_alloc(c, (size_t)s->len + 2);
         int passno, raw = lazy && bpno <= cb->numbps - 4 && passtype < 2;
         memcpy(buf, cb->data + at, (size_t)s->len);
         buf[s->len] = buf[s->len + 1] = 0xFF;
@@ -1009,10 +955,10 @@ static void inverse_dwt(Ctx *c, Comp *cp, int32_t *plane, int tw,
         maxn = imax(maxn, cp->res[r].x1 - cp->res[r].x0);
         maxn = imax(maxn, cp->res[r].y1 - cp->res[r].y0);
     }
-    line = (int64_t *)alloc(c, sizeof(int64_t) * (size_t)(maxn + 1));
-    tmp = (int64_t *)alloc(c, sizeof(int64_t) * (size_t)(maxn + 1));
-    fline = (float *)alloc(c, sizeof(float) * (size_t)(maxn + 1));
-    ftmp = (float *)alloc(c, sizeof(float) * (size_t)(maxn + 1));
+    line = (int64_t *)j2k_alloc(c, sizeof(int64_t) * (size_t)(maxn + 1));
+    tmp = (int64_t *)j2k_alloc(c, sizeof(int64_t) * (size_t)(maxn + 1));
+    fline = (float *)j2k_alloc(c, sizeof(float) * (size_t)(maxn + 1));
+    ftmp = (float *)j2k_alloc(c, sizeof(float) * (size_t)(maxn + 1));
     for (r = 1; r < numres; r++) {
         Res *lo = &cp->res[r - 1], *cur = &cp->res[r];
         int sw = lo->x1 - lo->x0, sh = lo->y1 - lo->y0;
@@ -1063,14 +1009,14 @@ static void cblk_to_plane(Ctx *c, Comp *cp, Band *band, Cblk *cb,
     int bpno = (int)(int32_t)(uint32_t)(bpno64 & 0xFFFFFFFF);
     T1 t;
     if (w <= 0 || h <= 0) return;
-    if (bpno >= 31) fail(c, "code-block of 31 bit-planes or more");
+    if (bpno >= 31) j2k_fail(c, "code-block of 31 bit-planes or more");
     t.w = w; t.h = h; t.W = w + 2;
-    t.sig = (uint8_t *)alloc(c, (size_t)(t.W * (h + 2)));
-    t.neg = (uint8_t *)alloc(c, (size_t)(t.W * (h + 2)));
-    t.vis = (uint8_t *)alloc(c, (size_t)(t.W * (h + 2)));
-    t.ref = (uint8_t *)alloc(c, (size_t)(t.W * (h + 2)));
-    t.val = (int32_t *)alloc(c, sizeof(int32_t) * (size_t)(t.W * (h + 2)));
-    t.below = (uint8_t *)alloc(c, (size_t)(t.W * (h + 2)));
+    t.sig = (uint8_t *)j2k_alloc(c, (size_t)(t.W * (h + 2)));
+    t.neg = (uint8_t *)j2k_alloc(c, (size_t)(t.W * (h + 2)));
+    t.vis = (uint8_t *)j2k_alloc(c, (size_t)(t.W * (h + 2)));
+    t.ref = (uint8_t *)j2k_alloc(c, (size_t)(t.W * (h + 2)));
+    t.val = (int32_t *)j2k_alloc(c, sizeof(int32_t) * (size_t)(t.W * (h + 2)));
+    t.below = (uint8_t *)j2k_alloc(c, (size_t)(t.W * (h + 2)));
     for (y = 0; y < t.W * (h + 2); y++)
         t.below[y] = !((cp->cblksty & 0x08) && (y / t.W - 1) % 4 == 3);
     if (cb->dlen || cb->numsegs)
@@ -1121,8 +1067,8 @@ int j2k_decode_tile(const int32_t *plan, const uint8_t *data, long len,
         }
         return rc;
     }
-    if (!npocs && prg < 0) fail(&c, "unknown progression order");
-    comps = (Comp *)alloc(&c, sizeof(Comp) * (size_t)nc);
+    if (!npocs && prg < 0) j2k_fail(&c, "unknown progression order");
+    comps = (Comp *)j2k_alloc(&c, sizeof(Comp) * (size_t)nc);
     for (i = 0; i < nc; i++) {
         const int32_t *q = plan + PLAN_HEAD + PLAN_POC * MAX_POCS
                            + (long)i * COMP_INTS;
@@ -1134,7 +1080,7 @@ int j2k_decode_tile(const int32_t *plan, const uint8_t *data, long len,
         cp->prch = q + 9 + MAXRLVLS;
         cp->expn = q + 9 + 2 * MAXRLVLS;
         cp->mant = q + 9 + 2 * MAXRLVLS + MAXBANDS;
-        geometry(&c, cp, tx0, ty0, tx1, ty1);
+        j2k_geometry(&c, cp, tx0, ty0, tx1, ty1);
     }
     memset(&pi, 0, sizeof pi);
     pi.c = &c;
@@ -1148,7 +1094,7 @@ int j2k_decode_tile(const int32_t *plan, const uint8_t *data, long len,
                                comps[i].res[k].pw * comps[i].res[k].ph);
     }
     pi.include_size = (long)(numlayers + 1) * pi.max_res * nc * pi.max_prec;
-    pi.include = (uint8_t *)alloc(&c, (size_t)pi.include_size);
+    pi.include = (uint8_t *)j2k_alloc(&c, (size_t)pi.include_size);
     if (!npocs) {
         poc_order(&pi, 0, 0, 0, numlayers, pi.max_res, nc, prg);
     } else {

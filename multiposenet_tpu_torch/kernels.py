@@ -33,6 +33,8 @@ NVCC_FLAGS = (
 )
 
 CC_FLAGS = ("-O2", "-std=c99", "-shared", "-fPIC")
+# Host libraries built from more than csrc/<name>.c: the other sources.
+HOST_EXTRA_SOURCES = {"jpeg2000": ("jpeg2000_write.c",)}
 
 # Every kernel source in csrc/, by name.
 KERNEL_NAMES = ("decode_peaks", "decode_lanes", "decode_generic",
@@ -117,22 +119,26 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_host(name: str, source: Path | None = None) -> Path:
-    """Compile `source` (default csrc/<name>.c) with `cc` into
+    """Compile `source` (default csrc/<name>.c, and the sources
+    `HOST_EXTRA_SOURCES` names beside it) with `cc` into
     _build/lib<name>.so, written under a temporary name and renamed into
     place; raises RuntimeError with the compiler's log if it fails."""
     cc = shutil.which("cc")
     if cc is None:
         raise RuntimeError("no C compiler: `cc` is not on PATH")
-    source = source or CSRC / f"{name}.c"
+    sources = [source] if source else [CSRC / f"{name}.c"] + [
+        CSRC / extra for extra in HOST_EXTRA_SOURCES.get(name, ())]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([cc, *CC_FLAGS, "-o", tmp, str(source)],
+        proc = subprocess.run([cc, *CC_FLAGS, "-o", tmp,
+                               *map(str, sources)],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"cc failed on {source} (exit "
+            raise RuntimeError(f"cc failed on {', '.join(map(str, sources))}"
+                               f" (exit "
                                f"{proc.returncode}):\n{proc.stdout}")
         out = BUILD_DIR / f"lib{name}.so"
         os.replace(tmp, out)

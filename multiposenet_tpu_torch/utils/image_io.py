@@ -62,9 +62,11 @@ suffix.
 `jpeg.encode_pixels`); `encode_png` and `write_png` write uint8 gray or
 RGB as an 8-bit PNG; `encode_image` writes the bytes `cv2.imencode`
 writes for .bmp/.dib, .ppm/.pnm, .pam, .pfm, .sr/.ras, .tif/.tiff,
-.hdr/.pic and .gif (`utils/gif.py`: cv2's fixed 3-3-2 palette with its
-Floyd-Steinberg dithering), and for .webp a lossless file of cv2's
-pixels (host C; `encode_image_plain` runs the modules' plain writers);
+.hdr/.pic, .gif (`utils/gif.py`: cv2's fixed 3-3-2 palette with its
+Floyd-Steinberg dithering) and .jp2 (`utils/jpeg2000_write.py`: OpenJPEG
+2.5.3 at cv2's defaults, its rate allocation included), and for .webp a
+lossless file of cv2's pixels (host C; `encode_image_plain` runs the
+modules' plain writers);
 `decode_gray_png` reads a gray PNG as `cv2.imdecode(buf,
 cv2.IMREAD_GRAYSCALE)` does. `resize_linear` is cv2's INTER_LINEAR and
 `resize_area` its INTER_AREA, bit for bit through the C library where
@@ -88,7 +90,8 @@ import torch
 import torch.nn.functional as F
 
 from multiposenet_tpu_torch.utils import (bmp, gif, hdr, image_codec, jpeg,
-                                          jpeg2000, pxm, sunras, tiff, webp)
+                                          jpeg2000, jpeg2000_write, pxm,
+                                          sunras, tiff, webp)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NPY_MAGIC = b"\x93NUMPY"
@@ -102,12 +105,15 @@ WRITTEN_SUFFIXES = {".bmp": "bmp", ".dib": "bmp", ".ppm": "ppm",
                     ".pnm": "ppm", ".pam": "pam", ".pfm": "pfm",
                     ".sr": "sunras", ".ras": "sunras", ".tif": "tiff",
                     ".tiff": "tiff", ".webp": "webp", ".hdr": "hdr",
-                    ".pic": "hdr", ".gif": "gif"}
+                    ".pic": "hdr", ".gif": "gif", ".jp2": "jp2"}
 # Suffixes for which cv2.imwrite of 3-channel pixels returns False and
 # writes no file.
 UNWRITTEN_SUFFIXES = (".pgm", ".pbm")
 # Written suffixes whose side cv2 limits (past it: no file, False).
 _MAX_SIDES = {".webp": webp.MAX_SIDE, ".gif": gif.MAX_SIDE}
+# Written suffixes whose sides cv2 wants at least so long (under it:
+# False, and the file holds what the encoder wrote before it failed).
+_MIN_SIDES = {".jp2": jpeg2000_write.MIN_SIDE}
 # PNG colour type → (samples a pixel, allowed bit depths).
 _PNG_KINDS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
               3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
@@ -508,15 +514,17 @@ def write_jpeg(path: str | Path, rgb: np.ndarray) -> None:
 def encode_image(rgb: np.ndarray, suffix: str) -> bytes:
     """uint8 RGB [H, W, 3] → the bytes `cv2.imencode(suffix, bgr)` writes
     for a suffix of `WRITTEN_SUFFIXES` (host C; .hdr and .pic through
-    `utils/hdr.py`'s coders, .gif through `utils/gif.py`'s), but for the
-    pad byte after a Sun raster's last row (see `utils/sunras.py`); for
-    .webp a lossless file that cv2 reads back to the same pixels
-    (`utils/webp.py`)."""
+    `utils/hdr.py`'s coders, .gif through `utils/gif.py`'s, .jp2 through
+    `utils/jpeg2000_write.py`'s), but for the pad byte after a Sun
+    raster's last row (see `utils/sunras.py`); for .webp a lossless file
+    that cv2 reads back to the same pixels (`utils/webp.py`)."""
     kind = WRITTEN_SUFFIXES[suffix.lower()]
     if kind == "webp":
         return webp.encode(rgb)
     if kind == "gif":
         return gif.encode(rgb)
+    if kind == "jp2":
+        return jpeg2000_write.encode(rgb)
     return image_codec.encode_image(rgb, kind)
 
 
@@ -532,6 +540,8 @@ def encode_image_plain(rgb: np.ndarray, suffix: str) -> bytes:
         return hdr.encode_plain(rgb)
     if kind == "gif":
         return gif.encode_plain(rgb)
+    if kind == "jp2":
+        return jpeg2000_write.encode_plain(rgb)
     return {"bmp": bmp, "sunras": sunras, "tiff": tiff}[kind].encode(rgb)
 
 
@@ -541,8 +551,11 @@ def write_image(path: str | Path, rgb: np.ndarray) -> bool:
     differ, its pixels do not), the JPEG suffixes and `WRITTEN_SUFFIXES`;
     for .pgm and .pbm it writes nothing and returns False, as cv2.imwrite
     does for 3-channel pixels, and so for a .webp wider or taller than
-    16383 pixels and a .gif wider or taller than 65535. Any other suffix
-    raises a ValueError naming it."""
+    16383 pixels and a .gif wider or taller than 65535; for a .jp2
+    narrower or shorter than 32 it returns False too, leaving in the file
+    the JP2 boxes OpenJPEG writes before it refuses the size, as
+    cv2.imwrite leaves them. Any other suffix raises a ValueError naming
+    it."""
     suffix = Path(path).suffix.lower()
     if suffix in UNWRITTEN_SUFFIXES:
         return False
@@ -552,6 +565,9 @@ def write_image(path: str | Path, rgb: np.ndarray) -> bool:
         write_jpeg(path, rgb)
     elif max(np.shape(rgb)[:2]) > _MAX_SIDES.get(suffix, np.inf):
         return False  # cv2.imwrite's encoder fails: no file, False
+    elif min(np.shape(rgb)[:2]) < _MIN_SIDES.get(suffix, 0):
+        Path(path).write_bytes(jpeg2000_write.jp2_header(*np.shape(rgb)[:2]))
+        return False
     elif suffix in WRITTEN_SUFFIXES:
         Path(path).write_bytes(encode_image(rgb, suffix))
     else:

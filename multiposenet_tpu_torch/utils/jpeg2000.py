@@ -2256,13 +2256,19 @@ _i32p = ctypes.POINTER(ctypes.c_int32)
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """csrc/jpeg2000.c, built on first use, with its argument types."""
+    """csrc/jpeg2000.c and the writer's csrc/jpeg2000_write.c, built on
+    first use, with their argument types."""
     lib = kernels.load_host("jpeg2000")
     lib.j2k_decode_tile.argtypes = [_i32p, ctypes.c_char_p, ctypes.c_long,
                                     ctypes.c_char_p, ctypes.c_long,
                                     ctypes.POINTER(ctypes.c_long), _i32p,
                                     _i32p, ctypes.c_char_p, ctypes.c_int]
     lib.j2k_decode_tile.restype = ctypes.c_int
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.j2k_encode_tile.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_long, u8p, ctypes.c_long,
+                                    ctypes.POINTER(ctypes.c_long)]
+    lib.j2k_encode_tile.restype = ctypes.c_int
     return lib
 
 

@@ -836,6 +836,7 @@ def write_jpeg2000_fixtures() -> None:
                                                                 bgr)[1])
         digests[name]["imencode_gif_sha256"] = hashlib.sha256(
             cv2.imencode(".gif", bgr)[1].tobytes()).hexdigest()
+        digests[name]["imencode_jp2_sha256"] = jp2_sha(bgr)
         digests[name]["corrupt"] = jpeg2000_recipes(data)
     write_digests(digests)
 
@@ -1099,7 +1100,7 @@ def main() -> None:
     digests = {name: digest(OUT / name) for name in sorted(files)}
     # What cv2.imencode(".jpg") writes for the timing photo's pixels, and
     # for every file the size of cv2's lossless .webp of its pixels and
-    # the sha256 of its .gif.
+    # the sha256 of its .gif and its .jp2.
     photo = cv2.imread(str(OUT / "photo_480x640_q95_420.jpg"))
     digests["photo_480x640_q95_420.jpg"]["imencode_sha256"] = hashlib.sha256(
         cv2.imencode(".jpg", photo)[1].tobytes()).hexdigest()
@@ -1108,6 +1109,8 @@ def main() -> None:
             ".webp", cv2.imread(str(OUT / name)))[1])
         digests[name]["imencode_gif_sha256"] = hashlib.sha256(cv2.imencode(
             ".gif", cv2.imread(str(OUT / name)))[1].tobytes()).hexdigest()
+        digests[name]["imencode_jp2_sha256"] = jp2_sha(
+            cv2.imread(str(OUT / name)))
         if name.startswith(("tiff_", "hdr_", "photo_")):
             digests[name]["imencode_hdr_sha256"] = hashlib.sha256(
                 cv2.imencode(".hdr", cv2.imread(str(OUT / name)))[1]
@@ -1296,6 +1299,25 @@ def corruption_recipes(digests: dict) -> None:
         image_samples.corrupted(photo.read_bytes(), at))}
 
 
+def jp2_sha(bgr: np.ndarray) -> str | None:
+    """The sha256 of cv2.imencode(".jp2")'s bytes, or None where cv2
+    writes no file (a side under 32 pixels)."""
+    try:
+        ok, buf = cv2.imencode(".jp2", bgr)
+    except cv2.error:
+        return None
+    return hashlib.sha256(buf.tobytes()).hexdigest() if ok else None
+
+
+def write_jp2_digests() -> None:
+    """Only the .jp2 digests, into the committed digests."""
+    digests = json.loads((OUT / "digests.json").read_text())
+    for name in digests:
+        digests[name]["imencode_jp2_sha256"] = jp2_sha(
+            cv2.imread(str(OUT / name)))
+    write_digests(digests)
+
+
 def write_digests(digests: dict) -> None:
     """digests.json, a line for each file (compact: the fixture directory
     has a budget, held in tests/test_torch_jpeg.py)."""
@@ -1316,5 +1338,7 @@ if __name__ == "__main__":
         write_corruption_recipes()
     elif sys.argv[1:] == ["jpeg2000"]:
         write_jpeg2000_fixtures()
+    elif sys.argv[1:] == ["jp2"]:
+        write_jp2_digests()
     else:
         main()

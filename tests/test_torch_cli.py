@@ -307,13 +307,13 @@ def test_predict_on_a_gif_cv2_refuses_exits_in_both_clis(workdir, tmp_path):
                         str(image)] + extra)
 
 
-@pytest.mark.parametrize("output", ["drawn.jp2", "drawn"])
+@pytest.mark.parametrize("output", ["drawn.avif", "drawn"])
 def test_predict_output_other_than_png_exits(workdir, tmp_path, monkeypatch,
                                              output):
     """The reference writes by suffix through cv2.imwrite; the port
     writes PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF, WebP,
-    Radiance HDR and GIF (and, as cv2, no file for .pgm and .pbm), so on
-    any other suffix (only JPEG 2000 and AVIF writing remain C9b) it
+    Radiance HDR, GIF and JPEG 2000 (.jp2) (and, as cv2, no file for .pgm
+    and .pbm), so on any other suffix (only AVIF writing remains C9b) it
     exits naming the suffix before the model is loaded, and writes
     nothing."""
     from multiposenet_tpu_torch.infer import export as port_export
@@ -399,6 +399,58 @@ def test_predict_output_gif_matches_jax_cli_bytes(workdir, tmp_path,
     np.testing.assert_array_equal(
         image_io.read_image(files["port"]),
         cv2.imread(str(files["jax"]), cv2.IMREAD_COLOR)[:, :, ::-1])
+
+
+def test_predict_output_jp2_matches_jax_cli_bytes(workdir, tmp_path,
+                                                  monkeypatch):
+    """`--output drawn.jp2`: the port writes the bytes cv2.imwrite writes
+    for its drawing of the printed people, and, with each drawing replaced
+    by the input image (as the JPEG test does), the same file as the JAX
+    CLI, byte for byte."""
+    from multiposenet_tpu.utils import visualize as jax_visualize
+
+    path = tmp_path / "drawn.jp2"
+    text = _run(cli.main, ["predict", "--model-dir", workdir["model"],
+                           "--image", workdir["image_jpeg"], "--output",
+                           str(path), "--device", "cpu"])
+    people = [_person(p) for p in json.loads(text)]
+    assert people
+    drawn = visualize.draw_predictions(
+        image_io.read_image(workdir["image_jpeg"]), people)
+    ok, want = cv2.imencode(".jp2", np.ascontiguousarray(drawn[:, :, ::-1]))
+    assert ok and path.read_bytes() == want.tobytes()
+    for module in (jax_visualize, visualize):
+        monkeypatch.setattr(module, "draw_predictions",
+                            lambda rgb, people: rgb.copy())
+    files = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        files[name] = tmp_path / f"{name}.jp2"
+        _run(main, ["predict", "--model-dir", workdir["model"], "--image",
+                    workdir["image_jpeg"], "--output", str(files[name])]
+             + extra)
+    assert files["port"].read_bytes() == files["jax"].read_bytes()
+
+
+def test_predict_output_jp2_under_32_pixels_in_both_clis(workdir, tmp_path,
+                                                         capsys):
+    """A 24x40 image: cv2.imwrite refuses a .jp2 with a side under 32
+    after OpenJPEG has written the JP2 boxes, so the JAX CLI's file holds
+    those 77 bytes and no codestream; the port's holds the same bytes,
+    and both print "wrote"."""
+    scene = image_io.read_image(workdir["image"])
+    image = tmp_path / "small.png"
+    image_io.write_png(image, np.ascontiguousarray(scene[:24, :40]))
+    files = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        files[name] = tmp_path / f"{name}.jp2"
+        _run(main, ["predict", "--model-dir", workdir["model"], "--image",
+                    str(image), "--output", str(files[name])] + extra)
+        assert f"wrote {files[name]}" in capsys.readouterr().err
+    assert files["port"].read_bytes() == files["jax"].read_bytes()
+    assert len(files["port"].read_bytes()) == 77
+    assert b"jp2c" not in files["port"].read_bytes()
 
 
 def test_predict_webp_in_and_out_matches_jax_cli_pixels(workdir, tmp_path,
@@ -650,9 +702,11 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     decode and resize to cv2's digests through the C library and the
     plain versions, their corruption recipes read as cv2 read them (the
     `corrupt` part), the photo encodes to cv2's digest (JPEG, and GIF with
-    every fixture), and the JPEG eval and the three predicts count their
-    B1 launches (2, 1, 1 and 1) as the card's wrapper would, the third
-    writing `drawn.gif`; `--output drawn.jp2` exits."""
+    every fixture, and JPEG 2000 with every fixture of both sides at
+    least 32), and the JPEG eval and the four predicts count their B1
+    launches (2, 1, 1, 1 and 1) as the card's wrapper would, the third
+    writing `drawn.gif`, the fourth `drawn.jp2`; `--output drawn.avif`
+    exits."""
     from multiposenet_tpu_torch import kernels
     from multiposenet_tpu_torch.config import Config
     from multiposenet_tpu_torch.eval import runner
@@ -687,7 +741,8 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
                                   kernels, tmp_path, "cpu")
     assert paths == {"eval_jpeg_batched": 2, "cli_predict_jpeg": 1,
                      "cli_predict_jpeg_output": 1,
-                     "cli_predict_gif_output": 1}
+                     "cli_predict_gif_output": 1,
+                     "cli_predict_jp2_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
     assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 95
     assert codec["webp"]["fixtures_written"] == 95
@@ -707,7 +762,12 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert codec["webp"]["ratio_max"][1] <= 1.5
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
     assert codec["encode"]["c_encode_ms"] > 0
+    jp2 = codec["jpeg2000_write"]
+    assert jp2["fixtures"] == 61 and len(jp2["boxes_only"]) == 34
+    assert len(jp2["plain_fixtures"]) >= 4
+    assert jp2["times"]["photo"]["c_encode_ms"] > 0
     assert jpeg_row["phase"] == "eval_jpeg" and jpeg_row["images"] == 10
-    assert ".jp2" in jpeg_row["output_jp2_exit"]
+    assert ".avif" in jpeg_row["output_avif_exit"]
+    assert jpeg_row["output_jp2_bytes"] > 0
     assert jpeg_row["output_gif_bytes"] > 0
     assert jpeg_row["output_jpg_bytes"] > 0

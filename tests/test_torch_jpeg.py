@@ -872,9 +872,10 @@ def test_committed_digests_equal_cv2_and_the_port():
                    if p.suffix in (".jpg", ".png", ".webp", ".tif", ".hdr",
                                    ".pic", ".jp2", ".j2k"))
     assert sorted(digests) == files
-    # 510,000 bytes, and 300,000 more for the WebP fixtures (their own
-    # budget is held in tests/test_torch_webp.py).
-    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) <= 810_000
+    # 510,000 bytes, 300,000 more for the WebP fixtures (their own budget
+    # is held in tests/test_torch_webp.py) and 6,000 more for the digests
+    # of cv2's .jp2 of each fixture.
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) <= 816_000
     for name, want in digests.items():
         path = FIXTURES / name
         rgb = cv2.imread(str(path), cv2.IMREAD_COLOR)[:, :, ::-1]

@@ -545,9 +545,15 @@ def test_seeded_cuts_and_flips_read_as_cv2():
 
 
 def test_write_jp2_stays_refused(tmp_path):
-    """Writing JPEG 2000 is still C9b: the suffix is named."""
-    with pytest.raises(ValueError, match=".jp2"):
-        image_io.write_image(tmp_path / "x.jp2", smooth(4, 4, 3, 0))
+    """Of the JPEG 2000 suffixes cv2 5.0 writes only .jp2
+    (`cv2.haveImageWriter` is False for .j2k and .jpx): those two are
+    refused by name, and no file is written. The .jp2 writer is held in
+    tests/test_torch_jpeg2000_write.py."""
+    for suffix in (".j2k", ".jpx"):
+        assert not cv2.haveImageWriter("x" + suffix)
+        with pytest.raises(ValueError, match=suffix):
+            image_io.write_image(tmp_path / f"x{suffix}", smooth(40, 40, 3, 0))
+        assert not (tmp_path / f"x{suffix}").exists()
 
 
 def test_loader_and_prepare_take_jpeg2000(tmp_path):
