@@ -25,13 +25,15 @@ images, 32 launches), with images per second and the batched loop's
 split (phases `eval_batched`, `eval_predict`), then `predict --output`
 on a 480x640 PNG, read back (phase `cli_predict`, one launch),
 `--image scene.webp --output drawn.webp`, `--image scene_jpeg.tif
---output drawn.hdr`, a damaged JPEG and the photo with stray bytes before
-an Exif APP1 of orientation 6 (read turned; one launch each). Before
-them, phase `image_codec`
-builds the host C libraries (`csrc/image_codec.c`, `csrc/webp.c`) and
-holds their JPEG, WebP, TIFF (JPEG, CCITT, CMYK, YCbCr, CIELab) and
-Radiance HDR decodes and letterbox resize, and the plain versions, to
-cv2's digests of the committed fixtures (tests/fixtures/images), the
+--output drawn.hdr`, a damaged JPEG, the photo with stray bytes before
+an Exif APP1 of orientation 6 (read turned), the committed gray JPEG
+2000 file and the photo as cv2.imwrite writes it in AVIF (one launch
+each). Before them, phase `image_codec`
+builds the host C libraries (`csrc/image_codec.c`, `csrc/webp.c`,
+`csrc/jpeg2000.c`, `csrc/av1.c`) and holds their JPEG, WebP, TIFF (JPEG,
+CCITT, CMYK, YCbCr, CIELab), Radiance HDR, JPEG 2000 and AVIF decodes
+and letterbox resize, and the plain versions, to cv2's digests of the
+committed fixtures (tests/fixtures/images), the
 HDR and GIF writers, C and plain, to cv2's bytes, the JPEG 2000 writer,
 C on every fixture of both sides at least 32 and the photo, plain on the
 smallest, to cv2's bytes (the JP2 boxes alone for the others), the
@@ -1354,7 +1356,9 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     its DQT (`exif_stray` in the digests), read turned to 640x480 as cv2
     reads it, one B1 launch, people printed; then `--image` the committed
     reversible gray JPEG 2000 file, read to cv2's digest, one B1 launch,
-    people printed, its size and letterbox to the model's size reported.
+    people printed, its size and letterbox to the model's size reported;
+    then `--image` the committed AVIF of the 480x640 photo (cv2.imwrite's
+    file), read to cv2's digest, one B1 launch, people printed.
     Returns B1's launches."""
     scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
     image_path, out_path = directory / "scene.png", directory / "drawn.png"
@@ -1527,6 +1531,28 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
             np.isfinite(p["box"]).all() and np.isfinite(p["keypoints"]).all()
             for p in jp2_people):
         raise AssertionError(f"cli_predict: bad people on {JP2_PREDICT}")
+    # The 480x640 photo as cv2.imwrite writes it in AVIF, read to cv2's
+    # digest, one B1 launch.
+    avif_path = FIXTURES / AVIF_PREDICT
+    want = json.loads((FIXTURES / "digests.json").read_text())[AVIF_PREDICT]
+    avif_rgb = image_io.read_image(avif_path)
+    if [list(avif_rgb.shape), sha256(avif_rgb)] != [want["shape"],
+                                                    want["rgb_sha256"]] \
+            or image_io.image_size(avif_path) != (480, 640):
+        raise AssertionError(f"cli_predict: {AVIF_PREDICT} does not read as "
+                             "cv2 reads it")
+    kernels.reset_launches()
+    avif_people = json.loads(cli_stdout(
+        cli, ["predict", "--model-dir", str(directory), "--image",
+              str(avif_path)]))
+    if kernels.LAUNCHES != {decode.KERNEL: 1}:
+        raise AssertionError(f"cli_predict: --image {AVIF_PREDICT} launches "
+                             f"{kernels.LAUNCHES}")
+    counted[decode.KERNEL] += 1
+    if not avif_people or not all(
+            np.isfinite(p["box"]).all() and np.isfinite(p["keypoints"]).all()
+            for p in avif_people):
+        raise AssertionError(f"cli_predict: bad people on {AVIF_PREDICT}")
     emit({"phase": "cli_predict", "card": card, "image": [480, 640],
           "persons": len(people), "keypoint_centres_drawn": len(centres),
           "changed_pixels": int((drawn != image).any(-1).sum()),
@@ -1539,7 +1565,9 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
                        "size": list(jp2_rgb.shape[:2]),
                        "letterbox": list(letterbox_size(
                            *jp2_rgb.shape[:2], IMAGE))[::-1],
-                       "persons": len(jp2_people)}})
+                       "persons": len(jp2_people)},
+          "avif": {"file": AVIF_PREDICT, "size": list(avif_rgb.shape[:2]),
+                   "persons": len(avif_people)}})
     return counted[decode.KERNEL]
 
 
@@ -1550,6 +1578,7 @@ WEBP_TIMING = ("webp_photo_480x640_q90.webp",
                "webp_scene_480x640_lossless.webp")
 PLAIN_WEBP_PIXELS = 40_000  # the plain WebP coders run up to this size
 JP2_PREDICT = "j2k_rev_gray_37x53.jp2"
+AVIF_PREDICT = "avif_photo_480x640.avif"
 
 
 def sha256(a: np.ndarray) -> str:
@@ -1589,7 +1618,8 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
     plain decode of it and of one 192x256 scene, the C encode of it (ms)
     and the plain one (s), and the C and plain letterbox resize of it.
     The JPEG 2000 codestreams are held in `jpeg2000_checks`, the JPEG
-    2000 writer in `jpeg2000_write_checks`."""
+    2000 writer in `jpeg2000_write_checks`, the AVIF files in
+    `avif_checks`."""
     t0 = time.perf_counter()
     image_codec.library()
     build_s = time.perf_counter() - t0
@@ -1599,6 +1629,9 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
     t0 = time.perf_counter()
     image_io.jpeg2000.library()
     jpeg2000_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    image_io.avif.library()
+    avif_build_s = time.perf_counter() - t0
     digests = json.loads((FIXTURES / "digests.json").read_text())
     checked = {}
     for name, want in sorted(digests.items()):
@@ -1689,6 +1722,7 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
           "gif": gif_checks(image_io, digests, rgb),
           "jpeg2000": jpeg2000_checks(image_io, digests, jpeg2000_build_s),
           "jpeg2000_write": jpeg2000_write_checks(image_io, digests, rgb),
+          "avif": avif_checks(image_io, digests, avif_build_s),
           "corrupt": corrupt_checks(image_io, image_codec, digests, data,
                                     rgb),
           "clock": "host perf_counter, median"})
@@ -2012,6 +2046,51 @@ def jpeg2000_checks(image_io, digests: dict, build_s: float) -> dict:
                              f"{sorted(times)}")
     return {"build_s": build_s, "fixtures": times,
             "equal": "C = plain = cv2's digest"}
+
+
+def avif_checks(image_io, digests: dict, build_s: float) -> dict:
+    """AVIF (`utils/avif.py` over the host C library `csrc/av1.c`, built
+    from the sources at the start of the phase in `build_s`, before any
+    fixture is read): every committed `.avif` file (cv2.imwrite's:
+    noise, gray, an odd-sided crop, a TX_MODE_SELECT drawing, a BGRA crop
+    with its alpha item, and the 480x640 photo) decoded by the C library
+    to cv2's digest, and by the plain decoder (`utils/av1.py`) too on the
+    two smallest. Times on the host clock: the C decode of each (median),
+    the plain decode of the two smallest (once), and the share of the
+    photo's C decode spent on the tiles and filters (`decode_planes_c`)
+    rather than the container, the headers and libavif's YUV to RGB."""
+    names = sorted(n for n in digests if n.endswith(".avif"))
+    if len(names) != 6:
+        raise AssertionError(f"image_codec: AVIF fixtures {names}")
+    files = {n: (FIXTURES / n).read_bytes() for n in names}
+    smallest = sorted(names, key=lambda n: digests[n]["shape"][0]
+                      * digests[n]["shape"][1])[:2]
+    times = {}
+    for name in names:
+        data, want = files[name], digests[name]
+        got = image_io.decode_image(data, name)
+        if [list(got.shape), sha256(got)] != [want["shape"],
+                                               want["rgb_sha256"]]:
+            raise AssertionError(f"image_codec: {name}: the C AVIF decode is "
+                                 "not cv2's digest")
+        entry = {"bytes": len(data), "shape": list(got.shape[:2]),
+                 "c_decode_ms": median_ms(
+                     lambda: image_io.decode_image(data, name), 20)}
+        if name in smallest:
+            t0 = time.perf_counter()
+            plain = image_io.decode_image_plain(data, name)
+            entry["plain_decode_s"] = time.perf_counter() - t0
+            if not np.array_equal(plain, got):
+                raise AssertionError(f"image_codec: {name}: the plain AVIF "
+                                     "decoder and the C library differ")
+        times[name] = entry
+    frame = image_io.avif.read_image(files[AVIF_PREDICT]).frame
+    tiles_ms = median_ms(lambda: image_io.avif.decode_planes_c(frame), 20)
+    return {"build_s": build_s, "fixtures": times,
+            "photo_tiles_and_filters_ms": tiles_ms,
+            "plain_on": smallest,
+            "equal": "C = cv2's digest on every fixture; plain = C on the "
+                     "two smallest"}
 
 
 # The plain JPEG 2000 writer runs on the fixtures up to this many pixels.

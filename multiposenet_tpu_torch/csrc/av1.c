@@ -1,0 +1,2071 @@
+/* Host AV1 intra-frame decoder of the port, in plain C99 with no library:
+ * the one frame of an AVIF image as libaom 3.14.1 decodes it under
+ * libavif 1.4.2 and OpenCV 5.0, for the tools libaom's encoder uses at
+ * cv2's settings (8-bit 4:2:0 or monochrome key frames without palette,
+ * intra block copy, segmentation, loop restoration, superres or film
+ * grain). The container, the OBUs and the uncompressed frame header are
+ * Python (utils/avif.py), which passes the header's fields as a plan of
+ * int32 (AV1_* below) and the tiles' bytes. The plain version of
+ * everything here is utils/av1.py, which this file matches sample for
+ * sample; the stage functions exported beside av1_decode_frame (the
+ * inverse transforms, the intra predictors, CFL, the edge filters, CDEF
+ * and a deblocking line) are what the tests hold against it and against
+ * libaom's C reference functions. Nothing here keeps state between calls.
+ *
+ * av1_decode_frame reads each tile (the symbol decoder and CDF adaptation
+ * of libaom's entropy decoder, partition, intra mode info, CDEF indices,
+ * delta q and delta lf, tx size, tx type, coefficients), predicts
+ * (DC, directional with edge filtering and upsampling, smooth, Paeth,
+ * filter intra, chroma from luma), dequantises (with the quantiser
+ * matrices) and adds the inverse transform (libaom's av1_inv_txfm2d_add_c:
+ * its row and column clamps and its 16-bit stage clamps), then runs the
+ * deblocking filter and CDEF over the frame. It writes the Y plane
+ * (height x width) and, unless monochrome, U and V ((height+1)/2 x
+ * (width+1)/2). Coefficients are kept in libaom's column-major order
+ * (index = column * height + row), which its scan tables and context
+ * offsets assume.
+ *
+ * Returns 0, 1 with a message in err (a stream this decoder does not
+ * follow: palette, a damaged tile), 2 when out of memory. stats (AV1_STAT_*
+ * counters) records which tools the stream reached.
+ */
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+
+#include "av1_tables.h"
+
+/* The plan: AV1_NHDR header fields, then the tile grid and tile bytes. */
+enum {
+  AV1_WIDTH, AV1_HEIGHT, AV1_MONO, AV1_ENABLE_FILTER_INTRA,
+  AV1_ENABLE_EDGE_FILTER, AV1_ENABLE_CDEF, AV1_SCREEN_CONTENT,
+  AV1_DISABLE_CDF_UPDATE, AV1_BASE_Q, AV1_DQ_Y_DC, AV1_DQ_U_DC,
+  AV1_DQ_U_AC, AV1_DQ_V_DC, AV1_DQ_V_AC, AV1_USING_QM, AV1_QM_Y, AV1_QM_U,
+  AV1_QM_V, AV1_DELTA_Q_PRESENT, AV1_DELTA_Q_RES, AV1_DELTA_LF_PRESENT,
+  AV1_DELTA_LF_RES, AV1_DELTA_LF_MULTI, AV1_LF_LEVEL, /* 4 */
+  AV1_LF_SHARPNESS = AV1_LF_LEVEL + 4, AV1_LF_DELTA_ENABLED,
+  AV1_LF_REF_DELTAS, /* 8 */
+  AV1_CDEF_DAMPING = AV1_LF_REF_DELTAS + 8, AV1_CDEF_BITS,
+  AV1_CDEF_Y_PRI, /* 8 each */
+  AV1_CDEF_Y_SEC = AV1_CDEF_Y_PRI + 8, AV1_CDEF_UV_PRI = AV1_CDEF_Y_SEC + 8,
+  AV1_CDEF_UV_SEC = AV1_CDEF_UV_PRI + 8, AV1_TX_MODE_SELECT = AV1_CDEF_UV_SEC + 8,
+  AV1_REDUCED_TX_SET, AV1_TILE_COLS, AV1_TILE_ROWS, AV1_NHDR,
+  AV1_NO_CDEF = 79, /* 1: the frame before CDEF (a stage for the tests) */
+  AV1_COL_STARTS = 80, /* 65 MI columns */
+  AV1_ROW_STARTS = AV1_COL_STARTS + 65, /* 65 MI rows */
+  AV1_TILES = AV1_ROW_STARTS + 65 /* offset and size of each tile */
+};
+
+/* Counters of the tools a stream reached. */
+enum {
+  AV1_STAT_TX_SIZE = 0,                       /* 19 */
+  AV1_STAT_TX_TYPE = AV1_STAT_TX_SIZE + 19,   /* 16 */
+  AV1_STAT_Y_MODE = AV1_STAT_TX_TYPE + 16,    /* 13 */
+  AV1_STAT_UV_MODE = AV1_STAT_Y_MODE + 13,    /* 14 */
+  AV1_STAT_FILTER_INTRA = AV1_STAT_UV_MODE + 14, /* 5 modes */
+  AV1_STAT_ANGLE_DELTA = AV1_STAT_FILTER_INTRA + 5, /* 7 */
+  AV1_STAT_UPSAMPLE = AV1_STAT_ANGLE_DELTA + 7,
+  AV1_STAT_EDGE_FILTER, AV1_STAT_TX_DEPTH, AV1_STAT_DELTA_Q,
+  AV1_STAT_DELTA_LF, AV1_STAT_TILES, AV1_STAT_BLOCKS, AV1_STAT_EOB_MAX,
+  AV1_STAT_GOLOMB, AV1_STAT_CDEF_BLOCKS, AV1_STAT_LF_EDGES,
+  AV1_STAT_PARTITION, /* 10 */
+  AV1_NSTATS = AV1_STAT_PARTITION + 10
+};
+
+enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
+       D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
+       PAETH_PRED, UV_CFL_PRED };
+enum { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
+       FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT,
+       V_ADST, H_ADST, V_FLIPADST, H_FLIPADST };
+enum { TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4,
+       TX_8X16, TX_16X8, TX_16X32, TX_32X16, TX_32X64, TX_64X32, TX_4X16,
+       TX_16X4, TX_8X32, TX_32X8, TX_16X64, TX_64X16 };
+enum { BLOCK_4X4, BLOCK_4X8, BLOCK_8X4, BLOCK_8X8, BLOCK_8X16, BLOCK_16X8,
+       BLOCK_16X16, BLOCK_16X32, BLOCK_32X16, BLOCK_32X32, BLOCK_32X64,
+       BLOCK_64X32, BLOCK_64X64, BLOCK_64X128, BLOCK_128X64, BLOCK_128X128,
+       BLOCK_4X16, BLOCK_16X4, BLOCK_8X32, BLOCK_32X8, BLOCK_16X64,
+       BLOCK_64X16, BLOCK_INVALID = 255 };
+enum { PARTITION_NONE, PARTITION_HORZ, PARTITION_VERT, PARTITION_SPLIT,
+       PARTITION_HORZ_A, PARTITION_HORZ_B, PARTITION_VERT_A,
+       PARTITION_VERT_B, PARTITION_HORZ_4, PARTITION_VERT_4 };
+enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
+
+static const uint8_t bw4_of[22] = {1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8, 16, 16,
+                                   16, 32, 32, 1, 4, 2, 8, 4, 16};
+static const uint8_t bh4_of[22] = {1, 2, 1, 2, 4, 2, 4, 8, 4, 8, 16, 8, 16,
+                                   32, 16, 32, 4, 1, 8, 2, 16, 4};
+static const uint8_t mi_wlog2[22] = {0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4,
+                                     4, 5, 5, 0, 2, 1, 3, 2, 4};
+static const uint8_t mi_hlog2[22] = {0, 1, 0, 1, 2, 1, 2, 3, 2, 3, 4, 3, 4,
+                                     5, 4, 5, 2, 0, 3, 1, 4, 2};
+static const uint8_t max_tx_depth[22] = {0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4,
+                                         4, 4, 4, 4, 2, 2, 3, 3, 4, 4};
+static const uint8_t tx_wlog2[19] = {2, 3, 4, 5, 6, 2, 3, 3, 4, 4, 5, 5, 6,
+                                     2, 4, 3, 5, 4, 6};
+static const uint8_t tx_hlog2[19] = {2, 3, 4, 5, 6, 3, 2, 4, 3, 5, 4, 6, 5,
+                                     4, 2, 5, 3, 6, 4};
+static const uint8_t split_tx[19] = {0, 0, 1, 2, 3, 0, 0, 1, 1, 2, 2, 3, 3,
+                                     5, 6, 7, 8, 9, 10};
+static const uint8_t tx_sqr[19] = {0, 1, 2, 3, 4, 0, 0, 1, 1, 2, 2, 3, 3,
+                                   0, 0, 1, 1, 2, 2};
+static const uint8_t tx_sqr_up[19] = {0, 1, 2, 3, 4, 1, 1, 2, 2, 3, 3, 4, 4,
+                                      2, 2, 3, 3, 4, 4};
+static const uint8_t intra_mode_ctx[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1,
+                                           2, 0};
+static const uint8_t mode_to_txfm[13] = {
+    DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST,
+    DCT_ADST, ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST, ADST_ADST};
+static const uint8_t fimode_to_intradir[5] = {DC_PRED, V_PRED, H_PRED,
+                                              D157_PRED, DC_PRED};
+static const uint8_t num_ext_tx_set[6] = {1, 2, 5, 7, 12, 16};
+static const uint8_t intra_edge_kernel[3][5] = {
+    {0, 4, 8, 4, 0}, {0, 5, 6, 5, 0}, {2, 4, 4, 4, 2}};
+static const int div_table[9] = {0, 840, 420, 280, 210, 168, 140, 120, 105};
+static const int8_t inv_row_shift[19] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1,
+                                         1, 1, 1, 1, 2, 2, 2, 2};
+
+/* ---------------------------------------------------------------- CDFs */
+
+typedef struct {
+  uint16_t kf_y[5][5][14], uv[2][13][15], partition[20][11];
+  uint16_t intra_ext_tx[3][4][13][17];
+  uint16_t txb_skip[5][13][3], eob_extra[5][2][9][3], dc_sign[2][3][3];
+  uint16_t eob16[2][2][6], eob32[2][2][7], eob64[2][2][8], eob128[2][2][9];
+  uint16_t eob256[2][2][10], eob512[2][2][11], eob1024[2][2][12];
+  uint16_t coeff_base_eob[5][2][4][4], coeff_base[5][2][42][5];
+  uint16_t coeff_br[5][2][21][5];
+  uint16_t skip[3][3], filter_intra[22][3], filter_intra_mode[6];
+  uint16_t angle_delta[8][8], tx_size[4][3][4], delta_q[5];
+  uint16_t delta_lf_multi[4][5], delta_lf[5], cfl_sign[9], cfl_alpha[6][17];
+  uint16_t palette_y_mode[7][3][3], palette_uv_mode[2][3];
+} Cdfs;
+
+static void init_cdfs(Cdfs *c, int base_q) {
+  const int q = base_q <= 20 ? 0 : base_q <= 60 ? 1 : base_q <= 120 ? 2 : 3;
+#define CP(dst, src) memcpy(dst, src, sizeof(dst))
+  CP(c->kf_y, av1_kf_y_mode_cdf);
+  CP(c->uv, av1_uv_mode_cdf);
+  CP(c->partition, av1_partition_cdf);
+  CP(c->intra_ext_tx, av1_intra_ext_tx_cdf);
+  CP(c->txb_skip, av1_txb_skip_cdf[q]);
+  CP(c->eob_extra, av1_eob_extra_cdf[q]);
+  CP(c->dc_sign, av1_dc_sign_cdf[q]);
+  CP(c->eob16, av1_eob_multi16_cdf[q]);
+  CP(c->eob32, av1_eob_multi32_cdf[q]);
+  CP(c->eob64, av1_eob_multi64_cdf[q]);
+  CP(c->eob128, av1_eob_multi128_cdf[q]);
+  CP(c->eob256, av1_eob_multi256_cdf[q]);
+  CP(c->eob512, av1_eob_multi512_cdf[q]);
+  CP(c->eob1024, av1_eob_multi1024_cdf[q]);
+  CP(c->coeff_base_eob, av1_coeff_base_eob_cdf[q]);
+  CP(c->coeff_base, av1_coeff_base_cdf[q]);
+  CP(c->coeff_br, av1_coeff_br_cdf[q]);
+  CP(c->skip, av1_skip_cdf);
+  CP(c->filter_intra, av1_filter_intra_cdf);
+  CP(c->filter_intra_mode, av1_filter_intra_mode_cdf);
+  CP(c->angle_delta, av1_angle_delta_cdf);
+  CP(c->tx_size, av1_tx_size_cdf);
+  CP(c->delta_q, av1_delta_q_cdf);
+  CP(c->delta_lf_multi, av1_delta_lf_multi_cdf);
+  CP(c->delta_lf, av1_delta_lf_cdf);
+  CP(c->cfl_sign, av1_cfl_sign_cdf);
+  CP(c->cfl_alpha, av1_cfl_alpha_cdf);
+  CP(c->palette_y_mode, av1_palette_y_mode_cdf);
+  CP(c->palette_uv_mode, av1_palette_uv_mode_cdf);
+#undef CP
+}
+
+/* ------------------------------------------------- the symbol decoder */
+
+typedef struct {
+  const uint8_t *buf, *bptr, *end;
+  uint32_t dif;
+  uint32_t rng;
+  int cnt;
+  int tell_offs;
+  int allow_update;
+} Ec;
+
+static void ec_refill(Ec *d) {
+  int s = 32 - 9 - (d->cnt + 15);
+  uint32_t dif = d->dif;
+  int cnt = d->cnt;
+  const uint8_t *b = d->bptr;
+  for (; s >= 0 && b < d->end; s -= 8, b++) {
+    dif ^= (uint32_t)b[0] << s;
+    cnt += 8;
+  }
+  if (b >= d->end) {
+    d->tell_offs += 0x4000 - cnt;
+    cnt = 0x4000;
+  }
+  d->dif = dif;
+  d->cnt = cnt;
+  d->bptr = b;
+}
+
+static void ec_init(Ec *d, const uint8_t *buf, long n, int allow_update) {
+  d->buf = d->bptr = buf;
+  d->end = buf + n;
+  d->tell_offs = 10 - (32 - 8);
+  d->dif = ((uint32_t)1 << 31) - 1;
+  d->rng = 0x8000;
+  d->cnt = -15;
+  d->allow_update = allow_update;
+  ec_refill(d);
+}
+
+/* libaom's aom_reader_has_overflowed: the bits read (od_ec_dec_tell) run
+ * past the tile's bytes. */
+static int ec_overflowed(const Ec *d) {
+  const long tell = (long)(d->bptr - d->buf) * 8 - d->cnt + d->tell_offs;
+  return ((tell + 7) >> 3) > (long)(d->end - d->buf);
+}
+
+/* libaom's check_trailing_bits_after_symbol_coder: after a tile's last
+ * symbol, a 1 bit, then zeros to the end of its bytes. */
+static int ec_trailing_bits_ok(const Ec *d) {
+  if (ec_overflowed(d)) return 0;
+  const long bits = (long)(d->bptr - d->buf) * 8 - d->cnt + d->tell_offs;
+  const uint8_t *p = d->buf + ((bits + 7) >> 3);
+  const int pattern = 128 >> ((bits - 1) & 7);
+  if ((p[-1] & (2 * pattern - 1)) != pattern) return 0;
+  for (; p < d->end; p++)
+    if (*p) return 0;
+  return 1;
+}
+
+static int ilog_nz(uint32_t v) { /* 1 + floor(log2 v), v > 0 */
+  int n = 0;
+  while (v) { n++; v >>= 1; }
+  return n;
+}
+
+static int ec_normalize(Ec *d, uint32_t dif, uint32_t rng, int ret) {
+  int s = 16 - ilog_nz(rng);
+  d->cnt -= s;
+  d->dif = ((dif + 1) << s) - 1;
+  d->rng = rng << s;
+  if (d->cnt < 0) ec_refill(d);
+  return ret;
+}
+
+static int ec_decode_cdf(Ec *d, const uint16_t *icdf, int nsyms) {
+  uint32_t dif = d->dif, r = d->rng, c = dif >> 16, u, v = r;
+  int ret = -1, n = nsyms - 1;
+  do {
+    u = v;
+    ret++;
+    v = ((r >> 8) * (uint32_t)(icdf[ret] >> 6) >> 1);
+    v += 4 * (uint32_t)(n - ret);
+  } while (c < v);
+  r = u - v;
+  dif -= v << 16;
+  return ec_normalize(d, dif, r, ret);
+}
+
+static int ec_bool(Ec *d, unsigned f) {
+  uint32_t dif = d->dif, r = d->rng, v, vw, rnew;
+  int ret = 1;
+  v = ((r >> 8) * (uint32_t)(f >> 6) >> 1) + 4;
+  vw = v << 16;
+  rnew = v;
+  if (dif >= vw) {
+    rnew = r - v;
+    dif -= vw;
+    ret = 0;
+  }
+  return ec_normalize(d, dif, rnew, ret);
+}
+
+static int read_bit(Ec *d) { return ec_bool(d, 16384); }
+
+static int read_literal(Ec *d, int n) {
+  int v = 0;
+  for (int i = 0; i < n; i++) v = (v << 1) | read_bit(d);
+  return v;
+}
+
+static void update_cdf(uint16_t *cdf, int val, int nsymbs) {
+  static const int nsymbs2speed[17] = {0, 0, 1, 1, 2, 2, 2, 2, 2,
+                                       2, 2, 2, 2, 2, 2, 2, 2};
+  const int rate = 3 + (cdf[nsymbs] > 15) + (cdf[nsymbs] > 31) +
+                   nsymbs2speed[nsymbs];
+  int tmp = 32768;
+  for (int i = 0; i < nsymbs - 1; ++i) {
+    tmp = (i == val) ? 0 : tmp;
+    if (tmp < cdf[i])
+      cdf[i] -= (uint16_t)((cdf[i] - tmp) >> rate);
+    else
+      cdf[i] += (uint16_t)((tmp - cdf[i]) >> rate);
+  }
+  cdf[nsymbs] += (cdf[nsymbs] < 32);
+}
+
+static int read_symbol(Ec *d, uint16_t *cdf, int nsymbs) {
+  int v = ec_decode_cdf(d, cdf, nsymbs);
+  if (d->allow_update) update_cdf(cdf, v, nsymbs);
+  return v;
+}
+
+/* ------------------------------------------------------ the decoder */
+
+typedef struct {
+  int width, height, mono, ssx, ssy, planes;
+  int mi_cols, mi_rows, mi_stride;
+  const int32_t *hdr;
+  /* planes (stride, allocated rows) */
+  uint8_t *frame[3];
+  int stride[3], alloc_h[3];
+  /* per 4x4 luma unit */
+  uint8_t *mi_size, *y_mode, *uv_mode, *skip, *tx_size_mi;
+  int8_t *delta_lf; /* 4 a unit */
+  int8_t *cdef_idx; /* per 64x64 */
+  int cdef_stride;
+  /* per 4x4 unit of each plane: the transform size for deblocking */
+  uint8_t *lf_txsz[3];
+  int lf_stride[3];
+  int32_t *stats;
+  char *err;
+  int errlen;
+  int failed;
+} Frame;
+
+typedef struct {
+  Frame *f;
+  Ec ec;
+  Cdfs cdf;
+  int mi_row_start, mi_row_end, mi_col_start, mi_col_end;
+  int current_q;
+  int delta_lf[4];
+  /* above contexts (per tile, frame-wide arrays indexed by 4x4 unit) */
+  uint8_t *above_ctx[3], left_ctx[3][32];
+  /* block decoded flags of the current superblock */
+  uint8_t decoded[3][34][34];
+  /* the current block */
+  int mi_row, mi_col, bsize, has_chroma;
+  int avail_u, avail_l, avail_u_chroma, avail_l_chroma;
+  int skip, y_mode, uv_mode, angle_y, angle_uv, use_filter_intra,
+      filter_mode, cfl_u, cfl_v, tx_size, read_deltas;
+  int max_luma_w, max_luma_h;
+  int32_t coef[64 * 64];
+} Tile;
+
+static void fail(Frame *f, const char *msg) {
+  if (!f->failed) {
+    snprintf(f->err, (size_t)f->errlen, "%s", msg);
+    f->failed = 1;
+  }
+}
+
+static int bsize_of(int w4, int h4) {
+  switch (w4 * 64 + h4) {
+    case 1 * 64 + 1: return BLOCK_4X4;
+    case 1 * 64 + 2: return BLOCK_4X8;
+    case 2 * 64 + 1: return BLOCK_8X4;
+    case 2 * 64 + 2: return BLOCK_8X8;
+    case 2 * 64 + 4: return BLOCK_8X16;
+    case 4 * 64 + 2: return BLOCK_16X8;
+    case 4 * 64 + 4: return BLOCK_16X16;
+    case 4 * 64 + 8: return BLOCK_16X32;
+    case 8 * 64 + 4: return BLOCK_32X16;
+    case 8 * 64 + 8: return BLOCK_32X32;
+    case 8 * 64 + 16: return BLOCK_32X64;
+    case 16 * 64 + 8: return BLOCK_64X32;
+    case 16 * 64 + 16: return BLOCK_64X64;
+    case 1 * 64 + 4: return BLOCK_4X16;
+    case 4 * 64 + 1: return BLOCK_16X4;
+    case 2 * 64 + 8: return BLOCK_8X32;
+    case 8 * 64 + 2: return BLOCK_32X8;
+    case 4 * 64 + 16: return BLOCK_16X64;
+    case 16 * 64 + 4: return BLOCK_64X16;
+  }
+  return BLOCK_INVALID;
+}
+
+static int tx_bsize(int tx) {
+  return bsize_of(1 << (tx_wlog2[tx] - 2), 1 << (tx_hlog2[tx] - 2));
+}
+
+static int plane_bsize(int bsize, int ssx, int ssy) {
+  return av1_ss_size_lookup[bsize][ssx][ssy];
+}
+
+#define MI(f, arr, r, c) ((f)->arr[(r) * (f)->mi_stride + (c)])
+
+static int is_inside(const Tile *t, int r, int c) {
+  return c >= t->mi_col_start && c < t->mi_col_end &&
+         r >= t->mi_row_start && r < t->mi_row_end;
+}
+
+static uint8_t px(const Frame *f, int p, int y, int x) {
+  return f->frame[p][y * f->stride[p] + x];
+}
+
+static int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
+static int round2(int64_t x, int n) {
+  if (n == 0) return (int)x;
+  return (int)((x + ((int64_t)1 << (n - 1))) >> n);
+}
+static int round2signed(int64_t x, int n) {
+  return x >= 0 ? round2(x, n) : -round2(-x, n);
+}
+static int floor_log2(uint32_t x) { return ilog_nz(x) - 1; }
+
+/* ------------------------------------------------ inverse transforms */
+
+static int32_t cospi12(int i) { return av1_cospi[2][i]; }
+
+static int32_t clamp16(int64_t v) {
+  return v < -32768 ? -32768 : v > 32767 ? 32767 : (int32_t)v;
+}
+
+static int32_t cos128(int angle) {
+  int a = angle & 255;
+  if (a <= 64) return cospi12(a);
+  if (a <= 128) return -cospi12(128 - a);
+  if (a <= 192) return -cospi12(a - 128);
+  return cospi12(256 - a);
+}
+static int32_t sin128(int angle) { return cos128(angle - 64); }
+
+/* The butterfly of the AV1 specification, section 7.13.2.2: a rotation
+ * by angle, rounded to 12 bits, with the two outputs swapped if flip. */
+static void bfly(int32_t *T, int a, int b, int angle, int flip) {
+  int64_t x = (int64_t)T[a] * cos128(angle) - (int64_t)T[b] * sin128(angle);
+  int64_t y = (int64_t)T[a] * sin128(angle) + (int64_t)T[b] * cos128(angle);
+  int32_t xr = (int32_t)((x + 2048) >> 12), yr = (int32_t)((y + 2048) >> 12);
+  if (flip) {
+    T[a] = yr;
+    T[b] = xr;
+  } else {
+    T[a] = xr;
+    T[b] = yr;
+  }
+}
+
+/* The Hadamard step: T[a], T[b] = T[a] + T[b], T[a] - T[b] (flip: the
+ * roles of a and b swapped), clamped to 16 bits as libaom's clamp_value
+ * at stage_range 16 clamps them. */
+static void hada(int32_t *T, int a, int b, int flip) {
+  if (flip) { int t = a; a = b; b = t; }
+  int32_t x = T[a], y = T[b];
+  T[a] = clamp16((int64_t)x + y);
+  T[b] = clamp16((int64_t)x - y);
+}
+
+static int brev(int nbits, int x) {
+  int r = 0;
+  for (int i = 0; i < nbits; i++) r |= ((x >> i) & 1) << (nbits - 1 - i);
+  return r;
+}
+
+/* Inverse DCT of 2^n points (AV1 specification 7.13.2.3). */
+void av1_idct(int32_t *T, int n) {
+  int32_t copy[64];
+  const int n0 = 1 << n;
+  memcpy(copy, T, sizeof(int32_t) * n0);
+  for (int i = 0; i < n0; i++) T[i] = copy[brev(n, i)];
+  if (n == 6)
+    for (int i = 0; i < 16; i++) bfly(T, 32 + i, 63 - i, 63 - 4 * brev(4, i), 0);
+  if (n >= 5)
+    for (int i = 0; i < 8; i++) bfly(T, 16 + i, 31 - i, 6 + (brev(3, 7 - i) << 3), 0);
+  if (n == 6)
+    for (int i = 0; i < 16; i++) hada(T, 32 + i * 2, 33 + i * 2, i & 1);
+  if (n >= 4)
+    for (int i = 0; i < 4; i++) bfly(T, 8 + i, 15 - i, 12 + (brev(2, 3 - i) << 4), 0);
+  if (n >= 5)
+    for (int i = 0; i < 8; i++) hada(T, 16 + 2 * i, 17 + 2 * i, i & 1);
+  if (n == 6)
+    for (int i = 0; i < 4; i++)
+      for (int j = 0; j < 2; j++)
+        bfly(T, 62 - i * 4 - j, 33 + i * 4 + j, 60 - 16 * brev(2, i) + 64 * j, 1);
+  if (n >= 3)
+    for (int i = 0; i < 2; i++) bfly(T, 4 + i, 7 - i, 56 - 32 * i, 0);
+  if (n >= 4)
+    for (int i = 0; i < 4; i++) hada(T, 8 + 2 * i, 9 + 2 * i, i & 1);
+  if (n >= 5)
+    for (int i = 0; i < 2; i++)
+      for (int j = 0; j < 2; j++)
+        bfly(T, 30 - 4 * i - j, 17 + 4 * i + j, 24 + (j << 6) + ((1 - i) << 5), 1);
+  if (n == 6)
+    for (int i = 0; i < 8; i++)
+      for (int j = 0; j < 2; j++) hada(T, 32 + i * 4 + j, 35 + i * 4 - j, i & 1);
+  for (int i = 0; i < 2; i++) bfly(T, 2 * i, 1 + 2 * i, 32 + 16 * i, 1 - i);
+  if (n >= 3)
+    for (int i = 0; i < 2; i++) hada(T, 4 + 2 * i, 5 + 2 * i, i);
+  if (n >= 4)
+    for (int i = 0; i < 2; i++) bfly(T, 14 - i, 9 + i, 48 + 64 * i, 1);
+  if (n >= 5)
+    for (int i = 0; i < 4; i++)
+      for (int j = 0; j < 2; j++) hada(T, 16 + 4 * i + j, 19 + 4 * i - j, i & 1);
+  if (n == 6)
+    for (int i = 0; i < 2; i++)
+      for (int j = 0; j < 4; j++)
+        bfly(T, 61 - i * 8 - j, 34 + i * 8 + j, 56 - i * 32 + (j >> 1) * 64, 1);
+  for (int i = 0; i < 2; i++) hada(T, i, 3 - i, 0);
+  if (n >= 3) bfly(T, 6, 5, 32, 1);
+  if (n >= 4)
+    for (int i = 0; i < 2; i++)
+      for (int j = 0; j < 2; j++) hada(T, 8 + 4 * i + j, 11 + 4 * i - j, i);
+  if (n >= 5)
+    for (int i = 0; i < 4; i++) bfly(T, 29 - i, 18 + i, 48 + (i >> 1) * 64, 1);
+  if (n == 6)
+    for (int i = 0; i < 4; i++)
+      for (int j = 0; j < 4; j++) hada(T, 32 + 8 * i + j, 39 + 8 * i - j, i & 1);
+  if (n >= 3)
+    for (int i = 0; i < 4; i++) hada(T, i, 7 - i, 0);
+  if (n >= 4)
+    for (int i = 0; i < 2; i++) bfly(T, 13 - i, 10 + i, 32, 1);
+  if (n >= 5)
+    for (int i = 0; i < 2; i++)
+      for (int j = 0; j < 4; j++) hada(T, 16 + i * 8 + j, 23 + i * 8 - j, i);
+  if (n == 6)
+    for (int i = 0; i < 8; i++) bfly(T, 59 - i, 36 + i, i < 4 ? 48 : 112, 1);
+  if (n >= 4)
+    for (int i = 0; i < 8; i++) hada(T, i, 15 - i, 0);
+  if (n >= 5)
+    for (int i = 0; i < 4; i++) bfly(T, 27 - i, 20 + i, 32, 1);
+  if (n == 6) {
+    for (int i = 0; i < 8; i++) hada(T, 32 + i, 47 - i, 0);
+    for (int i = 0; i < 8; i++) hada(T, 48 + i, 63 - i, 1);
+  }
+  if (n >= 5)
+    for (int i = 0; i < 16; i++) hada(T, i, 31 - i, 0);
+  if (n == 6)
+    for (int i = 0; i < 8; i++) bfly(T, 55 - i, 40 + i, 32, 1);
+  if (n == 6)
+    for (int i = 0; i < 32; i++) hada(T, i, 63 - i, 0);
+}
+
+void av1_iadst4(int32_t *T) {
+  const int32_t *s = av1_sinpi[2];
+  int32_t x0 = T[0], x1 = T[1], x2 = T[2], x3 = T[3];
+  if (!(x0 | x1 | x2 | x3)) return;
+  int32_t s0 = s[1] * x0, s1 = s[2] * x0, s2 = s[3] * x1, s3 = s[4] * x2;
+  int32_t s4 = s[1] * x2, s5 = s[2] * x3, s6 = s[4] * x3;
+  int32_t s7 = (x0 - x2) + x3;
+  s0 = s0 + s3;
+  s1 = s1 - s4;
+  s3 = s2;
+  s2 = s[3] * s7;
+  s0 = s0 + s5;
+  s1 = s1 - s6;
+  x0 = s0 + s3;
+  x1 = s1 + s3;
+  x2 = s2;
+  x3 = s0 + s1;
+  x3 = x3 - s3;
+  T[0] = round2(x0, 12);
+  T[1] = round2(x1, 12);
+  T[2] = round2(x2, 12);
+  T[3] = round2(x3, 12);
+}
+
+/* Inverse ADST of 8 or 16 points (AV1 specification 7.13.2.6-7.13.2.8). */
+void av1_iadst(int32_t *T, int n) {
+  int32_t copy[16];
+  const int n0 = 1 << n;
+  memcpy(copy, T, sizeof(int32_t) * n0);
+  for (int i = 0; i < n0; i++)
+    T[i] = copy[(i & 1) ? (i - 1) : (n0 - i - 1)];
+  if (n == 3) {
+    for (int i = 0; i < 4; i++) bfly(T, 2 * i, 2 * i + 1, 60 - 16 * i, 1);
+    for (int i = 0; i < 4; i++) hada(T, i, 4 + i, 0);
+    for (int i = 0; i < 2; i++) bfly(T, 4 + 3 * i, 5 + i, 48 - 32 * i, 1);
+    for (int i = 0; i < 2; i++) {
+      hada(T, i, 2 + i, 0);
+      hada(T, 4 + i, 6 + i, 0);
+    }
+    for (int i = 0; i < 2; i++) bfly(T, 2 + 4 * i, 3 + 4 * i, 32, 1);
+  } else {
+    for (int i = 0; i < 8; i++) bfly(T, 2 * i, 2 * i + 1, 62 - 8 * i, 1);
+    for (int i = 0; i < 8; i++) hada(T, i, 8 + i, 0);
+    for (int i = 0; i < 2; i++) {
+      bfly(T, 8 + 2 * i, 9 + 2 * i, 56 - 32 * i, 1);
+      bfly(T, 13 + 2 * i, 12 + 2 * i, 8 + 32 * i, 1);
+    }
+    for (int i = 0; i < 4; i++) {
+      hada(T, i, 4 + i, 0);
+      hada(T, 8 + i, 12 + i, 0);
+    }
+    for (int i = 0; i < 2; i++) {
+      bfly(T, 4 + 8 * i, 5 + 8 * i, 48, 1);
+      bfly(T, 7 + 8 * i, 6 + 8 * i, 16, 1);
+    }
+    for (int i = 0; i < 2; i++) {
+      hada(T, i, 2 + i, 0);
+      hada(T, 4 + i, 6 + i, 0);
+      hada(T, 8 + i, 10 + i, 0);
+      hada(T, 12 + i, 14 + i, 0);
+    }
+    for (int i = 0; i < 4; i++) bfly(T, 2 + 4 * i, 3 + 4 * i, 32, 1);
+  }
+  memcpy(copy, T, sizeof(int32_t) * n0);
+  for (int i = 0; i < n0; i++) {
+    int a = (i >> 3) & 1;
+    int b = ((i >> 2) & 1) ^ ((i >> 3) & 1);
+    int c = ((i >> 1) & 1) ^ ((i >> 2) & 1);
+    int d = (i & 1) ^ ((i >> 1) & 1);
+    int idx = ((d << 3) | (c << 2) | (b << 1) | a) >> (4 - n);
+    T[i] = (i & 1) ? -copy[idx] : copy[idx];
+  }
+}
+
+static void iidentity(int32_t *T, int n) {
+  const int n0 = 1 << n;
+  for (int i = 0; i < n0; i++) {
+    if (n == 2) T[i] = round2((int64_t)T[i] * 5793, 12);
+    else if (n == 3) T[i] = T[i] * 2;
+    else if (n == 4) T[i] = round2((int64_t)T[i] * 11586, 12);
+    else T[i] = T[i] * 4;
+  }
+}
+
+/* kind: 0 DCT, 1 ADST, 2 flipped ADST, 3 identity. */
+static void tx1d(int32_t *T, int n, int kind) {
+  if (kind == 0) av1_idct(T, n);
+  else if (kind == 3) iidentity(T, n);
+  else if (n == 2) av1_iadst4(T);
+  else av1_iadst(T, n);
+}
+
+static void tx_kinds(int tx_type, int *vert, int *horz) {
+  static const uint8_t v[16] = {0, 1, 0, 1, 2, 0, 2, 1, 2, 3, 0, 3, 1, 3, 2, 3};
+  static const uint8_t h[16] = {0, 0, 1, 1, 0, 2, 2, 2, 1, 3, 3, 0, 3, 1, 3, 2};
+  *vert = v[tx_type];
+  *horz = h[tx_type];
+}
+
+/* av1_inv_txfm2d_add_c: coef is column-major over the coded area
+ * (min(w,32) x min(h,32)); the residual is added to dst and clipped. */
+void av1_inverse_transform_add(const int32_t *coef, int tx, int tx_type,
+                               uint8_t *dst, int stride) {
+  const int lw = tx_wlog2[tx], lh = tx_hlog2[tx];
+  const int w = 1 << lw, h = 1 << lh;
+  const int cw = w > 32 ? 32 : w, ch = h > 32 ? 32 : h;
+  const int rect = lw - lh == 1 || lh - lw == 1;
+  int vert, horz;
+  int32_t buf[64 * 64];
+  int32_t tmp[64];
+  tx_kinds(tx_type, &vert, &horz);
+  const int row_shift = inv_row_shift[tx];
+  for (int r = 0; r < h; r++) {
+    for (int c = 0; c < w; c++) {
+      int32_t v = (r < ch && c < cw) ? coef[c * ch + r] : 0;
+      if (rect) v = round2((int64_t)v * 2896, 12);
+      tmp[c] = v < -32768 ? -32768 : v > 32767 ? 32767 : v;
+    }
+    tx1d(tmp, lw, horz);
+    for (int c = 0; c < w; c++) buf[r * w + c] = round2(tmp[c], row_shift);
+  }
+  for (int c = 0; c < w; c++) {
+    const int sc = horz == 2 ? w - 1 - c : c;
+    for (int r = 0; r < h; r++) tmp[r] = clamp16(buf[r * w + sc]);
+    tx1d(tmp, lh, vert);
+    for (int r = 0; r < h; r++) {
+      const int v = round2(tmp[vert == 2 ? h - 1 - r : r], 4);
+      uint8_t *p = dst + r * stride + c;
+      *p = (uint8_t)clip3(0, 255, *p + v);
+    }
+  }
+}
+
+/* --------------------------------------------------- intra prediction */
+
+static int is_directional(int mode) { return mode >= V_PRED && mode <= D67_PRED; }
+
+static int is_smooth_at(const Tile *t, int r, int c, int plane) {
+  const Frame *f = t->f;
+  int mode = plane == 0 ? MI(f, y_mode, r, c) : MI(f, uv_mode, r, c);
+  return mode == SMOOTH_PRED || mode == SMOOTH_V_PRED || mode == SMOOTH_H_PRED;
+}
+
+static int filter_type(const Tile *t, int plane) {
+  const Frame *f = t->f;
+  int above = 0, left = 0;
+  if (plane == 0 ? t->avail_u : t->avail_u_chroma) {
+    int r = t->mi_row - 1, c = t->mi_col;
+    if (plane > 0) {
+      if (f->ssx && !(t->mi_col & 1)) c++;
+      if (f->ssy && (t->mi_row & 1)) r--;
+    }
+    above = is_smooth_at(t, r, c, plane);
+  }
+  if (plane == 0 ? t->avail_l : t->avail_l_chroma) {
+    int r = t->mi_row, c = t->mi_col - 1;
+    if (plane > 0) {
+      if (f->ssx && (t->mi_col & 1)) c--;
+      if (f->ssy && !(t->mi_row & 1)) r++;
+    }
+    left = is_smooth_at(t, r, c, plane);
+  }
+  return above || left;
+}
+
+static int edge_strength(int w, int h, int type, int delta) {
+  const int d = delta < 0 ? -delta : delta;
+  const int wh = w + h;
+  int s = 0;
+  if (type == 0) {
+    if (wh <= 8) { if (d >= 56) s = 1; }
+    else if (wh <= 12) { if (d >= 40) s = 1; }
+    else if (wh <= 16) { if (d >= 40) s = 1; }
+    else if (wh <= 24) { if (d >= 8) s = 1; if (d >= 16) s = 2; if (d >= 32) s = 3; }
+    else if (wh <= 32) { if (d >= 1) s = 1; if (d >= 4) s = 2; if (d >= 32) s = 3; }
+    else { if (d >= 1) s = 3; }
+  } else {
+    if (wh <= 8) { if (d >= 40) s = 1; if (d >= 64) s = 2; }
+    else if (wh <= 16) { if (d >= 20) s = 1; if (d >= 48) s = 2; }
+    else if (wh <= 24) { if (d >= 4) s = 3; }
+    else { if (d >= 1) s = 3; }
+  }
+  return s;
+}
+
+static int use_upsample(int w, int h, int type, int delta) {
+  const int d = delta < 0 ? -delta : delta;
+  if (d <= 0 || d >= 40) return 0;
+  return type ? (w + h <= 8) : (w + h <= 16);
+}
+
+/* edge[-1 .. sz-2] filtered in place; edge points at element 0 (index -1
+ * reachable). */
+void av1_edge_filter(int *edge, int sz, int strength) {
+  int tmp[288];
+  if (!strength) return;
+  for (int i = 0; i < sz; i++) tmp[i] = edge[i - 1];
+  for (int i = 1; i < sz; i++) {
+    int s = 0;
+    for (int j = 0; j < 5; j++) {
+      int k = clip3(0, sz - 1, i - 2 + j);
+      s += intra_edge_kernel[strength - 1][j] * tmp[k];
+    }
+    edge[i - 1] = (s + 8) >> 4;
+  }
+}
+
+void av1_edge_upsample(int *buf, int numpx) {
+  int dup[64];
+  dup[0] = buf[-1];
+  for (int i = -1; i < numpx; i++) dup[i + 2] = buf[i];
+  dup[numpx + 2] = buf[numpx - 1];
+  buf[-2] = dup[0];
+  for (int i = 0; i < numpx; i++) {
+    int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
+    s = clip3(0, 255, round2(s, 4));
+    buf[2 * i - 1] = s;
+    buf[2 * i] = dup[i + 2];
+  }
+}
+
+/* Filter intra (AV1 specification 7.11.2.3) of a w x h block (sides up
+ * to 32) from its edges: above[-1..w-1] (above[-1] the corner) and left[0..h-1]. */
+void av1_filter_intra_predict(uint8_t *dst, int stride, int w, int h,
+                              const int *above, const int *left, int mode) {
+  int pred[32][32];
+  const int w4 = w >> 2, h2 = h >> 1;
+  for (int i2 = 0; i2 < h2; i2++)
+    for (int j4 = 0; j4 < w4; j4++) {
+      int p[7];
+      for (int i = 0; i < 7; i++) {
+        if (i < 5) {
+          if (i2 == 0) p[i] = above[(j4 << 2) + i - 1];
+          else if (j4 == 0 && i == 0) p[i] = left[(i2 << 1) - 1];
+          else p[i] = pred[(i2 << 1) - 1][(j4 << 2) + i - 1];
+        } else {
+          if (j4 == 0) p[i] = left[(i2 << 1) + i - 5];
+          else p[i] = pred[(i2 << 1) + i - 5][(j4 << 2) - 1];
+        }
+      }
+      for (int i = 0; i < 8; i++) {
+        int pr = 0;
+        for (int j = 0; j < 7; j++) pr += av1_filter_intra_taps[mode][i][j] * p[j];
+        pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] =
+            clip3(0, 255, round2signed(pr, 4));
+      }
+    }
+  for (int i = 0; i < h; i++)
+    for (int j = 0; j < w; j++) dst[i * stride + j] = (uint8_t)pred[i][j];
+}
+
+/* Directional prediction at angle (7.11.2.4, step 4 on): above and left
+ * are the (filtered, upsampled) edges, indexable from -16. */
+void av1_dr_predict(uint8_t *dst, int stride, int w, int h, const int *above,
+                    const int *left, int up_above, int up_left, int angle) {
+  int dx = 0, dy = 0;
+  if (angle < 90) dx = av1_dr_intra_derivative[angle];
+  else if (angle > 90 && angle < 180) dx = av1_dr_intra_derivative[180 - angle];
+  if (angle > 90 && angle < 180) dy = av1_dr_intra_derivative[angle - 90];
+  else if (angle > 180) dy = av1_dr_intra_derivative[270 - angle];
+  for (int i = 0; i < h; i++)
+    for (int j = 0; j < w; j++) {
+      int v;
+      if (angle < 90) {
+        int idx = (i + 1) * dx;
+        int base = (idx >> (6 - up_above)) + (j << up_above);
+        int shift = ((idx << up_above) >> 1) & 0x1F;
+        int max_base = (w + h - 1) << up_above;
+        if (base < max_base)
+          v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+        else
+          v = above[max_base];
+      } else if (angle > 90 && angle < 180) {
+        int idx = (j << 6) - (i + 1) * dx;
+        int base = idx >> (6 - up_above);
+        if (base >= -(1 << up_above)) {
+          int shift = ((idx * (1 << up_above)) >> 1) & 0x1F;
+          v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+        } else {
+          idx = (i << 6) - (j + 1) * dy;
+          base = idx >> (6 - up_left);
+          int shift = ((idx * (1 << up_left)) >> 1) & 0x1F;
+          v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+        }
+      } else if (angle > 180) {
+        int idx = (j + 1) * dy;
+        int base = (idx >> (6 - up_left)) + (i << up_left);
+        int shift = ((idx << up_left) >> 1) & 0x1F;
+        v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+      } else if (angle == 90) {
+        v = above[j];
+      } else {
+        v = left[i];
+      }
+      dst[i * stride + j] = (uint8_t)v;
+    }
+}
+
+/* DC, smooth, smooth V, smooth H and Paeth prediction from the edges. */
+void av1_nondir_predict(uint8_t *dst, int stride, int w, int h,
+                        const int *above, const int *left, int mode,
+                        int have_left, int have_above) {
+  const int lw = floor_log2((uint32_t)w), lh = floor_log2((uint32_t)h);
+  if (mode == SMOOTH_PRED) {
+    const uint8_t *wx = av1_smooth_weights + w - 4, *wy = av1_smooth_weights + h - 4;
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        int s = wy[i] * above[j] + (256 - wy[i]) * left[h - 1] +
+                wx[j] * left[i] + (256 - wx[j]) * above[w - 1];
+        dst[i * stride + j] = (uint8_t)round2(s, 9);
+      }
+  } else if (mode == SMOOTH_V_PRED) {
+    const uint8_t *wy = av1_smooth_weights + h - 4;
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++)
+        dst[i * stride + j] =
+            (uint8_t)round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
+  } else if (mode == SMOOTH_H_PRED) {
+    const uint8_t *wx = av1_smooth_weights + w - 4;
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++)
+        dst[i * stride + j] =
+            (uint8_t)round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
+  } else if (mode == DC_PRED) {
+    int avg, sum = 0;
+    if (have_left && have_above) {
+      for (int k = 0; k < w; k++) sum += above[k];
+      for (int k = 0; k < h; k++) sum += left[k];
+      avg = (sum + ((w + h) >> 1)) / (w + h);
+    } else if (have_left) {
+      for (int k = 0; k < h; k++) sum += left[k];
+      avg = (sum + (h >> 1)) >> lh;
+    } else if (have_above) {
+      for (int k = 0; k < w; k++) sum += above[k];
+      avg = (sum + (w >> 1)) >> lw;
+    } else {
+      avg = 128;
+    }
+    for (int i = 0; i < h; i++) memset(dst + i * stride, avg, (size_t)w);
+  } else { /* PAETH */
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        int base = above[j] + left[i] - above[-1];
+        int pl = abs(base - left[i]), pt = abs(base - above[j]),
+            ptl = abs(base - above[-1]);
+        int v = (pl <= pt && pl <= ptl) ? left[i] : (pt <= ptl ? above[j] : above[-1]);
+        dst[i * stride + j] = (uint8_t)v;
+      }
+  }
+}
+
+static void predict_intra(Tile *t, int plane, int x, int y, int have_left,
+                          int have_above, int have_above_rt,
+                          int have_below_lt, int mode, int lw, int lh) {
+  Frame *f = t->f;
+  const int w = 1 << lw, h = 1 << lh;
+  const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
+  const int max_x = ((f->mi_cols * 4) >> sx) - 1;
+  const int max_y = ((f->mi_rows * 4) >> sy) - 1;
+  int above_buf[16 + 2 * 128 + 32], left_buf[16 + 2 * 128 + 32];
+  int *above = above_buf + 16, *left = left_buf + 16;
+  uint8_t *dst = f->frame[plane] + y * f->stride[plane] + x;
+  const int stride = f->stride[plane];
+  for (int i = 0; i < w + h; i++) {
+    if (!have_above && have_left) above[i] = px(f, plane, y, x - 1);
+    else if (!have_above) above[i] = 127;
+    else {
+      int lim = x + (have_above_rt ? 2 * w : w) - 1;
+      if (lim > max_x) lim = max_x;
+      int xx = x + i < lim ? x + i : lim;
+      above[i] = px(f, plane, y - 1, xx);
+    }
+    if (!have_left && have_above) left[i] = px(f, plane, y - 1, x);
+    else if (!have_left) left[i] = 129;
+    else {
+      int lim = y + (have_below_lt ? 2 * h : h) - 1;
+      if (lim > max_y) lim = max_y;
+      int yy = y + i < lim ? y + i : lim;
+      left[i] = px(f, plane, yy, x - 1);
+    }
+  }
+  if (have_above && have_left) above[-1] = px(f, plane, y - 1, x - 1);
+  else if (have_above) above[-1] = px(f, plane, y - 1, x);
+  else if (have_left) above[-1] = px(f, plane, y, x - 1);
+  else above[-1] = 128;
+  left[-1] = above[-1];
+
+  if (plane == 0 && t->use_filter_intra) {
+    av1_filter_intra_predict(dst, stride, w, h, above, left, t->filter_mode);
+    return;
+  }
+  if (is_directional(mode)) {
+    const int delta = plane == 0 ? t->angle_y : t->angle_uv;
+    const int angle = av1_mode_to_angle_map[mode] + delta * 3;
+    int up_above = 0, up_left = 0;
+    if (f->hdr[AV1_ENABLE_EDGE_FILTER]) {
+      if (angle != 90 && angle != 180) {
+        if (angle > 90 && angle < 180 && w + h >= 24) {
+          int v = round2(left[0] * 5 + above[-1] * 6 + above[0] * 5, 4);
+          left[-1] = above[-1] = v;
+        }
+        const int type = filter_type(t, plane);
+        if (have_above) {
+          int s = edge_strength(w, h, type, angle - 90);
+          int n = (w < max_x - x + 1 ? w : max_x - x + 1) + (angle < 90 ? h : 0) + 1;
+          if (s) f->stats[AV1_STAT_EDGE_FILTER]++;
+          av1_edge_filter(above, n, s);
+        }
+        if (have_left) {
+          int s = edge_strength(w, h, type, angle - 180);
+          int n = (h < max_y - y + 1 ? h : max_y - y + 1) + (angle > 180 ? w : 0) + 1;
+          if (s) f->stats[AV1_STAT_EDGE_FILTER]++;
+          av1_edge_filter(left, n, s);
+        }
+      }
+      up_above = use_upsample(w, h, filter_type(t, plane), angle - 90);
+      if (up_above) {
+        av1_edge_upsample(above, w + (angle < 90 ? h : 0));
+        f->stats[AV1_STAT_UPSAMPLE]++;
+      }
+      up_left = use_upsample(w, h, filter_type(t, plane), angle - 180);
+      if (up_left) {
+        av1_edge_upsample(left, h + (angle > 180 ? w : 0));
+        f->stats[AV1_STAT_UPSAMPLE]++;
+      }
+    }
+    av1_dr_predict(dst, stride, w, h, above, left, up_above, up_left, angle);
+    return;
+  }
+  av1_nondir_predict(dst, stride, w, h, above, left, mode, have_left,
+                     have_above);
+}
+
+/* Chroma from luma (4:2:0) on the w x h chroma block at dst, which holds
+ * its DC prediction: luma is the co-located luma, of which max_w x max_h
+ * samples are decoded (later columns and rows repeat the last). */
+void av1_cfl_predict(uint8_t *dst, int stride, const uint8_t *luma,
+                     int luma_stride, int w, int h, int max_w, int max_h,
+                     int alpha) {
+  int L[32][32];
+  int avg = 0;
+  for (int i = 0; i < h; i++) {
+    int ly = i << 1;
+    if (ly > max_h - 2) ly = max_h - 2;
+    for (int j = 0; j < w; j++) {
+      int lx = j << 1;
+      if (lx > max_w - 2) lx = max_w - 2;
+      const uint8_t *p = luma + ly * luma_stride + lx;
+      L[i][j] = (p[0] + p[1] + p[luma_stride] + p[luma_stride + 1]) << 1;
+      avg += L[i][j];
+    }
+  }
+  avg = round2(avg, floor_log2((uint32_t)w) + floor_log2((uint32_t)h));
+  for (int i = 0; i < h; i++)
+    for (int j = 0; j < w; j++) {
+      int dc = dst[i * stride + j];
+      int scaled = round2signed((int64_t)alpha * (L[i][j] - avg), 6);
+      dst[i * stride + j] = (uint8_t)clip3(0, 255, dc + scaled);
+    }
+}
+
+static void predict_cfl(Tile *t, int plane, int sx0, int sy0, int tx) {
+  Frame *f = t->f;
+  const int ls = f->stride[0];
+  av1_cfl_predict(f->frame[plane] + sy0 * f->stride[plane] + sx0,
+                  f->stride[plane], f->frame[0] + (sy0 << 1) * ls + (sx0 << 1),
+                  ls, 1 << tx_wlog2[tx], 1 << tx_hlog2[tx],
+                  t->max_luma_w - (sx0 << 1), t->max_luma_h - (sy0 << 1),
+                  plane == 1 ? t->cfl_u : t->cfl_v);
+}
+
+/* ------------------------------------------------------- coefficients */
+
+static int tx_class_of(int tx_type) {
+  if (tx_type == V_DCT || tx_type == V_ADST || tx_type == V_FLIPADST)
+    return TX_CLASS_VERT;
+  if (tx_type == H_DCT || tx_type == H_ADST || tx_type == H_FLIPADST)
+    return TX_CLASS_HORIZ;
+  return TX_CLASS_2D;
+}
+
+static int tx_set_type(int tx, int reduced) {
+  if (tx_sqr_up[tx] > TX_32X32) return 0;
+  if (tx_sqr_up[tx] == TX_32X32) return 0;
+  if (reduced) return 2;
+  return tx_sqr[tx] == TX_16X16 ? 2 : 3;
+}
+
+static int get_dqv(int dq_dc, int dq_ac, int pos, const uint8_t *iqm) {
+  int dqv = pos ? dq_ac : dq_dc;
+  if (iqm) dqv = (iqm[pos] * dqv + 16) >> 5;
+  return dqv;
+}
+
+static const int qm_offset[19] = {
+    0, 16, 80, 336, 336, 1360, 1392, 1424, 1552, 1680, 2192, 336, 336,
+    2704, 2768, 2832, 3088, 1680, 2192};
+
+/* Reads one transform block's coefficients into t->coef (column-major,
+ * dequantised); returns the eob. */
+static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
+                       int *tx_type_out) {
+  Frame *f = t->f;
+  Cdfs *cdf = &t->cdf;
+  const int ptype = plane > 0;
+  const int lw = tx_wlog2[tx], lh = tx_hlog2[tx];
+  const int w4 = 1 << (lw - 2), h4 = 1 << (lh - 2);
+  const int cw = lw > 5 ? 32 : 1 << lw, ch = lh > 5 ? 32 : 1 << lh;
+  const int bhl = lh > 5 ? 5 : lh;
+  const int txs_ctx = (tx_sqr[tx] + tx_sqr_up[tx] + 1) >> 1;
+  const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
+  const int max_x4 = ((f->mi_cols * 4) >> sx) >> 2;
+  const int max_y4 = ((f->mi_rows * 4) >> sy) >> 2;
+  uint8_t *a = t->above_ctx[plane] + x4;
+  uint8_t *l = t->left_ctx[plane] + (y4 & ((16 >> sy) - 1));
+  /* the txb contexts */
+  int dc_sign = 0, ctx;
+  for (int k = 0; k < w4; k++) {
+    int s = a[k] >> 6;
+    dc_sign += s == 1 ? -1 : s == 2 ? 1 : 0;
+  }
+  for (int k = 0; k < h4; k++) {
+    int s = l[k] >> 6;
+    dc_sign += s == 1 ? -1 : s == 2 ? 1 : 0;
+  }
+  const int dc_sign_ctx = dc_sign < 0 ? 1 : dc_sign > 0 ? 2 : 0;
+  const int pbs = plane ? plane_bsize(t->bsize, f->ssx, f->ssy) : t->bsize;
+  if (plane == 0) {
+    if (pbs == tx_bsize(tx)) {
+      ctx = 0;
+    } else {
+      static const uint8_t skip_contexts[5][5] = {{1, 2, 2, 2, 3},
+                                                  {2, 4, 4, 4, 5},
+                                                  {2, 4, 4, 4, 5},
+                                                  {2, 4, 4, 4, 5},
+                                                  {3, 5, 5, 5, 6}};
+      int top = 0, left = 0;
+      for (int k = 0; k < w4; k++) top |= a[k];
+      top &= 63;
+      if (top > 4) top = 4;
+      for (int k = 0; k < h4; k++) left |= l[k];
+      left &= 63;
+      if (left > 4) left = 4;
+      ctx = skip_contexts[top][left];
+    }
+  } else {
+    int above = 0, left = 0;
+    for (int k = 0; k < w4; k++) above |= a[k];
+    for (int k = 0; k < h4; k++) left |= l[k];
+    ctx = (above != 0) + (left != 0);
+    const int bw = 4 * bw4_of[pbs], bh = 4 * bh4_of[pbs];
+    ctx += (bw * bh > (1 << (lw + lh))) ? 10 : 7;
+  }
+  int all_zero = read_symbol(&t->ec, cdf->txb_skip[txs_ctx][ctx], 2);
+  int eob = 0, cul_level = 0, dc_val = 0, tx_type = DCT_DCT;
+  if (!all_zero) {
+    /* the transform type */
+    if (plane == 0) {
+      const int set = tx_set_type(tx, f->hdr[AV1_REDUCED_TX_SET]);
+      if (set > 0 && t->current_q > 0) {
+        const int eset = set == 3 ? 1 : 2;
+        const int mode = t->use_filter_intra ? fimode_to_intradir[t->filter_mode]
+                                             : t->y_mode;
+        int sym = read_symbol(&t->ec, cdf->intra_ext_tx[eset][tx_sqr[tx]][mode],
+                              num_ext_tx_set[set]);
+        tx_type = av1_ext_tx_inv[set][sym];
+      }
+      /* luma tx types are kept for this block only */
+    } else {
+      const int set = tx_set_type(tx, f->hdr[AV1_REDUCED_TX_SET]);
+      tx_type = mode_to_txfm[t->uv_mode == UV_CFL_PRED ? DC_PRED : t->uv_mode];
+      if (!av1_ext_tx_used[set][tx_type]) tx_type = DCT_DCT;
+    }
+    if (tx_sqr_up[tx] > TX_32X32) tx_type = DCT_DCT;
+    f->stats[AV1_STAT_TX_TYPE + tx_type]++;
+    const int cls = tx_class_of(tx_type);
+    const int16_t *scan = av1_scan_data + av1_scan_offset[tx][tx_type];
+    const int8_t *nz_off = av1_nz_map_ctx_data + av1_nz_map_ctx_start[tx];
+    /* eob */
+    static const int lw4[19] = {0, 2, 4, 6, 6, 1, 1, 3, 3, 5, 5, 6, 6,
+                                2, 2, 4, 4, 5, 5};
+    const int eob_multi_size = lw4[tx], emctx = cls == TX_CLASS_2D ? 0 : 1;
+    int eob_pt;
+    switch (eob_multi_size) {
+      case 0: eob_pt = read_symbol(&t->ec, cdf->eob16[ptype][emctx], 5); break;
+      case 1: eob_pt = read_symbol(&t->ec, cdf->eob32[ptype][emctx], 6); break;
+      case 2: eob_pt = read_symbol(&t->ec, cdf->eob64[ptype][emctx], 7); break;
+      case 3: eob_pt = read_symbol(&t->ec, cdf->eob128[ptype][emctx], 8); break;
+      case 4: eob_pt = read_symbol(&t->ec, cdf->eob256[ptype][emctx], 9); break;
+      case 5: eob_pt = read_symbol(&t->ec, cdf->eob512[ptype][emctx], 10); break;
+      default: eob_pt = read_symbol(&t->ec, cdf->eob1024[ptype][emctx], 11); break;
+    }
+    eob_pt += 1;
+    int eob_extra = 0;
+    const int eob_bits = av1_eob_offset_bits[eob_pt];
+    if (eob_bits > 0) {
+      if (read_symbol(&t->ec, cdf->eob_extra[txs_ctx][ptype][eob_pt - 3], 2))
+        eob_extra += 1 << (eob_bits - 1);
+      for (int i = 1; i < eob_bits; i++)
+        if (read_bit(&t->ec)) eob_extra += 1 << (eob_bits - 1 - i);
+    }
+    eob = av1_eob_group_start[eob_pt] + eob_extra;
+    if (eob > f->stats[AV1_STAT_EOB_MAX]) f->stats[AV1_STAT_EOB_MAX] = eob;
+    /* levels, column-major with 4 rows of padding a column */
+    uint8_t levels[(32 + 4) * (32 + 4) + 64];
+    const int stride = (1 << bhl) + 4;
+    memset(levels, 0, sizeof(levels));
+    for (int c = eob - 1; c >= 0; c--) {
+      const int pos = scan[c];
+      const int col = pos >> bhl, row = pos - (col << bhl);
+      uint8_t *lv = levels + col * stride + row;
+      int level, cctx;
+      if (c == eob - 1) {
+        cctx = c == 0 ? 0 : c <= (cw << bhl) / 8 ? 1 : c <= (cw << bhl) / 4 ? 2 : 3;
+        level = read_symbol(&t->ec, cdf->coeff_base_eob[txs_ctx][ptype][cctx], 3) + 1;
+      } else {
+        int mag;
+        if (cls == TX_CLASS_2D) {
+          mag = (lv[stride] < 3 ? lv[stride] : 3) + (lv[1] < 3 ? lv[1] : 3) +
+                (lv[stride + 1] < 3 ? lv[stride + 1] : 3) +
+                (lv[2 * stride] < 3 ? lv[2 * stride] : 3) +
+                (lv[2] < 3 ? lv[2] : 3);
+        } else if (cls == TX_CLASS_VERT) {
+          mag = 0;
+          const int o[5] = {stride, 1, 2, 3, 4};
+          for (int k = 0; k < 5; k++) mag += lv[o[k]] < 3 ? lv[o[k]] : 3;
+        } else {
+          mag = 0;
+          const int o[5] = {stride, 1, 2 * stride, 3 * stride, 4 * stride};
+          for (int k = 0; k < 5; k++) mag += lv[o[k]] < 3 ? lv[o[k]] : 3;
+        }
+        int m = (mag + 1) >> 1;
+        if (m > 4) m = 4;
+        if (cls == TX_CLASS_2D) {
+          cctx = pos == 0 ? 0 : m + nz_off[pos];
+        } else {
+          const int idx = cls == TX_CLASS_VERT ? row : col;
+          cctx = m + 26 + (idx == 0 ? 0 : idx == 1 ? 5 : 10);
+        }
+        level = read_symbol(&t->ec, cdf->coeff_base[txs_ctx][ptype][cctx], 4);
+      }
+      if (level > 2) {
+        int mag = lv[1] + lv[stride], bctx;
+        if (cls == TX_CLASS_2D) mag += lv[stride + 1];
+        else if (cls == TX_CLASS_HORIZ) mag += lv[2 * stride];
+        else mag += lv[2];
+        mag = (mag + 1) >> 1;
+        if (mag > 6) mag = 6;
+        if (c == eob - 1) mag = 0; /* no neighbour is read yet */
+        if (pos == 0) bctx = mag;
+        else if ((cls == TX_CLASS_2D && row < 2 && col < 2) ||
+                 (cls == TX_CLASS_HORIZ && col == 0) ||
+                 (cls == TX_CLASS_VERT && row == 0))
+          bctx = mag + 7;
+        else
+          bctx = mag + 14;
+        uint16_t *bcdf = cdf->coeff_br[txs_ctx > 3 ? 3 : txs_ctx][ptype][bctx];
+        for (int idx = 0; idx < 12; idx += 3) {
+          int k = read_symbol(&t->ec, bcdf, 4);
+          level += k;
+          if (k < 3) break;
+        }
+      }
+      *lv = (uint8_t)level;
+    }
+    /* signs, Golomb remainders and dequantisation */
+    const int qm_level = f->hdr[AV1_USING_QM]
+        ? f->hdr[plane == 0 ? AV1_QM_Y : plane == 1 ? AV1_QM_U : AV1_QM_V] : 15;
+    const uint8_t *iqm = NULL;
+    if (qm_level < 15 && tx_type < IDTX)
+      iqm = av1_iwt_matrix[qm_level][plane > 0] + qm_offset[tx];
+    const int q = t->current_q;
+    int dq_dc, dq_ac;
+    if (plane == 0) {
+      dq_dc = av1_dc_qlookup[clip3(0, 255, q + f->hdr[AV1_DQ_Y_DC])];
+      dq_ac = av1_ac_qlookup[clip3(0, 255, q)];
+    } else {
+      const int dcd = f->hdr[plane == 1 ? AV1_DQ_U_DC : AV1_DQ_V_DC];
+      const int acd = f->hdr[plane == 1 ? AV1_DQ_U_AC : AV1_DQ_V_AC];
+      dq_dc = av1_dc_qlookup[clip3(0, 255, q + dcd)];
+      dq_ac = av1_ac_qlookup[clip3(0, 255, q + acd)];
+    }
+    const int npix = (1 << lw) * (1 << lh);
+    const int dq_shift = (npix > 256) + (npix > 1024);
+    memset(t->coef, 0, sizeof(int32_t) * (size_t)(cw * ch));
+    for (int c = 0; c < eob; c++) {
+      const int pos = scan[c];
+      const int col = pos >> bhl, row = pos - (col << bhl);
+      int level = levels[col * stride + row];
+      if (!level) continue;
+      int sign;
+      if (c == 0) sign = read_symbol(&t->ec, cdf->dc_sign[ptype][dc_sign_ctx], 2);
+      else sign = read_bit(&t->ec);
+      if (level >= 15) {
+        int length = 0, bit = 0, x = 1;
+        while (!bit) {
+          bit = read_bit(&t->ec);
+          if (++length > 20) {
+            fail(f, "AV1: a Golomb code longer than 20 bits");
+            return 0;
+          }
+        }
+        for (int i = 0; i < length - 1; i++) x = (x << 1) + read_bit(&t->ec);
+        level += x - 1;
+        f->stats[AV1_STAT_GOLOMB]++;
+      }
+      if (c == 0) dc_val = sign ? -level : level;
+      level &= 0xfffff;
+      cul_level += level;
+      const int64_t dqv = get_dqv(dq_dc, dq_ac, pos, iqm);
+      int32_t dq = (int32_t)((level * dqv) & 0xffffff);
+      dq >>= dq_shift;
+      if (sign) dq = -dq;
+      t->coef[pos] = clip3(-32768, 32767, dq);
+    }
+    if (cul_level > 63) cul_level = 63;
+    if (dc_val < 0) cul_level |= 1 << 6;
+    else if (dc_val > 0) cul_level += 2 << 6;
+  }
+  /* the contexts, 0 past the frame's edge */
+  for (int k = 0; k < w4; k++) a[k] = (uint8_t)(x4 + k < max_x4 ? cul_level : 0);
+  for (int k = 0; k < h4; k++) l[k] = (uint8_t)(y4 + k < max_y4 ? cul_level : 0);
+  *tx_type_out = tx_type;
+  return eob;
+}
+
+/* ---------------------------------------------------------- mode info */
+
+static void read_cdef(Tile *t) {
+  Frame *f = t->f;
+  if (t->skip || !f->hdr[AV1_ENABLE_CDEF]) return;
+  const int r = t->mi_row & ~15, c = t->mi_col & ~15;
+  int8_t *idx = &f->cdef_idx[(r >> 4) * f->cdef_stride + (c >> 4)];
+  if (*idx == -1) *idx = (int8_t)read_literal(&t->ec, f->hdr[AV1_CDEF_BITS]);
+}
+
+static void read_delta_qindex(Tile *t) {
+  Frame *f = t->f;
+  if (t->bsize == BLOCK_64X64 && t->skip) return;
+  if (!t->read_deltas) return;
+  int abs_v = read_symbol(&t->ec, t->cdf.delta_q, 4);
+  if (abs_v == 3) {
+    int rem_bits = read_literal(&t->ec, 3) + 1;
+    abs_v = read_literal(&t->ec, rem_bits) + (1 << rem_bits) + 1;
+  }
+  if (abs_v) {
+    int sign = read_bit(&t->ec);
+    int reduced = sign ? -abs_v : abs_v;
+    t->current_q = clip3(1, 255, t->current_q + (reduced << f->hdr[AV1_DELTA_Q_RES]));
+    f->stats[AV1_STAT_DELTA_Q]++;
+  }
+}
+
+static void read_delta_lf(Tile *t) {
+  Frame *f = t->f;
+  if (t->bsize == BLOCK_64X64 && t->skip) return;
+  if (!t->read_deltas || !f->hdr[AV1_DELTA_LF_PRESENT]) return;
+  const int multi = f->hdr[AV1_DELTA_LF_MULTI];
+  const int count = multi ? (f->planes > 1 ? 4 : 2) : 1;
+  for (int i = 0; i < count; i++) {
+    uint16_t *cdf = multi ? t->cdf.delta_lf_multi[i] : t->cdf.delta_lf;
+    int abs_v = read_symbol(&t->ec, cdf, 4);
+    if (abs_v == 3) {
+      int n = read_literal(&t->ec, 3) + 1;
+      abs_v = read_literal(&t->ec, n) + (1 << n) + 1;
+    }
+    if (abs_v) {
+      int sign = read_bit(&t->ec);
+      int reduced = sign ? -abs_v : abs_v;
+      t->delta_lf[i] = clip3(-63, 63, t->delta_lf[i] + (reduced << f->hdr[AV1_DELTA_LF_RES]));
+      f->stats[AV1_STAT_DELTA_LF]++;
+    }
+  }
+}
+
+static int read_angle(Tile *t, int mode) {
+  if (t->bsize < BLOCK_8X8 || !is_directional(mode)) return 0;
+  int v = read_symbol(&t->ec, t->cdf.angle_delta[mode - V_PRED], 7) - 3;
+  t->f->stats[AV1_STAT_ANGLE_DELTA + v + 3]++;
+  return v;
+}
+
+static void intra_frame_mode_info(Tile *t) {
+  Frame *f = t->f;
+  Cdfs *cdf = &t->cdf;
+  int ctx = (t->avail_u ? MI(f, skip, t->mi_row - 1, t->mi_col) : 0) +
+            (t->avail_l ? MI(f, skip, t->mi_row, t->mi_col - 1) : 0);
+  t->skip = read_symbol(&t->ec, cdf->skip[ctx], 2);
+  read_cdef(t);
+  read_delta_qindex(t);
+  read_delta_lf(t);
+  t->read_deltas = 0;
+  int above = t->avail_u ? MI(f, y_mode, t->mi_row - 1, t->mi_col) : DC_PRED;
+  int left = t->avail_l ? MI(f, y_mode, t->mi_row, t->mi_col - 1) : DC_PRED;
+  t->y_mode = read_symbol(&t->ec, cdf->kf_y[intra_mode_ctx[above]][intra_mode_ctx[left]], 13);
+  t->angle_y = read_angle(t, t->y_mode);
+  t->uv_mode = DC_PRED;
+  t->angle_uv = 0;
+  t->cfl_u = t->cfl_v = 0;
+  if (t->has_chroma) {
+    const int bw = 4 * bw4_of[t->bsize], bh = 4 * bh4_of[t->bsize];
+    const int cfl_allowed = (bw > bh ? bw : bh) <= 32;
+    t->uv_mode = read_symbol(&t->ec, cdf->uv[cfl_allowed][t->y_mode], 13 + cfl_allowed);
+    if (t->uv_mode == UV_CFL_PRED) {
+      int signs = read_symbol(&t->ec, cdf->cfl_sign, 8);
+      int sign_u = (signs + 1) / 3, sign_v = (signs + 1) % 3;
+      if (sign_u) {
+        int a = 1 + read_symbol(&t->ec, cdf->cfl_alpha[(sign_u - 1) * 3 + sign_v], 16);
+        t->cfl_u = sign_u == 1 ? -a : a;
+      }
+      if (sign_v) {
+        int a = 1 + read_symbol(&t->ec, cdf->cfl_alpha[(sign_v - 1) * 3 + sign_u], 16);
+        t->cfl_v = sign_v == 1 ? -a : a;
+      }
+    } else {
+      t->angle_uv = read_angle(t, t->uv_mode);
+    }
+  }
+  if (t->bsize >= BLOCK_8X8 && 4 * bw4_of[t->bsize] <= 64 &&
+      4 * bh4_of[t->bsize] <= 64 && f->hdr[AV1_SCREEN_CONTENT]) {
+    /* palette_mode_info: a neighbour never has a palette here */
+    const int bctx = mi_wlog2[t->bsize] + mi_hlog2[t->bsize] - 2;
+    if (t->y_mode == DC_PRED &&
+        read_symbol(&t->ec, cdf->palette_y_mode[bctx][0], 2)) {
+      fail(f, "AVIF: palette mode (screen content) is not read here");
+      return;
+    }
+    if (t->has_chroma && t->uv_mode == DC_PRED &&
+        read_symbol(&t->ec, cdf->palette_uv_mode[0], 2)) {
+      fail(f, "AVIF: palette mode (screen content) is not read here");
+      return;
+    }
+  }
+  t->use_filter_intra = 0;
+  if (f->hdr[AV1_ENABLE_FILTER_INTRA] && t->y_mode == DC_PRED) {
+    const int bw = 4 * bw4_of[t->bsize], bh = 4 * bh4_of[t->bsize];
+    if ((bw > bh ? bw : bh) <= 32) {
+      t->use_filter_intra = read_symbol(&t->ec, cdf->filter_intra[t->bsize], 2);
+      if (t->use_filter_intra) {
+        t->filter_mode = read_symbol(&t->ec, cdf->filter_intra_mode, 5);
+        f->stats[AV1_STAT_FILTER_INTRA + t->filter_mode]++;
+      }
+    }
+  }
+}
+
+static int above_tx_width(const Tile *t) {
+  const Frame *f = t->f;
+  if (!t->avail_u) return 64;
+  return 1 << tx_wlog2[MI(f, tx_size_mi, t->mi_row - 1, t->mi_col)];
+}
+
+static int left_tx_height(const Tile *t) {
+  const Frame *f = t->f;
+  if (!t->avail_l) return 64;
+  return 1 << tx_hlog2[MI(f, tx_size_mi, t->mi_row, t->mi_col - 1)];
+}
+
+static void read_tx_size(Tile *t) {
+  Frame *f = t->f;
+  const int max_rect = av1_max_txsize_rect_lookup[t->bsize];
+  t->tx_size = max_rect;
+  if (t->bsize > BLOCK_4X4 && f->hdr[AV1_TX_MODE_SELECT]) {
+    const int max_w = 1 << tx_wlog2[max_rect], max_h = 1 << tx_hlog2[max_rect];
+    int aw = t->avail_u ? above_tx_width(t) : 0;
+    int lh = t->avail_l ? left_tx_height(t) : 0;
+    const int ctx = (aw >= max_w) + (lh >= max_h);
+    const int cat = max_tx_depth[t->bsize] - 1;
+    const int nsym = max_tx_depth[t->bsize] > 1 ? 3 : 2;
+    int depth = read_symbol(&t->ec, t->cdf.tx_size[cat][ctx], nsym);
+    f->stats[AV1_STAT_TX_DEPTH] += depth > 0;
+    for (int i = 0; i < depth; i++) t->tx_size = split_tx[t->tx_size];
+  }
+}
+
+/* ------------------------------------------------------ reconstruction */
+
+static int uv_tx_size(int bsize, int ssx, int ssy) {
+  const int uvtx = av1_max_txsize_rect_lookup[plane_bsize(bsize, ssx, ssy)];
+  const int w = 1 << tx_wlog2[uvtx], h = 1 << tx_hlog2[uvtx];
+  if (w == 64 || h == 64) {
+    if (w == 16) return TX_16X32;
+    if (h == 16) return TX_32X16;
+    return TX_32X32;
+  }
+  return uvtx;
+}
+
+static void transform_block(Tile *t, int plane, int base_x, int base_y,
+                            int tx, int x, int y) {
+  Frame *f = t->f;
+  const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
+  const int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
+  const int row = (start_y << sy) >> 2, col = (start_x << sx) >> 2;
+  const int sb_row = row & 15, sb_col = col & 15;
+  const int step_x = 1 << (tx_wlog2[tx] - 2), step_y = 1 << (tx_hlog2[tx] - 2);
+  const int max_x = (f->mi_cols * 4) >> sx, max_y = (f->mi_rows * 4) >> sy;
+  if (start_x >= max_x || start_y >= max_y) return;
+  const int is_cfl = plane > 0 && t->uv_mode == UV_CFL_PRED;
+  const int mode = plane == 0 ? t->y_mode : is_cfl ? DC_PRED : t->uv_mode;
+  const int dr = (sb_row >> sy), dc = (sb_col >> sx);
+  predict_intra(t, plane, start_x, start_y,
+                (plane == 0 ? t->avail_l : t->avail_l_chroma) || x > 0,
+                (plane == 0 ? t->avail_u : t->avail_u_chroma) || y > 0,
+                t->decoded[plane][dr - 1 + 1][dc + step_x + 1],
+                t->decoded[plane][dr + step_y + 1][dc - 1 + 1],
+                mode, tx_wlog2[tx], tx_hlog2[tx]);
+  if (is_cfl) predict_cfl(t, plane, start_x, start_y, tx);
+  if (plane == 0) {
+    t->max_luma_w = start_x + step_x * 4;
+    t->max_luma_h = start_y + step_y * 4;
+  }
+  if (!t->skip) {
+    int tx_type;
+    int eob = read_coeffs(t, plane, start_x >> 2, start_y >> 2, tx, &tx_type);
+    if (f->failed) return;
+    if (eob > 0)
+      av1_inverse_transform_add(t->coef, tx, tx_type,
+                                f->frame[plane] + start_y * f->stride[plane] + start_x,
+                                f->stride[plane]);
+  }
+  f->stats[AV1_STAT_TX_SIZE + tx]++;
+  for (int i = 0; i < step_y; i++)
+    for (int j = 0; j < step_x; j++) {
+      const int yy = (row >> sy) + i, xx = (col >> sx) + j;
+      f->lf_txsz[plane][yy * f->lf_stride[plane] + xx] = (uint8_t)tx;
+      t->decoded[plane][dr + i + 1][dc + j + 1] = 1;
+    }
+}
+
+static void residual(Tile *t) {
+  Frame *f = t->f;
+  const int bw4 = bw4_of[t->bsize], bh4 = bh4_of[t->bsize];
+  const int wchunks = bw4 >> 4 > 1 ? bw4 >> 4 : 1;
+  const int hchunks = bh4 >> 4 > 1 ? bh4 >> 4 : 1;
+  for (int cy = 0; cy < hchunks; cy++)
+    for (int cx = 0; cx < wchunks; cx++)
+      for (int plane = 0; plane < 1 + t->has_chroma * 2; plane++) {
+        const int tx = plane ? uv_tx_size(t->bsize, f->ssx, f->ssy) : t->tx_size;
+        const int step_x = 1 << (tx_wlog2[tx] - 2), step_y = 1 << (tx_hlog2[tx] - 2);
+        const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
+        const int pbs = plane ? plane_bsize(t->bsize, sx, sy) : t->bsize;
+        const int n4w = bw4_of[pbs], n4h = bh4_of[pbs];
+        const int base_x = (t->mi_col >> sx) * 4, base_y = (t->mi_row >> sy) * 4;
+        const int lim_y = n4h < (16 >> sy) ? n4h : (16 >> sy);
+        const int lim_x = n4w < (16 >> sx) ? n4w : (16 >> sx);
+        for (int y = 0; y < lim_y; y += step_y)
+          for (int x = 0; x < lim_x; x += step_x) {
+            transform_block(t, plane, base_x, base_y, tx,
+                            x + ((cx << 4) >> sx), y + ((cy << 4) >> sy));
+            if (f->failed) return;
+          }
+      }
+}
+
+static void reset_block_context(Tile *t) {
+  const Frame *f = t->f;
+  const int bw4 = bw4_of[t->bsize], bh4 = bh4_of[t->bsize];
+  for (int plane = 0; plane < 1 + 2 * t->has_chroma; plane++) {
+    const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
+    for (int i = t->mi_col >> sx; i < ((t->mi_col + bw4) >> sx); i++)
+      t->above_ctx[plane][i] = 0;
+    for (int i = t->mi_row >> sy; i < ((t->mi_row + bh4) >> sy); i++)
+      t->left_ctx[plane][i & ((16 >> sy) - 1)] = 0;
+  }
+}
+
+static void decode_block(Tile *t, int r, int c, int bsize) {
+  Frame *f = t->f;
+  if (f->failed) return;
+  t->mi_row = r;
+  t->mi_col = c;
+  t->bsize = bsize;
+  const int bw4 = bw4_of[bsize], bh4 = bh4_of[bsize];
+  if (bh4 == 1 && f->ssy && (r & 1) == 0) t->has_chroma = 0;
+  else if (bw4 == 1 && f->ssx && (c & 1) == 0) t->has_chroma = 0;
+  else t->has_chroma = f->planes > 1;
+  t->avail_u = is_inside(t, r - 1, c);
+  t->avail_l = is_inside(t, r, c - 1);
+  t->avail_u_chroma = t->avail_u;
+  t->avail_l_chroma = t->avail_l;
+  if (t->has_chroma) {
+    if (f->ssy && bh4 == 1) t->avail_u_chroma = is_inside(t, r - 2, c);
+    if (f->ssx && bw4 == 1) t->avail_l_chroma = is_inside(t, r, c - 2);
+  }
+  f->stats[AV1_STAT_BLOCKS]++;
+  intra_frame_mode_info(t);
+  if (f->failed) return;
+  f->stats[AV1_STAT_Y_MODE + t->y_mode]++;
+  if (t->has_chroma) f->stats[AV1_STAT_UV_MODE + t->uv_mode]++;
+  read_tx_size(t);
+  if (t->skip) reset_block_context(t);
+  for (int y = 0; y < bh4; y++)
+    for (int x = 0; x < bw4; x++) {
+      if (r + y >= f->mi_rows || c + x >= f->mi_cols) continue;
+      MI(f, y_mode, r + y, c + x) = (uint8_t)t->y_mode;
+      MI(f, uv_mode, r + y, c + x) = (uint8_t)t->uv_mode;
+      MI(f, skip, r + y, c + x) = (uint8_t)t->skip;
+      MI(f, tx_size_mi, r + y, c + x) = (uint8_t)t->tx_size;
+      MI(f, mi_size, r + y, c + x) = (uint8_t)bsize;
+      for (int k = 0; k < 4; k++)
+        f->delta_lf[((r + y) * f->mi_stride + c + x) * 4 + k] = (int8_t)t->delta_lf[k];
+    }
+  residual(t);
+}
+
+static int partition_ctx(Tile *t, int r, int c, int bsl) {
+  Frame *f = t->f;
+  int above = is_inside(t, r - 1, c) && mi_wlog2[MI(f, mi_size, r - 1, c)] < bsl;
+  int left = is_inside(t, r, c - 1) && mi_hlog2[MI(f, mi_size, r, c - 1)] < bsl;
+  return left * 2 + above;
+}
+
+static int cdf_prob(const uint16_t *icdf, int e) {
+  return (e > 0 ? icdf[e - 1] : 32768) - icdf[e];
+}
+
+static void decode_partition(Tile *t, int r, int c, int bsize) {
+  Frame *f = t->f;
+  if (f->failed || r >= f->mi_rows || c >= f->mi_cols) return;
+  const int num4 = bw4_of[bsize], half = num4 >> 1, quarter = half >> 1;
+  const int has_rows = (r + half) < f->mi_rows;
+  const int has_cols = (c + half) < f->mi_cols;
+  int partition;
+  if (bsize < BLOCK_8X8) {
+    partition = PARTITION_NONE;
+  } else {
+    const int bsl = mi_wlog2[bsize];
+    uint16_t *cdf = t->cdf.partition[(bsl - 1) * 4 + partition_ctx(t, r, c, bsl)];
+    const int nsym = bsl == 1 ? 4 : bsl == 5 ? 8 : 10;
+    if (has_rows && has_cols) {
+      partition = read_symbol(&t->ec, cdf, nsym);
+    } else if (has_rows) {
+      int p = 32768 - cdf_prob(cdf, PARTITION_HORZ) - cdf_prob(cdf, PARTITION_SPLIT) -
+              cdf_prob(cdf, PARTITION_HORZ_A) - cdf_prob(cdf, PARTITION_HORZ_B) -
+              cdf_prob(cdf, PARTITION_VERT_A);
+      if (bsize != BLOCK_128X128) p -= cdf_prob(cdf, PARTITION_HORZ_4);
+      uint16_t tmp[2] = {(uint16_t)(32768 - p), 0};
+      partition = ec_decode_cdf(&t->ec, tmp, 2) ? PARTITION_SPLIT : PARTITION_VERT;
+    } else if (has_cols) {
+      int p = 32768 - cdf_prob(cdf, PARTITION_VERT) - cdf_prob(cdf, PARTITION_SPLIT) -
+              cdf_prob(cdf, PARTITION_HORZ_A) - cdf_prob(cdf, PARTITION_VERT_A) -
+              cdf_prob(cdf, PARTITION_VERT_B);
+      if (bsize != BLOCK_128X128) p -= cdf_prob(cdf, PARTITION_VERT_4);
+      uint16_t tmp[2] = {(uint16_t)(32768 - p), 0};
+      partition = ec_decode_cdf(&t->ec, tmp, 2) ? PARTITION_SPLIT : PARTITION_HORZ;
+    } else {
+      partition = PARTITION_SPLIT;
+    }
+  }
+  f->stats[AV1_STAT_PARTITION + partition]++;
+  /* Every partition but NONE splits a square block of 8x8 or more. */
+  const int sub_h = bsize_of(num4, half), sub_v = bsize_of(half, num4);
+  const int split = bsize_of(half, half);
+  switch (partition) {
+    case PARTITION_NONE: decode_block(t, r, c, bsize); break;
+    case PARTITION_HORZ:
+      decode_block(t, r, c, sub_h);
+      if (has_rows) decode_block(t, r + half, c, sub_h);
+      break;
+    case PARTITION_VERT:
+      decode_block(t, r, c, sub_v);
+      if (has_cols) decode_block(t, r, c + half, sub_v);
+      break;
+    case PARTITION_SPLIT:
+      decode_partition(t, r, c, split);
+      decode_partition(t, r, c + half, split);
+      decode_partition(t, r + half, c, split);
+      decode_partition(t, r + half, c + half, split);
+      break;
+    case PARTITION_HORZ_A:
+      decode_block(t, r, c, split);
+      decode_block(t, r, c + half, split);
+      decode_block(t, r + half, c, sub_h);
+      break;
+    case PARTITION_HORZ_B:
+      decode_block(t, r, c, sub_h);
+      decode_block(t, r + half, c, split);
+      decode_block(t, r + half, c + half, split);
+      break;
+    case PARTITION_VERT_A:
+      decode_block(t, r, c, split);
+      decode_block(t, r + half, c, split);
+      decode_block(t, r, c + half, sub_v);
+      break;
+    case PARTITION_VERT_B:
+      decode_block(t, r, c, sub_v);
+      decode_block(t, r, c + half, split);
+      decode_block(t, r + half, c + half, split);
+      break;
+    case PARTITION_HORZ_4: {
+      const int b = bsize_of(num4, quarter);
+      for (int i = 0; i < 4; i++)
+        if (i < 3 || r + quarter * 3 < f->mi_rows)
+          decode_block(t, r + quarter * i, c, b);
+      break;
+    }
+    case PARTITION_VERT_4: {
+      const int b = bsize_of(quarter, num4);
+      for (int i = 0; i < 4; i++)
+        if (i < 3 || c + quarter * 3 < f->mi_cols)
+          decode_block(t, r, c + quarter * i, b);
+      break;
+    }
+  }
+}
+
+static void clear_block_decoded(Tile *t, int r, int c) {
+  const Frame *f = t->f;
+  for (int plane = 0; plane < f->planes; plane++) {
+    const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
+    const int sbw4 = (t->mi_col_end - c) >> sx, sbh4 = (t->mi_row_end - r) >> sy;
+    for (int y = -1; y <= (16 >> sy); y++)
+      for (int x = -1; x <= (16 >> sx); x++) {
+        int v;
+        if (y < 0 && x < sbw4) v = 1;
+        else if (x < 0 && y < sbh4) v = 1;
+        else v = 0;
+        t->decoded[plane][y + 1][x + 1] = (uint8_t)v;
+      }
+    t->decoded[plane][(16 >> sy) + 1][0] = 0;
+  }
+}
+
+static void decode_tile(Tile *t, const uint8_t *data, long size) {
+  Frame *f = t->f;
+  ec_init(&t->ec, data, size, !f->hdr[AV1_DISABLE_CDF_UPDATE]);
+  init_cdfs(&t->cdf, f->hdr[AV1_BASE_Q]);
+  for (int p = 0; p < f->planes; p++)
+    memset(t->above_ctx[p], 0, (size_t)(f->mi_cols + 32));
+  for (int i = 0; i < 4; i++) t->delta_lf[i] = 0;
+  t->current_q = f->hdr[AV1_BASE_Q];
+  for (int r = t->mi_row_start; r < t->mi_row_end; r += 16) {
+    memset(t->left_ctx, 0, sizeof(t->left_ctx));
+    for (int c = t->mi_col_start; c < t->mi_col_end; c += 16) {
+      t->read_deltas = f->hdr[AV1_DELTA_Q_PRESENT];
+      clear_block_decoded(t, r, c);
+      decode_partition(t, r, c, BLOCK_64X64);
+      if (f->failed) return;
+      if (ec_overflowed(&t->ec)) {
+        fail(f, "AV1: a tile's symbols run past its data (libaom reports "
+                "a corrupt frame)");
+        return;
+      }
+    }
+  }
+  if (!ec_trailing_bits_ok(&t->ec))
+    fail(f, "AV1: a tile's data does not end in its trailing bits (libaom "
+            "reports a corrupt frame)");
+}
+
+/* ----------------------------------------------------------- deblocking */
+
+static int filter_level(const Frame *f, int row, int col, int plane, int pass) {
+  const int i = plane == 0 ? pass : plane + 1;
+  int delta = 0;
+  if (f->hdr[AV1_DELTA_LF_PRESENT]) {
+    const int8_t *d = &f->delta_lf[(row * f->mi_stride + col) * 4];
+    delta = f->hdr[AV1_DELTA_LF_MULTI] ? d[i] : d[0];
+  }
+  int lvl = clip3(0, 63, delta + f->hdr[AV1_LF_LEVEL + i]);
+  if (f->hdr[AV1_LF_DELTA_ENABLED]) {
+    const int shift = lvl >> 5;
+    lvl += f->hdr[AV1_LF_REF_DELTAS + 0] * (1 << shift);
+    lvl = clip3(0, 63, lvl);
+  }
+  return lvl;
+}
+
+static void filter4(uint8_t *s, int step, int hev) {
+  int p1 = s[-2 * step] - 128, p0 = s[-step] - 128, q0 = s[0] - 128,
+      q1 = s[step] - 128;
+#define C8(x) clip3(-128, 127, (x))
+  int filter = hev ? C8(p1 - q1) : 0;
+  filter = C8(filter + 3 * (q0 - p0));
+  int f1 = C8(filter + 4) >> 3, f2 = C8(filter + 3) >> 3;
+  s[0] = (uint8_t)(C8(q0 - f1) + 128);
+  s[-step] = (uint8_t)(C8(p0 + f2) + 128);
+  if (!hev) {
+    int ff = round2(f1, 1);
+    s[step] = (uint8_t)(C8(q1 - ff) + 128);
+    s[-2 * step] = (uint8_t)(C8(p1 + ff) + 128);
+  }
+#undef C8
+}
+
+static void wide_filter(uint8_t *s, int step, int plane, int log2size) {
+  const int n = log2size == 4 ? 6 : plane == 0 ? 3 : 2;
+  const int n2 = (log2size == 3 && plane == 0) ? 0 : 1;
+  int F[16], out[16];
+  for (int k = -(n + 1); k <= n; k++) F[k + 8] = s[k * step];
+  for (int i = -n; i < n; i++) {
+    int t = 0;
+    for (int j = -n; j <= n; j++) {
+      int p = clip3(-(n + 1), n, i + j);
+      int tap = (abs(j) <= n2) ? 2 : 1;
+      t += F[p + 8] * tap;
+    }
+    out[i + 8] = round2(t, log2size);
+  }
+  for (int i = -n; i < n; i++) s[i * step] = (uint8_t)out[i + 8];
+}
+
+static void sample_filter(uint8_t *s, int step, int plane, int limit,
+                          int blimit, int thresh, int filter_size) {
+  int p[7], q[7];
+  for (int k = 0; k < 7; k++) {
+    q[k] = (k < 4 || filter_size == 16) ? s[k * step] : 0;
+    p[k] = (k < 4 || filter_size == 16) ? s[-(k + 1) * step] : 0;
+  }
+  const int hev = abs(p[1] - p[0]) > thresh || abs(q[1] - q[0]) > thresh;
+  int len = filter_size == 4 ? 4 : plane ? 6 : filter_size == 8 ? 8 : 16;
+  int mask = abs(p[1] - p[0]) <= limit && abs(q[1] - q[0]) <= limit &&
+             abs(p[0] - q[0]) * 2 + abs(p[1] - q[1]) / 2 <= blimit;
+  if (len >= 6) mask = mask && abs(p[2] - p[1]) <= limit && abs(q[2] - q[1]) <= limit;
+  if (len >= 8) mask = mask && abs(p[3] - p[2]) <= limit && abs(q[3] - q[2]) <= limit;
+  if (!mask) return;
+  int flat = 0, flat2 = 0;
+  if (filter_size >= 8) {
+    flat = abs(p[1] - p[0]) <= 1 && abs(q[1] - q[0]) <= 1 &&
+           abs(p[2] - p[0]) <= 1 && abs(q[2] - q[0]) <= 1;
+    if (len >= 8) flat = flat && abs(p[3] - p[0]) <= 1 && abs(q[3] - q[0]) <= 1;
+  }
+  if (filter_size >= 16)
+    flat2 = abs(p[6] - p[0]) <= 1 && abs(q[6] - q[0]) <= 1 &&
+            abs(p[5] - p[0]) <= 1 && abs(q[5] - q[0]) <= 1 &&
+            abs(p[4] - p[0]) <= 1 && abs(q[4] - q[0]) <= 1;
+  if (filter_size == 4 || !flat) filter4(s, step, hev);
+  else if (filter_size == 8 || !flat2) wide_filter(s, step, plane, 3);
+  else wide_filter(s, step, plane, 4);
+}
+
+/* One line of 16 samples across an edge (line[8] is q0, line[7] p0),
+ * filtered in place as the deblocking filter of filter_size filters it. */
+void av1_lf_line(uint8_t *line, int plane, int limit, int blimit, int thresh,
+                 int filter_size) {
+  sample_filter(line + 8, 1, plane, limit, blimit, thresh, filter_size);
+}
+
+static void loop_filter(Frame *f) {
+  const int32_t *h = f->hdr;
+  if (!h[AV1_LF_LEVEL] && !h[AV1_LF_LEVEL + 1]) return;
+  const int sharp = h[AV1_LF_SHARPNESS];
+  for (int plane = 0; plane < f->planes; plane++) {
+    if (plane > 0 && !h[AV1_LF_LEVEL + 1 + plane]) continue;
+    const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
+    for (int pass = 0; pass < 2; pass++) {
+      for (int row0 = 0; row0 < f->mi_rows; row0 += 1 << sy)
+        for (int col0 = 0; col0 < f->mi_cols; col0 += 1 << sx) {
+          const int x = col0 * 4, y = row0 * 4;
+          if (x >= f->width || y >= f->height) continue;
+          if ((pass == 0 && x == 0) || (pass == 1 && y == 0)) continue;
+          const int row = row0 | sy, col = col0 | sx;
+          const int xp = x >> sx, yp = y >> sy;
+          const int dx = pass == 0, dy = pass == 1;
+          const int prev_row = row - (dy << sy), prev_col = col - (dx << sx);
+          const int ls = f->lf_stride[plane];
+          const int txsz = f->lf_txsz[plane][(row >> sy) * ls + (col >> sx)];
+          const int prev_tx = f->lf_txsz[plane][(prev_row >> sy) * ls + (prev_col >> sx)];
+          /* Intra blocks are filtered at every transform edge; the filter
+           * is the smaller transform's side across the edge, at most 16
+           * (luma) or 8 (chroma, the 6-tap filter). */
+          const int cur = pass == 0 ? tx_wlog2[txsz] : tx_hlog2[txsz];
+          const int prev = pass == 0 ? tx_wlog2[prev_tx] : tx_hlog2[prev_tx];
+          if ((pass == 0 ? xp : yp) % (1 << cur)) continue;
+          const int base = 1 << (cur < prev ? cur : prev);
+          const int filter_size = base < (plane ? 8 : 16) ? base : (plane ? 8 : 16);
+          int lvl = filter_level(f, row, col, plane, pass);
+          if (!lvl) lvl = filter_level(f, prev_row, prev_col, plane, pass);
+          if (!lvl) continue;
+          const int shift = sharp > 4 ? 2 : sharp > 0 ? 1 : 0;
+          const int limit = sharp > 0 ? clip3(1, 9 - sharp, lvl >> shift)
+                                      : ((lvl >> shift) > 1 ? lvl >> shift : 1);
+          const int blimit = 2 * (lvl + 2) + limit, thresh = lvl >> 4;
+          f->stats[AV1_STAT_LF_EDGES]++;
+          uint8_t *base_px = f->frame[plane] + yp * f->stride[plane] + xp;
+          const int step = pass == 0 ? 1 : f->stride[plane];
+          for (int i = 0; i < 4; i++) {
+            uint8_t *s = pass == 0 ? base_px + i * f->stride[plane] : base_px + i;
+            sample_filter(s, step, plane, limit, blimit, thresh, filter_size);
+          }
+        }
+    }
+  }
+}
+
+/* ----------------------------------------------------------------- CDEF */
+
+static int cdef_dir_rc(int dir, int k, int rc) {
+  const int v = av1_cdef_directions_padded[dir + 2][k];
+  const int r = (v + 72 + 144 * 4) / 144 - 4;
+  return rc == 0 ? r : v - r * 144;
+}
+
+int av1_cdef_find_dir(const uint8_t *img, int stride, int *var) {
+  int cost[8] = {0}, partial[8][15] = {{0}};
+  for (int i = 0; i < 8; i++)
+    for (int j = 0; j < 8; j++) {
+      int x = img[i * stride + j] - 128;
+      partial[0][i + j] += x;
+      partial[1][i + j / 2] += x;
+      partial[2][i] += x;
+      partial[3][3 + i - j / 2] += x;
+      partial[4][7 + i - j] += x;
+      partial[5][3 - i / 2 + j] += x;
+      partial[6][j] += x;
+      partial[7][i / 2 + j] += x;
+    }
+  for (int i = 0; i < 8; i++) {
+    cost[2] += partial[2][i] * partial[2][i];
+    cost[6] += partial[6][i] * partial[6][i];
+  }
+  cost[2] *= div_table[8];
+  cost[6] *= div_table[8];
+#define SQ(v) ((v) * (v))
+  for (int i = 0; i < 7; i++) {
+    cost[0] += (SQ(partial[0][i]) + SQ(partial[0][14 - i])) * div_table[i + 1];
+    cost[4] += (SQ(partial[4][i]) + SQ(partial[4][14 - i])) * div_table[i + 1];
+  }
+  cost[0] += partial[0][7] * partial[0][7] * div_table[8];
+  cost[4] += partial[4][7] * partial[4][7] * div_table[8];
+  for (int i = 1; i < 8; i += 2) {
+    for (int j = 0; j < 5; j++) cost[i] += SQ(partial[i][3 + j]);
+    cost[i] *= div_table[8];
+    for (int j = 0; j < 3; j++)
+      cost[i] += (SQ(partial[i][j]) + SQ(partial[i][10 - j])) * div_table[2 * j + 2];
+  }
+#undef SQ
+  int best = 0, dir = 0;
+  for (int d = 0; d < 8; d++)
+    if (cost[d] > best) {
+      best = cost[d];
+      dir = d;
+    }
+  *var = (best - cost[(dir + 4) & 7]) >> 10;
+  return dir;
+}
+
+static int constrain(int diff, int threshold, int damping) {
+  if (!threshold) return 0;
+  int adj = damping - floor_log2((uint32_t)threshold);
+  if (adj < 0) adj = 0;
+  const int a = abs(diff);
+  int lim = threshold - (a >> adj);
+  if (lim < 0) lim = 0;
+  const int v = a < lim ? a : lim;
+  return diff < 0 ? -v : v;
+}
+
+/* CDEF of the w x h block at (y0, x0) of src (taps outside rows x cols
+ * unavailable) into dst. */
+void av1_cdef_block(const uint8_t *src, int stride, int rows, int cols,
+                    int y0, int x0, int w, int h, int pri, int sec,
+                    int damping, int dir, uint8_t *dst, int dst_stride) {
+  for (int i = 0; i < h; i++)
+    for (int j = 0; j < w; j++) {
+      const int x = src[(y0 + i) * stride + x0 + j];
+      int sum = 0, mx = x, mn = x;
+      for (int k = 0; k < 2; k++)
+        for (int sign = -1; sign <= 1; sign += 2) {
+          int yy = y0 + i + sign * cdef_dir_rc(dir, k, 0);
+          int xx = x0 + j + sign * cdef_dir_rc(dir, k, 1);
+          if (xx >= 0 && xx < cols && yy >= 0 && yy < rows) {
+            int p = src[yy * stride + xx];
+            sum += av1_cdef_pri_taps[pri & 1][k] * constrain(p - x, pri, damping);
+            if (p > mx) mx = p;
+            if (p < mn) mn = p;
+          }
+          for (int off = -2; off <= 2; off += 4) {
+            const int d2 = (dir + off) & 7;
+            yy = y0 + i + sign * cdef_dir_rc(d2, k, 0);
+            xx = x0 + j + sign * cdef_dir_rc(d2, k, 1);
+            if (xx >= 0 && xx < cols && yy >= 0 && yy < rows) {
+              int s = src[yy * stride + xx];
+              sum += av1_cdef_sec_taps[k] * constrain(s - x, sec, damping);
+              if (s > mx) mx = s;
+              if (s < mn) mn = s;
+            }
+          }
+        }
+      const int y = x + ((8 + sum - (sum < 0)) >> 4);
+      dst[i * dst_stride + j] = (uint8_t)clip3(mn, mx, y);
+    }
+}
+
+static void cdef_filter(Frame *f, const uint8_t *src, int plane, int r, int c,
+                        int pri, int sec, int damping, int dir) {
+  const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
+  const int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy, stride = f->stride[plane];
+  av1_cdef_block(src, stride, (f->mi_rows * 4) >> sy, (f->mi_cols * 4) >> sx,
+                 y0, x0, 8 >> sx, 8 >> sy, pri, sec, damping, dir,
+                 f->frame[plane] + y0 * stride + x0, stride);
+}
+
+static int cdef(Frame *f) {
+  const int32_t *h = f->hdr;
+  if (!h[AV1_ENABLE_CDEF]) return 0;
+  uint8_t *src[3];
+  for (int p = 0; p < f->planes; p++) {
+    const size_t n = (size_t)f->stride[p] * (size_t)f->alloc_h[p];
+    src[p] = malloc(n);
+    if (!src[p]) {
+      for (int q = 0; q < p; q++) free(src[q]);
+      return 2;
+    }
+    memcpy(src[p], f->frame[p], n);
+  }
+  const int damping = h[AV1_CDEF_DAMPING];
+  for (int r = 0; r < f->mi_rows; r += 2)
+    for (int c = 0; c < f->mi_cols; c += 2) {
+      const int idx = f->cdef_idx[(r >> 4) * f->cdef_stride + (c >> 4)];
+      if (idx == -1) continue;
+      if (MI(f, skip, r, c) && MI(f, skip, r + 1, c) && MI(f, skip, r, c + 1) &&
+          MI(f, skip, r + 1, c + 1))
+        continue;
+      f->stats[AV1_STAT_CDEF_BLOCKS]++;
+      int var;
+      const int ydir = av1_cdef_find_dir(src[0] + r * 4 * f->stride[0] + c * 4, f->stride[0], &var);
+      int pri = h[AV1_CDEF_Y_PRI + idx], sec = h[AV1_CDEF_Y_SEC + idx];
+      int dir = pri ? ydir : 0;
+      int vs = (var >> 6) ? floor_log2((uint32_t)(var >> 6)) : 0;
+      if (vs > 12) vs = 12;
+      const int adj = var ? (pri * (4 + vs) + 8) >> 4 : 0;
+      if (pri || sec) cdef_filter(f, src[0], 0, r, c, adj, sec, damping, dir);
+      if (f->planes > 1) {
+        pri = h[AV1_CDEF_UV_PRI + idx];
+        sec = h[AV1_CDEF_UV_SEC + idx];
+        dir = pri ? ydir : 0;
+        if (pri || sec) {
+          cdef_filter(f, src[1], 1, r, c, pri, sec, damping - 1, dir);
+          cdef_filter(f, src[2], 2, r, c, pri, sec, damping - 1, dir);
+        }
+      }
+    }
+  for (int p = 0; p < f->planes; p++) free(src[p]);
+  return 0;
+}
+
+/* ------------------------------------------------------------ the frame */
+
+int av1_decode_frame(const int32_t *plan, const uint8_t *data, long len,
+                     uint8_t *y_out, uint8_t *u_out, uint8_t *v_out,
+                     int32_t *stats, char *err, int errlen) {
+  Frame F;
+  Frame *f = &F;
+  memset(f, 0, sizeof(F));
+  f->hdr = plan;
+  f->stats = stats;
+  f->err = err;
+  f->errlen = errlen;
+  memset(stats, 0, sizeof(int32_t) * AV1_NSTATS);
+  f->width = plan[AV1_WIDTH];
+  f->height = plan[AV1_HEIGHT];
+  f->mono = plan[AV1_MONO];
+  f->planes = f->mono ? 1 : 3;
+  f->ssx = f->ssy = 1;
+  f->mi_cols = 2 * ((f->width + 7) >> 3);
+  f->mi_rows = 2 * ((f->height + 7) >> 3);
+  const int sb_cols = (f->mi_cols + 15) >> 4, sb_rows = (f->mi_rows + 15) >> 4;
+  f->mi_stride = sb_cols * 16 + 1;
+  const int mi_alloc = (sb_rows * 16 + 1) * f->mi_stride;
+  f->cdef_stride = sb_cols;
+  int rc = 2;
+  Tile *t = calloc(1, sizeof(Tile));
+  uint8_t *mi_block = calloc((size_t)mi_alloc, 5);
+  f->delta_lf = calloc((size_t)mi_alloc, 4);
+  f->cdef_idx = malloc((size_t)(sb_rows * sb_cols));
+  if (!t || !mi_block || !f->delta_lf || !f->cdef_idx) goto done;
+  memset(f->cdef_idx, -1, (size_t)(sb_rows * sb_cols));
+  f->mi_size = mi_block;
+  f->y_mode = mi_block + mi_alloc;
+  f->uv_mode = mi_block + 2 * mi_alloc;
+  f->skip = mi_block + 3 * mi_alloc;
+  f->tx_size_mi = mi_block + 4 * mi_alloc;
+  for (int p = 0; p < f->planes; p++) {
+    const int sx = p ? f->ssx : 0, sy = p ? f->ssy : 0;
+    f->stride[p] = (sb_cols * 64) >> sx;
+    f->alloc_h[p] = (sb_rows * 64) >> sy;
+    f->frame[p] = calloc((size_t)f->stride[p] * (size_t)f->alloc_h[p], 1);
+    f->lf_stride[p] = f->stride[p] / 4;
+    f->lf_txsz[p] = calloc((size_t)f->lf_stride[p] * (size_t)(f->alloc_h[p] / 4), 1);
+    t->above_ctx[p] = calloc((size_t)(f->mi_cols + 64), 1);
+    if (!f->frame[p] || !f->lf_txsz[p] || !t->above_ctx[p]) goto done;
+  }
+  t->f = f;
+  const int tile_cols = plan[AV1_TILE_COLS], tile_rows = plan[AV1_TILE_ROWS];
+  for (int tr = 0; tr < tile_rows; tr++)
+    for (int tc = 0; tc < tile_cols; tc++) {
+      const int n = tr * tile_cols + tc;
+      const long off = plan[AV1_TILES + 2 * n], size = plan[AV1_TILES + 2 * n + 1];
+      if (off < 0 || size <= 0 || off + size > len) {
+        fail(f, "AV1: a tile's bytes lie outside the frame OBU");
+        rc = 1;
+        goto done;
+      }
+      t->mi_row_start = plan[AV1_ROW_STARTS + tr];
+      t->mi_row_end = plan[AV1_ROW_STARTS + tr + 1];
+      t->mi_col_start = plan[AV1_COL_STARTS + tc];
+      t->mi_col_end = plan[AV1_COL_STARTS + tc + 1];
+      decode_tile(t, data + off, size);
+      stats[AV1_STAT_TILES]++;
+      if (f->failed) {
+        rc = 1;
+        goto done;
+      }
+    }
+  loop_filter(f);
+  if (!plan[AV1_NO_CDEF] && cdef(f)) goto done;
+  for (int p = 0; p < f->planes; p++) {
+    uint8_t *out = p == 0 ? y_out : p == 1 ? u_out : v_out;
+    const size_t w = (size_t)(p ? (f->width + 1) >> 1 : f->width);
+    const int h = p ? (f->height + 1) >> 1 : f->height;
+    for (int y = 0; y < h; y++)
+      memcpy(out + (size_t)y * w, f->frame[p] + (size_t)y * (size_t)f->stride[p], w);
+  }
+  rc = 0;
+done:
+  if (rc == 2 && !f->failed) snprintf(err, (size_t)errlen, "AV1: out of memory");
+  for (int p = 0; p < 3; p++) {
+    free(f->frame[p]);
+    free(f->lf_txsz[p]);
+    if (t) free(t->above_ctx[p]);
+  }
+  free(t);
+  free(mi_block);
+  free(f->delta_lf);
+  free(f->cdef_idx);
+  return rc;
+}

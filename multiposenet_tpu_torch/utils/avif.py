@@ -1,0 +1,1072 @@
+"""AVIF as OpenCV 5.0 reads it through libavif 1.4.2 over libaom 3.14.1
+(`grfmt_avif.cpp`: `avifDecoderParse`, `avifDecoderNextImage`, then
+`avifImageYUVToRGB` into 8-bit BGR at libavif's default chroma
+upsampling).
+
+The contract. For every file `cv2.imencode(".avif", img,
+[cv2.IMWRITE_AVIF_QUALITY, q])` writes, with `img` uint8 of 1, 3 or 4
+channels at any size cv2 accepts (1x1 up, odd sides, widths over 4096,
+which libaom splits into tile columns) and `q` from 0 to 99 (the default
+included), `decode(data)` equals `cv2.imdecode(data, cv2.IMREAD_COLOR)`
+reversed to RGB, pixel for pixel, and the Y, U and V planes before the
+colour conversion (`decode_planes`) equal libaom's. What such files use,
+and what is read here:
+- the container (ISOBMFF, `read_container`): `ftyp` naming the `avif`
+  brand (major or compatible), `meta` with `hdlr` `pict`, `pitm`,
+  `iloc` (construction methods 0, file offsets, and 1, `idat`),
+  `iinf`/`infe`, `iprp` with `ipco` and `ipma`, and `iref`. The primary
+  item's properties: `av1C` (its configuration OBUs read before the
+  item's), `ispe` (equal to the frame's size), `colr` nclx (its matrix
+  and range), and `irot`, `imir` and `clap`, which cv2 does not apply
+  and which are ignored here. An alpha auxiliary item (`auxl`, `auxC`:
+  cv2 writes one for 4-channel input) is decoded and dropped, as cv2
+  returns no image where it does not decode;
+- the OBUs (`read_obus`: uleb128 sizes; temporal delimiters, metadata
+  and padding skipped), the sequence header and the uncompressed header
+  of one shown key frame in full syntax (`SequenceHeader`,
+  `FrameHeader`), and the tile groups that follow it;
+- the tiles, in the host C library `csrc/av1.c` or, with `plain=True`,
+  in its plain twin `utils/av1.py`: 8-bit profile 0, 4:2:0 or
+  monochrome, 64x64 superblocks, every partition, the 13 intra modes
+  with angle deltas, edge filtering and upsampling, filter intra, chroma
+  from luma, delta q and delta lf, the largest or a selected transform
+  size, the intra transform sets, the quantiser matrices, then the
+  deblocking filter and CDEF. A tile whose symbols run past its bytes,
+  or that does not end in its trailing bits, is refused, as libaom
+  reports such a frame corrupt;
+- libavif's YUV to RGB (`yuv_to_rgb`): libyuv's bilinear 4:2:0
+  upsampling and its fixed-point full-range BT.601 (the JPEG constants,
+  for matrix coefficients 2, 5 and 6); a monochrome image is its Y plane
+  in each channel.
+
+cv2's own files reach only part of that: DC, V, H and smooth prediction,
+the DCT and no filter intra or CFL (see `tools/avif_search.py`); the
+rest is held to libaom's own C functions stage by stage and on files
+Pillow's AVIF writer makes.
+
+What lies outside it is refused by a ValueError that names it, where the
+stream uses it: the `avis` brand (sequences), grid items, Exif items,
+profiles 1 and 2 (4:4:4, 4:2:2, 12 bits), 10 bits, lossless frames,
+palette and intra block copy, loop restoration, superres, segmentation,
+film grain, 128x128 superblocks, frames other than one shown key frame,
+an `ispe` other than the frame's size, limited range and other matrices.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import struct
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from multiposenet_tpu_torch import kernels
+from multiposenet_tpu_torch.utils.av1 import decode_planes_plain
+
+AVIF_BRANDS = (b"avif", b"avis")
+
+
+def is_avif(data: bytes) -> bool:
+    """An ISOBMFF file whose `ftyp` names `avif` or `avis` as its major
+    brand or among its compatible brands (libavif's
+    avifPeekCompatibleFileType)."""
+    if data[4:8] != b"ftyp" or len(data) < 16:
+        return False
+    size = int.from_bytes(data[:4], "big")
+    end = min(len(data), size) if size >= 16 else 16
+    brands = [data[8:12]] + [data[i:i + 4] for i in range(16, end - 3, 4)]
+    return any(b in AVIF_BRANDS for b in brands)
+
+
+# --- the container -----------------------------------------------------------
+
+
+def _boxes(data: bytes, start: int, end: int):
+    """(type, payload start, payload end) of each box in data[start:end]."""
+    pos = start
+    while pos < end:
+        if pos + 8 > end:
+            raise ValueError("AVIF: a box header runs past its parent")
+        size, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        head = 8
+        if size == 1:
+            if pos + 16 > end:
+                raise ValueError("AVIF: a box header runs past its parent")
+            (size,) = struct.unpack(">Q", data[pos + 8:pos + 16])
+            head = 16
+        elif size == 0:
+            size = end - pos
+        if kind == b"uuid":
+            head += 16
+        if size < head or pos + size > end:
+            raise ValueError(f"AVIF: box {kind!r} runs past its parent")
+        yield kind, pos + head, pos + size
+        pos += size
+
+
+class _Reader:
+    def __init__(self, data: bytes, pos: int, end: int):
+        self.data, self.pos, self.end = data, pos, end
+
+    def u(self, n: int) -> int:
+        if self.pos + n > self.end:
+            raise ValueError("AVIF: a box ends early")
+        v = int.from_bytes(self.data[self.pos:self.pos + n], "big")
+        self.pos += n
+        return v
+
+    def full(self) -> tuple[int, int]:
+        v = self.u(4)
+        return v >> 24, v & 0xFFFFFF
+
+
+@dataclass
+class Item:
+    id: int
+    type: bytes = b""
+    extents: list = field(default_factory=list)
+    method: int = 0
+    base: int = 0
+    props: list = field(default_factory=list)
+
+
+@dataclass
+class Container:
+    primary: int
+    items: dict
+    properties: list
+    idat: bytes
+    refs: list
+
+
+def read_container(data: bytes) -> Container:
+    """The boxes libavif reads for a still image."""
+    brand = None
+    meta = None
+    for kind, s, e in _boxes(data, 0, len(data)):
+        if kind == b"ftyp":
+            brand = data[s:s + 4]
+            brands = [brand] + [data[i:i + 4] for i in range(s + 8, e - 3, 4)]
+            if brand == b"avis" or (b"avif" not in brands
+                                    and b"avis" in brands):
+                raise ValueError("AVIF image sequences (brand avis) are not "
+                                 "read here")
+        elif kind == b"meta" and meta is None:
+            meta = (s, e)
+    if brand is None:
+        raise ValueError("AVIF: no ftyp box")
+    if meta is None:
+        raise ValueError("AVIF: no meta box")
+    items: dict[int, Item] = {}
+    properties: list = []
+    idat = b""
+    refs: list = []
+    primary = None
+    handler = None
+    s, e = meta
+    for kind, ps, pe in _boxes(data, s + 4, e):
+        r = _Reader(data, ps, pe)
+        if kind == b"hdlr":
+            r.full()
+            r.u(4)
+            handler = r.u(4).to_bytes(4, "big")
+        elif kind == b"pitm":
+            version, _ = r.full()
+            primary = r.u(2 if version == 0 else 4)
+        elif kind == b"iloc":
+            _read_iloc(r, items)
+        elif kind == b"iinf":
+            version, _ = r.full()
+            r.u(2 if version == 0 else 4)  # entry_count
+            for ik, is_, ie in _boxes(data, r.pos, pe):
+                if ik != b"infe":
+                    continue
+                ir = _Reader(data, is_, ie)
+                iv, _ = ir.full()
+                if iv < 2:
+                    raise ValueError(f"AVIF: infe version {iv} is not read "
+                                     "here")
+                iid = ir.u(2 if iv == 2 else 4)
+                ir.u(2)
+                items.setdefault(iid, Item(iid)).type = ir.u(4).to_bytes(
+                    4, "big")
+        elif kind == b"iprp":
+            _read_iprp(data, ps, pe, items, properties)
+        elif kind == b"idat":
+            idat = data[ps:pe]
+        elif kind == b"iref":
+            version, _ = r.full()
+            for rk, rs, re_ in _boxes(data, r.pos, pe):
+                rr = _Reader(data, rs, re_)
+                src = rr.u(2 if version == 0 else 4)
+                n = rr.u(2)
+                refs.append((rk, src, [rr.u(2 if version == 0 else 4)
+                                       for _ in range(n)]))
+    if handler != b"pict":
+        raise ValueError(f"AVIF: handler {handler!r}, not pict")
+    if primary is None or primary not in items:
+        raise ValueError("AVIF: no primary item")
+    return Container(primary, items, properties, idat, refs)
+
+
+def _read_iloc(r: _Reader, items: dict) -> None:
+    version, _ = r.full()
+    if version > 2:
+        raise ValueError(f"AVIF: iloc version {version}")
+    sizes = r.u(2)
+    off_size, len_size = sizes >> 12, (sizes >> 8) & 15
+    base_size, index_size = (sizes >> 4) & 15, sizes & 15
+    count = r.u(2 if version < 2 else 4)
+    for _ in range(count):
+        iid = r.u(2 if version < 2 else 4)
+        item = items.setdefault(iid, Item(iid))
+        if version in (1, 2):
+            item.method = r.u(2) & 15
+        r.u(2)
+        item.base = r.u(base_size)
+        n = r.u(2)
+        item.extents = []
+        for _ in range(n):
+            if version in (1, 2) and index_size:
+                r.u(index_size)
+            off = r.u(off_size)
+            length = r.u(len_size)
+            item.extents.append((off, length))
+
+
+def _read_iprp(data: bytes, s: int, e: int, items: dict,
+               properties: list) -> None:
+    for kind, ps, pe in _boxes(data, s, e):
+        if kind == b"ipco":
+            for pk, qs, qe in _boxes(data, ps, pe):
+                properties.append((pk, data[qs:qe]))
+        elif kind == b"ipma":
+            r = _Reader(data, ps, pe)
+            version, flags = r.full()
+            for _ in range(r.u(4)):
+                iid = r.u(2 if version < 1 else 4)
+                item = items.setdefault(iid, Item(iid))
+                for _ in range(r.u(1)):
+                    v = r.u(2 if flags & 1 else 1)
+                    index = v & (0x7FFF if flags & 1 else 0x7F)
+                    if index:
+                        item.props.append(index - 1)
+
+
+def item_data(data: bytes, c: Container, item: Item) -> bytes:
+    if item.method not in (0, 1):
+        raise ValueError(f"AVIF: iloc construction method {item.method}")
+    src = data if item.method == 0 else c.idat
+    parts = []
+    for off, length in item.extents:
+        start = item.base + off
+        if length == 0:
+            length = len(src) - start
+        if start < 0 or start + length > len(src):
+            raise ValueError("AVIF: an item's extent lies outside the file")
+        parts.append(src[start:start + length])
+    return b"".join(parts)
+
+
+def item_properties(c: Container, item: Item) -> dict:
+    out = {}
+    for index in item.props:
+        if index >= len(c.properties):
+            raise ValueError("AVIF: ipma names a property ipco lacks")
+        kind, payload = c.properties[index]
+        out.setdefault(kind, payload)
+    return out
+
+
+# --- OBUs and the bit reader -------------------------------------------------
+
+OBU_SEQUENCE_HEADER, OBU_TEMPORAL_DELIMITER, OBU_FRAME_HEADER = 1, 2, 3
+OBU_TILE_GROUP, OBU_METADATA, OBU_FRAME = 4, 5, 6
+OBU_REDUNDANT_FRAME_HEADER, OBU_TILE_LIST, OBU_PADDING = 7, 8, 15
+
+
+def _leb128(data: bytes, pos: int) -> tuple[int, int]:
+    value = 0
+    for i in range(8):
+        if pos >= len(data):
+            raise ValueError("AV1: an OBU size runs past the data")
+        b = data[pos]
+        pos += 1
+        value |= (b & 0x7F) << (7 * i)
+        if not b & 0x80:
+            return value, pos
+    return value, pos
+
+
+def read_obus(data: bytes) -> list[tuple[int, bytes]]:
+    """(type, payload) of each OBU of a low-overhead bitstream."""
+    out, pos = [], 0
+    while pos < len(data):
+        h = data[pos]
+        if h & 0x80:
+            raise ValueError("AV1: the forbidden bit of an OBU header is set")
+        kind, ext, has_size = (h >> 3) & 15, (h >> 2) & 1, (h >> 1) & 1
+        pos += 1 + ext
+        if has_size:
+            size, pos = _leb128(data, pos)
+        else:
+            size = len(data) - pos
+        if pos + size > len(data):
+            raise ValueError("AV1: an OBU runs past the data")
+        out.append((kind, data[pos:pos + size]))
+        pos += size
+    return out
+
+
+class BitReader:
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def f(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            byte = self.pos >> 3
+            if byte >= len(self.data):
+                raise ValueError("AV1: a header runs past its OBU")
+            v = (v << 1) | ((self.data[byte] >> (7 - (self.pos & 7))) & 1)
+            self.pos += 1
+        return v
+
+    def su(self, n: int) -> int:
+        v = self.f(n)
+        return v - (1 << n) if v & (1 << (n - 1)) else v
+
+    def ns(self, n: int) -> int:
+        w = n.bit_length()
+        m = (1 << w) - n
+        v = self.f(w - 1)
+        return v if v < m else (v << 1) - m + self.f(1)
+
+    def uvlc(self) -> int:
+        zeros = 0
+        while not self.f(1):
+            zeros += 1
+            if zeros >= 32:
+                return (1 << 32) - 1
+        return self.f(zeros) + (1 << zeros) - 1
+
+    def byte_align(self) -> None:
+        self.pos = (self.pos + 7) & ~7
+
+
+SELECT = 2
+
+
+@dataclass
+class SequenceHeader:
+    profile: int = 0
+    reduced: int = 0
+    timing_info: int = 0
+    decoder_model_info: int = 0
+    equal_picture_interval: int = 0
+    buffer_removal_time_length: int = 0
+    frame_presentation_time_length: int = 0
+    op_idc: list = field(default_factory=list)
+    decoder_model_for_op: list = field(default_factory=list)
+    frame_width_bits: int = 0
+    frame_height_bits: int = 0
+    max_width: int = 0
+    max_height: int = 0
+    frame_id_numbers: int = 0
+    frame_id_length: int = 0
+    sb128: int = 0
+    filter_intra: int = 0
+    intra_edge_filter: int = 0
+    order_hint_bits: int = 0
+    force_screen_content_tools: int = SELECT
+    force_integer_mv: int = SELECT
+    superres: int = 0
+    cdef: int = 0
+    restoration: int = 0
+    bit_depth: int = 8
+    mono: int = 0
+    ssx: int = 1
+    ssy: int = 1
+    primaries: int = 2
+    transfer: int = 2
+    matrix: int = 2
+    full_range: int = 0
+    separate_uv_delta_q: int = 0
+    film_grain: int = 0
+
+
+def parse_sequence_header(payload: bytes) -> SequenceHeader:
+    r = BitReader(payload)
+    s = SequenceHeader()
+    s.profile = r.f(3)
+    r.f(1)  # still_picture
+    s.reduced = r.f(1)
+    if s.reduced:
+        s.op_idc = [0]
+        s.decoder_model_for_op = [0]
+        r.f(5)
+    else:
+        s.timing_info = r.f(1)
+        buffer_delay_length = 0
+        if s.timing_info:
+            r.f(32)
+            r.f(32)
+            s.equal_picture_interval = r.f(1)
+            if s.equal_picture_interval:
+                r.uvlc()
+            s.decoder_model_info = r.f(1)
+            if s.decoder_model_info:
+                buffer_delay_length = r.f(5) + 1
+                r.f(32)
+                s.buffer_removal_time_length = r.f(5) + 1
+                s.frame_presentation_time_length = r.f(5) + 1
+        initial_display_delay = r.f(1)
+        for _ in range(r.f(5) + 1):
+            s.op_idc.append(r.f(12))
+            if r.f(5) > 7:
+                r.f(1)
+            present = 0
+            if s.decoder_model_info:
+                present = r.f(1)
+                if present:
+                    r.f(buffer_delay_length)
+                    r.f(buffer_delay_length)
+                    r.f(1)
+            s.decoder_model_for_op.append(present)
+            if initial_display_delay and r.f(1):
+                r.f(4)
+    s.frame_width_bits = r.f(4) + 1
+    s.frame_height_bits = r.f(4) + 1
+    s.max_width = r.f(s.frame_width_bits) + 1
+    s.max_height = r.f(s.frame_height_bits) + 1
+    if not s.reduced:
+        s.frame_id_numbers = r.f(1)
+    if s.frame_id_numbers:
+        delta = r.f(4) + 2
+        s.frame_id_length = r.f(3) + 1 + delta
+    s.sb128 = r.f(1)
+    s.filter_intra = r.f(1)
+    s.intra_edge_filter = r.f(1)
+    if not s.reduced:
+        r.f(4)  # interintra, masked compound, warped motion, dual filter
+        order_hint = r.f(1)
+        if order_hint:
+            r.f(2)  # jnt_comp, ref_frame_mvs
+        if r.f(1):
+            s.force_screen_content_tools = SELECT
+        else:
+            s.force_screen_content_tools = r.f(1)
+        if s.force_screen_content_tools > 0:
+            s.force_integer_mv = SELECT if r.f(1) else r.f(1)
+        else:
+            s.force_integer_mv = SELECT
+        if order_hint:
+            s.order_hint_bits = r.f(3) + 1
+    s.superres = r.f(1)
+    s.cdef = r.f(1)
+    s.restoration = r.f(1)
+    # color_config
+    high = r.f(1)
+    if s.profile == 2 and high:
+        s.bit_depth = 12 if r.f(1) else 10
+    else:
+        s.bit_depth = 10 if high else 8
+    s.mono = 0 if s.profile == 1 else r.f(1)
+    if r.f(1):
+        s.primaries, s.transfer, s.matrix = r.f(8), r.f(8), r.f(8)
+    if s.mono:
+        s.full_range = r.f(1)
+        s.ssx = s.ssy = 1
+    elif s.primaries == 1 and s.transfer == 13 and s.matrix == 0:
+        s.full_range = 1
+        s.ssx = s.ssy = 0
+    else:
+        s.full_range = r.f(1)
+        if s.profile == 0:
+            s.ssx = s.ssy = 1
+        elif s.profile == 1:
+            s.ssx = s.ssy = 0
+        elif s.bit_depth == 12:
+            s.ssx = r.f(1)
+            s.ssy = r.f(1) if s.ssx else 0
+        else:
+            s.ssx, s.ssy = 1, 0
+        if s.ssx and s.ssy:
+            r.f(2)
+    if not s.mono:
+        s.separate_uv_delta_q = r.f(1)
+    s.film_grain = r.f(1)
+    return s
+
+
+def check_sequence(s: SequenceHeader) -> None:
+    """The sequence-level refusals (the profile fixes them)."""
+    if s.profile != 0:
+        raise ValueError(f"AVIF: AV1 profile {s.profile} (4:4:4 or 4:2:2, "
+                         "or 12-bit) is not read here")
+    if s.bit_depth != 8:
+        raise ValueError(f"AVIF: {s.bit_depth}-bit samples are not read here")
+    if not s.mono and (s.ssx, s.ssy) != (1, 1):
+        raise ValueError("AVIF: 4:4:4 and 4:2:2 chroma are not read here")
+    if s.sb128:
+        raise ValueError("AVIF: 128x128 superblocks are not read here")
+
+
+@dataclass
+class FrameHeader:
+    width: int = 0
+    height: int = 0
+    disable_cdf_update: int = 0
+    screen_content: int = 0
+    allow_intrabc: int = 0
+    tile_cols: int = 1
+    tile_rows: int = 1
+    tile_cols_log2: int = 0
+    tile_rows_log2: int = 0
+    col_starts: list = field(default_factory=list)
+    row_starts: list = field(default_factory=list)
+    tile_size_bytes: int = 4
+    base_q: int = 0
+    dq: tuple = (0, 0, 0, 0, 0)  # y dc, u dc, u ac, v dc, v ac
+    using_qm: int = 0
+    qm: tuple = (15, 15, 15)
+    delta_q_present: int = 0
+    delta_q_res: int = 0
+    delta_lf_present: int = 0
+    delta_lf_res: int = 0
+    delta_lf_multi: int = 0
+    lf_level: tuple = (0, 0, 0, 0)
+    lf_sharpness: int = 0
+    lf_delta_enabled: int = 0
+    lf_ref_deltas: tuple = (1, 0, 0, 0, -1, 0, -1, -1)
+    cdef_damping: int = 3
+    cdef_bits: int = 0
+    cdef_y: tuple = ((0, 0),)
+    cdef_uv: tuple = ((0, 0),)
+    tx_mode_select: int = 0
+    reduced_tx_set: int = 0
+    header_bytes: int = 0
+
+
+def _tile_log2(blk: int, target: int) -> int:
+    k = 0
+    while (blk << k) < target:
+        k += 1
+    return k
+
+
+def parse_frame_header(payload: bytes, s: SequenceHeader) -> FrameHeader:
+    """The uncompressed header of a shown key frame; refusals where the
+    frame uses what this decoder does not follow."""
+    r = BitReader(payload)
+    h = FrameHeader()
+    if not s.reduced:
+        if r.f(1):
+            raise ValueError("AVIF: a frame shown again (show_existing_frame)"
+                             " is not read here")
+        frame_type = r.f(2)
+        show_frame = r.f(1)
+        if frame_type != 0 or not show_frame:
+            raise ValueError("AVIF: only a shown key frame is read here "
+                             f"(frame type {frame_type})")
+        if s.decoder_model_info and not s.equal_picture_interval:
+            r.f(s.frame_presentation_time_length)
+    h.disable_cdf_update = r.f(1)
+    if s.force_screen_content_tools == SELECT:
+        h.screen_content = r.f(1)
+    else:
+        h.screen_content = s.force_screen_content_tools
+    if h.screen_content and s.force_integer_mv == SELECT:
+        r.f(1)
+    if s.frame_id_numbers:
+        r.f(s.frame_id_length)
+    override = 0 if s.reduced else r.f(1)
+    r.f(s.order_hint_bits)
+    if s.decoder_model_info:
+        if r.f(1):
+            for idc, present in zip(s.op_idc, s.decoder_model_for_op):
+                if present and (idc == 0 or ((idc & 1) and (idc >> 8) & 1)):
+                    r.f(s.buffer_removal_time_length)
+    if override:
+        h.width = r.f(s.frame_width_bits) + 1
+        h.height = r.f(s.frame_height_bits) + 1
+    else:
+        h.width, h.height = s.max_width, s.max_height
+    if s.superres and r.f(1):
+        raise ValueError("AVIF: superres is not read here")
+    if r.f(1):  # render_and_frame_size_different
+        r.f(16)
+        r.f(16)
+    if h.screen_content:
+        h.allow_intrabc = r.f(1)
+        if h.allow_intrabc:
+            raise ValueError("AVIF: intra block copy is not read here")
+    if not (s.reduced or h.disable_cdf_update):
+        r.f(1)  # disable_frame_end_update_cdf
+    mi_cols = 2 * ((h.width + 7) >> 3)
+    mi_rows = 2 * ((h.height + 7) >> 3)
+    _tile_info(r, h, mi_cols, mi_rows)
+    # quantization_params
+    h.base_q = r.f(8)
+
+    def delta():
+        return r.su(7) if r.f(1) else 0
+
+    y_dc = delta()
+    u_dc = u_ac = v_dc = v_ac = 0
+    if not s.mono:
+        diff_uv = r.f(1) if s.separate_uv_delta_q else 0
+        u_dc, u_ac = delta(), delta()
+        v_dc, v_ac = (delta(), delta()) if diff_uv else (u_dc, u_ac)
+    h.dq = (y_dc, u_dc, u_ac, v_dc, v_ac)
+    h.using_qm = r.f(1)
+    if h.using_qm:
+        qy, qu = r.f(4), r.f(4)
+        qv = r.f(4) if s.separate_uv_delta_q else qu
+        h.qm = (qy, qu, qv)
+    if r.f(1):
+        raise ValueError("AVIF: segmentation is not read here")
+    if h.base_q > 0:
+        h.delta_q_present = r.f(1)
+        if h.delta_q_present:
+            h.delta_q_res = r.f(2)
+    if h.delta_q_present:
+        h.delta_lf_present = r.f(1)
+        if h.delta_lf_present:
+            h.delta_lf_res = r.f(2)
+            h.delta_lf_multi = r.f(1)
+    if h.base_q == 0 and not any(h.dq):
+        raise ValueError("AVIF: lossless frames are not read here")
+    # loop_filter_params
+    l0, l1 = r.f(6), r.f(6)
+    l2 = l3 = 0
+    if not s.mono and (l0 or l1):
+        l2, l3 = r.f(6), r.f(6)
+    h.lf_level = (l0, l1, l2, l3)
+    h.lf_sharpness = r.f(3)
+    h.lf_delta_enabled = r.f(1)
+    if h.lf_delta_enabled and r.f(1):
+        ref = list(h.lf_ref_deltas)
+        for i in range(8):
+            if r.f(1):
+                ref[i] = r.su(7)
+        h.lf_ref_deltas = tuple(ref)
+        for _ in range(2):
+            if r.f(1):
+                r.su(7)  # mode deltas: inter blocks only
+    # cdef_params
+    if s.cdef:
+        h.cdef_damping = r.f(2) + 3
+        h.cdef_bits = r.f(2)
+        ys, uvs = [], []
+        for _ in range(1 << h.cdef_bits):
+            p, sec = r.f(4), r.f(2)
+            ys.append((p, sec + (sec == 3)))
+            if not s.mono:
+                p, sec = r.f(4), r.f(2)
+                uvs.append((p, sec + (sec == 3)))
+            else:
+                uvs.append((0, 0))
+        h.cdef_y, h.cdef_uv = tuple(ys), tuple(uvs)
+    # lr_params
+    if s.restoration:
+        for plane in range(1 if s.mono else 3):
+            if r.f(2):
+                raise ValueError("AVIF: loop restoration is not read here")
+    h.tx_mode_select = r.f(1)
+    h.reduced_tx_set = r.f(1)
+    if s.film_grain and r.f(1):
+        raise ValueError("AVIF: film grain is not read here")
+    r.byte_align()
+    h.header_bytes = r.pos >> 3
+    return h
+
+
+def _tile_info(r: BitReader, h: FrameHeader, mi_cols: int,
+               mi_rows: int) -> None:
+    sb_cols, sb_rows = (mi_cols + 15) >> 4, (mi_rows + 15) >> 4
+    max_tile_width_sb = 4096 >> 6
+    max_tile_area_sb = (4096 * 2304) >> 12
+    min_log2_cols = _tile_log2(max_tile_width_sb, sb_cols)
+    max_log2_cols = _tile_log2(1, min(sb_cols, 64))
+    max_log2_rows = _tile_log2(1, min(sb_rows, 64))
+    min_log2 = max(min_log2_cols, _tile_log2(max_tile_area_sb,
+                                             sb_rows * sb_cols))
+    cols, rows = [], []
+    if r.f(1):  # uniform_tile_spacing_flag
+        h.tile_cols_log2 = min_log2_cols
+        while h.tile_cols_log2 < max_log2_cols and r.f(1):
+            h.tile_cols_log2 += 1
+        w = (sb_cols + (1 << h.tile_cols_log2) - 1) >> h.tile_cols_log2
+        cols = [sb << 4 for sb in range(0, sb_cols, w)]
+        h.tile_rows_log2 = max(min_log2 - h.tile_cols_log2, 0)
+        while h.tile_rows_log2 < max_log2_rows and r.f(1):
+            h.tile_rows_log2 += 1
+        th = (sb_rows + (1 << h.tile_rows_log2) - 1) >> h.tile_rows_log2
+        rows = [sb << 4 for sb in range(0, sb_rows, th)]
+    else:
+        widest, start = 0, 0
+        while start < sb_cols:
+            cols.append(start << 4)
+            size = r.ns(min(sb_cols - start, max_tile_width_sb)) + 1
+            widest = max(widest, size)
+            start += size
+        h.tile_cols_log2 = _tile_log2(1, len(cols))
+        area = (sb_rows * sb_cols) >> (min_log2 + 1) if min_log2 > 0 \
+            else sb_rows * sb_cols
+        max_height = max(area // widest, 1)
+        start = 0
+        while start < sb_rows:
+            rows.append(start << 4)
+            start += r.ns(min(sb_rows - start, max_height)) + 1
+        h.tile_rows_log2 = _tile_log2(1, len(rows))
+    h.tile_cols, h.tile_rows = len(cols), len(rows)
+    if h.tile_cols > 64 or h.tile_rows > 64:
+        raise ValueError("AV1: more than 64 tile columns or rows")
+    h.col_starts = cols + [mi_cols]
+    h.row_starts = rows + [mi_rows]
+    if h.tile_cols_log2 or h.tile_rows_log2:
+        r.f(h.tile_rows_log2 + h.tile_cols_log2)  # context_update_tile_id
+        h.tile_size_bytes = r.f(2) + 1
+
+
+def tile_ranges(h: FrameHeader, groups: list[bytes]) -> tuple[bytes, list]:
+    """The tile groups' bytes joined, and (offset, size) of each tile in
+    raster order."""
+    n = h.tile_cols * h.tile_rows
+    tiles: list = [None] * n
+    data = b""
+    for g in groups:
+        r = BitReader(g)
+        start, end = 0, n - 1
+        if n > 1 and r.f(1):
+            bits = h.tile_cols_log2 + h.tile_rows_log2
+            start, end = r.f(bits), r.f(bits)
+        r.byte_align()
+        pos = r.pos >> 3
+        for t in range(start, end + 1):
+            if t >= n or tiles[t] is not None:
+                raise ValueError("AV1: a tile group names a tile twice or "
+                                 "one past the grid")
+            if t == end:
+                size = len(g) - pos
+            else:
+                if pos + h.tile_size_bytes > len(g):
+                    raise ValueError("AV1: a tile size runs past its OBU")
+                size = int.from_bytes(g[pos:pos + h.tile_size_bytes],
+                                      "little") + 1
+                pos += h.tile_size_bytes
+            if size <= 0 or pos + size > len(g):
+                raise ValueError("AV1: a tile runs past its OBU")
+            tiles[t] = (len(data) + pos, size)
+            pos += size
+        data += g
+    if any(t is None for t in tiles):
+        raise ValueError("AV1: the frame's tile groups leave tiles out")
+    return data, tiles
+
+
+@dataclass
+class Frame:
+    seq: SequenceHeader
+    header: FrameHeader
+    data: bytes
+    tiles: list
+
+
+def read_frame(obus: bytes, config_obus: bytes = b"") -> Frame:
+    """The sequence header, the key frame's header and its tiles."""
+    seq = None
+    header = None
+    groups: list[bytes] = []
+    for kind, payload in read_obus(config_obus) + read_obus(obus):
+        if kind == OBU_SEQUENCE_HEADER:
+            if seq is None or header is None:
+                seq = parse_sequence_header(payload)
+                check_sequence(seq)
+        elif kind in (OBU_FRAME_HEADER, OBU_FRAME):
+            if header is not None:
+                if kind == OBU_FRAME_HEADER:
+                    continue
+                break
+            if seq is None:
+                raise ValueError("AV1: a frame before its sequence header")
+            header = parse_frame_header(payload, seq)
+            if kind == OBU_FRAME:
+                groups.append(payload[header.header_bytes:])
+        elif kind == OBU_TILE_GROUP:
+            if header is None:
+                raise ValueError("AV1: a tile group before its frame header")
+            groups.append(payload)
+        if header is not None and groups and _complete(header, groups):
+            break
+    if header is None:
+        raise ValueError("AVIF: the item holds no frame")
+    data, tiles = tile_ranges(header, groups)
+    return Frame(seq, header, data, tiles)
+
+
+def _complete(h: FrameHeader, groups: list[bytes]) -> bool:
+    try:
+        tile_ranges(h, groups)
+        return True
+    except ValueError:
+        return False
+
+
+# --- the tile decoder (host C) -----------------------------------------------
+
+NSTATS = 19 + 16 + 13 + 14 + 5 + 7 + 11 + 10
+STAT_NAMES = (
+    [f"tx_size_{n}" for n in ("4x4", "8x8", "16x16", "32x32", "64x64",
+                              "4x8", "8x4", "8x16", "16x8", "16x32", "32x16",
+                              "32x64", "64x32", "4x16", "16x4", "8x32",
+                              "32x8", "16x64", "64x16")]
+    + [f"tx_type_{i}" for i in range(16)]
+    + [f"y_mode_{i}" for i in range(13)]
+    + [f"uv_mode_{i}" for i in range(14)]
+    + [f"filter_intra_{i}" for i in range(5)]
+    + [f"angle_delta_{i - 3}" for i in range(7)]
+    + ["edge_upsample", "edge_filter", "tx_depth", "delta_q", "delta_lf",
+       "tiles", "blocks", "eob_max", "golomb", "cdef_blocks", "lf_edges"]
+    + [f"partition_{i}" for i in range(10)])
+# csrc/av1.c's AV1_NO_CDEF, AV1_COL_STARTS, AV1_ROW_STARTS, AV1_TILES.
+PLAN_NO_CDEF, PLAN_COL_STARTS, PLAN_ROW_STARTS = 79, 80, 80 + 65
+PLAN_TILES = PLAN_ROW_STARTS + 65
+_ERR_LEN = 256
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The host C library csrc/av1.c, built on first use."""
+    lib = kernels.load_host("av1")
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.av1_decode_frame.argtypes = [i32p, ctypes.c_char_p, ctypes.c_long,
+                                     u8p, u8p, u8p, i32p, ctypes.c_char_p,
+                                     ctypes.c_int]
+    lib.av1_decode_frame.restype = ctypes.c_int
+    return lib
+
+
+def plan(frame: Frame, cdef: bool = True) -> np.ndarray:
+    """The int32 plan `av1_decode_frame` reads (csrc/av1.c's AV1_*);
+    without `cdef`, it returns the frame before CDEF."""
+    s, h = frame.seq, frame.header
+    head = [h.width, h.height, s.mono, s.filter_intra, s.intra_edge_filter,
+            s.cdef, h.screen_content, h.disable_cdf_update, h.base_q,
+            *h.dq, h.using_qm, *h.qm, h.delta_q_present, h.delta_q_res,
+            h.delta_lf_present, h.delta_lf_res, h.delta_lf_multi,
+            *h.lf_level, h.lf_sharpness, h.lf_delta_enabled,
+            *h.lf_ref_deltas, h.cdef_damping, h.cdef_bits]
+    strengths = np.zeros((4, 8), np.int32)
+    for i, ((yp, ys), (up, us)) in enumerate(zip(h.cdef_y, h.cdef_uv)):
+        strengths[:, i] = (yp, ys, up, us)
+    head += strengths.ravel().tolist()
+    head += [h.tx_mode_select, h.reduced_tx_set, h.tile_cols, h.tile_rows]
+    out = np.zeros(PLAN_TILES + 2 * len(frame.tiles), np.int32)
+    out[:len(head)] = head
+    out[PLAN_NO_CDEF] = 0 if cdef else 1
+    out[PLAN_COL_STARTS:PLAN_COL_STARTS + len(h.col_starts)] = h.col_starts
+    out[PLAN_ROW_STARTS:PLAN_ROW_STARTS + len(h.row_starts)] = h.row_starts
+    out[PLAN_TILES:] = np.array(frame.tiles, np.int64).ravel()
+    return out
+
+
+def decode_planes_c(frame: Frame, cdef: bool = True):
+    """(Y, U, V, stats) of the frame through the host C library; U and V
+    are None for a monochrome stream. Without `cdef`, the planes before
+    CDEF (a stage for the tests)."""
+    h = frame.header
+    y = np.empty((h.height, h.width), np.uint8)
+    cw, ch = (h.width + 1) >> 1, (h.height + 1) >> 1
+    u = np.empty((ch, cw), np.uint8)
+    v = np.empty((ch, cw), np.uint8)
+    stats = np.zeros(NSTATS, np.int32)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    p = plan(frame, cdef)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    rc = library().av1_decode_frame(
+        p.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), frame.data,
+        len(frame.data), y.ctypes.data_as(u8p), u.ctypes.data_as(u8p),
+        v.ctypes.data_as(u8p),
+        stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), err, _ERR_LEN)
+    if rc == 2:
+        raise MemoryError(err.value.decode())
+    if rc:
+        raise ValueError(err.value.decode())
+    if frame.seq.mono:
+        return y, None, None, stats
+    return y, u, v, stats
+
+
+# --- libavif's YUV to RGB ----------------------------------------------------
+
+# libyuv's kYuvJPEGConstants (full-range BT.601) as libavif 1.4.2 carries
+# them: the U and V weights of B, G and R, Y's gain and bias (x86 layout:
+# kUVToB, kUVToG, kUVToR, kYToRgb, kYBiasToRgb).
+JPEG_UB, JPEG_UG, JPEG_VG, JPEG_VR, JPEG_YG, JPEG_YB = 113, 22, 46, 90, \
+    16320, 32
+# Matrix coefficients libavif maps to these constants at full range:
+# BT.470BG, BT.601 and unspecified.
+JPEG_MATRICES = (2, 5, 6)
+
+
+def _up2_linear(c: np.ndarray, width: int) -> np.ndarray:
+    """libyuv's ScaleRowUp2_Linear_Any_C on each row of c (int32)."""
+    out = np.empty(c.shape[:-1] + (width,), np.int32)
+    out[..., 0] = c[..., 0]
+    n = (width - 1) // 2
+    if n:
+        a, b = c[..., :n], c[..., 1:n + 1]
+        out[..., 1:2 * n:2] = (3 * a + b + 2) >> 2
+        out[..., 2:2 * n + 1:2] = (a + 3 * b + 2) >> 2
+    out[..., width - 1] = c[..., (width - 1) // 2]
+    return out
+
+
+def _up2_bilinear(s: np.ndarray, t: np.ndarray, width: int):
+    """libyuv's ScaleRowUp2_Bilinear_Any_C: the rows nearer s and t."""
+    d = np.empty(s.shape[:-1] + (width,), np.int32)
+    e = np.empty_like(d)
+    d[..., 0] = (3 * s[..., 0] + t[..., 0] + 2) >> 2
+    e[..., 0] = (s[..., 0] + 3 * t[..., 0] + 2) >> 2
+    n = (width - 1) // 2
+    if n:
+        s0, s1, t0, t1 = s[..., :n], s[..., 1:n + 1], t[..., :n], t[..., 1:n + 1]
+        d[..., 1:2 * n:2] = (9 * s0 + 3 * s1 + 3 * t0 + t1 + 8) >> 4
+        d[..., 2:2 * n + 1:2] = (3 * s0 + 9 * s1 + t0 + 3 * t1 + 8) >> 4
+        e[..., 1:2 * n:2] = (3 * s0 + s1 + 9 * t0 + 3 * t1 + 8) >> 4
+        e[..., 2:2 * n + 1:2] = (s0 + 3 * s1 + 3 * t0 + 9 * t1 + 8) >> 4
+    k = (width - 1) // 2
+    d[..., width - 1] = (3 * s[..., k] + t[..., k] + 2) >> 2
+    e[..., width - 1] = (s[..., k] + 3 * t[..., k] + 2) >> 2
+    return d, e
+
+
+def upsample_420(c: np.ndarray, height: int, width: int) -> np.ndarray:
+    """A 4:2:0 chroma plane at full size as libyuv's
+    I420ToRGB24MatrixBilinear upsamples it."""
+    c = c.astype(np.int32)
+    out = np.empty((height, width), np.int32)
+    out[0] = _up2_linear(c[0], width)
+    n = (height - 1) // 2  # the loop's iterations: rows 2k+1 and 2k+2
+    if n:
+        d, e = _up2_bilinear(c[:n], c[1:n + 1], width)
+        out[1:2 * n:2] = d
+        out[2:2 * n + 1:2] = e
+    if height % 2 == 0 and height > 1:
+        out[height - 1] = _up2_linear(c[n], width)
+    return out
+
+
+def yuv_to_rgb(y: np.ndarray, u: np.ndarray | None, v: np.ndarray | None,
+               matrix: int = 6, full_range: int = 1) -> np.ndarray:
+    """uint8 RGB [H, W, 3] as libavif 1.4.2 converts the planes for
+    cv2 (libyuv's I420ToRGB24MatrixFilter with kFilterBilinear and the
+    JPEG constants; a monochrome image is its Y plane in each channel)."""
+    if u is None:
+        return np.repeat(y[:, :, None], 3, axis=2)
+    if not full_range:
+        raise ValueError("AVIF: limited-range YUV is not read here")
+    if matrix not in JPEG_MATRICES:
+        raise ValueError(f"AVIF: matrix coefficients {matrix} are not read "
+                         "here (BT.601 only)")
+    h, w = y.shape
+    uu = upsample_420(u, h, w) - 128
+    vv = upsample_420(v, h, w) - 128
+    y1 = ((y.astype(np.uint32) * 0x0101 * JPEG_YG) >> 16).astype(np.int32) \
+        + JPEG_YB
+    b = y1 + uu * JPEG_UB
+    g = y1 - (uu * JPEG_UG + vv * JPEG_VG)
+    r = y1 + vv * JPEG_VR
+    rgb = np.stack([r, g, b], axis=-1) >> 6
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+# --- the file ----------------------------------------------------------------
+
+
+@dataclass
+class Image:
+    """The primary item's frame, its colour description and its alpha
+    auxiliary item's frame (or None)."""
+    frame: Frame
+    matrix: int
+    full_range: int
+    alpha: Frame | None
+
+
+def _item_frame(data: bytes, c: Container, item: Item) -> Frame:
+    props = item_properties(c, item)
+    if b"av1C" not in props:
+        raise ValueError("AVIF: an av01 item without its av1C property")
+    av1c = props[b"av1C"]
+    if len(av1c) < 4 or av1c[0] != 0x81:
+        raise ValueError("AVIF: a malformed av1C property")
+    frame = read_frame(item_data(data, c, item), av1c[4:])
+    ispe = props.get(b"ispe")
+    if ispe is None or len(ispe) < 12:
+        raise ValueError("AVIF: an item without its ispe property")
+    w, h = struct.unpack(">II", ispe[4:12])
+    if (w, h) != (frame.header.width, frame.header.height):
+        raise ValueError(f"AVIF: ispe {w}x{h} differs from the AV1 frame's "
+                         f"{frame.header.width}x{frame.header.height}")
+    return frame
+
+
+def read_image(data: bytes) -> Image:
+    """The container and the headers of the primary image (no tile is
+    decoded): what `decode` and `size` start from."""
+    c = read_container(data)
+    item = c.items[c.primary]
+    if item.type == b"grid":
+        raise ValueError("AVIF: grid images are not read here")
+    if item.type != b"av01":
+        raise ValueError(f"AVIF: a primary item of type {item.type!r} is not "
+                         "read here")
+    for kind, src, _ in c.refs:
+        if kind == b"cdsc" and c.items.get(src, Item(0)).type == b"Exif":
+            raise ValueError("AVIF: an Exif item is not read here")
+    frame = _item_frame(data, c, item)
+    matrix, full = frame.seq.matrix, frame.seq.full_range
+    colr = item_properties(c, item).get(b"colr")
+    if colr is not None and colr[:4] == b"nclx" and len(colr) >= 11:
+        matrix = struct.unpack(">H", colr[8:10])[0]
+        full = colr[10] >> 7
+    alpha = None
+    for kind, src, dst in c.refs:
+        if kind == b"auxl" and c.primary in dst and src in c.items:
+            aux = item_properties(c, c.items[src]).get(b"auxC", b"")
+            if aux[4:].rstrip(b"\0") in (
+                    b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+                    b"urn:mpeg:hevc:2015:auxid:1"):
+                alpha = _item_frame(data, c, c.items[src])
+    return Image(frame, matrix, full, alpha)
+
+
+def size(data: bytes) -> tuple[int, int]:
+    """(height, width) of the image `decode` returns, from the headers."""
+    h = read_image(data).frame.header
+    return h.height, h.width
+
+
+def decode_planes(frame: Frame, plain: bool = False):
+    """(Y, U, V, stats) of a frame: the host C library, or with `plain`
+    the plain decoder of this module (stats then None)."""
+    if plain:
+        return decode_planes_plain(frame) + (None,)
+    return decode_planes_c(frame)
+
+
+def decode(data: bytes, plain: bool = False) -> np.ndarray:
+    """uint8 RGB [H, W, 3] of an AVIF file as cv2.imdecode(...,
+    IMREAD_COLOR) returns it reversed; the alpha item, where there is
+    one, is decoded (cv2 returns no image where it cannot be) and
+    dropped."""
+    image = read_image(data)
+    if image.alpha is not None:
+        decode_planes(image.alpha, plain)
+    y, u, v, _ = decode_planes(image.frame, plain)
+    return yuv_to_rgb(y, u, v, image.matrix, image.full_range)

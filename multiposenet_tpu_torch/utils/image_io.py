@@ -49,13 +49,20 @@ libpng 1.6):
   offset, sub-sampled components, precinct sizes OpenJPEG rejects, cut or
   damaged codestreams where OpenJPEG fails) is refused, and what no
   encoder here can make (code-block styles other than 0, PPM/PPT packet
-  headers, palettes, Part 2 multi-component markers) is refused by name.
+  headers, palettes, Part 2 multi-component markers) is refused by name;
+- AVIF (`utils/avif.py`): every file `cv2.imencode(".avif")` writes
+  (gray, colour or with an alpha item, any size, quality 0 to 99) as
+  libavif 1.4.2 over libaom 3.14.1 decodes it for cv2, the AV1 tiles,
+  deblocking and CDEF in the host C library `csrc/av1.c`;
+  `decode_image_plain` runs the plain decoder `utils/av1.py`. What lies
+  past that contract (image sequences, grids, Exif items, 4:4:4, 10 and
+  12 bits, lossless frames, palette, intra block copy, loop restoration,
+  superres, segmentation, film grain) is refused by name.
 Gray is repeated into three channels. The Exif orientation (tag 0x0112
 of IFD0, in a JPEG APP1 `Exif` block, a PNG `eXIf` chunk, a TIFF's own
-IFD0 or a WebP `EXIF` chunk) is applied as cv2 applies it. AVIF files
-(not yet read) and OpenEXR ones (cv2 is built without it) are refused by
-a ValueError that names the format; any other bytes by one that names the
-suffix.
+IFD0 or a WebP `EXIF` chunk) is applied as cv2 applies it. OpenEXR files
+(cv2 is built without it) are refused by a ValueError that names the
+format; any other bytes by one that names the suffix.
 
 `encode_jpeg` and `write_jpeg` write uint8 RGB as the JPEG bytes
 `cv2.imencode(".jpg")` writes at its defaults (host C; plain version
@@ -89,8 +96,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multiposenet_tpu_torch.utils import (bmp, gif, hdr, image_codec, jpeg,
-                                          jpeg2000, jpeg2000_write, pxm,
+from multiposenet_tpu_torch.utils import (avif, bmp, gif, hdr, image_codec,
+                                          jpeg, jpeg2000, jpeg2000_write, pxm,
                                           sunras, tiff, webp)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -134,8 +141,8 @@ def read_image(path: str | Path) -> np.ndarray:
 def image_size(path: str | Path) -> tuple[int, int]:
     """The (height, width) of what `read_image` returns for the file: a
     JPEG's from its header, walked up to the first SOS, and its Exif
-    orientation (5-8 swap the sides), any other format's by decoding
-    it."""
+    orientation (5-8 swap the sides), an AVIF's from its container and
+    AV1 headers, any other format's by decoding it."""
     data = Path(path).read_bytes()
     if data.startswith(JPEG_MAGIC):
         try:
@@ -144,6 +151,11 @@ def image_size(path: str | Path) -> tuple[int, int]:
             return decode_image(data, path, eof_fill=True).shape[:2]
         turned = exif_orientation(jpeg.exif_block(data)) in (5, 6, 7, 8)
         return (w, h) if turned else (h, w)
+    if avif.is_avif(data):
+        try:
+            return avif.size(data)
+        except ValueError as exc:
+            raise ValueError(f"{path}: {exc}") from None
     return decode_image(data, path, eof_fill=True).shape[:2]
 
 
@@ -171,8 +183,8 @@ def decode_image(data: bytes, name: str | Path = "<bytes>",
 def decode_image_plain(data: bytes, name: str | Path = "<bytes>",
                        eof_fill: bool = False) -> np.ndarray:
     """`decode_image` of a baseline JPEG, BMP, Netpbm, Sun raster, TIFF,
-    GIF, WebP, JPEG 2000 or Radiance HDR file with the coders' plain Python
-    versions
+    GIF, WebP, JPEG 2000, AVIF or Radiance HDR file with the coders' plain
+    Python versions
     instead of the C library (`utils/jpeg.py` refuses the JPEG modes past
     baseline by name); `eof_fill` as for `decode_image`."""
     if data.startswith(JPEG_MAGIC):
@@ -223,6 +235,11 @@ def _decode_simple(data: bytes, name, plain: bool) -> np.ndarray:
             return jpeg2000.decode(data, plain=plain)
         except ValueError as exc:
             raise ValueError(f"{name}: {exc}") from None
+    if avif.is_avif(data):
+        try:
+            return avif.decode(data, plain=plain)
+        except ValueError as exc:
+            raise ValueError(f"{name}: {exc}") from None
     kind = simple_format(data)
     if kind is not None:
         reader = _READERS[kind]
@@ -235,13 +252,11 @@ def _decode_simple(data: bytes, name, plain: bool) -> np.ndarray:
     for magic, fmt in _OTHER_FORMATS.items():
         if data.startswith(magic):
             raise ValueError(f"{name}: {fmt} images are not read here")
-    if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
-        raise ValueError(f"{name}: AVIF images are not read here")
     suffix = Path(str(name)).suffix or "none"
     raise ValueError(f"{name}: not an image file this reader knows (suffix "
-                     f"{suffix}): JPEG, PNG, .npy, WebP, JPEG 2000, BMP, "
-                     "PBM/PGM/PPM/PAM/PFM, Sun raster, Radiance HDR, TIFF "
-                     "and GIF only")
+                     f"{suffix}): JPEG, PNG, .npy, WebP, JPEG 2000, AVIF, "
+                     "BMP, PBM/PGM/PPM/PAM/PFM, Sun raster, Radiance HDR, "
+                     "TIFF and GIF only")
 
 
 def _npy_image(data: bytes, name) -> np.ndarray:

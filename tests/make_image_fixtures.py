@@ -66,6 +66,12 @@ installed cv2's decode.
   `jpeg2000_fixtures`): a reversible gray JP2 and an irreversible RGB
   codestream of three quality layers in RPCL order, small enough for the
   budget (every other JPEG 2000 case is made at test time).
+- `avif_*.avif`: AVIF as cv2 reads it, written by cv2 itself
+  (`avif_fixtures`: libavif 1.4.2 over libaom 3.14.1 at cv2's default
+  quality): noise (64x80), a gray crop of the photo (a monochrome
+  stream), an odd-sided crop (33x17), a line drawing libaom codes with
+  TX_MODE_SELECT, a BGRA crop (an alpha auxiliary item) and the 480x640
+  photo (the AVIF timing fixture and `predict`'s AVIF input).
 - `digests.json`: for each file, the shape and sha256 of cv2's RGB decode
   (`cv2.imread(path, IMREAD_COLOR)[..., ::-1]`) and of cv2's INTER_LINEAR
   letterbox of it to 512 (the eval runner's resize: scale 512 / max(h, w),
@@ -91,9 +97,10 @@ installed cv2's decode.
   factors set to every value) of the file. The photo's `exif_stray` is
   the recipe that puts stray bytes and an Exif APP1 of orientation 6
   before its DQT, with cv2's digest. `python tests/make_image_fixtures.py
-  corrupt` writes only those into the committed digests, and `python
+  corrupt` writes only those into the committed digests, `python
   tests/make_image_fixtures.py jpeg2000` only the JPEG 2000 files with
-  their digests and recipes.
+  their digests and recipes, and `python tests/make_image_fixtures.py
+  avif` only the AVIF files with their digests.
 """
 
 from __future__ import annotations
@@ -807,6 +814,52 @@ def jpeg2000_fixtures() -> dict[str, bytes]:
                 no_jp2=True)}
 
 
+def avif_fixtures() -> dict[str, bytes]:
+    """The AVIF fixtures, each written by cv2.imencode(".avif") at its
+    default quality (see the module docstring)."""
+    photo = cv2.imread(str(OUT / "photo_480x640_q95_420.jpg"))
+    # Lines 2 pixels wide on a flat background, a drawing libaom codes
+    # with TX_MODE_SELECT at cv2's default quality.
+    rng = np.random.default_rng(5)
+    h, w = (int(v) for v in rng.integers(40, 100, 2))
+    drawing = np.full((h, w, 3), rng.integers(0, 256, 3), np.uint8)
+    for _ in range(int(rng.integers(1, 8))):
+        colour = tuple(int(c) for c in rng.integers(0, 256, 3))
+        p1 = tuple(int(v) for v in (rng.integers(0, w), rng.integers(0, h)))
+        p2 = tuple(int(v) for v in (rng.integers(0, w), rng.integers(0, h)))
+        cv2.line(drawing, p1, p2, colour, 2)
+    rng = np.random.default_rng(24)
+    bgra = np.dstack([photo[200:224, 300:332],
+                      rng.integers(0, 256, (24, 32), dtype=np.uint8)])
+    images = {
+        "avif_noise_64x80.avif": rng.integers(0, 256, (64, 80, 3),
+                                              dtype=np.uint8),
+        "avif_gray_40x56.avif": cv2.cvtColor(photo[100:140, 200:256],
+                                             cv2.COLOR_BGR2GRAY),
+        "avif_odd_33x17.avif": photo[300:333, 400:417],
+        "avif_drawing_txsel_80x88.avif": drawing,
+        "avif_alpha_24x32.avif": bgra,
+        "avif_photo_480x640.avif": photo}
+    return {name: cv2.imencode(".avif", img)[1].tobytes()
+            for name, img in images.items()}
+
+
+def write_avif_fixtures() -> None:
+    """Only the AVIF fixtures and their digests, into the committed
+    digests."""
+    digests = json.loads((OUT / "digests.json").read_text())
+    for name, data in avif_fixtures().items():
+        (OUT / name).write_bytes(data)
+        digests[name] = digest(OUT / name)
+        bgr = cv2.imread(str(OUT / name))
+        digests[name]["imencode_webp_bytes"] = len(cv2.imencode(".webp",
+                                                                bgr)[1])
+        digests[name]["imencode_gif_sha256"] = hashlib.sha256(
+            cv2.imencode(".gif", bgr)[1].tobytes()).hexdigest()
+        digests[name]["imencode_jp2_sha256"] = jp2_sha(bgr)
+    write_digests(digests)
+
+
 def jpeg2000_recipes(data: bytes) -> list[dict]:
     """A JPEG 2000 fixture's `corrupt` recipes: two single bytes of its
     packet data that cv2 reads and one it refuses, and cuts in the middle
@@ -1097,6 +1150,11 @@ def main() -> None:
 
     for name, data in files.items():
         (OUT / name).write_bytes(data)
+    # The AVIF fixtures crop the photo, so they are made after it is
+    # written.
+    files.update(avif_fixtures())
+    for name, data in files.items():
+        (OUT / name).write_bytes(data)
     digests = {name: digest(OUT / name) for name in sorted(files)}
     # What cv2.imencode(".jpg") writes for the timing photo's pixels, and
     # for every file the size of cv2's lossless .webp of its pixels and
@@ -1340,5 +1398,7 @@ if __name__ == "__main__":
         write_jpeg2000_fixtures()
     elif sys.argv[1:] == ["jp2"]:
         write_jp2_digests()
+    elif sys.argv[1:] == ["avif"]:
+        write_avif_fixtures()
     else:
         main()

@@ -242,6 +242,32 @@ def test_make_batch_of_jpeg2000_records_matches_jax(tmp_path, records,
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+@pytest.mark.parametrize("train", [True, False])
+def test_make_batch_of_avif_records_matches_jax(tmp_path, records, train):
+    """Records whose files are AVIF as cv2.imwrite writes them (one at
+    its default quality, one at quality 30): the port's batch equals the
+    JAX package's (which reads them with cv2.imread) with the same
+    image_dir and seed."""
+    import cv2
+
+    recs = []
+    for i, rec in enumerate(records[:2]):
+        rec = dict(rec)
+        name = f"{i}.avif"
+        params = [] if i == 0 else [cv2.IMWRITE_AVIF_QUALITY, 30]
+        assert cv2.imwrite(str(tmp_path / name), np.ascontiguousarray(
+            rec.pop("image")[:, :, ::-1]), params)
+        rec["file_name"] = name
+        recs.append(rec)
+    got = tloader.make_batch(recs, 64, 8, np.random.RandomState(3),
+                             image_dir=str(tmp_path), train=train)
+    want = jloader.make_batch(recs, 64, 8, np.random.RandomState(3),
+                              image_dir=str(tmp_path), train=train)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def _masked(records, seed=0, drop=None):
     """Records with seeded segmentation masks (bool [H, W]); `drop` names
     a key left out (None) on the second record, the third has none."""

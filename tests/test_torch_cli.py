@@ -254,6 +254,26 @@ def test_predict_on_jpeg2000_matches_jax_cli(workdir, tmp_path, suffix):
                                    atol=1e-3, rtol=1e-5)
 
 
+def test_predict_on_avif_matches_jax_cli(workdir, tmp_path):
+    """`predict --image x.avif` (the scene as cv2.imwrite writes it at its
+    default quality): the port reads it as cv2.imread does
+    (tests/test_torch_avif.py) and prints the JAX CLI's people."""
+    scene = image_io.read_image(workdir["image"])
+    image = tmp_path / "scene.avif"
+    assert cv2.imwrite(str(image), np.ascontiguousarray(scene[:, :, ::-1]))
+    np.testing.assert_array_equal(
+        image_io.read_image(image), cv2.imread(str(image))[:, :, ::-1])
+    argv = ["predict", "--model-dir", workdir["model"], "--image", str(image)]
+    want = json.loads(_run(jax_cli.main, argv))
+    got = json.loads(_run(cli.main, argv + ["--device", "cpu"]))
+    assert len(want) > 0 and len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["box"], w["box"], atol=2e-3, rtol=1e-5)
+        assert abs(g["score"] - w["score"]) <= 1e-5
+        np.testing.assert_allclose(g["keypoints"], w["keypoints"],
+                                   atol=1e-3, rtol=1e-5)
+
+
 def test_predict_on_a_damaged_jpeg_matches_jax_cli(workdir, tmp_path):
     """`predict --image` of the scene's JPEG with two bytes of its scan
     changed (cv2 reads it, libjpeg-turbo warning and going on) prints the
@@ -691,7 +711,7 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     paths["cli_predict"] = smoke.phase_cli_predict(
         cli, image_io, visualize, synthetic, decode, kernels, tmp_path,
         "cpu")
-    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 8}
+    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 9}
     assert restored == (runner.KeypointEvaluator, runner.evaluate_batched,
                         predictor.Predictor.predict, cli._load_records)
 
@@ -703,10 +723,10 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     plain versions, their corruption recipes read as cv2 read them (the
     `corrupt` part), the photo encodes to cv2's digest (JPEG, and GIF with
     every fixture, and JPEG 2000 with every fixture of both sides at
-    least 32), and the JPEG eval and the four predicts count their B1
-    launches (2, 1, 1, 1 and 1) as the card's wrapper would, the third
-    writing `drawn.gif`, the fourth `drawn.jp2`; `--output drawn.avif`
-    exits."""
+    least 32), the AVIF files decode through the C and plain decoders, and
+    the JPEG eval and the four predicts count their B1 launches (2, 1, 1,
+    1 and 1) as the card's wrapper would, the third writing `drawn.gif`,
+    the fourth `drawn.jp2`; `--output drawn.avif` exits."""
     from multiposenet_tpu_torch import kernels
     from multiposenet_tpu_torch.config import Config
     from multiposenet_tpu_torch.eval import runner
@@ -744,10 +764,10 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
                      "cli_predict_gif_output": 1,
                      "cli_predict_jp2_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
-    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 95
-    assert codec["webp"]["fixtures_written"] == 95
+    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 101
+    assert codec["webp"]["fixtures_written"] == 101
     assert codec["tiff_hdr"]["fixtures"] == 30
-    assert codec["gif"]["fixtures"] == 95
+    assert codec["gif"]["fixtures"] == 101
     assert codec["gif"]["times"]["gif"]["c_encode_ms"] > 0
     j2k = codec["jpeg2000"]
     assert sorted(j2k["fixtures"]) == ["j2k_irr_rpcl_layers3_37x53.j2k",
@@ -763,9 +783,16 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
     assert codec["encode"]["c_encode_ms"] > 0
     jp2 = codec["jpeg2000_write"]
-    assert jp2["fixtures"] == 61 and len(jp2["boxes_only"]) == 34
+    assert jp2["fixtures"] == 65 and len(jp2["boxes_only"]) == 36
     assert len(jp2["plain_fixtures"]) >= 4
     assert jp2["times"]["photo"]["c_encode_ms"] > 0
+    avif = codec["avif"]
+    assert len(avif["fixtures"]) == 6 and avif["build_s"] > 0
+    assert avif["plain_on"] == ["avif_odd_33x17.avif",
+                                "avif_alpha_24x32.avif"]
+    assert all(t["c_decode_ms"] > 0 for t in avif["fixtures"].values())
+    assert all(avif["fixtures"][n]["plain_decode_s"] > 0
+               for n in avif["plain_on"])
     assert jpeg_row["phase"] == "eval_jpeg" and jpeg_row["images"] == 10
     assert ".avif" in jpeg_row["output_avif_exit"]
     assert jpeg_row["output_jp2_bytes"] > 0

@@ -832,17 +832,18 @@ def test_mode_fixtures_read_as_cv2_reads_them(tmp_path, name):
 
 
 def test_other_formats_name_themselves(tmp_path):
-    """What is still refused: AVIF (C9b; the AVIF brand and its
-    image-sequence brand), OpenEXR (cv2 is built without it) and RIFF
-    files other than WebP, each by its name (WebP, Radiance HDR,
-    JPEG-in-TIFF and JPEG 2000 are read: tests/test_torch_webp.py,
-    test_torch_hdr.py, test_torch_tiff_codecs.py,
-    test_torch_jpeg2000.py). A JP2 box or a bare codestream signature
-    followed by zeros is no image to cv2, and the port refuses it too."""
+    """What is still refused: AVIF image sequences (the `avis` brand;
+    still AVIF images are read: tests/test_torch_avif.py), OpenEXR (cv2
+    is built without it) and RIFF files other than WebP, each by its name
+    (WebP, Radiance HDR, JPEG-in-TIFF and JPEG 2000 are read:
+    tests/test_torch_webp.py, test_torch_hdr.py,
+    test_torch_tiff_codecs.py, test_torch_jpeg2000.py). An `avif` ftyp
+    box, a JP2 box or a bare codestream signature followed by zeros is no
+    image to cv2, and the port refuses it too."""
     for data, kind in (
             (b"RIFF\x24\x00\x00\x00AVI LIST" + b"\x00" * 32, "RIFF b'AVI '"),
-            (b"\x00\x00\x00\x1cftypavis" + b"\x00" * 32, "AVIF"),
-            (b"\x00\x00\x00\x1cftypavif" + b"\x00" * 32, "AVIF"),
+            (b"\x00\x00\x00\x1cftypavis" + b"\x00" * 32, "avis"),
+            (b"\x00\x00\x00\x1cftypavif" + b"\x00" * 32, "AVIF: no meta"),
             (b"\x76\x2f\x31\x01" + b"\x00" * 32, "OpenEXR")):
         with pytest.raises(ValueError, match=kind):
             image_io.decode_image(data)
@@ -870,12 +871,13 @@ def test_committed_digests_equal_cv2_and_the_port():
     digests = json.loads((FIXTURES / "digests.json").read_text())
     files = sorted(p.name for p in FIXTURES.iterdir()
                    if p.suffix in (".jpg", ".png", ".webp", ".tif", ".hdr",
-                                   ".pic", ".jp2", ".j2k"))
+                                   ".pic", ".jp2", ".j2k", ".avif"))
     assert sorted(digests) == files
     # 510,000 bytes, 300,000 more for the WebP fixtures (their own budget
-    # is held in tests/test_torch_webp.py) and 6,000 more for the digests
-    # of cv2's .jp2 of each fixture.
-    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) <= 816_000
+    # is held in tests/test_torch_webp.py), 6,000 more for the digests
+    # of cv2's .jp2 of each fixture and 36,000 more for the AVIF fixtures
+    # (the 480x640 photo's .avif is 27,949 bytes of them).
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) <= 852_000
     for name, want in digests.items():
         path = FIXTURES / name
         rgb = cv2.imread(str(path), cv2.IMREAD_COLOR)[:, :, ::-1]
