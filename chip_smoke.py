@@ -27,8 +27,9 @@ on a 480x640 PNG, read back (phase `cli_predict`, one launch),
 `--image scene.webp --output drawn.webp`, `--image scene_jpeg.tif
 --output drawn.hdr`, a damaged JPEG, the photo with stray bytes before
 an Exif APP1 of orientation 6 (read turned), the committed gray JPEG
-2000 file and the photo as cv2.imwrite writes it in AVIF (one launch
-each). Before them, phase `image_codec`
+2000 file, the photo as cv2.imwrite writes it in AVIF and a crop of it
+cv2.imwrite writes in lossless AVIF (quality 100; one launch each).
+Before them, phase `image_codec`
 builds the host C libraries (`csrc/image_codec.c`, `csrc/webp.c`,
 `csrc/jpeg2000.c`, `csrc/av1.c`) and holds their JPEG, WebP, TIFF (JPEG,
 CCITT, CMYK, YCbCr, CIELab), Radiance HDR, JPEG 2000 and AVIF decodes
@@ -1358,8 +1359,9 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     reversible gray JPEG 2000 file, read to cv2's digest, one B1 launch,
     people printed, its size and letterbox to the model's size reported;
     then `--image` the committed AVIF of the 480x640 photo (cv2.imwrite's
-    file), read to cv2's digest, one B1 launch, people printed.
-    Returns B1's launches."""
+    file) and the lossless one of its 128x160 crop (quality 100: 4:4:4,
+    the identity matrix), each read to cv2's digest, one B1 launch,
+    people printed. Returns B1's launches."""
     scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
     image_path, out_path = directory / "scene.png", directory / "drawn.png"
     image_io.write_png(image_path, scene["image"])
@@ -1531,28 +1533,33 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
             np.isfinite(p["box"]).all() and np.isfinite(p["keypoints"]).all()
             for p in jp2_people):
         raise AssertionError(f"cli_predict: bad people on {JP2_PREDICT}")
-    # The 480x640 photo as cv2.imwrite writes it in AVIF, read to cv2's
-    # digest, one B1 launch.
-    avif_path = FIXTURES / AVIF_PREDICT
-    want = json.loads((FIXTURES / "digests.json").read_text())[AVIF_PREDICT]
-    avif_rgb = image_io.read_image(avif_path)
-    if [list(avif_rgb.shape), sha256(avif_rgb)] != [want["shape"],
-                                                    want["rgb_sha256"]] \
-            or image_io.image_size(avif_path) != (480, 640):
-        raise AssertionError(f"cli_predict: {AVIF_PREDICT} does not read as "
-                             "cv2 reads it")
-    kernels.reset_launches()
-    avif_people = json.loads(cli_stdout(
-        cli, ["predict", "--model-dir", str(directory), "--image",
-              str(avif_path)]))
-    if kernels.LAUNCHES != {decode.KERNEL: 1}:
-        raise AssertionError(f"cli_predict: --image {AVIF_PREDICT} launches "
-                             f"{kernels.LAUNCHES}")
-    counted[decode.KERNEL] += 1
-    if not avif_people or not all(
-            np.isfinite(p["box"]).all() and np.isfinite(p["keypoints"]).all()
-            for p in avif_people):
-        raise AssertionError(f"cli_predict: bad people on {AVIF_PREDICT}")
+    # The 480x640 photo as cv2.imwrite writes it in AVIF and a crop of it
+    # in lossless AVIF, each read to cv2's digest, one B1 launch each.
+    digests = json.loads((FIXTURES / "digests.json").read_text())
+    avif_rows = {}
+    for name in AVIF_PREDICT_FILES:
+        avif_path = FIXTURES / name
+        want = digests[name]
+        avif_rgb = image_io.read_image(avif_path)
+        if [list(avif_rgb.shape), sha256(avif_rgb)] != [want["shape"],
+                                                        want["rgb_sha256"]] \
+                or list(image_io.image_size(avif_path)) != want["shape"][:2]:
+            raise AssertionError(f"cli_predict: {name} does not read as cv2 "
+                                 "reads it")
+        kernels.reset_launches()
+        avif_people = json.loads(cli_stdout(
+            cli, ["predict", "--model-dir", str(directory), "--image",
+                  str(avif_path)]))
+        if kernels.LAUNCHES != {decode.KERNEL: 1}:
+            raise AssertionError(f"cli_predict: --image {name} launches "
+                                 f"{kernels.LAUNCHES}")
+        counted[decode.KERNEL] += 1
+        if not avif_people or not all(
+                np.isfinite(p["box"]).all()
+                and np.isfinite(p["keypoints"]).all() for p in avif_people):
+            raise AssertionError(f"cli_predict: bad people on {name}")
+        avif_rows[name] = {"size": list(avif_rgb.shape[:2]),
+                           "persons": len(avif_people)}
     emit({"phase": "cli_predict", "card": card, "image": [480, 640],
           "persons": len(people), "keypoint_centres_drawn": len(centres),
           "changed_pixels": int((drawn != image).any(-1).sum()),
@@ -1566,8 +1573,7 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
                        "letterbox": list(letterbox_size(
                            *jp2_rgb.shape[:2], IMAGE))[::-1],
                        "persons": len(jp2_people)},
-          "avif": {"file": AVIF_PREDICT, "size": list(avif_rgb.shape[:2]),
-                   "persons": len(avif_people)}})
+          "avif": avif_rows})
     return counted[decode.KERNEL]
 
 
@@ -1579,6 +1585,14 @@ WEBP_TIMING = ("webp_photo_480x640_q90.webp",
 PLAIN_WEBP_PIXELS = 40_000  # the plain WebP coders run up to this size
 JP2_PREDICT = "j2k_rev_gray_37x53.jp2"
 AVIF_PREDICT = "avif_photo_480x640.avif"
+AVIF_LOSSLESS = "avif_lossless_q100_128x160.avif"
+AVIF_PREDICT_FILES = (AVIF_PREDICT, AVIF_LOSSLESS)
+# The AVIF fixtures of the tools cv2's files reach at quality 100 and at
+# speeds below 9, and the counter (csrc/av1.c's) that shows each reached.
+AVIF_TOOLS = {AVIF_LOSSLESS: "lossless_blocks",
+              "avif_photo_speed2_480x640.avif": "lr_wiener",
+              "avif_palette_speed6_64x96.avif": "palette_y",
+              "avif_intrabc_speed6_200x300.avif": "intrabc_blocks"}
 
 
 def sha256(a: np.ndarray) -> str:
@@ -2053,14 +2067,18 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
     from the sources at the start of the phase in `build_s`, before any
     fixture is read): every committed `.avif` file (cv2.imwrite's:
     noise, gray, an odd-sided crop, a TX_MODE_SELECT drawing, a BGRA crop
-    with its alpha item, and the 480x640 photo) decoded by the C library
+    with its alpha item, the 480x640 photo, a lossless crop at quality
+    100, the photo at speed 2 with loop restoration, a palette drawing
+    and an intra block copy drawing at speed 6) decoded by the C library
     to cv2's digest, and by the plain decoder (`utils/av1.py`) too on the
-    two smallest. Times on the host clock: the C decode of each (median),
-    the plain decode of the two smallest (once), and the share of the
-    photo's C decode spent on the tiles and filters (`decode_planes_c`)
-    rather than the container, the headers and libavif's YUV to RGB."""
+    two smallest. Each tool file reaches its tool (`AVIF_TOOLS`, the C
+    decoder's counters). Times on the host clock: the C decode of each
+    (median), the plain decode of the two smallest (once), and the time
+    of the tiles and filters alone (`decode_planes_c`, rather than the
+    container, the headers and libavif's YUV to RGB) of the photo and of
+    the tool files."""
     names = sorted(n for n in digests if n.endswith(".avif"))
-    if len(names) != 6:
+    if len(names) != 10 or not set(AVIF_TOOLS) <= set(names):
         raise AssertionError(f"image_codec: AVIF fixtures {names}")
     files = {n: (FIXTURES / n).read_bytes() for n in names}
     smallest = sorted(names, key=lambda n: digests[n]["shape"][0]
@@ -2086,8 +2104,17 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
         times[name] = entry
     frame = image_io.avif.read_image(files[AVIF_PREDICT]).frame
     tiles_ms = median_ms(lambda: image_io.avif.decode_planes_c(frame), 20)
+    tools = {}
+    for name, counter in AVIF_TOOLS.items():
+        tool_frame = image_io.avif.read_image(files[name]).frame
+        stats = image_io.avif.decode_planes_c(tool_frame)[3]
+        reached = int(stats[image_io.avif.STAT_NAMES.index(counter)])
+        if not reached:
+            raise AssertionError(f"image_codec: {name} reaches no {counter}")
+        tools[name] = {counter: reached, "tiles_and_filters_ms": median_ms(
+            lambda: image_io.avif.decode_planes_c(tool_frame), 20)}
     return {"build_s": build_s, "fixtures": times,
-            "photo_tiles_and_filters_ms": tiles_ms,
+            "photo_tiles_and_filters_ms": tiles_ms, "tools": tools,
             "plain_on": smallest,
             "equal": "C = cv2's digest on every fixture; plain = C on the "
                      "two smallest"}

@@ -1,33 +1,40 @@
 /* Host AV1 intra-frame decoder of the port, in plain C99 with no library:
  * the one frame of an AVIF image as libaom 3.14.1 decodes it under
  * libavif 1.4.2 and OpenCV 5.0, for the tools libaom's encoder uses at
- * cv2's settings (8-bit 4:2:0 or monochrome key frames without palette,
- * intra block copy, segmentation, loop restoration, superres or film
- * grain). The container, the OBUs and the uncompressed frame header are
- * Python (utils/avif.py), which passes the header's fields as a plan of
- * int32 (AV1_* below) and the tiles' bytes. The plain version of
- * everything here is utils/av1.py, which this file matches sample for
- * sample; the stage functions exported beside av1_decode_frame (the
- * inverse transforms, the intra predictors, CFL, the edge filters, CDEF
- * and a deblocking line) are what the tests hold against it and against
+ * any of cv2's qualities and speeds (8-bit 4:2:0, monochrome or lossless
+ * 4:4:4 key frames with 64x64 or 128x128 superblocks, without
+ * segmentation, superres or film grain). The container, the OBUs and the
+ * uncompressed frame header are Python (utils/avif.py), which passes the
+ * header's fields as a plan of int32 (AV1_* below) and the tiles' bytes.
+ * The plain version of everything here is utils/av1.py, which this file
+ * matches sample for sample; the stage functions exported beside
+ * av1_decode_frame (the inverse transforms and the WHT, the intra
+ * predictors, CFL, the palette colour context, the intra block copy DV
+ * check and filter, the edge filters, CDEF, a deblocking line, the Wiener and
+ * self-guided filters) are what the tests hold against it and against
  * libaom's C reference functions. Nothing here keeps state between calls.
  *
  * av1_decode_frame reads each tile (the symbol decoder and CDF adaptation
- * of libaom's entropy decoder, partition, intra mode info, CDEF indices,
- * delta q and delta lf, tx size, tx type, coefficients), predicts
- * (DC, directional with edge filtering and upsampling, smooth, Paeth,
- * filter intra, chroma from luma), dequantises (with the quantiser
- * matrices) and adds the inverse transform (libaom's av1_inv_txfm2d_add_c:
- * its row and column clamps and its 16-bit stage clamps), then runs the
- * deblocking filter and CDEF over the frame. It writes the Y plane
- * (height x width) and, unless monochrome, U and V ((height+1)/2 x
- * (width+1)/2). Coefficients are kept in libaom's column-major order
+ * of libaom's entropy decoder, restoration units, partition, intra mode
+ * info, palette and its colour-index maps, intra block copy and its DV,
+ * CDEF indices, delta q and delta lf, tx size and the transform tree, tx
+ * type, coefficients), predicts (DC, directional with edge filtering and
+ * upsampling, smooth, Paeth, filter intra, chroma from luma, palette,
+ * intra block copy), dequantises (with the quantiser matrices) and adds
+ * the inverse transform (libaom's av1_inv_txfm2d_add_c: its row and
+ * column clamps and its 16-bit stage clamps; the Walsh-Hadamard transform
+ * in lossless frames), then runs the deblocking filter, CDEF and loop
+ * restoration over the frame. It writes the Y plane (height x width) and,
+ * unless monochrome, U and V ((height+1)/2 x (width+1)/2 at 4:2:0, height
+ * x width at 4:4:4). Coefficients are kept in libaom's column-major order
  * (index = column * height + row), which its scan tables and context
  * offsets assume.
  *
- * Returns 0, 1 with a message in err (a stream this decoder does not
- * follow: palette, a damaged tile), 2 when out of memory. stats (AV1_STAT_*
- * counters) records which tools the stream reached.
+ * Returns 0, 1 with a message in err (a damaged tile, or a DV that
+ * libaom's av1_is_dv_valid rejects, as libaom reports either frame
+ * corrupt), 2 when out of
+ * memory. stats (AV1_STAT_* counters) records which tools the stream
+ * reached.
  */
 #include <stdint.h>
 #include <stdio.h>
@@ -50,9 +57,18 @@ enum {
   AV1_CDEF_Y_PRI, /* 8 each */
   AV1_CDEF_Y_SEC = AV1_CDEF_Y_PRI + 8, AV1_CDEF_UV_PRI = AV1_CDEF_Y_SEC + 8,
   AV1_CDEF_UV_SEC = AV1_CDEF_UV_PRI + 8, AV1_TX_MODE_SELECT = AV1_CDEF_UV_SEC + 8,
-  AV1_REDUCED_TX_SET, AV1_TILE_COLS, AV1_TILE_ROWS, AV1_NHDR,
-  AV1_NO_CDEF = 79, /* 1: the frame before CDEF (a stage for the tests) */
-  AV1_COL_STARTS = 80, /* 65 MI columns */
+  AV1_REDUCED_TX_SET, AV1_TILE_COLS, AV1_TILE_ROWS,
+  AV1_SSX, AV1_SSY, /* chroma subsampling: 1, 1 (4:2:0) or 0, 0 (4:4:4) */
+  AV1_LOSSLESS,     /* CodedLossless: the WHT, no deblocking, CDEF or LR */
+  AV1_ALLOW_INTRABC,
+  AV1_NO_CDEF = 79, /* 1: the deblocked frame, before CDEF and LR (a stage
+                       for the tests) */
+  AV1_LR_TYPE = 80, /* 3 planes: RESTORE_NONE, _WIENER, _SGRPROJ, _SWITCHABLE */
+  AV1_LR_UNIT = 83, /* 3 planes: the restoration unit size */
+  AV1_SB128 = 86,   /* 128x128 superblocks */
+  AV1_NO_LR = 87,   /* 1: the frame before loop restoration (a stage for the
+                       tests) */
+  AV1_COL_STARTS = 88, /* 65 MI columns */
   AV1_ROW_STARTS = AV1_COL_STARTS + 65, /* 65 MI rows */
   AV1_TILES = AV1_ROW_STARTS + 65 /* offset and size of each tile */
 };
@@ -70,8 +86,14 @@ enum {
   AV1_STAT_DELTA_LF, AV1_STAT_TILES, AV1_STAT_BLOCKS, AV1_STAT_EOB_MAX,
   AV1_STAT_GOLOMB, AV1_STAT_CDEF_BLOCKS, AV1_STAT_LF_EDGES,
   AV1_STAT_PARTITION, /* 10 */
-  AV1_NSTATS = AV1_STAT_PARTITION + 10
+  AV1_STAT_PALETTE_Y = AV1_STAT_PARTITION + 10, AV1_STAT_PALETTE_UV,
+  AV1_STAT_PALETTE_CACHE, AV1_STAT_PALETTE_DELTA_V, AV1_STAT_LOSSLESS_BLOCKS,
+  AV1_STAT_LR_NONE, AV1_STAT_LR_WIENER, AV1_STAT_LR_SGRPROJ,
+  AV1_STAT_LR_SWITCHABLE, AV1_STAT_INTRABC_BLOCKS, AV1_STAT_INTRABC_HALFPEL,
+  AV1_STAT_VARTX,
+  AV1_NSTATS
 };
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 
 enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
        D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
@@ -140,7 +162,18 @@ typedef struct {
   uint16_t angle_delta[8][8], tx_size[4][3][4], delta_q[5];
   uint16_t delta_lf_multi[4][5], delta_lf[5], cfl_sign[9], cfl_alpha[6][17];
   uint16_t palette_y_mode[7][3][3], palette_uv_mode[2][3];
+  uint16_t palette_y_size[7][8], palette_uv_size[7][8];
+  uint16_t palette_y_color[7][5][9], palette_uv_color[7][5][9];
+  uint16_t switchable_restore[4], wiener_restore[3], sgrproj_restore[3];
+  uint16_t intrabc[3], txfm_partition[21][3], inter_ext_tx[4][4][17];
+  uint16_t dv[143]; /* libaom's nmv_context: the DV's CDFs (DV_* below) */
 } Cdfs;
+
+/* Offsets in nmv_context: the joints, then per component (at DV_COMP +
+ * DV_COMP_SIZE * k) classes, class0_fp, fp, sign, class0_hp, hp, class0,
+ * bits. */
+enum { DV_COMP = 5, DV_COMP_SIZE = 69, DV_CLASSES = 0, DV_SIGN = 27,
+       DV_CLASS0 = 36, DV_BITS = 39 };
 
 static void init_cdfs(Cdfs *c, int base_q) {
   const int q = base_q <= 20 ? 0 : base_q <= 60 ? 1 : base_q <= 120 ? 2 : 3;
@@ -174,6 +207,17 @@ static void init_cdfs(Cdfs *c, int base_q) {
   CP(c->cfl_alpha, av1_cfl_alpha_cdf);
   CP(c->palette_y_mode, av1_palette_y_mode_cdf);
   CP(c->palette_uv_mode, av1_palette_uv_mode_cdf);
+  CP(c->palette_y_size, av1_palette_y_size_cdf);
+  CP(c->palette_uv_size, av1_palette_uv_size_cdf);
+  CP(c->palette_y_color, av1_palette_y_color_index_cdf);
+  CP(c->palette_uv_color, av1_palette_uv_color_index_cdf);
+  CP(c->switchable_restore, av1_switchable_restore_cdf);
+  CP(c->wiener_restore, av1_wiener_restore_cdf);
+  CP(c->sgrproj_restore, av1_sgrproj_restore_cdf);
+  CP(c->intrabc, av1_intrabc_cdf);
+  CP(c->txfm_partition, av1_txfm_partition_cdf);
+  CP(c->inter_ext_tx, av1_inter_ext_tx_cdf);
+  CP(c->dv, av1_nmv_context);
 #undef CP
 }
 
@@ -288,6 +332,14 @@ static int read_literal(Ec *d, int n) {
   return v;
 }
 
+/* libaom's av1_read_uniform (aom_read_primitive_quniform): 0 .. n-1. */
+static int read_uniform(Ec *d, int n) {
+  if (n <= 1) return 0;
+  const int w = ilog_nz((uint32_t)n), m = (1 << w) - n;
+  const int v = read_literal(d, w - 1);
+  return v < m ? v : (v << 1) - m + read_bit(d);
+}
+
 static void update_cdf(uint16_t *cdf, int val, int nsymbs) {
   static const int nsymbs2speed[17] = {0, 0, 1, 1, 2, 2, 2, 2, 2,
                                        2, 2, 2, 2, 2, 2, 2, 2};
@@ -312,8 +364,16 @@ static int read_symbol(Ec *d, uint16_t *cdf, int nsymbs) {
 
 /* ------------------------------------------------------ the decoder */
 
+/* A restoration unit: its type and its Wiener taps (vertical, then
+ * horizontal: 3 each, the outer first) or self-guided set and xqd. */
 typedef struct {
-  int width, height, mono, ssx, ssy, planes;
+  int8_t type, sgr_set;
+  int16_t coef[6];
+} LrUnit;
+
+typedef struct {
+  int width, height, mono, ssx, ssy, planes, lossless;
+  int sb4, sb_size; /* the superblock: its side in 4x4 units, its size */
   int mi_cols, mi_rows, mi_stride;
   const int32_t *hdr;
   /* planes (stride, allocated rows) */
@@ -322,11 +382,20 @@ typedef struct {
   /* per 4x4 luma unit */
   uint8_t *mi_size, *y_mode, *uv_mode, *skip, *tx_size_mi;
   int8_t *delta_lf; /* 4 a unit */
+  uint8_t *pal_size;   /* 2 a unit: Y and UV palette sizes */
+  uint8_t *pal_colors; /* 24 a unit: 8 colours of Y, U and V */
+  uint8_t *is_inter;   /* an intra block copy block */
+  int16_t *mvs;        /* 2 a unit: its DV (row, column) in 1/8 sample */
+  uint8_t *written;    /* the unit is decoded */
+  uint8_t *tx_type_mi; /* luma transform types */
   int8_t *cdef_idx; /* per 64x64 */
   int cdef_stride;
   /* per 4x4 unit of each plane: the transform size for deblocking */
   uint8_t *lf_txsz[3];
   int lf_stride[3];
+  /* loop restoration units of each plane, rows x cols */
+  LrUnit *lr[3];
+  int lr_rows[3], lr_cols[3];
   int32_t *stats;
   char *err;
   int errlen;
@@ -350,6 +419,18 @@ typedef struct {
   int skip, y_mode, uv_mode, angle_y, angle_uv, use_filter_intra,
       filter_mode, cfl_u, cfl_v, tx_size, read_deltas;
   int max_luma_w, max_luma_h;
+  /* the current block's palettes and colour-index maps (Y, UV) */
+  int pal_size[2];
+  uint8_t pal_colors[3][8];
+  uint8_t color_map[2][64 * 64];
+  int color_map_w[2];
+  /* the previous restoration unit's coefficients of each plane */
+  int ref_wiener[3][2][3], ref_sgr[3][2];
+  /* intra block copy: the block's flag and DV, its transform tree (per
+   * 4x4 unit), the transform-size contexts (sample sizes) */
+  int use_intrabc, mv[2];
+  uint8_t inter_tx[32 * 32];
+  uint8_t *above_txfm, left_txfm[32];
   int32_t coef[64 * 64];
 } Tile;
 
@@ -375,6 +456,9 @@ static int bsize_of(int w4, int h4) {
     case 8 * 64 + 16: return BLOCK_32X64;
     case 16 * 64 + 8: return BLOCK_64X32;
     case 16 * 64 + 16: return BLOCK_64X64;
+    case 16 * 64 + 32: return BLOCK_64X128;
+    case 32 * 64 + 16: return BLOCK_128X64;
+    case 32 * 64 + 32: return BLOCK_128X128;
     case 1 * 64 + 4: return BLOCK_4X16;
     case 4 * 64 + 1: return BLOCK_16X4;
     case 2 * 64 + 8: return BLOCK_8X32;
@@ -669,6 +753,48 @@ void av1_inverse_transform_add(const int32_t *coef, int tx, int tx_type,
       const int v = round2(tmp[vert == 2 ? h - 1 - r : r], 4);
       uint8_t *p = dst + r * stride + c;
       *p = (uint8_t)clip3(0, 255, *p + v);
+    }
+  }
+}
+
+static void wht4(int32_t *a, int32_t *b, int32_t *c, int32_t *d) {
+  /* in: a, c, d, b in the order libaom reads them */
+  int32_t a1 = *a, c1 = *c, d1 = *d, b1 = *b, e1;
+  a1 += c1;
+  d1 -= b1;
+  e1 = (a1 - d1) >> 1;
+  b1 = e1 - b1;
+  c1 = e1 - c1;
+  a1 -= b1;
+  d1 += c1;
+  *a = a1;
+  *b = b1;
+  *c = c1;
+  *d = d1;
+}
+
+/* libaom's av1_highbd_iwht4x4_16_add_c, the lossless inverse Walsh-Hadamard
+ * transform: coef column-major (4x4), rows first with a shift of 2; the
+ * residual is added to dst and clipped. */
+void av1_iwht4x4_add(const int32_t *coef, uint8_t *dst, int stride) {
+  int32_t tmp[16];
+  for (int i = 0; i < 4; i++) { /* row i */
+    int32_t a = coef[i] >> 2, c = coef[4 + i] >> 2, d = coef[8 + i] >> 2,
+            b = coef[12 + i] >> 2;
+    wht4(&a, &b, &c, &d);
+    tmp[i] = a;
+    tmp[4 + i] = b;
+    tmp[8 + i] = c;
+    tmp[12 + i] = d;
+  }
+  for (int i = 0; i < 4; i++) { /* column i */
+    int32_t a = tmp[4 * i], c = tmp[4 * i + 1], d = tmp[4 * i + 2],
+            b = tmp[4 * i + 3];
+    wht4(&a, &b, &c, &d);
+    const int32_t out[4] = {a, b, c, d};
+    for (int k = 0; k < 4; k++) {
+      uint8_t *p = dst + k * stride + i;
+      *p = (uint8_t)clip3(0, 255, *p + out[k]);
     }
   }
 }
@@ -973,22 +1099,27 @@ static void predict_intra(Tile *t, int plane, int x, int y, int have_left,
                      have_above);
 }
 
-/* Chroma from luma (4:2:0) on the w x h chroma block at dst, which holds
- * its DC prediction: luma is the co-located luma, of which max_w x max_h
- * samples are decoded (later columns and rows repeat the last). */
-void av1_cfl_predict(uint8_t *dst, int stride, const uint8_t *luma,
-                     int luma_stride, int w, int h, int max_w, int max_h,
-                     int alpha) {
+/* Chroma from luma on the w x h chroma block at dst, which holds its DC
+ * prediction: luma is the co-located luma (subsampled by ssx, ssy), of
+ * which max_w x max_h samples are decoded (later columns and rows repeat
+ * the last). */
+void av1_cfl_predict_ss(uint8_t *dst, int stride, const uint8_t *luma,
+                        int luma_stride, int w, int h, int max_w, int max_h,
+                        int alpha, int ssx, int ssy) {
   int L[32][32];
   int avg = 0;
+  const int shift = 3 - ssx - ssy;
   for (int i = 0; i < h; i++) {
-    int ly = i << 1;
-    if (ly > max_h - 2) ly = max_h - 2;
+    int ly = i < (max_h >> ssy) - 1 ? i : (max_h >> ssy) - 1;
+    ly <<= ssy;
     for (int j = 0; j < w; j++) {
-      int lx = j << 1;
-      if (lx > max_w - 2) lx = max_w - 2;
+      int lx = j < (max_w >> ssx) - 1 ? j : (max_w >> ssx) - 1;
+      lx <<= ssx;
       const uint8_t *p = luma + ly * luma_stride + lx;
-      L[i][j] = (p[0] + p[1] + p[luma_stride] + p[luma_stride + 1]) << 1;
+      int v = 0;
+      for (int dy = 0; dy <= ssy; dy++)
+        for (int dx = 0; dx <= ssx; dx++) v += p[dy * luma_stride + dx];
+      L[i][j] = v << shift;
       avg += L[i][j];
     }
   }
@@ -1001,14 +1132,23 @@ void av1_cfl_predict(uint8_t *dst, int stride, const uint8_t *luma,
     }
 }
 
+/* av1_cfl_predict_ss at 4:2:0. */
+void av1_cfl_predict(uint8_t *dst, int stride, const uint8_t *luma,
+                     int luma_stride, int w, int h, int max_w, int max_h,
+                     int alpha) {
+  av1_cfl_predict_ss(dst, stride, luma, luma_stride, w, h, max_w, max_h,
+                     alpha, 1, 1);
+}
+
 static void predict_cfl(Tile *t, int plane, int sx0, int sy0, int tx) {
   Frame *f = t->f;
   const int ls = f->stride[0];
-  av1_cfl_predict(f->frame[plane] + sy0 * f->stride[plane] + sx0,
-                  f->stride[plane], f->frame[0] + (sy0 << 1) * ls + (sx0 << 1),
-                  ls, 1 << tx_wlog2[tx], 1 << tx_hlog2[tx],
-                  t->max_luma_w - (sx0 << 1), t->max_luma_h - (sy0 << 1),
-                  plane == 1 ? t->cfl_u : t->cfl_v);
+  const int lx = sx0 << f->ssx, ly = sy0 << f->ssy;
+  av1_cfl_predict_ss(f->frame[plane] + sy0 * f->stride[plane] + sx0,
+                     f->stride[plane], f->frame[0] + ly * ls + lx, ls,
+                     1 << tx_wlog2[tx], 1 << tx_hlog2[tx],
+                     t->max_luma_w - lx, t->max_luma_h - ly,
+                     plane == 1 ? t->cfl_u : t->cfl_v, f->ssx, f->ssy);
 }
 
 /* ------------------------------------------------------- coefficients */
@@ -1026,6 +1166,14 @@ static int tx_set_type(int tx, int reduced) {
   if (tx_sqr_up[tx] == TX_32X32) return 0;
   if (reduced) return 2;
   return tx_sqr[tx] == TX_16X16 ? 2 : 3;
+}
+
+/* The inter transform sets: EXT_TX_SET_DCTONLY 0, _DCT_IDTX 1,
+ * _DTT9_IDTX_1DDCT 4, _ALL16 5. */
+static int tx_set_type_inter(int tx, int reduced) {
+  if (tx_sqr_up[tx] > TX_32X32) return 0;
+  if (tx_sqr_up[tx] == TX_32X32 || reduced) return 1;
+  return tx_sqr[tx] == TX_16X16 ? 4 : 5;
 }
 
 static int get_dqv(int dq_dc, int dq_ac, int pos, const uint8_t *iqm) {
@@ -1054,7 +1202,7 @@ static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
   const int max_x4 = ((f->mi_cols * 4) >> sx) >> 2;
   const int max_y4 = ((f->mi_rows * 4) >> sy) >> 2;
   uint8_t *a = t->above_ctx[plane] + x4;
-  uint8_t *l = t->left_ctx[plane] + (y4 & ((16 >> sy) - 1));
+  uint8_t *l = t->left_ctx[plane] + (y4 & ((f->sb4 >> sy) - 1));
   /* the txb contexts */
   int dc_sign = 0, ctx;
   for (int k = 0; k < w4; k++) {
@@ -1097,7 +1245,15 @@ static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
   int eob = 0, cul_level = 0, dc_val = 0, tx_type = DCT_DCT;
   if (!all_zero) {
     /* the transform type */
-    if (plane == 0) {
+    const int inter = t->use_intrabc;
+    if (plane == 0 && inter) {
+      const int set = tx_set_type_inter(tx, f->hdr[AV1_REDUCED_TX_SET]);
+      if (set > 0 && t->current_q > 0) {
+        const int eset = set == 1 ? 3 : set == 4 ? 2 : 1;
+        int sym = read_symbol(&t->ec, cdf->inter_ext_tx[eset][tx_sqr[tx]], num_ext_tx_set[set]);
+        tx_type = av1_ext_tx_inv[set][sym];
+      }
+    } else if (plane == 0) {
       const int set = tx_set_type(tx, f->hdr[AV1_REDUCED_TX_SET]);
       if (set > 0 && t->current_q > 0) {
         const int eset = set == 3 ? 1 : 2;
@@ -1109,11 +1265,16 @@ static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
       }
       /* luma tx types are kept for this block only */
     } else {
-      const int set = tx_set_type(tx, f->hdr[AV1_REDUCED_TX_SET]);
-      tx_type = mode_to_txfm[t->uv_mode == UV_CFL_PRED ? DC_PRED : t->uv_mode];
+      const int set = inter ? tx_set_type_inter(tx, f->hdr[AV1_REDUCED_TX_SET])
+                            : tx_set_type(tx, f->hdr[AV1_REDUCED_TX_SET]);
+      if (inter) /* the co-located luma transform's type */
+        tx_type = MI(f, tx_type_mi, t->mi_row + ((y4 - (t->mi_row >> sy)) << sy),
+                     t->mi_col + ((x4 - (t->mi_col >> sx)) << sx));
+      else
+        tx_type = mode_to_txfm[t->uv_mode == UV_CFL_PRED ? DC_PRED : t->uv_mode];
       if (!av1_ext_tx_used[set][tx_type]) tx_type = DCT_DCT;
     }
-    if (tx_sqr_up[tx] > TX_32X32) tx_type = DCT_DCT;
+    if (tx_sqr_up[tx] > TX_32X32 || f->lossless) tx_type = DCT_DCT;
     f->stats[AV1_STAT_TX_TYPE + tx_type]++;
     const int cls = tx_class_of(tx_type);
     const int16_t *scan = av1_scan_data + av1_scan_offset[tx][tx_type];
@@ -1206,7 +1367,7 @@ static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
       *lv = (uint8_t)level;
     }
     /* signs, Golomb remainders and dequantisation */
-    const int qm_level = f->hdr[AV1_USING_QM]
+    const int qm_level = f->hdr[AV1_USING_QM] && !f->lossless
         ? f->hdr[plane == 0 ? AV1_QM_Y : plane == 1 ? AV1_QM_U : AV1_QM_V] : 15;
     const uint8_t *iqm = NULL;
     if (qm_level < 15 && tx_type < IDTX)
@@ -1262,6 +1423,10 @@ static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
   /* the contexts, 0 past the frame's edge */
   for (int k = 0; k < w4; k++) a[k] = (uint8_t)(x4 + k < max_x4 ? cul_level : 0);
   for (int k = 0; k < h4; k++) l[k] = (uint8_t)(y4 + k < max_y4 ? cul_level : 0);
+  if (plane == 0) /* the luma types, for the chroma of intra block copy */
+    for (int i = 0; i < h4 && y4 + i < f->mi_rows; i++)
+      for (int k = 0; k < w4 && x4 + k < f->mi_cols; k++)
+        MI(f, tx_type_mi, y4 + i, x4 + k) = (uint8_t)tx_type;
   *tx_type_out = tx_type;
   return eob;
 }
@@ -1271,14 +1436,18 @@ static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
 static void read_cdef(Tile *t) {
   Frame *f = t->f;
   if (t->skip || !f->hdr[AV1_ENABLE_CDEF]) return;
-  const int r = t->mi_row & ~15, c = t->mi_col & ~15;
-  int8_t *idx = &f->cdef_idx[(r >> 4) * f->cdef_stride + (c >> 4)];
-  if (*idx == -1) *idx = (int8_t)read_literal(&t->ec, f->hdr[AV1_CDEF_BITS]);
+  const int r = t->mi_row >> 4, c = t->mi_col >> 4; /* per 64x64 */
+  int8_t *idx = &f->cdef_idx[r * f->cdef_stride + c];
+  if (*idx != -1) return;
+  *idx = (int8_t)read_literal(&t->ec, f->hdr[AV1_CDEF_BITS]);
+  for (int y = r; y < (t->mi_row + bh4_of[t->bsize]) >> 4; y++)
+    for (int x = c; x < (t->mi_col + bw4_of[t->bsize]) >> 4; x++)
+      f->cdef_idx[y * f->cdef_stride + x] = *idx;
 }
 
 static void read_delta_qindex(Tile *t) {
   Frame *f = t->f;
-  if (t->bsize == BLOCK_64X64 && t->skip) return;
+  if (t->bsize == f->sb_size && t->skip) return;
   if (!t->read_deltas) return;
   int abs_v = read_symbol(&t->ec, t->cdf.delta_q, 4);
   if (abs_v == 3) {
@@ -1295,7 +1464,7 @@ static void read_delta_qindex(Tile *t) {
 
 static void read_delta_lf(Tile *t) {
   Frame *f = t->f;
-  if (t->bsize == BLOCK_64X64 && t->skip) return;
+  if (t->bsize == f->sb_size && t->skip) return;
   if (!t->read_deltas || !f->hdr[AV1_DELTA_LF_PRESENT]) return;
   const int multi = f->hdr[AV1_DELTA_LF_MULTI];
   const int count = multi ? (f->planes > 1 ? 4 : 2) : 1;
@@ -1322,6 +1491,484 @@ static int read_angle(Tile *t, int mode) {
   return v;
 }
 
+/* ------------------------------------------------- intra block copy */
+
+enum { REF_CAT_LEVEL = 640, MAX_REF_MV_STACK_SIZE = 8, INTRABC_DELAY_PIXELS = 256 };
+
+typedef struct {
+  int n, mv[MAX_REF_MV_STACK_SIZE][2], weight[MAX_REF_MV_STACK_SIZE];
+} DvStack;
+
+static void dv_add(const Frame *f, DvStack *st, int r, int c, int weight) {
+  const int at = r * f->mi_stride + c;
+  if (!f->is_inter[at]) return;
+  const int mr = f->mvs[at * 2], mc = f->mvs[at * 2 + 1];
+  for (int i = 0; i < st->n; i++)
+    if (st->mv[i][0] == mr && st->mv[i][1] == mc) {
+      st->weight[i] += weight;
+      return;
+    }
+  if (st->n < MAX_REF_MV_STACK_SIZE) {
+    st->mv[st->n][0] = mr;
+    st->mv[st->n][1] = mc;
+    st->weight[st->n++] = weight;
+  }
+}
+
+/* libaom's scan_row_mbmi (vertical 0) or scan_col_mbmi (vertical 1). */
+static void dv_scan(const Tile *t, DvStack *st, int off, int vertical,
+                    int max_off, int *processed) {
+  const Frame *f = t->f;
+  const int n4 = vertical ? bh4_of[t->bsize] : bw4_of[t->bsize];
+  const int pos = vertical ? t->mi_row : t->mi_col;
+  int end = (vertical ? f->mi_rows : f->mi_cols) - pos;
+  if (end > n4) end = n4;
+  if (end > 16) end = 16;
+  int step = 0;
+  if (abs(off) > 1) step = (pos & 1) && n4 < 2 ? 0 : 1;
+  for (int i = 0; i < end;) {
+    const int rr = vertical ? t->mi_row + step + i : t->mi_row + off;
+    const int cc = vertical ? t->mi_col + off : t->mi_col + step + i;
+    const int cb = MI(f, mi_size, rr, cc);
+    const int along = vertical ? bh4_of[cb] : bw4_of[cb];
+    const int across = vertical ? bw4_of[cb] : bh4_of[cb];
+    int n = n4 < along ? n4 : along;
+    if (n4 >= 16) n = n > 4 ? n : 4;
+    else if (abs(off) > 1) n = n > 2 ? n : 2;
+    int weight = 2;
+    if (n4 >= 2 && n4 <= along) {
+      int inc = -max_off + off + 1;
+      if (inc > across) inc = across;
+      if (inc > weight) weight = inc;
+      *processed = inc - off - 1;
+    }
+    dv_add(f, st, rr, cc, n * weight);
+    i += n;
+  }
+}
+
+/* libaom's setup_ref_mv_list for INTRA_FRAME: the DVs of the intra block
+ * copy neighbours, weighted, sorted and clamped into out (n of them). */
+static int dv_stack(const Tile *t, int out[][2]) {
+  const Frame *f = t->f;
+  const int r = t->mi_row, c = t->mi_col;
+  const int bw4 = bw4_of[t->bsize], bh4 = bh4_of[t->bsize];
+  DvStack st = {0, {{0}}, {0}};
+  int processed[2] = {0, 0};
+  const int row_adj = bh4 < 2 && (r & 1), col_adj = bw4 < 2 && (c & 1);
+  int max_row = 0, max_col = 0;
+  if (t->avail_u)
+    max_row = clip3(t->mi_row_start - r, t->mi_row_end - r - 1,
+                    (bh4 < 2 ? -4 : -6) + row_adj);
+  if (t->avail_l)
+    max_col = clip3(t->mi_col_start - c, t->mi_col_end - c - 1,
+                    (bw4 < 2 ? -4 : -6) + col_adj);
+  if (abs(max_row) >= 1) dv_scan(t, &st, -1, 0, max_row, &processed[0]);
+  if (abs(max_col) >= 1) dv_scan(t, &st, -1, 1, max_col, &processed[1]);
+  if ((bw4 > bh4 ? bw4 : bh4) <= 16 && is_inside(t, r - 1, c + bw4) &&
+      f->written[(r - 1) * f->mi_stride + c + bw4])
+    dv_add(f, &st, r - 1, c + bw4, 4);
+  const int nearest = st.n;
+  for (int i = 0; i < nearest; i++) st.weight[i] += REF_CAT_LEVEL;
+  if (is_inside(t, r - 1, c - 1)) dv_add(f, &st, r - 1, c - 1, 4);
+  for (int idx = 2; idx <= 3; idx++) {
+    const int row_off = -(idx << 1) + 1 + row_adj;
+    const int col_off = -(idx << 1) + 1 + col_adj;
+    if (abs(row_off) <= abs(max_row) && abs(row_off) > processed[0])
+      dv_scan(t, &st, row_off, 0, max_row, &processed[0]);
+    if (abs(col_off) <= abs(max_col) && abs(col_off) > processed[1])
+      dv_scan(t, &st, col_off, 1, max_col, &processed[1]);
+  }
+  const int bounds[2][2] = {{0, nearest}, {nearest, st.n}};
+  for (int g = 0; g < 2; g++) { /* libaom's bubble sorts */
+    const int lo = bounds[g][0];
+    int len = bounds[g][1];
+    while (len > lo) {
+      int last = lo;
+      for (int i = lo + 1; i < len; i++)
+        if (st.weight[i - 1] < st.weight[i]) {
+          for (int k = 0; k < 2; k++) {
+            const int m = st.mv[i - 1][k];
+            st.mv[i - 1][k] = st.mv[i][k];
+            st.mv[i][k] = m;
+          }
+          const int w = st.weight[i - 1];
+          st.weight[i - 1] = st.weight[i];
+          st.weight[i] = w;
+          last = i;
+        }
+      len = last;
+    }
+  }
+  for (int i = 0; i < st.n; i++) { /* clamp_mv_ref */
+    const int bw = 4 * bw4, bh = 4 * bh4;
+    out[i][1] = clip3(-(c * 32) - bw * 8 - 128, (f->mi_cols - bw4 - c) * 32 + bw * 8 + 128,
+                      st.mv[i][1]);
+    out[i][0] = clip3(-(r * 32) - bh * 8 - 128, (f->mi_rows - bh4 - r) * 32 + bh * 8 + 128,
+                      st.mv[i][0]);
+  }
+  return st.n;
+}
+
+/* read_mv_component at integer precision (MV_SUBPEL_NONE). */
+static int read_mv_component(Tile *t, int comp) {
+  uint16_t *c = t->cdf.dv + DV_COMP + DV_COMP_SIZE * comp;
+  const int sign = read_symbol(&t->ec, c + DV_SIGN, 2);
+  const int cls = read_symbol(&t->ec, c + DV_CLASSES, 11);
+  int d = 0, mag = 0;
+  if (cls == 0) {
+    d = read_symbol(&t->ec, c + DV_CLASS0, 2);
+  } else {
+    for (int i = 0; i < cls; i++) d |= read_symbol(&t->ec, c + DV_BITS + 3 * i, 2) << i;
+    mag = 2 << (cls + 2);
+  }
+  mag += (d << 3) + 8;
+  return sign ? -mag : mag;
+}
+
+/* libaom's is_mv_valid and av1_is_dv_valid: a DV (1/8 sample) of the
+ * bw4 x bh4 block at (mi_row, mi_col) is valid when its source lies in the
+ * tile, whole, in a superblock decoded at least INTRABC_DELAY_PIXELS (four
+ * 64-wide superblocks) before the block's own and above its wavefront. */
+int av1_dv_valid(int dv_row, int dv_col, int mi_row, int mi_col, int bw4,
+                 int bh4, int sb4, int row_start, int row_end, int col_start,
+                 int col_end, int ssx, int ssy, int has_chroma) {
+  const int mv_max = 1 << 14;
+  if (dv_row <= -mv_max || dv_row >= mv_max || dv_col <= -mv_max ||
+      dv_col >= mv_max || (dv_row & 7) || (dv_col & 7))
+    return 0;
+  const int top = mi_row * 32 + dv_row, left = mi_col * 32 + dv_col;
+  const int bottom = (mi_row + bh4) * 32 + dv_row;
+  const int right = (mi_col + bw4) * 32 + dv_col;
+  if (top < row_start * 32 || left < col_start * 32 || bottom > row_end * 32 ||
+      right > col_end * 32)
+    return 0;
+  if (has_chroma && ((bw4 == 1 && ssx && left < (col_start + 1) * 32) ||
+                     (bh4 == 1 && ssy && top < (row_start + 1) * 32)))
+    return 0;
+  const int delay = INTRABC_DELAY_PIXELS / 64, sb_size = 4 * sb4;
+  const int active_row = mi_row / sb4, active_col = (mi_col * 4) >> 6;
+  const int src_row = ((bottom >> 3) - 1) / sb_size;
+  const int src_col = ((right >> 3) - 1) >> 6;
+  const int per_row = ((col_end - col_start - 1) >> 4) + 1;
+  if (src_row * per_row + src_col >= active_row * per_row + active_col - delay)
+    return 0;
+  const int gradient = 1 + delay + (sb_size > 64);
+  return src_row <= active_row &&
+         src_col < active_col - delay + gradient * (active_row - src_row);
+}
+
+/* The block's DV (1/8 sample, whole samples): the first non-zero of the
+ * stack's two first entries, or the default one, plus the coded
+ * difference. */
+static void read_dv(Tile *t) {
+  Frame *f = t->f;
+  int stack[MAX_REF_MV_STACK_SIZE + 2][2] = {{0}};
+  dv_stack(t, stack);
+  int ref[2] = {stack[0][0], stack[0][1]};
+  if (!ref[0] && !ref[1]) {
+    ref[0] = stack[1][0];
+    ref[1] = stack[1][1];
+  }
+  if (!ref[0] && !ref[1]) {
+    if (t->mi_row - f->sb4 < t->mi_row_start) {
+      ref[0] = 0;
+      ref[1] = -(4 * f->sb4 + INTRABC_DELAY_PIXELS) * 8;
+    } else {
+      ref[0] = -(4 * f->sb4) * 8;
+      ref[1] = 0;
+    }
+  }
+  ref[0] = (ref[0] >> 3) * 8;
+  ref[1] = (ref[1] >> 3) * 8;
+  const int joint = read_symbol(&t->ec, t->cdf.dv, 4);
+  const int dr = (joint == 2 || joint == 3) ? read_mv_component(t, 0) : 0;
+  const int dc = (joint == 1 || joint == 3) ? read_mv_component(t, 1) : 0;
+  t->mv[0] = ((ref[0] + dr) >> 3) * 8;
+  t->mv[1] = ((ref[1] + dc) >> 3) * 8;
+  if (!av1_dv_valid(t->mv[0], t->mv[1], t->mi_row, t->mi_col,
+                    bw4_of[t->bsize], bh4_of[t->bsize], f->sb4,
+                    t->mi_row_start, t->mi_row_end, t->mi_col_start,
+                    t->mi_col_end, f->ssx, f->ssy, t->has_chroma))
+    fail(f, "AV1: an intra block copy DV points outside the area libaom "
+            "allows (libaom reports a corrupt frame)");
+}
+
+/* The intra block copy prediction of a w x h block from src (one more row
+ * or column read when fy or fx, the half-sample parts, are 8): the
+ * BILINEAR filter at half a sample, as libaom's
+ * av1_convolve_{2d,x,y}_sr_intrabc_c rounds it. */
+void av1_intrabc_predict(const uint8_t *src, int stride, int w, int h, int fy,
+                         int fx, uint8_t *dst, int dst_stride) {
+  for (int i = 0; i < h; i++)
+    for (int j = 0; j < w; j++) {
+      const uint8_t *p = src + i * stride + j;
+      int v;
+      if (fx && fy) v = (p[0] + p[1] + p[stride] + p[stride + 1] + 2) >> 2;
+      else if (fx) v = (p[0] + p[1] + 1) >> 1;
+      else if (fy) v = (p[0] + p[stride] + 1) >> 1;
+      else v = p[0];
+      dst[i * dst_stride + j] = (uint8_t)v;
+    }
+}
+
+/* Each plane of the block copied from the frame so far. */
+static int predict_intrabc(Tile *t) {
+  Frame *f = t->f;
+  const int bw = 4 * bw4_of[t->bsize], bh = 4 * bh4_of[t->bsize];
+  for (int plane = 0; plane < 1 + 2 * t->has_chroma; plane++) {
+    const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
+    const int x0 = (t->mi_col * 4 - (bw == 4 && sx ? 4 : 0)) >> sx;
+    const int y0 = (t->mi_row * 4 - (bh == 4 && sy ? 4 : 0)) >> sy;
+    const int w = bw >> sx > 4 ? bw >> sx : 4, h = bh >> sy > 4 ? bh >> sy : 4;
+    const int qr = t->mv[0] * (1 << (1 - sy)), qc = t->mv[1] * (1 << (1 - sx));
+    const int fy = qr & 15, fx = qc & 15;
+    const int ys = y0 + (qr >> 4), xs = x0 + (qc >> 4);
+    const int stride = f->stride[plane];
+    if (ys < 0 || xs < 0 || ys + h + (fy > 0) > f->alloc_h[plane] ||
+        xs + w + (fx > 0) > stride) {
+      fail(f, "AV1: an intra block copy DV points outside the frame (libaom "
+              "reports a corrupt frame)");
+      return 1;
+    }
+    if (fy || fx) f->stats[AV1_STAT_INTRABC_HALFPEL]++;
+    /* av1_dv_valid put the source in decoded superblocks: no overlap */
+    av1_intrabc_predict(f->frame[plane] + ys * stride + xs, stride, w, h, fy, fx,
+                        f->frame[plane] + y0 * stride + x0, stride);
+  }
+  return 0;
+}
+
+/* libaom's txfm_partition_context. */
+static int txfm_partition_ctx(int above, int left, int bsize, int tx) {
+  if (tx == TX_4X4) return 0;
+  const int w4 = bw4_of[bsize], h4 = bh4_of[bsize];
+  const int dim = 4 * (w4 > h4 ? w4 : h4);
+  const int max_tx = dim >= 64 ? TX_64X64 : dim == 32 ? TX_32X32 : dim == 16 ? TX_16X16 : TX_8X8;
+  const int cat = (tx_sqr_up[tx] != max_tx && max_tx > TX_8X8) + (4 - max_tx) * 2;
+  return cat * 3 + (above < (1 << tx_wlog2[tx])) + (left < (1 << tx_hlog2[tx]));
+}
+
+/* The transform-size contexts (sample widths above, heights left) over
+ * w4 x h4 4x4 units at (row, col) of the block. */
+static void set_txfm_ctx(Tile *t, int row, int col, int w4, int h4, int tw, int th) {
+  const int m = t->f->sb4 - 1;
+  for (int i = 0; i < w4; i++) t->above_txfm[t->mi_col + col + i] = (uint8_t)tw;
+  for (int i = 0; i < h4; i++) t->left_txfm[(t->mi_row + row + i) & m] = (uint8_t)th;
+}
+
+/* read_tx_size_vartx: the transform tree of an intra block copy block,
+ * into t->inter_tx (per 4x4 unit of the block, 32 a row). */
+static void read_var_tx(Tile *t, int tx, int depth, int row, int col) {
+  Frame *f = t->f;
+  const int max_h = bh4_of[t->bsize] < f->mi_rows - t->mi_row ? bh4_of[t->bsize] : f->mi_rows - t->mi_row;
+  const int max_w = bw4_of[t->bsize] < f->mi_cols - t->mi_col ? bw4_of[t->bsize] : f->mi_cols - t->mi_col;
+  if (row >= max_h || col >= max_w) return;
+  const int w4 = 1 << (tx_wlog2[tx] - 2), h4 = 1 << (tx_hlog2[tx] - 2);
+  int leaf = tx;
+  if (depth < 2) {
+    const int ctx = txfm_partition_ctx(t->above_txfm[t->mi_col + col],
+                                       t->left_txfm[(t->mi_row + row) & (f->sb4 - 1)],
+                                       t->bsize, tx);
+    if (read_symbol(&t->ec, t->cdf.txfm_partition[ctx], 2)) {
+      const int sub = split_tx[tx];
+      f->stats[AV1_STAT_VARTX]++;
+      if (sub != TX_4X4) {
+        const int sw = 1 << (tx_wlog2[sub] - 2), sh = 1 << (tx_hlog2[sub] - 2);
+        for (int rr = 0; rr < h4; rr += sh)
+          for (int cc = 0; cc < w4; cc += sw) read_var_tx(t, sub, depth + 1, row + rr, col + cc);
+        return;
+      }
+      leaf = TX_4X4;
+    }
+  }
+  for (int i = 0; i < h4 && row + i < 32; i++)
+    for (int j = 0; j < w4 && col + j < 32; j++) t->inter_tx[(row + i) * 32 + col + j] = (uint8_t)leaf;
+  t->tx_size = leaf;
+  set_txfm_ctx(t, row, col, w4, h4, 1 << tx_wlog2[leaf], 1 << tx_hlog2[leaf]);
+}
+
+/* ------------------------------------------------------------ palette */
+
+static int ceil_log2(int n) { return n < 2 ? 0 : ilog_nz((uint32_t)(n - 1)); }
+
+/* libaom's av1_get_palette_cache: the above neighbour's colours (within
+ * this 64-row superblock row) and the left one's, merged, sorted, each
+ * once. */
+static int palette_cache(const Tile *t, int plane, int *cache) {
+  const Frame *f = t->f;
+  const int p = plane > 0, r = t->mi_row, c = t->mi_col;
+  int a[8], l[8], na = 0, nl = 0, n = 0;
+  if (t->avail_u && (r & 15)) {
+    const int at = (r - 1) * f->mi_stride + c;
+    na = f->pal_size[at * 2 + p];
+    for (int i = 0; i < na; i++) a[i] = f->pal_colors[at * 24 + plane * 8 + i];
+  }
+  if (t->avail_l) {
+    const int at = r * f->mi_stride + c - 1;
+    nl = f->pal_size[at * 2 + p];
+    for (int i = 0; i < nl; i++) l[i] = f->pal_colors[at * 24 + plane * 8 + i];
+  }
+  int ia = 0, il = 0;
+  while (ia < na && il < nl) {
+    const int va = a[ia], vl = l[il];
+    if (vl < va) {
+      if (n == 0 || vl != cache[n - 1]) cache[n++] = vl;
+      il++;
+    } else {
+      if (n == 0 || va != cache[n - 1]) cache[n++] = va;
+      ia++;
+      if (vl == va) il++;
+    }
+  }
+  for (; ia < na; ia++)
+    if (n == 0 || a[ia] != cache[n - 1]) cache[n++] = a[ia];
+  for (; il < nl; il++)
+    if (n == 0 || l[il] != cache[n - 1]) cache[n++] = l[il];
+  return n;
+}
+
+/* The Y (plane 0) or U colours of an n-colour palette: those taken from
+ * the cache, then a literal and deltas (at least 1 apart for Y), sorted. */
+static void palette_colours(Tile *t, int plane, int n, uint8_t *out) {
+  int cache[16], colours[8], k = 0;
+  const int n_cache = palette_cache(t, plane, cache);
+  for (int i = 0; i < n_cache && k < n; i++)
+    if (read_bit(&t->ec)) colours[k++] = cache[i];
+  t->f->stats[AV1_STAT_PALETTE_CACHE] += k;
+  if (k < n) {
+    colours[k] = read_literal(&t->ec, 8);
+    k++;
+    if (k < n) {
+      const int step = plane == 0;
+      int bits = 5 + read_literal(&t->ec, 2);
+      int room = 256 - colours[k - 1] - step;
+      for (; k < n; k++) {
+        int v = colours[k - 1] + read_literal(&t->ec, bits) + step;
+        if (v > 255) v = 255;
+        room -= v - colours[k - 1];
+        colours[k] = v;
+        const int cl = ceil_log2(room);
+        if (cl < bits) bits = cl;
+      }
+    }
+  }
+  for (int i = 1; i < n; i++) /* insertion sort */
+    for (int j = i; j > 0 && colours[j - 1] > colours[j]; j--) {
+      const int x = colours[j];
+      colours[j] = colours[j - 1];
+      colours[j - 1] = x;
+    }
+  for (int i = 0; i < n; i++) out[i] = (uint8_t)colours[i];
+}
+
+static void palette_mode_info(Tile *t) {
+  Frame *f = t->f;
+  Cdfs *cdf = &t->cdf;
+  const int r = t->mi_row, c = t->mi_col;
+  const int bctx = mi_wlog2[t->bsize] + mi_hlog2[t->bsize] - 2;
+  if (t->y_mode == DC_PRED) {
+    const int ctx =
+        (t->avail_u && f->pal_size[((r - 1) * f->mi_stride + c) * 2] > 0) +
+        (t->avail_l && f->pal_size[(r * f->mi_stride + c - 1) * 2] > 0);
+    if (read_symbol(&t->ec, cdf->palette_y_mode[bctx][ctx], 2)) {
+      const int n = read_symbol(&t->ec, cdf->palette_y_size[bctx], 7) + 2;
+      t->pal_size[0] = n;
+      palette_colours(t, 0, n, t->pal_colors[0]);
+      f->stats[AV1_STAT_PALETTE_Y]++;
+    }
+  }
+  if (t->has_chroma && t->uv_mode == DC_PRED &&
+      read_symbol(&t->ec, cdf->palette_uv_mode[t->pal_size[0] > 0], 2)) {
+    const int n = read_symbol(&t->ec, cdf->palette_uv_size[bctx], 7) + 2;
+    t->pal_size[1] = n;
+    palette_colours(t, 1, n, t->pal_colors[1]);
+    f->stats[AV1_STAT_PALETTE_UV]++;
+    if (read_bit(&t->ec)) { /* V by deltas, modulo 256 */
+      const int bits = 4 + read_literal(&t->ec, 2);
+      int v = read_literal(&t->ec, 8);
+      t->pal_colors[2][0] = (uint8_t)v;
+      for (int i = 1; i < n; i++) {
+        int d = read_literal(&t->ec, bits);
+        if (d && read_bit(&t->ec)) d = -d;
+        v = (v + d + 256) & 255;
+        t->pal_colors[2][i] = (uint8_t)v;
+      }
+      f->stats[AV1_STAT_PALETTE_DELTA_V]++;
+    } else {
+      for (int i = 0; i < n; i++) t->pal_colors[2][i] = (uint8_t)read_literal(&t->ec, 8);
+    }
+  }
+}
+
+/* libaom's av1_get_palette_color_index_context: the context of entry
+ * (r, c) of a colour-index map (stride w) from its left, top-left and top
+ * neighbours, and the colour order (8 entries) it implies. */
+int av1_palette_color_context(const uint8_t *map, int w, int r, int c, int n,
+                              uint8_t *order) {
+  int scores[8] = {0};
+  if (c > 0) scores[map[r * w + c - 1]] += 2;
+  if (c > 0 && r > 0) scores[map[(r - 1) * w + c - 1]] += 1;
+  if (r > 0) scores[map[(r - 1) * w + c]] += 2;
+  for (int i = 0; i < 8; i++) order[i] = (uint8_t)i;
+  for (int i = 0; i < 3; i++) {
+    int best = scores[i], best_i = i;
+    for (int j = i + 1; j < n; j++)
+      if (scores[j] > best) {
+        best = scores[j];
+        best_i = j;
+      }
+    if (best_i != i) {
+      const int sc = scores[best_i];
+      const uint8_t o = order[best_i];
+      for (int k = best_i; k > i; k--) {
+        scores[k] = scores[k - 1];
+        order[k] = order[k - 1];
+      }
+      scores[i] = sc;
+      order[i] = o;
+    }
+  }
+  return av1_palette_color_index_context_lookup[scores[0] + 2 * scores[1] +
+                                                 2 * scores[2]];
+}
+
+/* palette_tokens: the colour-index maps in wavefront order. */
+static void palette_tokens(Tile *t) {
+  Frame *f = t->f;
+  const int bw = 4 * bw4_of[t->bsize], bh = 4 * bh4_of[t->bsize];
+  const int on_w0 = bw < (f->mi_cols - t->mi_col) * 4 ? bw : (f->mi_cols - t->mi_col) * 4;
+  const int on_h0 = bh < (f->mi_rows - t->mi_row) * 4 ? bh : (f->mi_rows - t->mi_row) * 4;
+  for (int p = 0; p < 2; p++) {
+    const int n = t->pal_size[p];
+    if (!n) continue;
+    int w = bw, h = bh, ow = on_w0, oh = on_h0;
+    if (p) {
+      w >>= f->ssx;
+      h >>= f->ssy;
+      ow >>= f->ssx;
+      oh >>= f->ssy;
+      if (w < 4) { w += 2; ow += 2; }
+      if (h < 4) { h += 2; oh += 2; }
+    }
+    uint8_t *m = t->color_map[p];
+    t->color_map_w[p] = w;
+    uint16_t (*cdf)[9] = p ? t->cdf.palette_uv_color[n - 2] : t->cdf.palette_y_color[n - 2];
+    uint8_t order[8];
+    m[0] = (uint8_t)read_uniform(&t->ec, n);
+    for (int i = 1; i < oh + ow - 1; i++) {
+      const int j0 = i < ow - 1 ? i : ow - 1, j1 = i - oh + 1 > 0 ? i - oh + 1 : 0;
+      for (int j = j0; j >= j1; j--) {
+        const int ctx = av1_palette_color_context(m, w, i - j, j, n, order);
+        m[(i - j) * w + j] = order[read_symbol(&t->ec, cdf[ctx], n)];
+      }
+    }
+    for (int i = 0; i < oh; i++)
+      memset(m + i * w + ow, m[i * w + ow - 1], (size_t)(w - ow));
+    for (int i = oh; i < h; i++) memcpy(m + i * w, m + (oh - 1) * w, (size_t)w);
+  }
+}
+
 static void intra_frame_mode_info(Tile *t) {
   Frame *f = t->f;
   Cdfs *cdf = &t->cdf;
@@ -1332,6 +1979,17 @@ static void intra_frame_mode_info(Tile *t) {
   read_delta_qindex(t);
   read_delta_lf(t);
   t->read_deltas = 0;
+  t->pal_size[0] = t->pal_size[1] = 0;
+  memset(t->pal_colors, 0, sizeof(t->pal_colors));
+  t->use_filter_intra = 0;
+  t->use_intrabc = f->hdr[AV1_ALLOW_INTRABC] ? read_symbol(&t->ec, cdf->intrabc, 2) : 0;
+  if (t->use_intrabc) {
+    t->y_mode = t->uv_mode = DC_PRED;
+    t->angle_y = t->angle_uv = t->cfl_u = t->cfl_v = 0;
+    read_dv(t);
+    f->stats[AV1_STAT_INTRABC_BLOCKS]++;
+    return;
+  }
   int above = t->avail_u ? MI(f, y_mode, t->mi_row - 1, t->mi_col) : DC_PRED;
   int left = t->avail_l ? MI(f, y_mode, t->mi_row, t->mi_col - 1) : DC_PRED;
   t->y_mode = read_symbol(&t->ec, cdf->kf_y[intra_mode_ctx[above]][intra_mode_ctx[left]], 13);
@@ -1341,7 +1999,10 @@ static void intra_frame_mode_info(Tile *t) {
   t->cfl_u = t->cfl_v = 0;
   if (t->has_chroma) {
     const int bw = 4 * bw4_of[t->bsize], bh = 4 * bh4_of[t->bsize];
-    const int cfl_allowed = (bw > bh ? bw : bh) <= 32;
+    /* libaom's is_cfl_allowed */
+    const int cfl_allowed = f->lossless
+        ? plane_bsize(t->bsize, f->ssx, f->ssy) == BLOCK_4X4
+        : (bw > bh ? bw : bh) <= 32;
     t->uv_mode = read_symbol(&t->ec, cdf->uv[cfl_allowed][t->y_mode], 13 + cfl_allowed);
     if (t->uv_mode == UV_CFL_PRED) {
       int signs = read_symbol(&t->ec, cdf->cfl_sign, 8);
@@ -1359,22 +2020,9 @@ static void intra_frame_mode_info(Tile *t) {
     }
   }
   if (t->bsize >= BLOCK_8X8 && 4 * bw4_of[t->bsize] <= 64 &&
-      4 * bh4_of[t->bsize] <= 64 && f->hdr[AV1_SCREEN_CONTENT]) {
-    /* palette_mode_info: a neighbour never has a palette here */
-    const int bctx = mi_wlog2[t->bsize] + mi_hlog2[t->bsize] - 2;
-    if (t->y_mode == DC_PRED &&
-        read_symbol(&t->ec, cdf->palette_y_mode[bctx][0], 2)) {
-      fail(f, "AVIF: palette mode (screen content) is not read here");
-      return;
-    }
-    if (t->has_chroma && t->uv_mode == DC_PRED &&
-        read_symbol(&t->ec, cdf->palette_uv_mode[0], 2)) {
-      fail(f, "AVIF: palette mode (screen content) is not read here");
-      return;
-    }
-  }
-  t->use_filter_intra = 0;
-  if (f->hdr[AV1_ENABLE_FILTER_INTRA] && t->y_mode == DC_PRED) {
+      4 * bh4_of[t->bsize] <= 64 && f->hdr[AV1_SCREEN_CONTENT])
+    palette_mode_info(t);
+  if (f->hdr[AV1_ENABLE_FILTER_INTRA] && t->y_mode == DC_PRED && !t->pal_size[0]) {
     const int bw = 4 * bw4_of[t->bsize], bh = 4 * bh4_of[t->bsize];
     if ((bw > bh ? bw : bh) <= 32) {
       t->use_filter_intra = read_symbol(&t->ec, cdf->filter_intra[t->bsize], 2);
@@ -1386,26 +2034,36 @@ static void intra_frame_mode_info(Tile *t) {
   }
 }
 
-static int above_tx_width(const Tile *t) {
+/* The transform-size context's neighbour size (width above, height
+ * left): an intra block copy neighbour's block size, else its transform
+ * size. */
+static int neighbour_tx_side(const Tile *t, int r, int c, int wide) {
   const Frame *f = t->f;
-  if (!t->avail_u) return 64;
-  return 1 << tx_wlog2[MI(f, tx_size_mi, t->mi_row - 1, t->mi_col)];
-}
-
-static int left_tx_height(const Tile *t) {
-  const Frame *f = t->f;
-  if (!t->avail_l) return 64;
-  return 1 << tx_hlog2[MI(f, tx_size_mi, t->mi_row, t->mi_col - 1)];
+  const int at = r * f->mi_stride + c;
+  if (f->is_inter[at]) {
+    const int b = f->mi_size[at];
+    return 4 * (wide ? bw4_of[b] : bh4_of[b]);
+  }
+  return 1 << (wide ? tx_wlog2 : tx_hlog2)[f->tx_size_mi[at]];
 }
 
 static void read_tx_size(Tile *t) {
   Frame *f = t->f;
   const int max_rect = av1_max_txsize_rect_lookup[t->bsize];
-  t->tx_size = max_rect;
-  if (t->bsize > BLOCK_4X4 && f->hdr[AV1_TX_MODE_SELECT]) {
+  const int bw4 = bw4_of[t->bsize], bh4 = bh4_of[t->bsize];
+  t->tx_size = f->lossless ? TX_4X4 : max_rect;
+  if (t->use_intrabc) {
+    memset(t->inter_tx, t->tx_size, sizeof(t->inter_tx));
+    if (f->hdr[AV1_TX_MODE_SELECT] && t->bsize > BLOCK_4X4 && !t->skip && !f->lossless) {
+      for (int row = 0; row < bh4; row += 1 << (tx_hlog2[max_rect] - 2))
+        for (int col = 0; col < bw4; col += 1 << (tx_wlog2[max_rect] - 2))
+          read_var_tx(t, max_rect, 0, row, col);
+      return;
+    }
+  } else if (t->bsize > BLOCK_4X4 && f->hdr[AV1_TX_MODE_SELECT]) {
     const int max_w = 1 << tx_wlog2[max_rect], max_h = 1 << tx_hlog2[max_rect];
-    int aw = t->avail_u ? above_tx_width(t) : 0;
-    int lh = t->avail_l ? left_tx_height(t) : 0;
+    int aw = t->avail_u ? neighbour_tx_side(t, t->mi_row - 1, t->mi_col, 1) : 0;
+    int lh = t->avail_l ? neighbour_tx_side(t, t->mi_row, t->mi_col - 1, 0) : 0;
     const int ctx = (aw >= max_w) + (lh >= max_h);
     const int cat = max_tx_depth[t->bsize] - 1;
     const int nsym = max_tx_depth[t->bsize] > 1 ? 3 : 2;
@@ -1413,6 +2071,10 @@ static void read_tx_size(Tile *t) {
     f->stats[AV1_STAT_TX_DEPTH] += depth > 0;
     for (int i = 0; i < depth; i++) t->tx_size = split_tx[t->tx_size];
   }
+  if (t->use_intrabc && t->skip) /* set_txfm_ctxs: the block's size */
+    set_txfm_ctx(t, 0, 0, bw4, bh4, 4 * bw4, 4 * bh4);
+  else
+    set_txfm_ctx(t, 0, 0, bw4, bh4, 1 << tx_wlog2[t->tx_size], 1 << tx_hlog2[t->tx_size]);
 }
 
 /* ------------------------------------------------------ reconstruction */
@@ -1434,21 +2096,32 @@ static void transform_block(Tile *t, int plane, int base_x, int base_y,
   const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
   const int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
   const int row = (start_y << sy) >> 2, col = (start_x << sx) >> 2;
-  const int sb_row = row & 15, sb_col = col & 15;
+  const int sb_row = row & (f->sb4 - 1), sb_col = col & (f->sb4 - 1);
   const int step_x = 1 << (tx_wlog2[tx] - 2), step_y = 1 << (tx_hlog2[tx] - 2);
   const int max_x = (f->mi_cols * 4) >> sx, max_y = (f->mi_rows * 4) >> sy;
   if (start_x >= max_x || start_y >= max_y) return;
   const int is_cfl = plane > 0 && t->uv_mode == UV_CFL_PRED;
   const int mode = plane == 0 ? t->y_mode : is_cfl ? DC_PRED : t->uv_mode;
   const int dr = (sb_row >> sy), dc = (sb_col >> sx);
-  predict_intra(t, plane, start_x, start_y,
-                (plane == 0 ? t->avail_l : t->avail_l_chroma) || x > 0,
-                (plane == 0 ? t->avail_u : t->avail_u_chroma) || y > 0,
-                t->decoded[plane][dr - 1 + 1][dc + step_x + 1],
-                t->decoded[plane][dr + step_y + 1][dc - 1 + 1],
-                mode, tx_wlog2[tx], tx_hlog2[tx]);
+  if (t->use_intrabc) {
+    /* predicted for the whole block */
+  } else if (t->pal_size[plane > 0]) {
+    const int p = plane > 0, mw = t->color_map_w[p];
+    const uint8_t *m = t->color_map[p] + 4 * y * mw + 4 * x;
+    uint8_t *dst = f->frame[plane] + start_y * f->stride[plane] + start_x;
+    for (int i = 0; i < 4 * step_y; i++)
+      for (int j = 0; j < 4 * step_x; j++)
+        dst[i * f->stride[plane] + j] = t->pal_colors[plane][m[i * mw + j]];
+  } else {
+    predict_intra(t, plane, start_x, start_y,
+                  (plane == 0 ? t->avail_l : t->avail_l_chroma) || x > 0,
+                  (plane == 0 ? t->avail_u : t->avail_u_chroma) || y > 0,
+                  t->decoded[plane][dr - 1 + 1][dc + step_x + 1],
+                  t->decoded[plane][dr + step_y + 1][dc - 1 + 1],
+                  mode, tx_wlog2[tx], tx_hlog2[tx]);
+  }
   if (is_cfl) predict_cfl(t, plane, start_x, start_y, tx);
-  if (plane == 0) {
+  if (plane == 0 && !t->use_intrabc) {
     t->max_luma_w = start_x + step_x * 4;
     t->max_luma_h = start_y + step_y * 4;
   }
@@ -1456,10 +2129,11 @@ static void transform_block(Tile *t, int plane, int base_x, int base_y,
     int tx_type;
     int eob = read_coeffs(t, plane, start_x >> 2, start_y >> 2, tx, &tx_type);
     if (f->failed) return;
-    if (eob > 0)
-      av1_inverse_transform_add(t->coef, tx, tx_type,
-                                f->frame[plane] + start_y * f->stride[plane] + start_x,
-                                f->stride[plane]);
+    uint8_t *dst = f->frame[plane] + start_y * f->stride[plane] + start_x;
+    if (eob > 0 && f->lossless)
+      av1_iwht4x4_add(t->coef, dst, f->stride[plane]);
+    else if (eob > 0)
+      av1_inverse_transform_add(t->coef, tx, tx_type, dst, f->stride[plane]);
   }
   f->stats[AV1_STAT_TX_SIZE + tx]++;
   for (int i = 0; i < step_y; i++)
@@ -1470,15 +2144,46 @@ static void transform_block(Tile *t, int plane, int base_x, int base_y,
     }
 }
 
+/* decode_reconstruct_tx on luma: the leaves of an intra block copy
+ * block's transform tree, in order. */
+static void inter_luma_tree(Tile *t, int tx, int row, int col) {
+  Frame *f = t->f;
+  const int max_h = bh4_of[t->bsize] < f->mi_rows - t->mi_row ? bh4_of[t->bsize] : f->mi_rows - t->mi_row;
+  const int max_w = bw4_of[t->bsize] < f->mi_cols - t->mi_col ? bw4_of[t->bsize] : f->mi_cols - t->mi_col;
+  if (row >= max_h || col >= max_w || f->failed) return;
+  if (t->inter_tx[row * 32 + col] == tx) {
+    transform_block(t, 0, t->mi_col * 4, t->mi_row * 4, tx, col, row);
+    return;
+  }
+  const int sub = split_tx[tx];
+  const int sw = 1 << (tx_wlog2[sub] - 2), sh = 1 << (tx_hlog2[sub] - 2);
+  const int re = (1 << (tx_hlog2[tx] - 2)) < max_h - row ? 1 << (tx_hlog2[tx] - 2) : max_h - row;
+  const int ce = (1 << (tx_wlog2[tx] - 2)) < max_w - col ? 1 << (tx_wlog2[tx] - 2) : max_w - col;
+  for (int rr = 0; rr < re; rr += sh)
+    for (int cc = 0; cc < ce; cc += sw) inter_luma_tree(t, sub, row + rr, col + cc);
+}
+
 static void residual(Tile *t) {
   Frame *f = t->f;
   const int bw4 = bw4_of[t->bsize], bh4 = bh4_of[t->bsize];
   const int wchunks = bw4 >> 4 > 1 ? bw4 >> 4 : 1;
   const int hchunks = bh4 >> 4 > 1 ? bh4 >> 4 : 1;
   for (int cy = 0; cy < hchunks; cy++)
-    for (int cx = 0; cx < wchunks; cx++)
-      for (int plane = 0; plane < 1 + t->has_chroma * 2; plane++) {
-        const int tx = plane ? uv_tx_size(t->bsize, f->ssx, f->ssy) : t->tx_size;
+    for (int cx = 0; cx < wchunks; cx++) {
+      if (t->use_intrabc) { /* luma: the transform tree */
+        const int tx = f->lossless ? TX_4X4 : av1_max_txsize_rect_lookup[t->bsize];
+        const int sw = 1 << (tx_wlog2[tx] - 2), sh = 1 << (tx_hlog2[tx] - 2);
+        const int ye = bh4 < (cy + 1) << 4 ? bh4 : (cy + 1) << 4;
+        const int xe = bw4 < (cx + 1) << 4 ? bw4 : (cx + 1) << 4;
+        for (int y = cy << 4; y < ye; y += sh)
+          for (int x = cx << 4; x < xe; x += sw) {
+            inter_luma_tree(t, tx, y, x);
+            if (f->failed) return;
+          }
+      }
+      for (int plane = t->use_intrabc; plane < 1 + t->has_chroma * 2; plane++) {
+        const int tx = f->lossless ? TX_4X4
+                       : plane ? uv_tx_size(t->bsize, f->ssx, f->ssy) : t->tx_size;
         const int step_x = 1 << (tx_wlog2[tx] - 2), step_y = 1 << (tx_hlog2[tx] - 2);
         const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
         const int pbs = plane ? plane_bsize(t->bsize, sx, sy) : t->bsize;
@@ -1493,6 +2198,7 @@ static void residual(Tile *t) {
             if (f->failed) return;
           }
       }
+    }
 }
 
 static void reset_block_context(Tile *t) {
@@ -1503,7 +2209,7 @@ static void reset_block_context(Tile *t) {
     for (int i = t->mi_col >> sx; i < ((t->mi_col + bw4) >> sx); i++)
       t->above_ctx[plane][i] = 0;
     for (int i = t->mi_row >> sy; i < ((t->mi_row + bh4) >> sy); i++)
-      t->left_ctx[plane][i & ((16 >> sy) - 1)] = 0;
+      t->left_ctx[plane][i & ((f->sb4 >> sy) - 1)] = 0;
   }
 }
 
@@ -1530,7 +2236,10 @@ static void decode_block(Tile *t, int r, int c, int bsize) {
   if (f->failed) return;
   f->stats[AV1_STAT_Y_MODE + t->y_mode]++;
   if (t->has_chroma) f->stats[AV1_STAT_UV_MODE + t->uv_mode]++;
+  f->stats[AV1_STAT_LOSSLESS_BLOCKS] += f->lossless;
+  palette_tokens(t);
   read_tx_size(t);
+  if (t->use_intrabc && predict_intrabc(t)) return;
   if (t->skip) reset_block_context(t);
   for (int y = 0; y < bh4; y++)
     for (int x = 0; x < bw4; x++) {
@@ -1540,8 +2249,15 @@ static void decode_block(Tile *t, int r, int c, int bsize) {
       MI(f, skip, r + y, c + x) = (uint8_t)t->skip;
       MI(f, tx_size_mi, r + y, c + x) = (uint8_t)t->tx_size;
       MI(f, mi_size, r + y, c + x) = (uint8_t)bsize;
-      for (int k = 0; k < 4; k++)
-        f->delta_lf[((r + y) * f->mi_stride + c + x) * 4 + k] = (int8_t)t->delta_lf[k];
+      const int at = (r + y) * f->mi_stride + c + x;
+      for (int k = 0; k < 4; k++) f->delta_lf[at * 4 + k] = (int8_t)t->delta_lf[k];
+      f->pal_size[at * 2] = (uint8_t)t->pal_size[0];
+      f->pal_size[at * 2 + 1] = (uint8_t)t->pal_size[1];
+      memcpy(f->pal_colors + at * 24, t->pal_colors, 24);
+      f->is_inter[at] = (uint8_t)t->use_intrabc;
+      f->mvs[at * 2] = (int16_t)(t->use_intrabc ? t->mv[0] : 0);
+      f->mvs[at * 2 + 1] = (int16_t)(t->use_intrabc ? t->mv[1] : 0);
+      f->written[at] = 1;
     }
   residual(t);
 }
@@ -1652,15 +2368,116 @@ static void clear_block_decoded(Tile *t, int r, int c) {
   for (int plane = 0; plane < f->planes; plane++) {
     const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
     const int sbw4 = (t->mi_col_end - c) >> sx, sbh4 = (t->mi_row_end - r) >> sy;
-    for (int y = -1; y <= (16 >> sy); y++)
-      for (int x = -1; x <= (16 >> sx); x++) {
+    for (int y = -1; y <= (f->sb4 >> sy); y++)
+      for (int x = -1; x <= (f->sb4 >> sx); x++) {
         int v;
         if (y < 0 && x < sbw4) v = 1;
         else if (x < 0 && y < sbh4) v = 1;
         else v = 0;
         t->decoded[plane][y + 1][x + 1] = (uint8_t)v;
       }
-    t->decoded[plane][(16 >> sy) + 1][0] = 0;
+    t->decoded[plane][(f->sb4 >> sy) + 1][0] = 0;
+  }
+}
+
+/* ------------------------------------- loop restoration: the coefficients */
+
+/* libaom's WIENER_FILT_TAP{0,1,2}_{MINV,MAXV,SUBEXP_K,MIDV},
+ * SGRPROJ_PRJ_{MIN,MAX}{0,1}, SGRPROJ_PRJ_SUBEXP_K and the defaults. */
+static const int wiener_min[3] = {-5, -23, -17}, wiener_max[3] = {10, 8, 46};
+static const int wiener_k[3] = {1, 2, 3}, wiener_mid[3] = {3, -7, 15};
+static const int sgrproj_min[2] = {-96, -32}, sgrproj_max[2] = {31, 95};
+static const int sgrproj_mid[2] = {-32, 31};
+enum { SGRPROJ_K = 4 };
+
+static int lr_unit_count(int size, int length) {
+  const int n = (length + (size >> 1)) / size;
+  return n > 1 ? n : 1;
+}
+
+/* aom_read_primitive_subexpfin */
+static int read_subexp(Ec *d, int n, int k) {
+  int i = 0, mk = 0;
+  for (;;) {
+    const int b = i ? k + i - 1 : k, a = 1 << b;
+    if (n <= mk + 3 * a) return read_uniform(d, n - mk) + mk;
+    if (!read_bit(d)) return read_literal(d, b) + mk;
+    i++;
+    mk += a;
+  }
+}
+
+static int recenter(int r, int v) {
+  if (v > (r << 1)) return v;
+  return (v & 1) ? r - ((v + 1) >> 1) : (v >> 1) + r;
+}
+
+/* aom_read_primitive_refsubexpfin over [lo, hi], recentred on ref. */
+static int read_ref_subexp(Ec *d, int lo, int hi, int k, int ref) {
+  const int n = hi - lo + 1, r = ref - lo;
+  const int v = read_subexp(d, n, k);
+  return lo + ((r << 1) <= n ? recenter(r, v) : n - 1 - recenter(n - 1 - r, v));
+}
+
+static void read_lr_unit(Tile *t, int plane, LrUnit *u) {
+  Frame *f = t->f;
+  int kind = f->hdr[AV1_LR_TYPE + plane];
+  if (kind == RESTORE_SWITCHABLE) {
+    kind = read_symbol(&t->ec, t->cdf.switchable_restore, 3);
+    f->stats[AV1_STAT_LR_SWITCHABLE]++;
+  } else if (kind == RESTORE_WIENER) {
+    kind = read_symbol(&t->ec, t->cdf.wiener_restore, 2) ? RESTORE_WIENER : RESTORE_NONE;
+  } else {
+    kind = read_symbol(&t->ec, t->cdf.sgrproj_restore, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+  }
+  u->type = (int8_t)kind;
+  f->stats[AV1_STAT_LR_NONE + kind]++;
+  if (kind == RESTORE_WIENER) {
+    for (int pass = 0; pass < 2; pass++) { /* vertical, then horizontal */
+      int *ref = t->ref_wiener[plane][pass];
+      int c[3] = {0, 0, 0};
+      for (int j = plane ? 1 : 0; j < 3; j++)
+        c[j] = read_ref_subexp(&t->ec, wiener_min[j], wiener_max[j], wiener_k[j], ref[j]);
+      for (int j = 0; j < 3; j++) {
+        ref[j] = c[j];
+        u->coef[pass * 3 + j] = (int16_t)c[j];
+      }
+    }
+  } else if (kind == RESTORE_SGRPROJ) {
+    const int set = read_literal(&t->ec, 4);
+    const int32_t *params = av1_sgr_params[set];
+    int *ref = t->ref_sgr[plane], xqd[2] = {0, 0};
+    for (int i = 0; i < 2; i++) {
+      if (params[i])
+        xqd[i] = read_ref_subexp(&t->ec, sgrproj_min[i], sgrproj_max[i], SGRPROJ_K, ref[i]);
+      else if (i == 1)
+        xqd[1] = clip3(sgrproj_min[1], sgrproj_max[1], 128 - xqd[0]);
+    }
+    u->sgr_set = (int8_t)set;
+    for (int i = 0; i < 2; i++) {
+      ref[i] = xqd[i];
+      u->coef[i] = (int16_t)xqd[i];
+    }
+  }
+}
+
+/* read_lr: the units whose top-left corner lies in the superblock at
+ * (r, c). */
+static void read_lr(Tile *t, int r, int c) {
+  Frame *f = t->f;
+  for (int plane = 0; plane < f->planes; plane++) {
+    if (!f->hdr[AV1_LR_TYPE + plane]) continue;
+    const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
+    const int size = f->hdr[AV1_LR_UNIT + plane];
+    const int r0 = (r * (4 >> sy) + size - 1) / size;
+    int r1 = ((r + f->sb4) * (4 >> sy) + size - 1) / size;
+    const int c0 = (c * (4 >> sx) + size - 1) / size;
+    int c1 = ((c + f->sb4) * (4 >> sx) + size - 1) / size;
+    if (r1 > f->lr_rows[plane]) r1 = f->lr_rows[plane];
+    if (c1 > f->lr_cols[plane]) c1 = f->lr_cols[plane];
+    for (int ur = r0; ur < r1; ur++)
+      for (int uc = c0; uc < c1; uc++)
+        read_lr_unit(t, plane, &f->lr[plane][ur * f->lr_cols[plane] + uc]);
   }
 }
 
@@ -1672,12 +2489,20 @@ static void decode_tile(Tile *t, const uint8_t *data, long size) {
     memset(t->above_ctx[p], 0, (size_t)(f->mi_cols + 32));
   for (int i = 0; i < 4; i++) t->delta_lf[i] = 0;
   t->current_q = f->hdr[AV1_BASE_Q];
-  for (int r = t->mi_row_start; r < t->mi_row_end; r += 16) {
+  for (int p = 0; p < 3; p++) {
+    for (int pass = 0; pass < 2; pass++)
+      for (int j = 0; j < 3; j++) t->ref_wiener[p][pass][j] = wiener_mid[j];
+    for (int i = 0; i < 2; i++) t->ref_sgr[p][i] = sgrproj_mid[i];
+  }
+  memset(t->above_txfm, 64, (size_t)(f->mi_cols + 64));
+  for (int r = t->mi_row_start; r < t->mi_row_end; r += f->sb4) {
     memset(t->left_ctx, 0, sizeof(t->left_ctx));
-    for (int c = t->mi_col_start; c < t->mi_col_end; c += 16) {
+    memset(t->left_txfm, 64, sizeof(t->left_txfm));
+    for (int c = t->mi_col_start; c < t->mi_col_end; c += f->sb4) {
       t->read_deltas = f->hdr[AV1_DELTA_Q_PRESENT];
       clear_block_decoded(t, r, c);
-      decode_partition(t, r, c, BLOCK_64X64);
+      read_lr(t, r, c);
+      decode_partition(t, r, c, f->sb_size);
       if (f->failed) return;
       if (ec_overflowed(&t->ec)) {
         fail(f, "AV1: a tile's symbols run past its data (libaom reports "
@@ -1934,19 +2759,9 @@ static void cdef_filter(Frame *f, const uint8_t *src, int plane, int r, int c,
                  f->frame[plane] + y0 * stride + x0, stride);
 }
 
-static int cdef(Frame *f) {
+/* CDEF over the frame, reading the deblocked planes src. */
+static void cdef(Frame *f, uint8_t *const *src) {
   const int32_t *h = f->hdr;
-  if (!h[AV1_ENABLE_CDEF]) return 0;
-  uint8_t *src[3];
-  for (int p = 0; p < f->planes; p++) {
-    const size_t n = (size_t)f->stride[p] * (size_t)f->alloc_h[p];
-    src[p] = malloc(n);
-    if (!src[p]) {
-      for (int q = 0; q < p; q++) free(src[q]);
-      return 2;
-    }
-    memcpy(src[p], f->frame[p], n);
-  }
   const int damping = h[AV1_CDEF_DAMPING];
   for (int r = 0; r < f->mi_rows; r += 2)
     for (int c = 0; c < f->mi_cols; c += 2) {
@@ -1974,7 +2789,181 @@ static int cdef(Frame *f) {
         }
       }
     }
-  for (int p = 0; p < f->planes; p++) free(src[p]);
+}
+
+/* ----------------------------------------- loop restoration: the filters */
+
+/* The Wiener filter at 8 bits (libaom's av1_wiener_convolve_add_src_c at
+ * get_conv_params_wiener(8)) of the w x h block at src, whose 3 samples
+ * around it are read: vf and hf are the 7 taps of the vertical and the
+ * horizontal filter (summing to 0; the source sample is added at the
+ * centre with weight 128). Returns 0, or 2 when out of memory. */
+int av1_wiener_filter(const uint8_t *src, int stride, int w, int h,
+                      const int *vf, const int *hf, uint8_t *dst,
+                      int dst_stride) {
+  int32_t *tmp = malloc(sizeof(int32_t) * (size_t)(h + 6) * (size_t)w);
+  if (!tmp) return 2;
+  for (int i = -3; i < h + 3; i++) {
+    const uint8_t *row = src + i * stride;
+    for (int j = 0; j < w; j++) {
+      int32_t acc = (row[j] << 7) + (1 << 14);
+      for (int k = 0; k < 7; k++) acc += hf[k] * row[j + k - 3];
+      tmp[(i + 3) * w + j] = clip3(0, 8191, (acc + 4) >> 3);
+    }
+  }
+  for (int i = 0; i < h; i++)
+    for (int j = 0; j < w; j++) {
+      int32_t acc = (tmp[(i + 3) * w + j] << 7) - (1 << 18);
+      for (int k = 0; k < 7; k++) acc += vf[k] * tmp[(i + k) * w + j];
+      dst[i * dst_stride + j] = (uint8_t)clip3(0, 255, (acc + (1 << 10)) >> 11);
+    }
+  free(tmp);
+  return 0;
+}
+
+/* The self-guided filter's A and B (libaom's calculate_intermediate_result)
+ * at rows -1 .. h and columns -1 .. w of the block at src, for radius r and
+ * scale s, into arrays of (h + 2) x (w + 2). */
+static void sgr_box(const uint8_t *src, int stride, int w, int h, int r, int s,
+                    int32_t *A, int32_t *B) {
+  const uint32_t n = (uint32_t)((2 * r + 1) * (2 * r + 1));
+  for (int i = -1; i <= h; i++)
+    for (int j = -1; j <= w; j++) {
+      uint32_t a = 0, b = 0;
+      for (int dy = -r; dy <= r; dy++)
+        for (int dx = -r; dx <= r; dx++) {
+          const uint32_t v = src[(i + dy) * stride + j + dx];
+          a += v * v;
+          b += v;
+        }
+      const uint32_t p = a * n < b * b ? 0 : a * n - b * b;
+      const uint32_t z = (p * (uint32_t)s + (1u << 19)) >> 20;
+      const int k = (i + 1) * (w + 2) + j + 1;
+      A[k] = av1_x_by_xplus1[z < 255 ? z : 255];
+      B[k] = (int32_t)(((uint32_t)(256 - A[k]) * b * (uint32_t)av1_one_by_x[n - 1] +
+                        (1u << 11)) >> 12);
+    }
+}
+
+/* The self-guided filter at 8 bits (libaom's
+ * av1_apply_selfguided_restoration_c) of the w x h block at src, whose 3
+ * samples around it are read, with parameter set `set` and xqd. Returns 0,
+ * or 2 when out of memory. */
+int av1_sgr_filter(const uint8_t *src, int stride, int w, int h, int set,
+                   int xqd0, int xqd1, uint8_t *dst, int dst_stride) {
+  const int32_t *prm = av1_sgr_params[set];
+  const int r0 = prm[0], r1 = prm[1], ws = w + 2;
+  const size_t n = (size_t)(h + 2) * (size_t)ws;
+  int32_t *buf = malloc(sizeof(int32_t) * 4 * n);
+  if (!buf) return 2;
+  int32_t *A0 = buf, *B0 = buf + n, *A1 = buf + 2 * n, *B1 = buf + 3 * n;
+  if (r0) sgr_box(src, stride, w, h, r0, prm[2], A0, B0);
+  if (r1) sgr_box(src, stride, w, h, r1, prm[3], A1, B1);
+  const int xq0 = r0 ? xqd0 : 0;
+  const int xq1 = !r1 ? 0 : r0 ? 128 - xqd0 - xqd1 : 128 - xqd1;
+  for (int i = 0; i < h; i++)
+    for (int j = 0; j < w; j++) {
+      const int k = (i + 1) * ws + j + 1;
+      const int32_t x = src[i * stride + j], u = x << 4;
+      int32_t v = u << 7;
+      if (r0) {
+        int32_t a, b, f0;
+        if (i & 1) {
+          a = A0[k] * 6 + (A0[k - 1] + A0[k + 1]) * 5;
+          b = B0[k] * 6 + (B0[k - 1] + B0[k + 1]) * 5;
+          f0 = (a * x + b + (1 << 7)) >> 8;
+        } else {
+          a = (A0[k - ws] + A0[k + ws]) * 6 +
+              (A0[k - 1 - ws] + A0[k + 1 - ws] + A0[k - 1 + ws] + A0[k + 1 + ws]) * 5;
+          b = (B0[k - ws] + B0[k + ws]) * 6 +
+              (B0[k - 1 - ws] + B0[k + 1 - ws] + B0[k - 1 + ws] + B0[k + 1 + ws]) * 5;
+          f0 = (a * x + b + (1 << 8)) >> 9;
+        }
+        v += xq0 * (f0 - u);
+      }
+      if (r1) {
+        const int32_t a =
+            (A1[k] + A1[k - 1] + A1[k + 1] + A1[k - ws] + A1[k + ws]) * 4 +
+            (A1[k - 1 - ws] + A1[k + 1 - ws] + A1[k - 1 + ws] + A1[k + 1 + ws]) * 3;
+        const int32_t b =
+            (B1[k] + B1[k - 1] + B1[k + 1] + B1[k - ws] + B1[k + ws]) * 4 +
+            (B1[k - 1 - ws] + B1[k + 1 - ws] + B1[k - 1 + ws] + B1[k + 1 + ws]) * 3;
+        v += xq1 * (((a * x + b + (1 << 8)) >> 9) - u);
+      }
+      const int16_t out = (int16_t)((v + (1 << 10)) >> 11);
+      dst[i * dst_stride + j] = (uint8_t)clip3(0, 255, out);
+    }
+  free(buf);
+  return 0;
+}
+
+/* Loop restoration of each plane whose frame type is not RESTORE_NONE:
+ * its units filtered in 64-row stripes offset 8 rows up (luma rows); the
+ * rows above and below a stripe are the deblocked frame's `pre` (the 2
+ * nearest, the nearer repeated), the frame's own edges repeat. Returns 0,
+ * or 2 when out of memory. */
+static int loop_restoration(Frame *f, uint8_t *const *pre) {
+  for (int p = 0; p < f->planes; p++) {
+    if (!f->hdr[AV1_LR_TYPE + p]) continue;
+    const int sx = p ? f->ssx : 0, sy = p ? f->ssy : 0;
+    const int pw = (f->width + sx) >> sx, ph = (f->height + sy) >> sy;
+    const int size = f->hdr[AV1_LR_UNIT + p], stride = f->stride[p];
+    const int off = 8 >> sy, height = 64 >> sy, bw = pw + 6;
+    const int rows = f->lr_rows[p], cols = f->lr_cols[p];
+    const size_t plane_bytes = (size_t)stride * (size_t)f->alloc_h[p];
+    uint8_t *block = malloc((size_t)(height + 6) * (size_t)bw);
+    uint8_t *cdef_out = malloc(plane_bytes);
+    if (!block || !cdef_out) {
+      free(block);
+      free(cdef_out);
+      return 2;
+    }
+    memcpy(cdef_out, f->frame[p], plane_bytes);
+    int rc = 0;
+    for (int k = 0; !rc; k++) {
+      const int start = k * height - off;
+      const int y0 = start > 0 ? start : 0;
+      const int y1 = start + height < ph ? start + height : ph;
+      if (y0 >= ph) break;
+      for (int y = y0 - 3; y < y1 + 3; y++) {
+        const int yy = clip3(0, ph - 1, y);
+        const uint8_t *row;
+        if (yy < start)
+          row = pre[p] + (start - 2 > yy ? start - 2 : yy) * stride;
+        else if (yy > start + height - 1)
+          row = pre[p] + (start + height + 1 < yy ? start + height + 1 : yy) * stride;
+        else
+          row = cdef_out + yy * stride;
+        uint8_t *b = block + (y - y0 + 3) * bw;
+        for (int x = -3; x < pw + 3; x++) b[x + 3] = row[clip3(0, pw - 1, x)];
+      }
+      const int ur = (y0 + off) / size < rows - 1 ? (y0 + off) / size : rows - 1;
+      for (int uc = 0; uc < cols && !rc; uc++) {
+        const LrUnit *u = &f->lr[p][ur * cols + uc];
+        const int x0 = uc * size, x1 = uc == cols - 1 ? pw : x0 + size;
+        const uint8_t *src = block + 3 * bw + 3 + x0;
+        uint8_t *dst = f->frame[p] + y0 * stride + x0;
+        if (u->type == RESTORE_WIENER) {
+          int vf[7], hf[7];
+          for (int pass = 0; pass < 2; pass++) {
+            const int16_t *c = u->coef + 3 * pass;
+            int *t = pass ? hf : vf;
+            t[0] = t[6] = c[0];
+            t[1] = t[5] = c[1];
+            t[2] = t[4] = c[2];
+            t[3] = -2 * (c[0] + c[1] + c[2]);
+          }
+          rc = av1_wiener_filter(src, bw, x1 - x0, y1 - y0, vf, hf, dst, stride);
+        } else if (u->type == RESTORE_SGRPROJ) {
+          rc = av1_sgr_filter(src, bw, x1 - x0, y1 - y0, u->sgr_set, u->coef[0],
+                              u->coef[1], dst, stride);
+        }
+      }
+    }
+    free(block);
+    free(cdef_out);
+    if (rc) return rc;
+  }
   return 0;
 }
 
@@ -1995,34 +2984,54 @@ int av1_decode_frame(const int32_t *plan, const uint8_t *data, long len,
   f->height = plan[AV1_HEIGHT];
   f->mono = plan[AV1_MONO];
   f->planes = f->mono ? 1 : 3;
-  f->ssx = f->ssy = 1;
+  f->ssx = f->mono ? 1 : plan[AV1_SSX];
+  f->ssy = f->mono ? 1 : plan[AV1_SSY];
+  f->lossless = plan[AV1_LOSSLESS];
   f->mi_cols = 2 * ((f->width + 7) >> 3);
   f->mi_rows = 2 * ((f->height + 7) >> 3);
-  const int sb_cols = (f->mi_cols + 15) >> 4, sb_rows = (f->mi_rows + 15) >> 4;
-  f->mi_stride = sb_cols * 16 + 1;
-  const int mi_alloc = (sb_rows * 16 + 1) * f->mi_stride;
-  f->cdef_stride = sb_cols;
+  f->sb4 = plan[AV1_SB128] ? 32 : 16;
+  f->sb_size = plan[AV1_SB128] ? BLOCK_128X128 : BLOCK_64X64;
+  const int sb_cols = (f->mi_cols + f->sb4 - 1) / f->sb4;
+  const int sb_rows = (f->mi_rows + f->sb4 - 1) / f->sb4;
+  f->mi_stride = sb_cols * f->sb4 + 1;
+  const int mi_alloc = (sb_rows * f->sb4 + 1) * f->mi_stride;
+  f->cdef_stride = sb_cols * f->sb4 / 16;
   int rc = 2;
+  uint8_t *pre[3] = {NULL, NULL, NULL};
   Tile *t = calloc(1, sizeof(Tile));
-  uint8_t *mi_block = calloc((size_t)mi_alloc, 5);
+  uint8_t *mi_block = calloc((size_t)mi_alloc, 8);
   f->delta_lf = calloc((size_t)mi_alloc, 4);
-  f->cdef_idx = malloc((size_t)(sb_rows * sb_cols));
-  if (!t || !mi_block || !f->delta_lf || !f->cdef_idx) goto done;
-  memset(f->cdef_idx, -1, (size_t)(sb_rows * sb_cols));
+  f->pal_size = calloc((size_t)mi_alloc, 2);
+  f->pal_colors = calloc((size_t)mi_alloc, 24);
+  f->mvs = calloc((size_t)mi_alloc, 2 * sizeof(int16_t));
+  if (t) t->above_txfm = malloc((size_t)(f->mi_cols + 64));
+  const size_t n_cdef = (size_t)(sb_rows * sb_cols * (f->sb4 / 16) * (f->sb4 / 16));
+  f->cdef_idx = malloc(n_cdef);
+  if (!t || !mi_block || !f->delta_lf || !f->pal_size || !f->pal_colors ||
+      !f->mvs || !t->above_txfm || !f->cdef_idx)
+    goto done;
+  memset(f->cdef_idx, -1, n_cdef);
   f->mi_size = mi_block;
   f->y_mode = mi_block + mi_alloc;
   f->uv_mode = mi_block + 2 * mi_alloc;
   f->skip = mi_block + 3 * mi_alloc;
   f->tx_size_mi = mi_block + 4 * mi_alloc;
+  f->is_inter = mi_block + 5 * mi_alloc;
+  f->written = mi_block + 6 * mi_alloc;
+  f->tx_type_mi = mi_block + 7 * mi_alloc;
   for (int p = 0; p < f->planes; p++) {
     const int sx = p ? f->ssx : 0, sy = p ? f->ssy : 0;
-    f->stride[p] = (sb_cols * 64) >> sx;
-    f->alloc_h[p] = (sb_rows * 64) >> sy;
+    f->stride[p] = (sb_cols * f->sb4 * 4) >> sx;
+    f->alloc_h[p] = (sb_rows * f->sb4 * 4) >> sy;
     f->frame[p] = calloc((size_t)f->stride[p] * (size_t)f->alloc_h[p], 1);
     f->lf_stride[p] = f->stride[p] / 4;
     f->lf_txsz[p] = calloc((size_t)f->lf_stride[p] * (size_t)(f->alloc_h[p] / 4), 1);
     t->above_ctx[p] = calloc((size_t)(f->mi_cols + 64), 1);
-    if (!f->frame[p] || !f->lf_txsz[p] || !t->above_ctx[p]) goto done;
+    const int size = plan[AV1_LR_UNIT + p];
+    f->lr_rows[p] = lr_unit_count(size, (f->height + sy) >> sy);
+    f->lr_cols[p] = lr_unit_count(size, (f->width + sx) >> sx);
+    f->lr[p] = calloc((size_t)f->lr_rows[p] * (size_t)f->lr_cols[p], sizeof(LrUnit));
+    if (!f->frame[p] || !f->lf_txsz[p] || !t->above_ctx[p] || !f->lr[p]) goto done;
   }
   t->f = f;
   const int tile_cols = plan[AV1_TILE_COLS], tile_rows = plan[AV1_TILE_ROWS];
@@ -2047,11 +3056,23 @@ int av1_decode_frame(const int32_t *plan, const uint8_t *data, long len,
       }
     }
   loop_filter(f);
-  if (!plan[AV1_NO_CDEF] && cdef(f)) goto done;
+  const int lr = !plan[AV1_NO_LR] &&
+                 (plan[AV1_LR_TYPE] || plan[AV1_LR_TYPE + 1] || plan[AV1_LR_TYPE + 2]);
+  if (!plan[AV1_NO_CDEF] && (plan[AV1_ENABLE_CDEF] || lr)) {
+    for (int p = 0; p < f->planes; p++) { /* the deblocked frame */
+      const size_t n = (size_t)f->stride[p] * (size_t)f->alloc_h[p];
+      pre[p] = malloc(n);
+      if (!pre[p]) goto done;
+      memcpy(pre[p], f->frame[p], n);
+    }
+    if (plan[AV1_ENABLE_CDEF]) cdef(f, pre);
+    if (lr && loop_restoration(f, pre)) goto done;
+  }
   for (int p = 0; p < f->planes; p++) {
     uint8_t *out = p == 0 ? y_out : p == 1 ? u_out : v_out;
-    const size_t w = (size_t)(p ? (f->width + 1) >> 1 : f->width);
-    const int h = p ? (f->height + 1) >> 1 : f->height;
+    const int sx = p ? f->ssx : 0, sy = p ? f->ssy : 0;
+    const size_t w = (size_t)((f->width + sx) >> sx);
+    const int h = (f->height + sy) >> sy;
     for (int y = 0; y < h; y++)
       memcpy(out + (size_t)y * w, f->frame[p] + (size_t)y * (size_t)f->stride[p], w);
   }
@@ -2061,11 +3082,17 @@ done:
   for (int p = 0; p < 3; p++) {
     free(f->frame[p]);
     free(f->lf_txsz[p]);
+    free(f->lr[p]);
+    free(pre[p]);
     if (t) free(t->above_ctx[p]);
   }
+  if (t) free(t->above_txfm);
   free(t);
   free(mi_block);
+  free(f->mvs);
   free(f->delta_lf);
+  free(f->pal_size);
+  free(f->pal_colors);
   free(f->cdef_idx);
   return rc;
 }

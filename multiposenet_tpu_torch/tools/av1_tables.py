@@ -91,6 +91,18 @@ NAMED = [
     ("ext_tx_used", "av1_ext_tx_used", "i32", (6, 16)),
     ("ss_size_lookup", "av1_ss_size_lookup", "u8", (22, 2, 2)),
     ("max_txsize_rect_lookup", "max_txsize_rect_lookup", "u8", (22,)),
+    ("palette_y_color_index_cdf", "default_palette_y_color_index_cdf", "u16",
+     (7, 5, 9)),
+    ("palette_uv_color_index_cdf", "default_palette_uv_color_index_cdf",
+     "u16", (7, 5, 9)),
+    ("palette_color_index_context_lookup",
+     "av1_palette_color_index_context_lookup", "i32", (9,)),
+    ("sgr_params", "av1_sgr_params", "i32", (16, 4)),
+    ("x_by_xplus1", "av1_x_by_xplus1", "i32", (256,)),
+    ("one_by_x", "av1_one_by_x", "i32", (25,)),
+    ("nmv_context", "default_nmv_context", "u16", (143,)),
+    ("inter_ext_tx_cdf", "default_inter_ext_tx_cdf", "u16", (4, 4, 17)),
+    ("intrabc_filter", "av1_intrabc_bilinear_filter", "i16", (2, 16)),
 ]
 
 # FRAME_CONTEXT of libaom 3.14.1 (av1/common/entropymode.h), field by
@@ -117,6 +129,7 @@ FC_FIELDS = [
     ("comp_bwdref", (3, 2, 3)), ("txfm_partition", (21, 3)),
     ("compound_index", (6, 3)), ("comp_group_idx", (6, 3)),
     ("skip_mode", (3, 3)), ("skip_txfm", (3, 3)), ("intra_inter", (4, 3)),
+    ("nmvc", (143,)), ("ndvc", (143,)), ("intrabc", (3,)),
 ]
 # The fields read by offset from named anchors further on (the mv and
 # segmentation contexts between them are skipped): (name, dims) in
@@ -140,7 +153,14 @@ FC_WRITTEN = {"skip_txfm": "skip_cdf", "filter_intra": "filter_intra_cdf",
               "delta_lf": "delta_lf_cdf", "cfl_sign": "cfl_sign_cdf",
               "cfl_alpha": "cfl_alpha_cdf",
               "palette_y_mode": "palette_y_mode_cdf",
-              "palette_uv_mode": "palette_uv_mode_cdf"}
+              "palette_uv_mode": "palette_uv_mode_cdf",
+              "palette_y_size": "palette_y_size_cdf",
+              "palette_uv_size": "palette_uv_size_cdf",
+              "switchable_restore": "switchable_restore_cdf",
+              "wiener_restore": "wiener_restore_cdf",
+              "sgrproj_restore": "sgrproj_restore_cdf",
+              "txfm_partition": "txfm_partition_cdf",
+              "intrabc": "intrabc_cdf"}
 
 TX_SIZES_ALL = 19
 DTYPES = {"u8": ("uint8_t", np.uint8), "i8": ("int8_t", np.int8),

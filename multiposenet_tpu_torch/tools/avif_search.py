@@ -2,28 +2,33 @@
 that the port reads otherwise than cv2 5.0 (libavif 1.4.2 over libaom
 3.14.1): each image (of sides drawn from 1 to 160, one case in 16 a strip
 over 4096 wide, which libaom splits into tile columns; of one of the kinds
-of `tools/jpeg2000_write_search.py`, in colour, gray or with an alpha
-channel) is written at cv2's default quality or at one drawn from 0 to
-99. Then the host C library's Y, U and V planes are compared with
+of `tools/jpeg2000_write_search.py` or a drawing of flat shapes and text
+up to 320 a side, which libaom codes as screen content; in colour, gray or
+with an alpha channel) is written at an IMWRITE_AVIF_QUALITY drawn from 0
+to 100 (100, lossless, in one case in six of the rest) and an
+IMWRITE_AVIF_SPEED drawn from 0 to 10, each cv2's default in one case in
+three. Then the host C library's Y, U and V planes are compared with
 libaom's (`tests/avif_reference.py`, libaom over ctypes), the port's RGB
 with cv2.imdecode's, and, where the image has at most 4,096 pixels, the
-plain decoder's planes with the C library's. One case in four is
-written by Pillow's AVIF writer instead (libavif 1.3.0, speeds 5 to 10),
-whose files reach AV1 tools cv2's do not: the port reads those files as
-cv2 does or refuses them by name (a refusal is a difference only for a
-cv2 file, or where cv2 returns no image).
+plain decoder's planes with the C library's. One case in four is written
+by Pillow's AVIF writer instead (libavif 1.3.0, speeds 5 to 10), whose
+files reach AV1 tools cv2's do not: the port reads those files as cv2
+does or refuses them by name (a refusal is a difference only for a cv2
+file, or where cv2 returns no image).
 
-    python -m multiposenet_tpu_torch.tools.avif_search \
+    python -m multiposenet_tpu_torch.tools.avif_search \\
         [--count 300] [--seed 0] [--workers 6] [--out FILE]
 
 prints one JSON line: cases, differences ([writer, kind, h, w, channels,
-quality, seed], what differs), the refusals of Pillow files, the count of
-each tool the C decoder reached over all cases (`csrc/av1.c`'s counters: transform sizes and types, intra
-modes, filter intra, angle deltas, edge filtering and upsampling, delta q
-and lf, tiles, partitions; and the frames in TX_MODE_SELECT), the tools
-no case reached and those no cv2 file reached, and seconds. It needs cv2 and the wheel's libaom, so it
-runs where they are installed, not on the card's machine. The CPU tests
-run `search` on the first cases of a seed.
+quality, speed, seed], what differs), the refusals of Pillow files and of
+cv2 files, the count of each tool the C decoder reached over all cases
+(`csrc/av1.c`'s counters: transform sizes and types, intra modes, filter
+intra, angle deltas, edge filtering and upsampling, delta q and lf,
+tiles, partitions, palette, lossless blocks, restoration units, intra
+block copy; and the frames in TX_MODE_SELECT), the tools no case reached
+and those no cv2 file reached, and seconds. It needs cv2 and the wheel's
+libaom, so it runs where they are installed, not on the card's machine.
+The CPU tests run `search` on the first cases of a seed.
 """
 
 from __future__ import annotations
@@ -45,8 +50,10 @@ from multiposenet_tpu_torch.utils.avif import STAT_NAMES
 TESTS = Path(__file__).resolve().parents[2] / "tests"
 REFERENCE = TESTS / "avif_reference.py"
 MAX_SIDE = 160
+DRAWING_MAX_SIDE = 320  # intra block copy needs room to copy from
 WIDE = 4500
 PLAIN_PIXELS = 4096
+AVIF_KINDS = KINDS + ("drawing",)
 
 
 def load_reference(path: Path = REFERENCE):
@@ -57,40 +64,47 @@ def load_reference(path: Path = REFERENCE):
 
 
 def cases(count: int, seed: int = 0) -> list[tuple]:
-    """(writer, kind, h, w, channels, quality or None, image seed) of
-    `count` seeded images, the kinds in turn; one case in four written by
-    Pillow (at a speed from 5 to 10 drawn from the image seed) rather
-    than cv2."""
+    """(writer, kind, h, w, channels, quality or None, speed or None,
+    image seed) of `count` seeded images, the kinds in turn; one case in
+    four written by Pillow (at a speed from 5 to 10 drawn from the image
+    seed) rather than cv2."""
     rng = np.random.default_rng(seed)
     out = []
     for i in range(count):
-        h, w = (int(v) for v in rng.integers(1, MAX_SIDE + 1, 2))
+        kind = AVIF_KINDS[i % len(AVIF_KINDS)]
+        side = DRAWING_MAX_SIDE if kind == "drawing" else MAX_SIDE
+        h, w = (int(v) for v in rng.integers(1, side + 1, 2))
         if i % 16 == 15:
             h, w = int(rng.integers(1, 9)), WIDE
         channels = (3, 3, 1, 4)[int(rng.integers(0, 4))]
-        quality = None if rng.integers(0, 3) == 0 else int(
-            rng.integers(0, 100))
+        quality = None if rng.integers(0, 3) == 0 else 100 if \
+            rng.integers(0, 6) == 0 else int(rng.integers(0, 101))
+        speed = None if rng.integers(0, 3) == 0 else int(rng.integers(0, 11))
         writer = "pillow" if i % 4 == 3 else "cv2"
-        if writer == "pillow" and quality is None:
-            quality = 75
-        out.append((writer, KINDS[i % len(KINDS)], h, w, channels, quality,
+        if writer == "pillow":
+            quality = 75 if quality is None else min(quality, 99)
+            speed = None
+        out.append((writer, kind, h, w, channels, quality, speed,
                     int(rng.integers(2**31))))
     return out
 
 
-def encode(reference, writer: str, pixels_: np.ndarray, quality,
+def encode(reference, writer: str, pixels_: np.ndarray, quality, speed,
            seed: int) -> bytes:
     if writer == "cv2":
-        return reference.imencode_avif(pixels_, quality)
+        return reference.imencode_avif(pixels_, quality, speed)
     return reference.pillow_avif(pixels_, quality, 5 + seed % 6)
 
 
-def pixels(kind: str, h: int, w: int, channels: int,
-           seed: int) -> np.ndarray:
+def pixels(kind: str, h: int, w: int, channels: int, seed: int,
+           reference) -> np.ndarray:
     """The case's uint8 pixels: RGB, gray (the RGB's mean) or RGBA. The
     kind's image is made at least 8 on each side and cropped (photo
-    crops wider than the photo come from the photo tiled)."""
-    if kind == "photo" and (h > 480 or w > 640):
+    crops wider than the photo come from the photo tiled; drawings are
+    the reference module's, cv2's shapes)."""
+    if kind == "drawing":
+        rgb = reference.drawing(h, w, seed)
+    elif kind == "photo" and (h > 480 or w > 640):
         rgb = np.tile(image(kind, 480, 640, seed),
                       (-(-h // 480), -(-w // 640), 1))[:h, :w]
     else:
@@ -134,9 +148,10 @@ def _run(batch: list[tuple], reference: str) -> list:
     module = load_reference(Path(reference))
     out = []
     for case in batch:
-        writer, kind, h, w, channels, quality, seed = case
-        data = encode(module, writer, pixels(kind, h, w, channels, seed),
-                      quality, seed)
+        writer, kind, h, w, channels, quality, speed, seed = case
+        data = encode(module, writer,
+                      pixels(kind, h, w, channels, seed, module), quality,
+                      speed, seed)
         try:
             differ, stats, txsel = compare(data, module,
                                            h * w <= PLAIN_PIXELS)
@@ -165,6 +180,7 @@ def search(batch: list[tuple], workers: int = 0,
                 _run, chunks, [str(reference)] * len(chunks)) for r in part]
     else:
         done = _run(batch, str(reference))
+
     def tools(rows):
         totals = np.sum([r[2] for r in rows], axis=0)
         out = {name: int(n) for name, n in zip(STAT_NAMES, totals)}
@@ -181,6 +197,7 @@ def search(batch: list[tuple], workers: int = 0,
             "plain_cases": sum(r[0][2] * r[0][3] <= PLAIN_PIXELS
                                for r in done),
             "differences": sorted([list(r[0]), r[1]] for r in done if r[1]),
+            "cv2_refused": sorted({r[4] for r in cv2_rows if r[4]}),
             "pillow_refused": sorted({r[4] for r in done
                                       if r[4] and not r[1]}),
             "tools": reached,

@@ -1,21 +1,27 @@
 """The plain AV1 intra-frame decoder of the port: `csrc/av1.c` in Python,
-function for function, for the files `utils/avif.py` reads (8-bit 4:2:0
-or monochrome key frames with 64x64 superblocks, without palette, intra
-block copy, segmentation, loop restoration, superres or film grain).
+function for function, for the files `utils/avif.py` reads (8-bit 4:2:0,
+monochrome or lossless 4:4:4 key frames with 64x64 or 128x128
+superblocks, without segmentation, superres or film grain).
 
 `decode_planes_plain(frame)` takes an `avif.Frame` (the sequence and frame
 headers and the tiles' bytes) and returns its Y, U and V planes (U and V
 None when monochrome) as libaom 3.14.1 decodes them: the tiles (libaom's
-entropy decoder and CDF adaptation, partition, intra mode info, CDEF
-indices, delta q and delta lf, tx size and type, coefficients), the
-prediction, dequantisation with the quantiser matrices and libaom's
-inverse transforms, then deblocking and CDEF; a tile whose symbols run
-past its bytes or that does not end in its trailing bits is refused, as
-libaom reports it corrupt. The stage functions (`inverse_transform_add`,
-`idct`, `iadst`, `edge_filter`, `edge_upsample`, `dr_predict`,
-`filter_intra_predict`, `nondir_predict`, `cfl_predict`,
-`cdef_find_dir`, `cdef_block`, `lf_edge`) are exposed for the tests that
-hold them against the C library's and libaom's.
+entropy decoder and CDF adaptation, partition, intra mode info, palette,
+intra block copy, CDEF indices, delta q and delta lf, restoration units,
+tx size, transform tree and type, coefficients), the prediction,
+dequantisation with the quantiser matrices and libaom's inverse
+transforms (the Walsh-Hadamard transform in lossless frames), then
+deblocking, CDEF and loop restoration; a tile whose symbols run past its
+bytes or that does not end in its trailing bits is refused, as libaom
+reports it corrupt. The stage functions (`inverse_transform_add`,
+`iwht_add`, `idct`, `iadst`, `edge_filter`, `edge_upsample`,
+`dr_predict`, `filter_intra_predict`, `nondir_predict`, `cfl_predict`,
+`palette_color_context`, `dv_valid`, `intrabc_predict`,
+`cdef_find_dir`, `cdef_block`, `lf_edge`, `wiener_filter`, `sgr_filter`)
+are exposed for the tests that hold them against the C library's and
+libaom's. A DV that libaom's av1_is_dv_valid rejects (a source outside
+the tile, inside the 256-sample delay or past the wavefront) is refused,
+as libaom reports the frame corrupt.
 
 The tables are libaom's, read from the same header as the C library's
 (`utils/av1_tables.py`). Everything is integer arithmetic; it is slow
@@ -79,7 +85,8 @@ TX_HORZ = (0, 0, 1, 1, 0, 2, 2, 2, 1, 3, 3, 0, 3, 1, 3, 2)
 _BSIZE = {(1, 1): 0, (1, 2): 1, (2, 1): 2, (2, 2): 3, (2, 4): 4, (4, 2): 5,
           (4, 4): 6, (4, 8): 7, (8, 4): 8, (8, 8): 9, (8, 16): 10,
           (16, 8): 11, (16, 16): 12, (1, 4): 16, (4, 1): 17, (2, 8): 18,
-          (8, 2): 19, (4, 16): 20, (16, 4): 21}
+          (8, 2): 19, (4, 16): 20, (16, 4): 21, (16, 32): 13, (32, 16): 14,
+          (32, 32): 15}
 
 
 def bsize_of(w4: int, h4: int) -> int:
@@ -112,7 +119,13 @@ def _t():
              "filter_intra_mode_cdf", "angle_delta_cdf", "tx_size_cdf",
              "delta_q_cdf", "delta_lf_multi_cdf", "delta_lf_cdf",
              "cfl_sign_cdf", "cfl_alpha_cdf", "palette_y_mode_cdf",
-             "palette_uv_mode_cdf", "dc_qlookup", "ac_qlookup",
+             "palette_uv_mode_cdf", "palette_y_size_cdf",
+             "palette_uv_size_cdf", "palette_y_color_index_cdf",
+             "palette_uv_color_index_cdf", "switchable_restore_cdf",
+             "wiener_restore_cdf", "sgrproj_restore_cdf",
+             "palette_color_index_context_lookup", "sgr_params",
+             "x_by_xplus1", "one_by_x", "nmv_context", "inter_ext_tx_cdf",
+             "txfm_partition_cdf", "intrabc_cdf", "dc_qlookup", "ac_qlookup",
              "filter_intra_taps", "dr_intra_derivative", "mode_to_angle_map",
              "smooth_weights", "cdef_pri_taps", "cdef_sec_taps",
              "cdef_directions_padded", "cospi", "sinpi", "eob_group_start",
@@ -212,6 +225,15 @@ class SymbolDecoder:
             v = (v << 1) | self.bit()
         return v
 
+    def uniform(self, n: int) -> int:
+        """libaom's av1_read_uniform / aom_read_primitive_quniform."""
+        if n <= 1:
+            return 0
+        w = n.bit_length()
+        m = (1 << w) - n
+        v = self.literal(w - 1)
+        return v if v < m else (v << 1) - m + self.bit()
+
     def symbol(self, cdf: list, nsymbs: int) -> int:
         v = self.decode_cdf(cdf, nsymbs)
         if self.allow_update:
@@ -236,7 +258,10 @@ def update_cdf(cdf: list, val: int, nsymbs: int) -> None:
 
 
 def _copy(x):
-    return [_copy(y) for y in x] if isinstance(x[0], list) else list(x)
+    if isinstance(x, dict):
+        return {k: _copy(v) for k, v in x.items()}
+    return [_copy(y) for y in x] if isinstance(x[0], (list, dict)) \
+        else list(x)
 
 
 def init_cdfs(base_q: int) -> dict:
@@ -258,10 +283,32 @@ def init_cdfs(base_q: int) -> dict:
          "delta_lf": t["delta_lf_cdf"], "cfl_sign": t["cfl_sign_cdf"],
          "cfl_alpha": t["cfl_alpha_cdf"],
          "palette_y_mode": t["palette_y_mode_cdf"],
-         "palette_uv_mode": t["palette_uv_mode_cdf"]}
+         "palette_uv_mode": t["palette_uv_mode_cdf"],
+         "palette_y_size": t["palette_y_size_cdf"],
+         "palette_uv_size": t["palette_uv_size_cdf"],
+         "palette_y_color": t["palette_y_color_index_cdf"],
+         "palette_uv_color": t["palette_uv_color_index_cdf"],
+         "switchable_restore": t["switchable_restore_cdf"],
+         "wiener_restore": t["wiener_restore_cdf"],
+         "sgrproj_restore": t["sgrproj_restore_cdf"],
+         "intrabc": t["intrabc_cdf"],
+         "txfm_partition": t["txfm_partition_cdf"],
+         "inter_ext_tx": t["inter_ext_tx_cdf"]}
+    # the DV's CDFs: libaom's default_nmv_context (joints, then per
+    # component classes, class0_fp, fp, sign, class0_hp, hp, class0, bits)
+    mv = t["nmv_context"]
+    c["dv_joints"] = mv[0:5]
+    c["dv_comp"] = []
+    for k in range(2):
+        b = 5 + 69 * k
+        c["dv_comp"].append({"classes": mv[b:b + 12],
+                             "sign": mv[b + 27:b + 30],
+                             "class0": mv[b + 36:b + 39],
+                             "bits": [mv[b + 39 + 3 * i:b + 42 + 3 * i]
+                                      for i in range(10)]})
     for k in (16, 32, 64, 128, 256, 512, 1024):
         c[f"eob{k}"] = t[f"eob{k}"][q]
-    return {k: _copy(v) for k, v in c.items()}
+    return _copy(c)
 
 
 # --- inverse transforms ------------------------------------------------------
@@ -532,6 +579,33 @@ def inverse_transform_add(coef, tx: int, tx_type: int,
             dst[r, c] = clip3(0, 255, int(dst[r, c]) + v)
 
 
+def _wht4(a: int, c: int, d: int, b: int) -> tuple:
+    a += c
+    d -= b
+    e = (a - d) >> 1
+    b = e - b
+    c = e - c
+    a -= b
+    d += c
+    return a, b, c, d
+
+
+def iwht_add(coef, dst: np.ndarray) -> None:
+    """libaom's av1_highbd_iwht4x4_16_add_c, the lossless inverse
+    Walsh-Hadamard transform: coef column-major (4x4), rows first with
+    the shift of 2; the residual is added to dst (a uint8 view of 4 x 4)
+    and clipped."""
+    tmp = [0] * 16
+    for i in range(4):  # row i
+        out = _wht4(*(int(coef[4 * k + i]) >> 2 for k in range(4)))
+        for k in range(4):
+            tmp[4 * k + i] = out[k]
+    for i in range(4):  # column i
+        out = _wht4(*tmp[4 * i:4 * i + 4])
+        for k in range(4):
+            dst[k, i] = clip3(0, 255, int(dst[k, i]) + out[k])
+
+
 # --- the frame and its tiles -------------------------------------------------
 
 
@@ -541,14 +615,19 @@ class _Frame:
         self.h = h
         self.width, self.height = h.width, h.height
         self.planes = 1 if s.mono else 3
-        self.ssx = self.ssy = 1
+        self.ssx, self.ssy = (1, 1) if s.mono else (s.ssx, s.ssy)
+        self.lossless = h.lossless
         self.filter_intra = s.filter_intra
         self.edge_filter = s.intra_edge_filter
-        self.enable_cdef = s.cdef
+        self.enable_cdef = s.cdef and not (h.lossless or h.allow_intrabc)
         self.mi_cols = 2 * ((h.width + 7) >> 3)
         self.mi_rows = 2 * ((h.height + 7) >> 3)
-        sbc, sbr = (self.mi_cols + 15) >> 4, (self.mi_rows + 15) >> 4
-        self.mi_h, self.mi_w = sbr * 16 + 1, sbc * 16 + 1
+        self.sb4 = 32 if s.sb128 else 16  # the superblock's side in 4x4s
+        self.sb_size = BLOCK_128X128 if s.sb128 else BLOCK_64X64
+        sb4 = self.sb4
+        sbc = (self.mi_cols + sb4 - 1) // sb4
+        sbr = (self.mi_rows + sb4 - 1) // sb4
+        self.mi_h, self.mi_w = sbr * sb4 + 1, sbc * sb4 + 1
         shape = (self.mi_h, self.mi_w)
         self.mi_size = np.zeros(shape, np.int64)
         self.y_mode = np.zeros(shape, np.int64)
@@ -556,12 +635,28 @@ class _Frame:
         self.skip = np.zeros(shape, np.int64)
         self.tx_size = np.zeros(shape, np.int64)
         self.delta_lf = np.zeros(shape + (4,), np.int64)
-        self.cdef_idx = np.full((sbr, sbc), -1, np.int64)
+        self.pal_size = np.zeros(shape + (2,), np.int64)
+        self.pal_colors = np.zeros(shape + (3, 8), np.int64)
+        self.is_inter = np.zeros(shape, np.int64)  # intra block copy
+        self.mvs = np.zeros(shape + (2,), np.int64)  # its DV, 1/8 pel
+        self.written = np.zeros(shape, bool)
+        self.tx_type = np.zeros(shape, np.int64)  # luma tx types (4x4s)
+        self.cdef_idx = np.full((sbr * sb4 // 16, sbc * sb4 // 16), -1,
+                                np.int64)
+        # loop restoration: each plane's units (rows, cols) and, for each
+        # unit, (type, coefficients)
+        self.lr_units = []
+        for p in range(self.planes):
+            sx, sy = (self.ssx, self.ssy) if p else (0, 0)
+            size = h.lr_unit_size[p]
+            rows = lr_unit_count(size, (h.height + sy) >> sy)
+            cols = lr_unit_count(size, (h.width + sx) >> sx)
+            self.lr_units.append([[(0, None)] * cols for _ in range(rows)])
         self.frame, self.lf_txsz = [], []
         for p in range(self.planes):
             sx = self.ssx if p else 0
             sy = self.ssy if p else 0
-            ph, pw = (sbr * 64) >> sy, (sbc * 64) >> sx
+            ph, pw = (sbr * sb4 * 4) >> sy, (sbc * sb4 * 4) >> sx
             self.frame.append(np.zeros((ph, pw), np.uint8))
             self.lf_txsz.append(np.zeros((ph // 4, pw // 4), np.int64))
 
@@ -884,19 +979,23 @@ def _predict_intra(t: _Tile, plane: int, x: int, y: int, have_left: bool,
 
 
 def cfl_predict(dc: np.ndarray, luma: np.ndarray, max_w: int, max_h: int,
-                alpha: int) -> np.ndarray:
-    """Chroma from luma (4:2:0) of the chroma block whose DC prediction is
-    `dc`, from the co-located luma of which max_w x max_h samples are
-    decoded (csrc/av1.c av1_cfl_predict)."""
+                alpha: int, ssx: int = 1, ssy: int = 1) -> np.ndarray:
+    """Chroma from luma of the chroma block whose DC prediction is `dc`,
+    from the co-located luma (subsampled by ssx, ssy) of which max_w x
+    max_h samples are decoded (csrc/av1.c av1_cfl_predict)."""
     h, w = dc.shape
     L = [[0] * w for _ in range(h)]
     total = 0
+    shift = 3 - ssx - ssy
     for i in range(h):
-        ly = min(i << 1, max_h - 2)
+        ly = min(i, (max_h >> ssy) - 1) << ssy
         for j in range(w):
-            lx = min(j << 1, max_w - 2)
-            L[i][j] = (int(luma[ly, lx]) + int(luma[ly, lx + 1])
-                       + int(luma[ly + 1, lx]) + int(luma[ly + 1, lx + 1])) << 1
+            lx = min(j, (max_w >> ssx) - 1) << ssx
+            v = 0
+            for dy in range(1 + ssy):
+                for dx in range(1 + ssx):
+                    v += int(luma[ly + dy, lx + dx])
+            L[i][j] = v << shift
             total += L[i][j]
     avg = round2(total, (w.bit_length() - 1) + (h.bit_length() - 1))
     out = np.empty((h, w), np.int64)
@@ -908,12 +1007,14 @@ def cfl_predict(dc: np.ndarray, luma: np.ndarray, max_w: int, max_h: int,
 
 
 def _predict_cfl(t: _Tile, plane: int, sx0: int, sy0: int, tx: int) -> None:
+    f = t.f
     w, h = 1 << TX_WLOG2[tx], 1 << TX_HLOG2[tx]
-    fr = t.f.frame[plane]
+    fr = f.frame[plane]
+    lx, ly = sx0 << f.ssx, sy0 << f.ssy
     fr[sy0:sy0 + h, sx0:sx0 + w] = cfl_predict(
-        fr[sy0:sy0 + h, sx0:sx0 + w], t.f.frame[0][sy0 << 1:, sx0 << 1:],
-        t.max_luma_w - (sx0 << 1), t.max_luma_h - (sy0 << 1),
-        t.cfl_u if plane == 1 else t.cfl_v)
+        fr[sy0:sy0 + h, sx0:sx0 + w], f.frame[0][ly:, lx:],
+        t.max_luma_w - lx, t.max_luma_h - ly,
+        t.cfl_u if plane == 1 else t.cfl_v, f.ssx, f.ssy)
 
 
 def _tx_class(tx_type: int) -> int:
@@ -922,6 +1023,19 @@ def _tx_class(tx_type: int) -> int:
     if tx_type in (H_DCT, H_ADST, H_FLIPADST):
         return TX_CLASS_HORIZ
     return TX_CLASS_2D
+
+
+# The inter transform sets (EXT_TX_SET_DCT_IDTX 1, _DTT9_IDTX_1DDCT 4,
+# _ALL16 5) and their inter_ext_tx_cdf index.
+INTER_SET_INDEX = {1: 3, 4: 2, 5: 1}
+
+
+def _tx_set_type_inter(tx: int, reduced: int) -> int:
+    if TX_SQR_UP[tx] > TX_32X32:
+        return 0
+    if TX_SQR_UP[tx] == TX_32X32 or reduced:
+        return 1
+    return 4 if TX_SQR[tx] == TX_16X16 else 5
 
 
 def _tx_set_type(tx: int, reduced: int) -> int:
@@ -948,7 +1062,7 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
     max_y4 = ((f.mi_rows * 4) >> sy) >> 2
     a = t.above_ctx[plane]
     lctx = t.left_ctx[plane]
-    lbase = y4 & ((16 >> sy) - 1)
+    lbase = y4 & ((f.sb4 >> sy) - 1)
     dc_sign = 0
     for k in range(w4):
         s = a[x4 + k] >> 6
@@ -981,8 +1095,15 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
     tx_type = DCT_DCT
     coef = [0] * (cw * ch)
     if not all_zero:
-        tx_set = _tx_set_type(tx, hdr.reduced_tx_set)
-        if plane == 0:
+        inter = t.use_intrabc
+        tx_set = _tx_set_type_inter(tx, hdr.reduced_tx_set) if inter \
+            else _tx_set_type(tx, hdr.reduced_tx_set)
+        if plane == 0 and inter:
+            if tx_set > 0 and t.current_q > 0:
+                sym = ec.symbol(cdf["inter_ext_tx"][INTER_SET_INDEX[tx_set]]
+                                [TX_SQR[tx]], NUM_EXT_TX_SET[tx_set])
+                tx_type = tb["ext_tx_inv"][tx_set][sym]
+        elif plane == 0:
             if tx_set > 0 and t.current_q > 0:
                 eset = 1 if tx_set == 3 else 2
                 mode = FIMODE_TO_INTRADIR[t.filter_mode] \
@@ -991,11 +1112,16 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
                                 NUM_EXT_TX_SET[tx_set])
                 tx_type = tb["ext_tx_inv"][tx_set][sym]
         else:
-            tx_type = MODE_TO_TXFM[DC_PRED if t.uv_mode == UV_CFL_PRED
-                                   else t.uv_mode]
+            if inter:  # the co-located luma transform's type
+                tx_type = int(f.tx_type[
+                    t.mi_row + ((y4 - (t.mi_row >> sy)) << sy),
+                    t.mi_col + ((x4 - (t.mi_col >> sx)) << sx)])
+            else:
+                tx_type = MODE_TO_TXFM[DC_PRED if t.uv_mode == UV_CFL_PRED
+                                       else t.uv_mode]
             if not tb["ext_tx_used"][tx_set][tx_type]:
                 tx_type = DCT_DCT
-        if TX_SQR_UP[tx] > TX_32X32:
+        if TX_SQR_UP[tx] > TX_32X32 or f.lossless:
             tx_type = DCT_DCT
         cls = _tx_class(tx_type)
         so = tb["scan_offset"][tx][tx_type]
@@ -1069,7 +1195,7 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
                     if k < 3:
                         break
             levels[li] = level
-        qm_level = (hdr.qm[plane] if hdr.using_qm else 15)
+        qm_level = hdr.qm[plane] if hdr.using_qm and not f.lossless else 15
         iqm = None
         if qm_level < 15 and tx_type < IDTX:
             iqm = tb["iwt_matrix"][qm_level][int(plane > 0)][QM_OFFSET[tx]:]
@@ -1124,6 +1250,8 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
         a[x4 + k] = cul if x4 + k < max_x4 else 0
     for k in range(h4):
         lctx[lbase + k] = cul if y4 + k < max_y4 else 0
+    if plane == 0:
+        f.tx_type[y4:y4 + h4, x4:x4 + w4] = tx_type
     return eob, tx_type, coef
 
 
@@ -1143,11 +1271,13 @@ def _mode_info(t: _Tile) -> None:
     ctx = (int(f.skip[r - 1, c]) if t.avail_u else 0) + \
         (int(f.skip[r, c - 1]) if t.avail_l else 0)
     t.skip = ec.symbol(cdf["skip"][ctx], 2)
-    if not t.skip and f.enable_cdef:
+    if not t.skip and f.enable_cdef:  # read_cdef, per 64x64
         sb = f.cdef_idx
         if sb[r >> 4, c >> 4] == -1:
             sb[r >> 4, c >> 4] = ec.literal(hdr.cdef_bits)
-    if not (t.bsize == BLOCK_64X64 and t.skip) and t.read_deltas:
+            sb[r >> 4:(r + BH4[t.bsize]) >> 4,
+               c >> 4:(c + BW4[t.bsize]) >> 4] = sb[r >> 4, c >> 4]
+    if not (t.bsize == f.sb_size and t.skip) and t.read_deltas:
         d = _read_delta(t, cdf["delta_q"])
         if d:
             t.current_q = clip3(1, 255, t.current_q + (d << hdr.delta_q_res))
@@ -1160,6 +1290,15 @@ def _mode_info(t: _Tile) -> None:
                     t.delta_lf[i] = clip3(-63, 63, t.delta_lf[i]
                                           + (d << hdr.delta_lf_res))
     t.read_deltas = 0
+    t.use_intrabc = ec.symbol(cdf["intrabc"], 2) if hdr.allow_intrabc else 0
+    t.pal_size = [0, 0]
+    t.pal_colors = [[0] * 8 for _ in range(3)]
+    t.use_filter_intra = 0
+    if t.use_intrabc:
+        t.y_mode = t.uv_mode = DC_PRED
+        t.angle_y = t.angle_uv = t.cfl_u = t.cfl_v = 0
+        _read_dv(t)
+        return
     above = int(f.y_mode[r - 1, c]) if t.avail_u else DC_PRED
     left = int(f.y_mode[r, c - 1]) if t.avail_l else DC_PRED
     t.y_mode = ec.symbol(
@@ -1168,7 +1307,11 @@ def _mode_info(t: _Tile) -> None:
     t.uv_mode, t.angle_uv, t.cfl_u, t.cfl_v = DC_PRED, 0, 0, 0
     bw, bh = 4 * BW4[t.bsize], 4 * BH4[t.bsize]
     if t.has_chroma:
-        cfl_allowed = int(max(bw, bh) <= 32)
+        if f.lossless:  # libaom's is_cfl_allowed
+            cfl_allowed = int(_t()["ss_size_lookup"][t.bsize][f.ssx][f.ssy]
+                              == BLOCK_4X4)
+        else:
+            cfl_allowed = int(max(bw, bh) <= 32)
         t.uv_mode = ec.symbol(cdf["uv"][cfl_allowed][t.y_mode],
                               13 + cfl_allowed)
         if t.uv_mode == UV_CFL_PRED:
@@ -1183,20 +1326,420 @@ def _mode_info(t: _Tile) -> None:
         else:
             t.angle_uv = _read_angle(t, t.uv_mode)
     if t.bsize >= BLOCK_8X8 and bw <= 64 and bh <= 64 and hdr.screen_content:
-        bctx = MI_WLOG2[t.bsize] + MI_HLOG2[t.bsize] - 2
-        if t.y_mode == DC_PRED and ec.symbol(cdf["palette_y_mode"][bctx][0],
-                                             2):
-            raise ValueError("AVIF: palette mode (screen content) is not "
-                             "read here")
-        if t.has_chroma and t.uv_mode == DC_PRED and \
-                ec.symbol(cdf["palette_uv_mode"][0], 2):
-            raise ValueError("AVIF: palette mode (screen content) is not "
-                             "read here")
-    t.use_filter_intra = 0
-    if f.filter_intra and t.y_mode == DC_PRED and max(bw, bh) <= 32:
+        _palette_mode_info(t)
+    if f.filter_intra and t.y_mode == DC_PRED and not t.pal_size[0] and \
+            max(bw, bh) <= 32:
         t.use_filter_intra = ec.symbol(cdf["filter_intra"][t.bsize], 2)
         if t.use_filter_intra:
             t.filter_mode = ec.symbol(cdf["filter_intra_mode"], 5)
+
+
+# --- intra block copy ------------------------------------------------------
+
+REF_CAT_LEVEL, MAX_REF_MV_STACK_SIZE, INTRABC_DELAY_PIXELS = 640, 8, 256
+
+
+def _dv_stack(t: _Tile) -> list:
+    """libaom's setup_ref_mv_list for INTRA_FRAME: the DVs of the intra
+    block copy neighbours, weighted, sorted and clamped."""
+    f, r, c = t.f, t.mi_row, t.mi_col
+    bw4, bh4 = BW4[t.bsize], BH4[t.bsize]
+    stack: list = []
+    processed = [0, 0]
+
+    def add(rr: int, cc: int, weight: int) -> None:
+        if not f.is_inter[rr, cc]:
+            return
+        mv = (int(f.mvs[rr, cc, 0]), int(f.mvs[rr, cc, 1]))
+        for e in stack:
+            if e[0] == mv:
+                e[1] += weight
+                return
+        if len(stack) < MAX_REF_MV_STACK_SIZE:
+            stack.append([mv, weight])
+
+    row_adj = int(bh4 < 2 and r & 1)
+    col_adj = int(bw4 < 2 and c & 1)
+    max_row = max_col = 0
+    if t.avail_u:
+        max_row = (-4 if bh4 < 2 else -6) + row_adj
+        max_row = clip3(t.row_start - r, t.row_end - r - 1, max_row)
+    if t.avail_l:
+        max_col = (-4 if bw4 < 2 else -6) + col_adj
+        max_col = clip3(t.col_start - c, t.col_end - c - 1, max_col)
+
+    def scan(off: int, vertical: bool) -> None:
+        """scan_row_mbmi (vertical False) or scan_col_mbmi."""
+        n4, pos = (bh4, r) if vertical else (bw4, c)
+        end = min(n4, (f.mi_rows if vertical else f.mi_cols) - pos, 16)
+        step = 0
+        if abs(off) > 1:
+            step = 1
+            if (pos & 1) and n4 < 2:
+                step = 0
+        i = 0
+        while i < end:
+            rr, cc = (r + step + i, c + off) if vertical else \
+                (r + off, c + step + i)
+            cb = int(f.mi_size[rr, cc])
+            along, across = (BH4[cb], BW4[cb]) if vertical else \
+                (BW4[cb], BH4[cb])
+            n = min(n4, along)
+            if n4 >= 16:
+                n = max(4, n)
+            elif abs(off) > 1:
+                n = max(n, 2)
+            weight = 2
+            if 2 <= n4 <= along:
+                inc = min(-(max_col if vertical else max_row) + off + 1,
+                          across)
+                weight = max(weight, inc)
+                processed[int(vertical)] = inc - off - 1
+            add(rr, cc, n * weight)
+            i += n
+
+    if abs(max_row) >= 1:
+        scan(-1, False)
+    if abs(max_col) >= 1:
+        scan(-1, True)
+    if max(bw4, bh4) <= 16 and t.inside(r - 1, c + bw4) and \
+            f.written[r - 1, c + bw4]:
+        add(r - 1, c + bw4, 4)
+    nearest = len(stack)
+    for e in stack:
+        e[1] += REF_CAT_LEVEL
+    if t.inside(r - 1, c - 1):
+        add(r - 1, c - 1, 4)
+    for idx in (2, 3):
+        row_off = -(idx << 1) + 1 + row_adj
+        col_off = -(idx << 1) + 1 + col_adj
+        if abs(row_off) <= abs(max_row) and abs(row_off) > processed[0]:
+            scan(row_off, False)
+        if abs(col_off) <= abs(max_col) and abs(col_off) > processed[1]:
+            scan(col_off, True)
+    for lo, hi in ((0, nearest), (nearest, len(stack))):  # bubble sorts
+        n = hi
+        while n > lo:
+            last = lo
+            for i in range(lo + 1, n):
+                if stack[i - 1][1] < stack[i][1]:
+                    stack[i - 1], stack[i] = stack[i], stack[i - 1]
+                    last = i
+            n = last
+    out = []
+    for (mr, mc), _ in stack:  # clamp_mv_ref
+        bw, bh = 4 * bw4, 4 * bh4
+        mc = clip3(-(c * 32) - bw * 8 - 128,
+                   (f.mi_cols - bw4 - c) * 32 + bw * 8 + 128, mc)
+        mr = clip3(-(r * 32) - bh * 8 - 128,
+                   (f.mi_rows - bh4 - r) * 32 + bh * 8 + 128, mr)
+        out.append((mr, mc))
+    return out
+
+
+def _read_mv_component(t: _Tile, comp: int) -> int:
+    """read_mv_component at integer precision (MV_SUBPEL_NONE)."""
+    ec, cdf = t.ec, t.cdf["dv_comp"][comp]
+    sign = ec.symbol(cdf["sign"], 2)
+    cls = ec.symbol(cdf["classes"], 11)
+    if cls == 0:
+        d, mag = ec.symbol(cdf["class0"], 2), 0
+    else:
+        d = 0
+        for i in range(cls):
+            d |= ec.symbol(cdf["bits"][i], 2) << i
+        mag = 2 << (cls + 2)
+    mag += (d << 3) + 8
+    return -mag if sign else mag
+
+
+def _read_dv(t: _Tile) -> None:
+    """The block's DV (1/8 pel, whole pixels): the first non-zero of the
+    stack's two first entries or the default one, plus the coded
+    difference."""
+    f = t.f
+    stack = _dv_stack(t) + [(0, 0), (0, 0)]
+    ref = stack[0] if stack[0] != (0, 0) else stack[1]
+    if ref == (0, 0):
+        if t.mi_row - f.sb4 < t.row_start:
+            ref = (0, -(4 * f.sb4 + INTRABC_DELAY_PIXELS) * 8)
+        else:
+            ref = (-(4 * f.sb4) * 8, 0)
+    ref = ((ref[0] >> 3) * 8, (ref[1] >> 3) * 8)
+    joint = t.ec.symbol(t.cdf["dv_joints"], 4)
+    dr = _read_mv_component(t, 0) if joint in (2, 3) else 0
+    dc = _read_mv_component(t, 1) if joint in (1, 3) else 0
+    t.mv = (((ref[0] + dr) >> 3) * 8, ((ref[1] + dc) >> 3) * 8)
+    if not dv_valid(t.mv, t.mi_row, t.mi_col, BW4[t.bsize], BH4[t.bsize],
+                    f.sb4, (t.row_start, t.row_end, t.col_start, t.col_end),
+                    f.ssx, f.ssy, t.has_chroma):
+        raise ValueError("AV1: an intra block copy DV points outside the "
+                         "area libaom allows (libaom reports a corrupt "
+                         "frame)")
+
+
+def dv_valid(dv: tuple, mi_row: int, mi_col: int, bw4: int, bh4: int,
+             sb4: int, tile: tuple, ssx: int, ssy: int,
+             has_chroma: int) -> bool:
+    """libaom's is_mv_valid and av1_is_dv_valid: a DV (1/8 sample) of the
+    bw4 x bh4 block at (mi_row, mi_col) is valid when its source lies in
+    the tile (row_start, row_end, col_start, col_end), whole, in a
+    superblock decoded at least INTRABC_DELAY_PIXELS (four 64-wide
+    superblocks) before the block's own and above its wavefront."""
+    row_start, row_end, col_start, col_end = tile
+    if any(not -(1 << 14) < v < 1 << 14 or v & 7 for v in dv):
+        return False
+    top, left = mi_row * 32 + dv[0], mi_col * 32 + dv[1]
+    bottom, right = (mi_row + bh4) * 32 + dv[0], (mi_col + bw4) * 32 + dv[1]
+    if top < row_start * 32 or left < col_start * 32 or \
+            bottom > row_end * 32 or right > col_end * 32:
+        return False
+    if has_chroma and ((bw4 == 1 and ssx and left < (col_start + 1) * 32) or
+                       (bh4 == 1 and ssy and top < (row_start + 1) * 32)):
+        return False
+    delay, sb_size = INTRABC_DELAY_PIXELS // 64, 4 * sb4
+    active_row, active_col = mi_row // sb4, (mi_col * 4) >> 6
+    src_row = ((bottom >> 3) - 1) // sb_size
+    src_col = ((right >> 3) - 1) >> 6
+    per_row = ((col_end - col_start - 1) >> 4) + 1
+    if src_row * per_row + src_col >= active_row * per_row + active_col - delay:
+        return False
+    gradient = 1 + delay + (sb_size > 64)
+    return src_row <= active_row and \
+        src_col < active_col - delay + gradient * (active_row - src_row)
+
+
+def intrabc_predict(src: np.ndarray, fy: int, fx: int) -> np.ndarray:
+    """The intra block copy prediction from src (h + 1 x w + 1 samples
+    when the DV has a half-sample part, fy / fx 8, else h x w): the
+    BILINEAR filter at half a sample, as libaom's
+    av1_convolve_{2d,x,y}_sr_intrabc_c rounds it."""
+    s = src.astype(np.int64)
+    h, w = s.shape[0] - (fy > 0), s.shape[1] - (fx > 0)
+    if fx and fy:
+        return (s[:h, :w] + s[:h, 1:] + s[1:, :w] + s[1:, 1:] + 2) >> 2
+    if fx:
+        return (s[:h, :w] + s[:h, 1:] + 1) >> 1
+    if fy:
+        return (s[:h, :w] + s[1:, :w] + 1) >> 1
+    return s
+
+
+def _predict_intrabc(t: _Tile) -> None:
+    """Each plane of the block copied from the frame so far."""
+    f = t.f
+    for plane in range(1 + 2 * t.has_chroma):
+        sx, sy = (f.ssx, f.ssy) if plane else (0, 0)
+        bw, bh = 4 * BW4[t.bsize], 4 * BH4[t.bsize]
+        x0 = (t.mi_col * 4 - (4 if bw == 4 and sx else 0)) >> sx
+        y0 = (t.mi_row * 4 - (4 if bh == 4 and sy else 0)) >> sy
+        w, h = max(4, bw >> sx), max(4, bh >> sy)
+        qr, qc = t.mv[0] << (1 - sy), t.mv[1] << (1 - sx)  # 1/16 sample
+        fy, fx = qr & 15, qc & 15
+        ys, xs = y0 + (qr >> 4), x0 + (qc >> 4)
+        fr = f.frame[plane]
+        if ys < 0 or xs < 0 or ys + h + (fy > 0) > fr.shape[0] or \
+                xs + w + (fx > 0) > fr.shape[1]:
+            raise ValueError("AV1: an intra block copy DV points outside the "
+                             "frame (libaom reports a corrupt frame)")
+        src = fr[ys:ys + h + (fy > 0), xs:xs + w + (fx > 0)].copy()
+        fr[y0:y0 + h, x0:x0 + w] = intrabc_predict(src, fy, fx)
+
+
+def _txfm_partition_ctx(above: int, left: int, bsize: int, tx: int) -> int:
+    """libaom's txfm_partition_context."""
+    if tx == TX_4X4:
+        return 0
+    dim = max(BW4[bsize], BH4[bsize]) * 4
+    max_tx = 4 if dim >= 64 else {32: 3, 16: 2, 8: 1}[dim]
+    cat = int(TX_SQR_UP[tx] != max_tx and max_tx > TX_8X8) + (4 - max_tx) * 2
+    return cat * 3 + int(above < 1 << TX_WLOG2[tx]) + \
+        int(left < 1 << TX_HLOG2[tx])
+
+
+def _set_txfm_ctx(t: _Tile, row: int, col: int, w4: int, h4: int,
+                  tw: int, th: int) -> None:
+    """The transform-size contexts (sample widths above, heights left)
+    over w4 x h4 4x4 units at (row, col) of the block."""
+    m = t.f.sb4 - 1
+    for i in range(w4):
+        t.above_txfm[t.mi_col + col + i] = tw
+    for i in range(h4):
+        t.left_txfm[(t.mi_row + row + i) & m] = th
+
+
+def _read_var_tx(t: _Tile, tx: int, depth: int, row: int, col: int) -> None:
+    """read_tx_size_vartx: the transform tree of an intra block copy
+    block, into t.inter_tx (per 4x4 unit of the block)."""
+    f = t.f
+    if row >= min(BH4[t.bsize], f.mi_rows - t.mi_row) or \
+            col >= min(BW4[t.bsize], f.mi_cols - t.mi_col):
+        return
+    w4, h4 = 1 << (TX_WLOG2[tx] - 2), 1 << (TX_HLOG2[tx] - 2)
+    leaf, ctx_tx = tx, tx
+    if depth < 2:
+        ctx = _txfm_partition_ctx(t.above_txfm[t.mi_col + col],
+                                  t.left_txfm[(t.mi_row + row) & (f.sb4 - 1)],
+                                  t.bsize, tx)
+        if t.ec.symbol(t.cdf["txfm_partition"][ctx], 2):
+            sub = SPLIT_TX[tx]
+            if sub != TX_4X4:
+                sw, sh = 1 << (TX_WLOG2[sub] - 2), 1 << (TX_HLOG2[sub] - 2)
+                for rr in range(0, h4, sh):
+                    for cc in range(0, w4, sw):
+                        _read_var_tx(t, sub, depth + 1, row + rr, col + cc)
+                return
+            leaf, ctx_tx = TX_4X4, TX_4X4
+    t.inter_tx[row:row + h4, col:col + w4] = leaf
+    t.tx_size = leaf
+    _set_txfm_ctx(t, row, col, w4, h4, 1 << TX_WLOG2[ctx_tx],
+                  1 << TX_HLOG2[ctx_tx])
+
+
+def _inter_luma_tree(t: _Tile, tx: int, row: int, col: int) -> None:
+    """decode_reconstruct_tx on luma: the leaves of the tree in order."""
+    f = t.f
+    max_h = min(BH4[t.bsize], f.mi_rows - t.mi_row)
+    max_w = min(BW4[t.bsize], f.mi_cols - t.mi_col)
+    if row >= max_h or col >= max_w:
+        return
+    if t.inter_tx[row, col] == tx:
+        _transform_block(t, 0, t.mi_col * 4, t.mi_row * 4, tx, col, row)
+        return
+    sub = SPLIT_TX[tx]
+    sw, sh = 1 << (TX_WLOG2[sub] - 2), 1 << (TX_HLOG2[sub] - 2)
+    for rr in range(0, min(1 << (TX_HLOG2[tx] - 2), max_h - row), sh):
+        for cc in range(0, min(1 << (TX_WLOG2[tx] - 2), max_w - col), sw):
+            _inter_luma_tree(t, sub, row + rr, col + cc)
+
+
+# --- palette -----------------------------------------------------------------
+
+
+def _ceil_log2(n: int) -> int:
+    return 0 if n < 2 else (n - 1).bit_length()
+
+
+def _palette_cache(t: _Tile, plane: int) -> list:
+    """libaom's av1_get_palette_cache: the above (within this 64-row
+    superblock row) and left neighbours' colours, merged and unique."""
+    f, r, c = t.f, t.mi_row, t.mi_col
+    p = int(plane > 0)
+    colours = []
+    if t.avail_u and r % 16:
+        colours += f.pal_colors[r - 1, c, plane, :f.pal_size[r - 1, c, p]]\
+            .tolist()
+    if t.avail_l:
+        colours += f.pal_colors[r, c - 1, plane, :f.pal_size[r, c - 1, p]]\
+            .tolist()
+    return sorted(set(colours))
+
+
+def _palette_colours(t: _Tile, plane: int, n: int) -> list:
+    """The Y (plane 0) or U colours of a palette: those taken from the
+    cache, then a literal and deltas (at least 1 apart for Y), sorted."""
+    ec = t.ec
+    cached = []
+    for v in _palette_cache(t, plane):
+        if len(cached) >= n:
+            break
+        if ec.bit():
+            cached.append(v)
+    coded = []
+    if len(cached) < n:
+        coded.append(ec.literal(8))
+        if len(cached) + 1 < n:
+            step = 1 if plane == 0 else 0
+            bits = 5 + ec.literal(2)
+            room = 256 - coded[0] - step
+            while len(cached) + len(coded) < n:
+                v = min(coded[-1] + ec.literal(bits) + step, 255)
+                room -= v - coded[-1]
+                coded.append(v)
+                bits = min(bits, _ceil_log2(room))
+    return sorted(cached + coded)
+
+
+def _palette_mode_info(t: _Tile) -> None:
+    f, cdf, ec = t.f, t.cdf, t.ec
+    r, c = t.mi_row, t.mi_col
+    bctx = MI_WLOG2[t.bsize] + MI_HLOG2[t.bsize] - 2
+    if t.y_mode == DC_PRED:
+        ctx = (int(f.pal_size[r - 1, c, 0] > 0) if t.avail_u else 0) + \
+            (int(f.pal_size[r, c - 1, 0] > 0) if t.avail_l else 0)
+        if ec.symbol(cdf["palette_y_mode"][bctx][ctx], 2):
+            n = ec.symbol(cdf["palette_y_size"][bctx], 7) + 2
+            t.pal_size[0] = n
+            t.pal_colors[0][:n] = _palette_colours(t, 0, n)
+    if t.has_chroma and t.uv_mode == DC_PRED and \
+            ec.symbol(cdf["palette_uv_mode"][int(t.pal_size[0] > 0)], 2):
+        n = ec.symbol(cdf["palette_uv_size"][bctx], 7) + 2
+        t.pal_size[1] = n
+        t.pal_colors[1][:n] = _palette_colours(t, 1, n)
+        if ec.bit():  # V by deltas, modulo 256
+            bits = 4 + ec.literal(2)
+            v = [ec.literal(8)]
+            for _ in range(1, n):
+                d = ec.literal(bits)
+                if d and ec.bit():
+                    d = -d
+                v.append((v[-1] + d) % 256)
+        else:
+            v = [ec.literal(8) for _ in range(n)]
+        t.pal_colors[2][:n] = v
+
+
+def palette_color_context(colour_map, r: int, c: int, n: int):
+    """libaom's av1_get_palette_color_index_context: (the context, the
+    colour order) of entry (r, c) from its left, top-left and top
+    neighbours."""
+    scores = [0] * 8
+    for (dr, dc), weight in (((0, -1), 2), ((-1, -1), 1), ((-1, 0), 2)):
+        if r + dr >= 0 and c + dc >= 0:
+            scores[int(colour_map[r + dr][c + dc])] += weight
+    order = list(range(8))
+    for i in range(3):
+        best, best_i = scores[i], i
+        for j in range(i + 1, n):
+            if scores[j] > best:
+                best, best_i = scores[j], j
+        if best_i != i:
+            s, o = scores[best_i], order[best_i]
+            for k in range(best_i, i, -1):
+                scores[k], order[k] = scores[k - 1], order[k - 1]
+            scores[i], order[i] = s, o
+    h = scores[0] + 2 * scores[1] + 2 * scores[2]
+    return _t()["palette_color_index_context_lookup"][h], order
+
+
+def _palette_tokens(t: _Tile) -> None:
+    """The colour-index maps, in wavefront order (palette_tokens)."""
+    f, ec = t.f, t.ec
+    bw, bh = 4 * BW4[t.bsize], 4 * BH4[t.bsize]
+    on_w = min(bw, (f.mi_cols - t.mi_col) * 4)
+    on_h = min(bh, (f.mi_rows - t.mi_row) * 4)
+    t.colour_map = [None, None]
+    for p in range(2):
+        n = t.pal_size[p]
+        if not n:
+            continue
+        w, h, ow, oh = bw, bh, on_w, on_h
+        if p:
+            w, h, ow, oh = w >> f.ssx, h >> f.ssy, ow >> f.ssx, oh >> f.ssy
+            if w < 4:
+                w, ow = w + 2, ow + 2
+            if h < 4:
+                h, oh = h + 2, oh + 2
+        m = np.zeros((h, w), np.int64)
+        m[0, 0] = ec.uniform(n)
+        cdf = t.cdf["palette_uv_color" if p else "palette_y_color"][n - 2]
+        for i in range(1, oh + ow - 1):
+            for j in range(min(i, ow - 1), max(0, i - oh + 1) - 1, -1):
+                ctx, order = palette_color_context(m, i - j, j, n)
+                m[i - j, j] = order[ec.symbol(cdf[ctx], n)]
+        m[:oh, ow:] = m[:oh, ow - 1:ow]
+        m[oh:] = m[oh - 1]
+        t.colour_map[p] = m
 
 
 def _read_angle(t: _Tile, mode: int) -> int:
@@ -1207,13 +1750,29 @@ def _read_angle(t: _Tile, mode: int) -> int:
 
 def _read_tx_size(t: _Tile) -> None:
     f = t.f
+    r, c = t.mi_row, t.mi_col
     max_rect = _t()["max_txsize_rect_lookup"][t.bsize]
-    t.tx_size = max_rect
-    if t.bsize > BLOCK_4X4 and f.h.tx_mode_select:
-        aw = (1 << TX_WLOG2[f.tx_size[t.mi_row - 1, t.mi_col]]) \
-            if t.avail_u else 0
-        lh = (1 << TX_HLOG2[f.tx_size[t.mi_row, t.mi_col - 1]]) \
-            if t.avail_l else 0
+    t.tx_size = TX_4X4 if f.lossless else max_rect
+    bw4, bh4 = BW4[t.bsize], BH4[t.bsize]
+    t.inter_tx = None
+    if t.use_intrabc:
+        t.inter_tx = np.full((bh4, bw4), t.tx_size, np.int64)
+        if f.h.tx_mode_select and t.bsize > BLOCK_4X4 and not t.skip \
+                and not f.lossless:
+            for row in range(0, bh4, 1 << (TX_HLOG2[max_rect] - 2)):
+                for col in range(0, bw4, 1 << (TX_WLOG2[max_rect] - 2)):
+                    _read_var_tx(t, max_rect, 0, row, col)
+            return
+    elif t.bsize > BLOCK_4X4 and f.h.tx_mode_select:
+        def ctx_side(rr, cc, avail, wide):
+            if not avail:
+                return 0
+            if f.is_inter[rr, cc]:  # an intra block copy: its size
+                b = int(f.mi_size[rr, cc])
+                return 4 * (BW4[b] if wide else BH4[b])
+            return 1 << (TX_WLOG2 if wide else TX_HLOG2)[f.tx_size[rr, cc]]
+        aw = ctx_side(r - 1, c, t.avail_u, True)
+        lh = ctx_side(r, c - 1, t.avail_l, False)
         ctx = int(aw >= 1 << TX_WLOG2[max_rect]) + \
             int(lh >= 1 << TX_HLOG2[max_rect])
         depth_max = MAX_TX_DEPTH[t.bsize]
@@ -1221,6 +1780,11 @@ def _read_tx_size(t: _Tile) -> None:
                             3 if depth_max > 1 else 2)
         for _ in range(depth):
             t.tx_size = SPLIT_TX[t.tx_size]
+    if t.use_intrabc and t.skip:  # set_txfm_ctxs: the block's size
+        _set_txfm_ctx(t, 0, 0, bw4, bh4, 4 * bw4, 4 * bh4)
+    else:
+        _set_txfm_ctx(t, 0, 0, bw4, bh4, 1 << TX_WLOG2[t.tx_size],
+                      1 << TX_HLOG2[t.tx_size])
 
 
 def _uv_tx_size(bsize: int, ssx: int, ssy: int) -> int:
@@ -1239,21 +1803,30 @@ def _transform_block(t: _Tile, plane: int, base_x: int, base_y: int,
     sy = f.ssy if plane else 0
     start_x, start_y = base_x + 4 * x, base_y + 4 * y
     row, col = (start_y << sy) >> 2, (start_x << sx) >> 2
-    dr, dc = (row & 15) >> sy, (col & 15) >> sx
+    dr, dc = (row & (f.sb4 - 1)) >> sy, (col & (f.sb4 - 1)) >> sx
     step_x, step_y = 1 << (TX_WLOG2[tx] - 2), 1 << (TX_HLOG2[tx] - 2)
     if start_x >= (f.mi_cols * 4) >> sx or start_y >= (f.mi_rows * 4) >> sy:
         return
     is_cfl = plane > 0 and t.uv_mode == UV_CFL_PRED
     mode = t.y_mode if plane == 0 else DC_PRED if is_cfl else t.uv_mode
     dec = t.decoded[plane]
-    _predict_intra(t, plane, start_x, start_y,
-                   (t.avail_l if plane == 0 else t.avail_l_chroma) or x > 0,
-                   (t.avail_u if plane == 0 else t.avail_u_chroma) or y > 0,
-                   dec[dr][dc + step_x + 1], dec[dr + step_y + 1][dc], mode,
-                   TX_WLOG2[tx], TX_HLOG2[tx])
+    if t.use_intrabc:
+        pass  # predicted for the whole block
+    elif t.pal_size[int(plane > 0)]:
+        w, h = 1 << TX_WLOG2[tx], 1 << TX_HLOG2[tx]
+        m = t.colour_map[int(plane > 0)][4 * y:4 * y + h, 4 * x:4 * x + w]
+        f.frame[plane][start_y:start_y + h, start_x:start_x + w] = \
+            np.array(t.pal_colors[plane])[m]
+    else:
+        _predict_intra(
+            t, plane, start_x, start_y,
+            (t.avail_l if plane == 0 else t.avail_l_chroma) or x > 0,
+            (t.avail_u if plane == 0 else t.avail_u_chroma) or y > 0,
+            dec[dr][dc + step_x + 1], dec[dr + step_y + 1][dc], mode,
+            TX_WLOG2[tx], TX_HLOG2[tx])
     if is_cfl:
         _predict_cfl(t, plane, start_x, start_y, tx)
-    if plane == 0:
+    if plane == 0 and not t.use_intrabc:
         t.max_luma_w = start_x + step_x * 4
         t.max_luma_h = start_y + step_y * 4
     if not t.skip:
@@ -1261,9 +1834,11 @@ def _transform_block(t: _Tile, plane: int, base_x: int, base_y: int,
                                           start_y >> 2, tx)
         if eob > 0:
             w, h = 1 << TX_WLOG2[tx], 1 << TX_HLOG2[tx]
-            inverse_transform_add(
-                coef, tx, tx_type,
-                f.frame[plane][start_y:start_y + h, start_x:start_x + w])
+            dst = f.frame[plane][start_y:start_y + h, start_x:start_x + w]
+            if f.lossless:
+                iwht_add(coef, dst)
+            else:
+                inverse_transform_add(coef, tx, tx_type, dst)
     f.lf_txsz[plane][row >> sy:(row >> sy) + step_y,
                      col >> sx:(col >> sx) + step_x] = tx
     for i in range(step_y):
@@ -1277,9 +1852,17 @@ def _residual(t: _Tile) -> None:
     bw4, bh4 = BW4[t.bsize], BH4[t.bsize]
     for cy in range(max(1, bh4 >> 4)):
         for cx in range(max(1, bw4 >> 4)):
-            for plane in range(1 + 2 * t.has_chroma):
-                tx = _uv_tx_size(t.bsize, f.ssx, f.ssy) if plane \
-                    else t.tx_size
+            if t.use_intrabc:  # luma: the transform tree
+                tx = _t()["max_txsize_rect_lookup"][t.bsize]
+                if f.lossless:
+                    tx = TX_4X4
+                sw, sh = 1 << (TX_WLOG2[tx] - 2), 1 << (TX_HLOG2[tx] - 2)
+                for y in range(cy << 4, min(bh4, (cy + 1) << 4), sh):
+                    for x in range(cx << 4, min(bw4, (cx + 1) << 4), sw):
+                        _inter_luma_tree(t, tx, y, x)
+            for plane in range(int(t.use_intrabc), 1 + 2 * t.has_chroma):
+                tx = TX_4X4 if f.lossless else _uv_tx_size(
+                    t.bsize, f.ssx, f.ssy) if plane else t.tx_size
                 step_x = 1 << (TX_WLOG2[tx] - 2)
                 step_y = 1 << (TX_HLOG2[tx] - 2)
                 sx = f.ssx if plane else 0
@@ -1314,7 +1897,10 @@ def _decode_block(t: _Tile, r: int, c: int, bsize: int) -> None:
         if f.ssx and bw4 == 1:
             t.avail_l_chroma = t.inside(r, c - 2)
     _mode_info(t)
+    _palette_tokens(t)
     _read_tx_size(t)
+    if t.use_intrabc:
+        _predict_intrabc(t)
     if t.skip:
         for plane in range(1 + 2 * t.has_chroma):
             sx = f.ssx if plane else 0
@@ -1322,7 +1908,7 @@ def _decode_block(t: _Tile, r: int, c: int, bsize: int) -> None:
             for i in range(c >> sx, (c + bw4) >> sx):
                 t.above_ctx[plane][i] = 0
             for i in range(r >> sy, (r + bh4) >> sy):
-                t.left_ctx[plane][i & ((16 >> sy) - 1)] = 0
+                t.left_ctx[plane][i & ((f.sb4 >> sy) - 1)] = 0
     r1, c1 = min(r + bh4, f.mi_rows), min(c + bw4, f.mi_cols)
     f.y_mode[r:r1, c:c1] = t.y_mode
     f.uv_mode[r:r1, c:c1] = t.uv_mode
@@ -1330,6 +1916,11 @@ def _decode_block(t: _Tile, r: int, c: int, bsize: int) -> None:
     f.tx_size[r:r1, c:c1] = t.tx_size
     f.mi_size[r:r1, c:c1] = bsize
     f.delta_lf[r:r1, c:c1] = t.delta_lf
+    f.pal_size[r:r1, c:c1] = t.pal_size
+    f.pal_colors[r:r1, c:c1] = t.pal_colors
+    f.is_inter[r:r1, c:c1] = t.use_intrabc
+    f.mvs[r:r1, c:c1] = t.mv if t.use_intrabc else (0, 0)
+    f.written[r:r1, c:c1] = True
     _residual(t)
 
 
@@ -1425,11 +2016,11 @@ def _clear_block_decoded(t: _Tile, r: int, c: int) -> None:
         sy = f.ssy if plane else 0
         sbw4, sbh4 = (t.col_end - c) >> sx, (t.row_end - r) >> sy
         dec = t.decoded[plane]
-        for y in range(-1, (16 >> sy) + 1):
-            for x in range(-1, (16 >> sx) + 1):
+        for y in range(-1, (f.sb4 >> sy) + 1):
+            for x in range(-1, (f.sb4 >> sx) + 1):
                 dec[y + 1][x + 1] = int((y < 0 and x < sbw4)
                                         or (x < 0 and y < sbh4))
-        dec[(16 >> sy) + 1][0] = 0
+        dec[(f.sb4 >> sy) + 1][0] = 0
 
 
 def _decode_tile(t: _Tile, data: bytes) -> None:
@@ -1440,18 +2031,131 @@ def _decode_tile(t: _Tile, data: bytes) -> None:
         t.above_ctx[p] = [0] * (f.mi_cols + 64)
     t.delta_lf = [0, 0, 0, 0]
     t.current_q = f.h.base_q
-    for r in range(t.row_start, t.row_end, 16):
+    # the previous unit's coefficients: Wiener (vertical, horizontal) and
+    # self-guided, each plane from its defaults
+    t.ref_wiener = [[list(WIENER_MID), list(WIENER_MID)] for _ in range(3)]
+    t.ref_sgr = [list(SGRPROJ_MID) for _ in range(3)]
+    t.above_txfm = [64] * (f.mi_cols + 64)
+    for r in range(t.row_start, t.row_end, f.sb4):
         t.left_ctx = [[0] * 32 for _ in range(3)]
-        for c in range(t.col_start, t.col_end, 16):
+        t.left_txfm = [64] * 32
+        for c in range(t.col_start, t.col_end, f.sb4):
             t.read_deltas = f.h.delta_q_present
             _clear_block_decoded(t, r, c)
-            _decode_partition(t, r, c, BLOCK_64X64)
+            _read_lr(t, r, c)
+            _decode_partition(t, r, c, f.sb_size)
             if t.ec.overflowed():
                 raise ValueError("AV1: a tile's symbols run past its data "
                                  "(libaom reports a corrupt frame)")
     if not t.ec.trailing_bits_ok():
         raise ValueError("AV1: a tile's data does not end in its trailing "
                          "bits (libaom reports a corrupt frame)")
+
+
+# --- loop restoration: the coefficients ------------------------------------
+
+RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = range(4)
+# libaom's WIENER_FILT_TAP{0,1,2}_{MINV,MAXV,SUBEXP_K,MIDV} and
+# SGRPROJ_PRJ_{MIN,MAX}{0,1}, SGRPROJ_PRJ_SUBEXP_K and the defaults.
+WIENER_MIN, WIENER_MAX, WIENER_K = (-5, -23, -17), (10, 8, 46), (1, 2, 3)
+WIENER_MID = (3, -7, 15)
+SGRPROJ_MIN, SGRPROJ_MAX, SGRPROJ_K = (-96, -32), (31, 95), 4
+SGRPROJ_MID = (-32, 31)
+
+
+def lr_unit_count(size: int, length: int) -> int:
+    """av1_lr_count_units: units of `size` over `length` samples, the
+    last one up to half a unit longer."""
+    return max((length + (size >> 1)) // size, 1)
+
+
+def _subexp(ec: SymbolDecoder, n: int, k: int) -> int:
+    """aom_read_primitive_subexpfin."""
+    i = mk = 0
+    while True:
+        b = k + i - 1 if i else k
+        a = 1 << b
+        if n <= mk + 3 * a:
+            return ec.uniform(n - mk) + mk
+        if not ec.bit():
+            return ec.literal(b) + mk
+        i += 1
+        mk += a
+
+
+def _read_ref_subexp(ec: SymbolDecoder, lo: int, hi: int, k: int,
+                     ref: int) -> int:
+    """aom_read_primitive_refsubexpfin over [lo, hi], recentred on ref."""
+    n, r = hi - lo + 1, ref - lo
+    v = _subexp(ec, n, k)
+    if (r << 1) <= n:
+        out = _recenter(r, v)
+    else:
+        out = n - 1 - _recenter(n - 1 - r, v)
+    return out + lo
+
+
+def _recenter(r: int, v: int) -> int:
+    if v > (r << 1):
+        return v
+    return (v >> 1) + r if not v & 1 else r - ((v + 1) >> 1)
+
+
+def _read_lr(t: _Tile, r: int, c: int) -> None:
+    """read_lr: the units whose top-left corner lies in the superblock
+    at (r, c)."""
+    f, h = t.f, t.f.h
+    for plane in range(f.planes):
+        if not h.lr_type[plane]:
+            continue
+        sx, sy = (f.ssx, f.ssy) if plane else (0, 0)
+        size = h.lr_unit_size[plane]
+        units = f.lr_units[plane]
+        r0 = (r * (4 >> sy) + size - 1) // size
+        r1 = min(len(units), ((r + f.sb4) * (4 >> sy) + size - 1) // size)
+        c0 = (c * (4 >> sx) + size - 1) // size
+        c1 = min(len(units[0]), ((c + f.sb4) * (4 >> sx) + size - 1)
+                 // size)
+        for ur in range(r0, r1):
+            for uc in range(c0, c1):
+                units[ur][uc] = _read_lr_unit(t, plane)
+
+
+def _read_lr_unit(t: _Tile, plane: int) -> tuple:
+    ec, cdf, kind = t.ec, t.cdf, t.f.h.lr_type[plane]
+    if kind == RESTORE_SWITCHABLE:
+        kind = ec.symbol(cdf["switchable_restore"], 3)
+    elif kind == RESTORE_WIENER:
+        kind = RESTORE_WIENER if ec.symbol(cdf["wiener_restore"], 2) \
+            else RESTORE_NONE
+    else:
+        kind = RESTORE_SGRPROJ if ec.symbol(cdf["sgrproj_restore"], 2) \
+            else RESTORE_NONE
+    if kind == RESTORE_WIENER:
+        taps = []
+        for pass_ in range(2):  # the vertical filter, then the horizontal
+            ref = t.ref_wiener[plane][pass_]
+            c = [0, 0, 0]
+            for j in range(1 if plane else 0, 3):
+                c[j] = _read_ref_subexp(ec, WIENER_MIN[j], WIENER_MAX[j],
+                                        WIENER_K[j], ref[j])
+            t.ref_wiener[plane][pass_] = c
+            taps.append((c[0], c[1], c[2], -2 * sum(c), c[2], c[1], c[0]))
+        return kind, tuple(taps)
+    if kind == RESTORE_SGRPROJ:
+        sgr_set = ec.literal(4)
+        r0, r1 = (int(v) for v in _t()["sgr_params"][sgr_set][:2])
+        ref = t.ref_sgr[plane]
+        xqd = [0, 0]
+        for i in range(2):
+            if (r0, r1)[i]:
+                xqd[i] = _read_ref_subexp(ec, SGRPROJ_MIN[i], SGRPROJ_MAX[i],
+                                          SGRPROJ_K, ref[i])
+            elif i == 1:
+                xqd[1] = clip3(SGRPROJ_MIN[1], SGRPROJ_MAX[1], 128 - xqd[0])
+        t.ref_sgr[plane] = xqd
+        return kind, (sgr_set, tuple(xqd))
+    return kind, None
 
 
 # --- deblocking --------------------------------------------------------------
@@ -1709,19 +2413,148 @@ def _cdef(f: _Frame) -> None:
             if f.planes > 1:
                 pri, sec = h.cdef_uv[idx]
                 if pri or sec:
+                    y0, x0 = (r * 4) >> f.ssy, (c * 4) >> f.ssx
+                    bh, bw = 8 >> f.ssy, 8 >> f.ssx
                     for p in (1, 2):
-                        f.frame[p][r * 2:r * 2 + 4, c * 2:c * 2 + 4] = \
-                            cdef_block(src[p], r * 2, c * 2, 4, 4, pri, sec,
-                                       h.cdef_damping - 1, d if pri else 0,
-                                       (f.mi_rows * 2, f.mi_cols * 2))
+                        f.frame[p][y0:y0 + bh, x0:x0 + bw] = cdef_block(
+                            src[p], y0, x0, bw, bh, pri, sec,
+                            h.cdef_damping - 1, d if pri else 0,
+                            ((f.mi_rows * 4) >> f.ssy,
+                             (f.mi_cols * 4) >> f.ssx))
+
+
+# --- loop restoration: the filters -----------------------------------------
+
+
+def wiener_filter(src: np.ndarray, vfilter, hfilter) -> np.ndarray:
+    """The Wiener filter at 8 bits (libaom's av1_wiener_convolve_add_src_c
+    at get_conv_params_wiener(8)): src holds the block with 3 samples
+    around it; returns the (h, w) block. The 7 taps of each filter sum
+    to 0; the source sample is added at the centre (weight 128)."""
+    p = src.astype(np.int64)
+    h, w = p.shape[0] - 6, p.shape[1] - 6
+    acc = (p[:, 3:3 + w] << 7) + (1 << 14)
+    for k in range(7):
+        acc += int(hfilter[k]) * p[:, k:k + w]
+    tmp = np.clip((acc + 4) >> 3, 0, 8191)
+    acc = (tmp[3:3 + h] << 7) - (1 << 18)
+    for k in range(7):
+        acc += int(vfilter[k]) * tmp[k:k + h]
+    return np.clip((acc + (1 << 10)) >> 11, 0, 255).astype(np.uint8)
+
+
+def _box_ab(p: np.ndarray, h: int, w: int, r: int, s: int):
+    """The self-guided filter's A and B at rows and columns -1 .. h, w
+    of the block (src padded by 3), for radius r and scale s."""
+    tb = _t()
+    n = (2 * r + 1) ** 2
+    b = np.zeros((h + 2, w + 2), np.int64)
+    a = np.zeros((h + 2, w + 2), np.int64)
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            q = p[2 + dy:4 + h + dy, 2 + dx:4 + w + dx]
+            b += q
+            a += q * q
+    pv = np.maximum(a * n - b * b, 0)
+    z = ((pv * s + (1 << 19)) & 0xFFFFFFFF) >> 20  # uint32, as libaom
+    aa = np.array(tb["x_by_xplus1"], np.int64)[np.minimum(z, 255)]
+    bb = ((256 - aa) * b * tb["one_by_x"][n - 1] + (1 << 11)) >> 12
+    return aa, bb
+
+
+def sgr_filter(src: np.ndarray, sgr_set: int, xqd) -> np.ndarray:
+    """The self-guided filter at 8 bits (libaom's
+    av1_apply_selfguided_restoration_c): src holds the block with 3
+    samples around it; returns the (h, w) block."""
+    p = src.astype(np.int64)
+    h, w = p.shape[0] - 6, p.shape[1] - 6
+    r0, r1, s0, s1 = (int(v) for v in _t()["sgr_params"][sgr_set])
+    x = p[3:3 + h, 3:3 + w]
+    u = x << 4
+    v = u << 7
+    if r0:  # radius 2, A and B on every other row
+        a, b = _box_ab(p, h, w, r0, s0)
+        flt = np.empty((h, w), np.int64)
+        for i in range(h):
+            if i & 1:
+                fa = a[i + 1, 1:w + 1] * 6 + (a[i + 1, :w] + a[i + 1, 2:]) * 5
+                fb = b[i + 1, 1:w + 1] * 6 + (b[i + 1, :w] + b[i + 1, 2:]) * 5
+                flt[i] = (fa * x[i] + fb + (1 << 7)) >> 8
+            else:
+                fa = (a[i, 1:w + 1] + a[i + 2, 1:w + 1]) * 6 + (
+                    a[i, :w] + a[i, 2:] + a[i + 2, :w] + a[i + 2, 2:]) * 5
+                fb = (b[i, 1:w + 1] + b[i + 2, 1:w + 1]) * 6 + (
+                    b[i, :w] + b[i, 2:] + b[i + 2, :w] + b[i + 2, 2:]) * 5
+                flt[i] = (fa * x[i] + fb + (1 << 8)) >> 9
+        v = v + xqd[0] * (flt - u)
+    if r1:  # radius 1
+        a, b = _box_ab(p, h, w, r1, s1)
+
+        def cross(m):
+            return (m[1:h + 1, 1:w + 1] + m[1:h + 1, :w] + m[1:h + 1, 2:]
+                    + m[:h, 1:w + 1] + m[2:, 1:w + 1]) * 4 + (
+                m[:h, :w] + m[:h, 2:] + m[2:, :w] + m[2:, 2:]) * 3
+        flt = (cross(a) * x + cross(b) + (1 << 8)) >> 9
+        xq1 = 128 - xqd[1] if not r0 else 128 - xqd[0] - xqd[1]
+        v = v + xq1 * (flt - u)
+    out = (v + (1 << 10)) >> 11
+    out = ((out + 32768) & 0xFFFF) - 32768  # libaom's int16_t
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _loop_restoration(f: _Frame, deblocked: list) -> None:
+    """Each plane's units filtered in 64-row stripes offset by 8 (luma):
+    rows above and below a stripe are the deblocked frame's (2 rows, the
+    nearer repeated), the frame's own edges are repeated."""
+    h = f.h
+    for plane in range(f.planes):
+        if not h.lr_type[plane]:
+            continue
+        sx, sy = (f.ssx, f.ssy) if plane else (0, 0)
+        pw, ph = (f.width + sx) >> sx, (f.height + sy) >> sy
+        size = h.lr_unit_size[plane]
+        units = f.lr_units[plane]
+        cdef_out = f.frame[plane][:ph, :pw].copy()
+        before = deblocked[plane][:ph, :pw]
+        cols = np.clip(np.arange(-3, pw + 3), 0, pw - 1)
+        off, height = 8 >> sy, 64 >> sy
+        for k in range(ph // height + 2):
+            start = k * height - off  # StripeStartY (may be negative)
+            y0, y1 = max(0, start), min(ph, start + height)
+            if y0 >= ph:
+                break
+            rows = []
+            for y in range(y0 - 3, y1 + 3):
+                y = clip3(0, ph - 1, y)
+                if y < start:
+                    rows.append(before[max(start - 2, y)])
+                elif y > start + height - 1:
+                    rows.append(before[min(start + height + 1, y)])
+                else:
+                    rows.append(cdef_out[y])
+            block = np.stack(rows)[:, cols]
+            ur = min(len(units) - 1, (y0 + off) // size)
+            for uc, (kind, coef) in enumerate(units[ur]):
+                x0 = uc * size
+                x1 = pw if uc == len(units[ur]) - 1 else x0 + size
+                part = block[:, x0:x1 + 6]
+                if kind == RESTORE_WIENER:
+                    out = wiener_filter(part, coef[0], coef[1])
+                elif kind == RESTORE_SGRPROJ:
+                    out = sgr_filter(part, *coef)
+                else:
+                    continue
+                f.frame[plane][y0:y1, x0:x1] = out
 
 
 # --- the frame ---------------------------------------------------------------
 
 
-def decode_planes_plain(frame, cdef: bool = True):
+def decode_planes_plain(frame, cdef: bool = True, restoration: bool = True):
     """(Y, U, V) of an `avif.Frame` (U, V None when monochrome); without
-    `cdef`, the frame before CDEF (a stage for the tests)."""
+    `cdef`, the deblocked frame, before CDEF and loop restoration;
+    without `restoration`, the frame before loop restoration (stages
+    for the tests)."""
     f = _Frame(frame)
     t = _Tile(f)
     h = f.h
@@ -1733,9 +2566,12 @@ def decode_planes_plain(frame, cdef: bool = True):
             _decode_tile(t, frame.data[off:off + size])
     _loop_filter(f)
     if cdef:
+        deblocked = [p.copy() for p in f.frame]
         _cdef(f)
+        if restoration and any(h.lr_type):
+            _loop_restoration(f, deblocked)
     y = f.frame[0][:h.height, :h.width].copy()
     if f.planes == 1:
         return y, None, None
-    ch, cw = (h.height + 1) >> 1, (h.width + 1) >> 1
+    ch, cw = (h.height + f.ssy) >> f.ssy, (h.width + f.ssx) >> f.ssx
     return y, f.frame[1][:ch, :cw].copy(), f.frame[2][:ch, :cw].copy()

@@ -4,13 +4,14 @@
 upsampling).
 
 The contract. For every file `cv2.imencode(".avif", img,
-[cv2.IMWRITE_AVIF_QUALITY, q])` writes, with `img` uint8 of 1, 3 or 4
-channels at any size cv2 accepts (1x1 up, odd sides, widths over 4096,
-which libaom splits into tile columns) and `q` from 0 to 99 (the default
-included), `decode(data)` equals `cv2.imdecode(data, cv2.IMREAD_COLOR)`
-reversed to RGB, pixel for pixel, and the Y, U and V planes before the
-colour conversion (`decode_planes`) equal libaom's. What such files use,
-and what is read here:
+[cv2.IMWRITE_AVIF_QUALITY, q, cv2.IMWRITE_AVIF_SPEED, s])` writes, with
+`img` uint8 of 1, 3 or 4 channels at any size cv2 accepts (1x1 up, odd
+sides, widths over 4096, which libaom splits into tile columns), `q` from
+0 to 100 and `s` from 0 to 10 (either cv2's default included),
+`decode(data)` equals `cv2.imdecode(data, cv2.IMREAD_COLOR)` reversed to
+RGB, pixel for pixel, and the Y, U and V planes before the colour
+conversion (`decode_planes`) equal libaom's. What such files use, and
+what is read here:
 - the container (ISOBMFF, `read_container`): `ftyp` naming the `avif`
   brand (major or compatible), `meta` with `hdlr` `pict`, `pitm`,
   `iloc` (construction methods 0, file offsets, and 1, `idat`),
@@ -26,30 +27,36 @@ and what is read here:
   of one shown key frame in full syntax (`SequenceHeader`,
   `FrameHeader`), and the tile groups that follow it;
 - the tiles, in the host C library `csrc/av1.c` or, with `plain=True`,
-  in its plain twin `utils/av1.py`: 8-bit profile 0, 4:2:0 or
-  monochrome, 64x64 superblocks, every partition, the 13 intra modes
-  with angle deltas, edge filtering and upsampling, filter intra, chroma
-  from luma, delta q and delta lf, the largest or a selected transform
-  size, the intra transform sets, the quantiser matrices, then the
-  deblocking filter and CDEF. A tile whose symbols run past its bytes,
-  or that does not end in its trailing bits, is refused, as libaom
-  reports such a frame corrupt;
+  in its plain twin `utils/av1.py`: 8 bits, profile 0 (4:2:0 or
+  monochrome) or profile 1 (4:4:4, lossless frames only), 64x64 or
+  128x128 superblocks, every partition, the 13 intra modes with angle
+  deltas, edge filtering and upsampling, filter intra, chroma from luma,
+  palette (screen content: the colour cache, coded and delta-coded
+  colours, the colour-index maps), intra block copy (the DV stack, the
+  DV, whole- and half-sample copies, the inter transform tree and sets),
+  delta q and delta lf, the largest or a selected transform size, the
+  intra transform sets, the quantiser matrices, lossless frames (the
+  Walsh-Hadamard transform on 4x4 blocks), then the deblocking filter,
+  CDEF and loop restoration (Wiener and self-guided units in 64-row
+  stripes offset 8 rows up). A tile whose symbols run past its bytes, or
+  that does not end in its trailing bits, or a DV that libaom's
+  av1_is_dv_valid rejects, is refused, as libaom reports such a frame
+  corrupt;
 - libavif's YUV to RGB (`yuv_to_rgb`): libyuv's bilinear 4:2:0
   upsampling and its fixed-point full-range BT.601 (the JPEG constants,
-  for matrix coefficients 2, 5 and 6); a monochrome image is its Y plane
-  in each channel.
+  for matrix coefficients 2, 5 and 6); 4:4:4 with the identity matrix
+  (coefficients 0, cv2's quality 100) as G = Y, B = U, R = V; a
+  monochrome image is its Y plane in each channel.
 
-cv2's own files reach only part of that: DC, V, H and smooth prediction,
-the DCT and no filter intra or CFL (see `tools/avif_search.py`); the
-rest is held to libaom's own C functions stage by stage and on files
-Pillow's AVIF writer makes.
+cv2's own files reach most of that (`tools/avif_search.py` lists what no
+cv2 file reached: the rest is held to libaom's own C functions stage by
+stage and on files Pillow's AVIF writer makes).
 
 What lies outside it is refused by a ValueError that names it, where the
 stream uses it: the `avis` brand (sequences), grid items, Exif items,
-profiles 1 and 2 (4:4:4, 4:2:2, 12 bits), 10 bits, lossless frames,
-palette and intra block copy, loop restoration, superres, segmentation,
-film grain, 128x128 superblocks, frames other than one shown key frame,
-an `ispe` other than the frame's size, limited range and other matrices.
+profile 2 (4:2:2, 12 bits), 10 bits, 4:4:4 lossy frames, superres,
+segmentation, film grain, frames other than one shown key frame, an
+`ispe` other than the frame's size, limited range and other matrices.
 """
 
 from __future__ import annotations
@@ -501,16 +508,15 @@ def parse_sequence_header(payload: bytes) -> SequenceHeader:
 
 
 def check_sequence(s: SequenceHeader) -> None:
-    """The sequence-level refusals (the profile fixes them)."""
-    if s.profile != 0:
-        raise ValueError(f"AVIF: AV1 profile {s.profile} (4:4:4 or 4:2:2, "
-                         "or 12-bit) is not read here")
+    """The sequence-level refusals: profile 2 (4:2:2, or 12 bits), 10
+    bits. Profiles 0 and 1 at 8 bits (4:2:0, monochrome, 4:4:4) are
+    read; 4:4:4 only in lossless frames (`parse_frame_header`)."""
+    if s.profile >= 2:
+        kind = f"{s.bit_depth}-bit" if s.bit_depth == 12 else "4:2:2"
+        raise ValueError(f"AVIF: AV1 profile {s.profile} ({kind}) is not read "
+                         "here")
     if s.bit_depth != 8:
         raise ValueError(f"AVIF: {s.bit_depth}-bit samples are not read here")
-    if not s.mono and (s.ssx, s.ssy) != (1, 1):
-        raise ValueError("AVIF: 4:4:4 and 4:2:2 chroma are not read here")
-    if s.sb128:
-        raise ValueError("AVIF: 128x128 superblocks are not read here")
 
 
 @dataclass
@@ -544,6 +550,9 @@ class FrameHeader:
     cdef_bits: int = 0
     cdef_y: tuple = ((0, 0),)
     cdef_uv: tuple = ((0, 0),)
+    lossless: int = 0  # CodedLossless (and AllLossless: no superres)
+    lr_type: tuple = (0, 0, 0)  # RESTORE_NONE, _WIENER, _SGRPROJ, _SWITCHABLE
+    lr_unit_size: tuple = (256, 256, 256)
     tx_mode_select: int = 0
     reduced_tx_set: int = 0
     header_bytes: int = 0
@@ -600,13 +609,11 @@ def parse_frame_header(payload: bytes, s: SequenceHeader) -> FrameHeader:
         r.f(16)
     if h.screen_content:
         h.allow_intrabc = r.f(1)
-        if h.allow_intrabc:
-            raise ValueError("AVIF: intra block copy is not read here")
     if not (s.reduced or h.disable_cdf_update):
         r.f(1)  # disable_frame_end_update_cdf
     mi_cols = 2 * ((h.width + 7) >> 3)
     mi_rows = 2 * ((h.height + 7) >> 3)
-    _tile_info(r, h, mi_cols, mi_rows)
+    _tile_info(r, h, mi_cols, mi_rows, 5 if s.sb128 else 4)
     # quantization_params
     h.base_q = r.f(8)
 
@@ -631,14 +638,31 @@ def parse_frame_header(payload: bytes, s: SequenceHeader) -> FrameHeader:
         h.delta_q_present = r.f(1)
         if h.delta_q_present:
             h.delta_q_res = r.f(2)
-    if h.delta_q_present:
+    if h.delta_q_present and not h.allow_intrabc:
         h.delta_lf_present = r.f(1)
         if h.delta_lf_present:
             h.delta_lf_res = r.f(2)
             h.delta_lf_multi = r.f(1)
-    if h.base_q == 0 and not any(h.dq):
-        raise ValueError("AVIF: lossless frames are not read here")
-    # loop_filter_params
+    h.lossless = int(h.base_q == 0 and not any(h.dq))
+    if not s.mono and s.ssx == 0 and not h.lossless:
+        raise ValueError("AVIF: 4:4:4 lossy frames are not read here")
+    if not (h.lossless or h.allow_intrabc):
+        _loop_filter_params(r, h, s)
+    if s.cdef and not (h.lossless or h.allow_intrabc):
+        _cdef_params(r, h, s)
+    if s.restoration and not (h.lossless or h.allow_intrabc):
+        _lr_params(r, h, s)
+    h.tx_mode_select = 0 if h.lossless else r.f(1)
+    h.reduced_tx_set = r.f(1)
+    if s.film_grain and r.f(1):
+        raise ValueError("AVIF: film grain is not read here")
+    r.byte_align()
+    h.header_bytes = r.pos >> 3
+    return h
+
+
+def _loop_filter_params(r: BitReader, h: FrameHeader,
+                        s: SequenceHeader) -> None:
     l0, l1 = r.f(6), r.f(6)
     l2 = l3 = 0
     if not s.mono and (l0 or l1):
@@ -655,39 +679,49 @@ def parse_frame_header(payload: bytes, s: SequenceHeader) -> FrameHeader:
         for _ in range(2):
             if r.f(1):
                 r.su(7)  # mode deltas: inter blocks only
-    # cdef_params
-    if s.cdef:
-        h.cdef_damping = r.f(2) + 3
-        h.cdef_bits = r.f(2)
-        ys, uvs = [], []
-        for _ in range(1 << h.cdef_bits):
+
+
+def _cdef_params(r: BitReader, h: FrameHeader, s: SequenceHeader) -> None:
+    h.cdef_damping = r.f(2) + 3
+    h.cdef_bits = r.f(2)
+    ys, uvs = [], []
+    for _ in range(1 << h.cdef_bits):
+        p, sec = r.f(4), r.f(2)
+        ys.append((p, sec + (sec == 3)))
+        if not s.mono:
             p, sec = r.f(4), r.f(2)
-            ys.append((p, sec + (sec == 3)))
-            if not s.mono:
-                p, sec = r.f(4), r.f(2)
-                uvs.append((p, sec + (sec == 3)))
-            else:
-                uvs.append((0, 0))
-        h.cdef_y, h.cdef_uv = tuple(ys), tuple(uvs)
-    # lr_params
-    if s.restoration:
-        for plane in range(1 if s.mono else 3):
-            if r.f(2):
-                raise ValueError("AVIF: loop restoration is not read here")
-    h.tx_mode_select = r.f(1)
-    h.reduced_tx_set = r.f(1)
-    if s.film_grain and r.f(1):
-        raise ValueError("AVIF: film grain is not read here")
-    r.byte_align()
-    h.header_bytes = r.pos >> 3
-    return h
+            uvs.append((p, sec + (sec == 3)))
+        else:
+            uvs.append((0, 0))
+    h.cdef_y, h.cdef_uv = tuple(ys), tuple(uvs)
 
 
-def _tile_info(r: BitReader, h: FrameHeader, mi_cols: int,
-               mi_rows: int) -> None:
-    sb_cols, sb_rows = (mi_cols + 15) >> 4, (mi_rows + 15) >> 4
-    max_tile_width_sb = 4096 >> 6
-    max_tile_area_sb = (4096 * 2304) >> 12
+# lr_type's 2 bits to RESTORE_NONE (0), _WIENER (1), _SGRPROJ (2) and
+# _SWITCHABLE (3), as libaom numbers them.
+LR_TYPES = (0, 3, 1, 2)
+
+
+def _lr_params(r: BitReader, h: FrameHeader, s: SequenceHeader) -> None:
+    types = [LR_TYPES[r.f(2)] for _ in range(1 if s.mono else 3)]
+    h.lr_type = tuple(types + [0] * (3 - len(types)))
+    if not any(types):
+        return
+    size = (128 if s.sb128 else 64) << r.f(1)
+    if size > 64 and not s.sb128:
+        size <<= r.f(1)
+    uv = size
+    if not s.mono and s.ssx and s.ssy and any(types[1:]):
+        uv = size >> r.f(1)
+    h.lr_unit_size = (size, uv, uv)
+
+
+def _tile_info(r: BitReader, h: FrameHeader, mi_cols: int, mi_rows: int,
+               sb_shift: int) -> None:
+    """tile_info at superblocks of 2^sb_shift 4x4 units a side."""
+    sb_cols = (mi_cols + (1 << sb_shift) - 1) >> sb_shift
+    sb_rows = (mi_rows + (1 << sb_shift) - 1) >> sb_shift
+    max_tile_width_sb = 4096 >> (sb_shift + 2)
+    max_tile_area_sb = (4096 * 2304) >> (2 * (sb_shift + 2))
     min_log2_cols = _tile_log2(max_tile_width_sb, sb_cols)
     max_log2_cols = _tile_log2(1, min(sb_cols, 64))
     max_log2_rows = _tile_log2(1, min(sb_rows, 64))
@@ -699,16 +733,16 @@ def _tile_info(r: BitReader, h: FrameHeader, mi_cols: int,
         while h.tile_cols_log2 < max_log2_cols and r.f(1):
             h.tile_cols_log2 += 1
         w = (sb_cols + (1 << h.tile_cols_log2) - 1) >> h.tile_cols_log2
-        cols = [sb << 4 for sb in range(0, sb_cols, w)]
+        cols = [sb << sb_shift for sb in range(0, sb_cols, w)]
         h.tile_rows_log2 = max(min_log2 - h.tile_cols_log2, 0)
         while h.tile_rows_log2 < max_log2_rows and r.f(1):
             h.tile_rows_log2 += 1
         th = (sb_rows + (1 << h.tile_rows_log2) - 1) >> h.tile_rows_log2
-        rows = [sb << 4 for sb in range(0, sb_rows, th)]
+        rows = [sb << sb_shift for sb in range(0, sb_rows, th)]
     else:
         widest, start = 0, 0
         while start < sb_cols:
-            cols.append(start << 4)
+            cols.append(start << sb_shift)
             size = r.ns(min(sb_cols - start, max_tile_width_sb)) + 1
             widest = max(widest, size)
             start += size
@@ -718,7 +752,7 @@ def _tile_info(r: BitReader, h: FrameHeader, mi_cols: int,
         max_height = max(area // widest, 1)
         start = 0
         while start < sb_rows:
-            rows.append(start << 4)
+            rows.append(start << sb_shift)
             start += r.ns(min(sb_rows - start, max_height)) + 1
         h.tile_rows_log2 = _tile_log2(1, len(rows))
     h.tile_cols, h.tile_rows = len(cols), len(rows)
@@ -817,7 +851,7 @@ def _complete(h: FrameHeader, groups: list[bytes]) -> bool:
 
 # --- the tile decoder (host C) -----------------------------------------------
 
-NSTATS = 19 + 16 + 13 + 14 + 5 + 7 + 11 + 10
+NSTATS = 19 + 16 + 13 + 14 + 5 + 7 + 11 + 10 + 12
 STAT_NAMES = (
     [f"tx_size_{n}" for n in ("4x4", "8x8", "16x16", "32x32", "64x64",
                               "4x8", "8x4", "8x16", "16x8", "16x32", "32x16",
@@ -830,9 +864,15 @@ STAT_NAMES = (
     + [f"angle_delta_{i - 3}" for i in range(7)]
     + ["edge_upsample", "edge_filter", "tx_depth", "delta_q", "delta_lf",
        "tiles", "blocks", "eob_max", "golomb", "cdef_blocks", "lf_edges"]
-    + [f"partition_{i}" for i in range(10)])
-# csrc/av1.c's AV1_NO_CDEF, AV1_COL_STARTS, AV1_ROW_STARTS, AV1_TILES.
-PLAN_NO_CDEF, PLAN_COL_STARTS, PLAN_ROW_STARTS = 79, 80, 80 + 65
+    + [f"partition_{i}" for i in range(10)]
+    + ["palette_y", "palette_uv", "palette_cache", "palette_delta_v",
+       "lossless_blocks", "lr_none", "lr_wiener", "lr_sgrproj",
+       "lr_switchable", "intrabc_blocks", "intrabc_halfpel", "vartx_splits"])
+# csrc/av1.c's AV1_SSX .. AV1_TILES.
+PLAN_SSX, PLAN_NO_CDEF, PLAN_LR_TYPE, PLAN_LR_UNIT = 75, 79, 80, 83
+PLAN_SB128, PLAN_NO_LR = 86, 87
+PLAN_COL_STARTS = 88
+PLAN_ROW_STARTS = PLAN_COL_STARTS + 65
 PLAN_TILES = PLAN_ROW_STARTS + 65
 _ERR_LEN = 256
 
@@ -850,12 +890,16 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def plan(frame: Frame, cdef: bool = True) -> np.ndarray:
+def plan(frame: Frame, cdef: bool = True,
+         restoration: bool = True) -> np.ndarray:
     """The int32 plan `av1_decode_frame` reads (csrc/av1.c's AV1_*);
-    without `cdef`, it returns the frame before CDEF."""
+    without `cdef`, it returns the deblocked frame (before CDEF and loop
+    restoration), without `restoration` the frame before loop
+    restoration."""
     s, h = frame.seq, frame.header
+    enable_cdef = s.cdef and not (h.lossless or h.allow_intrabc)
     head = [h.width, h.height, s.mono, s.filter_intra, s.intra_edge_filter,
-            s.cdef, h.screen_content, h.disable_cdf_update, h.base_q,
+            enable_cdef, h.screen_content, h.disable_cdf_update, h.base_q,
             *h.dq, h.using_qm, *h.qm, h.delta_q_present, h.delta_q_res,
             h.delta_lf_present, h.delta_lf_res, h.delta_lf_multi,
             *h.lf_level, h.lf_sharpness, h.lf_delta_enabled,
@@ -864,28 +908,35 @@ def plan(frame: Frame, cdef: bool = True) -> np.ndarray:
     for i, ((yp, ys), (up, us)) in enumerate(zip(h.cdef_y, h.cdef_uv)):
         strengths[:, i] = (yp, ys, up, us)
     head += strengths.ravel().tolist()
-    head += [h.tx_mode_select, h.reduced_tx_set, h.tile_cols, h.tile_rows]
+    head += [h.tx_mode_select, h.reduced_tx_set, h.tile_cols, h.tile_rows,
+             s.ssx, s.ssy, h.lossless, h.allow_intrabc]
     out = np.zeros(PLAN_TILES + 2 * len(frame.tiles), np.int32)
     out[:len(head)] = head
     out[PLAN_NO_CDEF] = 0 if cdef else 1
+    out[PLAN_LR_TYPE:PLAN_LR_TYPE + 3] = h.lr_type
+    out[PLAN_LR_UNIT:PLAN_LR_UNIT + 3] = h.lr_unit_size
+    out[PLAN_SB128] = s.sb128
+    out[PLAN_NO_LR] = 0 if restoration else 1
     out[PLAN_COL_STARTS:PLAN_COL_STARTS + len(h.col_starts)] = h.col_starts
     out[PLAN_ROW_STARTS:PLAN_ROW_STARTS + len(h.row_starts)] = h.row_starts
     out[PLAN_TILES:] = np.array(frame.tiles, np.int64).ravel()
     return out
 
 
-def decode_planes_c(frame: Frame, cdef: bool = True):
+def decode_planes_c(frame: Frame, cdef: bool = True,
+                    restoration: bool = True):
     """(Y, U, V, stats) of the frame through the host C library; U and V
-    are None for a monochrome stream. Without `cdef`, the planes before
-    CDEF (a stage for the tests)."""
-    h = frame.header
+    are None for a monochrome stream. Without `cdef`, the deblocked
+    planes, before CDEF and loop restoration; without `restoration`,
+    the planes before loop restoration (stages for the tests)."""
+    h, s = frame.header, frame.seq
     y = np.empty((h.height, h.width), np.uint8)
-    cw, ch = (h.width + 1) >> 1, (h.height + 1) >> 1
+    cw, ch = (h.width + s.ssx) >> s.ssx, (h.height + s.ssy) >> s.ssy
     u = np.empty((ch, cw), np.uint8)
     v = np.empty((ch, cw), np.uint8)
     stats = np.zeros(NSTATS, np.int32)
     err = ctypes.create_string_buffer(_ERR_LEN)
-    p = plan(frame, cdef)
+    p = plan(frame, cdef, restoration)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     rc = library().av1_decode_frame(
         p.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), frame.data,
@@ -962,14 +1013,23 @@ def upsample_420(c: np.ndarray, height: int, width: int) -> np.ndarray:
 
 
 def yuv_to_rgb(y: np.ndarray, u: np.ndarray | None, v: np.ndarray | None,
-               matrix: int = 6, full_range: int = 1) -> np.ndarray:
+               matrix: int = 6, full_range: int = 1,
+               subsampled: bool = True) -> np.ndarray:
     """uint8 RGB [H, W, 3] as libavif 1.4.2 converts the planes for
-    cv2 (libyuv's I420ToRGB24MatrixFilter with kFilterBilinear and the
-    JPEG constants; a monochrome image is its Y plane in each channel)."""
+    cv2: 4:2:0 through libyuv's I420ToRGB24MatrixFilter with
+    kFilterBilinear and the JPEG constants; 4:4:4 with the identity
+    matrix (coefficients 0, full range) as G = Y, B = U, R = V (U and V
+    not `subsampled`); a monochrome image is its Y plane in each
+    channel."""
     if u is None:
         return np.repeat(y[:, :, None], 3, axis=2)
     if not full_range:
         raise ValueError("AVIF: limited-range YUV is not read here")
+    if not subsampled:
+        if matrix != 0:
+            raise ValueError(f"AVIF: 4:4:4 with matrix coefficients {matrix} "
+                             "is not read here (identity only)")
+        return np.stack([v, y, u], axis=-1)
     if matrix not in JPEG_MATRICES:
         raise ValueError(f"AVIF: matrix coefficients {matrix} are not read "
                          "here (BT.601 only)")
@@ -1069,4 +1129,5 @@ def decode(data: bytes, plain: bool = False) -> np.ndarray:
     if image.alpha is not None:
         decode_planes(image.alpha, plain)
     y, u, v, _ = decode_planes(image.frame, plain)
-    return yuv_to_rgb(y, u, v, image.matrix, image.full_range)
+    return yuv_to_rgb(y, u, v, image.matrix, image.full_range,
+                      bool(image.frame.seq.ssx))

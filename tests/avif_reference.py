@@ -227,16 +227,48 @@ def edit_avif(data: bytes, add_props=(), drop_props=(), exif: bytes | None
 # --- cv2's side --------------------------------------------------------------
 
 
-def imencode_avif(pixels: np.ndarray, quality: int | None = None) -> bytes:
+def imencode_avif(pixels: np.ndarray, quality: int | None = None,
+                  speed: int | None = None) -> bytes:
     """The bytes cv2.imencode(".avif") writes for uint8 RGB, RGBA or gray
-    pixels (at `quality`, or cv2's default)."""
+    pixels (at `quality` and `speed`, or cv2's defaults)."""
     if pixels.ndim == 3:
         order = [2, 1, 0, 3][:pixels.shape[2]]
         pixels = pixels[:, :, order]
     params = [] if quality is None else [cv2.IMWRITE_AVIF_QUALITY, quality]
+    if speed is not None:
+        params += [cv2.IMWRITE_AVIF_SPEED, speed]
     ok, buf = cv2.imencode(".avif", np.ascontiguousarray(pixels), params)
     assert ok
     return buf.tobytes()
+
+
+def drawing(h: int, w: int, seed: int) -> np.ndarray:
+    """A seeded uint8 RGB [h, w, 3] drawing: 2 to 8 flat colours in
+    filled rectangles and circles, lines and text (cv2's shapes)."""
+    rng = np.random.default_rng(seed)
+    colours = rng.integers(0, 256, (int(rng.integers(2, 9)), 3))
+    img = np.empty((h, w, 3), np.uint8)
+    img[:] = colours[0]
+
+    def colour():
+        return tuple(int(v) for v in colours[rng.integers(0, len(colours))])
+
+    for _ in range(int(rng.integers(2, 8))):
+        p = (int(rng.integers(0, w)), int(rng.integers(0, h)))
+        q = (int(rng.integers(0, w)), int(rng.integers(0, h)))
+        shape = int(rng.integers(0, 3))
+        if shape == 0:
+            cv2.rectangle(img, p, q, colour(), -1)
+        elif shape == 1:
+            cv2.circle(img, p, int(rng.integers(2, 30)), colour(), -1)
+        else:
+            cv2.line(img, p, q, colour(), int(rng.integers(1, 4)))
+    for _ in range(int(rng.integers(1, 4))):
+        cv2.putText(img, f"AbC {seed % 1000}", (int(rng.integers(0, w)),
+                                                int(rng.integers(8, h + 8))),
+                    cv2.FONT_HERSHEY_SIMPLEX, float(rng.uniform(0.3, 1.2)),
+                    colour(), 1, cv2.LINE_8)
+    return img
 
 
 def imdecode_rgb(data: bytes) -> np.ndarray | None:
@@ -350,9 +382,11 @@ def sequence_header(s, level: int = 0) -> bytes:
 def frame_header(s, h, extra=None) -> bytes:
     """The uncompressed header (byte-aligned) of a shown key frame with
     the fields of an `avif.FrameHeader` `h` under sequence header `s`
-    (uniform tiles). `extra` names bits to write where a feature the
-    port refuses would be signalled: "superres", "segmentation",
-    "restoration", "film_grain", "intrabc" (each set to 1)."""
+    (uniform tiles; a lossless frame when its base_q and dq are 0, with
+    no loop filter, CDEF, restoration or tx mode fields). `extra` names
+    tools to signal: "superres", "segmentation", "film_grain" (refused
+    by the port), "restoration" (switchable units on luma) and "intrabc"
+    (allow_intrabc)."""
     extra = extra or ()
     w = BitWriter()
     if not s.reduced:
@@ -360,7 +394,8 @@ def frame_header(s, h, extra=None) -> bytes:
         w.f(2, 0)  # KEY_FRAME
         w.f(1, 1)  # show_frame
     w.f(1, h.disable_cdf_update)
-    screen = 1 if "intrabc" in extra else h.screen_content
+    intrabc = h.allow_intrabc or "intrabc" in extra
+    screen = 1 if intrabc else h.screen_content
     w.f(1, screen)
     if screen:
         w.f(1, 0)  # force_integer_mv
@@ -372,7 +407,7 @@ def frame_header(s, h, extra=None) -> bytes:
             w.f(3, 0)
     w.f(1, 0)  # render_and_frame_size_different
     if screen:
-        w.f(1, int("intrabc" in extra))
+        w.f(1, int(intrabc))
     if not (s.reduced or h.disable_cdf_update):
         w.f(1, 0)  # disable_frame_end_update_cdf
     mi_cols = 2 * ((h.width + 7) >> 3)
@@ -437,23 +472,23 @@ def frame_header(s, h, extra=None) -> bytes:
         w.f(1, h.delta_q_present)
         if h.delta_q_present:
             w.f(2, h.delta_q_res)
-    if h.delta_q_present:
+    if h.delta_q_present and not intrabc:
         w.f(1, h.delta_lf_present)
         if h.delta_lf_present:
             w.f(2, h.delta_lf_res)
             w.f(1, h.delta_lf_multi)
-    if h.base_q == 0 and not any(h.dq):
-        return w.aligned()  # lossless: the port refuses it here
-    w.f(6, h.lf_level[0])
-    w.f(6, h.lf_level[1])
-    if not s.mono and (h.lf_level[0] or h.lf_level[1]):
-        w.f(6, h.lf_level[2])
-        w.f(6, h.lf_level[3])
-    w.f(3, h.lf_sharpness)
-    w.f(1, h.lf_delta_enabled)
-    if h.lf_delta_enabled:
-        w.f(1, 0)  # loop_filter_delta_update
-    if s.cdef:
+    lossless = h.base_q == 0 and not any(h.dq)
+    if not (lossless or intrabc):
+        w.f(6, h.lf_level[0])
+        w.f(6, h.lf_level[1])
+        if not s.mono and (h.lf_level[0] or h.lf_level[1]):
+            w.f(6, h.lf_level[2])
+            w.f(6, h.lf_level[3])
+        w.f(3, h.lf_sharpness)
+        w.f(1, h.lf_delta_enabled)
+        if h.lf_delta_enabled:
+            w.f(1, 0)  # loop_filter_delta_update
+    if s.cdef and not (lossless or intrabc):
         w.f(2, h.cdef_damping - 3)
         w.f(2, h.cdef_bits)
         for (yp, ys), (up, us) in zip(h.cdef_y, h.cdef_uv):
@@ -462,10 +497,24 @@ def frame_header(s, h, extra=None) -> bytes:
             if not s.mono:
                 w.f(4, up)
                 w.f(2, us - (us == 4))
-    if s.restoration:
+    if s.restoration and not (lossless or intrabc):
+        types = list(h.lr_type)
+        if "restoration" in extra:
+            types[0] = 3  # RESTORE_SWITCHABLE
         for plane in range(1 if s.mono else 3):
-            w.f(2, int("restoration" in extra and plane == 0))
-    w.f(1, h.tx_mode_select)
+            w.f(2, (0, 2, 3, 1)[types[plane]])  # lr_type's bits
+        if any(types):
+            size = h.lr_unit_size[0]
+            if s.sb128:
+                w.f(1, int(size > 128))
+            else:
+                w.f(1, int(size > 64))
+                if size > 64:
+                    w.f(1, int(size > 128))
+            if not s.mono and s.ssx and s.ssy and any(types[1:]):
+                w.f(1, int(h.lr_unit_size[1] < size))
+    if not lossless:
+        w.f(1, h.tx_mode_select)
     w.f(1, h.reduced_tx_set)
     if s.film_grain:
         w.f(1, int("film_grain" in extra))
@@ -501,16 +550,23 @@ def rewrite_frame(obus: bytes, seq_changes: dict | None = None,
 # --- libaom's stage functions ------------------------------------------------
 
 
+def libaom_address(name: str) -> int:
+    """The address in this process of a `.symtab` symbol of the wheel's
+    libaom (local symbols included; the first where there are several)."""
+    lib = library()
+    elf = _elf()
+    base = ctypes.cast(lib.aom_codec_av1_dx, ctypes.c_void_p).value \
+        - elf.symbol("aom_codec_av1_dx")[0]
+    return base + sorted(elf.symbols[name])[0][0]
+
+
 def libaom_function(name: str, restype, *argtypes):
     """A C function of the wheel's libaom by its `.symtab` name (local
     symbols included: the C reference versions of the transforms and
     filters), callable once its run-time dispatch tables are set up (a
     decoder has been created)."""
-    lib = library()
-    elf = _elf()
-    base = ctypes.cast(lib.aom_codec_av1_dx, ctypes.c_void_p).value \
-        - elf.symbol("aom_codec_av1_dx")[0]
-    return ctypes.CFUNCTYPE(restype, *argtypes)(base + elf.symbol(name)[0])
+    _elf().symbol(name)  # one definition
+    return ctypes.CFUNCTYPE(restype, *argtypes)(libaom_address(name))
 
 
 _elf_cache = []
@@ -527,9 +583,9 @@ def _elf():
 def pillow_avif(pixels: np.ndarray, quality: int, speed: int,
                 **advanced) -> bytes:
     """The bytes Pillow's AVIF writer (libavif 1.3.0 over its own aom,
-    in `pillow.libs`) writes for uint8 RGB, RGBA or gray pixels; its
-    other encoder settings reach AV1 tools cv2's files do not (`advanced`
-    passes aom options, e.g. tune-content="screen" for palette)."""
+    in `pillow.libs`) writes for uint8 RGB, RGBA or gray pixels, at
+    other encoder settings than cv2's (`advanced` passes aom options,
+    e.g. tune-content="screen": screen content tools on any image)."""
     import io
 
     from PIL import Image

@@ -68,10 +68,15 @@ installed cv2's decode.
   budget (every other JPEG 2000 case is made at test time).
 - `avif_*.avif`: AVIF as cv2 reads it, written by cv2 itself
   (`avif_fixtures`: libavif 1.4.2 over libaom 3.14.1 at cv2's default
-  quality): noise (64x80), a gray crop of the photo (a monochrome
-  stream), an odd-sided crop (33x17), a line drawing libaom codes with
-  TX_MODE_SELECT, a BGRA crop (an alpha auxiliary item) and the 480x640
-  photo (the AVIF timing fixture and `predict`'s AVIF input).
+  quality and speed unless named): noise (64x80), a gray crop of the
+  photo (a monochrome stream), an odd-sided crop (33x17), a line drawing
+  libaom codes with TX_MODE_SELECT, a BGRA crop (an alpha auxiliary item)
+  and the 480x640 photo (the AVIF timing fixture); a 128x160 crop of the
+  photo at IMWRITE_AVIF_QUALITY 100 (lossless 4:4:4 with the identity
+  matrix; `predict`'s AVIF input), the photo at IMWRITE_AVIF_SPEED 2
+  (loop restoration), a drawing of flat colours and text at speed 6
+  (palette) and one at speed 6 that libaom codes with intra block copy
+  (`tests/avif_reference.py drawing`).
 - `digests.json`: for each file, the shape and sha256 of cv2's RGB decode
   (`cv2.imread(path, IMREAD_COLOR)[..., ::-1]`) and of cv2's INTER_LINEAR
   letterbox of it to 512 (the eval runner's resize: scale 512 / max(h, w),
@@ -816,7 +821,10 @@ def jpeg2000_fixtures() -> dict[str, bytes]:
 
 def avif_fixtures() -> dict[str, bytes]:
     """The AVIF fixtures, each written by cv2.imencode(".avif") at its
-    default quality (see the module docstring)."""
+    default quality and speed or at those its name gives (see the module
+    docstring)."""
+    from avif_reference import drawing as shapes
+
     photo = cv2.imread(str(OUT / "photo_480x640_q95_420.jpg"))
     # Lines 2 pixels wide on a flat background, a drawing libaom codes
     # with TX_MODE_SELECT at cv2's default quality.
@@ -839,9 +847,19 @@ def avif_fixtures() -> dict[str, bytes]:
         "avif_odd_33x17.avif": photo[300:333, 400:417],
         "avif_drawing_txsel_80x88.avif": drawing,
         "avif_alpha_24x32.avif": bgra,
-        "avif_photo_480x640.avif": photo}
-    return {name: cv2.imencode(".avif", img)[1].tobytes()
-            for name, img in images.items()}
+        "avif_photo_480x640.avif": photo,
+        "avif_lossless_q100_128x160.avif": photo[:128, :160],
+        "avif_photo_speed2_480x640.avif": photo,
+        "avif_palette_speed6_64x96.avif": shapes(64, 96, 7),
+        "avif_intrabc_speed6_200x300.avif": shapes(200, 300, 0)}
+    params = {"avif_lossless_q100_128x160.avif": [cv2.IMWRITE_AVIF_QUALITY,
+                                                  100],
+              "avif_photo_speed2_480x640.avif": [cv2.IMWRITE_AVIF_SPEED, 2],
+              "avif_palette_speed6_64x96.avif": [cv2.IMWRITE_AVIF_SPEED, 6],
+              "avif_intrabc_speed6_200x300.avif": [cv2.IMWRITE_AVIF_SPEED,
+                                                   6]}
+    return {name: cv2.imencode(".avif", img, params.get(name, []))[1]
+            .tobytes() for name, img in images.items()}
 
 
 def write_avif_fixtures() -> None:

@@ -11,9 +11,10 @@ library on the smallest files; the inverse transforms, CDEF's direction
 search and filter, and the deblocking filters of the C and plain sides
 equal each other and libaom's C reference functions on seeded blocks.
 What lies outside the contract (`utils/avif.py`'s docstring) is refused
-by a ValueError that names it, on files cv2 writes (quality 100, 10 bits)
-and on hand-edited containers and headers. A 20-case slice of
-`tools/avif_search.py` runs here.
+by a ValueError that names it, on files cv2 writes (10 and 12 bits) and
+on hand-edited containers and headers. A 20-case slice of
+`tools/avif_search.py` runs here. Quality 100, palette, loop restoration
+and intra block copy: `tests/test_torch_avif_tools.py`.
 """
 
 import ctypes
@@ -132,9 +133,10 @@ def test_cases_reach_tile_columns_tx_select_gray_and_alpha(files):
 
 
 # Pillow's AVIF writer (libavif 1.3.0): (kind, h, w, channels, quality,
-# speed). Its files reach tools cv2's do not (directional modes with angle
-# deltas and edge filtering and upsampling, filter intra, CFL, Paeth,
-# ADST and identity transform types, 64-point transforms).
+# speed). Its files reach tools cv2's files reach only below cv2's default
+# speed 9 (directional modes with angle deltas and edge filtering and
+# upsampling, filter intra, CFL, Paeth, ADST and identity transform types,
+# 64-point transforms).
 PILLOW_CASES = [("photo", 64, 80, 3, 60, 6), ("photo", 97, 65, 3, 80, 8),
                 ("photo", 33, 17, 3, 90, 6), ("photo", 120, 72, 1, 40, 7),
                 ("ramps", 72, 88, 3, 20, 9), ("noise", 40, 56, 4, 50, 10),
@@ -179,14 +181,25 @@ def test_pillow_files_reach_tools_cv2_files_do_not():
 
 def test_palette_is_refused_by_name_on_a_screen_content_file():
     """Pillow's writer tuned for screen content uses palette mode; cv2
-    reads the file, the port refuses it naming palette."""
+    reads the file, and the port reads it as cv2 does (palette is read
+    since cv2's own files use it: C planes = libaom's, C = plain)."""
     rng = np.random.default_rng(3)
     colours = rng.integers(0, 256, (4, 3), dtype=np.uint8)
     img = colours[rng.integers(0, 4, (16, 16)).repeat(4, 0).repeat(4, 1)]
     data = ar.pillow_avif(img, 60, 6, **{"tune-content": "screen"})
-    assert avif.read_image(data).frame.header.screen_content
-    assert ar.imdecode_rgb(data) is not None
-    _refused(data, "palette")
+    frame = avif.read_image(data).frame
+    assert frame.header.screen_content
+    y, u, v, stats = avif.decode_planes_c(frame)
+    assert stats[avif.STAT_NAMES.index("palette_y")] > 0
+    for got, want, plain in zip((y, u, v),
+                                ar.aom_planes(ar.primary_obus(data)),
+                                av1.decode_planes_plain(frame)):
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(plain, got)
+    np.testing.assert_array_equal(image_io.decode_image(data),
+                                  ar.imdecode_rgb(data))
+    np.testing.assert_array_equal(image_io.decode_image_plain(data),
+                                  ar.imdecode_rgb(data))
 
 
 @pytest.mark.parametrize("name", ["avif_photo_480x640.avif",
@@ -612,12 +625,18 @@ def _refused(data: bytes, name: str) -> None:
 
 
 def test_cv2_files_outside_the_contract_are_refused_by_name():
-    """Quality 100 (profile 1, 4:4:4, lossless) and 10 or 12 bits from
-    uint16 pixels: cv2 reads them, the port names what it does not
-    read."""
+    """10 or 12 bits from uint16 pixels: cv2 reads them, the port names
+    what it does not read. Quality 100 (profile 1, 4:4:4, lossless; gray
+    lossless) is read as cv2 reads it (tests/test_torch_avif_tools.py has
+    the rest of it)."""
     rgb = _pixels("photo", 24, 40)
-    _refused(ar.imencode_avif(rgb, 100), "AV1 profile 1")
-    _refused(ar.imencode_avif(rgb[:, :, 0], 100), "lossless")
+    for data in (ar.imencode_avif(rgb, 100), ar.imencode_avif(rgb[:, :, 0],
+                                                               100)):
+        assert avif.read_image(data).frame.header.lossless
+        np.testing.assert_array_equal(image_io.decode_image(data),
+                                      ar.imdecode_rgb(data))
+        np.testing.assert_array_equal(image_io.decode_image_plain(data),
+                                      ar.imdecode_rgb(data))
     for depth, name in ((10, "10-bit"), (12, "12-bit")):
         ok, buf = cv2.imencode(".avif", rgb.astype(np.uint16) * 257,
                                [cv2.IMWRITE_AVIF_DEPTH, depth])
@@ -625,23 +644,40 @@ def test_cv2_files_outside_the_contract_are_refused_by_name():
         _refused(buf.tobytes(), name)
 
 
+# The headers that signal what the port now reads (cv2's own files use
+# each): the field that shows the rewritten header parsed. Only the header
+# is checked here; real cv2 files that use each are decoded to libaom's
+# planes and cv2's pixels in tests/test_torch_avif_tools.py (restoration:
+# test_loop_restoration_files_equal_libaom_and_cv2; intrabc:
+# test_intra_block_copy_file_equals_libaom_and_cv2; lossless, 444 and
+# sb128: test_quality_100_is_read_lossless).
+READ_HEADERS = {"restoration": lambda f: f.header.lr_type == (3, 0, 0),
+                "intrabc": lambda f: f.header.allow_intrabc == 1,
+                "lossless": lambda f: f.header.lossless == 1,
+                "sb128": lambda f: f.seq.sb128 == 1,
+                "444": lambda f: (f.seq.ssx, f.header.lossless) == (0, 1)}
+
+
 @pytest.mark.parametrize("what", ["superres", "segmentation", "restoration",
                                   "film_grain", "intrabc", "lossless",
                                   "profile2_12bit", "sb128", "444",
-                                  "inter_frame", "show_existing"])
+                                  "inter_frame", "show_existing",
+                                  "444_lossy", "profile2_422"])
 def test_headers_outside_the_contract_are_refused_by_name(what):
     """A cv2 file's stream with one header rewritten (the rest kept):
-    each feature refused where the header signals its use."""
+    each feature outside the contract refused where the header signals
+    its use; the headers of loop restoration, intra block copy, lossless
+    frames, 128x128 superblocks and lossless 4:4:4 (READ_HEADERS) parse
+    (the files that use them are decoded in test_torch_avif_tools.py)."""
     obus = ar.primary_obus((FIXTURES / "avif_odd_33x17.avif").read_bytes())
     seq, frame, extra = {}, {}, ()
     name = {"superres": "superres", "segmentation": "segmentation",
-            "restoration": "loop restoration", "film_grain": "film grain",
-            "intrabc": "intra block copy", "lossless": "lossless",
-            "profile2_12bit": "AV1 profile 2", "sb128": "128x128",
-            "444": "AV1 profile 1", "inter_frame": "only a shown key frame",
-            "show_existing": "show_existing_frame"}[what]
+            "film_grain": "film grain", "profile2_12bit": "AV1 profile 2",
+            "inter_frame": "only a shown key frame",
+            "show_existing": "show_existing_frame",
+            "444_lossy": "4:4:4 lossy", "profile2_422": "4:2:2"}.get(what)
     if what in ("superres", "restoration", "film_grain"):
-        seq = {what if what != "restoration" else "restoration": 1}
+        seq = {what: 1}
         extra = (what,)
     elif what in ("segmentation", "intrabc"):
         extra = (what,)
@@ -649,11 +685,19 @@ def test_headers_outside_the_contract_are_refused_by_name(what):
         frame = {"base_q": 0, "dq": (0, 0, 0, 0, 0)}
     elif what == "profile2_12bit":
         seq = {"profile": 2, "bit_depth": 12}
+    elif what == "profile2_422":
+        seq = {"profile": 2, "ssx": 1, "ssy": 0}
     elif what == "sb128":
         seq = {"sb128": 1}
     elif what == "444":
         seq = {"profile": 1, "ssx": 0, "ssy": 0}
+        frame = {"base_q": 0, "dq": (0, 0, 0, 0, 0)}
+    elif what == "444_lossy":
+        seq = {"profile": 1, "ssx": 0, "ssy": 0}
     stream = ar.rewrite_frame(obus, seq, frame, extra)
+    if what in READ_HEADERS:
+        assert READ_HEADERS[what](avif.read_frame(stream))
+        return
     if what in ("inter_frame", "show_existing"):
         stream = ar.rewrite_frame(obus, {"reduced": 0})
         kinds = avif.read_obus(stream)

@@ -711,7 +711,7 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     paths["cli_predict"] = smoke.phase_cli_predict(
         cli, image_io, visualize, synthetic, decode, kernels, tmp_path,
         "cpu")
-    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 9}
+    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 10}
     assert restored == (runner.KeypointEvaluator, runner.evaluate_batched,
                         predictor.Predictor.predict, cli._load_records)
 
@@ -764,10 +764,10 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
                      "cli_predict_gif_output": 1,
                      "cli_predict_jp2_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
-    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 101
-    assert codec["webp"]["fixtures_written"] == 101
+    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 105
+    assert codec["webp"]["fixtures_written"] == 105
     assert codec["tiff_hdr"]["fixtures"] == 30
-    assert codec["gif"]["fixtures"] == 101
+    assert codec["gif"]["fixtures"] == 105
     assert codec["gif"]["times"]["gif"]["c_encode_ms"] > 0
     j2k = codec["jpeg2000"]
     assert sorted(j2k["fixtures"]) == ["j2k_irr_rpcl_layers3_37x53.j2k",
@@ -783,11 +783,13 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
     assert codec["encode"]["c_encode_ms"] > 0
     jp2 = codec["jpeg2000_write"]
-    assert jp2["fixtures"] == 65 and len(jp2["boxes_only"]) == 36
+    assert jp2["fixtures"] == 69 and len(jp2["boxes_only"]) == 36
     assert len(jp2["plain_fixtures"]) >= 4
     assert jp2["times"]["photo"]["c_encode_ms"] > 0
     avif = codec["avif"]
-    assert len(avif["fixtures"]) == 6 and avif["build_s"] > 0
+    assert len(avif["fixtures"]) == 10 and avif["build_s"] > 0
+    assert all(avif["tools"][n][c] > 0 and avif["tools"][n][
+        "tiles_and_filters_ms"] > 0 for n, c in smoke.AVIF_TOOLS.items())
     assert avif["plain_on"] == ["avif_odd_33x17.avif",
                                 "avif_alpha_24x32.avif"]
     assert all(t["c_decode_ms"] > 0 for t in avif["fixtures"].values())
