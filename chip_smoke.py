@@ -27,8 +27,9 @@ on a 480x640 PNG, read back (phase `cli_predict`, one launch),
 `--image scene.webp --output drawn.webp`, `--image scene_jpeg.tif
 --output drawn.hdr`, a damaged JPEG, the photo with stray bytes before
 an Exif APP1 of orientation 6 (read turned), the committed gray JPEG
-2000 file, the photo as cv2.imwrite writes it in AVIF and a crop of it
-cv2.imwrite writes in lossless AVIF (quality 100; one launch each).
+2000 file, the photo as cv2.imwrite writes it in AVIF, a crop of it
+cv2.imwrite writes in lossless AVIF (quality 100) and one it writes in
+10-bit AVIF (IMWRITE_AVIF_DEPTH 10; one launch each).
 Before them, phase `image_codec`
 builds the host C libraries (`csrc/image_codec.c`, `csrc/webp.c`,
 `csrc/jpeg2000.c`, `csrc/av1.c`) and holds their JPEG, WebP, TIFF (JPEG,
@@ -1359,8 +1360,9 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     reversible gray JPEG 2000 file, read to cv2's digest, one B1 launch,
     people printed, its size and letterbox to the model's size reported;
     then `--image` the committed AVIF of the 480x640 photo (cv2.imwrite's
-    file) and the lossless one of its 128x160 crop (quality 100: 4:4:4,
-    the identity matrix), each read to cv2's digest, one B1 launch,
+    file), the lossless one of its 128x160 crop (quality 100: 4:4:4,
+    the identity matrix) and the 10-bit one of a 96x128 crop
+    (IMWRITE_AVIF_DEPTH 10), each read to cv2's digest, one B1 launch,
     people printed. Returns B1's launches."""
     scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
     image_path, out_path = directory / "scene.png", directory / "drawn.png"
@@ -1533,8 +1535,9 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
             np.isfinite(p["box"]).all() and np.isfinite(p["keypoints"]).all()
             for p in jp2_people):
         raise AssertionError(f"cli_predict: bad people on {JP2_PREDICT}")
-    # The 480x640 photo as cv2.imwrite writes it in AVIF and a crop of it
-    # in lossless AVIF, each read to cv2's digest, one B1 launch each.
+    # The 480x640 photo as cv2.imwrite writes it in AVIF, a crop of it in
+    # lossless AVIF and one in 10-bit AVIF, each read to cv2's digest, one
+    # B1 launch each.
     digests = json.loads((FIXTURES / "digests.json").read_text())
     avif_rows = {}
     for name in AVIF_PREDICT_FILES:
@@ -1586,7 +1589,11 @@ PLAIN_WEBP_PIXELS = 40_000  # the plain WebP coders run up to this size
 JP2_PREDICT = "j2k_rev_gray_37x53.jp2"
 AVIF_PREDICT = "avif_photo_480x640.avif"
 AVIF_LOSSLESS = "avif_lossless_q100_128x160.avif"
-AVIF_PREDICT_FILES = (AVIF_PREDICT, AVIF_LOSSLESS)
+# cv2.imwrite's files at IMWRITE_AVIF_DEPTH 10 and 12 (4:2:0; the 12-bit
+# one profile 2), the smaller of them also through the plain decoder.
+AVIF_10BIT = "avif_10bit_96x128.avif"
+AVIF_DEPTHS = {AVIF_10BIT: 10, "avif_12bit_64x80.avif": 12}
+AVIF_PREDICT_FILES = (AVIF_PREDICT, AVIF_LOSSLESS, AVIF_10BIT)
 # The AVIF fixtures of the tools cv2's files reach at quality 100 and at
 # speeds below 9, and the counter (csrc/av1.c's) that shows each reached.
 AVIF_TOOLS = {AVIF_LOSSLESS: "lossless_blocks",
@@ -2069,20 +2076,29 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
     noise, gray, an odd-sided crop, a TX_MODE_SELECT drawing, a BGRA crop
     with its alpha item, the 480x640 photo, a lossless crop at quality
     100, the photo at speed 2 with loop restoration, a palette drawing
-    and an intra block copy drawing at speed 6) decoded by the C library
-    to cv2's digest, and by the plain decoder (`utils/av1.py`) too on the
-    two smallest. Each tool file reaches its tool (`AVIF_TOOLS`, the C
-    decoder's counters). Times on the host clock: the C decode of each
-    (median), the plain decode of the two smallest (once), and the time
-    of the tiles and filters alone (`decode_planes_c`, rather than the
-    container, the headers and libavif's YUV to RGB) of the photo and of
-    the tool files."""
+    and an intra block copy drawing at speed 6, crops at 10 and 12 bits
+    a sample) decoded by the C library to cv2's digest, and by the plain
+    decoder (`utils/av1.py`) too on the two smallest and on the smaller
+    high-depth file. Each tool file reaches its tool (`AVIF_TOOLS`, the C
+    decoder's counters), each high-depth file holds its depth. Times on
+    the host clock: the C decode of each (median), the plain decode of
+    the files it runs on (once), the time of the tiles and filters alone
+    (`decode_planes_c`, rather than the container, the headers and
+    libavif's YUV to RGB) of the photo and of the tool files, and, side
+    by side, the C decode of the high-depth files and of the 8-bit photo
+    again (`depths`: microseconds a pixel), so that a cost of the 16-bit
+    samples to 8-bit files shows."""
     names = sorted(n for n in digests if n.endswith(".avif"))
-    if len(names) != 10 or not set(AVIF_TOOLS) <= set(names):
+    if len(names) != 12 or not set(AVIF_TOOLS) | set(AVIF_DEPTHS) <= set(
+            names):
         raise AssertionError(f"image_codec: AVIF fixtures {names}")
     files = {n: (FIXTURES / n).read_bytes() for n in names}
-    smallest = sorted(names, key=lambda n: digests[n]["shape"][0]
-                      * digests[n]["shape"][1])[:2]
+
+    def pixels(n):
+        return digests[n]["shape"][0] * digests[n]["shape"][1]
+
+    smallest = sorted(names, key=pixels)[:2]
+    plain_on = smallest + [min(AVIF_DEPTHS, key=pixels)]
     times = {}
     for name in names:
         data, want = files[name], digests[name]
@@ -2094,7 +2110,7 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
         entry = {"bytes": len(data), "shape": list(got.shape[:2]),
                  "c_decode_ms": median_ms(
                      lambda: image_io.decode_image(data, name), 20)}
-        if name in smallest:
+        if name in plain_on:
             t0 = time.perf_counter()
             plain = image_io.decode_image_plain(data, name)
             entry["plain_decode_s"] = time.perf_counter() - t0
@@ -2113,11 +2129,20 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
             raise AssertionError(f"image_codec: {name} reaches no {counter}")
         tools[name] = {counter: reached, "tiles_and_filters_ms": median_ms(
             lambda: image_io.avif.decode_planes_c(tool_frame), 20)}
+    depths = {}
+    for name in list(AVIF_DEPTHS) + [AVIF_PREDICT]:
+        data = files[name]
+        depth = image_io.avif.read_image(data).frame.seq.bit_depth
+        if depth != AVIF_DEPTHS.get(name, 8):
+            raise AssertionError(f"image_codec: {name} is {depth}-bit")
+        ms = median_ms(lambda: image_io.decode_image(data, name), 20)
+        depths[name] = {"bit_depth": depth, "c_decode_ms": ms,
+                        "c_decode_us_per_pixel": 1e3 * ms / pixels(name)}
     return {"build_s": build_s, "fixtures": times,
             "photo_tiles_and_filters_ms": tiles_ms, "tools": tools,
-            "plain_on": smallest,
+            "depths": depths, "plain_on": plain_on,
             "equal": "C = cv2's digest on every fixture; plain = C on the "
-                     "two smallest"}
+                     "two smallest and the smaller high-depth file"}
 
 
 # The plain JPEG 2000 writer runs on the fixtures up to this many pixels.

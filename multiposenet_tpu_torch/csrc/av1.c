@@ -1,11 +1,21 @@
 /* Host AV1 intra-frame decoder of the port, in plain C99 with no library:
  * the one frame of an AVIF image as libaom 3.14.1 decodes it under
  * libavif 1.4.2 and OpenCV 5.0, for the tools libaom's encoder uses at
- * any of cv2's qualities and speeds (8-bit 4:2:0, monochrome or lossless
- * 4:4:4 key frames with 64x64 or 128x128 superblocks, without
- * segmentation, superres or film grain). The container, the OBUs and the
- * uncompressed frame header are Python (utils/avif.py), which passes the
- * header's fields as a plan of int32 (AV1_* below) and the tiles' bytes.
+ * any of cv2's depths, qualities and speeds (4:2:0, monochrome or
+ * lossless 4:4:4 key frames of 8, 10 or 12 bits a sample with 64x64 or
+ * 128x128 superblocks, without segmentation, superres or film grain).
+ * The planes hold 16 bits a sample at every depth (AV1_BIT_DEPTH in the
+ * plan); the depth's terms are libaom's high-bit-depth ones: the
+ * quantiser tables, the coefficient clamp at 2^(bd+7), the transform
+ * clamps, the intra edge bases and the clips to 2^bd - 1, palette
+ * colours of bd bits, the deblocking limits and offsets, CDEF's shifted
+ * strengths and damping, the Wiener rounding and the self-guided
+ * variance scaling. The stage functions take uint16 samples and bd
+ * (av1_*_hbd); their 8-bit entry points (the same names without _hbd)
+ * widen to 16 bits, call them at bd 8 and narrow back. The container, the
+ * OBUs and the uncompressed frame header are Python (utils/avif.py),
+ * which passes the header's fields as a plan of int32 (AV1_* below) and
+ * the tiles' bytes.
  * The plain version of everything here is utils/av1.py, which this file
  * matches sample for sample; the stage functions exported beside
  * av1_decode_frame (the inverse transforms and the WHT, the intra
@@ -26,9 +36,9 @@
  * in lossless frames), then runs the deblocking filter, CDEF and loop
  * restoration over the frame. It writes the Y plane (height x width) and,
  * unless monochrome, U and V ((height+1)/2 x (width+1)/2 at 4:2:0, height
- * x width at 4:4:4). Coefficients are kept in libaom's column-major order
- * (index = column * height + row), which its scan tables and context
- * offsets assume.
+ * x width at 4:4:4), uint8 at 8 bits, else uint16. Coefficients are kept
+ * in libaom's column-major order (index = column * height + row), which
+ * its scan tables and context offsets assume.
  *
  * Returns 0, 1 with a message in err (a damaged tile, or a DV that
  * libaom's av1_is_dv_valid rejects, as libaom reports either frame
@@ -68,7 +78,8 @@ enum {
   AV1_SB128 = 86,   /* 128x128 superblocks */
   AV1_NO_LR = 87,   /* 1: the frame before loop restoration (a stage for the
                        tests) */
-  AV1_COL_STARTS = 88, /* 65 MI columns */
+  AV1_BIT_DEPTH = 88, /* 8, 10 or 12 */
+  AV1_COL_STARTS = 89, /* 65 MI columns */
   AV1_ROW_STARTS = AV1_COL_STARTS + 65, /* 65 MI rows */
   AV1_TILES = AV1_ROW_STARTS + 65 /* offset and size of each tile */
 };
@@ -373,17 +384,18 @@ typedef struct {
 
 typedef struct {
   int width, height, mono, ssx, ssy, planes, lossless;
+  int bd; /* the bit depth: 8, 10 or 12 */
   int sb4, sb_size; /* the superblock: its side in 4x4 units, its size */
   int mi_cols, mi_rows, mi_stride;
   const int32_t *hdr;
-  /* planes (stride, allocated rows) */
-  uint8_t *frame[3];
+  /* planes (stride, allocated rows), 16 bits a sample at every depth */
+  uint16_t *frame[3];
   int stride[3], alloc_h[3];
   /* per 4x4 luma unit */
   uint8_t *mi_size, *y_mode, *uv_mode, *skip, *tx_size_mi;
   int8_t *delta_lf; /* 4 a unit */
   uint8_t *pal_size;   /* 2 a unit: Y and UV palette sizes */
-  uint8_t *pal_colors; /* 24 a unit: 8 colours of Y, U and V */
+  uint16_t *pal_colors; /* 24 a unit: 8 colours of Y, U and V */
   uint8_t *is_inter;   /* an intra block copy block */
   int16_t *mvs;        /* 2 a unit: its DV (row, column) in 1/8 sample */
   uint8_t *written;    /* the unit is decoded */
@@ -421,7 +433,7 @@ typedef struct {
   int max_luma_w, max_luma_h;
   /* the current block's palettes and colour-index maps (Y, UV) */
   int pal_size[2];
-  uint8_t pal_colors[3][8];
+  uint16_t pal_colors[3][8];
   uint8_t color_map[2][64 * 64];
   int color_map_w[2];
   /* the previous restoration unit's coefficients of each plane */
@@ -484,7 +496,7 @@ static int is_inside(const Tile *t, int r, int c) {
          r >= t->mi_row_start && r < t->mi_row_end;
 }
 
-static uint8_t px(const Frame *f, int p, int y, int x) {
+static int px(const Frame *f, int p, int y, int x) {
   return f->frame[p][y * f->stride[p] + x];
 }
 
@@ -502,9 +514,13 @@ static int floor_log2(uint32_t x) { return ilog_nz(x) - 1; }
 
 static int32_t cospi12(int i) { return av1_cospi[2][i]; }
 
-static int32_t clamp16(int64_t v) {
-  return v < -32768 ? -32768 : v > 32767 ? 32767 : (int32_t)v;
+/* v clamped to -hi - 1 .. hi: a signed range of b bits (libaom's
+ * clamp_value) for hi = 2^(b-1) - 1. */
+static int32_t clamp_to(int64_t v, int32_t hi) {
+  return v < -(int64_t)hi - 1 ? -hi - 1 : v > hi ? hi : (int32_t)v;
 }
+
+static int32_t range_hi(int bits) { return (int32_t)((1u << (bits - 1)) - 1); }
 
 static int32_t cos128(int angle) {
   int a = angle & 255;
@@ -531,13 +547,15 @@ static void bfly(int32_t *T, int a, int b, int angle, int flip) {
 }
 
 /* The Hadamard step: T[a], T[b] = T[a] + T[b], T[a] - T[b] (flip: the
- * roles of a and b swapped), clamped to 16 bits as libaom's clamp_value
- * at stage_range 16 clamps them. */
-static void hada(int32_t *T, int a, int b, int flip) {
+ * roles of a and b swapped), clamped to -hi - 1 .. hi as libaom's
+ * clamp_value at the pass's stage_range clamps them
+ * (av1_gen_inv_stage_range: rows 16, 18, 20 bits and columns 16, 16, 18
+ * at 8, 10, 12 bits a sample). */
+static void hada(int32_t *T, int a, int b, int flip, int32_t hi) {
   if (flip) { int t = a; a = b; b = t; }
   int32_t x = T[a], y = T[b];
-  T[a] = clamp16((int64_t)x + y);
-  T[b] = clamp16((int64_t)x - y);
+  T[a] = clamp_to((int64_t)x + y, hi);
+  T[b] = clamp_to((int64_t)x - y, hi);
 }
 
 static int brev(int nbits, int x) {
@@ -546,8 +564,10 @@ static int brev(int nbits, int x) {
   return r;
 }
 
-/* Inverse DCT of 2^n points (AV1 specification 7.13.2.3). */
-void av1_idct(int32_t *T, int n) {
+/* Inverse DCT of 2^n points (AV1 specification 7.13.2.3), its sums
+ * clamped to r bits. */
+void av1_idct(int32_t *T, int n, int r) {
+  const int32_t hi = range_hi(r);
   int32_t copy[64];
   const int n0 = 1 << n;
   memcpy(copy, T, sizeof(int32_t) * n0);
@@ -557,11 +577,11 @@ void av1_idct(int32_t *T, int n) {
   if (n >= 5)
     for (int i = 0; i < 8; i++) bfly(T, 16 + i, 31 - i, 6 + (brev(3, 7 - i) << 3), 0);
   if (n == 6)
-    for (int i = 0; i < 16; i++) hada(T, 32 + i * 2, 33 + i * 2, i & 1);
+    for (int i = 0; i < 16; i++) hada(T, 32 + i * 2, 33 + i * 2, i & 1, hi);
   if (n >= 4)
     for (int i = 0; i < 4; i++) bfly(T, 8 + i, 15 - i, 12 + (brev(2, 3 - i) << 4), 0);
   if (n >= 5)
-    for (int i = 0; i < 8; i++) hada(T, 16 + 2 * i, 17 + 2 * i, i & 1);
+    for (int i = 0; i < 8; i++) hada(T, 16 + 2 * i, 17 + 2 * i, i & 1, hi);
   if (n == 6)
     for (int i = 0; i < 4; i++)
       for (int j = 0; j < 2; j++)
@@ -569,59 +589,59 @@ void av1_idct(int32_t *T, int n) {
   if (n >= 3)
     for (int i = 0; i < 2; i++) bfly(T, 4 + i, 7 - i, 56 - 32 * i, 0);
   if (n >= 4)
-    for (int i = 0; i < 4; i++) hada(T, 8 + 2 * i, 9 + 2 * i, i & 1);
+    for (int i = 0; i < 4; i++) hada(T, 8 + 2 * i, 9 + 2 * i, i & 1, hi);
   if (n >= 5)
     for (int i = 0; i < 2; i++)
       for (int j = 0; j < 2; j++)
         bfly(T, 30 - 4 * i - j, 17 + 4 * i + j, 24 + (j << 6) + ((1 - i) << 5), 1);
   if (n == 6)
     for (int i = 0; i < 8; i++)
-      for (int j = 0; j < 2; j++) hada(T, 32 + i * 4 + j, 35 + i * 4 - j, i & 1);
+      for (int j = 0; j < 2; j++) hada(T, 32 + i * 4 + j, 35 + i * 4 - j, i & 1, hi);
   for (int i = 0; i < 2; i++) bfly(T, 2 * i, 1 + 2 * i, 32 + 16 * i, 1 - i);
   if (n >= 3)
-    for (int i = 0; i < 2; i++) hada(T, 4 + 2 * i, 5 + 2 * i, i);
+    for (int i = 0; i < 2; i++) hada(T, 4 + 2 * i, 5 + 2 * i, i, hi);
   if (n >= 4)
     for (int i = 0; i < 2; i++) bfly(T, 14 - i, 9 + i, 48 + 64 * i, 1);
   if (n >= 5)
     for (int i = 0; i < 4; i++)
-      for (int j = 0; j < 2; j++) hada(T, 16 + 4 * i + j, 19 + 4 * i - j, i & 1);
+      for (int j = 0; j < 2; j++) hada(T, 16 + 4 * i + j, 19 + 4 * i - j, i & 1, hi);
   if (n == 6)
     for (int i = 0; i < 2; i++)
       for (int j = 0; j < 4; j++)
         bfly(T, 61 - i * 8 - j, 34 + i * 8 + j, 56 - i * 32 + (j >> 1) * 64, 1);
-  for (int i = 0; i < 2; i++) hada(T, i, 3 - i, 0);
+  for (int i = 0; i < 2; i++) hada(T, i, 3 - i, 0, hi);
   if (n >= 3) bfly(T, 6, 5, 32, 1);
   if (n >= 4)
     for (int i = 0; i < 2; i++)
-      for (int j = 0; j < 2; j++) hada(T, 8 + 4 * i + j, 11 + 4 * i - j, i);
+      for (int j = 0; j < 2; j++) hada(T, 8 + 4 * i + j, 11 + 4 * i - j, i, hi);
   if (n >= 5)
     for (int i = 0; i < 4; i++) bfly(T, 29 - i, 18 + i, 48 + (i >> 1) * 64, 1);
   if (n == 6)
     for (int i = 0; i < 4; i++)
-      for (int j = 0; j < 4; j++) hada(T, 32 + 8 * i + j, 39 + 8 * i - j, i & 1);
+      for (int j = 0; j < 4; j++) hada(T, 32 + 8 * i + j, 39 + 8 * i - j, i & 1, hi);
   if (n >= 3)
-    for (int i = 0; i < 4; i++) hada(T, i, 7 - i, 0);
+    for (int i = 0; i < 4; i++) hada(T, i, 7 - i, 0, hi);
   if (n >= 4)
     for (int i = 0; i < 2; i++) bfly(T, 13 - i, 10 + i, 32, 1);
   if (n >= 5)
     for (int i = 0; i < 2; i++)
-      for (int j = 0; j < 4; j++) hada(T, 16 + i * 8 + j, 23 + i * 8 - j, i);
+      for (int j = 0; j < 4; j++) hada(T, 16 + i * 8 + j, 23 + i * 8 - j, i, hi);
   if (n == 6)
     for (int i = 0; i < 8; i++) bfly(T, 59 - i, 36 + i, i < 4 ? 48 : 112, 1);
   if (n >= 4)
-    for (int i = 0; i < 8; i++) hada(T, i, 15 - i, 0);
+    for (int i = 0; i < 8; i++) hada(T, i, 15 - i, 0, hi);
   if (n >= 5)
     for (int i = 0; i < 4; i++) bfly(T, 27 - i, 20 + i, 32, 1);
   if (n == 6) {
-    for (int i = 0; i < 8; i++) hada(T, 32 + i, 47 - i, 0);
-    for (int i = 0; i < 8; i++) hada(T, 48 + i, 63 - i, 1);
+    for (int i = 0; i < 8; i++) hada(T, 32 + i, 47 - i, 0, hi);
+    for (int i = 0; i < 8; i++) hada(T, 48 + i, 63 - i, 1, hi);
   }
   if (n >= 5)
-    for (int i = 0; i < 16; i++) hada(T, i, 31 - i, 0);
+    for (int i = 0; i < 16; i++) hada(T, i, 31 - i, 0, hi);
   if (n == 6)
     for (int i = 0; i < 8; i++) bfly(T, 55 - i, 40 + i, 32, 1);
   if (n == 6)
-    for (int i = 0; i < 32; i++) hada(T, i, 63 - i, 0);
+    for (int i = 0; i < 32; i++) hada(T, i, 63 - i, 0, hi);
 }
 
 void av1_iadst4(int32_t *T) {
@@ -648,8 +668,10 @@ void av1_iadst4(int32_t *T) {
   T[3] = round2(x3, 12);
 }
 
-/* Inverse ADST of 8 or 16 points (AV1 specification 7.13.2.6-7.13.2.8). */
-void av1_iadst(int32_t *T, int n) {
+/* Inverse ADST of 8 or 16 points (AV1 specification 7.13.2.6-7.13.2.8),
+ * its sums clamped to r bits. */
+void av1_iadst(int32_t *T, int n, int r) {
+  const int32_t hi = range_hi(r);
   int32_t copy[16];
   const int n0 = 1 << n;
   memcpy(copy, T, sizeof(int32_t) * n0);
@@ -657,33 +679,33 @@ void av1_iadst(int32_t *T, int n) {
     T[i] = copy[(i & 1) ? (i - 1) : (n0 - i - 1)];
   if (n == 3) {
     for (int i = 0; i < 4; i++) bfly(T, 2 * i, 2 * i + 1, 60 - 16 * i, 1);
-    for (int i = 0; i < 4; i++) hada(T, i, 4 + i, 0);
+    for (int i = 0; i < 4; i++) hada(T, i, 4 + i, 0, hi);
     for (int i = 0; i < 2; i++) bfly(T, 4 + 3 * i, 5 + i, 48 - 32 * i, 1);
     for (int i = 0; i < 2; i++) {
-      hada(T, i, 2 + i, 0);
-      hada(T, 4 + i, 6 + i, 0);
+      hada(T, i, 2 + i, 0, hi);
+      hada(T, 4 + i, 6 + i, 0, hi);
     }
     for (int i = 0; i < 2; i++) bfly(T, 2 + 4 * i, 3 + 4 * i, 32, 1);
   } else {
     for (int i = 0; i < 8; i++) bfly(T, 2 * i, 2 * i + 1, 62 - 8 * i, 1);
-    for (int i = 0; i < 8; i++) hada(T, i, 8 + i, 0);
+    for (int i = 0; i < 8; i++) hada(T, i, 8 + i, 0, hi);
     for (int i = 0; i < 2; i++) {
       bfly(T, 8 + 2 * i, 9 + 2 * i, 56 - 32 * i, 1);
       bfly(T, 13 + 2 * i, 12 + 2 * i, 8 + 32 * i, 1);
     }
     for (int i = 0; i < 4; i++) {
-      hada(T, i, 4 + i, 0);
-      hada(T, 8 + i, 12 + i, 0);
+      hada(T, i, 4 + i, 0, hi);
+      hada(T, 8 + i, 12 + i, 0, hi);
     }
     for (int i = 0; i < 2; i++) {
       bfly(T, 4 + 8 * i, 5 + 8 * i, 48, 1);
       bfly(T, 7 + 8 * i, 6 + 8 * i, 16, 1);
     }
     for (int i = 0; i < 2; i++) {
-      hada(T, i, 2 + i, 0);
-      hada(T, 4 + i, 6 + i, 0);
-      hada(T, 8 + i, 10 + i, 0);
-      hada(T, 12 + i, 14 + i, 0);
+      hada(T, i, 2 + i, 0, hi);
+      hada(T, 4 + i, 6 + i, 0, hi);
+      hada(T, 8 + i, 10 + i, 0, hi);
+      hada(T, 12 + i, 14 + i, 0, hi);
     }
     for (int i = 0; i < 4; i++) bfly(T, 2 + 4 * i, 3 + 4 * i, 32, 1);
   }
@@ -708,12 +730,12 @@ static void iidentity(int32_t *T, int n) {
   }
 }
 
-/* kind: 0 DCT, 1 ADST, 2 flipped ADST, 3 identity. */
-static void tx1d(int32_t *T, int n, int kind) {
-  if (kind == 0) av1_idct(T, n);
+/* kind: 0 DCT, 1 ADST, 2 flipped ADST, 3 identity; r the stage range. */
+static void tx1d(int32_t *T, int n, int kind, int r) {
+  if (kind == 0) av1_idct(T, n, r);
   else if (kind == 3) iidentity(T, n);
   else if (n == 2) av1_iadst4(T);
-  else av1_iadst(T, n);
+  else av1_iadst(T, n, r);
 }
 
 static void tx_kinds(int tx_type, int *vert, int *horz) {
@@ -723,11 +745,26 @@ static void tx_kinds(int tx_type, int *vert, int *horz) {
   *horz = h[tx_type];
 }
 
-/* av1_inv_txfm2d_add_c: coef is column-major over the coded area
- * (min(w,32) x min(h,32)); the residual is added to dst and clipped. */
-void av1_inverse_transform_add(const int32_t *coef, int tx, int tx_type,
-                               uint8_t *dst, int stride) {
+/* Samples of 8 bits to 16 and back, for the 8-bit entry points of the
+ * stage functions (w x h at each side's stride). */
+static void widen(const uint8_t *s, int ss, uint16_t *d, int ds, int w, int h) {
+  for (int i = 0; i < h; i++)
+    for (int j = 0; j < w; j++) d[i * ds + j] = s[i * ss + j];
+}
+static void narrow(const uint16_t *s, int ss, uint8_t *d, int ds, int w, int h) {
+  for (int i = 0; i < h; i++)
+    for (int j = 0; j < w; j++) d[i * ds + j] = (uint8_t)s[i * ss + j];
+}
+
+/* av1_inv_txfm2d_add_c at bd bits a sample (av1_highbd_inv_txfm_add_c):
+ * coef is column-major over the coded area (min(w,32) x min(h,32)); rows
+ * clamped to bd + 8 bits in and through, columns to max(bd + 6, 16); the
+ * residual is added to dst and clipped to 0 .. 2^bd - 1. */
+void av1_inverse_transform_add_hbd(const int32_t *coef, int tx, int tx_type,
+                                   uint16_t *dst, int stride, int bd) {
   const int lw = tx_wlog2[tx], lh = tx_hlog2[tx];
+  const int row_bits = bd + 8, col_bits = bd + 6 > 16 ? bd + 6 : 16;
+  const int pmax = (1 << bd) - 1;
   const int w = 1 << lw, h = 1 << lh;
   const int cw = w > 32 ? 32 : w, ch = h > 32 ? 32 : h;
   const int rect = lw - lh == 1 || lh - lw == 1;
@@ -740,21 +777,30 @@ void av1_inverse_transform_add(const int32_t *coef, int tx, int tx_type,
     for (int c = 0; c < w; c++) {
       int32_t v = (r < ch && c < cw) ? coef[c * ch + r] : 0;
       if (rect) v = round2((int64_t)v * 2896, 12);
-      tmp[c] = v < -32768 ? -32768 : v > 32767 ? 32767 : v;
+      tmp[c] = clamp_to(v, range_hi(row_bits));
     }
-    tx1d(tmp, lw, horz);
+    tx1d(tmp, lw, horz, row_bits);
     for (int c = 0; c < w; c++) buf[r * w + c] = round2(tmp[c], row_shift);
   }
   for (int c = 0; c < w; c++) {
     const int sc = horz == 2 ? w - 1 - c : c;
-    for (int r = 0; r < h; r++) tmp[r] = clamp16(buf[r * w + sc]);
-    tx1d(tmp, lh, vert);
+    for (int r = 0; r < h; r++) tmp[r] = clamp_to(buf[r * w + sc], range_hi(col_bits));
+    tx1d(tmp, lh, vert, col_bits);
     for (int r = 0; r < h; r++) {
       const int v = round2(tmp[vert == 2 ? h - 1 - r : r], 4);
-      uint8_t *p = dst + r * stride + c;
-      *p = (uint8_t)clip3(0, 255, *p + v);
+      uint16_t *p = dst + r * stride + c;
+      *p = (uint16_t)clip3(0, pmax, *p + v);
     }
   }
+}
+
+void av1_inverse_transform_add(const int32_t *coef, int tx, int tx_type,
+                               uint8_t *dst, int stride) {
+  uint16_t b[64 * 64];
+  const int w = 1 << tx_wlog2[tx], h = 1 << tx_hlog2[tx];
+  widen(dst, stride, b, w, w, h);
+  av1_inverse_transform_add_hbd(coef, tx, tx_type, b, w, 8);
+  narrow(b, w, dst, stride, w, h);
 }
 
 static void wht4(int32_t *a, int32_t *b, int32_t *c, int32_t *d) {
@@ -775,8 +821,9 @@ static void wht4(int32_t *a, int32_t *b, int32_t *c, int32_t *d) {
 
 /* libaom's av1_highbd_iwht4x4_16_add_c, the lossless inverse Walsh-Hadamard
  * transform: coef column-major (4x4), rows first with a shift of 2; the
- * residual is added to dst and clipped. */
-void av1_iwht4x4_add(const int32_t *coef, uint8_t *dst, int stride) {
+ * residual is added to dst and clipped to 0 .. 2^bd - 1. */
+void av1_iwht4x4_add_hbd(const int32_t *coef, uint16_t *dst, int stride,
+                         int bd) {
   int32_t tmp[16];
   for (int i = 0; i < 4; i++) { /* row i */
     int32_t a = coef[i] >> 2, c = coef[4 + i] >> 2, d = coef[8 + i] >> 2,
@@ -793,10 +840,17 @@ void av1_iwht4x4_add(const int32_t *coef, uint8_t *dst, int stride) {
     wht4(&a, &b, &c, &d);
     const int32_t out[4] = {a, b, c, d};
     for (int k = 0; k < 4; k++) {
-      uint8_t *p = dst + k * stride + i;
-      *p = (uint8_t)clip3(0, 255, *p + out[k]);
+      uint16_t *p = dst + k * stride + i;
+      *p = (uint16_t)clip3(0, (1 << bd) - 1, *p + out[k]);
     }
   }
+}
+
+void av1_iwht4x4_add(const int32_t *coef, uint8_t *dst, int stride) {
+  uint16_t b[16];
+  widen(dst, stride, b, 4, 4, 4);
+  av1_iwht4x4_add_hbd(coef, b, 4, 8);
+  narrow(b, 4, dst, stride, 4, 4);
 }
 
 /* --------------------------------------------------- intra prediction */
@@ -873,7 +927,7 @@ void av1_edge_filter(int *edge, int sz, int strength) {
   }
 }
 
-void av1_edge_upsample(int *buf, int numpx) {
+void av1_edge_upsample_hbd(int *buf, int numpx, int bd) {
   int dup[64];
   dup[0] = buf[-1];
   for (int i = -1; i < numpx; i++) dup[i + 2] = buf[i];
@@ -881,16 +935,20 @@ void av1_edge_upsample(int *buf, int numpx) {
   buf[-2] = dup[0];
   for (int i = 0; i < numpx; i++) {
     int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
-    s = clip3(0, 255, round2(s, 4));
+    s = clip3(0, (1 << bd) - 1, round2(s, 4));
     buf[2 * i - 1] = s;
     buf[2 * i] = dup[i + 2];
   }
 }
 
+void av1_edge_upsample(int *buf, int numpx) { av1_edge_upsample_hbd(buf, numpx, 8); }
+
 /* Filter intra (AV1 specification 7.11.2.3) of a w x h block (sides up
- * to 32) from its edges: above[-1..w-1] (above[-1] the corner) and left[0..h-1]. */
-void av1_filter_intra_predict(uint8_t *dst, int stride, int w, int h,
-                              const int *above, const int *left, int mode) {
+ * to 32) from its edges: above[-1..w-1] (above[-1] the corner) and left[0..h-1],
+ * clipped to bd bits. */
+void av1_filter_intra_predict_hbd(uint16_t *dst, int stride, int w, int h,
+                                  const int *above, const int *left, int mode,
+                                  int bd) {
   int pred[32][32];
   const int w4 = w >> 2, h2 = h >> 1;
   for (int i2 = 0; i2 < h2; i2++)
@@ -910,17 +968,24 @@ void av1_filter_intra_predict(uint8_t *dst, int stride, int w, int h,
         int pr = 0;
         for (int j = 0; j < 7; j++) pr += av1_filter_intra_taps[mode][i][j] * p[j];
         pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] =
-            clip3(0, 255, round2signed(pr, 4));
+            clip3(0, (1 << bd) - 1, round2signed(pr, 4));
       }
     }
   for (int i = 0; i < h; i++)
-    for (int j = 0; j < w; j++) dst[i * stride + j] = (uint8_t)pred[i][j];
+    for (int j = 0; j < w; j++) dst[i * stride + j] = (uint16_t)pred[i][j];
+}
+
+void av1_filter_intra_predict(uint8_t *dst, int stride, int w, int h,
+                              const int *above, const int *left, int mode) {
+  uint16_t b[32 * 32];
+  av1_filter_intra_predict_hbd(b, w, w, h, above, left, mode, 8);
+  narrow(b, w, dst, stride, w, h);
 }
 
 /* Directional prediction at angle (7.11.2.4, step 4 on): above and left
  * are the (filtered, upsampled) edges, indexable from -16. */
-void av1_dr_predict(uint8_t *dst, int stride, int w, int h, const int *above,
-                    const int *left, int up_above, int up_left, int angle) {
+void av1_dr_predict_hbd(uint16_t *dst, int stride, int w, int h, const int *above,
+                        const int *left, int up_above, int up_left, int angle) {
   int dx = 0, dy = 0;
   if (angle < 90) dx = av1_dr_intra_derivative[angle];
   else if (angle > 90 && angle < 180) dx = av1_dr_intra_derivative[180 - angle];
@@ -960,14 +1025,22 @@ void av1_dr_predict(uint8_t *dst, int stride, int w, int h, const int *above,
       } else {
         v = left[i];
       }
-      dst[i * stride + j] = (uint8_t)v;
+      dst[i * stride + j] = (uint16_t)v;
     }
 }
 
-/* DC, smooth, smooth V, smooth H and Paeth prediction from the edges. */
-void av1_nondir_predict(uint8_t *dst, int stride, int w, int h,
-                        const int *above, const int *left, int mode,
-                        int have_left, int have_above) {
+void av1_dr_predict(uint8_t *dst, int stride, int w, int h, const int *above,
+                    const int *left, int up_above, int up_left, int angle) {
+  uint16_t b[64 * 64];
+  av1_dr_predict_hbd(b, w, w, h, above, left, up_above, up_left, angle);
+  narrow(b, w, dst, stride, w, h);
+}
+
+/* DC, smooth, smooth V, smooth H and Paeth prediction from the edges (DC
+ * without either edge: 2^(bd-1)). */
+void av1_nondir_predict_hbd(uint16_t *dst, int stride, int w, int h,
+                            const int *above, const int *left, int mode,
+                            int have_left, int have_above, int bd) {
   const int lw = floor_log2((uint32_t)w), lh = floor_log2((uint32_t)h);
   if (mode == SMOOTH_PRED) {
     const uint8_t *wx = av1_smooth_weights + w - 4, *wy = av1_smooth_weights + h - 4;
@@ -975,20 +1048,20 @@ void av1_nondir_predict(uint8_t *dst, int stride, int w, int h,
       for (int j = 0; j < w; j++) {
         int s = wy[i] * above[j] + (256 - wy[i]) * left[h - 1] +
                 wx[j] * left[i] + (256 - wx[j]) * above[w - 1];
-        dst[i * stride + j] = (uint8_t)round2(s, 9);
+        dst[i * stride + j] = (uint16_t)round2(s, 9);
       }
   } else if (mode == SMOOTH_V_PRED) {
     const uint8_t *wy = av1_smooth_weights + h - 4;
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++)
         dst[i * stride + j] =
-            (uint8_t)round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
+            (uint16_t)round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
   } else if (mode == SMOOTH_H_PRED) {
     const uint8_t *wx = av1_smooth_weights + w - 4;
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++)
         dst[i * stride + j] =
-            (uint8_t)round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
+            (uint16_t)round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
   } else if (mode == DC_PRED) {
     int avg, sum = 0;
     if (have_left && have_above) {
@@ -1002,9 +1075,10 @@ void av1_nondir_predict(uint8_t *dst, int stride, int w, int h,
       for (int k = 0; k < w; k++) sum += above[k];
       avg = (sum + (w >> 1)) >> lw;
     } else {
-      avg = 128;
+      avg = 1 << (bd - 1);
     }
-    for (int i = 0; i < h; i++) memset(dst + i * stride, avg, (size_t)w);
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) dst[i * stride + j] = (uint16_t)avg;
   } else { /* PAETH */
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
@@ -1012,9 +1086,17 @@ void av1_nondir_predict(uint8_t *dst, int stride, int w, int h,
         int pl = abs(base - left[i]), pt = abs(base - above[j]),
             ptl = abs(base - above[-1]);
         int v = (pl <= pt && pl <= ptl) ? left[i] : (pt <= ptl ? above[j] : above[-1]);
-        dst[i * stride + j] = (uint8_t)v;
+        dst[i * stride + j] = (uint16_t)v;
       }
   }
+}
+
+void av1_nondir_predict(uint8_t *dst, int stride, int w, int h,
+                        const int *above, const int *left, int mode,
+                        int have_left, int have_above) {
+  uint16_t b[64 * 64];
+  av1_nondir_predict_hbd(b, w, w, h, above, left, mode, have_left, have_above, 8);
+  narrow(b, w, dst, stride, w, h);
 }
 
 static void predict_intra(Tile *t, int plane, int x, int y, int have_left,
@@ -1027,11 +1109,11 @@ static void predict_intra(Tile *t, int plane, int x, int y, int have_left,
   const int max_y = ((f->mi_rows * 4) >> sy) - 1;
   int above_buf[16 + 2 * 128 + 32], left_buf[16 + 2 * 128 + 32];
   int *above = above_buf + 16, *left = left_buf + 16;
-  uint8_t *dst = f->frame[plane] + y * f->stride[plane] + x;
-  const int stride = f->stride[plane];
+  uint16_t *dst = f->frame[plane] + y * f->stride[plane] + x;
+  const int stride = f->stride[plane], base = 1 << (f->bd - 1);
   for (int i = 0; i < w + h; i++) {
     if (!have_above && have_left) above[i] = px(f, plane, y, x - 1);
-    else if (!have_above) above[i] = 127;
+    else if (!have_above) above[i] = base - 1;
     else {
       int lim = x + (have_above_rt ? 2 * w : w) - 1;
       if (lim > max_x) lim = max_x;
@@ -1039,7 +1121,7 @@ static void predict_intra(Tile *t, int plane, int x, int y, int have_left,
       above[i] = px(f, plane, y - 1, xx);
     }
     if (!have_left && have_above) left[i] = px(f, plane, y - 1, x);
-    else if (!have_left) left[i] = 129;
+    else if (!have_left) left[i] = base + 1;
     else {
       int lim = y + (have_below_lt ? 2 * h : h) - 1;
       if (lim > max_y) lim = max_y;
@@ -1050,11 +1132,12 @@ static void predict_intra(Tile *t, int plane, int x, int y, int have_left,
   if (have_above && have_left) above[-1] = px(f, plane, y - 1, x - 1);
   else if (have_above) above[-1] = px(f, plane, y - 1, x);
   else if (have_left) above[-1] = px(f, plane, y, x - 1);
-  else above[-1] = 128;
+  else above[-1] = base;
   left[-1] = above[-1];
 
   if (plane == 0 && t->use_filter_intra) {
-    av1_filter_intra_predict(dst, stride, w, h, above, left, t->filter_mode);
+    av1_filter_intra_predict_hbd(dst, stride, w, h, above, left, t->filter_mode,
+                                 f->bd);
     return;
   }
   if (is_directional(mode)) {
@@ -1083,29 +1166,29 @@ static void predict_intra(Tile *t, int plane, int x, int y, int have_left,
       }
       up_above = use_upsample(w, h, filter_type(t, plane), angle - 90);
       if (up_above) {
-        av1_edge_upsample(above, w + (angle < 90 ? h : 0));
+        av1_edge_upsample_hbd(above, w + (angle < 90 ? h : 0), f->bd);
         f->stats[AV1_STAT_UPSAMPLE]++;
       }
       up_left = use_upsample(w, h, filter_type(t, plane), angle - 180);
       if (up_left) {
-        av1_edge_upsample(left, h + (angle > 180 ? w : 0));
+        av1_edge_upsample_hbd(left, h + (angle > 180 ? w : 0), f->bd);
         f->stats[AV1_STAT_UPSAMPLE]++;
       }
     }
-    av1_dr_predict(dst, stride, w, h, above, left, up_above, up_left, angle);
+    av1_dr_predict_hbd(dst, stride, w, h, above, left, up_above, up_left, angle);
     return;
   }
-  av1_nondir_predict(dst, stride, w, h, above, left, mode, have_left,
-                     have_above);
+  av1_nondir_predict_hbd(dst, stride, w, h, above, left, mode, have_left,
+                         have_above, f->bd);
 }
 
 /* Chroma from luma on the w x h chroma block at dst, which holds its DC
  * prediction: luma is the co-located luma (subsampled by ssx, ssy), of
  * which max_w x max_h samples are decoded (later columns and rows repeat
  * the last). */
-void av1_cfl_predict_ss(uint8_t *dst, int stride, const uint8_t *luma,
-                        int luma_stride, int w, int h, int max_w, int max_h,
-                        int alpha, int ssx, int ssy) {
+void av1_cfl_predict_ss_hbd(uint16_t *dst, int stride, const uint16_t *luma,
+                            int luma_stride, int w, int h, int max_w, int max_h,
+                            int alpha, int ssx, int ssy, int bd) {
   int L[32][32];
   int avg = 0;
   const int shift = 3 - ssx - ssy;
@@ -1115,7 +1198,7 @@ void av1_cfl_predict_ss(uint8_t *dst, int stride, const uint8_t *luma,
     for (int j = 0; j < w; j++) {
       int lx = j < (max_w >> ssx) - 1 ? j : (max_w >> ssx) - 1;
       lx <<= ssx;
-      const uint8_t *p = luma + ly * luma_stride + lx;
+      const uint16_t *p = luma + ly * luma_stride + lx;
       int v = 0;
       for (int dy = 0; dy <= ssy; dy++)
         for (int dx = 0; dx <= ssx; dx++) v += p[dy * luma_stride + dx];
@@ -1128,8 +1211,21 @@ void av1_cfl_predict_ss(uint8_t *dst, int stride, const uint8_t *luma,
     for (int j = 0; j < w; j++) {
       int dc = dst[i * stride + j];
       int scaled = round2signed((int64_t)alpha * (L[i][j] - avg), 6);
-      dst[i * stride + j] = (uint8_t)clip3(0, 255, dc + scaled);
+      dst[i * stride + j] = (uint16_t)clip3(0, (1 << bd) - 1, dc + scaled);
     }
+}
+
+void av1_cfl_predict_ss(uint8_t *dst, int stride, const uint8_t *luma,
+                        int luma_stride, int w, int h, int max_w, int max_h,
+                        int alpha, int ssx, int ssy) {
+  uint16_t b[32 * 32], l[64 * 64] = {0};
+  /* the luma the block reads */
+  const int lw = (w < max_w >> ssx ? w : max_w >> ssx) << ssx;
+  const int lh = (h < max_h >> ssy ? h : max_h >> ssy) << ssy;
+  widen(dst, stride, b, w, w, h);
+  widen(luma, luma_stride, l, lw, lw, lh);
+  av1_cfl_predict_ss_hbd(b, w, l, lw, w, h, max_w, max_h, alpha, ssx, ssy, 8);
+  narrow(b, w, dst, stride, w, h);
 }
 
 /* av1_cfl_predict_ss at 4:2:0. */
@@ -1144,11 +1240,11 @@ static void predict_cfl(Tile *t, int plane, int sx0, int sy0, int tx) {
   Frame *f = t->f;
   const int ls = f->stride[0];
   const int lx = sx0 << f->ssx, ly = sy0 << f->ssy;
-  av1_cfl_predict_ss(f->frame[plane] + sy0 * f->stride[plane] + sx0,
-                     f->stride[plane], f->frame[0] + ly * ls + lx, ls,
-                     1 << tx_wlog2[tx], 1 << tx_hlog2[tx],
-                     t->max_luma_w - lx, t->max_luma_h - ly,
-                     plane == 1 ? t->cfl_u : t->cfl_v, f->ssx, f->ssy);
+  av1_cfl_predict_ss_hbd(f->frame[plane] + sy0 * f->stride[plane] + sx0,
+                         f->stride[plane], f->frame[0] + ly * ls + lx, ls,
+                         1 << tx_wlog2[tx], 1 << tx_hlog2[tx],
+                         t->max_luma_w - lx, t->max_luma_h - ly,
+                         plane == 1 ? t->cfl_u : t->cfl_v, f->ssx, f->ssy, f->bd);
 }
 
 /* ------------------------------------------------------- coefficients */
@@ -1373,16 +1469,22 @@ static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
     if (qm_level < 15 && tx_type < IDTX)
       iqm = av1_iwt_matrix[qm_level][plane > 0] + qm_offset[tx];
     const int q = t->current_q;
+    /* Dc_Qlookup and Ac_Qlookup at the stream's depth */
+    const int16_t *dcq = f->bd == 8 ? av1_dc_qlookup
+                         : f->bd == 10 ? av1_dc_qlookup_10 : av1_dc_qlookup_12;
+    const int16_t *acq = f->bd == 8 ? av1_ac_qlookup
+                         : f->bd == 10 ? av1_ac_qlookup_10 : av1_ac_qlookup_12;
     int dq_dc, dq_ac;
     if (plane == 0) {
-      dq_dc = av1_dc_qlookup[clip3(0, 255, q + f->hdr[AV1_DQ_Y_DC])];
-      dq_ac = av1_ac_qlookup[clip3(0, 255, q)];
+      dq_dc = dcq[clip3(0, 255, q + f->hdr[AV1_DQ_Y_DC])];
+      dq_ac = acq[clip3(0, 255, q)];
     } else {
       const int dcd = f->hdr[plane == 1 ? AV1_DQ_U_DC : AV1_DQ_V_DC];
       const int acd = f->hdr[plane == 1 ? AV1_DQ_U_AC : AV1_DQ_V_AC];
-      dq_dc = av1_dc_qlookup[clip3(0, 255, q + dcd)];
-      dq_ac = av1_ac_qlookup[clip3(0, 255, q + acd)];
+      dq_dc = dcq[clip3(0, 255, q + dcd)];
+      dq_ac = acq[clip3(0, 255, q + acd)];
     }
+    const int coef_max = (1 << (7 + f->bd)) - 1; /* libaom's max_value */
     const int npix = (1 << lw) * (1 << lh);
     const int dq_shift = (npix > 256) + (npix > 1024);
     memset(t->coef, 0, sizeof(int32_t) * (size_t)(cw * ch));
@@ -1414,7 +1516,7 @@ static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
       int32_t dq = (int32_t)((level * dqv) & 0xffffff);
       dq >>= dq_shift;
       if (sign) dq = -dq;
-      t->coef[pos] = clip3(-32768, 32767, dq);
+      t->coef[pos] = clip3(-coef_max - 1, coef_max, dq);
     }
     if (cul_level > 63) cul_level = 63;
     if (dc_val < 0) cul_level |= 1 << 6;
@@ -1698,18 +1800,27 @@ static void read_dv(Tile *t) {
  * or column read when fy or fx, the half-sample parts, are 8): the
  * BILINEAR filter at half a sample, as libaom's
  * av1_convolve_{2d,x,y}_sr_intrabc_c rounds it. */
-void av1_intrabc_predict(const uint8_t *src, int stride, int w, int h, int fy,
-                         int fx, uint8_t *dst, int dst_stride) {
+void av1_intrabc_predict_hbd(const uint16_t *src, int stride, int w, int h,
+                             int fy, int fx, uint16_t *dst, int dst_stride) {
   for (int i = 0; i < h; i++)
     for (int j = 0; j < w; j++) {
-      const uint8_t *p = src + i * stride + j;
+      const uint16_t *p = src + i * stride + j;
       int v;
       if (fx && fy) v = (p[0] + p[1] + p[stride] + p[stride + 1] + 2) >> 2;
       else if (fx) v = (p[0] + p[1] + 1) >> 1;
       else if (fy) v = (p[0] + p[stride] + 1) >> 1;
       else v = p[0];
-      dst[i * dst_stride + j] = (uint8_t)v;
+      dst[i * dst_stride + j] = (uint16_t)v;
     }
+}
+
+void av1_intrabc_predict(const uint8_t *src, int stride, int w, int h, int fy,
+                         int fx, uint8_t *dst, int dst_stride) {
+  uint16_t s[129 * 129], d[128 * 128];
+  const int sw = w + (fx > 0), sh = h + (fy > 0);
+  widen(src, stride, s, sw, sw, sh);
+  av1_intrabc_predict_hbd(s, sw, w, h, fy, fx, d, w);
+  narrow(d, w, dst, dst_stride, w, h);
 }
 
 /* Each plane of the block copied from the frame so far. */
@@ -1733,8 +1844,8 @@ static int predict_intrabc(Tile *t) {
     }
     if (fy || fx) f->stats[AV1_STAT_INTRABC_HALFPEL]++;
     /* av1_dv_valid put the source in decoded superblocks: no overlap */
-    av1_intrabc_predict(f->frame[plane] + ys * stride + xs, stride, w, h, fy, fx,
-                        f->frame[plane] + y0 * stride + x0, stride);
+    av1_intrabc_predict_hbd(f->frame[plane] + ys * stride + xs, stride, w, h, fy,
+                            fx, f->frame[plane] + y0 * stride + x0, stride);
   }
   return 0;
 }
@@ -1829,23 +1940,25 @@ static int palette_cache(const Tile *t, int plane, int *cache) {
 }
 
 /* The Y (plane 0) or U colours of an n-colour palette: those taken from
- * the cache, then a literal and deltas (at least 1 apart for Y), sorted. */
-static void palette_colours(Tile *t, int plane, int n, uint8_t *out) {
+ * the cache, then a literal of bd bits and deltas of bd - 3 bits or more
+ * (at least 1 apart for Y), sorted. */
+static void palette_colours(Tile *t, int plane, int n, uint16_t *out) {
+  const int bd = t->f->bd;
   int cache[16], colours[8], k = 0;
   const int n_cache = palette_cache(t, plane, cache);
   for (int i = 0; i < n_cache && k < n; i++)
     if (read_bit(&t->ec)) colours[k++] = cache[i];
   t->f->stats[AV1_STAT_PALETTE_CACHE] += k;
   if (k < n) {
-    colours[k] = read_literal(&t->ec, 8);
+    colours[k] = read_literal(&t->ec, bd);
     k++;
     if (k < n) {
       const int step = plane == 0;
-      int bits = 5 + read_literal(&t->ec, 2);
-      int room = 256 - colours[k - 1] - step;
+      int bits = bd - 3 + read_literal(&t->ec, 2);
+      int room = (1 << bd) - colours[k - 1] - step;
       for (; k < n; k++) {
         int v = colours[k - 1] + read_literal(&t->ec, bits) + step;
-        if (v > 255) v = 255;
+        if (v > (1 << bd) - 1) v = (1 << bd) - 1;
         room -= v - colours[k - 1];
         colours[k] = v;
         const int cl = ceil_log2(room);
@@ -1859,7 +1972,7 @@ static void palette_colours(Tile *t, int plane, int n, uint8_t *out) {
       colours[j] = colours[j - 1];
       colours[j - 1] = x;
     }
-  for (int i = 0; i < n; i++) out[i] = (uint8_t)colours[i];
+  for (int i = 0; i < n; i++) out[i] = (uint16_t)colours[i];
 }
 
 static void palette_mode_info(Tile *t) {
@@ -1884,19 +1997,20 @@ static void palette_mode_info(Tile *t) {
     t->pal_size[1] = n;
     palette_colours(t, 1, n, t->pal_colors[1]);
     f->stats[AV1_STAT_PALETTE_UV]++;
-    if (read_bit(&t->ec)) { /* V by deltas, modulo 256 */
-      const int bits = 4 + read_literal(&t->ec, 2);
-      int v = read_literal(&t->ec, 8);
-      t->pal_colors[2][0] = (uint8_t)v;
+    const int bd = f->bd;
+    if (read_bit(&t->ec)) { /* V by deltas, modulo 2^bd */
+      const int bits = bd - 4 + read_literal(&t->ec, 2);
+      int v = read_literal(&t->ec, bd);
+      t->pal_colors[2][0] = (uint16_t)v;
       for (int i = 1; i < n; i++) {
         int d = read_literal(&t->ec, bits);
         if (d && read_bit(&t->ec)) d = -d;
-        v = (v + d + 256) & 255;
-        t->pal_colors[2][i] = (uint8_t)v;
+        v = (v + d + (1 << bd)) & ((1 << bd) - 1);
+        t->pal_colors[2][i] = (uint16_t)v;
       }
       f->stats[AV1_STAT_PALETTE_DELTA_V]++;
     } else {
-      for (int i = 0; i < n; i++) t->pal_colors[2][i] = (uint8_t)read_literal(&t->ec, 8);
+      for (int i = 0; i < n; i++) t->pal_colors[2][i] = (uint16_t)read_literal(&t->ec, bd);
     }
   }
 }
@@ -2108,7 +2222,7 @@ static void transform_block(Tile *t, int plane, int base_x, int base_y,
   } else if (t->pal_size[plane > 0]) {
     const int p = plane > 0, mw = t->color_map_w[p];
     const uint8_t *m = t->color_map[p] + 4 * y * mw + 4 * x;
-    uint8_t *dst = f->frame[plane] + start_y * f->stride[plane] + start_x;
+    uint16_t *dst = f->frame[plane] + start_y * f->stride[plane] + start_x;
     for (int i = 0; i < 4 * step_y; i++)
       for (int j = 0; j < 4 * step_x; j++)
         dst[i * f->stride[plane] + j] = t->pal_colors[plane][m[i * mw + j]];
@@ -2129,11 +2243,12 @@ static void transform_block(Tile *t, int plane, int base_x, int base_y,
     int tx_type;
     int eob = read_coeffs(t, plane, start_x >> 2, start_y >> 2, tx, &tx_type);
     if (f->failed) return;
-    uint8_t *dst = f->frame[plane] + start_y * f->stride[plane] + start_x;
+    uint16_t *dst = f->frame[plane] + start_y * f->stride[plane] + start_x;
     if (eob > 0 && f->lossless)
-      av1_iwht4x4_add(t->coef, dst, f->stride[plane]);
+      av1_iwht4x4_add_hbd(t->coef, dst, f->stride[plane], f->bd);
     else if (eob > 0)
-      av1_inverse_transform_add(t->coef, tx, tx_type, dst, f->stride[plane]);
+      av1_inverse_transform_add_hbd(t->coef, tx, tx_type, dst, f->stride[plane],
+                                    f->bd);
   }
   f->stats[AV1_STAT_TX_SIZE + tx]++;
   for (int i = 0; i < step_y; i++)
@@ -2253,7 +2368,7 @@ static void decode_block(Tile *t, int r, int c, int bsize) {
       for (int k = 0; k < 4; k++) f->delta_lf[at * 4 + k] = (int8_t)t->delta_lf[k];
       f->pal_size[at * 2] = (uint8_t)t->pal_size[0];
       f->pal_size[at * 2 + 1] = (uint8_t)t->pal_size[1];
-      memcpy(f->pal_colors + at * 24, t->pal_colors, 24);
+      memcpy(f->pal_colors + at * 24, t->pal_colors, sizeof(t->pal_colors));
       f->is_inter[at] = (uint8_t)t->use_intrabc;
       f->mvs[at * 2] = (int16_t)(t->use_intrabc ? t->mv[0] : 0);
       f->mvs[at * 2 + 1] = (int16_t)(t->use_intrabc ? t->mv[1] : 0);
@@ -2534,24 +2649,27 @@ static int filter_level(const Frame *f, int row, int col, int plane, int pass) {
   return lvl;
 }
 
-static void filter4(uint8_t *s, int step, int hev) {
-  int p1 = s[-2 * step] - 128, p0 = s[-step] - 128, q0 = s[0] - 128,
-      q1 = s[step] - 128;
-#define C8(x) clip3(-128, 127, (x))
+/* libaom's highbd_filter4: samples offset by and clamped to +-2^(bd-1)
+ * (signed_char_clamp_high); the filter's own shifts stay those of 8
+ * bits. */
+static void filter4(uint16_t *s, int step, int hev, int bd) {
+  const int o = 128 << (bd - 8);
+  int p1 = s[-2 * step] - o, p0 = s[-step] - o, q0 = s[0] - o, q1 = s[step] - o;
+#define C8(x) clip3(-o, o - 1, (x))
   int filter = hev ? C8(p1 - q1) : 0;
   filter = C8(filter + 3 * (q0 - p0));
   int f1 = C8(filter + 4) >> 3, f2 = C8(filter + 3) >> 3;
-  s[0] = (uint8_t)(C8(q0 - f1) + 128);
-  s[-step] = (uint8_t)(C8(p0 + f2) + 128);
+  s[0] = (uint16_t)(C8(q0 - f1) + o);
+  s[-step] = (uint16_t)(C8(p0 + f2) + o);
   if (!hev) {
     int ff = round2(f1, 1);
-    s[step] = (uint8_t)(C8(q1 - ff) + 128);
-    s[-2 * step] = (uint8_t)(C8(p1 + ff) + 128);
+    s[step] = (uint16_t)(C8(q1 - ff) + o);
+    s[-2 * step] = (uint16_t)(C8(p1 + ff) + o);
   }
 #undef C8
 }
 
-static void wide_filter(uint8_t *s, int step, int plane, int log2size) {
+static void wide_filter(uint16_t *s, int step, int plane, int log2size) {
   const int n = log2size == 4 ? 6 : plane == 0 ? 3 : 2;
   const int n2 = (log2size == 3 && plane == 0) ? 0 : 1;
   int F[16], out[16];
@@ -2565,11 +2683,17 @@ static void wide_filter(uint8_t *s, int step, int plane, int log2size) {
     }
     out[i + 8] = round2(t, log2size);
   }
-  for (int i = -n; i < n; i++) s[i * step] = (uint8_t)out[i + 8];
+  for (int i = -n; i < n; i++) s[i * step] = (uint16_t)out[i + 8];
 }
 
-static void sample_filter(uint8_t *s, int step, int plane, int limit,
-                          int blimit, int thresh, int filter_size) {
+/* The deblocking of one line; limit, blimit and thresh are the 8-bit
+ * ones, shifted by bd - 8 here as libaom's highbd masks shift them. */
+static void sample_filter(uint16_t *s, int step, int plane, int limit,
+                          int blimit, int thresh, int filter_size, int bd) {
+  const int sh = bd - 8, one = 1 << sh;
+  limit <<= sh;
+  blimit <<= sh;
+  thresh <<= sh;
   int p[7], q[7];
   for (int k = 0; k < 7; k++) {
     q[k] = (k < 4 || filter_size == 16) ? s[k * step] : 0;
@@ -2584,24 +2708,33 @@ static void sample_filter(uint8_t *s, int step, int plane, int limit,
   if (!mask) return;
   int flat = 0, flat2 = 0;
   if (filter_size >= 8) {
-    flat = abs(p[1] - p[0]) <= 1 && abs(q[1] - q[0]) <= 1 &&
-           abs(p[2] - p[0]) <= 1 && abs(q[2] - q[0]) <= 1;
-    if (len >= 8) flat = flat && abs(p[3] - p[0]) <= 1 && abs(q[3] - q[0]) <= 1;
+    flat = abs(p[1] - p[0]) <= one && abs(q[1] - q[0]) <= one &&
+           abs(p[2] - p[0]) <= one && abs(q[2] - q[0]) <= one;
+    if (len >= 8) flat = flat && abs(p[3] - p[0]) <= one && abs(q[3] - q[0]) <= one;
   }
   if (filter_size >= 16)
-    flat2 = abs(p[6] - p[0]) <= 1 && abs(q[6] - q[0]) <= 1 &&
-            abs(p[5] - p[0]) <= 1 && abs(q[5] - q[0]) <= 1 &&
-            abs(p[4] - p[0]) <= 1 && abs(q[4] - q[0]) <= 1;
-  if (filter_size == 4 || !flat) filter4(s, step, hev);
+    flat2 = abs(p[6] - p[0]) <= one && abs(q[6] - q[0]) <= one &&
+            abs(p[5] - p[0]) <= one && abs(q[5] - q[0]) <= one &&
+            abs(p[4] - p[0]) <= one && abs(q[4] - q[0]) <= one;
+  if (filter_size == 4 || !flat) filter4(s, step, hev, bd);
   else if (filter_size == 8 || !flat2) wide_filter(s, step, plane, 3);
   else wide_filter(s, step, plane, 4);
 }
 
 /* One line of 16 samples across an edge (line[8] is q0, line[7] p0),
- * filtered in place as the deblocking filter of filter_size filters it. */
+ * filtered in place as the deblocking filter of filter_size filters it at
+ * bd bits (limit, blimit and thresh at 8 bits' scale). */
+void av1_lf_line_hbd(uint16_t *line, int plane, int limit, int blimit,
+                     int thresh, int filter_size, int bd) {
+  sample_filter(line + 8, 1, plane, limit, blimit, thresh, filter_size, bd);
+}
+
 void av1_lf_line(uint8_t *line, int plane, int limit, int blimit, int thresh,
                  int filter_size) {
-  sample_filter(line + 8, 1, plane, limit, blimit, thresh, filter_size);
+  uint16_t b[16];
+  widen(line, 16, b, 16, 16, 1);
+  av1_lf_line_hbd(b, plane, limit, blimit, thresh, filter_size, 8);
+  narrow(b, 16, line, 16, 16, 1);
 }
 
 static void loop_filter(Frame *f) {
@@ -2640,11 +2773,11 @@ static void loop_filter(Frame *f) {
                                       : ((lvl >> shift) > 1 ? lvl >> shift : 1);
           const int blimit = 2 * (lvl + 2) + limit, thresh = lvl >> 4;
           f->stats[AV1_STAT_LF_EDGES]++;
-          uint8_t *base_px = f->frame[plane] + yp * f->stride[plane] + xp;
+          uint16_t *base_px = f->frame[plane] + yp * f->stride[plane] + xp;
           const int step = pass == 0 ? 1 : f->stride[plane];
           for (int i = 0; i < 4; i++) {
-            uint8_t *s = pass == 0 ? base_px + i * f->stride[plane] : base_px + i;
-            sample_filter(s, step, plane, limit, blimit, thresh, filter_size);
+            uint16_t *s = pass == 0 ? base_px + i * f->stride[plane] : base_px + i;
+            sample_filter(s, step, plane, limit, blimit, thresh, filter_size, f->bd);
           }
         }
     }
@@ -2659,11 +2792,14 @@ static int cdef_dir_rc(int dir, int k, int rc) {
   return rc == 0 ? r : v - r * 144;
 }
 
-int av1_cdef_find_dir(const uint8_t *img, int stride, int *var) {
+/* libaom's cdef_find_dir_c, the samples shifted down by coeff_shift =
+ * bd - 8 first. */
+int av1_cdef_find_dir_hbd(const uint16_t *img, int stride, int *var,
+                          int coeff_shift) {
   int cost[8] = {0}, partial[8][15] = {{0}};
   for (int i = 0; i < 8; i++)
     for (int j = 0; j < 8; j++) {
-      int x = img[i * stride + j] - 128;
+      int x = (img[i * stride + j] >> coeff_shift) - 128;
       partial[0][i + j] += x;
       partial[1][i + j / 2] += x;
       partial[2][i] += x;
@@ -2703,6 +2839,12 @@ int av1_cdef_find_dir(const uint8_t *img, int stride, int *var) {
   return dir;
 }
 
+int av1_cdef_find_dir(const uint8_t *img, int stride, int *var) {
+  uint16_t b[64];
+  widen(img, stride, b, 8, 8, 8);
+  return av1_cdef_find_dir_hbd(b, 8, var, 0);
+}
+
 static int constrain(int diff, int threshold, int damping) {
   if (!threshold) return 0;
   int adj = damping - floor_log2((uint32_t)threshold);
@@ -2715,10 +2857,14 @@ static int constrain(int diff, int threshold, int damping) {
 }
 
 /* CDEF of the w x h block at (y0, x0) of src (taps outside rows x cols
- * unavailable) into dst. */
-void av1_cdef_block(const uint8_t *src, int stride, int rows, int cols,
-                    int y0, int x0, int w, int h, int pri, int sec,
-                    int damping, int dir, uint8_t *dst, int dst_stride) {
+ * unavailable) into dst; pri, sec and damping are the strengths and the
+ * damping at the samples' scale (shifted by coeff_shift = bd - 8), the
+ * primary taps chosen by pri >> coeff_shift. */
+void av1_cdef_block_hbd(const uint16_t *src, int stride, int rows, int cols,
+                        int y0, int x0, int w, int h, int pri, int sec,
+                        int damping, int dir, uint16_t *dst, int dst_stride,
+                        int coeff_shift) {
+  const int32_t *pri_taps = av1_cdef_pri_taps[(pri >> coeff_shift) & 1];
   for (int i = 0; i < h; i++)
     for (int j = 0; j < w; j++) {
       const int x = src[(y0 + i) * stride + x0 + j];
@@ -2729,7 +2875,7 @@ void av1_cdef_block(const uint8_t *src, int stride, int rows, int cols,
           int xx = x0 + j + sign * cdef_dir_rc(dir, k, 1);
           if (xx >= 0 && xx < cols && yy >= 0 && yy < rows) {
             int p = src[yy * stride + xx];
-            sum += av1_cdef_pri_taps[pri & 1][k] * constrain(p - x, pri, damping);
+            sum += pri_taps[k] * constrain(p - x, pri, damping);
             if (p > mx) mx = p;
             if (p < mn) mn = p;
           }
@@ -2746,23 +2892,41 @@ void av1_cdef_block(const uint8_t *src, int stride, int rows, int cols,
           }
         }
       const int y = x + ((8 + sum - (sum < 0)) >> 4);
-      dst[i * dst_stride + j] = (uint8_t)clip3(mn, mx, y);
+      dst[i * dst_stride + j] = (uint16_t)clip3(mn, mx, y);
     }
 }
 
-static void cdef_filter(Frame *f, const uint8_t *src, int plane, int r, int c,
+void av1_cdef_block(const uint8_t *src, int stride, int rows, int cols,
+                    int y0, int x0, int w, int h, int pri, int sec,
+                    int damping, int dir, uint8_t *dst, int dst_stride) {
+  /* the taps lie in rows x cols, the block itself may lie past them */
+  const int nr = rows > y0 + h ? rows : y0 + h, nc = cols > x0 + w ? cols : x0 + w;
+  uint16_t *s = malloc(sizeof(uint16_t) * (size_t)nr * (size_t)stride);
+  uint16_t d[64];
+  if (!s) return;
+  widen(src, stride, s, stride, nc, nr);
+  av1_cdef_block_hbd(s, stride, rows, cols, y0, x0, w, h, pri, sec, damping, dir,
+                     d, 8, 0);
+  narrow(d, 8, dst, dst_stride, w, h);
+  free(s);
+}
+
+static void cdef_filter(Frame *f, const uint16_t *src, int plane, int r, int c,
                         int pri, int sec, int damping, int dir) {
   const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
   const int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy, stride = f->stride[plane];
-  av1_cdef_block(src, stride, (f->mi_rows * 4) >> sy, (f->mi_cols * 4) >> sx,
-                 y0, x0, 8 >> sx, 8 >> sy, pri, sec, damping, dir,
-                 f->frame[plane] + y0 * stride + x0, stride);
+  const int cs = f->bd - 8;
+  av1_cdef_block_hbd(src, stride, (f->mi_rows * 4) >> sy, (f->mi_cols * 4) >> sx,
+                     y0, x0, 8 >> sx, 8 >> sy, pri, sec << cs, damping + cs, dir,
+                     f->frame[plane] + y0 * stride + x0, stride, cs);
 }
 
-/* CDEF over the frame, reading the deblocked planes src. */
-static void cdef(Frame *f, uint8_t *const *src) {
+/* CDEF over the frame, reading the deblocked planes src (libaom's
+ * av1_cdef_filter_fb: the strengths shifted by coeff_shift = bd - 8 before
+ * the luma adjustment, the damping raised by it). */
+static void cdef(Frame *f, uint16_t *const *src) {
   const int32_t *h = f->hdr;
-  const int damping = h[AV1_CDEF_DAMPING];
+  const int damping = h[AV1_CDEF_DAMPING], cs = f->bd - 8;
   for (int r = 0; r < f->mi_rows; r += 2)
     for (int c = 0; c < f->mi_cols; c += 2) {
       const int idx = f->cdef_idx[(r >> 4) * f->cdef_stride + (c >> 4)];
@@ -2772,15 +2936,16 @@ static void cdef(Frame *f, uint8_t *const *src) {
         continue;
       f->stats[AV1_STAT_CDEF_BLOCKS]++;
       int var;
-      const int ydir = av1_cdef_find_dir(src[0] + r * 4 * f->stride[0] + c * 4, f->stride[0], &var);
-      int pri = h[AV1_CDEF_Y_PRI + idx], sec = h[AV1_CDEF_Y_SEC + idx];
+      const int ydir = av1_cdef_find_dir_hbd(src[0] + r * 4 * f->stride[0] + c * 4,
+                                             f->stride[0], &var, cs);
+      int pri = h[AV1_CDEF_Y_PRI + idx] << cs, sec = h[AV1_CDEF_Y_SEC + idx];
       int dir = pri ? ydir : 0;
       int vs = (var >> 6) ? floor_log2((uint32_t)(var >> 6)) : 0;
       if (vs > 12) vs = 12;
       const int adj = var ? (pri * (4 + vs) + 8) >> 4 : 0;
       if (pri || sec) cdef_filter(f, src[0], 0, r, c, adj, sec, damping, dir);
       if (f->planes > 1) {
-        pri = h[AV1_CDEF_UV_PRI + idx];
+        pri = h[AV1_CDEF_UV_PRI + idx] << cs;
         sec = h[AV1_CDEF_UV_SEC + idx];
         dir = pri ? ydir : 0;
         if (pri || sec) {
@@ -2793,39 +2958,67 @@ static void cdef(Frame *f, uint8_t *const *src) {
 
 /* ----------------------------------------- loop restoration: the filters */
 
-/* The Wiener filter at 8 bits (libaom's av1_wiener_convolve_add_src_c at
- * get_conv_params_wiener(8)) of the w x h block at src, whose 3 samples
- * around it are read: vf and hf are the 7 taps of the vertical and the
- * horizontal filter (summing to 0; the source sample is added at the
- * centre with weight 128). Returns 0, or 2 when out of memory. */
-int av1_wiener_filter(const uint8_t *src, int stride, int w, int h,
-                      const int *vf, const int *hf, uint8_t *dst,
-                      int dst_stride) {
+/* The Wiener filter at bd bits (libaom's av1_highbd_wiener_convolve_add_src_c
+ * at get_conv_params_wiener(bd): InterRound0 and InterRound1 3 and 11, or
+ * 5 and 9 at 12 bits) of the w x h block at src, whose 3 samples around it
+ * are read: vf and hf are the 7 taps of the vertical and the horizontal
+ * filter (summing to 0; the source sample is added at the centre with
+ * weight 128). Returns 0, or 2 when out of memory. */
+int av1_wiener_filter_hbd(const uint16_t *src, int stride, int w, int h,
+                          const int *vf, const int *hf, uint16_t *dst,
+                          int dst_stride, int bd) {
+  const int r0 = bd == 12 ? 5 : 3, r1 = bd == 12 ? 9 : 11;
+  const int lim = (1 << (bd + 1 + 7 - r0)) - 1; /* WIENER_CLAMP_LIMIT - 1 */
   int32_t *tmp = malloc(sizeof(int32_t) * (size_t)(h + 6) * (size_t)w);
   if (!tmp) return 2;
   for (int i = -3; i < h + 3; i++) {
-    const uint8_t *row = src + i * stride;
+    const uint16_t *row = src + i * stride;
     for (int j = 0; j < w; j++) {
-      int32_t acc = (row[j] << 7) + (1 << 14);
+      int32_t acc = (row[j] << 7) + (1 << (bd + 6));
       for (int k = 0; k < 7; k++) acc += hf[k] * row[j + k - 3];
-      tmp[(i + 3) * w + j] = clip3(0, 8191, (acc + 4) >> 3);
+      tmp[(i + 3) * w + j] = clip3(0, lim, round2(acc, r0));
     }
   }
   for (int i = 0; i < h; i++)
     for (int j = 0; j < w; j++) {
-      int32_t acc = (tmp[(i + 3) * w + j] << 7) - (1 << 18);
+      int32_t acc = (tmp[(i + 3) * w + j] << 7) - (1 << (bd + r1 - 1));
       for (int k = 0; k < 7; k++) acc += vf[k] * tmp[(i + k) * w + j];
-      dst[i * dst_stride + j] = (uint8_t)clip3(0, 255, (acc + (1 << 10)) >> 11);
+      dst[i * dst_stride + j] = (uint16_t)clip3(0, (1 << bd) - 1, round2(acc, r1));
     }
   free(tmp);
   return 0;
 }
 
+/* The (h + 6) x (w + 6) samples around a w x h block at src widened to 16
+ * bits (malloc'd; NULL when out of memory), for the 8-bit entry points of
+ * the loop restoration filters. */
+static uint16_t *widen_around(const uint8_t *src, int stride, int w, int h) {
+  uint16_t *b = malloc(sizeof(uint16_t) * (size_t)(h + 6) * (size_t)(w + 6));
+  if (b) widen(src - 3 * stride - 3, stride, b, w + 6, w + 6, h + 6);
+  return b;
+}
+
+int av1_wiener_filter(const uint8_t *src, int stride, int w, int h,
+                      const int *vf, const int *hf, uint8_t *dst,
+                      int dst_stride) {
+  uint16_t *b = widen_around(src, stride, w, h);
+  uint16_t *d = malloc(sizeof(uint16_t) * (size_t)w * (size_t)h);
+  int rc = 2;
+  if (b && d) rc = av1_wiener_filter_hbd(b + 3 * (w + 6) + 3, w + 6, w, h, vf,
+                                         hf, d, w, 8);
+  if (!rc) narrow(d, w, dst, dst_stride, w, h);
+  free(b);
+  free(d);
+  return rc;
+}
+
 /* The self-guided filter's A and B (libaom's calculate_intermediate_result)
  * at rows -1 .. h and columns -1 .. w of the block at src, for radius r and
- * scale s, into arrays of (h + 2) x (w + 2). */
-static void sgr_box(const uint8_t *src, int stride, int w, int h, int r, int s,
-                    int32_t *A, int32_t *B) {
+ * scale s, into arrays of (h + 2) x (w + 2); at bd bits the box's sums
+ * of squares and of samples are rounded down by 2 (bd - 8) and bd - 8
+ * bits for the variance, B takes the sum as it is. */
+static void sgr_box(const uint16_t *src, int stride, int w, int h, int r, int s,
+                    int bd, int32_t *A, int32_t *B) {
   const uint32_t n = (uint32_t)((2 * r + 1) * (2 * r + 1));
   for (int i = -1; i <= h; i++)
     for (int j = -1; j <= w; j++) {
@@ -2836,7 +3029,9 @@ static void sgr_box(const uint8_t *src, int stride, int w, int h, int r, int s,
           a += v * v;
           b += v;
         }
-      const uint32_t p = a * n < b * b ? 0 : a * n - b * b;
+      const uint32_t as = (uint32_t)round2(a, 2 * (bd - 8));
+      const uint32_t bs = (uint32_t)round2(b, bd - 8);
+      const uint32_t p = as * n < bs * bs ? 0 : as * n - bs * bs;
       const uint32_t z = (p * (uint32_t)s + (1u << 19)) >> 20;
       const int k = (i + 1) * (w + 2) + j + 1;
       A[k] = av1_x_by_xplus1[z < 255 ? z : 255];
@@ -2845,20 +3040,21 @@ static void sgr_box(const uint8_t *src, int stride, int w, int h, int r, int s,
     }
 }
 
-/* The self-guided filter at 8 bits (libaom's
+/* The self-guided filter at bd bits (libaom's
  * av1_apply_selfguided_restoration_c) of the w x h block at src, whose 3
  * samples around it are read, with parameter set `set` and xqd. Returns 0,
  * or 2 when out of memory. */
-int av1_sgr_filter(const uint8_t *src, int stride, int w, int h, int set,
-                   int xqd0, int xqd1, uint8_t *dst, int dst_stride) {
+int av1_sgr_filter_hbd(const uint16_t *src, int stride, int w, int h, int set,
+                       int xqd0, int xqd1, uint16_t *dst, int dst_stride,
+                       int bd) {
   const int32_t *prm = av1_sgr_params[set];
   const int r0 = prm[0], r1 = prm[1], ws = w + 2;
   const size_t n = (size_t)(h + 2) * (size_t)ws;
   int32_t *buf = malloc(sizeof(int32_t) * 4 * n);
   if (!buf) return 2;
   int32_t *A0 = buf, *B0 = buf + n, *A1 = buf + 2 * n, *B1 = buf + 3 * n;
-  if (r0) sgr_box(src, stride, w, h, r0, prm[2], A0, B0);
-  if (r1) sgr_box(src, stride, w, h, r1, prm[3], A1, B1);
+  if (r0) sgr_box(src, stride, w, h, r0, prm[2], bd, A0, B0);
+  if (r1) sgr_box(src, stride, w, h, r1, prm[3], bd, A1, B1);
   const int xq0 = r0 ? xqd0 : 0;
   const int xq1 = !r1 ? 0 : r0 ? 128 - xqd0 - xqd1 : 128 - xqd1;
   for (int i = 0; i < h; i++)
@@ -2891,10 +3087,23 @@ int av1_sgr_filter(const uint8_t *src, int stride, int w, int h, int set,
         v += xq1 * (((a * x + b + (1 << 8)) >> 9) - u);
       }
       const int16_t out = (int16_t)((v + (1 << 10)) >> 11);
-      dst[i * dst_stride + j] = (uint8_t)clip3(0, 255, out);
+      dst[i * dst_stride + j] = (uint16_t)clip3(0, (1 << bd) - 1, out);
     }
   free(buf);
   return 0;
+}
+
+int av1_sgr_filter(const uint8_t *src, int stride, int w, int h, int set,
+                   int xqd0, int xqd1, uint8_t *dst, int dst_stride) {
+  uint16_t *b = widen_around(src, stride, w, h);
+  uint16_t *d = malloc(sizeof(uint16_t) * (size_t)w * (size_t)h);
+  int rc = 2;
+  if (b && d) rc = av1_sgr_filter_hbd(b + 3 * (w + 6) + 3, w + 6, w, h, set,
+                                      xqd0, xqd1, d, w, 8);
+  if (!rc) narrow(d, w, dst, dst_stride, w, h);
+  free(b);
+  free(d);
+  return rc;
 }
 
 /* Loop restoration of each plane whose frame type is not RESTORE_NONE:
@@ -2902,7 +3111,7 @@ int av1_sgr_filter(const uint8_t *src, int stride, int w, int h, int set,
  * rows above and below a stripe are the deblocked frame's `pre` (the 2
  * nearest, the nearer repeated), the frame's own edges repeat. Returns 0,
  * or 2 when out of memory. */
-static int loop_restoration(Frame *f, uint8_t *const *pre) {
+static int loop_restoration(Frame *f, uint16_t *const *pre) {
   for (int p = 0; p < f->planes; p++) {
     if (!f->hdr[AV1_LR_TYPE + p]) continue;
     const int sx = p ? f->ssx : 0, sy = p ? f->ssy : 0;
@@ -2910,9 +3119,9 @@ static int loop_restoration(Frame *f, uint8_t *const *pre) {
     const int size = f->hdr[AV1_LR_UNIT + p], stride = f->stride[p];
     const int off = 8 >> sy, height = 64 >> sy, bw = pw + 6;
     const int rows = f->lr_rows[p], cols = f->lr_cols[p];
-    const size_t plane_bytes = (size_t)stride * (size_t)f->alloc_h[p];
-    uint8_t *block = malloc((size_t)(height + 6) * (size_t)bw);
-    uint8_t *cdef_out = malloc(plane_bytes);
+    const size_t plane_bytes = sizeof(uint16_t) * (size_t)stride * (size_t)f->alloc_h[p];
+    uint16_t *block = malloc(sizeof(uint16_t) * (size_t)(height + 6) * (size_t)bw);
+    uint16_t *cdef_out = malloc(plane_bytes);
     if (!block || !cdef_out) {
       free(block);
       free(cdef_out);
@@ -2927,22 +3136,22 @@ static int loop_restoration(Frame *f, uint8_t *const *pre) {
       if (y0 >= ph) break;
       for (int y = y0 - 3; y < y1 + 3; y++) {
         const int yy = clip3(0, ph - 1, y);
-        const uint8_t *row;
+        const uint16_t *row;
         if (yy < start)
           row = pre[p] + (start - 2 > yy ? start - 2 : yy) * stride;
         else if (yy > start + height - 1)
           row = pre[p] + (start + height + 1 < yy ? start + height + 1 : yy) * stride;
         else
           row = cdef_out + yy * stride;
-        uint8_t *b = block + (y - y0 + 3) * bw;
+        uint16_t *b = block + (y - y0 + 3) * bw;
         for (int x = -3; x < pw + 3; x++) b[x + 3] = row[clip3(0, pw - 1, x)];
       }
       const int ur = (y0 + off) / size < rows - 1 ? (y0 + off) / size : rows - 1;
       for (int uc = 0; uc < cols && !rc; uc++) {
         const LrUnit *u = &f->lr[p][ur * cols + uc];
         const int x0 = uc * size, x1 = uc == cols - 1 ? pw : x0 + size;
-        const uint8_t *src = block + 3 * bw + 3 + x0;
-        uint8_t *dst = f->frame[p] + y0 * stride + x0;
+        const uint16_t *src = block + 3 * bw + 3 + x0;
+        uint16_t *dst = f->frame[p] + y0 * stride + x0;
         if (u->type == RESTORE_WIENER) {
           int vf[7], hf[7];
           for (int pass = 0; pass < 2; pass++) {
@@ -2953,10 +3162,11 @@ static int loop_restoration(Frame *f, uint8_t *const *pre) {
             t[2] = t[4] = c[2];
             t[3] = -2 * (c[0] + c[1] + c[2]);
           }
-          rc = av1_wiener_filter(src, bw, x1 - x0, y1 - y0, vf, hf, dst, stride);
+          rc = av1_wiener_filter_hbd(src, bw, x1 - x0, y1 - y0, vf, hf, dst, stride,
+                                     f->bd);
         } else if (u->type == RESTORE_SGRPROJ) {
-          rc = av1_sgr_filter(src, bw, x1 - x0, y1 - y0, u->sgr_set, u->coef[0],
-                              u->coef[1], dst, stride);
+          rc = av1_sgr_filter_hbd(src, bw, x1 - x0, y1 - y0, u->sgr_set, u->coef[0],
+                                  u->coef[1], dst, stride, f->bd);
         }
       }
     }
@@ -2970,7 +3180,7 @@ static int loop_restoration(Frame *f, uint8_t *const *pre) {
 /* ------------------------------------------------------------ the frame */
 
 int av1_decode_frame(const int32_t *plan, const uint8_t *data, long len,
-                     uint8_t *y_out, uint8_t *u_out, uint8_t *v_out,
+                     void *y_out, void *u_out, void *v_out,
                      int32_t *stats, char *err, int errlen) {
   Frame F;
   Frame *f = &F;
@@ -2987,6 +3197,7 @@ int av1_decode_frame(const int32_t *plan, const uint8_t *data, long len,
   f->ssx = f->mono ? 1 : plan[AV1_SSX];
   f->ssy = f->mono ? 1 : plan[AV1_SSY];
   f->lossless = plan[AV1_LOSSLESS];
+  f->bd = plan[AV1_BIT_DEPTH];
   f->mi_cols = 2 * ((f->width + 7) >> 3);
   f->mi_rows = 2 * ((f->height + 7) >> 3);
   f->sb4 = plan[AV1_SB128] ? 32 : 16;
@@ -2997,12 +3208,12 @@ int av1_decode_frame(const int32_t *plan, const uint8_t *data, long len,
   const int mi_alloc = (sb_rows * f->sb4 + 1) * f->mi_stride;
   f->cdef_stride = sb_cols * f->sb4 / 16;
   int rc = 2;
-  uint8_t *pre[3] = {NULL, NULL, NULL};
+  uint16_t *pre[3] = {NULL, NULL, NULL};
   Tile *t = calloc(1, sizeof(Tile));
   uint8_t *mi_block = calloc((size_t)mi_alloc, 8);
   f->delta_lf = calloc((size_t)mi_alloc, 4);
   f->pal_size = calloc((size_t)mi_alloc, 2);
-  f->pal_colors = calloc((size_t)mi_alloc, 24);
+  f->pal_colors = calloc((size_t)mi_alloc, 24 * sizeof(uint16_t));
   f->mvs = calloc((size_t)mi_alloc, 2 * sizeof(int16_t));
   if (t) t->above_txfm = malloc((size_t)(f->mi_cols + 64));
   const size_t n_cdef = (size_t)(sb_rows * sb_cols * (f->sb4 / 16) * (f->sb4 / 16));
@@ -3023,7 +3234,7 @@ int av1_decode_frame(const int32_t *plan, const uint8_t *data, long len,
     const int sx = p ? f->ssx : 0, sy = p ? f->ssy : 0;
     f->stride[p] = (sb_cols * f->sb4 * 4) >> sx;
     f->alloc_h[p] = (sb_rows * f->sb4 * 4) >> sy;
-    f->frame[p] = calloc((size_t)f->stride[p] * (size_t)f->alloc_h[p], 1);
+    f->frame[p] = calloc((size_t)f->stride[p] * (size_t)f->alloc_h[p], sizeof(uint16_t));
     f->lf_stride[p] = f->stride[p] / 4;
     f->lf_txsz[p] = calloc((size_t)f->lf_stride[p] * (size_t)(f->alloc_h[p] / 4), 1);
     t->above_ctx[p] = calloc((size_t)(f->mi_cols + 64), 1);
@@ -3060,7 +3271,7 @@ int av1_decode_frame(const int32_t *plan, const uint8_t *data, long len,
                  (plan[AV1_LR_TYPE] || plan[AV1_LR_TYPE + 1] || plan[AV1_LR_TYPE + 2]);
   if (!plan[AV1_NO_CDEF] && (plan[AV1_ENABLE_CDEF] || lr)) {
     for (int p = 0; p < f->planes; p++) { /* the deblocked frame */
-      const size_t n = (size_t)f->stride[p] * (size_t)f->alloc_h[p];
+      const size_t n = sizeof(uint16_t) * (size_t)f->stride[p] * (size_t)f->alloc_h[p];
       pre[p] = malloc(n);
       if (!pre[p]) goto done;
       memcpy(pre[p], f->frame[p], n);
@@ -3068,13 +3279,18 @@ int av1_decode_frame(const int32_t *plan, const uint8_t *data, long len,
     if (plan[AV1_ENABLE_CDEF]) cdef(f, pre);
     if (lr && loop_restoration(f, pre)) goto done;
   }
-  for (int p = 0; p < f->planes; p++) {
-    uint8_t *out = p == 0 ? y_out : p == 1 ? u_out : v_out;
+  for (int p = 0; p < f->planes; p++) { /* uint8 at 8 bits, else uint16 */
+    void *out = p == 0 ? y_out : p == 1 ? u_out : v_out;
     const int sx = p ? f->ssx : 0, sy = p ? f->ssy : 0;
     const size_t w = (size_t)((f->width + sx) >> sx);
     const int h = (f->height + sy) >> sy;
-    for (int y = 0; y < h; y++)
-      memcpy(out + (size_t)y * w, f->frame[p] + (size_t)y * (size_t)f->stride[p], w);
+    for (int y = 0; y < h; y++) {
+      const uint16_t *row = f->frame[p] + (size_t)y * (size_t)f->stride[p];
+      if (f->bd == 8)
+        for (size_t x = 0; x < w; x++) ((uint8_t *)out)[(size_t)y * w + x] = (uint8_t)row[x];
+      else
+        memcpy((uint16_t *)out + (size_t)y * w, row, w * sizeof(uint16_t));
+    }
   }
   rc = 0;
 done:

@@ -75,6 +75,10 @@ NAMED = [
      (4, 5, 2, 21, 5)),
     ("dc_qlookup", "dc_qlookup_QTX", "i16", (256,)),
     ("ac_qlookup", "ac_qlookup_QTX", "i16", (256,)),
+    ("dc_qlookup_10", "dc_qlookup_10_QTX", "i16", (256,)),
+    ("ac_qlookup_10", "ac_qlookup_10_QTX", "i16", (256,)),
+    ("dc_qlookup_12", "dc_qlookup_12_QTX", "i16", (256,)),
+    ("ac_qlookup_12", "ac_qlookup_12_QTX", "i16", (256,)),
     ("filter_intra_taps", "av1_filter_intra_taps", "i8", (5, 8, 8)),
     ("dr_intra_derivative", "dr_intra_derivative", "i16", (90,)),
     ("mode_to_angle_map", "mode_to_angle_map", "u8", (13,)),

@@ -4,29 +4,35 @@ that the port reads otherwise than cv2 5.0 (libavif 1.4.2 over libaom
 over 4096 wide, which libaom splits into tile columns; of one of the kinds
 of `tools/jpeg2000_write_search.py` or a drawing of flat shapes and text
 up to 320 a side, which libaom codes as screen content; in colour, gray or
-with an alpha channel) is written at an IMWRITE_AVIF_QUALITY drawn from 0
-to 100 (100, lossless, in one case in six of the rest) and an
-IMWRITE_AVIF_SPEED drawn from 0 to 10, each cv2's default in one case in
-three. Then the host C library's Y, U and V planes are compared with
-libaom's (`tests/avif_reference.py`, libaom over ctypes), the port's RGB
-with cv2.imdecode's, and, where the image has at most 4,096 pixels, the
-plain decoder's planes with the C library's. One case in four is written
-by Pillow's AVIF writer instead (libavif 1.3.0, speeds 5 to 10), whose
-files reach AV1 tools cv2's do not: the port reads those files as cv2
-does or refuses them by name (a refusal is a difference only for a cv2
-file, or where cv2 returns no image).
+with an alpha channel) is written at an IMWRITE_AVIF_DEPTH drawn from 8,
+10 and 12 (uint16 pixels for 10 and 12: the uint8 image's values
+shifted up, with seeded noise in the new low bits, or, for drawings,
+their own bits repeated, so flat colours stay flat), an
+IMWRITE_AVIF_QUALITY drawn from 0 to 100 (100, lossless, in one case in
+six of the rest) and an IMWRITE_AVIF_SPEED drawn from 0 to 10, each
+cv2's default in one case in three. Then the host C library's Y, U and V
+planes are compared with libaom's (`tests/avif_reference.py`, libaom
+over ctypes), the port's RGB with cv2.imdecode's, and, where the image
+has at most 4,096 pixels, the plain decoder's planes with the C
+library's. One case in four is written by Pillow's AVIF writer instead
+(libavif 1.3.0, speeds 5 to 10, 8 bits), whose files reach AV1 tools
+cv2's do not: the port reads those files as cv2 does or refuses them by
+name (a refusal is a difference only for a cv2 file, or where cv2
+returns no image).
 
     python -m multiposenet_tpu_torch.tools.avif_search \\
         [--count 300] [--seed 0] [--workers 6] [--out FILE]
 
-prints one JSON line: cases, differences ([writer, kind, h, w, channels,
-quality, speed, seed], what differs), the refusals of Pillow files and of
-cv2 files, the count of each tool the C decoder reached over all cases
+prints one JSON line: cases (and cases at each depth), differences
+([writer, kind, h, w, channels, depth, quality, speed, seed], what
+differs), the refusals of Pillow files and of cv2 files, the count of
+each tool the C decoder reached over all cases
 (`csrc/av1.c`'s counters: transform sizes and types, intra modes, filter
 intra, angle deltas, edge filtering and upsampling, delta q and lf,
 tiles, partitions, palette, lossless blocks, restoration units, intra
 block copy; and the frames in TX_MODE_SELECT), the tools no case reached
-and those no cv2 file reached, and seconds. It needs cv2 and the wheel's
+and those no cv2 file reached (over all cases and at each depth), and
+seconds. It needs cv2 and the wheel's
 libaom, so it runs where they are installed, not on the card's machine.
 The CPU tests run `search` on the first cases of a seed.
 """
@@ -63,11 +69,14 @@ def load_reference(path: Path = REFERENCE):
     return module
 
 
+DEPTHS = (8, 10, 12)
+
+
 def cases(count: int, seed: int = 0) -> list[tuple]:
-    """(writer, kind, h, w, channels, quality or None, speed or None,
-    image seed) of `count` seeded images, the kinds in turn; one case in
-    four written by Pillow (at a speed from 5 to 10 drawn from the image
-    seed) rather than cv2."""
+    """(writer, kind, h, w, channels, depth, quality or None, speed or
+    None, image seed) of `count` seeded images, the kinds in turn; one
+    case in four written by Pillow (at 8 bits and a speed from 5 to 10
+    drawn from the image seed) rather than cv2."""
     rng = np.random.default_rng(seed)
     out = []
     for i in range(count):
@@ -80,28 +89,39 @@ def cases(count: int, seed: int = 0) -> list[tuple]:
         quality = None if rng.integers(0, 3) == 0 else 100 if \
             rng.integers(0, 6) == 0 else int(rng.integers(0, 101))
         speed = None if rng.integers(0, 3) == 0 else int(rng.integers(0, 11))
+        depth = DEPTHS[int(rng.integers(0, 3))]
         writer = "pillow" if i % 4 == 3 else "cv2"
         if writer == "pillow":
             quality = 75 if quality is None else min(quality, 99)
-            speed = None
-        out.append((writer, kind, h, w, channels, quality, speed,
+            speed, depth = None, 8
+        out.append((writer, kind, h, w, channels, depth, quality, speed,
                     int(rng.integers(2**31))))
     return out
 
 
-def encode(reference, writer: str, pixels_: np.ndarray, quality, speed,
-           seed: int) -> bytes:
+def encode(reference, writer: str, pixels_: np.ndarray, depth: int, quality,
+           speed, seed: int) -> bytes:
     if writer == "cv2":
-        return reference.imencode_avif(pixels_, quality, speed)
+        return reference.imencode_avif(pixels_, quality, speed,
+                                       None if depth == 8 else depth)
     return reference.pillow_avif(pixels_, quality, 5 + seed % 6)
 
 
 def pixels(kind: str, h: int, w: int, channels: int, seed: int,
-           reference) -> np.ndarray:
-    """The case's uint8 pixels: RGB, gray (the RGB's mean) or RGBA. The
+           reference, depth: int = 8) -> np.ndarray:
+    """The case's pixels: RGB, gray (the RGB's mean) or RGBA, uint8 at 8
+    bits, else uint16 of `depth` bits (`avif_reference.widen`). The
     kind's image is made at least 8 on each side and cropped (photo
     crops wider than the photo come from the photo tiled; drawings are
     the reference module's, cv2's shapes)."""
+    out = _pixels8(kind, h, w, channels, seed, reference)
+    if depth == 8:
+        return out
+    return reference.widen(out, depth, None if kind == "drawing" else seed)
+
+
+def _pixels8(kind: str, h: int, w: int, channels: int, seed: int,
+             reference) -> np.ndarray:
     if kind == "drawing":
         rgb = reference.drawing(h, w, seed)
     elif kind == "photo" and (h > 480 or w > 640):
@@ -148,10 +168,10 @@ def _run(batch: list[tuple], reference: str) -> list:
     module = load_reference(Path(reference))
     out = []
     for case in batch:
-        writer, kind, h, w, channels, quality, speed, seed = case
+        writer, kind, h, w, channels, depth, quality, speed, seed = case
         data = encode(module, writer,
-                      pixels(kind, h, w, channels, seed, module), quality,
-                      speed, seed)
+                      pixels(kind, h, w, channels, seed, module, depth),
+                      depth, quality, speed, seed)
         try:
             differ, stats, txsel = compare(data, module,
                                            h * w <= PLAIN_PIXELS)
@@ -193,7 +213,9 @@ def search(batch: list[tuple], workers: int = 0,
     cv2_rows = [r for r in done if r[0][0] == "cv2"]
     reached = tools(done)
     reached_cv2 = tools(cv2_rows)
+    by_depth = {d: [r for r in done if r[0][5] == d] for d in DEPTHS}
     return {"cases": len(done), "cv2_cases": len(cv2_rows),
+            "cases_by_depth": {d: len(rows) for d, rows in by_depth.items()},
             "plain_cases": sum(r[0][2] * r[0][3] <= PLAIN_PIXELS
                                for r in done),
             "differences": sorted([list(r[0]), r[1]] for r in done if r[1]),
@@ -205,6 +227,9 @@ def search(batch: list[tuple], workers: int = 0,
                                         if not n),
             "tools_not_reached_by_cv2_files": sorted(
                 k for k, n in reached_cv2.items() if not n),
+            "tools_not_reached_by_depth": {
+                d: sorted(k for k, n in tools(rows).items() if not n)
+                for d, rows in by_depth.items() if rows},
             "seconds": time.perf_counter() - t0}
 
 

@@ -1,11 +1,22 @@
 """The plain AV1 intra-frame decoder of the port: `csrc/av1.c` in Python,
-function for function, for the files `utils/avif.py` reads (8-bit 4:2:0,
-monochrome or lossless 4:4:4 key frames with 64x64 or 128x128
-superblocks, without segmentation, superres or film grain).
+function for function, for the files `utils/avif.py` reads (4:2:0,
+monochrome or lossless 4:4:4 key frames of 8, 10 or 12 bits a sample
+with 64x64 or 128x128 superblocks, without segmentation, superres or
+film grain). The planes hold 16 bits a sample at every depth; the
+depth's terms (libaom's high-bit-depth functions) are the quantiser
+tables, the coefficient clamp at 2^(bd+7), the transform clamps (rows
+bd + 8 bits, columns max(bd + 6, 16)), the intra edge bases 2^(bd-1)
+and its neighbours and the clips to 2^bd - 1, palette colours of bd
+bits, the deblocking limits shifted by bd - 8 and its samples offset by
+2^(bd-1), CDEF's strengths, damping and direction search shifted by bd -
+8, and loop restoration's Wiener rounding (3 and 11, or 5 and 9 at 12
+bits) and self-guided variance scaling. The stage functions take `bd`
+(default 8).
 
 `decode_planes_plain(frame)` takes an `avif.Frame` (the sequence and frame
 headers and the tiles' bytes) and returns its Y, U and V planes (U and V
-None when monochrome) as libaom 3.14.1 decodes them: the tiles (libaom's
+None when monochrome; uint8 at 8 bits, else uint16) as libaom 3.14.1
+decodes them: the tiles (libaom's
 entropy decoder and CDF adaptation, partition, intra mode info, palette,
 intra block copy, CDEF indices, delta q and delta lf, restoration units,
 tx size, transform tree and type, coefficients), the prediction,
@@ -126,6 +137,8 @@ def _t():
              "palette_color_index_context_lookup", "sgr_params",
              "x_by_xplus1", "one_by_x", "nmv_context", "inter_ext_tx_cdf",
              "txfm_partition_cdf", "intrabc_cdf", "dc_qlookup", "ac_qlookup",
+             "dc_qlookup_10", "ac_qlookup_10", "dc_qlookup_12",
+             "ac_qlookup_12",
              "filter_intra_taps", "dr_intra_derivative", "mode_to_angle_map",
              "smooth_weights", "cdef_pri_taps", "cdef_sec_taps",
              "cdef_directions_padded", "cospi", "sinpi", "eob_group_start",
@@ -336,16 +349,18 @@ def _bfly(T: list, a: int, b: int, angle: int, flip: int) -> None:
         T[a], T[b] = x, y
 
 
-def _clamp16(v: int) -> int:
-    return -32768 if v < -32768 else 32767 if v > 32767 else v
+def _clamp_bits(v: int, bits: int) -> int:
+    """v clamped to a signed range of `bits` bits (libaom's clamp_value)."""
+    hi = (1 << (bits - 1)) - 1
+    return -hi - 1 if v < -hi - 1 else hi if v > hi else v
 
 
-def _hada(T: list, a: int, b: int, flip: int) -> None:
+def _hada(T: list, a: int, b: int, flip: int, r: int = 16) -> None:
     if flip:
         a, b = b, a
     x, y = T[a], T[b]
-    T[a] = _clamp16(x + y)
-    T[b] = _clamp16(x - y)
+    T[a] = _clamp_bits(x + y, r)
+    T[b] = _clamp_bits(x - y, r)
 
 
 def _brev(nbits: int, x: int) -> int:
@@ -355,13 +370,14 @@ def _brev(nbits: int, x: int) -> int:
     return r
 
 
-def idct(T: list, n: int) -> None:
-    """Inverse DCT of 2^n points in place (csrc/av1.c av1_idct)."""
+def idct(T: list, n: int, r: int = 16) -> None:
+    """Inverse DCT of 2^n points in place, its sums clamped to r bits
+    (csrc/av1.c av1_idct)."""
     n0 = 1 << n
     copy = list(T[:n0])
     for i in range(n0):
         T[i] = copy[_brev(n, i)]
-    B, H = _bfly, _hada
+    B, H = _bfly, functools.partial(_hada, r=r)
     if n == 6:
         for i in range(16):
             B(T, 32 + i, 63 - i, 63 - 4 * _brev(4, i), 0)
@@ -480,13 +496,14 @@ def iadst4(T: list) -> None:
                               round2(x3, 12))
 
 
-def iadst(T: list, n: int) -> None:
-    """Inverse ADST of 8 (n = 3) or 16 (n = 4) points in place."""
+def iadst(T: list, n: int, r: int = 16) -> None:
+    """Inverse ADST of 8 (n = 3) or 16 (n = 4) points in place, its sums
+    clamped to r bits."""
     n0 = 1 << n
     copy = list(T[:n0])
     for i in range(n0):
         T[i] = copy[(i - 1) if i & 1 else (n0 - i - 1)]
-    B, H = _bfly, _hada
+    B, H = _bfly, functools.partial(_hada, r=r)
     if n == 3:
         for i in range(4):
             B(T, 2 * i, 2 * i + 1, 60 - 16 * i, 1)
@@ -530,9 +547,9 @@ def iadst(T: list, n: int) -> None:
         T[i] = -copy[idx] if i & 1 else copy[idx]
 
 
-def _tx1d(T: list, n: int, kind: int) -> None:
+def _tx1d(T: list, n: int, kind: int, r: int) -> None:
     if kind == 0:
-        idct(T, n)
+        idct(T, n, r)
     elif kind == 3:
         for i in range(1 << n):
             if n == 2:
@@ -546,14 +563,17 @@ def _tx1d(T: list, n: int, kind: int) -> None:
     elif n == 2:
         iadst4(T)
     else:
-        iadst(T, n)
+        iadst(T, n, r)
 
 
-def inverse_transform_add(coef, tx: int, tx_type: int,
-                          dst: np.ndarray) -> None:
-    """libaom's av1_inv_txfm2d_add_c: coef column-major over the coded
-    area (min(w,32) x min(h,32)); the residual is added to dst (a uint8
-    view of h x w) and clipped."""
+def inverse_transform_add(coef, tx: int, tx_type: int, dst: np.ndarray,
+                          bd: int = 8) -> None:
+    """libaom's av1_inv_txfm2d_add_c at bd bits a sample: coef
+    column-major over the coded area (min(w,32) x min(h,32)); rows
+    clamped to bd + 8 bits in and through, columns to max(bd + 6, 16);
+    the residual is added to dst (a view of h x w) and clipped to
+    0 .. 2^bd - 1."""
+    row_bits, col_bits = bd + 8, max(bd + 6, 16)
     lw, lh = TX_WLOG2[tx], TX_HLOG2[tx]
     w, h = 1 << lw, 1 << lh
     cw, ch = min(w, 32), min(h, 32)
@@ -567,16 +587,16 @@ def inverse_transform_add(coef, tx: int, tx_type: int,
             v = int(coef[c * ch + r]) if r < ch and c < cw else 0
             if rect:
                 v = round2(v * 2896, 12)
-            row.append(_clamp16(v))
-        _tx1d(row, lw, horz)
+            row.append(_clamp_bits(v, row_bits))
+        _tx1d(row, lw, horz, row_bits)
         buf.append([round2(v, shift) for v in row])
     for c in range(w):
         sc = w - 1 - c if horz == 2 else c
-        col = [_clamp16(buf[r][sc]) for r in range(h)]
-        _tx1d(col, lh, vert)
+        col = [_clamp_bits(buf[r][sc], col_bits) for r in range(h)]
+        _tx1d(col, lh, vert, col_bits)
         for r in range(h):
             v = round2(col[h - 1 - r if vert == 2 else r], 4)
-            dst[r, c] = clip3(0, 255, int(dst[r, c]) + v)
+            dst[r, c] = clip3(0, (1 << bd) - 1, int(dst[r, c]) + v)
 
 
 def _wht4(a: int, c: int, d: int, b: int) -> tuple:
@@ -590,11 +610,11 @@ def _wht4(a: int, c: int, d: int, b: int) -> tuple:
     return a, b, c, d
 
 
-def iwht_add(coef, dst: np.ndarray) -> None:
+def iwht_add(coef, dst: np.ndarray, bd: int = 8) -> None:
     """libaom's av1_highbd_iwht4x4_16_add_c, the lossless inverse
     Walsh-Hadamard transform: coef column-major (4x4), rows first with
-    the shift of 2; the residual is added to dst (a uint8 view of 4 x 4)
-    and clipped."""
+    the shift of 2; the residual is added to dst (a view of 4 x 4) and
+    clipped to 0 .. 2^bd - 1."""
     tmp = [0] * 16
     for i in range(4):  # row i
         out = _wht4(*(int(coef[4 * k + i]) >> 2 for k in range(4)))
@@ -603,7 +623,7 @@ def iwht_add(coef, dst: np.ndarray) -> None:
     for i in range(4):  # column i
         out = _wht4(*tmp[4 * i:4 * i + 4])
         for k in range(4):
-            dst[k, i] = clip3(0, 255, int(dst[k, i]) + out[k])
+            dst[k, i] = clip3(0, (1 << bd) - 1, int(dst[k, i]) + out[k])
 
 
 # --- the frame and its tiles -------------------------------------------------
@@ -615,6 +635,7 @@ class _Frame:
         self.h = h
         self.width, self.height = h.width, h.height
         self.planes = 1 if s.mono else 3
+        self.bd = s.bit_depth
         self.ssx, self.ssy = (1, 1) if s.mono else (s.ssx, s.ssy)
         self.lossless = h.lossless
         self.filter_intra = s.filter_intra
@@ -657,7 +678,7 @@ class _Frame:
             sx = self.ssx if p else 0
             sy = self.ssy if p else 0
             ph, pw = (sbr * sb4 * 4) >> sy, (sbc * sb4 * 4) >> sx
-            self.frame.append(np.zeros((ph, pw), np.uint8))
+            self.frame.append(np.zeros((ph, pw), np.uint16))
             self.lf_txsz.append(np.zeros((ph // 4, pw // 4), np.int64))
 
 
@@ -763,9 +784,10 @@ def edge_filter(edge: _Edge, sz: int, strength: int) -> None:
         edge[i - 1] = (s + 8) >> 4
 
 
-def edge_upsample(buf: _Edge, numpx: int) -> None:
+def edge_upsample(buf: _Edge, numpx: int, bd: int = 8) -> None:
     """The intra edge upsampling of buf[-1 .. numpx-1] in place, into
-    buf[-2 .. 2 numpx - 2] (csrc/av1.c av1_edge_upsample)."""
+    buf[-2 .. 2 numpx - 2], clipped to bd bits (csrc/av1.c
+    av1_edge_upsample)."""
     dup = [0] * (numpx + 3)
     dup[0] = buf[-1]
     for i in range(-1, numpx):
@@ -774,14 +796,14 @@ def edge_upsample(buf: _Edge, numpx: int) -> None:
     buf[-2] = dup[0]
     for i in range(numpx):
         s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3]
-        buf[2 * i - 1] = clip3(0, 255, round2(s, 4))
+        buf[2 * i - 1] = clip3(0, (1 << bd) - 1, round2(s, 4))
         buf[2 * i] = dup[i + 2]
 
 
-def filter_intra_predict(above, left, w: int, h: int,
-                         mode: int) -> np.ndarray:
+def filter_intra_predict(above, left, w: int, h: int, mode: int,
+                         bd: int = 8) -> np.ndarray:
     """Filter intra of a w x h block from its edges (above[-1] the
-    corner; csrc/av1.c av1_filter_intra_predict)."""
+    corner), clipped to bd bits (csrc/av1.c av1_filter_intra_predict)."""
     taps = _t()["filter_intra_taps"][mode]
     out = np.zeros((h, w), np.int64)
     for i2 in range(h >> 1):
@@ -802,7 +824,7 @@ def filter_intra_predict(above, left, w: int, h: int,
             for i in range(8):
                 pr = sum(taps[i][j] * p[j] for j in range(7))
                 out[(i2 << 1) + (i >> 2), (j4 << 2) + (i & 3)] = clip3(
-                    0, 255, round2signed(pr, 4))
+                    0, (1 << bd) - 1, round2signed(pr, 4))
     return out
 
 
@@ -861,9 +883,9 @@ def dr_predict(above, left, w: int, h: int, up_above: int, up_left: int,
 
 
 def nondir_predict(above, left, w: int, h: int, mode: int, have_left: bool,
-                   have_above: bool) -> np.ndarray:
+                   have_above: bool, bd: int = 8) -> np.ndarray:
     """DC, smooth, smooth V, smooth H and Paeth prediction from the edges
-    (csrc/av1.c av1_nondir_predict)."""
+    (DC without either edge: 2^(bd-1); csrc/av1.c av1_nondir_predict)."""
     tb = _t()
     lw, lh = w.bit_length() - 1, h.bit_length() - 1
     out = np.zeros((h, w), np.int64)
@@ -892,7 +914,7 @@ def nondir_predict(above, left, w: int, h: int, mode: int, have_left: bool,
         elif have_above:
             avg = (sum(above[k] for k in range(w)) + (w >> 1)) >> lw
         else:
-            avg = 128
+            avg = 1 << (bd - 1)
         out[:] = avg
     else:
         for i in range(h):
@@ -920,19 +942,20 @@ def _predict_intra(t: _Tile, plane: int, x: int, y: int, have_left: bool,
     max_x = ((f.mi_cols * 4) >> sx) - 1
     max_y = ((f.mi_rows * 4) >> sy) - 1
     fr = f.frame[plane]
+    base = 1 << (f.bd - 1)
     above, left = _Edge(2 * 128 + 32), _Edge(2 * 128 + 32)
     for i in range(w + h):
         if not have_above and have_left:
             above[i] = int(fr[y, x - 1])
         elif not have_above:
-            above[i] = 127
+            above[i] = base - 1
         else:
             lim = min(x + (2 * w if have_above_rt else w) - 1, max_x)
             above[i] = int(fr[y - 1, min(x + i, lim)])
         if not have_left and have_above:
             left[i] = int(fr[y - 1, x])
         elif not have_left:
-            left[i] = 129
+            left[i] = base + 1
         else:
             lim = min(y + (2 * h if have_below_lt else h) - 1, max_y)
             left[i] = int(fr[min(y + i, lim), x - 1])
@@ -943,10 +966,10 @@ def _predict_intra(t: _Tile, plane: int, x: int, y: int, have_left: bool,
     elif have_left:
         corner = int(fr[y, x - 1])
     else:
-        corner = 128
+        corner = base
     above[-1] = left[-1] = corner
     if plane == 0 and t.use_filter_intra:
-        out = filter_intra_predict(above, left, w, h, t.filter_mode)
+        out = filter_intra_predict(above, left, w, h, t.filter_mode, f.bd)
     elif _is_directional(mode):
         delta = t.angle_y if plane == 0 else t.angle_uv
         angle = tb["mode_to_angle_map"][mode] + delta * 3
@@ -968,21 +991,24 @@ def _predict_intra(t: _Tile, plane: int, x: int, y: int, have_left: bool,
             kind = _filter_type(t, plane)
             up_above = _use_upsample(w, h, kind, angle - 90)
             if up_above:
-                edge_upsample(above, w + (h if angle < 90 else 0))
+                edge_upsample(above, w + (h if angle < 90 else 0), f.bd)
             up_left = _use_upsample(w, h, kind, angle - 180)
             if up_left:
-                edge_upsample(left, h + (w if angle > 180 else 0))
+                edge_upsample(left, h + (w if angle > 180 else 0), f.bd)
         out = dr_predict(above, left, w, h, up_above, up_left, angle)
     else:
-        out = nondir_predict(above, left, w, h, mode, have_left, have_above)
+        out = nondir_predict(above, left, w, h, mode, have_left, have_above,
+                             f.bd)
     fr[y:y + h, x:x + w] = out
 
 
 def cfl_predict(dc: np.ndarray, luma: np.ndarray, max_w: int, max_h: int,
-                alpha: int, ssx: int = 1, ssy: int = 1) -> np.ndarray:
+                alpha: int, ssx: int = 1, ssy: int = 1,
+                bd: int = 8) -> np.ndarray:
     """Chroma from luma of the chroma block whose DC prediction is `dc`,
     from the co-located luma (subsampled by ssx, ssy) of which max_w x
-    max_h samples are decoded (csrc/av1.c av1_cfl_predict)."""
+    max_h samples are decoded, clipped to bd bits (csrc/av1.c
+    av1_cfl_predict)."""
     h, w = dc.shape
     L = [[0] * w for _ in range(h)]
     total = 0
@@ -1001,7 +1027,7 @@ def cfl_predict(dc: np.ndarray, luma: np.ndarray, max_w: int, max_h: int,
     out = np.empty((h, w), np.int64)
     for i in range(h):
         for j in range(w):
-            out[i, j] = clip3(0, 255, int(dc[i, j])
+            out[i, j] = clip3(0, (1 << bd) - 1, int(dc[i, j])
                               + round2signed(alpha * (L[i][j] - avg), 6))
     return out
 
@@ -1014,7 +1040,7 @@ def _predict_cfl(t: _Tile, plane: int, sx0: int, sy0: int, tx: int) -> None:
     fr[sy0:sy0 + h, sx0:sx0 + w] = cfl_predict(
         fr[sy0:sy0 + h, sx0:sx0 + w], f.frame[0][ly:, lx:],
         t.max_luma_w - lx, t.max_luma_h - ly,
-        t.cfl_u if plane == 1 else t.cfl_v, f.ssx, f.ssy)
+        t.cfl_u if plane == 1 else t.cfl_v, f.ssx, f.ssy, f.bd)
 
 
 def _tx_class(tx_type: int) -> int:
@@ -1200,14 +1226,17 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
         if qm_level < 15 and tx_type < IDTX:
             iqm = tb["iwt_matrix"][qm_level][int(plane > 0)][QM_OFFSET[tx]:]
         q = t.current_q
+        depth = "" if f.bd == 8 else f"_{f.bd}"  # Dc_Qlookup[(bd - 8) / 2]
+        dcq, acq = tb["dc_qlookup" + depth], tb["ac_qlookup" + depth]
+        coef_max = (1 << (7 + f.bd)) - 1  # libaom's max_value
         if plane == 0:
-            dq_dc = tb["dc_qlookup"][clip3(0, 255, q + hdr.dq[0])]
-            dq_ac = tb["ac_qlookup"][clip3(0, 255, q)]
+            dq_dc = dcq[clip3(0, 255, q + hdr.dq[0])]
+            dq_ac = acq[clip3(0, 255, q)]
         else:
             dcd = hdr.dq[1] if plane == 1 else hdr.dq[3]
             acd = hdr.dq[2] if plane == 1 else hdr.dq[4]
-            dq_dc = tb["dc_qlookup"][clip3(0, 255, q + dcd)]
-            dq_ac = tb["ac_qlookup"][clip3(0, 255, q + acd)]
+            dq_dc = dcq[clip3(0, 255, q + dcd)]
+            dq_ac = acq[clip3(0, 255, q + acd)]
         npix = 1 << (lw + lh)
         dq_shift = (npix > 256) + (npix > 1024)
         for c in range(eob):
@@ -1240,7 +1269,7 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
             if iqm is not None:
                 dqv = (int(iqm[pos]) * dqv + 16) >> 5
             dq = ((level * dqv) & 0xFFFFFF) >> dq_shift
-            coef[pos] = clip3(-32768, 32767, -dq if sign else dq)
+            coef[pos] = clip3(-coef_max - 1, coef_max, -dq if sign else dq)
         cul = min(cul, 63)
         if dc_val < 0:
             cul |= 1 << 6
@@ -1637,8 +1666,9 @@ def _palette_cache(t: _Tile, plane: int) -> list:
 
 def _palette_colours(t: _Tile, plane: int, n: int) -> list:
     """The Y (plane 0) or U colours of a palette: those taken from the
-    cache, then a literal and deltas (at least 1 apart for Y), sorted."""
-    ec = t.ec
+    cache, then a literal of bd bits and deltas of bd - 3 bits or more
+    (at least 1 apart for Y), sorted."""
+    ec, bd = t.ec, t.f.bd
     cached = []
     for v in _palette_cache(t, plane):
         if len(cached) >= n:
@@ -1647,13 +1677,13 @@ def _palette_colours(t: _Tile, plane: int, n: int) -> list:
             cached.append(v)
     coded = []
     if len(cached) < n:
-        coded.append(ec.literal(8))
+        coded.append(ec.literal(bd))
         if len(cached) + 1 < n:
             step = 1 if plane == 0 else 0
-            bits = 5 + ec.literal(2)
-            room = 256 - coded[0] - step
+            bits = bd - 3 + ec.literal(2)
+            room = (1 << bd) - coded[0] - step
             while len(cached) + len(coded) < n:
-                v = min(coded[-1] + ec.literal(bits) + step, 255)
+                v = min(coded[-1] + ec.literal(bits) + step, (1 << bd) - 1)
                 room -= v - coded[-1]
                 coded.append(v)
                 bits = min(bits, _ceil_log2(room))
@@ -1676,16 +1706,17 @@ def _palette_mode_info(t: _Tile) -> None:
         n = ec.symbol(cdf["palette_uv_size"][bctx], 7) + 2
         t.pal_size[1] = n
         t.pal_colors[1][:n] = _palette_colours(t, 1, n)
-        if ec.bit():  # V by deltas, modulo 256
-            bits = 4 + ec.literal(2)
-            v = [ec.literal(8)]
+        bd = f.bd
+        if ec.bit():  # V by deltas, modulo 2^bd
+            bits = bd - 4 + ec.literal(2)
+            v = [ec.literal(bd)]
             for _ in range(1, n):
                 d = ec.literal(bits)
                 if d and ec.bit():
                     d = -d
-                v.append((v[-1] + d) % 256)
+                v.append((v[-1] + d) % (1 << bd))
         else:
-            v = [ec.literal(8) for _ in range(n)]
+            v = [ec.literal(bd) for _ in range(n)]
         t.pal_colors[2][:n] = v
 
 
@@ -1836,9 +1867,9 @@ def _transform_block(t: _Tile, plane: int, base_x: int, base_y: int,
             w, h = 1 << TX_WLOG2[tx], 1 << TX_HLOG2[tx]
             dst = f.frame[plane][start_y:start_y + h, start_x:start_x + w]
             if f.lossless:
-                iwht_add(coef, dst)
+                iwht_add(coef, dst, f.bd)
             else:
-                inverse_transform_add(coef, tx, tx_type, dst)
+                inverse_transform_add(coef, tx, tx_type, dst, f.bd)
     f.lf_txsz[plane][row >> sy:(row >> sy) + step_y,
                      col >> sx:(col >> sx) + step_x] = tx
     for i in range(step_y):
@@ -2175,14 +2206,23 @@ def _filter_level(f: _Frame, row: int, col: int, plane: int,
     return lvl
 
 
-def _c8(x: int) -> int:
-    return clip3(-128, 127, x)
+def _c8(x: int, o: int) -> int:
+    """libaom's signed_char_clamp_high: x clamped to -o .. o - 1, o =
+    2^(bd-1)."""
+    return clip3(-o, o - 1, x)
 
 
 def lf_edge(s: list, plane: int, limit: int, blimit: int, thresh: int,
-            filter_size: int) -> list:
+            filter_size: int, bd: int = 8) -> list:
     """One line of samples across an edge (s[8] is q0, s[7] p0) filtered
-    as the deblocking filter of that size filters it; returns the line."""
+    as the deblocking filter of that size filters it at bd bits; limit,
+    blimit and thresh are at 8 bits' scale, shifted by bd - 8 here as
+    libaom's highbd masks shift them, and highbd_filter4 offsets and
+    clamps the samples by 2^(bd-1) (its own shifts stay those of 8
+    bits). Returns the line."""
+    sh = bd - 8
+    limit, blimit, thresh, one, o = (limit << sh, blimit << sh, thresh << sh,
+                                     1 << sh, 128 << sh)
     s = list(s)
     q = [s[8 + k] for k in range(7)]
     p = [s[7 - k] for k in range(7)]
@@ -2201,24 +2241,25 @@ def lf_edge(s: list, plane: int, limit: int, blimit: int, thresh: int,
         return s
     flat = flat2 = False
     if filter_size >= 8:
-        flat = (abs(p[1] - p[0]) <= 1 and abs(q[1] - q[0]) <= 1
-                and abs(p[2] - p[0]) <= 1 and abs(q[2] - q[0]) <= 1)
+        flat = (abs(p[1] - p[0]) <= one and abs(q[1] - q[0]) <= one
+                and abs(p[2] - p[0]) <= one and abs(q[2] - q[0]) <= one)
         if length >= 8:
-            flat = flat and abs(p[3] - p[0]) <= 1 and abs(q[3] - q[0]) <= 1
+            flat = flat and abs(p[3] - p[0]) <= one and \
+                abs(q[3] - q[0]) <= one
     if filter_size >= 16:
-        flat2 = all(abs(p[k] - p[0]) <= 1 and abs(q[k] - q[0]) <= 1
+        flat2 = all(abs(p[k] - p[0]) <= one and abs(q[k] - q[0]) <= one
                     for k in (4, 5, 6))
     if filter_size == 4 or not flat:
-        ps1, ps0, qs0, qs1 = p[1] - 128, p[0] - 128, q[0] - 128, q[1] - 128
-        filt = _c8(ps1 - qs1) if hev else 0
-        filt = _c8(filt + 3 * (qs0 - ps0))
-        f1, f2 = _c8(filt + 4) >> 3, _c8(filt + 3) >> 3
-        s[8] = _c8(qs0 - f1) + 128
-        s[7] = _c8(ps0 + f2) + 128
+        ps1, ps0, qs0, qs1 = p[1] - o, p[0] - o, q[0] - o, q[1] - o
+        filt = _c8(ps1 - qs1, o) if hev else 0
+        filt = _c8(filt + 3 * (qs0 - ps0), o)
+        f1, f2 = _c8(filt + 4, o) >> 3, _c8(filt + 3, o) >> 3
+        s[8] = _c8(qs0 - f1, o) + o
+        s[7] = _c8(ps0 + f2, o) + o
         if not hev:
             ff = round2(f1, 1)
-            s[9] = _c8(qs1 - ff) + 128
-            s[6] = _c8(ps1 + ff) + 128
+            s[9] = _c8(qs1 - ff, o) + o
+            s[6] = _c8(ps1 + ff, o) + o
         return s
     log2size = 3 if (filter_size == 8 or not flat2) else 4
     n = 6 if log2size == 4 else 3 if plane == 0 else 2
@@ -2285,7 +2326,7 @@ def _loop_filter(f: _Frame) -> None:
                             for k in range(lo, min(hi, fr.shape[1])):
                                 line[k - xs + 8] = int(fr[yy, k])
                             out = lf_edge(line, plane, limit, blimit, thresh,
-                                          size)
+                                          size, f.bd)
                             for k in range(max(0, xs - 7), min(xs + 7,
                                                                fr.shape[1])):
                                 fr[yy, k] = out[k - xs + 8]
@@ -2296,7 +2337,7 @@ def _loop_filter(f: _Frame) -> None:
                                                                fr.shape[0])):
                                 line[k - ys + 8] = int(fr[k, xx])
                             out = lf_edge(line, plane, limit, blimit, thresh,
-                                          size)
+                                          size, f.bd)
                             for k in range(max(0, ys - 7), min(ys + 7,
                                                                fr.shape[0])):
                                 fr[k, xx] = out[k - ys + 8]
@@ -2311,13 +2352,14 @@ def _cdef_dir_rc(d: int, k: int) -> tuple[int, int]:
     return r, v - r * 144
 
 
-def cdef_find_dir(img: np.ndarray) -> tuple[int, int]:
-    """libaom's cdef_find_dir_c on an 8x8 block: (direction, variance)."""
+def cdef_find_dir(img: np.ndarray, coeff_shift: int = 0) -> tuple[int, int]:
+    """libaom's cdef_find_dir_c on an 8x8 block, its samples shifted down
+    by coeff_shift = bd - 8: (direction, variance)."""
     cost = [0] * 8
     partial = [[0] * 15 for _ in range(8)]
     for i in range(8):
         for j in range(8):
-            x = int(img[i, j]) - 128
+            x = (int(img[i, j]) >> coeff_shift) - 128
             partial[0][i + j] += x
             partial[1][i + j // 2] += x
             partial[2][i] += x
@@ -2361,10 +2403,14 @@ def _constrain(diff: int, threshold: int, damping: int) -> int:
 
 
 def cdef_block(src: np.ndarray, y0: int, x0: int, w: int, h: int, pri: int,
-               sec: int, damping: int, d: int, bounds: tuple) -> np.ndarray:
+               sec: int, damping: int, d: int, bounds: tuple,
+               coeff_shift: int = 0) -> np.ndarray:
     """The w x h block at (y0, x0) of src filtered by CDEF (taps outside
-    bounds = (rows, cols) are unavailable); returns the block."""
+    bounds = (rows, cols) are unavailable); pri, sec and damping are at
+    the samples' scale (shifted by coeff_shift = bd - 8), the primary
+    taps chosen by pri >> coeff_shift. Returns the block."""
     tb = _t()
+    pri_taps = tb["cdef_pri_taps"][(pri >> coeff_shift) & 1]
     rows, cols = bounds
     out = np.zeros((h, w), np.int64)
     for i in range(h):
@@ -2377,8 +2423,7 @@ def cdef_block(src: np.ndarray, y0: int, x0: int, w: int, h: int, pri: int,
                     yy, xx = y0 + i + sign * r, x0 + j + sign * c
                     if 0 <= xx < cols and 0 <= yy < rows:
                         p = int(src[yy, xx])
-                        tot += tb["cdef_pri_taps"][pri & 1][k] * \
-                            _constrain(p - x, pri, damping)
+                        tot += pri_taps[k] * _constrain(p - x, pri, damping)
                         mx, mn = max(mx, p), min(mn, p)
                     for off in (-2, 2):
                         r, c = _cdef_dir_rc((d + off) & 7, k)
@@ -2393,59 +2438,78 @@ def cdef_block(src: np.ndarray, y0: int, x0: int, w: int, h: int, pri: int,
 
 
 def _cdef(f: _Frame) -> None:
+    """CDEF over the frame (libaom's av1_cdef_filter_fb: the strengths
+    shifted by coeff_shift = bd - 8 before the luma adjustment, the
+    damping raised by it)."""
     h = f.h
     if not f.enable_cdef:
         return
+    cs = f.bd - 8
     src = [p.copy() for p in f.frame]
     for r in range(0, f.mi_rows, 2):
         for c in range(0, f.mi_cols, 2):
             idx = int(f.cdef_idx[r >> 4, c >> 4])
             if idx == -1 or f.skip[r:r + 2, c:c + 2].all():
                 continue
-            d, var = cdef_find_dir(src[0][r * 4:r * 4 + 8, c * 4:c * 4 + 8])
+            d, var = cdef_find_dir(src[0][r * 4:r * 4 + 8, c * 4:c * 4 + 8],
+                                   cs)
             pri, sec = h.cdef_y[idx]
+            pri, sec = pri << cs, sec << cs
             vs = min((var >> 6).bit_length() - 1, 12) if var >> 6 else 0
             adj = (pri * (4 + vs) + 8) >> 4 if var else 0
             if pri or sec:
                 f.frame[0][r * 4:r * 4 + 8, c * 4:c * 4 + 8] = cdef_block(
-                    src[0], r * 4, c * 4, 8, 8, adj, sec, h.cdef_damping,
-                    d if pri else 0, (f.mi_rows * 4, f.mi_cols * 4))
+                    src[0], r * 4, c * 4, 8, 8, adj, sec, h.cdef_damping + cs,
+                    d if pri else 0, (f.mi_rows * 4, f.mi_cols * 4), cs)
             if f.planes > 1:
                 pri, sec = h.cdef_uv[idx]
+                pri, sec = pri << cs, sec << cs
                 if pri or sec:
                     y0, x0 = (r * 4) >> f.ssy, (c * 4) >> f.ssx
                     bh, bw = 8 >> f.ssy, 8 >> f.ssx
                     for p in (1, 2):
                         f.frame[p][y0:y0 + bh, x0:x0 + bw] = cdef_block(
                             src[p], y0, x0, bw, bh, pri, sec,
-                            h.cdef_damping - 1, d if pri else 0,
+                            h.cdef_damping - 1 + cs, d if pri else 0,
                             ((f.mi_rows * 4) >> f.ssy,
-                             (f.mi_cols * 4) >> f.ssx))
+                             (f.mi_cols * 4) >> f.ssx), cs)
 
 
 # --- loop restoration: the filters -----------------------------------------
 
 
-def wiener_filter(src: np.ndarray, vfilter, hfilter) -> np.ndarray:
-    """The Wiener filter at 8 bits (libaom's av1_wiener_convolve_add_src_c
-    at get_conv_params_wiener(8)): src holds the block with 3 samples
-    around it; returns the (h, w) block. The 7 taps of each filter sum
-    to 0; the source sample is added at the centre (weight 128)."""
+def _samples(x: np.ndarray, bd: int) -> np.ndarray:
+    """A filter's output as samples: uint8 at 8 bits, else uint16."""
+    return x.astype(np.uint8 if bd == 8 else np.uint16)
+
+
+def wiener_filter(src: np.ndarray, vfilter, hfilter,
+                  bd: int = 8) -> np.ndarray:
+    """The Wiener filter at bd bits (libaom's
+    av1_highbd_wiener_convolve_add_src_c at get_conv_params_wiener(bd):
+    InterRound0 and InterRound1 3 and 11, or 5 and 9 at 12 bits): src
+    holds the block with 3 samples around it; returns the (h, w) block.
+    The 7 taps of each filter sum to 0; the source sample is added at the
+    centre (weight 128)."""
+    r0, r1 = (5, 9) if bd == 12 else (3, 11)
     p = src.astype(np.int64)
     h, w = p.shape[0] - 6, p.shape[1] - 6
-    acc = (p[:, 3:3 + w] << 7) + (1 << 14)
+    acc = (p[:, 3:3 + w] << 7) + (1 << (bd + 6))
     for k in range(7):
         acc += int(hfilter[k]) * p[:, k:k + w]
-    tmp = np.clip((acc + 4) >> 3, 0, 8191)
-    acc = (tmp[3:3 + h] << 7) - (1 << 18)
+    tmp = np.clip((acc + (1 << (r0 - 1))) >> r0, 0, (1 << (bd + 8 - r0)) - 1)
+    acc = (tmp[3:3 + h] << 7) - (1 << (bd + r1 - 1))
     for k in range(7):
         acc += int(vfilter[k]) * tmp[k:k + h]
-    return np.clip((acc + (1 << 10)) >> 11, 0, 255).astype(np.uint8)
+    return _samples(np.clip((acc + (1 << (r1 - 1))) >> r1, 0, (1 << bd) - 1),
+                    bd)
 
 
-def _box_ab(p: np.ndarray, h: int, w: int, r: int, s: int):
+def _box_ab(p: np.ndarray, h: int, w: int, r: int, s: int, bd: int = 8):
     """The self-guided filter's A and B at rows and columns -1 .. h, w
-    of the block (src padded by 3), for radius r and scale s."""
+    of the block (src padded by 3), for radius r and scale s; at bd bits
+    the sums of squares and of samples are rounded down by 2 (bd - 8) and
+    bd - 8 bits for the variance, B takes the sum as it is."""
     tb = _t()
     n = (2 * r + 1) ** 2
     b = np.zeros((h + 2, w + 2), np.int64)
@@ -2455,15 +2519,18 @@ def _box_ab(p: np.ndarray, h: int, w: int, r: int, s: int):
             q = p[2 + dy:4 + h + dy, 2 + dx:4 + w + dx]
             b += q
             a += q * q
-    pv = np.maximum(a * n - b * b, 0)
+    sa, sb = 2 * (bd - 8), bd - 8
+    a_s = (a + ((1 << sa) >> 1)) >> sa
+    b_s = (b + ((1 << sb) >> 1)) >> sb
+    pv = np.maximum(a_s * n - b_s * b_s, 0)
     z = ((pv * s + (1 << 19)) & 0xFFFFFFFF) >> 20  # uint32, as libaom
     aa = np.array(tb["x_by_xplus1"], np.int64)[np.minimum(z, 255)]
     bb = ((256 - aa) * b * tb["one_by_x"][n - 1] + (1 << 11)) >> 12
     return aa, bb
 
 
-def sgr_filter(src: np.ndarray, sgr_set: int, xqd) -> np.ndarray:
-    """The self-guided filter at 8 bits (libaom's
+def sgr_filter(src: np.ndarray, sgr_set: int, xqd, bd: int = 8) -> np.ndarray:
+    """The self-guided filter at bd bits (libaom's
     av1_apply_selfguided_restoration_c): src holds the block with 3
     samples around it; returns the (h, w) block."""
     p = src.astype(np.int64)
@@ -2473,7 +2540,7 @@ def sgr_filter(src: np.ndarray, sgr_set: int, xqd) -> np.ndarray:
     u = x << 4
     v = u << 7
     if r0:  # radius 2, A and B on every other row
-        a, b = _box_ab(p, h, w, r0, s0)
+        a, b = _box_ab(p, h, w, r0, s0, bd)
         flt = np.empty((h, w), np.int64)
         for i in range(h):
             if i & 1:
@@ -2488,7 +2555,7 @@ def sgr_filter(src: np.ndarray, sgr_set: int, xqd) -> np.ndarray:
                 flt[i] = (fa * x[i] + fb + (1 << 8)) >> 9
         v = v + xqd[0] * (flt - u)
     if r1:  # radius 1
-        a, b = _box_ab(p, h, w, r1, s1)
+        a, b = _box_ab(p, h, w, r1, s1, bd)
 
         def cross(m):
             return (m[1:h + 1, 1:w + 1] + m[1:h + 1, :w] + m[1:h + 1, 2:]
@@ -2499,7 +2566,7 @@ def sgr_filter(src: np.ndarray, sgr_set: int, xqd) -> np.ndarray:
         v = v + xq1 * (flt - u)
     out = (v + (1 << 10)) >> 11
     out = ((out + 32768) & 0xFFFF) - 32768  # libaom's int16_t
-    return np.clip(out, 0, 255).astype(np.uint8)
+    return _samples(np.clip(out, 0, (1 << bd) - 1), bd)
 
 
 def _loop_restoration(f: _Frame, deblocked: list) -> None:
@@ -2539,9 +2606,9 @@ def _loop_restoration(f: _Frame, deblocked: list) -> None:
                 x1 = pw if uc == len(units[ur]) - 1 else x0 + size
                 part = block[:, x0:x1 + 6]
                 if kind == RESTORE_WIENER:
-                    out = wiener_filter(part, coef[0], coef[1])
+                    out = wiener_filter(part, coef[0], coef[1], f.bd)
                 elif kind == RESTORE_SGRPROJ:
-                    out = sgr_filter(part, *coef)
+                    out = sgr_filter(part, *coef, f.bd)
                 else:
                     continue
                 f.frame[plane][y0:y1, x0:x1] = out
@@ -2551,10 +2618,11 @@ def _loop_restoration(f: _Frame, deblocked: list) -> None:
 
 
 def decode_planes_plain(frame, cdef: bool = True, restoration: bool = True):
-    """(Y, U, V) of an `avif.Frame` (U, V None when monochrome); without
-    `cdef`, the deblocked frame, before CDEF and loop restoration;
-    without `restoration`, the frame before loop restoration (stages
-    for the tests)."""
+    """(Y, U, V) of an `avif.Frame` (U, V None when monochrome), uint8 at
+    8 bits, else uint16 at the stream's depth; without `cdef`, the
+    deblocked frame, before CDEF and loop restoration; without
+    `restoration`, the frame before loop restoration (stages for the
+    tests)."""
     f = _Frame(frame)
     t = _Tile(f)
     h = f.h
@@ -2570,8 +2638,9 @@ def decode_planes_plain(frame, cdef: bool = True, restoration: bool = True):
         _cdef(f)
         if restoration and any(h.lr_type):
             _loop_restoration(f, deblocked)
-    y = f.frame[0][:h.height, :h.width].copy()
+    y = _samples(f.frame[0][:h.height, :h.width], f.bd)
     if f.planes == 1:
         return y, None, None
     ch, cw = (h.height + f.ssy) >> f.ssy, (h.width + f.ssx) >> f.ssx
-    return y, f.frame[1][:ch, :cw].copy(), f.frame[2][:ch, :cw].copy()
+    return (y, _samples(f.frame[1][:ch, :cw], f.bd),
+            _samples(f.frame[2][:ch, :cw], f.bd))

@@ -1,17 +1,19 @@
 """AVIF as OpenCV 5.0 reads it through libavif 1.4.2 over libaom 3.14.1
 (`grfmt_avif.cpp`: `avifDecoderParse`, `avifDecoderNextImage`, then
-`avifImageYUVToRGB` into 8-bit BGR at libavif's default chroma
-upsampling).
+`avifImageYUVToRGB` into 8-bit BGR or BGRA at libavif's default chroma
+upsampling, or, for a monochrome file, its Y plane narrowed by cv2).
 
 The contract. For every file `cv2.imencode(".avif", img,
-[cv2.IMWRITE_AVIF_QUALITY, q, cv2.IMWRITE_AVIF_SPEED, s])` writes, with
-`img` uint8 of 1, 3 or 4 channels at any size cv2 accepts (1x1 up, odd
-sides, widths over 4096, which libaom splits into tile columns), `q` from
-0 to 100 and `s` from 0 to 10 (either cv2's default included),
-`decode(data)` equals `cv2.imdecode(data, cv2.IMREAD_COLOR)` reversed to
-RGB, pixel for pixel, and the Y, U and V planes before the colour
-conversion (`decode_planes`) equal libaom's. What such files use, and
-what is read here:
+[cv2.IMWRITE_AVIF_DEPTH, d, cv2.IMWRITE_AVIF_QUALITY, q,
+cv2.IMWRITE_AVIF_SPEED, s])` writes, with `img` of 1, 3 or 4 channels,
+uint8 (d 8) or uint16 of values below 2^d (d 10 or 12), at any size cv2
+accepts (1x1 up, odd sides, widths over 4096, which libaom splits into
+tile columns), `q` from 0 to 100 and `s` from 0 to 10 (any of cv2's
+defaults included), `decode(data)` equals `cv2.imdecode(data,
+cv2.IMREAD_COLOR)` reversed to RGB, pixel for pixel, and the Y, U and V
+planes before the colour conversion (`decode_planes`: uint8 at 8 bits,
+uint16 at 10 and 12) equal libaom's. What such files use, and what is
+read here:
 - the container (ISOBMFF, `read_container`): `ftyp` naming the `avif`
   brand (major or compatible), `meta` with `hdlr` `pict`, `pitm`,
   `iloc` (construction methods 0, file offsets, and 1, `idat`),
@@ -27,8 +29,10 @@ what is read here:
   of one shown key frame in full syntax (`SequenceHeader`,
   `FrameHeader`), and the tile groups that follow it;
 - the tiles, in the host C library `csrc/av1.c` or, with `plain=True`,
-  in its plain twin `utils/av1.py`: 8 bits, profile 0 (4:2:0 or
-  monochrome) or profile 1 (4:4:4, lossless frames only), 64x64 or
+  in its plain twin `utils/av1.py`: profile 0 at 8 or 10 bits (4:2:0 or
+  monochrome), profile 1 at 8 or 10 bits (4:4:4, lossless frames only)
+  and profile 2 at 12 bits (4:2:0, monochrome, lossless 4:4:4; cv2's
+  12-bit files disable loop restoration), 64x64 or
   128x128 superblocks, every partition, the 13 intra modes with angle
   deltas, edge filtering and upsampling, filter intra, chroma from luma,
   palette (screen content: the colour cache, coded and delta-coded
@@ -42,11 +46,15 @@ what is read here:
   that does not end in its trailing bits, or a DV that libaom's
   av1_is_dv_valid rejects, is refused, as libaom reports such a frame
   corrupt;
-- libavif's YUV to RGB (`yuv_to_rgb`): libyuv's bilinear 4:2:0
-  upsampling and its fixed-point full-range BT.601 (the JPEG constants,
-  for matrix coefficients 2, 5 and 6); 4:4:4 with the identity matrix
-  (coefficients 0, cv2's quality 100) as G = Y, B = U, R = V; a
-  monochrome image is its Y plane in each channel.
+- libavif's YUV to RGB (`yuv_to_rgb`): libyuv's fixed-point
+  full-range BT.601 (the JPEG constants, for matrix coefficients 2, 5
+  and 6) with its bilinear 4:2:0 upsampling, at 10 and 12 bits after
+  the planes are narrowed to 8 (cv2's BGR) or at the depth itself (BGRA,
+  which cv2 reads where the file has an alpha item: bilinear at 10
+  bits, each chroma sample over its 2x2 pixels at 12); 4:4:4 with the
+  identity matrix (coefficients 0, cv2's quality 100) as G = Y, B = U,
+  R = V, rounded to 8 bits; a monochrome image is its Y plane in each
+  channel, rounded to 8 bits as cv2 rounds it.
 
 cv2's own files reach most of that (`tools/avif_search.py` lists what no
 cv2 file reached: the rest is held to libaom's own C functions stage by
@@ -54,7 +62,7 @@ stage and on files Pillow's AVIF writer makes).
 
 What lies outside it is refused by a ValueError that names it, where the
 stream uses it: the `avis` brand (sequences), grid items, Exif items,
-profile 2 (4:2:2, 12 bits), 10 bits, 4:4:4 lossy frames, superres,
+4:2:2 (profile 2 at any depth), 4:4:4 lossy frames, superres,
 segmentation, film grain, frames other than one shown key frame, an
 `ispe` other than the frame's size, limited range and other matrices.
 """
@@ -508,15 +516,16 @@ def parse_sequence_header(payload: bytes) -> SequenceHeader:
 
 
 def check_sequence(s: SequenceHeader) -> None:
-    """The sequence-level refusals: profile 2 (4:2:2, or 12 bits), 10
-    bits. Profiles 0 and 1 at 8 bits (4:2:0, monochrome, 4:4:4) are
-    read; 4:4:4 only in lossless frames (`parse_frame_header`)."""
-    if s.profile >= 2:
-        kind = f"{s.bit_depth}-bit" if s.bit_depth == 12 else "4:2:2"
-        raise ValueError(f"AVIF: AV1 profile {s.profile} ({kind}) is not read "
-                         "here")
-    if s.bit_depth != 8:
-        raise ValueError(f"AVIF: {s.bit_depth}-bit samples are not read here")
+    """The sequence-level refusals. Read: profile 0 at 8 or 10 bits
+    (4:2:0, monochrome), profile 1 at 8 or 10 bits (4:4:4) and profile 2
+    at 12 bits (4:2:0, monochrome, 4:4:4); 4:4:4 only in lossless frames
+    (`parse_frame_header`). Refused: 4:2:2 (profile 2 at any depth), and
+    profiles past 2."""
+    if s.profile > 2:
+        raise ValueError(f"AVIF: AV1 profile {s.profile} is not read here")
+    if not s.mono and s.ssx and not s.ssy:
+        raise ValueError(f"AVIF: AV1 profile {s.profile} 4:2:2 "
+                         f"({s.bit_depth}-bit) is not read here")
 
 
 @dataclass
@@ -870,8 +879,8 @@ STAT_NAMES = (
        "lr_switchable", "intrabc_blocks", "intrabc_halfpel", "vartx_splits"])
 # csrc/av1.c's AV1_SSX .. AV1_TILES.
 PLAN_SSX, PLAN_NO_CDEF, PLAN_LR_TYPE, PLAN_LR_UNIT = 75, 79, 80, 83
-PLAN_SB128, PLAN_NO_LR = 86, 87
-PLAN_COL_STARTS = 88
+PLAN_SB128, PLAN_NO_LR, PLAN_BIT_DEPTH = 86, 87, 88
+PLAN_COL_STARTS = 89
 PLAN_ROW_STARTS = PLAN_COL_STARTS + 65
 PLAN_TILES = PLAN_ROW_STARTS + 65
 _ERR_LEN = 256
@@ -882,9 +891,9 @@ def library() -> ctypes.CDLL:
     """The host C library csrc/av1.c, built on first use."""
     lib = kernels.load_host("av1")
     i32p = ctypes.POINTER(ctypes.c_int32)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
+    vp = ctypes.c_void_p
     lib.av1_decode_frame.argtypes = [i32p, ctypes.c_char_p, ctypes.c_long,
-                                     u8p, u8p, u8p, i32p, ctypes.c_char_p,
+                                     vp, vp, vp, i32p, ctypes.c_char_p,
                                      ctypes.c_int]
     lib.av1_decode_frame.restype = ctypes.c_int
     return lib
@@ -917,6 +926,7 @@ def plan(frame: Frame, cdef: bool = True,
     out[PLAN_LR_UNIT:PLAN_LR_UNIT + 3] = h.lr_unit_size
     out[PLAN_SB128] = s.sb128
     out[PLAN_NO_LR] = 0 if restoration else 1
+    out[PLAN_BIT_DEPTH] = s.bit_depth
     out[PLAN_COL_STARTS:PLAN_COL_STARTS + len(h.col_starts)] = h.col_starts
     out[PLAN_ROW_STARTS:PLAN_ROW_STARTS + len(h.row_starts)] = h.row_starts
     out[PLAN_TILES:] = np.array(frame.tiles, np.int64).ravel()
@@ -926,22 +936,22 @@ def plan(frame: Frame, cdef: bool = True,
 def decode_planes_c(frame: Frame, cdef: bool = True,
                     restoration: bool = True):
     """(Y, U, V, stats) of the frame through the host C library; U and V
-    are None for a monochrome stream. Without `cdef`, the deblocked
+    are None for a monochrome stream. The planes are uint8 at 8 bits,
+    else uint16 at the stream's depth. Without `cdef`, the deblocked
     planes, before CDEF and loop restoration; without `restoration`,
     the planes before loop restoration (stages for the tests)."""
     h, s = frame.header, frame.seq
-    y = np.empty((h.height, h.width), np.uint8)
+    dtype = np.uint8 if s.bit_depth == 8 else np.uint16
+    y = np.empty((h.height, h.width), dtype)
     cw, ch = (h.width + s.ssx) >> s.ssx, (h.height + s.ssy) >> s.ssy
-    u = np.empty((ch, cw), np.uint8)
-    v = np.empty((ch, cw), np.uint8)
+    u = np.empty((ch, cw), dtype)
+    v = np.empty((ch, cw), dtype)
     stats = np.zeros(NSTATS, np.int32)
     err = ctypes.create_string_buffer(_ERR_LEN)
     p = plan(frame, cdef, restoration)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
     rc = library().av1_decode_frame(
         p.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), frame.data,
-        len(frame.data), y.ctypes.data_as(u8p), u.ctypes.data_as(u8p),
-        v.ctypes.data_as(u8p),
+        len(frame.data), y.ctypes.data, u.ctypes.data, v.ctypes.data,
         stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), err, _ERR_LEN)
     if rc == 2:
         raise MemoryError(err.value.decode())
@@ -1012,37 +1022,94 @@ def upsample_420(c: np.ndarray, height: int, width: int) -> np.ndarray:
     return out
 
 
+def _unorm8(x: np.ndarray, depth: int) -> np.ndarray:
+    """Samples of `depth` bits to 8 as libavif's float paths round them:
+    (uint8)(0.5f + x / (2^depth - 1) * 255.0f), the nearest integer to
+    x * 255 / (2^depth - 1) (no tie lies near one: 2^depth - 1 is odd)."""
+    if depth == 8:
+        return x
+    m = (1 << depth) - 1
+    return ((x.astype(np.int64) * 510 + m) // (2 * m)).astype(np.uint8)
+
+
+def _gray8(x: np.ndarray, depth: int) -> np.ndarray:
+    """A monochrome plane to 8 bits as cv2 narrows it
+    (Mat.convertTo(CV_8U, 1 / 2^(depth - 8)): the nearest integer, ties
+    to even, saturated)."""
+    if depth == 8:
+        return x
+    s = depth - 8
+    x = x.astype(np.int64)
+    q, r = x >> s, x & ((1 << s) - 1)
+    q += (r > 1 << (s - 1)) | ((r == 1 << (s - 1)) & (q & 1))
+    return np.minimum(q, 255).astype(np.uint8)
+
+
+def _jpeg_rows(y: np.ndarray, uu: np.ndarray, vv: np.ndarray,
+               depth: int) -> np.ndarray:
+    """libyuv's YuvPixel (8 bits), YuvPixel10_16 or YuvPixel12_16 with
+    the JPEG constants, on full-size planes of `depth` bits: Y widened to
+    16 bits by repeating its top bits, U and V narrowed to 8 (x >>
+    (depth - 8), saturated)."""
+    y = y.astype(np.int32)  # y32 * JPEG_YG < 2^31
+    if depth == 8:
+        y32, uu, vv = y * 0x0101, uu - 128, vv - 128
+    else:
+        y32 = (y << (16 - depth)) | (y >> (2 * depth - 16))
+        uu = np.minimum(uu.astype(np.int32) >> (depth - 8), 255) - 128
+        vv = np.minimum(vv.astype(np.int32) >> (depth - 8), 255) - 128
+    y1 = ((y32 * JPEG_YG) >> 16) + JPEG_YB
+    b = y1 + uu * JPEG_UB
+    g = y1 - (uu * JPEG_UG + vv * JPEG_VG)
+    r = y1 + vv * JPEG_VR
+    rgb = np.stack([r, g, b], axis=-1) >> 6
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
 def yuv_to_rgb(y: np.ndarray, u: np.ndarray | None, v: np.ndarray | None,
                matrix: int = 6, full_range: int = 1,
-               subsampled: bool = True) -> np.ndarray:
-    """uint8 RGB [H, W, 3] as libavif 1.4.2 converts the planes for
-    cv2: 4:2:0 through libyuv's I420ToRGB24MatrixFilter with
-    kFilterBilinear and the JPEG constants; 4:4:4 with the identity
-    matrix (coefficients 0, full range) as G = Y, B = U, R = V (U and V
-    not `subsampled`); a monochrome image is its Y plane in each
-    channel."""
+               subsampled: bool = True, depth: int = 8,
+               alpha: bool = False) -> np.ndarray:
+    """uint8 RGB [H, W, 3] of planes of `depth` bits as cv2 reads them
+    with IMREAD_COLOR. cv2 reads a file with an alpha item into BGRA and
+    drops A, one without into BGR, both through libavif 1.4.2's
+    avifImageYUVToRGB into 8 bits:
+    - 4:2:0 (matrix 2, 5 or 6) through libyuv and the JPEG constants
+      (`_jpeg_rows`): 8 bits, I420ToRGB24MatrixFilter or
+      I420ToARGBMatrixFilter, kFilterBilinear (`upsample_420`); 10 and
+      12 bits into BGR, the planes first narrowed to 8 bits
+      (avifImageDownshiftTo8bpc, libyuv's Convert16To8Plane: x >>
+      (depth - 8)), then as at 8 bits; 10 bits into BGRA,
+      I010ToARGBMatrixFilter (the chroma upsampled at 10 bits); 12 bits
+      into BGRA, I012ToARGBMatrix (no filter: each chroma sample covers
+      its 2x2 pixels);
+    - 4:4:4 with the identity matrix (coefficients 0, full range; U and
+      V not `subsampled`) as G = Y, B = U, R = V, through `_unorm8`
+      (avifImageYUVAnyToRGBAnySlow: libyuv has no identity matrix).
+    A monochrome file cv2 reads as one channel and widens with
+    COLOR_GRAY2BGR, narrowed by `_gray8` (no libavif conversion)."""
     if u is None:
-        return np.repeat(y[:, :, None], 3, axis=2)
+        return np.repeat(_gray8(y, depth)[:, :, None], 3, axis=2)
     if not full_range:
         raise ValueError("AVIF: limited-range YUV is not read here")
     if not subsampled:
         if matrix != 0:
             raise ValueError(f"AVIF: 4:4:4 with matrix coefficients {matrix} "
                              "is not read here (identity only)")
-        return np.stack([v, y, u], axis=-1)
+        return np.stack([_unorm8(v, depth), _unorm8(y, depth),
+                         _unorm8(u, depth)], axis=-1)
     if matrix not in JPEG_MATRICES:
         raise ValueError(f"AVIF: matrix coefficients {matrix} are not read "
                          "here (BT.601 only)")
     h, w = y.shape
-    uu = upsample_420(u, h, w) - 128
-    vv = upsample_420(v, h, w) - 128
-    y1 = ((y.astype(np.uint32) * 0x0101 * JPEG_YG) >> 16).astype(np.int32) \
-        + JPEG_YB
-    b = y1 + uu * JPEG_UB
-    g = y1 - (uu * JPEG_UG + vv * JPEG_VG)
-    r = y1 + vv * JPEG_VR
-    rgb = np.stack([r, g, b], axis=-1) >> 6
-    return np.clip(rgb, 0, 255).astype(np.uint8)
+    if depth > 8 and not alpha:  # Convert16To8Plane; decoded planes fit
+        y, u, v = (p >> (depth - 8) for p in (y, u, v))
+        depth = 8
+    if depth == 12:
+        uu, vv = (c.repeat(2, 0).repeat(2, 1)[:h, :w] for c in (u, v))
+    else:
+        uu, vv = upsample_420(u, h, w), upsample_420(v, h, w)
+    return _jpeg_rows(y, uu, vv, depth)
 
 
 # --- the file ----------------------------------------------------------------
@@ -1130,4 +1197,5 @@ def decode(data: bytes, plain: bool = False) -> np.ndarray:
         decode_planes(image.alpha, plain)
     y, u, v, _ = decode_planes(image.frame, plain)
     return yuv_to_rgb(y, u, v, image.matrix, image.full_range,
-                      bool(image.frame.seq.ssx))
+                      bool(image.frame.seq.ssx), image.frame.seq.bit_depth,
+                      image.alpha is not None)

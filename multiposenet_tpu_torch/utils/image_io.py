@@ -51,14 +51,15 @@ libpng 1.6):
   encoder here can make (code-block styles other than 0, PPM/PPT packet
   headers, palettes, Part 2 multi-component markers) is refused by name;
 - AVIF (`utils/avif.py`): every file `cv2.imencode(".avif")` writes
-  from uint8 pixels (gray, colour or with an alpha item, any size,
-  quality 0 to 100, speed 0 to 10) as libavif 1.4.2 over libaom 3.14.1
-  decodes it for cv2, the AV1 tiles (palette, intra block copy, lossless
-  4:4:4), deblocking, CDEF and loop restoration in the host C library
-  `csrc/av1.c`; `decode_image_plain` runs the plain decoder
-  `utils/av1.py`. What lies past that contract (image sequences, grids,
-  Exif items, 4:2:2, 10 and 12 bits, 4:4:4 lossy frames, superres,
-  segmentation, film grain) is refused by name.
+  from uint8 pixels or, at IMWRITE_AVIF_DEPTH 10 or 12, uint16 (gray,
+  colour or with an alpha item, any size, quality 0 to 100, speed 0 to
+  10) as libavif 1.4.2 over libaom 3.14.1 decodes it for cv2, the AV1
+  tiles (palette, intra block copy, lossless 4:4:4), deblocking, CDEF
+  and loop restoration in the host C library `csrc/av1.c`;
+  `decode_image_plain` runs the plain decoder `utils/av1.py`. What lies
+  past that contract (image sequences, grids, Exif items, 4:2:2, 4:4:4
+  lossy frames, superres, segmentation, film grain) is refused by
+  name.
 Gray is repeated into three channels. The Exif orientation (tag 0x0112
 of IFD0, in a JPEG APP1 `Exif` block, a PNG `eXIf` chunk, a TIFF's own
 IFD0 or a WebP `EXIF` chunk) is applied as cv2 applies it. OpenEXR files

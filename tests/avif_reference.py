@@ -3,9 +3,11 @@
 The opencv-python wheel carries the libaom that cv2's AVIF reader decodes
 through (`opencv_python.libs/libaom-*.so.3.14.1`). Its decoder is exported,
 so ctypes can drive it: `aom_planes(obus)` returns the Y, U and V planes
-(uint8, cropped to the frame's size; U and V are None for a monochrome
-stream) that libaom decodes from a stream of OBUs. `LIBAOM` is the
-library's path, or None where the wheel is absent (tests then skip).
+(uint8, or uint16 at 10 and 12 bits, cropped to the frame's size; U and V
+are None for a monochrome stream) that libaom decodes from a stream of
+OBUs. `LIBAOM` is the library's path, or None where the wheel is absent
+(tests then skip). `avif_yuv_to_rgb` drives the wheel's libavif 1.4.2
+(`LIBAVIF`): its avifImageYUVToRGB on given planes.
 
 The ABI facts (aom_codec_dec_init_ver's ABI version 22, the offsets in
 aom_image_t) are libaom 3.14.1's.
@@ -109,6 +111,102 @@ def aom_planes(obus: bytes, skip_loop_filter: bool = False):
         return tuple(out)
     finally:
         lib.aom_codec_destroy(ctx)
+
+
+# --- libavif's YUV to RGB ----------------------------------------------------
+
+# libavif 1.4.2's ABI (avif.h): offsets in avifImage (width, height,
+# depth, yuvFormat, yuvRange, then yuvPlanes[3], yuvRowBytes[3], ...,
+# alphaPlane, alphaRowBytes, ..., matrixCoefficients) and avifRGBImage
+# (depth, format, ..., pixels, rowBytes); avifPixelFormat 1 (4:4:4), 3
+# (4:2:0), 4 (4:0:0); avifRGBFormat 3 (BGR), 4 (BGRA).
+_IMG_RANGE, _IMG_PLANES, _IMG_ROW_BYTES = 16, 24, 48
+_IMG_ALPHA, _IMG_ALPHA_ROW_BYTES, _IMG_MATRIX = 64, 72, 108
+_RGB_DEPTH, _RGB_FORMAT, _RGB_PIXELS, _RGB_ROW_BYTES = 8, 12, 48, 56
+YUV444, YUV420, YUV400 = 1, 3, 4
+_libavif = []
+
+
+def _find_libavif() -> str | None:
+    if LIBAOM is None:
+        return None
+    found = sorted(glob.glob(os.path.join(os.path.dirname(LIBAOM),
+                                          "libavif-*.so.16.4.2")))
+    return found[0] if found else None
+
+
+LIBAVIF = _find_libavif()
+
+
+def libavif() -> ctypes.CDLL:
+    """The wheel's libavif 1.4.2, which cv2's AVIF reader converts
+    through."""
+    if not _libavif:
+        lib = ctypes.CDLL(LIBAVIF)
+        u32, vp = ctypes.c_uint32, ctypes.c_void_p
+        lib.avifImageCreate.restype = vp
+        lib.avifImageCreate.argtypes = [u32] * 4
+        lib.avifImageAllocatePlanes.argtypes = [vp, u32]
+        lib.avifImageDestroy.argtypes = [vp]
+        lib.avifRGBImageSetDefaults.argtypes = [vp, vp]
+        lib.avifRGBImageAllocatePixels.argtypes = [vp]
+        lib.avifRGBImageFreePixels.argtypes = [vp]
+        lib.avifImageYUVToRGB.argtypes = [vp, vp]
+        _libavif.append(lib)
+    return _libavif[0]
+
+
+def avif_yuv_to_rgb(planes, depth: int, yuv_format: int, matrix: int,
+                    alpha: np.ndarray | None = None) -> np.ndarray:
+    """uint8 RGB [H, W, 3] from libavif's avifImageYUVToRGB on the
+    planes (Y, U, V; U and V None for 4:0:0) at `depth` bits, full range,
+    into an 8-bit avifRGBImage at libavif's defaults: BGR, or BGRA with
+    the `alpha` plane (as cv2 reads a file with an alpha item)."""
+    lib = libavif()
+    h, w = planes[0].shape
+
+    def at(base, off, kind=ctypes.c_uint32):
+        return kind.from_address(base + off)
+
+    img = lib.avifImageCreate(w, h, depth, yuv_format)
+    try:
+        assert (at(img, 0).value, at(img, 4).value, at(img, 8).value,
+                at(img, 12).value) == (w, h, depth, yuv_format)
+        at(img, _IMG_RANGE).value = 1  # AVIF_RANGE_FULL
+        assert lib.avifImageAllocatePlanes(img, 0xFF if alpha is not None
+                                           else 1) == 0
+        at(img, _IMG_MATRIX, ctypes.c_uint16).value = matrix
+        dtype = np.uint8 if depth == 8 else np.uint16
+        fields = [(_IMG_PLANES + 8 * p, _IMG_ROW_BYTES + 4 * p)
+                  for p in range(3)] + [(_IMG_ALPHA, _IMG_ALPHA_ROW_BYTES)]
+        for (ptr, row_bytes), a in zip(fields, list(planes) + [alpha]):
+            if a is None:
+                continue
+            a = np.ascontiguousarray(a, dtype)
+            base = ctypes.c_void_p.from_address(img + ptr).value
+            stride = at(img, row_bytes).value
+            for r in range(a.shape[0]):
+                ctypes.memmove(base + r * stride, a[r].ctypes.data,
+                               a.shape[1] * a.itemsize)
+        rgb = ctypes.create_string_buffer(128)
+        ra = ctypes.addressof(rgb)
+        lib.avifRGBImageSetDefaults(rgb, img)
+        at(ra, _RGB_DEPTH).value = 8
+        at(ra, _RGB_FORMAT).value = 3 if alpha is None else 4
+        assert lib.avifRGBImageAllocatePixels(rgb) == 0
+        try:
+            assert lib.avifImageYUVToRGB(img, rgb) == 0
+            n = 3 if alpha is None else 4
+            stride = at(ra, _RGB_ROW_BYTES).value
+            raw = ctypes.string_at(
+                ctypes.c_void_p.from_address(ra + _RGB_PIXELS).value,
+                stride * h)
+            out = np.frombuffer(raw, np.uint8).reshape(h, stride)
+            return out[:, :n * w].reshape(h, w, n)[:, :, 2::-1].copy()
+        finally:
+            lib.avifRGBImageFreePixels(rgb)
+    finally:
+        lib.avifImageDestroy(img)
 
 
 # --- hand-edited files -------------------------------------------------------
@@ -228,15 +326,19 @@ def edit_avif(data: bytes, add_props=(), drop_props=(), exif: bytes | None
 
 
 def imencode_avif(pixels: np.ndarray, quality: int | None = None,
-                  speed: int | None = None) -> bytes:
-    """The bytes cv2.imencode(".avif") writes for uint8 RGB, RGBA or gray
-    pixels (at `quality` and `speed`, or cv2's defaults)."""
+                  speed: int | None = None, depth: int | None = None) -> bytes:
+    """The bytes cv2.imencode(".avif") writes for RGB, RGBA or gray
+    pixels (at `quality` and `speed`, or cv2's defaults): uint8, or
+    uint16 of `depth` bits (IMWRITE_AVIF_DEPTH 10 or 12; every value
+    below 2^depth)."""
     if pixels.ndim == 3:
         order = [2, 1, 0, 3][:pixels.shape[2]]
         pixels = pixels[:, :, order]
     params = [] if quality is None else [cv2.IMWRITE_AVIF_QUALITY, quality]
     if speed is not None:
         params += [cv2.IMWRITE_AVIF_SPEED, speed]
+    if depth is not None:
+        params += [cv2.IMWRITE_AVIF_DEPTH, depth]
     ok, buf = cv2.imencode(".avif", np.ascontiguousarray(pixels), params)
     assert ok
     return buf.tobytes()
@@ -269,6 +371,19 @@ def drawing(h: int, w: int, seed: int) -> np.ndarray:
                     cv2.FONT_HERSHEY_SIMPLEX, float(rng.uniform(0.3, 1.2)),
                     colour(), 1, cv2.LINE_8)
     return img
+
+
+def widen(pixels: np.ndarray, depth: int, seed: int | None = None
+          ) -> np.ndarray:
+    """uint8 pixels as uint16 of `depth` bits: each value's bits
+    repeated into the low ones (flat areas stay flat), or, with a
+    `seed`, seeded noise in the low depth - 8 bits."""
+    x = pixels.astype(np.uint16)
+    if seed is None:
+        return (x << (depth - 8)) | (x >> (16 - depth))
+    noise = np.random.default_rng(seed).integers(
+        0, 1 << (depth - 8), x.shape, dtype=np.uint16)
+    return (x << (depth - 8)) | noise
 
 
 def imdecode_rgb(data: bytes) -> np.ndarray | None:

@@ -76,7 +76,10 @@ installed cv2's decode.
   matrix; `predict`'s AVIF input), the photo at IMWRITE_AVIF_SPEED 2
   (loop restoration), a drawing of flat colours and text at speed 6
   (palette) and one at speed 6 that libaom codes with intra block copy
-  (`tests/avif_reference.py drawing`).
+  (`tests/avif_reference.py drawing`); two crops of the photo at
+  IMWRITE_AVIF_DEPTH 10 (96x128, 4:2:0, profile 0; `predict`'s 10-bit
+  input) and 12 (64x80, 4:2:0, profile 2), from uint16 pixels with
+  seeded noise in the low bits (`avif_reference.widen`).
 - `digests.json`: for each file, the shape and sha256 of cv2's RGB decode
   (`cv2.imread(path, IMREAD_COLOR)[..., ::-1]`) and of cv2's INTER_LINEAR
   letterbox of it to 512 (the eval runner's resize: scale 512 / max(h, w),
@@ -824,6 +827,7 @@ def avif_fixtures() -> dict[str, bytes]:
     default quality and speed or at those its name gives (see the module
     docstring)."""
     from avif_reference import drawing as shapes
+    from avif_reference import widen
 
     photo = cv2.imread(str(OUT / "photo_480x640_q95_420.jpg"))
     # Lines 2 pixels wide on a flat background, a drawing libaom codes
@@ -851,13 +855,19 @@ def avif_fixtures() -> dict[str, bytes]:
         "avif_lossless_q100_128x160.avif": photo[:128, :160],
         "avif_photo_speed2_480x640.avif": photo,
         "avif_palette_speed6_64x96.avif": shapes(64, 96, 7),
-        "avif_intrabc_speed6_200x300.avif": shapes(200, 300, 0)}
+        "avif_intrabc_speed6_200x300.avif": shapes(200, 300, 0),
+        "avif_10bit_96x128.avif": widen(
+            np.ascontiguousarray(photo[192:288, 256:384]), 10, 10),
+        "avif_12bit_64x80.avif": widen(
+            np.ascontiguousarray(photo[192:256, 256:336]), 12, 12)}
     params = {"avif_lossless_q100_128x160.avif": [cv2.IMWRITE_AVIF_QUALITY,
                                                   100],
               "avif_photo_speed2_480x640.avif": [cv2.IMWRITE_AVIF_SPEED, 2],
               "avif_palette_speed6_64x96.avif": [cv2.IMWRITE_AVIF_SPEED, 6],
               "avif_intrabc_speed6_200x300.avif": [cv2.IMWRITE_AVIF_SPEED,
-                                                   6]}
+                                                   6],
+              "avif_10bit_96x128.avif": [cv2.IMWRITE_AVIF_DEPTH, 10],
+              "avif_12bit_64x80.avif": [cv2.IMWRITE_AVIF_DEPTH, 12]}
     return {name: cv2.imencode(".avif", img, params.get(name, []))[1]
             .tobytes() for name, img in images.items()}
 

@@ -245,18 +245,23 @@ def test_make_batch_of_jpeg2000_records_matches_jax(tmp_path, records,
 @pytest.mark.parametrize("train", [True, False])
 def test_make_batch_of_avif_records_matches_jax(tmp_path, records, train):
     """Records whose files are AVIF as cv2.imwrite writes them (one at
-    its default quality, one at quality 30): the port's batch equals the
-    JAX package's (which reads them with cv2.imread) with the same
-    image_dir and seed."""
+    its default quality, one at quality 30, one at 10 bits from uint16
+    with seeded low bits): the port's batch equals the JAX package's
+    (which reads them with cv2.imread) with the same image_dir and
+    seed."""
     import cv2
 
     recs = []
-    for i, rec in enumerate(records[:2]):
+    for i, rec in enumerate(records[:3]):
         rec = dict(rec)
         name = f"{i}.avif"
+        bgr = np.ascontiguousarray(rec.pop("image")[:, :, ::-1])
         params = [] if i == 0 else [cv2.IMWRITE_AVIF_QUALITY, 30]
-        assert cv2.imwrite(str(tmp_path / name), np.ascontiguousarray(
-            rec.pop("image")[:, :, ::-1]), params)
+        if i == 2:
+            low = np.random.RandomState(i).randint(0, 4, bgr.shape)
+            bgr = (bgr.astype(np.uint16) << 2) | low.astype(np.uint16)
+            params = [cv2.IMWRITE_AVIF_DEPTH, 10]
+        assert cv2.imwrite(str(tmp_path / name), bgr, params)
         rec["file_name"] = name
         recs.append(rec)
     got = tloader.make_batch(recs, 64, 8, np.random.RandomState(3),

@@ -625,10 +625,11 @@ def _refused(data: bytes, name: str) -> None:
 
 
 def test_cv2_files_outside_the_contract_are_refused_by_name():
-    """10 or 12 bits from uint16 pixels: cv2 reads them, the port names
-    what it does not read. Quality 100 (profile 1, 4:4:4, lossless; gray
-    lossless) is read as cv2 reads it (tests/test_torch_avif_tools.py has
-    the rest of it)."""
+    """Files once outside the contract, now read as cv2 reads them:
+    quality 100 (profile 1, 4:4:4, lossless; gray lossless; the rest of
+    it in tests/test_torch_avif_tools.py) and 10 or 12 bits from uint16
+    pixels (here values past 2^depth - 1, which cv2's colour writer
+    takes; tests/test_torch_avif_highbd.py has the rest)."""
     rgb = _pixels("photo", 24, 40)
     for data in (ar.imencode_avif(rgb, 100), ar.imencode_avif(rgb[:, :, 0],
                                                                100)):
@@ -637,11 +638,16 @@ def test_cv2_files_outside_the_contract_are_refused_by_name():
                                       ar.imdecode_rgb(data))
         np.testing.assert_array_equal(image_io.decode_image_plain(data),
                                       ar.imdecode_rgb(data))
-    for depth, name in ((10, "10-bit"), (12, "12-bit")):
+    for depth in (10, 12):
         ok, buf = cv2.imencode(".avif", rgb.astype(np.uint16) * 257,
                                [cv2.IMWRITE_AVIF_DEPTH, depth])
         assert ok and cv2.imdecode(buf, cv2.IMREAD_COLOR) is not None
-        _refused(buf.tobytes(), name)
+        data = buf.tobytes()
+        assert avif.read_image(data).frame.seq.bit_depth == depth
+        np.testing.assert_array_equal(image_io.decode_image(data),
+                                      ar.imdecode_rgb(data))
+        np.testing.assert_array_equal(image_io.decode_image_plain(data),
+                                      ar.imdecode_rgb(data))
 
 
 # The headers that signal what the port now reads (cv2's own files use
@@ -650,12 +656,16 @@ def test_cv2_files_outside_the_contract_are_refused_by_name():
 # planes and cv2's pixels in tests/test_torch_avif_tools.py (restoration:
 # test_loop_restoration_files_equal_libaom_and_cv2; intrabc:
 # test_intra_block_copy_file_equals_libaom_and_cv2; lossless, 444 and
-# sb128: test_quality_100_is_read_lossless).
+# sb128: test_quality_100_is_read_lossless; profile 2 at 12 bits:
+# tests/test_torch_avif_highbd.py, test_cv2_files_equal_libaom_and_cv2).
 READ_HEADERS = {"restoration": lambda f: f.header.lr_type == (3, 0, 0),
                 "intrabc": lambda f: f.header.allow_intrabc == 1,
                 "lossless": lambda f: f.header.lossless == 1,
                 "sb128": lambda f: f.seq.sb128 == 1,
-                "444": lambda f: (f.seq.ssx, f.header.lossless) == (0, 1)}
+                "444": lambda f: (f.seq.ssx, f.header.lossless) == (0, 1),
+                "profile2_12bit": lambda f: (f.seq.profile, f.seq.bit_depth,
+                                             f.seq.ssx, f.seq.ssy)
+                == (2, 12, 1, 1)}
 
 
 @pytest.mark.parametrize("what", ["superres", "segmentation", "restoration",
@@ -666,13 +676,15 @@ READ_HEADERS = {"restoration": lambda f: f.header.lr_type == (3, 0, 0),
 def test_headers_outside_the_contract_are_refused_by_name(what):
     """A cv2 file's stream with one header rewritten (the rest kept):
     each feature outside the contract refused where the header signals
-    its use; the headers of loop restoration, intra block copy, lossless
-    frames, 128x128 superblocks and lossless 4:4:4 (READ_HEADERS) parse
-    (the files that use them are decoded in test_torch_avif_tools.py)."""
+    its use (4:2:2 at any depth among them); the headers of loop
+    restoration, intra block copy, lossless frames, 128x128 superblocks,
+    lossless 4:4:4 and profile 2 at 12 bits (READ_HEADERS) parse (the
+    files that use them are decoded in test_torch_avif_tools.py and
+    test_torch_avif_highbd.py)."""
     obus = ar.primary_obus((FIXTURES / "avif_odd_33x17.avif").read_bytes())
     seq, frame, extra = {}, {}, ()
     name = {"superres": "superres", "segmentation": "segmentation",
-            "film_grain": "film grain", "profile2_12bit": "AV1 profile 2",
+            "film_grain": "film grain",
             "inter_frame": "only a shown key frame",
             "show_existing": "show_existing_frame",
             "444_lossy": "4:4:4 lossy", "profile2_422": "4:2:2"}.get(what)

@@ -254,13 +254,22 @@ def test_predict_on_jpeg2000_matches_jax_cli(workdir, tmp_path, suffix):
                                    atol=1e-3, rtol=1e-5)
 
 
-def test_predict_on_avif_matches_jax_cli(workdir, tmp_path):
+@pytest.mark.parametrize("depth", [8, 10, 12])
+def test_predict_on_avif_matches_jax_cli(workdir, tmp_path, depth):
     """`predict --image x.avif` (the scene as cv2.imwrite writes it at its
-    default quality): the port reads it as cv2.imread does
-    (tests/test_torch_avif.py) and prints the JAX CLI's people."""
+    default quality, from uint8 or, with IMWRITE_AVIF_DEPTH 10 or 12,
+    from uint16 with the low bits repeated): the port reads it as
+    cv2.imread does (tests/test_torch_avif.py, test_torch_avif_highbd.py)
+    and prints the JAX CLI's people."""
     scene = image_io.read_image(workdir["image"])
     image = tmp_path / "scene.avif"
-    assert cv2.imwrite(str(image), np.ascontiguousarray(scene[:, :, ::-1]))
+    bgr = np.ascontiguousarray(scene[:, :, ::-1])
+    params = []
+    if depth > 8:
+        wide = bgr.astype(np.uint16)
+        bgr = (wide << (depth - 8)) | (wide >> (16 - depth))
+        params = [cv2.IMWRITE_AVIF_DEPTH, depth]
+    assert cv2.imwrite(str(image), bgr, params)
     np.testing.assert_array_equal(
         image_io.read_image(image), cv2.imread(str(image))[:, :, ::-1])
     argv = ["predict", "--model-dir", workdir["model"], "--image", str(image)]
@@ -711,7 +720,7 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     paths["cli_predict"] = smoke.phase_cli_predict(
         cli, image_io, visualize, synthetic, decode, kernels, tmp_path,
         "cpu")
-    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 10}
+    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 11}
     assert restored == (runner.KeypointEvaluator, runner.evaluate_batched,
                         predictor.Predictor.predict, cli._load_records)
 
@@ -764,10 +773,10 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
                      "cli_predict_gif_output": 1,
                      "cli_predict_jp2_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
-    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 105
-    assert codec["webp"]["fixtures_written"] == 105
+    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 107
+    assert codec["webp"]["fixtures_written"] == 107
     assert codec["tiff_hdr"]["fixtures"] == 30
-    assert codec["gif"]["fixtures"] == 105
+    assert codec["gif"]["fixtures"] == 107
     assert codec["gif"]["times"]["gif"]["c_encode_ms"] > 0
     j2k = codec["jpeg2000"]
     assert sorted(j2k["fixtures"]) == ["j2k_irr_rpcl_layers3_37x53.j2k",
@@ -783,15 +792,21 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
     assert codec["encode"]["c_encode_ms"] > 0
     jp2 = codec["jpeg2000_write"]
-    assert jp2["fixtures"] == 69 and len(jp2["boxes_only"]) == 36
+    assert jp2["fixtures"] == 71 and len(jp2["boxes_only"]) == 36
     assert len(jp2["plain_fixtures"]) >= 4
     assert jp2["times"]["photo"]["c_encode_ms"] > 0
     avif = codec["avif"]
-    assert len(avif["fixtures"]) == 10 and avif["build_s"] > 0
+    assert len(avif["fixtures"]) == 12 and avif["build_s"] > 0
     assert all(avif["tools"][n][c] > 0 and avif["tools"][n][
         "tiles_and_filters_ms"] > 0 for n, c in smoke.AVIF_TOOLS.items())
     assert avif["plain_on"] == ["avif_odd_33x17.avif",
-                                "avif_alpha_24x32.avif"]
+                                "avif_alpha_24x32.avif",
+                                "avif_12bit_64x80.avif"]
+    assert {n: t["bit_depth"] for n, t in avif["depths"].items()} == {
+        "avif_10bit_96x128.avif": 10, "avif_12bit_64x80.avif": 12,
+        "avif_photo_480x640.avif": 8}
+    assert all(t["c_decode_us_per_pixel"] > 0
+               for t in avif["depths"].values())
     assert all(t["c_decode_ms"] > 0 for t in avif["fixtures"].values())
     assert all(avif["fixtures"][n]["plain_decode_s"] > 0
                for n in avif["plain_on"])
