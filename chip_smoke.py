@@ -28,8 +28,9 @@ on a 480x640 PNG, read back (phase `cli_predict`, one launch),
 --output drawn.hdr`, a damaged JPEG, the photo with stray bytes before
 an Exif APP1 of orientation 6 (read turned), the committed gray JPEG
 2000 file, the photo as cv2.imwrite writes it in AVIF, a crop of it
-cv2.imwrite writes in lossless AVIF (quality 100) and one it writes in
-10-bit AVIF (IMWRITE_AVIF_DEPTH 10; one launch each).
+cv2.imwrite writes in lossless AVIF (quality 100), one it writes in
+10-bit AVIF (IMWRITE_AVIF_DEPTH 10) and a limited-range BT.709 AVIF
+crop from libavif's encoder (one launch each).
 Before them, phase `image_codec`
 builds the host C libraries (`csrc/image_codec.c`, `csrc/webp.c`,
 `csrc/jpeg2000.c`, `csrc/av1.c`) and holds their JPEG, WebP, TIFF (JPEG,
@@ -1361,9 +1362,11 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     people printed, its size and letterbox to the model's size reported;
     then `--image` the committed AVIF of the 480x640 photo (cv2.imwrite's
     file), the lossless one of its 128x160 crop (quality 100: 4:4:4,
-    the identity matrix) and the 10-bit one of a 96x128 crop
-    (IMWRITE_AVIF_DEPTH 10), each read to cv2's digest, one B1 launch,
-    people printed. Returns B1's launches."""
+    the identity matrix), the 10-bit one of a 96x128 crop
+    (IMWRITE_AVIF_DEPTH 10) and a limited-range BT.709 one of a 96x128
+    crop (the libavif encoder's, as a video tool writes a frame), each
+    read to cv2's digest, one B1 launch, people printed. Returns B1's
+    launches."""
     scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
     image_path, out_path = directory / "scene.png", directory / "drawn.png"
     image_io.write_png(image_path, scene["image"])
@@ -1536,8 +1539,9 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
             for p in jp2_people):
         raise AssertionError(f"cli_predict: bad people on {JP2_PREDICT}")
     # The 480x640 photo as cv2.imwrite writes it in AVIF, a crop of it in
-    # lossless AVIF and one in 10-bit AVIF, each read to cv2's digest, one
-    # B1 launch each.
+    # lossless AVIF, one in 10-bit AVIF and one in limited-range BT.709
+    # (a video tool's frame), each read to cv2's digest, one B1 launch
+    # each.
     digests = json.loads((FIXTURES / "digests.json").read_text())
     avif_rows = {}
     for name in AVIF_PREDICT_FILES:
@@ -1593,7 +1597,14 @@ AVIF_LOSSLESS = "avif_lossless_q100_128x160.avif"
 # one profile 2), the smaller of them also through the plain decoder.
 AVIF_10BIT = "avif_10bit_96x128.avif"
 AVIF_DEPTHS = {AVIF_10BIT: 10, "avif_12bit_64x80.avif": 12}
-AVIF_PREDICT_FILES = (AVIF_PREDICT, AVIF_LOSSLESS, AVIF_10BIT)
+# The files other encoders than cv2 write (the wheel's libavif encoder):
+# (ssx, ssy, bit depth, matrix coefficients, full range) of each.
+AVIF_BT709 = "avif_bt709_limited_96x128.avif"
+AVIF_FORMS = {"avif_444_lossy_96x128.avif": (0, 0, 8, 6, 1),
+              "avif_422_cdef_96x128.avif": (1, 0, 8, 6, 1),
+              "avif_422_10bit_64x80.avif": (1, 0, 10, 6, 1),
+              AVIF_BT709: (1, 1, 8, 1, 0)}
+AVIF_PREDICT_FILES = (AVIF_PREDICT, AVIF_LOSSLESS, AVIF_10BIT, AVIF_BT709)
 # The AVIF fixtures of the tools cv2's files reach at quality 100 and at
 # speeds below 9, and the counter (csrc/av1.c's) that shows each reached.
 AVIF_TOOLS = {AVIF_LOSSLESS: "lossless_blocks",
@@ -2077,20 +2088,25 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
     with its alpha item, the 480x640 photo, a lossless crop at quality
     100, the photo at speed 2 with loop restoration, a palette drawing
     and an intra block copy drawing at speed 6, crops at 10 and 12 bits
-    a sample) decoded by the C library to cv2's digest, and by the plain
-    decoder (`utils/av1.py`) too on the two smallest and on the smaller
-    high-depth file. Each tool file reaches its tool (`AVIF_TOOLS`, the C
-    decoder's counters), each high-depth file holds its depth. Times on
-    the host clock: the C decode of each (median), the plain decode of
-    the files it runs on (once), the time of the tiles and filters alone
+    a sample; and the libavif encoder's 4:4:4 lossy, 4:2:2 with CDEF's
+    chroma filter, 10-bit 4:2:2 and limited-range BT.709 crops) decoded
+    by the C library to cv2's digest, and by the plain decoder
+    (`utils/av1.py`) too on the two smallest, on the smaller high-depth
+    file and on the smallest of the other encoders' files. Each tool
+    file reaches its tool (`AVIF_TOOLS`, the C decoder's counters), each
+    high-depth file holds its depth, each other encoder's file its form
+    (`AVIF_FORMS`; the 4:2:2 CDEF file filters chroma). Times on the host
+    clock: the C decode of each (median), the plain decode of the files
+    it runs on (once), the time of the tiles and filters alone
     (`decode_planes_c`, rather than the container, the headers and
     libavif's YUV to RGB) of the photo and of the tool files, and, side
-    by side, the C decode of the high-depth files and of the 8-bit photo
-    again (`depths`: microseconds a pixel), so that a cost of the 16-bit
-    samples to 8-bit files shows."""
+    by side, the C decode of the high-depth files, of the other
+    encoders' forms (`forms`) and of the 8-bit photo again (`depths`:
+    microseconds a pixel), so that a cost of the 16-bit samples to 8-bit
+    files, or of a form, shows."""
     names = sorted(n for n in digests if n.endswith(".avif"))
-    if len(names) != 12 or not set(AVIF_TOOLS) | set(AVIF_DEPTHS) <= set(
-            names):
+    if len(names) != 16 or not set(AVIF_TOOLS) | set(AVIF_DEPTHS) | set(
+            AVIF_FORMS) <= set(names):
         raise AssertionError(f"image_codec: AVIF fixtures {names}")
     files = {n: (FIXTURES / n).read_bytes() for n in names}
 
@@ -2098,7 +2114,8 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
         return digests[n]["shape"][0] * digests[n]["shape"][1]
 
     smallest = sorted(names, key=pixels)[:2]
-    plain_on = smallest + [min(AVIF_DEPTHS, key=pixels)]
+    plain_on = smallest + [min(AVIF_DEPTHS, key=pixels),
+                           min(AVIF_FORMS, key=pixels)]
     times = {}
     for name in names:
         data, want = files[name], digests[name]
@@ -2138,11 +2155,33 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
         ms = median_ms(lambda: image_io.decode_image(data, name), 20)
         depths[name] = {"bit_depth": depth, "c_decode_ms": ms,
                         "c_decode_us_per_pixel": 1e3 * ms / pixels(name)}
+    forms = {}
+    for name, want in AVIF_FORMS.items():
+        data = files[name]
+        image = image_io.avif.read_image(data)
+        s = image.frame.seq
+        got = (s.ssx, s.ssy, s.bit_depth, image.matrix, image.full_range)
+        if got != want or image.frame.header.lossless:
+            raise AssertionError(f"image_codec: {name} is {got}")
+        stats = image_io.avif.decode_planes_c(image.frame)[3]
+        cdef_blocks = int(stats[image_io.avif.STAT_NAMES.index(
+            "cdef_blocks")])
+        if name == "avif_422_cdef_96x128.avif" and not (
+                cdef_blocks and any(p for p, _ in image.frame.header.cdef_uv)):
+            raise AssertionError(f"image_codec: {name} filters no chroma "
+                                 "by CDEF")
+        ms = median_ms(lambda: image_io.decode_image(data, name), 20)
+        forms[name] = {"form": dict(zip(("ssx", "ssy", "bit_depth", "matrix",
+                                         "full_range"), got)),
+                       "cdef_blocks": cdef_blocks, "c_decode_ms": ms,
+                       "c_decode_us_per_pixel": 1e3 * ms / pixels(name)}
+    forms[AVIF_PREDICT] = depths[AVIF_PREDICT]
     return {"build_s": build_s, "fixtures": times,
             "photo_tiles_and_filters_ms": tiles_ms, "tools": tools,
-            "depths": depths, "plain_on": plain_on,
+            "depths": depths, "forms": forms, "plain_on": plain_on,
             "equal": "C = cv2's digest on every fixture; plain = C on the "
-                     "two smallest and the smaller high-depth file"}
+                     "two smallest, the smaller high-depth file and the "
+                     "smallest of the other encoders' files"}
 
 
 # The plain JPEG 2000 writer runs on the fixtures up to this many pixels.

@@ -2921,9 +2921,15 @@ static void cdef_filter(Frame *f, const uint16_t *src, int plane, int r, int c,
                      f->frame[plane] + y0 * stride + x0, stride, cs);
 }
 
+/* The chroma direction of a luma direction where the chroma planes are
+ * subsampled on one axis only (4:2:2; libaom's conv422 in
+ * av1_cdef_filter_fb). */
+const int av1_cdef_conv422[8] = {7, 0, 2, 4, 5, 6, 6, 6};
+
 /* CDEF over the frame, reading the deblocked planes src (libaom's
  * av1_cdef_filter_fb: the strengths shifted by coeff_shift = bd - 8 before
- * the luma adjustment, the damping raised by it). */
+ * the luma adjustment, the damping raised by it; 4x8 chroma blocks at
+ * 4:2:2, their direction mapped through av1_cdef_conv422). */
 static void cdef(Frame *f, uint16_t *const *src) {
   const int32_t *h = f->hdr;
   const int damping = h[AV1_CDEF_DAMPING], cs = f->bd - 8;
@@ -2947,7 +2953,7 @@ static void cdef(Frame *f, uint16_t *const *src) {
       if (f->planes > 1) {
         pri = h[AV1_CDEF_UV_PRI + idx] << cs;
         sec = h[AV1_CDEF_UV_SEC + idx];
-        dir = pri ? ydir : 0;
+        dir = !pri ? 0 : f->ssx != f->ssy ? av1_cdef_conv422[ydir] : ydir;
         if (pri || sec) {
           cdef_filter(f, src[1], 1, r, c, pri, sec, damping - 1, dir);
           cdef_filter(f, src[2], 2, r, c, pri, sec, damping - 1, dir);

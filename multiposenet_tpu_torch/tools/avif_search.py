@@ -1,40 +1,51 @@
-"""Searches seeded images for an AVIF file cv2.imencode(".avif") writes
-that the port reads otherwise than cv2 5.0 (libavif 1.4.2 over libaom
-3.14.1): each image (of sides drawn from 1 to 160, one case in 16 a strip
-over 4096 wide, which libaom splits into tile columns; of one of the kinds
-of `tools/jpeg2000_write_search.py` or a drawing of flat shapes and text
-up to 320 a side, which libaom codes as screen content; in colour, gray or
-with an alpha channel) is written at an IMWRITE_AVIF_DEPTH drawn from 8,
-10 and 12 (uint16 pixels for 10 and 12: the uint8 image's values
-shifted up, with seeded noise in the new low bits, or, for drawings,
-their own bits repeated, so flat colours stay flat), an
-IMWRITE_AVIF_QUALITY drawn from 0 to 100 (100, lossless, in one case in
-six of the rest) and an IMWRITE_AVIF_SPEED drawn from 0 to 10, each
-cv2's default in one case in three. Then the host C library's Y, U and V
-planes are compared with libaom's (`tests/avif_reference.py`, libaom
-over ctypes), the port's RGB with cv2.imdecode's, and, where the image
-has at most 4,096 pixels, the plain decoder's planes with the C
-library's. One case in four is written by Pillow's AVIF writer instead
-(libavif 1.3.0, speeds 5 to 10, 8 bits), whose files reach AV1 tools
-cv2's do not: the port reads those files as cv2 does or refuses them by
-name (a refusal is a difference only for a cv2 file, or where cv2
-returns no image).
+"""Searches seeded images for an AVIF file that the port reads otherwise
+than cv2 5.0 (libavif 1.4.2 over libaom 3.14.1): each image (of sides
+drawn from 1 to 160, one case in 16 a strip over 4096 wide, which libaom
+splits into tile columns; of one of the kinds of
+`tools/jpeg2000_write_search.py` or a drawing of flat shapes and text up
+to 320 a side, which libaom codes as screen content; in colour, gray or
+with an alpha channel) is written by one of three writers:
+- cv2.imencode(".avif") (two cases in four) at an IMWRITE_AVIF_DEPTH
+  drawn from 8, 10 and 12 (uint16 pixels for 10 and 12: the uint8
+  image's values shifted up, with seeded noise in the new low bits, or,
+  for drawings, their own bits repeated, so flat colours stay flat), an
+  IMWRITE_AVIF_QUALITY drawn from 0 to 100 (100, lossless, in one case
+  in six of the rest) and an IMWRITE_AVIF_SPEED drawn from 0 to 10, each
+  cv2's default in one case in three;
+- the wheel's libavif encoder over ctypes (one case in four), at a depth
+  drawn from 8, 10 and 12 and a subsampling drawn from 4:2:0, 4:2:2 and
+  4:4:4 (4:0:0 for gray), at the quality and speed drawn;
+- Pillow's AVIF writer (one case in four; libavif 1.3.0, speeds 5 to 10,
+  8 bits) at a subsampling drawn from 4:2:0, 4:2:2 and 4:4:4.
+In one case in two the colour description is then rewritten: matrix
+coefficients drawn from 0 to 19 and 255, the range, and for
+chroma-derived NCL (12) the colour primaries, in the `colr` nclx box, or,
+in one such case in three (one item, no alpha), in the AV1 sequence
+header with the `colr` box dropped. Then the host C library's Y, U and V
+planes are compared with libaom's (`tests/avif_reference.py`, libaom over
+ctypes), the port's RGB with cv2.imdecode's, and, where the image has at
+most 4,096 pixels, the plain decoder's planes with the C library's. The
+port must read every file cv2 reads, to cv2's pixels, and refuse every
+file cv2 returns no image for.
 
     python -m multiposenet_tpu_torch.tools.avif_search \\
         [--count 300] [--seed 0] [--workers 6] [--out FILE]
 
-prints one JSON line: cases (and cases at each depth), differences
-([writer, kind, h, w, channels, depth, quality, speed, seed], what
-differs), the refusals of Pillow files and of cv2 files, the count of
-each tool the C decoder reached over all cases
-(`csrc/av1.c`'s counters: transform sizes and types, intra modes, filter
-intra, angle deltas, edge filtering and upsampling, delta q and lf,
-tiles, partitions, palette, lossless blocks, restoration units, intra
-block copy; and the frames in TX_MODE_SELECT), the tools no case reached
-and those no cv2 file reached (over all cases and at each depth), and
-seconds. It needs cv2 and the wheel's
-libaom, so it runs where they are installed, not on the card's machine.
-The CPU tests run `search` on the first cases of a seed.
+prints one JSON line: cases (and cases by writer, depth, subsampling and
+colour rewrite), the cases cv2 returns no image for, differences
+([writer, kind, h, w, channels, depth, quality, speed, seed,
+subsampling, colour], what differs: a plane, the pixels, the plain
+decoder, "refused where cv2 reads" or "read where cv2 returns none"),
+the refusals by writer, the count of each tool the C decoder reached
+over all cases (`csrc/av1.c`'s counters: transform sizes and types,
+intra modes, filter intra, angle deltas, edge filtering and upsampling,
+delta q and lf, tiles, partitions, palette, lossless blocks, CDEF,
+restoration units, intra block copy; and the frames in TX_MODE_SELECT),
+the tools no case reached (over all cases, by cv2's files, at each depth
+and at each subsampling), and seconds. It needs cv2, Pillow and the
+wheel's libaom and libavif, so it runs where they are installed, not on
+the card's machine. The CPU tests run `search` on the first cases of a
+seed.
 """
 
 from __future__ import annotations
@@ -70,13 +81,18 @@ def load_reference(path: Path = REFERENCE):
 
 
 DEPTHS = (8, 10, 12)
+SUBSAMPLINGS = ("420", "422", "444")
+MATRICES = tuple(range(20)) + (255,)
+CHROMA_DERIVED_PRIMARIES = (1, 2, 4, 5, 6, 9, 10, 22)
 
 
 def cases(count: int, seed: int = 0) -> list[tuple]:
     """(writer, kind, h, w, channels, depth, quality or None, speed or
-    None, image seed) of `count` seeded images, the kinds in turn; one
-    case in four written by Pillow (at 8 bits and a speed from 5 to 10
-    drawn from the image seed) rather than cv2."""
+    None, image seed, subsampling, colour) of `count` seeded images, the
+    kinds in turn; writers cv2, libavif and Pillow in the proportions 2,
+    1, 1 (Pillow at 8 bits and a speed from 5 to 10 drawn from the image
+    seed; cv2 at its own subsampling, "420" here); colour None or
+    (where: "colr" or "seq", matrix, full range, primaries)."""
     rng = np.random.default_rng(seed)
     out = []
     for i in range(count):
@@ -90,21 +106,65 @@ def cases(count: int, seed: int = 0) -> list[tuple]:
             rng.integers(0, 6) == 0 else int(rng.integers(0, 101))
         speed = None if rng.integers(0, 3) == 0 else int(rng.integers(0, 11))
         depth = DEPTHS[int(rng.integers(0, 3))]
-        writer = "pillow" if i % 4 == 3 else "cv2"
+        writer = ("cv2", "cv2", "libavif", "pillow")[i % 4]
+        sub = SUBSAMPLINGS[int(rng.integers(0, 3))]
         if writer == "pillow":
             quality = 75 if quality is None else min(quality, 99)
             speed, depth = None, 8
+        elif writer == "libavif":
+            quality = 50 if quality is None else quality
+            speed = 6 if speed is None else speed
+        else:
+            sub = "420"
+        if channels == 1:
+            sub = "400"
+        colour = None
+        if rng.integers(0, 2):
+            matrix = int(MATRICES[int(rng.integers(0, len(MATRICES)))])
+            full = int(rng.integers(0, 2))
+            primaries = int(CHROMA_DERIVED_PRIMARIES[int(rng.integers(
+                0, len(CHROMA_DERIVED_PRIMARIES)))]) if matrix == 12 else 1
+            where = "seq" if channels != 4 and rng.integers(0, 3) == 0 \
+                else "colr"
+            colour = (where, matrix, full, primaries)
         out.append((writer, kind, h, w, channels, depth, quality, speed,
-                    int(rng.integers(2**31))))
+                    int(rng.integers(2**31)), sub, colour))
     return out
 
 
+YUV_FORMATS = {"400": 4, "420": 3, "422": 2, "444": 1}
+
+
 def encode(reference, writer: str, pixels_: np.ndarray, depth: int, quality,
-           speed, seed: int) -> bytes:
+           speed, seed: int, sub: str, colour) -> bytes:
+    """The case's file, its colour description rewritten by `colour`."""
     if writer == "cv2":
-        return reference.imencode_avif(pixels_, quality, speed,
+        data = reference.imencode_avif(pixels_, quality, speed,
                                        None if depth == 8 else depth)
-    return reference.pillow_avif(pixels_, quality, 5 + seed % 6)
+    elif writer == "pillow":
+        data = reference.pillow_avif(pixels_, quality, 5 + seed % 6,
+                                     subsampling=sub[0] + ":" + sub[1] + ":"
+                                     + sub[2])
+    else:
+        alpha = None
+        rgb = pixels_
+        if pixels_.ndim == 3 and pixels_.shape[2] == 4:
+            rgb, alpha = pixels_[:, :, :3], pixels_[:, :, 3]
+        if rgb.ndim == 2:
+            rgb = np.repeat(rgb[:, :, None], 3, axis=2)
+        data = reference.avif_encode(
+            reference.planes_of(rgb, depth, YUV_FORMATS[sub]), depth,
+            YUV_FORMATS[sub], quality, speed, alpha=alpha)
+    if colour is None:
+        return data
+    where, matrix, full, primaries = colour
+    if where == "seq":
+        obus = reference.rewrite_frame(
+            reference.primary_obus(data),
+            {"matrix": matrix, "full_range": full, "primaries": primaries,
+             "transfer": 1})
+        return reference.edit_avif(data, drop_props=(b"colr",), color=obus)
+    return reference.patch_colr(data, matrix, full, primaries)
 
 
 def pixels(kind: str, h: int, w: int, channels: int, seed: int,
@@ -146,12 +206,16 @@ def compare(data: bytes, reference, plain: bool) -> tuple[list, np.ndarray,
     differ = []
     image_ = avif.read_image(data)
     y, u, v, stats = avif.decode_planes_c(image_.frame)
+    want_rgb = reference.imdecode_rgb(data)
+    if want_rgb is None:
+        return ["read where cv2 returns none"], stats, \
+            image_.frame.header.tx_mode_select
     ref = reference.aom_planes(reference.primary_obus(data))
     for name, got, want in zip("yuv", (y, u, v), ref):
         if (got is None) != (want is None) or (
                 want is not None and not np.array_equal(got, want)):
             differ.append(f"plane_{name}")
-    if not np.array_equal(avif.decode(data), reference.imdecode_rgb(data)):
+    if not np.array_equal(avif.decode(data), want_rgb):
         differ.append("rgb")
     if plain:
         p = avif.decode_planes_plain(image_.frame)
@@ -162,16 +226,18 @@ def compare(data: bytes, reference, plain: bool) -> tuple[list, np.ndarray,
 
 
 def _run(batch: list[tuple], reference: str) -> list:
-    """(case, what differs, counters, TX_MODE_SELECT, refusal) of each
-    case. A refusal by name is no difference for a Pillow file (it may
-    use what the contract leaves out) and is one for a cv2 file."""
+    """(case, what differs, counters, TX_MODE_SELECT, refusal, whether
+    cv2 returns no image) of each case. A refusal is a difference where
+    cv2 reads the file."""
     module = load_reference(Path(reference))
     out = []
     for case in batch:
-        writer, kind, h, w, channels, depth, quality, speed, seed = case
+        (writer, kind, h, w, channels, depth, quality, speed, seed, sub,
+         colour) = case
         data = encode(module, writer,
                       pixels(kind, h, w, channels, seed, module, depth),
-                      depth, quality, speed, seed)
+                      depth, quality, speed, seed, sub, colour)
+        none = module.imdecode_rgb(data) is None
         try:
             differ, stats, txsel = compare(data, module,
                                            h * w <= PLAIN_PIXELS)
@@ -179,9 +245,9 @@ def _run(batch: list[tuple], reference: str) -> list:
         except ValueError as exc:
             differ, stats, txsel = [], np.zeros(len(STAT_NAMES), np.int64), 0
             refusal = str(exc)
-            if writer == "cv2" or module.imdecode_rgb(data) is None:
-                differ = [f"refused: {refusal}"]
-        out.append((case, differ, stats.tolist(), txsel, refusal))
+            if not none:
+                differ = [f"refused where cv2 reads: {refusal}"]
+        out.append((case, differ, stats.tolist(), txsel, refusal, none))
     return out
 
 
@@ -214,14 +280,32 @@ def search(batch: list[tuple], workers: int = 0,
     reached = tools(done)
     reached_cv2 = tools(cv2_rows)
     by_depth = {d: [r for r in done if r[0][5] == d] for d in DEPTHS}
-    return {"cases": len(done), "cv2_cases": len(cv2_rows),
+    by_sub = {s: [r for r in done if r[0][9] == s]
+              for s in SUBSAMPLINGS + ("400",)}
+    differences = sorted([list(r[0]), r[1]] for r in done if r[1])
+
+    def count(key):
+        return {k: sum(key(r) == k for r in done)
+                for k in sorted({key(r) for r in done}, key=str)}
+
+    return {"cases": len(done),
+            "cases_by_writer": count(lambda r: r[0][0]),
             "cases_by_depth": {d: len(rows) for d, rows in by_depth.items()},
+            "cases_by_subsampling": {s: len(rows)
+                                     for s, rows in by_sub.items()},
+            "cases_by_colour": count(lambda r: r[0][10] and r[0][10][0]),
             "plain_cases": sum(r[0][2] * r[0][3] <= PLAIN_PIXELS
                                for r in done),
-            "differences": sorted([list(r[0]), r[1]] for r in done if r[1]),
-            "cv2_refused": sorted({r[4] for r in cv2_rows if r[4]}),
-            "pillow_refused": sorted({r[4] for r in done
-                                      if r[4] and not r[1]}),
+            "cv2_returns_none": sum(r[5] for r in done),
+            "refused": sum(r[4] is not None for r in done),
+            "differences": differences,
+            "refused_where_cv2_reads": sum(
+                d[0].startswith("refused where") for _, d in differences),
+            "read_where_cv2_returns_none": sum(
+                d == ["read where cv2 returns none"] for _, d in differences),
+            "refusals": {wr: sorted({r[4] for r in done
+                                     if r[4] and r[0][0] == wr})
+                         for wr in ("cv2", "libavif", "pillow")},
             "tools": reached,
             "tools_not_reached": sorted(k for k, n in reached.items()
                                         if not n),
@@ -230,6 +314,9 @@ def search(batch: list[tuple], workers: int = 0,
             "tools_not_reached_by_depth": {
                 d: sorted(k for k, n in tools(rows).items() if not n)
                 for d, rows in by_depth.items() if rows},
+            "tools_not_reached_by_subsampling": {
+                s: sorted(k for k, n in tools(rows).items() if not n)
+                for s, rows in by_sub.items() if rows},
             "seconds": time.perf_counter() - t0}
 
 

@@ -2437,10 +2437,17 @@ def cdef_block(src: np.ndarray, y0: int, x0: int, w: int, h: int, pri: int,
     return out
 
 
+# The chroma direction of a luma direction where the chroma planes are
+# subsampled on one axis only (4:2:2; libaom's conv422 in
+# av1_cdef_filter_fb).
+CDEF_CONV422 = (7, 0, 2, 4, 5, 6, 6, 6)
+
+
 def _cdef(f: _Frame) -> None:
     """CDEF over the frame (libaom's av1_cdef_filter_fb: the strengths
     shifted by coeff_shift = bd - 8 before the luma adjustment, the
-    damping raised by it)."""
+    damping raised by it; 4x8 chroma blocks at 4:2:2, their direction
+    mapped through CDEF_CONV422)."""
     h = f.h
     if not f.enable_cdef:
         return
@@ -2467,10 +2474,11 @@ def _cdef(f: _Frame) -> None:
                 if pri or sec:
                     y0, x0 = (r * 4) >> f.ssy, (c * 4) >> f.ssx
                     bh, bw = 8 >> f.ssy, 8 >> f.ssx
+                    cd = CDEF_CONV422[d] if f.ssx != f.ssy else d
                     for p in (1, 2):
                         f.frame[p][y0:y0 + bh, x0:x0 + bw] = cdef_block(
                             src[p], y0, x0, bw, bh, pri, sec,
-                            h.cdef_damping - 1 + cs, d if pri else 0,
+                            h.cdef_damping - 1 + cs, cd if pri else 0,
                             ((f.mi_rows * 4) >> f.ssy,
                              (f.mi_cols * 4) >> f.ssx), cs)
 

@@ -9,62 +9,73 @@ cv2.IMWRITE_AVIF_SPEED, s])` writes, with `img` of 1, 3 or 4 channels,
 uint8 (d 8) or uint16 of values below 2^d (d 10 or 12), at any size cv2
 accepts (1x1 up, odd sides, widths over 4096, which libaom splits into
 tile columns), `q` from 0 to 100 and `s` from 0 to 10 (any of cv2's
-defaults included), `decode(data)` equals `cv2.imdecode(data,
-cv2.IMREAD_COLOR)` reversed to RGB, pixel for pixel, and the Y, U and V
-planes before the colour conversion (`decode_planes`: uint8 at 8 bits,
-uint16 at 10 and 12) equal libaom's. What such files use, and what is
+defaults included), and for every file other encoders write in the
+forms below (libavif's encoder, Pillow's, video tools: 4:4:4 lossy and
+4:2:2 frames, any colour description), `decode(data)` equals
+`cv2.imdecode(data, cv2.IMREAD_COLOR)` reversed to RGB, pixel for pixel,
+and the Y, U and V planes before the colour conversion (`decode_planes`:
+uint8 at 8 bits, uint16 at 10 and 12) equal libaom's; where cv2 returns
+no image, a ValueError names the form. What such files use, and what is
 read here:
 - the container (ISOBMFF, `read_container`): `ftyp` naming the `avif`
   brand (major or compatible), `meta` with `hdlr` `pict`, `pitm`,
   `iloc` (construction methods 0, file offsets, and 1, `idat`),
   `iinf`/`infe`, `iprp` with `ipco` and `ipma`, and `iref`. The primary
   item's properties: `av1C` (its configuration OBUs read before the
-  item's), `ispe` (equal to the frame's size), `colr` nclx (its matrix
-  and range), and `irot`, `imir` and `clap`, which cv2 does not apply
-  and which are ignored here. An alpha auxiliary item (`auxl`, `auxC`:
-  cv2 writes one for 4-channel input) is decoded and dropped, as cv2
-  returns no image where it does not decode;
+  item's), `ispe` (equal to the frame's size), `colr` nclx (its colour
+  primaries, transfer characteristics, matrix coefficients and range;
+  without one, the AV1 sequence header's; an ICC `colr` beside it is
+  not applied, as cv2 does not apply it; two nclx or two ICC boxes are
+  refused, as libavif refuses them), and `irot`, `imir` and `clap`,
+  which cv2 does not apply and which are ignored here. An alpha
+  auxiliary item (`auxl`, `auxC`: cv2 writes one for 4-channel input)
+  is decoded and dropped, as cv2 returns no image where it does not
+  decode (and none for a monochrome image with one);
 - the OBUs (`read_obus`: uleb128 sizes; temporal delimiters, metadata
   and padding skipped), the sequence header and the uncompressed header
   of one shown key frame in full syntax (`SequenceHeader`,
   `FrameHeader`), and the tile groups that follow it;
 - the tiles, in the host C library `csrc/av1.c` or, with `plain=True`,
   in its plain twin `utils/av1.py`: profile 0 at 8 or 10 bits (4:2:0 or
-  monochrome), profile 1 at 8 or 10 bits (4:4:4, lossless frames only)
-  and profile 2 at 12 bits (4:2:0, monochrome, lossless 4:4:4; cv2's
-  12-bit files disable loop restoration), 64x64 or
-  128x128 superblocks, every partition, the 13 intra modes with angle
-  deltas, edge filtering and upsampling, filter intra, chroma from luma,
-  palette (screen content: the colour cache, coded and delta-coded
-  colours, the colour-index maps), intra block copy (the DV stack, the
-  DV, whole- and half-sample copies, the inter transform tree and sets),
-  delta q and delta lf, the largest or a selected transform size, the
-  intra transform sets, the quantiser matrices, lossless frames (the
-  Walsh-Hadamard transform on 4x4 blocks), then the deblocking filter,
-  CDEF and loop restoration (Wiener and self-guided units in 64-row
-  stripes offset 8 rows up). A tile whose symbols run past its bytes, or
-  that does not end in its trailing bits, or a DV that libaom's
-  av1_is_dv_valid rejects, is refused, as libaom reports such a frame
-  corrupt;
-- libavif's YUV to RGB (`yuv_to_rgb`): libyuv's fixed-point
-  full-range BT.601 (the JPEG constants, for matrix coefficients 2, 5
-  and 6) with its bilinear 4:2:0 upsampling, at 10 and 12 bits after
-  the planes are narrowed to 8 (cv2's BGR) or at the depth itself (BGRA,
-  which cv2 reads where the file has an alpha item: bilinear at 10
-  bits, each chroma sample over its 2x2 pixels at 12); 4:4:4 with the
-  identity matrix (coefficients 0, cv2's quality 100) as G = Y, B = U,
-  R = V, rounded to 8 bits; a monochrome image is its Y plane in each
-  channel, rounded to 8 bits as cv2 rounds it.
+  monochrome), profile 1 at 8 or 10 bits (4:4:4) and profile 2 at 8,
+  10 or 12 bits (4:2:2; at 12 bits also 4:2:0, monochrome and 4:4:4;
+  cv2's 12-bit files disable loop restoration), lossless or lossy, 64x64
+  or 128x128 superblocks, every partition, the 13 intra modes with angle
+  deltas, edge filtering and upsampling, filter intra, chroma from luma
+  (its luma averaged 2x2, 2x1 or not at all), palette (screen content:
+  the colour cache, coded and delta-coded colours, the colour-index
+  maps), intra block copy (the DV stack, the DV, whole- and half-sample
+  copies, the inter transform tree and sets), delta q and delta lf, the
+  largest or a selected transform size, the intra transform sets, the
+  quantiser matrices, lossless frames (the Walsh-Hadamard transform on
+  4x4 blocks), then the deblocking filter, CDEF (4x8 chroma blocks at
+  4:2:2, their direction mapped through libaom's conv422) and loop
+  restoration (Wiener and self-guided units in 64-row stripes offset 8
+  rows up). A tile whose symbols run past its bytes, or that does not
+  end in its trailing bits, or a DV that libaom's av1_is_dv_valid
+  rejects, is refused, as libaom reports such a frame corrupt;
+- libavif's YUV to RGB (`yuv_to_rgb`): for BT.601, BT.709 and BT.2020
+  NCL at limited and full range (and chroma-derived NCL of those
+  primaries) libyuv's fixed-point constants with its bilinear 4:2:0 and
+  linear 4:2:2 upsampling, at 10 and 12 bits after the planes are
+  narrowed to 8 (cv2's BGR) or at the depth itself (BGRA, which cv2
+  reads where the file has an alpha item: bilinear or linear at 10 bits,
+  each chroma sample over its 2x2 pixels at 12-bit 4:2:0); libavif's own
+  float32 path for the other matrices it converts (FCC, SMPTE 240M,
+  YCgCo, YCgCo-Re at 10 bits, chroma-derived NCL of other primaries, the
+  identity at 4:4:4); a monochrome image is its Y plane in each channel,
+  rounded to 8 bits as cv2 rounds it, whatever its colour description.
 
-cv2's own files reach most of that (`tools/avif_search.py` lists what no
-cv2 file reached: the rest is held to libaom's own C functions stage by
-stage and on files Pillow's AVIF writer makes).
+cv2's own files reach most of the AV1 tools (`tools/avif_search.py` lists
+what no file reached: the rest is held to libaom's own C functions stage
+by stage and on files Pillow's AVIF writer and libavif's encoder make).
 
 What lies outside it is refused by a ValueError that names it, where the
 stream uses it: the `avis` brand (sequences), grid items, Exif items,
-4:2:2 (profile 2 at any depth), 4:4:4 lossy frames, superres,
-segmentation, film grain, frames other than one shown key frame, an
-`ispe` other than the frame's size, limited range and other matrices.
+superres, segmentation, film grain, frames other than one shown key
+frame, an `ispe` other than the frame's size; and, as cv2 returns no
+image for them, the colour forms libavif does not convert
+(`colour_refusal`).
 """
 
 from __future__ import annotations
@@ -518,14 +529,10 @@ def parse_sequence_header(payload: bytes) -> SequenceHeader:
 def check_sequence(s: SequenceHeader) -> None:
     """The sequence-level refusals. Read: profile 0 at 8 or 10 bits
     (4:2:0, monochrome), profile 1 at 8 or 10 bits (4:4:4) and profile 2
-    at 12 bits (4:2:0, monochrome, 4:4:4); 4:4:4 only in lossless frames
-    (`parse_frame_header`). Refused: 4:2:2 (profile 2 at any depth), and
-    profiles past 2."""
+    at 8, 10 or 12 bits (4:2:2; at 12 bits also 4:2:0, monochrome and
+    4:4:4), lossless or lossy. Refused: profiles past 2."""
     if s.profile > 2:
         raise ValueError(f"AVIF: AV1 profile {s.profile} is not read here")
-    if not s.mono and s.ssx and not s.ssy:
-        raise ValueError(f"AVIF: AV1 profile {s.profile} 4:2:2 "
-                         f"({s.bit_depth}-bit) is not read here")
 
 
 @dataclass
@@ -653,8 +660,6 @@ def parse_frame_header(payload: bytes, s: SequenceHeader) -> FrameHeader:
             h.delta_lf_res = r.f(2)
             h.delta_lf_multi = r.f(1)
     h.lossless = int(h.base_q == 0 and not any(h.dq))
-    if not s.mono and s.ssx == 0 and not h.lossless:
-        raise ValueError("AVIF: 4:4:4 lossy frames are not read here")
     if not (h.lossless or h.allow_intrabc):
         _loop_filter_params(r, h, s)
     if s.cdef and not (h.lossless or h.allow_intrabc):
@@ -964,18 +969,73 @@ def decode_planes_c(frame: Frame, cdef: bool = True,
 
 # --- libavif's YUV to RGB ----------------------------------------------------
 
-# libyuv's kYuvJPEGConstants (full-range BT.601) as libavif 1.4.2 carries
-# them: the U and V weights of B, G and R, Y's gain and bias (x86 layout:
-# kUVToB, kUVToG, kUVToR, kYToRgb, kYBiasToRgb).
-JPEG_UB, JPEG_UG, JPEG_VG, JPEG_VR, JPEG_YG, JPEG_YB = 113, 22, 46, 90, \
-    16320, 32
-# Matrix coefficients libavif maps to these constants at full range:
-# BT.470BG, BT.601 and unspecified.
-JPEG_MATRICES = (2, 5, 6)
+# libyuv's YuvConstants as libavif 1.4.2 carries them: the U and V weights
+# of B, G and R, Y's gain and bias (x86 layout: kUVToB[0], kUVToG[0],
+# kUVToG[1], kUVToR[1], kYToRgb[0], kYBiasToRgb[0]).
+LIBYUV_CONSTANTS = {
+    "I601": (128, 25, 52, 102, 18997, -1160),
+    "JPEG": (113, 22, 46, 90, 16320, 32),
+    "H709": (128, 14, 34, 115, 18997, -1160),
+    "F709": (119, 12, 30, 101, 16320, 32),
+    "2020": (128, 12, 42, 107, 19003, -1160),
+    "V2020": (120, 11, 37, 94, 16320, 32),
+}
+# libavif's getLibYUVConstants: (family, full range) to the constants, the
+# family by matrix coefficients, or for chroma-derived NCL (12) by colour
+# primaries; every other matrix goes to libavif's own float path.
+LIBYUV_NAMES = {("601", 0): "I601", ("601", 1): "JPEG", ("709", 0): "H709",
+                ("709", 1): "F709", ("2020", 0): "2020", ("2020", 1): "V2020"}
+LIBYUV_MATRICES = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
+LIBYUV_PRIMARIES = {1: "709", 2: "709", 5: "601", 6: "601", 9: "2020"}
+# avifCalcYUVCoefficients's Kr and Kb (float32) by matrix coefficients;
+# any other matrix takes BT.601's.
+KR_KB = {1: (0.2126, 0.0722), 4: (0.30, 0.11), 5: (0.299, 0.114),
+         6: (0.299, 0.114), 7: (0.212, 0.087), 9: (0.2627, 0.0593)}
+# avifColorPrimariesTables (float32): red, green, blue and white x and y
+# by colour primaries; any other value takes BT.709's.
+PRIMARIES = {
+    1: (0.64, 0.33, 0.30, 0.60, 0.15, 0.06, 0.3127, 0.329),
+    4: (0.67, 0.33, 0.21, 0.71, 0.14, 0.08, 0.310, 0.316),
+    5: (0.64, 0.33, 0.29, 0.60, 0.15, 0.06, 0.3127, 0.3290),
+    6: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    7: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    8: (0.681, 0.319, 0.243, 0.692, 0.145, 0.049, 0.310, 0.316),
+    9: (0.708, 0.292, 0.170, 0.797, 0.131, 0.046, 0.3127, 0.3290),
+    10: (1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.3333, 0.3333),
+    11: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.314, 0.351),
+    12: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.3127, 0.3290),
+    22: (0.630, 0.340, 0.295, 0.605, 0.155, 0.077, 0.3127, 0.3290),
+}
+MATRIX_NAMES = {0: "identity", 1: "BT.709", 2: "unspecified", 3: "reserved",
+                4: "FCC", 5: "BT.470BG", 6: "BT.601", 7: "SMPTE 240M",
+                8: "YCgCo", 9: "BT.2020 NCL", 10: "BT.2020 CL",
+                11: "SMPTE 2085", 12: "chroma-derived NCL",
+                13: "chroma-derived CL", 14: "ICtCp", 15: "IPT-C2",
+                16: "YCgCo-Re", 17: "YCgCo-Ro"}
+_F32 = np.float32
+
+
+def colour_refusal(matrix: int, full_range: int, ssx: int, ssy: int,
+                   depth: int) -> str | None:
+    """Why libavif 1.4.2 refuses to convert planes of this colour
+    description to RGB (avifGetYUVColorSpaceInfo; cv2 then returns no
+    image), or None where it converts them."""
+    name = f"matrix coefficients {matrix} " \
+        f"({MATRIX_NAMES.get(matrix, 'reserved')})"
+    if matrix == 3 or matrix >= 18 or matrix in (10, 11, 13, 14, 17):
+        return f"{name} are not converted to RGB"
+    if matrix == 0 and (ssx or ssy):
+        return f"{name} needs 4:4:4"
+    if matrix == 8 and not full_range:
+        return f"{name} at limited range is not converted to RGB"
+    if matrix == 16 and not (full_range and depth == 10):
+        return f"{name} is converted at full range and 10 bits only"
+    return None
 
 
 def _up2_linear(c: np.ndarray, width: int) -> np.ndarray:
-    """libyuv's ScaleRowUp2_Linear_Any_C on each row of c (int32)."""
+    """libyuv's ScaleRowUp2_Linear_Any_C (or _16) on each row of c."""
+    c = c.astype(np.int32)
     out = np.empty(c.shape[:-1] + (width,), np.int32)
     out[..., 0] = c[..., 0]
     n = (width - 1) // 2
@@ -1022,16 +1082,6 @@ def upsample_420(c: np.ndarray, height: int, width: int) -> np.ndarray:
     return out
 
 
-def _unorm8(x: np.ndarray, depth: int) -> np.ndarray:
-    """Samples of `depth` bits to 8 as libavif's float paths round them:
-    (uint8)(0.5f + x / (2^depth - 1) * 255.0f), the nearest integer to
-    x * 255 / (2^depth - 1) (no tie lies near one: 2^depth - 1 is odd)."""
-    if depth == 8:
-        return x
-    m = (1 << depth) - 1
-    return ((x.astype(np.int64) * 510 + m) // (2 * m)).astype(np.uint8)
-
-
 def _gray8(x: np.ndarray, depth: int) -> np.ndarray:
     """A monochrome plane to 8 bits as cv2 narrows it
     (Mat.convertTo(CV_8U, 1 / 2^(depth - 8)): the nearest integer, ties
@@ -1045,71 +1095,194 @@ def _gray8(x: np.ndarray, depth: int) -> np.ndarray:
     return np.minimum(q, 255).astype(np.uint8)
 
 
-def _jpeg_rows(y: np.ndarray, uu: np.ndarray, vv: np.ndarray,
-               depth: int) -> np.ndarray:
-    """libyuv's YuvPixel (8 bits), YuvPixel10_16 or YuvPixel12_16 with
-    the JPEG constants, on full-size planes of `depth` bits: Y widened to
-    16 bits by repeating its top bits, U and V narrowed to 8 (x >>
-    (depth - 8), saturated)."""
-    y = y.astype(np.int32)  # y32 * JPEG_YG < 2^31
+def libyuv_constants(matrix: int, full_range: int,
+                     primaries: int) -> tuple | None:
+    """The YuvConstants libavif hands libyuv (getLibYUVConstants), or
+    None where it converts with its own float path."""
+    family = LIBYUV_PRIMARIES.get(primaries) if matrix == 12 \
+        else LIBYUV_MATRICES.get(matrix)
+    if family is None:
+        return None
+    return LIBYUV_CONSTANTS[LIBYUV_NAMES[family, full_range]]
+
+
+def _libyuv_rows(y: np.ndarray, uu: np.ndarray, vv: np.ndarray, depth: int,
+                 constants: tuple) -> np.ndarray:
+    """libyuv's YuvPixel (8 bits), YuvPixel10_16 or YuvPixel12_16 with the
+    given constants, on full-size planes of `depth` bits: Y widened to 16
+    bits by repeating its top bits, U and V narrowed to 8 (x >> (depth -
+    8), saturated)."""
+    ub, ug, vg, vr, yg, yb = constants
+    y = y.astype(np.int32)  # y32 * yg < 2^31 for every constant set
     if depth == 8:
         y32, uu, vv = y * 0x0101, uu - 128, vv - 128
     else:
         y32 = (y << (16 - depth)) | (y >> (2 * depth - 16))
         uu = np.minimum(uu.astype(np.int32) >> (depth - 8), 255) - 128
         vv = np.minimum(vv.astype(np.int32) >> (depth - 8), 255) - 128
-    y1 = ((y32 * JPEG_YG) >> 16) + JPEG_YB
-    b = y1 + uu * JPEG_UB
-    g = y1 - (uu * JPEG_UG + vv * JPEG_VG)
-    r = y1 + vv * JPEG_VR
+    y1 = ((y32 * yg) >> 16) + yb
+    b = y1 + uu * ub
+    g = y1 - (uu * ug + vv * vg)
+    r = y1 + vv * vr
     rgb = np.stack([r, g, b], axis=-1) >> 6
     return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
-def yuv_to_rgb(y: np.ndarray, u: np.ndarray | None, v: np.ndarray | None,
-               matrix: int = 6, full_range: int = 1,
-               subsampled: bool = True, depth: int = 8,
-               alpha: bool = False) -> np.ndarray:
-    """uint8 RGB [H, W, 3] of planes of `depth` bits as cv2 reads them
-    with IMREAD_COLOR. cv2 reads a file with an alpha item into BGRA and
-    drops A, one without into BGR, both through libavif 1.4.2's
-    avifImageYUVToRGB into 8 bits:
-    - 4:2:0 (matrix 2, 5 or 6) through libyuv and the JPEG constants
-      (`_jpeg_rows`): 8 bits, I420ToRGB24MatrixFilter or
-      I420ToARGBMatrixFilter, kFilterBilinear (`upsample_420`); 10 and
-      12 bits into BGR, the planes first narrowed to 8 bits
-      (avifImageDownshiftTo8bpc, libyuv's Convert16To8Plane: x >>
-      (depth - 8)), then as at 8 bits; 10 bits into BGRA,
-      I010ToARGBMatrixFilter (the chroma upsampled at 10 bits); 12 bits
-      into BGRA, I012ToARGBMatrix (no filter: each chroma sample covers
-      its 2x2 pixels);
-    - 4:4:4 with the identity matrix (coefficients 0, full range; U and
-      V not `subsampled`) as G = Y, B = U, R = V, through `_unorm8`
-      (avifImageYUVAnyToRGBAnySlow: libyuv has no identity matrix).
-    A monochrome file cv2 reads as one channel and widens with
-    COLOR_GRAY2BGR, narrowed by `_gray8` (no libavif conversion)."""
-    if u is None:
-        return np.repeat(_gray8(y, depth)[:, :, None], 3, axis=2)
-    if not full_range:
-        raise ValueError("AVIF: limited-range YUV is not read here")
-    if not subsampled:
-        if matrix != 0:
-            raise ValueError(f"AVIF: 4:4:4 with matrix coefficients {matrix} "
-                             "is not read here (identity only)")
-        return np.stack([_unorm8(v, depth), _unorm8(y, depth),
-                         _unorm8(u, depth)], axis=-1)
-    if matrix not in JPEG_MATRICES:
-        raise ValueError(f"AVIF: matrix coefficients {matrix} are not read "
-                         "here (BT.601 only)")
+def kr_kb(matrix: int, primaries: int) -> tuple:
+    """Kr and Kb (float32) as avifCalcYUVCoefficients gives them: from
+    the table, or for chroma-derived NCL (12) from the colour primaries
+    (avifColorPrimariesComputeYCoeffs, H.273's equations 32-37)."""
+    if matrix != 12:
+        return tuple(_F32(k) for k in KR_KB.get(matrix, KR_KB[6]))
+    rx, ry, gx, gy, bx, by, wx, wy = (
+        _F32(v) for v in PRIMARIES.get(primaries, PRIMARIES[1]))
+    one = _F32(1)
+    rz, gz, bz, wz = (one - (rx + ry), one - (gx + gy), one - (bx + by),
+                      one - (wx + wy))
+    den = wy * (rx * (gy * bz - by * gz) + gx * (by * rz - ry * bz)
+                + bx * (ry * gz - gy * rz))
+    kr = (ry * (wx * (gy * bz - by * gz) + wy * (bx * gz - gx * bz)
+                + wz * (gx * by - bx * gy))) / den
+    kb = (by * (wx * (ry * gz - gy * rz) + wy * (gx * rz - rx * gz)
+                + wz * (rx * gy - gx * ry))) / den
+    return _F32(kr), _F32(kb)
+
+
+def _float_chroma(c: np.ndarray, table: np.ndarray, height: int, width: int,
+                  ssx: int, ssy: int) -> np.ndarray:
+    """A chroma plane as floats at full size, as libavif's
+    avifImageYUVAnyToRGBAnySlow upsamples it (bilinear: 9/16 of the
+    nearest sample, 3/16 of each neighbour across a subsampled axis,
+    1/16 of the diagonal one; none past the edge)."""
+    if not (ssx or ssy):
+        return table[c]
+
+    def near(n, sub):
+        i = np.arange(n)
+        if not sub:
+            return i, np.zeros(n, np.int64)
+        adj = np.where(i % 2 == 1, 1, -1)
+        adj[(i == 0) | ((i == n - 1) & (i % 2 == 1))] = 0
+        return i >> 1, adj
+
+    ci, dc = near(width, ssx)
+    cj, dr = near(height, ssy)
+    r0, r1 = cj[:, None], (cj + dr)[:, None]
+    c0, c1 = ci[None, :], (ci + dc)[None, :]
+    return (table[c[r0, c0]] * _F32(9 / 16) + table[c[r0, c1]] * _F32(3 / 16)
+            + table[c[r1, c0]] * _F32(3 / 16)
+            + table[c[r1, c1]] * _F32(1 / 16))
+
+
+def _float_rows(y: np.ndarray, u: np.ndarray, v: np.ndarray, matrix: int,
+                full_range: int, primaries: int, ssx: int, ssy: int,
+                depth: int) -> np.ndarray:
+    """libavif's own YUV to 8-bit RGB in float32 (avifImageYUV8ToRGB8Color,
+    avifImageYUV16ToRGB8Color at 4:4:4, avifImageYUVAnyToRGBAnySlow
+    otherwise): the samples through its unorm tables, (x - bias) /
+    range, then the identity (G = Y, B = U, R = V, Y's bias and range for
+    all three), YCgCo, YCgCo-Re (in integers, Cg and Co rounded back
+    from the floats) or Kr/Kb's equations, clamped to [0, 1] and stored
+    as (uint8)(0.5 + x * 255)."""
     h, w = y.shape
-    if depth > 8 and not alpha:  # Convert16To8Plane; decoded planes fit
-        y, u, v = (p >> (depth - 8) for p in (y, u, v))
+    top = (1 << depth) - 1
+    if full_range:
+        bias_y, range_y, range_uv = _F32(0), _F32(top), _F32(top)
+    else:
+        bias_y = _F32(16 << (depth - 8))
+        range_y, range_uv = _F32(219 << (depth - 8)), _F32(224 << (depth - 8))
+    bias_uv = _F32(1 << (depth - 1))
+    if matrix == 0:
+        bias_uv, range_uv = bias_y, range_y
+    cps = np.arange(top + 1, dtype=_F32)
+    table_y = (cps - bias_y) / range_y
+    table_uv = (cps - bias_uv) / range_uv
+    cb = _float_chroma(u, table_uv, h, w, ssx, ssy)
+    cr = _float_chroma(v, table_uv, h, w, ssx, ssy)
+    if matrix == 16:
+        cg = np.floor(cb * _F32(top) + _F32(0.5)).astype(np.int64)
+        co = np.floor(cr * _F32(top) + _F32(0.5)).astype(np.int64)
+        t = y.astype(np.int64) - (cg >> 1)
+        g = np.clip(t + cg, 0, 255)
+        b = np.clip(t - (co >> 1), 0, 255)
+        return np.stack([np.clip(b + co, 0, 255), g, b], -1).astype(np.uint8)
+    luma = table_y[y]
+    if matrix == 0:
+        r, g, b = cr, luma, cb
+    elif matrix == 8:
+        t = luma - cb
+        r, g, b = t + cr, luma + cb, t - cr
+    else:
+        kr, kb = kr_kb(matrix, primaries)
+        one, two = _F32(1), _F32(2)
+        kg = (one - kr) - kb
+        r = luma + (two * (one - kr)) * cr
+        b = luma + (two * (one - kb)) * cb
+        g = luma - ((two * ((kr * (one - kr) * cr) + (kb * (one - kb) * cb)))
+                    / kg)
+    rgb = np.clip(np.stack([r, g, b], -1), _F32(0), _F32(1))
+    return (_F32(0.5) + rgb * _F32(255)).astype(np.uint8)
+
+
+def yuv_to_rgb(y: np.ndarray, u: np.ndarray | None, v: np.ndarray | None,
+               matrix: int = 6, full_range: int = 1, ss: tuple = (1, 1),
+               depth: int = 8, alpha: bool = False,
+               primaries: int = 2) -> np.ndarray:
+    """uint8 RGB [H, W, 3] of planes of `depth` bits, chroma subsampled
+    by `ss` = (ssx, ssy), as cv2 reads them with IMREAD_COLOR. cv2 reads
+    a file with an alpha item into BGRA and drops A, one without into
+    BGR, both through libavif 1.4.2's avifImageYUVToRGB into 8 bits,
+    which refuses the forms `colour_refusal` names (ValueError here) and
+    takes one of two routes:
+    - libyuv, where it has constants for the colour description
+      (`libyuv_constants`: BT.601, BT.709 and BT.2020 NCL at limited and
+      full range, chroma-derived NCL by its primaries), through
+      `_libyuv_rows`: 4:2:0 by I420To{RGB24,ARGB}MatrixFilter
+      (kFilterBilinear, `upsample_420`), 4:2:2 by
+      I422To{RGB24,ARGB}MatrixFilter (linear across, `_up2_linear`),
+      4:4:4 by I444To{RGB24,ARGB}Matrix; at 10 and 12 bits into BGR the
+      planes first narrowed to 8 (avifImageDownshiftTo8bpc, libyuv's
+      Convert16To8Plane: x >> (depth - 8)), then as at 8 bits; 10 bits
+      into BGRA by I010ToARGBMatrixFilter, I210ToARGBMatrixFilter (the
+      chroma upsampled at 10 bits) or I410ToARGBMatrix; 12 bits into BGRA
+      by I012ToARGBMatrix at 4:2:0 (each chroma sample over its 2x2
+      pixels), narrowed to 8 bits first at 4:2:2 and 4:4:4 (libyuv has
+      no 12-bit function for them);
+    - its own float path otherwise (`_float_rows`: FCC, SMPTE 240M,
+      YCgCo, YCgCo-Re, chroma-derived NCL of other primaries, the
+      identity at 4:4:4, IPT-C2 and unlisted values as BT.601), at the
+      planes' own depth.
+    A monochrome file cv2 reads as one channel and widens with
+    COLOR_GRAY2BGR, narrowed by `_gray8` (no libavif conversion, so the
+    colour description is not read); with an alpha item cv2 returns no
+    image."""
+    if u is None:
+        if alpha:
+            raise ValueError("AVIF: a monochrome image with an alpha item is "
+                             "not read (cv2 returns no image)")
+        return np.repeat(_gray8(y, depth)[:, :, None], 3, axis=2)
+    ssx, ssy = ss
+    why = colour_refusal(matrix, full_range, ssx, ssy, depth)
+    if why:
+        raise ValueError(f"AVIF: {why}")
+    constants = libyuv_constants(matrix, full_range, primaries)
+    if constants is None:
+        return _float_rows(y, u, v, matrix, full_range, primaries, ssx, ssy,
+                           depth)
+    h, w = y.shape
+    if depth > 8 and (not alpha or (depth == 12 and (ssx, ssy) != (1, 1))):
+        y, u, v = (p >> (depth - 8) for p in (y, u, v))  # Convert16To8Plane
         depth = 8
-    if depth == 12:
-        uu, vv = (c.repeat(2, 0).repeat(2, 1)[:h, :w] for c in (u, v))
+    if not ssx:
+        uu, vv = u.astype(np.int32), v.astype(np.int32)
+    elif not ssy:
+        uu, vv = _up2_linear(u, w), _up2_linear(v, w)
+    elif depth == 12:
+        uu, vv = (c.astype(np.int32).repeat(2, 0).repeat(2, 1)[:h, :w]
+                  for c in (u, v))
     else:
         uu, vv = upsample_420(u, h, w), upsample_420(v, h, w)
-    return _jpeg_rows(y, uu, vv, depth)
+    return _libyuv_rows(y, uu, vv, depth, constants)
 
 
 # --- the file ----------------------------------------------------------------
@@ -1117,12 +1290,15 @@ def yuv_to_rgb(y: np.ndarray, u: np.ndarray | None, v: np.ndarray | None,
 
 @dataclass
 class Image:
-    """The primary item's frame, its colour description and its alpha
-    auxiliary item's frame (or None)."""
+    """The primary item's frame, its colour description (H.273's colour
+    primaries, transfer characteristics and matrix coefficients, and the
+    range) and its alpha auxiliary item's frame (or None)."""
     frame: Frame
     matrix: int
     full_range: int
     alpha: Frame | None
+    primaries: int = 2
+    transfer: int = 2
 
 
 def _item_frame(data: bytes, c: Container, item: Item) -> Frame:
@@ -1157,11 +1333,6 @@ def read_image(data: bytes) -> Image:
         if kind == b"cdsc" and c.items.get(src, Item(0)).type == b"Exif":
             raise ValueError("AVIF: an Exif item is not read here")
     frame = _item_frame(data, c, item)
-    matrix, full = frame.seq.matrix, frame.seq.full_range
-    colr = item_properties(c, item).get(b"colr")
-    if colr is not None and colr[:4] == b"nclx" and len(colr) >= 11:
-        matrix = struct.unpack(">H", colr[8:10])[0]
-        full = colr[10] >> 7
     alpha = None
     for kind, src, dst in c.refs:
         if kind == b"auxl" and c.primary in dst and src in c.items:
@@ -1170,7 +1341,40 @@ def read_image(data: bytes) -> Image:
                     b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
                     b"urn:mpeg:hevc:2015:auxid:1"):
                 alpha = _item_frame(data, c, c.items[src])
-    return Image(frame, matrix, full, alpha)
+    s = frame.seq
+    if s.mono and alpha is not None:
+        raise ValueError("AVIF: a monochrome image with an alpha item is not "
+                         "read (cv2 returns no image)")
+    primaries, transfer, matrix, full = _nclx(c, item) or (
+        s.primaries, s.transfer, s.matrix, s.full_range)
+    if not s.mono:
+        why = colour_refusal(matrix, full, s.ssx, s.ssy, s.bit_depth)
+        if why:
+            raise ValueError(f"AVIF: {why}")
+    return Image(frame, matrix, full, alpha, primaries, transfer)
+
+
+def _nclx(c: Container, item: Item) -> tuple | None:
+    """(primaries, transfer, matrix, full range) of the item's `colr`
+    nclx property, or None without one (libavif then takes the AV1
+    sequence header's). As libavif: an ICC `colr` (prof, rICC) beside it
+    is ignored, other colour types are skipped, and two nclx or two ICC
+    properties, or a short nclx, are refused."""
+    nclx, icc = [], 0
+    for index in item.props:
+        kind, payload = c.properties[index]
+        if kind != b"colr":
+            continue
+        if payload[:4] == b"nclx":
+            if len(payload) < 11:
+                raise ValueError("AVIF: a colr nclx property ends early")
+            nclx.append(struct.unpack(">HHH", payload[4:10])
+                        + (payload[10] >> 7,))
+        icc += payload[:4] in (b"prof", b"rICC")
+    if len(nclx) > 1 or icc > 1:
+        raise ValueError("AVIF: an item with two colr properties of one "
+                         "kind (nclx or ICC)")
+    return nclx[0] if nclx else None
 
 
 def size(data: bytes) -> tuple[int, int]:
@@ -1196,6 +1400,7 @@ def decode(data: bytes, plain: bool = False) -> np.ndarray:
     if image.alpha is not None:
         decode_planes(image.alpha, plain)
     y, u, v, _ = decode_planes(image.frame, plain)
+    s = image.frame.seq
     return yuv_to_rgb(y, u, v, image.matrix, image.full_range,
-                      bool(image.frame.seq.ssx), image.frame.seq.bit_depth,
-                      image.alpha is not None)
+                      (s.ssx, s.ssy), s.bit_depth, image.alpha is not None,
+                      image.primaries)

@@ -53,12 +53,16 @@ libpng 1.6):
 - AVIF (`utils/avif.py`): every file `cv2.imencode(".avif")` writes
   from uint8 pixels or, at IMWRITE_AVIF_DEPTH 10 or 12, uint16 (gray,
   colour or with an alpha item, any size, quality 0 to 100, speed 0 to
-  10) as libavif 1.4.2 over libaom 3.14.1 decodes it for cv2, the AV1
-  tiles (palette, intra block copy, lossless 4:4:4), deblocking, CDEF
-  and loop restoration in the host C library `csrc/av1.c`;
-  `decode_image_plain` runs the plain decoder `utils/av1.py`. What lies
-  past that contract (image sequences, grids, Exif items, 4:2:2, 4:4:4
-  lossy frames, superres, segmentation, film grain) is refused by
+  10), and other encoders' files in 4:4:4 lossy and 4:2:2 frames and in
+  every colour description libavif converts (limited and full range,
+  BT.601, BT.709, BT.2020, FCC, SMPTE 240M, YCgCo, chroma-derived), as
+  libavif 1.4.2 over libaom 3.14.1 decodes it for cv2, the AV1 tiles
+  (palette, intra block copy, lossless 4:4:4), deblocking, CDEF and loop
+  restoration in the host C library `csrc/av1.c`; `decode_image_plain`
+  runs the plain decoder `utils/av1.py`. What cv2 returns no image for
+  (colour descriptions libavif does not convert, a monochrome image with
+  an alpha item) and what lies past that contract (image sequences,
+  grids, Exif items, superres, segmentation, film grain) is refused by
   name.
 Gray is repeated into three channels. The Exif orientation (tag 0x0112
 of IFD0, in a JPEG APP1 `Exif` block, a PNG `eXIf` chunk, a TIFF's own

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import glob
 import os
+import struct
 
 import numpy as np
 
@@ -117,13 +118,18 @@ def aom_planes(obus: bytes, skip_loop_filter: bool = False):
 
 # libavif 1.4.2's ABI (avif.h): offsets in avifImage (width, height,
 # depth, yuvFormat, yuvRange, then yuvPlanes[3], yuvRowBytes[3], ...,
-# alphaPlane, alphaRowBytes, ..., matrixCoefficients) and avifRGBImage
-# (depth, format, ..., pixels, rowBytes); avifPixelFormat 1 (4:4:4), 3
-# (4:2:0), 4 (4:0:0); avifRGBFormat 3 (BGR), 4 (BGRA).
+# alphaPlane, alphaRowBytes, ..., colorPrimaries, transferCharacteristics,
+# matrixCoefficients), avifRGBImage (depth, format, ..., pixels, rowBytes)
+# and avifEncoder (speed, quality); avifPixelFormat 1 (4:4:4), 2 (4:2:2),
+# 3 (4:2:0), 4 (4:0:0); avifRGBFormat 3 (BGR), 4 (BGRA).
 _IMG_RANGE, _IMG_PLANES, _IMG_ROW_BYTES = 16, 24, 48
-_IMG_ALPHA, _IMG_ALPHA_ROW_BYTES, _IMG_MATRIX = 64, 72, 108
+_IMG_ALPHA, _IMG_ALPHA_ROW_BYTES = 64, 72
+_IMG_PRIMARIES, _IMG_TRANSFER, _IMG_MATRIX = 104, 106, 108
 _RGB_DEPTH, _RGB_FORMAT, _RGB_PIXELS, _RGB_ROW_BYTES = 8, 12, 48, 56
-YUV444, YUV420, YUV400 = 1, 3, 4
+_ENC_SPEED, _ENC_QUALITY = 8, 32
+YUV444, YUV422, YUV420, YUV400 = 1, 2, 3, 4
+# (ssx, ssy) of each avifPixelFormat with chroma planes.
+SUBSAMPLING = {YUV444: (0, 0), YUV422: (1, 0), YUV420: (1, 1)}
 _libavif = []
 
 
@@ -140,7 +146,7 @@ LIBAVIF = _find_libavif()
 
 def libavif() -> ctypes.CDLL:
     """The wheel's libavif 1.4.2, which cv2's AVIF reader converts
-    through."""
+    through (and cv2's writer encodes through)."""
     if not _libavif:
         lib = ctypes.CDLL(LIBAVIF)
         u32, vp = ctypes.c_uint32, ctypes.c_void_p
@@ -152,52 +158,76 @@ def libavif() -> ctypes.CDLL:
         lib.avifRGBImageAllocatePixels.argtypes = [vp]
         lib.avifRGBImageFreePixels.argtypes = [vp]
         lib.avifImageYUVToRGB.argtypes = [vp, vp]
+        lib.avifEncoderCreate.restype = vp
+        lib.avifEncoderDestroy.argtypes = [vp]
+        lib.avifEncoderSetCodecSpecificOption.argtypes = [
+            vp, ctypes.c_char_p, ctypes.c_char_p]
+        lib.avifEncoderWrite.argtypes = [vp, vp, vp]
+        lib.avifRWDataFree.argtypes = [vp]
         _libavif.append(lib)
     return _libavif[0]
 
 
-def avif_yuv_to_rgb(planes, depth: int, yuv_format: int, matrix: int,
-                    alpha: np.ndarray | None = None) -> np.ndarray:
-    """uint8 RGB [H, W, 3] from libavif's avifImageYUVToRGB on the
-    planes (Y, U, V; U and V None for 4:0:0) at `depth` bits, full range,
-    into an 8-bit avifRGBImage at libavif's defaults: BGR, or BGRA with
-    the `alpha` plane (as cv2 reads a file with an alpha item)."""
+def _at(base, off, kind=ctypes.c_uint32):
+    return kind.from_address(base + off)
+
+
+def _avif_image(planes, depth: int, yuv_format: int, matrix: int,
+                full_range: int, primaries: int, transfer: int,
+                alpha: np.ndarray | None) -> int:
+    """An avifImage (the caller destroys it) holding the planes."""
     lib = libavif()
     h, w = planes[0].shape
-
-    def at(base, off, kind=ctypes.c_uint32):
-        return kind.from_address(base + off)
-
     img = lib.avifImageCreate(w, h, depth, yuv_format)
+    assert (_at(img, 0).value, _at(img, 4).value, _at(img, 8).value,
+            _at(img, 12).value) == (w, h, depth, yuv_format)
+    _at(img, _IMG_RANGE).value = full_range  # AVIF_RANGE_FULL is 1
+    assert lib.avifImageAllocatePlanes(img, 0xFF if alpha is not None
+                                       else 1) == 0
+    for off, v in ((_IMG_PRIMARIES, primaries), (_IMG_TRANSFER, transfer),
+                   (_IMG_MATRIX, matrix)):
+        _at(img, off, ctypes.c_uint16).value = v
+    dtype = np.uint8 if depth == 8 else np.uint16
+    fields = [(_IMG_PLANES + 8 * p, _IMG_ROW_BYTES + 4 * p)
+              for p in range(3)] + [(_IMG_ALPHA, _IMG_ALPHA_ROW_BYTES)]
+    for (ptr, row_bytes), a in zip(fields, list(planes) + [alpha]):
+        if a is None:
+            continue
+        a = np.ascontiguousarray(a, dtype)
+        base = ctypes.c_void_p.from_address(img + ptr).value
+        stride = _at(img, row_bytes).value
+        for r in range(a.shape[0]):
+            ctypes.memmove(base + r * stride, a[r].ctypes.data,
+                           a.shape[1] * a.itemsize)
+    return img
+
+
+def avif_yuv_to_rgb(planes, depth: int, yuv_format: int, matrix: int,
+                    alpha: np.ndarray | None = None, full_range: int = 1,
+                    primaries: int = 2, transfer: int = 2
+                    ) -> np.ndarray | None:
+    """uint8 RGB [H, W, 3] from libavif's avifImageYUVToRGB on the
+    planes (Y, U, V; U and V None for 4:0:0) at `depth` bits, in the
+    colour description given (CICP and range), into an 8-bit avifRGBImage
+    at libavif's defaults: BGR, or BGRA with the `alpha` plane (as cv2
+    reads a file with an alpha item). None where libavif refuses the
+    conversion."""
+    lib = libavif()
+    h, w = planes[0].shape
+    img = _avif_image(planes, depth, yuv_format, matrix, full_range,
+                      primaries, transfer, alpha)
     try:
-        assert (at(img, 0).value, at(img, 4).value, at(img, 8).value,
-                at(img, 12).value) == (w, h, depth, yuv_format)
-        at(img, _IMG_RANGE).value = 1  # AVIF_RANGE_FULL
-        assert lib.avifImageAllocatePlanes(img, 0xFF if alpha is not None
-                                           else 1) == 0
-        at(img, _IMG_MATRIX, ctypes.c_uint16).value = matrix
-        dtype = np.uint8 if depth == 8 else np.uint16
-        fields = [(_IMG_PLANES + 8 * p, _IMG_ROW_BYTES + 4 * p)
-                  for p in range(3)] + [(_IMG_ALPHA, _IMG_ALPHA_ROW_BYTES)]
-        for (ptr, row_bytes), a in zip(fields, list(planes) + [alpha]):
-            if a is None:
-                continue
-            a = np.ascontiguousarray(a, dtype)
-            base = ctypes.c_void_p.from_address(img + ptr).value
-            stride = at(img, row_bytes).value
-            for r in range(a.shape[0]):
-                ctypes.memmove(base + r * stride, a[r].ctypes.data,
-                               a.shape[1] * a.itemsize)
         rgb = ctypes.create_string_buffer(128)
         ra = ctypes.addressof(rgb)
         lib.avifRGBImageSetDefaults(rgb, img)
-        at(ra, _RGB_DEPTH).value = 8
-        at(ra, _RGB_FORMAT).value = 3 if alpha is None else 4
+        _at(ra, _RGB_DEPTH).value = 8
+        _at(ra, _RGB_FORMAT).value = 3 if alpha is None else 4
         assert lib.avifRGBImageAllocatePixels(rgb) == 0
         try:
-            assert lib.avifImageYUVToRGB(img, rgb) == 0
+            if lib.avifImageYUVToRGB(img, rgb):
+                return None
             n = 3 if alpha is None else 4
-            stride = at(ra, _RGB_ROW_BYTES).value
+            stride = _at(ra, _RGB_ROW_BYTES).value
             raw = ctypes.string_at(
                 ctypes.c_void_p.from_address(ra + _RGB_PIXELS).value,
                 stride * h)
@@ -207,6 +237,81 @@ def avif_yuv_to_rgb(planes, depth: int, yuv_format: int, matrix: int,
             lib.avifRGBImageFreePixels(rgb)
     finally:
         lib.avifImageDestroy(img)
+
+
+def avif_encode(planes, depth: int, yuv_format: int, quality: int = 50,
+                speed: int = 6, matrix: int = 6, full_range: int = 1,
+                primaries: int = 1, transfer: int = 13,
+                alpha: np.ndarray | None = None, **options) -> bytes:
+    """The AVIF file the wheel's libavif 1.4.2 encoder (over its libaom
+    3.14.1, as cv2.imwrite calls it) writes for the given planes (Y, U,
+    V; U and V None for 4:0:0) of `depth` bits in `yuv_format`, with the
+    colour description given in its `colr` box and sequence header, and
+    an alpha item where `alpha` is given; `options` are aom's
+    (`enable_cdef="1"`: underscores for dashes)."""
+    lib = libavif()
+    img = _avif_image(planes, depth, yuv_format, matrix, full_range,
+                      primaries, transfer, alpha)
+    enc = lib.avifEncoderCreate()
+    out = (ctypes.c_void_p * 2)()
+    try:
+        _at(enc, _ENC_SPEED, ctypes.c_int).value = speed
+        _at(enc, _ENC_QUALITY, ctypes.c_int).value = quality
+        for key, value in options.items():
+            assert lib.avifEncoderSetCodecSpecificOption(
+                enc, key.replace("_", "-").encode(), str(value).encode()) == 0
+        rc = lib.avifEncoderWrite(enc, img, out)
+        if rc:
+            raise RuntimeError(f"avifEncoderWrite: {rc}")
+        return ctypes.string_at(out[0], out[1])
+    finally:
+        lib.avifRWDataFree(out)
+        lib.avifEncoderDestroy(enc)
+        lib.avifImageDestroy(img)
+
+
+# Kr and Kb of the matrix coefficients `planes_of` writes.
+KR_KB = {1: (0.2126, 0.0722), 6: (0.299, 0.114), 9: (0.2627, 0.0593)}
+
+
+def planes_of(rgb: np.ndarray, depth: int, yuv_format: int, matrix: int = 6,
+              full_range: int = 1):
+    """Y, U and V planes of `depth` bits (U, V None at 4:0:0) made from
+    RGB pixels (uint8, or uint16 of `depth` bits) by the equations of
+    matrix coefficients 1 (BT.709), 6 (BT.601) or 9 (BT.2020) at limited
+    or full range, the chroma averaged over each subsampled block: input
+    for `avif_encode`."""
+    x = rgb.astype(np.float64)
+    top = (1 << depth) - 1
+    x /= 255 if rgb.dtype == np.uint8 else top
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    kr, kb = KR_KB[matrix]
+    y = kr * r + (1 - kr - kb) * g + kb * b
+    u, v = (b - y) / (2 - 2 * kb), (r - y) / (2 - 2 * kr)
+    half = 1 << (depth - 1)
+    if full_range:
+        y, u, v = y * top, u * top + half, v * top + half
+    else:
+        s = 1 << (depth - 8)
+        y, u, v = (16 + 219 * y) * s, (224 * u) * s + half, (224 * v) * s \
+            + half
+
+    def q(a):
+        return np.clip(np.rint(a), 0, top).astype(
+            np.uint8 if depth == 8 else np.uint16)
+
+    if yuv_format == YUV400:
+        return q(y), None, None
+    ssx, ssy = SUBSAMPLING[yuv_format]
+    h, w = y.shape
+
+    def sub(c):
+        hh, ww = (h + ssy) >> ssy, (w + ssx) >> ssx
+        pad = np.pad(c, ((0, hh * (1 + ssy) - h), (0, ww * (1 + ssx) - w)),
+                     mode="edge")
+        return pad.reshape(hh, 1 + ssy, ww, 1 + ssx).mean(axis=(1, 3))
+
+    return q(y), q(sub(u)), q(sub(v))
 
 
 # --- hand-edited files -------------------------------------------------------
@@ -227,7 +332,8 @@ def _children(data: bytes, start: int, end: int) -> list[tuple[bytes, bytes]]:
 
 def edit_avif(data: bytes, add_props=(), drop_props=(), exif: bytes | None
               = None, alpha: bytes | None = None, brand: bytes | None = None,
-              primary_type: bytes | None = None, idat: bool = False) -> bytes:
+              primary_type: bytes | None = None, idat: bool = False,
+              color: bytes | None = None) -> bytes:
     """A copy of a cv2-written AVIF file (one item, iloc version 0) with
     properties added to the primary item ((kind, payload, essential)
     each), properties dropped by kind, an Exif item (`exif`: the TIFF
@@ -235,7 +341,8 @@ def edit_avif(data: bytes, add_props=(), drop_props=(), exif: bytes | None
     auxiliary item (`alpha`: its AV1 OBUs, with an `auxC` and an `auxl`
     reference), another major brand, another item type for the primary
     item, or the image data moved into an `idat` box (construction
-    method 1). Everything else is kept in cv2's order."""
+    method 1), or the primary item's AV1 stream replaced by `color`.
+    Everything else is kept in cv2's order."""
     top = _children(data, 0, len(data))
     ftyp = dict(top)[b"ftyp"]
     meta = dict(top)[b"meta"]
@@ -246,7 +353,8 @@ def edit_avif(data: bytes, add_props=(), drop_props=(), exif: bytes | None
     off = int.from_bytes(iloc[14:18], "big")
     length = int.from_bytes(iloc[18:22], "big")
     mdat_start = len(data) - len(mdat)
-    color = mdat[off - mdat_start:off - mdat_start + length]
+    if color is None:
+        color = mdat[off - mdat_start:off - mdat_start + length]
     iprp = _children(box[b"iprp"], 0, len(box[b"iprp"]))
     ipco = _children(dict(iprp)[b"ipco"], 0, len(dict(iprp)[b"ipco"]))
     ipma = dict(iprp)[b"ipma"]
@@ -390,6 +498,15 @@ def imdecode_rgb(data: bytes) -> np.ndarray | None:
     """cv2.imdecode(..., IMREAD_COLOR) reversed to RGB, or None."""
     bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
     return None if bgr is None else bgr[:, :, ::-1]
+
+
+def patch_colr(data: bytes, matrix: int, full_range: int,
+               primaries: int = 1, transfer: int = 13) -> bytes:
+    """A copy of an AVIF file with the CICP and range of its first `colr`
+    nclx box rewritten in place (the AV1 sequence header unchanged)."""
+    at = data.index(b"colrnclx") + 8
+    return (data[:at] + struct.pack(">HHHB", primaries, transfer, matrix,
+                                    full_range << 7) + data[at + 7:])
 
 
 def primary_obus(data: bytes) -> bytes:
@@ -684,28 +801,51 @@ def libaom_function(name: str, restype, *argtypes):
     return ctypes.CFUNCTYPE(restype, *argtypes)(libaom_address(name))
 
 
-_elf_cache = []
+_elf_cache = {}
 
 
-def _elf():
+def _elf(path: str | None = None):
     from multiposenet_tpu_torch.tools.av1_tables import Elf
 
-    if not _elf_cache:
-        _elf_cache.append(Elf(LIBAOM))
-    return _elf_cache[0]
+    path = path or LIBAOM
+    if path not in _elf_cache:
+        _elf_cache[path] = Elf(path)
+    return _elf_cache[path]
+
+
+def libavif_table(name: str) -> bytes:
+    """The bytes of a `.symtab` data symbol of the wheel's libavif (its
+    constant tables, and libyuv's, which it carries)."""
+    elf = _elf(LIBAVIF)
+    return elf.bytes_at(*elf.symbol(name))
+
+
+def libavif_function(name: str, restype, *argtypes):
+    """A C function of the wheel's libavif by its `.symtab` name (local
+    symbols included), at its address in this process."""
+    return ctypes.CFUNCTYPE(restype, *argtypes)(libavif_address(name))
+
+
+def libavif_address(name: str) -> int:
+    """The address in this process of a libavif `.symtab` symbol."""
+    lib, elf = libavif(), _elf(LIBAVIF)
+    return ctypes.cast(lib.avifImageYUVToRGB, ctypes.c_void_p).value \
+        - elf.symbol("avifImageYUVToRGB")[0] + elf.symbol(name)[0]
 
 
 def pillow_avif(pixels: np.ndarray, quality: int, speed: int,
-                **advanced) -> bytes:
+                subsampling: str = "4:2:0", **advanced) -> bytes:
     """The bytes Pillow's AVIF writer (libavif 1.3.0 over its own aom,
     in `pillow.libs`) writes for uint8 RGB, RGBA or gray pixels, at
-    other encoder settings than cv2's (`advanced` passes aom options,
-    e.g. tune-content="screen": screen content tools on any image)."""
+    other encoder settings than cv2's: its `subsampling` ("4:2:0",
+    "4:2:2" or "4:4:4") and aom options (`advanced`, e.g.
+    tune-content="screen": screen content tools on any image)."""
     import io
 
     from PIL import Image
 
     buf = io.BytesIO()
     Image.fromarray(pixels).save(buf, "AVIF", quality=quality, speed=speed,
+                                 subsampling=subsampling,
                                  advanced=advanced or None)
     return buf.getvalue()

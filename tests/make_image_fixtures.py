@@ -79,7 +79,12 @@ installed cv2's decode.
   (`tests/avif_reference.py drawing`); two crops of the photo at
   IMWRITE_AVIF_DEPTH 10 (96x128, 4:2:0, profile 0; `predict`'s 10-bit
   input) and 12 (64x80, 4:2:0, profile 2), from uint16 pixels with
-  seeded noise in the low bits (`avif_reference.widen`).
+  seeded noise in the low bits (`avif_reference.widen`). Four more
+  are written by the wheel's libavif encoder, as other encoders than
+  cv2 write them (`other_avif_fixtures`): 4:4:4 lossy (profile 1), 4:2:2
+  with CDEF's chroma filter on (profile 2), 4:2:2 at 10 bits and a
+  limited-range BT.709 4:2:0 crop, as video tools write frames
+  (`predict`'s input on the card).
 - `digests.json`: for each file, the shape and sha256 of cv2's RGB decode
   (`cv2.imread(path, IMREAD_COLOR)[..., ::-1]`) and of cv2's INTER_LINEAR
   letterbox of it to 512 (the eval runner's resize: scale 512 / max(h, w),
@@ -868,8 +873,35 @@ def avif_fixtures() -> dict[str, bytes]:
                                                    6],
               "avif_10bit_96x128.avif": [cv2.IMWRITE_AVIF_DEPTH, 10],
               "avif_12bit_64x80.avif": [cv2.IMWRITE_AVIF_DEPTH, 12]}
-    return {name: cv2.imencode(".avif", img, params.get(name, []))[1]
-            .tobytes() for name, img in images.items()}
+    files = {name: cv2.imencode(".avif", img, params.get(name, []))[1]
+             .tobytes() for name, img in images.items()}
+    files.update(other_avif_fixtures(photo[:, :, ::-1]))
+    return files
+
+
+def other_avif_fixtures(photo: np.ndarray) -> dict[str, bytes]:
+    """The AVIF fixtures cv2 does not write, from crops of the photo (RGB)
+    by the wheel's libavif encoder (`avif_reference.avif_encode`): name:
+    (crop, depth, avifPixelFormat, matrix coefficients, full range,
+    encoder settings)."""
+    from avif_reference import YUV420, YUV422, YUV444, avif_encode, planes_of
+
+    recipes = {
+        "avif_444_lossy_96x128.avif": (
+            photo[40:136, 300:428], 8, YUV444, 6, 1, dict(quality=50)),
+        "avif_422_cdef_96x128.avif": (
+            photo[200:296, 100:228], 8, YUV422, 6, 1,
+            dict(quality=30, enable_cdef=1)),
+        "avif_422_10bit_64x80.avif": (
+            photo[320:384, 480:560], 10, YUV422, 6, 1, dict(quality=40)),
+        "avif_bt709_limited_96x128.avif": (
+            photo[192:288, 256:384], 8, YUV420, 1, 0, dict(quality=60))}
+    return {name: avif_encode(
+        planes_of(np.ascontiguousarray(crop), depth, fmt, matrix, full),
+        depth, fmt, speed=6, matrix=matrix, full_range=full, primaries=1,
+        transfer=1 if matrix == 1 else 13, **settings)
+        for name, (crop, depth, fmt, matrix, full, settings)
+        in recipes.items()}
 
 
 def write_avif_fixtures() -> None:

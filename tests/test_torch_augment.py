@@ -242,26 +242,46 @@ def test_make_batch_of_jpeg2000_records_matches_jax(tmp_path, records,
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-@pytest.mark.parametrize("train", [True, False])
-def test_make_batch_of_avif_records_matches_jax(tmp_path, records, train):
+# Files other encoders write, as (depth, avifPixelFormat, matrix
+# coefficients, full range): 4:2:2 limited-range BT.709, 10-bit 4:4:4
+# BT.2020 and 4:2:0 limited-range FCC (libavif's float conversion).
+OTHER_AVIF = ((8, 2, 1, 0), (10, 1, 9, 1), (8, 3, 4, 0))
+
+
+@pytest.mark.parametrize("train,writer", [(True, "cv2"), (False, "cv2"),
+                                          (True, "libavif")],
+                         ids=["True", "False", "True-libavif"])
+def test_make_batch_of_avif_records_matches_jax(tmp_path, records, train,
+                                                writer):
     """Records whose files are AVIF as cv2.imwrite writes them (one at
     its default quality, one at quality 30, one at 10 bits from uint16
-    with seeded low bits): the port's batch equals the JAX package's
-    (which reads them with cv2.imread) with the same image_dir and
-    seed."""
+    with seeded low bits), or as the wheel's libavif encoder writes them
+    in other colour forms and subsamplings (OTHER_AVIF): the port's batch
+    equals the JAX package's (which reads them with cv2.imread) with the
+    same image_dir and seed."""
     import cv2
+
+    import avif_reference as ar
 
     recs = []
     for i, rec in enumerate(records[:3]):
         rec = dict(rec)
         name = f"{i}.avif"
-        bgr = np.ascontiguousarray(rec.pop("image")[:, :, ::-1])
+        rgb = rec.pop("image")
+        bgr = np.ascontiguousarray(rgb[:, :, ::-1])
         params = [] if i == 0 else [cv2.IMWRITE_AVIF_QUALITY, 30]
-        if i == 2:
-            low = np.random.RandomState(i).randint(0, 4, bgr.shape)
-            bgr = (bgr.astype(np.uint16) << 2) | low.astype(np.uint16)
-            params = [cv2.IMWRITE_AVIF_DEPTH, 10]
-        assert cv2.imwrite(str(tmp_path / name), bgr, params)
+        if writer == "libavif":
+            depth, fmt, matrix, full = OTHER_AVIF[i]
+            (tmp_path / name).write_bytes(ar.avif_encode(
+                ar.planes_of(rgb, depth, fmt, matrix if matrix != 4 else 6,
+                             full), depth, fmt, 50, 6, matrix=matrix,
+                full_range=full, primaries=1, transfer=1))
+        else:
+            if i == 2:
+                low = np.random.RandomState(i).randint(0, 4, bgr.shape)
+                bgr = (bgr.astype(np.uint16) << 2) | low.astype(np.uint16)
+                params = [cv2.IMWRITE_AVIF_DEPTH, 10]
+            assert cv2.imwrite(str(tmp_path / name), bgr, params)
         rec["file_name"] = name
         recs.append(rec)
     got = tloader.make_batch(recs, 64, 8, np.random.RandomState(3),

@@ -657,7 +657,8 @@ def test_cv2_files_outside_the_contract_are_refused_by_name():
 # test_loop_restoration_files_equal_libaom_and_cv2; intrabc:
 # test_intra_block_copy_file_equals_libaom_and_cv2; lossless, 444 and
 # sb128: test_quality_100_is_read_lossless; profile 2 at 12 bits:
-# tests/test_torch_avif_highbd.py, test_cv2_files_equal_libaom_and_cv2).
+# tests/test_torch_avif_highbd.py, test_cv2_files_equal_libaom_and_cv2;
+# 4:4:4 lossy frames and 4:2:2: tests/test_torch_avif_subsampling.py).
 READ_HEADERS = {"restoration": lambda f: f.header.lr_type == (3, 0, 0),
                 "intrabc": lambda f: f.header.allow_intrabc == 1,
                 "lossless": lambda f: f.header.lossless == 1,
@@ -665,7 +666,11 @@ READ_HEADERS = {"restoration": lambda f: f.header.lr_type == (3, 0, 0),
                 "444": lambda f: (f.seq.ssx, f.header.lossless) == (0, 1),
                 "profile2_12bit": lambda f: (f.seq.profile, f.seq.bit_depth,
                                              f.seq.ssx, f.seq.ssy)
-                == (2, 12, 1, 1)}
+                == (2, 12, 1, 1),
+                "444_lossy": lambda f: (f.seq.ssx, f.seq.ssy,
+                                        f.header.lossless) == (0, 0, 0),
+                "profile2_422": lambda f: (f.seq.profile, f.seq.ssx,
+                                           f.seq.ssy) == (2, 1, 0)}
 
 
 @pytest.mark.parametrize("what", ["superres", "segmentation", "restoration",
@@ -676,18 +681,17 @@ READ_HEADERS = {"restoration": lambda f: f.header.lr_type == (3, 0, 0),
 def test_headers_outside_the_contract_are_refused_by_name(what):
     """A cv2 file's stream with one header rewritten (the rest kept):
     each feature outside the contract refused where the header signals
-    its use (4:2:2 at any depth among them); the headers of loop
-    restoration, intra block copy, lossless frames, 128x128 superblocks,
-    lossless 4:4:4 and profile 2 at 12 bits (READ_HEADERS) parse (the
-    files that use them are decoded in test_torch_avif_tools.py and
-    test_torch_avif_highbd.py)."""
+    its use; the headers of loop restoration, intra block copy, lossless
+    frames, 128x128 superblocks, lossless and lossy 4:4:4, profile 2 at
+    12 bits and 4:2:2 (READ_HEADERS) parse (the files that use them are
+    decoded in test_torch_avif_tools.py, test_torch_avif_highbd.py and
+    test_torch_avif_subsampling.py)."""
     obus = ar.primary_obus((FIXTURES / "avif_odd_33x17.avif").read_bytes())
     seq, frame, extra = {}, {}, ()
     name = {"superres": "superres", "segmentation": "segmentation",
             "film_grain": "film grain",
             "inter_frame": "only a shown key frame",
-            "show_existing": "show_existing_frame",
-            "444_lossy": "4:4:4 lossy", "profile2_422": "4:2:2"}.get(what)
+            "show_existing": "show_existing_frame"}.get(what)
     if what in ("superres", "restoration", "film_grain"):
         seq = {what: 1}
         extra = (what,)

@@ -215,8 +215,8 @@ def test_yuv_to_rgb_equals_libavif(depth, layout):
         want = ar.avif_yuv_to_rgb([y, u, v], depth,
                                   ar.YUV420 if sub else ar.YUV444, matrix,
                                   alpha)
-        got = avif.yuv_to_rgb(y, u, v, matrix, 1, sub, depth,
-                              alpha is not None)
+        got = avif.yuv_to_rgb(y, u, v, matrix, 1, (1, 1) if sub else (0, 0),
+                              depth, alpha is not None)
         np.testing.assert_array_equal(got, want, err_msg=f"{h}x{w}")
 
 

@@ -40,7 +40,7 @@ from multiposenet_tpu.infer import export as jax_export
 from multiposenet_tpu_torch import cli
 from multiposenet_tpu_torch.data.synthetic import make_dataset
 from multiposenet_tpu_torch.infer import export
-from multiposenet_tpu_torch.utils import image_io, visualize
+from multiposenet_tpu_torch.utils import avif, image_io, visualize
 
 from eval_fixtures import planted_annotations, write_coco
 from torch_port_helpers import (
@@ -254,22 +254,33 @@ def test_predict_on_jpeg2000_matches_jax_cli(workdir, tmp_path, suffix):
                                    atol=1e-3, rtol=1e-5)
 
 
-@pytest.mark.parametrize("depth", [8, 10, 12])
+@pytest.mark.parametrize("depth", [8, 10, 12, "444_bt709_limited"])
 def test_predict_on_avif_matches_jax_cli(workdir, tmp_path, depth):
     """`predict --image x.avif` (the scene as cv2.imwrite writes it at its
     default quality, from uint8 or, with IMWRITE_AVIF_DEPTH 10 or 12,
-    from uint16 with the low bits repeated): the port reads it as
-    cv2.imread does (tests/test_torch_avif.py, test_torch_avif_highbd.py)
-    and prints the JAX CLI's people."""
+    from uint16 with the low bits repeated; or as a video tool writes a
+    frame: 4:4:4 lossy, limited-range BT.709, by the wheel's libavif
+    encoder): the port reads it as cv2.imread does
+    (tests/test_torch_avif*.py) and prints the JAX CLI's people."""
+    import avif_reference as ar
+
     scene = image_io.read_image(workdir["image"])
     image = tmp_path / "scene.avif"
     bgr = np.ascontiguousarray(scene[:, :, ::-1])
     params = []
-    if depth > 8:
-        wide = bgr.astype(np.uint16)
-        bgr = (wide << (depth - 8)) | (wide >> (16 - depth))
-        params = [cv2.IMWRITE_AVIF_DEPTH, depth]
-    assert cv2.imwrite(str(image), bgr, params)
+    if depth == "444_bt709_limited":
+        image.write_bytes(ar.avif_encode(
+            ar.planes_of(scene, 8, ar.YUV444, 1, 0), 8, ar.YUV444, 60, 6,
+            matrix=1, full_range=0, primaries=1, transfer=1))
+        form = avif.read_image(image.read_bytes())
+        assert (form.frame.seq.ssx, form.frame.header.lossless, form.matrix,
+                form.full_range) == (0, 0, 1, 0)
+    else:
+        if depth > 8:
+            wide = bgr.astype(np.uint16)
+            bgr = (wide << (depth - 8)) | (wide >> (16 - depth))
+            params = [cv2.IMWRITE_AVIF_DEPTH, depth]
+        assert cv2.imwrite(str(image), bgr, params)
     np.testing.assert_array_equal(
         image_io.read_image(image), cv2.imread(str(image))[:, :, ::-1])
     argv = ["predict", "--model-dir", workdir["model"], "--image", str(image)]
@@ -720,7 +731,7 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     paths["cli_predict"] = smoke.phase_cli_predict(
         cli, image_io, visualize, synthetic, decode, kernels, tmp_path,
         "cpu")
-    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 11}
+    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 12}
     assert restored == (runner.KeypointEvaluator, runner.evaluate_batched,
                         predictor.Predictor.predict, cli._load_records)
 
@@ -773,10 +784,10 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
                      "cli_predict_gif_output": 1,
                      "cli_predict_jp2_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
-    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 107
-    assert codec["webp"]["fixtures_written"] == 107
+    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 111
+    assert codec["webp"]["fixtures_written"] == 111
     assert codec["tiff_hdr"]["fixtures"] == 30
-    assert codec["gif"]["fixtures"] == 107
+    assert codec["gif"]["fixtures"] == 111
     assert codec["gif"]["times"]["gif"]["c_encode_ms"] > 0
     j2k = codec["jpeg2000"]
     assert sorted(j2k["fixtures"]) == ["j2k_irr_rpcl_layers3_37x53.j2k",
@@ -792,16 +803,21 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
     assert codec["encode"]["c_encode_ms"] > 0
     jp2 = codec["jpeg2000_write"]
-    assert jp2["fixtures"] == 71 and len(jp2["boxes_only"]) == 36
+    assert jp2["fixtures"] == 75 and len(jp2["boxes_only"]) == 36
     assert len(jp2["plain_fixtures"]) >= 4
     assert jp2["times"]["photo"]["c_encode_ms"] > 0
     avif = codec["avif"]
-    assert len(avif["fixtures"]) == 12 and avif["build_s"] > 0
+    assert len(avif["fixtures"]) == 16 and avif["build_s"] > 0
     assert all(avif["tools"][n][c] > 0 and avif["tools"][n][
         "tiles_and_filters_ms"] > 0 for n, c in smoke.AVIF_TOOLS.items())
     assert avif["plain_on"] == ["avif_odd_33x17.avif",
                                 "avif_alpha_24x32.avif",
-                                "avif_12bit_64x80.avif"]
+                                "avif_12bit_64x80.avif",
+                                "avif_422_10bit_64x80.avif"]
+    assert sorted(avif["forms"]) == sorted(
+        list(smoke.AVIF_FORMS) + ["avif_photo_480x640.avif"])
+    assert all(t["c_decode_us_per_pixel"] > 0
+               for t in avif["forms"].values())
     assert {n: t["bit_depth"] for n, t in avif["depths"].items()} == {
         "avif_10bit_96x128.avif": 10, "avif_12bit_64x80.avif": 12,
         "avif_photo_480x640.avif": 8}
