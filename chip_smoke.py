@@ -1363,9 +1363,14 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     then `--image` the committed AVIF of the 480x640 photo (cv2.imwrite's
     file), the lossless one of its 128x160 crop (quality 100: 4:4:4,
     the identity matrix), the 10-bit one of a 96x128 crop
-    (IMWRITE_AVIF_DEPTH 10) and a limited-range BT.709 one of a 96x128
-    crop (the libavif encoder's, as a video tool writes a frame), each
-    read to cv2's digest, one B1 launch, people printed. Returns B1's
+    (IMWRITE_AVIF_DEPTH 10), a limited-range BT.709 one of a 96x128
+    crop (the libavif encoder's, as a video tool writes a frame), a grid
+    of 2x2 cells of 64x64 cropped to 128x96 with an Exif item of
+    orientation 6 (the libavif encoder's; read turned to 96x128, and
+    `image_size` gives the turned sides) and a 3-frame Pillow image
+    sequence of 48x64 (its first frame read), each read to cv2's digest,
+    one B1 launch, people printed; the grid's and the sequence's form,
+    and the median host time of their decode, reported. Returns B1's
     launches."""
     scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
     image_path, out_path = directory / "scene.png", directory / "drawn.png"
@@ -1567,6 +1572,18 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
             raise AssertionError(f"cli_predict: bad people on {name}")
         avif_rows[name] = {"size": list(avif_rgb.shape[:2]),
                            "persons": len(avif_people)}
+        if name in AVIF_CONTAINERS:
+            data = avif_path.read_bytes()
+            form = image_io.avif.read_image(data)
+            turned = image_io.exif_orientation(form.exif)
+            if (form.form, form.grid, turned) != AVIF_CONTAINERS[name]:
+                raise AssertionError(f"cli_predict: {name} is {form.form}, "
+                                     f"grid {form.grid}, orientation "
+                                     f"{turned}")
+            avif_rows[name].update(
+                form=form.form, grid=form.grid, orientation=turned,
+                host_decode_ms=median_ms(
+                    lambda: image_io.decode_image(data, name), 20))
     emit({"phase": "cli_predict", "card": card, "image": [480, 640],
           "persons": len(people), "keypoint_centres_drawn": len(centres),
           "changed_pixels": int((drawn != image).any(-1).sum()),
@@ -1604,7 +1621,13 @@ AVIF_FORMS = {"avif_444_lossy_96x128.avif": (0, 0, 8, 6, 1),
               "avif_422_cdef_96x128.avif": (1, 0, 8, 6, 1),
               "avif_422_10bit_64x80.avif": (1, 0, 10, 6, 1),
               AVIF_BT709: (1, 1, 8, 1, 0)}
-AVIF_PREDICT_FILES = (AVIF_PREDICT, AVIF_LOSSLESS, AVIF_10BIT, AVIF_BT709)
+# The container forms past one still item: (form, grid (rows, columns,
+# output width, output height) or None, Exif orientation) of each.
+AVIF_CONTAINERS = {"avif_grid2x2_exif6_128x96.avif": ("grid", (2, 2, 96, 128),
+                                                      6),
+                   "avif_sequence3_48x64.avif": ("sequence", None, 1)}
+AVIF_PREDICT_FILES = (AVIF_PREDICT, AVIF_LOSSLESS, AVIF_10BIT, AVIF_BT709,
+                      *AVIF_CONTAINERS)
 # The AVIF fixtures of the tools cv2's files reach at quality 100 and at
 # speeds below 9, and the counter (csrc/av1.c's) that shows each reached.
 AVIF_TOOLS = {AVIF_LOSSLESS: "lossless_blocks",
@@ -2089,7 +2112,9 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
     100, the photo at speed 2 with loop restoration, a palette drawing
     and an intra block copy drawing at speed 6, crops at 10 and 12 bits
     a sample; and the libavif encoder's 4:4:4 lossy, 4:2:2 with CDEF's
-    chroma filter, 10-bit 4:2:2 and limited-range BT.709 crops) decoded
+    chroma filter, 10-bit 4:2:2 and limited-range BT.709 crops; and the
+    container forms: a grid with an Exif item of orientation 6, read
+    turned, and a Pillow image sequence) decoded
     by the C library to cv2's digest, and by the plain decoder
     (`utils/av1.py`) too on the two smallest, on the smaller high-depth
     file and on the smallest of the other encoders' files. Each tool
@@ -2105,8 +2130,8 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
     microseconds a pixel), so that a cost of the 16-bit samples to 8-bit
     files, or of a form, shows."""
     names = sorted(n for n in digests if n.endswith(".avif"))
-    if len(names) != 16 or not set(AVIF_TOOLS) | set(AVIF_DEPTHS) | set(
-            AVIF_FORMS) <= set(names):
+    if len(names) != 18 or not set(AVIF_TOOLS) | set(AVIF_DEPTHS) | set(
+            AVIF_FORMS) | set(AVIF_CONTAINERS) <= set(names):
         raise AssertionError(f"image_codec: AVIF fixtures {names}")
     files = {n: (FIXTURES / n).read_bytes() for n in names}
 

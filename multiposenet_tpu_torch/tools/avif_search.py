@@ -30,6 +30,7 @@ file cv2 returns no image for.
 
     python -m multiposenet_tpu_torch.tools.avif_search \\
         [--count 300] [--seed 0] [--workers 6] [--out FILE]
+        [--forms still|container]
 
 prints one JSON line: cases (and cases by writer, depth, subsampling and
 colour rewrite), the cases cv2 returns no image for, differences
@@ -42,7 +43,14 @@ intra modes, filter intra, angle deltas, edge filtering and upsampling,
 delta q and lf, tiles, partitions, palette, lossless blocks, CDEF,
 restoration units, intra block copy; and the frames in TX_MODE_SELECT),
 the tools no case reached (over all cases, by cv2's files, at each depth
-and at each subsampling), and seconds. It needs cv2, Pillow and the
+and at each subsampling), and seconds. With `--forms container` it
+draws the container forms past one still item instead
+(`container_cases`: grids, Exif items and image sequences from the
+wheel's libavif encoder and Pillow, and surgery on their files), holds
+the port's pixels (C, and plain up to 8,192 pixels) and `image_size` to
+cv2's and its refusals to cv2's None, and prints the cases and cv2's
+refusals by form, the differences, the refusals' messages by form and
+seconds. It needs cv2, Pillow and the
 wheel's libaom and libavif, so it runs where they are installed, not on
 the card's machine. The CPU tests run `search` on the first cases of a
 seed.
@@ -320,6 +328,277 @@ def search(batch: list[tuple], workers: int = 0,
             "seconds": time.perf_counter() - t0}
 
 
+# --- container forms -------------------------------------------------------
+
+FORMS = ("grid", "exif", "sequence")
+CELL_SIDES = (64, 64, 66, 72, 80, 96)
+ODD_CELL_SIDES = (32, 48, 63, 65, 67)
+EXIF_VARIANTS = ("plain", "plain", "plain", "prefix", "bad_offset",
+                 "no_tiff", "short", "corrupt", "xmp")
+SEQUENCE_EDITS = ("none", "none", "idat", "co64", "no_items", "top_exif")
+
+
+def container_cases(count: int, seed: int = 0) -> list[tuple]:
+    """(form, image seed, spec) of `count` seeded files of the container
+    forms in turn: grids ("grid": 1 to 4 rows and columns of cells of
+    sides from CELL_SIDES, one case in eight a side from ODD_CELL_SIDES;
+    a depth of 8, 10 or 12 and a subsampling of 4:2:0, 4:2:2, 4:4:4 or
+    4:0:0; an alpha grid in one case in four; the output cropped in one
+    case in two, at times past the cells' span or short of the last
+    row's or column's; an Exif orientation in one case in three), Exif
+    items on a still ("exif": orientations 0 to 9 in either byte order,
+    and the payloads of EXIF_VARIANTS; the item before or after the
+    image, the meta box padded by 0 to 400 bytes, so that its data
+    falls on either side of byte 500) and image sequences ("sequence":
+    1 to 4 frames from Pillow or the wheel's libavif encoder, an alpha
+    track in one case in four, and the edits of SEQUENCE_EDITS)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        form = FORMS[i % len(FORMS)]
+        sub = ("420", "422", "444", "400")[int(rng.integers(0, 4))]
+        depth = DEPTHS[int(rng.integers(0, 3))]
+        spec = {"sub": sub, "depth": depth,
+                "quality": int(rng.integers(0, 101)),
+                "speed": int(rng.integers(6, 11))}
+        if form == "grid":
+            sides = ODD_CELL_SIDES if rng.integers(0, 8) == 0 \
+                else CELL_SIDES
+            ch, cw = (int(sides[int(rng.integers(0, len(sides)))])
+                      for _ in range(2))
+            rows, cols = (int(v) for v in rng.integers(1, 5, 2))
+            w, h = cw * cols, ch * rows
+            if rng.integers(0, 2):
+                w = int(rng.integers(max(cw * (cols - 1) - 1, 1), w + 2))
+                h = int(rng.integers(max(ch * (rows - 1) - 1, 1), h + 2))
+            spec.update(rows=rows, cols=cols, cell=(ch, cw), out=(w, h),
+                        alpha=bool(rng.integers(0, 4) == 0),
+                        exif=int(rng.integers(1, 9))
+                        if rng.integers(0, 3) == 0 else None)
+        elif form == "exif":
+            spec.update(size=tuple(int(v) for v in rng.integers(1, 97, 2)),
+                        orientation=int(rng.integers(0, 10)),
+                        little=bool(rng.integers(0, 2)),
+                        variant=EXIF_VARIANTS[int(rng.integers(
+                            0, len(EXIF_VARIANTS)))],
+                        after=bool(rng.integers(0, 2)),
+                        pad=int(rng.integers(0, 401)))
+        else:
+            spec.update(writer=("pillow", "libavif")[int(rng.integers(0, 2))],
+                        frames=int(rng.integers(1, 5)),
+                        size=tuple(int(v) for v in rng.integers(8, 97, 2)),
+                        alpha=bool(rng.integers(0, 4) == 0),
+                        edit=SEQUENCE_EDITS[int(rng.integers(
+                            0, len(SEQUENCE_EDITS)))])
+            if spec["writer"] == "pillow":
+                spec.update(depth=8, sub="420" if sub == "400" else sub)
+        out.append((form, int(rng.integers(2**31)), spec))
+    return out
+
+
+def _planes(reference, rgb: np.ndarray, depth: int, sub: str, seed: int):
+    if depth > 8:
+        rgb = reference.widen(rgb, depth, seed)
+    return reference.planes_of(rgb, depth, YUV_FORMATS[sub])
+
+
+def _alpha(reference, h: int, w: int, depth: int, seed: int) -> np.ndarray:
+    a = np.random.default_rng(seed + 1).integers(0, 256, (h, w),
+                                                dtype=np.uint8)
+    return a if depth == 8 else reference.widen(a, depth, seed)
+
+
+def _tiff(reference, spec: dict) -> bytes:
+    return reference.tiff_orientation(spec["orientation"], spec["little"])
+
+
+def encode_container(reference, form: str, seed: int, spec: dict) -> bytes:
+    """The case's file."""
+    depth, sub = spec["depth"], spec["sub"]
+    enc = {"quality": spec["quality"], "speed": spec["speed"]}
+    if form == "grid":
+        rows, cols, (ch, cw) = spec["rows"], spec["cols"], spec["cell"]
+        rgb = reference.drawing(ch * rows, cw * cols, seed)
+        cells = [_planes(reference, np.ascontiguousarray(
+            rgb[r * ch:(r + 1) * ch, k * cw:(k + 1) * cw]), depth, sub, seed)
+            for r in range(rows) for k in range(cols)]
+        alpha = [_alpha(reference, ch, cw, depth, seed + k)
+                 for k in range(rows * cols)] if spec["alpha"] else None
+        exif = None if spec["exif"] is None else \
+            reference.tiff_orientation(spec["exif"])
+        try:
+            data = reference.avif_grid(cells, cols, rows, depth,
+                                       YUV_FORMATS[sub], alpha=alpha,
+                                       exif=exif, **enc)
+            parts = reference.heif_parts(data)
+            if next(it["type"] for it in parts["items"]
+                    if it["id"] == parts["primary"]) != b"grid":
+                raise RuntimeError("one cell: the encoder writes no grid")
+        except RuntimeError:  # the encoder refuses such cells: surgery
+            files = [reference.avif_encode(
+                p, depth, YUV_FORMATS[sub],
+                alpha=None if alpha is None else alpha[k], **enc)
+                for k, p in enumerate(cells)]
+            data = reference.grid_of_items(files, rows, cols, cw * cols,
+                                           ch * rows)
+        w, h = spec["out"]
+        if (w, h) != (cw * cols, ch * rows):
+            data = reference.patch_grid(data, w, h)
+        return data
+    if form == "exif":
+        h, w = spec["size"]
+        planes = _planes(reference, reference.drawing(h, w, seed), depth,
+                         sub, seed)
+        tiff = _tiff(reference, spec)
+        data = reference.avif_encode(planes, depth, YUV_FORMATS[sub],
+                                     exif=tiff, **enc)
+        parts = reference.heif_parts(data)
+        item = next(it for it in parts["items"] if it["type"] == b"Exif")
+        variant = spec["variant"]
+        rng = np.random.default_rng(seed)
+        if variant == "prefix":
+            item["data"] = b"\0\0\0\x06Exif\0\0" + tiff
+        elif variant == "bad_offset":
+            item["data"] = int(rng.integers(1, 9)).to_bytes(4, "big") + tiff
+        elif variant == "no_tiff":
+            item["data"] = b"\0\0\0\0" + tiff[2:]
+        elif variant == "short":
+            item["data"] = item["data"][:int(rng.integers(0, 9))]
+        elif variant == "corrupt":
+            body = bytearray(item["data"])
+            for _ in range(int(rng.integers(1, 4))):
+                body[int(rng.integers(4, len(body)))] = int(
+                    rng.integers(0, 256))
+            item["data"] = bytes(body)
+        elif variant == "xmp":
+            parts["items"].append({
+                "id": 9, "type": b"mime", "name": b"", "data": b"<x:xmpmeta/>",
+                "props": [], "idat": False,
+                "content_type": b"application/rdf+xml", "at": 1 << 30})
+            parts["refs"].append((b"cdsc", 9, [parts["primary"]]))
+        order = [it["id"] for it in sorted(
+            parts["items"], key=lambda it: (it["type"] == b"av01")
+            != spec["after"])]
+        return reference.heif_write(parts, order=order, meta_pad=spec["pad"])
+    h, w = spec["size"]
+    frames = [reference.drawing(h, w, seed + k) for k in range(spec["frames"])]
+    if spec["writer"] == "pillow":
+        if spec["alpha"]:
+            frames = [np.dstack([f, _alpha(reference, h, w, 8, seed + k)])
+                      for k, f in enumerate(frames)]
+        data = reference.pillow_avis(frames, min(spec["quality"], 99),
+                                     spec["speed"],
+                                     sub[0] + ":" + sub[1] + ":" + sub[2])
+    else:
+        alpha = [_alpha(reference, h, w, depth, seed + k)
+                 for k in range(len(frames))] if spec["alpha"] else None
+        data = reference.avif_sequence(
+            [_planes(reference, f, depth, sub, seed) for f in frames], depth,
+            YUV_FORMATS[sub], alpha=alpha, **enc)
+    edit = spec["edit"]
+    if b"moov" not in dict(reference._children(data, 0, len(data))):
+        return data  # one frame: the writers make a still image
+    if edit == "idat":
+        data = reference.avis_meta(data)
+    elif edit == "co64":
+        data = reference.to_co64(data)
+    elif edit == "no_items":
+        data = reference.avis_meta(
+            data, lambda p: p["items"].clear() or p["refs"].clear())
+    elif edit == "top_exif":
+        def add(parts):
+            parts["items"].append({
+                "id": 9, "type": b"Exif", "name": b"", "idat": True,
+                "data": b"\0\0\0\0" + reference.tiff_orientation(6),
+                "props": [], "content_type": b""})
+            parts["refs"].append((b"cdsc", 9, [parts["primary"]]))
+        data = reference.avis_meta(data, add)
+    return data
+
+
+def compare_container(data: bytes, want: np.ndarray | None,
+                      plain: bool) -> list:
+    """What differs between the port and cv2's pixels `want` (None where
+    cv2 returns no image) on one file: "rgb", "plain" (with `plain`),
+    "size", or a read where cv2 returns none (raises ValueError where
+    the port refuses)."""
+    import tempfile
+
+    from multiposenet_tpu_torch.utils import image_io
+
+    got = image_io.decode_image(data)
+    if want is None:
+        return ["read where cv2 returns none"]
+    differ = []
+    if got.shape != want.shape or not np.array_equal(got, want):
+        differ.append("rgb")
+    if plain and not np.array_equal(image_io.decode_image_plain(data), want):
+        differ.append("plain")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "x.avif"
+        path.write_bytes(data)
+        if image_io.image_size(path) != want.shape[:2]:
+            differ.append("size")
+    return differ
+
+
+def _run_container(batch: list[tuple], reference: str) -> list:
+    """(case, what differs, refusal, whether cv2 returns no image) of
+    each container case."""
+    module = load_reference(Path(reference))
+    out = []
+    for case in batch:
+        form, seed, spec = case
+        data = encode_container(module, form, seed, spec)
+        want = module.imdecode_rgb(data)
+        none = want is None
+        try:
+            differ = compare_container(
+                data, want, not none and want.size <= 3 * 2 * PLAIN_PIXELS)
+            refusal = None
+        except ValueError as exc:
+            refusal = str(exc)
+            differ = [] if none else [f"refused where cv2 reads: {refusal}"]
+        out.append((case, differ, refusal, none))
+    return out
+
+
+def search_containers(batch: list[tuple], workers: int = 0,
+                      reference: Path = REFERENCE) -> dict:
+    """Every container case compared: cases by form, the cases cv2
+    returns no image for, the refusals by form, the differences and the
+    seconds."""
+    t0 = time.perf_counter()
+    if workers:
+        chunks = [batch[i::workers * 4] for i in range(workers * 4)]
+        with ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn")) \
+                as pool:
+            done = [r for part in pool.map(
+                _run_container, chunks, [str(reference)] * len(chunks))
+                for r in part]
+    else:
+        done = _run_container(batch, str(reference))
+    differences = sorted(([r[0][0], r[0][1], r[0][2]], r[1])
+                         for r in done if r[1])
+    return {"cases": len(done),
+            "cases_by_form": {f: sum(r[0][0] == f for r in done)
+                              for f in FORMS},
+            "cv2_returns_none": sum(r[3] for r in done),
+            "cv2_returns_none_by_form": {
+                f: sum(r[3] for r in done if r[0][0] == f) for f in FORMS},
+            "refused": sum(r[2] is not None for r in done),
+            "differences": [list(d) for d in differences],
+            "refused_where_cv2_reads": sum(
+                d[0].startswith("refused where") for _, d in differences),
+            "read_where_cv2_returns_none": sum(
+                d == ["read where cv2 returns none"] for _, d in differences),
+            "refusals": {f: sorted({r[2].split(": ", 1)[-1] for r in done
+                                    if r[2] and r[0][0] == f})
+                         for f in FORMS},
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reference", type=Path, default=REFERENCE,
@@ -329,9 +608,17 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--workers", type=int, default=os.cpu_count() or 1)
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the JSON here")
+    ap.add_argument("--forms", choices=("still", "container"),
+                    default="still",
+                    help="still images (the AV1 tools) or the container "
+                         "forms: grids, Exif items, image sequences")
     args = ap.parse_args(argv)
-    result = search(cases(args.count, args.seed), args.workers,
-                    args.reference)
+    if args.forms == "container":
+        result = search_containers(container_cases(args.count, args.seed),
+                                   args.workers, args.reference)
+    else:
+        result = search(cases(args.count, args.seed), args.workers,
+                        args.reference)
     line = json.dumps(result)
     print(line)
     if args.out is not None:

@@ -10,27 +10,57 @@ uint8 (d 8) or uint16 of values below 2^d (d 10 or 12), at any size cv2
 accepts (1x1 up, odd sides, widths over 4096, which libaom splits into
 tile columns), `q` from 0 to 100 and `s` from 0 to 10 (any of cv2's
 defaults included), and for every file other encoders write in the
-forms below (libavif's encoder, Pillow's, video tools: 4:4:4 lossy and
-4:2:2 frames, any colour description), `decode(data)` equals
-`cv2.imdecode(data, cv2.IMREAD_COLOR)` reversed to RGB, pixel for pixel,
-and the Y, U and V planes before the colour conversion (`decode_planes`:
-uint8 at 8 bits, uint16 at 10 and 12) equal libaom's; where cv2 returns
-no image, a ValueError names the form. What such files use, and what is
-read here:
-- the container (ISOBMFF, `read_container`): `ftyp` naming the `avif`
-  brand (major or compatible), `meta` with `hdlr` `pict`, `pitm`,
-  `iloc` (construction methods 0, file offsets, and 1, `idat`),
-  `iinf`/`infe`, `iprp` with `ipco` and `ipma`, and `iref`. The primary
-  item's properties: `av1C` (its configuration OBUs read before the
-  item's), `ispe` (equal to the frame's size), `colr` nclx (its colour
-  primaries, transfer characteristics, matrix coefficients and range;
-  without one, the AV1 sequence header's; an ICC `colr` beside it is
-  not applied, as cv2 does not apply it; two nclx or two ICC boxes are
-  refused, as libavif refuses them), and `irot`, `imir` and `clap`,
-  which cv2 does not apply and which are ignored here. An alpha
-  auxiliary item (`auxl`, `auxC`: cv2 writes one for 4-channel input)
-  is decoded and dropped, as cv2 returns no image where it does not
-  decode (and none for a monochrome image with one);
+forms below (libavif's encoder, Pillow's, video tools, `avifenc`: 4:4:4
+lossy and 4:2:2 frames, any colour description, grid images, Exif items,
+image sequences), `decode_with_exif(data)` gives the pixels and the Exif
+bytes from which `image_io` turns them to `cv2.imdecode(data,
+cv2.IMREAD_COLOR)` reversed to RGB, pixel for pixel, and the Y, U and V
+planes before the colour conversion (`decode_planes`: uint8 at 8 bits,
+uint16 at 10 and 12) equal libaom's; where cv2 returns no image, a
+ValueError names the form. What such files use, and what is read here:
+- the container (ISOBMFF, `read_container`), walked as libavif's
+  avifParse walks it (`_top_level`: box by box until it has an `ftyp`
+  naming `avif` or `avis` and the `meta` or `moov` those need): `meta`
+  with `hdlr` `pict`, `pitm`, `iloc` (construction methods 0, file
+  offsets, and 1, `idat`), `iinf`/`infe`, `iprp` with `ipco` and `ipma`
+  (item IDs increasing), and `iref`; every av01 or grid item has an
+  `ispe` (alpha items excepted). cv2's AVIF decoder first parses the
+  file's first 500 bytes alone (`signature_refusal`): where a read of
+  that parse (a grid payload, an Exif or XMP item, the image's first
+  bytes where there is no `colr` nclx) starts past byte 500 while the
+  boxes it needs lie within them, cv2 returns no image, and the port
+  refuses. The picture (libavif's AVIF_DECODER_SOURCE_AUTO): the
+  primary item where the major brand is avif, the first sample of the
+  colour track of `moov` where it is avis or where another major brand
+  comes with a `moov` the walk read. The primary item's properties:
+  `av1C` (its configuration OBUs read before the item's), `ispe` (equal
+  to the frame's size), `colr` nclx (its colour primaries, transfer
+  characteristics, matrix coefficients and range; without one, the AV1
+  sequence header's; an ICC `colr` beside it is not applied, as cv2 does
+  not apply it; two nclx or two ICC boxes are refused, as libavif
+  refuses them), and `irot`, `imir` and `clap`, which cv2 does not apply
+  and which are ignored here. An alpha auxiliary item (`auxl`, `auxC`:
+  cv2 writes one for 4-channel input) is decoded and dropped, as cv2
+  returns no image where it does not decode (and none for a monochrome
+  image with one, nor for one of another size);
+- grid items (`grid`, `_grid_frames`): the ImageGrid payload (version
+  0, 16- or 32-bit output sizes), the `dimg` cells in reference order,
+  row by row, checked as libavif 1.4.2 checks them (rows x columns
+  cells, one av1C, one size, depth, subsampling, range and colour
+  description, the output within the cells' span and past all but the
+  last row and column, cells of 64 and more, even output and cell sides
+  where the chroma is subsampled, the grid's `ispe` equal to its
+  output), each decoded as an item, then stitched and cropped before
+  the colour conversion (`stitch`); the grid item's `colr`, else the
+  first cell's sequence header; an alpha grid decoded and dropped;
+- Exif items (`cdsc` to the primary item, or for a sequence the
+  track's own `meta`): the payload after its 4-byte TIFF header offset,
+  which must be where libavif finds the header, as cv2 reads the
+  orientation from it (`image_io.exif_orientation`);
+- image sequences (`moov`/`trak`: `tkhd`, `stsd` av01 with its `av1C`
+  and `colr`, `stco`/`co64`, `stsc`, `stsz`; `_sequence_image`): the
+  colour track's first sample (a shown key frame; its alpha track's
+  first sample decoded and dropped);
 - the OBUs (`read_obus`: uleb128 sizes; temporal delimiters, metadata
   and padding skipped), the sequence header and the uncompressed header
   of one shown key frame in full syntax (`SequenceHeader`,
@@ -71,11 +101,11 @@ what no file reached: the rest is held to libaom's own C functions stage
 by stage and on files Pillow's AVIF writer and libavif's encoder make).
 
 What lies outside it is refused by a ValueError that names it, where the
-stream uses it: the `avis` brand (sequences), grid items, Exif items,
-superres, segmentation, film grain, frames other than one shown key
-frame, an `ispe` other than the frame's size; and, as cv2 returns no
-image for them, the colour forms libavif does not convert
-(`colour_refusal`).
+stream uses it: superres, segmentation, film grain, frames other than
+one shown key frame, an `ispe` or `tkhd` other than the frame's size
+(cv2 returns the frame scaled to it); and, as cv2 returns no image for
+them, the colour forms libavif does not convert (`colour_refusal`) and
+the container forms libavif's parse or its grid checks refuse.
 """
 
 from __future__ import annotations
@@ -155,42 +185,148 @@ class Item:
     method: int = 0
     base: int = 0
     props: list = field(default_factory=list)
+    essential: list = field(default_factory=list)
+    content_type: bytes = b""
+
+
+@dataclass
+class Track:
+    """What libavif 1.4.2 reads of a `trak` box to find a sequence's first
+    frame: its ID and size (`tkhd`), whether it has a sample table, its
+    sample entries (`stsd`: format and child boxes), chunk offsets
+    (`stco`/`co64`), sample-to-chunk runs (`stsc`), sample sizes
+    (`stsz`), the track it is auxiliary to (`tref/auxl`) and its own
+    `meta`. (libavif takes the first sample as a sync sample whatever
+    `stss` says, and reads no handler.)"""
+    id: int = 0
+    width: int = 0
+    height: int = 0
+    table: bool = False
+    entries: list = field(default_factory=list)
+    chunks: list = field(default_factory=list)
+    stsc: list = field(default_factory=list)
+    sample_size: int = 0
+    sizes: list = field(default_factory=list)
+    aux_for: int = 0
+    meta: "Container | None" = None
 
 
 @dataclass
 class Container:
-    primary: int
+    primary: int | None
     items: dict
     properties: list
     idat: bytes
     refs: list
+    major: bytes = b""
+    brands: tuple = ()
+    tracks: list = field(default_factory=list)
+
+
+# cv2's AvifDecoder::checkSignature hands libavif the file's first
+# SIGNATURE_BYTES bytes (its signatureLength) with io->sizeHint set to
+# 1e9, and takes the file where avifDecoderParse returns OK or
+# AVIF_RESULT_TRUNCATED_DATA; otherwise no decoder claims it.
+SIGNATURE_BYTES = 500
+SIGNATURE_SIZE_HINT = 10 ** 9
+
+
+class _Truncated(Exception):
+    """Where libavif returns AVIF_RESULT_TRUNCATED_DATA."""
+
+
+def _top_level(data: bytes, avail: int, size_hint: int) -> tuple:
+    """libavif 1.4.2's avifParse over data[:avail] with io->sizeHint
+    `size_hint`: the top-level boxes in order until it has an `ftyp`
+    and what its brands need (`meta` for avif, `moov` for avis).
+    Returns (major brand, brands, meta span, moov span); raises
+    _Truncated where a needed box ends past the data, ValueError on
+    other failures (a read that starts past the data is libavif's
+    AVIF_RESULT_IO_ERROR)."""
+    pos = 0
+    ftyp = meta = moov = None
+    needs_meta = needs_moov = False
+    while True:
+        if pos > size_hint:
+            raise ValueError("AVIF: a box runs past the end of the file")
+        if pos > avail:
+            raise ValueError("AVIF: a box starts past the data read")
+        head = data[pos:min(pos + 32, avail)]
+        if not head:
+            break
+        if len(head) < 8:
+            raise ValueError("AVIF: a box header is cut short")
+        size, kind = struct.unpack(">I4s", head[:8])
+        head_len = 8
+        if size == 1:
+            if len(head) < 16:
+                raise ValueError("AVIF: a box header is cut short")
+            (size,) = struct.unpack(">Q", head[8:16])
+            head_len = 16
+        if kind == b"uuid":
+            head_len += 16
+            if len(head) < head_len:
+                raise ValueError("AVIF: a box header is cut short")
+        if size == 0:
+            size = size_hint - pos
+        elif size < head_len:
+            raise ValueError(f"AVIF: box {kind!r} is smaller than its header")
+        start, end = pos + head_len, pos + size
+        if kind in (b"ftyp", b"meta", b"moov") and end > avail:
+            raise _Truncated(kind.decode())
+        pos = end
+        if kind == b"ftyp":
+            if ftyp is not None:
+                raise ValueError("AVIF: two ftyp boxes")
+            if end - start < 8 or (end - start) % 4:
+                raise ValueError("AVIF: a malformed ftyp box")
+            brands = (data[start:start + 4],) + tuple(
+                data[i:i + 4] for i in range(start + 8, end, 4))
+            needs_meta, needs_moov = b"avif" in brands, b"avis" in brands
+            if not (needs_meta or needs_moov):
+                raise ValueError("AVIF: the ftyp box names neither avif nor "
+                                 "avis")
+            ftyp = brands
+        elif kind == b"meta":
+            if meta is not None:
+                raise ValueError("AVIF: two meta boxes")
+            meta = (start, end)
+        elif kind == b"moov":
+            if moov is not None:
+                raise ValueError("AVIF: two moov boxes")
+            moov = (start, end)
+        if ftyp and (meta or not needs_meta) and (moov or not needs_moov):
+            return ftyp[0], ftyp, meta, moov
+    if ftyp is None:
+        raise ValueError("AVIF: no ftyp box")
+    raise _Truncated("meta" if needs_meta and meta is None else "moov")
 
 
 def read_container(data: bytes) -> Container:
-    """The boxes libavif reads for a still image."""
-    brand = None
-    meta = None
-    for kind, s, e in _boxes(data, 0, len(data)):
-        if kind == b"ftyp":
-            brand = data[s:s + 4]
-            brands = [brand] + [data[i:i + 4] for i in range(s + 8, e - 3, 4)]
-            if brand == b"avis" or (b"avif" not in brands
-                                    and b"avis" in brands):
-                raise ValueError("AVIF image sequences (brand avis) are not "
-                                 "read here")
-        elif kind == b"meta" and meta is None:
-            meta = (s, e)
-    if brand is None:
-        raise ValueError("AVIF: no ftyp box")
-    if meta is None:
-        raise ValueError("AVIF: no meta box")
+    """The boxes libavif's avifParse reads (`_top_level`): `ftyp`, the
+    file's `meta` (items) and, where it reads that far, `moov` (the
+    tracks of an image sequence)."""
+    try:
+        major, brands, meta, moov = _top_level(data, len(data), len(data))
+    except _Truncated as exc:
+        brand = "avif" if str(exc) == "meta" else "avis"
+        raise ValueError(f"AVIF: no {exc} box (the file ends before the "
+                         f"{exc} box its {brand} brand needs)") from None
+    c = read_meta(data, *meta) if meta else Container(None, {}, [], b"", [])
+    c.major, c.brands = major, brands
+    c.tracks = _read_moov(data, *moov) if moov else []
+    return c
+
+
+def read_meta(data: bytes, s: int, e: int) -> Container:
+    """A `meta` box's items, properties, `idat` and references; items in
+    the order libavif makes them (the first box that names each)."""
     items: dict[int, Item] = {}
     properties: list = []
     idat = b""
     refs: list = []
     primary = None
     handler = None
-    s, e = meta
     for kind, ps, pe in _boxes(data, s + 4, e):
         r = _Reader(data, ps, pe)
         if kind == b"hdlr":
@@ -215,8 +351,11 @@ def read_container(data: bytes) -> Container:
                                      "here")
                 iid = ir.u(2 if iv == 2 else 4)
                 ir.u(2)
-                items.setdefault(iid, Item(iid)).type = ir.u(4).to_bytes(
-                    4, "big")
+                item = items.setdefault(iid, Item(iid))
+                item.type = ir.u(4).to_bytes(4, "big")
+                if item.type == b"mime":
+                    rest = data[ir.pos:ie].split(b"\0")
+                    item.content_type = rest[1] if len(rest) > 1 else b""
         elif kind == b"iprp":
             _read_iprp(data, ps, pe, items, properties)
         elif kind == b"idat":
@@ -227,13 +366,81 @@ def read_container(data: bytes) -> Container:
                 rr = _Reader(data, rs, re_)
                 src = rr.u(2 if version == 0 else 4)
                 n = rr.u(2)
-                refs.append((rk, src, [rr.u(2 if version == 0 else 4)
-                                       for _ in range(n)]))
+                dst = [rr.u(2 if version == 0 else 4) for _ in range(n)]
+                for iid in [src] + dst:
+                    items.setdefault(iid, Item(iid))
+                refs.append((rk, src, dst))
     if handler != b"pict":
         raise ValueError(f"AVIF: handler {handler!r}, not pict")
-    if primary is None or primary not in items:
-        raise ValueError("AVIF: no primary item")
     return Container(primary, items, properties, idat, refs)
+
+
+def _read_moov(data: bytes, s: int, e: int) -> list:
+    tracks = []
+    for kind, ps, pe in _boxes(data, s, e):
+        if kind == b"trak":
+            tracks.append(_read_trak(data, ps, pe))
+    return tracks
+
+
+def _read_trak(data: bytes, s: int, e: int) -> Track:
+    t = Track()
+    for kind, ps, pe in _boxes(data, s, e):
+        r = _Reader(data, ps, pe)
+        if kind == b"tkhd":
+            version, _ = r.full()
+            r.u(16 if version == 1 else 8)
+            t.id = r.u(4)
+            r.u(4)
+            r.u(8 if version == 1 else 4)
+            r.u(52)
+            t.width, t.height = r.u(4) >> 16, r.u(4) >> 16
+            if not (t.width and t.height):
+                raise ValueError(f"AVIF: track {t.id} of size "
+                                 f"{t.width}x{t.height}")
+        elif kind == b"meta":
+            t.meta = read_meta(data, ps, pe)
+        elif kind == b"tref":
+            for rk, rs, re_ in _boxes(data, ps, pe):
+                if rk == b"auxl" and re_ - rs >= 4:
+                    t.aux_for = int.from_bytes(data[rs:rs + 4], "big")
+        elif kind == b"mdia":
+            for mk, ms, me in _boxes(data, ps, pe):
+                if mk == b"minf":
+                    for nk, ns, ne in _boxes(data, ms, me):
+                        if nk == b"stbl":
+                            _read_stbl(data, ns, ne, t)
+    return t
+
+
+def _read_stbl(data: bytes, s: int, e: int, t: Track) -> None:
+    t.table = True
+    for kind, ps, pe in _boxes(data, s, e):
+        r = _Reader(data, ps, pe)
+        if kind in (b"stco", b"co64"):
+            r.full()
+            n = 8 if kind == b"co64" else 4
+            t.chunks += [r.u(n) for _ in range(r.u(4))]
+        elif kind == b"stsc":
+            r.full()
+            for _ in range(r.u(4)):
+                first, per = r.u(4), r.u(4)
+                r.u(4)
+                t.stsc.append((first, per))
+        elif kind == b"stsz":
+            r.full()
+            t.sample_size = r.u(4)
+            count = r.u(4)
+            if not t.sample_size:
+                t.sizes = [r.u(4) for _ in range(count)]
+        elif kind == b"stsd":
+            r.full()
+            r.u(4)  # entry_count
+            for fk, fs, fe in _boxes(data, r.pos, pe):
+                # VisualSampleEntry: 78 bytes before the child boxes.
+                kids = [] if fe - fs < 78 else [
+                    (k, data[a:b]) for k, a, b in _boxes(data, fs + 78, fe)]
+                t.entries.append((fk, kids))
 
 
 def _read_iloc(r: _Reader, items: dict) -> None:
@@ -270,14 +477,21 @@ def _read_iprp(data: bytes, s: int, e: int, items: dict,
         elif kind == b"ipma":
             r = _Reader(data, ps, pe)
             version, flags = r.full()
+            last = 0
             for _ in range(r.u(4)):
                 iid = r.u(2 if version < 1 else 4)
+                if iid <= last:
+                    raise ValueError("AVIF: ipma's item IDs are not in "
+                                     "increasing order")
+                last = iid
                 item = items.setdefault(iid, Item(iid))
                 for _ in range(r.u(1)):
                     v = r.u(2 if flags & 1 else 1)
                     index = v & (0x7FFF if flags & 1 else 0x7F)
                     if index:
                         item.props.append(index - 1)
+                        item.essential.append(bool(v >> (15 if flags & 1
+                                                         else 7)))
 
 
 def item_data(data: bytes, c: Container, item: Item) -> bytes:
@@ -1288,61 +1502,373 @@ def yuv_to_rgb(y: np.ndarray, u: np.ndarray | None, v: np.ndarray | None,
 # --- the file ----------------------------------------------------------------
 
 
+ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+              b"urn:mpeg:hevc:2015:auxid:1")
+XMP_CONTENT_TYPE = b"application/rdf+xml"
+
+
 @dataclass
 class Image:
-    """The primary item's frame, its colour description (H.273's colour
-    primaries, transfer characteristics and matrix coefficients, and the
-    range) and its alpha auxiliary item's frame (or None)."""
+    """What cv2 decodes of a file: the frames of the primary item (one,
+    or a grid's cells row by row) or of an image sequence's first sample
+    (`frame` is the first), the grid (rows, columns, output width and
+    height) or None, the colour description (H.273's colour primaries,
+    transfer characteristics and matrix coefficients, and the range),
+    the alpha frames (or None), the Exif bytes cv2 reads the orientation
+    from (or None) and the form: "item", "grid" or "sequence"."""
     frame: Frame
     matrix: int
     full_range: int
     alpha: Frame | None
     primaries: int = 2
     transfer: int = 2
+    cells: list = field(default_factory=list)
+    alpha_cells: list = field(default_factory=list)
+    grid: tuple | None = None
+    exif: bytes | None = None
+    form: str = "item"
+
+    @property
+    def height(self) -> int:
+        return self.grid[3] if self.grid else self.frame.header.height
+
+    @property
+    def width(self) -> int:
+        return self.grid[2] if self.grid else self.frame.header.width
+
+
+def _ispe(props: dict) -> tuple | None:
+    ispe = props.get(b"ispe")
+    if ispe is None or len(ispe) < 12:
+        return None
+    return struct.unpack(">II", ispe[4:12])
 
 
 def _item_frame(data: bytes, c: Container, item: Item) -> Frame:
     props = item_properties(c, item)
     if b"av1C" not in props:
         raise ValueError("AVIF: an av01 item without its av1C property")
-    av1c = props[b"av1C"]
-    if len(av1c) < 4 or av1c[0] != 0x81:
-        raise ValueError("AVIF: a malformed av1C property")
-    frame = read_frame(item_data(data, c, item), av1c[4:])
-    ispe = props.get(b"ispe")
-    if ispe is None or len(ispe) < 12:
+    frame = _frame(item_data(data, c, item), props[b"av1C"])
+    ispe = _ispe(props)
+    if ispe is None:
         raise ValueError("AVIF: an item without its ispe property")
-    w, h = struct.unpack(">II", ispe[4:12])
-    if (w, h) != (frame.header.width, frame.header.height):
-        raise ValueError(f"AVIF: ispe {w}x{h} differs from the AV1 frame's "
-                         f"{frame.header.width}x{frame.header.height}")
+    _check_size(ispe, frame, "ispe")
     return frame
 
 
+def _frame(obus: bytes, av1c: bytes) -> Frame:
+    if len(av1c) < 4 or av1c[0] != 0x81:
+        raise ValueError("AVIF: a malformed av1C property")
+    return read_frame(obus, av1c[4:])
+
+
+def _check_size(size: tuple, frame: Frame, what: str) -> None:
+    w, h = size
+    if (w, h) != (frame.header.width, frame.header.height):
+        raise ValueError(f"AVIF: {what} {w}x{h} differs from the AV1 frame's "
+                         f"{frame.header.width}x{frame.header.height}")
+
+
+def _source(c: Container) -> str:
+    """libavif's AVIF_DECODER_SOURCE_AUTO: the tracks where the major
+    brand is avis, the primary item where it is avif, else the tracks
+    where avifParse read a `moov` with a track."""
+    if c.major == b"avis" or (c.major != b"avif" and c.tracks):
+        return "tracks"
+    return "items"
+
+
+def _is_alpha(props: dict) -> bool:
+    return props.get(b"auxC", b"")[4:].rstrip(b"\0") in ALPHA_URNS
+
+
+def _ref_targets(c: Container, kind: bytes, src: int) -> list:
+    out = []
+    for k, s, dst in c.refs:
+        if k == kind and s == src:
+            out += dst
+    return out
+
+
+def _described(c: Container, kind: bytes) -> dict:
+    """item ID -> the item its last `kind` reference points at, as
+    libavif's descForID and auxForID keep them."""
+    out = {}
+    for k, src, dst in c.refs:
+        if k == kind and dst:
+            out[src] = dst[-1]
+    return out
+
+
+def _has_data(item: Item) -> bool:
+    """Whether the item's extents hold any bytes (libavif skips items
+    of size 0)."""
+    return any(n for _, n in item.extents)
+
+
+def _metadata_items(c: Container, target: int | None) -> list:
+    """The Exif and XMP items libavif's avifDecoderFindMetadata reads, in
+    item order: those with data, described (`cdsc`) as `target` (any,
+    where target is None)."""
+    desc = _described(c, b"cdsc")
+    out = []
+    for item in c.items.values():
+        if not _has_data(item):
+            continue
+        if target is not None and desc.get(item.id) != target:
+            continue
+        if item.type == b"Exif" or (item.type == b"mime" and
+                                    item.content_type == XMP_CONTENT_TYPE):
+            out.append(item)
+    return out
+
+
+def _exif(data: bytes, c: Container, items: list) -> bytes | None:
+    """The Exif bytes libavif 1.4.2 hands cv2: each Exif item's payload
+    after its 4-byte exif_tiff_header_offset, which must be where
+    avifGetExifTiffHeaderOffset finds the first TIFF header ("II*\\0"
+    or "MM\\0*" with a byte after it); the last item's."""
+    out = None
+    for item in items:
+        if item.type != b"Exif":
+            continue
+        payload = item_data(data, c, item)
+        if len(payload) < 4:
+            raise ValueError("AVIF: an Exif item shorter than its TIFF header"
+                             " offset (cv2 returns no image)")
+        declared = int.from_bytes(payload[:4], "big")
+        body = payload[4:]
+        found = next((i for i in range(len(body) - 4)
+                      if body[i:i + 4] in (b"II*\0", b"MM\0*")), None)
+        if found is None:
+            raise ValueError("AVIF: an Exif item without a TIFF header (cv2 "
+                             "returns no image)")
+        if found != declared:
+            raise ValueError(f"AVIF: an Exif item whose TIFF header offset "
+                             f"{declared} is not the header's {found} (cv2 "
+                             "returns no image)")
+        out = body
+    return out
+
+
+def _grid_payload(payload: bytes) -> tuple:
+    """(rows, columns, output width, output height) of an ImageGrid
+    payload, as libavif's avifParseImageGridBox reads it."""
+    if len(payload) < 4 or payload[0] != 0:
+        raise ValueError("AVIF: a grid item of another version than 0")
+    rows, cols = payload[2] + 1, payload[3] + 1
+    field_len = 4 if payload[1] & 1 else 2
+    if len(payload) != 4 + 2 * field_len:
+        raise ValueError("AVIF: a grid item of the wrong length")
+    w = int.from_bytes(payload[4:4 + field_len], "big")
+    h = int.from_bytes(payload[4 + field_len:], "big")
+    if not (w and h) or w > 32768 or h > 32768 or w * h > 16384 * 16384:
+        raise ValueError(f"AVIF: a grid of output size {w}x{h}")
+    return rows, cols, w, h
+
+
+def _signature_reads(c: Container, source: str) -> list:
+    """The reads of item and sample data libavif 1.4.2's
+    avifDecoderParse makes, in order, as (file offset, length, what):
+    a grid's payload, the Exif and XMP items, an alpha grid's payload,
+    and, where the colour item has no `colr` nclx, the first 64 bytes of
+    its first tile's first sample (where it looks for the AV1 sequence
+    header's colour description). Data in `idat` is no read."""
+    reads: list = []
+
+    def item_reads(item, what, limit=None):
+        if item.method == 1:
+            return
+        left = limit
+        for off, n in item.extents:
+            n = n if left is None else min(n, left)
+            reads.append((item.base + off, n, what))
+            if left is not None:
+                left -= n
+                if left <= 0:
+                    return
+
+    if source == "tracks":
+        track = _colour_track(c)
+        if track is None:
+            return reads
+        if track.meta is not None:
+            for item in _metadata_items(track.meta, None):
+                item_reads(item, "the track's XMP item" if item.type ==
+                           b"mime" else "the track's Exif item")
+        if _nclx_of(_sample_entry(track)[1]) is None:
+            offset, size = _samples(track)[0]
+            reads.append((offset, min(64, size), "the first sample"))
+        return reads
+    item = c.items.get(c.primary)
+    if item is None:
+        return reads
+    if item.type == b"grid":
+        item_reads(item, "the grid item")
+    for meta in _metadata_items(c, c.primary):
+        item_reads(meta, "the XMP item" if meta.type == b"mime"
+                   else "the Exif item")
+    alpha = _alpha_item(c, item)
+    if alpha is not None and alpha.type == b"grid":
+        item_reads(alpha, "the alpha grid item")
+    if _nclx(c, item) is None:
+        first = item
+        if item.type == b"grid":
+            cells = _ref_targets(c, b"dimg", item.id)
+            first = c.items.get(cells[0]) if cells else None
+        if first is not None:
+            item_reads(first, "the first tile's sequence header", 64)
+    return reads
+
+
+def signature_refusal(data: bytes, c: Container) -> str | None:
+    """Why cv2 5.0 returns no image for a file libavif could read: its
+    AVIF decoder claims a file only where avifDecoderParse of the first
+    500 bytes (io->sizeHint 1e9) returns OK or TRUNCATED_DATA, so a box
+    header cut at byte 500, or a read by the parse (`_signature_reads`)
+    that starts past byte 500 while the boxes it needs lie within them,
+    leaves the file unread. None where cv2 takes the file."""
+    avail = min(len(data), SIGNATURE_BYTES)
+    try:
+        _top_level(data, avail, SIGNATURE_SIZE_HINT)
+    except _Truncated:
+        return None
+    except ValueError as exc:
+        return f"{str(exc)[6:]} within the first {SIGNATURE_BYTES} bytes"
+    for offset, length, what in _signature_reads(c, _source(c)):
+        if offset > avail:
+            return f"{what} starts at byte {offset}, past the first " \
+                f"{SIGNATURE_BYTES} its metadata lies in"
+        if offset + length > avail:
+            return None
+    return None
+
+
+def _alpha_item(c: Container, item: Item) -> Item | None:
+    aux = _described(c, b"auxl")
+    for other in c.items.values():
+        if aux.get(other.id) != item.id or other.type not in (
+                b"av01", b"grid") or not _has_data(other):
+            continue
+        if _is_alpha(item_properties(c, other)):
+            return other
+    return None
+
+
+def _check_items(c: Container) -> None:
+    """avifDecoderParse's walk over the items: every av01 or grid item
+    with data has an ispe of non-zero sides, alpha auxiliary items
+    excepted."""
+    for item in c.items.values():
+        if item.type not in (b"av01", b"grid") or not _has_data(item):
+            continue
+        props = item_properties(c, item)
+        ispe = _ispe(props)
+        if ispe is None:
+            if _is_alpha(props):
+                continue
+            raise ValueError(f"AVIF: item {item.id} has no ispe property")
+        if not (ispe[0] and ispe[1]):
+            raise ValueError(f"AVIF: item {item.id} has an ispe of size "
+                             f"{ispe[0]}x{ispe[1]}")
+
+
+def _grid_frames(data: bytes, c: Container, item: Item, what: str):
+    """(rows, columns, width, height) of a grid item and its cells'
+    frames, checked as libavif 1.4.2 checks them."""
+    rows, cols, w, h = _grid_payload(item_data(data, c, item))
+    ids = _ref_targets(c, b"dimg", item.id)
+    cells = []
+    for iid in ids:
+        cell = c.items.get(iid)
+        if cell is None or cell.type != b"av01":
+            kind = None if cell is None else cell.type
+            raise ValueError(f"AVIF: {what} names a cell of type {kind!r} "
+                             "(cv2 returns no image)")
+        cells.append(cell)
+    if len(cells) != rows * cols:
+        raise ValueError(f"AVIF: {what} of {rows}x{cols} cells has "
+                         f"{len(cells)} (cv2 returns no image)")
+    configs = [item_properties(c, cell).get(b"av1C", b"")[1:3]
+               for cell in cells]
+    if any(cfg != configs[0] for cfg in configs):
+        raise ValueError(f"AVIF: {what} has cells whose av1C differ (profile, "
+                         "level, tier, depth, subsampling; cv2 returns no "
+                         "image)")
+    frames = [_item_frame(data, c, cell) for cell in cells]
+    first = frames[0]
+    cw, ch = first.header.width, first.header.height
+    s = first.seq
+    for f in frames[1:]:
+        t = f.seq
+        if ((f.header.width, f.header.height, t.bit_depth, t.mono, t.ssx,
+             t.ssy, t.full_range, t.primaries, t.transfer, t.matrix)
+                != (cw, ch, s.bit_depth, s.mono, s.ssx, s.ssy, s.full_range,
+                    s.primaries, s.transfer, s.matrix)):
+            raise ValueError(f"AVIF: {what} has cells that differ in size, "
+                             "depth, subsampling, range or colour "
+                             "description (cv2 returns no image)")
+    if cw * cols < w or ch * rows < h:
+        raise ValueError(f"AVIF: {what}'s cells do not cover its output "
+                         f"{w}x{h} (cv2 returns no image)")
+    if cw * (cols - 1) >= w or ch * (rows - 1) >= h:
+        raise ValueError(f"AVIF: {what}'s last row or column of cells lies "
+                         f"outside its output {w}x{h} (cv2 returns no image)")
+    if cw < 64 or ch < 64:
+        raise ValueError(f"AVIF: {what}'s cells of {cw}x{ch} are under 64 "
+                         "(cv2 returns no image)")
+    if not s.mono and ((s.ssx and (cw | w) & 1) or (s.ssy and (ch | h) & 1)):
+        raise ValueError(f"AVIF: {what}'s output {w}x{h} or cells {cw}x{ch} "
+                         "are odd where the chroma is subsampled (cv2 returns "
+                         "no image)")
+    return (rows, cols, w, h), frames
+
+
 def read_image(data: bytes) -> Image:
-    """The container and the headers of the primary image (no tile is
+    """The container and the headers of what cv2 decodes (no tile is
     decoded): what `decode` and `size` start from."""
     c = read_container(data)
+    _check_items(c)
+    why = signature_refusal(data, c)
+    if why:
+        raise ValueError(f"AVIF: cv2 returns no image: its AVIF signature "
+                         f"check finds that {why}")
+    if _source(c) == "tracks":
+        return _sequence_image(data, c)
+    if c.primary is None or c.primary not in c.items:
+        raise ValueError("AVIF: no primary item")
     item = c.items[c.primary]
-    if item.type == b"grid":
-        raise ValueError("AVIF: grid images are not read here")
-    if item.type != b"av01":
+    if item.type not in (b"av01", b"grid"):
         raise ValueError(f"AVIF: a primary item of type {item.type!r} is not "
                          "read here")
-    for kind, src, _ in c.refs:
-        if kind == b"cdsc" and c.items.get(src, Item(0)).type == b"Exif":
-            raise ValueError("AVIF: an Exif item is not read here")
-    frame = _item_frame(data, c, item)
-    alpha = None
-    for kind, src, dst in c.refs:
-        if kind == b"auxl" and c.primary in dst and src in c.items:
-            aux = item_properties(c, c.items[src]).get(b"auxC", b"")
-            if aux[4:].rstrip(b"\0") in (
-                    b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
-                    b"urn:mpeg:hevc:2015:auxid:1"):
-                alpha = _item_frame(data, c, c.items[src])
-    s = frame.seq
-    if s.mono and alpha is not None:
+    exif = _exif(data, c, _metadata_items(c, c.primary))
+    grid = None
+    if item.type == b"grid":
+        grid, frames = _grid_frames(data, c, item, "the grid item")
+        ispe = _ispe(item_properties(c, item))
+        if ispe != grid[2:]:
+            raise ValueError(f"AVIF: the grid item's ispe {ispe} differs from "
+                             f"its output size {grid[2]}x{grid[3]}")
+    else:
+        frames = [_item_frame(data, c, item)]
+    alpha_frames = []
+    alpha = _alpha_item(c, item)
+    if alpha is not None:
+        if alpha.type == b"grid":
+            agrid, alpha_frames = _grid_frames(data, c, alpha,
+                                               "the alpha grid item")
+            size = agrid[2:]
+        else:
+            alpha_frames = [_item_frame(data, c, alpha)]
+            size = (alpha_frames[0].header.width,
+                    alpha_frames[0].header.height)
+        want = grid[2:] if grid else (frames[0].header.width,
+                                      frames[0].header.height)
+        if size != want:
+            raise ValueError(f"AVIF: an alpha item of size {size} for an "
+                             f"image of {want} (cv2 returns no image)")
+    s = frames[0].seq
+    if s.mono and alpha_frames:
         raise ValueError("AVIF: a monochrome image with an alpha item is not "
                          "read (cv2 returns no image)")
     primaries, transfer, matrix, full = _nclx(c, item) or (
@@ -1351,18 +1877,124 @@ def read_image(data: bytes) -> Image:
         why = colour_refusal(matrix, full, s.ssx, s.ssy, s.bit_depth)
         if why:
             raise ValueError(f"AVIF: {why}")
-    return Image(frame, matrix, full, alpha, primaries, transfer)
+    return Image(frames[0], matrix, full,
+                 alpha_frames[0] if alpha_frames else None, primaries,
+                 transfer, frames, alpha_frames, grid, exif,
+                 "grid" if grid else "item")
+
+
+def _sample_entry(t: Track) -> tuple:
+    """(format, child boxes) of the track's first av01 sample entry."""
+    return next(e for e in t.entries if e[0] == b"av01")
+
+
+def _is_image_track(t: Track) -> bool:
+    return bool(t.table and t.id and t.chunks and
+                any(fmt == b"av01" for fmt, _ in t.entries))
+
+
+def _colour_track(c: Container) -> Track | None:
+    """The track libavif decodes: the first with a sample table, an ID,
+    chunks and an av01 sample entry that is auxiliary to no track (its
+    handler is not read)."""
+    for t in c.tracks:
+        if _is_image_track(t) and not t.aux_for:
+            return t
+    return None
+
+
+def _samples(t: Track) -> list:
+    """(file offset, size) of each sample, as libavif's
+    avifCodecDecodeInputFillFromSampleTable lays them out: each chunk's
+    samples (`stsc`'s last run that starts at or before the chunk) one
+    after another from the chunk's offset."""
+    out, k = [], 0
+    for index, offset in enumerate(t.chunks):
+        count = next((per for first, per in reversed(t.stsc)
+                      if first <= index + 1), 0)
+        if not count:
+            raise ValueError("AVIF: a chunk of the sample table with no "
+                             "samples")
+        for _ in range(count):
+            size = t.sample_size
+            if not size:
+                if k >= len(t.sizes):
+                    raise ValueError("AVIF: the sample table has fewer sizes "
+                                     "than samples")
+                size = t.sizes[k]
+            out.append((offset, size))
+            offset += size
+            k += 1
+    return out
+
+
+def _sequence_image(data: bytes, c: Container) -> Image:
+    """An image sequence (`moov`) as cv2 reads it: the first sample of
+    the colour track, its alpha track's first sample decoded and
+    dropped, the Exif of the track's own `meta`."""
+    track = _colour_track(c)
+    if track is None:
+        raise ValueError("AVIF: an image sequence without a colour track of "
+                         "av01 samples (cv2 returns no image)")
+    boxes = _sample_entry(track)[1]
+    props = dict(reversed(boxes))
+    if b"av1C" not in props:
+        raise ValueError("AVIF: an av01 sample entry without its av1C")
+    exif = None
+    if track.meta is not None:
+        exif = _exif(data, track.meta, _metadata_items(track.meta, None))
+    frames = []
+    alpha_track = next((t for t in c.tracks if t.aux_for == track.id and
+                        _is_image_track(t)), None)
+    for t in (track, alpha_track):
+        if t is None:
+            continue
+        samples = _samples(t)
+        for offset, size in samples:
+            if not size or offset + size > len(data):
+                raise ValueError("AVIF: a sample of the image sequence lies "
+                                 "outside the file (cv2 returns no image)")
+        av1c = dict(reversed(_sample_entry(t)[1])).get(b"av1C")
+        if av1c is None:
+            raise ValueError("AVIF: an av01 sample entry without its av1C")
+        offset, size = samples[0]
+        try:
+            frame = _frame(data[offset:offset + size], av1c)
+        except ValueError as exc:
+            raise ValueError(f"AVIF: the image sequence's first sample: "
+                             f"{exc}") from None
+        _check_size((t.width, t.height), frame, "tkhd")
+        frames.append(frame)
+    frame = frames[0]
+    s = frame.seq
+    if s.mono and alpha_track is not None:
+        raise ValueError("AVIF: a monochrome image with an alpha track is not "
+                         "read (cv2 returns no image)")
+    primaries, transfer, matrix, full = _nclx_of(boxes) or (
+        s.primaries, s.transfer, s.matrix, s.full_range)
+    if not s.mono:
+        why = colour_refusal(matrix, full, s.ssx, s.ssy, s.bit_depth)
+        if why:
+            raise ValueError(f"AVIF: {why}")
+    return Image(frame, matrix, full, frames[1] if alpha_track else None,
+                 primaries, transfer, [frame], frames[1:], None, exif,
+                 "sequence")
 
 
 def _nclx(c: Container, item: Item) -> tuple | None:
     """(primaries, transfer, matrix, full range) of the item's `colr`
     nclx property, or None without one (libavif then takes the AV1
-    sequence header's). As libavif: an ICC `colr` (prof, rICC) beside it
-    is ignored, other colour types are skipped, and two nclx or two ICC
-    properties, or a short nclx, are refused."""
+    sequence header's)."""
+    return _nclx_of([c.properties[i] for i in item.props])
+
+
+def _nclx_of(boxes) -> tuple | None:
+    """The nclx of (kind, payload) properties or sample entry boxes. As
+    libavif: an ICC `colr` (prof, rICC) beside it is ignored, other
+    colour types are skipped, and two nclx or two ICC properties, or a
+    short nclx, are refused."""
     nclx, icc = [], 0
-    for index in item.props:
-        kind, payload = c.properties[index]
+    for kind, payload in boxes:
         if kind != b"colr":
             continue
         if payload[:4] == b"nclx":
@@ -1378,9 +2010,10 @@ def _nclx(c: Container, item: Item) -> tuple | None:
 
 
 def size(data: bytes) -> tuple[int, int]:
-    """(height, width) of the image `decode` returns, from the headers."""
-    h = read_image(data).frame.header
-    return h.height, h.width
+    """(height, width) of the image `decode` returns, from the headers
+    (a grid's output size; the Exif orientation is not applied)."""
+    image = read_image(data)
+    return image.height, image.width
 
 
 def decode_planes(frame: Frame, plain: bool = False):
@@ -1391,16 +2024,47 @@ def decode_planes(frame: Frame, plain: bool = False):
     return decode_planes_c(frame)
 
 
-def decode(data: bytes, plain: bool = False) -> np.ndarray:
-    """uint8 RGB [H, W, 3] of an AVIF file as cv2.imdecode(...,
-    IMREAD_COLOR) returns it reversed; the alpha item, where there is
+def stitch(planes: list, grid: tuple, ssx: int, ssy: int) -> tuple:
+    """A grid's Y, U and V planes from its cells' (row by row), cropped to
+    its output size, as libavif copies each cell into the output before
+    it converts to RGB (U and V None for monochrome cells)."""
+    rows, cols, w, h = grid
+    out = []
+    for p in range(3):
+        if planes[0][p] is None:
+            out.append(None)
+            continue
+        full = np.block([[planes[r * cols + k][p] for k in range(cols)]
+                         for r in range(rows)])
+        if p == 0:
+            out.append(full[:h, :w])
+        else:
+            out.append(full[:(h + ssy) >> ssy, :(w + ssx) >> ssx])
+    return tuple(np.ascontiguousarray(x) if x is not None else None
+                 for x in out)
+
+
+def decode_with_exif(data: bytes, plain: bool = False) -> tuple:
+    """(uint8 RGB [H, W, 3], Exif bytes or None) of an AVIF file: the
+    pixels as cv2.imdecode(..., IMREAD_COLOR) decodes them before it
+    applies the Exif orientation, reversed to RGB. Alpha, where there is
     one, is decoded (cv2 returns no image where it cannot be) and
-    dropped."""
+    dropped; a grid's cells are stitched and cropped before the colour
+    conversion."""
     image = read_image(data)
-    if image.alpha is not None:
-        decode_planes(image.alpha, plain)
-    y, u, v, _ = decode_planes(image.frame, plain)
+    for frame in image.alpha_cells:
+        decode_planes(frame, plain)
+    planes = [decode_planes(frame, plain)[:3] for frame in image.cells]
     s = image.frame.seq
-    return yuv_to_rgb(y, u, v, image.matrix, image.full_range,
-                      (s.ssx, s.ssy), s.bit_depth, image.alpha is not None,
-                      image.primaries)
+    y, u, v = stitch(planes, image.grid, s.ssx, s.ssy) if image.grid \
+        else planes[0]
+    rgb = yuv_to_rgb(y, u, v, image.matrix, image.full_range,
+                     (s.ssx, s.ssy), s.bit_depth, image.alpha is not None,
+                     image.primaries)
+    return rgb, image.exif
+
+
+def decode(data: bytes, plain: bool = False) -> np.ndarray:
+    """uint8 RGB [H, W, 3] of an AVIF file as cv2 decodes it, before the
+    Exif orientation (`decode_with_exif`)."""
+    return decode_with_exif(data, plain)[0]

@@ -59,14 +59,17 @@ libpng 1.6):
   libavif 1.4.2 over libaom 3.14.1 decodes it for cv2, the AV1 tiles
   (palette, intra block copy, lossless 4:4:4), deblocking, CDEF and loop
   restoration in the host C library `csrc/av1.c`; `decode_image_plain`
-  runs the plain decoder `utils/av1.py`. What cv2 returns no image for
-  (colour descriptions libavif does not convert, a monochrome image with
-  an alpha item) and what lies past that contract (image sequences,
-  grids, Exif items, superres, segmentation, film grain) is refused by
-  name.
+  runs the plain decoder `utils/av1.py`; grid images (the cells
+  stitched), Exif items (their orientation applied) and image sequences
+  (the first frame) are read as cv2 reads them. What cv2 returns no
+  image for (colour descriptions libavif does not convert, a monochrome
+  image with an alpha item, the container forms libavif refuses or
+  cv2's 500-byte signature parse cannot reach) and what lies past that
+  contract (superres, segmentation, film grain) is refused by name.
 Gray is repeated into three channels. The Exif orientation (tag 0x0112
 of IFD0, in a JPEG APP1 `Exif` block, a PNG `eXIf` chunk, a TIFF's own
-IFD0 or a WebP `EXIF` chunk) is applied as cv2 applies it. OpenEXR files
+IFD0, a WebP `EXIF` chunk or an AVIF Exif item) is applied as cv2
+applies it. OpenEXR files
 (cv2 is built without it) are refused by a ValueError that names the
 format; any other bytes by one that names the suffix.
 
@@ -148,7 +151,8 @@ def image_size(path: str | Path) -> tuple[int, int]:
     """The (height, width) of what `read_image` returns for the file: a
     JPEG's from its header, walked up to the first SOS, and its Exif
     orientation (5-8 swap the sides), an AVIF's from its container and
-    AV1 headers, any other format's by decoding it."""
+    AV1 headers (a grid's output size) and its Exif item's orientation,
+    any other format's by decoding it."""
     data = Path(path).read_bytes()
     if data.startswith(JPEG_MAGIC):
         try:
@@ -159,9 +163,12 @@ def image_size(path: str | Path) -> tuple[int, int]:
         return (w, h) if turned else (h, w)
     if avif.is_avif(data):
         try:
-            return avif.size(data)
+            image = avif.read_image(data)
         except ValueError as exc:
             raise ValueError(f"{path}: {exc}") from None
+        turned = exif_orientation(image.exif) in (5, 6, 7, 8)
+        return (image.width, image.height) if turned else (image.height,
+                                                           image.width)
     return decode_image(data, path, eof_fill=True).shape[:2]
 
 
@@ -243,9 +250,10 @@ def _decode_simple(data: bytes, name, plain: bool) -> np.ndarray:
             raise ValueError(f"{name}: {exc}") from None
     if avif.is_avif(data):
         try:
-            return avif.decode(data, plain=plain)
+            rgb, exif = avif.decode_with_exif(data, plain=plain)
         except ValueError as exc:
             raise ValueError(f"{name}: {exc}") from None
+        return apply_orientation(rgb, exif_orientation(exif))
     kind = simple_format(data)
     if kind is not None:
         reader = _READERS[kind]

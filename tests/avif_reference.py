@@ -127,6 +127,7 @@ _IMG_ALPHA, _IMG_ALPHA_ROW_BYTES = 64, 72
 _IMG_PRIMARIES, _IMG_TRANSFER, _IMG_MATRIX = 104, 106, 108
 _RGB_DEPTH, _RGB_FORMAT, _RGB_PIXELS, _RGB_ROW_BYTES = 8, 12, 48, 56
 _ENC_SPEED, _ENC_QUALITY = 8, 32
+_ADD_IMAGE_SINGLE = 2  # AVIF_ADD_IMAGE_FLAG_SINGLE
 YUV444, YUV422, YUV420, YUV400 = 1, 2, 3, 4
 # (ssx, ssy) of each avifPixelFormat with chroma planes.
 SUBSAMPLING = {YUV444: (0, 0), YUV422: (1, 0), YUV420: (1, 1)}
@@ -163,6 +164,11 @@ def libavif() -> ctypes.CDLL:
         lib.avifEncoderSetCodecSpecificOption.argtypes = [
             vp, ctypes.c_char_p, ctypes.c_char_p]
         lib.avifEncoderWrite.argtypes = [vp, vp, vp]
+        lib.avifEncoderAddImage.argtypes = [vp, vp, ctypes.c_uint64, u32]
+        lib.avifEncoderAddImageGrid.argtypes = [vp, u32, u32, vp, u32]
+        lib.avifEncoderFinish.argtypes = [vp, vp]
+        lib.avifImageSetMetadataExif.argtypes = [vp, ctypes.c_char_p,
+                                                 ctypes.c_size_t]
         lib.avifRWDataFree.argtypes = [vp]
         _libavif.append(lib)
     return _libavif[0]
@@ -242,16 +248,56 @@ def avif_yuv_to_rgb(planes, depth: int, yuv_format: int, matrix: int,
 def avif_encode(planes, depth: int, yuv_format: int, quality: int = 50,
                 speed: int = 6, matrix: int = 6, full_range: int = 1,
                 primaries: int = 1, transfer: int = 13,
-                alpha: np.ndarray | None = None, **options) -> bytes:
+                alpha: np.ndarray | None = None, exif: bytes | None = None,
+                **options) -> bytes:
     """The AVIF file the wheel's libavif 1.4.2 encoder (over its libaom
     3.14.1, as cv2.imwrite calls it) writes for the given planes (Y, U,
     V; U and V None for 4:0:0) of `depth` bits in `yuv_format`, with the
-    colour description given in its `colr` box and sequence header, and
-    an alpha item where `alpha` is given; `options` are aom's
-    (`enable_cdef="1"`: underscores for dashes)."""
+    colour description given in its `colr` box and sequence header, an
+    alpha item where `alpha` is given and an Exif item where `exif` (the
+    TIFF bytes, or any bytes avifImageSetMetadataExif takes) is given;
+    `options` are aom's (`enable_cdef="1"`: underscores for dashes)."""
+    return _encode([planes], depth, yuv_format, quality, speed, matrix,
+                   full_range, primaries, transfer,
+                   None if alpha is None else [alpha], exif, options)
+
+
+def avif_grid(cells, columns: int, rows: int, depth: int, yuv_format: int,
+              quality: int = 50, speed: int = 6, matrix: int = 6,
+              full_range: int = 1, primaries: int = 1, transfer: int = 13,
+              alpha=None, exif: bytes | None = None, **options) -> bytes:
+    """A grid image from the wheel's libavif 1.4.2 encoder
+    (avifEncoderAddImageGrid, then avifEncoderFinish): `cells` are the
+    planes of each cell (row by row, all of one size), `alpha` the alpha
+    plane of each cell or None; output size the cells' span (crop it with
+    `patch_grid`). The rest as for `avif_encode`."""
+    assert len(cells) == columns * rows
+    return _encode(cells, depth, yuv_format, quality, speed, matrix,
+                   full_range, primaries, transfer, alpha, exif, options,
+                   grid=(columns, rows))
+
+
+def avif_sequence(frames, depth: int, yuv_format: int, quality: int = 50,
+                  speed: int = 6, matrix: int = 6, full_range: int = 1,
+                  primaries: int = 1, transfer: int = 13, alpha=None,
+                  exif: bytes | None = None, **options) -> bytes:
+    """An image sequence (brand avis) from the wheel's libavif 1.4.2
+    encoder: avifEncoderAddImage for each frame's planes (one timescale
+    unit each), then avifEncoderFinish. The rest as for `avif_encode`."""
+    return _encode(frames, depth, yuv_format, quality, speed, matrix,
+                   full_range, primaries, transfer, alpha, exif, options,
+                   sequence=True)
+
+
+def _encode(images, depth, yuv_format, quality, speed, matrix, full_range,
+            primaries, transfer, alpha, exif, options, grid=None,
+            sequence=False) -> bytes:
     lib = libavif()
-    img = _avif_image(planes, depth, yuv_format, matrix, full_range,
-                      primaries, transfer, alpha)
+    imgs = [_avif_image(p, depth, yuv_format, matrix, full_range, primaries,
+                        transfer, None if alpha is None else alpha[i])
+            for i, p in enumerate(images)]
+    if exif is not None:
+        assert lib.avifImageSetMetadataExif(imgs[0], exif, len(exif)) == 0
     enc = lib.avifEncoderCreate()
     out = (ctypes.c_void_p * 2)()
     try:
@@ -260,14 +306,30 @@ def avif_encode(planes, depth: int, yuv_format: int, quality: int = 50,
         for key, value in options.items():
             assert lib.avifEncoderSetCodecSpecificOption(
                 enc, key.replace("_", "-").encode(), str(value).encode()) == 0
-        rc = lib.avifEncoderWrite(enc, img, out)
+        if grid is not None:
+            cells = (ctypes.c_void_p * len(imgs))(*imgs)
+            rc = lib.avifEncoderAddImageGrid(enc, grid[0], grid[1], cells,
+                                             _ADD_IMAGE_SINGLE)
+        elif sequence:
+            rc = 0
+            for img in imgs:
+                rc = rc or lib.avifEncoderAddImage(enc, img, 1, 0)
+        else:
+            rc = lib.avifEncoderWrite(enc, imgs[0], out)
+            if rc:
+                raise RuntimeError(f"avifEncoderWrite: {rc}")
+            return ctypes.string_at(out[0], out[1])
         if rc:
-            raise RuntimeError(f"avifEncoderWrite: {rc}")
+            raise RuntimeError(f"avifEncoderAddImage(Grid): {rc}")
+        rc = lib.avifEncoderFinish(enc, out)
+        if rc:
+            raise RuntimeError(f"avifEncoderFinish: {rc}")
         return ctypes.string_at(out[0], out[1])
     finally:
         lib.avifRWDataFree(out)
         lib.avifEncoderDestroy(enc)
-        lib.avifImageDestroy(img)
+        for img in imgs:
+            lib.avifImageDestroy(img)
 
 
 # Kr and Kb of the matrix coefficients `planes_of` writes.
@@ -428,6 +490,201 @@ def edit_avif(data: bytes, add_props=(), drop_props=(), exif: bytes | None
             pos += len(p)
     meta_b = build(offsets, version)
     return ftyp_b + meta_b + _box(b"mdat", b"".join(payloads))
+
+
+def heif_parts(data: bytes) -> dict:
+    """An AVIF file's items as a dict `heif_write` writes back: brands
+    (major, then compatible), primary item ID, items (id, type, name,
+    data, props as (kind, payload, essential), idat: stored in `idat`,
+    content_type of a mime item) in file order, and references (kind,
+    from ID, to IDs). Tracks are not kept."""
+    from multiposenet_tpu_torch.utils import avif
+
+    c = avif.read_container(data)
+    items = []
+    for item in c.items.values():
+        if not item.type:
+            continue
+        props = [(*c.properties[i], e) for i, e in zip(item.props,
+                                                       item.essential)]
+        items.append({"id": item.id, "type": item.type, "name": b"",
+                      "data": avif.item_data(data, c, item),
+                      "at": item.base + (item.extents or [(0, 0)])[0][0],
+                      "props": props, "idat": item.method == 1,
+                      "content_type": item.content_type})
+    return {"brands": list(c.brands), "primary": c.primary, "items": items,
+            "refs": [(k, s, list(d)) for k, s, d in c.refs]}
+
+
+def heif_write(parts: dict, order=None, meta_pad: int = 0,
+               before_meta: bytes = b"") -> bytes:
+    """An AVIF file of `heif_parts`' form: ftyp, `before_meta` (whole
+    boxes), meta (hdlr pict, pitm, iloc, iinf, iref, iprp with
+    properties shared by value, idat; a `free` box of `meta_pad` bytes
+    at its end), then mdat with the items' data in `order` (item IDs;
+    default: the order of their data in the file `heif_parts` read)."""
+    items = parts["items"]
+    props: list = []
+    assoc = {}
+    for it in items:
+        a = []
+        for kind, payload, essential in it["props"]:
+            if (kind, payload) not in props:
+                props.append((kind, payload))
+            a.append((props.index((kind, payload)) + 1, essential))
+        assoc[it["id"]] = a
+    wide = len(props) > 127
+    ipma = b"\0\0\0" + bytes([1 if wide else 0]) + sum(
+        1 for a in assoc.values() if a).to_bytes(4, "big")
+    for iid, a in sorted(assoc.items()):
+        if not a:
+            continue
+        ipma += iid.to_bytes(2, "big") + bytes([len(a)])
+        for index, essential in a:
+            if wide:
+                ipma += ((0x8000 if essential else 0) | index).to_bytes(2,
+                                                                        "big")
+            else:
+                ipma += bytes([(0x80 if essential else 0) | index])
+    ipco = b"".join(_box(k, p) for k, p in props)
+    iinf = b"\0\0\0\0" + len(items).to_bytes(2, "big")
+    for it in items:
+        body = b"\x02\0\0\0" + it["id"].to_bytes(2, "big") + b"\0\0" \
+            + it["type"] + it["name"] + b"\0"
+        if it["type"] == b"mime":
+            body += it["content_type"] + b"\0"
+        iinf += _box(b"infe", body)
+    iref = b"\0\0\0\0" + b"".join(
+        _box(k, s.to_bytes(2, "big") + len(d).to_bytes(2, "big")
+             + b"".join(x.to_bytes(2, "big") for x in d))
+        for k, s, d in parts["refs"])
+    idat_items = [it for it in items if it["idat"]]
+    version = 1 if idat_items else 0
+    order = order or [it["id"] for it in sorted(
+        (it for it in items if not it["idat"]), key=lambda i: i.get("at", 0))]
+    by_id = {it["id"]: it for it in items}
+    brands = parts["brands"]
+    ftyp = _box(b"ftyp", brands[0] + b"\0\0\0\0" + b"".join(brands[1:]))
+
+    def meta(offsets):
+        iloc = bytes([version, 0, 0, 0, 0x44, 0]) + len(items).to_bytes(
+            2, "big")
+        for it in items:
+            iloc += it["id"].to_bytes(2, "big")
+            if version:
+                iloc += (1 if it["idat"] else 0).to_bytes(2, "big")
+            iloc += b"\0\0\0\x01" + offsets[it["id"]].to_bytes(4, "big") \
+                + len(it["data"]).to_bytes(4, "big")
+        kids = [_box(b"hdlr", b"\0" * 8 + b"pict" + b"\0" * 13),
+                _box(b"pitm", b"\0\0\0\0" + parts["primary"].to_bytes(2,
+                                                                   "big")),
+                _box(b"iloc", iloc), _box(b"iinf", iinf)]
+        if parts["refs"]:
+            kids.append(_box(b"iref", iref))
+        kids.append(_box(b"iprp", _box(b"ipco", ipco) + _box(b"ipma", ipma)))
+        if idat_items:
+            kids.append(_box(b"idat", b"".join(it["data"]
+                                               for it in idat_items)))
+        if meta_pad:
+            kids.append(_box(b"free", b"\0" * meta_pad))
+        return _box(b"meta", b"\0\0\0\0" + b"".join(kids))
+
+    offsets = {it["id"]: 0 for it in items}
+    pos = 0
+    for it in idat_items:
+        offsets[it["id"]] = pos
+        pos += len(it["data"])
+    start = len(ftyp) + len(before_meta) + len(meta(offsets)) + 8
+    for iid in order:
+        offsets[iid] = start
+        start += len(by_id[iid]["data"])
+    mdat = b"".join(by_id[iid]["data"] for iid in order)
+    return ftyp + before_meta + meta(offsets) + _box(b"mdat", mdat)
+
+
+def grid_from_rgb(rgb: np.ndarray, rows: int, columns: int, cell_h: int,
+                  cell_w: int, depth: int = 8, yuv_format: int = YUV420,
+                  alpha: np.ndarray | None = None, exif: bytes | None = None,
+                  **kw) -> bytes:
+    """A grid file from the wheel's libavif encoder: uint8 RGB pixels
+    (and an alpha plane) padded by repeating their edges to rows x
+    columns cells of cell_h x cell_w, the output cropped back to the
+    pixels' size (`patch_grid`); `kw` as for `avif_grid`."""
+    h, w = rgb.shape[:2]
+    ph, pw = rows * cell_h - h, columns * cell_w - w
+    big = np.pad(rgb, ((0, ph), (0, pw), (0, 0)), mode="edge")
+    if depth > 8:
+        big = widen(big, depth)
+    cells, alphas = [], None
+    for r in range(rows):
+        for k in range(columns):
+            cell = np.ascontiguousarray(big[r * cell_h:(r + 1) * cell_h,
+                                            k * cell_w:(k + 1) * cell_w])
+            cells.append(planes_of(cell, depth, yuv_format))
+    if alpha is not None:
+        a = np.pad(alpha, ((0, ph), (0, pw)), mode="edge")
+        alphas = [np.ascontiguousarray(a[r * cell_h:(r + 1) * cell_h,
+                                         k * cell_w:(k + 1) * cell_w])
+                  for r in range(rows) for k in range(columns)]
+    data = avif_grid(cells, columns, rows, depth, yuv_format, alpha=alphas,
+                     exif=exif, **kw)
+    return data if (ph, pw) == (0, 0) else patch_grid(data, w, h)
+
+
+def grid_of_items(files, rows: int, columns: int, width: int, height: int,
+                  grid_props=None, big: bool = False) -> bytes:
+    """A grid file made of the primary items of single-item AVIF files
+    (`files`, row by row) as its cells, each with its own properties,
+    and a grid item (its payload in `idat`) of output `width` x `height`
+    (32-bit fields with `big`) with an ispe of that size and
+    `grid_props` ((kind, payload, essential) each; default: the first
+    cell's `colr`)."""
+    items, refs = [], []
+    for k, data in enumerate(files):
+        parts = heif_parts(data)
+        cell = next(it for it in parts["items"]
+                    if it["id"] == parts["primary"])
+        items.append({**cell, "id": k + 2, "idat": False, "at": k})
+    n = 4 if big else 2
+    payload = bytes([0, int(big), rows - 1, columns - 1]) + width.to_bytes(
+        n, "big") + height.to_bytes(n, "big")
+    ispe = b"\0\0\0\0" + width.to_bytes(4, "big") + height.to_bytes(4, "big")
+    if grid_props is None:
+        grid_props = [p for p in items[0]["props"] if p[0] == b"colr"]
+    grid = {"id": 1, "type": b"grid", "name": b"", "data": payload,
+            "props": [(b"ispe", ispe, False), *grid_props], "idat": True,
+            "content_type": b""}
+    refs.append((b"dimg", 1, [it["id"] for it in items]))
+    return heif_write({"brands": [b"avif", b"avif", b"mif1", b"miaf"],
+                       "primary": 1, "items": [grid] + items, "refs": refs})
+
+
+def patch_grid(data: bytes, width: int, height: int, rows: int | None = None,
+               columns: int | None = None) -> bytes:
+    """A grid file with its ImageGrid payload rewritten: output size
+    (32-bit fields where a side passes 65535), and rows and columns where
+    given; its ispe set to the new size."""
+    parts = heif_parts(data)
+    grid = next(it for it in parts["items"] if it["id"] == parts["primary"])
+    old = grid["data"]
+    big = width > 0xFFFF or height > 0xFFFF
+    n = 4 if big else 2
+    grid["data"] = bytes([0, int(big), old[2] if rows is None else rows - 1,
+                          old[3] if columns is None else columns - 1]) \
+        + width.to_bytes(n, "big") + height.to_bytes(n, "big")
+    ispe = b"\0\0\0\0" + width.to_bytes(4, "big") + height.to_bytes(4, "big")
+    grid["props"] = [(k, ispe if k == b"ispe" else p, e)
+                     for k, p, e in grid["props"]]
+    return heif_write(parts)
+
+
+def tiff_orientation(orientation: int, little: bool = True,
+                     prefix: bytes = b"") -> bytes:
+    """Exif TIFF bytes of one IFD0 entry, the orientation, after
+    `prefix`."""
+    e = "<" if little else ">"
+    return prefix + (b"II" if little else b"MM") + struct.pack(
+        e + "HIHHHIHHI", 42, 8, 1, 0x0112, 3, 1, orientation, 0, 0)
 
 
 # --- cv2's side --------------------------------------------------------------
@@ -848,4 +1105,148 @@ def pillow_avif(pixels: np.ndarray, quality: int, speed: int,
     Image.fromarray(pixels).save(buf, "AVIF", quality=quality, speed=speed,
                                  subsampling=subsampling,
                                  advanced=advanced or None)
+    return buf.getvalue()
+
+
+# Boxes whose payload is child boxes after a header of this many bytes.
+_CONTAINERS = {b"moov": 0, b"trak": 0, b"mdia": 0, b"minf": 0, b"stbl": 0,
+               b"meta": 4, b"stsd": 8, b"av01": 78, b"dinf": 0, b"edts": 0}
+
+
+def box_edit(data: bytes, path, fn, every: bool = False) -> bytes:
+    """`data` with the payload of the first box at `path` (box types from
+    the top level down; with `every`, each such box) replaced by
+    fn(payload), its ancestors' sizes fixed. Offsets into the data that
+    moves are not fixed (`shift_chunk_offsets`)."""
+    found = []
+
+    def walk(buf: bytes, skip: int, kinds) -> bytes:
+        out, pos = buf[:skip], skip
+        while pos < len(buf):
+            size = int.from_bytes(buf[pos:pos + 4], "big")
+            kind = buf[pos + 4:pos + 8]
+            box = buf[pos:pos + size]
+            if kind == kinds[0] and (every or not found):
+                payload = box[8:]
+                if len(kinds) == 1:
+                    found.append(kind)
+                    box = _box(kind, fn(payload))
+                else:
+                    box = _box(kind, walk(payload, _CONTAINERS[kind],
+                                          kinds[1:]))
+            out += box
+            pos += size
+        return out
+
+    out = walk(data, 0, list(path))
+    if not found:
+        raise KeyError(path[-1])
+    return out
+
+
+def shift_chunk_offsets(data: bytes, delta: int, start: int) -> bytes:
+    """`data` with every stco/co64 chunk offset (of every track) at or
+    past `start` moved by `delta`."""
+    def fix(kind):
+        def fn(payload):
+            n = int.from_bytes(payload[4:8], "big")
+            w = 8 if kind == b"co64" else 4
+            out = bytearray(payload)
+            for i in range(n):
+                at = 8 + w * i
+                v = int.from_bytes(payload[at:at + w], "big")
+                if v >= start:
+                    out[at:at + w] = (v + delta).to_bytes(w, "big")
+            return bytes(out)
+        return fn
+
+    for kind in (b"stco", b"co64"):
+        try:
+            data = box_edit(data, (b"moov", b"trak", b"mdia", b"minf",
+                                   b"stbl", kind), fix(kind), every=True)
+        except KeyError:
+            pass
+    return data
+
+
+def avis_meta(data: bytes, edit=None) -> bytes:
+    """An image sequence whose file-level `meta` is rewritten with every
+    item's data in its `idat` (after `edit(parts)` on `heif_parts`), the
+    chunk offsets moved with the data behind it."""
+    parts = heif_parts(data)
+    for it in parts["items"]:
+        it["idat"] = True
+    if edit is not None:
+        edit(parts)
+    whole = heif_write(parts)
+    top = _children(whole, 0, len(whole))
+    new_meta = _box(b"meta", dict(top)[b"meta"])
+    pos, out = 0, b""
+    delta = start = None
+    while pos < len(data):
+        size = int.from_bytes(data[pos:pos + 4], "big")
+        if data[pos + 4:pos + 8] == b"meta":
+            out += new_meta
+            delta, start = len(new_meta) - size, pos + size
+        else:
+            out += data[pos:pos + size]
+        pos += size
+    return shift_chunk_offsets(out, delta, start)
+
+
+def avis_track_edit(data: bytes, path, fn) -> bytes:
+    """An image sequence (its items first moved into `idat` by
+    `avis_meta`) with the payload of the box at `path` under
+    moov/trak rewritten by `fn`, the chunk offsets fixed."""
+    data = avis_meta(data)
+    moov_at = data.index(b"moov") - 4
+    new = box_edit(data, (b"moov", b"trak", *path), fn)
+    delta = len(new) - len(data)
+    return shift_chunk_offsets(new, delta, moov_at + 8)
+
+
+def to_co64(data: bytes) -> bytes:
+    """An image sequence with its tracks' `stco` boxes written as
+    `co64`."""
+    data = avis_meta(data)
+    path = (b"moov", b"trak", b"mdia", b"minf", b"stbl")
+    stbl = [data]
+
+    def fn(payload):
+        out, pos = b"", 0
+        while pos < len(payload):
+            size = int.from_bytes(payload[pos:pos + 4], "big")
+            kind = payload[pos + 4:pos + 8]
+            body = payload[pos + 8:pos + size]
+            if kind == b"stco":
+                n = int.from_bytes(body[4:8], "big")
+                offs = [int.from_bytes(body[8 + 4 * i:12 + 4 * i], "big")
+                        for i in range(n)]
+                stbl.append(offs)
+                body = body[:8] + b"".join(o.to_bytes(8, "big") for o in offs)
+                kind = b"co64"
+            out += _box(kind, body)
+            pos += size
+        return out
+
+    new = box_edit(data, path, fn, every=True)
+    delta = len(new) - len(data)
+    return shift_chunk_offsets(new, delta, data.index(b"moov") + 4)
+
+
+def pillow_avis(frames, quality: int = 75, speed: int = 8,
+                subsampling: str = "4:2:0") -> bytes:
+    """The image sequence (brand avis) Pillow's AVIF writer makes of
+    uint8 RGB or RGBA frames (`save_all=True`). (Pillow's Exif path
+    crashes in a process that has loaded cv2's libavif: write Exif with
+    `avif_encode` instead.)"""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    images = [Image.fromarray(f) for f in frames]
+    images[0].save(buf, "AVIF", save_all=True, append_images=images[1:],
+                   quality=quality, speed=speed, subsampling=subsampling,
+                   duration=100)
     return buf.getvalue()

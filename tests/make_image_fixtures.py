@@ -84,7 +84,11 @@ installed cv2's decode.
   cv2 write them (`other_avif_fixtures`): 4:4:4 lossy (profile 1), 4:2:2
   with CDEF's chroma filter on (profile 2), 4:2:2 at 10 bits and a
   limited-range BT.709 4:2:0 crop, as video tools write frames
-  (`predict`'s input on the card).
+  (`predict`'s input on the card). Two hold the container forms past one
+  still item (`container_avif_fixtures`): a 128x96 crop of the photo as a
+  grid of 2x2 cells of 64x64 with an Exif item of orientation 6 (the
+  wheel's libavif encoder; cv2 returns it 96x128) and three 48x64 crops
+  as a Pillow image sequence (brand avis; cv2 returns the first).
 - `digests.json`: for each file, the shape and sha256 of cv2's RGB decode
   (`cv2.imread(path, IMREAD_COLOR)[..., ::-1]`) and of cv2's INTER_LINEAR
   letterbox of it to 512 (the eval runner's resize: scale 512 / max(h, w),
@@ -112,8 +116,10 @@ installed cv2's decode.
   before its DQT, with cv2's digest. `python tests/make_image_fixtures.py
   corrupt` writes only those into the committed digests, `python
   tests/make_image_fixtures.py jpeg2000` only the JPEG 2000 files with
-  their digests and recipes, and `python tests/make_image_fixtures.py
-  avif` only the AVIF files with their digests.
+  their digests and recipes, `python tests/make_image_fixtures.py
+  avif` only the AVIF files with their digests, and `python
+  tests/make_image_fixtures.py avif_container` only the two container
+  ones.
 """
 
 from __future__ import annotations
@@ -876,7 +882,39 @@ def avif_fixtures() -> dict[str, bytes]:
     files = {name: cv2.imencode(".avif", img, params.get(name, []))[1]
              .tobytes() for name, img in images.items()}
     files.update(other_avif_fixtures(photo[:, :, ::-1]))
+    files.update(container_avif_fixtures(photo[:, :, ::-1]))
     return files
+
+
+def container_avif_fixtures(photo: np.ndarray) -> dict[str, bytes]:
+    """The grid (with its Exif item) and the sequence fixtures, from crops
+    of the photo (RGB)."""
+    sys.path.insert(0, str(ROOT))  # avif_reference's surgery uses the port
+    from avif_reference import grid_from_rgb, pillow_avis, tiff_orientation
+
+    grid = grid_from_rgb(np.ascontiguousarray(photo[160:288, 300:396]), 2, 2,
+                         64, 64, exif=tiff_orientation(6), quality=35,
+                         speed=6)
+    frames = [np.ascontiguousarray(photo[y:y + 48, x:x + 64])
+              for y, x in ((200, 200), (210, 206), (220, 212))]
+    return {"avif_grid2x2_exif6_128x96.avif": grid,
+            "avif_sequence3_48x64.avif": pillow_avis(frames, quality=40,
+                                                     speed=6)}
+
+
+def write_avif_fixture_files(files: dict[str, bytes]) -> None:
+    """AVIF fixtures and their digests, into the committed digests."""
+    digests = json.loads((OUT / "digests.json").read_text())
+    for name, data in files.items():
+        (OUT / name).write_bytes(data)
+        digests[name] = digest(OUT / name)
+        bgr = cv2.imread(str(OUT / name))
+        digests[name]["imencode_webp_bytes"] = len(cv2.imencode(".webp",
+                                                                bgr)[1])
+        digests[name]["imencode_gif_sha256"] = hashlib.sha256(
+            cv2.imencode(".gif", bgr)[1].tobytes()).hexdigest()
+        digests[name]["imencode_jp2_sha256"] = jp2_sha(bgr)
+    write_digests(digests)
 
 
 def other_avif_fixtures(photo: np.ndarray) -> dict[str, bytes]:
@@ -907,17 +945,7 @@ def other_avif_fixtures(photo: np.ndarray) -> dict[str, bytes]:
 def write_avif_fixtures() -> None:
     """Only the AVIF fixtures and their digests, into the committed
     digests."""
-    digests = json.loads((OUT / "digests.json").read_text())
-    for name, data in avif_fixtures().items():
-        (OUT / name).write_bytes(data)
-        digests[name] = digest(OUT / name)
-        bgr = cv2.imread(str(OUT / name))
-        digests[name]["imencode_webp_bytes"] = len(cv2.imencode(".webp",
-                                                                bgr)[1])
-        digests[name]["imencode_gif_sha256"] = hashlib.sha256(
-            cv2.imencode(".gif", bgr)[1].tobytes()).hexdigest()
-        digests[name]["imencode_jp2_sha256"] = jp2_sha(bgr)
-    write_digests(digests)
+    write_avif_fixture_files(avif_fixtures())
 
 
 def jpeg2000_recipes(data: bytes) -> list[dict]:
@@ -1460,5 +1488,8 @@ if __name__ == "__main__":
         write_jp2_digests()
     elif sys.argv[1:] == ["avif"]:
         write_avif_fixtures()
+    elif sys.argv[1:] == ["avif_container"]:
+        photo = cv2.imread(str(OUT / "photo_480x640_q95_420.jpg"))
+        write_avif_fixture_files(container_avif_fixtures(photo[:, :, ::-1]))
     else:
         main()

@@ -249,16 +249,21 @@ OTHER_AVIF = ((8, 2, 1, 0), (10, 1, 9, 1), (8, 3, 4, 0))
 
 
 @pytest.mark.parametrize("train,writer", [(True, "cv2"), (False, "cv2"),
-                                          (True, "libavif")],
-                         ids=["True", "False", "True-libavif"])
+                                          (True, "libavif"),
+                                          (True, "container")],
+                         ids=["True", "False", "True-libavif",
+                              "True-container"])
 def test_make_batch_of_avif_records_matches_jax(tmp_path, records, train,
                                                 writer):
     """Records whose files are AVIF as cv2.imwrite writes them (one at
     its default quality, one at quality 30, one at 10 bits from uint16
     with seeded low bits), or as the wheel's libavif encoder writes them
-    in other colour forms and subsamplings (OTHER_AVIF): the port's batch
-    equals the JAX package's (which reads them with cv2.imread) with the
-    same image_dir and seed."""
+    in other colour forms and subsamplings (OTHER_AVIF), or in the
+    container forms (a grid of 2x2 cells of 64x64 cropped to the image
+    with an Exif item of orientation 6, a 2-frame Pillow sequence, a
+    still with an Exif item of orientation 8): the port's batch equals
+    the JAX package's (which reads them with cv2.imread) with the same
+    image_dir and seed."""
     import cv2
 
     import avif_reference as ar
@@ -270,7 +275,15 @@ def test_make_batch_of_avif_records_matches_jax(tmp_path, records, train,
         rgb = rec.pop("image")
         bgr = np.ascontiguousarray(rgb[:, :, ::-1])
         params = [] if i == 0 else [cv2.IMWRITE_AVIF_QUALITY, 30]
-        if writer == "libavif":
+        if writer == "container":
+            data = (ar.grid_from_rgb(rgb, 2, 2, 64, 64,
+                                     exif=ar.tiff_orientation(6), speed=9),
+                    ar.pillow_avis([rgb, rgb[::-1]]),
+                    ar.avif_encode(ar.planes_of(rgb, 8, ar.YUV420), 8,
+                                   ar.YUV420, speed=9,
+                                   exif=ar.tiff_orientation(8)))[i]
+            (tmp_path / name).write_bytes(data)
+        elif writer == "libavif":
             depth, fmt, matrix, full = OTHER_AVIF[i]
             (tmp_path / name).write_bytes(ar.avif_encode(
                 ar.planes_of(rgb, depth, fmt, matrix if matrix != 4 else 6,

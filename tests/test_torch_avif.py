@@ -771,13 +771,15 @@ def test_full_syntax_headers_read_as_the_reduced_ones():
 def test_container_edits_as_cv2_reads_them():
     """What cv2 does with hand-edited containers: irot, imir and clap are
     not applied; the data in an idat box (construction method 1) and a
-    file whose major brand is mif1 read as the original; an alpha item
-    that does not decode, a grid item and the avis brand are no image to
+    file whose major brand is mif1 read as the original; an Exif item
+    (its TIFF header at byte 481, within the 500 bytes cv2's signature
+    check parses) is read with its orientation applied, as cv2 reads it;
+    an alpha item that does not decode, an item retyped grid with no
+    grid payload and the avis brand with no moov box are no image to
     cv2, and the port refuses each by name, as it refuses an ispe that
-    differs from the frame (cv2 returns an image of the ispe's size) and
-    an Exif item (cv2 applies its orientation, or returns no image when
-    the item's bytes follow the image's in a file of a few hundred
-    bytes or more)."""
+    differs from the frame (cv2 returns an image of the ispe's size).
+    Real grids, Exif items and sequences:
+    tests/test_torch_avif_container.py."""
     data = (FIXTURES / "avif_odd_33x17.avif").read_bytes()
     want = ar.imdecode_rgb(data)
     clap = b"".join(x.to_bytes(4, "big") for x in (9, 1, 8, 1, 0, 1, 0, 1))
@@ -791,14 +793,20 @@ def test_container_edits_as_cv2_reads_them():
     tiff = (b"II*\x00\x08\x00\x00\x00\x01\x00\x12\x01\x03\x00\x01\x00\x00"
             b"\x00\x06\x00\x00\x00\x00\x00\x00\x00")
     ispe = b"\0\0\0\0" + (16).to_bytes(4, "big") + (8).to_bytes(4, "big")
+    edited = ar.edit_avif(data, exif=tiff)
+    assert edited.index(tiff) == 481
+    turned = ar.imdecode_rgb(edited)
+    assert turned.shape == (want.shape[1], want.shape[0], 3)
+    np.testing.assert_array_equal(image_io.decode_image(edited), turned)
+    np.testing.assert_array_equal(image_io.decode_image_plain(edited),
+                                  turned)
     for edited, name in (
             (ar.edit_avif(data, alpha=data[-30:]), "AV1"),
             (ar.edit_avif(data, primary_type=b"grid"), "grid"),
             (ar.edit_avif(data, brand=b"avis"), "avis"),
-            (ar.edit_avif(data, exif=tiff), "Exif"),
             (ar.edit_avif(data, drop_props=(b"ispe",),
                           add_props=[(b"ispe", ispe, False)]), "ispe")):
-        if name not in ("ispe", "Exif"):
+        if name != "ispe":
             assert ar.imdecode_rgb(edited) is None, name
         with pytest.raises(ValueError, match=name):
             image_io.decode_image(edited)

@@ -254,21 +254,36 @@ def test_predict_on_jpeg2000_matches_jax_cli(workdir, tmp_path, suffix):
                                    atol=1e-3, rtol=1e-5)
 
 
-@pytest.mark.parametrize("depth", [8, 10, 12, "444_bt709_limited"])
+@pytest.mark.parametrize("depth", [8, 10, 12, "444_bt709_limited",
+                                   "grid_exif6", "sequence"])
 def test_predict_on_avif_matches_jax_cli(workdir, tmp_path, depth):
     """`predict --image x.avif` (the scene as cv2.imwrite writes it at its
     default quality, from uint8 or, with IMWRITE_AVIF_DEPTH 10 or 12,
     from uint16 with the low bits repeated; or as a video tool writes a
     frame: 4:4:4 lossy, limited-range BT.709, by the wheel's libavif
-    encoder): the port reads it as cv2.imread does
-    (tests/test_torch_avif*.py) and prints the JAX CLI's people."""
+    encoder; or as a grid of 2x2 cells of 64x72 cropped to the scene
+    with an Exif item of orientation 6, by the wheel's libavif encoder,
+    or as the first frame of a 3-frame sequence from Pillow): the port
+    reads it as cv2.imread does (tests/test_torch_avif*.py) and prints
+    the JAX CLI's people."""
     import avif_reference as ar
 
     scene = image_io.read_image(workdir["image"])
     image = tmp_path / "scene.avif"
     bgr = np.ascontiguousarray(scene[:, :, ::-1])
     params = []
-    if depth == "444_bt709_limited":
+    if depth == "grid_exif6":
+        image.write_bytes(ar.grid_from_rgb(
+            scene, 2, 2, 64, 72, exif=ar.tiff_orientation(6), quality=70,
+            speed=8))
+        form = avif.read_image(image.read_bytes())
+        assert form.grid == (2, 2, 140, 100) and form.exif is not None
+        assert image_io.image_size(image) == (140, 100)
+    elif depth == "sequence":
+        image.write_bytes(ar.pillow_avis(
+            [scene, scene[::-1], scene[:, ::-1]], quality=80))
+        assert avif.read_image(image.read_bytes()).form == "sequence"
+    elif depth == "444_bt709_limited":
         image.write_bytes(ar.avif_encode(
             ar.planes_of(scene, 8, ar.YUV444, 1, 0), 8, ar.YUV444, 60, 6,
             matrix=1, full_range=0, primaries=1, transfer=1))
@@ -731,7 +746,7 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     paths["cli_predict"] = smoke.phase_cli_predict(
         cli, image_io, visualize, synthetic, decode, kernels, tmp_path,
         "cpu")
-    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 12}
+    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 14}
     assert restored == (runner.KeypointEvaluator, runner.evaluate_batched,
                         predictor.Predictor.predict, cli._load_records)
 
@@ -784,10 +799,10 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
                      "cli_predict_gif_output": 1,
                      "cli_predict_jp2_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
-    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 111
-    assert codec["webp"]["fixtures_written"] == 111
+    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 113
+    assert codec["webp"]["fixtures_written"] == 113
     assert codec["tiff_hdr"]["fixtures"] == 30
-    assert codec["gif"]["fixtures"] == 111
+    assert codec["gif"]["fixtures"] == 113
     assert codec["gif"]["times"]["gif"]["c_encode_ms"] > 0
     j2k = codec["jpeg2000"]
     assert sorted(j2k["fixtures"]) == ["j2k_irr_rpcl_layers3_37x53.j2k",
@@ -803,11 +818,11 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
     assert codec["encode"]["c_encode_ms"] > 0
     jp2 = codec["jpeg2000_write"]
-    assert jp2["fixtures"] == 75 and len(jp2["boxes_only"]) == 36
+    assert jp2["fixtures"] == 77 and len(jp2["boxes_only"]) == 36
     assert len(jp2["plain_fixtures"]) >= 4
     assert jp2["times"]["photo"]["c_encode_ms"] > 0
     avif = codec["avif"]
-    assert len(avif["fixtures"]) == 16 and avif["build_s"] > 0
+    assert len(avif["fixtures"]) == 18 and avif["build_s"] > 0
     assert all(avif["tools"][n][c] > 0 and avif["tools"][n][
         "tiles_and_filters_ms"] > 0 for n, c in smoke.AVIF_TOOLS.items())
     assert avif["plain_on"] == ["avif_odd_33x17.avif",

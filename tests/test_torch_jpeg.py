@@ -832,9 +832,10 @@ def test_mode_fixtures_read_as_cv2_reads_them(tmp_path, name):
 
 
 def test_other_formats_name_themselves(tmp_path):
-    """What is still refused: AVIF image sequences (the `avis` brand;
-    still AVIF images are read: tests/test_torch_avif.py), OpenEXR (cv2
-    is built without it) and RIFF files other than WebP, each by its name
+    """What is still refused: an `avis` ftyp box with no moov box behind
+    it (AVIF stills, grids and image sequences are read:
+    tests/test_torch_avif*.py), OpenEXR (cv2 is built without it) and
+    RIFF files other than WebP, each by its name
     (WebP, Radiance HDR, JPEG-in-TIFF and JPEG 2000 are read:
     tests/test_torch_webp.py, test_torch_hdr.py,
     test_torch_tiff_codecs.py, test_torch_jpeg2000.py). An `avif` ftyp
@@ -882,8 +883,10 @@ def test_committed_digests_equal_cv2_and_the_port():
     # 3,000 more for the 10- and 12-bit AVIF fixtures (2,384 bytes
     # together, rounded up to the next 1,000), and 5,494 more for the four
     # AVIF fixtures of other encoders (4:4:4 lossy, 4:2:2, 10-bit 4:2:2,
-    # limited-range BT.709: 3,802 bytes and their digests' lines).
-    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) <= 914_494
+    # limited-range BT.709: 3,802 bytes and their digests' lines), and
+    # 3,455 more for the two AVIF container fixtures (a grid with an Exif
+    # item, a sequence: 2,608 bytes and their digests' lines).
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) <= 917_949
     for name, want in digests.items():
         path = FIXTURES / name
         rgb = cv2.imread(str(path), cv2.IMREAD_COLOR)[:, :, ::-1]
