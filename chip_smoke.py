@@ -29,8 +29,10 @@ on a 480x640 PNG, read back (phase `cli_predict`, one launch),
 an Exif APP1 of orientation 6 (read turned), the committed gray JPEG
 2000 file, the photo as cv2.imwrite writes it in AVIF, a crop of it
 cv2.imwrite writes in lossless AVIF (quality 100), one it writes in
-10-bit AVIF (IMWRITE_AVIF_DEPTH 10) and a limited-range BT.709 AVIF
-crop from libavif's encoder (one launch each).
+10-bit AVIF (IMWRITE_AVIF_DEPTH 10), a limited-range BT.709 AVIF
+crop from libavif's encoder, the container forms (a grid, a sequence)
+and libaom's film grain and segmentation (a `film-grain-test` still, an
+`aq-mode=1` sequence) (one launch each).
 Before them, phase `image_codec`
 builds the host C libraries (`csrc/image_codec.c`, `csrc/webp.c`,
 `csrc/jpeg2000.c`, `csrc/av1.c`) and holds their JPEG, WebP, TIFF (JPEG,
@@ -1368,10 +1370,13 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
     of 2x2 cells of 64x64 cropped to 128x96 with an Exif item of
     orientation 6 (the libavif encoder's; read turned to 96x128, and
     `image_size` gives the turned sides) and a 3-frame Pillow image
-    sequence of 48x64 (its first frame read), each read to cv2's digest,
+    sequence of 48x64 (its first frame read), a 96x128 crop with libaom's
+    film grain (`film-grain-test` 1) and a 2-frame `aq-mode=1` sequence
+    of 48x64 (its first frame segmented), each read to cv2's digest,
     one B1 launch, people printed; the grid's and the sequence's form,
-    and the median host time of their decode, reported. Returns B1's
-    launches."""
+    and the median host time of their decode, and the grain and the
+    segmentation reached (the C decoder's counters), reported. Returns
+    B1's launches."""
     scene = synthetic.make_dataset(1, img_h=480, img_w=640, seed=7)[0]
     image_path, out_path = directory / "scene.png", directory / "drawn.png"
     image_io.write_png(image_path, scene["image"])
@@ -1584,6 +1589,18 @@ def phase_cli_predict(cli, image_io, visualize, synthetic, decode, kernels,
                 form=form.form, grid=form.grid, orientation=turned,
                 host_decode_ms=median_ms(
                     lambda: image_io.decode_image(data, name), 20))
+        if name in AVIF_GRAIN:
+            data = avif_path.read_bytes()
+            frame = image_io.avif.read_image(data).frame
+            stats = image_io.avif.decode_planes_c(frame)[3]
+            counter = AVIF_GRAIN[name]
+            reached = int(stats[image_io.avif.STAT_NAMES.index(counter)])
+            if not reached:
+                raise AssertionError(f"cli_predict: {name} reaches no "
+                                     f"{counter}")
+            avif_rows[name].update({counter: reached, "host_decode_ms":
+                                    median_ms(lambda: image_io.decode_image(
+                                        data, name), 20)})
     emit({"phase": "cli_predict", "card": card, "image": [480, 640],
           "persons": len(people), "keypoint_centres_drawn": len(centres),
           "changed_pixels": int((drawn != image).any(-1).sum()),
@@ -1626,14 +1643,24 @@ AVIF_FORMS = {"avif_444_lossy_96x128.avif": (0, 0, 8, 6, 1),
 AVIF_CONTAINERS = {"avif_grid2x2_exif6_128x96.avif": ("grid", (2, 2, 96, 128),
                                                       6),
                    "avif_sequence3_48x64.avif": ("sequence", None, 1)}
+# libaom's film grain and segmentation (the wheel's libavif encoder with
+# `film-grain-test` 1 and 15, and `aq-mode=1`): the counter (csrc/av1.c's)
+# that shows each reached.
+AVIF_GRAIN_STILL = "avif_grain_96x128.avif"
+AVIF_SEGMENTED = "avif_aq_sequence2_48x64.avif"
+AVIF_GRAIN = {AVIF_GRAIN_STILL: "grain_frames",
+              "avif_grain_csfl_10bit_444_64x80.avif": "grain_blocks",
+              AVIF_SEGMENTED: "seg_feature_alt_q"}
 AVIF_PREDICT_FILES = (AVIF_PREDICT, AVIF_LOSSLESS, AVIF_10BIT, AVIF_BT709,
-                      *AVIF_CONTAINERS)
+                      *AVIF_CONTAINERS, AVIF_GRAIN_STILL, AVIF_SEGMENTED)
 # The AVIF fixtures of the tools cv2's files reach at quality 100 and at
-# speeds below 9, and the counter (csrc/av1.c's) that shows each reached.
+# speeds below 9, and libaom's film grain and segmentation, and the
+# counter (csrc/av1.c's) that shows each reached.
 AVIF_TOOLS = {AVIF_LOSSLESS: "lossless_blocks",
               "avif_photo_speed2_480x640.avif": "lr_wiener",
               "avif_palette_speed6_64x96.avif": "palette_y",
-              "avif_intrabc_speed6_200x300.avif": "intrabc_blocks"}
+              "avif_intrabc_speed6_200x300.avif": "intrabc_blocks",
+              **AVIF_GRAIN}
 
 
 def sha256(a: np.ndarray) -> str:
@@ -2114,10 +2141,13 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
     a sample; and the libavif encoder's 4:4:4 lossy, 4:2:2 with CDEF's
     chroma filter, 10-bit 4:2:2 and limited-range BT.709 crops; and the
     container forms: a grid with an Exif item of orientation 6, read
-    turned, and a Pillow image sequence) decoded
+    turned, and a Pillow image sequence; and libaom's film grain and
+    segmentation: `film-grain-test` 1 and 15 stills, an `aq-mode=1`
+    sequence) decoded
     by the C library to cv2's digest, and by the plain decoder
     (`utils/av1.py`) too on the two smallest, on the smaller high-depth
-    file and on the smallest of the other encoders' files. Each tool
+    file, on the smallest of the other encoders' files and on the
+    smallest film grain or segmentation file. Each tool
     file reaches its tool (`AVIF_TOOLS`, the C decoder's counters), each
     high-depth file holds its depth, each other encoder's file its form
     (`AVIF_FORMS`; the 4:2:2 CDEF file filters chroma). Times on the host
@@ -2128,9 +2158,12 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
     by side, the C decode of the high-depth files, of the other
     encoders' forms (`forms`) and of the 8-bit photo again (`depths`:
     microseconds a pixel), so that a cost of the 16-bit samples to 8-bit
-    files, or of a form, shows."""
+    files, or of a form, shows; for the film grain and segmentation files
+    (`grain`) the C decode beside the photo's, the tiles and filters (the
+    grain included), the grain pass alone (`avif.film_grain_c` on the
+    planes before it) and its share of the C decode."""
     names = sorted(n for n in digests if n.endswith(".avif"))
-    if len(names) != 18 or not set(AVIF_TOOLS) | set(AVIF_DEPTHS) | set(
+    if len(names) != 21 or not set(AVIF_TOOLS) | set(AVIF_DEPTHS) | set(
             AVIF_FORMS) | set(AVIF_CONTAINERS) <= set(names):
         raise AssertionError(f"image_codec: AVIF fixtures {names}")
     files = {n: (FIXTURES / n).read_bytes() for n in names}
@@ -2140,7 +2173,8 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
 
     smallest = sorted(names, key=pixels)[:2]
     plain_on = smallest + [min(AVIF_DEPTHS, key=pixels),
-                           min(AVIF_FORMS, key=pixels)]
+                           min(AVIF_FORMS, key=pixels),
+                           min(AVIF_GRAIN, key=pixels)]
     times = {}
     for name in names:
         data, want = files[name], digests[name]
@@ -2201,12 +2235,33 @@ def avif_checks(image_io, digests: dict, build_s: float) -> dict:
                        "cdef_blocks": cdef_blocks, "c_decode_ms": ms,
                        "c_decode_us_per_pixel": 1e3 * ms / pixels(name)}
     forms[AVIF_PREDICT] = depths[AVIF_PREDICT]
+    grain = {AVIF_PREDICT: depths[AVIF_PREDICT]}
+    for name in AVIF_GRAIN:
+        frame = image_io.avif.read_image(files[name]).frame
+        ms = times[name]["c_decode_ms"]
+        row = {"c_decode_ms": ms,
+               "c_decode_us_per_pixel": 1e3 * ms / pixels(name),
+               "tiles_and_filters_ms": tools[name]["tiles_and_filters_ms"],
+               "grain_ms": 0.0, "grain_share_of_c_decode": 0.0}
+        if frame.header.grain is not None:
+            y, u, v, _ = image_io.avif.decode_planes_c(frame, grain=False)
+            u = np.zeros_like(y) if u is None else u
+
+            def add_grain():
+                image_io.avif.film_grain_c(frame, y.copy(), u.copy(),
+                                           (v if v is not None else u).copy())
+
+            row["grain_ms"] = median_ms(add_grain, 20)
+            row["grain_share_of_c_decode"] = row["grain_ms"] / ms
+        grain[name] = row
     return {"build_s": build_s, "fixtures": times,
             "photo_tiles_and_filters_ms": tiles_ms, "tools": tools,
-            "depths": depths, "forms": forms, "plain_on": plain_on,
+            "depths": depths, "forms": forms, "grain": grain,
+            "plain_on": plain_on,
             "equal": "C = cv2's digest on every fixture; plain = C on the "
-                     "two smallest, the smaller high-depth file and the "
-                     "smallest of the other encoders' files"}
+                     "two smallest, the smaller high-depth file, the "
+                     "smallest of the other encoders' files and the "
+                     "smallest film grain or segmentation file"}
 
 
 # The plain JPEG 2000 writer runs on the fixtures up to this many pixels.

@@ -1,9 +1,10 @@
 /* Host AV1 intra-frame decoder of the port, in plain C99 with no library:
  * the one frame of an AVIF image as libaom 3.14.1 decodes it under
  * libavif 1.4.2 and OpenCV 5.0, for the tools libaom's encoder uses at
- * any of cv2's depths, qualities and speeds (4:2:0, monochrome or
- * lossless 4:4:4 key frames of 8, 10 or 12 bits a sample with 64x64 or
- * 128x128 superblocks, without segmentation, superres or film grain).
+ * any of cv2's depths, qualities and speeds and that other writers use
+ * (key frames of 8, 10 or 12 bits a sample at 4:0:0, 4:2:0, 4:2:2 or
+ * 4:4:4, lossy or lossless, with 64x64 or 128x128 superblocks,
+ * segmentation and film grain, without superres).
  * The planes hold 16 bits a sample at every depth (AV1_BIT_DEPTH in the
  * plan); the depth's terms are libaom's high-bit-depth ones: the
  * quantiser tables, the coefficient clamp at 2^(bd+7), the transform
@@ -26,25 +27,32 @@
  *
  * av1_decode_frame reads each tile (the symbol decoder and CDF adaptation
  * of libaom's entropy decoder, restoration units, partition, intra mode
- * info, palette and its colour-index maps, intra block copy and its DV,
- * CDEF indices, delta q and delta lf, tx size and the transform tree, tx
- * type, coefficients), predicts (DC, directional with edge filtering and
- * upsampling, smooth, Paeth, filter intra, chroma from luma, palette,
- * intra block copy), dequantises (with the quantiser matrices) and adds
- * the inverse transform (libaom's av1_inv_txfm2d_add_c: its row and
- * column clamps and its 16-bit stage clamps; the Walsh-Hadamard transform
- * in lossless frames), then runs the deblocking filter, CDEF and loop
- * restoration over the frame. It writes the Y plane (height x width) and,
+ * info, segment ids (spatially predicted, read before or after the skip
+ * flag; SEG_LVL_SKIP), palette and its colour-index maps, intra block
+ * copy and its DV, CDEF indices, delta q and delta lf, tx size and the
+ * transform tree, tx type, coefficients), predicts (DC, directional with
+ * edge filtering and upsampling, smooth, Paeth, filter intra, chroma from
+ * luma, palette, intra block copy), dequantises (at the block's
+ * segment's qindex, with the quantiser matrices) and adds the inverse
+ * transform (libaom's av1_inv_txfm2d_add_c: its row and column clamps
+ * and its 16-bit stage clamps; the Walsh-Hadamard transform in lossless
+ * segments), then runs the deblocking filter (with each segment's
+ * SEG_LVL_ALT_LF_* levels), CDEF and loop restoration over the frame.
+ * It writes the Y plane (height x width) and,
  * unless monochrome, U and V ((height+1)/2 x (width+1)/2 at 4:2:0, height
  * x width at 4:4:4), uint8 at 8 bits, else uint16. Coefficients are kept
  * in libaom's column-major order (index = column * height + row), which
  * its scan tables and context offsets assume.
  *
- * Returns 0, 1 with a message in err (a damaged tile, or a DV that
- * libaom's av1_is_dv_valid rejects, as libaom reports either frame
- * corrupt), 2 when out of
+ * Returns 0, 1 with a message in err (a damaged tile, a DV that
+ * libaom's av1_is_dv_valid rejects or a segment id past the last active
+ * one, as libaom reports each frame corrupt), 2 when out of
  * memory. stats (AV1_STAT_* counters) records which tools the stream
  * reached.
+ *
+ * av1_film_grain adds a frame's film grain to those output planes as
+ * libaom 3.14.1's av1_add_film_grain adds it to the frames its decoder
+ * outputs (the parameters as G_* int32 fields, utils/avif.py grain_plan).
  */
 #include <stdint.h>
 #include <stdio.h>
@@ -79,7 +87,14 @@ enum {
   AV1_NO_LR = 87,   /* 1: the frame before loop restoration (a stage for the
                        tests) */
   AV1_BIT_DEPTH = 88, /* 8, 10 or 12 */
-  AV1_COL_STARTS = 89, /* 65 MI columns */
+  AV1_SEG_ENABLED = 89, /* segmentation_enabled */
+  AV1_SEG_PRESKIP = 90, /* SegIdPreSkip */
+  AV1_SEG_LAST_ACTIVE = 91, /* LastActiveSegId */
+  AV1_SEG_MASK = 92, /* 8 segments: bit j, feature j enabled */
+  AV1_SEG_DATA = 100, /* 8 x 8: FeatureData[segment][feature] */
+  AV1_SEG_LOSSLESS = 164, /* 8: LosslessArray */
+  AV1_SEG_QINDEX = 172, /* 8: get_qindex(1, segment) */
+  AV1_COL_STARTS = 180, /* 65 MI columns */
   AV1_ROW_STARTS = AV1_COL_STARTS + 65, /* 65 MI rows */
   AV1_TILES = AV1_ROW_STARTS + 65 /* offset and size of each tile */
 };
@@ -102,8 +117,19 @@ enum {
   AV1_STAT_LR_NONE, AV1_STAT_LR_WIENER, AV1_STAT_LR_SGRPROJ,
   AV1_STAT_LR_SWITCHABLE, AV1_STAT_INTRABC_BLOCKS, AV1_STAT_INTRABC_HALFPEL,
   AV1_STAT_VARTX,
+  AV1_STAT_SEG_FRAMES, /* frames with segmentation enabled */
+  AV1_STAT_SEGMENT, /* 8: blocks of each segment id */
+  AV1_STAT_SEG_FEATURE = AV1_STAT_SEGMENT + 8, /* 8: blocks whose segment
+                                                  has feature j enabled */
+  AV1_STAT_SEG_PREDICTED = AV1_STAT_SEG_FEATURE + 8, /* skipped blocks that
+                                                        take the predicted id */
+  AV1_STAT_SEG_LOSSLESS, /* lossless-segment blocks of a lossy frame */
+  AV1_STAT_GRAIN_FRAMES, /* frames whose film grain was added */
+  AV1_STAT_GRAIN_BLOCKS, /* 32x32 luma blocks of film grain */
   AV1_NSTATS
 };
+enum { SEG_LVL_ALT_Q, SEG_LVL_ALT_LF_Y_V, SEG_LVL_REF_FRAME = 5,
+       SEG_LVL_SKIP };
 enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 
 enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
@@ -178,6 +204,7 @@ typedef struct {
   uint16_t switchable_restore[4], wiener_restore[3], sgrproj_restore[3];
   uint16_t intrabc[3], txfm_partition[21][3], inter_ext_tx[4][4][17];
   uint16_t dv[143]; /* libaom's nmv_context: the DV's CDFs (DV_* below) */
+  uint16_t spatial_seg[3][9];
 } Cdfs;
 
 /* Offsets in nmv_context: the joints, then per component (at DV_COMP +
@@ -229,6 +256,7 @@ static void init_cdfs(Cdfs *c, int base_q) {
   CP(c->txfm_partition, av1_txfm_partition_cdf);
   CP(c->inter_ext_tx, av1_inter_ext_tx_cdf);
   CP(c->dv, av1_nmv_context);
+  CP(c->spatial_seg, av1_spatial_pred_seg_cdf);
 #undef CP
 }
 
@@ -383,7 +411,7 @@ typedef struct {
 } LrUnit;
 
 typedef struct {
-  int width, height, mono, ssx, ssy, planes, lossless;
+  int width, height, mono, ssx, ssy, planes, lossless; /* CodedLossless */
   int bd; /* the bit depth: 8, 10 or 12 */
   int sb4, sb_size; /* the superblock: its side in 4x4 units, its size */
   int mi_cols, mi_rows, mi_stride;
@@ -400,6 +428,7 @@ typedef struct {
   int16_t *mvs;        /* 2 a unit: its DV (row, column) in 1/8 sample */
   uint8_t *written;    /* the unit is decoded */
   uint8_t *tx_type_mi; /* luma transform types */
+  uint8_t *seg_map;    /* segment ids */
   int8_t *cdef_idx; /* per 64x64 */
   int cdef_stride;
   /* per 4x4 unit of each plane: the transform size for deblocking */
@@ -430,6 +459,7 @@ typedef struct {
   int avail_u, avail_l, avail_u_chroma, avail_l_chroma;
   int skip, y_mode, uv_mode, angle_y, angle_uv, use_filter_intra,
       filter_mode, cfl_u, cfl_v, tx_size, read_deltas;
+  int segment_id, lossless; /* the block's segment and LosslessArray[it] */
   int max_luma_w, max_luma_h;
   /* the current block's palettes and colour-index maps (Y, UV) */
   int pal_size[2];
@@ -1282,6 +1312,19 @@ static const int qm_offset[19] = {
     0, 16, 80, 336, 336, 1360, 1392, 1424, 1552, 1680, 2192, 336, 336,
     2704, 2768, 2832, 3088, 1680, 2192};
 
+static int seg_feature(const Frame *f, int segment, int feature) {
+  return f->hdr[AV1_SEG_ENABLED] && (f->hdr[AV1_SEG_MASK + segment] >> feature & 1);
+}
+
+/* get_qindex(0, segment_id): the block's qindex for dequantisation. */
+static int block_qindex(const Tile *t) {
+  const Frame *f = t->f;
+  if (seg_feature(f, t->segment_id, SEG_LVL_ALT_Q))
+    return clip3(0, 255, t->current_q +
+                 f->hdr[AV1_SEG_DATA + 8 * t->segment_id + SEG_LVL_ALT_Q]);
+  return t->current_q;
+}
+
 /* Reads one transform block's coefficients into t->coef (column-major,
  * dequantised); returns the eob. */
 static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
@@ -1344,14 +1387,14 @@ static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
     const int inter = t->use_intrabc;
     if (plane == 0 && inter) {
       const int set = tx_set_type_inter(tx, f->hdr[AV1_REDUCED_TX_SET]);
-      if (set > 0 && t->current_q > 0) {
+      if (set > 0 && f->hdr[AV1_SEG_QINDEX + t->segment_id] > 0) {
         const int eset = set == 1 ? 3 : set == 4 ? 2 : 1;
         int sym = read_symbol(&t->ec, cdf->inter_ext_tx[eset][tx_sqr[tx]], num_ext_tx_set[set]);
         tx_type = av1_ext_tx_inv[set][sym];
       }
     } else if (plane == 0) {
       const int set = tx_set_type(tx, f->hdr[AV1_REDUCED_TX_SET]);
-      if (set > 0 && t->current_q > 0) {
+      if (set > 0 && f->hdr[AV1_SEG_QINDEX + t->segment_id] > 0) {
         const int eset = set == 3 ? 1 : 2;
         const int mode = t->use_filter_intra ? fimode_to_intradir[t->filter_mode]
                                              : t->y_mode;
@@ -1370,7 +1413,7 @@ static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
         tx_type = mode_to_txfm[t->uv_mode == UV_CFL_PRED ? DC_PRED : t->uv_mode];
       if (!av1_ext_tx_used[set][tx_type]) tx_type = DCT_DCT;
     }
-    if (tx_sqr_up[tx] > TX_32X32 || f->lossless) tx_type = DCT_DCT;
+    if (tx_sqr_up[tx] > TX_32X32 || t->lossless) tx_type = DCT_DCT;
     f->stats[AV1_STAT_TX_TYPE + tx_type]++;
     const int cls = tx_class_of(tx_type);
     const int16_t *scan = av1_scan_data + av1_scan_offset[tx][tx_type];
@@ -1463,12 +1506,12 @@ static int read_coeffs(Tile *t, int plane, int x4, int y4, int tx,
       *lv = (uint8_t)level;
     }
     /* signs, Golomb remainders and dequantisation */
-    const int qm_level = f->hdr[AV1_USING_QM] && !f->lossless
+    const int qm_level = f->hdr[AV1_USING_QM] && !t->lossless
         ? f->hdr[plane == 0 ? AV1_QM_Y : plane == 1 ? AV1_QM_U : AV1_QM_V] : 15;
     const uint8_t *iqm = NULL;
     if (qm_level < 15 && tx_type < IDTX)
       iqm = av1_iwt_matrix[qm_level][plane > 0] + qm_offset[tx];
-    const int q = t->current_q;
+    const int q = block_qindex(t);
     /* Dc_Qlookup and Ac_Qlookup at the stream's depth */
     const int16_t *dcq = f->bd == 8 ? av1_dc_qlookup
                          : f->bd == 10 ? av1_dc_qlookup_10 : av1_dc_qlookup_12;
@@ -2083,12 +2126,61 @@ static void palette_tokens(Tile *t) {
   }
 }
 
+/* libaom's av1_neg_deinterleave */
+static int neg_deinterleave(int diff, int ref, int max) {
+  if (!ref) return diff;
+  if (ref >= max - 1) return max - diff - 1;
+  if (2 * ref < max) {
+    if (diff <= 2 * ref) return diff & 1 ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+    return diff;
+  }
+  if (diff <= 2 * (max - ref - 1))
+    return diff & 1 ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+  return max - (diff + 1);
+}
+
+/* read_segment_id of an intra frame: the id predicted from the above,
+ * left and above-left ids (av1_get_spatial_seg_pred), taken as is by a
+ * skipped block, else coded relative to it. */
+static void read_segment_id(Tile *t, int skip) {
+  Frame *f = t->f;
+  const int r = t->mi_row, c = t->mi_col;
+  const int ul = t->avail_u && t->avail_l ? MI(f, seg_map, r - 1, c - 1) : -1;
+  const int u = t->avail_u ? MI(f, seg_map, r - 1, c) : -1;
+  const int l = t->avail_l ? MI(f, seg_map, r, c - 1) : -1;
+  const int ctx = ul < 0 ? 0 : ul == u && ul == l ? 2
+                  : ul == u || ul == l || u == l ? 1 : 0;
+  const int pred = u == -1 ? (l == -1 ? 0 : l) : l == -1 ? u : ul == u ? u : l;
+  if (skip) {
+    t->segment_id = pred;
+    f->stats[AV1_STAT_SEG_PREDICTED]++;
+    return;
+  }
+  const int last = f->hdr[AV1_SEG_LAST_ACTIVE];
+  const int coded = read_symbol(&t->ec, t->cdf.spatial_seg[ctx], 8);
+  t->segment_id = neg_deinterleave(coded, pred, last + 1);
+  if (t->segment_id < 0 || t->segment_id > last)
+    fail(f, "AV1: a segment id past the last active segment (libaom "
+            "reports a corrupt frame)");
+}
+
 static void intra_frame_mode_info(Tile *t) {
   Frame *f = t->f;
   Cdfs *cdf = &t->cdf;
-  int ctx = (t->avail_u ? MI(f, skip, t->mi_row - 1, t->mi_col) : 0) +
-            (t->avail_l ? MI(f, skip, t->mi_row, t->mi_col - 1) : 0);
-  t->skip = read_symbol(&t->ec, cdf->skip[ctx], 2);
+  const int seg = f->hdr[AV1_SEG_ENABLED], preskip = f->hdr[AV1_SEG_PRESKIP];
+  t->segment_id = 0;
+  if (seg && preskip) read_segment_id(t, 0);
+  if (f->failed) return;
+  if (seg_feature(f, t->segment_id, SEG_LVL_SKIP)) {
+    t->skip = 1;
+  } else {
+    int ctx = (t->avail_u ? MI(f, skip, t->mi_row - 1, t->mi_col) : 0) +
+              (t->avail_l ? MI(f, skip, t->mi_row, t->mi_col - 1) : 0);
+    t->skip = read_symbol(&t->ec, cdf->skip[ctx], 2);
+  }
+  if (seg && !preskip) read_segment_id(t, t->skip);
+  if (f->failed) return;
+  t->lossless = f->hdr[AV1_SEG_LOSSLESS + t->segment_id];
   read_cdef(t);
   read_delta_qindex(t);
   read_delta_lf(t);
@@ -2114,7 +2206,7 @@ static void intra_frame_mode_info(Tile *t) {
   if (t->has_chroma) {
     const int bw = 4 * bw4_of[t->bsize], bh = 4 * bh4_of[t->bsize];
     /* libaom's is_cfl_allowed */
-    const int cfl_allowed = f->lossless
+    const int cfl_allowed = t->lossless
         ? plane_bsize(t->bsize, f->ssx, f->ssy) == BLOCK_4X4
         : (bw > bh ? bw : bh) <= 32;
     t->uv_mode = read_symbol(&t->ec, cdf->uv[cfl_allowed][t->y_mode], 13 + cfl_allowed);
@@ -2165,16 +2257,16 @@ static void read_tx_size(Tile *t) {
   Frame *f = t->f;
   const int max_rect = av1_max_txsize_rect_lookup[t->bsize];
   const int bw4 = bw4_of[t->bsize], bh4 = bh4_of[t->bsize];
-  t->tx_size = f->lossless ? TX_4X4 : max_rect;
+  t->tx_size = t->lossless ? TX_4X4 : max_rect;
   if (t->use_intrabc) {
     memset(t->inter_tx, t->tx_size, sizeof(t->inter_tx));
-    if (f->hdr[AV1_TX_MODE_SELECT] && t->bsize > BLOCK_4X4 && !t->skip && !f->lossless) {
+    if (f->hdr[AV1_TX_MODE_SELECT] && t->bsize > BLOCK_4X4 && !t->skip && !t->lossless) {
       for (int row = 0; row < bh4; row += 1 << (tx_hlog2[max_rect] - 2))
         for (int col = 0; col < bw4; col += 1 << (tx_wlog2[max_rect] - 2))
           read_var_tx(t, max_rect, 0, row, col);
       return;
     }
-  } else if (t->bsize > BLOCK_4X4 && f->hdr[AV1_TX_MODE_SELECT]) {
+  } else if (t->bsize > BLOCK_4X4 && f->hdr[AV1_TX_MODE_SELECT] && !t->lossless) {
     const int max_w = 1 << tx_wlog2[max_rect], max_h = 1 << tx_hlog2[max_rect];
     int aw = t->avail_u ? neighbour_tx_side(t, t->mi_row - 1, t->mi_col, 1) : 0;
     int lh = t->avail_l ? neighbour_tx_side(t, t->mi_row, t->mi_col - 1, 0) : 0;
@@ -2244,7 +2336,7 @@ static void transform_block(Tile *t, int plane, int base_x, int base_y,
     int eob = read_coeffs(t, plane, start_x >> 2, start_y >> 2, tx, &tx_type);
     if (f->failed) return;
     uint16_t *dst = f->frame[plane] + start_y * f->stride[plane] + start_x;
-    if (eob > 0 && f->lossless)
+    if (eob > 0 && t->lossless)
       av1_iwht4x4_add_hbd(t->coef, dst, f->stride[plane], f->bd);
     else if (eob > 0)
       av1_inverse_transform_add_hbd(t->coef, tx, tx_type, dst, f->stride[plane],
@@ -2286,7 +2378,7 @@ static void residual(Tile *t) {
   for (int cy = 0; cy < hchunks; cy++)
     for (int cx = 0; cx < wchunks; cx++) {
       if (t->use_intrabc) { /* luma: the transform tree */
-        const int tx = f->lossless ? TX_4X4 : av1_max_txsize_rect_lookup[t->bsize];
+        const int tx = t->lossless ? TX_4X4 : av1_max_txsize_rect_lookup[t->bsize];
         const int sw = 1 << (tx_wlog2[tx] - 2), sh = 1 << (tx_hlog2[tx] - 2);
         const int ye = bh4 < (cy + 1) << 4 ? bh4 : (cy + 1) << 4;
         const int xe = bw4 < (cx + 1) << 4 ? bw4 : (cx + 1) << 4;
@@ -2297,7 +2389,7 @@ static void residual(Tile *t) {
           }
       }
       for (int plane = t->use_intrabc; plane < 1 + t->has_chroma * 2; plane++) {
-        const int tx = f->lossless ? TX_4X4
+        const int tx = t->lossless ? TX_4X4
                        : plane ? uv_tx_size(t->bsize, f->ssx, f->ssy) : t->tx_size;
         const int step_x = 1 << (tx_wlog2[tx] - 2), step_y = 1 << (tx_hlog2[tx] - 2);
         const int sx = plane ? f->ssx : 0, sy = plane ? f->ssy : 0;
@@ -2351,7 +2443,13 @@ static void decode_block(Tile *t, int r, int c, int bsize) {
   if (f->failed) return;
   f->stats[AV1_STAT_Y_MODE + t->y_mode]++;
   if (t->has_chroma) f->stats[AV1_STAT_UV_MODE + t->uv_mode]++;
-  f->stats[AV1_STAT_LOSSLESS_BLOCKS] += f->lossless;
+  f->stats[AV1_STAT_LOSSLESS_BLOCKS] += t->lossless;
+  if (f->hdr[AV1_SEG_ENABLED]) {
+    f->stats[AV1_STAT_SEGMENT + t->segment_id]++;
+    for (int j = 0; j < 8; j++)
+      f->stats[AV1_STAT_SEG_FEATURE + j] += seg_feature(f, t->segment_id, j);
+    f->stats[AV1_STAT_SEG_LOSSLESS] += t->lossless && !f->lossless;
+  }
   palette_tokens(t);
   read_tx_size(t);
   if (t->use_intrabc && predict_intrabc(t)) return;
@@ -2364,6 +2462,7 @@ static void decode_block(Tile *t, int r, int c, int bsize) {
       MI(f, skip, r + y, c + x) = (uint8_t)t->skip;
       MI(f, tx_size_mi, r + y, c + x) = (uint8_t)t->tx_size;
       MI(f, mi_size, r + y, c + x) = (uint8_t)bsize;
+      MI(f, seg_map, r + y, c + x) = (uint8_t)t->segment_id;
       const int at = (r + y) * f->mi_stride + c + x;
       for (int k = 0; k < 4; k++) f->delta_lf[at * 4 + k] = (int8_t)t->delta_lf[k];
       f->pal_size[at * 2] = (uint8_t)t->pal_size[0];
@@ -2641,6 +2740,9 @@ static int filter_level(const Frame *f, int row, int col, int plane, int pass) {
     delta = f->hdr[AV1_DELTA_LF_MULTI] ? d[i] : d[0];
   }
   int lvl = clip3(0, 63, delta + f->hdr[AV1_LF_LEVEL + i]);
+  const int segment = MI(f, seg_map, row, col);
+  if (seg_feature(f, segment, SEG_LVL_ALT_LF_Y_V + i))
+    lvl = clip3(0, 63, lvl + f->hdr[AV1_SEG_DATA + 8 * segment + SEG_LVL_ALT_LF_Y_V + i]);
   if (f->hdr[AV1_LF_DELTA_ENABLED]) {
     const int shift = lvl >> 5;
     lvl += f->hdr[AV1_LF_REF_DELTAS + 0] * (1 << shift);
@@ -3185,6 +3287,234 @@ static int loop_restoration(Frame *f, uint16_t *const *pre) {
 
 /* ------------------------------------------------------------ the frame */
 
+/* ------------------------------------------------------- film grain */
+
+/* The grain parameters (utils/avif.py grain_plan): libaom's
+ * aom_film_grain_t with the AR coefficients and the multipliers less 128
+ * and the offsets less 256. */
+enum {
+  G_SEED, G_NUM_Y, G_Y_POINTS /* 14 x 2 */, G_NUM_CB = G_Y_POINTS + 28,
+  G_CB_POINTS /* 10 x 2 */, G_NUM_CR = G_CB_POINTS + 20,
+  G_CR_POINTS /* 10 x 2 */, G_CSFL = G_CR_POINTS + 20, G_SCALING_SHIFT,
+  G_AR_LAG, G_AR_Y /* 24 */, G_AR_CB = G_AR_Y + 24 /* 25 */,
+  G_AR_CR = G_AR_CB + 25 /* 25 */, G_AR_SHIFT = G_AR_CR + 25,
+  G_GRAIN_SCALE_SHIFT, G_CB_MULT, G_CB_LUMA_MULT, G_CB_OFFSET, G_CR_MULT,
+  G_CR_LUMA_MULT, G_CR_OFFSET, G_OVERLAP, G_CLIP, G_MC_IDENTITY, G_N
+};
+
+static int grain_bits(uint16_t *r, int n) {
+  const unsigned v = *r;
+  const unsigned bit = (v ^ (v >> 1) ^ (v >> 3) ^ (v >> 12)) & 1;
+  *r = (uint16_t)((v >> 1) | (bit << 15));
+  return (*r >> (16 - n)) & ((1 << n) - 1);
+}
+
+/* A grain template (h x w, stride 82): Gaussian_Sequence drawn from the
+ * seeded register, rounded down by shift, then the auto-regressive
+ * filter over rows 3.. and columns 3..w-4 (for chroma, with the
+ * co-located luma template's average as the last input). */
+static void grain_template(int16_t *g, int h, int w, uint16_t seed, int shift,
+                           const int32_t *coef, int lag, int ar_shift, int lo,
+                           int hi, const int16_t *luma, int ssx, int ssy) {
+  uint16_t r = seed;
+  for (int i = 0; i < h; i++)
+    for (int j = 0; j < w; j++)
+      g[i * 82 + j] = (int16_t)((av1_gaussian_sequence[grain_bits(&r, 11)] +
+                                 ((1 << shift) >> 1)) >> shift);
+  for (int i = 3; i < h; i++)
+    for (int j = 3; j < w - 3; j++) {
+      int sum = 0, pos = 0;
+      for (int dr = -lag; dr <= 0; dr++)
+        for (int dc = -lag; dc <= lag; dc++) {
+          if (dr == 0 && dc == 0) {
+            if (luma) {
+              const int ly = ((i - 3) << ssy) + 3, lx = ((j - 3) << ssx) + 3;
+              int avg = 0;
+              for (int a = 0; a <= ssy; a++)
+                for (int b = 0; b <= ssx; b++) avg += luma[(ly + a) * 82 + lx + b];
+              sum += coef[pos] * round2(avg, ssx + ssy);
+            }
+            goto done;
+          }
+          sum += coef[pos++] * g[(i + dr) * 82 + j + dc];
+        }
+    done:
+      g[i * 82 + j] = (int16_t)clip3(lo, hi, g[i * 82 + j] + round2(sum, ar_shift));
+    }
+}
+
+static void scaling_lut(const int32_t *points, int n, int *lut) {
+  memset(lut, 0, 256 * sizeof(int));
+  if (!n) return;
+  for (int i = 0; i < points[0]; i++) lut[i] = points[1];
+  for (int k = 0; k + 1 < n; k++) {
+    const int x0 = points[2 * k], y0 = points[2 * k + 1];
+    const int dx = points[2 * k + 2] - x0, dy = points[2 * k + 3] - y0;
+    const int64_t delta = (int64_t)dy * ((65536 + (dx >> 1)) / dx);
+    for (int x = 0; x < dx; x++) lut[x0 + x] = y0 + (int)((x * delta + 32768) >> 16);
+  }
+  for (int i = points[2 * (n - 1)]; i < 256; i++) lut[i] = points[2 * (n - 1) + 1];
+}
+
+static int scale_lut(const int *lut, int index, int bd) {
+  const int x = index >> (bd - 8);
+  if (bd == 8 || x == 255) return lut[x];
+  return lut[x] + (((lut[x + 1] - lut[x]) * (index & ((1 << (bd - 8)) - 1)) +
+                    (1 << (bd - 9))) >> (bd - 8));
+}
+
+static int sample_at(const void *p, size_t i, int hbd) {
+  return hbd ? ((const uint16_t *)p)[i] : ((const uint8_t *)p)[i];
+}
+
+static void sample_set(void *p, size_t i, int hbd, int v) {
+  if (hbd) ((uint16_t *)p)[i] = (uint16_t)v;
+  else ((uint8_t *)p)[i] = (uint8_t)v;
+}
+
+/* Adds the film grain of g to the output planes in place (uint8 at 8
+ * bits, else uint16; width x height luma, the chroma subsampled), as
+ * libaom 3.14.1's av1_add_film_grain adds it to the frames it outputs:
+ * the templates, then per 32-row stripe (its generator seeded from the
+ * stripe's index) a 34x34 luma block of each template at offsets drawn
+ * per 32x32 block, blended over the two columns (one where subsampled)
+ * a block shares with the one before it and the rows a stripe shares
+ * with the one above where overlap is set; the chroma scaled from the
+ * co-located luma before the luma's own grain; clipped to the full or
+ * the restricted range. Returns 0, or 2 when out of memory. */
+int av1_film_grain(const int32_t *g, void *y, void *u, void *v, int width,
+                   int height, int ssx, int ssy, int mono, int bd,
+                   int32_t *stats) {
+  const int hbd = bd > 8, lo_g = -(128 << (bd - 8)), hi_g = (128 << (bd - 8)) - 1;
+  const int shift = 12 - bd + g[G_GRAIN_SCALE_SHIFT], lag = g[G_AR_LAG];
+  const int cw_t = ssx ? 44 : 82, ch_t = ssy ? 38 : 73;
+  const int cw = (width + ssx) >> ssx, ch = (height + ssy) >> ssy;
+  const int stripe_w[3] = {width + 34, cw + 34, cw + 34};
+  const int sub_x[3] = {0, ssx, ssx}, sub_y[3] = {0, ssy, ssy};
+  int on[3];
+  on[0] = g[G_NUM_Y] > 0;
+  on[1] = !mono && (g[G_NUM_CB] > 0 || g[G_CSFL]);
+  on[2] = !mono && (g[G_NUM_CR] > 0 || g[G_CSFL]);
+  int16_t *tmpl = calloc(3 * 73 * 82, sizeof(int16_t));
+  int16_t *noise[3] = {NULL, NULL, NULL}, *stripe[2][3] = {{NULL}};
+  int *lut = malloc(3 * 256 * sizeof(int));
+  int rc = 2;
+  if (!tmpl || !lut) goto out;
+  for (int p = 0; p < 3; p++) {
+    if (!on[p]) continue;
+    const size_t ph = (size_t)(p ? ch : height), pw = (size_t)(p ? cw : width);
+    noise[p] = malloc(ph * pw * sizeof(int16_t));
+    for (int k = 0; k < 2; k++)
+      stripe[k][p] = calloc((size_t)(34 >> sub_y[p]) * (size_t)stripe_w[p], sizeof(int16_t));
+    if (!noise[p] || !stripe[0][p] || !stripe[1][p]) goto out;
+  }
+  if (on[0])
+    grain_template(tmpl, 73, 82, (uint16_t)g[G_SEED], shift, g + G_AR_Y, lag,
+                   g[G_AR_SHIFT], lo_g, hi_g, NULL, 0, 0);
+  for (int p = 1; p < 3; p++)
+    if (on[p])
+      grain_template(tmpl + p * 73 * 82, ch_t, cw_t,
+                     (uint16_t)(g[G_SEED] ^ (p == 1 ? 0xB524 : 0x49D8)), shift,
+                     g + (p == 1 ? G_AR_CB : G_AR_CR), lag, g[G_AR_SHIFT], lo_g,
+                     hi_g, on[0] ? tmpl : NULL, ssx, ssy);
+  /* the noise, stripe by stripe */
+  for (int n = 0, y0 = 0; y0 < (height + 1) / 2; n++, y0 += 16) {
+    int16_t *const *cur = stripe[n & 1], *const *prev = stripe[(n + 1) & 1];
+    uint16_t r = (uint16_t)g[G_SEED];
+    r ^= (uint16_t)((((n * 37 + 178) & 255) << 8) | ((n * 173 + 105) & 255));
+    for (int x = 0; x < (width + 1) / 2; x += 16) {
+      const int rnd = grain_bits(&r, 8), ox = rnd >> 4, oy = rnd & 15;
+      for (int p = 0; p < 3; p++) {
+        if (!on[p]) continue;
+        const int sx = sub_x[p], sy = sub_y[p], sw = stripe_w[p];
+        const int px = sx ? 6 + ox : 9 + 2 * ox, py = sy ? 6 + oy : 9 + 2 * oy;
+        const int16_t *t = tmpl + p * 73 * 82;
+        const int x0 = (2 * x) >> sx;
+        for (int i = 0; i < (34 >> sy); i++)
+          for (int j = 0; j < (34 >> sx); j++) {
+            int v = t[(py + i) * 82 + px + j];
+            int16_t *dst = &cur[p][i * sw + x0 + j];
+            if (g[G_OVERLAP] && x && j < 2 - sx) {
+              if (sx) v = *dst * 23 + v * 22;
+              else v = j == 0 ? *dst * 27 + v * 17 : *dst * 17 + v * 27;
+              v = clip3(lo_g, hi_g, round2(v, 5));
+            }
+            *dst = (int16_t)v;
+          }
+      }
+      stats[AV1_STAT_GRAIN_BLOCKS]++;
+    }
+    for (int p = 0; p < 3; p++) {
+      if (!on[p]) continue;
+      const int sy = sub_y[p], rows = 32 >> sy, sw = stripe_w[p];
+      const int ph = p ? ch : height, pw = p ? cw : width;
+      for (int i = 0; i < rows && n * rows + i < ph; i++) {
+        int16_t *dst = noise[p] + (size_t)(n * rows + i) * (size_t)pw;
+        for (int x = 0; x < pw; x++) {
+          int v = cur[p][i * sw + x];
+          if (g[G_OVERLAP] && n && i < 2 - sy) {
+            const int old = prev[p][(rows + i) * sw + x];
+            if (sy) v = old * 23 + v * 22;
+            else v = i == 0 ? old * 27 + v * 17 : old * 17 + v * 27;
+            v = clip3(lo_g, hi_g, round2(v, 5));
+          }
+          dst[x] = (int16_t)v;
+        }
+      }
+    }
+  }
+  /* the blend: the chroma first, from the luma before its grain */
+  const int top = (256 << (bd - 8)) - 1, rs = g[G_SCALING_SHIFT];
+  int lo = 0, hi_y = top, hi_c = top;
+  if (g[G_CLIP]) {
+    lo = 16 << (bd - 8);
+    hi_y = 235 << (bd - 8);
+    hi_c = g[G_MC_IDENTITY] ? hi_y : 240 << (bd - 8);
+  }
+  scaling_lut(g + G_Y_POINTS, g[G_NUM_Y], lut);
+  scaling_lut(g + G_CB_POINTS, g[G_NUM_CB], lut + 256);
+  scaling_lut(g + G_CR_POINTS, g[G_NUM_CR], lut + 512);
+  for (int p = 1; p < 3; p++) {
+    if (!on[p]) continue;
+    void *c = p == 1 ? u : v;
+    const int mult = g[p == 1 ? G_CB_MULT : G_CR_MULT];
+    const int luma_mult = g[p == 1 ? G_CB_LUMA_MULT : G_CR_LUMA_MULT];
+    const int offset = g[p == 1 ? G_CB_OFFSET : G_CR_OFFSET] * (1 << (bd - 8));
+    const int *l = g[G_CSFL] ? lut : lut + 256 * p;
+    for (int i = 0; i < ch; i++)
+      for (int j = 0; j < cw; j++) {
+        const size_t ly = (size_t)(i << ssy) * (size_t)width;
+        const int lx = j << ssx;
+        const int avg = ssx ? (sample_at(y, ly + (size_t)lx, hbd) +
+                               sample_at(y, ly + (size_t)(lx + 1 < width ? lx + 1 : width - 1), hbd) + 1) >> 1
+                            : sample_at(y, ly + (size_t)lx, hbd);
+        const size_t at = (size_t)i * (size_t)cw + (size_t)j;
+        const int orig = sample_at(c, at, hbd);
+        const int merged = g[G_CSFL] ? avg
+                           : clip3(0, top, ((avg * luma_mult + orig * mult) >> 6) + offset);
+        const int nz = (scale_lut(l, merged, bd) * noise[p][at] + (1 << (rs - 1))) >> rs;
+        sample_set(c, at, hbd, clip3(lo, hi_c, orig + nz));
+      }
+  }
+  if (on[0])
+    for (size_t at = 0; at < (size_t)width * (size_t)height; at++) {
+      const int orig = sample_at(y, at, hbd);
+      const int nz = (scale_lut(lut, orig, bd) * noise[0][at] + (1 << (rs - 1))) >> rs;
+      sample_set(y, at, hbd, clip3(lo, hi_y, orig + nz));
+    }
+  stats[AV1_STAT_GRAIN_FRAMES]++;
+  rc = 0;
+out:
+  for (int p = 0; p < 3; p++) {
+    free(noise[p]);
+    free(stripe[0][p]);
+    free(stripe[1][p]);
+  }
+  free(tmpl);
+  free(lut);
+  return rc;
+}
+
 int av1_decode_frame(const int32_t *plan, const uint8_t *data, long len,
                      void *y_out, void *u_out, void *v_out,
                      int32_t *stats, char *err, int errlen) {
@@ -3216,7 +3546,7 @@ int av1_decode_frame(const int32_t *plan, const uint8_t *data, long len,
   int rc = 2;
   uint16_t *pre[3] = {NULL, NULL, NULL};
   Tile *t = calloc(1, sizeof(Tile));
-  uint8_t *mi_block = calloc((size_t)mi_alloc, 8);
+  uint8_t *mi_block = calloc((size_t)mi_alloc, 9);
   f->delta_lf = calloc((size_t)mi_alloc, 4);
   f->pal_size = calloc((size_t)mi_alloc, 2);
   f->pal_colors = calloc((size_t)mi_alloc, 24 * sizeof(uint16_t));
@@ -3236,6 +3566,8 @@ int av1_decode_frame(const int32_t *plan, const uint8_t *data, long len,
   f->is_inter = mi_block + 5 * mi_alloc;
   f->written = mi_block + 6 * mi_alloc;
   f->tx_type_mi = mi_block + 7 * mi_alloc;
+  f->seg_map = mi_block + 8 * mi_alloc;
+  stats[AV1_STAT_SEG_FRAMES] = plan[AV1_SEG_ENABLED];
   for (int p = 0; p < f->planes; p++) {
     const int sx = p ? f->ssx : 0, sy = p ? f->ssy : 0;
     f->stride[p] = (sb_cols * f->sb4 * 4) >> sx;

@@ -107,6 +107,7 @@ NAMED = [
     ("nmv_context", "default_nmv_context", "u16", (143,)),
     ("inter_ext_tx_cdf", "default_inter_ext_tx_cdf", "u16", (4, 4, 17)),
     ("intrabc_filter", "av1_intrabc_bilinear_filter", "i16", (2, 16)),
+    ("gaussian_sequence", "gaussian_sequence", "i32", (2048,)),
 ]
 
 # FRAME_CONTEXT of libaom 3.14.1 (av1/common/entropymode.h), field by
@@ -135,8 +136,8 @@ FC_FIELDS = [
     ("skip_mode", (3, 3)), ("skip_txfm", (3, 3)), ("intra_inter", (4, 3)),
     ("nmvc", (143,)), ("ndvc", (143,)), ("intrabc", (3,)),
 ]
-# The fields read by offset from named anchors further on (the mv and
-# segmentation contexts between them are skipped): (name, dims) in
+# The fields read by offset from named anchors further on (the mv
+# contexts between them are skipped): (name, dims) in
 # FRAME_CONTEXT order, each list ending at (anchor symbol's field).
 FC_BEFORE_UV_MODE = [  # the fields just before uv_mode_cdf
     ("filter_intra", (22, 3)), ("filter_intra_mode", (6,)),
@@ -146,6 +147,10 @@ FC_BEFORE_UV_MODE = [  # the fields just before uv_mode_cdf
 FC_AFTER_KF_Y = [  # kf_y_cdf, then these, then intra_ext_tx_cdf
     ("angle_delta", (8, 8)), ("tx_size", (4, 3, 4)), ("delta_q", (5,)),
     ("delta_lf_multi", (4, 5)), ("delta_lf", (5,)),
+]
+FC_AFTER_INTRABC = [  # intrabc_cdf, then segmentation_probs, then
+    # filter_intra_cdfs
+    ("seg_pred", (3, 3)), ("spatial_pred_seg", (3, 9)),
 ]
 FC_AFTER_INTRA_EXT_TX = [
     ("inter_ext_tx", (4, 4, 17)), ("cfl_sign", (9,)), ("cfl_alpha", (6, 17)),
@@ -164,7 +169,8 @@ FC_WRITTEN = {"skip_txfm": "skip_cdf", "filter_intra": "filter_intra_cdf",
               "wiener_restore": "wiener_restore_cdf",
               "sgrproj_restore": "sgrproj_restore_cdf",
               "txfm_partition": "txfm_partition_cdf",
-              "intrabc": "intrabc_cdf"}
+              "intrabc": "intrabc_cdf",
+              "spatial_pred_seg": "spatial_pred_seg_cdf"}
 
 TX_SIZES_ALL = 19
 DTYPES = {"u8": ("uint8_t", np.uint8), "i8": ("int8_t", np.int8),
@@ -285,6 +291,13 @@ def _fc_offsets(elf: Elf, fc: bytes) -> dict[str, tuple[int, tuple]]:
     for name, dims in FC_BEFORE_UV_MODE:
         out[name] = (pos, dims)
         pos += 2 * int(np.prod(dims))
+    pos = out["intrabc"][0] + 2 * 3
+    for name, dims in FC_AFTER_INTRABC:
+        out[name] = (pos, dims)
+        pos += 2 * int(np.prod(dims))
+    if pos != out["filter_intra"][0]:
+        raise ValueError("FRAME_CONTEXT layout: the segmentation CDFs do "
+                         "not fill intrabc_cdf to filter_intra_cdfs")
     kf_at, kf_size = anchor("default_kf_y_mode_cdf")
     pos = kf_at + kf_size
     for name, dims in FC_AFTER_KF_Y:

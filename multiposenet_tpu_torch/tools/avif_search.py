@@ -30,7 +30,7 @@ file cv2 returns no image for.
 
     python -m multiposenet_tpu_torch.tools.avif_search \\
         [--count 300] [--seed 0] [--workers 6] [--out FILE]
-        [--forms still|container]
+        [--forms still|container|tools]
 
 prints one JSON line: cases (and cases by writer, depth, subsampling and
 colour rewrite), the cases cv2 returns no image for, differences
@@ -50,8 +50,16 @@ wheel's libavif encoder and Pillow, and surgery on their files), holds
 the port's pixels (C, and plain up to 8,192 pixels) and `image_size` to
 cv2's and its refusals to cv2's None, and prints the cases and cv2's
 refusals by form, the differences, the refusals' messages by form and
-seconds. It needs cv2, Pillow and the
-wheel's libaom and libavif, so it runs where they are installed, not on
+seconds. With `--forms tools` it draws libaom's film grain and
+segmentation (`tool_cases`: `film-grain-test`, `denoise-noise-level` and
+drawn `film-grain-table` parameters on stills, grids and sequences, and
+`aq-mode=1` sequences), holds the port's pixels to cv2's, its planes
+before and after the grain to libaom's and the plain decoder to the C
+library (up to 4,096 pixels), and prints the cases by tool, form, depth
+and subsampling, the differences, the refusals, and the segmentation
+and grain counters and flags reached and not reached. It needs cv2,
+Pillow and the wheel's libaom and libavif, so it runs where they are
+installed, not on
 the card's machine. The CPU tests run `search` on the first cases of a
 seed.
 """
@@ -225,11 +233,9 @@ def compare(data: bytes, reference, plain: bool) -> tuple[list, np.ndarray,
             differ.append(f"plane_{name}")
     if not np.array_equal(avif.decode(data), want_rgb):
         differ.append("rgb")
-    if plain:
-        p = avif.decode_planes_plain(image_.frame)
-        if not all((a is None and b is None) or np.array_equal(a, b)
-                   for a, b in zip(p, (y, u, v))):
-            differ.append("plain")
+    if plain and not _same(avif.decode_planes_plain(image_.frame),
+                           (y, u, v)):
+        differ.append("plain")
     return differ, stats, image_.frame.header.tx_mode_select
 
 
@@ -259,21 +265,32 @@ def _run(batch: list[tuple], reference: str) -> list:
     return out
 
 
+def _map(run, batch: list[tuple], workers: int, reference: Path) -> list:
+    """`run(cases, reference)` over the batch, in this process or over
+    `workers` spawned processes (4 chunks each)."""
+    if not workers:
+        return run(batch, str(reference))
+    chunks = [batch[i::workers * 4] for i in range(workers * 4)]
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return [r for part in pool.map(run, chunks,
+                                       [str(reference)] * len(chunks))
+                for r in part]
+
+
+def _same(got, want) -> bool:
+    """Planes (Y, U, V; U and V None for monochrome) equal."""
+    return all((a is None and b is None) or np.array_equal(a, b)
+               for a, b in zip(got, want))
+
+
 def search(batch: list[tuple], workers: int = 0,
            reference: Path = REFERENCE) -> dict:
     """Every case compared (in this process, or over `workers`
     processes): the cases, the differences, the tools reached and the
     seconds."""
     t0 = time.perf_counter()
-    if workers:
-        chunks = [batch[i::workers * 4] for i in range(workers * 4)]
-        with ProcessPoolExecutor(
-                workers, mp_context=multiprocessing.get_context("spawn")) \
-                as pool:
-            done = [r for part in pool.map(
-                _run, chunks, [str(reference)] * len(chunks)) for r in part]
-    else:
-        done = _run(batch, str(reference))
+    done = _map(_run, batch, workers, reference)
 
     def tools(rows):
         totals = np.sum([r[2] for r in rows], axis=0)
@@ -569,16 +586,7 @@ def search_containers(batch: list[tuple], workers: int = 0,
     returns no image for, the refusals by form, the differences and the
     seconds."""
     t0 = time.perf_counter()
-    if workers:
-        chunks = [batch[i::workers * 4] for i in range(workers * 4)]
-        with ProcessPoolExecutor(
-                workers, mp_context=multiprocessing.get_context("spawn")) \
-                as pool:
-            done = [r for part in pool.map(
-                _run_container, chunks, [str(reference)] * len(chunks))
-                for r in part]
-    else:
-        done = _run_container(batch, str(reference))
+    done = _map(_run_container, batch, workers, reference)
     differences = sorted(([r[0][0], r[0][1], r[0][2]], r[1])
                          for r in done if r[1])
     return {"cases": len(done),
@@ -599,6 +607,252 @@ def search_containers(batch: list[tuple], workers: int = 0,
             "seconds": time.perf_counter() - t0}
 
 
+# --- film grain and segmentation --------------------------------------------
+
+TOOLS = ("grain_test", "grain_test", "grain_dnl", "grain_table",
+         "grain_table", "aq")
+TOOL_FORMS = ("still", "still", "grid", "sequence")
+# The film grain's flags and fields, reached where a frame's header holds
+# them (besides the C decoder's grain_frames and grain_blocks).
+GRAIN_FLAGS = (
+    [f"grain_lag_{k}" for k in range(4)]
+    + ["grain_no_luma", "grain_luma_only", "grain_chroma_points",
+       "grain_csfl", "grain_overlap", "grain_clip", "grain_clip_identity"]
+    + [f"grain_scaling_shift_{k}" for k in range(8, 12)]
+    + [f"grain_ar_shift_{k}" for k in range(6, 10)]
+    + [f"grain_scale_shift_{k}" for k in range(4)])
+
+
+def grain_flags(frame) -> dict:
+    """GRAIN_FLAGS reached by a frame's film grain (none without)."""
+    g, s = frame.header.grain, frame.seq
+    out = dict.fromkeys(GRAIN_FLAGS, 0)
+    if g is None:
+        return out
+    out[f"grain_lag_{g.ar_coeff_lag}"] = 1
+    out["grain_no_luma"] = int(not g.y_points)
+    out["grain_luma_only"] = int(bool(g.y_points) and not (
+        g.cb_points or g.cr_points or g.chroma_scaling_from_luma))
+    out["grain_chroma_points"] = int(bool(g.cb_points or g.cr_points))
+    out["grain_csfl"] = g.chroma_scaling_from_luma
+    out["grain_overlap"] = g.overlap
+    out["grain_clip"] = g.clip_to_restricted_range
+    out["grain_clip_identity"] = int(g.clip_to_restricted_range
+                                     and s.matrix == 0)
+    out[f"grain_scaling_shift_{g.scaling_shift}"] = 1
+    out[f"grain_ar_shift_{g.ar_coeff_shift}"] = 1
+    out[f"grain_scale_shift_{g.grain_scale_shift}"] = 1
+    return out
+
+
+def tool_cases(count: int, seed: int = 0) -> list[tuple]:
+    """(tool, form, image seed, spec) of `count` seeded files of libaom's
+    film grain and segmentation, through the wheel's libavif encoder:
+    `film-grain-test` 1 to 16 ("grain_test"), `denoise-noise-level` 5 to
+    60 on noisy pictures ("grain_dnl"), a `film-grain-table` of drawn
+    parameters (`avif_reference.draw_grain`: every lag, no luma points,
+    chroma scaling from luma, overlap, shifts and seeds; "grain_table"),
+    as stills, grids and 2- or 3-frame sequences; and `aq-mode=1`
+    sequences ("aq", whose first frame libaom segments, at times with
+    film grain too). Depths 8, 10 and 12, subsamplings 4:0:0, 4:2:0,
+    4:2:2 and 4:4:4, sides 1 to 96 (grid cells 64 to 80), qualities 0 to
+    99, speeds 0 to 10, an alpha plane in one case in eight, limited
+    range (where libaom's grain clips to it) in one case in three, and
+    at 4:4:4 the identity matrix in one case in four."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        tool = TOOLS[i % len(TOOLS)]
+        form = "sequence" if tool == "aq" else \
+            TOOL_FORMS[int(rng.integers(0, len(TOOL_FORMS)))]
+        spec = {"sub": ("400", "420", "422", "444")[int(rng.integers(0, 4))],
+                "depth": DEPTHS[int(rng.integers(0, 3))],
+                "quality": int(rng.integers(0, 100)),
+                "speed": int(rng.integers(0, 11)),
+                "size": tuple(int(v) for v in rng.integers(1, 97, 2)),
+                "alpha": bool(rng.integers(0, 8) == 0),
+                "frames": int(rng.integers(2, 4)),
+                "full_range": int(rng.integers(0, 3) > 0)}
+        if spec["sub"] == "444" and rng.integers(0, 4) == 0:
+            spec["matrix"] = 0  # the identity, where the clip differs
+        if form == "grid":
+            spec["cell"] = tuple(int(v) for v in rng.integers(64, 81, 2))
+            spec["grid"] = tuple(int(v) for v in rng.integers(1, 3, 2))
+        if tool == "grain_test" or (tool == "aq" and rng.integers(0, 3) == 0):
+            spec["film_grain_test"] = int(rng.integers(1, 17))
+        elif tool == "grain_dnl":
+            spec["denoise_noise_level"] = int(rng.integers(5, 61))
+        elif tool == "grain_table":
+            spec["table_seed"] = int(rng.integers(2**31))
+        if tool == "aq":
+            spec["speed"] = int(rng.integers(0, 7))
+        out.append((tool, form, int(rng.integers(2**31)), spec))
+    return out
+
+
+def encode_tool(reference, tool: str, form: str, seed: int, spec: dict,
+                scratch: Path) -> bytes:
+    """The case's file (`scratch`: a directory for its grain table)."""
+    depth, sub = spec["depth"], spec["sub"]
+    opts = {"quality": spec["quality"], "speed": spec["speed"],
+            "full_range": spec["full_range"], "matrix": spec.get("matrix", 6)}
+    for key in ("film_grain_test", "denoise_noise_level"):
+        if key in spec:
+            opts[key] = spec[key]
+    if "table_seed" in spec:
+        g = reference.draw_grain(np.random.default_rng(spec["table_seed"]))
+        opts["film_grain_table"] = reference.grain_table(
+            scratch / f"grain_{seed}.tbl", g)
+    if tool == "aq":
+        opts["aq_mode"] = 1
+    h, w = spec["size"]
+    if form == "grid":
+        h, w = spec["cell"]
+    rng = np.random.default_rng(seed)
+
+    def picture(k):
+        rgb = reference.drawing(h, w, seed + k).astype(np.int64)
+        noise = 24 if tool == "grain_dnl" else 6
+        rgb += rng.integers(-noise, noise + 1, rgb.shape)
+        rgb = np.clip(rgb, 0, 255).astype(np.uint8)
+        if depth > 8:
+            rgb = reference.widen(rgb, depth, seed)
+        return reference.planes_of(rgb, depth, fmt,
+                                   full_range=spec["full_range"])
+
+    fmt = YUV_FORMATS[sub]
+    alpha = _alpha(reference, h, w, depth, seed) if spec["alpha"] else None
+    if form == "grid":
+        rows, cols = spec["grid"]
+        cells = [picture(k) for k in range(rows * cols)]
+        return reference.avif_grid(
+            cells, cols, rows, depth, fmt,
+            alpha=None if alpha is None else [alpha] * len(cells), **opts)
+    if form == "sequence":
+        frames = [picture(k) for k in range(spec["frames"])]
+        return reference.avif_sequence(
+            frames, depth, fmt,
+            alpha=None if alpha is None else [alpha] * len(frames), **opts)
+    return reference.avif_encode(picture(0), depth, fmt, alpha=alpha, **opts)
+
+
+def compare_tool(data: bytes, reference, form: str, plain: bool) -> tuple:
+    """(what differs, the C decoder's counters, GRAIN_FLAGS reached) of a
+    file cv2 reads: the port's RGB against cv2's, and for a still or a
+    sequence the C planes before and after the film grain against
+    libaom's, and with `plain` the plain decoder's against the C's."""
+    from multiposenet_tpu_torch.utils import avif
+
+    image_ = avif.read_image(data)
+    differ = []
+    if not np.array_equal(avif.decode(data), reference.imdecode_rgb(data)):
+        differ.append("rgb")
+    cells = [avif.decode_planes_c(f) for f in image_.cells]
+    if form != "grid":
+        obus = reference.sequence_obus(data) if image_.form == "sequence" \
+            else reference.primary_obus(data)
+        if not _same(avif.decode_planes_c(image_.frame, grain=False)[:3],
+                     reference.aom_planes(obus, skip_film_grain=True)):
+            differ.append("planes_before_grain")
+        if not _same(cells[0][:3], reference.aom_planes(obus)):
+            differ.append("planes")
+    if plain and not all(_same(avif.decode_planes_plain(f), c[:3])
+                         for f, c in zip(image_.cells, cells)):
+        differ.append("plain")
+    stats = np.sum([c[3] for c in cells], axis=0)
+    flags = [grain_flags(f) for f in image_.cells]
+    return differ, stats, {k: max(d[k] for d in flags) for k in GRAIN_FLAGS}
+
+
+def _run_tools(batch: list[tuple], reference: str) -> list:
+    """(case, what differs, counters, grain flags, refusal, whether cv2
+    returns no image) of each case; a case whose options the encoder
+    refuses has the refusal "encoder: ..." and no file."""
+    import tempfile
+
+    module = load_reference(Path(reference))
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for case in batch:
+            tool, form, seed, spec = case
+            try:
+                data = encode_tool(module, tool, form, seed, spec, Path(tmp))
+            except RuntimeError as exc:  # the encoder refuses the options
+                out.append((case, [], None, None, f"encoder: {exc}", False))
+                continue
+            none = module.imdecode_rgb(data) is None
+            h, w = spec["cell"] if form == "grid" else spec["size"]
+            try:
+                if none:
+                    from multiposenet_tpu_torch.utils import avif
+                    avif.decode(data)
+                    differ, stats, flags = ["read where cv2 returns none"], \
+                        None, None
+                else:
+                    differ, stats, flags = compare_tool(
+                        data, module, form, h * w <= PLAIN_PIXELS)
+                    stats = stats.tolist()
+                refusal = None
+            except ValueError as exc:
+                differ, stats, flags = [], None, None
+                refusal = str(exc)
+                if not none:
+                    differ = [f"refused where cv2 reads: {refusal}"]
+            out.append((case, differ, stats, flags, refusal, none))
+    return out
+
+
+def search_tools(batch: list[tuple], workers: int = 0,
+                 reference: Path = REFERENCE) -> dict:
+    """Every film grain and segmentation case compared: the cases by
+    tool, form, depth and subsampling, the cases cv2 returns no image
+    for, the differences, the refusals, the tools reached (the C
+    decoder's counters and GRAIN_FLAGS) and those no case reached, and
+    the seconds."""
+    t0 = time.perf_counter()
+    done = _map(_run_tools, batch, workers, reference)
+
+    def encoder(r):
+        return r[4] is not None and r[4].startswith("encoder: ")
+
+    read = [r for r in done if r[2] is not None]
+    totals = np.sum([r[2] for r in read], axis=0) if read else \
+        np.zeros(len(STAT_NAMES), np.int64)
+    reached = {n: int(v) for n, v in zip(STAT_NAMES, totals)
+               if n.startswith(("seg", "lossless", "grain"))}
+    for k in GRAIN_FLAGS:
+        reached[k] = sum(r[3][k] for r in read)
+    differences = sorted(([r[0][0], r[0][1], r[0][2], r[0][3]], r[1])
+                         for r in done if r[1])
+
+    def count(i):
+        return {k: sum(r[0][i] == k for r in done)
+                for k in sorted({r[0][i] for r in done})}
+
+    return {"cases": len(done),
+            "cases_by_tool": count(0),
+            "cases_by_form": count(1),
+            "cases_by_depth": {d: sum(r[0][3]["depth"] == d for r in done)
+                               for d in DEPTHS},
+            "cases_by_subsampling": {
+                s: sum(r[0][3]["sub"] == s for r in done)
+                for s in ("400",) + SUBSAMPLINGS},
+            "encoder_refused": sum(encoder(r) for r in done),
+            "cv2_returns_none": sum(r[5] for r in done),
+            "refused": sum(r[4] is not None and not encoder(r)
+                           for r in done),
+            "differences": [list(d) for d in differences],
+            "refused_where_cv2_reads": sum(
+                d[0].startswith("refused where") for _, d in differences),
+            "read_where_cv2_returns_none": sum(
+                d == ["read where cv2 returns none"] for _, d in differences),
+            "refusals": sorted({r[4] for r in done if r[4]}),
+            "tools": reached,
+            "tools_not_reached": sorted(k for k, n in reached.items()
+                                        if not n),
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reference", type=Path, default=REFERENCE,
@@ -608,12 +862,16 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--workers", type=int, default=os.cpu_count() or 1)
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the JSON here")
-    ap.add_argument("--forms", choices=("still", "container"),
+    ap.add_argument("--forms", choices=("still", "container", "tools"),
                     default="still",
-                    help="still images (the AV1 tools) or the container "
-                         "forms: grids, Exif items, image sequences")
+                    help="still images (the AV1 tools), the container "
+                         "forms (grids, Exif items, image sequences) or "
+                         "libaom's film grain and segmentation")
     args = ap.parse_args(argv)
-    if args.forms == "container":
+    if args.forms == "tools":
+        result = search_tools(tool_cases(args.count, args.seed),
+                              args.workers, args.reference)
+    elif args.forms == "container":
         result = search_containers(container_cases(args.count, args.seed),
                                    args.workers, args.reference)
     else:

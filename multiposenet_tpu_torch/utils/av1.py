@@ -1,8 +1,8 @@
 """The plain AV1 intra-frame decoder of the port: `csrc/av1.c` in Python,
-function for function, for the files `utils/avif.py` reads (4:2:0,
-monochrome or lossless 4:4:4 key frames of 8, 10 or 12 bits a sample
-with 64x64 or 128x128 superblocks, without segmentation, superres or
-film grain). The planes hold 16 bits a sample at every depth; the
+function for function, for the files `utils/avif.py` reads (key frames
+of 8, 10 or 12 bits a sample at 4:0:0, 4:2:0, 4:2:2 or 4:4:4, lossy or
+lossless, with 64x64 or 128x128 superblocks, segmentation and film
+grain, without superres). The planes hold 16 bits a sample at every depth; the
 depth's terms (libaom's high-bit-depth functions) are the quantiser
 tables, the coefficient clamp at 2^(bd+7), the transform clamps (rows
 bd + 8 bits, columns max(bd + 6, 16)), the intra edge bases 2^(bd-1)
@@ -18,13 +18,20 @@ headers and the tiles' bytes) and returns its Y, U and V planes (U and V
 None when monochrome; uint8 at 8 bits, else uint16) as libaom 3.14.1
 decodes them: the tiles (libaom's
 entropy decoder and CDF adaptation, partition, intra mode info, palette,
-intra block copy, CDEF indices, delta q and delta lf, restoration units,
-tx size, transform tree and type, coefficients), the prediction,
-dequantisation with the quantiser matrices and libaom's inverse
-transforms (the Walsh-Hadamard transform in lossless frames), then
-deblocking, CDEF and loop restoration; a tile whose symbols run past its
-bytes or that does not end in its trailing bits is refused, as libaom
-reports it corrupt. The stage functions (`inverse_transform_add`,
+intra block copy, segment ids, CDEF indices, delta q and delta lf,
+restoration units, tx size, transform tree and type, coefficients), the
+prediction, dequantisation at each block's segment's qindex with the
+quantiser matrices and libaom's inverse transforms (the Walsh-Hadamard
+transform in lossless segments), then deblocking (at each segment's
+levels), CDEF and loop restoration, and the film grain libaom 3.14.1's
+av1_add_film_grain adds to the output (`film_grain`: the seeded grain
+templates and their auto-regressive filter, the scaling functions, the
+32x32 blocks at offsets drawn per stripe and their overlap, the clip;
+`grain_templates`, `noise_images`, `scaling_lut` are its stages); a
+segment id past the last active one is refused, as libaom refuses it; a
+tile whose symbols run past its bytes or that does not end in its
+trailing bits is refused, as libaom reports it corrupt. The stage
+functions (`inverse_transform_add`,
 `iwht_add`, `idct`, `iadst`, `edge_filter`, `edge_upsample`,
 `dr_predict`, `filter_intra_predict`, `nondir_predict`, `cfl_predict`,
 `palette_color_context`, `dv_valid`, `intrabc_predict`,
@@ -136,7 +143,8 @@ def _t():
              "wiener_restore_cdf", "sgrproj_restore_cdf",
              "palette_color_index_context_lookup", "sgr_params",
              "x_by_xplus1", "one_by_x", "nmv_context", "inter_ext_tx_cdf",
-             "txfm_partition_cdf", "intrabc_cdf", "dc_qlookup", "ac_qlookup",
+             "txfm_partition_cdf", "intrabc_cdf", "spatial_pred_seg_cdf",
+             "dc_qlookup", "ac_qlookup",
              "dc_qlookup_10", "ac_qlookup_10", "dc_qlookup_12",
              "ac_qlookup_12",
              "filter_intra_taps", "dr_intra_derivative", "mode_to_angle_map",
@@ -306,7 +314,8 @@ def init_cdfs(base_q: int) -> dict:
          "sgrproj_restore": t["sgrproj_restore_cdf"],
          "intrabc": t["intrabc_cdf"],
          "txfm_partition": t["txfm_partition_cdf"],
-         "inter_ext_tx": t["inter_ext_tx_cdf"]}
+         "inter_ext_tx": t["inter_ext_tx_cdf"],
+         "spatial_seg": t["spatial_pred_seg_cdf"]}
     # the DV's CDFs: libaom's default_nmv_context (joints, then per
     # component classes, class0_fp, fp, sign, class0_hp, hp, class0, bits)
     mv = t["nmv_context"]
@@ -637,7 +646,7 @@ class _Frame:
         self.planes = 1 if s.mono else 3
         self.bd = s.bit_depth
         self.ssx, self.ssy = (1, 1) if s.mono else (s.ssx, s.ssy)
-        self.lossless = h.lossless
+        self.lossless = h.lossless  # CodedLossless
         self.filter_intra = s.filter_intra
         self.edge_filter = s.intra_edge_filter
         self.enable_cdef = s.cdef and not (h.lossless or h.allow_intrabc)
@@ -662,6 +671,7 @@ class _Frame:
         self.mvs = np.zeros(shape + (2,), np.int64)  # its DV, 1/8 pel
         self.written = np.zeros(shape, bool)
         self.tx_type = np.zeros(shape, np.int64)  # luma tx types (4x4s)
+        self.seg_map = np.zeros(shape, np.int64)  # segment ids
         self.cdef_idx = np.full((sbr * sb4 // 16, sbc * sb4 // 16), -1,
                                 np.int64)
         # loop restoration: each plane's units (rows, cols) and, for each
@@ -1125,12 +1135,12 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
         tx_set = _tx_set_type_inter(tx, hdr.reduced_tx_set) if inter \
             else _tx_set_type(tx, hdr.reduced_tx_set)
         if plane == 0 and inter:
-            if tx_set > 0 and t.current_q > 0:
+            if tx_set > 0 and hdr.seg_qindex[t.segment_id] > 0:
                 sym = ec.symbol(cdf["inter_ext_tx"][INTER_SET_INDEX[tx_set]]
                                 [TX_SQR[tx]], NUM_EXT_TX_SET[tx_set])
                 tx_type = tb["ext_tx_inv"][tx_set][sym]
         elif plane == 0:
-            if tx_set > 0 and t.current_q > 0:
+            if tx_set > 0 and hdr.seg_qindex[t.segment_id] > 0:
                 eset = 1 if tx_set == 3 else 2
                 mode = FIMODE_TO_INTRADIR[t.filter_mode] \
                     if t.use_filter_intra else t.y_mode
@@ -1147,7 +1157,7 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
                                        else t.uv_mode]
             if not tb["ext_tx_used"][tx_set][tx_type]:
                 tx_type = DCT_DCT
-        if TX_SQR_UP[tx] > TX_32X32 or f.lossless:
+        if TX_SQR_UP[tx] > TX_32X32 or t.lossless:
             tx_type = DCT_DCT
         cls = _tx_class(tx_type)
         so = tb["scan_offset"][tx][tx_type]
@@ -1221,11 +1231,11 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
                     if k < 3:
                         break
             levels[li] = level
-        qm_level = hdr.qm[plane] if hdr.using_qm and not f.lossless else 15
+        qm_level = hdr.qm[plane] if hdr.using_qm and not t.lossless else 15
         iqm = None
         if qm_level < 15 and tx_type < IDTX:
             iqm = tb["iwt_matrix"][qm_level][int(plane > 0)][QM_OFFSET[tx]:]
-        q = t.current_q
+        q = _block_qindex(t)
         depth = "" if f.bd == 8 else f"_{f.bd}"  # Dc_Qlookup[(bd - 8) / 2]
         dcq, acq = tb["dc_qlookup" + depth], tb["ac_qlookup" + depth]
         coef_max = (1 << (7 + f.bd)) - 1  # libaom's max_value
@@ -1294,12 +1304,86 @@ def _read_delta(t: _Tile, cdf: list) -> int:
     return 0
 
 
+# The segment features read in an intra frame (the others, SEG_LVL_ALT_LF_*
+# at 1 + i for filter level i, follow SEG_LVL_ALT_Q).
+SEG_LVL_ALT_Q, SEG_LVL_ALT_LF_Y_V, SEG_LVL_SKIP = 0, 1, 6
+
+
+def _seg_feature(h, segment: int, feature: int) -> bool:
+    return bool(h.segmentation and h.seg_mask[segment] >> feature & 1)
+
+
+def _block_qindex(t: _Tile) -> int:
+    """get_qindex(0, segment_id): the block's qindex for
+    dequantisation."""
+    h = t.f.h
+    if _seg_feature(h, t.segment_id, SEG_LVL_ALT_Q):
+        return clip3(0, 255, t.current_q
+                     + h.seg_data[t.segment_id][SEG_LVL_ALT_Q])
+    return t.current_q
+
+
+def neg_deinterleave(diff: int, ref: int, most: int) -> int:
+    """libaom's av1_neg_deinterleave."""
+    if not ref:
+        return diff
+    if ref >= most - 1:
+        return most - diff - 1
+    if 2 * ref < most:
+        if diff <= 2 * ref:
+            return ref + ((diff + 1) >> 1) if diff & 1 else ref - (diff >> 1)
+        return diff
+    if diff <= 2 * (most - ref - 1):
+        return ref + ((diff + 1) >> 1) if diff & 1 else ref - (diff >> 1)
+    return most - (diff + 1)
+
+
+def segment_prediction(t: _Tile) -> tuple[int, int]:
+    """(context, predicted id) of the current block's segment id, from
+    the above, left and above-left ids (libaom's
+    av1_get_spatial_seg_pred)."""
+    f = t.f
+    r, c = t.mi_row, t.mi_col
+    ul = int(f.seg_map[r - 1, c - 1]) if t.avail_u and t.avail_l else -1
+    u = int(f.seg_map[r - 1, c]) if t.avail_u else -1
+    lt = int(f.seg_map[r, c - 1]) if t.avail_l else -1
+    ctx = 0 if ul < 0 else 2 if ul == u == lt else \
+        1 if ul == u or ul == lt or u == lt else 0
+    pred = (0 if lt == -1 else lt) if u == -1 else u if lt == -1 else \
+        u if ul == u else lt
+    return ctx, pred
+
+
+def _read_segment_id(t: _Tile, skip: int) -> int:
+    """read_segment_id of an intra frame: the predicted id, taken as is
+    by a skipped block, else coded relative to it."""
+    ctx, pred = segment_prediction(t)
+    if skip:
+        return pred
+    last = t.f.h.seg_last_active
+    coded = t.ec.symbol(t.cdf["spatial_seg"][ctx], 8)
+    segment = neg_deinterleave(coded, pred, last + 1)
+    if not 0 <= segment <= last:
+        raise ValueError("AV1: a segment id past the last active segment "
+                         "(libaom reports a corrupt frame)")
+    return segment
+
+
 def _mode_info(t: _Tile) -> None:
     f, cdf, ec, hdr = t.f, t.cdf, t.ec, t.f.h
     r, c = t.mi_row, t.mi_col
-    ctx = (int(f.skip[r - 1, c]) if t.avail_u else 0) + \
-        (int(f.skip[r, c - 1]) if t.avail_l else 0)
-    t.skip = ec.symbol(cdf["skip"][ctx], 2)
+    t.segment_id = 0
+    if hdr.segmentation and hdr.seg_preskip:
+        t.segment_id = _read_segment_id(t, 0)
+    if _seg_feature(hdr, t.segment_id, SEG_LVL_SKIP):
+        t.skip = 1
+    else:
+        ctx = (int(f.skip[r - 1, c]) if t.avail_u else 0) + \
+            (int(f.skip[r, c - 1]) if t.avail_l else 0)
+        t.skip = ec.symbol(cdf["skip"][ctx], 2)
+    if hdr.segmentation and not hdr.seg_preskip:
+        t.segment_id = _read_segment_id(t, t.skip)
+    t.lossless = hdr.seg_lossless[t.segment_id]
     if not t.skip and f.enable_cdef:  # read_cdef, per 64x64
         sb = f.cdef_idx
         if sb[r >> 4, c >> 4] == -1:
@@ -1336,7 +1420,7 @@ def _mode_info(t: _Tile) -> None:
     t.uv_mode, t.angle_uv, t.cfl_u, t.cfl_v = DC_PRED, 0, 0, 0
     bw, bh = 4 * BW4[t.bsize], 4 * BH4[t.bsize]
     if t.has_chroma:
-        if f.lossless:  # libaom's is_cfl_allowed
+        if t.lossless:  # libaom's is_cfl_allowed
             cfl_allowed = int(_t()["ss_size_lookup"][t.bsize][f.ssx][f.ssy]
                               == BLOCK_4X4)
         else:
@@ -1783,18 +1867,18 @@ def _read_tx_size(t: _Tile) -> None:
     f = t.f
     r, c = t.mi_row, t.mi_col
     max_rect = _t()["max_txsize_rect_lookup"][t.bsize]
-    t.tx_size = TX_4X4 if f.lossless else max_rect
+    t.tx_size = TX_4X4 if t.lossless else max_rect
     bw4, bh4 = BW4[t.bsize], BH4[t.bsize]
     t.inter_tx = None
     if t.use_intrabc:
         t.inter_tx = np.full((bh4, bw4), t.tx_size, np.int64)
         if f.h.tx_mode_select and t.bsize > BLOCK_4X4 and not t.skip \
-                and not f.lossless:
+                and not t.lossless:
             for row in range(0, bh4, 1 << (TX_HLOG2[max_rect] - 2)):
                 for col in range(0, bw4, 1 << (TX_WLOG2[max_rect] - 2)):
                     _read_var_tx(t, max_rect, 0, row, col)
             return
-    elif t.bsize > BLOCK_4X4 and f.h.tx_mode_select:
+    elif t.bsize > BLOCK_4X4 and f.h.tx_mode_select and not t.lossless:
         def ctx_side(rr, cc, avail, wide):
             if not avail:
                 return 0
@@ -1866,7 +1950,7 @@ def _transform_block(t: _Tile, plane: int, base_x: int, base_y: int,
         if eob > 0:
             w, h = 1 << TX_WLOG2[tx], 1 << TX_HLOG2[tx]
             dst = f.frame[plane][start_y:start_y + h, start_x:start_x + w]
-            if f.lossless:
+            if t.lossless:
                 iwht_add(coef, dst, f.bd)
             else:
                 inverse_transform_add(coef, tx, tx_type, dst, f.bd)
@@ -1885,14 +1969,14 @@ def _residual(t: _Tile) -> None:
         for cx in range(max(1, bw4 >> 4)):
             if t.use_intrabc:  # luma: the transform tree
                 tx = _t()["max_txsize_rect_lookup"][t.bsize]
-                if f.lossless:
+                if t.lossless:
                     tx = TX_4X4
                 sw, sh = 1 << (TX_WLOG2[tx] - 2), 1 << (TX_HLOG2[tx] - 2)
                 for y in range(cy << 4, min(bh4, (cy + 1) << 4), sh):
                     for x in range(cx << 4, min(bw4, (cx + 1) << 4), sw):
                         _inter_luma_tree(t, tx, y, x)
             for plane in range(int(t.use_intrabc), 1 + 2 * t.has_chroma):
-                tx = TX_4X4 if f.lossless else _uv_tx_size(
+                tx = TX_4X4 if t.lossless else _uv_tx_size(
                     t.bsize, f.ssx, f.ssy) if plane else t.tx_size
                 step_x = 1 << (TX_WLOG2[tx] - 2)
                 step_y = 1 << (TX_HLOG2[tx] - 2)
@@ -1946,6 +2030,7 @@ def _decode_block(t: _Tile, r: int, c: int, bsize: int) -> None:
     f.skip[r:r1, c:c1] = t.skip
     f.tx_size[r:r1, c:c1] = t.tx_size
     f.mi_size[r:r1, c:c1] = bsize
+    f.seg_map[r:r1, c:c1] = t.segment_id
     f.delta_lf[r:r1, c:c1] = t.delta_lf
     f.pal_size[r:r1, c:c1] = t.pal_size
     f.pal_colors[r:r1, c:c1] = t.pal_colors
@@ -2201,6 +2286,9 @@ def _filter_level(f: _Frame, row: int, col: int, plane: int,
         d = f.delta_lf[row, col]
         delta = int(d[i] if h.delta_lf_multi else d[0])
     lvl = clip3(0, 63, delta + h.lf_level[i])
+    segment = int(f.seg_map[row, col])
+    if _seg_feature(h, segment, SEG_LVL_ALT_LF_Y_V + i):
+        lvl = clip3(0, 63, lvl + h.seg_data[segment][SEG_LVL_ALT_LF_Y_V + i])
     if h.lf_delta_enabled:
         lvl = clip3(0, 63, lvl + h.lf_ref_deltas[0] * (1 << (lvl >> 5)))
     return lvl
@@ -2622,15 +2710,240 @@ def _loop_restoration(f: _Frame, deblocked: list) -> None:
                 f.frame[plane][y0:y1, x0:x1] = out
 
 
+# --- film grain synthesis ---------------------------------------------------
+
+
+class GrainRandom:
+    """The film grain's 16-bit linear feedback shift register
+    (get_random_number)."""
+
+    def __init__(self, seed: int):
+        self.r = seed & 0xFFFF
+
+    def bits(self, n: int) -> int:
+        r = self.r
+        bit = (r ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1
+        self.r = (r >> 1) | (bit << 15)
+        return (self.r >> (16 - n)) & ((1 << n) - 1)
+
+
+def _white_grain(rng: GrainRandom, h: int, w: int, shift: int) -> np.ndarray:
+    """h x w samples of Gaussian_Sequence drawn by `rng`, rounded down by
+    `shift`."""
+    gauss = table("gaussian_sequence")
+    idx = [rng.bits(11) for _ in range(h * w)]
+    g = gauss[np.array(idx, np.int64)].reshape(h, w)
+    return (g + ((1 << shift) >> 1)) >> shift
+
+
+def _auto_regress(grain: np.ndarray, coeffs, lag: int, shift: int,
+                  lo: int, hi: int, luma=None, sub=(0, 0)) -> None:
+    """The auto-regressive filter over grain[3:, 3:-3] in raster order, in
+    place; `luma` (chroma only) adds the co-located luma grain averaged
+    over the subsampled block as the last coefficient's input."""
+    h, w = grain.shape
+    ssx, ssy = sub
+    taps = [(dr, dc) for dr in range(-lag, 1) for dc in range(-lag, lag + 1)
+            if dr < 0 or dc < 0]
+    above = [(k, dr, dc) for k, (dr, dc) in enumerate(taps) if dr < 0]
+    left = [(k, dc) for k, (dr, dc) in enumerate(taps) if dr == 0]
+    rnd = 1 << (shift - 1)
+    for y in range(3, h):
+        xs = slice(3, w - 3)
+        base = np.zeros(w - 6, np.int64)
+        for k, dr, dc in above:
+            base += coeffs[k] * grain[y + dr, 3 + dc:w - 3 + dc]
+        if luma is not None:
+            ly = ((y - 3) << ssy) + 3
+            lx = ((np.arange(3, w - 3) - 3) << ssx) + 3
+            avg = sum(luma[ly + i, lx + j] for i in range(ssy + 1)
+                      for j in range(ssx + 1))
+            base += coeffs[len(taps)] * round2(avg, ssx + ssy)
+        row = grain[y].tolist()
+        for x in range(3, w - 3):
+            total = int(base[x - 3])
+            for k, dc in left:
+                total += coeffs[k] * row[x + dc]
+            row[x] = clip3(lo, hi, row[x] + ((total + rnd) >> shift))
+        grain[y, xs] = row[3:w - 3]
+
+
+def grain_templates(g, bd: int, ssx: int, ssy: int, mono: int) -> list:
+    """The luma (73 x 82) and Cb and Cr (38 or 73 x 44 or 82) grain
+    templates of film grain parameters `g` (`avif.FilmGrain`): seeded
+    Gaussian noise through the auto-regressive filter; a plane with no
+    grain is None."""
+    lo, hi = -(128 << (bd - 8)), (128 << (bd - 8)) - 1
+    shift = 12 - bd + g.grain_scale_shift
+    luma = None
+    if g.y_points:
+        luma = _white_grain(GrainRandom(g.seed), 73, 82, shift)
+        _auto_regress(luma, g.ar_y, g.ar_coeff_lag, g.ar_coeff_shift, lo, hi)
+    out = [luma]
+    ch, cw = (38 if ssy else 73), (44 if ssx else 82)
+    for salt, points, coeffs in ((0xB524, g.cb_points, g.ar_cb),
+                                 (0x49D8, g.cr_points, g.ar_cr)):
+        if mono or not (points or g.chroma_scaling_from_luma):
+            out.append(None)
+            continue
+        c = _white_grain(GrainRandom(g.seed ^ salt), ch, cw, shift)
+        _auto_regress(c, coeffs, g.ar_coeff_lag, g.ar_coeff_shift, lo, hi,
+                      luma, (ssx, ssy))
+        out.append(c)
+    return out
+
+
+def scaling_lut(points) -> np.ndarray:
+    """The 256-entry scaling function of (value, scaling) points (libaom's
+    init_scaling_function)."""
+    lut = np.zeros(256, np.int64)
+    if not points:
+        return lut
+    lut[:points[0][0]] = points[0][1]
+    for (x0, y0), (x1, y1) in zip(points, points[1:]):
+        dx = x1 - x0
+        delta = (y1 - y0) * ((65536 + (dx >> 1)) // dx)
+        lut[x0:x1] = y0 + ((np.arange(dx) * delta + 32768) >> 16)
+    lut[points[-1][0]:] = points[-1][1]
+    return lut
+
+
+def _scale(lut: np.ndarray, index: np.ndarray, bd: int) -> np.ndarray:
+    """scale_lut: the function at a bd-bit index, interpolated between
+    entries past 8 bits."""
+    x = index >> (bd - 8)
+    if bd == 8:
+        return lut[x]
+    frac = index & ((1 << (bd - 8)) - 1)
+    nxt = lut[np.minimum(x + 1, 255)]
+    v = lut[x] + (((nxt - lut[x]) * frac + (1 << (bd - 9))) >> (bd - 8))
+    return np.where(x == 255, lut[x], v)
+
+
+def _blend(old: np.ndarray, new: np.ndarray, weights, lo: int, hi: int):
+    a, b = weights
+    return np.clip((old * a + new * b + 16) >> 5, lo, hi)
+
+
+def noise_images(g, templates: list, height: int, width: int, bd: int,
+                 ssx: int, ssy: int) -> list:
+    """The noise of each plane (None where it has no grain): 34x34 (luma)
+    blocks of the templates at offsets drawn per 32x32 block from the
+    stripe's generator, blended across block and stripe edges where
+    `g.overlap` is set."""
+    lo, hi = -(128 << (bd - 8)), (128 << (bd - 8)) - 1
+    half_h, half_w = (height + 1) // 2, (width + 1) // 2
+    subs = [(0, 0), (ssx, ssy), (ssx, ssy)]
+    stripes = []
+    for n, y in enumerate(range(0, half_h, 16)):
+        rng = GrainRandom(g.seed)
+        rng.r ^= ((n * 37 + 178) & 255) << 8
+        rng.r ^= (n * 173 + 105) & 255
+        row = [None if t is None else
+               np.zeros((34 >> sy, ((width + sx) >> sx) + 34), np.int64)
+               for t, (sx, sy) in zip(templates, subs)]
+        for x in range(0, half_w, 16):
+            r = rng.bits(8)
+            ox, oy = r >> 4, r & 15
+            for t, st, (sx, sy) in zip(templates, row, subs):
+                if t is None:
+                    continue
+                px = 6 + ox if sx else 9 + 2 * ox
+                py = 6 + oy if sy else 9 + 2 * oy
+                blk = t[py:py + (34 >> sy), px:px + (34 >> sx)].copy()
+                x0 = (2 * x) >> sx
+                if g.overlap and x:
+                    if sx:
+                        blk[:, 0] = _blend(st[:, x0], blk[:, 0], (23, 22),
+                                           lo, hi)
+                    else:
+                        blk[:, 0] = _blend(st[:, x0], blk[:, 0], (27, 17),
+                                           lo, hi)
+                        blk[:, 1] = _blend(st[:, x0 + 1], blk[:, 1],
+                                           (17, 27), lo, hi)
+                st[:, x0:x0 + blk.shape[1]] = blk
+        stripes.append(row)
+    out = []
+    for p, (sx, sy) in enumerate(subs):
+        if templates[p] is None:
+            out.append(None)
+            continue
+        ph, pw = (height + sy) >> sy, (width + sx) >> sx
+        rows = 32 >> sy
+        img = np.concatenate([st[p][:rows, :pw] for st in stripes])[:ph]
+        if g.overlap:
+            for n in range(1, len(stripes)):
+                y0 = n * rows
+                old, new = stripes[n - 1][p], stripes[n][p]
+                pairs = ((0, (23, 22)),) if sy else ((0, (27, 17)),
+                                                     (1, (17, 27)))
+                for i, w in pairs:
+                    if y0 + i < ph:
+                        img[y0 + i] = _blend(old[rows + i, :pw],
+                                             new[i, :pw], w, lo, hi)
+        out.append(img)
+    return out
+
+
+def film_grain(g, y: np.ndarray, u, v, bd: int, ssx: int, ssy: int,
+               mc_identity: int) -> tuple:
+    """The planes (uint8 at 8 bits, else uint16; U and V None when
+    monochrome) with the film grain of parameters `g` (`avif.FilmGrain`)
+    added, as libaom 3.14.1's av1_add_film_grain adds it to the frames it
+    outputs: the chroma scaled from the co-located luma before the luma's
+    own grain, clipped to the full or the restricted range."""
+    mono = u is None
+    templates = grain_templates(g, bd, ssx, ssy, mono)
+    height, width = y.shape
+    noise = noise_images(g, templates, height, width, bd, ssx, ssy)
+    top = (256 << (bd - 8)) - 1
+    if g.clip_to_restricted_range:
+        lo, hi_y = 16 << (bd - 8), 235 << (bd - 8)
+        hi_c = hi_y if mc_identity else 240 << (bd - 8)
+    else:
+        lo, hi_y, hi_c = 0, top, top
+    rnd = 1 << (g.scaling_shift - 1)
+    luma = y.astype(np.int64)
+    out = [y, u, v]
+    if not mono:
+        ch, cw = u.shape
+        ly = luma[np.arange(ch) << ssy]
+        lx = np.arange(cw) << ssx
+        avg = (ly[:, lx] + ly[:, np.minimum(lx + 1, width - 1)] + 1) >> 1 \
+            if ssx else ly[:, lx]
+        chroma = ((g.cb_points, g.cb_mult, g.cb_luma_mult, g.cb_offset),
+                  (g.cr_points, g.cr_mult, g.cr_luma_mult, g.cr_offset))
+        for k, (points, mult, luma_mult, offset) in enumerate(chroma):
+            if noise[k + 1] is None:
+                continue
+            c = out[k + 1].astype(np.int64)
+            if g.chroma_scaling_from_luma:
+                merged, lut = avg, scaling_lut(g.y_points)
+            else:
+                merged = np.clip(((avg * luma_mult + c * mult) >> 6)
+                                 + (offset << (bd - 8)), 0, top)
+                lut = scaling_lut(points)
+            n = (_scale(lut, merged, bd) * noise[k + 1] + rnd) \
+                >> g.scaling_shift
+            out[k + 1] = np.clip(c + n, lo, hi_c).astype(u.dtype)
+    if noise[0] is not None:
+        n = (_scale(scaling_lut(g.y_points), luma, bd) * noise[0] + rnd) \
+            >> g.scaling_shift
+        out[0] = np.clip(luma + n, lo, hi_y).astype(y.dtype)
+    return tuple(out)
+
+
 # --- the frame ---------------------------------------------------------------
 
 
-def decode_planes_plain(frame, cdef: bool = True, restoration: bool = True):
+def decode_planes_plain(frame, cdef: bool = True, restoration: bool = True,
+                        grain: bool = True):
     """(Y, U, V) of an `avif.Frame` (U, V None when monochrome), uint8 at
-    8 bits, else uint16 at the stream's depth; without `cdef`, the
-    deblocked frame, before CDEF and loop restoration; without
-    `restoration`, the frame before loop restoration (stages for the
-    tests)."""
+    8 bits, else uint16 at the stream's depth, with the frame's film
+    grain added; without `cdef`, the deblocked frame, before CDEF and
+    loop restoration; without `restoration`, the frame before loop
+    restoration; without `grain`, the frame before its film grain
+    (stages for the tests)."""
     f = _Frame(frame)
     t = _Tile(f)
     h = f.h
@@ -2647,8 +2960,12 @@ def decode_planes_plain(frame, cdef: bool = True, restoration: bool = True):
         if restoration and any(h.lr_type):
             _loop_restoration(f, deblocked)
     y = _samples(f.frame[0][:h.height, :h.width], f.bd)
-    if f.planes == 1:
-        return y, None, None
-    ch, cw = (h.height + f.ssy) >> f.ssy, (h.width + f.ssx) >> f.ssx
-    return (y, _samples(f.frame[1][:ch, :cw], f.bd),
-            _samples(f.frame[2][:ch, :cw], f.bd))
+    u = v = None
+    if f.planes > 1:
+        ch, cw = (h.height + f.ssy) >> f.ssy, (h.width + f.ssx) >> f.ssx
+        u = _samples(f.frame[1][:ch, :cw], f.bd)
+        v = _samples(f.frame[2][:ch, :cw], f.bd)
+    if grain and cdef and restoration and h.grain is not None:
+        return film_grain(h.grain, y, u, v, f.bd, f.ssx, f.ssy,
+                          int(frame.seq.matrix == 0))
+    return y, u, v

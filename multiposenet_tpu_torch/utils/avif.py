@@ -78,12 +78,21 @@ ValueError names the form. What such files use, and what is read here:
   copies, the inter transform tree and sets), delta q and delta lf, the
   largest or a selected transform size, the intra transform sets, the
   quantiser matrices, lossless frames (the Walsh-Hadamard transform on
-  4x4 blocks), then the deblocking filter, CDEF (4x8 chroma blocks at
+  4x4 blocks), segmentation (each block's segment id, predicted from its
+  neighbours' and read before or after its skip flag, its qindex,
+  lossless or not, and its deblocking levels by the segment's features;
+  a segment id past the last active one is refused, as libaom refuses
+  it), then the deblocking filter, CDEF (4x8 chroma blocks at
   4:2:2, their direction mapped through libaom's conv422) and loop
   restoration (Wiener and self-guided units in 64-row stripes offset 8
-  rows up). A tile whose symbols run past its bytes, or that does not
-  end in its trailing bits, or a DV that libaom's av1_is_dv_valid
-  rejects, is refused, as libaom reports such a frame corrupt;
+  rows up), and the film grain libaom adds to the frames it outputs
+  (its parameters checked as libaom checks them; the seeded templates,
+  the auto-regressive filter, the scaling functions, the 32x32 blocks
+  and their overlap, the clip to the full or the restricted range), to
+  each still, grid cell and sequence's first frame. A tile whose symbols
+  run past its bytes, or that does not end in its trailing bits, or a DV
+  that libaom's av1_is_dv_valid rejects, is refused, as libaom reports
+  such a frame corrupt;
 - libavif's YUV to RGB (`yuv_to_rgb`): for BT.601, BT.709 and BT.2020
   NCL at limited and full range (and chroma-derived NCL of those
   primaries) libyuv's fixed-point constants with its bilinear 4:2:0 and
@@ -101,7 +110,8 @@ what no file reached: the rest is held to libaom's own C functions stage
 by stage and on files Pillow's AVIF writer and libavif's encoder make).
 
 What lies outside it is refused by a ValueError that names it, where the
-stream uses it: superres, segmentation, film grain, frames other than
+stream uses it: superres (which libavif 1.4.2's encoder refuses to
+write), frames other than
 one shown key frame, an `ispe` or `tkhd` other than the frame's size
 (cv2 returns the frame scaled to it); and, as cv2 returns no image for
 them, the colour forms libavif does not convert (`colour_refusal`) and
@@ -118,7 +128,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from multiposenet_tpu_torch import kernels
-from multiposenet_tpu_torch.utils.av1 import decode_planes_plain
+from multiposenet_tpu_torch.utils.av1 import (SEG_LVL_ALT_Q,
+                                              decode_planes_plain)
 
 AVIF_BRANDS = (b"avif", b"avis")
 
@@ -750,6 +761,42 @@ def check_sequence(s: SequenceHeader) -> None:
 
 
 @dataclass
+class FilmGrain:
+    """film_grain_params of a shown key frame whose apply_grain is 1, as
+    libaom keeps them (aom_film_grain_t): the AR coefficients and the
+    multipliers less 128, the offsets less 256, the shifts with their
+    bases added."""
+    seed: int = 0
+    y_points: tuple = ()  # (value, scaling) pairs
+    cb_points: tuple = ()
+    cr_points: tuple = ()
+    chroma_scaling_from_luma: int = 0
+    scaling_shift: int = 8
+    ar_coeff_lag: int = 0
+    ar_y: tuple = ()
+    ar_cb: tuple = ()
+    ar_cr: tuple = ()
+    ar_coeff_shift: int = 6
+    grain_scale_shift: int = 0
+    cb_mult: int = 0
+    cb_luma_mult: int = 0
+    cb_offset: int = 0
+    cr_mult: int = 0
+    cr_luma_mult: int = 0
+    cr_offset: int = 0
+    overlap: int = 0
+    clip_to_restricted_range: int = 0
+
+
+# Segmentation_Feature_Bits, _Signed and _Max: SEG_LVL_ALT_Q, the four
+# SEG_LVL_ALT_LF_*, SEG_LVL_REF_FRAME, SEG_LVL_SKIP, SEG_LVL_GLOBALMV.
+SEG_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
+SEG_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
+SEG_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
+SEG_LVL_REF_FRAME = 5  # features from here on are read before the skip flag
+
+
+@dataclass
 class FrameHeader:
     width: int = 0
     height: int = 0
@@ -781,6 +828,18 @@ class FrameHeader:
     cdef_y: tuple = ((0, 0),)
     cdef_uv: tuple = ((0, 0),)
     lossless: int = 0  # CodedLossless (and AllLossless: no superres)
+    # segmentation_params: each segment's feature mask (bit j: feature
+    # j, SEG_LVL_ALT_Q .. SEG_LVL_GLOBALMV) and data, LastActiveSegId,
+    # SegIdPreSkip, and per segment get_qindex(1, segment) and
+    # LosslessArray
+    segmentation: int = 0
+    seg_mask: tuple = (0,) * 8
+    seg_data: tuple = ((0,) * 8,) * 8
+    seg_last_active: int = 0
+    seg_preskip: int = 0
+    seg_qindex: tuple = (0,) * 8
+    seg_lossless: tuple = (0,) * 8
+    grain: FilmGrain | None = None  # film_grain_params with apply_grain
     lr_type: tuple = (0, 0, 0)  # RESTORE_NONE, _WIENER, _SGRPROJ, _SWITCHABLE
     lr_unit_size: tuple = (256, 256, 256)
     tx_mode_select: int = 0
@@ -863,7 +922,7 @@ def parse_frame_header(payload: bytes, s: SequenceHeader) -> FrameHeader:
         qv = r.f(4) if s.separate_uv_delta_q else qu
         h.qm = (qy, qu, qv)
     if r.f(1):
-        raise ValueError("AVIF: segmentation is not read here")
+        _segmentation_params(r, h)
     if h.base_q > 0:
         h.delta_q_present = r.f(1)
         if h.delta_q_present:
@@ -873,7 +932,16 @@ def parse_frame_header(payload: bytes, s: SequenceHeader) -> FrameHeader:
         if h.delta_lf_present:
             h.delta_lf_res = r.f(2)
             h.delta_lf_multi = r.f(1)
-    h.lossless = int(h.base_q == 0 and not any(h.dq))
+    qindex = []
+    for i in range(8):
+        q = h.base_q
+        if h.seg_mask[i] & (1 << SEG_LVL_ALT_Q):
+            q = min(max(q + h.seg_data[i][SEG_LVL_ALT_Q], 0), 255)
+        qindex.append(q)
+    h.seg_qindex = tuple(qindex)
+    h.seg_lossless = tuple(int(q == 0 and not any(h.dq)) for q in qindex)
+    h.lossless = int(all(h.seg_lossless) if h.segmentation
+                     else h.seg_lossless[0])
     if not (h.lossless or h.allow_intrabc):
         _loop_filter_params(r, h, s)
     if s.cdef and not (h.lossless or h.allow_intrabc):
@@ -883,10 +951,86 @@ def parse_frame_header(payload: bytes, s: SequenceHeader) -> FrameHeader:
     h.tx_mode_select = 0 if h.lossless else r.f(1)
     h.reduced_tx_set = r.f(1)
     if s.film_grain and r.f(1):
-        raise ValueError("AVIF: film grain is not read here")
+        h.grain = _film_grain_params(r, s)
     r.byte_align()
     h.header_bytes = r.pos >> 3
     return h
+
+
+def _segmentation_params(r: BitReader, h: FrameHeader) -> None:
+    """segmentation_params of a key frame (primary_ref_frame none: the
+    map and the data are both coded), as libaom's setup_segmentation
+    reads them."""
+    h.segmentation = 1
+    mask, data = [0] * 8, [[0] * 8 for _ in range(8)]
+    for i in range(8):
+        for j in range(8):
+            if not r.f(1):
+                continue
+            mask[i] |= 1 << j
+            if SEG_SIGNED[j]:
+                v = r.su(1 + SEG_BITS[j])
+            else:
+                v = r.f(SEG_BITS[j])
+            data[i][j] = min(max(v, -SEG_MAX[j]), SEG_MAX[j])
+            h.seg_last_active = i
+            if j >= SEG_LVL_REF_FRAME:
+                h.seg_preskip = 1
+    h.seg_mask = tuple(mask)
+    h.seg_data = tuple(tuple(d) for d in data)
+
+
+def _grain_points(r: BitReader, n: int, most: int, which: str) -> tuple:
+    """num_*_points (at most `most`, as libaom refuses more) scaling
+    points, their values increasing (libaom refuses others)."""
+    if n > most:
+        raise ValueError(f"AVIF: film grain: {n} {which} scaling points "
+                         f"(libaom refuses more than {most})")
+    points = []
+    for i in range(n):
+        x = r.f(8)
+        if i and points[-1][0] >= x:
+            raise ValueError(f"AVIF: film grain: the {which} scaling points "
+                             "do not increase (libaom refuses them)")
+        points.append((x, r.f(8)))
+    return tuple(points)
+
+
+def _film_grain_params(r: BitReader, s: SequenceHeader) -> FilmGrain:
+    """film_grain_params after apply_grain 1 in a shown key frame
+    (update_grain implied), as libaom's read_film_grain_params reads and
+    checks them."""
+    g = FilmGrain(seed=r.f(16))
+    g.y_points = _grain_points(r, r.f(4), 14, "luma")
+    g.chroma_scaling_from_luma = 0 if s.mono else r.f(1)
+    if not (s.mono or g.chroma_scaling_from_luma
+            or (s.ssx and s.ssy and not g.y_points)):
+        g.cb_points = _grain_points(r, r.f(4), 10, "Cb")
+        g.cr_points = _grain_points(r, r.f(4), 10, "Cr")
+        if s.ssx and s.ssy and bool(g.cb_points) != bool(g.cr_points):
+            raise ValueError("AVIF: film grain on one chroma plane of a "
+                             "4:2:0 frame (libaom refuses it)")
+    g.scaling_shift = r.f(2) + 8
+    g.ar_coeff_lag = r.f(2)
+    n = 2 * g.ar_coeff_lag * (g.ar_coeff_lag + 1)
+    if g.y_points:
+        g.ar_y = tuple(r.f(8) - 128 for _ in range(n))
+    n_chroma = n + (1 if g.y_points else 0)
+    if g.cb_points or g.chroma_scaling_from_luma:
+        g.ar_cb = tuple(r.f(8) - 128 for _ in range(n_chroma))
+    if g.cr_points or g.chroma_scaling_from_luma:
+        g.ar_cr = tuple(r.f(8) - 128 for _ in range(n_chroma))
+    g.ar_coeff_shift = r.f(2) + 6
+    g.grain_scale_shift = r.f(2)
+    if g.cb_points:
+        g.cb_mult, g.cb_luma_mult = r.f(8) - 128, r.f(8) - 128
+        g.cb_offset = r.f(9) - 256
+    if g.cr_points:
+        g.cr_mult, g.cr_luma_mult = r.f(8) - 128, r.f(8) - 128
+        g.cr_offset = r.f(9) - 256
+    g.overlap = r.f(1)
+    g.clip_to_restricted_range = r.f(1)
+    return g
 
 
 def _loop_filter_params(r: BitReader, h: FrameHeader,
@@ -1079,7 +1223,7 @@ def _complete(h: FrameHeader, groups: list[bytes]) -> bool:
 
 # --- the tile decoder (host C) -----------------------------------------------
 
-NSTATS = 19 + 16 + 13 + 14 + 5 + 7 + 11 + 10 + 12
+NSTATS = 19 + 16 + 13 + 14 + 5 + 7 + 11 + 10 + 12 + 21
 STAT_NAMES = (
     [f"tx_size_{n}" for n in ("4x4", "8x8", "16x16", "32x32", "64x64",
                               "4x8", "8x4", "8x16", "16x8", "16x32", "32x16",
@@ -1095,11 +1239,20 @@ STAT_NAMES = (
     + [f"partition_{i}" for i in range(10)]
     + ["palette_y", "palette_uv", "palette_cache", "palette_delta_v",
        "lossless_blocks", "lr_none", "lr_wiener", "lr_sgrproj",
-       "lr_switchable", "intrabc_blocks", "intrabc_halfpel", "vartx_splits"])
+       "lr_switchable", "intrabc_blocks", "intrabc_halfpel", "vartx_splits",
+       "segmented_frames"]
+    + [f"segment_{i}" for i in range(8)]
+    + [f"seg_feature_{n}" for n in ("alt_q", "alt_lf_y_v", "alt_lf_y_h",
+                                    "alt_lf_u", "alt_lf_v", "ref_frame",
+                                    "skip", "globalmv")]
+    + ["seg_id_predicted", "lossless_segment_blocks", "grain_frames",
+       "grain_blocks"])
 # csrc/av1.c's AV1_SSX .. AV1_TILES.
 PLAN_SSX, PLAN_NO_CDEF, PLAN_LR_TYPE, PLAN_LR_UNIT = 75, 79, 80, 83
 PLAN_SB128, PLAN_NO_LR, PLAN_BIT_DEPTH = 86, 87, 88
-PLAN_COL_STARTS = 89
+PLAN_SEG, PLAN_SEG_DATA, PLAN_SEG_LOSSLESS = 89, 100, 164
+PLAN_SEG_QINDEX = 172
+PLAN_COL_STARTS = 180
 PLAN_ROW_STARTS = PLAN_COL_STARTS + 65
 PLAN_TILES = PLAN_ROW_STARTS + 65
 _ERR_LEN = 256
@@ -1115,6 +1268,9 @@ def library() -> ctypes.CDLL:
                                      vp, vp, vp, i32p, ctypes.c_char_p,
                                      ctypes.c_int]
     lib.av1_decode_frame.restype = ctypes.c_int
+    lib.av1_film_grain.argtypes = [i32p, vp, vp, vp] + [ctypes.c_int] * 6 \
+        + [i32p]
+    lib.av1_film_grain.restype = ctypes.c_int
     return lib
 
 
@@ -1146,19 +1302,74 @@ def plan(frame: Frame, cdef: bool = True,
     out[PLAN_SB128] = s.sb128
     out[PLAN_NO_LR] = 0 if restoration else 1
     out[PLAN_BIT_DEPTH] = s.bit_depth
+    out[PLAN_SEG:PLAN_SEG + 3] = (h.segmentation, h.seg_preskip,
+                                  h.seg_last_active)
+    out[PLAN_SEG + 3:PLAN_SEG_DATA] = h.seg_mask
+    out[PLAN_SEG_DATA:PLAN_SEG_LOSSLESS] = np.array(h.seg_data).ravel()
+    out[PLAN_SEG_LOSSLESS:PLAN_SEG_QINDEX] = h.seg_lossless
+    out[PLAN_SEG_QINDEX:PLAN_SEG_QINDEX + 8] = h.seg_qindex
     out[PLAN_COL_STARTS:PLAN_COL_STARTS + len(h.col_starts)] = h.col_starts
     out[PLAN_ROW_STARTS:PLAN_ROW_STARTS + len(h.row_starts)] = h.row_starts
     out[PLAN_TILES:] = np.array(frame.tiles, np.int64).ravel()
     return out
 
 
+# csrc/av1.c's G_* (the film grain parameters).
+GRAIN_PLAN_SIZE = 160
+
+
+def grain_plan(g: FilmGrain, mc_identity: int) -> np.ndarray:
+    """The int32 parameters `av1_film_grain` reads (csrc/av1.c's G_*)."""
+    out = np.zeros(GRAIN_PLAN_SIZE, np.int32)
+    at = 0
+
+    def put(values, room=None):
+        nonlocal at
+        values = list(values)
+        out[at:at + len(values)] = values
+        at += len(values) if room is None else room
+
+    put([g.seed])
+    for points, most in ((g.y_points, 14), (g.cb_points, 10),
+                         (g.cr_points, 10)):
+        put([len(points)])
+        put([v for pt in points for v in pt], 2 * most)
+    put([g.chroma_scaling_from_luma, g.scaling_shift, g.ar_coeff_lag])
+    put(g.ar_y, 24)
+    put(g.ar_cb, 25)
+    put(g.ar_cr, 25)
+    put([g.ar_coeff_shift, g.grain_scale_shift, g.cb_mult, g.cb_luma_mult,
+         g.cb_offset, g.cr_mult, g.cr_luma_mult, g.cr_offset, g.overlap,
+         g.clip_to_restricted_range, mc_identity])
+    assert at == GRAIN_PLAN_SIZE
+    return out
+
+
+def film_grain_c(frame: Frame, y: np.ndarray, u: np.ndarray,
+                 v: np.ndarray, stats: np.ndarray | None = None) -> None:
+    """Adds the frame's film grain to its output planes in place through
+    the host C library (`av1_film_grain`; U and V are allocated, unused,
+    for a monochrome stream), counting into `stats`."""
+    h, s = frame.header, frame.seq
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    g = grain_plan(h.grain, int(s.matrix == 0))
+    if stats is None:
+        stats = np.zeros(NSTATS, np.int32)
+    if library().av1_film_grain(
+            g.ctypes.data_as(i32p), y.ctypes.data, u.ctypes.data,
+            v.ctypes.data, h.width, h.height, s.ssx, s.ssy, s.mono,
+            s.bit_depth, stats.ctypes.data_as(i32p)):
+        raise MemoryError("AV1: out of memory")
+
+
 def decode_planes_c(frame: Frame, cdef: bool = True,
-                    restoration: bool = True):
-    """(Y, U, V, stats) of the frame through the host C library; U and V
-    are None for a monochrome stream. The planes are uint8 at 8 bits,
-    else uint16 at the stream's depth. Without `cdef`, the deblocked
-    planes, before CDEF and loop restoration; without `restoration`,
-    the planes before loop restoration (stages for the tests)."""
+                    restoration: bool = True, grain: bool = True):
+    """(Y, U, V, stats) of the frame through the host C library, its film
+    grain added; U and V are None for a monochrome stream. The planes
+    are uint8 at 8 bits, else uint16 at the stream's depth. Without
+    `cdef`, the deblocked planes, before CDEF and loop restoration;
+    without `restoration`, the planes before loop restoration; without
+    `grain`, the planes before the film grain (stages for the tests)."""
     h, s = frame.header, frame.seq
     dtype = np.uint8 if s.bit_depth == 8 else np.uint16
     y = np.empty((h.height, h.width), dtype)
@@ -1176,6 +1387,8 @@ def decode_planes_c(frame: Frame, cdef: bool = True,
         raise MemoryError(err.value.decode())
     if rc:
         raise ValueError(err.value.decode())
+    if grain and cdef and restoration and h.grain is not None:
+        film_grain_c(frame, y, u, v, stats)
     if frame.seq.mono:
         return y, None, None, stats
     return y, u, v, stats

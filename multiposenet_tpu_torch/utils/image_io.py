@@ -57,15 +57,17 @@ libpng 1.6):
   every colour description libavif converts (limited and full range,
   BT.601, BT.709, BT.2020, FCC, SMPTE 240M, YCgCo, chroma-derived), as
   libavif 1.4.2 over libaom 3.14.1 decodes it for cv2, the AV1 tiles
-  (palette, intra block copy, lossless 4:4:4), deblocking, CDEF and loop
-  restoration in the host C library `csrc/av1.c`; `decode_image_plain`
-  runs the plain decoder `utils/av1.py`; grid images (the cells
-  stitched), Exif items (their orientation applied) and image sequences
-  (the first frame) are read as cv2 reads them. What cv2 returns no
-  image for (colour descriptions libavif does not convert, a monochrome
-  image with an alpha item, the container forms libavif refuses or
-  cv2's 500-byte signature parse cannot reach) and what lies past that
-  contract (superres, segmentation, film grain) is refused by name.
+  (palette, intra block copy, lossless 4:4:4, segmentation),
+  deblocking, CDEF, loop restoration and libaom's film grain in the
+  host C library `csrc/av1.c`; `decode_image_plain` runs the plain
+  decoder `utils/av1.py`; grid images (the cells stitched), Exif items
+  (their orientation applied) and image sequences (the first frame) are
+  read as cv2 reads them. What cv2 returns no image for (colour
+  descriptions libavif does not convert, a monochrome image with an
+  alpha item, the container forms libavif refuses or cv2's 500-byte
+  signature parse cannot reach, grain parameters or segment ids libaom
+  refuses) and what lies past that contract (superres) is refused by
+  name.
 Gray is repeated into three channels. The Exif orientation (tag 0x0112
 of IFD0, in a JPEG APP1 `Exif` block, a PNG `eXIf` chunk, a TIFF's own
 IFD0, a WebP `EXIF` chunk or an AVIF Exif item) is applied as cv2

@@ -19,6 +19,7 @@ import ctypes
 import glob
 import os
 import struct
+from pathlib import Path
 
 import numpy as np
 
@@ -44,6 +45,9 @@ AOM_IMG_FMT_HIGHBITDEPTH = 0x800
 # which in libaom 3.14.1 skips CDEF only (the deblocking filter still runs:
 # tests/test_torch_avif.py::test_planes_before_cdef_equal_libaoms).
 AV1D_SET_SKIP_LOOP_FILTER = 267
+# decoder_ctrl_maps: 282 -> ctrl_set_skip_film_grain (libaom applies the
+# film grain to the frames it outputs unless this is set).
+AV1D_SET_SKIP_FILM_GRAIN = 282
 
 _lib = None
 
@@ -69,10 +73,12 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def aom_planes(obus: bytes, skip_loop_filter: bool = False):
-    """(Y, U, V) as libaom decodes the OBU stream `obus`; U, V None for a
-    monochrome stream. With `skip_loop_filter`, control 267 is set first:
-    the planes before CDEF."""
+def aom_planes(obus: bytes, skip_loop_filter: bool = False,
+               skip_film_grain: bool = False):
+    """(Y, U, V) as libaom decodes the OBU stream `obus`, its film grain
+    applied; U, V None for a monochrome stream. With `skip_loop_filter`,
+    control 267 is set first: the planes before CDEF; with
+    `skip_film_grain`, control 282: the planes before the film grain."""
     lib = library()
     ctx = ctypes.create_string_buffer(256)
     # aom_codec_dec_cfg_t: threads, w, h, allow_lowbitdepth.
@@ -84,6 +90,8 @@ def aom_planes(obus: bytes, skip_loop_filter: bool = False):
     try:
         if skip_loop_filter:
             lib.aom_codec_control(ctx, AV1D_SET_SKIP_LOOP_FILTER, 1)
+        if skip_film_grain:
+            lib.aom_codec_control(ctx, AV1D_SET_SKIP_FILM_GRAIN, 1)
         rc = lib.aom_codec_decode(ctx, obus, len(obus), None)
         if rc:
             raise RuntimeError(f"aom_codec_decode: {rc}")
@@ -775,6 +783,100 @@ def primary_obus(data: bytes) -> bytes:
     return avif.item_data(data, c, c.items[c.primary])
 
 
+def sequence_obus(data: bytes) -> bytes:
+    """The AV1 stream of an image sequence's first colour sample, its
+    av1C configuration OBUs first (as the port reads it)."""
+    from multiposenet_tpu_torch.utils import avif
+
+    c = avif.read_container(data)
+    track = avif._colour_track(c)
+    offset, size = avif._samples(track)[0]
+    av1c = dict(reversed(avif._sample_entry(track)[1]))[b"av1C"]
+    return av1c[4:] + data[offset:offset + size]
+
+
+def with_obus(data: bytes, obus: bytes) -> bytes:
+    """A still AVIF file (`heif_parts` form) with its primary item's AV1
+    data replaced by `obus`."""
+    parts = heif_parts(data)
+    for item in parts["items"]:
+        if item["id"] == parts["primary"]:
+            item["data"] = obus
+    return heif_write(parts)
+
+
+def grain_table(path, g, end: int = 10 ** 12) -> str:
+    """Writes libaom's film grain table (the text `film-grain-table`
+    reads: aom_film_grain_table_write's form) of one entry from time 0
+    to `end` holding the parameters of an `avif.FilmGrain` `g` (all but
+    its clip_to_restricted_range, which the table does not carry);
+    returns the path."""
+    n = 2 * g.ar_coeff_lag * (g.ar_coeff_lag + 1)
+
+    def pts(points):
+        return f"{len(points)}" + "".join(f" {x} {y}" for x, y in points)
+
+    def coeffs(values, count):
+        return "".join(f" {v}" for v in (list(values) + [0] * count)[:count])
+
+    text = ("filmgrn1\n"
+            f"E 0 {end} 1 {g.seed} 1\n"
+            f"\tp {g.ar_coeff_lag} {g.ar_coeff_shift} {g.grain_scale_shift} "
+            f"{g.scaling_shift} {g.chroma_scaling_from_luma} {g.overlap} "
+            f"{g.cb_mult + 128} {g.cb_luma_mult + 128} {g.cb_offset + 256} "
+            f"{g.cr_mult + 128} {g.cr_luma_mult + 128} {g.cr_offset + 256}\n"
+            f"\tsY {pts(g.y_points)}\n\tsCb {pts(g.cb_points)}\n"
+            f"\tsCr {pts(g.cr_points)}\n\tcY{coeffs(g.ar_y, n)}\n"
+            f"\tcCb{coeffs(g.ar_cb, n + 1)}\n\tcCr{coeffs(g.ar_cr, n + 1)}\n")
+    Path(path).write_text(text)
+    return str(path)
+
+
+def draw_grain(rng, lag: int | None = None, luma: bool | None = None,
+               csfl: bool | None = None, chroma: bool = True):
+    """Seeded `avif.FilmGrain` parameters libaom accepts: a lag, 0 to 14
+    increasing luma points (or `luma`), chroma scaling from luma or 0 to
+    10 points per chroma plane (both or neither), every coefficient,
+    multiplier and offset, shift and flag drawn."""
+    from multiposenet_tpu_torch.utils import avif
+
+    def points(most):
+        n = int(rng.integers(1, most + 1))
+        xs = sorted(rng.choice(256, n, replace=False).tolist())
+        return tuple((x, int(rng.integers(0, 256))) for x in xs)
+
+    lag = int(rng.integers(0, 4)) if lag is None else lag
+    if luma is None:
+        luma = bool(rng.integers(0, 4))
+    g = avif.FilmGrain(seed=int(rng.integers(0, 1 << 16)))
+    g.y_points = points(14) if luma else ()
+    g.chroma_scaling_from_luma = int(rng.integers(0, 3) == 0) \
+        if csfl is None else int(csfl)
+    if chroma and not g.chroma_scaling_from_luma and rng.integers(0, 4):
+        g.cb_points, g.cr_points = points(10), points(10)
+    g.scaling_shift = int(rng.integers(8, 12))
+    g.ar_coeff_lag = lag
+    n = 2 * lag * (lag + 1)
+    g.ar_y = tuple(int(v) for v in rng.integers(-128, 128, n)) \
+        if g.y_points else ()
+    n_chroma = n + (1 if g.y_points else 0)
+    if g.cb_points or g.chroma_scaling_from_luma:
+        g.ar_cb = tuple(int(v) for v in rng.integers(-128, 128, n_chroma))
+        g.ar_cr = tuple(int(v) for v in rng.integers(-128, 128, n_chroma))
+    g.ar_coeff_shift = int(rng.integers(6, 10))
+    g.grain_scale_shift = int(rng.integers(0, 4))
+    if g.cb_points:
+        g.cb_mult, g.cb_luma_mult = (int(v) for v in rng.integers(-128, 128,
+                                                                   2))
+        g.cb_offset = int(rng.integers(-256, 256))
+        g.cr_mult, g.cr_luma_mult = (int(v) for v in rng.integers(-128, 128,
+                                                                   2))
+        g.cr_offset = int(rng.integers(-256, 256))
+    g.overlap = int(rng.integers(0, 2))
+    g.clip_to_restricted_range = int(rng.integers(0, 2))
+    return g
+
+
 # --- header writers ----------------------------------------------------------
 
 
@@ -871,11 +973,14 @@ def sequence_header(s, level: int = 0) -> bytes:
 def frame_header(s, h, extra=None) -> bytes:
     """The uncompressed header (byte-aligned) of a shown key frame with
     the fields of an `avif.FrameHeader` `h` under sequence header `s`
-    (uniform tiles; a lossless frame when its base_q and dq are 0, with
-    no loop filter, CDEF, restoration or tx mode fields). `extra` names
-    tools to signal: "superres", "segmentation", "film_grain" (refused
-    by the port), "restoration" (switchable units on luma) and "intrabc"
-    (allow_intrabc)."""
+    (uniform tiles; segmentation_params from h.segmentation, h.seg_mask
+    and h.seg_data; a lossless frame when every segment's qindex and dq
+    are 0, with no loop filter, CDEF, restoration or tx mode fields;
+    film_grain_params from h.grain where the sequence allows grain).
+    `extra` names tools to signal: "superres" (refused by the port),
+    "segmentation" (enabled, with h's features), "film_grain" (h.grain,
+    or default parameters), "restoration" (switchable units on luma) and
+    "intrabc" (allow_intrabc)."""
     extra = extra or ()
     w = BitWriter()
     if not s.reduced:
@@ -954,9 +1059,25 @@ def frame_header(s, h, extra=None) -> bytes:
         w.f(4, h.qm[1])
         if s.separate_uv_delta_q:
             w.f(4, h.qm[2])
-    w.f(1, int("segmentation" in extra))
-    if "segmentation" in extra:
-        return w.aligned()
+    from multiposenet_tpu_torch.utils import av1, avif
+
+    segmented = int(h.segmentation or "segmentation" in extra)
+    w.f(1, segmented)
+    qindex = [h.base_q] * 8
+    if segmented:
+        for i in range(8):
+            for j in range(8):
+                on = h.seg_mask[i] >> j & 1
+                w.f(1, on)
+                if not on:
+                    continue
+                v = h.seg_data[i][j]
+                if avif.SEG_SIGNED[j]:
+                    w.su(1 + avif.SEG_BITS[j], v)
+                else:
+                    w.f(avif.SEG_BITS[j], v)
+                if j == av1.SEG_LVL_ALT_Q:
+                    qindex[i] = min(max(h.base_q + v, 0), 255)
     if h.base_q > 0:
         w.f(1, h.delta_q_present)
         if h.delta_q_present:
@@ -966,7 +1087,8 @@ def frame_header(s, h, extra=None) -> bytes:
         if h.delta_lf_present:
             w.f(2, h.delta_lf_res)
             w.f(1, h.delta_lf_multi)
-    lossless = h.base_q == 0 and not any(h.dq)
+    lossless = all(q == 0 for q in qindex[:8 if segmented else 1]) \
+        and not any(h.dq)
     if not (lossless or intrabc):
         w.f(6, h.lf_level[0])
         w.f(6, h.lf_level[1])
@@ -1006,8 +1128,58 @@ def frame_header(s, h, extra=None) -> bytes:
         w.f(1, h.tx_mode_select)
     w.f(1, h.reduced_tx_set)
     if s.film_grain:
-        w.f(1, int("film_grain" in extra))
+        grain = h.grain or (avif.FilmGrain() if "film_grain" in extra
+                            else None)
+        w.f(1, int(grain is not None))
+        if grain is not None:
+            film_grain_params(w, s, grain)
     return w.aligned()
+
+
+def film_grain_params(w: BitWriter, s, g) -> None:
+    """film_grain_params after apply_grain 1 of a shown key frame, for an
+    `avif.FilmGrain` `g` (its points written as given: the counts in 4
+    bits, whatever libaom's limits)."""
+    w.f(16, g.seed)
+
+    def points(pts):
+        w.f(4, len(pts))
+        for x, y in pts:
+            w.f(8, x)
+            w.f(8, y)
+
+    points(g.y_points)
+    if not s.mono:
+        w.f(1, g.chroma_scaling_from_luma)
+    if not (s.mono or g.chroma_scaling_from_luma
+            or (s.ssx and s.ssy and not g.y_points)):
+        points(g.cb_points)
+        points(g.cr_points)
+    w.f(2, g.scaling_shift - 8)
+    w.f(2, g.ar_coeff_lag)
+    n = 2 * g.ar_coeff_lag * (g.ar_coeff_lag + 1)
+    if g.y_points:
+        for v in g.ar_y[:n]:
+            w.f(8, v + 128)
+    n_chroma = n + (1 if g.y_points else 0)
+    if g.cb_points or g.chroma_scaling_from_luma:
+        for v in g.ar_cb[:n_chroma]:
+            w.f(8, v + 128)
+    if g.cr_points or g.chroma_scaling_from_luma:
+        for v in g.ar_cr[:n_chroma]:
+            w.f(8, v + 128)
+    w.f(2, g.ar_coeff_shift - 6)
+    w.f(2, g.grain_scale_shift)
+    if g.cb_points:
+        w.f(8, g.cb_mult + 128)
+        w.f(8, g.cb_luma_mult + 128)
+        w.f(9, g.cb_offset + 256)
+    if g.cr_points:
+        w.f(8, g.cr_mult + 128)
+        w.f(8, g.cr_luma_mult + 128)
+        w.f(9, g.cr_offset + 256)
+    w.f(1, g.overlap)
+    w.f(1, g.clip_to_restricted_range)
 
 
 def rewrite_frame(obus: bytes, seq_changes: dict | None = None,
@@ -1034,6 +1206,237 @@ def rewrite_frame(obus: bytes, seq_changes: dict | None = None,
     return (obu(avif.OBU_TEMPORAL_DELIMITER, b"")
             + obu(avif.OBU_SEQUENCE_HEADER, sequence_header(seq2))
             + obu(avif.OBU_FRAME, frame_header(seq2, h2, extra) + tiles))
+
+
+# --- re-coded tiles ----------------------------------------------------------
+
+
+class SymbolEncoder:
+    """libaom's od_ec_enc (the precarry form of entenc.c): symbols of
+    inverse CDFs and booleans in, the tile's bytes out (od_ec_enc_done's,
+    which end in the trailing bits the decoder checks)."""
+
+    def __init__(self):
+        self.low, self.rng, self.cnt = 0, 0x8000, -9
+        self.precarry: list[int] = []
+
+    def _normalize(self, low: int, rng: int) -> None:
+        d = 16 - rng.bit_length()
+        c = self.cnt
+        s = c + d
+        if s >= 0:
+            c += 16
+            m = (1 << c) - 1
+            if s >= 8:
+                self.precarry.append(low >> c)
+                low &= m
+                c -= 8
+                m >>= 8
+            self.precarry.append(low >> c)
+            s = c + d - 24
+            low &= m
+        self.low, self.rng, self.cnt = low << d, rng << d, s
+
+    def symbol(self, icdf, s: int, nsyms: int) -> None:
+        fl = icdf[s - 1] if s > 0 else 32768
+        fh = icdf[s]
+        r, n = self.rng, nsyms - 1
+        if fl < 32768:
+            u = ((r >> 8) * (fl >> 6) >> 1) + 4 * (n - (s - 1))
+            v = ((r >> 8) * (fh >> 6) >> 1) + 4 * (n - s)
+            self._normalize(self.low + r - u, u - v)
+        else:
+            self._normalize(self.low,
+                            r - (((r >> 8) * (fh >> 6) >> 1) + 4 * (n - s)))
+
+    def bool(self, val: int, f: int) -> None:
+        r = self.rng
+        v = ((r >> 8) * (f >> 6) >> 1) + 4
+        self._normalize(self.low + (r - v if val else 0),
+                        v if val else r - v)
+
+    def done(self) -> bytes:
+        c, m = self.cnt, 0x3FFF
+        e = ((self.low + m) & ~m) | (m + 1)
+        s = c + 10
+        buf = list(self.precarry)
+        if s > 0:
+            n = (1 << (c + 16)) - 1
+            while s > 0:
+                buf.append(e >> (c + 16))
+                e &= n
+                s -= 8
+                c -= 8
+                n >>= 8
+        out = bytearray(len(buf))
+        carry = 0
+        for i in range(len(buf) - 1, -1, -1):
+            carry += buf[i]
+            out[i] = carry & 0xFF
+            carry >>= 8
+        return bytes(out)
+
+
+def _recorded_symbols(frame) -> tuple[list[int], list[tuple]]:
+    """Every symbol and boolean the plain decoder reads from a frame's
+    single tile, in order, and for each block (mi_row, mi_col, the index
+    of its skip flag, and the indices its residual's symbols start and
+    end at)."""
+    from multiposenet_tpu_torch.utils import av1
+
+    values: list[int] = []
+    blocks: list[list] = []
+
+    class Recorder(av1.SymbolDecoder):
+        def decode_cdf(self, icdf, nsyms):
+            values.append(super().decode_cdf(icdf, nsyms))
+            return values[-1]
+
+        def bool(self, f):
+            values.append(super().bool(f))
+            return values[-1]
+
+    def mode_info(t):
+        blocks.append([t.mi_row, t.mi_col, len(values), 0, 0])
+        real["_mode_info"](t)
+
+    def residual(t):
+        blocks[-1][3] = len(values)
+        real["_residual"](t)
+        blocks[-1][4] = len(values)
+
+    real = {"SymbolDecoder": av1.SymbolDecoder, "_mode_info": av1._mode_info,
+            "_residual": av1._residual}
+    av1.SymbolDecoder, av1._mode_info, av1._residual = Recorder, mode_info, \
+        residual
+    try:
+        av1.decode_planes_plain(frame, cdef=False)
+    finally:
+        for k, v in real.items():
+            setattr(av1, k, v)
+    return values, [tuple(b) for b in blocks]
+
+
+def recode_segmented(obus: bytes, frame_changes: dict, segment_of=None,
+                     skip_segment=None, skip_block=None,
+                     seq_changes: dict | None = None) -> bytes:
+    """A coded-lossless still's stream (a temporal delimiter, its sequence
+    header and one frame OBU of one tile) re-coded as a frame that is not
+    lossless but whose blocks all lie in lossless segments: its header
+    with `frame_changes` (fields of `avif.FrameHeader`: base_q above 0,
+    segmentation with SEG_LVL_ALT_Q taking each used segment's qindex to
+    0, loop filter and CDEF strengths, ...), `seq_changes` edit its
+    sequence header (enable_cdef, say, which a lossless frame never
+    reads). Its tile's symbols are the original's, with each block's
+    segment id coded where the new header reads one: `segment_of(mi_row,
+    mi_col)` (default 0; an id past LastActiveSegId ends the tile there,
+    as libaom stops at it). Blocks for which `skip_block(mi_row, mi_col)`
+    holds become skipped blocks (their residual's symbols dropped): with
+    `skip_segment` (a segment with SEG_LVL_SKIP, SegIdPreSkip set) they
+    take that segment and their skip flag goes, else their flag is 1 and
+    they take the predicted id. Lossless blocks parse alike in both
+    frames (4x4 transforms, no transform type at qindex 0), and a
+    block's symbols do not depend on its neighbours' residual, so the
+    rest of the symbols carry over (each coded with the new frame's
+    adapted CDFs); base_q at or under 20 keeps the coefficient CDFs."""
+    import dataclasses
+
+    from multiposenet_tpu_torch.utils import av1, avif
+
+    frame = avif.read_frame(obus)
+    assert frame.header.lossless and len(frame.tiles) == 1
+    values, blocks = _recorded_symbols(frame)
+    seg_of = segment_of or (lambda r, c: 0)
+    dropped = [False] * len(values)
+    forced = []
+    for r, c, skip_at, res0, res1 in blocks:
+        force = bool(skip_block and skip_block(r, c))
+        forced.append(force)
+        if force:
+            values[skip_at] = 1
+            dropped[res0:res1] = [True] * (res1 - res0)
+            if skip_segment is not None:
+                dropped[skip_at] = True
+    seq = None
+    for kind, payload in avif.read_obus(obus):
+        if kind == avif.OBU_SEQUENCE_HEADER:
+            seq = dataclasses.replace(avif.parse_sequence_header(payload),
+                                      **(seq_changes or {}))
+    h2 = dataclasses.replace(frame.header, **frame_changes)
+    header = frame_header(seq, h2)
+    new = avif.read_frame(obu(avif.OBU_TEMPORAL_DELIMITER, b"")
+                          + obu(avif.OBU_SEQUENCE_HEADER,
+                                sequence_header(seq))
+                          + obu(avif.OBU_FRAME, header + b"\0"))
+    assert not new.header.lossless
+    enc = SymbolEncoder()
+    state = {"at": 0, "seg": [], "block": -1}
+
+    def take():
+        while dropped[state["at"]]:
+            state["at"] += 1
+        state["at"] += 1
+        return values[state["at"] - 1]
+
+    class Replayer(av1.SymbolDecoder):
+        def __init__(self, data, allow_update):
+            self.allow_update = allow_update
+
+        def decode_cdf(self, icdf, nsyms):
+            if any(icdf is c for c in state["seg"]):
+                return self._segment(icdf, nsyms)
+            v = take()
+            enc.symbol(icdf, v, nsyms)
+            return v
+
+        def _segment(self, icdf, nsyms):
+            t = state["tile"]
+            r, c = t.mi_row, t.mi_col
+            want = skip_segment if forced[state["block"]] and \
+                skip_segment is not None else seg_of(r, c)
+            pred = av1.segment_prediction(t)[1]
+            most = h2.seg_last_active + 1
+            coded = next(k for k in range(8)
+                         if av1.neg_deinterleave(k, pred, most) == want)
+            enc.symbol(icdf, coded, nsyms)
+            return coded
+
+        def bool(self, f):
+            v = take()
+            enc.bool(v, f)
+            return v
+
+        def overflowed(self):
+            return False
+
+        def trailing_bits_ok(self):
+            return True
+
+    def init(base_q):
+        c = real["init_cdfs"](base_q)
+        state["seg"] = c["spatial_seg"]
+        return c
+
+    def mode_info(t):
+        state["tile"] = t
+        state["block"] += 1
+        real["_mode_info"](t)
+
+    real = {"SymbolDecoder": av1.SymbolDecoder, "init_cdfs": av1.init_cdfs,
+            "_mode_info": av1._mode_info}
+    av1.SymbolDecoder, av1.init_cdfs, av1._mode_info = Replayer, init, \
+        mode_info
+    try:
+        av1.decode_planes_plain(new, cdef=False)
+        assert all(dropped[state["at"]:])
+    except ValueError:  # a segment id past the last active: cut there
+        pass
+    finally:
+        for k, v in real.items():
+            setattr(av1, k, v)
+    return (obu(avif.OBU_TEMPORAL_DELIMITER, b"")
+            + obu(avif.OBU_SEQUENCE_HEADER, sequence_header(seq))
+            + obu(avif.OBU_FRAME, header + enc.done()))
 
 
 # --- libaom's stage functions ------------------------------------------------

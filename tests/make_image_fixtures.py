@@ -88,7 +88,12 @@ installed cv2's decode.
   still item (`container_avif_fixtures`): a 128x96 crop of the photo as a
   grid of 2x2 cells of 64x64 with an Exif item of orientation 6 (the
   wheel's libavif encoder; cv2 returns it 96x128) and three 48x64 crops
-  as a Pillow image sequence (brand avis; cv2 returns the first).
+  as a Pillow image sequence (brand avis; cv2 returns the first). Three
+  hold libaom's film grain and segmentation (`grain_avif_fixtures`, the
+  wheel's libavif encoder): a 96x128 4:2:0 crop with `film-grain-test` 1,
+  a 64x80 10-bit 4:4:4 crop with `film-grain-test` 15 (chroma scaled
+  from luma) and a 2-frame 48x64 `aq-mode=1` sequence (its first frame
+  segmented).
 - `digests.json`: for each file, the shape and sha256 of cv2's RGB decode
   (`cv2.imread(path, IMREAD_COLOR)[..., ::-1]`) and of cv2's INTER_LINEAR
   letterbox of it to 512 (the eval runner's resize: scale 512 / max(h, w),
@@ -117,9 +122,10 @@ installed cv2's decode.
   corrupt` writes only those into the committed digests, `python
   tests/make_image_fixtures.py jpeg2000` only the JPEG 2000 files with
   their digests and recipes, `python tests/make_image_fixtures.py
-  avif` only the AVIF files with their digests, and `python
+  avif` only the AVIF files with their digests, `python
   tests/make_image_fixtures.py avif_container` only the two container
-  ones.
+  ones and `python tests/make_image_fixtures.py avif_grain` only the
+  three film grain and segmentation ones.
 """
 
 from __future__ import annotations
@@ -883,7 +889,33 @@ def avif_fixtures() -> dict[str, bytes]:
              .tobytes() for name, img in images.items()}
     files.update(other_avif_fixtures(photo[:, :, ::-1]))
     files.update(container_avif_fixtures(photo[:, :, ::-1]))
+    files.update(grain_avif_fixtures(photo[:, :, ::-1]))
     return files
+
+
+def grain_avif_fixtures(photo: np.ndarray) -> dict[str, bytes]:
+    """The film grain and segmentation fixtures, from crops of the photo
+    (RGB) by the wheel's libavif encoder with libaom's options: an 8-bit
+    4:2:0 still with `film-grain-test` 1, a 10-bit 4:4:4 still with
+    `film-grain-test` 15 (chroma scaled from luma) and a 2-frame
+    `aq-mode=1` sequence whose first frame is segmented."""
+    sys.path.insert(0, str(ROOT))
+    from avif_reference import (YUV420, YUV444, avif_encode, avif_sequence,
+                                planes_of, widen)
+
+    crop = np.ascontiguousarray(photo[240:336, 160:288])
+    small = np.ascontiguousarray(photo[64:128, 400:480])
+    frames = [planes_of(np.ascontiguousarray(photo[y:y + 48, 96:160]), 8,
+                        YUV420) for y in (300, 304)]
+    return {
+        "avif_grain_96x128.avif": avif_encode(
+            planes_of(crop, 8, YUV420), 8, YUV420, quality=20, speed=6,
+            film_grain_test=1),
+        "avif_grain_csfl_10bit_444_64x80.avif": avif_encode(
+            planes_of(widen(small, 10), 10, YUV444), 10, YUV444, quality=20,
+            speed=6, film_grain_test=15),
+        "avif_aq_sequence2_48x64.avif": avif_sequence(
+            frames, 8, YUV420, quality=30, speed=6, aq_mode=1)}
 
 
 def container_avif_fixtures(photo: np.ndarray) -> dict[str, bytes]:
@@ -1491,5 +1523,8 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["avif_container"]:
         photo = cv2.imread(str(OUT / "photo_480x640_q95_420.jpg"))
         write_avif_fixture_files(container_avif_fixtures(photo[:, :, ::-1]))
+    elif sys.argv[1:] == ["avif_grain"]:
+        photo = cv2.imread(str(OUT / "photo_480x640_q95_420.jpg"))
+        write_avif_fixture_files(grain_avif_fixtures(photo[:, :, ::-1]))
     else:
         main()

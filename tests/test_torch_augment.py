@@ -16,6 +16,7 @@ from multiposenet_tpu.data import loader as jloader
 from multiposenet_tpu.data.synthetic import make_dataset
 from multiposenet_tpu_torch.data import augment as ta
 from multiposenet_tpu_torch.data import loader as tloader
+from multiposenet_tpu_torch.utils import avif
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
@@ -250,9 +251,10 @@ OTHER_AVIF = ((8, 2, 1, 0), (10, 1, 9, 1), (8, 3, 4, 0))
 
 @pytest.mark.parametrize("train,writer", [(True, "cv2"), (False, "cv2"),
                                           (True, "libavif"),
-                                          (True, "container")],
+                                          (True, "container"),
+                                          (True, "grain")],
                          ids=["True", "False", "True-libavif",
-                              "True-container"])
+                              "True-container", "True-grain"])
 def test_make_batch_of_avif_records_matches_jax(tmp_path, records, train,
                                                 writer):
     """Records whose files are AVIF as cv2.imwrite writes them (one at
@@ -261,9 +263,12 @@ def test_make_batch_of_avif_records_matches_jax(tmp_path, records, train,
     in other colour forms and subsamplings (OTHER_AVIF), or in the
     container forms (a grid of 2x2 cells of 64x64 cropped to the image
     with an Exif item of orientation 6, a 2-frame Pillow sequence, a
-    still with an Exif item of orientation 8): the port's batch equals
-    the JAX package's (which reads them with cv2.imread) with the same
-    image_dir and seed."""
+    still with an Exif item of orientation 8), or with libaom's film
+    grain and segmentation (a `film-grain-test` still, an `aq-mode=1`
+    sequence whose first frame is segmented, a 10-bit 4:4:4 still with
+    `film-grain-test` 15, chroma scaled from luma): the port's batch
+    equals the JAX package's (which reads them with cv2.imread) with the
+    same image_dir and seed."""
     import cv2
 
     import avif_reference as ar
@@ -275,7 +280,21 @@ def test_make_batch_of_avif_records_matches_jax(tmp_path, records, train,
         rgb = rec.pop("image")
         bgr = np.ascontiguousarray(rgb[:, :, ::-1])
         params = [] if i == 0 else [cv2.IMWRITE_AVIF_QUALITY, 30]
-        if writer == "container":
+        if writer == "grain":
+            if i == 1:
+                data = ar.avif_sequence(
+                    [ar.planes_of(x, 8, ar.YUV420) for x in (rgb, rgb[::-1])],
+                    8, ar.YUV420, 50, 6, aq_mode=1)
+                assert avif.read_image(data).frame.header.segmentation
+            else:
+                depth, fmt = ((8, ar.YUV420), None, (10, ar.YUV444))[i]
+                px = rgb if depth == 8 else ar.widen(rgb, depth)
+                data = ar.avif_encode(ar.planes_of(px, depth, fmt), depth,
+                                      fmt, 50, 8,
+                                      film_grain_test=(1, 0, 15)[i])
+                assert avif.read_image(data).frame.header.grain
+            (tmp_path / name).write_bytes(data)
+        elif writer == "container":
             data = (ar.grid_from_rgb(rgb, 2, 2, 64, 64,
                                      exif=ar.tiff_orientation(6), speed=9),
                     ar.pillow_avis([rgb, rgb[::-1]]),

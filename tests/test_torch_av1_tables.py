@@ -61,7 +61,13 @@ def test_header_names_its_source_and_licence():
     ("delta_q_cdf", [4608, 648, 91, 0, 0]),
     ("dc_qlookup", [4, 8, 8, 9]),
     ("ac_qlookup", [4, 8, 9, 10]),
-    ("mode_to_angle_map", [0, 90, 180, 45, 135, 113, 157, 203, 67])])
+    ("mode_to_angle_map", [0, 90, 180, 45, 135, 113, 157, 203, 67]),
+    # Default_Segment_Id_Cdf[0]: AOM_CDF8(5622, 7893, 16093, 18233, 27809,
+    # 28373, 32533)
+    ("spatial_pred_seg_cdf", [27146, 24875, 16675, 14535, 4959, 4395, 235,
+                              0, 0]),
+    ("gaussian_sequence", [56, 568, -180, 172, 124, -84, 172, -64, -900, 24,
+                           820, 224, 1248, 996, 272, -8])])
 def test_tables_hold_the_values_the_av1_specification_gives(name, first):
     """A few values the AV1 specification states (its default CDFs are
     32768 minus libaom's inverse CDFs): the FRAME_CONTEXT offsets the

@@ -658,8 +658,11 @@ def test_cv2_files_outside_the_contract_are_refused_by_name():
 # test_intra_block_copy_file_equals_libaom_and_cv2; lossless, 444 and
 # sb128: test_quality_100_is_read_lossless; profile 2 at 12 bits:
 # tests/test_torch_avif_highbd.py, test_cv2_files_equal_libaom_and_cv2;
-# 4:4:4 lossy frames and 4:2:2: tests/test_torch_avif_subsampling.py).
-READ_HEADERS = {"restoration": lambda f: f.header.lr_type == (3, 0, 0),
+# 4:4:4 lossy frames and 4:2:2: tests/test_torch_avif_subsampling.py;
+# segmentation and film grain: tests/test_torch_avif_grain.py).
+READ_HEADERS = {"segmentation": lambda f: f.header.segmentation == 1,
+                "film_grain": lambda f: f.header.grain is not None,
+                "restoration": lambda f: f.header.lr_type == (3, 0, 0),
                 "intrabc": lambda f: f.header.allow_intrabc == 1,
                 "lossless": lambda f: f.header.lossless == 1,
                 "sb128": lambda f: f.seq.sb128 == 1,
@@ -681,15 +684,15 @@ READ_HEADERS = {"restoration": lambda f: f.header.lr_type == (3, 0, 0),
 def test_headers_outside_the_contract_are_refused_by_name(what):
     """A cv2 file's stream with one header rewritten (the rest kept):
     each feature outside the contract refused where the header signals
-    its use; the headers of loop restoration, intra block copy, lossless
-    frames, 128x128 superblocks, lossless and lossy 4:4:4, profile 2 at
-    12 bits and 4:2:2 (READ_HEADERS) parse (the files that use them are
-    decoded in test_torch_avif_tools.py, test_torch_avif_highbd.py and
+    its use; the headers of segmentation, film grain, loop restoration,
+    intra block copy, lossless frames, 128x128 superblocks, lossless and
+    lossy 4:4:4, profile 2 at 12 bits and 4:2:2 (READ_HEADERS) parse (the
+    files that use them are decoded in test_torch_avif_grain.py,
+    test_torch_avif_tools.py, test_torch_avif_highbd.py and
     test_torch_avif_subsampling.py)."""
     obus = ar.primary_obus((FIXTURES / "avif_odd_33x17.avif").read_bytes())
     seq, frame, extra = {}, {}, ()
-    name = {"superres": "superres", "segmentation": "segmentation",
-            "film_grain": "film grain",
+    name = {"superres": "superres",
             "inter_frame": "only a shown key frame",
             "show_existing": "show_existing_frame"}.get(what)
     if what in ("superres", "restoration", "film_grain"):

@@ -255,7 +255,7 @@ def test_predict_on_jpeg2000_matches_jax_cli(workdir, tmp_path, suffix):
 
 
 @pytest.mark.parametrize("depth", [8, 10, 12, "444_bt709_limited",
-                                   "grid_exif6", "sequence"])
+                                   "grid_exif6", "sequence", "film_grain"])
 def test_predict_on_avif_matches_jax_cli(workdir, tmp_path, depth):
     """`predict --image x.avif` (the scene as cv2.imwrite writes it at its
     default quality, from uint8 or, with IMWRITE_AVIF_DEPTH 10 or 12,
@@ -263,9 +263,10 @@ def test_predict_on_avif_matches_jax_cli(workdir, tmp_path, depth):
     frame: 4:4:4 lossy, limited-range BT.709, by the wheel's libavif
     encoder; or as a grid of 2x2 cells of 64x72 cropped to the scene
     with an Exif item of orientation 6, by the wheel's libavif encoder,
-    or as the first frame of a 3-frame sequence from Pillow): the port
-    reads it as cv2.imread does (tests/test_torch_avif*.py) and prints
-    the JAX CLI's people."""
+    or as the first frame of a 3-frame sequence from Pillow; or with
+    libaom's film grain, `film-grain-test` 1, by the wheel's libavif
+    encoder): the port reads it as cv2.imread does
+    (tests/test_torch_avif*.py) and prints the JAX CLI's people."""
     import avif_reference as ar
 
     scene = image_io.read_image(workdir["image"])
@@ -283,6 +284,11 @@ def test_predict_on_avif_matches_jax_cli(workdir, tmp_path, depth):
         image.write_bytes(ar.pillow_avis(
             [scene, scene[::-1], scene[:, ::-1]], quality=80))
         assert avif.read_image(image.read_bytes()).form == "sequence"
+    elif depth == "film_grain":
+        image.write_bytes(ar.avif_encode(
+            ar.planes_of(scene, 8, ar.YUV420), 8, ar.YUV420, 60, 8,
+            film_grain_test=1))
+        assert avif.read_image(image.read_bytes()).frame.header.grain
     elif depth == "444_bt709_limited":
         image.write_bytes(ar.avif_encode(
             ar.planes_of(scene, 8, ar.YUV444, 1, 0), 8, ar.YUV444, 60, 6,
@@ -746,7 +752,7 @@ def test_chip_smoke_cli_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     paths["cli_predict"] = smoke.phase_cli_predict(
         cli, image_io, visualize, synthetic, decode, kernels, tmp_path,
         "cpu")
-    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 14}
+    assert paths == {"eval_batched": 2, "eval_predict": 2, "cli_predict": 16}
     assert restored == (runner.KeypointEvaluator, runner.evaluate_batched,
                         predictor.Predictor.predict, cli._load_records)
 
@@ -799,10 +805,10 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
                      "cli_predict_gif_output": 1,
                      "cli_predict_jp2_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
-    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 113
-    assert codec["webp"]["fixtures_written"] == 113
+    assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 116
+    assert codec["webp"]["fixtures_written"] == 116
     assert codec["tiff_hdr"]["fixtures"] == 30
-    assert codec["gif"]["fixtures"] == 113
+    assert codec["gif"]["fixtures"] == 116
     assert codec["gif"]["times"]["gif"]["c_encode_ms"] > 0
     j2k = codec["jpeg2000"]
     assert sorted(j2k["fixtures"]) == ["j2k_irr_rpcl_layers3_37x53.j2k",
@@ -818,17 +824,24 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert codec["c_decode_ms"] > 0 and codec["letterbox"] == [384, 512]
     assert codec["encode"]["c_encode_ms"] > 0
     jp2 = codec["jpeg2000_write"]
-    assert jp2["fixtures"] == 77 and len(jp2["boxes_only"]) == 36
+    assert jp2["fixtures"] == 80 and len(jp2["boxes_only"]) == 36
     assert len(jp2["plain_fixtures"]) >= 4
     assert jp2["times"]["photo"]["c_encode_ms"] > 0
     avif = codec["avif"]
-    assert len(avif["fixtures"]) == 18 and avif["build_s"] > 0
+    assert len(avif["fixtures"]) == 21 and avif["build_s"] > 0
     assert all(avif["tools"][n][c] > 0 and avif["tools"][n][
         "tiles_and_filters_ms"] > 0 for n, c in smoke.AVIF_TOOLS.items())
     assert avif["plain_on"] == ["avif_odd_33x17.avif",
                                 "avif_alpha_24x32.avif",
                                 "avif_12bit_64x80.avif",
-                                "avif_422_10bit_64x80.avif"]
+                                "avif_422_10bit_64x80.avif",
+                                "avif_aq_sequence2_48x64.avif"]
+    assert sorted(avif["grain"]) == sorted(
+        list(smoke.AVIF_GRAIN) + ["avif_photo_480x640.avif"])
+    assert all(avif["grain"][n]["grain_ms"] > 0
+               and avif["grain"][n]["grain_share_of_c_decode"] > 0
+               for n in ("avif_grain_96x128.avif",
+                         "avif_grain_csfl_10bit_444_64x80.avif"))
     assert sorted(avif["forms"]) == sorted(
         list(smoke.AVIF_FORMS) + ["avif_photo_480x640.avif"])
     assert all(t["c_decode_us_per_pixel"] > 0
