@@ -66,7 +66,13 @@ through `train.loop.train` (the tiny config's masked steps held card
 against CPU in lockstep); `train_prn` runs `train-prn` at the default
 PRN into `train_cli`'s export and serves it with one `predict` (one B1
 launch), times the PRN step at full width and holds the tiny PRN card
-against CPU; `profile_train` traces 2 steps of `train_default` with
+against CPU; `train_to_ap` trains from the port's init to the JAX
+package's quality, the slow AP gate's recipe at 96² (500 + 150 steps, its
+floors) and Config.fast() at 512² through
+`tools/train_synthetic_512.py --style v1` (1200 + 400 steps, half the JAX
+package's AP), each eval `predict` and `predict_given_boxes` one B1
+launch; `train_ddp` holds data-parallel training against one rank;
+`profile_train` traces 2 steps of `train_default` with
 `utils/profiling.trace` and prints the 10 device kernels with the most
 time and the device's idle share.
 
@@ -87,6 +93,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import hashlib
 import io
 import json
@@ -114,7 +121,14 @@ BATCH, IMAGE = 128, 512
 DEFAULT_BATCH = 64
 
 
+# Host clock at import: each phase's line carries the seconds since
+# (`t_s`), so the script's time splits by phase.
+T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -3042,6 +3056,197 @@ def phase_train_prn(Config, cli, export, prn_train, loader, synthetic,
     return 1
 
 
+# Phase `train_to_ap`: the JAX package's slow AP gate
+# (tests/test_integration_ap.py) at its recipe, and its quality script at
+# 512² (benchmarks/train_synthetic_512.py) through the port's counterpart.
+AP_IMAGE = 96
+AP_RECIPE = {"train_records": 64, "eval_records": 12, "steps": 500,
+             "warmup": 20, "prn_steps": 150}
+AP_FLOORS = {"gtbox": {"AP50": 0.8, "AP": 0.35, "AP75": 0.45},
+             "e2e": {"AP50": 0.35, "AR50": 0.35}, "mean_err_hm_px": 1.0}
+FAST_512_ARGV = ["--style", "v1"]
+# Half of the JAX package's measurement, e2e AP 0.695 and GT-box AP 0.907
+# (README.md, "Round 3 — quality at the shipped 512² operating point").
+FAST_512_FLOORS = {"e2e_512": 0.35, "gtbox_512": 0.45}
+FAST_512_REFERENCE = {
+    "source": "README.md round-3 table: the JAX package's "
+              "benchmarks/train_synthetic_512.py --style v1 on one TPU v5e",
+    "e2e_512": {"AP": 0.695, "AP50": 0.910, "AP75": 0.747, "AR": 0.727},
+    "e2e_512_pool256": {"AP": 0.710, "AP50": 0.935, "AP75": 0.768,
+                        "AR": 0.748},
+    "gtbox_512": {"AP": 0.907, "AP50": 1.0, "AP75": 1.0, "AR": 0.935}}
+
+
+def ap_gate_config(config):
+    """test_integration_ap.py's `_config()` in the port's config module."""
+    r = AP_RECIPE
+    return config.Config(
+        model=config.ModelConfig(backbone_width=0.25, fpn_channels=32,
+                                 head_channels=32, bn_momentum=0.9),
+        detector=config.DetectorConfig(score_threshold=0.05,
+                                       max_detections=6, pre_nms_top_k=100),
+        prn=config.PRNConfig(crop_height=14, crop_width=10,
+                             hidden_units=128, max_persons=4),
+        decode=config.DecodeConfig(score_threshold=0.1),
+        train=config.TrainConfig(image_size=AP_IMAGE, batch_size=8,
+                                 num_steps=r["steps"],
+                                 warmup_steps=r["warmup"],
+                                 learning_rate=3e-3, seed=0))
+
+
+def gate_records(synthetic, n: int, seed: int) -> list[dict]:
+    """The gates' fixtures v1 scenes at 96², scale floor 0.3."""
+    return synthetic.make_dataset(n, img_h=AP_IMAGE, img_w=AP_IMAGE,
+                                  min_persons=1, max_persons=2, seed=seed,
+                                  style="v1", min_size=0.3, max_size=0.65)
+
+
+def ap_gate_stats(pred, records, oks, runner) -> dict:
+    """The slow gate's statistics: GT-box OKS stats with the mean matched
+    keypoint error in heatmap pixels, and the detector-driven e2e stats."""
+    ev = oks.KeypointEvaluator()
+    errs = []
+    for rec in records:
+        kps = pred.predict_given_boxes(rec["image"], rec["boxes"])
+        for p in range(len(rec["boxes"])):
+            gt = rec["keypoints"][p]
+            vis = gt[:, 2] > 0
+            errs.append(np.linalg.norm(kps[p][vis, :2] - gt[vis, :2],
+                                       axis=-1))
+        ev.add_image(runner.record_ground_truths(rec), [
+            oks.DetectionKP(keypoints=kps[p].astype(np.float32), score=1.0)
+            for p in range(len(rec["boxes"]))])
+    return {"gtbox": ev.summarize(),
+            "mean_err_hm_px": float(np.concatenate(errs).mean()) / 4.0,
+            "e2e": runner.evaluate_predictor(pred, records)}
+
+
+def missed_floors(stats: dict, floors: dict) -> list[str]:
+    """The floors `stats` misses (the error is a ceiling)."""
+    missed = []
+    for group, want in floors.items():
+        if group == "mean_err_hm_px":
+            if not stats[group] < want:
+                missed.append(f"{group} {stats[group]} >= {want}")
+            continue
+        for k, floor in want.items():
+            if not stats[group][k] >= floor:
+                missed.append(f"{group} {k} {stats[group][k]} < {floor}")
+    return missed
+
+
+def phase_train_to_ap(config, synthetic, loader, train_loop, prn_train,
+                      steps_lib, weights, Predictor, oks, runner, tool512,
+                      decode, kernels, device, directory: Path,
+                      card: str) -> dict:
+    """Training to quality on the card from the port's own init, two
+    parts. `train_to_ap_96`: the slow gate's recipe (its `_config()`, 64
+    fixtures v1 scenes at 96², 500 steps through `train.loop.train`, 150
+    PRN steps, the EMA model in the Predictor, 12 eval scenes) held to
+    its floors (AP_FLOORS). `train_to_ap_512`: Config.fast() at 512²
+    through `tools/train_synthetic_512.run` (FAST_512_ARGV, its defaults:
+    1200 + 400 steps, batch 16, 192 training scenes of 1-8 persons, 32
+    eval scenes of 2-8, float32, bn_momentum 0.95) held to half of the
+    JAX package's e2e and GT-box AP (FAST_512_FLOORS). B1 launches are
+    counted from 0 at the start of each part (training launches none;
+    each eval `predict` and `predict_given_boxes` launches one). A missed
+    floor raises. Returns the launches by part."""
+    flags = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    launches = {}
+    # Part 1: the slow gate's recipe at 96².
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    cfg = ap_gate_config(config)
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, checkpoint_dir=str(directory / "train_to_ap_96")))
+    r = AP_RECIPE
+    records = gate_records(synthetic, r["train_records"], 0)
+    batches = functools.partial(loader.batch_iterator, records, 8, AP_IMAGE,
+                                cfg.prn.max_persons, train=True,
+                                augment=False)
+    logs = []
+    t0 = time.perf_counter()
+    state = train_loop.train(cfg, batches, checkpoint=False,
+                             log_fn=logs.append, mesh=[device])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prn_state = prn_train.train_prn(cfg, batches(), num_steps=r["prn_steps"],
+                                    device=device)
+    torch.cuda.synchronize()
+    prn_s = time.perf_counter() - t0
+    with steps_lib.ema_weights(state) as model:
+        variables = weights.posenet_variables(model)
+    pred = Predictor(cfg, variables=variables,
+                     prn_variables=weights.prn_variables(prn_state.model),
+                     image_size=AP_IMAGE, device=device)
+    t0 = time.perf_counter()
+    stats = ap_gate_stats(pred, gate_records(synthetic, r["eval_records"],
+                                             77), oks, runner)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches["train_to_ap_96"] = kernels.LAUNCHES.get(decode.KERNEL, 0)
+    missed = missed_floors(stats, AP_FLOORS)
+    emit({"phase": "train_to_ap", "part": "train_to_ap_96", "card": card,
+          "recipe": "tests/test_integration_ap.py _config(), fixtures v1, "
+                    "from the port's init",
+          "image": AP_IMAGE, **r, "tf32_flags": flags, **stats,
+          "floors": AP_FLOORS, "missed": missed,
+          "last_metrics": logs[-1] if logs else None,
+          "steps_per_s": r["steps"] / train_s, "train_s": train_s,
+          "prn_s": prn_s, "eval_s": eval_s,
+          "b1_launches": launches["train_to_ap_96"],
+          "seconds": time.perf_counter() - t_phase,
+          "clock": "host perf_counter, the card synchronized"})
+    if missed:
+        raise AssertionError(f"train_to_ap_96: missed {missed}")
+    if launches["train_to_ap_96"] != 2 * r["eval_records"]:
+        raise AssertionError(f"train_to_ap_96: B1 launches {launches}")
+    del state, prn_state, pred
+    # Part 2: Config.fast() at 512² through the tool.
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    args = tool512.parse_args(FAST_512_ARGV + ["--device", str(device)])
+    lines = []
+    out = tool512.run(args, emit=lines.append)
+    torch.cuda.synchronize()
+    launches["train_to_ap_512"] = kernels.LAUNCHES.get(decode.KERNEL, 0)
+    fast_cfg = tool512.make_config(args, str(directory))
+    loader_rate = loader_img_per_s(
+        loader, synthetic.make_dataset(32, img_h=tool512.SIZE,
+                                       img_w=tool512.SIZE, min_persons=1,
+                                       max_persons=8, seed=0,
+                                       style=args.style), fast_cfg, 3)
+    got = {k: out[k]["AP"] for k in FAST_512_FLOORS}
+    missed = [f"{k} AP {got[k]} < {floor}"
+              for k, floor in FAST_512_FLOORS.items() if not got[k] >= floor]
+    emit({"phase": "train_to_ap", "part": "train_to_ap_512", "card": card,
+          "argv": FAST_512_ARGV, "config": "Config.fast(), float32 "
+          "training, bn_momentum 0.95", "steps": args.steps,
+          "prn_steps": args.prn_steps, "batch": args.batch_size,
+          "train_images": args.train_images,
+          "eval_images": args.eval_images, "tf32_flags": flags,
+          **{k: out[k] for k in ("e2e_512", "gtbox_512",
+                                 "e2e_512_pool256")},
+          "reference": FAST_512_REFERENCE, "floors_AP": FAST_512_FLOORS,
+          "missed": missed,
+          "last_metrics": next((m for m in reversed(lines)
+                                if "total_loss" in m), None),
+          "steps_per_s": args.steps / out["train_s"],
+          "train_img_per_s": args.steps * args.batch_size / out["train_s"],
+          "loader_img_per_s": loader_rate, "train_s": out["train_s"],
+          "prn_s": out["prn_s"], "eval_s": out["eval_s"],
+          "b1_launches": launches["train_to_ap_512"],
+          "seconds": time.perf_counter() - t_phase,
+          "clock": "host perf_counter, the card synchronized"})
+    if missed:
+        raise AssertionError(f"train_to_ap_512: missed {missed}")
+    if launches["train_to_ap_512"] != 3 * args.eval_images:
+        raise AssertionError(f"train_to_ap_512: B1 launches {launches}")
+    return launches
+
+
 def trace_summary(prof, window_ms: float) -> dict:
     """The traced window's device kernels: the 10 with the most time
     (summed over launches) and the device's idle share, 1 - the union of
@@ -3407,10 +3612,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from multiposenet_tpu_torch import cli, kernels
+        from multiposenet_tpu_torch import cli, kernels, weights
+        from multiposenet_tpu_torch import config as config_mod
         from multiposenet_tpu_torch.config import Config
         from multiposenet_tpu_torch.data import loader, synthetic
-        from multiposenet_tpu_torch.eval import runner
+        from multiposenet_tpu_torch.eval import oks, runner
         from multiposenet_tpu_torch.infer import export, folding
         from multiposenet_tpu_torch.infer.predictor import Predictor
         from multiposenet_tpu_torch.models import layers
@@ -3420,6 +3626,7 @@ def main() -> int:
         from multiposenet_tpu_torch.ops import image as image_ops
         from multiposenet_tpu_torch.parallel import mesh as mesh_lib
         from multiposenet_tpu_torch.tools import dbench2
+        from multiposenet_tpu_torch.tools import train_synthetic_512
         from multiposenet_tpu_torch.data import prepare
         from multiposenet_tpu_torch.train import checkpoints as train_ckpt
         from multiposenet_tpu_torch.train import loop as train_loop
@@ -3510,6 +3717,10 @@ def main() -> int:
         b1_paths["train_prn_predict"] = phase_train_prn(
             Config, cli, export, prn_train, loader, synthetic, decode,
             kernels, device, Path(directory), card)
+        b1_paths.update(phase_train_to_ap(
+            config_mod, synthetic, loader, train_loop, prn_train, steps_lib,
+            weights, Predictor, oks, runner, train_synthetic_512, decode,
+            kernels, device, Path(directory), card))
         phase_train_ddp(Config, synthetic, loader, train_loop, mesh_lib,
                         device, card)
         phase_profile_train(Config, MultiPoseNet, synthetic, loader,

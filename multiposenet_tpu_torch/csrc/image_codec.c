@@ -86,8 +86,14 @@
  * codes GIF's LZW, whose codes go least significant bit first without
  * TIFF's early change, so it shares nothing with lzw_encode_strip).
  *
+ * jitter_rgb is the training colour jitter (data/augment.py jitter_plain:
+ * contrast and brightness in float32, then cv2's uint8 COLOR_RGB2HSV, the
+ * hue and saturation moves and cv2 5.0's COLOR_HSV2RGB), described where
+ * it is defined.
+ *
  * Built by `kernels.py load_host` with `cc -O2 -std=c99 -shared -fPIC`;
- * called through ctypes.
+ * called through ctypes. ISO C99 mode keeps float contraction off, so no
+ * multiply-add is fused unless written so.
  */
 
 #include <setjmp.h>
@@ -4647,4 +4653,131 @@ int encode_gif(const uint8_t *rgb, int height, int width, uint8_t *out,
     free(stamp);
     *size = at;
     return 0;
+}
+
+
+/* ---- the training colour jitter ---------------------------------------- */
+
+/* x truncated toward zero, and rounded half to even, for 0 <= x < 2^23. */
+static float trunc_pos(float x) { return (float)(int32_t)x; }
+
+static float rint_pos(float x)
+{
+    float t = trunc_pos(x), d = x - t; /* exact */
+    if (d > 0.5f || (d == 0.5f && ((int32_t)t & 1)))
+        t += 1.0f;
+    return t;
+}
+
+static uint8_t trunc_u8(float x) /* np.clip(x, 0, 255).astype(uint8) */
+{
+    return (uint8_t)(x < 0.0f ? 0 : x > 255.0f ? 255 : (int32_t)x);
+}
+
+/* cv2's RGB2HSV_b division tables, saturate_cast<int> of
+ * (255 << 12) / i and (180 << 12) / (6 i), 0 at i = 0. */
+static int32_t hsv_sdiv[256], hsv_hdiv[256];
+
+static int32_t round_even_d(double v)
+{
+    double t = (double)(int64_t)v, d = v - t;
+    if (d > 0.5 || (d == 0.5 && ((int64_t)t & 1)))
+        t += 1.0;
+    return (int32_t)t;
+}
+
+static void hsv_tables(void)
+{
+    int i;
+    if (hsv_sdiv[1])
+        return;
+    for (i = 1; i < 256; i++) {
+        hsv_hdiv[i] = round_even_d((double)(180 << 12) / (6.0 * i));
+        hsv_sdiv[i] = round_even_d((double)(255 << 12) / (double)i);
+    }
+}
+
+/* The jitter of data/augment.py jitter_plain on n_rows rows of w uint8 RGB
+ * pixels, src to out (out may be src): y = trunc(clip(x * c + shift)) in
+ * float32 (c and shift float32, shift the brightness times 255); with hsv,
+ * cv2's COLOR_RGB2HSV of y (fixed point, hsv_shift 12, hue range 180), the
+ * hue plus `hue` modulo 180 (float32, numpy's remainder) and the
+ * saturation times `sat` clipped to [0, 255] (float32), both truncated to
+ * uint8, then cv2 5.0's COLOR_HSV2RGB: in float32, h * (6/180) split into
+ * a sector and its fraction, the levels v, v(1-s), v(1-s f), v(1-s(1-f))
+ * with 1 - s f rounded once from its exact value (as a fused multiply-add
+ * computes it), each channel times 255, truncated for each row's first
+ * multiple of 32 pixels (cv2's vector code) and rounded half to even for
+ * the rest (its scalar code). */
+void jitter_rgb(const uint8_t *src, uint8_t *out, long n_rows, int w,
+                float c, float shift, int hsv, float hue, float sat)
+{
+    static const int sectors[6][3] = {{1, 3, 0}, {1, 0, 2}, {3, 0, 1},
+                                      {0, 2, 1}, {0, 1, 3}, {2, 1, 0}};
+    const float h_scale = (float)(6.0 / 180), unit = (float)(1.0 / 255);
+    /* Every step before the HSV to RGB arithmetic maps one uint8 to one
+     * uint8 (or one hue to its sector and fraction): tables. */
+    uint8_t level[256], hue_to[256], sat_to[256];
+    int sector_of[256];
+    float frac_of[256], unit_of[256];
+    int vec = w / 32 * 32, x, k, i;
+    long row;
+    hsv_tables();
+    for (i = 0; i < 256; i++) {
+        float hf = (float)i + hue, fh;
+        level[i] = trunc_u8((float)i * c + shift);
+        /* numpy's float32 remainder by 180: fmod, then + 180 below 0;
+         * |hf| < 360 here, where fmod is one exact subtraction. */
+        if (hf >= 180.0f)
+            hf = hf - 180.0f;
+        else if (hf < 0.0f)
+            hf = hf + 180.0f;
+        hue_to[i] = trunc_u8(hf);
+        sat_to[i] = trunc_u8((float)i * sat);
+        fh = (float)i * h_scale;
+        sector_of[i] = (int)trunc_pos(fh) % 6;
+        frac_of[i] = fh - trunc_pos(fh);
+        unit_of[i] = (float)i * unit;
+    }
+    for (row = 0; row < n_rows; row++) {
+        const uint8_t *p = src + row * (long)w * 3;
+        uint8_t *o = out + row * (long)w * 3;
+        for (x = 0; x < w; x++, p += 3, o += 3) {
+            int32_t r = level[p[0]], g = level[p[1]], b = level[p[2]];
+            int32_t v, vmin, diff, sv, hv;
+            float sf, vf, f, tab[4];
+            const int *sec;
+            if (!hsv) {
+                o[0] = (uint8_t)r;
+                o[1] = (uint8_t)g;
+                o[2] = (uint8_t)b;
+                continue;
+            }
+            v = b > g ? b : g;
+            v = v > r ? v : r;
+            vmin = b < g ? b : g;
+            vmin = vmin < r ? vmin : r;
+            diff = v - vmin;
+            sv = (diff * hsv_sdiv[v] + (1 << 11)) >> 12;
+            hv = v == r ? g - b : v == g ? b - r + 2 * diff
+                                         : r - g + 4 * diff;
+            hv = (int32_t)(((int64_t)hv * hsv_hdiv[diff] + (1 << 11)) >> 12);
+            if (hv < 0)
+                hv += 180;
+            hv = hue_to[hv > 255 ? 255 : hv];
+            sf = unit_of[sat_to[sv]];
+            vf = unit_of[v];
+            f = frac_of[hv];
+            sec = sectors[sector_of[hv]];
+            tab[0] = vf;
+            tab[1] = vf * (1.0f - sf);
+            tab[2] = vf * (float)(1.0 - (double)sf * (double)f);
+            tab[3] = vf * (float)(1.0 - (double)sf * (double)(1.0f - f));
+            for (k = 0; k < 3; k++) {
+                float y = tab[sec[k]] * 255.0f;
+                y = x < vec ? trunc_pos(y) : rint_pos(y);
+                o[2 - k] = (uint8_t)(y > 255.0f ? 255.0f : y);
+            }
+        }
+    }
 }

@@ -4,10 +4,12 @@ horizontal flip with the COCO left/right keypoint swap, colour jitter, and
 the resize to the train size, drawing from the caller's RandomState in
 the JAX package's order so one seed gives the same images bit for bit.
 
-The two cv2 calls of the colour jitter are written out as OpenCV computes
-them on uint8: `rgb_to_hsv` (COLOR_RGB2HSV, fixed point with hsv_shift
-12, hue range 180) and `hsv_to_rgb` (COLOR_HSV2RGB, through float32 and
-a truncating conversion). The resizes are `utils/image_io.
+The colour jitter runs in the host C library
+(`utils/image_codec.jitter_rgb`); its plain version `jitter_plain` writes
+the two cv2 calls out as OpenCV computes them on uint8: `rgb_to_hsv`
+(COLOR_RGB2HSV, fixed point with hsv_shift 12, hue range 180) and
+`hsv_to_rgb` (COLOR_HSV2RGB, through float32 and a truncating
+conversion). The resizes are `utils/image_io.
 resize_linear`, bit for bit with cv2's INTER_LINEAR on the uint8 image
 and on the float32 [H, W, 2] stack of segmentation masks (`masks`, from
 `data/loader.make_batch`), which goes through the same draws as the
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from multiposenet_tpu_torch.utils import image_codec
 from multiposenet_tpu_torch.utils.constants import FLIP_PERMUTATION
 from multiposenet_tpu_torch.utils.image_io import resize_linear
 
@@ -170,7 +173,13 @@ def jitter_factors(rng: np.random.RandomState, brightness: float = 0.25,
 
 
 def jitter(image: np.ndarray, factors: tuple) -> np.ndarray:
-    """The jitter of `jitter_factors` on uint8 pixels."""
+    """The jitter of `jitter_factors` on uint8 pixels, in the host C
+    library (`jitter_plain` is its plain version)."""
+    return image_codec.jitter_rgb(image, *factors)
+
+
+def jitter_plain(image: np.ndarray, factors: tuple) -> np.ndarray:
+    """`jitter` in NumPy."""
     c, b, hue_shift, sat = factors
     img = image.astype(np.float32)
     img = img * c

@@ -32,9 +32,9 @@ class MultiPoseNet(nn.Module):
     tail is off. Parameters stay float32 and are cast to the compute dtype
     at use (flax's param_dtype float32 with dtype bfloat16).
 
-    Outputs, in the JAX package's layouts: `heatmaps` [B, H, W, K] f32,
-    `heatmaps_cm` [B, K, H, W] in the compute dtype, `segmentation`
-    [B, H, W, 1] f32 (not with the fused keypoint tail in eval mode: it
+    Outputs, in the JAX package's layouts: `heatmaps` [B, H, W, K] f32
+    (f64 in float64), `heatmaps_cm` [B, K, H, W] in the compute dtype,
+    `segmentation` [B, H, W, 1] likewise (not with the fused keypoint tail in eval mode: it
     emits the heatmaps only) and `detector` {P3..P7: {cls, box[, iou]}}
     NHWC."""
 
@@ -90,8 +90,10 @@ class MultiPoseNet(nn.Module):
             kp_pyramid["L2"] = pyramid["L2"]
         out: dict[str, Any] = self.keypoint_head(kp_pyramid)
         out["detector"] = self.detector_head(pyramid)
-        out["heatmaps"] = out["heatmaps_cm"].permute(0, 2, 3, 1).float()
+        # float32 for the losses and the decode; float64 stays float64.
+        f32 = torch.promote_types(self.dtype, torch.float32)
+        out["heatmaps"] = out["heatmaps_cm"].permute(0, 2, 3, 1).to(f32)
         if "segmentation_cm" in out:
             out["segmentation"] = out.pop("segmentation_cm").permute(
-                0, 2, 3, 1).float()
+                0, 2, 3, 1).to(f32)
         return out

@@ -23,6 +23,7 @@ iterator cannot be handed to another process.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import time
 from pathlib import Path
@@ -33,6 +34,7 @@ import torch.distributed as dist
 
 from multiposenet_tpu_torch.config import Config
 from multiposenet_tpu_torch.infer import predictor as predictor_lib
+from multiposenet_tpu_torch.models.posenet import MultiPoseNet
 from multiposenet_tpu_torch.parallel import mesh as mesh_lib
 from multiposenet_tpu_torch.train import steps as steps_lib
 from multiposenet_tpu_torch.train.checkpoints import CheckpointManager
@@ -69,22 +71,25 @@ def train(
     device: str | torch.device | None = None,
     num_devices: int | None = None,
     mesh: Sequence[torch.device] | None = None,
+    model: MultiPoseNet | None = None,
 ) -> steps_lib.TrainState:
     """Train data-parallel over `mesh` (default `training_mesh(config,
     device, num_devices)`); returns rank 0's final TrainState (every
     rank's is the same). In a process group launched with ranks it trains
-    as this rank on `device` (default its card)."""
+    as this rank on `device` (default its card). The model starts from
+    the port's init seeded by train.seed, or from a copy of `model`
+    (each rank its own), as `steps.create_train_state` takes it."""
     if mesh_lib.world_size() > 1:
         rank, world = mesh_lib.rank(), mesh_lib.world_size()
         if device is None:
             device = torch.device("cuda", torch.cuda.current_device())
         return _train_rank(config, _shards(batches, rank, world), num_steps,
-                           log_fn, checkpoint, torch.device(device))
+                           log_fn, checkpoint, torch.device(device), model)
     mesh = list(mesh) if mesh is not None else training_mesh(
         config, device, num_devices)
     if len(mesh) == 1:
         return _train_rank(config, _shards(batches, 0, 1), num_steps, log_fn,
-                           checkpoint, mesh[0])
+                           checkpoint, mesh[0], model)
     if not callable(batches):
         raise TypeError(f"training on {len(mesh)} devices takes batches as "
                         "a callable batches(rank=, world_size=) giving each "
@@ -92,7 +97,7 @@ def train(
                         "data.loader.batch_iterator); an iterator cannot be "
                         "handed to the other ranks' processes")
     return _train_spawned(config, batches, num_steps, log_fn, checkpoint,
-                          mesh)
+                          mesh, model)
 
 
 class GlobalBatches:
@@ -119,7 +124,8 @@ def _shards(batches: Batches, rank: int, world: int) -> Iterator[dict]:
             for b in batches)
 
 
-def _train_spawned(config, batches, num_steps, log_fn, checkpoint, mesh):
+def _train_spawned(config, batches, num_steps, log_fn, checkpoint, mesh,
+                   model):
     """Rank 0 here, ranks 1.. in spawned processes; every process is
     joined (and stopped if it outlives rank 0 by a minute)."""
     world, port = len(mesh), mesh_lib.free_port()
@@ -127,14 +133,15 @@ def _train_spawned(config, batches, num_steps, log_fn, checkpoint, mesh):
     ctx = torch.multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
                          args=(r, mesh, port, backend, config, batches,
-                               num_steps, checkpoint, _torch_settings()))
+                               num_steps, checkpoint, _torch_settings(),
+                               model))
              for r in range(1, world)]
     for p in procs:
         p.start()
     try:
         _join_group(0, mesh, port, backend)
         state = _train_rank(config, batches(rank=0, world_size=world),
-                            num_steps, log_fn, checkpoint, mesh[0])
+                            num_steps, log_fn, checkpoint, mesh[0], model)
     finally:
         mesh_lib.destroy_process_group()
         for p in procs:
@@ -164,7 +171,7 @@ def _torch_settings() -> tuple:
 
 
 def _rank_main(rank, mesh, port, backend, config, batches, num_steps,
-               checkpoint, settings) -> None:
+               checkpoint, settings, model=None) -> None:
     """A spawned rank (with the parent's torch settings): join the group,
     train on its shards, leave."""
     threads, dtype, cudnn_tf32, matmul_tf32 = settings
@@ -175,18 +182,21 @@ def _rank_main(rank, mesh, port, backend, config, batches, num_steps,
     _join_group(rank, mesh, port, backend)
     try:
         _train_rank(config, batches(rank=rank, world_size=len(mesh)),
-                    num_steps, None, checkpoint, mesh[rank])
+                    num_steps, None, checkpoint, mesh[rank], model)
     finally:
         mesh_lib.destroy_process_group()
 
 
 def _train_rank(config: Config, batches: Iterator[dict],
                 num_steps: int | None, log_fn, checkpoint: bool,
-                device: torch.device) -> steps_lib.TrainState:
+                device: torch.device,
+                model: MultiPoseNet | None = None) -> steps_lib.TrainState:
     t = config.train
     num_steps = num_steps if num_steps is not None else t.num_steps
     lead = mesh_lib.rank() == 0
-    state = steps_lib.create_train_state(config, t.seed, device=device)
+    state = steps_lib.create_train_state(
+        config, t.seed, device=device,
+        model=None if model is None else copy.deepcopy(model))
     start_step = 0
     mgr = None
     if checkpoint:

@@ -155,11 +155,13 @@ def prn_loss_fn(prn: PRN, batch: dict[str, torch.Tensor], config: Config,
 
 
 def create_prn_state(config: Config, device: str | torch.device = "cuda",
-                     dtype: torch.dtype = torch.float32) -> PRNTrainState:
-    """The PRN from the port's init seeded by train.seed, on `device`,
-    with zero Adam moments."""
-    prn = make_prn(config, dtype)
-    prn.init_weights(torch.Generator().manual_seed(config.train.seed))
+                     dtype: torch.dtype = torch.float32,
+                     prn: PRN | None = None) -> PRNTrainState:
+    """The PRN from the port's init seeded by train.seed (or `prn` as
+    given), on `device`, with zero Adam moments."""
+    if prn is None:
+        prn = make_prn(config, dtype)
+        prn.init_weights(torch.Generator().manual_seed(config.train.seed))
     prn.to(device=device, dtype=dtype).train()
     params = dict(prn.named_parameters())
     return PRNTrainState(
@@ -204,12 +206,14 @@ def train_prn(config: Config, batches: Iterator[dict], num_steps: int,
               log_fn: Callable[[dict], None] | None = None,
               checkpoint_dir: str | None = None,
               save_interval_steps: int = 500, max_to_keep: int = 2,
-              device: str | torch.device | None = None) -> PRNTrainState:
+              device: str | torch.device | None = None,
+              prn: PRN | None = None) -> PRNTrainState:
     """Standalone PRN training on `device` (the CUDA card unless given),
-    with optional checkpoint and resume under `checkpoint_dir`; metrics
-    (prn_loss, prn_accuracy, step) go to `log_fn` every 50 steps."""
+    from the port's init or `prn`, with optional checkpoint and resume
+    under `checkpoint_dir`; metrics (prn_loss, prn_accuracy, step) go to
+    `log_fn` every 50 steps."""
     device = predictor_lib.resolve_device(device)
-    state = create_prn_state(config, device)
+    state = create_prn_state(config, device, prn=prn)
     mgr = None
     done = 0
     if checkpoint_dir:

@@ -14,7 +14,12 @@ order of operations, not through torch.optim, so that its traps hold:
 - adamw (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) decays every parameter,
   BatchNorm scale and bias included: p - lr·(m̂ / (√v̂ + eps) + wd·p);
 - the EMA covers the parameters only, with decay min(ema_decay,
-  (1 + s) / (10 + s)) at s = step + 1; batch statistics are not averaged.
+  (1 + s) / (10 + s)) at s = step + 1 and weight 1 - decay; batch
+  statistics are not averaged;
+- Adam's bias corrections 1 - b^n and the EMA's scalars are float32, as
+  the JAX step forms them, and float64 for float64 parameters (the
+  float64 runs that hold the port to the JAX package with every float32
+  read as float64, tests/test_torch_train_curves.py).
 
 The state lives on one device and the step updates it in place.
 `metrics` hold 0-d tensors on that device under the JAX package's keys,
@@ -157,9 +162,9 @@ class Optimizer:
         torch._foreach_add_(mu, g, alpha=1.0 - ADAM_B1)
         torch._foreach_mul_(nu, ADAM_B2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - ADAM_B2)
-        n = count + 1
-        bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(n))
-        bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(n))
+        f, n = scalar_type(params[0]), count + 1
+        bc1 = float(f(1) - f(ADAM_B1) ** f(n))
+        bc2 = float(f(1) - f(ADAM_B2) ** f(n))
         denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, ADAM_EPS)
@@ -171,11 +176,21 @@ class Optimizer:
         return norm
 
 
-def ema_decay(config: Config, step: int) -> float:
-    """min(ema_decay, (1 + s) / (10 + s)) at s = step + 1, in float32."""
-    s = np.float32(step) + np.float32(1.0)
-    return float(min(np.float32(config.train.ema_decay),
-                     (np.float32(1.0) + s) / (np.float32(10.0) + s)))
+def scalar_type(param: torch.Tensor) -> type:
+    """The numpy type of the step's scalars for these parameters:
+    float64 for float64 ones, else float32."""
+    return np.float64 if param.dtype == torch.float64 else np.float32
+
+
+def ema_decay(config: Config, step: int, f: type = np.float32) -> float:
+    """min(ema_decay, (1 + s) / (10 + s)) at s = step + 1, in `f`."""
+    s = f(step) + f(1.0)
+    return float(min(f(config.train.ema_decay), (f(1.0) + s) / (f(10.0) + s)))
+
+
+def ema_weight(decay: float, f: type = np.float32) -> float:
+    """1 - decay in `f`, as the JAX step forms it."""
+    return float(f(1.0) - f(decay))
 
 
 def create_train_state(config: Config, seed: int = 0,
@@ -230,6 +245,11 @@ def _device_targets(batch: dict[str, torch.Tensor], config: Config,
     return heatmaps, mask, seg, cls_t, box_t
 
 
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or float64 where the model computes in float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def compute_losses(model_out: dict, batch: dict[str, torch.Tensor],
                    config: Config, anchors: torch.Tensor
                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
@@ -251,23 +271,23 @@ def compute_losses(model_out: dict, batch: dict[str, torch.Tensor],
     if "detector" in model_out:
         logits, deltas = flatten_outputs(model_out["detector"], d.min_level,
                                          d.max_level)
-        cls_loss = losses_lib.focal_loss(logits.float(), cls_t,
-                                         d.focal_alpha, d.focal_gamma)
+        logits, deltas = _at_least_f32(logits), _at_least_f32(deltas)
+        cls_loss = losses_lib.focal_loss(logits, cls_t, d.focal_alpha,
+                                         d.focal_gamma)
         pred_boxes = tgt_boxes = None
         if d.box_loss == "giou" or d.iou_head:
-            pred_boxes = boxes_lib.decode(deltas.float(), anchors)
+            pred_boxes = boxes_lib.decode(deltas, anchors)
             tgt_boxes = boxes_lib.decode(box_t, anchors)
         if d.box_loss == "giou":
             box_loss = losses_lib.box_giou_loss(pred_boxes, tgt_boxes, cls_t)
             det_loss = cls_loss + d.giou_loss_weight * box_loss
         else:
-            box_loss = losses_lib.box_huber_loss(deltas.float(), box_t,
-                                                 cls_t)
+            box_loss = losses_lib.box_huber_loss(deltas, box_t, cls_t)
             det_loss = cls_loss + d.box_loss_weight * box_loss
         metrics.update(cls_loss=cls_loss, box_loss=box_loss)
         if d.iou_head:
-            iou_logits = flatten_iou_outputs(
-                model_out["detector"], d.min_level, d.max_level).float()
+            iou_logits = _at_least_f32(flatten_iou_outputs(
+                model_out["detector"], d.min_level, d.max_level))
             iou_loss = losses_lib.iou_pred_loss(iou_logits, pred_boxes,
                                                 tgt_boxes, cls_t)
             det_loss = det_loss + d.iou_loss_weight * iou_loss
@@ -334,11 +354,13 @@ def make_train_step(config: Config):
         grad_norm = opt.update(list(params), list(grads),
                                [state.mu[n] for n in names],
                                [state.nu[n] for n in names], state.step)
-        decay = ema_decay(config, state.step)
+        f = scalar_type(params[0])
+        decay = ema_decay(config, state.step, f)
         with torch.no_grad():
             ema = [state.ema_params[n] for n in names]
             torch._foreach_mul_(ema, decay)
-            torch._foreach_add_(ema, list(params), alpha=1.0 - decay)
+            torch._foreach_add_(ema, list(params),
+                                alpha=ema_weight(decay, f))
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = grad_norm

@@ -3,7 +3,8 @@ decoding (`utils/jpeg.py` is the plain version of its baseline part) and
 encoding as cv2.imencode does (`utils/jpeg.py encode_pixels`),
 cv2's INTER_LINEAR resize on uint8 and on two-channel float32 and its
 INTER_AREA on float32 (`utils/image_io.resize_linear_plain` and
-`resize_area_plain` are their plain versions), cv2.fillPoly
+`resize_area_plain` are their plain versions), the training colour jitter
+(`data/augment.jitter_plain`), cv2.fillPoly
 (`data/masks.fill_polygons_plain`), the byte coders of the simple formats
 (TIFF LZW and PackBits: `utils/tiff.py`; TIFF's JPEG strips:
 `jpeg.decode_planes`; CCITT fax: `utils/ccitt.py`; GIF LZW:
@@ -50,6 +51,10 @@ def library() -> ctypes.CDLL:
                                      ctypes.c_int, _u8p, ctypes.c_int,
                                      ctypes.c_int]
     lib.resize_linear_u8.restype = ctypes.c_int
+    lib.jitter_rgb.argtypes = [_u8p, _u8p, ctypes.c_long, ctypes.c_int,
+                               ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                               ctypes.c_float, ctypes.c_float]
+    lib.jitter_rgb.restype = None
     for name in ("resize_linear_f32", "resize_area_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [_f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -233,6 +238,23 @@ def resize_linear_u8(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
                                   src.shape[1], cn, out.ctypes.data_as(_u8p),
                                   h, w):
         raise MemoryError("image_codec: out of memory")
+    return out
+
+
+def jitter_rgb(image: np.ndarray, contrast: float, brightness: float,
+               hue_shift: float | None, saturation: float | None
+               ) -> np.ndarray:
+    """The training colour jitter (`data/augment.py jitter_plain`) on
+    uint8 RGB [H, W, 3]: the factors as `augment.jitter_factors` draws
+    them, hue and saturation None when neither is jittered."""
+    src = np.ascontiguousarray(image, np.uint8)
+    out = np.empty_like(src)
+    hsv = hue_shift is not None
+    library().jitter_rgb(
+        src.ctypes.data_as(_u8p), out.ctypes.data_as(_u8p), src.shape[0],
+        src.shape[1], np.float32(contrast), np.float32(brightness * 255.0),
+        int(hsv), np.float32(hue_shift * 180.0 if hsv else 0.0),
+        np.float32(saturation if hsv else 1.0))
     return out
 
 

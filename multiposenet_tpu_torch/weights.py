@@ -48,7 +48,8 @@ def _conv_kernel(k: np.ndarray) -> np.ndarray:
 
 
 def posenet_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """flax MultiPoseNet variables → a state_dict for models.posenet."""
+    """flax MultiPoseNet variables → a state_dict for models.posenet:
+    float64 arrays stay float64, every other one becomes float32."""
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
     sd: dict[str, np.ndarray] = {}
@@ -76,7 +77,9 @@ def posenet_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         hm_b = np.concatenate([hm_b, params[kp + "segmentation_bias"]])
     sd[kp + "output.weight"] = _conv_kernel(hm_k)
     sd[kp + "output.bias"] = hm_b
-    return {k: torch.as_tensor(np.array(v, np.float32)) for k, v in sd.items()}
+    return {k: torch.as_tensor(np.array(
+        v, np.float64 if v.dtype == np.float64 else np.float32))
+        for k, v in sd.items()}
 
 
 def prn_state_dict(prn_variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:

@@ -3,7 +3,8 @@
 JAX package's and cv2: RGB -> HSV and HSV -> RGB equal cv2.cvtColor on
 every uint8 input (HSV -> RGB both in OpenCV's vector code, which takes a
 row's first multiple of 32 pixels, and in its scalar code, which takes
-the rest), and every augmentation, `make_batch` and the first batches of
+the rest), the colour jitter in the host C library against its NumPy
+version, and every augmentation, `make_batch` and the first batches of
 `batch_iterator` equal the JAX package's bit for bit from the same seeds,
 with segmentation masks too."""
 
@@ -100,6 +101,30 @@ def test_color_jitter(records, seed):
     got = ta.color_jitter(np.random.RandomState(seed), image)
     want = ja.color_jitter(np.random.RandomState(seed), image)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("factors", [
+    (1.0, 0.0, 0.0, 1.0), (0.75, -0.25, -0.05, 0.75),
+    (1.25, 0.25, 0.05, 1.25), (0.9, 0.1, -0.03, 1.2), (1.1, -0.1, None, None),
+    "drawn"])
+def test_jitter_in_c_equals_its_plain_version(factors):
+    """The host C jitter (`utils/image_codec.jitter_rgb`) against
+    `augment.jitter_plain` on every RGB value in steps of 3 (rows of 600
+    pixels: 576 in cv2's vector code, 24 in its scalar code), at the draws'
+    extremes, without the HSV moves, and on 40 drawn factor sets and
+    shapes."""
+    v = np.arange(0, 256, 3)
+    rgb = np.stack(np.meshgrid(v, v, v, indexing="ij"), -1).reshape(-1, 3)
+    rgb = np.concatenate([rgb, np.zeros((-len(rgb) % 600, 3), int)])
+    cases = [(rgb.reshape(-1, 600, 3).astype(np.uint8), factors)]
+    if factors == "drawn":
+        rng = np.random.RandomState(5)
+        cases = [(rng.randint(0, 256, (rng.randint(1, 20), w, 3)).astype(
+            np.uint8), ta.jitter_factors(rng))
+            for w in rng.choice([1, 31, 32, 33, 64, 97, 512], 40)]
+    for image, f in cases:
+        np.testing.assert_array_equal(ta.jitter(image, f),
+                                      ta.jitter_plain(image, f))
 
 
 @pytest.mark.parametrize("target", [64, 100, 128])

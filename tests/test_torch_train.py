@@ -224,9 +224,9 @@ def test_batchnorm_eval_mode_keeps_the_running_stats():
 
 
 def test_model_training_forward_matches_flax(run):
-    """In float64: the outputs (cast to float32 by both, as the JAX
-    package does for heatmaps and segmentation) and the batch
-    statistics."""
+    """In float64: the outputs (the JAX package casts heatmaps and
+    segmentation to float32, the port keeps them float64 in float64)
+    and the batch statistics."""
     cfg, b = run.cfg, run.batches[0]
     model = JaxMultiPoseNet(config=cfg, with_detector=True)
     with jax.enable_x64(True):
@@ -241,7 +241,7 @@ def test_model_training_forward_matches_flax(run):
     port = _port_model(cfg, run.variables).double().train()
     got = port(tsteps.model_images(torch.as_tensor(b["images"]), run.tcfg))
     for key in ("heatmaps", "segmentation"):
-        assert got[key].dtype == torch.float32
+        assert got[key].dtype == torch.float64
         np.testing.assert_allclose(got[key].detach().numpy(), out[key],
                                    atol=1e-6, rtol=1e-6, err_msg=key)
     for level, heads in out["detector"].items():
