@@ -1,7 +1,9 @@
 """Smoke test of the PyTorch port (`multiposenet_tpu_torch`) on one NVIDIA
 GPU: builds the hand-written CUDA kernels from `csrc/` (B1 decode_peaks,
-B2 decode_lanes, decode_generic, B3 kp_tail, B4 column_topk), holds each
-against its plain PyTorch version at the shapes its paths give it (B2
+B2 decode_lanes, decode_generic, B3 kp_tail, B4 column_topk, and the
+train step's update, adam_update and ema_update of train_update), holds
+each against its plain PyTorch version at the shapes its paths give it
+(the update bit for bit, phase `train_update_kernel`; B2
 also against B1, bit for bit; B1 on bf16 and on float32 maps; B4 at the
 decode micro-benchmark's 2176 maps, on column 0 and on every column, in
 phase `column_topk_kernel`), holds the float32 forwards of
@@ -53,9 +55,10 @@ writer's bytes of the drawing) and `drawn.jp2` (one launch; the plain
 JPEG 2000 writer's bytes of the drawing), and checks that `--output
 drawn.avif` exits before the model runs. Then training, which
 reaches no TPU kernel (the fused tail is off in training and the decodes
-are inference only): phase `train_parity` holds 3 steps of the tiny
-config in float32 on the card against the CPU and fits one batch in 20
-steps; `train_default` times Config() at 512², batch 32, fed by the
+are inference only) but runs the update kernels: phase `train_parity`
+holds 3 steps of the tiny config in float32 on the card against the CPU
+and fits one batch in 20 steps, and holds the update card against CPU
+bit for bit (again at Config()'s shapes in `train_default`); `train_default` times Config() at 512², batch 32, fed by the
 port's `batch_iterator` with augmentation, and `train_fast` Config.fast()
 in bfloat16 at batch 64; `train_cli` runs `train` in this process, resumes
 it, and serves the exported model with one `predict` (one B1 launch).
@@ -68,7 +71,8 @@ PRN into `train_cli`'s export and serves it with one `predict` (one B1
 launch), times the PRN step at full width and holds the tiny PRN card
 against CPU; `train_to_ap` trains from the port's init to the JAX
 package's quality, the slow AP gate's recipe at 96² (500 + 150 steps, its
-floors) and Config.fast() at 512² through
+floors; the update kernels' launches on the main path are counted
+there) and Config.fast() at 512² through
 `tools/train_synthetic_512.py --style v1` (1200 + 400 steps, half the JAX
 package's AP), each eval `predict` and `predict_given_boxes` one B1
 launch; `train_ddp` holds data-parallel training against one rank;
@@ -115,6 +119,7 @@ import torch
 # lanes x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 F32_NO_FMA_OPS_PER_S = 132 * 128 * 1.98e9
+F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 BATCH, IMAGE = 128, 512
 # Config()'s batch: BASELINE.json config 5 runs the default model at 64.
@@ -2692,12 +2697,265 @@ def card_cpu_steps(cfg, model, batches, steps_lib, device,
             "card_metrics": card_m}
 
 
+def ulp_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How many float32 elements of `got` differ from `want`, and by how
+    many ulps at most (signed zeros one apart)."""
+    def ordered(t):
+        i = t.detach().float().cpu().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF) - 1, i)
+    d = (ordered(got) - ordered(want)).abs()
+    return {"elements": d.numel(), "differ": int((d != 0).sum()),
+            "max_ulps": int(d.max()) if d.numel() else 0}
+
+
+def update_card_vs_cpu(cfg, shapes, steps_lib, device, seed: int) -> dict:
+    """The optimizer's update (`steps.Optimizer`), the EMA's
+    (`xla_arith.ema_step`) and the PRN's Adam (`prn_train.adam_update`)
+    on the card (the kernels of csrc/train_update.cu) and on the CPU (the
+    plain versions) from identical float32 inputs (seeded parameters,
+    gradients, moments and EMA of the given parameter shapes, and of
+    `cfg`'s PRN): for each result, the elements that differ and the
+    largest gap in ulps. Two optimizer cases: the gradients' norm below
+    the clip at the end of the warmup, and above it late in the cosine.
+    Raises if any element or the global norm differs: both sides round
+    every operation once, as `xla_arith` says, and the norm's float64
+    sums, in two orders, round to one float32."""
+    from multiposenet_tpu_torch.train import prn_train, xla_arith
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(scale, like=shapes):
+        return [scale * torch.randn(s, generator=gen) for s in like]
+
+    def merge(rows):
+        return {"elements": sum(r["elements"] for r in rows),
+                "differ": sum(r["differ"] for r in rows),
+                "max_ulps": max(r["max_ulps"] for r in rows)}
+
+    cpu = torch.device("cpu")
+    opt = steps_lib.Optimizer(cfg)
+    t = cfg.train
+    out = {"params": sum(int(np.prod(s)) for s in shapes)}
+    for case, norm, count in (("below_clip", 0.3, t.warmup_steps),
+                              ("above_clip", 30.0, t.num_steps - 2)):
+        params, grads = draw(0.05), draw(1.0)
+        total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+        grads = [g * (norm * t.gradient_clip_norm / total) for g in grads]
+        mu, nu = draw(1e-3), [x.abs() for x in draw(1e-6)]
+        results = []
+        for where in (device, cpu):
+            p, m, v = ([x.clone().to(where) for x in xs]
+                       for xs in (params, mu, nu))
+            n = opt.update(p, [g.to(where) for g in grads], m, v, count)
+            results.append((p, m, v, n))
+        (cp, cm, cv, cn), (hp, hm, hv, hn) = results
+        out[f"optimizer_{case}"] = {
+            "count": count, "grad_norm_card": float(cn),
+            "grad_norm_cpu": float(hn),
+            "grad_norm": ulp_gap(cn, hn),
+            **{k: merge([ulp_gap(a, b) for a, b in zip(x, y)])
+               for k, x, y in (("params", cp, hp), ("mu", cm, hm),
+                               ("nu", cv, hv))}}
+    ema, params = draw(0.05), draw(0.05)
+    decay = steps_lib.ema_decay(cfg, 40)
+    results = []
+    for where in (device, cpu):
+        e = [x.clone().to(where) for x in ema]
+        xla_arith.ema_step(e, [x.to(where) for x in params], decay,
+                           steps_lib.ema_weight(decay))
+        results.append(e)
+    out["ema"] = merge([ulp_gap(a, b) for a, b in zip(*results)])
+    states = [prn_train.create_prn_state(cfg, where)
+              for where in (device, cpu)]
+    names = list(states[1].params)
+    like = [tuple(states[1].params[k].shape) for k in names]
+    mu, nu, grads = draw(1e-3, like), [x.abs() for x in draw(1e-6, like)], \
+        draw(1e-2, like)
+    with torch.no_grad():
+        for state in states:
+            state.step = 5
+            for k, m, v in zip(names, mu, nu):
+                state.mu[k].copy_(m)
+                state.nu[k].copy_(v)
+    for state in states:
+        where = state.params[names[0]].device
+        prn_train.adam_update(state, {k: g.to(where)
+                                      for k, g in zip(names, grads)})
+    out["prn_adam"] = merge(
+        [ulp_gap(states[0].params[k], states[1].params[k]) for k in names]
+        + [ulp_gap(states[0].mu[k], states[1].mu[k]) for k in names]
+        + [ulp_gap(states[0].nu[k], states[1].nu[k]) for k in names])
+    rows = {"ema": out["ema"], "prn_adam": out["prn_adam"]}
+    for case in ("optimizer_below_clip", "optimizer_above_clip"):
+        rows.update({f"{case}.{k}": out[case][k]
+                     for k in ("params", "mu", "nu", "grad_norm")})
+    parted = {k: r for k, r in rows.items() if r["differ"]}
+    if parted:
+        raise AssertionError(f"update card against CPU: {parted}")
+    return out
+
+
+def seeded_state(shapes, gen, device, scale: float) -> list[torch.Tensor]:
+    """Seeded float32 tensors of `shapes` on `device`, one element in 50
+    at a scale float32 holds only as a subnormal (which the update
+    flushes)."""
+    out = []
+    for shape in shapes:
+        x = scale * torch.randn(shape, generator=gen, device=device)
+        tiny = torch.rand(shape, generator=gen, device=device) < 0.02
+        out.append(torch.where(tiny, 1e-39 * torch.randn(
+            shape, generator=gen, device=device), x))
+    return out
+
+
+def update_gap(got: list[torch.Tensor], want: list[torch.Tensor]) -> dict:
+    """ulp_gap over tensor lists, and the largest absolute difference."""
+    rows = [ulp_gap(a, b) for a, b in zip(got, want)]
+    return {"elements": sum(r["elements"] for r in rows),
+            "differ": sum(r["differ"] for r in rows),
+            "max_ulps": max(r["max_ulps"] for r in rows),
+            "max_abs_err": max(float((a - b).abs().max())
+                               for a, b in zip(got, want))}
+
+
+def phase_train_update_kernel(Config, MultiPoseNet, prn_train, xla_arith,
+                              device) -> list[dict]:
+    """`adam_update` and `ema_update` (csrc/train_update.cu) at the main
+    path's shapes against their plain versions (`xla_arith`'s, run on the
+    card) on the same seeded inputs: Config()'s parameters with the
+    optimizer's clip and adamw decay, the norm above the clip, at count
+    3; the EMA at step 40; Config()'s PRN with plain adam. Held bit for
+    bit (tolerance 0: both round each operation once, as XLA's compiled
+    step does). Timed on CUDA events: the entry point (the gradients laid
+    end to end, the global norm where it clips, the launch), the plain
+    version, and torch's fused Adam / foreach lerp on the same tensors as
+    the library call (they compute the same update without the clip,
+    rounded their own way)."""
+    gen = torch.Generator(device=device).manual_seed(21)
+    cfg = Config()
+    t = cfg.train
+    model_shapes = [tuple(p.shape) for p in MultiPoseNet(cfg).parameters()]
+    prn_shapes = [tuple(p.shape) for p in
+                  prn_train.make_prn(cfg, torch.float32).parameters()]
+    adamw = xla_arith.Adam(count=3, lr=t.learning_rate,
+                           clip=t.gradient_clip_norm,
+                           weight_decay=t.weight_decay, nu_fuses_moment=True)
+    adam = xla_arith.Adam(count=3, lr=prn_train.ADAM_LR)
+    out, rows = {}, []
+    for name, shapes, hp in (("model", model_shapes, adamw),
+                             ("prn", prn_shapes, adam)):
+        params, grads, mu = (seeded_state(shapes, gen, device, s)
+                             for s in (0.05, 1e-2, 1e-3))
+        nu = [x.abs() for x in seeded_state(shapes, gen, device, 1e-6)]
+        runs = []
+        for fn in (xla_arith.adam_step, xla_arith.adam_step_plain):
+            state = [[x.clone() for x in xs] for xs in (params, mu, nu)]
+            norm = fn(state[0], grads, state[1], state[2], hp)
+            runs.append((state, norm))
+        torch.cuda.synchronize()
+        gaps = {k: update_gap(a, b) for k, a, b in zip(
+            ("params", "mu", "nu"), runs[0][0], runs[1][0])}
+        if hp.clip is not None:
+            gaps["grad_norm"] = update_gap([runs[0][1]], [runs[1][1]])
+        if any(g["differ"] for g in gaps.values()):
+            raise AssertionError(f"adam_update ({name}) differs from its "
+                                 f"plain version: {gaps}")
+        state = runs[0][0]
+        n = sum(x.numel() for x in params)
+        ms = cuda_ms(lambda: xla_arith.adam_step(
+            state[0], grads, state[1], state[2], hp), reps=10, rounds=5)
+        plain_ms = cuda_ms(lambda: xla_arith.adam_step_plain(
+            state[0], grads, state[1], state[2], hp), reps=2, rounds=3)
+        library = torch._fused_adamw_ if hp.weight_decay is not None \
+            else torch._fused_adam_
+        counts = [torch.tensor(3.0, device=device) for _ in params]
+        try:
+            library_ms = cuda_ms(lambda: library(
+                state[0], grads, state[1], state[2], [], counts, lr=hp.lr,
+                beta1=xla_arith.ADAM_B1, beta2=xla_arith.ADAM_B2,
+                weight_decay=hp.weight_decay or 0.0, eps=xla_arith.ADAM_EPS,
+                amsgrad=False, maximize=False), reps=10, rounds=5)
+        except (RuntimeError, TypeError) as exc:  # another torch's signature
+            library_ms = None
+            out[f"{name}_library_error"] = str(exc)[:200]
+        # Each of g, p, mu and nu read once, p, mu and nu written once;
+        # about 20 float32 operations an element (the norm's square and
+        # add, the clip, both moments, the direction, the decay, the step).
+        bytes_moved, ops = 28 * n, 20 * n
+        out[name] = {**out.get(name, {}), "tensors": len(shapes),
+                     "elements": n,
+                     "clip": hp.clip, "weight_decay": hp.weight_decay,
+                     "nu_fuses_moment": hp.nu_fuses_moment, **gaps,
+                     "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     "bytes": bytes_moved, "ops": ops}
+        del params, grads, mu, nu, runs, state
+    ema, params = (seeded_state(model_shapes, gen, device, 0.05)
+                   for _ in range(2))
+    # The EMA's decay and weight at step 40: (1 + 41) / (10 + 41).
+    decay = float(np.float32(42) / np.float32(51))
+    weight = float(np.float32(1) - np.float32(decay))
+    runs = []
+    for fn in (xla_arith.ema_step, xla_arith.ema_step_plain):
+        e = [x.clone() for x in ema]
+        fn(e, params, decay, weight)
+        runs.append(e)
+    torch.cuda.synchronize()
+    gap = update_gap(*runs)
+    if gap["differ"]:
+        raise AssertionError(f"ema_update differs from its plain version: "
+                             f"{gap}")
+    e = runs[0]
+    n = sum(x.numel() for x in params)
+    out["ema"] = {"tensors": len(model_shapes), "elements": n,
+                  "decay": decay, **gap,
+                  "ms": cuda_ms(lambda: xla_arith.ema_step(
+                      e, params, decay, weight), reps=10, rounds=5),
+                  "plain_ms": cuda_ms(lambda: xla_arith.ema_step_plain(
+                      e, params, decay, weight), reps=3, rounds=3),
+                  "library_ms": cuda_ms(lambda: torch._foreach_lerp_(
+                      e, params, weight), reps=10, rounds=5),
+                  "bytes": 12 * n, "ops": 3 * n}
+    emit({"phase": "train_update_kernel", "tolerance": "0 ulps",
+          "library": "torch._fused_adamw_ (model), torch._fused_adam_ "
+                     "(PRN), torch._foreach_lerp_ (EMA): no clip",
+          "clock": "CUDA events", **out})
+    for name, key in ((xla_arith.ADAM_KERNEL, "prn"),
+                      (xla_arith.EMA_KERNEL, "ema")):
+        r = out[key]
+        bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = r["ops"] / F32_OPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda",
+            "design": "one pass, a block per 1024 elements of one tensor "
+                      "(a table of the tensors), fmaf and flush in "
+                      "registers",
+            "source": "multiposenet_tpu_torch/csrc/train_update.cu",
+            "replaces": ("multiposenet_tpu/train/steps.py:223 and "
+                         "train/prn_train.py:186 (optax's update, "
+                         "XLA-fused, no Pallas kernel)"
+                         if key == "prn" else
+                         "multiposenet_tpu/train/steps.py:231 (the EMA, "
+                         "XLA-fused, no Pallas kernel)"),
+            "shapes": "Config()'s PRN" if key == "prn"
+                      else "Config()'s parameters",
+            "max_abs_err": r["max_abs_err"] if key == "ema" else max(
+                out[key][k]["max_abs_err"] for k in ("params", "mu", "nu")),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": r["library_ms"], "held_against_plain": True})
+    return rows
+
+
 def phase_train_parity(Config, MultiPoseNet, synthetic, loader, steps_lib,
                        device, card: str) -> dict:
     """The tiny config in float32, TF32 off: 3 steps on the card and 3 on
     the CPU from the same seeded weights and batches (`card_cpu_steps`).
     Then 20 steps with warmup 2 on one batch on the card: total_loss
-    falls by at least half."""
+    falls by at least half. Last, the optimizer's, the EMA's and the PRN
+    Adam's updates card against CPU on identical inputs of the tiny
+    model's shapes (`update_card_vs_cpu`), reported."""
     cfg = tiny_train_config(Config)
     records = synthetic.make_dataset(3 * TINY_BATCH, img_h=192, img_w=160,
                                      seed=5)
@@ -2718,9 +2976,13 @@ def phase_train_parity(Config, MultiPoseNet, synthetic, loader, steps_lib,
         curve.append(float(m["total_loss"]))
     if not (np.isfinite(curve).all() and curve[-1] <= 0.5 * curve[0]):
         raise AssertionError(f"train_parity: 20 steps on one batch: {curve}")
+    update = update_card_vs_cpu(
+        cfg, [tuple(p.shape) for p in model.parameters()], steps_lib,
+        device, seed=1)
     emit({"phase": "train_parity", "card": card, "config": "tiny f32",
           "image": TINY_IMAGE, "batch": TINY_BATCH, "tf32": False,
-          **parity, "fit_one_batch_total_loss": curve})
+          **parity, "fit_one_batch_total_loss": curve,
+          "update_card_vs_cpu": update})
     return {"steps": 3}
 
 
@@ -2779,7 +3041,8 @@ def timed_train(cfg, MultiPoseNet, synthetic, loader, steps_lib, device,
 def phase_train_default(Config, MultiPoseNet, synthetic, loader, steps_lib,
                         device, card: str) -> None:
     """Config() (the command line's default: float32, full width and
-    depth) at 512², batch 32: 2 warm-up and 5 timed steps."""
+    depth) at 512², batch 32: 2 warm-up and 5 timed steps; then
+    `update_card_vs_cpu` at Config()'s parameter shapes, reported."""
     flags = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
              "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     cfg = Config()
@@ -2787,9 +3050,13 @@ def phase_train_default(Config, MultiPoseNet, synthetic, loader, steps_lib,
         cfg.train, image_size=TRAIN_IMAGE, batch_size=TRAIN_BATCH))
     out = timed_train(cfg, MultiPoseNet, synthetic, loader, steps_lib,
                       device, 2, 5)
+    update = update_card_vs_cpu(
+        cfg, [tuple(p.shape) for p in MultiPoseNet(cfg).parameters()],
+        steps_lib, device, seed=2)
     emit({"phase": "train_default", "card": card, "config": "Config() f32",
           "image": TRAIN_IMAGE, "batch": TRAIN_BATCH, "tf32_flags": flags,
-          "clock": "CUDA events per step; loader on the host clock", **out})
+          "clock": "CUDA events per step; loader on the host clock", **out,
+          "update_card_vs_cpu": update})
 
 
 def phase_train_fast(Config, MultiPoseNet, synthetic, loader, steps_lib,
@@ -3075,6 +3342,10 @@ FAST_512_REFERENCE = {
     "e2e_512_pool256": {"AP": 0.710, "AP50": 0.935, "AP75": 0.768,
                         "AR": 0.748},
     "gtbox_512": {"AP": 0.907, "AP50": 1.0, "AP75": 1.0, "AR": 0.935}}
+# The port's own earlier reading of this part on an NVIDIA H100 80GB HBM3
+# at 700 W, before its optimizer, schedule and EMA rounded as the JAX
+# package's compiled step (PERF.md §6).
+FAST_512_EARLIER = {"e2e_512": {"AP": 0.669}, "gtbox_512": {"AP": 0.896}}
 
 
 def ap_gate_config(config):
@@ -3138,7 +3409,8 @@ def missed_floors(stats: dict, floors: dict) -> list[str]:
 def phase_train_to_ap(config, synthetic, loader, train_loop, prn_train,
                       steps_lib, weights, Predictor, oks, runner, tool512,
                       decode, kernels, device, directory: Path,
-                      card: str) -> dict:
+                      card: str, update_launches: dict | None = None
+                      ) -> dict:
     """Training to quality on the card from the port's own init, two
     parts. `train_to_ap_96`: the slow gate's recipe (its `_config()`, 64
     fixtures v1 scenes at 96², 500 steps through `train.loop.train`, 150
@@ -3149,8 +3421,13 @@ def phase_train_to_ap(config, synthetic, loader, train_loop, prn_train,
     eval scenes of 2-8, float32, bn_momentum 0.95) held to half of the
     JAX package's e2e and GT-box AP (FAST_512_FLOORS). B1 launches are
     counted from 0 at the start of each part (training launches none;
-    each eval `predict` and `predict_given_boxes` launches one). A missed
-    floor raises. Returns the launches by part."""
+    each eval `predict` and `predict_given_boxes` launches one); the
+    update kernels' launches, from 0 at part 1's start through its two
+    trainers, go into `update_launches` where given. A missed floor
+    raises. Returns the B1 launches by part."""
+    from multiposenet_tpu_torch.train import xla_arith
+
+    update_launches = {} if update_launches is None else update_launches
     flags = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
              "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     launches = {}
@@ -3176,6 +3453,9 @@ def phase_train_to_ap(config, synthetic, loader, train_loop, prn_train,
                                     device=device)
     torch.cuda.synchronize()
     prn_s = time.perf_counter() - t0
+    # The update kernels' launches on this path (the trainers' own).
+    for name in (xla_arith.ADAM_KERNEL, xla_arith.EMA_KERNEL):
+        update_launches[name] = kernels.LAUNCHES.get(name, 0)
     with steps_lib.ema_weights(state) as model:
         variables = weights.posenet_variables(model)
     pred = Predictor(cfg, variables=variables,
@@ -3197,6 +3477,8 @@ def phase_train_to_ap(config, synthetic, loader, train_loop, prn_train,
           "steps_per_s": r["steps"] / train_s, "train_s": train_s,
           "prn_s": prn_s, "eval_s": eval_s,
           "b1_launches": launches["train_to_ap_96"],
+          "update_launches": {name: update_launches[name] for name in (
+              xla_arith.ADAM_KERNEL, xla_arith.EMA_KERNEL)},
           "seconds": time.perf_counter() - t_phase,
           "clock": "host perf_counter, the card synchronized"})
     if missed:
@@ -3229,7 +3511,8 @@ def phase_train_to_ap(config, synthetic, loader, train_loop, prn_train,
           "eval_images": args.eval_images, "tf32_flags": flags,
           **{k: out[k] for k in ("e2e_512", "gtbox_512",
                                  "e2e_512_pool256")},
-          "reference": FAST_512_REFERENCE, "floors_AP": FAST_512_FLOORS,
+          "reference": FAST_512_REFERENCE, "earlier": FAST_512_EARLIER,
+          "floors_AP": FAST_512_FLOORS,
           "missed": missed,
           "last_metrics": next((m for m in reversed(lines)
                                 if "total_loss" in m), None),
@@ -3632,6 +3915,7 @@ def main() -> int:
         from multiposenet_tpu_torch.train import loop as train_loop
         from multiposenet_tpu_torch.train import prn_train
         from multiposenet_tpu_torch.train import steps as steps_lib
+        from multiposenet_tpu_torch.train import xla_arith
         from multiposenet_tpu_torch.utils import (image_codec, image_io, jpeg,
                                                   profiling, visualize)
     except ImportError as exc:
@@ -3665,7 +3949,9 @@ def main() -> int:
                                         device, ptxas),
             phase_tail_kernel(kp_tail, layers, device),
             phase_column_topk_kernel(column_topk, dbench2, kernels,
-                                     device, ptxas)]
+                                     device, ptxas),
+            *phase_train_update_kernel(Config, MultiPoseNet, prn_train,
+                                       xla_arith, device)]
     phase_parity_f32(Config, MultiPoseNet, folding, kp_tail, kernels,
                      image_ops, device)
     # Each path's launches, counted from 0 just before it runs.
@@ -3720,7 +4006,7 @@ def main() -> int:
         b1_paths.update(phase_train_to_ap(
             config_mod, synthetic, loader, train_loop, prn_train, steps_lib,
             weights, Predictor, oks, runner, train_synthetic_512, decode,
-            kernels, device, Path(directory), card))
+            kernels, device, Path(directory), card, launches))
         phase_train_ddp(Config, synthetic, loader, train_loop, mesh_lib,
                         device, card)
         phase_profile_train(Config, MultiPoseNet, synthetic, loader,

@@ -38,7 +38,7 @@ HOST_EXTRA_SOURCES = {"jpeg2000": ("jpeg2000_write.c",)}
 
 # Every kernel source in csrc/, by name.
 KERNEL_NAMES = ("decode_peaks", "decode_lanes", "decode_generic",
-                "kp_tail", "column_topk")
+                "kp_tail", "column_topk", "train_update")
 # Kernel launches by kernel name since the last reset_launches(), and by
 # (kernel name, CUDA device index).
 LAUNCHES: dict[str, int] = {}

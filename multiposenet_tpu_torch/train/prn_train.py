@@ -29,8 +29,10 @@ from multiposenet_tpu_torch.data import targets as targets_lib
 from multiposenet_tpu_torch.infer import predictor as predictor_lib
 from multiposenet_tpu_torch.models.prn import PRN
 from multiposenet_tpu_torch.ops import prn_ops
+from multiposenet_tpu_torch.train import xla_arith
 
-ADAM_LR, ADAM_B1, ADAM_B2, ADAM_EPS = 1e-3, 0.9, 0.999, 1e-8
+# optax.adam(1e-3); its b1, b2 and eps are `xla_arith`'s.
+ADAM_LR = 1e-3
 # The batch keys a PRN step reads.
 BATCH_KEYS = ("keypoints", "boxes", "valid", "iscrowd")
 
@@ -170,19 +172,16 @@ def create_prn_state(config: Config, device: str | torch.device = "cuda",
         nu={k: torch.zeros_like(v) for k, v in params.items()})
 
 
-@torch.no_grad()
 def adam_update(state: PRNTrainState, grads: dict[str, torch.Tensor]) -> None:
-    """optax.adam(1e-3) on the state's parameters, in place: the moments,
-    then p + (-lr) · (m / (1 - b1^n)) / (√(v / (1 - b2^n)) + eps) at
-    n = step + 1."""
-    n = state.step + 1
-    bc1, bc2 = 1.0 - ADAM_B1 ** n, 1.0 - ADAM_B2 ** n
-    for k, p in state.params.items():
-        g, mu, nu = grads[k], state.mu[k], state.nu[k]
-        mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
-        nu.mul_(ADAM_B2).add_(g * g, alpha=1.0 - ADAM_B2)
-        upd = (mu / bc1) / ((nu / bc2).sqrt() + ADAM_EPS)
-        p.add_(upd * -ADAM_LR)
+    """optax.adam(1e-3) on the state's parameters, in place, at count
+    step + 1, rounded as XLA compiles the JAX package's update
+    (`xla_arith.adam_step`)."""
+    names = list(state.params)
+    xla_arith.adam_step([state.params[k] for k in names],
+                        [grads[k] for k in names],
+                        [state.mu[k] for k in names],
+                        [state.nu[k] for k in names],
+                        xla_arith.Adam(count=state.step + 1, lr=ADAM_LR))
 
 
 def make_prn_train_step(config: Config):

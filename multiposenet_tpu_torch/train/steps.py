@@ -4,8 +4,12 @@ forward in training mode, the losses, the backward, then optax's
 `chain(clip_by_global_norm, adamw(warmup_cosine_decay_schedule))` and the
 EMA of the parameters with its warmup ramp.
 
-The optimizer is written out with `torch._foreach_*` in optax 0.2.6's
-order of operations, not through torch.optim, so that its traps hold:
+The optimizer and the EMA are written out, not taken from torch.optim:
+`xla_arith.adam_step` and `ema_step` round them as XLA compiles optax
+0.2.6's chain and the JAX step's EMA (folded constants, fused
+multiply-adds, subnormals flushed; float32 bit for bit with `jax.jit`,
+tests/test_torch_train_arith.py), in one kernel pass on the card, so
+that their traps hold:
 - the schedule's count starts at 0, so with `init_value` 0 the first
   update has lr 0: step 1 leaves the parameters as they are but moves the
   Adam moments, the batch statistics and the EMA;
@@ -56,9 +60,7 @@ from multiposenet_tpu_torch.ops.detection import (
 from multiposenet_tpu_torch.ops.image import normalize
 from multiposenet_tpu_torch.parallel import mesh
 from multiposenet_tpu_torch.train import losses as losses_lib
-
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-
+from multiposenet_tpu_torch.train import xla_arith
 
 @dataclasses.dataclass
 class TrainState:
@@ -109,38 +111,41 @@ class TrainState:
 def make_learning_rate(config: Config):
     """optax.warmup_cosine_decay_schedule(init_value=0, peak lr,
     warmup_steps, decay_steps=max(num_steps, warmup_steps + 1), end lr)
-    as a function of the update count (from 0), in float32 as optax
-    computes it."""
+    as a function of the update count (from 0), in float32 as XLA compiles
+    it into the JAX package's jitted step (`xla_arith`):
+    - warmup: 1 - c · f32(1 / warmup) and then · (-peak) + peak, each a
+      fused multiply-add;
+    - cosine: min(c, D) · f32(f32(π) · f32(1 / D)), glibc's cosf, + 1,
+      then · f32(0.5 · (1 - α)) + f32(α) fused, then · peak, where D is
+      the decay's length and α = end lr / peak."""
     t = config.train
     f32 = np.float32
     peak, warmup = t.learning_rate, t.warmup_steps
     decay_steps = max(t.num_steps, warmup + 1) - warmup
     alpha = 0.0 if peak == 0.0 else t.end_learning_rate / peak
-
-    def warmup_part(count: int) -> np.float32:
-        if warmup <= 0:
-            return f32(0.0)
-        c = f32(min(max(count, 0), warmup))
-        frac = f32(1) - c / f32(warmup)
-        return f32(f32(0.0 - peak) * frac + f32(peak))
-
-    def cosine_part(count: int) -> np.float32:
-        c = f32(min(float(count), float(decay_steps)))
-        cos = f32(0.5) * (f32(1) + np.cos(f32(math.pi) * c / f32(decay_steps),
-                                          dtype=f32))
-        return f32(f32(peak) * (f32(1 - alpha) * cos + f32(alpha)))
+    recip = float(f32(1) / f32(max(warmup, 1)))
+    top, slope = float(f32(peak)), float(f32(0.0 - peak))
+    angle = f32(f32(math.pi) * (f32(1) / f32(decay_steps)))
+    half_span = float(f32(0.5) * f32(1 - alpha))
+    floor = float(f32(alpha))
 
     def schedule(count: int) -> float:
         if count < warmup:
-            return float(warmup_part(count))
-        return float(cosine_part(count - warmup))
+            c = float(f32(min(max(count, 0), warmup)))
+            frac = xla_arith.fma_host(-c, recip, 1.0)
+            return float(xla_arith.fma_host(float(frac), slope, top))
+        c = min(f32(count - warmup), f32(decay_steps))
+        lift = f32(xla_arith.cosf(f32(c * angle)) + f32(1))
+        decayed = xla_arith.fma_host(float(lift), half_span, floor)
+        return float(f32(decayed * f32(top)))
 
     return schedule
 
 
 class Optimizer:
     """optax.chain(clip_by_global_norm(clip), adamw(schedule, wd)) over
-    named tensors, in place. `count` is the number of updates taken."""
+    named tensors, in place, rounded as the JAX package's compiled step
+    rounds it. `count` is the number of updates taken."""
 
     def __init__(self, config: Config):
         t = config.train
@@ -153,33 +158,9 @@ class Optimizer:
                count: int) -> torch.Tensor:
         """Apply one update; returns the gradients' global norm (before
         clipping) as a 0-d tensor."""
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
-        scale = torch.where(norm < self.clip, torch.ones_like(norm),
-                            self.clip / norm)
-        g = torch._foreach_mul(grads, scale)
-        torch._foreach_mul_(mu, ADAM_B1)
-        torch._foreach_add_(mu, g, alpha=1.0 - ADAM_B1)
-        torch._foreach_mul_(nu, ADAM_B2)
-        torch._foreach_addcmul_(nu, g, g, value=1.0 - ADAM_B2)
-        f, n = scalar_type(params[0]), count + 1
-        bc1 = float(f(1) - f(ADAM_B1) ** f(n))
-        bc2 = float(f(1) - f(ADAM_B2) ** f(n))
-        denom = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, ADAM_EPS)
-        upd = torch._foreach_div(mu, bc1)
-        torch._foreach_div_(upd, denom)
-        torch._foreach_add_(upd, params, alpha=self.wd)
-        lr = self.schedule(count)
-        torch._foreach_add_(params, upd, alpha=-lr)
-        return norm
-
-
-def scalar_type(param: torch.Tensor) -> type:
-    """The numpy type of the step's scalars for these parameters:
-    float64 for float64 ones, else float32."""
-    return np.float64 if param.dtype == torch.float64 else np.float32
+        return xla_arith.adam_step(params, grads, mu, nu, xla_arith.Adam(
+            count=count + 1, lr=self.schedule(count), clip=self.clip,
+            weight_decay=self.wd, nu_fuses_moment=True))
 
 
 def ema_decay(config: Config, step: int, f: type = np.float32) -> float:
@@ -354,13 +335,10 @@ def make_train_step(config: Config):
         grad_norm = opt.update(list(params), list(grads),
                                [state.mu[n] for n in names],
                                [state.nu[n] for n in names], state.step)
-        f = scalar_type(params[0])
+        f = xla_arith.scalar_type(params[0])
         decay = ema_decay(config, state.step, f)
-        with torch.no_grad():
-            ema = [state.ema_params[n] for n in names]
-            torch._foreach_mul_(ema, decay)
-            torch._foreach_add_(ema, list(params),
-                                alpha=ema_weight(decay, f))
+        xla_arith.ema_step([state.ema_params[n] for n in names],
+                           list(params), decay, ema_weight(decay, f))
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = grad_norm

@@ -8,7 +8,9 @@ architecture (Config()): its forward against the CPU, flip TTA decoding
 through B1, an exported model loaded onto the card, and B1 on Config()'s
 float32 maps; B4 (`csrc/column_topk.cu`, the decode micro-benchmark's
 per-column top-8 of the 3x3 peak mask) against its plain version on
-column 0 and on every column; the command line on the card: `eval
+column 0 and on every column; the train step's update
+(`csrc/train_update.cu`) against its plain version on the CPU, bit for
+bit; the command line on the card: `eval
 --batched` against the CPU's stats, on PNG scenes and on the committed
 JPEG fixtures (tests/fixtures/images), and `predict` without `--device`.
 Without a GPU every test here skips.
@@ -1298,3 +1300,66 @@ def test_sharded_runner_launches_on_every_card(cuda_device):
         want = pred.batch_forward(images)
         for k in want:
             assert torch.equal(got[k], want[k]), k
+
+
+def _update_state(gen, shapes, scale):
+    """Seeded float32 tensors, one element in 50 a float32 subnormal."""
+    out = []
+    for s in shapes:
+        x = scale * torch.randn(s, generator=gen)
+        tiny = torch.rand(s, generator=gen) < 0.02
+        out.append(torch.where(tiny, 1e-39 * torch.randn(s, generator=gen),
+                               x))
+    return out
+
+
+@pytest.mark.parametrize("case", ["adamw_above_clip", "adamw_below_clip",
+                                  "adam"])
+def test_train_update_kernels_equal_the_cpu(cuda_device, case):
+    """csrc/train_update.cu (`xla_arith.adam_step`, `ema_step` on the
+    card) against the plain versions on the CPU from the same float32
+    inputs, bit for bit: one launch each."""
+    from multiposenet_tpu_torch.train import xla_arith
+
+    gen = torch.Generator().manual_seed(5)
+    shapes = [(3,), (0,), (32, 3, 3, 3), (xla_arith.CHUNK + 7,), (64, 1000)]
+    params, grads, mu = (_update_state(gen, shapes, s)
+                         for s in (0.1, 1e-2, 1e-3))
+    nu = [x.abs() for x in _update_state(gen, shapes, 1e-6)]
+    hp = xla_arith.Adam(count=7, lr=1e-3)
+    if case != "adam":
+        hp = xla_arith.Adam(count=7, lr=1e-3, weight_decay=1e-4,
+                            clip=0.5 if case == "adamw_above_clip" else 50.0,
+                            nu_fuses_moment=True)
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        state = [[x.clone().to(device) for x in xs]
+                 for xs in (params, mu, nu)]
+        ema = [x.clone().to(device) for x in mu]
+        kernels.reset_launches()
+        norm = xla_arith.adam_step(state[0], [g.to(device) for g in grads],
+                                   state[1], state[2], hp)
+        xla_arith.ema_step(ema, state[0], 42 / 51, 9 / 51)
+        torch.cuda.synchronize()
+        runs.append(([x.cpu() for xs in state for x in xs]
+                     + [x.cpu() for x in ema],
+                     None if norm is None else norm.cpu(),
+                     dict(kernels.LAUNCHES)))
+    (got, gnorm, glaunch), (want, wnorm, wlaunch) = runs
+    assert glaunch == {xla_arith.ADAM_KERNEL: 1, xla_arith.EMA_KERNEL: 1}
+    assert wlaunch == {}
+    if case != "adam":
+        assert (float(wnorm) > hp.clip) == (case == "adamw_above_clip")
+        assert gnorm.view(torch.int32) == wnorm.view(torch.int32)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_train_update_kernel_refuses_float64_on_card(cuda_device):
+    from multiposenet_tpu_torch.train import xla_arith
+
+    xs = [torch.zeros(4, dtype=torch.float64, device=cuda_device)]
+    with pytest.raises(TypeError):
+        xla_arith.adam_step(xs, xs, xs, xs, xla_arith.Adam(count=1, lr=1.0))
+    with pytest.raises(TypeError):
+        xla_arith.ema_step(xs, xs, 0.5, 0.5)

@@ -23,9 +23,10 @@ step is held to its float64 one: 1e-4 on losses and batch statistics,
 
 Also held: BatchNorm's training forward, gradients and running statistics
 against flax's; the model in training mode against `apply(train=True,
-mutable=["batch_stats"])`; the schedule against optax; the optimizer
-update against optax from identical gradients and state (1e-6
-relative); the EMA ramp; and the eval step on the EMA parameters.
+mutable=["batch_stats"])`; the schedule against optax under jax.jit,
+bit for bit; the optimizer update against optax from identical
+gradients and state (1e-6 relative); the EMA ramp; and the eval step on
+the EMA parameters.
 """
 
 import dataclasses
@@ -337,18 +338,20 @@ def test_float32_step_stays_near_float64(run):
 @pytest.mark.parametrize("warmup,num_steps", [(2, 10), (0, 10), (5, 5),
                                               (1000, 150000)])
 def test_schedule_matches_optax(warmup, num_steps):
+    """Bit for bit with optax's schedule as the JAX step runs it, under
+    jax.jit (tests/test_torch_train_arith.py covers every count)."""
     cfg = _config("huber")
     cfg = cfg.replace(train=dataclasses.replace(
         cfg.train, warmup_steps=warmup, num_steps=num_steps))
-    want = jsteps.make_learning_rate(cfg)
+    want = jax.jit(jsteps.make_learning_rate(cfg))
     got = tsteps.make_learning_rate(torch_config_of(cfg))
     counts = sorted({*range(0, 12), warmup - 1, warmup, warmup + 1,
                      num_steps - 1, num_steps, num_steps + 7, 2 * num_steps})
     for c in counts:
         if c < 0:
             continue
-        np.testing.assert_allclose(got(c), float(want(c)), rtol=1e-6,
-                                   atol=1e-12, err_msg=str(c))
+        assert np.float32(got(c)) == np.asarray(
+            want(jnp.asarray(c, jnp.int32)), np.float32), c
     assert got(0) == 0.0 or warmup == 0
 
 

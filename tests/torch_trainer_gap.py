@@ -2,6 +2,7 @@
 the JAX smoke gate (tests/test_integration_smoke.py).
 
     python tests/torch_trainer_gap.py curves [--steps 16] [--port-schedule]
+    python tests/torch_trainer_gap.py onestep [--steps 100]
     python tests/torch_trainer_gap.py seeds [--seeds 0 1 2 3 4] [--procs 5]
 
 `curves` runs both training steps side by side, float64 all the way, from
@@ -17,9 +18,20 @@ Float64 all the way means:
   forms its scalars in float64;
 - the batches' float32 arrays as float64;
 - the one float32 left on both sides is optax's learning-rate schedule:
-  the port is handed the JAX package's compiled values, which differ from
-  the port's float32 schedule (optax's eager arithmetic) by a few float32
-  ulps at most counts. `--port-schedule` keeps the port's own instead.
+  the port is handed the JAX package's compiled values, which its own
+  float32 schedule now equals bit for bit (`--port-schedule` keeps the
+  port's own; the first line counts the counts where the two differ).
+
+`onestep` trains the JAX package in float32 at the smoke recipe from
+PRNGKey(0) on one device, and at every step k carries its whole state
+(parameters, batch statistics, Adam's moments, the EMA, the count) into
+the port and takes one port float32 step on the same batch. Beside it, the
+JAX step's own spread under another reduction order: the same step from
+the same state on the 8 host devices' data-parallel mesh. Each prints,
+per step, its relative gap to the one-device JAX step in every loss, the
+gradient norm and the batch statistics, and its parameter update's gap
+over the learning rate, |Δp - Δp_jax| / lr (largest and mean, and the
+tensor with the largest mean); a last line sums each up over the steps.
 
 `seeds` trains each package at the smoke recipe from PRNGKey(s), the port
 from the JAX init carried across (tests/torch_quality_helpers.py), each
@@ -55,6 +67,7 @@ import torch
 from multiposenet_tpu.data.loader import batch_iterator
 from multiposenet_tpu.data.synthetic import make_dataset
 from multiposenet_tpu.models import posenet as jposenet
+from multiposenet_tpu.parallel import mesh as jmesh
 from multiposenet_tpu.train import steps as jsteps
 from multiposenet_tpu_torch import weights
 from multiposenet_tpu_torch.models.posenet import MultiPoseNet
@@ -169,6 +182,108 @@ def curves(steps: int, port_schedule: bool = False, seed: int = 0
     return rows
 
 
+def _jax_step(cfg, devices: int):
+    """The JAX package's train step as its loop jits it, on a mesh of the
+    first `devices` devices, and a function that puts a batch there."""
+    mesh = jmesh.make_mesh(jax.devices()[:devices])
+    repl = jmesh.replicated(mesh)
+    step = jax.jit(jsteps.make_train_step(cfg),
+                   in_shardings=(repl, jmesh.batch_sharding(mesh)),
+                   out_shardings=(repl, repl))
+
+    def run(state, batch):
+        batch = jmesh.shard_batch({k: jnp.asarray(v)
+                                   for k, v in batch.items()}, mesh)
+        state, metrics = step(jmesh.replicate(state, mesh), batch)
+        return jax.device_get(state), {k: float(v) for k, v in
+                                       jax.device_get(metrics).items()}
+
+    return run
+
+
+def _carry(ts, state) -> None:
+    """The JAX package's float32 TrainState into the port's `ts`."""
+    weights.load_posenet(ts.model, {"params": state.params,
+                                    "batch_stats": state.batch_stats})
+    adam = state.opt_state[1][0]
+    with torch.no_grad():
+        for dest, tree in ((ts.ema_params, state.ema_params),
+                           (ts.mu, adam.mu), (ts.nu, adam.nu)):
+            for k, v in _port_names(tree).items():
+                dest[k].copy_(torch.as_tensor(v))
+    ts.step = int(state.step)
+
+
+def _gaps(metrics: dict, want_metrics: dict, before: dict, after: dict,
+          want_after: dict, stats: dict, want_stats: dict,
+          lr: float) -> dict:
+    """One step's gaps to the one-device JAX step (module docstring)."""
+    row = {k: abs(metrics[k] - w) / max(abs(w), 1e-30)
+           for k, w in want_metrics.items()}
+    row["batch_stats"] = _rel(stats, want_stats)
+    if lr > 0:
+        per = {k: np.abs((after[k] - before[k]) - (want_after[k]
+                                                   - before[k])) / lr
+               for k in before}
+        worst = max(per, key=lambda k: per[k].mean())
+        row["update_max"] = max(float(v.max()) for v in per.values())
+        row["update_mean"] = float(
+            sum(v.sum() for v in per.values())
+            / sum(v.size for v in per.values()))
+        row["update_worst_tensor"] = worst
+        row["update_worst_tensor_mean"] = float(per[worst].mean())
+    return row
+
+
+def onestep(steps: int, seed: int = 0) -> list[dict]:
+    """`onestep` (module docstring): one row a step, the last the
+    summary over the steps."""
+    cfg = quality.gate_config("smoke", seed)
+    records = quality.gate_records(make_dataset, 48, 0)
+    it = batch_iterator(records, 8, quality.SIZE, cfg.prn.max_persons,
+                        train=True, augment=False)
+    batches = [next(it) for _ in range(steps)]
+    one, eight = _jax_step(cfg, 1), _jax_step(cfg, 8)
+    schedule = jax.jit(jsteps.make_learning_rate(cfg))
+    tcfg = quality.gate_config("smoke", seed, package=quality.torch_config)
+    state = jax.device_get(jsteps.create_train_state(
+        cfg, jax.random.PRNGKey(seed)))
+    ts = tsteps.create_train_state(tcfg, model=MultiPoseNet(tcfg),
+                                   device=CPU)
+    tstep = tsteps.make_train_step(tcfg)
+    rows = []
+    for k, batch in enumerate(batches):
+        lr = float(schedule(jnp.asarray(k, jnp.int32)))
+        before = _port_names(state.params)
+        nxt, jm = one(state, batch)
+        want_after = _port_names(nxt.params)
+        want_stats = _port_stats(nxt.batch_stats)
+        e8, m8 = eight(state, batch)
+        _carry(ts, state)
+        ts, pm = tstep(ts, tsteps.batch_to(batch, CPU))
+        port = {k2: float(v) for k2, v in pm.items()}
+        rows.append({
+            "step": k + 1, "lr": lr,
+            "port": _gaps(port, jm, before, {
+                n: v.detach().numpy() for n, v in ts.params.items()},
+                want_after, {n: v.numpy() for n, v in
+                             ts.batch_stats.items()}, want_stats, lr),
+            "jax_8_devices": _gaps(m8, jm, before, _port_names(e8.params),
+                                   want_after, _port_stats(e8.batch_stats),
+                                   want_stats, lr)})
+        state = nxt
+    summary = {"summary": True, "steps": steps}
+    for run in ("port", "jax_8_devices"):
+        keys = [k for k, v in rows[-1][run].items()
+                if isinstance(v, float)]
+        summary[run] = {k: {"median": float(np.median(
+            [r[run][k] for r in rows if k in r[run]])),
+            "max": float(max(r[run][k] for r in rows if k in r[run]))}
+            for k in keys}
+    rows.append(summary)
+    return rows
+
+
 # The runs `seeds` takes: each package as the smoke gate trains it, and
 # one change of reduction order each (the JAX package on its 8-device
 # data-parallel mesh, as the slow gate trains; the port on 4 torch threads).
@@ -214,6 +329,8 @@ def main() -> None:
     c = sub.add_parser("curves")
     c.add_argument("--steps", type=int, default=16)
     c.add_argument("--port-schedule", action="store_true")
+    o = sub.add_parser("onestep")
+    o.add_argument("--steps", type=int, default=100)
     s = sub.add_parser("seeds")
     s.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3, 4])
     s.add_argument("--runs", nargs="+", default=["jax", "port"],
@@ -225,6 +342,11 @@ def main() -> None:
         torch.set_num_threads(1)
         print(json.dumps(schedule_ulps(quality.gate_config("smoke"))))
         for row in curves(args.steps, args.port_schedule):
+            print(json.dumps(row), flush=True)
+        return
+    if args.what == "onestep":
+        torch.set_num_threads(1)
+        for row in onestep(args.steps):
             print(json.dumps(row), flush=True)
         return
     import multiprocessing
