@@ -37,13 +37,16 @@ and libaom's film grain and segmentation (a `film-grain-test` still, an
 `aq-mode=1` sequence) (one launch each).
 Before them, phase `image_codec`
 builds the host C libraries (`csrc/image_codec.c`, `csrc/webp.c`,
-`csrc/jpeg2000.c`, `csrc/av1.c`) and holds their JPEG, WebP, TIFF (JPEG,
+`csrc/jpeg2000.c`, `csrc/av1.c`, `csrc/av1_encode.c`) and holds their
+JPEG, WebP, TIFF (JPEG,
 CCITT, CMYK, YCbCr, CIELab), Radiance HDR, JPEG 2000 and AVIF decodes
 and letterbox resize, and the plain versions, to cv2's digests of the
 committed fixtures (tests/fixtures/images), the
 HDR and GIF writers, C and plain, to cv2's bytes, the JPEG 2000 writer,
 C on every fixture of both sides at least 32 and the photo, plain on the
 smallest, to cv2's bytes (the JP2 boxes alone for the others), the
+AVIF writer, C on the photo, to cv2's bytes (the committed fixture), and
+plain = C on a crop, the
 lossless WebP
 writer, C and plain, to a round trip within 1.5 times cv2's size on each
 fixture, and recorded corruptions (changed scan bytes, stray bytes before
@@ -51,9 +54,10 @@ each JPEG header segment, every sampling factor of the block-smoothed
 files) to cv2's digests of them; after them, phase `eval_jpeg` runs `eval --batched` on those
 JPEGs (two launches), `predict` on the 480x640 JPEG with `--output` a
 PNG, `drawn.jpg`, `drawn.gif` (one launch each; each file the plain
-writer's bytes of the drawing) and `drawn.jp2` (one launch; the plain
-JPEG 2000 writer's bytes of the drawing), and checks that `--output
-drawn.avif` exits before the model runs. Then training, which
+writer's bytes of the drawing), `drawn.jp2` (one launch; the plain
+JPEG 2000 writer's bytes of the drawing) and `drawn.avif` (one launch;
+an in-process encode of the drawing, read back by the port's decoder).
+Then training, which
 reaches no TPU kernel (the fused tail is off in training and the decodes
 are inference only) but runs the update kernels: phase `train_parity`
 holds 3 steps of the tiny config in float32 on the card against the CPU
@@ -101,6 +105,7 @@ import functools
 import hashlib
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1686,6 +1691,12 @@ def sha256(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR in dB of uint8 pixels against others (inf where equal)."""
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
 def letterbox_size(h: int, w: int, s: int = 512) -> tuple[int, int]:
     """The eval runner's resize target (w, h) at model size s (the
     digests hold 512, the full-width models' size)."""
@@ -1720,7 +1731,7 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
     and the plain one (s), and the C and plain letterbox resize of it.
     The JPEG 2000 codestreams are held in `jpeg2000_checks`, the JPEG
     2000 writer in `jpeg2000_write_checks`, the AVIF files in
-    `avif_checks`."""
+    `avif_checks`, the AVIF writer in `avif_write_checks`."""
     t0 = time.perf_counter()
     image_codec.library()
     build_s = time.perf_counter() - t0
@@ -1824,6 +1835,7 @@ def phase_image_codec(image_io, image_codec, jpeg, card: str) -> None:
           "jpeg2000": jpeg2000_checks(image_io, digests, jpeg2000_build_s),
           "jpeg2000_write": jpeg2000_write_checks(image_io, digests, rgb),
           "avif": avif_checks(image_io, digests, avif_build_s),
+          "avif_write": avif_write_checks(image_io, rgb),
           "corrupt": corrupt_checks(image_io, image_codec, digests, data,
                                     rgb),
           "clock": "host perf_counter, median"})
@@ -2348,6 +2360,51 @@ def jpeg2000_write_checks(image_io, digests: dict, photo: np.ndarray) -> dict:
                         "plain_encode_s": plain_encode_s}}}
 
 
+AVIF_WRITE_PLAIN = (48, 80)  # the crop the plain AVIF writer encodes
+
+
+def avif_write_checks(image_io, photo: np.ndarray) -> dict:
+    """The AVIF writer (`utils/avif_write.py`: libavif 1.4.2 over libaom
+    3.14.1 at cv2's defaults, the encoder in the host C library
+    `csrc/av1_encode.c`): its build (cc, timed), then the 480x640
+    photo's pixels (the decoded JPEG fixture) written as .avif, byte for
+    byte the committed `avif_photo_480x640.avif`, which cv2.imencode
+    wrote of them, and read back by the port's decoder; a 48x80 crop of
+    them written by the C library and by the plain Python encoder, the
+    same bytes. Times on the host clock: the C encode of the photo
+    (median) and the plain encode of the crop."""
+    writer = image_io.avif_write
+    t0 = time.perf_counter()
+    writer.library()
+    build_s = time.perf_counter() - t0
+    want = (FIXTURES / AVIF_PREDICT).read_bytes()
+    data = image_io.encode_image(photo, ".avif")
+    if data != want:
+        raise AssertionError("image_codec: the .avif of the photo is not "
+                             f"cv2.imencode's {AVIF_PREDICT}")
+    if not np.array_equal(image_io.decode_image(data),
+                          image_io.read_image(FIXTURES / AVIF_PREDICT)):
+        raise AssertionError("image_codec: the .avif of the photo does not "
+                             "read back")
+    h, w = AVIF_WRITE_PLAIN
+    crop = np.ascontiguousarray(photo[100:100 + h, 200:200 + w])
+    t0 = time.perf_counter()
+    plain = image_io.encode_image_plain(crop, ".avif")
+    plain_s = time.perf_counter() - t0
+    if plain != image_io.encode_image(crop, ".avif"):
+        raise AssertionError("image_codec: the C and plain AVIF writers "
+                             "differ")
+    return {"build_s": build_s, "photo_bytes": len(data),
+            "equal": f"C = {AVIF_PREDICT} (cv2.imencode's bytes of the "
+                     "photo's pixels); plain = C on a 48x80 crop",
+            "times": {"photo": {"shape": list(photo.shape),
+                                "c_encode_ms": median_ms(
+                                    lambda: image_io.encode_image(
+                                        photo, ".avif"), 5)},
+                      "crop": {"shape": list(crop.shape),
+                               "plain_encode_s": plain_s}}}
+
+
 def image_format_checks(image_io, image_codec, rgb: np.ndarray) -> dict:
     """The simple formats and WebP on the host C libraries, from bytes the
     port writes itself (the card's machine has no cv2): the C and plain
@@ -2463,7 +2520,9 @@ def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
     of that drawing and reads back as its dithered palette colours),
     `--output drawn.jp2` (1 B1 launch, the file equals the plain JPEG 2000
     writer's bytes of that drawing and reads back) and `--output
-    drawn.avif`, which exits naming the suffix before the model runs. The batched eval runs over every visible card: its B1 launches
+    drawn.avif` (1 B1 launch, the file equals an in-process encode of
+    that drawing and the port's decoder reads it back at over 20 dB
+    PSNR of it). The batched eval runs over every visible card: its B1 launches
     are the batches times the cards. Returns B1's launches by command."""
     n_images = len(json.loads(
         (FIXTURES / "annotations.json").read_text())["images"])
@@ -2579,19 +2638,32 @@ def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
     if image_io.read_image(jp2_out).shape != jp2_drawing.shape:
         raise AssertionError("eval_jpeg: drawn.jp2 does not read back")
     launches["cli_predict_jp2_output"] = 1
-    kernels.reset_launches()
+
     avif_out = directory / "drawn.avif"
-    try:
-        cli_stdout(cli, ["predict", "--model-dir", str(directory), "--image",
-                         str(image_path), "--output", str(avif_out)])
-    except SystemExit as exc:
-        message = str(exc.code)
-    else:
-        raise AssertionError("eval_jpeg: --output drawn.avif did not exit")
-    if ".avif" not in message or "JPEG 2000" not in message \
-            or kernels.LAUNCHES or avif_out.exists():
-        raise AssertionError(f"eval_jpeg: --output drawn.avif: {message!r}, "
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    text = cli_stdout(cli, ["predict", "--model-dir", str(directory),
+                            "--image", str(image_path), "--output",
+                            str(avif_out)])
+    if kernels.LAUNCHES != {decode.KERNEL: 1}:
+        raise AssertionError(f"eval_jpeg: predict --output drawn.avif "
                              f"launches {kernels.LAUNCHES}")
+    avif_drawing = visualize.draw_predictions(image, [
+        argparse.Namespace(box=np.asarray(p["box"]), score=p["score"],
+                           keypoints=np.asarray(p["keypoints"]))
+        for p in json.loads(text)])
+    avif_bytes = avif_out.read_bytes()
+    if avif_bytes != image_io.encode_image(avif_drawing, ".avif"):
+        raise AssertionError("eval_jpeg: drawn.avif is not the AVIF of the "
+                             "drawing of the printed people")
+    avif_back = image_io.read_image(avif_out)
+    if avif_back.shape != avif_drawing.shape:
+        raise AssertionError("eval_jpeg: drawn.avif does not read back")
+    avif_psnr = psnr(avif_back, avif_drawing)
+    if not avif_psnr > 20.0:
+        raise AssertionError(f"eval_jpeg: drawn.avif reads back at "
+                             f"{avif_psnr:.1f} dB of the drawing")
+    launches["cli_predict_avif_output"] = 1
     emit({"phase": "eval_jpeg", "card": card, "argv": argv,
           "images": n_images, "stats": stats, "launches": counted,
           "eval_command_s": eval_s,
@@ -2602,7 +2674,8 @@ def phase_eval_jpeg(cli, image_io, visualize, jpeg, decode, kernels,
           "output_gif_bytes": len(gif_bytes),
           "output_jp2_bytes": len(jp2_bytes),
           "output_jp2_plain_encode_s": jp2_plain_s,
-          "output_avif_exit": message})
+          "output_avif_bytes": len(avif_bytes),
+          "output_avif_psnr_db": avif_psnr})
     return launches
 
 

@@ -171,17 +171,18 @@ def cmd_eval(args) -> None:
 
 def cmd_predict(args) -> None:
     from multiposenet_tpu_torch.utils.image_io import (
-        UNWRITTEN_SUFFIXES, WRITTEN_SUFFIXES, read_image, write_image)
+        PNG_SUFFIXES, UNWRITTEN_SUFFIXES, WRITTEN_SUFFIXES, read_image,
+        write_image)
     from multiposenet_tpu_torch.utils.visualize import draw_predictions
 
     suffix = Path(args.output).suffix.lower() if args.output else None
-    known = (".png", ".jpg", ".jpeg", ".jpe", *WRITTEN_SUFFIXES,
+    known = (*PNG_SUFFIXES, ".jpg", ".jpeg", ".jpe", *WRITTEN_SUFFIXES,
              *UNWRITTEN_SUFFIXES)
     if args.output and suffix not in known:
         shown = Path(args.output).suffix or "none"
         sys.exit(f"--output {args.output}: suffix {shown} is not written "
                  "here; PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF, "
-                 "WebP, Radiance HDR, GIF and JPEG 2000 (.jp2) are")
+                 "WebP, Radiance HDR, GIF, JPEG 2000 (.jp2) and AVIF are")
     predictor = _load_predictor(args)
     try:
         rgb = read_image(args.image)
@@ -254,9 +255,9 @@ def main(argv=None) -> None:
                    help="JPEG, PNG, WebP, BMP, Netpbm, Sun raster, TIFF, "
                    "GIF, Radiance HDR or .npy image")
     p.add_argument("--output", help="write the visualization here, as "
-                   "cv2.imwrite writes it (.png, .jpg, .bmp, .ppm, .pam, "
-                   ".pfm, .sr, .tif, .webp, .hdr, .gif and their other "
-                   "suffixes)")
+                   "cv2.imwrite writes it (.png, .apng, .jpg, .bmp, .ppm, "
+                   ".pam, .pfm, .sr, .tif, .webp, .hdr, .gif, .jp2, .avif "
+                   "and their other suffixes)")
     p.set_defaults(fn=cmd_predict)
 
     args = parser.parse_args(argv)

@@ -91,6 +91,9 @@ NAMED = [
     ("eob_group_start", "av1_eob_group_start", "i16", (12,)),
     ("eob_offset_bits", "av1_eob_offset_bits", "i16", (12,)),
     ("iwt_matrix", "iwt_matrix_ref", "u8", (15, 2, 3344)),
+    ("wt_matrix", "wt_matrix_ref", "u8", (15, 2, 3344)),
+    ("prob_cost", "av1_prob_cost", "u16", (128,)),
+    ("scan_lp_16x16", "default_scan_lp_16x16_transpose", "i16", (256,)),
     ("ext_tx_inv", "av1_ext_tx_inv", "i32", (6, 16)),
     ("ext_tx_used", "av1_ext_tx_used", "i32", (6, 16)),
     ("ss_size_lookup", "av1_ss_size_lookup", "u8", (22, 2, 2)),

@@ -698,6 +698,7 @@ class _Tile:
         self.above_ctx = [[0] * (f.mi_cols + 64) for _ in range(f.planes)]
         self.left_ctx = [[0] * 32 for _ in range(3)]
         self.decoded = [[[0] * 34 for _ in range(34)] for _ in range(3)]
+        self.record = None  # a list: each block's decisions (`record`)
 
     def inside(self, r: int, c: int) -> bool:
         return (self.col_start <= c < self.col_end
@@ -1130,6 +1131,7 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
     eob = cul = dc_val = 0
     tx_type = DCT_DCT
     coef = [0] * (cw * ch)
+    signed = [0] * (cw * ch) if t.record is not None else None
     if not all_zero:
         inter = t.use_intrabc
         tx_set = _tx_set_type_inter(tx, hdr.reduced_tx_set) if inter \
@@ -1273,6 +1275,8 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
                 level += x - 1
             if c == 0:
                 dc_val = -level if sign else level
+            if signed is not None:
+                signed[pos] = -level if sign else level
             level &= 0xFFFFF
             cul += level
             dqv = dq_ac if pos else dq_dc
@@ -1291,6 +1295,9 @@ def _read_coeffs(t: _Tile, plane: int, x4: int, y4: int, tx: int):
         lctx[lbase + k] = cul if y4 + k < max_y4 else 0
     if plane == 0:
         f.tx_type[y4:y4 + h4, x4:x4 + w4] = tx_type
+    if signed is not None:
+        t.record[-1]["coeffs"][plane].append((tx_type, signed) if eob
+                                             else None)
     return eob, tx_type, coef
 
 
@@ -2037,6 +2044,12 @@ def _decode_block(t: _Tile, r: int, c: int, bsize: int) -> None:
     f.is_inter[r:r1, c:c1] = t.use_intrabc
     f.mvs[r:r1, c:c1] = t.mv if t.use_intrabc else (0, 0)
     f.written[r:r1, c:c1] = True
+    if t.record is not None:
+        t.record.append({"r": r, "c": c, "bsize": bsize, "y_mode": t.y_mode,
+                         "uv_mode": t.uv_mode, "angles": (t.angle_y,
+                                                          t.angle_uv),
+                         "tx": t.tx_size, "q": t.current_q,
+                         "coeffs": [[], [], []]})
     _residual(t)
 
 
@@ -2937,15 +2950,20 @@ def film_grain(g, y: np.ndarray, u, v, bd: int, ssx: int, ssy: int,
 
 
 def decode_planes_plain(frame, cdef: bool = True, restoration: bool = True,
-                        grain: bool = True):
+                        grain: bool = True, record: list | None = None):
     """(Y, U, V) of an `avif.Frame` (U, V None when monochrome), uint8 at
     8 bits, else uint16 at the stream's depth, with the frame's film
     grain added; without `cdef`, the deblocked frame, before CDEF and
     loop restoration; without `restoration`, the frame before loop
     restoration; without `grain`, the frame before its film grain
-    (stages for the tests)."""
+    (stages for the tests). A `record` list gets each block's decisions
+    as a dict in coding order (position, size, modes, angle deltas, luma
+    transform size, qindex and, by plane, each transform block's (type,
+    signed levels by position) or None where none is coded), what the
+    encoder's tile writer takes back (`av1_encode.decisions`)."""
     f = _Frame(frame)
     t = _Tile(f)
+    t.record = record
     h = f.h
     for tr in range(h.tile_rows):
         for tc in range(h.tile_cols):

@@ -81,10 +81,13 @@ format; any other bytes by one that names the suffix.
 RGB as an 8-bit PNG; `encode_image` writes the bytes `cv2.imencode`
 writes for .bmp/.dib, .ppm/.pnm, .pam, .pfm, .sr/.ras, .tif/.tiff,
 .hdr/.pic, .gif (`utils/gif.py`: cv2's fixed 3-3-2 palette with its
-Floyd-Steinberg dithering) and .jp2 (`utils/jpeg2000_write.py`: OpenJPEG
-2.5.3 at cv2's defaults, its rate allocation included), and for .webp a
+Floyd-Steinberg dithering), .jp2 (`utils/jpeg2000_write.py`: OpenJPEG
+2.5.3 at cv2's defaults, its rate allocation included) and .avif
+(`utils/avif_write.py`: libavif 1.4.2 over libaom 3.14.1 at cv2's
+defaults, the encoder's decisions included), and for .webp a
 lossless file of cv2's pixels (host C; `encode_image_plain` runs the
-modules' plain writers);
+modules' plain writers); .apng is written as .png, as cv2's APNG
+encoder writes one still image;
 `decode_gray_png` reads a gray PNG as `cv2.imdecode(buf,
 cv2.IMREAD_GRAYSCALE)` does. `resize_linear` is cv2's INTER_LINEAR and
 `resize_area` its INTER_AREA, bit for bit through the C library where
@@ -107,9 +110,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multiposenet_tpu_torch.utils import (avif, bmp, gif, hdr, image_codec,
-                                          jpeg, jpeg2000, jpeg2000_write, pxm,
-                                          sunras, tiff, webp)
+from multiposenet_tpu_torch.utils import (avif, avif_write, bmp, gif, hdr,
+                                          image_codec, jpeg, jpeg2000,
+                                          jpeg2000_write, pxm, sunras, tiff,
+                                          webp)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NPY_MAGIC = b"\x93NUMPY"
@@ -123,7 +127,11 @@ WRITTEN_SUFFIXES = {".bmp": "bmp", ".dib": "bmp", ".ppm": "ppm",
                     ".pnm": "ppm", ".pam": "pam", ".pfm": "pfm",
                     ".sr": "sunras", ".ras": "sunras", ".tif": "tiff",
                     ".tiff": "tiff", ".webp": "webp", ".hdr": "hdr",
-                    ".pic": "hdr", ".gif": "gif", ".jp2": "jp2"}
+                    ".pic": "hdr", ".gif": "gif", ".jp2": "jp2",
+                    ".avif": "avif"}
+# Suffixes cv2.imwrite writes as a PNG (its APNG encoder writes one still
+# image as the PNG encoder does).
+PNG_SUFFIXES = (".png", ".apng")
 # Suffixes for which cv2.imwrite of 3-channel pixels returns False and
 # writes no file.
 UNWRITTEN_SUFFIXES = (".pgm", ".pbm")
@@ -546,7 +554,8 @@ def encode_image(rgb: np.ndarray, suffix: str) -> bytes:
     """uint8 RGB [H, W, 3] → the bytes `cv2.imencode(suffix, bgr)` writes
     for a suffix of `WRITTEN_SUFFIXES` (host C; .hdr and .pic through
     `utils/hdr.py`'s coders, .gif through `utils/gif.py`'s, .jp2 through
-    `utils/jpeg2000_write.py`'s), but for the pad byte after a Sun
+    `utils/jpeg2000_write.py`'s, .avif through `utils/avif_write.py`'s),
+    but for the pad byte after a Sun
     raster's last row (see `utils/sunras.py`); for .webp a lossless file
     that cv2 reads back to the same pixels (`utils/webp.py`)."""
     kind = WRITTEN_SUFFIXES[suffix.lower()]
@@ -556,6 +565,8 @@ def encode_image(rgb: np.ndarray, suffix: str) -> bytes:
         return gif.encode(rgb)
     if kind == "jp2":
         return jpeg2000_write.encode(rgb)
+    if kind == "avif":
+        return avif_write.encode(rgb)
     return image_codec.encode_image(rgb, kind)
 
 
@@ -573,13 +584,16 @@ def encode_image_plain(rgb: np.ndarray, suffix: str) -> bytes:
         return gif.encode_plain(rgb)
     if kind == "jp2":
         return jpeg2000_write.encode_plain(rgb)
+    if kind == "avif":
+        return avif_write.encode_plain(rgb)
     return {"bmp": bmp, "sunras": sunras, "tiff": tiff}[kind].encode(rgb)
 
 
 def write_image(path: str | Path, rgb: np.ndarray) -> bool:
     """uint8 RGB [H, W, 3] → a file, as `cv2.imwrite(path, bgr)` writes it
-    for .png (an 8-bit PNG) and .webp (lossless; for both cv2's bytes
-    differ, its pixels do not), the JPEG suffixes and `WRITTEN_SUFFIXES`;
+    for .png and .apng (an 8-bit PNG) and .webp (lossless; for these cv2's
+    bytes differ, its pixels do not), the JPEG suffixes and
+    `WRITTEN_SUFFIXES`;
     for .pgm and .pbm it writes nothing and returns False, as cv2.imwrite
     does for 3-channel pixels, and so for a .webp wider or taller than
     16383 pixels and a .gif wider or taller than 65535; for a .jp2
@@ -590,7 +604,7 @@ def write_image(path: str | Path, rgb: np.ndarray) -> bool:
     suffix = Path(path).suffix.lower()
     if suffix in UNWRITTEN_SUFFIXES:
         return False
-    if suffix == ".png":
+    if suffix in PNG_SUFFIXES:
         write_png(path, rgb)
     elif suffix in (".jpg", ".jpeg", ".jpe"):
         write_jpeg(path, rgb)

@@ -368,15 +368,15 @@ def test_predict_on_a_gif_cv2_refuses_exits_in_both_clis(workdir, tmp_path):
                         str(image)] + extra)
 
 
-@pytest.mark.parametrize("output", ["drawn.avif", "drawn"])
+@pytest.mark.parametrize("output", ["drawn.exr", "drawn"])
 def test_predict_output_other_than_png_exits(workdir, tmp_path, monkeypatch,
                                              output):
     """The reference writes by suffix through cv2.imwrite; the port
-    writes PNG, JPEG, BMP, PPM/PNM, PAM, PFM, Sun raster, TIFF, WebP,
-    Radiance HDR, GIF and JPEG 2000 (.jp2) (and, as cv2, no file for .pgm
-    and .pbm), so on any other suffix (only AVIF writing remains C9b) it
-    exits naming the suffix before the model is loaded, and writes
-    nothing."""
+    writes every suffix cv2 5.0 writes (PNG and APNG, JPEG, BMP, PPM/PNM,
+    PAM, PFM, Sun raster, TIFF, WebP, Radiance HDR, GIF, JPEG 2000 (.jp2)
+    and AVIF, and, as cv2, no file for .pgm and .pbm), so on any other
+    suffix (.exr, which cv2 is built without, or none) it exits naming
+    the suffix before the model is loaded, and writes nothing."""
     from multiposenet_tpu_torch.infer import export as port_export
 
     def no_model(*args, **kwargs):
@@ -491,6 +491,73 @@ def test_predict_output_jp2_matches_jax_cli_bytes(workdir, tmp_path,
                     workdir["image_jpeg"], "--output", str(files[name])]
              + extra)
     assert files["port"].read_bytes() == files["jax"].read_bytes()
+
+
+def test_predict_output_avif_matches_jax_cli_bytes(workdir, tmp_path,
+                                                   monkeypatch):
+    """`--output drawn.avif`: the port writes the bytes cv2.imwrite writes
+    for its drawing of the printed people, and, with each drawing replaced
+    by the input image (as the JPEG test does), the same file as the JAX
+    CLI, byte for byte."""
+    from multiposenet_tpu.utils import visualize as jax_visualize
+
+    path = tmp_path / "drawn.avif"
+    text = _run(cli.main, ["predict", "--model-dir", workdir["model"],
+                           "--image", workdir["image_jpeg"], "--output",
+                           str(path), "--device", "cpu"])
+    people = [_person(p) for p in json.loads(text)]
+    assert people
+    drawn = visualize.draw_predictions(
+        image_io.read_image(workdir["image_jpeg"]), people)
+    ok, want = cv2.imencode(".avif", np.ascontiguousarray(drawn[:, :, ::-1]))
+    assert ok and path.read_bytes() == want.tobytes()
+    for module in (jax_visualize, visualize):
+        monkeypatch.setattr(module, "draw_predictions",
+                            lambda rgb, people: rgb.copy())
+    files = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        files[name] = tmp_path / f"{name}.avif"
+        _run(main, ["predict", "--model-dir", workdir["model"], "--image",
+                    workdir["image_jpeg"], "--output", str(files[name])]
+             + extra)
+    assert files["port"].read_bytes() == files["jax"].read_bytes()
+
+
+def test_predict_output_apng_matches_jax_cli_pixels(workdir, tmp_path,
+                                                    monkeypatch):
+    """`--output drawn.apng`: cv2.imwrite writes a PNG for the suffix
+    (its APNG encoder writes one still image as the PNG encoder does), so
+    the port writes its PNG, which cv2 reads back to the port's drawing of
+    the printed people; with each drawing replaced by the input image (as
+    the JPEG test does), cv2 reads the port's file and the JAX CLI's to the
+    same pixels."""
+    from multiposenet_tpu.utils import visualize as jax_visualize
+
+    path = tmp_path / "drawn.apng"
+    text = _run(cli.main, ["predict", "--model-dir", workdir["model"],
+                           "--image", workdir["image_jpeg"], "--output",
+                           str(path), "--device", "cpu"])
+    people = [_person(p) for p in json.loads(text)]
+    assert people
+    drawn = visualize.draw_predictions(
+        image_io.read_image(workdir["image_jpeg"]), people)
+    assert path.read_bytes().startswith(image_io.PNG_SIGNATURE)
+    np.testing.assert_array_equal(
+        cv2.imread(str(path), cv2.IMREAD_COLOR)[:, :, ::-1], drawn)
+    for module in (jax_visualize, visualize):
+        monkeypatch.setattr(module, "draw_predictions",
+                            lambda rgb, people: rgb.copy())
+    files = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        files[name] = tmp_path / f"{name}.apng"
+        _run(main, ["predict", "--model-dir", workdir["model"], "--image",
+                    workdir["image_jpeg"], "--output", str(files[name])]
+             + extra)
+    np.testing.assert_array_equal(
+        cv2.imread(str(files["port"]), cv2.IMREAD_COLOR),
+        cv2.imread(str(files["jax"]), cv2.IMREAD_COLOR))
 
 
 def test_predict_output_jp2_under_32_pixels_in_both_clis(workdir, tmp_path,
@@ -765,9 +832,11 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     `corrupt` part), the photo encodes to cv2's digest (JPEG, and GIF with
     every fixture, and JPEG 2000 with every fixture of both sides at
     least 32), the AVIF files decode through the C and plain decoders, and
-    the JPEG eval and the four predicts count their B1 launches (2, 1, 1,
-    1 and 1) as the card's wrapper would, the third writing `drawn.gif`,
-    the fourth `drawn.jp2`; `--output drawn.avif` exits."""
+    the JPEG eval and the five predicts count their B1 launches (2, 1, 1,
+    1, 1 and 1) as the card's wrapper would, the third writing
+    `drawn.gif`, the fourth `drawn.jp2`, the fifth `drawn.avif`; the AVIF
+    writer encodes the photo to the committed cv2 file, C and plain
+    equal on a crop."""
     from multiposenet_tpu_torch import kernels
     from multiposenet_tpu_torch.config import Config
     from multiposenet_tpu_torch.eval import runner
@@ -803,7 +872,8 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert paths == {"eval_jpeg_batched": 2, "cli_predict_jpeg": 1,
                      "cli_predict_jpeg_output": 1,
                      "cli_predict_gif_output": 1,
-                     "cli_predict_jp2_output": 1}
+                     "cli_predict_jp2_output": 1,
+                     "cli_predict_avif_output": 1}
     codec, jpeg_row = lines[0], lines[-1]
     assert codec["phase"] == "image_codec" and len(codec["fixtures"]) == 116
     assert codec["webp"]["fixtures_written"] == 116
@@ -855,7 +925,13 @@ def test_chip_smoke_image_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert all(avif["fixtures"][n]["plain_decode_s"] > 0
                for n in avif["plain_on"])
     assert jpeg_row["phase"] == "eval_jpeg" and jpeg_row["images"] == 10
-    assert ".avif" in jpeg_row["output_avif_exit"]
+    assert jpeg_row["output_avif_bytes"] > 0
+    assert jpeg_row["output_avif_psnr_db"] > 20
+    avif_write = codec["avif_write"]
+    assert avif_write["build_s"] > 0 and avif_write["photo_bytes"] == len(
+        (smoke.FIXTURES / smoke.AVIF_PREDICT).read_bytes())
+    assert avif_write["times"]["photo"]["c_encode_ms"] > 0
+    assert avif_write["times"]["crop"]["plain_encode_s"] > 0
     assert jpeg_row["output_jp2_bytes"] > 0
     assert jpeg_row["output_gif_bytes"] > 0
     assert jpeg_row["output_jpg_bytes"] > 0
